@@ -6,8 +6,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. builds every CUDA kernel of the port from ``incubator_mxnet_tpu_torch/
    csrc/`` (``nvcc``, into ``build/torch_kernels/``) and prints the build
    time and each kernel's register / shared-memory report;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the serving path, in float32 and bfloat16;
+2. holds each kernel against its plain PyTorch version on the card, in
+   float32 and bfloat16: the forward kernels at the shapes of the serving
+   path, the training kernels (flash-attention backward, fused residual +
+   dropout + LayerNorm forward and backward, LayerNorm backward, dropout)
+   at the shapes of the BERT-base training step, dropout masks bit for
+   bit;
 3. checks the end-to-end output on a small input (a tiny GPT on the card
    against the same weights on the CPU) and then serves three requests
    with ``gpt2_small`` at full width (768 units, 12 layers, 12 heads,
@@ -15,21 +19,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    counting each kernel's launches in that run, and compares the logits
    with the same path on the plain versions, teacher-forced on the
    kernel path's tokens;
-4. times each kernel, its plain version and one PyTorch library call
+4. checks one BERT-base training step at full width (8 x 512 tokens,
+   ragged ``valid_length``, dropout 0.1) on the kernels against the same
+   step on the plain versions: same weights, same dropout keys, loss and
+   every gradient;
+5. trains BERT-base MLM as the reference's ``bench.py`` does (batch 64 x
+   sequence 128, dropout 0.1, ``Trainer`` with Adam at lr 1e-4, softmax
+   cross-entropy): 2 warm-up and 10 timed steps, with each kernel's
+   launches counted per step, a falling loss required, and the device's
+   busy time of one step from ``torch.profiler``;
+6. times each kernel, its plain version and one PyTorch library call
    that computes the same function (a yardstick the port never calls),
    with CUDA events over CUDA-graph replays whose inputs cycle through
-   copies larger than the L2 cache, beside the least time the card could
-   take for the same work.
+   copies larger than the L2 cache (a library backward pass: its
+   forward-and-backward minus its forward), beside the least time the
+   card could take for the same work.
 
 Everything it has to say comes on earlier lines: the card's name and
-power limit (``nvidia-smi``), one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
-prints no result; so does a run without a CUDA device, or one outside a
-checkout of the repository. TF32 is off for matmuls and cuDNN.
+power limit (``nvidia-smi``), ``{"train": ...}`` and ``{"serve": ...}``
+lines, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``. Any failed phase exits non-zero and prints no result;
+so does a run without a CUDA device, or one outside a checkout of the
+repository. TF32 is off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -57,6 +73,36 @@ LOGIT_REL_TOL = 1e-3
 REQUESTS = [(8, 100, 64), (4, 500, 32), (1, 1000, 16)]  # (batch, prompt, new)
 ATTN_T = (128, 512, 1000)
 N, H, D, C, LAYERS, VOCAB = 8, 12, 64, 768, 12, 50257
+
+# the training slice: BERT-base (bench.py `bench_bert_train`)
+BERT_VOCAB, FFN = 30522, 3072
+TRAIN_B, TRAIN_T, TRAIN_P, TRAIN_LR = 64, 128, 0.1, 1e-4
+WARMUP, STEPS = 2, 10
+ROWS = TRAIN_B * TRAIN_T                       # 8192 rows of C
+CHECK_B, CHECK_T = 8, 512                      # the train-step check
+# flash-attention backward, float32: |kernel - plain| of dq, dk, dv.
+# Each is a sum over up to T = 1000 keys or rows of f32 products taken in
+# another order (64-wide tiles vs one product); at these inputs
+# (unit-normal q, k, v, dO) the gradients reach a few units, so their
+# last bits are ~1e-6 and 1e-4 leaves two orders of magnitude.
+ATTN_BWD_TOL = 1e-4
+# LayerNorm / fused-block backward, float32: dx and dh are row sums over
+# C = 768 in another order, like the forward: LN_TOL. dgamma and dbeta
+# sum over all 8192 rows: see `ops.layer_norm.column_sum_tol`.
+# The train-step check, float32: the loss within 1e-5 of itself; every
+# gradient within 1e-3 of its own largest magnitude (12 layers of f32
+# backward through kernels whose sums run in another order than the
+# plain versions', each layer moving the last bits of its inputs).
+LOSS_REL_TOL = 1e-5
+GRAD_REL_TOL = 1e-3
+# kernel launches of one training step of BERT-base with dropout:
+# K5 = 1 embedding + 12 attention-output + 12 FFN-hidden sites, forward
+# and backward; a K2 call launches 3 kernels (delta, dq, dk/dv), a K4b or
+# K3 backward call 2 (row kernel, dgamma/dbeta reduction)
+STEP_LAUNCHES = {"K1": 12, "K2": 12 * 3, "K4": 2, "K4b": 2 * 2, "K3f": 24,
+                 "K3b": 24 * 2, "K5": 50}
+FWD_LAUNCHES = {"K1": 12, "K2": 0, "K4": 2, "K4b": 0, "K3f": 24, "K3b": 0,
+                "K5": 25}
 
 
 def log(*args):
@@ -134,6 +180,14 @@ def bound(bytes_moved, flops, dtype):
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def live_share(lengths, t):
+    """The share of rows (or keys) that ``lengths`` leaves live: a kernel
+    need not read the inputs of the others."""
+    if lengths is None:
+        return 1.0
+    return float(lengths.double().sum()) / (lengths.numel() * t)
 
 
 def phase_build():
@@ -379,8 +433,10 @@ def phase_times(torch, attn, lns):
             flops = 4 * N * H * t * t * D / (2 if c["causal"] else 1)
         else:  # rows and keys past each length are not needed
             flops = 4 * H * D * float((c["lengths"].double() ** 2).sum())
+        # q, k, v read where live; o and lse written in full
+        live = live_share(c["lengths"], t)
         c["bound_ms"], c["bound_by"] = bound(
-            4 * N * H * t * D * item + N * H * t * 4, flops, dt)
+            (3 * live + 1) * N * H * t * D * item + N * H * t * 4, flops, dt)
         log(f"[time] K1 T={t} {dt} lengths={c['lengths'] is not None}: "
             f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
             f"sdpa {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
@@ -407,6 +463,516 @@ def phase_times(torch, attn, lns):
             f"{c['bound_ms'] / c['ms']:.3f}")
 
 
+def _counters():
+    """The port's launch counters: name -> (module, attribute)."""
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+
+    return {"K1": (fa, "launches"), "K2": (fa, "bwd_launches"),
+            "K4": (ln, "launches"), "K4b": (ln, "bwd_launches"),
+            "K3f": (fb, "launches"), "K3b": (fb, "bwd_launches"),
+            "K5": (dp, "launches")}
+
+
+def reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def train_attn_cases(torch, dev):
+    """K2 inputs as the BERT-base step gives them: q, k, v strided views of
+    one (B, T, 3, H, d) projection output ("bthd"), not causal, without and
+    with lengths; plus a causal T = 1000 case, which GPT training hits."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, causal, with_len in ((TRAIN_B, TRAIN_T, False, False),
+                                       (TRAIN_B, TRAIN_T, False, True),
+                                       (N, 1000, True, False)):
+            g = torch.Generator(device=dev).manual_seed(t + with_len)
+            qkv = torch.randn(b, t, 3, H, D, generator=g, device=dev)
+            do = torch.randn(b, t, H, D, generator=g, device=dev)
+            lens = (torch.randint(1, t + 1, (b,), generator=g, device=dev)
+                    if with_len else None)
+            cases.append(dict(base=qkv.to(dtype), do=do.to(dtype),
+                              lengths=lens, causal=causal, b=b, t=t,
+                              dtype=dtype))
+    return cases
+
+
+def train_row_cases(torch, dev):
+    """(8192, 768) rows as the BERT-base step's LayerNorm and residual
+    sites give them, f32 and bf16; K3 at p = 0.1 and p = 0."""
+    k3, k4b = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(17)
+        x = torch.randn(ROWS, C, generator=g, device=dev) + 0.3
+        h = torch.randn(ROWS, C, generator=g, device=dev)
+        dy = torch.randn(ROWS, C, generator=g, device=dev)
+        gamma = 1 + 0.3 * torch.randn(C, generator=g, device=dev)
+        beta = 0.3 * torch.randn(C, generator=g, device=dev)
+        t = dict(x=x.to(dtype), h=h.to(dtype), dy=dy.to(dtype),
+                 gamma=gamma.to(dtype), beta=beta.to(dtype), dtype=dtype)
+        for p in (TRAIN_P, 0.0):
+            k3.append(dict(t, p=p, key=(1234567, 7654321)))
+        k4b.append(dict(t))
+    return k3, k4b
+
+
+def train_dropout_cases(torch, dev):
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for cols in (C, FFN):
+            g = torch.Generator(device=dev).manual_seed(cols)
+            x = torch.randn(ROWS, cols, generator=g, device=dev)
+            cases.append(dict(x=x.to(dtype), cols=cols, dtype=dtype,
+                              key=(2718281828, 3141592653), p=TRAIN_P))
+    return cases
+
+
+def _log_check(tag, what, c, ok, err, rel, tol):
+    log(f"[{tag}] {what}: max|d|={err:.3e} "
+        f"({tol_text(_dt(c['dtype']), tol)}: {'ok' if ok else 'EXCEEDED'}),"
+        f" |d|/|plain|={rel:.3e}")
+    check(ok, f"{tag} {what} disagrees with plain")
+
+
+def _column_check(tag, what, c, got, ref, terms):
+    """dgamma/dbeta: float32 within column_sum_tol of each column;
+    bfloat16 by the elementwise rule."""
+    import torch
+
+    from incubator_mxnet_tpu_torch.ops.layer_norm import column_sum_tol
+
+    d = (got.float() - ref.float()).abs()
+    rel = (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
+    if c["dtype"] == torch.bfloat16:
+        ok, err, rel = agree(got, ref, 0.0)
+        _log_check(tag, what, c, ok, err, rel, 0.0)
+        return err
+    tol = column_sum_tol(terms, ROWS)
+    ok = bool((d <= tol).all())
+    log(f"[{tag}] {what}: max|d|={d.max().item():.3e} (tol per column "
+        f"{tol.min().item():.2e}..{tol.max().item():.2e}: "
+        f"{'ok' if ok else 'EXCEEDED'}), |d|/|plain|={rel:.3e}")
+    check(ok, f"{tag} {what} disagrees with plain")
+    return d.max().item()
+
+
+def phase_train_kernels_vs_plain(torch, dev):
+    """The training kernels against their plain versions at the shapes of
+    the BERT-base step; dropout masks bit for bit."""
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+
+    attn = train_attn_cases(torch, dev)
+    for c in attn:
+        q, k, v = c["base"].unbind(2)
+        kw = dict(lengths=c["lengths"], causal=c["causal"], layout="bthd")
+        o, lse = fa.flash_attention_with_lse(q, k, v, impl="kernel", **kw)
+        c.update(o=o, lse=lse)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, c["do"], impl="kernel",
+                                     **kw)
+        ref = fa.flash_attention_bwd(q, k, v, o, lse, c["do"], impl="plain",
+                                     **kw)
+        torch.cuda.synchronize()
+        what = (f"B={c['b']} T={c['t']} {_dt(c['dtype'])} "
+                f"causal={c['causal']} lengths={c['lengths'] is not None}")
+        errs = []
+        for name, gt, rf in zip(("dq", "dk", "dv"), got, ref):
+            check(bool(torch.isfinite(gt.float()).all()),
+                  f"K2 {name} not finite")
+            ok, err, rel = agree(gt, rf, ATTN_BWD_TOL)
+            _log_check("K2", f"{what} {name} (max|plain|="
+                       f"{rf.float().abs().max().item():.2f})", c, ok, err,
+                       rel, ATTN_BWD_TOL)
+            errs.append((err, rel))
+        c["max_abs_err"] = max(e for e, _ in errs)
+        c["norm_rel_err"] = max(r for _, r in errs)
+
+    k3, k4b = train_row_cases(torch, dev)
+    for c in k3:
+        args = (c["x"], c["h"], c["gamma"], c["beta"], c["key"], c["p"])
+        y, m, r = fb.residual_dropout_ln_fwd(*args, impl="kernel")
+        yp, mp, rp = fb.residual_dropout_ln_fwd(*args, impl="plain")
+        bargs = (c["x"], c["h"], c["dy"], mp, rp, c["gamma"], c["key"],
+                 c["p"])
+        got = fb.residual_dropout_ln_bwd(*bargs, impl="kernel")
+        ref = fb.residual_dropout_ln_bwd(*bargs, impl="plain")
+        torch.cuda.synchronize()
+        what = f"({ROWS}, {C}) {_dt(c['dtype'])} p={c['p']}"
+        ok, err, rel = agree(y, yp, LN_TOL)
+        serr = max((m - mp).abs().max().item(), (r - rp).abs().max().item())
+        _log_check("K3 fwd", f"{what} y", c, ok and serr <= STATS_TOL, err,
+                   rel, LN_TOL)
+        log(f"[K3 fwd] {what} max|stats-plain|={serr:.3e} "
+            f"(tol {STATS_TOL:g})")
+        c["fwd_err"], c["fwd_rel"] = err, rel
+        errs = []
+        for name, gt, rf in zip(("dx", "dh"), got[:2], ref[:2]):
+            ok, err, rel = agree(gt, rf, LN_TOL)
+            _log_check("K3 bwd", f"{what} {name}", c, ok, err, rel, LN_TOL)
+            errs.append(err)
+        s = c["x"].float() + fb._dropped(c["h"], c["key"], c["p"])
+        xhat = (s - mp[:, None]) * rp[:, None]
+        dyf = c["dy"].float()
+        errs.append(_column_check("K3 bwd", f"{what} dgamma", c, got[2],
+                                  ref[2], (dyf * xhat).abs().sum(0)))
+        errs.append(_column_check("K3 bwd", f"{what} dbeta", c, got[3],
+                                  ref[3], dyf.abs().sum(0)))
+        c["bwd_err"], c["bwd_rel"] = max(errs), rel
+        if c["p"] > 0:  # the kernel's mask is the plain Philox mask
+            keep = ph.keep_mask((ROWS, C), c["key"], c["p"], device=dev)
+            same = torch.equal(got[1] != 0, keep & (ref[1] != 0))
+            log(f"[K3 bwd] {what} mask (dh != 0) equals the plain Philox "
+                f"mask: {same}")
+            check(same, "K3 mask differs from the plain Philox mask")
+
+    for c in k4b:
+        _, mp, rp = ln.layer_norm_fwd(c["x"], c["gamma"], c["beta"],
+                                      impl="plain")
+        c.update(mean=mp, rstd=rp)
+        bargs = (c["x"], c["dy"], mp, rp, c["gamma"])
+        got = ln.layer_norm_bwd(*bargs, impl="kernel")
+        ref = ln.layer_norm_bwd(*bargs, impl="plain")
+        torch.cuda.synchronize()
+        what = f"({ROWS}, {C}) {_dt(c['dtype'])}"
+        ok, err, rel = agree(got[0], ref[0], LN_TOL)
+        _log_check("K4b", f"{what} dx", c, ok, err, rel, LN_TOL)
+        xhat = (c["x"].float() - mp[:, None]) * rp[:, None]
+        dyf = c["dy"].float()
+        errs = [err,
+                _column_check("K4b", f"{what} dgamma", c, got[1], ref[1],
+                              (dyf * xhat).abs().sum(0)),
+                _column_check("K4b", f"{what} dbeta", c, got[2], ref[2],
+                              dyf.abs().sum(0))]
+        c["max_abs_err"], c["norm_rel_err"] = max(errs), rel
+
+    drop = train_dropout_cases(torch, dev)
+    for c in drop:
+        y = dp.dropout_fwd(c["x"], c["key"], c["p"], impl="kernel")
+        yp = dp.dropout_fwd(c["x"], c["key"], c["p"], impl="plain")
+        torch.cuda.synchronize()
+        keep = ph.keep_mask(c["x"].shape, c["key"], c["p"], device=dev)
+        same = torch.equal(y, yp)
+        mask = torch.equal(y != 0, keep & (c["x"] != 0))
+        log(f"[K5] ({ROWS}, {c['cols']}) {_dt(c['dtype'])} p={c['p']}: "
+            f"output equals plain bit for bit: {same}; mask equals the "
+            f"plain Philox mask: {mask}; kept "
+            f"{keep.float().mean().item():.5f}")
+        check(same and mask, "K5 disagrees with plain")
+        c["max_abs_err"] = (y.float() - yp.float()).abs().max().item()
+        c["norm_rel_err"] = 0.0
+    return attn, k3, k4b, drop
+
+
+def phase_train_step_check(torch, dev):
+    """One BERT-base step at full width on the kernels against the same
+    step on the plain versions: same weights, same dropout keys."""
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+
+    models = {impl: bert_base(dropout=TRAIN_P, device=dev, seed=21,
+                              impl=impl).train()
+              for impl in ("auto", "plain")}
+    models["plain"].load_state_dict(models["auto"].state_dict())
+    g = torch.Generator(device=dev).manual_seed(5)
+    tok = torch.randint(0, BERT_VOCAB, (CHECK_B, CHECK_T), generator=g,
+                        device=dev)
+    lab = torch.randint(0, BERT_VOCAB, (CHECK_B, CHECK_T), generator=g,
+                        device=dev)
+    vl = torch.randint(CHECK_T // 2, CHECK_T + 1, (CHECK_B,), generator=g,
+                       device=dev)
+    ce = SoftmaxCrossEntropyLoss()
+    out = {}
+    for impl, model in models.items():
+        mxrandom.seed(99)
+        reset_counts()
+        loss = ce(model(tok, valid_length=vl)[0], lab).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), read_counts(),
+                     {n: p.grad for n, p in model.named_parameters()
+                      if p.grad is not None})
+    (lk, ck, gk), (lp, cp, gp) = out["auto"], out["plain"]
+    log(f"[check] BERT-base {CHECK_B} x {CHECK_T}, valid_length "
+        f"{vl.tolist()}, dropout {TRAIN_P}: launches with kernels {ck}, "
+        f"with plain versions {cp}")
+    check(ck == STEP_LAUNCHES and not any(cp.values()),
+          "train-step check: unexpected launch counts")
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(set(gk) == set(gp), "train-step check: gradients differ in names")
+    worst, worst_name = 0.0, None
+    for name in gp:
+        scale = gp[name].abs().max().item()
+        rel = (gk[name] - gp[name]).abs().max().item() / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[check] loss kernels {lk:.6f} vs plain {lp:.6f} "
+        f"(|d|/|plain| {loss_rel:.2e}, tol {LOSS_REL_TOL:g}); {len(gp)} "
+        f"gradients, worst max|d| / max|plain| {worst:.2e} ({worst_name}; "
+        f"tol {GRAD_REL_TOL:g})")
+    check(loss_rel <= LOSS_REL_TOL and worst <= GRAD_REL_TOL,
+          "train-step check: the kernels' step disagrees with the plain one")
+    return dict(batch=CHECK_B, seq=CHECK_T, valid_length=vl.tolist(),
+                loss_kernels=lk, loss_plain=lp, loss_rel_err=loss_rel,
+                grad_worst_rel_err=worst, grad_worst_param=worst_name,
+                n_grads=len(gp))
+
+
+def _device_ms(prof):
+    """Sum of the device time of the kernels, copies and sets in a
+    profiler trace, in ms (one stream, so their sum is the busy time)."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def phase_train(torch, dev):
+    """The bench.py BERT-base training workload, 2 warm-up + 10 timed
+    steps, launch counts per step, and one profiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+
+    model = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
+                      seed=0).train()
+    trainer = Trainer(model.named_parameters(), Adam(learning_rate=TRAIN_LR))
+    ce = SoftmaxCrossEntropyLoss()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def step(fwd_counts=None):
+        model.zero_grad(set_to_none=True)
+        loss = ce(model(tokens)[0], labels)
+        if fwd_counts is not None:
+            fwd_counts.append(read_counts())
+        loss.backward(torch.ones_like(loss))
+        trainer.step(TRAIN_B)
+        return loss
+
+    mxrandom.seed(0)
+    losses, times, per_step = [], [], []
+    for i in range(WARMUP + STEPS):
+        fwd = []
+        reset_counts()
+        start = time.perf_counter()
+        loss = step(fwd)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        counts = read_counts()
+        losses.append(loss.mean().item())
+        check(fwd[0] == FWD_LAUNCHES and counts == STEP_LAUNCHES,
+              f"train step {i}: launches {fwd[0]} after the forward, "
+              f"{counts} after the step; expected {FWD_LAUNCHES}, "
+              f"{STEP_LAUNCHES}")
+        per_step.append(counts)
+    timed = sorted(times[WARMUP:])
+    med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
+    totals = {k: sum(c[k] for c in per_step[WARMUP:]) for k in STEP_LAUNCHES}
+    log(f"[train] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam "
+        f"lr {TRAIN_LR}, {n_params} parameters: step ms "
+        + ", ".join(f"{t:.1f}" for t in times)
+        + f" ({WARMUP} warm-up); loss " + ", ".join(f"{v:.4f}"
+                                                    for v in losses))
+    log(f"[train] launches per step {STEP_LAUNCHES} (forward "
+        f"{FWD_LAUNCHES}): every step as expected")
+    check(all(math.isfinite(v) for v in losses), "non-finite loss")
+    check(losses[-1] < losses[WARMUP], "the loss did not fall")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    dev_ms = _device_ms(prof)
+    tokens_s = TRAIN_B * TRAIN_T / (med / 1e3)
+    flops_token = 6.0 * n_params + 12.0 * 12 * TRAIN_T * C
+    share = flops_token * tokens_s / PEAK_FLOPS["float32"]
+    idle = 1 - dev_ms / med if dev_ms > 0 else None
+    log(f"[train] median step {med:.2f} ms, {tokens_s:.1f} tokens/s, "
+        f"model FLOPs {flops_token:.4g}/token -> share of the f32 peak "
+        f"{share:.4f}; device busy {dev_ms:.2f} ms of a step "
+        f"(torch.profiler) -> idle share "
+        + (f"{idle:.4f}" if idle is not None else "not measured"))
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    for e in top[:14]:
+        log(f"[train]   {getattr(e, 'self_device_time_total', 0) / 1e3:8.3f}"
+            f" ms x{e.count:4d}  {e.key[:90]}")
+    del model, trainer
+    return dict(batch=TRAIN_B, seq=TRAIN_T, dropout=TRAIN_P, lr=TRAIN_LR,
+                params=n_params, step_ms=times, warmup=WARMUP,
+                median_step_ms=med, tokens_per_s=tokens_s,
+                flops_per_token=flops_token, f32_peak_share=share,
+                device_ms_per_step=dev_ms, idle_share=idle, losses=losses,
+                launches_per_step=STEP_LAUNCHES), totals
+
+
+def phase_times_train(torch, attn, k3, k4b, drop):
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+
+    for c in attn:
+        kw = dict(lengths=c["lengths"], causal=c["causal"], layout="bthd")
+
+        def run(base, do, o, lse, impl, kw=kw):
+            fa.flash_attention_bwd(*base.unbind(2), o, lse, do, impl=impl,
+                                   **kw)
+
+        sets = input_sets([c["base"], c["do"], c["o"], c["lse"]], 10)
+        c["ms"] = time_ms(lambda *a: run(*a, "kernel"), sets, 10)
+        c["plain_ms"] = time_ms(lambda *a: run(*a, "plain"), sets, 3)
+        mask = None
+        if c["lengths"] is not None:
+            mask = (torch.arange(c["t"], device=c["base"].device)[None, :]
+                    < c["lengths"][:, None])[:, None, None, :]
+
+        def lib(base, do, *_, backward=True, c=c, mask=mask):
+            leaf = base.detach().requires_grad_()
+            q, k, v = (t.transpose(1, 2) for t in leaf.unbind(2))
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                 is_causal=c["causal"])
+            if backward:
+                torch.autograd.grad(out, leaf, do.transpose(1, 2))
+
+        c["library_ms"] = (time_ms(lib, sets, 10) - time_ms(
+            lambda *a: lib(*a, backward=False), sets, 10))
+        t, b, item = c["t"], c["b"], c["base"].element_size()
+        if c["lengths"] is None:
+            flops = 5 * 2 * b * H * t * t * D / (2 if c["causal"] else 1)
+        else:
+            flops = 5 * 2 * H * D * float((c["lengths"].double() ** 2).sum())
+        # q, k, v, o, dO read where live; dq, dk, dv, lse and delta in full
+        live = live_share(c["lengths"], t)
+        c["bound_ms"], c["bound_by"] = bound(
+            (5 * live + 3) * b * t * H * D * item + 2 * b * H * t * 4, flops,
+            _dt(c["dtype"]))
+        log(f"[time] K2 B={b} T={t} {_dt(c['dtype'])} causal={c['causal']} "
+            f"lengths={c['lengths'] is not None}: kernel {c['ms']:.4f} ms, "
+            f"plain {c['plain_ms']:.4f} ms, sdpa backward "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}), roofline share "
+            f"{c['bound_ms'] / c['ms']:.3f}")
+
+    for c in k3:
+        gm, bt, key, p = c["gamma"], c["beta"], c["key"], c["p"]
+        item, dt = c["x"].element_size(), _dt(c["dtype"])
+        sets = input_sets([c["x"], c["h"]], 20)
+        c["ms"] = time_ms(lambda x, h: fb.residual_dropout_ln_fwd(
+            x, h, gm, bt, key, p, impl="kernel"), sets, 20)
+        c["plain_ms"] = time_ms(lambda x, h: fb.residual_dropout_ln_fwd(
+            x, h, gm, bt, key, p, impl="plain"), sets, 5)
+        c["library_ms"] = time_ms(lambda x, h: F.layer_norm(
+            x + F.dropout(h, p, training=True), (C,), gm, bt, 1e-5), sets,
+            20)
+        c["bound_ms"], c["bound_by"] = bound(
+            3 * ROWS * C * item + 8 * ROWS + 2 * C * item, 10 * ROWS * C, dt)
+        _, m, r = fb.residual_dropout_ln_fwd(c["x"], c["h"], gm, bt, key, p,
+                                             impl="plain")
+        bsets = input_sets([c["x"], c["h"], c["dy"]], 20)
+        c["bwd_ms"] = time_ms(lambda x, h, dy: fb.residual_dropout_ln_bwd(
+            x, h, dy, m, r, gm, key, p, impl="kernel"), bsets, 20)
+        c["bwd_plain_ms"] = time_ms(
+            lambda x, h, dy: fb.residual_dropout_ln_bwd(
+                x, h, dy, m, r, gm, key, p, impl="plain"), bsets, 5)
+
+        def lib(x, h, dy, backward=True):
+            xl, hl = x.detach().requires_grad_(), h.detach().requires_grad_()
+            gl, bl = gm.detach().requires_grad_(), bt.detach().requires_grad_()
+            y = F.layer_norm(xl + F.dropout(hl, p, training=True), (C,), gl,
+                             bl, 1e-5)
+            if backward:
+                torch.autograd.grad(y, (xl, hl, gl, bl), dy)
+
+        c["bwd_library_ms"] = (time_ms(lib, bsets, 20) - time_ms(
+            lambda *a: lib(*a, backward=False), bsets, 20))
+        c["bwd_bound_ms"], c["bwd_bound_by"] = bound(
+            5 * ROWS * C * item + 8 * ROWS + 3 * C * item, 16 * ROWS * C, dt)
+        log(f"[time] K3 ({ROWS}, {C}) {dt} p={p}: forward kernel "
+            f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, composed "
+            f"F.dropout+add+F.layer_norm {c['library_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+            f"{c['bound_ms'] / c['ms']:.3f}; backward kernel "
+            f"{c['bwd_ms']:.4f} ms, plain {c['bwd_plain_ms']:.4f} ms, "
+            f"composed autograd {c['bwd_library_ms']:.4f} ms, bound "
+            f"{c['bwd_bound_ms']:.4f} ms ({c['bwd_bound_by']}), share "
+            f"{c['bwd_bound_ms'] / c['bwd_ms']:.3f}")
+
+    for c in k4b:
+        gm, m, r = c["gamma"], c["mean"], c["rstd"]
+        item, dt = c["x"].element_size(), _dt(c["dtype"])
+        sets = input_sets([c["x"], c["dy"]], 20)
+        c["ms"] = time_ms(lambda x, dy: ln.layer_norm_bwd(
+            x, dy, m, r, gm, impl="kernel"), sets, 20)
+        c["plain_ms"] = time_ms(lambda x, dy: ln.layer_norm_bwd(
+            x, dy, m, r, gm, impl="plain"), sets, 5)
+
+        def lib(x, dy, backward=True, c=c):
+            xl = x.detach().requires_grad_()
+            gl = c["gamma"].detach().requires_grad_()
+            bl = c["beta"].detach().requires_grad_()
+            y = F.layer_norm(xl, (C,), gl, bl, 1e-5)
+            if backward:
+                torch.autograd.grad(y, (xl, gl, bl), dy)
+
+        c["library_ms"] = (time_ms(lib, sets, 20) - time_ms(
+            lambda *a: lib(*a, backward=False), sets, 20))
+        c["bound_ms"], c["bound_by"] = bound(
+            3 * ROWS * C * item + 8 * ROWS + 3 * C * item, 12 * ROWS * C, dt)
+        log(f"[time] K4b ({ROWS}, {C}) {dt}: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, F.layer_norm backward "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}), roofline share "
+            f"{c['bound_ms'] / c['ms']:.3f}")
+
+    for c in drop:
+        key, p = c["key"], c["p"]
+        sets = input_sets([c["x"]], 20)
+        c["ms"] = time_ms(lambda x: dp.dropout_fwd(x, key, p, impl="kernel"),
+                          sets, 20)
+        c["plain_ms"] = time_ms(lambda x: dp.dropout_fwd(
+            x, key, p, impl="plain"), sets, 5)
+        c["library_ms"] = time_ms(lambda x: F.dropout(x, p, training=True),
+                                  sets, 20)
+        numel, item = c["x"].numel(), c["x"].element_size()
+        c["bound_ms"], c["bound_by"] = bound(2 * numel * item, numel,
+                                             _dt(c["dtype"]))
+        log(f"[time] K5 ({ROWS}, {c['cols']}) {_dt(c['dtype'])}: kernel "
+            f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, F.dropout "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}), roofline share "
+            f"{c['bound_ms'] / c['ms']:.3f}")
+
+
 def _case_row(c, shape):
     return dict(shape=shape, dtype=_dt(c["dtype"]),
                 max_abs_err=c["max_abs_err"],
@@ -415,7 +981,20 @@ def _case_row(c, shape):
                 bound_by=c["bound_by"], library_ms=c["library_ms"])
 
 
-def kernels_line(attn, lns, launches):
+def _k3_view(c, bwd):
+    """A K3 case's forward or backward numbers under the common keys."""
+    pre = "bwd_" if bwd else ""
+    return dict(dtype=c["dtype"], max_abs_err=c["bwd_err" if bwd else
+                                                 "fwd_err"],
+                norm_rel_err=c["bwd_rel" if bwd else "fwd_rel"],
+                ms=c[pre + "ms"], plain_ms=c[pre + "plain_ms"],
+                bound_ms=c[pre + "bound_ms"], bound_by=c[pre + "bound_by"],
+                library_ms=c[pre + "library_ms"], p=c["p"])
+
+
+def kernels_line(attn, lns, launches, train=None):
+    """The seven kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
+    training kernels' cases."""
     def entry(name, source, replaces, n, cases, main, library):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=n,
@@ -437,17 +1016,61 @@ def kernels_line(attn, lns, launches):
     l_main = _case_row(*next((c, s) for c, s in l_cases
                              if c["rows"] == N * ATTN_T[-1] and _dt(c["dtype"])
                              == "float32"))
-    return {"kernels": [
-        entry("flash_attention_fwd", "incubator_mxnet_tpu_torch/csrc/"
-              "flash_attention.cu",
-              "incubator_mxnet_tpu/ops/flash_attention.py:122",
-              launches["K1"], a_cases, a_main,
-              "torch.nn.functional.scaled_dot_product_attention"),
-        entry("layer_norm_fwd", "incubator_mxnet_tpu_torch/csrc/"
-              "layer_norm.cu", "incubator_mxnet_tpu/ops/layer_norm.py:63",
-              launches["K4"], l_cases, l_main,
+    src = "incubator_mxnet_tpu_torch/csrc/"
+    ref = "incubator_mxnet_tpu/ops/"
+    out = [
+        entry("flash_attention_fwd", src + "flash_attention.cu",
+              ref + "flash_attention.py:122", launches["K1"], a_cases,
+              a_main, "torch.nn.functional.scaled_dot_product_attention"),
+        entry("layer_norm_fwd", src + "layer_norm.cu",
+              ref + "layer_norm.py:63", launches["K4"], l_cases, l_main,
               "torch.nn.functional.layer_norm"),
-    ]}
+    ]
+    if train is None:
+        return {"kernels": out}
+    t_attn, k3, k4b, drop = train
+
+    def first(cases, pred):
+        return _case_row(*next((c, s) for c, s in cases if pred(c)))
+
+    def f32(c):
+        return _dt(c["dtype"]) == "float32"
+
+    b_cases = [(c, f"B={c['b']} H={H} T={c['t']} d={D} bthd"
+                + (" causal" if c["causal"] else "")
+                + (" lengths" if c["lengths"] is not None else ""))
+               for c in t_attn]
+    f_cases = [(_k3_view(c, False), f"({ROWS}, {C}) p={c['p']}") for c in k3]
+    g_cases = [(_k3_view(c, True), f"({ROWS}, {C}) p={c['p']}") for c in k3]
+    n_cases = [(c, f"({ROWS}, {C})") for c in k4b]
+    d_cases = [(c, f"({ROWS}, {c['cols']}) p={c['p']}") for c in drop]
+    # headline shapes: f32 at the bench step's shapes
+    out += [
+        entry("flash_attention_bwd", src + "flash_attention.cu",
+              ref + "flash_attention.py:245", launches["K2"], b_cases,
+              first(b_cases, lambda c: f32(c) and c["t"] == TRAIN_T
+                    and c["lengths"] is None),
+              "autograd backward of "
+              "torch.nn.functional.scaled_dot_product_attention"),
+        entry("layer_norm_bwd", src + "layer_norm.cu",
+              ref + "layer_norm.py:122", launches["K4b"], n_cases,
+              first(n_cases, f32),
+              "autograd backward of torch.nn.functional.layer_norm"),
+        entry("residual_dropout_ln_fwd", src + "fused_block.cu",
+              ref + "fused_block.py:133", launches["K3f"], f_cases,
+              first(f_cases, lambda c: f32(c) and c["p"] > 0),
+              "composed: F.dropout + add + F.layer_norm (no single call)"),
+        entry("residual_dropout_ln_bwd", src + "fused_block.cu",
+              ref + "fused_block.py:169", launches["K3b"], g_cases,
+              first(g_cases, lambda c: f32(c) and c["p"] > 0),
+              "composed: autograd backward of F.dropout + add + "
+              "F.layer_norm (no single call)"),
+        entry("dropout", src + "dropout.cu", ref + "dropout.py:61",
+              launches["K5"], d_cases,
+              first(d_cases, lambda c: f32(c) and c["cols"] == FFN),
+              "torch.nn.functional.dropout"),
+    ]
+    return {"kernels": out}
 
 
 def main():
@@ -469,17 +1092,29 @@ def main():
 
     phase_build()
     attn, lns = phase_kernels_vs_plain(torch, dev)
+    train_cases = phase_train_kernels_vs_plain(torch, dev)
     phase_small_reference(torch, dev)
     launches, served = phase_serve(torch, dev)
+    check_result = phase_train_step_check(torch, dev)
+    torch.cuda.empty_cache()
+    trained, train_launches = phase_train(torch, dev)
+    trained["check"] = check_result
+    torch.cuda.empty_cache()
+    for k, n in train_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[done] launches on the main paths (serving + {STEPS} timed "
+        f"training steps): {launches}")
     phase_times(torch, attn, lns)
+    phase_times_train(torch, *train_cases)
     log(f"[done] phases took {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(json.dumps({"train": trained}))
     log(json.dumps({"serve": served}))
-    log(json.dumps(kernels_line(attn, lns, launches)))
+    log(json.dumps(kernels_line(attn, lns, launches, train_cases)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ from torch import nn
 from ... import numpy_extension as npx
 from ...device import resolve_device
 
-__all__ = ["HybridSequential", "Dense", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "LayerNorm", "Dropout", "Embedding"]
 
 #: scale of the reference's default `Uniform` initializer
 UNIFORM_SCALE = 0.07
@@ -41,17 +41,19 @@ class HybridSequential(nn.Sequential):
 
 
 class Dense(nn.Module):
-    """Fully-connected layer: ``y = x @ weight.T + bias`` with weight
-    ``(units, in_units)``; ``flatten=True`` collapses all but the first
-    axis of the input first."""
+    """Fully-connected layer: ``y = act(x @ weight.T + bias)`` with weight
+    ``(units, in_units)`` and ``act`` an ``npx.activation`` type or None;
+    ``flatten=True`` collapses all but the first axis of the input
+    first."""
 
-    def __init__(self, units, use_bias=True, flatten=True, dtype="float32",
-                 in_units=0, device=None):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", in_units=0, device=None):
         super().__init__()
         if in_units <= 0:
             raise ValueError("Dense: in_units is required")
         self._units = units
         self._flatten = flatten
+        self._activation = activation
         self.weight = _param((units, in_units), dtype, device)
         if use_bias:
             self.bias = _param((units,), dtype, device)
@@ -69,10 +71,14 @@ class Dense(nn.Module):
     def forward(self, x):
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
-        return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight, self.bias)
+        if self._activation is not None:
+            y = npx.activation(y, act_type=self._activation)
+        return y
 
     def extra_repr(self):
-        return f"{self._units}, flatten={self._flatten}"
+        return (f"{self._units}, flatten={self._flatten}, "
+                f"activation={self._activation}")
 
 
 class LayerNorm(nn.Module):
@@ -80,12 +86,13 @@ class LayerNorm(nn.Module):
     (``npx.layer_norm``: the LayerNorm kernel for CUDA tensors)."""
 
     def __init__(self, axis=-1, epsilon=1e-5, in_channels=0,
-                 dtype="float32", device=None):
+                 dtype="float32", device=None, impl="auto"):
         super().__init__()
         if in_channels <= 0:
             raise ValueError("LayerNorm: in_channels is required")
         self._axis = axis
         self._epsilon = epsilon
+        self._impl = impl
         self.gamma = _param((in_channels,), dtype, device)
         self.beta = _param((in_channels,), dtype, device)
         self.reset_parameters()
@@ -97,7 +104,28 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return npx.layer_norm(x, self.gamma, self.beta, axis=self._axis,
-                              eps=self._epsilon)
+                              eps=self._epsilon, impl=self._impl)
+
+
+class Dropout(nn.Module):
+    """Dropout with drop probability ``rate`` in training mode
+    (``npx.dropout``: the dropout kernel for CUDA tensors); the identity
+    in eval mode. ``impl`` is handed to the kernel's wrapper."""
+
+    def __init__(self, rate, axes=(), impl="auto"):
+        super().__init__()
+        if axes:
+            raise ValueError("Dropout: broadcast masks (axes) are not "
+                             "ported")
+        self._rate = rate
+        self._impl = impl
+
+    def forward(self, x):
+        return npx.dropout(x, p=self._rate, training=self.training,
+                           impl=self._impl)
+
+    def extra_repr(self):
+        return f"p={self._rate}"
 
 
 class Embedding(nn.Module):

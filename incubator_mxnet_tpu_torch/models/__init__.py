@@ -1,8 +1,8 @@
-"""Models of the port: GPT (KV-cache serving) and the BERT blocks GPT
-shares."""
-from . import bert, decoding, gpt
+"""Models of the port: GPT (KV-cache serving) and BERT (MLM training)."""
+from . import bert, decoding, gpt, params
+from .bert import BERTModel, bert_base, bert_small
 from .decoding import GPTDecoder
 from .gpt import GPTModel, gpt2_small, gpt_tiny
 
-__all__ = ["bert", "decoding", "gpt", "GPTDecoder", "GPTModel",
-           "gpt2_small", "gpt_tiny"]
+__all__ = ["bert", "decoding", "gpt", "params", "BERTModel", "bert_base",
+           "bert_small", "GPTDecoder", "GPTModel", "gpt2_small", "gpt_tiny"]

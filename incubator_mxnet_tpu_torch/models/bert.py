@@ -1,7 +1,31 @@
-"""BERT building blocks of the port (port of
-`incubator_mxnet_tpu/models/bert.py`). Only `PositionwiseFFN`, which GPT
-shares, is ported with the serving slice; the rest of BERT comes with the
-training slice."""
+"""BERT (port of `incubator_mxnet_tpu/models/bert.py`): the encoder, the
+MLM and NSP heads of pretraining, and the blocks GPT shares.
+
+Every kernel of the reference's training step runs here as a CUDA kernel:
+
+- attention through ``npx.flash_attention`` (K1 forward, K2 backward),
+  straight from the fused QKV projection ("bthd", read in place), with
+  ``valid_length`` as (B,) lengths instead of a dense mask; dropout is on
+  the attention output, as in the reference's flash path;
+- both post-LN residual sites of every cell through
+  ``npx.residual_dropout_ln`` (K3, forward and backward);
+- the embedding LayerNorm and ``mlm_ln`` through ``npx.layer_norm``
+  (K4, K4b);
+- dropout after the embedding, on the attention output and on the FFN
+  hidden through ``npx.dropout`` (K5).
+
+The Dense layers and the MLM decoder stay ``F.linear``, as the reference
+leaves them to XLA. ``impl`` ("auto" | "kernel" | "plain") is handed to
+every kernel's wrapper, so one model on the card can run its plain
+versions, which is what the kernels are held against. Only the flash
+path is ported: ``use_flash=False`` (the reference's ``masked_softmax`` /
+``batch_dot`` path) raises. Parameter names match the reference's
+``collect_params()`` one to one (:meth:`BERTModel.load_jax_params`).
+
+Entry points (`bert_base`, `bert_small`, `BERTModel`) build on the card
+by default and raise when there is none, unless ``device="cpu"`` is
+passed.
+"""
 from __future__ import annotations
 
 import torch
@@ -9,29 +33,62 @@ from torch import nn
 
 from .. import numpy_extension as npx
 from ..base import MXNetError
+from ..device import resolve_device
 from ..gluon import nn as gnn
+from .params import initialize, load_params
 
-__all__ = ["PositionwiseFFN", "check_no_dropout"]
+__all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
+           "BERTEncoder", "BERTModel", "bert_base", "bert_small"]
 
 
-def check_no_dropout(module, rate):
-    """Raise when ``module`` would have to apply dropout: training mode,
-    gradients recorded, ``rate > 0``. Dropout is not ported yet."""
-    if rate and module.training and torch.is_grad_enabled():
-        raise MXNetError(
-            f"{type(module).__name__}: dropout {rate} in training mode is "
-            f"not ported yet; use dropout=0.0, module.eval() or "
-            f"torch.no_grad()")
+def _dropout(rate, impl):
+    return gnn.Dropout(rate, impl=impl) if rate else None
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention through the flash kernels, dropout on the output."""
+
+    def __init__(self, units, num_heads, dropout=0.0, use_flash=True,
+                 dtype="float32", device=None, impl="auto"):
+        super().__init__()
+        if units % num_heads:
+            raise ValueError(f"units {units} not divisible by num_heads "
+                             f"{num_heads}")
+        if not use_flash:
+            raise MXNetError("MultiHeadAttention: only the flash path is "
+                             "ported (use_flash=True)")
+        self._units = units
+        self._num_heads = num_heads
+        self._impl = impl
+        self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
+                             dtype=dtype, device=device)
+        self.proj = gnn.Dense(units, flatten=False, in_units=units,
+                              dtype=dtype, device=device)
+        self.dropout = _dropout(dropout, impl)
+
+    def forward(self, x, mask=None, valid_length=None):
+        if mask is not None:
+            raise MXNetError("MultiHeadAttention: dense masks are not "
+                             "ported; pass valid_length")
+        N, T, C = x.shape
+        H = self._num_heads
+        # q, k, v stay views of the projection (the reference's
+        # qkv[..., :C] etc.), read in place ("bthd")
+        q, k, v = self.qkv(x).view(N, T, 3, H, C // H).unbind(2)
+        out = npx.flash_attention(q, k, v, valid_length=valid_length,
+                                  layout="bthd", impl=self._impl)
+        out = out.reshape(N, T, C)
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return self.proj(out)
 
 
 class PositionwiseFFN(nn.Module):
-    """``ffn2(act(ffn1(x)))``; ``activation="gelu"`` is the tanh
-    approximation, as in the reference. Dropout (the K5 kernel) comes with
-    the training slice: with ``dropout > 0`` a training-mode forward that
-    records gradients raises instead of skipping it."""
+    """``ffn2(dropout(act(ffn1(x))))``; ``activation="gelu"`` is the tanh
+    approximation, as in the reference."""
 
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
-                 dtype="float32", device=None):
+                 dtype="float32", device=None, impl="auto"):
         super().__init__()
         self.ffn1 = gnn.Dense(hidden_size, flatten=False, in_units=units,
                               dtype=dtype, device=device)
@@ -39,8 +96,158 @@ class PositionwiseFFN(nn.Module):
                               dtype=dtype, device=device)
         self._activation = activation
         self._drop_rate = dropout
+        self.dropout = _dropout(dropout, impl)
 
     def forward(self, x):
-        check_no_dropout(self, self._drop_rate)
-        return self.ffn2(npx.activation(self.ffn1(x),
-                                        act_type=self._activation))
+        h = npx.activation(self.ffn1(x), act_type=self._activation)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return self.ffn2(h)
+
+
+class TransformerEncoderCell(nn.Module):
+    """Transformer block: post-LN (BERT) through the fused residual +
+    dropout + LayerNorm op, or pre-LN with ``pre_norm=True``."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 pre_norm=False, use_flash=True, dtype="float32",
+                 device=None, impl="auto"):
+        super().__init__()
+        self._pre_norm = pre_norm
+        self._drop_rate = dropout
+        self._impl = impl
+        self.attention = MultiHeadAttention(units, num_heads, dropout,
+                                            use_flash=use_flash, dtype=dtype,
+                                            device=device, impl=impl)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout, dtype=dtype,
+                                   device=device, impl=impl)
+        self.ln1 = gnn.LayerNorm(in_channels=units, dtype=dtype,
+                                 device=device, impl=impl)
+        self.ln2 = gnn.LayerNorm(in_channels=units, dtype=dtype,
+                                 device=device, impl=impl)
+        self.dropout = _dropout(dropout, impl)
+
+    def _residual_ln(self, x, h, ln):
+        return npx.residual_dropout_ln(x, h, ln.gamma, ln.beta,
+                                       p=self._drop_rate, eps=ln._epsilon,
+                                       training=self.training,
+                                       impl=self._impl)
+
+    def forward(self, x, mask=None, valid_length=None):
+        if self._pre_norm:
+            h = self.attention(self.ln1(x), mask, valid_length)
+            x = x + (self.dropout(h) if self.dropout else h)
+            h = self.ffn(self.ln2(x))
+            return x + (self.dropout(h) if self.dropout else h)
+        x = self._residual_ln(x, self.attention(x, mask, valid_length),
+                              self.ln1)
+        return self._residual_ln(x, self.ffn(x), self.ln2)
+
+
+class BERTEncoder(nn.Module):
+    """Token (+ token type) + position embedding → LayerNorm → dropout →
+    N transformer cells."""
+
+    def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=512, dropout=0.1,
+                 type_vocab_size=2, use_flash=True, dtype="float32",
+                 device=None, impl="auto"):
+        super().__init__()
+        device = resolve_device(device)
+        self._units = units
+        self.word_embed = gnn.Embedding(vocab_size, units, dtype=dtype,
+                                        device=device)
+        self.token_type_embed = gnn.Embedding(type_vocab_size, units,
+                                              dtype=dtype, device=device)
+        self.position_embed = nn.Parameter(torch.empty(
+            (max_length, units), dtype=self.word_embed.weight.dtype,
+            device=device))
+        self.ln = gnn.LayerNorm(in_channels=units, dtype=dtype,
+                                device=device, impl=impl)
+        self.dropout = _dropout(dropout, impl)
+        self.layers = gnn.HybridSequential()
+        for _ in range(num_layers):
+            self.layers.add(TransformerEncoderCell(
+                units, hidden_size, num_heads, dropout, use_flash=use_flash,
+                dtype=dtype, device=device, impl=impl))
+
+    def forward(self, tokens, token_types=None, valid_length=None):
+        T = tokens.shape[1]
+        if T > self.position_embed.shape[0]:
+            raise ValueError(f"sequence length {T} exceeds max_length "
+                             f"{self.position_embed.shape[0]}")
+        x = self.word_embed(tokens)
+        if token_types is not None:
+            x = x + self.token_type_embed(token_types)
+        x = self.ln(x + self.position_embed[:T])
+        if self.dropout is not None:
+            x = self.dropout(x)
+        for cell in self.layers:
+            x = cell(x, None, valid_length)
+        return x
+
+
+class BERTModel(nn.Module):
+    """Encoder + MLM and NSP heads (the pretraining objective).
+
+    Weights are initialised as the reference's defaults (uniform ±0.07,
+    position embedding normal with sigma 0.01, LN gamma 1 / beta 0) from a
+    `torch.Generator` seeded by ``seed``.
+    """
+
+    def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=512, dropout=0.1,
+                 use_flash=True, dtype="float32", device=None, seed=None,
+                 impl="auto"):
+        super().__init__()
+        device = resolve_device(device)
+        self.encoder = BERTEncoder(vocab_size, units, hidden_size, num_layers,
+                                   num_heads, max_length, dropout,
+                                   use_flash=use_flash, dtype=dtype,
+                                   device=device, impl=impl)
+        self.mlm_dense = gnn.Dense(units, activation="tanh", flatten=False,
+                                   in_units=units, dtype=dtype, device=device)
+        self.mlm_ln = gnn.LayerNorm(in_channels=units, dtype=dtype,
+                                    device=device, impl=impl)
+        self.mlm_decoder = gnn.Dense(vocab_size, flatten=False,
+                                     in_units=units, dtype=dtype,
+                                     device=device)
+        self.nsp = gnn.Dense(2, in_units=units, dtype=dtype, device=device)
+        self.initialize(seed)
+
+    @property
+    def device(self):
+        return self.encoder.position_embed.device
+
+    def initialize(self, seed=None):
+        """(Re)initialise every parameter from a generator seeded by
+        ``seed`` (a fresh nondeterministic seed when None)."""
+        initialize(self, self.device, seed, [self.encoder.position_embed])
+
+    def load_jax_params(self, params):
+        """Copy weights from ``{name: numpy array}`` keyed by the
+        reference model's ``collect_params()`` names (see
+        :func:`params.load_params`)."""
+        load_params(self, params)
+
+    def forward(self, tokens, token_types=None, valid_length=None):
+        seq = self.encoder(tokens, token_types, valid_length)
+        mlm_scores = self.mlm_decoder(self.mlm_ln(self.mlm_dense(seq)))
+        nsp_scores = self.nsp(seq[:, 0])
+        return mlm_scores, nsp_scores
+
+
+def bert_base(vocab_size=30522, max_length=512, dropout=0.1, use_flash=True,
+              dtype="float32", device=None, seed=None, impl="auto"):
+    """BERT-base: 768 units, 12 layers, 12 heads, FFN 3072."""
+    return BERTModel(vocab_size, 768, 3072, 12, 12, max_length, dropout,
+                     use_flash=use_flash, dtype=dtype, device=device,
+                     seed=seed, impl=impl)
+
+
+def bert_small(vocab_size=1000, max_length=128, dropout=0.1, use_flash=True,
+               dtype="float32", device=None, seed=None, impl="auto"):
+    """Tiny config for tests: 64 units, 2 layers, 4 heads, FFN 128."""
+    return BERTModel(vocab_size, 64, 128, 2, 4, max_length, dropout,
+                     use_flash=use_flash, dtype=dtype, device=device,
+                     seed=seed, impl=impl)

@@ -1,9 +1,12 @@
 """Decoder-only causal language model (GPT-2 layout), port of
 `incubator_mxnet_tpu/models/gpt.py`.
 
-Token + position embedding → N pre-norm blocks (LayerNorm kernel, fused
-QKV projection, causal flash-attention kernel, tanh-gelu FFN) → final
-LayerNorm → LM head tied to the token embedding (GPT-2). Parameter names match the reference's
+Token + position embedding → dropout → N pre-norm blocks (LayerNorm
+kernel, fused QKV projection, causal flash-attention kernel, dropout on
+the attention output and on the tanh-gelu FFN's hidden) → final
+LayerNorm → LM head tied to the token embedding (GPT-2). Dropout (the
+dropout kernel) applies in training mode, as the reference's applies
+under ``autograd.record()``. Parameter names match the reference's
 ``collect_params()`` one to one, so :meth:`GPTModel.load_jax_params`
 carries a reference model's weights across.
 
@@ -14,24 +17,24 @@ from __future__ import annotations
 
 import math
 
-import numpy as onp
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .. import numpy_extension as npx
-from ..base import MXNetError
 from ..device import resolve_device
 from ..gluon import nn as gnn
-from .bert import PositionwiseFFN, check_no_dropout
+from .bert import PositionwiseFFN
 from .decoding import GPTDecoder, make_generator, sample
+from .params import initialize, load_params
 
 __all__ = ["CausalSelfAttention", "GPTBlock", "GPTModel", "gpt2_small",
            "gpt_tiny"]
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, units, num_heads, dtype="float32", device=None):
+    def __init__(self, units, num_heads, dropout=0.0, dtype="float32",
+                 device=None):
         super().__init__()
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by num_heads "
@@ -42,6 +45,7 @@ class CausalSelfAttention(nn.Module):
                              dtype=dtype, device=device)
         self.proj = gnn.Dense(units, flatten=False, in_units=units,
                               dtype=dtype, device=device)
+        self.dropout = gnn.Dropout(dropout) if dropout else None
 
     def forward(self, x):
         N, T, C = x.shape
@@ -51,7 +55,10 @@ class CausalSelfAttention(nn.Module):
         q, k, v = self.qkv(x).view(N, T, 3, H, d).unbind(2)
         out = npx.flash_attention(q, k, v, causal=True,
                                   sm_scale=1.0 / math.sqrt(d), layout="bthd")
-        return self.proj(out.reshape(N, T, C))
+        out = out.reshape(N, T, C)
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return self.proj(out)
 
 
 class GPTBlock(nn.Module):
@@ -62,8 +69,8 @@ class GPTBlock(nn.Module):
         super().__init__()
         self.ln1 = gnn.LayerNorm(in_channels=units, dtype=dtype,
                                  device=device)
-        self.attn = CausalSelfAttention(units, num_heads, dtype=dtype,
-                                        device=device)
+        self.attn = CausalSelfAttention(units, num_heads, dropout,
+                                        dtype=dtype, device=device)
         self.ln2 = gnn.LayerNorm(in_channels=units, dtype=dtype,
                                  device=device)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout,
@@ -88,12 +95,12 @@ class GPTModel(nn.Module):
                  device=None, seed=None):
         super().__init__()
         device = resolve_device(device)
-        self._dropout = dropout
         self.word_embed = gnn.Embedding(vocab_size, units, dtype=dtype,
                                         device=device)
         self.position_embed = nn.Parameter(torch.empty(
             (max_length, units), dtype=self.word_embed.weight.dtype,
             device=device))
+        self.dropout = gnn.Dropout(dropout) if dropout else None
         self.blocks = gnn.HybridSequential()
         for _ in range(num_layers):
             self.blocks.add(GPTBlock(units, hidden_size, num_heads, dropout,
@@ -113,42 +120,22 @@ class GPTModel(nn.Module):
     def initialize(self, seed=None):
         """(Re)initialise every parameter from a generator seeded by
         ``seed`` (a fresh nondeterministic seed when None)."""
-        gen = make_generator(self.device, seed)
-        for mod in self.modules():
-            if mod is not self and hasattr(mod, "reset_parameters"):
-                mod.reset_parameters(generator=gen)
-        with torch.no_grad():
-            self.position_embed.normal_(0.0, 0.01, generator=gen)
+        initialize(self, self.device, seed, [self.position_embed])
 
     def load_jax_params(self, params):
         """Copy weights from ``{name: numpy array}`` keyed by the
-        reference model's ``collect_params()`` names. Raises, copying
-        nothing, on a missing or extra name or a wrong shape."""
-        own = dict(self.named_parameters())
-        missing = sorted(set(own) - set(params))
-        extra = sorted(set(params) - set(own))
-        if missing or extra:
-            raise MXNetError(f"load_jax_params: missing {missing}, "
-                             f"unexpected {extra}")
-        arrays = {}
-        for name, arr in params.items():
-            arr = onp.array(arr, copy=True)
-            if tuple(arr.shape) != tuple(own[name].shape):
-                raise MXNetError(
-                    f"load_jax_params: {name} has shape {arr.shape}, the "
-                    f"model expects {tuple(own[name].shape)}")
-            arrays[name] = arr
-        with torch.no_grad():
-            for name, arr in arrays.items():
-                own[name].copy_(torch.from_numpy(arr))
+        reference model's ``collect_params()`` names (see
+        :func:`params.load_params`)."""
+        load_params(self, params)
 
     def forward(self, tokens):
         N, T = tokens.shape
         if T > self.max_length:
             raise ValueError(f"sequence length {T} exceeds max_length "
                              f"{self.max_length}")
-        check_no_dropout(self, self._dropout)
         x = self.word_embed(tokens) + self.position_embed[:T]
+        if self.dropout is not None:
+            x = self.dropout(x)
         x = self.ln_f(self.blocks(x))
         return F.linear(x, self.word_embed.weight)  # tied: h @ E^T
 
@@ -161,9 +148,10 @@ class GPTModel(nn.Module):
         ``use_cache=True`` (default) runs the KV-cache decoder
         (`models/decoding.py`): O(T) work per token. ``use_cache=False``
         keeps the full-forward loop (O(T²); the parity reference for
-        tests). Greedy unless ``do_sample=True``, which draws from the
-        temperature-scaled, optionally top-k-truncated distribution with a
-        `torch.Generator` seeded by ``seed``.
+        tests), run in eval mode: generation never drops out. Greedy
+        unless ``do_sample=True``, which draws from the temperature-scaled,
+        optionally top-k-truncated distribution with a `torch.Generator`
+        seeded by ``seed``.
         """
         if use_cache:
             return GPTDecoder(self).generate(
@@ -175,10 +163,15 @@ class GPTModel(nn.Module):
                 f"prompt ({out.shape[1]}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_length ({self.max_length})")
         gen = make_generator(self.device, seed) if do_sample else None
-        for _ in range(max_new_tokens):
-            logits = self(out)[:, -1]
-            nxt = sample(logits, gen, temperature, top_k, do_sample)
-            out = torch.cat([out, nxt[:, None]], dim=1)
+        was_training = self.training
+        self.eval()
+        try:
+            for _ in range(max_new_tokens):
+                logits = self(out)[:, -1]
+                nxt = sample(logits, gen, temperature, top_k, do_sample)
+                out = torch.cat([out, nxt[:, None]], dim=1)
+        finally:
+            self.train(was_training)
         return out
 
 

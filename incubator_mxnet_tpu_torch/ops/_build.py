@@ -12,7 +12,9 @@ spills per kernel) is kept beside each library as ``<stem>-<hash>.log``.
 Nothing here runs at import: the first wrapper that launches a kernel on
 a CUDA tensor calls :func:`load`. The wrappers bind each entry point with
 ``argtypes`` (``c_void_p`` for every pointer and the stream) and raise
-when the entry returns a non-zero ``cudaError_t``.
+when the entry returns a non-zero ``cudaError_t``. :func:`use_plain` is
+the wrappers' one rule for kernel or plain version, :func:`aligned` their
+one way of meeting the kernels' 16-byte loads.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from pathlib import Path
 from ..base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "load", "check", "build_logs"]
+           "load", "check", "build_logs", "IMPLS", "use_plain", "aligned"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "torch_kernels"
@@ -132,3 +134,26 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.mx_cuda_error_string(err).decode()
         raise MXNetError(f"{what}: CUDA error {err} ({msg})")
+
+
+IMPLS = ("auto", "kernel", "plain")
+
+
+def use_plain(what, t, impl):
+    """Whether a wrapper runs its plain version on ``t``: for
+    ``impl="plain"``, or "auto" on a CPU tensor. "kernel" on a CPU tensor
+    raises; otherwise the wrapper launches its kernel (or raises)."""
+    if impl not in IMPLS:
+        raise ValueError(f"{what}: unknown impl {impl!r}")
+    if impl == "plain" or (impl == "auto" and t.device.type != "cuda"):
+        return True
+    if t.device.type != "cuda":
+        raise MXNetError(f"{what}: impl='kernel' needs CUDA tensors")
+    return False
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (copied only when it is not),
+    as the kernels' 16-byte loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,14 +1,16 @@
-"""The port's flash-attention forward (`incubator_mxnet_tpu_torch.ops.
-flash_attention`, plain path on CPU tensors) against the JAX package's
-Pallas kernel in interpret mode and its XLA path, on the same numpy-seeded
-inputs.
+"""The port's flash attention (`incubator_mxnet_tpu_torch.ops.
+flash_attention`, K1 and K2, plain path on CPU tensors) against the JAX
+package's Pallas kernels in interpret mode and its XLA path, on the same
+numpy-seeded inputs: the forward, and dq, dk, dv through `jax.vjp`.
 
-Tolerance: 2e-5 abs and rel in float32. Both sides accumulate in f32 but
-in different orders (blockwise online softmax vs one softmax), which moves
-the last bits of O and lse.
+Tolerance: 2e-5 abs and rel in float32 for O and lse. Both sides
+accumulate in f32 but in different orders (blockwise online softmax vs
+one softmax), which moves their last bits. 1e-4 for the gradients, sums
+of products over all rows or keys.
 """
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as onp
 import pytest
@@ -22,6 +24,7 @@ from incubator_mxnet_tpu_torch.ops import flash_attention as tfa
 jfa = importlib.import_module("incubator_mxnet_tpu.ops.flash_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _qkv(shape, seed):
@@ -140,3 +143,69 @@ def test_impl_kernel_on_cpu_raises_and_bad_args_rejected():
     # "plain" and "auto" agree on the CPU (auto takes the plain version)
     torch.testing.assert_close(tfa.flash_attention(q, k, v, impl="plain"),
                                tfa.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("shape,causal,lengths", CASES)
+def test_bwd_matches_pallas_interpret_and_xla_vjp(shape, causal, lengths):
+    """dq, dk, dv of the port (autograd through its backward's plain
+    version, the kernels' arithmetic) against `jax.vjp` of the JAX
+    package's Pallas kernels (`_dq_kernel`, `_dkv_kernel`, interpret mode,
+    16-blocks) and of its XLA path. Gradients sum over up to 40 rows or
+    keys: 1e-4 abs and rel."""
+    q, k, v = _qkv(shape, seed=sum(shape) + 3 * causal)
+    do = onp.random.RandomState(5).normal(0, 1, shape).astype("float32")
+    jl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tl = None if lengths is None else torch.tensor(lengths)
+    o = tfa.flash_attention(*leaves, lengths=tl, causal=causal)
+    o.backward(torch.from_numpy(do))
+    for impl, extra in (("pallas", dict(block_q=16, block_k=16,
+                                        interpret=True)), ("xla", {})):
+        def f(q, k, v, impl=impl, extra=extra):
+            return jfa.flash_attention(q, k, v, lengths=jl, causal=causal,
+                                       impl=impl, **extra)
+
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+        for leaf, ref in zip(leaves, vjp(jnp.asarray(do))):
+            onp.testing.assert_allclose(leaf.grad.numpy(), onp.asarray(ref),
+                                        **GRAD_TOL)
+
+
+def test_bwd_bthd_views_of_one_projection():
+    """The models' call: q, k, v are views of one (B, T, 3, H, D) tensor in
+    "bthd"; the gradient of that tensor against the JAX Pallas vjp."""
+    qkv = onp.random.RandomState(6).normal(0, 1, (2, 40, 3, 2, 16)).astype(
+        "float32")
+    lens = [40, 17]
+    do = onp.random.RandomState(7).normal(0, 1, (2, 40, 2, 16)).astype(
+        "float32")
+
+    def f(qkv):
+        return jfa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                   lengths=jnp.asarray(lens, jnp.int32),
+                                   block_q=16, block_k=16, interpret=True,
+                                   impl="pallas", layout="bthd")
+
+    _, vjp = jax.vjp(f, jnp.asarray(qkv))
+    (ref,) = vjp(jnp.asarray(do))
+    leaf = torch.from_numpy(qkv).requires_grad_()
+    o = tfa.flash_attention(*leaf.unbind(2), lengths=torch.tensor(lens),
+                            layout="bthd")
+    o.backward(torch.from_numpy(do))
+    onp.testing.assert_allclose(leaf.grad.numpy(), onp.asarray(ref),
+                                **GRAD_TOL)
+
+
+def test_plain_bwd_dead_rows_are_zero_not_nan():
+    """Rows past the length and sequences of length 0 have lse = +inf:
+    their P is 0, so every gradient they touch is exactly 0."""
+    q, k, v = _qkv((2, 2, 37, 16), seed=8)
+    lens = torch.tensor([20, 0])
+    o, lse = tfa.flash_attention_with_lse(*_torch(q, k, v), lengths=lens,
+                                          causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(*_torch(q, k, v), o, lse,
+                                         torch.ones_like(o), lengths=lens,
+                                         causal=True)
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g).all()
+        assert (g[0, :, 20:] == 0).all() and (g[1] == 0).all()

@@ -1,11 +1,14 @@
-"""The port's LayerNorm forward (`incubator_mxnet_tpu_torch.ops.layer_norm`,
-plain path on CPU tensors) against the JAX package's Pallas kernel
-`ops.layer_norm._fwd` in interpret mode, for y, mean and rstd, on the same
-numpy-seeded inputs.
+"""The port's LayerNorm (`incubator_mxnet_tpu_torch.ops.layer_norm`, K4
+and K4b, plain path on CPU tensors) against the JAX package's Pallas
+kernels in interpret mode, on the same numpy-seeded inputs: the forward
+`ops.layer_norm._fwd` for y, mean and rstd, and the backward through
+`jax.vjp` of its `layer_norm` for dx, dgamma and dbeta.
 
 Tolerance: 1e-5 abs and rel in float32 (both sides compute the statistics
-in f32, summing in different orders).
+in f32, summing in different orders); 1e-4 for dgamma/dbeta, which sum
+over all rows.
 """
+import jax
 import jax.numpy as jnp
 import numpy as onp
 import pytest
@@ -16,6 +19,7 @@ from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.ops import layer_norm as tln
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+PARAM_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _inputs(rows, c, seed):
@@ -82,3 +86,46 @@ def test_impl_kernel_on_cpu_raises():
         tln.layer_norm(x, g, b, impl="kernel")
     with pytest.raises(ValueError):
         tln.layer_norm(x, g, b, impl="pallas")
+
+
+# rows over several of the reference's 8-row blocks, the last one padded
+@pytest.mark.parametrize("rows,c", [(24, 64), (37, 96), (19, 768)])
+def test_bwd_matches_pallas_vjp_interpret(rows, c):
+    """dx, dgamma and dbeta against `jax.vjp` of the JAX package's
+    `layer_norm` (its custom vjp over the Pallas `_fwd` / `_bwd` kernels,
+    interpret mode, 8-row blocks, so dgamma/dbeta accumulate across its
+    grid). dgamma/dbeta sum over all rows: 1e-4."""
+    x, g, b = _inputs(rows, c, seed=rows * c)
+    dy = onp.random.RandomState(rows).normal(0, 1, (rows, c)).astype(
+        "float32")
+
+    def f(x, g, b):
+        return jln.layer_norm(x, g, b, block_r=8, interpret=True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, g, b)))
+    refs = vjp(jnp.asarray(dy))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, g, b)]
+    y = tln.layer_norm(*leaves)
+    y.backward(torch.from_numpy(dy))
+    for leaf, ref, tol in zip(leaves, refs, (TOL, PARAM_TOL, PARAM_TOL)):
+        onp.testing.assert_allclose(leaf.grad.numpy(), onp.asarray(ref),
+                                    **tol)
+
+
+def test_plain_bwd_is_the_explicit_formula():
+    """`plain_layer_norm_bwd` (the kernel's arithmetic) against autograd
+    of the plain forward, bf16 outputs rounded once."""
+    x, g, b = _inputs(11, 64, seed=8)
+    dy = torch.from_numpy(onp.random.RandomState(1).normal(
+        0, 1, (11, 64)).astype("float32"))
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    y, mean, rstd = tln.plain_layer_norm(xt, gt, bt)
+    y.backward(dy)
+    dx, dg, db = tln.layer_norm_bwd(xt.detach(), dy, mean.detach(),
+                                    rstd.detach(), gt.detach())
+    for got, ref in ((dx, xt.grad), (dg, gt.grad), (db, bt.grad)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    dxb, dgb, _ = tln.layer_norm_bwd(xt.detach().bfloat16(), dy.bfloat16(),
+                                     mean.detach(), rstd.detach(),
+                                     gt.detach().bfloat16())
+    assert dxb.dtype == dgb.dtype == torch.bfloat16

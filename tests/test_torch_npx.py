@@ -1,8 +1,8 @@
-"""The port's `npx` operators of the serving slice against the JAX
-package's, on the same numpy-seeded inputs (CPU tensors).
+"""The port's `npx` operators against the JAX package's, on the same
+numpy-seeded inputs (CPU tensors).
 
-Tolerance: 1e-6 abs and rel in float32 for gelu (elementwise, same
-formula), 1e-5 for layer_norm (f32 reductions in different orders).
+Tolerance: 1e-6 abs and rel in float32 for gelu and tanh (elementwise,
+same formula), 1e-5 for layer_norm (f32 reductions in different orders).
 """
 import numpy as onp
 import pytest
@@ -30,10 +30,19 @@ def test_activation_matches_jax(shape, scale):
     onp.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("act", ["relu", "tanh", "swishy"])
+@pytest.mark.parametrize("act", ["relu", "sigmoid", "swishy"])
 def test_activation_not_ported_raises(act):
     with pytest.raises(ValueError):
         npx.activation(torch.zeros(3), act_type=act)
+
+
+@pytest.mark.parametrize("shape", [(5, 33), (2, 3, 7)])
+def test_tanh_activation_matches_jax(shape):
+    """tanh, which BERT's ``mlm_dense`` calls."""
+    x = _x(shape, seed=5)
+    ref = jnpx.activation(jnp_mx.array(x), act_type="tanh").asnumpy()
+    got = npx.activation(torch.from_numpy(x), act_type="tanh").numpy()
+    onp.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_gelu_is_the_tanh_approximation():
