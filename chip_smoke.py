@@ -28,7 +28,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cross-entropy): 2 warm-up and 10 timed steps, with each kernel's
    launches counted per step, a falling loss required, and the device's
    busy time of one step from ``torch.profiler``;
-6. times each kernel, its plain version and one PyTorch library call
+6. drives ``npx.gelu_dropout`` (the fused exact-erf GELU + dropout
+   kernel, K6, forward and backward) at BERT-base's FFN width and the
+   training step's token count: x (64, 128, 768) through
+   ``gluon.nn.Dense(3072)``, ``npx.gelu_dropout(p=0.1, training=True)``
+   and ``gluon.nn.Dense(768)``, loss (y * g).sum(), backward; the same
+   weights and keys with the plain versions and with the reference's
+   composed route (``impl="xla"``: ``F.gelu`` then the dropout kernel),
+   exact launch counts per step, output and gradients against the plain
+   path; K6 itself is first held against its plain version (f32 and
+   bf16, p = 0.1 and 0, the reference's (65536, 3072) bf16 site and a
+   ragged shape), its masks bit for bit the dropout kernel's;
+7. times each kernel, its plain version and one PyTorch library call
    that computes the same function (a yardstick the port never calls),
    with CUDA events over CUDA-graph replays whose inputs cycle through
    copies larger than the L2 cache (a library backward pass: its
@@ -36,11 +47,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    card could take for the same work.
 
 Everything it has to say comes on earlier lines: the card's name and
-power limit (``nvidia-smi``), ``{"train": ...}`` and ``{"serve": ...}``
-lines, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
-"device": {...}}``. Any failed phase exits non-zero and prints no result;
-so does a run without a CUDA device, or one outside a checkout of the
-repository. TF32 is off for matmuls and cuDNN.
+power limit (``nvidia-smi``), ``{"train": ...}``, ``{"serve": ...}`` and
+``{"gelu_dropout": ...}`` lines, one ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
+and prints no result; so does a run without a CUDA device, or one
+outside a checkout of the repository. TF32 is off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
@@ -100,9 +111,23 @@ GRAD_REL_TOL = 1e-3
 # and backward; a K2 call launches 3 kernels (delta, dq, dk/dv), a K4b or
 # K3 backward call 2 (row kernel, dgamma/dbeta reduction)
 STEP_LAUNCHES = {"K1": 12, "K2": 12 * 3, "K4": 2, "K4b": 2 * 2, "K3f": 24,
-                 "K3b": 24 * 2, "K5": 50}
+                 "K3b": 24 * 2, "K5": 50, "K6f": 0, "K6b": 0}
 FWD_LAUNCHES = {"K1": 12, "K2": 0, "K4": 2, "K4b": 0, "K3f": 24, "K3b": 0,
-                "K5": 25}
+                "K5": 25, "K6f": 0, "K6b": 0}
+
+# the K6 slice: npx.gelu_dropout at BERT-base's FFN hidden. Kernel vs
+# plain, float32: max abs 2e-6 at unit-normal inputs (one erff and expf an
+# element on both sides, rounded in another order). The path, float32:
+# the output and every gradient within 1e-4 of its own largest magnitude
+# (two 768/3072-deep matrix products around the kernel).
+GD_TOL = 2e-6
+GD_PATH_REL_TOL = 1e-4
+GD_WARMUP, GD_STEPS = 1, 5
+GD_RAGGED = (1000, 771)          # numel not a multiple of the vector width
+GD_LARGE = (65536, FFN)          # BERT-base at sequence 512, bf16
+# operations an element (f32, on the CUDA cores): an erff or expf counted
+# as its ~10 multiply-adds, Philox's integer work not counted
+GD_FWD_OPS, GD_BWD_OPS = 20, 40
 
 
 def log(*args):
@@ -473,7 +498,8 @@ def _counters():
     return {"K1": (fa, "launches"), "K2": (fa, "bwd_launches"),
             "K4": (ln, "launches"), "K4b": (ln, "bwd_launches"),
             "K3f": (fb, "launches"), "K3b": (fb, "bwd_launches"),
-            "K5": (dp, "launches")}
+            "K5": (dp, "launches"), "K6f": (fb, "gd_launches"),
+            "K6b": (fb, "gd_bwd_launches")}
 
 
 def reset_counts():
@@ -973,28 +999,277 @@ def phase_times_train(torch, attn, k3, k4b, drop):
             f"{c['bound_ms'] / c['ms']:.3f}")
 
 
+def gelu_dropout_cases(torch, dev):
+    """K6 inputs, unit normal: the FFN hidden of the BERT-base step (8192,
+    3072) in f32 and bf16 at p = 0.1 and p = 0 (the kernel without a
+    mask); the site the reference sized its kernel for, BERT-base at
+    sequence 512 (65536, 3072) bf16 (`ops/fused_block.py:261`); a ragged
+    f32 shape for the scalar tail."""
+    specs = [((ROWS, FFN), dt, p) for dt in (torch.float32, torch.bfloat16)
+             for p in (TRAIN_P, 0.0)]
+    specs += [(GD_LARGE, torch.bfloat16, TRAIN_P),
+              (GD_RAGGED, torch.float32, TRAIN_P)]
+    cases = []
+    for shape, dtype, p in specs:
+        g = torch.Generator(device=dev).manual_seed(shape[0] + shape[1])
+        u = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        dy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        cases.append(dict(u=u, dy=dy, shape=shape, dtype=dtype, p=p,
+                          key=(1618033988, 2718281828)))
+    return cases
+
+
+def _gd_what(c):
+    return f"{c['shape']} {_dt(c['dtype'])} p={c['p']}"
+
+
+def phase_gelu_dropout_vs_plain(torch, dev):
+    """K6 forward and backward against their plain versions; its zeros
+    are the dropout kernel's (K5) mask for the same key, bit for bit."""
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+    cases = gelu_dropout_cases(torch, dev)
+    for c in cases:
+        u, dy, key, p = c["u"], c["dy"], c["key"], c["p"]
+        what = _gd_what(c)
+        y = fb.gelu_dropout_fwd(u, key, p, impl="kernel")
+        du = fb.gelu_dropout_bwd(u, dy, key, p, impl="kernel")
+        yp = fb.gelu_dropout_fwd(u, key, p, impl="plain")
+        dup = fb.gelu_dropout_bwd(u, dy, key, p, impl="plain")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y.float()).all()
+                   and torch.isfinite(du.float()).all()),
+              f"K6 {what}: non-finite output")
+        ok, err, rel = agree(y, yp, GD_TOL)
+        _log_check("K6 fwd", what, c, ok, err, rel, GD_TOL)
+        c["fwd_err"], c["fwd_rel"] = err, rel
+        del yp
+        ok, err, rel = agree(du, dup, GD_TOL)
+        _log_check("K6 bwd", what, c, ok, err, rel, GD_TOL)
+        c["bwd_err"], c["bwd_rel"] = err, rel
+        del dup
+        if p == 0:
+            continue
+        k5 = dp.dropout_fwd(torch.ones_like(u), key, p, impl="kernel") != 0
+        gelu = fb.gelu_dropout_fwd(u, key, 0.0, impl="kernel")
+        fwd_mask = torch.equal(y != 0, k5 & (gelu != 0))
+        bwd_mask = not bool((du[~k5] != 0).any())
+        log(f"[K6] {what}: forward zeros equal the dropout kernel's mask: "
+            f"{fwd_mask}; backward zero wherever it drops: {bwd_mask}; "
+            f"kept {k5.float().mean().item():.5f}")
+        check(fwd_mask and bwd_mask, "K6 mask differs from K5's")
+        if c["dtype"] == torch.float32:
+            xla = dp.dropout_fwd(F.gelu(u, approximate="none"), key, p,
+                                 impl="kernel")
+            torch.cuda.synchronize()
+            d = (y - xla).abs().max().item()
+            log(f"[K6] {what}: against F.gelu then the dropout kernel (the "
+                f"xla route): bit for bit {torch.equal(y, xla)}, max|d|="
+                f"{d:.3e} (tol {GD_TOL:g})")
+            check(d <= GD_TOL, "K6 disagrees with F.gelu + K5")
+        del k5, gelu
+    return cases
+
+
+def phase_gelu_dropout_path(torch, dev):
+    """The slice's path at full width: Dense(3072) -> npx.gelu_dropout ->
+    Dense(768) on (64, 128, 768), forward and backward, on the kernels
+    ("auto"), on the plain versions and on the reference's composition
+    ("xla"): same weights, same key, launches counted per step."""
+    from incubator_mxnet_tpu_torch import npx
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    d1 = nn.Dense(FFN, in_units=C, flatten=False, device=dev)
+    d2 = nn.Dense(C, in_units=FFN, flatten=False, device=dev)
+    for layer in (d1, d2):
+        layer.reset_parameters(generator=g)
+        with torch.no_grad():
+            layer.bias.normal_(0, 0.1, generator=g)
+    params = [d1.weight, d1.bias, d2.weight, d2.bias]
+    names = ["x", "dense1.weight", "dense1.bias", "dense2.weight",
+             "dense2.bias"]
+    x = torch.randn(TRAIN_B, TRAIN_T, C, generator=g, device=dev)
+    gy = torch.randn(TRAIN_B, TRAIN_T, C, generator=g, device=dev)
+
+    def step(impl):
+        for prm in params:
+            prm.grad = None
+        xl = x.detach().requires_grad_()
+        mxrandom.seed(77)
+        y = d2(npx.gelu_dropout(d1(xl), p=TRAIN_P, training=True,
+                                impl=impl))
+        (y * gy).sum().backward()
+        return [y.detach(), xl.grad] + [prm.grad for prm in params]
+
+    runs = {}
+    for impl in ("auto", "plain", "xla"):
+        for _ in range(GD_WARMUP):
+            step(impl)
+        torch.cuda.synchronize()
+        walls, counts = [], []
+        for _ in range(GD_STEPS):
+            reset_counts()
+            start = time.perf_counter()
+            out = step(impl)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - start) * 1e3)
+            counts.append(read_counts())
+        runs[impl] = dict(out=out, walls=walls, counts=counts)
+    zero = {k: 0 for k in STEP_LAUNCHES}
+    expect = {"auto": dict(zero, K6f=1, K6b=1), "plain": zero,
+              "xla": dict(zero, K5=2)}
+    for impl, r in runs.items():
+        log(f"[gelu_dropout] {impl}: launches per step {r['counts'][0]}; "
+            f"step ms " + ", ".join(f"{t:.2f}" for t in r["walls"]))
+        check(all(cn == expect[impl] for cn in r["counts"]),
+              f"gelu_dropout path ({impl}): launches {r['counts']}, "
+              f"expected {expect[impl]} every step")
+    worst = {}
+    for other in ("plain", "xla"):
+        w = 0.0
+        for name, got, ref in zip(["y"] + names, runs["auto"]["out"],
+                                  runs[other]["out"]):
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                  f"gelu_dropout path: {name} malformed")
+            scale = ref.abs().max().item()
+            w = max(w, (got - ref).abs().max().item() / max(scale, 1e-30))
+        worst[other] = w
+        log(f"[gelu_dropout] auto vs {other}: y and the gradients of x and "
+            f"both Dense layers, worst max|d| / max|{other}| {w:.2e} "
+            f"(tol {GD_PATH_REL_TOL:g})")
+        check(w <= GD_PATH_REL_TOL,
+              f"gelu_dropout path disagrees with {other}")
+
+    def med(v):
+        v = sorted(v)
+        return v[len(v) // 2]
+
+    launches = {"K6f": sum(cn["K6f"] for cn in runs["auto"]["counts"]),
+                "K6b": sum(cn["K6b"] for cn in runs["auto"]["counts"])}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step("auto")
+        torch.cuda.synchronize()
+    dev_ms = _device_ms(prof)
+    k6_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "gelu_dropout" in e.key) / 1e3
+    result = dict(batch=TRAIN_B, seq=TRAIN_T, units=C, hidden=FFN, p=TRAIN_P,
+                  steps=GD_STEPS,
+                  **{f"{k}_step_ms": r["walls"] for k, r in runs.items()},
+                  **{f"{k}_median_step_ms": med(r["walls"])
+                     for k, r in runs.items()},
+                  launches_per_step={k: r["counts"][0]
+                                     for k, r in runs.items()},
+                  worst_rel_err_vs_plain=worst["plain"],
+                  worst_rel_err_vs_xla=worst["xla"],
+                  device_ms_per_step=dev_ms, k6_device_ms_per_step=k6_ms)
+    auto_ms = result["auto_median_step_ms"]
+    result["idle_share"] = 1 - dev_ms / auto_ms if dev_ms > 0 else None
+    log(f"[gelu_dropout] median step ms: auto (K6) {auto_ms:.3f}, xla "
+        f"(F.gelu + K5) {result['xla_median_step_ms']:.3f}, plain "
+        f"{result['plain_median_step_ms']:.3f}; one auto step's device "
+        f"time (torch.profiler) {dev_ms:.3f} ms, of which K6 {k6_ms:.3f} "
+        f"ms -> idle share "
+        + (f"{result['idle_share']:.4f}" if dev_ms > 0 else "not measured"))
+    return result, launches
+
+
+def phase_times_gelu_dropout(torch, cases):
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+    for c in cases:
+        key, p = c["key"], c["p"]
+        numel, item = c["u"].numel(), c["u"].element_size()
+
+        def lib(u, dy=None, c=c):
+            leaf = u.detach().requires_grad_(dy is not None)
+            out = F.gelu(leaf, approximate="none")
+            if c["p"] > 0:
+                out = F.dropout(out, c["p"], training=True)
+            if dy is not None:
+                torch.autograd.grad(out, leaf, dy)
+
+        def xla(u, dy=None, c=c):
+            leaf = u.detach().requires_grad_(dy is not None)
+            out = dp.dropout(F.gelu(leaf, approximate="none"), c["key"],
+                             c["p"], impl="kernel")
+            if dy is not None:
+                torch.autograd.grad(out, leaf, dy)
+
+        sets = input_sets([c["u"]], 20)
+        c["ms"] = time_ms(lambda u: fb.gelu_dropout_fwd(u, key, p,
+                                                        impl="kernel"),
+                          sets, 20)
+        c["plain_ms"] = time_ms(lambda u: fb.gelu_dropout_fwd(
+            u, key, p, impl="plain"), sets, 3)
+        c["library_ms"] = time_ms(lib, sets, 20)
+        c["xla_ms"] = time_ms(xla, sets, 20)
+        c["bound_ms"], c["bound_by"] = bound(2 * numel * item,
+                                             GD_FWD_OPS * numel, "float32")
+        bsets = input_sets([c["u"], c["dy"]], 20)
+        c["bwd_ms"] = time_ms(lambda u, dy: fb.gelu_dropout_bwd(
+            u, dy, key, p, impl="kernel"), bsets, 20)
+        c["bwd_plain_ms"] = time_ms(lambda u, dy: fb.gelu_dropout_bwd(
+            u, dy, key, p, impl="plain"), bsets, 3)
+        c["bwd_library_ms"] = (time_ms(lib, bsets, 20)
+                               - time_ms(lambda u, _: lib(u), bsets, 20))
+        c["bwd_xla_ms"] = (time_ms(xla, bsets, 20)
+                           - time_ms(lambda u, _: xla(u), bsets, 20))
+        c["bwd_bound_ms"], c["bwd_bound_by"] = bound(
+            3 * numel * item, GD_BWD_OPS * numel, "float32")
+        log(f"[time] K6 {_gd_what(c)}: forward kernel {c['ms']:.4f} ms, "
+            f"plain {c['plain_ms']:.4f} ms, F.dropout(F.gelu) "
+            f"{c['library_ms']:.4f} ms, F.gelu + K5 {c['xla_ms']:.4f} ms, "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+            f"{c['bound_ms'] / c['ms']:.3f}; backward kernel "
+            f"{c['bwd_ms']:.4f} ms, plain {c['bwd_plain_ms']:.4f} ms, "
+            f"autograd of F.dropout(F.gelu) {c['bwd_library_ms']:.4f} ms, of "
+            f"F.gelu + K5 {c['bwd_xla_ms']:.4f} ms, bound "
+            f"{c['bwd_bound_ms']:.4f} ms ({c['bwd_bound_by']}), share "
+            f"{c['bwd_bound_ms'] / c['bwd_ms']:.3f}")
+
+
 def _case_row(c, shape):
-    return dict(shape=shape, dtype=_dt(c["dtype"]),
-                max_abs_err=c["max_abs_err"],
-                norm_rel_err=c["norm_rel_err"], ms=c["ms"],
-                plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                bound_by=c["bound_by"], library_ms=c["library_ms"])
+    row = dict(shape=shape, dtype=_dt(c["dtype"]),
+               max_abs_err=c["max_abs_err"],
+               norm_rel_err=c["norm_rel_err"], ms=c["ms"],
+               plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+               bound_by=c["bound_by"], library_ms=c["library_ms"])
+    if "xla_ms" in c:
+        row["xla_ms"] = c["xla_ms"]
+    return row
 
 
-def _k3_view(c, bwd):
-    """A K3 case's forward or backward numbers under the common keys."""
+def _pass_view(c, bwd):
+    """A K3 or K6 case's forward or backward numbers under the common
+    keys."""
     pre = "bwd_" if bwd else ""
     return dict(dtype=c["dtype"], max_abs_err=c["bwd_err" if bwd else
                                                  "fwd_err"],
                 norm_rel_err=c["bwd_rel" if bwd else "fwd_rel"],
                 ms=c[pre + "ms"], plain_ms=c[pre + "plain_ms"],
                 bound_ms=c[pre + "bound_ms"], bound_by=c[pre + "bound_by"],
-                library_ms=c[pre + "library_ms"], p=c["p"])
+                library_ms=c[pre + "library_ms"], p=c["p"],
+                **({"xla_ms": c[pre + "xla_ms"]} if pre + "xla_ms" in c
+                   else {}))
 
 
-def kernels_line(attn, lns, launches, train=None):
-    """The seven kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
-    training kernels' cases."""
+def kernels_line(attn, lns, launches, train=None, gd=None):
+    """The nine kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
+    training kernels' cases, ``gd`` the K6 cases."""
     def entry(name, source, replaces, n, cases, main, library):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=n,
@@ -1040,8 +1315,8 @@ def kernels_line(attn, lns, launches, train=None):
                 + (" causal" if c["causal"] else "")
                 + (" lengths" if c["lengths"] is not None else ""))
                for c in t_attn]
-    f_cases = [(_k3_view(c, False), f"({ROWS}, {C}) p={c['p']}") for c in k3]
-    g_cases = [(_k3_view(c, True), f"({ROWS}, {C}) p={c['p']}") for c in k3]
+    f_cases = [(_pass_view(c, False), f"({ROWS}, {C}) p={c['p']}") for c in k3]
+    g_cases = [(_pass_view(c, True), f"({ROWS}, {C}) p={c['p']}") for c in k3]
     n_cases = [(c, f"({ROWS}, {C})") for c in k4b]
     d_cases = [(c, f"({ROWS}, {c['cols']}) p={c['p']}") for c in drop]
     # headline shapes: f32 at the bench step's shapes
@@ -1070,6 +1345,20 @@ def kernels_line(attn, lns, launches, train=None):
               first(d_cases, lambda c: f32(c) and c["cols"] == FFN),
               "torch.nn.functional.dropout"),
     ]
+    if gd is None:
+        return {"kernels": out}
+    # headline shape: f32 at the BERT-base step's FFN hidden, p = 0.1
+    for bwd, name, line in ((False, "gelu_dropout_fwd", 289),
+                            (True, "gelu_dropout_bwd", 298)):
+        cases = [(_pass_view(c, bwd), f"{c['shape']} p={c['p']}") for c in gd]
+        out.append(entry(
+            name, src + "gelu_dropout.cu", f"{ref}fused_block.py:{line}",
+            launches["K6b" if bwd else "K6f"], cases,
+            first(cases, lambda c: f32(c) and c["p"] > 0),
+            ("autograd backward of " if bwd else "")
+            + "F.dropout(F.gelu(u, approximate='none')) (xla_ms: F.gelu "
+            "then the port's dropout kernel, the reference's composed "
+            "route)"))
     return {"kernels": out}
 
 
@@ -1093,6 +1382,7 @@ def main():
     phase_build()
     attn, lns = phase_kernels_vs_plain(torch, dev)
     train_cases = phase_train_kernels_vs_plain(torch, dev)
+    gd_cases = phase_gelu_dropout_vs_plain(torch, dev)
     phase_small_reference(torch, dev)
     launches, served = phase_serve(torch, dev)
     check_result = phase_train_step_check(torch, dev)
@@ -1100,12 +1390,15 @@ def main():
     trained, train_launches = phase_train(torch, dev)
     trained["check"] = check_result
     torch.cuda.empty_cache()
-    for k, n in train_launches.items():
+    gd_path, gd_launches = phase_gelu_dropout_path(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in list(train_launches.items()) + list(gd_launches.items()):
         launches[k] = launches.get(k, 0) + n
     log(f"[done] launches on the main paths (serving + {STEPS} timed "
-        f"training steps): {launches}")
+        f"training steps + {GD_STEPS} gelu_dropout steps): {launches}")
     phase_times(torch, attn, lns)
     phase_times_train(torch, *train_cases)
+    phase_times_gelu_dropout(torch, gd_cases)
     log(f"[done] phases took {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
@@ -1114,7 +1407,9 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"train": trained}))
     log(json.dumps({"serve": served}))
-    log(json.dumps(kernels_line(attn, lns, launches, train_cases)))
+    log(json.dumps({"gelu_dropout": gd_path}))
+    log(json.dumps(kernels_line(attn, lns, launches, train_cases,
+                                gd_cases)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

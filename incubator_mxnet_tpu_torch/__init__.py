@@ -12,9 +12,11 @@ Ported so far: GPT-2 KV-cache generation (the serving slice) through the
 flash-attention-forward and LayerNorm-forward kernels; BERT MLM training
 (the training slice) through those and the flash-attention-backward,
 LayerNorm-backward, fused residual + dropout + LayerNorm and dropout
-kernels, with `gluon.Trainer` and Adam. Entry points run on ``cuda:0``
-unless the caller passes ``device="cpu"``. This package imports neither
-jax nor the reference package.
+kernels, with `gluon.Trainer` and Adam; `npx.gelu_dropout` through the
+fused exact-erf GELU + dropout kernel, forward and backward. With it
+every Pallas kernel of the reference has its CUDA counterpart. Entry
+points run on ``cuda:0`` unless the caller passes ``device="cpu"``. This
+package imports neither jax nor the reference package.
 """
 from . import base, device, gluon, models, ops, optimizer, random
 from . import numpy_extension as npx

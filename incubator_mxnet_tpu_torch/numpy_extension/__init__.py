@@ -1,9 +1,9 @@
 """``mx.npx`` operators of the port: the ones the serving and training
 slices call.
 
-Port of `incubator_mxnet_tpu/numpy_extension/__init__.py` (`activation`
-:168, `layer_norm` :591, `dropout` :699, `flash_attention` :834,
-`residual_dropout_ln` :860) over torch tensors.
+Port of `incubator_mxnet_tpu/numpy_extension/__init__.py` (`gelu` :162,
+`activation` :168, `layer_norm` :591, `dropout` :699, `flash_attention`
+:834, `residual_dropout_ln` :860, `gelu_dropout` :902) over torch tensors.
 
 Dropout applies when the caller says it is training (``training=True``;
 the layers pass their module's ``training`` flag, the port's counterpart
@@ -15,6 +15,8 @@ of the reference's ``autograd.is_training()``) or with
 wrappers: "auto" launches the kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; "plain" runs the plain version on any device,
 which is how a model on the card is held against its kernels.
+:func:`gelu_dropout` also takes the reference's names, "pallas" for the
+kernel and "xla" for its composed ops.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from ..ops import flash_attention as _fa
 from ..ops import fused_block as _fb
 from ..ops import layer_norm as _ln
 
-__all__ = ["activation", "layer_norm", "dropout", "flash_attention",
-           "residual_dropout_ln"]
+__all__ = ["gelu", "activation", "layer_norm", "dropout", "flash_attention",
+           "residual_dropout_ln", "gelu_dropout"]
 
 _ACTIVATIONS = {
     # the reference calls jax.nn.gelu, whose default is the tanh
@@ -37,6 +39,13 @@ _ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "tanh": torch.tanh,
 }
+
+
+def gelu(data, approximate=True):
+    """GELU: the tanh approximation by default, as the reference's
+    (``jax.nn.gelu``); ``approximate=False`` is the exact erf form. The
+    reference has no kernel for it."""
+    return F.gelu(data, approximate="tanh" if approximate else "none")
 
 
 def activation(data, act_type="relu", **kwargs):  # noqa: ARG001
@@ -142,3 +151,33 @@ def residual_dropout_ln(x, h, gamma, beta, p=0.0, eps=1e-5, axis=-1,
     key = _random.next_key() if 0 < p_eff < 1 else (0, 0)
     return _fb.residual_dropout_ln(x, h, gamma, beta, p_eff, key, eps=eps,
                                    impl=impl)
+
+
+# the reference's impl names: "pallas" is its kernel, "xla" its composed ops
+_GD_IMPLS = {"auto": "auto", "kernel": "kernel", "pallas": "kernel",
+             "plain": "plain"}
+
+
+def gelu_dropout(data, p=0.0, impl="auto", training=False):
+    """``dropout_p(gelu(data))`` with the exact erf gelu, differentiable.
+
+    Dropout applies only when ``training``, as in the reference (under
+    ``autograd.is_training()``). Where it does not, or at p = 0, this is
+    ``gelu(data, approximate=False)`` and no key is drawn. Otherwise one
+    key is drawn from :func:`random.next_key` and ``impl`` picks the
+    route: "auto" launches the fused kernel of `ops/fused_block.py` (K6)
+    for a CUDA tensor and runs its plain version for a CPU tensor;
+    "kernel" (or the reference's "pallas") requires a CUDA tensor;
+    "plain" forces the plain version; "xla" is the reference's
+    composition, ``F.gelu`` then :func:`dropout`'s kernel (K5), which
+    drops the same elements for the same key. A CUDA tensor the kernel
+    cannot take raises :class:`MXNetError`."""
+    if impl != "xla" and impl not in _GD_IMPLS:
+        raise ValueError(f"gelu_dropout: unknown impl {impl!r}")
+    p_eff = float(p) if training else 0.0
+    if p_eff == 0:
+        return gelu(data, approximate=False)
+    key = _random.next_key()
+    if impl == "xla":
+        return _dp.dropout(gelu(data, approximate=False), key, p_eff)
+    return _fb.gelu_dropout(data, key, p_eff, impl=_GD_IMPLS[impl])

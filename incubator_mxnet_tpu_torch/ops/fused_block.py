@@ -1,6 +1,8 @@
-"""Fused residual + dropout + LayerNorm: the hand-written CUDA kernels and
-their plain versions (K3).
+"""The fused blocks of the reference's `ops/fused_block.py`: residual +
+dropout + LayerNorm (K3) and exact-erf GELU + dropout (K6), the
+hand-written CUDA kernels and their plain versions.
 
+**K3.**
 Port of `incubator_mxnet_tpu/ops/fused_block.py` `residual_dropout_ln`
 (:394) with its kernels `_fwd_kernel` (:62, `_fwd` :133) and `_bwd_kernel`
 (:83, `_bwd` :169) and the `_core` custom vjp (:214-235). The kernels are
@@ -30,12 +32,31 @@ them only for CPU tensors or when asked with ``impl="plain"``.
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones: a backward call that reaches the card launches two kernels, the row
 kernel and the reduction of its dgamma/dbeta partials.
+
+**K6.** Port of `gelu_dropout` (:366) with its kernels `_gd_fwd_kernel`
+(:289) and `_gd_bwd_kernel` (:298), launched through `_gd_call` (:311),
+and the `_gd_core` custom vjp (:335-352). The kernels are
+``csrc/gelu_dropout.cu``: y = dropout_p(gelu(u)) with the exact erf form
+of GELU, and du = dy * gelu'(u) * mask * scale with gelu'(u) = Phi(u) +
+u * phi(u), all in f32, one 16-byte vector a thread. Bound by bytes on
+the H100: 2 * numel * itemsize forward, 3 * numel * itemsize backward.
+The saved residuals are u and the key, as `_gd_core_fwd` (:340) saves
+them: neither the mask nor gelu(u). The mask is K5's for the same key
+and shape, so ``gelu_dropout(u, key, p)`` equals
+``dropout(F.gelu(u, approximate="none"), key, p)`` in float32, bit for
+bit. The reference's erf is the Abramowitz-Stegun approximation (within
+1.5e-7), there only because Pallas has no erf lowering on the TPU; the
+port computes erf itself. At p = 0 the kernel still runs, without
+drawing a mask, as `_gd_call` does (``use_rng=False``); at p = 1 the
+result and the gradient are zeros and nothing is launched. The counters
+are ``gd_launches`` and ``gd_bwd_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
 from . import _build
@@ -46,7 +67,10 @@ from .layer_norm import (BWD_KERNELS, bwd_blocks, check_kernel_args,
 
 __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "residual_dropout_ln_fwd", "residual_dropout_ln_bwd",
-           "residual_dropout_ln", "launches", "bwd_launches"]
+           "residual_dropout_ln", "launches", "bwd_launches",
+           "plain_gelu_dropout", "plain_gelu_dropout_bwd", "gelu_dropout_fwd",
+           "gelu_dropout_bwd", "gelu_dropout", "gd_launches",
+           "gd_bwd_launches"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/common.cuh LnMode
@@ -54,16 +78,20 @@ _ADD, _DROP = 1, 2
 
 launches = 0
 bwd_launches = 0
+gd_launches = 0
+gd_bwd_launches = 0
 _LIB = None
+_GD_LIB = None
 
 
-def _check_p(p):
+def _check_p(p, what="residual_dropout_ln"):
     if not 0.0 <= p <= 1.0:
-        raise ValueError(f"residual_dropout_ln: p must be in [0, 1], got {p}")
+        raise ValueError(f"{what}: p must be in [0, 1], got {p}")
 
 
 def _dropped(h2d, key, p):
-    """The f32 dropout of h: what the kernels add to x."""
+    """The f32 dropout of h: what the K3 kernels add to x, and K6's mask
+    and scale."""
     if p == 0:
         return h2d.float()
     if p == 1:
@@ -238,3 +266,140 @@ def residual_dropout_ln(x, h, gamma, beta, p, key, eps=1e-5, impl="auto"):
         y, _, _ = residual_dropout_ln_fwd(x2d, h2d, gamma, beta, key,
                                           float(p), eps, impl)
     return y.reshape(shape)
+
+
+# -- K6: exact-erf GELU + dropout -------------------------------------------
+
+_SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _normal_cdf(uf):
+    return 0.5 * (1.0 + torch.erf(uf * _SQRT_HALF))
+
+
+def plain_gelu_dropout(u, key, p):
+    """``dropout_p(gelu(u))``: the exact gelu u * Phi(u) in f32 (PyTorch's
+    erf form, whose CPU kernel rounds otherwise than ``torch.erf``), then
+    the mask and f32 scale of `ops/dropout.py`; returned in u's dtype."""
+    g = F.gelu(u.float(), approximate="none")
+    return _dropped(g, key, p).to(u.dtype)
+
+
+def plain_gelu_dropout_bwd(u, dy, key, p):
+    """du = dy * gelu'(u) under the forward's mask and scale, with
+    gelu'(u) = Phi(u) + u * phi(u) (the explicit formula)."""
+    uf = u.float()
+    pdf = torch.exp(-0.5 * uf * uf) * _INV_SQRT_2PI
+    return _dropped(dy.float() * (_normal_cdf(uf) + uf * pdf), key,
+                    p).to(u.dtype)
+
+
+def _gd_lib():
+    global _GD_LIB
+    if _GD_LIB is None:
+        lib = _build.load("gelu_dropout")
+        tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                ctypes.c_void_p]
+        lib.mx_gelu_dropout_fwd.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 2 + tail
+        lib.mx_gelu_dropout_fwd.restype = ctypes.c_int
+        lib.mx_gelu_dropout_bwd.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 3 + tail
+        lib.mx_gelu_dropout_bwd.restype = ctypes.c_int
+        _GD_LIB = lib
+    return _GD_LIB
+
+
+def _gd_kernel(u, dy, key, p):
+    """One launch of the forward (``dy`` None) or the backward kernel."""
+    global gd_launches, gd_bwd_launches
+    what = "gelu_dropout" if dy is None else "gelu_dropout_bwd"
+    tensors = (u,) if dy is None else (u, dy)
+    for t in tensors:
+        if t.dtype not in _DTYPES:
+            raise MXNetError(f"{what} kernel takes float32/bfloat16, got "
+                             f"{t.dtype}")
+    if dy is not None and (dy.shape != u.shape or dy.dtype != u.dtype):
+        raise MXNetError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} must "
+                         f"match u {tuple(u.shape)} {u.dtype}")
+    u = _build.aligned(u)
+    out = torch.empty_like(u)
+    if u.numel() == 0:
+        return out
+    drop = 0 < p
+    key_args = ((int(key[0]), int(key[1]), threshold(p), dropout_scale(p))
+                if drop else (0, 0, 0, 1.0))
+    lib = _gd_lib()
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        if dy is None:
+            err = lib.mx_gelu_dropout_fwd(_DTYPES[u.dtype], u.data_ptr(),
+                                          out.data_ptr(), u.numel(),
+                                          int(drop), *key_args, stream)
+        else:
+            dy = _build.aligned(dy)
+            err = lib.mx_gelu_dropout_bwd(_DTYPES[u.dtype], u.data_ptr(),
+                                          dy.data_ptr(), out.data_ptr(),
+                                          u.numel(), int(drop), *key_args,
+                                          stream)
+    _build.check(lib, err, what)
+    if dy is None:
+        gd_launches += 1
+    else:
+        gd_bwd_launches += 1
+    return out
+
+
+def gelu_dropout_fwd(u, key, p, impl="auto"):
+    """``dropout_p(gelu(u))`` (exact erf gelu) under ``key`` (two uint32
+    words, unused at p = 0), no gradient. ``impl``: "auto" launches the
+    kernel for a CUDA tensor and runs the plain version for a CPU tensor;
+    "kernel" requires a CUDA tensor; "plain" forces the plain version."""
+    _check_p(p, "gelu_dropout")
+    plain = _build.use_plain("gelu_dropout", u, impl)
+    if p == 1:
+        return torch.zeros_like(u)
+    return plain_gelu_dropout(u, key, p) if plain else _gd_kernel(
+        u, None, key, p)
+
+
+def gelu_dropout_bwd(u, dy, key, p, impl="auto"):
+    """du of :func:`gelu_dropout_fwd` at the forward's u and key."""
+    _check_p(p, "gelu_dropout")
+    plain = _build.use_plain("gelu_dropout_bwd", u, impl)
+    if p == 1:
+        return torch.zeros_like(u)
+    return plain_gelu_dropout_bwd(u, dy, key, p) if plain else _gd_kernel(
+        u, dy, key, p)
+
+
+class _GeluDropout(torch.autograd.Function):
+    """Saves u and the key; the backward recomputes mask and gelu'(u)."""
+
+    @staticmethod
+    def forward(ctx, u, key, p, impl):
+        ctx.save_for_backward(u)
+        ctx.key, ctx.p, ctx.impl = key, p, impl
+        return gelu_dropout_fwd(u, key, p, impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (u,) = ctx.saved_tensors
+        return (gelu_dropout_bwd(u, dy, ctx.key, ctx.p, ctx.impl), None,
+                None, None)
+
+
+def gelu_dropout(u, key, p, impl="auto"):
+    """``dropout_p(gelu(u))`` with the exact erf gelu, one fused pass each
+    way; differentiable. Any shape (the mask follows the flat index);
+    ``key`` two uint32 words (a fresh framework key per call). An empty
+    ``u`` is returned as it is."""
+    p = float(p)
+    _check_p(p, "gelu_dropout")
+    if u.numel() == 0:
+        return u
+    if torch.is_grad_enabled() and u.requires_grad:
+        return _GeluDropout.apply(u, key, p, impl)
+    return gelu_dropout_fwd(u, key, p, impl)

@@ -13,6 +13,10 @@ within the summation-order bound of `ops.layer_norm.column_sum_tol`; bfloat16 2^
 1e-5 abs, elementwise (both sides round nearly the same f32 value to bf16
 once, so they are equal or neighbours); lse 1e-4 in both (f32 on both
 sides). Dropout is bit-identical (same Philox words, same f32 multiply).
+The fused GELU + dropout (K6): float32 2e-6 abs at unit-normal inputs
+(one erff/expf an element on both sides; only their last bits and the
+order of the roundings differ), bfloat16 as above, and its mask bit for
+bit the dropout kernel's.
 """
 import math
 
@@ -477,3 +481,115 @@ def test_tiny_bert_train_step_on_card_matches_cpu(dev):
         scale = max(1e-6, pc.grad.abs().max().item())
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=0,
                                    atol=1e-4 * scale, msg=name)
+
+
+# -- K6: fused exact-erf GELU + dropout --------------------------------------
+
+GD_F32_TOL = 2e-6
+
+
+def _gd_close(got, ref):
+    assert got.dtype == ref.dtype and bool(torch.isfinite(got.float()).all())
+    if got.dtype == torch.bfloat16:
+        _bf16_close(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=0, atol=GD_F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4), (7, 13), (1000, 771),
+                                   (33, 3072)])
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5])
+def test_gelu_dropout_kernel_vs_plain(dev, dtype, shape, p):
+    """Forward and backward against the plain versions (the tail of a
+    numel that is not a whole number of vectors included); the zeros are
+    the dropout kernel's mask for the same key, bit for bit."""
+    g = _gen(dev, shape[0] * 31 + shape[1])
+    u = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    dy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    key = (123456789, 987654321)
+    fb.gd_launches = fb.gd_bwd_launches = dp.launches = 0
+    y = fb.gelu_dropout_fwd(u, key, p, impl="kernel")
+    du = fb.gelu_dropout_bwd(u, dy, key, p, impl="kernel")
+    assert (fb.gd_launches, fb.gd_bwd_launches) == (1, 1)
+    _gd_close(y, fb.gelu_dropout_fwd(u, key, p, impl="plain"))
+    _gd_close(du, fb.gelu_dropout_bwd(u, dy, key, p, impl="plain"))
+    if p > 0:
+        k5 = dp.dropout_fwd(torch.ones_like(u), key, p, impl="kernel") != 0
+        gelu = fb.gelu_dropout_fwd(u, key, 0.0, impl="kernel")
+        assert torch.equal(y != 0, k5 & (gelu != 0))
+        assert not bool((du[~k5] != 0).any())
+    torch.cuda.synchronize()
+
+
+def test_gelu_dropout_equals_gelu_then_the_dropout_kernel(dev):
+    """float32: K6 computes gelu as PyTorch's erf form does and multiplies
+    by the same f32 scale under the same mask as K5."""
+    u = torch.randn(257, 3072, generator=_gen(dev, 9), device=dev)
+    key = (2024, 7)
+    y = fb.gelu_dropout_fwd(u, key, 0.1, impl="kernel")
+    ref = dp.dropout_fwd(torch.nn.functional.gelu(u, approximate="none"),
+                         key, 0.1, impl="kernel")
+    torch.testing.assert_close(y, ref, rtol=0, atol=GD_F32_TOL)
+
+
+def test_gelu_dropout_misaligned_noncontiguous_and_trivial_p(dev):
+    base = torch.randn(4 * 768 + 1, device=dev)
+    u = base[1:].view(4, 768)                       # not 16-byte aligned
+    dyt = torch.randn(768, 4, device=dev).t()       # transposed dy
+    key = (3, 4)
+    for p in (0.0, 0.2):
+        _gd_close(fb.gelu_dropout_fwd(u, key, p),
+                  fb.gelu_dropout_fwd(u, key, p, impl="plain"))
+        _gd_close(fb.gelu_dropout_bwd(u, dyt, key, p),
+                  fb.gelu_dropout_bwd(u, dyt, key, p, impl="plain"))
+    ut = torch.randn(64, 96, device=dev).t()        # transposed u
+    _gd_close(fb.gelu_dropout_fwd(ut, key, 0.2),
+              fb.gelu_dropout_fwd(ut, key, 0.2, impl="plain"))
+    fb.gd_launches = fb.gd_bwd_launches = 0
+    assert (fb.gelu_dropout_fwd(u, key, 1.0) == 0).all()   # p = 1: zeros
+    assert (fb.gelu_dropout_bwd(u, dyt, key, 1.0) == 0).all()
+    assert (fb.gd_launches, fb.gd_bwd_launches) == (0, 0)
+    with pytest.raises(MXNetError):
+        fb.gelu_dropout_fwd(u.half(), key, 0.2)          # no fp16 kernel
+    with pytest.raises(MXNetError):
+        fb.gelu_dropout_bwd(u, dyt.bfloat16(), key, 0.2)  # dtypes differ
+    assert (fb.gd_launches, fb.gd_bwd_launches) == (0, 0)
+
+
+def test_gelu_dropout_backward_reuses_the_mask(dev):
+    u = torch.randn(16, 64, device=dev, requires_grad=True)
+    fb.gd_launches = fb.gd_bwd_launches = 0
+    y = fb.gelu_dropout(u, (9, 9), 0.3)
+    y.backward(torch.ones_like(y))
+    assert (fb.gd_launches, fb.gd_bwd_launches) == (1, 1)
+    keep = ph.keep_mask(u.shape, (9, 9), 0.3, device=dev)
+    assert torch.equal(y != 0, keep)
+    ref = fb.plain_gelu_dropout_bwd(u.detach(), torch.ones_like(u), (9, 9),
+                                    0.3)
+    torch.testing.assert_close(u.grad, ref, rtol=0, atol=GD_F32_TOL)
+    assert torch.equal(u.grad != 0, keep)
+
+
+def test_npx_gelu_dropout_launches_k6_not_k5(dev):
+    """npx.gelu_dropout on a CUDA tensor: "auto" launches K6 both ways and
+    never K5; "xla" is gelu then K5; out of training it is the exact
+    gelu and launches nothing."""
+    from incubator_mxnet_tpu_torch import random as mxrandom
+
+    x = torch.randn(4, 6, 64, device=dev, requires_grad=True)
+    fb.gd_launches = fb.gd_bwd_launches = dp.launches = 0
+    mxrandom.seed(1)
+    y = npx.gelu_dropout(x, p=0.1, training=True)
+    y.sum().backward()
+    assert (fb.gd_launches, fb.gd_bwd_launches, dp.launches) == (1, 1, 0)
+    mxrandom.seed(1)
+    xla = npx.gelu_dropout(x, p=0.1, training=True, impl="xla")
+    assert dp.launches == 1 and fb.gd_launches == 1
+    torch.testing.assert_close(xla, y, rtol=0, atol=GD_F32_TOL)
+    ev = npx.gelu_dropout(x, p=0.1)
+    torch.testing.assert_close(
+        ev, torch.nn.functional.gelu(x, approximate="none"))
+    assert (fb.gd_launches, dp.launches) == (1, 1)
+    with pytest.raises(MXNetError):
+        npx.gelu_dropout(x.half(), p=0.1, training=True)
