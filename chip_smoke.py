@@ -5,10 +5,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. builds every CUDA kernel of the port from ``incubator_mxnet_tpu_torch/
    csrc/`` (``nvcc``, into ``build/torch_kernels/``) and prints the build
-   time and each kernel's register / shared-memory report;
+   time and each kernel's register / shared-memory report; for the
+   flash-attention kernels also their tensor-core instructions (SASS
+   ``HGMMA``/``HMMA`` from ``cuobjdump``), failing on a register spill or
+   a kernel with products but no tensor-core instruction;
 2. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16: the forward kernels at the shapes of the serving
-   path, the training kernels (flash-attention backward, fused residual +
+   path (flash attention also at the training step's call), the training
+   kernels (flash-attention backward, fused residual +
    dropout + LayerNorm forward and backward, LayerNorm backward, dropout)
    at the shapes of the BERT-base training step, dropout masks bit for
    bit;
@@ -66,6 +70,12 @@ import time
 PEAK_BYTES_S = 3.35e12
 L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# f32-accurate products on the tensor cores: three TF32 products (495
+# TFLOP/s dense) for each f32 product. The least time of an f32 attention
+# kernel (K1, K2) counts its operations at this rate, since the card can
+# do them so (K1 and K2 do, as 3xTF32); the elementwise kernels and the
+# training step's share of the f32 peak keep 67 TFLOP/s.
+PEAK_3XTF32 = 495e12 / 3
 
 # kernel vs plain tolerances on the card. float32: max abs error (the same
 # f32 arithmetic summed in another order). bfloat16: both sides round
@@ -77,6 +87,14 @@ LN_TOL = 2e-5
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 STATS_TOL = 2e-5  # LN mean / rstd (f32 on both sides)
 LSE_TOL = 1e-4
+# flash attention (K1, K2) in bfloat16: the kernels round P and dS to bf16
+# before the second products, as the reference does; the forward rounds P
+# at its running max, the plain version at the final max. An element that
+# is a sum of terms that cancel can then differ by more than one spacing
+# of its own, so the check is normwise: the error's norm at most 2^-7 of
+# the plain tensor's, and every element within 2^-6 of its largest
+# magnitude (two bf16 spacings at the top of its range)
+ATTN_BF16_NORM_TOL, ATTN_BF16_MAX_TOL = 2.0 ** -7, 2.0 ** -6
 # end to end, f32: logits of the kernel path vs the plain path after 12
 # layers, relative to the largest logit
 LOGIT_REL_TOL = 1e-3
@@ -196,14 +214,40 @@ def agree(got, ref, f32_tol):
     return ok, d.max().item(), rel
 
 
-def tol_text(dtype, f32_tol):
-    return (f"tol {f32_tol:g}" if dtype == "float32" else
-            f"tol 2^-7*|plain| + {BF16_ATOL:g} elementwise")
+def agree_attn(got, ref, f32_tol):
+    """(ok, max abs error, normwise relative error, max abs error over
+    the plain tensor's largest magnitude) of a K1/K2 output: float32
+    within ``f32_tol`` elementwise; bfloat16 within ATTN_BF16_NORM_TOL
+    normwise and ATTN_BF16_MAX_TOL of the largest magnitude."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    err = d.max().item()
+    rel = (d.norm() / r.norm().clamp_min(1e-30)).item()
+    top = err / max(r.abs().max().item(), 1e-30)
+    if got.dtype == torch.bfloat16:
+        ok = rel <= ATTN_BF16_NORM_TOL and top <= ATTN_BF16_MAX_TOL
+    else:
+        ok = err <= f32_tol
+    return ok, err, rel, top
 
 
-def bound(bytes_moved, flops, dtype):
+def tol_text(dtype, f32_tol, attn=False):
+    if dtype == "float32":
+        return f"tol {f32_tol:g}"
+    if attn:
+        return "tol normwise 2^-7, max 2^-6*max|plain|"
+    return f"tol 2^-7*|plain| + {BF16_ATOL:g} elementwise"
+
+
+def bound(bytes_moved, flops, dtype, tensor_cores=False):
+    """(least ms, "bytes" or "operations"); ``tensor_cores``: f32
+    operations at the 3xTF32 rate (K1, K2)."""
+    rate = (PEAK_3XTF32 if tensor_cores and dtype == "float32"
+            else PEAK_FLOPS[dtype])
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -215,7 +259,73 @@ def live_share(lengths, t):
     return float(lengths.double().sum()) / (lengths.numel() * t)
 
 
+def _cuobjdump():
+    """The toolkit's ``cuobjdump``: beside ``nvcc``, else the copy in
+    Triton's ``backends/nvidia/bin``; None if neither is there."""
+    from pathlib import Path
+
+    from incubator_mxnet_tpu_torch.base import MXNetError
+    from incubator_mxnet_tpu_torch.ops import _build
+
+    found = []
+    try:
+        found.append(Path(_build._nvcc()).parent / "cuobjdump")
+    except MXNetError:
+        pass
+    try:
+        import triton
+
+        found.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    return next((str(f) for f in found if f.exists()), None)
+
+
+def _flash_label(mangled):
+    """'fwd f32 d<=64' for a flash kernel's mangled name, else None."""
+    import re
+
+    m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv|bwd_delta)_kernelI"
+                  r"(f|13__nv_bfloat16)(?:Li(\d+)E)?", mangled)
+    if m is None:
+        return None
+    kind = m.group(1).replace("bwd_", "")
+    dt = "f32" if m.group(2) == "f" else "bf16"
+    return f"{kind} {dt}" + (f" d<={m.group(3)}" if m.group(3) else "")
+
+
+def _ptxas_report(log_text):
+    """{mangled kernel: (registers, spill stores + loads)} from
+    ``-Xptxas=-v``."""
+    import re
+
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            regs, _ = out.get(cur, (None, 0))
+            out[cur] = (regs, int(m.group(1)) + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), out.get(cur, (None, 0))[1])
+    return out
+
+
 def phase_build():
+    """Build every kernel; print each library's register report, and for
+    each flash-attention kernel its tensor-core instructions (SASS
+    ``HGMMA``/``HMMA`` counts from ``cuobjdump``), registers, spills and
+    shared memory. Fails if a flash kernel that runs products has no
+    tensor-core instruction or spills."""
+    import ctypes
+
     from incubator_mxnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -223,28 +333,82 @@ def phase_build():
     log(f"[build] {len(paths)} libraries in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(str(p.name) for p in paths.values()))
-    for stem, text in _build.build_logs().items():
+    logs = _build.build_logs()
+    for stem, text in logs.items():
+        if stem == "flash_attention":
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {stem}: {line.strip()}")
 
+    ptxas = {_flash_label(k): v for k, v in
+             _ptxas_report(logs["flash_attention"]).items() if _flash_label(k)}
+    lib = ctypes.CDLL(str(paths["flash_attention"]))
+    smem = {}
+    for kind, code in (("fwd", 0), ("dq", 1), ("dkv", 2)):
+        for dt, dcode in (("f32", 0), ("bf16", 1)):
+            for dp in (64, 128):
+                smem[f"{kind} {dt} d<={dp}"] = lib.mx_flash_attention_smem(
+                    code, dcode, dp)
+    tool = _cuobjdump()
+    sass = {}
+    if tool is None:
+        log("[build] flash_attention: no cuobjdump found beside nvcc or in "
+            "Triton; the tensor-core instruction check did not run")
+    else:
+        text = subprocess.run([tool, "-sass", str(paths["flash_attention"])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        cur = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                cur = _flash_label(line.split("Function :")[1].strip())
+                if cur:
+                    sass[cur] = {"HGMMA": 0, "HMMA": 0}
+            elif cur:
+                for op in ("HGMMA", "HMMA"):
+                    if f" {op}." in line or f" {op} " in line:
+                        sass[cur][op] += 1
+    for label in sorted(set(ptxas) | set(sass)):
+        regs, spills = ptxas.get(label, (None, None))
+        ops = sass.get(label)
+        tc = "" if ops is None else (f"HGMMA {ops['HGMMA']}, HMMA "
+                                     f"{ops['HMMA']}, ")
+        extra = (f", {smem[label]} bytes of dynamic shared memory"
+                 if label in smem else "")
+        log(f"[build] flash_attention {label}: {tc}{regs} registers, "
+            f"{spills} bytes spilled{extra}")
+        if label.startswith("delta"):
+            continue  # the pre-pass runs no products
+        check(spills == 0, f"flash kernel {label} spills registers")
+        if ops is not None:
+            check(ops["HGMMA"] + ops["HMMA"] > 0,
+                  f"flash kernel {label} has no tensor-core instruction")
+    if tool is not None:
+        check(len(sass) == 14, f"expected 14 flash kernels in the SASS, "
+              f"found {sorted(sass)}")
+
 
 def attn_cases(torch, dev):
     """K1 inputs as the prefill gives them: q, k, v strided views of one
-    (N, T, 3, H, d) projection output, causal; plus one lengths case."""
+    (N, T, 3, H, d) projection output, causal; one lengths case; and the
+    BERT-base training step's call, (64, 128, 3, H, d) views, not
+    causal."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for t in ATTN_T:
+        for n, t, causal in [(N, t, True) for t in ATTN_T] + [
+                (TRAIN_B, TRAIN_T, False)]:
             g = torch.Generator(device=dev).manual_seed(t)
-            qkv = torch.randn(N, t, 3, H, D, generator=g, device=dev)
-            cases.append(dict(base=qkv.to(dtype), lengths=None, causal=True,
-                              layout="bthd", t=t, dtype=dtype))
+            qkv = torch.randn(n, t, 3, H, D, generator=g, device=dev)
+            cases.append(dict(base=qkv.to(dtype), lengths=None,
+                              causal=causal, layout="bthd", n=n, t=t,
+                              dtype=dtype))
     g = torch.Generator(device=dev).manual_seed(7)
     t = 512
     qkv = torch.randn(3, N, H, t, D, generator=g, device=dev)
     lens = torch.randint(1, t + 1, (N,), generator=g, device=dev)
     cases.append(dict(base=qkv, lengths=lens, causal=False, layout="bhtd",
-                      t=t, dtype=torch.float32))
+                      n=N, t=t, dtype=torch.float32))
     return cases
 
 
@@ -282,16 +446,18 @@ def phase_kernels_vs_plain(torch, dev):
         o, lse = fa.flash_attention_with_lse(q, k, v, impl="kernel", **kw)
         op, lsep = fa.flash_attention_with_lse(q, k, v, impl="plain", **kw)
         torch.cuda.synchronize()
-        ok, err, rel = agree(o, op, ATTN_TOL)
+        ok, err, rel, top = agree_attn(o, op, ATTN_TOL)
         fin = torch.isfinite(lsep)
         check(torch.equal(fin, torch.isfinite(lse)),
               f"K1 lse +inf rows differ ({c['t']}, {_dt(c['dtype'])})")
         lse_err = (lse[fin] - lsep[fin]).abs().max().item()
         c.update(max_abs_err=err, norm_rel_err=rel, lse_err=lse_err)
-        log(f"[K1] T={c['t']} {_dt(c['dtype'])} causal={c['causal']} "
-            f"lengths={c['lengths'] is not None}: max|o-plain|={err:.3e} "
-            f"({tol_text(_dt(c['dtype']), ATTN_TOL)}: "
-            f"{'ok' if ok else 'EXCEEDED'}), |o-plain|/|plain|={rel:.3e}, "
+        log(f"[K1] N={c['n']} T={c['t']} {_dt(c['dtype'])} "
+            f"causal={c['causal']} lengths={c['lengths'] is not None}: "
+            f"max|o-plain|={err:.3e}, /max|plain|={top:.3e}, "
+            f"|o-plain|/|plain|={rel:.3e} "
+            f"({tol_text(_dt(c['dtype']), ATTN_TOL, attn=True)}: "
+            f"{'ok' if ok else 'EXCEEDED'}), "
             f"max|lse-plain|={lse_err:.3e} (tol {LSE_TOL:g})")
         check(ok and lse_err <= LSE_TOL, "K1 disagrees with plain")
     for c in lns:
@@ -452,19 +618,22 @@ def phase_times(torch, attn, lns):
         c["ms"] = time_ms(lambda b: run(b, "kernel"), sets, 20)
         c["plain_ms"] = time_ms(lambda b: run(b, "plain"), sets, 5)
         c["library_ms"] = time_ms(lib, sets, 20)
-        t, dt = c["t"], _dt(c["dtype"])
+        n, t, dt = c["n"], c["t"], _dt(c["dtype"])
         item = c["base"].element_size()
         if c["lengths"] is None:
-            flops = 4 * N * H * t * t * D / (2 if c["causal"] else 1)
+            flops = 4 * n * H * t * t * D / (2 if c["causal"] else 1)
         else:  # rows and keys past each length are not needed
             flops = 4 * H * D * float((c["lengths"].double() ** 2).sum())
         # q, k, v read where live; o and lse written in full
         live = live_share(c["lengths"], t)
         c["bound_ms"], c["bound_by"] = bound(
-            (3 * live + 1) * N * H * t * D * item + N * H * t * 4, flops, dt)
-        log(f"[time] K1 T={t} {dt} lengths={c['lengths'] is not None}: "
+            (3 * live + 1) * n * H * t * D * item + n * H * t * 4, flops, dt,
+            tensor_cores=True)
+        log(f"[time] K1 N={n} T={t} {dt} causal={c['causal']} "
+            f"lengths={c['lengths'] is not None}: "
             f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-            f"sdpa {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"sdpa {c['library_ms']:.4f} ms (kernel/sdpa "
+            f"{c['ms'] / c['library_ms']:.2f}), bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), roofline share "
             f"{c['bound_ms'] / c['ms']:.3f}")
     for c in lns:
@@ -616,10 +785,13 @@ def phase_train_kernels_vs_plain(torch, dev):
         for name, gt, rf in zip(("dq", "dk", "dv"), got, ref):
             check(bool(torch.isfinite(gt.float()).all()),
                   f"K2 {name} not finite")
-            ok, err, rel = agree(gt, rf, ATTN_BWD_TOL)
-            _log_check("K2", f"{what} {name} (max|plain|="
-                       f"{rf.float().abs().max().item():.2f})", c, ok, err,
-                       rel, ATTN_BWD_TOL)
+            ok, err, rel, top = agree_attn(gt, rf, ATTN_BWD_TOL)
+            log(f"[K2] {what} {name} (max|plain|="
+                f"{rf.float().abs().max().item():.2f}): max|d|={err:.3e}, "
+                f"/max|plain|={top:.3e}, |d|/|plain|={rel:.3e} "
+                f"({tol_text(_dt(c['dtype']), ATTN_BWD_TOL, attn=True)}: "
+                f"{'ok' if ok else 'EXCEEDED'})")
+            check(ok, f"K2 {what} {name} disagrees with plain")
             errs.append((err, rel))
         c["max_abs_err"] = max(e for e, _ in errs)
         c["norm_rel_err"] = max(r for _, r in errs)
@@ -901,11 +1073,12 @@ def phase_times_train(torch, attn, k3, k4b, drop):
         live = live_share(c["lengths"], t)
         c["bound_ms"], c["bound_by"] = bound(
             (5 * live + 3) * b * t * H * D * item + 2 * b * H * t * 4, flops,
-            _dt(c["dtype"]))
+            _dt(c["dtype"]), tensor_cores=True)
         log(f"[time] K2 B={b} T={t} {_dt(c['dtype'])} causal={c['causal']} "
             f"lengths={c['lengths'] is not None}: kernel {c['ms']:.4f} ms, "
             f"plain {c['plain_ms']:.4f} ms, sdpa backward "
-            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"{c['library_ms']:.4f} ms (kernel/sdpa "
+            f"{c['ms'] / c['library_ms']:.2f}), bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), roofline share "
             f"{c['bound_ms'] / c['ms']:.3f}")
 
@@ -1280,14 +1453,15 @@ def kernels_line(attn, lns, launches, train=None, gd=None):
                     dtype=main["dtype"], library=library,
                     cases=[_case_row(c, s) for c, s in cases])
 
-    a_cases = [(c, f"N={N} H={H} T={c['t']} d={D} "
-                + ("causal bthd" if c["lengths"] is None
-                   else "lengths bhtd")) for c in attn]
+    a_cases = [(c, f"N={c['n']} H={H} T={c['t']} d={D} "
+                + ("lengths bhtd" if c["lengths"] is not None
+                   else "causal bthd" if c["causal"] else "bthd"))
+               for c in attn]
     l_cases = [(c, f"({c['rows']}, {C})") for c in lns]
     # headline shape: the f32 prefill of the largest prompt
     a_main = _case_row(*next((c, s) for c, s in a_cases
-                             if c["t"] == ATTN_T[-1] and _dt(c["dtype"])
-                             == "float32"))
+                             if c["t"] == ATTN_T[-1] and c["n"] == N
+                             and _dt(c["dtype"]) == "float32"))
     l_main = _case_row(*next((c, s) for c, s in l_cases
                              if c["rows"] == N * ATTN_T[-1] and _dt(c["dtype"])
                              == "float32"))

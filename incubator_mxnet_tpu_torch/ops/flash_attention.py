@@ -5,15 +5,19 @@ Port of `incubator_mxnet_tpu/ops/flash_attention.py` (`_fwd_kernel` :57,
 `_fwd` :122, `_dq_kernel` :166, `_dkv_kernel` :204, `_bwd` :245, the
 `_flash_core` custom vjp :328-358, public `flash_attention` :419,
 `mha_flash` :497). The kernels are ``csrc/flash_attention.cu``, bound by
-operations on the H100 (see the source's notes):
+operations on the H100, their products on the tensor cores (`wgmma`;
+bf16 directly, f32 as 3xTF32, f32-accurate; see the source's notes):
 
-- forward: blockwise online-softmax attention, one block per
-  (batch*head, 64-row query tile), looping over 64-key tiles in shared
+- forward: blockwise online-softmax attention, one warpgroup per
+  (batch*head, 64-row query tile), looping over key tiles in shared
   memory; it returns O and the f32 logsumexp;
 - backward: a pre-pass for delta = rowsum(dO * O), then a dq kernel (one
-  block per query tile, looping over key tiles) and a dk/dv kernel (one
-  block per key tile, looping over query tiles), both recomputing
+  warpgroup per query tile, looping over key tiles) and a dk/dv kernel
+  (one per 64-key tile, looping over query tiles), both recomputing
   P = exp(s - lse).
+
+Like the reference, bf16 inputs round P and dS to bf16 before the
+products that take them; the plain versions do the same.
 
 They mask the ragged edges themselves, so the TPU wrapper's pad-to-block
 copies (:470-482) are gone, and they address q, k, v, o, dO and the
@@ -95,8 +99,9 @@ def _scores_mask(b, tq, tk, lengths, causal, dev):
 
 def plain_attention(q, k, v, lengths=None, causal=False, sm_scale=None,
                     layout="bhtd"):
-    """(o, lse): attention in PyTorch ops with f32 scores; o in the input
-    dtype and layout, lse f32 (batch*heads, t_q)."""
+    """(o, lse): attention in PyTorch ops with f32 scores, P rounded to
+    the input dtype before P V; o in the input dtype and layout, lse f32
+    (batch*heads, t_q)."""
     if layout == "bthd":
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     b, h, tq, d = q.shape
@@ -111,7 +116,10 @@ def plain_attention(q, k, v, lengths=None, causal=False, sm_scale=None,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)  # noqa: E741 — the paper's name
-    o = torch.matmul(p, v.float()) / torch.where(l > 0, l, torch.ones_like(l))
+    # P in the input dtype before P V, as the reference (:97); l sums the
+    # unrounded P
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / torch.where(
+        l > 0, l, torch.ones_like(l))
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, math.inf))
     if lens is not None:
         rows = torch.arange(tq, device=dev)
@@ -130,7 +138,8 @@ def plain_attention_bwd(q, k, v, o, lse, do, lengths=None, causal=False,
     and f32 lse (batch*heads, t_q): P = exp(s - lse) on live pairs (0 on
     masked pairs and on rows with lse = +inf), delta = rowsum(dO * O),
     dS = P * (dO V^T - delta) * scale, dq = dS K, dk = dS^T Q, dv = P^T dO,
-    all in f32."""
+    in f32 with P and dS rounded to the input dtype before the products
+    that take them (no-ops for f32 inputs)."""
     if layout == "bthd":
         q, k, v, o, do = (t.transpose(1, 2) for t in (q, k, v, o, do))
     b, h, tq, d = q.shape
@@ -146,9 +155,13 @@ def plain_attention_bwd(q, k, v, o, lse, do, lengths=None, causal=False,
                     torch.exp(s - torch.where(live, lse4, 0.0)), 0.0)
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * sm_scale
+    # P and dS in the input dtype before the second products, as the
+    # reference (:196, :234, :236)
+    ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, kf).to(q.dtype)
     dk = torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype)
-    dv = torch.matmul(p.transpose(-1, -2), dof).to(v.dtype)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof).to(
+        v.dtype)
     if layout == "bthd":
         dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))
     return dq, dk, dv

@@ -12,7 +12,12 @@ up to a few hundred keys or rows); dgamma/dbeta, summed over all rows,
 within the summation-order bound of `ops.layer_norm.column_sum_tol`; bfloat16 2^-7 rel and
 1e-5 abs, elementwise (both sides round nearly the same f32 value to bf16
 once, so they are equal or neighbours); lse 1e-4 in both (f32 on both
-sides). Dropout is bit-identical (same Philox words, same f32 multiply).
+sides). Flash attention in bfloat16 (K1, K2) is held normwise instead:
+the kernels round P and dS to bf16 as the reference does, the forward at
+its running max and the plain version at the final max, so an element
+near zero, a sum of terms that cancel, may differ by more than one
+spacing of its own; the error is at most 2^-7 of the plain tensor's norm
+and, elementwise, 2^-6 of its largest magnitude. Dropout is bit-identical (same Philox words, same f32 multiply).
 The fused GELU + dropout (K6): float32 2e-6 abs at unit-normal inputs
 (one erff/expf an element on both sides; only their last bits and the
 order of the roundings differ), bfloat16 as above, and its mask bit for
@@ -37,8 +42,10 @@ pytestmark = pytest.mark.cuda
 
 # (rtol, atol)
 BF16_TOL = (2.0 ** -7, 1e-5)
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: BF16_TOL}
 LN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: BF16_TOL}
+# flash attention in bfloat16: normwise relative, and elementwise relative
+# to the plain tensor's largest magnitude
+ATTN_BF16_NORM_TOL, ATTN_BF16_MAX_TOL = 2.0 ** -7, 2.0 ** -6
 
 
 @pytest.fixture
@@ -140,7 +147,21 @@ ATTN_CASES = [
     (2, 1, 129, 129, 128, True, [129, 0]),
     (1, 2, 20, 150, 64, False, None),
     (1, 1, 1, 1, 64, True, None),
+    (2, 2, 90, 90, 40, True, [90, 33]),
+    (2, 2, 1, 1000, 64, False, None),
 ]
+
+
+def _attn_close(got, ref, dtype):
+    """K1/K2 output against its plain version: float32 within 1e-4
+    elementwise; bfloat16 normwise (see the module's note)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        return
+    g, r = got.float(), ref.float()
+    d = g - r
+    assert d.norm().item() <= ATTN_BF16_NORM_TOL * r.norm().item()
+    assert d.abs().max().item() <= ATTN_BF16_MAX_TOL * r.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -158,8 +179,7 @@ def test_flash_attention_kernel_vs_plain(dev, dtype, case):
                                            causal=causal, impl="plain")
     torch.cuda.synchronize()
     assert o.shape == q.shape and o.dtype == dtype
-    rtol, atol = TOL[dtype]
-    torch.testing.assert_close(o.float(), op.float(), rtol=rtol, atol=atol)
+    _attn_close(o, op, dtype)
     assert torch.equal(torch.isinf(lse), torch.isinf(lsep))
     fin = torch.isfinite(lsep)
     torch.testing.assert_close(lse[fin], lsep[fin], rtol=1e-4, atol=1e-4)
@@ -181,8 +201,7 @@ def test_flash_attention_bthd_views_of_fused_qkv(dev, dtype):
     ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=True, layout="bthd", impl="plain")
     assert o.shape == (n, t, h, d) and o.is_contiguous()
-    rtol, atol = TOL[dtype]
-    torch.testing.assert_close(o.float(), ref.float(), rtol=rtol, atol=atol)
+    _attn_close(o, ref, dtype)
 
 
 def test_launch_counters_count_kernel_launches_only(dev):
@@ -388,7 +407,7 @@ def test_flash_attention_bwd_kernel_vs_plain(dev, dtype, case):
         assert gt.shape == rf.shape and gt.dtype == dtype
         assert bool(torch.isfinite(gt.float()).all())
         if dtype == torch.bfloat16:
-            _bf16_close(gt, rf)
+            _attn_close(gt, rf, dtype)
         else:
             scale = max(1.0, rf.abs().max().item())
             torch.testing.assert_close(gt, rf, rtol=0, atol=1e-4 * scale)

@@ -209,3 +209,87 @@ def test_plain_bwd_dead_rows_are_zero_not_nan():
     for g in (dq, dk, dv):
         assert torch.isfinite(g).all()
         assert (g[0, :, 20:] == 0).all() and (g[1] == 0).all()
+
+
+# (shape (B, H, T, D), causal, lengths), T within one reference block
+BF16_CASES = [
+    ((2, 2, 40, 16), True, None),
+    ((2, 2, 37, 16), False, [37, 9]),
+    ((1, 2, 64, 32), True, [64]),
+]
+
+
+@pytest.mark.parametrize("shape,causal,lengths", BF16_CASES)
+def test_bf16_plain_takes_the_reference_rounding_points(shape, causal,
+                                                        lengths):
+    """bf16 inputs: the plain forward and backward against the Pallas
+    kernels in interpret mode (`jax.vjp` for the backward). T fits one
+    reference block (512), so the reference's online softmax takes one
+    step and both sides round P and dS to bf16 at the same points (:97,
+    :196, :234, :236) from the same f32 values. They differ only where an
+    f32 sum taken in another order lands on the other side of a bf16
+    rounding boundary and moves one rounded element by one spacing: at
+    most 2^-10 of the reference's norm and, elementwise, 2^-9 of its
+    largest magnitude. Plain versions that keep P and dS in f32 miss the
+    normwise bound by 2-3x here."""
+    r = onp.random.RandomState(1)
+    q, k, v, do = (r.normal(0, 1, shape).astype("float32") for _ in range(4))
+    jl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    tl = None if lengths is None else torch.tensor(lengths)
+
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, lengths=jl, causal=causal,
+                                   interpret=True, impl="pallas")
+
+    ref, vjp = jax.vjp(f, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    refs = (ref, *vjp(jnp.asarray(do, jnp.bfloat16)))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (q, k, v, do))
+    o, lse = tfa.flash_attention_with_lse(tq, tk, tv, lengths=tl,
+                                          causal=causal)
+    got = (o, *tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, lengths=tl,
+                                       causal=causal))
+    for g, rf in zip(got, refs):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy()
+        rf = onp.asarray(rf.astype(jnp.float32))
+        d = onp.abs(g - rf)
+        assert onp.linalg.norm(d) <= 2.0 ** -10 * onp.linalg.norm(rf)
+        assert d.max() <= 2.0 ** -9 * onp.abs(rf).max()
+
+
+@pytest.mark.parametrize("shape,causal,lengths", CASES[:2])
+def test_f32_plain_unchanged_by_the_rounding_points(shape, causal, lengths):
+    """f32 inputs: rounding P and dS to the input dtype is a no-op, so the
+    plain versions give, bit for bit, the formulas without it."""
+    q, k, v = _torch(*_qkv(shape, seed=4))
+    do = torch.from_numpy(onp.random.RandomState(9).normal(
+        0, 1, shape).astype("float32"))
+    tl = None if lengths is None else torch.tensor(lengths)
+    o, lse = tfa.plain_attention(q, k, v, lengths=tl, causal=causal)
+    dq, dk, dv = tfa.plain_attention_bwd(q, k, v, o, lse, do, lengths=tl,
+                                         causal=causal)
+    scale = 1.0 / onp.sqrt(shape[-1])
+    mask, lens = tfa._scores_mask(shape[0], shape[2], shape[2], tl, causal,
+                                  q.device)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)  # noqa: E741
+    o_ref = torch.matmul(p, v) / torch.where(l > 0, l, torch.ones_like(l))
+    if lens is not None:
+        rows = torch.arange(shape[2])
+        o_ref = torch.where((rows[None, :] < lens[:, None])[:, None, :, None],
+                            o_ref, torch.zeros_like(o_ref))
+    assert torch.equal(o, o_ref)
+    lse4 = lse.reshape(shape[0], shape[1], shape[2], 1)
+    live = torch.isfinite(lse4)
+    p = torch.where(mask & live, torch.exp(
+        torch.matmul(q, k.transpose(-1, -2)) * scale
+        - torch.where(live, lse4, 0.0)), 0.0)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2))
+              - (do * o).sum(-1, keepdim=True)) * scale
+    assert torch.equal(dq, torch.matmul(ds, k))
+    assert torch.equal(dk, torch.matmul(ds.transpose(-1, -2), q))
+    assert torch.equal(dv, torch.matmul(p.transpose(-1, -2), do))
