@@ -8,14 +8,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    time and each kernel's register / shared-memory report; for the
    flash-attention kernels also their tensor-core instructions (SASS
    ``HGMMA``/``HMMA`` from ``cuobjdump``), failing on a register spill or
-   a kernel with products but no tensor-core instruction;
+   a kernel with products but no tensor-core instruction; for the K6 and
+   row-backward kernels their SASS instruction counts by opcode class,
+   registers and spills, failing on a spill;
 2. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16: the forward kernels at the shapes of the serving
    path (flash attention also at the training step's call), the training
    kernels (flash-attention backward, fused residual +
    dropout + LayerNorm forward and backward, LayerNorm backward, dropout)
    at the shapes of the BERT-base training step, dropout masks bit for
-   bit;
+   bit; the row backward (K4b, K3 backward) also at 65536 rows, at one
+   row and at each vector count a lane can take, two calls bitwise
+   equal;
 3. checks the end-to-end output on a small input (a tiny GPT on the card
    against the same weights on the CPU) and then serves three requests
    with ``gpt2_small`` at full width (768 units, 12 layers, 12 heads,
@@ -33,8 +37,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    launches counted per step, a falling loss required, and the device's
    busy time of one step from ``torch.profiler``;
 6. drives ``npx.gelu_dropout`` (the fused exact-erf GELU + dropout
-   kernel, K6, forward and backward) at BERT-base's FFN width and the
-   training step's token count: x (64, 128, 768) through
+   kernel, K6, forward and backward; its gelu and gelu' no further from
+   float64 than erff's form, on 2^22 points) at BERT-base's FFN width and
+   the training step's token count: x (64, 128, 768) through
    ``gluon.nn.Dense(3072)``, ``npx.gelu_dropout(p=0.1, training=True)``
    and ``gluon.nn.Dense(768)``, loss (y * g).sum(), backward; the same
    weights and keys with the plain versions and with the reference's
@@ -48,7 +53,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with CUDA events over CUDA-graph replays whose inputs cycle through
    copies larger than the L2 cache (a library backward pass: its
    forward-and-backward minus its forward), beside the least time the
-   card could take for the same work.
+   card could take for the same work; the row backward's device time
+   split by kernel (``torch.profiler``).
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"serve": ...}`` and
@@ -133,14 +139,24 @@ STEP_LAUNCHES = {"K1": 12, "K2": 12 * 3, "K4": 2, "K4b": 2 * 2, "K3f": 24,
 FWD_LAUNCHES = {"K1": 12, "K2": 0, "K4": 2, "K4b": 0, "K3f": 24, "K3b": 0,
                 "K5": 25, "K6f": 0, "K6b": 0}
 
+# the row backward's own checks: NV, the 16-byte vectors a lane takes of
+# a row, at counts its kernel instantiates apart, the main paths' 6 (f32)
+# and 3 (bf16) among them (C = NV * 32 * vector width), at ROW_BWD_ROWS
+# rows
+ROW_BWD_NV = (1, 3, 6, 8, 16)
+ROW_BWD_ROWS = 1000
+
 # the K6 slice: npx.gelu_dropout at BERT-base's FFN hidden. Kernel vs
-# plain, float32: max abs 2e-6 at unit-normal inputs (one erff and expf an
-# element on both sides, rounded in another order). The path, float32:
+# plain, float32: max abs 2e-6 at unit-normal inputs (the kernel's
+# rational normal tail and the plain version's erf each lie within ~4e-7
+# of float64 there, rounded in another order). The path, float32:
 # the output and every gradient within 1e-4 of its own largest magnitude
 # (two 768/3072-deep matrix products around the kernel).
 GD_TOL = 2e-6
 GD_PATH_REL_TOL = 1e-4
 GD_WARMUP, GD_STEPS = 1, 5
+# K6's gelu and gelu' against float64 at this many points of [-10, 10]
+GD_SWEEP = 2 ** 22 + 1
 GD_RAGGED = (1000, 771)          # numel not a multiple of the vector width
 GD_LARGE = (65536, FFN)          # BERT-base at sequence 512, bf16
 # operations an element (f32, on the CUDA cores): an erff or expf counted
@@ -318,12 +334,69 @@ def _ptxas_report(log_text):
     return out
 
 
+def _row_kernel_label(mangled):
+    """'K6 fwd bf16 p>0', 'row bwd f32 NV=6 K3 drop' or 'row bwd reduce
+    f32' for a K6 or row-backward kernel's mangled name, else None."""
+    import re
+
+    m = re.search(r"(gelu_dropout_kernel|ln_bwd_kernel|"
+                  r"ln_partials_reduce_kernel)I(f|13__nv_bfloat16)"
+                  r"((?:L[bi]\d+E)*)", mangled)
+    if m is None:
+        return None
+    kind = m.group(1)
+    dt = "f32" if m.group(2) == "f" else "bf16"
+    vals = re.findall(r"L[bi](\d+)E", m.group(3))
+    if kind == "gelu_dropout_kernel":
+        drop, bwd = vals
+        return (f"K6 {'bwd' if bwd == '1' else 'fwd'} {dt} "
+                f"{'p>0' if drop == '1' else 'p=0'}")
+    if kind == "ln_bwd_kernel":
+        nv, mode = vals
+        return f"row bwd {dt} NV={nv} " + {"0": "K4b", "1": "K3 p=0",
+                                            "2": "K3 drop"}[mode]
+    return f"row bwd reduce {dt}"
+
+
+# SASS opcodes counted apart in the build phase's K6 / row-backward report
+SASS_CLASSES = ("IMAD", "IMAD.WIDE", "IMAD.HI", "LOP3", "FFMA", "FMUL",
+                "FADD", "FMNMX", "MUFU", "F2FP", "PRMT", "ISETP", "FSEL",
+                "LDG", "STG", "SHFL", "LDS", "STS", "BRA")
+
+
+def _sass_counts(text, label_of):
+    """{label: {"total": n, opcode class: n}} of the kernels that
+    ``label_of`` names in ``cuobjdump -sass`` output (static counts)."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = label_of(line.split("Function :")[1].strip())
+            if cur:
+                out[cur] = dict.fromkeys(("total",) + SASS_CLASSES, 0)
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                     line)
+        if m:
+            out[cur]["total"] += 1
+            op = m.group(1)
+            for cls in SASS_CLASSES:  # "IMAD" counts IMAD.WIDE too
+                if op == cls or op.startswith(cls + "."):
+                    out[cur][cls] += 1
+    return out
+
+
 def phase_build():
-    """Build every kernel; print each library's register report, and for
-    each flash-attention kernel its tensor-core instructions (SASS
+    """Build every kernel; print each library's register report, for each
+    flash-attention kernel its tensor-core instructions (SASS
     ``HGMMA``/``HMMA`` counts from ``cuobjdump``), registers, spills and
-    shared memory. Fails if a flash kernel that runs products has no
-    tensor-core instruction or spills."""
+    shared memory, and for each K6 and row-backward kernel its SASS
+    instruction count by opcode class, registers and spills. Fails if a
+    flash kernel that runs products has no tensor-core instruction, or if
+    a flash, K6 or row-backward kernel spills."""
     import ctypes
 
     from incubator_mxnet_tpu_torch.ops import _build
@@ -334,8 +407,9 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(str(p.name) for p in paths.values()))
     logs = _build.build_logs()
+    redesigned = ("gelu_dropout", "layer_norm", "fused_block")
     for stem, text in logs.items():
-        if stem == "flash_attention":
+        if stem == "flash_attention" or stem in redesigned:
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -351,16 +425,19 @@ def phase_build():
                 smem[f"{kind} {dt} d<={dp}"] = lib.mx_flash_attention_smem(
                     code, dcode, dp)
     tool = _cuobjdump()
-    sass = {}
-    if tool is None:
-        log("[build] flash_attention: no cuobjdump found beside nvcc or in "
-            "Triton; the tensor-core instruction check did not run")
-    else:
-        text = subprocess.run([tool, "-sass", str(paths["flash_attention"])],
+
+    def sass_of(stem):
+        return subprocess.run([tool, "-sass", str(paths[stem])],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
+
+    sass = {}
+    if tool is None:
+        log("[build] no cuobjdump found beside nvcc or in Triton; the "
+            "tensor-core instruction check and the SASS counts did not run")
+    else:
         cur = None
-        for line in text.splitlines():
+        for line in sass_of("flash_attention").splitlines():
             if "Function :" in line:
                 cur = _flash_label(line.split("Function :")[1].strip())
                 if cur:
@@ -387,6 +464,23 @@ def phase_build():
     if tool is not None:
         check(len(sass) == 14, f"expected 14 flash kernels in the SASS, "
               f"found {sorted(sass)}")
+
+    for stem in redesigned:
+        regs = {_row_kernel_label(k): v for k, v in
+                _ptxas_report(logs[stem]).items() if _row_kernel_label(k)}
+        ops = {} if tool is None else _sass_counts(sass_of(stem),
+                                                   _row_kernel_label)
+        check(regs, f"{stem}: no K6 or row-backward kernel in the ptxas "
+              f"report")
+        for label in sorted(set(regs) | set(ops)):
+            r, spills = regs.get(label, (None, None))
+            o = ops.get(label)
+            text = ("" if o is None else f"{o['total']} SASS instructions ("
+                    + ", ".join(f"{k} {o[k]}" for k in SASS_CLASSES if o[k])
+                    + "), ")
+            log(f"[build] {stem} {label}: {text}{r} registers, {spills} "
+                f"bytes spilled")
+            check(spills == 0, f"{stem} kernel {label} spills registers")
 
 
 def attn_cases(torch, dev):
@@ -657,6 +751,34 @@ def phase_times(torch, attn, lns):
             f"{c['bound_ms'] / c['ms']:.3f}")
 
 
+def kernel_split_ms(torch, fn, sets, reps):
+    """{kernel name: device ms of one call of ``fn``} from torch.profiler
+    over ``reps`` calls cycling through the argument ``sets`` (after a
+    warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + getattr(
+                e, "self_device_time_total", 0.0) / 1e3 / reps
+    return out
+
+
+def _split_text(split):
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in
+                     sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def _counters():
     """The port's launch counters: name -> (module, attribute)."""
     from incubator_mxnet_tpu_torch.ops import dropout as dp
@@ -737,20 +859,28 @@ def _log_check(tag, what, c, ok, err, rel, tol):
     check(ok, f"{tag} {what} disagrees with plain")
 
 
-def _column_check(tag, what, c, got, ref, terms):
-    """dgamma/dbeta: float32 within column_sum_tol of each column;
-    bfloat16 by the elementwise rule."""
+def _column_check(tag, what, c, got, ref, terms, rows=ROWS,
+                  bf16_sums=False):
+    """dgamma/dbeta: float32 within column_sum_tol of each column (on the
+    grid the kernel ran for ``rows`` rows); bfloat16 by the elementwise
+    rule, or with ``bf16_sums`` within one spacing of the plain value plus
+    twice that bound (each side rounds its own f32 sum once; at many rows
+    a column can cancel to a value whose f32 order error exceeds its
+    spacing)."""
     import torch
 
-    from incubator_mxnet_tpu_torch.ops.layer_norm import column_sum_tol
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
     d = (got.float() - ref.float()).abs()
     rel = (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
-    if c["dtype"] == torch.bfloat16:
+    if c["dtype"] == torch.bfloat16 and not bf16_sums:
         ok, err, rel = agree(got, ref, 0.0)
         _log_check(tag, what, c, ok, err, rel, 0.0)
         return err
-    tol = column_sum_tol(terms, ROWS)
+    tol = ln.column_sum_tol(terms, rows,
+                            ln.bwd_blocks(rows, ln.sm_count(got.device)))
+    if c["dtype"] == torch.bfloat16:
+        tol = BF16_RTOL * ref.float().abs() + 2 * tol
     ok = bool((d <= tol).all())
     log(f"[{tag}] {what}: max|d|={d.max().item():.3e} (tol per column "
         f"{tol.min().item():.2e}..{tol.max().item():.2e}: "
@@ -870,6 +1000,76 @@ def phase_train_kernels_vs_plain(torch, dev):
         c["max_abs_err"] = (y.float() - yp.float()).abs().max().item()
         c["norm_rel_err"] = 0.0
     return attn, k3, k4b, drop
+
+
+def phase_row_bwd_checks(torch, dev):
+    """The row backward (K4b, and K3's backward with dropout) against its
+    plain version where the grid and the vector count change: rows past
+    one resident wave (65536, BERT-base at sequence 512), one row, and
+    widths at each vector count a lane can take apart (ROW_BWD_NV); two
+    calls give bitwise-equal dx, dh, dgamma and dbeta."""
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+
+    shapes = []
+    for dtype in (torch.float32, torch.bfloat16):
+        vec = 16 // (torch.finfo(dtype).bits // 8)
+        shapes += [(dtype, rows, C) for rows in (1, GD_LARGE[0])]
+        shapes += [(dtype, ROW_BWD_ROWS, nv * 32 * vec) for nv in ROW_BWD_NV]
+    key, p = (1234567, 7654321), TRAIN_P
+    for dtype, rows, cols in shapes:
+        g = torch.Generator(device=dev).manual_seed(rows + cols)
+        x, h, dy = (torch.randn(rows, cols, generator=g, device=dev)
+                    for _ in range(3))
+        x = (x + 0.3).to(dtype)
+        h, dy = h.to(dtype), dy.to(dtype)
+        gamma = (1 + 0.3 * torch.randn(cols, generator=g, device=dev)).to(
+            dtype)
+        beta = (0.3 * torch.randn(cols, generator=g, device=dev)).to(dtype)
+        c = dict(dtype=dtype)
+        what = f"({rows}, {cols}) {_dt(dtype)}"
+        dyf = dy.float()
+        for kind in ("K4b", "K3 p=0.1"):
+            if kind == "K4b":
+                _, mp, rp = ln.layer_norm_fwd(x, gamma, beta, impl="plain")
+                args = (x, dy, mp, rp, gamma)
+                run, s = ln.layer_norm_bwd, x.float()
+                names = ("dx", "dgamma", "dbeta")
+            else:
+                _, mp, rp = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key,
+                                                       p, impl="plain")
+                args = (x, h, dy, mp, rp, gamma, key, p)
+                run, s = fb.residual_dropout_ln_bwd, (
+                    x.float() + fb._dropped(h, key, p))
+                names = ("dx", "dh", "dgamma", "dbeta")
+            got = run(*args, impl="kernel")
+            again = run(*args, impl="kernel")
+            ref = run(*args, impl="plain")
+            torch.cuda.synchronize()
+            xhat = (s - mp[:, None]) * rp[:, None]
+            terms = {"dgamma": (dyf * xhat).abs().sum(0),
+                     "dbeta": dyf.abs().sum(0)}
+            for name, gt, rf in zip(names, got, ref):
+                check(gt.dtype == dtype and gt.shape == rf.shape,
+                      f"row bwd {kind} {what} {name}: dtype or shape")
+                if name in terms:
+                    _column_check("row bwd", f"{kind} {what} {name}", c, gt,
+                                  rf, terms[name], rows, bf16_sums=True)
+                else:
+                    ok, err, rel = agree(gt, rf, LN_TOL)
+                    _log_check("row bwd", f"{kind} {what} {name}", c, ok, err,
+                               rel, LN_TOL)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[row bwd] {kind} {what}: two calls bitwise equal "
+                f"(dgamma, dbeta and the rest): {same}")
+            check(same, f"row bwd {kind} {what}: two calls differ")
+            if kind != "K4b":  # dh = dx * scale where kept, else 0
+                keep = ph.keep_mask((rows, cols), key, p, device=dev)
+                same = torch.equal(got[1] != 0, keep & (got[0] != 0))
+                log(f"[row bwd] {kind} {what}: dh's zeros are the plain "
+                    f"Philox mask's: {same}")
+                check(same, f"row bwd {kind} {what}: mask differs from K5's")
 
 
 def phase_train_step_check(torch, dev):
@@ -1022,12 +1222,19 @@ def phase_train(torch, dev):
     for e in top[:14]:
         log(f"[train]   {getattr(e, 'self_device_time_total', 0) / 1e3:8.3f}"
             f" ms x{e.count:4d}  {e.key[:90]}")
+    row_bwd = {k: sum(getattr(e, "self_device_time_total", 0.0) / 1e3
+                      for e in top if k in e.key)
+               for k in ("ln_bwd_kernel", "ln_partials_reduce_kernel")}
+    log(f"[train] row backward (K3 backward, K4b) in the step: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in row_bwd.items())
+        + f", together {sum(row_bwd.values()):.3f} ms")
     del model, trainer
     return dict(batch=TRAIN_B, seq=TRAIN_T, dropout=TRAIN_P, lr=TRAIN_LR,
                 params=n_params, step_ms=times, warmup=WARMUP,
                 median_step_ms=med, tokens_per_s=tokens_s,
                 flops_per_token=flops_token, f32_peak_share=share,
                 device_ms_per_step=dev_ms, idle_share=idle, losses=losses,
+                row_bwd_device_ms=row_bwd,
                 launches_per_step=STEP_LAUNCHES), totals
 
 
@@ -1116,6 +1323,11 @@ def phase_times_train(torch, attn, k3, k4b, drop):
             lambda *a: lib(*a, backward=False), bsets, 20))
         c["bwd_bound_ms"], c["bwd_bound_by"] = bound(
             5 * ROWS * C * item + 8 * ROWS + 3 * C * item, 16 * ROWS * C, dt)
+        c["bwd_split"] = kernel_split_ms(
+            torch, lambda x, h, dy: fb.residual_dropout_ln_bwd(
+                x, h, dy, m, r, gm, key, p, impl="kernel"), bsets, 20)
+        log(f"[time] K3 ({ROWS}, {C}) {dt} p={p} backward by kernel "
+            f"(torch.profiler, a call): {_split_text(c['bwd_split'])}")
         log(f"[time] K3 ({ROWS}, {C}) {dt} p={p}: forward kernel "
             f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, composed "
             f"F.dropout+add+F.layer_norm {c['library_ms']:.4f} ms, bound "
@@ -1147,6 +1359,10 @@ def phase_times_train(torch, attn, k3, k4b, drop):
             lambda *a: lib(*a, backward=False), sets, 20))
         c["bound_ms"], c["bound_by"] = bound(
             3 * ROWS * C * item + 8 * ROWS + 3 * C * item, 12 * ROWS * C, dt)
+        c["split"] = kernel_split_ms(torch, lambda x, dy: ln.layer_norm_bwd(
+            x, dy, m, r, gm, impl="kernel"), sets, 20)
+        log(f"[time] K4b ({ROWS}, {C}) {dt} by kernel (torch.profiler, a "
+            f"call): {_split_text(c['split'])}")
         log(f"[time] K4b ({ROWS}, {C}) {dt}: kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, F.layer_norm backward "
             f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
@@ -1245,6 +1461,44 @@ def phase_gelu_dropout_vs_plain(torch, dev):
             check(d <= GD_TOL, "K6 disagrees with F.gelu + K5")
         del k5, gelu
     return cases
+
+
+def gelu_errors(torch, dev, n):
+    """Max abs error against float64 of gelu(u) = u * Phi(u) and gelu'(u)
+    = Phi(u) + u * phi(u), at n float32 points u of [-10, 10]: K6 (p = 0,
+    its rational normal tail) and the same formulas through erff and expf
+    (PyTorch's exact F.gelu and its autograd, float32)."""
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+    u = torch.linspace(-10, 10, n, device=dev)
+    u64 = u.double()
+    cdf = 0.5 * torch.special.erfc(-u64 / math.sqrt(2))
+    pdf = torch.exp(-0.5 * u64 * u64) / math.sqrt(2 * math.pi)
+    ref = {"gelu": u64 * cdf, "gelu'": cdf + u64 * pdf}
+    ones = torch.ones_like(u)
+    k6 = {"gelu": fb.gelu_dropout_fwd(u, (0, 0), 0.0, impl="kernel"),
+          "gelu'": fb.gelu_dropout_bwd(u, ones, (0, 0), 0.0, impl="kernel")}
+    leaf = u.clone().requires_grad_()
+    y = F.gelu(leaf, approximate="none")
+    (dy,) = torch.autograd.grad(y, leaf, ones)
+    erff = {"gelu": y.detach(), "gelu'": dy}
+    return {name: ((k6[name].double() - r).abs().max().item(),
+                   (erff[name].double() - r).abs().max().item())
+            for name, r in ref.items()}
+
+
+def phase_gelu_accuracy(torch, dev):
+    """K6's normal tail is as accurate as erff's form: its max abs error
+    of gelu and gelu' against float64 is no larger."""
+    errs = gelu_errors(torch, dev, GD_SWEEP)
+    for name, (k6, erff) in errs.items():
+        log(f"[K6] {name} on {GD_SWEEP} points of [-10, 10], max abs error "
+            f"against float64: K6 {k6:.4e}, through erff (F.gelu) "
+            f"{erff:.4e}: {'ok' if k6 <= erff else 'LARGER'}")
+        check(k6 <= erff, f"K6's {name} is less accurate than erff's form")
+    return errs
 
 
 def phase_gelu_dropout_path(torch, dev):
@@ -1423,6 +1677,8 @@ def _case_row(c, shape):
                bound_by=c["bound_by"], library_ms=c["library_ms"])
     if "xla_ms" in c:
         row["xla_ms"] = c["xla_ms"]
+    if "split" in c:
+        row["ms_by_kernel"] = c["split"]
     return row
 
 
@@ -1437,6 +1693,8 @@ def _pass_view(c, bwd):
                 bound_ms=c[pre + "bound_ms"], bound_by=c[pre + "bound_by"],
                 library_ms=c[pre + "library_ms"], p=c["p"],
                 **({"xla_ms": c[pre + "xla_ms"]} if pre + "xla_ms" in c
+                   else {}),
+                **({"split": c["bwd_split"]} if bwd and "bwd_split" in c
                    else {}))
 
 
@@ -1556,7 +1814,9 @@ def main():
     phase_build()
     attn, lns = phase_kernels_vs_plain(torch, dev)
     train_cases = phase_train_kernels_vs_plain(torch, dev)
+    phase_row_bwd_checks(torch, dev)
     gd_cases = phase_gelu_dropout_vs_plain(torch, dev)
+    gd_accuracy = phase_gelu_accuracy(torch, dev)
     phase_small_reference(torch, dev)
     launches, served = phase_serve(torch, dev)
     check_result = phase_train_step_check(torch, dev)
@@ -1581,6 +1841,9 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"train": trained}))
     log(json.dumps({"serve": served}))
+    gd_path["max_abs_err_vs_float64"] = {
+        name: {"k6": k6, "erff": erff}
+        for name, (k6, erff) in gd_accuracy.items()}
     log(json.dumps({"gelu_dropout": gd_path}))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases)))

@@ -6,8 +6,9 @@
 // Besides the small helpers, it holds the LayerNorm row code that the
 // LayerNorm kernels (layer_norm.cu) and the fused residual + dropout +
 // LayerNorm kernels (fused_block.cu) share: one warp per row, 16-byte
-// loads, f32 statistics, and a backward whose dgamma/dbeta are summed per
-// block and then across blocks by a second kernel, in a fixed order.
+// loads, f32 statistics, and a backward on a grid sized for the card whose
+// dgamma/dbeta are summed per warp, per block and then across blocks by a
+// second kernel, in a fixed order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -124,6 +125,25 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<int>* opted) {
   return cudaSuccess;
 }
 
+// Ask for the largest shared-memory share of the SM for `kernel`, once
+// per device (`done` is the caller's own static array), so that as many
+// of its blocks fit an SM as their registers allow.
+template <typename Kernel>
+cudaError_t prefer_shared(Kernel kernel, std::atomic<int>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    done[dev].store(1, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 // ---------------------------------------------------------------------
 // LayerNorm rows (layer_norm.cu, fused_block.cu)
 // ---------------------------------------------------------------------
@@ -141,13 +161,14 @@ enum LnMode : int {
 };
 
 // s for the 16-byte vector at flat offset `off` (a multiple of the vector
-// width, so the dropout words start at a multiple of 4); `words` receives
-// the vector's random words in kLnXPlusDropH mode
-template <typename T, int kMode>
+// width, so the dropout words start at a multiple of 4). In kLnXPlusDropH
+// mode bit e of `keep` says whether element e of h is kept: drawn from
+// Philox when kDraw, else given by the caller (the same bits drawn before)
+template <typename T, int kMode, bool kDraw = true>
 __device__ __forceinline__ void ln_load_s(const T* __restrict__ x,
                                           const T* __restrict__ h,
                                           long long off, const DropoutKey& key,
-                                          float* s, unsigned* words) {
+                                          float* s, unsigned& keep) {
   using V = Vec16<T>;
   constexpr int E = V::n;
   V::load(x + off, s);
@@ -155,10 +176,17 @@ __device__ __forceinline__ void ln_load_s(const T* __restrict__ x,
     float hv[E];
     V::load(h + off, hv);
     if constexpr (kMode == kLnXPlusDropH) {
-      philox_words<E>(static_cast<unsigned long long>(off), key, words);
+      if constexpr (kDraw) {
+        unsigned words[E];
+        philox_words<E>(static_cast<unsigned long long>(off), key, words);
+        keep = 0u;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          keep |= static_cast<unsigned>(words[e] >= key.threshold) << e;
+      }
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        hv[e] = words[e] >= key.threshold ? hv[e] * key.scale : 0.f;
+        hv[e] = (keep >> e) & 1u ? hv[e] * key.scale : 0.f;
     }
 #pragma unroll
     for (int e = 0; e < E; ++e) s[e] += hv[e];
@@ -190,8 +218,8 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   for (int j = 0; j < NV; ++j) {
     const int c = (j * 32 + lane) * E;
     if (c < cols) {
-      unsigned words[E];
-      ln_load_s<T, kMode>(x, h, base + c, key, v[j], words);
+      unsigned keep = 0u;
+      ln_load_s<T, kMode>(x, h, base + c, key, v[j], keep);
 #pragma unroll
       for (int e = 0; e < E; ++e) sum += v[j][e];
     } else {
@@ -278,23 +306,42 @@ cudaError_t ln_fwd_dispatch(const void* x, const void* h, const void* g,
 //   xhat = (s - mean) * rstd, wdy = dy * gamma,
 //   c1 = sum(wdy) / C, c2 = sum(wdy * xhat) / C,
 //   ds = (wdy - c1 - xhat * c2) * rstd,
-// dx = ds, dh per the mode, and per-block partials of
-// dgamma = sum_rows(dy * xhat), dbeta = sum_rows(dy).
-// A block has blockDim.x / 32 warps (8, or fewer when C is so wide that
-// 8 slots would not fit in shared memory). Each warp walks its rows
-// (row = block * warps + warp, then strided by the grid) in two passes
-// unrolled over the NV vectors of its lane: the first sums c1 and c2, the
-// second writes dx and dh and adds dy * xhat and dy into the warp's own
-// slot of shared memory, 16 bytes a lane, so no two threads ever add to
-// one address. Up to 8 vectors a lane (C <= 1024 f32, 2048 bf16) the
-// first pass keeps s and dy in registers for the second, so each input
-// crosses device memory once; wider rows are read again (from L1/L2).
-// The block then sums its warps' slots in warp order into
-// partials[block] (2 x C f32), and ln_partials_reduce_kernel sums those in
-// block order: dgamma and dbeta come out the same in every run, with no
-// float atomics.
+// dx = ds, dh per the mode, and dgamma = sum_rows(dy * xhat),
+// dbeta = sum_rows(dy).
+//
+// Bound by bytes on the H100, so the design keeps a call's fixed costs
+// (partials, shared-memory traffic, a second pass over the grid) small:
+// the wrapper launches at most kLnBwdBlocksPerSm blocks of kLnBwdWarps
+// warps an SM (`bwd_blocks` in ops/layer_norm.py), all resident at once,
+// and each warp walks its rows (row = block * warps + warp, then strided
+// by the grid) in two passes unrolled over the NV vectors of its lane
+// (NV exactly the row's vector count up to 8). The first pass sums c1
+// and c2, the second writes dx and dh. Up to kLnHoldElems elements a
+// lane (C <= 1024 in f32 and bf16) the lane holds its s and dy between
+// the passes, so each input crosses device memory once; in kLnX mode
+// (K4b) it also sums its columns' dgamma/dbeta across all its rows in
+// registers. K3, whose h and Philox words need the registers, and wider
+// rows sum into the warp's own slot of shared memory, 16 bytes a lane;
+// wider rows are read again (from L1/L2). In kLnXPlusDropH mode the
+// Philox words of a vector are drawn once a row; the keep bits stay in a
+// register. At the end each warp's sums go to its slot, and the block
+// adds its slots in warp order into partials[block] (2 x C f32);
+// ln_partials_reduce_kernel adds those in block order and writes dgamma
+// and dbeta in T. The sums' order depends on (rows, C, grid) only: the
+// same dgamma/dbeta in every run, with no float atomics.
+constexpr int kLnBwdBlocksPerSm = 2;
+constexpr int kLnHoldElems = 32;    // a lane holds its row up to this
+constexpr int kLnRegAccElems = 32;  // and, in kLnX mode, its sums
+constexpr int kLnBoundElems = 24;   // and fits kLnBwdBlocksPerSm an SM
+
+// kLnBwdBlocksPerSm resident blocks an SM leave 65536 / (256 x blocks)
+// registers a thread: enough while a lane holds at most kLnBoundElems
+// elements (C = 768 in f32 and bf16)
 template <typename T, int NV, int kMode>
-__global__ void __launch_bounds__(kLnBwdWarps * 32)
+__global__ void __launch_bounds__(kLnBwdWarps * 32,
+                                  (NV * Vec16<T>::n <= kLnBoundElems
+                                       ? kLnBwdBlocksPerSm
+                                       : 1))
     ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
                   const T* __restrict__ dy, const float* __restrict__ mean,
                   const float* __restrict__ rstd,
@@ -303,37 +350,52 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
                   int cols, DropoutKey key) {
   using V = Vec16<T>;
   constexpr int E = V::n;
-  constexpr bool kHold = NV <= 8;   // the row stays in registers
+  constexpr bool kHold = NV * E <= kLnHoldElems;
+  // dgamma/dbeta in registers where that leaves no spill at two blocks
+  // an SM: K4b; K3 (h, Philox) sums into shared memory
+  constexpr bool kRegAcc = kMode == kLnX && NV * E <= kLnRegAccElems;
   constexpr int NH = kHold ? NV : 1;
+  constexpr int NA = kRegAcc ? NV : 1;
+  constexpr int NK = (NV * E + 31) / 32;  // words of keep bits a lane
   extern __shared__ __align__(16) float acc[];  // [warps][2][cols]
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int warps = blockDim.x / 32;
   float* dg_acc = acc + warp * 2 * cols;
   float* db_acc = dg_acc + cols;
+
+  float ag[NA][E], ab[NA][E];  // the lane's dgamma/dbeta sums (kRegAcc)
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int c = (j * 32 + lane) * E;
-    if (c < cols)
 #pragma unroll
-      for (int e = 0; e < E; e += 4) {
+    for (int e = 0; e < E; ++e) {
+      if constexpr (kRegAcc) {
+        ag[j % NA][e] = 0.f;
+        ab[j % NA][e] = 0.f;
+      } else if (c < cols && e % 4 == 0) {
         *reinterpret_cast<float4*>(dg_acc + c + e) = make_float4(0, 0, 0, 0);
         *reinterpret_cast<float4*>(db_acc + c + e) = make_float4(0, 0, 0, 0);
       }
+    }
   }
 
   float hs[NH][E], hd[NH][E];  // the row's s and dy (kHold)
-  for (long long row = static_cast<long long>(blockIdx.x) * warps + warp;
-       row < rows; row += static_cast<long long>(gridDim.x) * warps) {
-    const long long base = row * cols;
+  for (int row = blockIdx.x * warps + warp; row < rows;
+       row += gridDim.x * warps) {
+    const long long base = static_cast<long long>(row) * cols;
     const float mu = mean[row], rs = rstd[row];
+    unsigned keep[NK];
+#pragma unroll
+    for (int k = 0; k < NK; ++k) keep[k] = 0u;
     float a1 = 0.f, a2 = 0.f;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int c = (j * 32 + lane) * E;
       if (c < cols) {
         float s[E], d[E], g[E];
-        unsigned words[E];
-        ln_load_s<T, kMode>(x, h, base + c, key, s, words);
+        unsigned bits = 0u;
+        ln_load_s<T, kMode>(x, h, base + c, key, s, bits);
+        keep[j * E / 32] |= bits << (j * E % 32);
         V::load(dy + base + c, d);
         V::load(gamma + c, g);
 #pragma unroll
@@ -354,45 +416,68 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
     for (int j = 0; j < NV; ++j) {
       const int c = (j * 32 + lane) * E;
       if (c < cols) {
+        const unsigned bits = keep[j * E / 32] >> (j * E % 32);
         float s[E], d[E], g[E], ds[E];
-        unsigned words[E];
         if constexpr (kHold) {
 #pragma unroll
           for (int e = 0; e < E; ++e) {
             s[e] = hs[j % NH][e];
             d[e] = hd[j % NH][e];
           }
-          if constexpr (kMode == kLnXPlusDropH)
-            philox_words<E>(static_cast<unsigned long long>(base + c), key,
-                            words);
         } else {
-          ln_load_s<T, kMode>(x, h, base + c, key, s, words);
+          unsigned given = bits;
+          ln_load_s<T, kMode, false>(x, h, base + c, key, s, given);
           V::load(dy + base + c, d);
         }
         V::load(gamma + c, g);
 #pragma unroll
         for (int e = 0; e < E; e += 4) {
-          float4 ag = *reinterpret_cast<float4*>(dg_acc + c + e);
-          float4 ab = *reinterpret_cast<float4*>(db_acc + c + e);
-          float* pg = reinterpret_cast<float*>(&ag);
-          float* pb = reinterpret_cast<float*>(&ab);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float xh = (s[e + q] - mu) * rs;
-            ds[e + q] = (d[e + q] * g[e + q] - c1 - xh * c2) * rs;
-            pg[q] += d[e + q] * xh;
-            pb[q] += d[e + q];
+          float4 sg, sb;  // the warp's slot, 16 bytes a lane (!kRegAcc)
+          if constexpr (!kRegAcc) {
+            sg = *reinterpret_cast<float4*>(dg_acc + c + e);
+            sb = *reinterpret_cast<float4*>(db_acc + c + e);
           }
-          *reinterpret_cast<float4*>(dg_acc + c + e) = ag;
-          *reinterpret_cast<float4*>(db_acc + c + e) = ab;
+          float* pg = reinterpret_cast<float*>(&sg);
+          float* pb = reinterpret_cast<float*>(&sb);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float xh = (s[e + k] - mu) * rs;
+            ds[e + k] = (d[e + k] * g[e + k] - c1 - xh * c2) * rs;
+            if constexpr (kRegAcc) {
+              ag[j % NA][e + k] += d[e + k] * xh;
+              ab[j % NA][e + k] += d[e + k];
+            } else {
+              pg[k] += d[e + k] * xh;
+              pb[k] += d[e + k];
+            }
+          }
+          if constexpr (!kRegAcc) {
+            *reinterpret_cast<float4*>(dg_acc + c + e) = sg;
+            *reinterpret_cast<float4*>(db_acc + c + e) = sb;
+          }
         }
         V::store(dx + base + c, ds);
         if constexpr (kMode == kLnXPlusDropH) {
 #pragma unroll
           for (int e = 0; e < E; ++e)
-            ds[e] = words[e] >= key.threshold ? ds[e] * key.scale : 0.f;
+            ds[e] = (bits >> e) & 1u ? ds[e] * key.scale : 0.f;
         }
         if constexpr (kMode != kLnX) V::store(dh + base + c, ds);
+      }
+    }
+  }
+  if constexpr (kRegAcc) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * 32 + lane) * E;
+      if (c < cols) {
+#pragma unroll
+        for (int e = 0; e < E; e += 4) {
+          *reinterpret_cast<float4*>(dg_acc + c + e) = make_float4(
+              ag[j][e], ag[j][e + 1], ag[j][e + 2], ag[j][e + 3]);
+          *reinterpret_cast<float4*>(db_acc + c + e) = make_float4(
+              ab[j][e], ab[j][e + 1], ab[j][e + 2], ab[j][e + 3]);
+        }
       }
     }
   }
@@ -406,27 +491,32 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
 }
 
 // out[c] = sum over blocks b of partials[b][c], c over the 2 * cols
-// entries (dgamma, then dbeta), in a fixed order: each block takes 32
-// columns, its 8 warps sum every 8th partial row, then warp 0 adds the 8
-// warp sums in order.
-static __global__ void __launch_bounds__(256)
+// entries (dgamma, then dbeta), written in T, in a fixed order: each
+// block takes 32 columns, its kLnReduceWarps warps sum every
+// kLnReduceWarps-th partial row (a few loads each, all in flight at
+// once), then warp 0 adds the warp sums in order.
+constexpr int kLnReduceWarps = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kLnReduceWarps * 32)
     ln_partials_reduce_kernel(const float* __restrict__ partials,
-                              float* __restrict__ out, int nblocks,
-                              int width) {
-  __shared__ float red[8][32];
+                              T* __restrict__ out, int nblocks, int width) {
+  __shared__ float red[kLnReduceWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
   const int col = blockIdx.x * 32 + lane;
   float a = 0.f;
-  if (col < width)
-    for (int b = w; b < nblocks; b += 8)
+  if (col < width) {
+#pragma unroll 4
+    for (int b = w; b < nblocks; b += kLnReduceWarps)
       a += partials[static_cast<long long>(b) * width + col];
+  }
   red[w][lane] = a;
   __syncthreads();
   if (w == 0 && col < width) {
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sum += red[i][lane];
-    out[col] = sum;
+    for (int i = 0; i < kLnReduceWarps; ++i) sum += red[i][lane];
+    out[col] = from_float<T>(sum);
   }
 }
 
@@ -437,7 +527,7 @@ inline int ln_bwd_warps(int cols) {
   return fit < kLnBwdWarps ? fit : kLnBwdWarps;
 }
 
-// dx (and dh), and dgamma/dbeta as f32 (2, cols) in `dgb`; `partials` is
+// dx (and dh), and dgamma/dbeta as T (2, cols) in `dgb`; `partials` is
 // the caller's (nblocks, 2, cols) f32 scratch
 template <typename T, int NV, int kMode>
 cudaError_t ln_bwd_launch(const void* x, const void* h, const void* dy,
@@ -448,8 +538,9 @@ cudaError_t ln_bwd_launch(const void* x, const void* h, const void* dy,
   const int warps = ln_bwd_warps(cols);
   const int smem = warps * 2 * cols * static_cast<int>(sizeof(float));
   auto kernel = ln_bwd_kernel<T, NV, kMode>;
-  static std::atomic<int> opted[kMaxDevices];
+  static std::atomic<int> opted[kMaxDevices], carved[kMaxDevices];
   cudaError_t err = opt_in_smem(kernel, smem, opted);
+  if (err == cudaSuccess) err = prefer_shared(kernel, carved);
   if (err != cudaSuccess) return err;
   kernel<<<nblocks, warps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(h),
@@ -459,14 +550,15 @@ cudaError_t ln_bwd_launch(const void* x, const void* h, const void* dy,
       static_cast<float*>(partials), rows, cols, key);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_partials_reduce_kernel<<<(2 * cols + 31) / 32, 256, 0, stream>>>(
-      static_cast<const float*>(partials), static_cast<float*>(dgb), nblocks,
+  ln_partials_reduce_kernel<T>
+      <<<(2 * cols + 31) / 32, kLnReduceWarps * 32, 0, stream>>>(
+      static_cast<const float*>(partials), static_cast<T*>(dgb), nblocks,
       2 * cols);
   return cudaGetLastError();
 }
 
-// the smallest power-of-two vector count per lane that covers `cols`, as
-// the forward
+// NV, the vectors a lane takes of a row: exactly the row's count up to
+// 8, then 12, 16, 24 or 32
 template <typename T, int kMode>
 cudaError_t ln_bwd_dispatch(const void* x, const void* h, const void* dy,
                             const void* mean, const void* rstd,
@@ -481,12 +573,21 @@ cudaError_t ln_bwd_dispatch(const void* x, const void* h, const void* dy,
   return ln_bwd_launch<T, NV, kMode>(x, h, dy, mean, rstd, g, dx, dh,        \
                                      partials, dgb, rows, cols, nblocks, key, \
                                      s)
-  if (nv <= 1) MX_LN_BWD(1);
-  if (nv <= 2) MX_LN_BWD(2);
-  if (nv <= 4) MX_LN_BWD(4);
-  if (nv <= 8) MX_LN_BWD(8);
+  switch (nv) {
+    case 1: MX_LN_BWD(1);
+    case 2: MX_LN_BWD(2);
+    case 3: MX_LN_BWD(3);
+    case 4: MX_LN_BWD(4);
+    case 5: MX_LN_BWD(5);
+    case 6: MX_LN_BWD(6);
+    case 7: MX_LN_BWD(7);
+    case 8: MX_LN_BWD(8);
+    default: break;
+  }
+  if (nv <= 12) MX_LN_BWD(12);
   if (nv <= 16) MX_LN_BWD(16);
   if constexpr (E == 4) {
+    if (nv <= 24) MX_LN_BWD(24);
     if (nv <= 32) MX_LN_BWD(32);
   }
 #undef MX_LN_BWD

@@ -23,9 +23,10 @@
 // (3 * rows * C * itemsize); backward reads x, h and dy and writes dx and
 // dh (5 * rows * C * itemsize), plus the f32 statistics. Design: the
 // LayerNorm row code of common.cuh (one warp per row, 16-byte loads, the
-// forward's row held in registers, the backward's two passes with per-warp
-// dgamma/dbeta slots in shared memory and a fixed-order reduction of the
-// per-block partials). C is at most 4096 and a multiple of the vector
+// forward's row held in registers; the backward on a grid of resident
+// blocks whose warps walk many rows, its Philox words drawn once a row,
+// dgamma/dbeta summed per warp in shared memory and then in a fixed
+// order across the per-block partials). C is at most 4096 and a multiple of the vector
 // width; the Python wrapper checks both and the 16-byte alignment.
 #include "common.cuh"
 
@@ -93,8 +94,8 @@ MX_EXPORT int mx_residual_dropout_ln_fwd(int dtype, int mode, const void* x,
   }
 }
 
-// dx, dh (rows, cols) in the input dtype and dgamma/dbeta as f32
-// (2, cols) in `dgb`, regenerating the forward's mask from the same key.
+// dx, dh (rows, cols) and dgamma/dbeta (2, cols) in `dgb`, all in the
+// input dtype, regenerating the forward's mask from the same key.
 // `partials` is f32 scratch of (nblocks, 2, cols); a fixed nblocks gives
 // the same dgamma/dbeta in every run. Runs on the caller's current
 // device; returns the cudaError_t of the launches.

@@ -18,14 +18,15 @@
 // in common.cuh, shared with fused_block.cu): one warp per row, 16-byte
 // loads, the loops over a row unrolled for its width. The forward (four
 // rows per 128-thread block) holds its row in registers, so x crosses
-// device memory once. The backward (eight warps per block) reads its row
-// twice, the second time from L1/L2, and keeps dgamma/dbeta partials in
-// shared memory, one slot per warp; the TPU kernel accumulated them
-// across its sequential grid in VMEM, but Hopper's blocks run in
-// parallel, so each block writes its (2, C) f32 partial and a second
-// kernel sums the partials in a fixed order (deterministic, no float
-// atomics). C is at most 4096 and a multiple of the vector width; the
-// Python wrapper checks both and the 16-byte alignment.
+// device memory once. The backward runs on a grid of at most two
+// 8-warp blocks an SM, all resident, each warp walking many rows; up to
+// C = 1024 a lane holds its row and, up to C = 768, its columns'
+// dgamma/dbeta sums in registers. The TPU kernel accumulated dgamma/dbeta across its
+// sequential grid in VMEM, but Hopper's blocks run in parallel, so each
+// block writes its (2, C) f32 partial and a second kernel sums the
+// partials in a fixed order (deterministic, no float atomics) and writes
+// them in the input dtype. C is at most 4096 and a multiple of the vector
+// width; the Python wrapper checks both and the 16-byte alignment.
 #include "common.cuh"
 
 namespace {
@@ -62,8 +63,8 @@ MX_EXPORT int mx_layer_norm_fwd(int dtype, const void* x,
   }
 }
 
-// dx (rows, cols) in the input dtype, and dgamma/dbeta as f32 (2, cols) in
-// `dgb`, from x, dy, the forward's f32 mean/rstd and gamma. `partials` is
+// dx (rows, cols) and dgamma/dbeta (2, cols) in `dgb`, all in the input
+// dtype, from x, dy, the forward's f32 mean/rstd and gamma. `partials` is
 // f32 scratch of (nblocks, 2, cols); nblocks picks the grid (and with it
 // the summation order, so a fixed nblocks gives the same dgamma/dbeta in
 // every run). Runs on the caller's current device; returns the

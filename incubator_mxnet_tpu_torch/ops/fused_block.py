@@ -38,17 +38,21 @@ kernel and the reduction of its dgamma/dbeta partials.
 and the `_gd_core` custom vjp (:335-352). The kernels are
 ``csrc/gelu_dropout.cu``: y = dropout_p(gelu(u)) with the exact erf form
 of GELU, and du = dy * gelu'(u) * mask * scale with gelu'(u) = Phi(u) +
-u * phi(u), all in f32, one 16-byte vector a thread. Bound by bytes on
-the H100: 2 * numel * itemsize forward, 3 * numel * itemsize backward.
-The saved residuals are u and the key, as `_gd_core_fwd` (:340) saves
-them: neither the mask nor gelu(u). The mask is K5's for the same key
-and shape, so ``gelu_dropout(u, key, p)`` equals
-``dropout(F.gelu(u, approximate="none"), key, p)`` in float32, bit for
-bit. The reference's erf is the Abramowitz-Stegun approximation (within
-1.5e-7), there only because Pallas has no erf lowering on the TPU; the
-port computes erf itself. At p = 0 the kernel still runs, without
-drawing a mask, as `_gd_call` does (``use_rng=False``); at p = 1 the
-result and the gradient are zeros and nothing is launched. The counters
+u * phi(u), all in f32, one (f32) or two (bf16) 16-byte vectors a
+thread. Bound by bytes on the H100: 2 * numel * itemsize forward,
+3 * numel * itemsize backward. The saved residuals are u and the key, as
+`_gd_core_fwd` (:340) saves them: neither the mask nor gelu(u). The mask
+is K5's for the same key and shape, so the plain ``gelu_dropout(u, key,
+p)`` equals ``dropout(F.gelu(u, approximate="none"), key, p)`` in
+float32, bit for bit. The reference's erf is the Abramowitz-Stegun
+approximation (within 1.5e-7), there only because Pallas has no erf
+lowering on the TPU. The kernel computes Phi and phi from one rational
+approximation of the normal tail, no further from float64 than erff's
+form (``chip_smoke.py`` measures both), so it agrees with the plain
+version within a few f32 roundings, not bit for bit. At p = 0 the kernel
+still runs, without drawing a mask, as `_gd_call` does
+(``use_rng=False``); at p = 1 the result and the gradient are zeros and
+nothing is launched. The counters
 are ``gd_launches`` and ``gd_bwd_launches``.
 """
 from __future__ import annotations
@@ -63,7 +67,7 @@ from . import _build
 from ._philox import dropout_scale, keep_mask, threshold
 from .layer_norm import (BWD_KERNELS, bwd_blocks, check_kernel_args,
                          layer_norm_bwd, layer_norm_fwd, plain_layer_norm,
-                         plain_ln_grads, use_plain)
+                         plain_ln_grads, sm_count, use_plain)
 
 __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "residual_dropout_ln_fwd", "residual_dropout_ln_bwd",
@@ -181,10 +185,10 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
     if rows == 0:
         zero = torch.zeros(feat, dtype=gamma.dtype, device=x2d.device)
         return dx, dh, zero, zero.clone()
-    nblocks = bwd_blocks(rows)
+    nblocks = bwd_blocks(rows, sm_count(x2d.device))
     partials = torch.empty((nblocks, 2, feat), dtype=torch.float32,
                            device=x2d.device)
-    dgb = torch.empty((2, feat), dtype=torch.float32, device=x2d.device)
+    dgb = torch.empty((2, feat), dtype=gamma.dtype, device=x2d.device)
     mode, *key_args = _mode_key_args(key, p)
     lib = _lib()
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
@@ -197,7 +201,7 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
             *key_args, stream)
     _build.check(lib, err, "residual_dropout_ln_bwd")
     bwd_launches += BWD_KERNELS
-    return dx, dh, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
+    return dx, dh, dgb[0], dgb[1]
 
 
 def residual_dropout_ln_fwd(x2d, h2d, gamma, beta, key, p, eps=1e-5,

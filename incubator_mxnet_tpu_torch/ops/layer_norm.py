@@ -8,7 +8,8 @@ Port of `incubator_mxnet_tpu/ops/layer_norm.py` (`_fwd_kernel` :49,
 per row; the forward holds the row in registers, so x is read once and y
 written once; the backward writes dx and per-block dgamma/dbeta partials
 that a second kernel sums in a fixed order. Both are bound by bytes on
-the H100.
+the H100: the backward's grid fills the card once (:func:`bwd_blocks`)
+and its warps walk the rows, summing dgamma/dbeta in registers.
 
 :func:`plain_layer_norm` and :func:`plain_layer_norm_bwd` repeat the
 kernels' arithmetic in PyTorch: mean first, then the centred variance,
@@ -27,23 +28,31 @@ kernels, the row kernel and the reduction of its dgamma/dbeta partials.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["MAX_FEATURES", "BWD_KERNELS", "supports", "column_sum_tol", "plain_layer_norm", "plain_ln_grads",
-           "plain_layer_norm_bwd", "layer_norm_fwd", "layer_norm_bwd",
-           "layer_norm", "launches", "bwd_launches"]
+__all__ = ["MAX_FEATURES", "BWD_KERNELS", "supports", "bwd_blocks",
+           "sm_count", "column_sum_tol", "plain_layer_norm",
+           "plain_ln_grads", "plain_layer_norm_bwd", "layer_norm_fwd",
+           "layer_norm_bwd", "layer_norm", "launches", "bwd_launches"]
 
 #: Largest feature size the kernels take: 32 lanes x 32 float4 vectors
 #: (f32) or 16 eight-wide vectors (bf16) held in registers per row.
 MAX_FEATURES = 4096
-#: Most blocks the backward grid takes: its dgamma/dbeta partials are
-#: (blocks, 2, C) f32, and a fixed grid for a given row count fixes the
-#: order of the sums.
-BWD_MAX_BLOCKS = 512
+#: Backward blocks an SM (csrc/common.cuh kLnBwdBlocksPerSm): the grid is
+#: at most two 8-warp blocks per SM, all resident at once, and its
+#: dgamma/dbeta partials are (blocks, 2, C) f32. A fixed grid for a given
+#: row count and card fixes the order of the sums.
+BWD_BLOCKS_PER_SM = 2
+#: Rows a backward block takes before the grid is full: one a warp.
+BWD_WARPS = 8
+#: Warps of the reduction of the partials (csrc/common.cuh
+#: kLnReduceWarps): each adds every BWD_REDUCE_WARPS-th partial in turn.
+BWD_REDUCE_WARPS = 32
 #: Kernels one backward call launches: the row kernel, then the reduction
 #: of its per-block dgamma/dbeta partials.
 BWD_KERNELS = 2
@@ -139,25 +148,38 @@ def check_kernel_args(what, x2d, params, others=()):
         raise MXNetError(f"{what}: all inputs must share a device")
 
 
-def bwd_blocks(rows):
-    """The backward's grid: eight rows a block (one a warp), at most
-    BWD_MAX_BLOCKS."""
-    return max(1, min(-(-rows // 8), BWD_MAX_BLOCKS))
+def bwd_blocks(rows, sms):
+    """The backward's grid on a card of ``sms`` SMs: one row a warp
+    (BWD_WARPS a block) while rows are few, else BWD_BLOCKS_PER_SM blocks
+    an SM whose warps walk the rows."""
+    return max(1, min(-(-rows // BWD_WARPS), BWD_BLOCKS_PER_SM * sms))
 
 
-def column_sum_tol(terms_abs_sum, rows):
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """The SMs of a CUDA device (what :func:`bwd_blocks` sizes for)."""
+    device = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None
+                     else device.index)
+
+
+def column_sum_tol(terms_abs_sum, rows, nblocks):
     """Bound on |kernel - plain| of a float32 dgamma/dbeta column summed
-    over ``rows`` rows, from the orders of the two sums. The backward grid
-    (:func:`bwd_blocks`, blocks of at least 4 warps) gives a warp at most
-    ceil(rows / (4 * BWD_MAX_BLOCKS)) rows; a block sums its up to 8 warp
-    slots; each of the reduce kernel's 8 warps adds BWD_MAX_BLOCKS / 8
-    block partials, then the 8 warp sums. The plain sum is a tree of depth
-    log2(rows). Each side errs by at most its depth times 2^-24 times the
-    sum of |terms|, plus a few ulps of each term, whose inputs differ in
-    their last bits."""
-    per_warp = -(-rows // (4 * BWD_MAX_BLOCKS))
-    depth = (per_warp + 8 + BWD_MAX_BLOCKS // 8 + 8
-             + max(1, rows.bit_length()) + 4)
+    over ``rows`` rows on a backward grid of ``nblocks`` blocks
+    (:func:`bwd_blocks`), from the orders of the two sums. A block has at
+    least 4 warps (7 at C = 4096), so a warp adds at most
+    ceil(rows / (4 * nblocks)) rows in turn; a block sums its up to 8 warp
+    slots; each of the reduce kernel's BWD_REDUCE_WARPS warps adds
+    ceil(nblocks / BWD_REDUCE_WARPS) block partials, then warp 0 adds the
+    warp sums. The plain sum is a tree of depth log2(rows). Each side errs
+    by at most its depth times 2^-24 times the sum of |terms|, plus a few
+    ulps of each term, whose inputs differ in their last bits."""
+    depth = (-(-rows // (4 * nblocks)) + 8 + -(-nblocks // BWD_REDUCE_WARPS)
+             + BWD_REDUCE_WARPS + max(1, rows.bit_length()) + 4)
     return depth * 2.0 ** -24 * terms_abs_sum
 
 
@@ -193,10 +215,10 @@ def _kernel_bwd(x2d, dy2d, mean, rstd, gamma):
     if rows == 0:
         zero = torch.zeros(feat, dtype=gamma.dtype, device=x2d.device)
         return dx, zero, zero.clone()
-    nblocks = bwd_blocks(rows)
+    nblocks = bwd_blocks(rows, sm_count(x2d.device))
     partials = torch.empty((nblocks, 2, feat), dtype=torch.float32,
                            device=x2d.device)
-    dgb = torch.empty((2, feat), dtype=torch.float32, device=x2d.device)
+    dgb = torch.empty((2, feat), dtype=gamma.dtype, device=x2d.device)
     lib = _lib()
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
@@ -207,7 +229,7 @@ def _kernel_bwd(x2d, dy2d, mean, rstd, gamma):
             nblocks, stream)
     _build.check(lib, err, "layer_norm_bwd")
     bwd_launches += BWD_KERNELS
-    return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
+    return dx, dgb[0], dgb[1]
 
 
 def use_plain(what, x2d, impl):

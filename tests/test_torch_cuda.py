@@ -19,9 +19,10 @@ near zero, a sum of terms that cancel, may differ by more than one
 spacing of its own; the error is at most 2^-7 of the plain tensor's norm
 and, elementwise, 2^-6 of its largest magnitude. Dropout is bit-identical (same Philox words, same f32 multiply).
 The fused GELU + dropout (K6): float32 2e-6 abs at unit-normal inputs
-(one erff/expf an element on both sides; only their last bits and the
-order of the roundings differ), bfloat16 as above, and its mask bit for
-bit the dropout kernel's.
+(the kernel's rational normal tail and the plain version's erf each lie
+within ~4e-7 of float64 there; only last bits and the order of the
+roundings differ), bfloat16 as above, and its mask bit for bit the
+dropout kernel's.
 """
 import math
 
@@ -299,6 +300,22 @@ def test_dropout_backward_reuses_the_mask(dev):
                                rtol=1e-6, atol=0)
 
 
+def _assert_column_sums(dev, rows, got, ref, dy, xhat):
+    """dgamma, dbeta within the summation-order bound of the grid the
+    kernel ran on; in bfloat16 plus one spacing of the plain value (each
+    side rounds its own f32 sum once; at many rows a column can cancel to
+    a value whose f32 order error exceeds its spacing)."""
+    nblocks = ln.bwd_blocks(rows, ln.sm_count(dev))
+    dy = dy.float()
+    for g, r, terms in zip(got, ref, ((dy * xhat).abs().sum(0),
+                                      dy.abs().sum(0))):
+        tol = ln.column_sum_tol(terms, rows, nblocks)
+        g, r = g.float(), r.float()
+        if got[0].dtype == torch.bfloat16:
+            tol = BF16_TOL[0] * r.abs() + 2 * tol
+        assert ((g - r).abs() <= tol).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,c", [(1, 64), (5, 96), (13, 768),
                                     (1000, 768), (7, 1000), (3, 4096),
@@ -322,10 +339,7 @@ def test_layer_norm_bwd_kernel_vs_plain(dev, dtype, rows, c):
         return
     torch.testing.assert_close(dx, rx, rtol=0, atol=2e-5)
     xhat = (x - mean[:, None]) * rstd[:, None]
-    assert ((dg - rg).abs()
-            <= ln.column_sum_tol((dy * xhat).abs().sum(0), rows)).all()
-    assert ((db - rb).abs()
-            <= ln.column_sum_tol(dy.abs().sum(0), rows)).all()
+    _assert_column_sums(dev, rows, (dg, db), (rg, rb), dy, xhat)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -368,10 +382,51 @@ def test_residual_dropout_ln_kernel_vs_plain(dev, dtype, rows, c, p):
         assert torch.equal(grads[1] == 0, ~keep | (refs[1] == 0))
     s = x.float() + fb._dropped(h, key, p)
     xhat = (s - mp[:, None]) * rp[:, None]
-    assert ((grads[2] - refs[2]).abs()
-            <= ln.column_sum_tol((dy * xhat).abs().sum(0), rows)).all()
-    assert ((grads[3] - refs[3]).abs()
-            <= ln.column_sum_tol(dy.abs().sum(0), rows)).all()
+    _assert_column_sums(dev, rows, grads[2:], refs[2:], dy, xhat)
+
+
+# NV, the 16-byte vectors a lane takes of a row: each count the row
+# backward instantiates apart (C = NV * 32 * vector width)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv", [1, 3, 6, 8, 16])
+@pytest.mark.parametrize("rows", [1, 7, 65536])
+def test_row_bwd_kernel_vs_plain_at_each_vector_count(dev, dtype, nv, rows):
+    """K4b and K3's backward with dropout against their plain versions,
+    from one row to 65536 (many rows a warp on the card-sized grid); two
+    calls give bitwise-equal outputs, dgamma and dbeta included."""
+    c = nv * 32 * (16 // (torch.finfo(dtype).bits // 8))
+    g = _gen(dev, rows * 3 + nv)
+    x = (torch.randn(rows, c, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    h = torch.randn(rows, c, generator=g, device=dev).to(dtype)
+    dy = torch.randn(rows, c, generator=g, device=dev).to(dtype)
+    gamma = (1 + 0.3 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.3 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    key, p = (2718, 28182), 0.1
+    _, m, r = ln.layer_norm_fwd(x, gamma, beta, impl="plain")
+    _, m3, r3 = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key, p,
+                                           impl="plain")
+    for run, args, s, mean, rstd in (
+            (ln.layer_norm_bwd, (x, dy, m, r, gamma), x.float(), m, r),
+            (fb.residual_dropout_ln_bwd, (x, h, dy, m3, r3, gamma, key, p),
+             x.float() + fb._dropped(h, key, p), m3, r3)):
+        got = run(*args, impl="kernel")
+        again = run(*args, impl="kernel")
+        ref = run(*args, impl="plain")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(t.dtype == dtype for t in got)
+        for gt, rf in zip(got[:-2], ref[:-2]):          # dx (and dh)
+            if dtype == torch.bfloat16:
+                _bf16_close(gt, rf)
+            else:
+                torch.testing.assert_close(gt, rf, rtol=0, atol=2e-5)
+        _assert_column_sums(dev, rows, got[-2:], ref[-2:], dy,
+                            (s - mean[:, None]) * rstd[:, None])
+    # dh = dx * scale where kept, 0 where dropped (the kernel against
+    # itself: at 65536 rows some plain dx cancel to exactly 0 where the
+    # kernel's does not, and the other way round)
+    keep = ph.keep_mask((rows, c), key, p, device=dev)
+    assert torch.equal(got[1] != 0, keep & (got[0] != 0))
 
 
 def test_residual_dropout_ln_mask_is_the_dropout_kernels(dev):
@@ -516,8 +571,10 @@ def _gd_close(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# numels below, at and past one block (4096 f32 / 8192 bf16 elements,
+# 16 / 32 a thread), most of them no multiple of a thread's elements
 @pytest.mark.parametrize("shape", [(1, 4), (7, 13), (1000, 771),
-                                   (33, 3072)])
+                                   (33, 3072), (5, 1000), (1001, 777)])
 @pytest.mark.parametrize("p", [0.0, 0.1, 0.5])
 def test_gelu_dropout_kernel_vs_plain(dev, dtype, shape, p):
     """Forward and backward against the plain versions (the tail of a
@@ -539,6 +596,16 @@ def test_gelu_dropout_kernel_vs_plain(dev, dtype, shape, p):
         assert torch.equal(y != 0, k5 & (gelu != 0))
         assert not bool((du[~k5] != 0).any())
     torch.cuda.synchronize()
+
+
+def test_gelu_dropout_error_no_larger_than_erffs(dev):
+    """K6's gelu and gelu' (its rational normal tail) are no further from
+    float64 than the same formulas through erff and expf."""
+    import chip_smoke
+
+    for name, (k6, erff) in chip_smoke.gelu_errors(torch, dev,
+                                                   2 ** 20 + 1).items():
+        assert k6 <= erff, (name, k6, erff)
 
 
 def test_gelu_dropout_equals_gelu_then_the_dropout_kernel(dev):

@@ -50,8 +50,10 @@ def _leaves(*arrays):
 
 
 # rows a multiple of the reference's block rows (it pads otherwise) with
-# several of its blocks; C from a narrow width to BERT-base's
-@pytest.mark.parametrize("rows,c", [(16, 128), (512, 128), (16, 768)])
+# several of its blocks, or fewer rows than one block (75 = 72 + 3, one
+# block of its own size); C from a narrow width to BERT-base's
+@pytest.mark.parametrize("rows,c", [(16, 128), (512, 128), (16, 768),
+                                    (75, 768)])
 def test_p0_matches_pallas_core_interpret(rows, c):
     x, h, g, b, dy = _inputs(rows, c, seed=rows + c)
 
@@ -141,3 +143,20 @@ def test_bad_arguments_raise():
         tfb.residual_dropout_ln(x, h, g, b, 0.1, (1, 1), impl="pallas")
     with pytest.raises(MXNetError):
         npx.residual_dropout_ln(x, h, g, b, axis=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_plain_bwd_returns_dgamma_dbeta_in_gamma_dtype(dtype, p):
+    """As the kernel writes them: dgamma/dbeta in gamma's dtype, the f32
+    column sums rounded once; dx and dh in the inputs' dtype."""
+    x, h, g, b, dy = (torch.from_numpy(a).to(dtype)
+                      for a in _inputs(9, 64, seed=5))
+    key = (11, 12)
+    _, mean, rstd = tfb.residual_dropout_ln_fwd(x, h, g, b, key, p)
+    dx, dh, dg, db = tfb.residual_dropout_ln_bwd(x, h, dy, mean, rstd, g,
+                                                 key, p)
+    assert dx.dtype == dh.dtype == dg.dtype == db.dtype == dtype
+    s = x.float() + tfb._dropped(h, key, p)
+    _, dg32, db32 = tln.plain_ln_grads(s, dy, mean, rstd, g)
+    assert torch.equal(dg, dg32.to(dtype)) and torch.equal(db, db32.to(dtype))

@@ -88,8 +88,10 @@ def test_impl_kernel_on_cpu_raises():
         tln.layer_norm(x, g, b, impl="pallas")
 
 
-# rows over several of the reference's 8-row blocks, the last one padded
-@pytest.mark.parametrize("rows,c", [(24, 64), (37, 96), (19, 768)])
+# rows over several of the reference's 8-row blocks, the last one padded;
+# 75 = 72 + 3 rows at BERT-base's width
+@pytest.mark.parametrize("rows,c", [(24, 64), (37, 96), (19, 768),
+                                    (75, 768)])
 def test_bwd_matches_pallas_vjp_interpret(rows, c):
     """dx, dgamma and dbeta against `jax.vjp` of the JAX package's
     `layer_norm` (its custom vjp over the Pallas `_fwd` / `_bwd` kernels,
@@ -125,7 +127,70 @@ def test_plain_bwd_is_the_explicit_formula():
                                     rstd.detach(), gt.detach())
     for got, ref in ((dx, xt.grad), (dg, gt.grad), (db, bt.grad)):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
-    dxb, dgb, _ = tln.layer_norm_bwd(xt.detach().bfloat16(), dy.bfloat16(),
-                                     mean.detach(), rstd.detach(),
-                                     gt.detach().bfloat16())
-    assert dxb.dtype == dgb.dtype == torch.bfloat16
+    bf = (xt.detach().bfloat16(), dy.bfloat16(), mean.detach(),
+          rstd.detach(), gt.detach().bfloat16())
+    dxb, dgb, dbb = tln.layer_norm_bwd(*bf)
+    assert dxb.dtype == dgb.dtype == dbb.dtype == torch.bfloat16
+    # dgamma/dbeta as the kernel writes them: the f32 sums rounded once
+    _, dg32, db32 = tln.plain_ln_grads(*bf)
+    assert torch.equal(dgb, dg32.bfloat16()) and torch.equal(
+        dbb, db32.bfloat16())
+
+
+# (rows, SMs): one row a warp while rows are few; two 8-warp blocks an SM
+# past that, whatever the row count
+@pytest.mark.parametrize("rows,sms,blocks", [
+    (1, 132, 1), (7, 132, 1), (8, 132, 1), (9, 132, 2), (2112, 132, 264),
+    (2113, 132, 264), (8192, 132, 264), (65536, 132, 264), (8192, 78, 156)])
+def test_bwd_grid_is_fixed_per_row_count(rows, sms, blocks):
+    assert tln.bwd_blocks(rows, sms) == blocks
+    assert tln.bwd_blocks(rows, sms) == tln.bwd_blocks(rows, sms)
+    # every warp of the grid has at most ceil(rows / warps) rows
+    assert blocks * tln.BWD_WARPS * -(-rows // (blocks * tln.BWD_WARPS)) \
+        >= rows
+
+
+def _kernel_order_sum(terms, nblocks, warps=8):
+    """float32 column sums of (rows, C) ``terms`` in the row backward's
+    order: warp w of block b adds rows b * warps + w, then every
+    nblocks * warps-th row, in turn; a block adds its warps' sums in warp
+    order; the reduction's warps add every BWD_REDUCE_WARPS-th block
+    partial in turn, then warp 0 adds the warp sums in order."""
+    rows, c = terms.shape
+    lanes = nblocks * warps
+    per = -(-rows // lanes)
+    padded = onp.zeros((per * lanes, c), onp.float32)
+    padded[:rows] = terms
+    # [k, lane] -> row k * lanes + lane; adding zeros is exact
+    by_warp = onp.add.accumulate(padded.reshape(per, lanes, c), axis=0,
+                                 dtype=onp.float32)[-1]
+    blocks = onp.add.accumulate(by_warp.reshape(nblocks, warps, c), axis=1,
+                                dtype=onp.float32)[:, -1]
+    rw = tln.BWD_REDUCE_WARPS
+    rounds = -(-nblocks // rw)
+    pb = onp.zeros((rounds * rw, c), onp.float32)
+    pb[:nblocks] = blocks
+    red = onp.add.accumulate(pb.reshape(rounds, rw, c), axis=0,
+                             dtype=onp.float32)[-1]
+    return onp.add.accumulate(red, axis=0, dtype=onp.float32)[-1]
+
+
+@pytest.mark.parametrize("rows", [1, 75, 2113, 8192])
+def test_column_sum_tol_covers_the_kernel_order(rows):
+    """The kernel's float32 order of a dgamma-like column sum and the
+    plain float32 sum each stay within `column_sum_tol` of the exact sum
+    (float64), so their difference does too (at half the bound each)."""
+    c = 16
+    r = onp.random.RandomState(rows)
+    terms = (r.normal(0, 1, (rows, c)) * r.lognormal(0, 2, (rows, 1))
+             ).astype(onp.float32)
+    exact = terms.astype(onp.float64).sum(0)
+    nblocks = tln.bwd_blocks(rows, 132)
+    tol = tln.column_sum_tol(
+        torch.from_numpy(onp.abs(terms).sum(0).astype(onp.float32)), rows,
+        nblocks).double().numpy()
+    kernel = _kernel_order_sum(terms, nblocks).astype(onp.float64)
+    plain = torch.from_numpy(terms).sum(0).double().numpy()
+    assert (onp.abs(kernel - exact) <= tol / 2).all()
+    assert (onp.abs(plain - exact) <= tol / 2).all()
+    assert (onp.abs(kernel - plain) <= tol).all()
