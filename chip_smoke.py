@@ -9,8 +9,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    flash-attention kernels also their tensor-core instructions (SASS
    ``HGMMA``/``HMMA`` from ``cuobjdump``), failing on a register spill or
    a kernel with products but no tensor-core instruction; for the K6 and
-   row-backward kernels their SASS instruction counts by opcode class,
-   registers and spills, failing on a spill;
+   LayerNorm row kernels (forward and backward, every layout) their SASS
+   instruction counts by opcode class, registers and spills, failing on a
+   spill;
 2. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16: the forward kernels at the shapes of the serving
    path (flash attention also at the training step's call), the training
@@ -19,7 +20,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    at the shapes of the BERT-base training step, dropout masks bit for
    bit; the row backward (K4b, K3 backward) also at 65536 rows, at one
    row and at each vector count a lane can take, two calls bitwise
-   equal;
+   equal; the row kernels also in AMP's layouts, K3 with f32 x, bf16 h
+   and f32 gamma/beta (8192 and 1000 rows: equal to the f32 kernels on h
+   widened to f32 bit for bit, its mask the dropout kernel's), K4 and
+   K4b with bf16 x and f32 gamma/beta (8192 and 8 rows), dgamma/dbeta in
+   f32 and bitwise equal across two calls;
 3. checks the end-to-end output on a small input (a tiny GPT on the card
    against the same weights on the CPU) and then serves three requests
    with ``gpt2_small`` at full width (768 units, 12 layers, 12 heads,
@@ -35,7 +40,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    sequence 128, dropout 0.1, ``Trainer`` with Adam at lr 1e-4, softmax
    cross-entropy): 2 warm-up and 10 timed steps, with each kernel's
    launches counted per step, a falling loss required, and the device's
-   busy time of one step from ``torch.profiler``;
+   busy time of one step from ``torch.profiler``; then the same workload
+   under ``amp.init("bfloat16")`` (the reference bench's own setting),
+   its launches counted per step by layout (the row kernels in AMP's
+   mixed layouts, the flash kernels bf16), its device time by kernel;
+   then one more run in f32 with TF32 products (a number, not a path);
 6. drives ``npx.gelu_dropout`` (the fused exact-erf GELU + dropout
    kernel, K6, forward and backward; its gelu and gelu' no further from
    float64 than erff's form, on 2^22 points) at BERT-base's FFN width and
@@ -57,11 +66,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    split by kernel (``torch.profiler``).
 
 Everything it has to say comes on earlier lines: the card's name and
-power limit (``nvidia-smi``), ``{"train": ...}``, ``{"serve": ...}`` and
-``{"gelu_dropout": ...}`` lines, one ``{"kernels": [...]}`` line, and
+power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
+``{"train_tf32": ...}``, ``{"serve": ...}`` and ``{"gelu_dropout": ...}``
+lines, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
-outside a checkout of the repository. TF32 is off for matmuls and cuDNN.
+outside a checkout of the repository. TF32 is off for matmuls and cuDNN
+except in the TF32 training run, which restores it.
 """
 from __future__ import annotations
 
@@ -72,10 +83,10 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory rate, the f32
-# rate outside the tensor cores, the bf16 tensor-core rate
+# rate outside the tensor cores, the bf16 and TF32 tensor-core rates
 PEAK_BYTES_S = 3.35e12
 L2_BYTES = 50 * 2**20
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # f32-accurate products on the tensor cores: three TF32 products (495
 # TFLOP/s dense) for each f32 product. The least time of an f32 attention
 # kernel (K1, K2) counts its operations at this rate, since the card can
@@ -334,28 +345,43 @@ def _ptxas_report(log_text):
     return out
 
 
+def _row_layout(types, mode):
+    """'f32', 'bf16', 'bf16 x, f32 gamma' or 'f32 x, bf16 h, f32 gamma'
+    for a row kernel's (x, h, gamma) element types; LayerNorm (mode 0)
+    has no h."""
+    x, h, g = types
+    if mode == "0":
+        return x if x == g else f"{x} x, {g} gamma"
+    return x if x == h == g else f"{x} x, {h} h, {g} gamma"
+
+
 def _row_kernel_label(mangled):
-    """'K6 fwd bf16 p>0', 'row bwd f32 NV=6 K3 drop' or 'row bwd reduce
-    f32' for a K6 or row-backward kernel's mangled name, else None."""
+    """'K6 fwd bf16 p>0', 'row fwd f32 x, bf16 h, f32 gamma NV=8 K3 drop',
+    'row bwd bf16 x, f32 gamma NV=3 K4b' or 'row bwd reduce f32' for a K6
+    or LayerNorm row kernel's mangled name, else None. The row kernels
+    take three element types (x, h, gamma); a repeated bf16 is a
+    substitution (``S1_``), float is always ``f``."""
     import re
 
-    m = re.search(r"(gelu_dropout_kernel|ln_bwd_kernel|"
-                  r"ln_partials_reduce_kernel)I(f|13__nv_bfloat16)"
+    m = re.search(r"(gelu_dropout_kernel|ln_fwd_kernel|ln_bwd_kernel|"
+                  r"ln_partials_reduce_kernel)I((?:f|13__nv_bfloat16|S\d*_)+)"
                   r"((?:L[bi]\d+E)*)", mangled)
     if m is None:
         return None
     kind = m.group(1)
-    dt = "f32" if m.group(2) == "f" else "bf16"
+    types = ["f32" if t == "f" else "bf16" for t in
+             re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2))]
     vals = re.findall(r"L[bi](\d+)E", m.group(3))
     if kind == "gelu_dropout_kernel":
         drop, bwd = vals
-        return (f"K6 {'bwd' if bwd == '1' else 'fwd'} {dt} "
+        return (f"K6 {'bwd' if bwd == '1' else 'fwd'} {types[0]} "
                 f"{'p>0' if drop == '1' else 'p=0'}")
-    if kind == "ln_bwd_kernel":
+    if kind in ("ln_fwd_kernel", "ln_bwd_kernel"):
         nv, mode = vals
-        return f"row bwd {dt} NV={nv} " + {"0": "K4b", "1": "K3 p=0",
-                                            "2": "K3 drop"}[mode]
-    return f"row bwd reduce {dt}"
+        return (f"row {kind[3:6]} {_row_layout(types, mode)} NV={nv} "
+                + {"0": "K4" if kind == "ln_fwd_kernel" else "K4b",
+                   "1": "K3 p=0", "2": "K3 drop"}[mode])
+    return f"row bwd reduce {types[0]}"
 
 
 # SASS opcodes counted apart in the build phase's K6 / row-backward report
@@ -393,10 +419,10 @@ def phase_build():
     """Build every kernel; print each library's register report, for each
     flash-attention kernel its tensor-core instructions (SASS
     ``HGMMA``/``HMMA`` counts from ``cuobjdump``), registers, spills and
-    shared memory, and for each K6 and row-backward kernel its SASS
-    instruction count by opcode class, registers and spills. Fails if a
-    flash kernel that runs products has no tensor-core instruction, or if
-    a flash, K6 or row-backward kernel spills."""
+    shared memory, and for each K6 and LayerNorm row kernel (every layout)
+    its SASS instruction count by opcode class, registers and spills.
+    Fails if a flash kernel that runs products has no tensor-core
+    instruction, or if a flash, K6 or row kernel spills."""
     import ctypes
 
     from incubator_mxnet_tpu_torch.ops import _build
@@ -470,8 +496,7 @@ def phase_build():
                 _ptxas_report(logs[stem]).items() if _row_kernel_label(k)}
         ops = {} if tool is None else _sass_counts(sass_of(stem),
                                                    _row_kernel_label)
-        check(regs, f"{stem}: no K6 or row-backward kernel in the ptxas "
-              f"report")
+        check(regs, f"{stem}: no K6 or row kernel in the ptxas report")
         for label in sorted(set(regs) | set(ops)):
             r, spills = regs.get(label, (None, None))
             o = ops.get(label)
@@ -512,15 +537,24 @@ def split_qkv(c, base):
 
 
 def ln_cases(torch, dev):
+    """K4 inputs at the serving path's rows, f32 and bf16; and in AMP's
+    layout, bf16 x with f32 gamma/beta, at the training step's rows (the
+    MLM LayerNorm) and at N rows."""
+    from incubator_mxnet_tpu_torch.ops.layer_norm import layout_name
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = [(dt, dt, rows) for dt in (f32, bf16)
+             for rows in [N * t for t in ATTN_T] + [N]]
+    specs += [(bf16, f32, ROWS), (bf16, f32, N)]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in [N * t for t in ATTN_T] + [N]:
-            g = torch.Generator(device=dev).manual_seed(rows)
-            x = (torch.randn(rows, C, generator=g, device=dev) * 2 + 0.5)
-            gamma = 1 + 0.3 * torch.randn(C, generator=g, device=dev)
-            beta = 0.3 * torch.randn(C, generator=g, device=dev)
-            cases.append(dict(x=x.to(dtype), gamma=gamma.to(dtype),
-                              beta=beta.to(dtype), rows=rows, dtype=dtype))
+    for dtype, pdt, rows in specs:
+        g = torch.Generator(device=dev).manual_seed(rows)
+        x = (torch.randn(rows, C, generator=g, device=dev) * 2 + 0.5)
+        gamma = 1 + 0.3 * torch.randn(C, generator=g, device=dev)
+        beta = 0.3 * torch.randn(C, generator=g, device=dev)
+        cases.append(dict(x=x.to(dtype), gamma=gamma.to(pdt),
+                          beta=beta.to(pdt), rows=rows, dtype=dtype,
+                          layout=layout_name(dtype, pdt)))
     return cases
 
 
@@ -563,7 +597,7 @@ def phase_kernels_vs_plain(torch, dev):
         ok, err, rel = agree(y, yp, LN_TOL)
         serr = max((m - mp).abs().max().item(), (r - rp).abs().max().item())
         c.update(max_abs_err=err, norm_rel_err=rel, stats_err=serr)
-        log(f"[K4] ({c['rows']}, {C}) {_dt(c['dtype'])}: "
+        log(f"[K4] ({c['rows']}, {C}) {c['layout']}: "
             f"max|y-plain|={err:.3e} ({tol_text(_dt(c['dtype']), LN_TOL)}: "
             f"{'ok' if ok else 'EXCEEDED'}), |y-plain|/|plain|={rel:.3e}, "
             f"max|stats-plain|={serr:.3e} (tol {STATS_TOL:g})")
@@ -732,23 +766,49 @@ def phase_times(torch, attn, lns):
             f"{c['bound_ms'] / c['ms']:.3f}")
     for c in lns:
         x, gm, bt = c["x"], c["gamma"], c["beta"]
+        lib, c["library"] = layer_norm_library(torch, x, gm, bt)
         sets = input_sets([x], 50)
         c["ms"] = time_ms(lambda x: ln.layer_norm_fwd(x, gm, bt,
                                                       impl="kernel"),
                           sets, 50)
         c["plain_ms"] = time_ms(lambda x: ln.layer_norm_fwd(
             x, gm, bt, impl="plain"), sets, 20)
-        c["library_ms"] = time_ms(lambda x: F.layer_norm(x, (C,), gm, bt,
-                                                         1e-5), sets, 50)
-        rows, item = c["rows"], x.element_size()
+        c["library_ms"] = time_ms(lambda x: lib(x, gm, bt), sets, 50)
+        rows, ix, ip = c["rows"], x.element_size(), gm.element_size()
         c["bound_ms"], c["bound_by"] = bound(
-            2 * rows * C * item + 8 * rows + 2 * C * item, 8 * rows * C,
-            _dt(c["dtype"]))
-        log(f"[time] K4 ({rows}, {C}) {_dt(c['dtype'])}: kernel "
-            f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, F.layer_norm "
-            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            2 * rows * C * ix + 8 * rows + 2 * C * ip, 8 * rows * C,
+            _ops_dtype(c))
+        log(f"[time] K4 ({rows}, {C}) {c['layout']}: kernel "
+            f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+            f"{c['library']} {c['library_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), roofline share "
             f"{c['bound_ms'] / c['ms']:.3f}")
+
+
+def _ops_dtype(c):
+    """The dtype whose peak rate bounds a row kernel case's operations:
+    its own, or float32 for a mixed layout (its arithmetic is f32)."""
+    return _dt(c["dtype"]) if c["layout"] in ("f32", "bf16") else "float32"
+
+
+def layer_norm_library(torch, x, gamma, beta):
+    """(fn(x, gamma, beta), its name): one PyTorch call computing the
+    LayerNorm kernels' function on these dtypes, ``F.layer_norm``; where
+    it does not take the mix (bf16 x with f32 gamma/beta), the same call
+    on x widened to f32 and cast back."""
+    import torch.nn.functional as F
+
+    def direct(x, g, b):
+        return F.layer_norm(x, (C,), g, b, 1e-5)
+
+    try:
+        direct(x[:1], gamma, beta)
+        return direct, "F.layer_norm"
+    except RuntimeError:
+        def widened(x, g, b):
+            return F.layer_norm(x.float(), (C,), g, b, 1e-5).to(x.dtype)
+        return widened, "F.layer_norm(x.float()).to(x.dtype)"
 
 
 def kernel_split_ms(torch, fn, sets, reps):
@@ -793,13 +853,28 @@ def _counters():
             "K6b": (fb, "gd_bwd_launches")}
 
 
+def _layout_counters():
+    """The row kernels' launch counters by layout: name -> Counter."""
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+
+    return {"K4": ln.layout_launches, "K4b": ln.bwd_layout_launches,
+            "K3f": fb.layout_launches, "K3b": fb.bwd_layout_launches}
+
+
 def reset_counts():
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+    for counter in _layout_counters().values():
+        counter.clear()
 
 
 def read_counts():
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def read_layout_counts():
+    return {k: dict(c) for k, c in _layout_counters().items()}
 
 
 def train_attn_cases(torch, dev):
@@ -824,20 +899,32 @@ def train_attn_cases(torch, dev):
 
 def train_row_cases(torch, dev):
     """(8192, 768) rows as the BERT-base step's LayerNorm and residual
-    sites give them, f32 and bf16; K3 at p = 0.1 and p = 0."""
+    sites give them: f32, bf16, and AMP's layouts, f32 x with bf16 h and
+    f32 gamma/beta (K3, also at 1000 rows) and bf16 x with f32
+    gamma/beta (K4b, also at N rows); K3 at p = 0.1 and p = 0."""
+    from incubator_mxnet_tpu_torch.ops.layer_norm import layout_name
+
+    f32, bf16 = torch.float32, torch.bfloat16
     k3, k4b = [], []
-    for dtype in (torch.float32, torch.bfloat16):
+    specs = [(f32, f32, f32, ROWS, True), (bf16, bf16, bf16, ROWS, True),
+             (f32, bf16, f32, ROWS, False), (f32, bf16, f32, 1000, False),
+             (bf16, bf16, f32, ROWS, True), (bf16, bf16, f32, N, True)]
+    for xdt, hdt, pdt, rows, is_ln in specs:
         g = torch.Generator(device=dev).manual_seed(17)
-        x = torch.randn(ROWS, C, generator=g, device=dev) + 0.3
-        h = torch.randn(ROWS, C, generator=g, device=dev)
-        dy = torch.randn(ROWS, C, generator=g, device=dev)
+        x = torch.randn(rows, C, generator=g, device=dev) + 0.3
+        h = torch.randn(rows, C, generator=g, device=dev)
+        dy = torch.randn(rows, C, generator=g, device=dev)
         gamma = 1 + 0.3 * torch.randn(C, generator=g, device=dev)
         beta = 0.3 * torch.randn(C, generator=g, device=dev)
-        t = dict(x=x.to(dtype), h=h.to(dtype), dy=dy.to(dtype),
-                 gamma=gamma.to(dtype), beta=beta.to(dtype), dtype=dtype)
-        for p in (TRAIN_P, 0.0):
-            k3.append(dict(t, p=p, key=(1234567, 7654321)))
-        k4b.append(dict(t))
+        t = dict(x=x.to(xdt), h=h.to(hdt), dy=dy.to(xdt),
+                 gamma=gamma.to(pdt), beta=beta.to(pdt), dtype=xdt,
+                 rows=rows)
+        if xdt == pdt or not is_ln:  # the residual kernels' layouts
+            k3 += [dict(t, p=p, key=(1234567, 7654321),
+                        layout=layout_name(xdt, pdt, hdt))
+                   for p in (TRAIN_P, 0.0)]
+        if is_ln:
+            k4b.append(dict(t, layout=layout_name(xdt, pdt)))
     return k3, k4b
 
 
@@ -852,15 +939,15 @@ def train_dropout_cases(torch, dev):
     return cases
 
 
-def _log_check(tag, what, c, ok, err, rel, tol):
+def _log_check(tag, what, dtype, ok, err, rel, tol):
+    """Log (and require) a check of an output of ``dtype``."""
     log(f"[{tag}] {what}: max|d|={err:.3e} "
-        f"({tol_text(_dt(c['dtype']), tol)}: {'ok' if ok else 'EXCEEDED'}),"
+        f"({tol_text(_dt(dtype), tol)}: {'ok' if ok else 'EXCEEDED'}),"
         f" |d|/|plain|={rel:.3e}")
     check(ok, f"{tag} {what} disagrees with plain")
 
 
-def _column_check(tag, what, c, got, ref, terms, rows=ROWS,
-                  bf16_sums=False):
+def _column_check(tag, what, got, ref, terms, rows=ROWS, bf16_sums=False):
     """dgamma/dbeta: float32 within column_sum_tol of each column (on the
     grid the kernel ran for ``rows`` rows); bfloat16 by the elementwise
     rule, or with ``bf16_sums`` within one spacing of the plain value plus
@@ -873,13 +960,13 @@ def _column_check(tag, what, c, got, ref, terms, rows=ROWS,
 
     d = (got.float() - ref.float()).abs()
     rel = (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
-    if c["dtype"] == torch.bfloat16 and not bf16_sums:
+    if got.dtype == torch.bfloat16 and not bf16_sums:
         ok, err, rel = agree(got, ref, 0.0)
-        _log_check(tag, what, c, ok, err, rel, 0.0)
+        _log_check(tag, what, got.dtype, ok, err, rel, 0.0)
         return err
     tol = ln.column_sum_tol(terms, rows,
                             ln.bwd_blocks(rows, ln.sm_count(got.device)))
-    if c["dtype"] == torch.bfloat16:
+    if got.dtype == torch.bfloat16:
         tol = BF16_RTOL * ref.float().abs() + 2 * tol
     ok = bool((d <= tol).all())
     log(f"[{tag}] {what}: max|d|={d.max().item():.3e} (tol per column "
@@ -928,60 +1015,76 @@ def phase_train_kernels_vs_plain(torch, dev):
 
     k3, k4b = train_row_cases(torch, dev)
     for c in k3:
-        args = (c["x"], c["h"], c["gamma"], c["beta"], c["key"], c["p"])
+        rows, p, key = c["rows"], c["p"], c["key"]
+        args = (c["x"], c["h"], c["gamma"], c["beta"], key, p)
         y, m, r = fb.residual_dropout_ln_fwd(*args, impl="kernel")
         yp, mp, rp = fb.residual_dropout_ln_fwd(*args, impl="plain")
-        bargs = (c["x"], c["h"], c["dy"], mp, rp, c["gamma"], c["key"],
-                 c["p"])
+        bargs = (c["x"], c["h"], c["dy"], mp, rp, c["gamma"], key, p)
         got = fb.residual_dropout_ln_bwd(*bargs, impl="kernel")
         ref = fb.residual_dropout_ln_bwd(*bargs, impl="plain")
         torch.cuda.synchronize()
-        what = f"({ROWS}, {C}) {_dt(c['dtype'])} p={c['p']}"
+        what = f"({rows}, {C}) {c['layout']} p={p}"
+        check(y.dtype == c["x"].dtype and got[0].dtype == c["x"].dtype
+              and got[1].dtype == c["h"].dtype
+              and got[2].dtype == got[3].dtype == c["gamma"].dtype,
+              f"K3 {what}: output dtypes")
         ok, err, rel = agree(y, yp, LN_TOL)
         serr = max((m - mp).abs().max().item(), (r - rp).abs().max().item())
-        _log_check("K3 fwd", f"{what} y", c, ok and serr <= STATS_TOL, err,
-                   rel, LN_TOL)
+        _log_check("K3 fwd", f"{what} y", y.dtype, ok and serr <= STATS_TOL,
+                   err, rel, LN_TOL)
         log(f"[K3 fwd] {what} max|stats-plain|={serr:.3e} "
             f"(tol {STATS_TOL:g})")
         c["fwd_err"], c["fwd_rel"] = err, rel
         errs = []
         for name, gt, rf in zip(("dx", "dh"), got[:2], ref[:2]):
             ok, err, rel = agree(gt, rf, LN_TOL)
-            _log_check("K3 bwd", f"{what} {name}", c, ok, err, rel, LN_TOL)
+            _log_check("K3 bwd", f"{what} {name}", gt.dtype, ok, err, rel,
+                       LN_TOL)
             errs.append(err)
-        s = c["x"].float() + fb._dropped(c["h"], c["key"], c["p"])
+        s = c["x"].float() + fb._dropped(c["h"], key, p)
         xhat = (s - mp[:, None]) * rp[:, None]
         dyf = c["dy"].float()
-        errs.append(_column_check("K3 bwd", f"{what} dgamma", c, got[2],
-                                  ref[2], (dyf * xhat).abs().sum(0)))
-        errs.append(_column_check("K3 bwd", f"{what} dbeta", c, got[3],
-                                  ref[3], dyf.abs().sum(0)))
+        errs.append(_column_check("K3 bwd", f"{what} dgamma", got[2],
+                                  ref[2], (dyf * xhat).abs().sum(0), rows))
+        errs.append(_column_check("K3 bwd", f"{what} dbeta", got[3],
+                                  ref[3], dyf.abs().sum(0), rows))
         c["bwd_err"], c["bwd_rel"] = max(errs), rel
-        if c["p"] > 0:  # the kernel's mask is the plain Philox mask
-            keep = ph.keep_mask((ROWS, C), c["key"], c["p"], device=dev)
+        if p > 0:  # the kernel's mask is the plain Philox mask
+            keep = ph.keep_mask((rows, C), key, p, device=dev)
             same = torch.equal(got[1] != 0, keep & (ref[1] != 0))
             log(f"[K3 bwd] {what} mask (dh != 0) equals the plain Philox "
                 f"mask: {same}")
             check(same, "K3 mask differs from the plain Philox mask")
+        if c["h"].dtype != c["x"].dtype:
+            _mixed_k3_checks(torch, c, (y, m, r), got, mp, rp)
 
     for c in k4b:
+        rows = c["rows"]
         _, mp, rp = ln.layer_norm_fwd(c["x"], c["gamma"], c["beta"],
                                       impl="plain")
         c.update(mean=mp, rstd=rp)
         bargs = (c["x"], c["dy"], mp, rp, c["gamma"])
         got = ln.layer_norm_bwd(*bargs, impl="kernel")
+        again = ln.layer_norm_bwd(*bargs, impl="kernel")
         ref = ln.layer_norm_bwd(*bargs, impl="plain")
         torch.cuda.synchronize()
-        what = f"({ROWS}, {C}) {_dt(c['dtype'])}"
+        what = f"({rows}, {C}) {c['layout']}"
+        check(got[0].dtype == c["x"].dtype
+              and got[1].dtype == got[2].dtype == c["gamma"].dtype,
+              f"K4b {what}: output dtypes")
         ok, err, rel = agree(got[0], ref[0], LN_TOL)
-        _log_check("K4b", f"{what} dx", c, ok, err, rel, LN_TOL)
+        _log_check("K4b", f"{what} dx", got[0].dtype, ok, err, rel, LN_TOL)
         xhat = (c["x"].float() - mp[:, None]) * rp[:, None]
         dyf = c["dy"].float()
         errs = [err,
-                _column_check("K4b", f"{what} dgamma", c, got[1], ref[1],
-                              (dyf * xhat).abs().sum(0)),
-                _column_check("K4b", f"{what} dbeta", c, got[2], ref[2],
-                              dyf.abs().sum(0))]
+                _column_check("K4b", f"{what} dgamma", got[1], ref[1],
+                              (dyf * xhat).abs().sum(0), rows),
+                _column_check("K4b", f"{what} dbeta", got[2], ref[2],
+                              dyf.abs().sum(0), rows)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[K4b] {what}: two calls bitwise equal (dx, dgamma, dbeta "
+            f"in {_dt(got[1].dtype)}): {same}")
+        check(same, f"K4b {what}: two calls differ")
         c["max_abs_err"], c["norm_rel_err"] = max(errs), rel
 
     drop = train_dropout_cases(torch, dev)
@@ -1000,6 +1103,43 @@ def phase_train_kernels_vs_plain(torch, dev):
         c["max_abs_err"] = (y.float() - yp.float()).abs().max().item()
         c["norm_rel_err"] = 0.0
     return attn, k3, k4b, drop
+
+
+def _mixed_k3_checks(torch, c, fwd, got, mp, rp):
+    """AMP's K3 layout (f32 x, bf16 h): the forward and backward equal
+    the f32 kernels on h widened to f32, bit for bit (dh rounded to bf16
+    once), two backward calls are bitwise equal, and at p > 0 the zeros
+    of dh are the dropout kernel's (K5) mask for the same key."""
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+    rows, p, key = c["rows"], c["p"], c["key"]
+    what = f"({rows}, {C}) {c['layout']} p={p}"
+    h32 = c["h"].float()
+    f32 = fb.residual_dropout_ln_fwd(c["x"], h32, c["gamma"], c["beta"],
+                                     key, p, impl="kernel")
+    bargs = (c["x"], c["h"], c["dy"], mp, rp, c["gamma"], key, p)
+    g32 = fb.residual_dropout_ln_bwd(c["x"], h32, *bargs[2:], impl="kernel")
+    again = fb.residual_dropout_ln_bwd(*bargs, impl="kernel")
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(fwd, f32))
+            and torch.equal(got[0], g32[0])
+            and torch.equal(got[1], g32[1].bfloat16())
+            and torch.equal(got[2], g32[2]) and torch.equal(got[3], g32[3]))
+    log(f"[K3 mixed] {what}: y, mean, rstd, dx, dh, dgamma, dbeta equal "
+        f"the f32 kernels' on h widened to f32 bit for bit: {same}")
+    check(same, f"K3 {what} differs from the f32 kernels on widened h")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[K3 mixed] {what}: two backward calls bitwise equal (dgamma, "
+        f"dbeta in {_dt(got[2].dtype)}): {same}")
+    check(same, f"K3 {what}: two calls differ")
+    if p > 0:
+        k5 = dp.dropout_fwd(torch.ones_like(c["h"]), key, p,
+                            impl="kernel") != 0
+        same = torch.equal(got[1] != 0, k5 & (got[0] != 0))
+        log(f"[K3 mixed] {what}: dh's zeros are the dropout kernel's mask "
+            f"bit for bit: {same}")
+        check(same, f"K3 {what}: mask differs from K5's")
 
 
 def phase_row_bwd_checks(torch, dev):
@@ -1027,7 +1167,6 @@ def phase_row_bwd_checks(torch, dev):
         gamma = (1 + 0.3 * torch.randn(cols, generator=g, device=dev)).to(
             dtype)
         beta = (0.3 * torch.randn(cols, generator=g, device=dev)).to(dtype)
-        c = dict(dtype=dtype)
         what = f"({rows}, {cols}) {_dt(dtype)}"
         dyf = dy.float()
         for kind in ("K4b", "K3 p=0.1"):
@@ -1054,11 +1193,12 @@ def phase_row_bwd_checks(torch, dev):
                 check(gt.dtype == dtype and gt.shape == rf.shape,
                       f"row bwd {kind} {what} {name}: dtype or shape")
                 if name in terms:
-                    _column_check("row bwd", f"{kind} {what} {name}", c, gt,
+                    _column_check("row bwd", f"{kind} {what} {name}", gt,
                                   rf, terms[name], rows, bf16_sums=True)
                 else:
                     ok, err, rel = agree(gt, rf, LN_TOL)
-                    _log_check("row bwd", f"{kind} {what} {name}", c, ok, err,
+                    _log_check("row bwd", f"{kind} {what} {name}", gt.dtype,
+                               ok, err,
                                rel, LN_TOL)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             log(f"[row bwd] {kind} {what}: two calls bitwise equal "
@@ -1140,18 +1280,38 @@ def _device_ms(prof):
     return total / 1e3
 
 
-def phase_train(torch, dev):
+# the layouts the AMP step's row kernels must take, launches a step (the
+# MLM LayerNorm bf16 x with f32 gamma/beta; the encoder LayerNorm f32;
+# every residual site f32 x with a bf16 h)
+AMP_K3 = "f32 x, bf16 h, f32 gamma"
+AMP_K4 = "bf16 x, f32 gamma"
+AMP_LAYOUT_LAUNCHES = {"K4": {"f32": 1, AMP_K4: 1},
+                       "K4b": {"f32": 2, AMP_K4: 2},
+                       "K3f": {AMP_K3: 24}, "K3b": {AMP_K3: 48}}
+# the peak a training mode's model-FLOPs share is of: its products' rate
+# (bench.py's cell runs under amp.init("bfloat16"): bf16 tensor cores)
+TRAIN_MODES = {"f32": "float32", "amp": "bfloat16", "tf32": "tf32"}
+F32_LAYOUT_LAUNCHES = {k: {"f32": sum(v.values())}
+                       for k, v in AMP_LAYOUT_LAUNCHES.items()}
+
+
+def phase_train(torch, dev, mode="f32"):
     """The bench.py BERT-base training workload, 2 warm-up + 10 timed
-    steps, launch counts per step, and one profiled step."""
+    steps, launch counts per step (by layout under AMP), and one profiled
+    step. ``mode``: "f32" (TF32 off), "amp" (under amp.init("bfloat16"),
+    deinit in a finally), or "tf32" (f32 with TF32 products, restored
+    after)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from incubator_mxnet_tpu_torch import amp
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon import Trainer
     from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from incubator_mxnet_tpu_torch.models.bert import bert_base
     from incubator_mxnet_tpu_torch.optimizer import Adam
 
+    tag = {"f32": "train", "amp": "train amp", "tf32": "train tf32"}[mode]
     model = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
                       seed=0).train()
     trainer = Trainer(model.named_parameters(), Adam(learning_rate=TRAIN_LR))
@@ -1172,70 +1332,103 @@ def phase_train(torch, dev):
         trainer.step(TRAIN_B)
         return loss
 
-    mxrandom.seed(0)
-    losses, times, per_step = [], [], []
-    for i in range(WARMUP + STEPS):
-        fwd = []
-        reset_counts()
-        start = time.perf_counter()
-        loss = step(fwd)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - start) * 1e3)
-        counts = read_counts()
-        losses.append(loss.mean().item())
-        check(fwd[0] == FWD_LAUNCHES and counts == STEP_LAUNCHES,
-              f"train step {i}: launches {fwd[0]} after the forward, "
-              f"{counts} after the step; expected {FWD_LAUNCHES}, "
-              f"{STEP_LAUNCHES}")
-        per_step.append(counts)
-    timed = sorted(times[WARMUP:])
-    med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
-    totals = {k: sum(c[k] for c in per_step[WARMUP:]) for k in STEP_LAUNCHES}
-    log(f"[train] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam "
-        f"lr {TRAIN_LR}, {n_params} parameters: step ms "
-        + ", ".join(f"{t:.1f}" for t in times)
-        + f" ({WARMUP} warm-up); loss " + ", ".join(f"{v:.4f}"
-                                                    for v in losses))
-    log(f"[train] launches per step {STEP_LAUNCHES} (forward "
-        f"{FWD_LAUNCHES}): every step as expected")
-    check(all(math.isfinite(v) for v in losses), "non-finite loss")
-    check(losses[-1] < losses[WARMUP], "the loss did not fall")
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    if mode == "amp":
+        amp.init("bfloat16")
+    elif mode == "tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        mxrandom.seed(0)
+        losses, times, per_step, by_layout = [], [], [], []
+        for i in range(WARMUP + STEPS):
+            fwd = []
+            reset_counts()
+            start = time.perf_counter()
+            loss = step(fwd)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            counts = read_counts()
+            losses.append(loss.mean().item())
+            check(fwd[0] == FWD_LAUNCHES and counts == STEP_LAUNCHES,
+                  f"{tag} step {i}: launches {fwd[0]} after the forward, "
+                  f"{counts} after the step; expected {FWD_LAUNCHES}, "
+                  f"{STEP_LAUNCHES}")
+            layouts = read_layout_counts()
+            want = (AMP_LAYOUT_LAUNCHES if mode == "amp"
+                    else F32_LAYOUT_LAUNCHES)
+            check(layouts == want, f"{tag} step {i}: launches by layout "
+                  f"{layouts}, expected {want}")
+            per_step.append(counts)
+            by_layout.append(layouts)
+        timed = sorted(times[WARMUP:])
+        med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
+        totals = {k: sum(c[k] for c in per_step[WARMUP:])
+                  for k in STEP_LAUNCHES}
+        layout_totals = {k: {n: sum(b[k][n] for b in by_layout[WARMUP:])
+                             for n in by_layout[-1][k]}
+                         for k in by_layout[-1]}
+        log(f"[{tag}] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, "
+            f"Adam lr {TRAIN_LR}, {n_params} parameters: step ms "
+            + ", ".join(f"{t:.1f}" for t in times)
+            + f" ({WARMUP} warm-up); loss " + ", ".join(f"{v:.4f}"
+                                                        for v in losses))
+        log(f"[{tag}] launches per step {STEP_LAUNCHES} (forward "
+            f"{FWD_LAUNCHES}), by layout {by_layout[-1]}: every step as "
+            f"expected")
+        check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite "
+              f"loss")
+        check(losses[-1] < losses[WARMUP], f"{tag}: the loss did not fall")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        amp.deinit()
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
     dev_ms = _device_ms(prof)
     tokens_s = TRAIN_B * TRAIN_T / (med / 1e3)
     flops_token = 6.0 * n_params + 12.0 * 12 * TRAIN_T * C
-    share = flops_token * tokens_s / PEAK_FLOPS["float32"]
+    peak = TRAIN_MODES[mode]
+    share = flops_token * tokens_s / PEAK_FLOPS[peak]
     idle = 1 - dev_ms / med if dev_ms > 0 else None
-    log(f"[train] median step {med:.2f} ms, {tokens_s:.1f} tokens/s, "
-        f"model FLOPs {flops_token:.4g}/token -> share of the f32 peak "
-        f"{share:.4f}; device busy {dev_ms:.2f} ms of a step "
-        f"(torch.profiler) -> idle share "
+    log(f"[{tag}] median step {med:.2f} ms, {tokens_s:.1f} tokens/s, "
+        f"model FLOPs {flops_token:.4g}/token -> share of the {peak} peak "
+        f"({PEAK_FLOPS[peak] / 1e12:g} TFLOP/s) {share:.4f}; device busy "
+        f"{dev_ms:.2f} ms of a step (torch.profiler) -> idle share "
         + (f"{idle:.4f}" if idle is not None else "not measured"))
     top = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: -getattr(e, "self_device_time_total", 0.0))
-    for e in top[:14]:
-        log(f"[train]   {getattr(e, 'self_device_time_total', 0) / 1e3:8.3f}"
-            f" ms x{e.count:4d}  {e.key[:90]}")
+    by_kernel = [dict(ms=getattr(e, "self_device_time_total", 0) / 1e3,
+                      calls=e.count, name=e.key[:160]) for e in top]
+    for e in by_kernel[:24 if mode == "amp" else 14]:
+        log(f"[{tag}]   {e['ms']:8.3f} ms x{e['calls']:4d}  {e['name'][:90]}")
     row_bwd = {k: sum(getattr(e, "self_device_time_total", 0.0) / 1e3
                       for e in top if k in e.key)
                for k in ("ln_bwd_kernel", "ln_partials_reduce_kernel")}
-    log(f"[train] row backward (K3 backward, K4b) in the step: "
+    log(f"[{tag}] row backward (K3 backward, K4b) in the step: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in row_bwd.items())
         + f", together {sum(row_bwd.values()):.3f} ms")
+    if mode == "amp":  # K1/K2 took the bf16 kernels (no cast to f32)
+        flash = [e["name"] for e in by_kernel if "flash_" in e["name"]]
+        check(flash and all("bfloat16" in n for n in flash),
+              f"{tag}: flash kernels in the step not all bf16: {flash}")
+        log(f"[{tag}] flash-attention kernels in the step, all bf16: "
+            f"{len(flash)} names")
     del model, trainer
-    return dict(batch=TRAIN_B, seq=TRAIN_T, dropout=TRAIN_P, lr=TRAIN_LR,
-                params=n_params, step_ms=times, warmup=WARMUP,
+    return dict(mode=mode, batch=TRAIN_B, seq=TRAIN_T, dropout=TRAIN_P,
+                lr=TRAIN_LR, params=n_params, step_ms=times, warmup=WARMUP,
                 median_step_ms=med, tokens_per_s=tokens_s,
-                flops_per_token=flops_token, f32_peak_share=share,
-                device_ms_per_step=dev_ms, idle_share=idle, losses=losses,
+                flops_per_token=flops_token, peak=peak,
+                peak_share=share, device_ms_per_step=dev_ms,
+                idle_share=idle, losses=losses,
                 row_bwd_device_ms=row_bwd,
-                launches_per_step=STEP_LAUNCHES), totals
+                device_ms_by_kernel=by_kernel[:40],
+                launches_per_step=STEP_LAUNCHES,
+                launches_by_layout_per_step=by_layout[-1]), (
+                    totals, layout_totals)
 
 
 def phase_times_train(torch, attn, k3, k4b, drop):
@@ -1291,7 +1484,8 @@ def phase_times_train(torch, attn, k3, k4b, drop):
 
     for c in k3:
         gm, bt, key, p = c["gamma"], c["beta"], c["key"], c["p"]
-        item, dt = c["x"].element_size(), _dt(c["dtype"])
+        rows, dt = c["rows"], _ops_dtype(c)
+        ix, ih, ip = (t.element_size() for t in (c["x"], c["h"], gm))
         sets = input_sets([c["x"], c["h"]], 20)
         c["ms"] = time_ms(lambda x, h: fb.residual_dropout_ln_fwd(
             x, h, gm, bt, key, p, impl="kernel"), sets, 20)
@@ -1301,7 +1495,8 @@ def phase_times_train(torch, attn, k3, k4b, drop):
             x + F.dropout(h, p, training=True), (C,), gm, bt, 1e-5), sets,
             20)
         c["bound_ms"], c["bound_by"] = bound(
-            3 * ROWS * C * item + 8 * ROWS + 2 * C * item, 10 * ROWS * C, dt)
+            (2 * ix + ih) * rows * C + 8 * rows + 2 * C * ip, 10 * rows * C,
+            dt)
         _, m, r = fb.residual_dropout_ln_fwd(c["x"], c["h"], gm, bt, key, p,
                                              impl="plain")
         bsets = input_sets([c["x"], c["h"], c["dy"]], 20)
@@ -1322,13 +1517,15 @@ def phase_times_train(torch, attn, k3, k4b, drop):
         c["bwd_library_ms"] = (time_ms(lib, bsets, 20) - time_ms(
             lambda *a: lib(*a, backward=False), bsets, 20))
         c["bwd_bound_ms"], c["bwd_bound_by"] = bound(
-            5 * ROWS * C * item + 8 * ROWS + 3 * C * item, 16 * ROWS * C, dt)
+            (3 * ix + 2 * ih) * rows * C + 8 * rows + 3 * C * ip,
+            16 * rows * C, dt)
         c["bwd_split"] = kernel_split_ms(
             torch, lambda x, h, dy: fb.residual_dropout_ln_bwd(
                 x, h, dy, m, r, gm, key, p, impl="kernel"), bsets, 20)
-        log(f"[time] K3 ({ROWS}, {C}) {dt} p={p} backward by kernel "
+        what = f"({rows}, {C}) {c['layout']} p={p}"
+        log(f"[time] K3 {what} backward by kernel "
             f"(torch.profiler, a call): {_split_text(c['bwd_split'])}")
-        log(f"[time] K3 ({ROWS}, {C}) {dt} p={p}: forward kernel "
+        log(f"[time] K3 {what}: forward kernel "
             f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, composed "
             f"F.dropout+add+F.layer_norm {c['library_ms']:.4f} ms, bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}), share "
@@ -1340,31 +1537,35 @@ def phase_times_train(torch, attn, k3, k4b, drop):
 
     for c in k4b:
         gm, m, r = c["gamma"], c["mean"], c["rstd"]
-        item, dt = c["x"].element_size(), _dt(c["dtype"])
+        rows, dt = c["rows"], _ops_dtype(c)
+        ix, ip = c["x"].element_size(), gm.element_size()
+        lib_fn, c["library"] = layer_norm_library(torch, c["x"], gm,
+                                                  c["beta"])
         sets = input_sets([c["x"], c["dy"]], 20)
         c["ms"] = time_ms(lambda x, dy: ln.layer_norm_bwd(
             x, dy, m, r, gm, impl="kernel"), sets, 20)
         c["plain_ms"] = time_ms(lambda x, dy: ln.layer_norm_bwd(
             x, dy, m, r, gm, impl="plain"), sets, 5)
 
-        def lib(x, dy, backward=True, c=c):
+        def lib(x, dy, backward=True, c=c, lib_fn=lib_fn):
             xl = x.detach().requires_grad_()
             gl = c["gamma"].detach().requires_grad_()
             bl = c["beta"].detach().requires_grad_()
-            y = F.layer_norm(xl, (C,), gl, bl, 1e-5)
+            y = lib_fn(xl, gl, bl)
             if backward:
                 torch.autograd.grad(y, (xl, gl, bl), dy)
 
         c["library_ms"] = (time_ms(lib, sets, 20) - time_ms(
             lambda *a: lib(*a, backward=False), sets, 20))
         c["bound_ms"], c["bound_by"] = bound(
-            3 * ROWS * C * item + 8 * ROWS + 3 * C * item, 12 * ROWS * C, dt)
+            3 * rows * C * ix + 8 * rows + 3 * C * ip, 12 * rows * C, dt)
         c["split"] = kernel_split_ms(torch, lambda x, dy: ln.layer_norm_bwd(
             x, dy, m, r, gm, impl="kernel"), sets, 20)
-        log(f"[time] K4b ({ROWS}, {C}) {dt} by kernel (torch.profiler, a "
+        what = f"({rows}, {C}) {c['layout']}"
+        log(f"[time] K4b {what} by kernel (torch.profiler, a "
             f"call): {_split_text(c['split'])}")
-        log(f"[time] K4b ({ROWS}, {C}) {dt}: kernel {c['ms']:.4f} ms, plain "
-            f"{c['plain_ms']:.4f} ms, F.layer_norm backward "
+        log(f"[time] K4b {what}: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, {c['library']} backward "
             f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), roofline share "
             f"{c['bound_ms'] / c['ms']:.3f}")
@@ -1433,11 +1634,11 @@ def phase_gelu_dropout_vs_plain(torch, dev):
                    and torch.isfinite(du.float()).all()),
               f"K6 {what}: non-finite output")
         ok, err, rel = agree(y, yp, GD_TOL)
-        _log_check("K6 fwd", what, c, ok, err, rel, GD_TOL)
+        _log_check("K6 fwd", what, y.dtype, ok, err, rel, GD_TOL)
         c["fwd_err"], c["fwd_rel"] = err, rel
         del yp
         ok, err, rel = agree(du, dup, GD_TOL)
-        _log_check("K6 bwd", what, c, ok, err, rel, GD_TOL)
+        _log_check("K6 bwd", what, du.dtype, ok, err, rel, GD_TOL)
         c["bwd_err"], c["bwd_rel"] = err, rel
         del dup
         if p == 0:
@@ -1670,7 +1871,12 @@ def phase_times_gelu_dropout(torch, cases):
 
 
 def _case_row(c, shape):
-    row = dict(shape=shape, dtype=_dt(c["dtype"]),
+    """A case's entry in the kernels line; ``dtype`` names a mixed
+    layout ("f32 x, bf16 h, f32 gamma") where it has one."""
+    layout = c.get("layout", "")
+    row = dict(shape=shape,
+               dtype=_dt(c["dtype"]) if layout in ("", "f32", "bf16")
+               else layout,
                max_abs_err=c["max_abs_err"],
                norm_rel_err=c["norm_rel_err"], ms=c["ms"],
                plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
@@ -1679,6 +1885,8 @@ def _case_row(c, shape):
         row["xla_ms"] = c["xla_ms"]
     if "split" in c:
         row["ms_by_kernel"] = c["split"]
+    if "library" in c:
+        row["library"] = c["library"]
     return row
 
 
@@ -1686,7 +1894,8 @@ def _pass_view(c, bwd):
     """A K3 or K6 case's forward or backward numbers under the common
     keys."""
     pre = "bwd_" if bwd else ""
-    return dict(dtype=c["dtype"], max_abs_err=c["bwd_err" if bwd else
+    return dict(dtype=c["dtype"], layout=c.get("layout", ""),
+                max_abs_err=c["bwd_err" if bwd else
                                                  "fwd_err"],
                 norm_rel_err=c["bwd_rel" if bwd else "fwd_rel"],
                 ms=c[pre + "ms"], plain_ms=c[pre + "plain_ms"],
@@ -1698,18 +1907,24 @@ def _pass_view(c, bwd):
                    else {}))
 
 
-def kernels_line(attn, lns, launches, train=None, gd=None):
+def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None):
     """The nine kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
-    training kernels' cases, ``gd`` the K6 cases."""
-    def entry(name, source, replaces, n, cases, main, library):
-        return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=n,
-                    max_abs_err=max(c["max_abs_err"] for c, _ in cases),
-                    ms=main["ms"], plain_ms=main["plain_ms"],
-                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                    library_ms=main["library_ms"], shape=main["shape"],
-                    dtype=main["dtype"], library=library,
-                    cases=[_case_row(c, s) for c, s in cases])
+    training kernels' cases, ``gd`` the K6 cases, ``by_layout`` the row
+    kernels' main-path launches by layout (K4, K4b, K3f, K3b)."""
+    by_layout = by_layout or {}
+
+    def entry(name, source, replaces, n, cases, main, library, key=None):
+        out = dict(name=name, route="cuda", source=source,
+                   replaces=replaces, launches=n,
+                   max_abs_err=max(c["max_abs_err"] for c, _ in cases),
+                   ms=main["ms"], plain_ms=main["plain_ms"],
+                   bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                   library_ms=main["library_ms"], shape=main["shape"],
+                   dtype=main["dtype"], library=library,
+                   cases=[_case_row(c, s) for c, s in cases])
+        if key in by_layout:
+            out["launches_by_layout"] = by_layout[key]
+        return out
 
     a_cases = [(c, f"N={c['n']} H={H} T={c['t']} d={D} "
                 + ("lengths bhtd" if c["lengths"] is not None
@@ -1731,7 +1946,7 @@ def kernels_line(attn, lns, launches, train=None, gd=None):
               a_main, "torch.nn.functional.scaled_dot_product_attention"),
         entry("layer_norm_fwd", src + "layer_norm.cu",
               ref + "layer_norm.py:63", launches["K4"], l_cases, l_main,
-              "torch.nn.functional.layer_norm"),
+              "torch.nn.functional.layer_norm", "K4"),
     ]
     if train is None:
         return {"kernels": out}
@@ -1747,9 +1962,11 @@ def kernels_line(attn, lns, launches, train=None, gd=None):
                 + (" causal" if c["causal"] else "")
                 + (" lengths" if c["lengths"] is not None else ""))
                for c in t_attn]
-    f_cases = [(_pass_view(c, False), f"({ROWS}, {C}) p={c['p']}") for c in k3]
-    g_cases = [(_pass_view(c, True), f"({ROWS}, {C}) p={c['p']}") for c in k3]
-    n_cases = [(c, f"({ROWS}, {C})") for c in k4b]
+    f_cases = [(_pass_view(c, False), f"({c['rows']}, {C}) p={c['p']}")
+               for c in k3]
+    g_cases = [(_pass_view(c, True), f"({c['rows']}, {C}) p={c['p']}")
+               for c in k3]
+    n_cases = [(c, f"({c['rows']}, {C})") for c in k4b]
     d_cases = [(c, f"({ROWS}, {c['cols']}) p={c['p']}") for c in drop]
     # headline shapes: f32 at the bench step's shapes
     out += [
@@ -1762,16 +1979,17 @@ def kernels_line(attn, lns, launches, train=None, gd=None):
         entry("layer_norm_bwd", src + "layer_norm.cu",
               ref + "layer_norm.py:122", launches["K4b"], n_cases,
               first(n_cases, f32),
-              "autograd backward of torch.nn.functional.layer_norm"),
+              "autograd backward of torch.nn.functional.layer_norm", "K4b"),
         entry("residual_dropout_ln_fwd", src + "fused_block.cu",
               ref + "fused_block.py:133", launches["K3f"], f_cases,
               first(f_cases, lambda c: f32(c) and c["p"] > 0),
-              "composed: F.dropout + add + F.layer_norm (no single call)"),
+              "composed: F.dropout + add + F.layer_norm (no single call)",
+              "K3f"),
         entry("residual_dropout_ln_bwd", src + "fused_block.cu",
               ref + "fused_block.py:169", launches["K3b"], g_cases,
               first(g_cases, lambda c: f32(c) and c["p"] > 0),
               "composed: autograd backward of F.dropout + add + "
-              "F.layer_norm (no single call)"),
+              "F.layer_norm (no single call)", "K3b"),
         entry("dropout", src + "dropout.cu", ref + "dropout.py:61",
               launches["K5"], d_cases,
               first(d_cases, lambda c: f32(c) and c["cols"] == FFN),
@@ -1821,15 +2039,27 @@ def main():
     launches, served = phase_serve(torch, dev)
     check_result = phase_train_step_check(torch, dev)
     torch.cuda.empty_cache()
-    trained, train_launches = phase_train(torch, dev)
+    trained, (train_launches, f32_layouts) = phase_train(torch, dev)
     trained["check"] = check_result
+    torch.cuda.empty_cache()
+    trained_amp, (amp_launches, amp_layouts) = phase_train(torch, dev, "amp")
+    torch.cuda.empty_cache()
+    trained_tf32, _ = phase_train(torch, dev, "tf32")  # a number, no path
     torch.cuda.empty_cache()
     gd_path, gd_launches = phase_gelu_dropout_path(torch, dev)
     torch.cuda.empty_cache()
-    for k, n in list(train_launches.items()) + list(gd_launches.items()):
+    for k, n in (list(train_launches.items()) + list(amp_launches.items())
+                 + list(gd_launches.items())):
         launches[k] = launches.get(k, 0) + n
+    by_layout = {k: dict(v) for k, v in f32_layouts.items()}
+    for k, v in amp_layouts.items():
+        for name, n in v.items():
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    by_layout["K4"]["f32"] += sum(r["k4_launches"] for r in served)
     log(f"[done] launches on the main paths (serving + {STEPS} timed "
-        f"training steps + {GD_STEPS} gelu_dropout steps): {launches}")
+        f"training steps in f32 and {STEPS} under AMP + {GD_STEPS} "
+        f"gelu_dropout steps): {launches}; the row kernels' by layout "
+        f"{by_layout}")
     phase_times(torch, attn, lns)
     phase_times_train(torch, *train_cases)
     phase_times_gelu_dropout(torch, gd_cases)
@@ -1840,13 +2070,15 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"train": trained}))
+    log(json.dumps({"train_amp": trained_amp}))
+    log(json.dumps({"train_tf32": trained_tf32}))
     log(json.dumps({"serve": served}))
     gd_path["max_abs_err_vs_float64"] = {
         name: {"k6": k6, "erff": erff}
         for name, (k6, erff) in gd_accuracy.items()}
     log(json.dumps({"gelu_dropout": gd_path}))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
-                                gd_cases)))
+                                gd_cases, by_layout)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,15 +14,18 @@ flash-attention-forward and LayerNorm-forward kernels; BERT MLM training
 LayerNorm-backward, fused residual + dropout + LayerNorm and dropout
 kernels, with `gluon.Trainer` and Adam; `npx.gelu_dropout` through the
 fused exact-erf GELU + dropout kernel, forward and backward. With it
-every Pallas kernel of the reference has its CUDA counterpart. Entry
+every Pallas kernel of the reference has its CUDA counterpart. `amp`
+trains those models in bfloat16 mixed precision through the same
+kernels. Entry
 points run on ``cuda:0`` unless the caller passes ``device="cpu"``. This
 package imports neither jax nor the reference package.
 """
-from . import base, device, gluon, models, ops, optimizer, random
+from . import amp, base, device, gluon, models, ops, optimizer, random
 from . import numpy_extension as npx
 from .base import MXNetError
 from .device import cpu, default_device, gpu, num_gpus
 
-__all__ = ["base", "device", "gluon", "models", "ops", "optimizer", "random",
+__all__ = ["amp", "base", "device", "gluon", "models", "ops", "optimizer",
+           "random",
            "npx", "MXNetError",
            "cpu", "gpu", "num_gpus", "default_device"]

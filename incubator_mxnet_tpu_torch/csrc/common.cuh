@@ -105,6 +105,61 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// N elements of T (N a multiple of 4) to and from f32, in 16-byte accesses,
+// or 8-byte ones for four bf16: a companion array read at the element
+// offsets of another of a wider type (a bf16 h beside an f32 x, f32 gamma
+// beside a bf16 x) keeps that array's lane-to-column map
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  static_assert(N % 4 == 0, "whole float4 vectors");
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) Vec16<float>::load(p + 4 * i, out + 4 * i);
+}
+template <int N>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
+  static_assert(N % 4 == 0, "whole 8-byte vectors");
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+      Vec16<__nv_bfloat16>::load(p + 8 * i, out + 8 * i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + 4 * i);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      out[4 * i] = a.x;
+      out[4 * i + 1] = a.y;
+      out[4 * i + 2] = b.x;
+      out[4 * i + 3] = b.y;
+    }
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* in) {
+  static_assert(N % 4 == 0, "whole float4 vectors");
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) Vec16<float>::store(p + 4 * i, in + 4 * i);
+}
+template <int N>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
+  static_assert(N % 4 == 0, "whole 8-byte vectors");
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+      Vec16<__nv_bfloat16>::store(p + 8 * i, in + 8 * i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      uint2 v;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+      h[0] = __floats2bfloat162_rn(in[4 * i], in[4 * i + 1]);
+      h[1] = __floats2bfloat162_rn(in[4 * i + 2], in[4 * i + 3]);
+      *reinterpret_cast<uint2*>(p + 4 * i) = v;
+    }
+  }
+}
+
 // Above 48 KB of dynamic shared memory a kernel must opt in, once per
 // device and size. `opted` is the caller's own static array (one per
 // kernel instantiation); two threads that race here both make the same
@@ -147,6 +202,16 @@ cudaError_t prefer_shared(Kernel kernel, std::atomic<int>* done) {
 // ---------------------------------------------------------------------
 // LayerNorm rows (layer_norm.cu, fused_block.cu)
 // ---------------------------------------------------------------------
+//
+// Three element types: TX for x, y, dy and dx; TH for h and dh (kLnX
+// leaves it unused); TP for gamma, beta, dgamma and dbeta. All arithmetic
+// is f32. The sources instantiate the layouts they take: all f32, all
+// bf16, and AMP's two mixed ones, bf16 x with f32 gamma/beta (LayerNorm)
+// and f32 x with bf16 h and f32 gamma/beta (the residual site). A lane's
+// vectors follow x's width, E = Vec16<TX>::n elements (16 bytes of x); h
+// and gamma/beta are read at the same element offsets in the widths that
+// gives them (load_vec), so the lane-to-column map and the Philox
+// counters are those of x's all-same-type layout.
 
 constexpr int kLnWarps = 4;     // forward rows per block (one warp each)
 constexpr int kLnBwdWarps = 8;  // backward warps per block, at most
@@ -160,21 +225,20 @@ enum LnMode : int {
   kLnXPlusDropH = 2,  // s = x + keep * h * scale, dh = keep * ds * scale
 };
 
-// s for the 16-byte vector at flat offset `off` (a multiple of the vector
-// width, so the dropout words start at a multiple of 4). In kLnXPlusDropH
-// mode bit e of `keep` says whether element e of h is kept: drawn from
-// Philox when kDraw, else given by the caller (the same bits drawn before)
-template <typename T, int kMode, bool kDraw = true>
-__device__ __forceinline__ void ln_load_s(const T* __restrict__ x,
-                                          const T* __restrict__ h,
+// s for the E elements at flat offset `off` (a multiple of E, so the
+// dropout words start at a multiple of 4). In kLnXPlusDropH mode bit e of
+// `keep` says whether element e of h is kept: drawn from Philox when
+// kDraw, else given by the caller (the same bits drawn before)
+template <typename TX, typename TH, int kMode, bool kDraw = true>
+__device__ __forceinline__ void ln_load_s(const TX* __restrict__ x,
+                                          const TH* __restrict__ h,
                                           long long off, const DropoutKey& key,
                                           float* s, unsigned& keep) {
-  using V = Vec16<T>;
-  constexpr int E = V::n;
-  V::load(x + off, s);
+  constexpr int E = Vec16<TX>::n;
+  load_vec<E>(x + off, s);
   if constexpr (kMode == kLnXPlusH || kMode == kLnXPlusDropH) {
     float hv[E];
-    V::load(h + off, hv);
+    load_vec<E>(h + off, hv);
     if constexpr (kMode == kLnXPlusDropH) {
       if constexpr (kDraw) {
         unsigned words[E];
@@ -194,18 +258,17 @@ __device__ __forceinline__ void ln_load_s(const T* __restrict__ x,
 }
 
 // Forward: y = (s - mean) * rstd * gamma + beta with mean first, then the
-// centred variance, rstd = rsqrt(var + eps), all f32; y in T, the f32 row
+// centred variance, rstd = rsqrt(var + eps), all f32; y in TX, the f32 row
 // statistics saved for the backward. One warp per row holds its row in
 // registers (NV vectors per lane), so each input is read once.
-template <typename T, int NV, int kMode>
+template <typename TX, typename TH, typename TP, int NV, int kMode>
 __global__ void __launch_bounds__(kLnWarps * 32)
-    ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
-                  const T* __restrict__ gamma, const T* __restrict__ beta,
-                  T* __restrict__ y, float* __restrict__ mean_out,
+    ln_fwd_kernel(const TX* __restrict__ x, const TH* __restrict__ h,
+                  const TP* __restrict__ gamma, const TP* __restrict__ beta,
+                  TX* __restrict__ y, float* __restrict__ mean_out,
                   float* __restrict__ rstd_out, int rows, int cols, float eps,
                   DropoutKey key) {
-  using V = Vec16<T>;
-  constexpr int E = V::n;
+  constexpr int E = Vec16<TX>::n;
   const int lane = threadIdx.x & 31;
   const long long row =
       static_cast<long long>(blockIdx.x) * kLnWarps + threadIdx.x / 32;
@@ -219,7 +282,7 @@ __global__ void __launch_bounds__(kLnWarps * 32)
     const int c = (j * 32 + lane) * E;
     if (c < cols) {
       unsigned keep = 0u;
-      ln_load_s<T, kMode>(x, h, base + c, key, v[j], keep);
+      ln_load_s<TX, TH, kMode>(x, h, base + c, key, v[j], keep);
 #pragma unroll
       for (int e = 0; e < E; ++e) sum += v[j][e];
     } else {
@@ -248,11 +311,11 @@ __global__ void __launch_bounds__(kLnWarps * 32)
     const int c = (j * 32 + lane) * E;
     if (c < cols) {
       float g[E], b[E], out[E];
-      V::load(gamma + c, g);
-      V::load(beta + c, b);
+      load_vec<E>(gamma + c, g);
+      load_vec<E>(beta + c, b);
 #pragma unroll
       for (int e = 0; e < E; ++e) out[e] = v[j][e] * rstd * g[e] + b[e];
-      V::store(y + base + c, out);
+      store_vec<E>(y + base + c, out);
     }
   }
   if (lane == 0) {
@@ -261,44 +324,42 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
-template <typename T, int NV, int kMode>
+template <typename TX, typename TH, typename TP, int NV, int kMode>
 cudaError_t ln_fwd_launch(const void* x, const void* h, const void* g,
                           const void* b, void* y, void* mean, void* rstd,
                           int rows, int cols, float eps, DropoutKey key,
                           cudaStream_t stream) {
   const int blocks = (rows + kLnWarps - 1) / kLnWarps;
-  ln_fwd_kernel<T, NV, kMode><<<blocks, kLnWarps * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h),
-      static_cast<const T*>(g), static_cast<const T*>(b), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), rows, cols, eps,
-      key);
+  ln_fwd_kernel<TX, TH, TP, NV, kMode><<<blocks, kLnWarps * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TH*>(h),
+      static_cast<const TP*>(g), static_cast<const TP*>(b),
+      static_cast<TX*>(y), static_cast<float*>(mean),
+      static_cast<float*>(rstd), rows, cols, eps, key);
   return cudaGetLastError();
 }
 
 // the smallest power-of-two vector count per lane that covers `cols`
-template <typename T, int kMode>
+template <typename TX, typename TH, typename TP, int kMode>
 cudaError_t ln_fwd_dispatch(const void* x, const void* h, const void* g,
                             const void* b, void* y, void* mean, void* rstd,
                             int rows, int cols, float eps, DropoutKey key,
                             cudaStream_t s) {
-  constexpr int E = Vec16<T>::n;
+  constexpr int E = Vec16<TX>::n;
   if (rows <= 0 || cols <= 0 || cols > kLnMaxCols || cols % E)
     return cudaErrorInvalidValue;
   const int nv = (cols + 32 * E - 1) / (32 * E);
-  if (nv <= 1)
-    return ln_fwd_launch<T, 1, kMode>(x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
-  if (nv <= 2)
-    return ln_fwd_launch<T, 2, kMode>(x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
-  if (nv <= 4)
-    return ln_fwd_launch<T, 4, kMode>(x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
-  if (nv <= 8)
-    return ln_fwd_launch<T, 8, kMode>(x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
-  if (nv <= 16)
-    return ln_fwd_launch<T, 16, kMode>(x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
+#define MX_LN_FWD(NV)                                                    \
+  return ln_fwd_launch<TX, TH, TP, NV, kMode>(x, h, g, b, y, mean, rstd, \
+                                              rows, cols, eps, key, s)
+  if (nv <= 1) MX_LN_FWD(1);
+  if (nv <= 2) MX_LN_FWD(2);
+  if (nv <= 4) MX_LN_FWD(4);
+  if (nv <= 8) MX_LN_FWD(8);
+  if (nv <= 16) MX_LN_FWD(16);
   if constexpr (E == 4) {
-    if (nv <= 32)
-      return ln_fwd_launch<T, 32, kMode>(x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
+    if (nv <= 32) MX_LN_FWD(32);
   }
+#undef MX_LN_FWD
   return cudaErrorInvalidValue;
 }
 
@@ -327,8 +388,9 @@ cudaError_t ln_fwd_dispatch(const void* x, const void* h, const void* g,
 // register. At the end each warp's sums go to its slot, and the block
 // adds its slots in warp order into partials[block] (2 x C f32);
 // ln_partials_reduce_kernel adds those in block order and writes dgamma
-// and dbeta in T. The sums' order depends on (rows, C, grid) only: the
-// same dgamma/dbeta in every run, with no float atomics.
+// and dbeta in TP. The sums' order depends on (rows, C, grid) only: the
+// same dgamma/dbeta in every run and in every layout, with no float
+// atomics.
 constexpr int kLnBwdBlocksPerSm = 2;
 constexpr int kLnHoldElems = 32;    // a lane holds its row up to this
 constexpr int kLnRegAccElems = 32;  // and, in kLnX mode, its sums
@@ -337,19 +399,18 @@ constexpr int kLnBoundElems = 24;   // and fits kLnBwdBlocksPerSm an SM
 // kLnBwdBlocksPerSm resident blocks an SM leave 65536 / (256 x blocks)
 // registers a thread: enough while a lane holds at most kLnBoundElems
 // elements (C = 768 in f32 and bf16)
-template <typename T, int NV, int kMode>
+template <typename TX, typename TH, typename TP, int NV, int kMode>
 __global__ void __launch_bounds__(kLnBwdWarps * 32,
-                                  (NV * Vec16<T>::n <= kLnBoundElems
+                                  (NV * Vec16<TX>::n <= kLnBoundElems
                                        ? kLnBwdBlocksPerSm
                                        : 1))
-    ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
-                  const T* __restrict__ dy, const float* __restrict__ mean,
+    ln_bwd_kernel(const TX* __restrict__ x, const TH* __restrict__ h,
+                  const TX* __restrict__ dy, const float* __restrict__ mean,
                   const float* __restrict__ rstd,
-                  const T* __restrict__ gamma, T* __restrict__ dx,
-                  T* __restrict__ dh, float* __restrict__ partials, int rows,
+                  const TP* __restrict__ gamma, TX* __restrict__ dx,
+                  TH* __restrict__ dh, float* __restrict__ partials, int rows,
                   int cols, DropoutKey key) {
-  using V = Vec16<T>;
-  constexpr int E = V::n;
+  constexpr int E = Vec16<TX>::n;
   constexpr bool kHold = NV * E <= kLnHoldElems;
   // dgamma/dbeta in registers where that leaves no spill at two blocks
   // an SM: K4b; K3 (h, Philox) sums into shared memory
@@ -394,10 +455,10 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32,
       if (c < cols) {
         float s[E], d[E], g[E];
         unsigned bits = 0u;
-        ln_load_s<T, kMode>(x, h, base + c, key, s, bits);
+        ln_load_s<TX, TH, kMode>(x, h, base + c, key, s, bits);
         keep[j * E / 32] |= bits << (j * E % 32);
-        V::load(dy + base + c, d);
-        V::load(gamma + c, g);
+        load_vec<E>(dy + base + c, d);
+        load_vec<E>(gamma + c, g);
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           const float w = d[e] * g[e];
@@ -426,10 +487,10 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32,
           }
         } else {
           unsigned given = bits;
-          ln_load_s<T, kMode, false>(x, h, base + c, key, s, given);
-          V::load(dy + base + c, d);
+          ln_load_s<TX, TH, kMode, false>(x, h, base + c, key, s, given);
+          load_vec<E>(dy + base + c, d);
         }
-        V::load(gamma + c, g);
+        load_vec<E>(gamma + c, g);
 #pragma unroll
         for (int e = 0; e < E; e += 4) {
           float4 sg, sb;  // the warp's slot, 16 bytes a lane (!kRegAcc)
@@ -456,13 +517,13 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32,
             *reinterpret_cast<float4*>(db_acc + c + e) = sb;
           }
         }
-        V::store(dx + base + c, ds);
+        store_vec<E>(dx + base + c, ds);
         if constexpr (kMode == kLnXPlusDropH) {
 #pragma unroll
           for (int e = 0; e < E; ++e)
             ds[e] = (bits >> e) & 1u ? ds[e] * key.scale : 0.f;
         }
-        if constexpr (kMode != kLnX) V::store(dh + base + c, ds);
+        if constexpr (kMode != kLnX) store_vec<E>(dh + base + c, ds);
       }
     }
   }
@@ -491,16 +552,16 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32,
 }
 
 // out[c] = sum over blocks b of partials[b][c], c over the 2 * cols
-// entries (dgamma, then dbeta), written in T, in a fixed order: each
+// entries (dgamma, then dbeta), written in TP, in a fixed order: each
 // block takes 32 columns, its kLnReduceWarps warps sum every
 // kLnReduceWarps-th partial row (a few loads each, all in flight at
 // once), then warp 0 adds the warp sums in order.
 constexpr int kLnReduceWarps = 32;
 
-template <typename T>
+template <typename TP>
 __global__ void __launch_bounds__(kLnReduceWarps * 32)
     ln_partials_reduce_kernel(const float* __restrict__ partials,
-                              T* __restrict__ out, int nblocks, int width) {
+                              TP* __restrict__ out, int nblocks, int width) {
   __shared__ float red[kLnReduceWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
   const int col = blockIdx.x * 32 + lane;
@@ -516,7 +577,7 @@ __global__ void __launch_bounds__(kLnReduceWarps * 32)
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < kLnReduceWarps; ++i) sum += red[i][lane];
-    out[col] = from_float<T>(sum);
+    out[col] = from_float<TP>(sum);
   }
 }
 
@@ -527,9 +588,9 @@ inline int ln_bwd_warps(int cols) {
   return fit < kLnBwdWarps ? fit : kLnBwdWarps;
 }
 
-// dx (and dh), and dgamma/dbeta as T (2, cols) in `dgb`; `partials` is
+// dx (and dh), and dgamma/dbeta as TP (2, cols) in `dgb`; `partials` is
 // the caller's (nblocks, 2, cols) f32 scratch
-template <typename T, int NV, int kMode>
+template <typename TX, typename TH, typename TP, int NV, int kMode>
 cudaError_t ln_bwd_launch(const void* x, const void* h, const void* dy,
                           const void* mean, const void* rstd,
                           const void* gamma, void* dx, void* dh,
@@ -537,42 +598,42 @@ cudaError_t ln_bwd_launch(const void* x, const void* h, const void* dy,
                           int nblocks, DropoutKey key, cudaStream_t stream) {
   const int warps = ln_bwd_warps(cols);
   const int smem = warps * 2 * cols * static_cast<int>(sizeof(float));
-  auto kernel = ln_bwd_kernel<T, NV, kMode>;
+  auto kernel = ln_bwd_kernel<TX, TH, TP, NV, kMode>;
   static std::atomic<int> opted[kMaxDevices], carved[kMaxDevices];
   cudaError_t err = opt_in_smem(kernel, smem, opted);
   if (err == cudaSuccess) err = prefer_shared(kernel, carved);
   if (err != cudaSuccess) return err;
   kernel<<<nblocks, warps * 32, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h),
-      static_cast<const T*>(dy), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<const T*>(gamma),
-      static_cast<T*>(dx), static_cast<T*>(dh),
+      static_cast<const TX*>(x), static_cast<const TH*>(h),
+      static_cast<const TX*>(dy), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const TP*>(gamma),
+      static_cast<TX*>(dx), static_cast<TH*>(dh),
       static_cast<float*>(partials), rows, cols, key);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_partials_reduce_kernel<T>
+  ln_partials_reduce_kernel<TP>
       <<<(2 * cols + 31) / 32, kLnReduceWarps * 32, 0, stream>>>(
-      static_cast<const float*>(partials), static_cast<T*>(dgb), nblocks,
+      static_cast<const float*>(partials), static_cast<TP*>(dgb), nblocks,
       2 * cols);
   return cudaGetLastError();
 }
 
 // NV, the vectors a lane takes of a row: exactly the row's count up to
 // 8, then 12, 16, 24 or 32
-template <typename T, int kMode>
+template <typename TX, typename TH, typename TP, int kMode>
 cudaError_t ln_bwd_dispatch(const void* x, const void* h, const void* dy,
                             const void* mean, const void* rstd,
                             const void* g, void* dx, void* dh,
                             void* partials, void* dgb, int rows, int cols,
                             int nblocks, DropoutKey key, cudaStream_t s) {
-  constexpr int E = Vec16<T>::n;
+  constexpr int E = Vec16<TX>::n;
   if (rows <= 0 || cols <= 0 || cols > kLnMaxCols || cols % E || nblocks <= 0)
     return cudaErrorInvalidValue;
   const int nv = (cols + 32 * E - 1) / (32 * E);
-#define MX_LN_BWD(NV)                                                        \
-  return ln_bwd_launch<T, NV, kMode>(x, h, dy, mean, rstd, g, dx, dh,        \
-                                     partials, dgb, rows, cols, nblocks, key, \
-                                     s)
+#define MX_LN_BWD(NV)                                                  \
+  return ln_bwd_launch<TX, TH, TP, NV, kMode>(x, h, dy, mean, rstd, g, \
+                                              dx, dh, partials, dgb,   \
+                                              rows, cols, nblocks, key, s)
   switch (nv) {
     case 1: MX_LN_BWD(1);
     case 2: MX_LN_BWD(2);

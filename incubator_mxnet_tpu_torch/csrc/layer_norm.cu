@@ -25,64 +25,78 @@
 // sequential grid in VMEM, but Hopper's blocks run in parallel, so each
 // block writes its (2, C) f32 partial and a second kernel sums the
 // partials in a fixed order (deterministic, no float atomics) and writes
-// them in the input dtype. C is at most 4096 and a multiple of the vector
+// them in gamma's dtype. C is at most 4096 and a multiple of the vector
 // width; the Python wrapper checks both and the 16-byte alignment.
+//
+// Layouts (x and y, gamma/beta): both float32, both bfloat16, and
+// bfloat16 x with float32 gamma/beta, which AMP feeds the MLM head's
+// LayerNorm (`models/bert.py` mlm_ln): the row is read and written in
+// bf16, gamma/beta and dgamma/dbeta are f32.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename TX, typename TP>
+cudaError_t fwd(const void* x, const void* gamma, const void* beta, void* y,
+                void* mean, void* rstd, int rows, int cols, float eps,
+                cudaStream_t s) {
+  return mx::ln_fwd_dispatch<TX, TX, TP, mx::kLnX>(
+      x, nullptr, gamma, beta, y, mean, rstd, rows, cols, eps,
+      mx::DropoutKey{}, s);
+}
+
+template <typename TX, typename TP>
 cudaError_t bwd(const void* x, const void* dy, const void* mean,
                 const void* rstd, const void* gamma, void* dx, void* partials,
                 void* dgb, int rows, int cols, int nblocks, cudaStream_t s) {
-  return mx::ln_bwd_dispatch<T, mx::kLnX>(x, nullptr, dy, mean, rstd, gamma, dx,
-                                        nullptr, partials, dgb, rows, cols,
-                                        nblocks, mx::DropoutKey{}, s);
+  return mx::ln_bwd_dispatch<TX, TX, TP, mx::kLnX>(
+      x, nullptr, dy, mean, rstd, gamma, dx, nullptr, partials, dgb, rows,
+      cols, nblocks, mx::DropoutKey{}, s);
 }
 
 }  // namespace
 
-// y, mean, rstd = LayerNorm(x) over rows of `cols` elements, on the
-// caller's current device. Returns the cudaError_t of the launch.
-MX_EXPORT int mx_layer_norm_fwd(int dtype, const void* x,
+// y, mean, rstd = LayerNorm(x) over rows of `cols` elements, x and y in
+// `dtype`, gamma/beta in `param_dtype` (a layout above), on the caller's
+// current device. Returns the cudaError_t of the launch.
+MX_EXPORT int mx_layer_norm_fwd(int dtype, int param_dtype, const void* x,
                                 const void* gamma, const void* beta, void* y,
                                 void* mean, void* rstd, int rows, int cols,
                                 float eps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return mx::ln_fwd_dispatch<float, mx::kLnX>(
-          x, nullptr, gamma, beta, y, mean, rstd, rows, cols, eps,
-          mx::DropoutKey{}, s);
-    case kBFloat16:
-      return mx::ln_fwd_dispatch<__nv_bfloat16, mx::kLnX>(
-          x, nullptr, gamma, beta, y, mean, rstd, rows, cols, eps,
-          mx::DropoutKey{}, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == kFloat32 && param_dtype == kFloat32)
+    return fwd<float, float>(x, gamma, beta, y, mean, rstd, rows, cols, eps,
+                             s);
+  if (dtype == kBFloat16 && param_dtype == kBFloat16)
+    return fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mean, rstd,
+                                             rows, cols, eps, s);
+  if (dtype == kBFloat16 && param_dtype == kFloat32)
+    return fwd<__nv_bfloat16, float>(x, gamma, beta, y, mean, rstd, rows,
+                                     cols, eps, s);
+  return cudaErrorInvalidValue;
 }
 
-// dx (rows, cols) and dgamma/dbeta (2, cols) in `dgb`, all in the input
-// dtype, from x, dy, the forward's f32 mean/rstd and gamma. `partials` is
-// f32 scratch of (nblocks, 2, cols); nblocks picks the grid (and with it
-// the summation order, so a fixed nblocks gives the same dgamma/dbeta in
-// every run). Runs on the caller's current device; returns the
-// cudaError_t of the launches.
-MX_EXPORT int mx_layer_norm_bwd(int dtype, const void* x, const void* dy,
-                                const void* mean, const void* rstd,
-                                const void* gamma, void* dx, void* partials,
-                                void* dgb, int rows, int cols, int nblocks,
-                                void* stream) {
+// dx (rows, cols) in `dtype` (x's and dy's) and dgamma/dbeta (2, cols) in
+// `dgb`, in `param_dtype` (gamma's), from x, dy, the forward's f32
+// mean/rstd and gamma. `partials` is f32 scratch of (nblocks, 2, cols);
+// nblocks picks the grid (and with it the summation order, so a fixed
+// nblocks gives the same dgamma/dbeta in every run). Runs on the caller's
+// current device; returns the cudaError_t of the launches.
+MX_EXPORT int mx_layer_norm_bwd(int dtype, int param_dtype, const void* x,
+                                const void* dy, const void* mean,
+                                const void* rstd, const void* gamma, void* dx,
+                                void* partials, void* dgb, int rows, int cols,
+                                int nblocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return bwd<float>(x, dy, mean, rstd, gamma, dx, partials, dgb, rows,
-                        cols, nblocks, s);
-    case kBFloat16:
-      return bwd<__nv_bfloat16>(x, dy, mean, rstd, gamma, dx, partials, dgb,
-                                rows, cols, nblocks, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == kFloat32 && param_dtype == kFloat32)
+    return bwd<float, float>(x, dy, mean, rstd, gamma, dx, partials, dgb,
+                             rows, cols, nblocks, s);
+  if (dtype == kBFloat16 && param_dtype == kBFloat16)
+    return bwd<__nv_bfloat16, __nv_bfloat16>(x, dy, mean, rstd, gamma, dx,
+                                             partials, dgb, rows, cols,
+                                             nblocks, s);
+  if (dtype == kBFloat16 && param_dtype == kFloat32)
+    return bwd<__nv_bfloat16, float>(x, dy, mean, rstd, gamma, dx, partials,
+                                     dgb, rows, cols, nblocks, s);
+  return cudaErrorInvalidValue;
 }

@@ -7,6 +7,10 @@ port has no deferred shape inference. Parameters are created on
 initialised as the reference's defaults do: weights uniform in
 [-0.07, 0.07], biases and betas zero, gammas one. ``reset_parameters``
 takes an optional `torch.Generator` so a model can be made from a seed.
+
+Under AMP (`amp.init("bfloat16")`) ``Dense`` and ``Embedding`` take their
+inputs as the reference's "fully_connected" and "embedding" ops do
+(`amp.cast_inputs`): float32 inputs, weight and bias cast to bfloat16.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import amp
 from ... import numpy_extension as npx
 from ...device import resolve_device
 
@@ -44,7 +49,9 @@ class Dense(nn.Module):
     """Fully-connected layer: ``y = act(x @ weight.T + bias)`` with weight
     ``(units, in_units)`` and ``act`` an ``npx.activation`` type or None;
     ``flatten=True`` collapses all but the first axis of the input
-    first."""
+    first. Under AMP x, weight and bias are cast to bf16 and the bias is
+    added inside the product (``F.linear``, one rounding of x @ W.T + b),
+    where the reference rounds the product and then the sum."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", in_units=0, device=None):
@@ -71,7 +78,8 @@ class Dense(nn.Module):
     def forward(self, x):
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
-        y = F.linear(x, self.weight, self.bias)
+        y = F.linear(*amp.cast_inputs("fully_connected", x, self.weight,
+                                      self.bias))
         if self._activation is not None:
             y = npx.activation(y, act_type=self._activation)
         return y
@@ -129,7 +137,9 @@ class Dropout(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Index → vector lookup with weight ``(input_dim, output_dim)``."""
+    """Index → vector lookup with weight ``(input_dim, output_dim)``.
+    Under AMP the whole table is cast to bf16 and then gathered, as the
+    reference's funnel casts it, so the backward adds bf16 cotangents."""
 
     def __init__(self, input_dim, output_dim, dtype="float32", device=None):
         super().__init__()
@@ -142,4 +152,5 @@ class Embedding(nn.Module):
                                  generator=generator)
 
     def forward(self, x):
-        return self.weight[x]
+        (weight,) = amp.cast_inputs("embedding", self.weight)
+        return weight[x]

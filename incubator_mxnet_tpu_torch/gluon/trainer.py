@@ -8,6 +8,10 @@ do (MXNet's ``grad_req="add"``); clear them between steps with
 ``module.zero_grad()``. A parameter whose ``.grad`` is None (one the loss
 does not reach, such as BERT's NSP head under an MLM-only loss) is
 skipped, as `_update` skips it.
+
+``_scale`` (1.0 until `amp.scale_loss` folds 1 / loss scale into it, and
+again after `amp.unscale`) multiplies into the optimizer's
+``rescale_grad`` at every step, as in the reference (:30, :87, :116).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ class Trainer:
                             f"has no optimizer registry yet), got "
                             f"{optimizer!r}")
         self._optimizer = optimizer
+        self._scale = 1.0
         self._states = {}  # index -> optimizer state, made at first update
 
     @property
@@ -53,8 +58,9 @@ class Trainer:
         self.update(batch_size)
 
     def update(self, batch_size):
-        """Apply the optimizer with gradients rescaled by 1/batch_size."""
-        self._optimizer.rescale_grad = 1.0 / batch_size
+        """Apply the optimizer with gradients rescaled by
+        ``_scale``/batch_size."""
+        self._optimizer.rescale_grad = self._scale / batch_size
         for i, p in enumerate(self._params):
             if not p.requires_grad or p.grad is None:
                 continue

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import amp
 from .. import random as _random
 from ..base import MXNetError
 from ..ops import dropout as _dp
@@ -128,7 +129,10 @@ def flash_attention(query, key, value, valid_length=None, causal=False,
                     sm_scale=None, layout="bhtd", impl="auto"):
     """Fused memory-linear attention, differentiable: the kernels in
     `ops/flash_attention.py` for CUDA tensors, their plain versions for
-    CPU tensors. ``valid_length``: (B,) valid sequence lengths."""
+    CPU tensors. ``valid_length``: (B,) valid sequence lengths. Under AMP
+    float32 q, k, v are cast to bf16."""
+    query, key, value = amp.cast_inputs("flash_attention", query, key,
+                                        value)
     return _fa.flash_attention(query, key, value, lengths=valid_length,
                                causal=causal, sm_scale=sm_scale, impl=impl,
                                layout=layout)

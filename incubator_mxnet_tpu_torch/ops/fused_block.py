@@ -29,9 +29,19 @@ h is dropped, so the wrapper runs the LayerNorm kernels of
 PyTorch (the backward's explicit formula, not autograd); a wrapper uses
 them only for CPU tensors or when asked with ``impl="plain"``.
 
+Layouts (`ops.layer_norm.RESIDUAL_LAYOUTS`): x, y, dx and dy in one
+dtype, h and dh in one, gamma/beta and dgamma/dbeta in one: all float32,
+all bfloat16, or float32 x with bfloat16 h and float32 gamma/beta, what
+AMP feeds BERT's residual sites (the residual stream f32, the attention
+and FFN outputs bf16 products), as the reference's kernels take any mix.
+Another layout raises on a CUDA tensor; nothing is cast to one the
+kernels take (casting h to f32 would add a pass and 2 bytes an element).
+
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones: a backward call that reaches the card launches two kernels, the row
 kernel and the reduction of its dgamma/dbeta partials.
+``layout_launches`` and ``bwd_layout_launches`` count them by layout
+(`ops.layer_norm.layout_name`).
 
 **K6.** Port of `gelu_dropout` (:366) with its kernels `_gd_fwd_kernel`
 (:289) and `_gd_bwd_kernel` (:298), launched through `_gd_call` (:311),
@@ -57,6 +67,7 @@ are ``gd_launches`` and ``gd_bwd_launches``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -66,12 +77,14 @@ from ..base import MXNetError
 from . import _build
 from ._philox import dropout_scale, keep_mask, threshold
 from .layer_norm import (BWD_KERNELS, bwd_blocks, check_kernel_args,
-                         layer_norm_bwd, layer_norm_fwd, plain_layer_norm,
-                         plain_ln_grads, sm_count, use_plain)
+                         layer_norm_bwd, layer_norm_fwd, layout_name,
+                         plain_layer_norm, plain_ln_grads, sm_count,
+                         use_plain)
 
 __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "residual_dropout_ln_fwd", "residual_dropout_ln_bwd",
            "residual_dropout_ln", "launches", "bwd_launches",
+           "layout_launches", "bwd_layout_launches",
            "plain_gelu_dropout", "plain_gelu_dropout_bwd", "gelu_dropout_fwd",
            "gelu_dropout_bwd", "gelu_dropout", "gd_launches",
            "gd_bwd_launches"]
@@ -82,6 +95,8 @@ _ADD, _DROP = 1, 2
 
 launches = 0
 bwd_launches = 0
+layout_launches = collections.Counter()
+bwd_layout_launches = collections.Counter()
 gd_launches = 0
 gd_bwd_launches = 0
 _LIB = None
@@ -128,18 +143,23 @@ def _lib():
     if _LIB is None:
         lib = _build.load("fused_block")
         fn = lib.mx_residual_dropout_ln_fwd
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
                        + [ctypes.c_uint32] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.mx_residual_dropout_ln_bwd
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _codes(x2d, h2d, gamma):
+    """The C entries' dtype codes of x, h and gamma."""
+    return _DTYPES[x2d.dtype], _DTYPES[h2d.dtype], _DTYPES[gamma.dtype]
 
 
 def _mode_key_args(key, p):
@@ -152,7 +172,7 @@ def _mode_key_args(key, p):
 def _kernel(x2d, h2d, gamma, beta, key, p, eps):
     global launches
     rows, feat = x2d.shape
-    check_kernel_args("residual_dropout_ln", x2d, (gamma, beta), (h2d,))
+    check_kernel_args("residual_dropout_ln", x2d, (gamma, beta), h=h2d)
     x2d, h2d, gamma, beta = (_build.aligned(t)
                              for t in (x2d, h2d, gamma, beta))
     y = torch.empty_like(x2d)
@@ -165,19 +185,20 @@ def _kernel(x2d, h2d, gamma, beta, key, p, eps):
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
         err = lib.mx_residual_dropout_ln_fwd(
-            _DTYPES[x2d.dtype], mode, x2d.data_ptr(), h2d.data_ptr(),
+            *_codes(x2d, h2d, gamma), mode, x2d.data_ptr(), h2d.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), rows, feat, float(eps), *key_args, stream)
     _build.check(lib, err, "residual_dropout_ln_fwd")
     launches += 1
+    layout_launches[layout_name(x2d.dtype, gamma.dtype, h2d.dtype)] += 1
     return y, mean, rstd
 
 
 def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
     global bwd_launches
     rows, feat = x2d.shape
-    check_kernel_args("residual_dropout_ln_bwd", x2d, (gamma,),
-                      (h2d, dy2d))
+    check_kernel_args("residual_dropout_ln_bwd", x2d, (gamma,), (dy2d,),
+                      h=h2d)
     x2d, h2d, dy2d, gamma = (_build.aligned(t)
                              for t in (x2d, h2d, dy2d, gamma))
     mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
@@ -194,13 +215,15 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
         err = lib.mx_residual_dropout_ln_bwd(
-            _DTYPES[x2d.dtype], mode, x2d.data_ptr(), h2d.data_ptr(),
+            *_codes(x2d, h2d, gamma), mode, x2d.data_ptr(), h2d.data_ptr(),
             dy2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             gamma.data_ptr(), dx.data_ptr(), dh.data_ptr(),
             partials.data_ptr(), dgb.data_ptr(), rows, feat, nblocks,
             *key_args, stream)
     _build.check(lib, err, "residual_dropout_ln_bwd")
     bwd_launches += BWD_KERNELS
+    bwd_layout_launches[layout_name(x2d.dtype, gamma.dtype,
+                                    h2d.dtype)] += BWD_KERNELS
     return dx, dh, dgb[0], dgb[1]
 
 
@@ -214,7 +237,7 @@ def residual_dropout_ln_fwd(x2d, h2d, gamma, beta, key, p, eps=1e-5,
     if use_plain("residual_dropout_ln", x2d, impl):
         return plain_residual_dropout_ln(x2d, h2d, gamma, beta, key, p, eps)
     if p == 1:  # all of h dropped: LayerNorm of x
-        check_kernel_args("residual_dropout_ln", x2d, (gamma, beta), (h2d,))
+        check_kernel_args("residual_dropout_ln", x2d, (gamma, beta), h=h2d)
         return layer_norm_fwd(x2d, gamma, beta, eps, impl)
     return _kernel(x2d, h2d, gamma, beta, key, p, eps)
 
@@ -227,8 +250,8 @@ def residual_dropout_ln_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p,
         return plain_residual_dropout_ln_bwd(x2d, h2d, dy2d, mean, rstd,
                                              gamma, key, p)
     if p == 1:  # all of h dropped: dh = 0
-        check_kernel_args("residual_dropout_ln_bwd", x2d, (gamma,),
-                          (h2d, dy2d))
+        check_kernel_args("residual_dropout_ln_bwd", x2d, (gamma,), (dy2d,),
+                          h=h2d)
         dx, dg, db = layer_norm_bwd(x2d, dy2d, mean, rstd, gamma, impl)
         return dx, torch.zeros_like(h2d), dg, db
     return _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p)

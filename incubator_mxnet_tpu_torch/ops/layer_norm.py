@@ -21,12 +21,24 @@ raises. :func:`layer_norm` is differentiable: an autograd Function pairs
 the forward with the backward and saves x, gamma, mean and rstd, as
 `_ln_core_fwd` does.
 
+Layouts (:data:`LAYOUTS`): x, y and dx in one dtype and gamma/beta and
+dgamma/dbeta in one, both float32, both bfloat16, or bfloat16 x with
+float32 gamma/beta, what AMP feeds a LayerNorm whose input is a bf16
+product (BERT's ``mlm_ln``), as the reference's kernels take any mix
+(they cast every input to f32 and write y in x's dtype, dgamma/dbeta in
+gamma's). A CUDA tensor in another layout raises: nothing is cast to a
+layout the kernels take, which would add a pass over the row.
+
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones: a backward call that reaches the card launches :data:`BWD_KERNELS`
 kernels, the row kernel and the reduction of its dgamma/dbeta partials.
+``layout_launches`` and ``bwd_layout_launches`` count the same launches by
+layout name (:func:`layout_name`), so a run can show which layout it
+took.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -35,10 +47,12 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["MAX_FEATURES", "BWD_KERNELS", "supports", "bwd_blocks",
-           "sm_count", "column_sum_tol", "plain_layer_norm",
-           "plain_ln_grads", "plain_layer_norm_bwd", "layer_norm_fwd",
-           "layer_norm_bwd", "layer_norm", "launches", "bwd_launches"]
+__all__ = ["MAX_FEATURES", "BWD_KERNELS", "LAYOUTS", "RESIDUAL_LAYOUTS",
+           "supports", "layout_name", "bwd_blocks", "sm_count",
+           "column_sum_tol",
+           "plain_layer_norm", "plain_ln_grads", "plain_layer_norm_bwd",
+           "layer_norm_fwd", "layer_norm_bwd", "layer_norm", "launches",
+           "bwd_launches", "layout_launches", "bwd_layout_launches"]
 
 #: Largest feature size the kernels take: 32 lanes x 32 float4 vectors
 #: (f32) or 16 eight-wide vectors (bf16) held in registers per row.
@@ -57,21 +71,51 @@ BWD_REDUCE_WARPS = 32
 #: of its per-block dgamma/dbeta partials.
 BWD_KERNELS = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: (x, gamma) dtypes the LayerNorm kernels take; the last is AMP's
+LAYOUTS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+           (torch.bfloat16, torch.float32))
+#: (x, h, gamma) dtypes the fused residual + dropout + LayerNorm kernels
+#: (`ops/fused_block.py`, the same row code) take; the last is AMP's
+RESIDUAL_LAYOUTS = ((torch.float32,) * 3, (torch.bfloat16,) * 3,
+                    (torch.float32, torch.bfloat16, torch.float32))
 
 launches = 0
 bwd_launches = 0
+layout_launches = collections.Counter()
+bwd_layout_launches = collections.Counter()
 _LIB = None
 
 
-def supports(shape, axis, feat, dtype=torch.float32):
-    """Kernel eligibility on Hopper: last-axis norm, a float32/bfloat16
-    feature size that is a whole number of 16-byte vectors and at most
-    :data:`MAX_FEATURES` (replaces the TPU lane rule ``C % 128 == 0``)."""
+def supports(shape, axis, feat, dtype=torch.float32, param_dtype=None,
+             h_dtype=None):
+    """Kernel eligibility on Hopper: last-axis norm; x and gamma/beta
+    (``param_dtype``, x's dtype when None) in one of :data:`LAYOUTS`, or
+    with the residual's ``h_dtype`` one of :data:`RESIDUAL_LAYOUTS`; a
+    feature size that is a whole number of 16-byte vectors of x and at
+    most :data:`MAX_FEATURES` (replaces the TPU lane rule
+    ``C % 128 == 0``)."""
     ndim = len(shape)
-    if axis not in (-1, ndim - 1) or dtype not in _DTYPES:
+    param_dtype = dtype if param_dtype is None else param_dtype
+    layout = (dtype, param_dtype) if h_dtype is None else (
+        dtype, h_dtype, param_dtype)
+    if axis not in (-1, ndim - 1) or layout not in (
+            LAYOUTS if h_dtype is None else RESIDUAL_LAYOUTS):
         return False
     vec = 16 // (torch.finfo(dtype).bits // 8)
     return 0 < feat <= MAX_FEATURES and feat % vec == 0
+
+
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def layout_name(x_dtype, param_dtype, h_dtype=None):
+    """"f32" or "bf16" when every operand has one dtype, else e.g.
+    "bf16 x, f32 gamma" or "f32 x, bf16 h, f32 gamma"."""
+    dts = (x_dtype, param_dtype) + (() if h_dtype is None else (h_dtype,))
+    if len(set(dts)) == 1:
+        return _SHORT[x_dtype]
+    h = "" if h_dtype is None else f", {_SHORT[h_dtype]} h"
+    return f"{_SHORT[x_dtype]} x{h}, {_SHORT[param_dtype]} gamma"
 
 
 def plain_layer_norm(x2d, gamma, beta, eps=1e-5):
@@ -111,32 +155,48 @@ def _lib():
     if _LIB is None:
         lib = _build.load("layer_norm")
         fn = lib.mx_layer_norm_fwd
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.mx_layer_norm_bwd
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def check_kernel_args(what, x2d, params, others=()):
-    """Raise unless the row kernels take x2d with these (C,) parameters
-    and same-shape companions."""
+def _names(dtypes):
+    return "(" + ", ".join(str(d).replace("torch.", "") for d in dtypes) + ")"
+
+
+def check_kernel_args(what, x2d, params, others=(), h=None):
+    """Raise unless the row kernels take x2d with these (C,) parameters,
+    same-shape companions ``others`` in x's dtype (dy) and, for the
+    residual kernels, a same-shape ``h``: the dtypes of (x, gamma) must be
+    one of :data:`LAYOUTS`, or those of (x, h, gamma) one of
+    :data:`RESIDUAL_LAYOUTS`."""
     feat = x2d.shape[1]
-    if x2d.dtype not in _DTYPES:
-        raise MXNetError(f"{what} kernel takes float32/bfloat16, got "
+    comp = (*others, *(() if h is None else (h,)))
+    if h is None:
+        names, layouts = "x, gamma", LAYOUTS
+        got = (x2d.dtype, params[0].dtype)
+    else:
+        names, layouts = "x, h, gamma", RESIDUAL_LAYOUTS
+        got = (x2d.dtype, h.dtype, params[0].dtype)
+    if got not in layouts or any(t.dtype != got[-1] for t in params):
+        raise MXNetError(
+            f"{what} kernel takes ({names}) dtypes "
+            f"{', '.join(_names(k) for k in layouts)}, beta in gamma's; got "
+            f"{_names(got)}, beta {_names(t.dtype for t in params[1:])}")
+    if any(t.dtype != x2d.dtype for t in others):
+        raise MXNetError(f"{what} kernel: dy must have x's dtype "
                          f"{x2d.dtype}")
-    if any(t.dtype != x2d.dtype for t in (*params, *others)):
-        raise MXNetError(f"{what} kernel: gamma/beta and the other inputs "
-                         f"must have the input dtype {x2d.dtype}")
     if any(t.shape != (feat,) for t in params):
         raise MXNetError(f"{what}: gamma/beta must be ({feat},), got "
                          f"{[tuple(t.shape) for t in params]}")
-    if any(t.shape != x2d.shape for t in others):
+    if any(t.shape != x2d.shape for t in comp):
         raise MXNetError(f"{what}: inputs must share the shape "
                          f"{tuple(x2d.shape)}")
     if not supports(x2d.shape, -1, feat, x2d.dtype):
@@ -144,7 +204,7 @@ def check_kernel_args(what, x2d, params, others=()):
             f"{what} kernel takes a feature size that is a multiple of "
             f"{16 // x2d.element_size()} and at most {MAX_FEATURES}, got "
             f"{feat}")
-    if any(t.device != x2d.device for t in (*params, *others)):
+    if any(t.device != x2d.device for t in (*params, *comp)):
         raise MXNetError(f"{what}: all inputs must share a device")
 
 
@@ -197,11 +257,12 @@ def _kernel(x2d, gamma, beta, eps):
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
         err = lib.mx_layer_norm_fwd(
-            _DTYPES[x2d.dtype], x2d.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            rows, x2d.shape[1], float(eps), stream)
+            _DTYPES[x2d.dtype], _DTYPES[gamma.dtype], x2d.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), rows, x2d.shape[1], float(eps), stream)
     _build.check(lib, err, "layer_norm_fwd")
     launches += 1
+    layout_launches[layout_name(x2d.dtype, gamma.dtype)] += 1
     return y, mean, rstd
 
 
@@ -223,12 +284,13 @@ def _kernel_bwd(x2d, dy2d, mean, rstd, gamma):
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
         err = lib.mx_layer_norm_bwd(
-            _DTYPES[x2d.dtype], x2d.data_ptr(), dy2d.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
-            dx.data_ptr(), partials.data_ptr(), dgb.data_ptr(), rows, feat,
-            nblocks, stream)
+            _DTYPES[x2d.dtype], _DTYPES[gamma.dtype], x2d.data_ptr(),
+            dy2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            gamma.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+            dgb.data_ptr(), rows, feat, nblocks, stream)
     _build.check(lib, err, "layer_norm_bwd")
     bwd_launches += BWD_KERNELS
+    bwd_layout_launches[layout_name(x2d.dtype, gamma.dtype)] += BWD_KERNELS
     return dx, dgb[0], dgb[1]
 
 

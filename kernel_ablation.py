@@ -13,7 +13,9 @@ the reduction's warps). A row-backward variant runs on its own grid
 into ``build/ablation/<variant>/``. ``--parent DIR`` adds the sources of
 another checkout's ``incubator_mxnet_tpu_torch/csrc`` (the parent
 commit, unpacked with ``git archive``) as the variant "parent", called
-as its own wrappers call it. Every variant's C entry is called directly
+as its own wrappers call it (its row-kernel entries must take a dtype code
+for each operand, as they do since the mixed layouts). Every variant's C
+entry is called directly
 on the same inputs: one discarded round, then in turns (the variants in
 order, then in reverse), timed as ``chip_smoke.py`` times kernels (CUDA
 events over CUDA-graph replays whose inputs cycle beyond the L2 cache).
@@ -78,8 +80,8 @@ _THREE = [("constexpr int kLnBwdBlocksPerSm = 2;",
 ROW_VARIANTS = [
     ("as is", [], 2),
     ("no reduction kernel",
-     [("  ln_partials_reduce_kernel<T>\n",
-       "  if (rows < 0) ln_partials_reduce_kernel<T>\n")], 2),
+     [("  ln_partials_reduce_kernel<TP>\n",
+       "  if (rows < 0) ln_partials_reduce_kernel<TP>\n")], 2),
     ("K3 sums in registers", [("kMode == kLnX && NV * E <= kLnRegAccElems",
                                "NV * E <= kLnRegAccElems")], 2),
     ("K4b sums in shared memory", [("constexpr int kLnRegAccElems = 32;",
@@ -146,6 +148,9 @@ def check_subs(variants):
 
 
 def bind(path, stem):
+    # the row entries' dtype codes: x and gamma (LayerNorm), or x, h and
+    # gamma (the residual kernels)
+    codes = [ctypes.c_int] * (2 if stem == "layer_norm" else 3)
     lib = ctypes.CDLL(str(path))
     if stem == "gelu_dropout":
         tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32,
@@ -156,13 +161,12 @@ def bind(path, stem):
         lib.mx_gelu_dropout_bwd.argtypes = [ctypes.c_int] + [
             ctypes.c_void_p] * 3 + tail
     elif stem == "layer_norm":
-        lib.mx_layer_norm_bwd.argtypes = ([ctypes.c_int]
-                                          + [ctypes.c_void_p] * 8
+        lib.mx_layer_norm_bwd.argtypes = (codes + [ctypes.c_void_p] * 8
                                           + [ctypes.c_int] * 3
                                           + [ctypes.c_void_p])
     else:
         lib.mx_residual_dropout_ln_bwd.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+            codes + [ctypes.c_int] + [ctypes.c_void_p] * 10
             + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3
             + [ctypes.c_float, ctypes.c_void_p])
     return lib
@@ -274,6 +278,7 @@ def main():
         item = x.element_size()
         names = [n for n, st, _ in variants if st == stem]
         fns = {}
+        dt_args = (codes[dtype],) * (2 if stem == "layer_norm" else 3)
         for name in names:
             lib = libs[(name, stem)]
             if name == "parent":  # its grid, f32 dgamma/dbeta, two casts
@@ -288,9 +293,10 @@ def main():
             if stem == "layer_norm":
                 sets = cs.input_sets([x, dy], 20)
 
-                def fn(a, b, lib=lib, nb=nb, part=part, dgb=dgb, cast=cast):
+                def fn(a, b, lib=lib, nb=nb, part=part, dgb=dgb, cast=cast,
+                       dt_args=dt_args):
                     lib.mx_layer_norm_bwd(
-                        codes[dtype], a.data_ptr(), b.data_ptr(),
+                        *dt_args, a.data_ptr(), b.data_ptr(),
                         mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
                         dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), rows,
                         cols, nb, stream())
@@ -303,10 +309,10 @@ def main():
                              else (1, 0, 0, 0, 1.0))
 
                 def fn(a, hh, b, lib=lib, nb=nb, part=part, dgb=dgb,
-                       cast=cast, mode_args=mode_args):
+                       cast=cast, mode_args=mode_args, dt_args=dt_args):
                     mode, *kargs = mode_args
                     lib.mx_residual_dropout_ln_bwd(
-                        codes[dtype], mode, a.data_ptr(), hh.data_ptr(),
+                        *dt_args, mode, a.data_ptr(), hh.data_ptr(),
                         b.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                         gamma.data_ptr(), dx.data_ptr(), dh.data_ptr(),
                         part.data_ptr(), dgb.data_ptr(), rows, cols, nb,

@@ -18,6 +18,10 @@ its running max and the plain version at the final max, so an element
 near zero, a sum of terms that cancel, may differ by more than one
 spacing of its own; the error is at most 2^-7 of the plain tensor's norm
 and, elementwise, 2^-6 of its largest magnitude. Dropout is bit-identical (same Philox words, same f32 multiply).
+AMP's mixed layouts (LayerNorm: bf16 x with f32 gamma/beta; the residual
+kernels: f32 x with bf16 h and f32 gamma/beta) by the same rules per
+output dtype, and the mixed residual kernels equal the f32 ones on h
+widened to f32 bit for bit (dh rounded to bf16 once).
 The fused GELU + dropout (K6): float32 2e-6 abs at unit-normal inputs
 (the kernel's rational normal tail and the plain version's erf each lie
 within ~4e-7 of float64 there; only last bits and the order of the
@@ -106,9 +110,9 @@ def test_layer_norm_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(MXNetError):                # gamma of the wrong size
         ln.layer_norm(torch.randn(2, 64, device=dev), gamma[:32], beta[:64])
     w = torch.ones(64, device=dev, requires_grad=True)
-    with pytest.raises(MXNetError):                # bf16 x, f32 gamma
-        ln.layer_norm(torch.randn(2, 64, device=dev).bfloat16(), w,
-                      torch.zeros_like(w))
+    with pytest.raises(MXNetError):                # f32 x, bf16 gamma
+        ln.layer_norm(torch.randn(2, 64, device=dev), w.bfloat16(),
+                      torch.zeros_like(w).bfloat16())
 
 
 def test_npx_layer_norm_launches_or_raises_on_the_card(dev):
@@ -124,8 +128,8 @@ def test_npx_layer_norm_launches_or_raises_on_the_card(dev):
     with pytest.raises(MXNetError):
         npx.layer_norm(x, torch.rand(4, device=dev),
                        torch.rand(4, device=dev), axis=0)
-    with pytest.raises(MXNetError):
-        npx.layer_norm(x.bfloat16(), g, b)         # gamma/beta f32
+    with pytest.raises(MXNetError):                # f32 x, bf16 gamma/beta
+        npx.layer_norm(x, g.bfloat16(), b.bfloat16())
     assert ln.launches == 0
     ref = ln.layer_norm(x, g, b, impl="plain")
     torch.testing.assert_close(npx.layer_norm(x, g, b), ref,
@@ -555,6 +559,177 @@ def test_tiny_bert_train_step_on_card_matches_cpu(dev):
         scale = max(1e-6, pc.grad.abs().max().item())
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=0,
                                    atol=1e-4 * scale, msg=name)
+
+
+# -- AMP's layouts: K4/K4b with bf16 x and f32 gamma/beta, K3 with f32 x,
+# bf16 h and f32 gamma/beta -------------------------------------------------
+
+@pytest.mark.parametrize("rows,c", [(1, 64), (8, 768), (13, 768),
+                                    (1000, 768), (8192, 768), (3, 4096)])
+def test_amp_layer_norm_layout_kernel_vs_plain(dev, rows, c):
+    """bf16 x, y, dy and dx, f32 gamma/beta and dgamma/dbeta: forward and
+    backward against the plain versions, two backward calls bitwise
+    equal, and the launches counted under the layout's name."""
+    g = _gen(dev, rows * 5 + c)
+    x = (torch.randn(rows, c, generator=g, device=dev) * 2 + 0.5).bfloat16()
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    beta = 0.3 * torch.randn(c, generator=g, device=dev)
+    dy = torch.randn(rows, c, generator=g, device=dev).bfloat16()
+    ln.layout_launches.clear()
+    ln.bwd_layout_launches.clear()
+    y, m, r = ln.layer_norm_fwd(x, gamma, beta, impl="kernel")
+    yp, mp, rp = ln.layer_norm_fwd(x, gamma, beta, impl="plain")
+    got = ln.layer_norm_bwd(x, dy, mp, rp, gamma, impl="kernel")
+    again = ln.layer_norm_bwd(x, dy, mp, rp, gamma, impl="kernel")
+    ref = ln.layer_norm_bwd(x, dy, mp, rp, gamma, impl="plain")
+    torch.cuda.synchronize()
+    name = ln.layout_name(torch.bfloat16, torch.float32)
+    assert dict(ln.layout_launches) == {name: 1}
+    assert dict(ln.bwd_layout_launches) == {name: 2 * ln.BWD_KERNELS}
+    assert y.dtype == got[0].dtype == torch.bfloat16
+    assert got[1].dtype == got[2].dtype == torch.float32
+    _bf16_close(y, yp)
+    torch.testing.assert_close(m, mp, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(r, rp, rtol=2e-5, atol=2e-5)
+    _bf16_close(got[0], ref[0])
+    _assert_column_sums(dev, rows, got[1:], ref[1:], dy,
+                        (x.float() - mp[:, None]) * rp[:, None])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rows,c", [(3, 64), (130, 768), (1000, 768),
+                                    (8192, 768)])
+@pytest.mark.parametrize("p", [0.0, 0.1, 1.0])
+def test_amp_residual_layout_kernel_vs_plain(dev, rows, c, p):
+    """f32 x, y, dy and dx, bf16 h and dh, f32 gamma/beta and
+    dgamma/dbeta: against the plain versions, and against the f32 kernels
+    on h widened to f32, bit for bit (the same mask and sums; dh rounded
+    to bf16 once); p = 1 runs the LayerNorm kernels on x."""
+    g = _gen(dev, rows * 11 + c)
+    x = torch.randn(rows, c, generator=g, device=dev) + 0.3
+    h = torch.randn(rows, c, generator=g, device=dev).bfloat16()
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    beta = 0.3 * torch.randn(c, generator=g, device=dev)
+    dy = torch.randn(rows, c, generator=g, device=dev)
+    key = (91, 1 << 30)
+    fb.launches = fb.bwd_launches = ln.launches = ln.bwd_launches = 0
+    fb.layout_launches.clear()
+    y, m, r = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key, p,
+                                         impl="kernel")
+    yp, mp, rp = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key, p,
+                                            impl="plain")
+    grads = fb.residual_dropout_ln_bwd(x, h, dy, mp, rp, gamma, key, p,
+                                       impl="kernel")
+    refs = fb.residual_dropout_ln_bwd(x, h, dy, mp, rp, gamma, key, p,
+                                      impl="plain")
+    torch.cuda.synchronize()
+    counts = (fb.launches, fb.bwd_launches, ln.launches, ln.bwd_launches)
+    assert counts == ((0, 0, 1, 2) if p == 1 else (1, 2, 0, 0))
+    if p < 1:
+        assert dict(fb.layout_launches) == {
+            ln.layout_name(torch.float32, torch.float32, torch.bfloat16): 1}
+    assert y.dtype == grads[0].dtype == torch.float32
+    assert grads[1].dtype == torch.bfloat16
+    assert grads[2].dtype == grads[3].dtype == torch.float32
+    torch.testing.assert_close(y, yp, rtol=0, atol=2e-5)
+    torch.testing.assert_close(m, mp, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(r, rp, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(grads[0], refs[0], rtol=0, atol=2e-5)
+    _bf16_close(grads[1], refs[1])
+    s = x + fb._dropped(h, key, p)
+    _assert_column_sums(dev, rows, grads[2:], refs[2:], dy,
+                        (s - mp[:, None]) * rp[:, None])
+    if 0 < p < 1:                                    # dh is 0 where dropped
+        keep = ph.keep_mask((rows, c), key, p, device=dev)
+        assert torch.equal(grads[1] == 0, ~keep | (refs[1] == 0))
+    y32, m32, r32 = fb.residual_dropout_ln_fwd(x, h.float(), gamma, beta,
+                                               key, p, impl="kernel")
+    g32 = fb.residual_dropout_ln_bwd(x, h.float(), dy, mp, rp, gamma, key,
+                                     p, impl="kernel")
+    again = fb.residual_dropout_ln_bwd(x, h, dy, mp, rp, gamma, key, p,
+                                       impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(y, y32) and torch.equal(m, m32) and torch.equal(r, r32)
+    assert torch.equal(grads[0], g32[0])
+    assert torch.equal(grads[1], g32[1].bfloat16())
+    assert torch.equal(grads[2], g32[2]) and torch.equal(grads[3], g32[3])
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_amp_layouts_only_the_taken_mixes_launch(dev):
+    """Mixes the kernels do not take raise on the card: nothing is cast
+    to a layout they take."""
+    x = torch.randn(4, 6, 64, device=dev)
+    g32, b32 = torch.rand(64, device=dev), torch.rand(64, device=dev)
+    g16, b16 = g32.bfloat16(), b32.bfloat16()
+    ln.launches = fb.launches = 0
+    for args in ((x.bfloat16(), x.bfloat16(), g32, b32),   # bf16 x and h
+                 (x, x.bfloat16(), g16, b16),              # bf16 gamma
+                 (x.bfloat16(), x, g32, b32),              # bf16 x, f32 h
+                 (x, x.half(), g32, b32)):                 # float16 h
+        with pytest.raises(MXNetError):
+            npx.residual_dropout_ln(*args, p=0.1, training=True)
+    with pytest.raises(MXNetError):
+        npx.layer_norm(x, g16, b32)                       # gamma != beta
+    assert ln.launches == fb.launches == 0
+    y = npx.residual_dropout_ln(x, x.bfloat16(), g32, b32, p=0.1,
+                                training=True)
+    z = npx.layer_norm(x.bfloat16(), g32, b32)
+    assert y.dtype == torch.float32 and z.dtype == torch.bfloat16
+    assert ln.launches == fb.launches == 1
+
+
+def test_tiny_bert_amp_step_on_card_matches_cpu(dev):
+    """A tiny BERT under amp.init("bfloat16"), dropout 0.1, one forward
+    and backward on the card (kernels) and on the CPU (plain versions)
+    from the same weights and keys: the mixed layouts launch (each cell's
+    two residual sites f32 x with bf16 h, the MLM LayerNorm bf16 x), and
+    the loss and gradients agree at bf16's scale (cuBLAS and the CPU sum
+    the bf16 products in other orders): loss within 2^-7, each gradient
+    within 2^-4 of its norm."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_small
+
+    cpu = bert_small(vocab_size=97, max_length=32, dropout=0.1, device="cpu",
+                     seed=1)
+    card = bert_small(vocab_size=97, max_length=32, dropout=0.1, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    tok = torch.randint(0, 97, (3, 32), generator=gen)
+    lab = torch.randint(0, 97, (3, 32), generator=gen)
+    vl = torch.tensor([32, 20, 7])
+    ce = SoftmaxCrossEntropyLoss()
+    losses = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        mxrandom.seed(5)
+        for mod in (ln, fb):
+            mod.layout_launches.clear()
+            mod.bwd_layout_launches.clear()
+        amp.init("bfloat16")
+        try:
+            loss = ce(m(tok.to(d), valid_length=vl.to(d))[0],
+                      lab.to(d)).sum()
+            loss.backward()
+        finally:
+            amp.deinit()
+        losses.append(loss.item())
+    k3 = ln.layout_name(torch.float32, torch.float32, torch.bfloat16)
+    k4 = ln.layout_name(torch.bfloat16, torch.float32)
+    assert dict(fb.layout_launches) == {k3: 4}
+    assert dict(fb.bwd_layout_launches) == {k3: 4 * ln.BWD_KERNELS}
+    assert dict(ln.layout_launches) == {"f32": 1, k4: 1}
+    assert dict(ln.bwd_layout_launches) == {"f32": ln.BWD_KERNELS,
+                                            k4: ln.BWD_KERNELS}
+    assert abs(losses[0] - losses[1]) <= 2.0 ** -7 * abs(losses[0])
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        if pc.grad is None:
+            assert pg.grad is None, name
+            continue
+        assert pg.grad.dtype == torch.float32, name
+        err = (pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()
+        assert err <= 2.0 ** -4, name
 
 
 # -- K6: fused exact-erf GELU + dropout --------------------------------------

@@ -12,7 +12,10 @@ for bit in float32, and its backward equals autograd of that composition.
 
 Tolerances: 1e-5 abs and rel in float32 for y, dx and dh (f32 row sums in
 another order), 1e-4 for dgamma/dbeta (sums over all rows); exact where
-the same arithmetic runs on both sides.
+the same arithmetic runs on both sides. AMP's layout, f32 x with bf16 h
+and f32 gamma/beta, is held to the Pallas kernels given the same mix at
+p = 0 (its bf16 dh within one bf16 spacing), and to the port's f32
+layout on h widened to f32 at every p.
 """
 import importlib
 
@@ -160,3 +163,61 @@ def test_plain_bwd_returns_dgamma_dbeta_in_gamma_dtype(dtype, p):
     s = x.float() + tfb._dropped(h, key, p)
     _, dg32, db32 = tln.plain_ln_grads(s, dy, mean, rstd, g)
     assert torch.equal(dg, dg32.to(dtype)) and torch.equal(db, db32.to(dtype))
+
+
+# -- AMP's layout: f32 x, y and dx; bf16 h and dh; f32 gamma/beta and
+# dgamma/dbeta. The reference's kernels take it as they are (every input
+# cast to f32, y in x's dtype, dgamma/dbeta in gamma's); dh is rounded to
+# bf16 once, so it is within one bf16 spacing (2^-7 relative, plus the
+# f32 difference near zero), the f32 outputs as in float32.
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,c", [(16, 128), (512, 128), (16, 768),
+                                    (75, 768)])
+def test_f32_x_bf16_h_p0_matches_pallas_core_interpret(rows, c):
+    x, h, g, b, dy = _inputs(rows, c, seed=rows * 2 + c)
+    hb = torch.from_numpy(h).bfloat16()
+
+    def core(x, h, g, b):
+        return jfb._core(x, h, g, b, jnp.zeros((2,), jnp.int32), 0.0, 1e-5,
+                         True)
+
+    hj = jnp.asarray(hb.float().numpy()).astype(jnp.bfloat16)
+    y_ref, vjp = jax.vjp(core, jnp.asarray(x), hj, jnp.asarray(g),
+                         jnp.asarray(b))
+    grads_ref = vjp(jnp.asarray(dy))
+    assert y_ref.dtype == jnp.float32 and grads_ref[1].dtype == jnp.bfloat16
+    leaves = [torch.from_numpy(x).requires_grad_(),
+              hb.clone().requires_grad_()] + _leaves(g, b)
+    y = tfb.residual_dropout_ln(*leaves, 0.0, (0, 0))
+    assert y.dtype == torch.float32
+    y.backward(torch.from_numpy(dy))
+    assert [t.grad.dtype for t in leaves] == [
+        torch.float32, torch.bfloat16, torch.float32, torch.float32]
+    onp.testing.assert_allclose(y.detach().numpy(), onp.asarray(y_ref), **TOL)
+    for leaf, ref, tol in zip(leaves, grads_ref, (TOL, BF16_TOL, PARAM_TOL,
+                                                  PARAM_TOL)):
+        onp.testing.assert_allclose(leaf.grad.float().numpy(),
+                                    onp.asarray(ref, onp.float32), **tol)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5, 1.0])
+def test_f32_x_bf16_h_is_the_f32_kernel_on_widened_h(p):
+    """The mixed layout computes what the f32 layout computes on h widened
+    to f32, bit for bit (the same mask, the sum in f32), with dh rounded
+    to bf16 once and dgamma/dbeta in f32."""
+    x, h, g, b, dy = (torch.from_numpy(a) for a in _inputs(40, 256, seed=11))
+    hb = h.bfloat16()
+    key = (4321, 8765)
+    y, m, r = tfb.residual_dropout_ln_fwd(x, hb, g, b, key, p)
+    y32, m32, r32 = tfb.residual_dropout_ln_fwd(x, hb.float(), g, b, key, p)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(m, m32) and torch.equal(r, r32)
+    got = tfb.residual_dropout_ln_bwd(x, hb, dy, m, r, g, key, p)
+    ref = tfb.residual_dropout_ln_bwd(x, hb.float(), dy, m, r, g, key, p)
+    assert [t.dtype for t in got] == [torch.float32, torch.bfloat16,
+                                      torch.float32, torch.float32]
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                       ref[1].bfloat16())
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])

@@ -6,7 +6,8 @@ kernels in interpret mode, on the same numpy-seeded inputs: the forward
 
 Tolerance: 1e-5 abs and rel in float32 (both sides compute the statistics
 in f32, summing in different orders); 1e-4 for dgamma/dbeta, which sum
-over all rows.
+over all rows. AMP's layout, bf16 x with f32 gamma/beta, is held to the
+same kernels given the same mix: bf16 outputs within one bf16 spacing.
 """
 import jax
 import jax.numpy as jnp
@@ -194,3 +195,98 @@ def test_column_sum_tol_covers_the_kernel_order(rows):
     assert (onp.abs(kernel - exact) <= tol / 2).all()
     assert (onp.abs(plain - exact) <= tol / 2).all()
     assert (onp.abs(kernel - plain) <= tol).all()
+
+
+# -- AMP's layout: bf16 x, y and dx with f32 gamma/beta and dgamma/dbeta --
+# Both sides compute in f32 and round y and dx to bf16 once, so they are
+# equal or one bf16 spacing apart (2^-7 relative, plus the f32 difference
+# near zero); the f32 statistics and dgamma/dbeta as in float32.
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def _bf16_inputs(rows, c, seed):
+    """x rounded to bf16 once, so both sides see the same bf16 values."""
+    x, g, b = _inputs(rows, c, seed)
+    return torch.from_numpy(x).bfloat16(), g, b
+
+
+@pytest.mark.parametrize("rows,c", [(13, 64), (10, 768), (3, 768)])
+def test_bf16_x_f32_gamma_fwd_matches_pallas_interpret(rows, c):
+    xt, g, b = _bf16_inputs(rows, c, seed=rows * 3 + c)
+    xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    y_ref, m_ref, r_ref = jln._fwd(xj, jnp.asarray(g), jnp.asarray(b), 1e-5,
+                                   rows, True)
+    y, mean, rstd = tln.layer_norm_fwd(xt, torch.from_numpy(g),
+                                       torch.from_numpy(b))
+    assert y.dtype == torch.bfloat16 and y_ref.dtype == jnp.bfloat16
+    assert mean.dtype == rstd.dtype == torch.float32
+    onp.testing.assert_allclose(y.float().numpy(),
+                                onp.asarray(y_ref, onp.float32), **BF16_TOL)
+    onp.testing.assert_allclose(mean.numpy(), onp.asarray(m_ref)[:, 0], **TOL)
+    onp.testing.assert_allclose(rstd.numpy(), onp.asarray(r_ref)[:, 0], **TOL)
+
+
+@pytest.mark.parametrize("rows,c", [(24, 64), (19, 768), (75, 768)])
+def test_bf16_x_f32_gamma_bwd_matches_pallas_vjp_interpret(rows, c):
+    """dx in bf16, dgamma/dbeta in f32 (gamma's dtype), against `jax.vjp`
+    of the JAX package's `layer_norm` over its interpret-mode kernels."""
+    xt, g, b = _bf16_inputs(rows, c, seed=rows + 5 * c)
+    dy = torch.from_numpy(onp.random.RandomState(rows).normal(
+        0, 1, (rows, c)).astype("float32")).bfloat16()
+
+    def f(x, g, b):
+        return jln.layer_norm(x, g, b, block_r=8, interpret=True)
+
+    xj, dyj = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+               for t in (xt, dy))
+    _, vjp = jax.vjp(f, xj, jnp.asarray(g), jnp.asarray(b))
+    refs = vjp(dyj)
+    leaves = [xt.clone().requires_grad_()] + [
+        torch.from_numpy(a).requires_grad_() for a in (g, b)]
+    y = tln.layer_norm(*leaves)
+    assert y.dtype == torch.bfloat16
+    y.backward(dy)
+    assert leaves[0].grad.dtype == torch.bfloat16
+    assert leaves[1].grad.dtype == leaves[2].grad.dtype == torch.float32
+    assert refs[0].dtype == jnp.bfloat16 and refs[1].dtype == jnp.float32
+    for leaf, ref, tol in zip(leaves, refs, (BF16_TOL, PARAM_TOL,
+                                             PARAM_TOL)):
+        onp.testing.assert_allclose(leaf.grad.float().numpy(),
+                                    onp.asarray(ref, onp.float32), **tol)
+
+
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+# (x, gamma, beta, dy, h): the layouts the row kernels take ...
+@pytest.mark.parametrize("dts", [
+    (_F32, _F32, _F32, _F32, None), (_BF16, _BF16, _BF16, _BF16, None),
+    (_BF16, _F32, _F32, _BF16, None), (_F32, _F32, _F32, _F32, _F32),
+    (_BF16, _BF16, _BF16, _BF16, _BF16), (_F32, _F32, _F32, _F32, _BF16)])
+def test_check_kernel_args_takes_the_kernels_layouts(dts):
+    x, g, b, dy, h = (None if d is None else torch.zeros(4, 64, dtype=d)
+                      for d in dts)
+    tln.check_kernel_args("t", x, (g[0], b[0]), (dy,), h=h)
+    assert tln.supports((4, 64), -1, 64, dts[0], dts[1],
+                        None if h is None else h.dtype)
+
+
+# ... and mixes they do not take, which raise rather than being cast
+@pytest.mark.parametrize("dts", [
+    (_F32, _BF16, _BF16, _F32, None),      # f32 x, bf16 gamma
+    (_BF16, _F32, _BF16, _BF16, None),     # gamma and beta differ
+    (_BF16, _F32, _F32, _F32, None),       # dy not in x's dtype
+    (_F16, _F16, _F16, _F16, None),        # float16
+    (_F16, _F32, _F32, _F16, None),
+    (_BF16, _F32, _F32, _BF16, _BF16),     # bf16 x and h, f32 gamma
+    (_F32, _BF16, _BF16, _F32, _BF16),     # bf16 h and gamma, f32 x
+    (_BF16, _F32, _F32, _BF16, _F32),      # bf16 x, f32 h
+    (_F32, _F32, _F32, _F32, _F16)])       # float16 h
+def test_check_kernel_args_raises_on_other_layouts(dts):
+    x, g, b, dy, h = (None if d is None else torch.zeros(4, 64, dtype=d)
+                      for d in dts)
+    with pytest.raises(MXNetError):
+        tln.check_kernel_args("t", x, (g[0], b[0]), (dy,), h=h)
+    if dts[1] == dts[2] and dts[3] == dts[0]:
+        assert not tln.supports((4, 64), -1, 64, dts[0], dts[1],
+                                None if h is None else h.dtype)
