@@ -45,6 +45,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    its launches counted per step by layout (the row kernels in AMP's
    mixed layouts, the flash kernels bf16), its device time by kernel;
    then one more run in f32 with TF32 products (a number, not a path);
+   then the same workload through ``parallel.DataParallel``, the
+   reference bench's own trainer (``bench.py:362``), under AMP and in
+   f32: one eager step, one that captures the whole step (forward,
+   backward, Adam) as a CUDA graph, and 10 timed replays; launches
+   counted by kernel and layout at the eager and the capturing step and
+   read back from a profiled replay (the Python counters do not move on
+   a replay), one capture, the replays' losses and parameters against
+   the step function run eagerly from the same state and seed (bit for
+   bit), device time and idle share beside the ``Trainer`` step's; and,
+   before it, K3, K5 and K6 on device keys (the keys such a step folds
+   on the card from its base key, t and the dropout site) at the step's
+   shapes, bit for bit the by-value launches for the same words, their
+   masks the plain versions', the fold kernel's table the plain fold's,
+   and a captured graph of the three dropping other elements when t
+   moves between two replays;
 6. drives ``npx.gelu_dropout`` (the fused exact-erf GELU + dropout
    kernel, K6, forward and backward; its gelu and gelu' no further from
    float64 than erff's form, on 2^22 points) at BERT-base's FFN width and
@@ -67,8 +82,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
-``{"train_tf32": ...}``, ``{"serve": ...}`` and ``{"gelu_dropout": ...}``
-lines, one ``{"kernels": [...]}`` line, and
+``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
+``{"serve": ...}`` and ``{"gelu_dropout": ...}`` lines, one
+``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
 outside a checkout of the repository. TF32 is off for matmuls and cuDNN
@@ -146,9 +162,9 @@ GRAD_REL_TOL = 1e-3
 # and backward; a K2 call launches 3 kernels (delta, dq, dk/dv), a K4b or
 # K3 backward call 2 (row kernel, dgamma/dbeta reduction)
 STEP_LAUNCHES = {"K1": 12, "K2": 12 * 3, "K4": 2, "K4b": 2 * 2, "K3f": 24,
-                 "K3b": 24 * 2, "K5": 50, "K6f": 0, "K6b": 0}
+                 "K3b": 24 * 2, "K5": 50, "K6f": 0, "K6b": 0, "fold": 0}
 FWD_LAUNCHES = {"K1": 12, "K2": 0, "K4": 2, "K4b": 0, "K3f": 24, "K3b": 0,
-                "K5": 25, "K6f": 0, "K6b": 0}
+                "K5": 25, "K6f": 0, "K6b": 0, "fold": 0}
 
 # the row backward's own checks: NV, the 16-byte vectors a lane takes of
 # a row, at counts its kernel instantiates apart, the main paths' 6 (f32)
@@ -850,7 +866,7 @@ def _counters():
             "K4": (ln, "launches"), "K4b": (ln, "bwd_launches"),
             "K3f": (fb, "launches"), "K3b": (fb, "bwd_launches"),
             "K5": (dp, "launches"), "K6f": (fb, "gd_launches"),
-            "K6b": (fb, "gd_bwd_launches")}
+            "K6b": (fb, "gd_bwd_launches"), "fold": (dp, "fold_launches")}
 
 
 def _layout_counters():
@@ -1267,14 +1283,16 @@ def phase_train_step_check(torch, dev):
                 n_grads=len(gp))
 
 
-def _device_ms(prof):
+def _device_ms(prof, skip=None):
     """Sum of the device time of the kernels, copies and sets in a
-    profiler trace, in ms (one stream, so their sum is the busy time)."""
+    profiler trace, in ms (one stream, so their sum is the busy time);
+    ``skip``: a name part of kernels left out (a spin that delays the
+    work)."""
     from torch.autograd import DeviceType
 
     total = 0.0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not (skip and skip in e.key):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
     return total / 1e3
@@ -1430,6 +1448,447 @@ def phase_train(torch, dev, mode="f32"):
                 launches_by_layout_per_step=by_layout[-1]), (
                     totals, layout_totals)
 
+
+# the DataParallel step's launches a step: the eager step's, plus the fold
+# kernel once (the step's first dropout site fills the chunk of its key
+# table that all 49 sites share)
+DP_STEP_LAUNCHES = dict(STEP_LAUNCHES, fold=1)
+# the fold kernel's work: KEY_CHUNK sites, each two Philox4x32-10 blocks of
+# 10 rounds of ~12 integer operations, counted at the f32 rate of the CUDA
+# cores (the data sheet gives no integer rate outside the tensor cores)
+FOLD_OPS_PER_SITE = 2 * 10 * 12
+# the spin ahead of a profiled replay (`torch.cuda._sleep`), ~25 ms at the
+# H100's clocks, and its kernel's name, left out of the device time
+SPIN_CYCLES = 50_000_000
+SPIN_KERNEL = "spin_kernel"
+
+
+def _profile_counts(prof):
+    """(launches of the port's kernels in a profiled window, in the
+    counters' units, from the kernels' names; the row backward's
+    reduction kernels seen). A K3b or K4b call counts its row kernel and
+    its reduction, as the counters do."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    out = {k: 0 for k in DP_STEP_LAUNCHES}
+    reduce = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key, n = e.key, e.count
+        row = re.search(r"ln_(fwd|bwd)_kernel<([^>]*)>", key)
+        gd = re.search(r"gelu_dropout_kernel<([^>]*)>", key)
+        if "flash_fwd_kernel" in key:
+            out["K1"] += n
+        elif re.search(r"flash_bwd_(delta|dq|dkv)_kernel", key):
+            out["K2"] += n
+        elif row:
+            mode = int(row.group(2).split(",")[-1])
+            if row.group(1) == "fwd":
+                out["K4" if mode == 0 else "K3f"] += n
+            else:
+                out["K4b" if mode == 0 else "K3b"] += 2 * n
+        elif "ln_partials_reduce_kernel" in key:
+            reduce += n
+        elif gd:
+            bwd = gd.group(1).split(",")[-1].strip() == "true"
+            out["K6b" if bwd else "K6f"] += n
+        elif "::dropout_kernel<" in key:
+            out["K5"] += n
+        elif "fold_keys_kernel" in key:
+            out["fold"] += n
+    return out, reduce
+
+
+def phase_device_keys(torch, dev):
+    """K5, K3 and K6 on a device key (the keys of a step replayed as a
+    CUDA graph) at the training step's shapes: every output bit for bit
+    the by-value launch's for the same words, the mask the plain
+    version's (and the plain version on the device key the plain version
+    on the words); the fold kernel's table the plain fold's; and a
+    captured graph of the three, replayed at two values of t, drops other
+    elements at each, those of the by-value launches for that t's words.
+    Returns the fold kernel's case for the timing and the kernels line."""
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+    base = torch.tensor([2718281828, 3141592653], device=dev)
+    t = torch.tensor(7, device=dev)
+
+    def key(site):
+        return ph.DeviceKey(base, t, site, {})
+
+    def words(site):
+        return tuple(int(w) for w in ph.key_words(key(site)))
+
+    first = key(0)
+    dp.site_key_ptr(first, dev)
+    sites = torch.arange(dp.KEY_CHUNK, device=dev)
+    plain = torch.stack(ph.fold(ph.fold((base[0], base[1]), t), sites), 1)
+    table = first.tables[0].long() & 0xFFFFFFFF
+    check(torch.equal(table, plain), "fold kernel: the key table differs "
+          "from the plain fold")
+    log(f"[keys] fold kernel: {dp.KEY_CHUNK} site keys of t = {int(t)} "
+        f"equal the plain fold's, bit for bit")
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    f32, bf16 = torch.float32, torch.bfloat16
+    site = 37
+    k, w = key(site), words(site)
+    for dtype in (f32, bf16):
+        for cols in (C, FFN):
+            x = torch.randn(ROWS, cols, generator=g, device=dev).to(dtype)
+            keep = ph.keep_mask(x.shape, w, TRAIN_P, device=dev)
+            y = dp.dropout_fwd(x, k, TRAIN_P, impl="kernel")
+            check(torch.equal(y, dp.dropout_fwd(x, w, TRAIN_P,
+                                                impl="kernel"))
+                  and torch.equal(y, dp.dropout_fwd(x, k, TRAIN_P,
+                                                    impl="plain"))
+                  and torch.equal((y != 0) | (x == 0), keep | (x == 0)),
+                  f"K5 device key ({ROWS}, {cols}) {_dt(dtype)}")
+            if cols == FFN:
+                gd = fb.gelu_dropout_fwd(x, k, TRAIN_P, impl="kernel")
+                gdb = fb.gelu_dropout_bwd(x, x, k, TRAIN_P, impl="kernel")
+                check(torch.equal(gd, fb.gelu_dropout_fwd(
+                    x, w, TRAIN_P, impl="kernel"))
+                    and torch.equal(gdb, fb.gelu_dropout_bwd(
+                        x, x, w, TRAIN_P, impl="kernel"))
+                    and torch.equal(fb.gelu_dropout_fwd(
+                        x, k, TRAIN_P, impl="plain"), fb.gelu_dropout_fwd(
+                        x, w, TRAIN_P, impl="plain"))
+                    and torch.equal((gd != 0) | (x == 0), keep | (x == 0)),
+                    f"K6 device key ({ROWS}, {cols}) {_dt(dtype)}")
+            log(f"[keys] K5" + (" and K6 (forward, backward)"
+                                if cols == FFN else "")
+                + f" ({ROWS}, {cols}) {_dt(dtype)}, site {site}: device "
+                f"key = by-value words = plain, bit for bit")
+    for xdt, hdt in ((f32, f32), (bf16, bf16), (f32, bf16)):
+        x = torch.randn(ROWS, C, generator=g, device=dev).to(xdt)
+        h = torch.randn(ROWS, C, generator=g, device=dev).to(hdt)
+        dy = torch.randn(ROWS, C, generator=g, device=dev).to(xdt)
+        pdt = bf16 if xdt == bf16 else f32
+        gamma = (1 + 0.3 * torch.randn(C, generator=g, device=dev)).to(pdt)
+        beta = (0.3 * torch.randn(C, generator=g, device=dev)).to(pdt)
+        outs = []
+        for kk in (k, w):
+            y, mean, rstd = fb.residual_dropout_ln_fwd(
+                x, h, gamma, beta, kk, TRAIN_P, impl="kernel")
+            outs.append((y, mean, rstd) + fb.residual_dropout_ln_bwd(
+                x, h, dy, mean, rstd, gamma, kk, TRAIN_P, impl="kernel"))
+        dh = outs[0][4]
+        keep = ph.keep_mask(h.shape, w, TRAIN_P, device=dev)
+        pk = fb.residual_dropout_ln_fwd(x, h, gamma, beta, k, TRAIN_P,
+                                        impl="plain")
+        pw = fb.residual_dropout_ln_fwd(x, h, gamma, beta, w, TRAIN_P,
+                                        impl="plain")
+        check(all(torch.equal(a, b) for a, b in zip(*outs))
+              and all(torch.equal(a, b) for a, b in zip(pk, pw))
+              and torch.equal(dh != 0, keep),
+              f"K3 device key {_dt(xdt)} x, {_dt(hdt)} h")
+        log(f"[keys] K3 ({ROWS}, {C}) {_dt(xdt)} x, {_dt(hdt)} h, site "
+            f"{site}: forward and backward, device key = by-value words, "
+            f"bit for bit; the mask (dh != 0) the plain version's")
+
+    # a graph of the three with device keys, replayed at t = 7 and t = 8
+    x = torch.randn(ROWS, FFN, generator=g, device=dev).to(bf16)
+    xr = torch.randn(ROWS, C, generator=g, device=dev)
+    hr = torch.randn(ROWS, C, generator=g, device=dev).to(bf16)
+    gr, br = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+
+    def three():
+        return (dp.dropout_fwd(x, key(0), TRAIN_P),
+                fb.residual_dropout_ln_fwd(xr, hr, gr, br, key(1),
+                                           TRAIN_P)[0],
+                fb.gelu_dropout_fwd(x, key(2), TRAIN_P))
+
+    three()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = three()
+    masks = []
+    for step in (7, 8):
+        t.fill_(step)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = (dp.dropout_fwd(x, words(0), TRAIN_P),
+               fb.residual_dropout_ln_fwd(xr, hr, gr, br, words(1),
+                                          TRAIN_P)[0],
+               fb.gelu_dropout_fwd(x, words(2), TRAIN_P))
+        check(all(torch.equal(a, b) for a, b in zip(outs, ref)),
+              f"replay at t = {step}: not the by-value launches' outputs")
+        masks.append([o != 0 for o in (outs[0], outs[2])] + [outs[1].clone()])
+    check(not any(torch.equal(a, b) for a, b in zip(*masks)),
+          "two replays at t = 7 and 8 gave the same masks")
+    log("[keys] a graph of K5, K3 and K6 on device keys, replayed at t = 7 "
+        "and t = 8: each replay equals the by-value launches for its "
+        "words, and the two drop other elements")
+    del graph
+    return dict(dtype=torch.int32, layout="", max_abs_err=0.0,
+                norm_rel_err=0.0, base=base, t=t, sites=sites)
+
+
+def phase_times_device_keys(torch, c):
+    """The fold kernel (one chunk of site keys) and its plain version; and
+    K5, K3 (forward, backward) and K6 forward at the AMP step's shapes on
+    a device key against the same launch by value, in turns (kernel
+    times, the key's table already filled)."""
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+    base, t, sites, dev = c["base"], c["t"], c["sites"], c["base"].device
+    c["ms"] = time_ms(lambda: dp.site_key_ptr(
+        ph.DeviceKey(base, t, 0, {}), dev), [()], 20)
+    c["plain_ms"] = time_ms(lambda: ph.fold(ph.fold((base[0], base[1]), t),
+                                            sites), [()], 5)
+    c["library_ms"] = None
+    n = dp.KEY_CHUNK
+    c["bound_ms"], c["bound_by"] = bound(3 * 8 + n * 8,
+                                         n * FOLD_OPS_PER_SITE, "float32")
+    log(f"[time] fold kernel ({n} site keys): kernel {c['ms']:.4f} ms, "
+        f"plain {c['plain_ms']:.4f} ms, no library call, bound "
+        f"{c['bound_ms']:.2e} ms ({c['bound_by']}): a launch's cost")
+
+    key = ph.DeviceKey(base, t, 3, {})
+    words = tuple(int(w) for w in ph.key_words(key))
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.randn(ROWS, FFN, generator=g, device=dev).bfloat16()
+    xr = torch.randn(ROWS, C, generator=g, device=dev)
+    hr = torch.randn(ROWS, C, generator=g, device=dev).bfloat16()
+    dy = torch.randn(ROWS, C, generator=g, device=dev)
+    gm, bt = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    _, m, r = fb.residual_dropout_ln_fwd(xr, hr, gm, bt, words, TRAIN_P)
+    cases = {
+        "K5 (8192, 3072) bf16": ([x], lambda k, x: dp.dropout_fwd(
+            x, k, TRAIN_P)),
+        "K3 forward (8192, 768) f32 x, bf16 h": (
+            [xr, hr], lambda k, x, h: fb.residual_dropout_ln_fwd(
+                x, h, gm, bt, k, TRAIN_P)),
+        "K3 backward (8192, 768) f32 x, bf16 h": (
+            [xr, hr, dy], lambda k, x, h, d: fb.residual_dropout_ln_bwd(
+                x, h, d, m, r, gm, k, TRAIN_P)),
+        "K6 forward (8192, 3072) bf16": ([x], lambda k, x: fb.
+                                         gelu_dropout_fwd(x, k, TRAIN_P)),
+    }
+    out = {}
+    for what, (tensors, fn) in cases.items():
+        sets = input_sets(tensors, 20)
+        times = {}
+        for name, k in (("value", words), ("device", key), ("device", key),
+                        ("value", words)):
+            ms = time_ms(lambda *a, k=k, fn=fn: fn(k, *a), sets, 20)
+            times.setdefault(name, []).append(ms)
+        out[what] = {name: min(v) for name, v in times.items()}
+        log(f"[time] {what} p={TRAIN_P}: device key "
+            f"{out[what]['device']:.4f} ms, by value "
+            f"{out[what]['value']:.4f} ms (best of two, in turns value, "
+            f"device, device, value)")
+    return out
+
+
+def phase_train_dp(torch, dev, trainer, mode="amp"):
+    """The bench.py workload through `parallel.DataParallel`, the
+    reference bench's own trainer (`bench.py:362`): 2 warm-up steps (one
+    eager, one that captures the step as a CUDA graph and replays it) and
+    10 timed replays. Launches counted by kernel and layout at the eager
+    and the capturing step (none on a replay; a profiled replay shows
+    them all), one capture, the losses and parameters of the replays
+    against `_step_fn` run eagerly from the same state and seed, device
+    time by kernel, the optimizer's and the CE's own device time.
+    ``trainer``: phase_train's result in the same mode, printed beside.
+    ``mode``: "amp" or "f32"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import DataParallel
+
+    tag = {"f32": "train dp", "amp": "train dp amp"}[mode]
+    ce = SoftmaxCrossEntropyLoss()
+
+    def mlm_loss(out, y):
+        return ce(out[0], y)
+
+    nets = [bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
+                      seed=0) for _ in range(2)]
+    dps = [DataParallel(n, mlm_loss, Adam(learning_rate=TRAIN_LR))
+           for n in nets]
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    n_params = sum(p.numel() for p in nets[0].parameters())
+    want_layout = AMP_LAYOUT_LAUNCHES if mode == "amp" else \
+        F32_LAYOUT_LAUNCHES
+    none = {k: 0 for k in DP_STEP_LAUNCHES}
+    if mode == "amp":
+        amp.init("bfloat16")
+    try:
+        mxrandom.seed(0)
+        losses, times, counts, layouts, captures = [], [], [], [], []
+        for _ in range(WARMUP + STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = dps[0].step(tokens, labels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            counts.append(read_counts())
+            layouts.append(read_layout_counts())
+            captures.append(dps[0].captures)
+            losses.append(loss)
+        for i, (cn, ly) in enumerate(zip(counts, layouts)):
+            cap = i < WARMUP  # the eager and the capturing step
+            check(cn == (DP_STEP_LAUNCHES if cap else none)
+                  and ly == (want_layout if cap else
+                             {k: {} for k in want_layout}),
+                  f"{tag} step {i}: launches {cn}, by layout {ly}; "
+                  f"expected {DP_STEP_LAUNCHES if cap else none}")
+        check(captures == [0] + [1] * (WARMUP + STEPS - 1),
+              f"{tag}: captures after each step {captures}, expected one, "
+              f"at step 2")
+        # the same steps eagerly through the step function, from the same
+        # state and seed
+        mxrandom.seed(0)
+        eager = [dps[1]._step_fn(*dps[1]._prepare(), tokens, labels)
+                 for _ in range(WARMUP + STEPS)]
+        torch.cuda.synchronize()
+        exact = (all(torch.equal(a, b) for a, b in zip(losses, eager))
+                 and all(torch.equal(a, b) for a, b in
+                         zip(nets[0].parameters(), nets[1].parameters())))
+        loss_rel = max(abs(a.item() - b.item()) / abs(b.item())
+                       for a, b in zip(losses, eager))
+        param_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)).item() for a, b in zip(nets[0].parameters(),
+                                          nets[1].parameters()))
+        how = ("bit for bit" if exact else
+               f"not bit for bit: losses within {loss_rel:.2e} (tol "
+               f"{LOSS_REL_TOL:g}), parameters within {param_rel:.2e} of "
+               f"their largest magnitude (tol {GRAD_REL_TOL:g}), "
+               f"phase_train_step_check's tolerances")
+        check(exact or (loss_rel <= LOSS_REL_TOL
+                        and param_rel <= GRAD_REL_TOL),
+              f"{tag}: the replays disagree with the eager step function: "
+              f"{how}")
+        log(f"[{tag}] replays against `_step_fn` run eagerly from the same "
+            f"state and seed, {WARMUP + STEPS} steps: losses and all "
+            f"{len(list(nets[0].parameters()))} parameters {how}")
+        vals = [v.item() for v in losses]
+        check(all(math.isfinite(v) for v in vals), f"{tag}: non-finite "
+              f"loss")
+        check(vals[-1] < vals[WARMUP], f"{tag}: the loss did not fall")
+
+        # one profiled replay. The card spins ~25 ms first: a replay that
+        # starts on the card as tracing starts can lose its first kernels'
+        # records (seen once in a full run); a short trace is profiled
+        # again, at most three times, and the tries are reported
+        for tries in range(1, 4):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(SPIN_CYCLES)
+                dps[0].step(tokens, labels)
+                torch.cuda.synchronize()
+            seen, reduce = _profile_counts(prof)
+            if seen == DP_STEP_LAUNCHES:
+                break
+        check(seen == DP_STEP_LAUNCHES
+              and 2 * reduce == seen["K3b"] + seen["K4b"],
+              f"{tag}: a profiled replay launched {seen} (reductions "
+              f"{reduce}), expected {DP_STEP_LAUNCHES}")
+        # a replay's span on the card, from CUDA events around the step
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        dps[0].step(tokens, labels)
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end)
+        # the optimizer's and the MLM CE's own device time a step
+        t_, lr_, wd_, _ = dps[1]._prepare()
+        grads = [torch.randn_like(p) * 1e-3 for p in dps[1].params]
+        adam_ms = time_ms(lambda: dps[1]._update_fn(grads, t_, lr_, wd_),
+                          [()], 3)
+        del grads
+        with torch.no_grad():
+            scores = nets[1](tokens)[0]
+        scores.requires_grad_()
+        ce_ms = time_ms(lambda: torch.autograd.grad(
+            mlm_loss((scores,), labels).mean(), scores), [()], 3)
+        del scores
+    finally:
+        amp.deinit()
+    timed = sorted(times[WARMUP:])
+    med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
+    dev_ms = _device_ms(prof, skip=SPIN_KERNEL)
+    tokens_s = TRAIN_B * TRAIN_T / (med / 1e3)
+    flops_token = 6.0 * n_params + 12.0 * 12 * TRAIN_T * C
+    peak = TRAIN_MODES[mode]
+    share = flops_token * tokens_s / PEAK_FLOPS[peak]
+    idle = 1 - dev_ms / med if dev_ms > 0 else None
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and SPIN_KERNEL not in e.key),
+                 key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    by_kernel = [dict(ms=getattr(e, "self_device_time_total", 0) / 1e3,
+                      calls=e.count, name=e.key[:160]) for e in top]
+    log(f"[{tag}] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam "
+        f"lr {TRAIN_LR}, {n_params} parameters, DataParallel "
+        f"({len(dps[0]._fused)} of {len(dps[0].params)} parameters in the "
+        f"small-parameter segment): step ms "
+        + ", ".join(f"{t:.2f}" for t in times)
+        + f" (step 1 eager, step 2 captures the graph and replays it); "
+        f"loss " + ", ".join(f"{v:.4f}" for v in vals))
+    log(f"[{tag}] launches at the eager and the capturing step "
+        f"{DP_STEP_LAUNCHES}, by layout {want_layout}; none on the "
+        f"{STEPS} timed replays (the Python counters do not move); one "
+        f"profiled replay launched {seen}: as counted at the capture "
+        f"(profiled {tries} time{'s' if tries > 1 else ''})")
+    log(f"[{tag}] median step {med:.2f} ms, {tokens_s:.1f} tokens/s, share "
+        f"of the {peak} peak {share:.4f}; device busy {dev_ms:.2f} ms of a "
+        f"replay (torch.profiler, {sum(e['calls'] for e in by_kernel)} "
+        f"kernels) -> idle share "
+        + (f"{idle:.4f}" if idle is not None else "not measured")
+        + f"; a replay spans {replay_ms:.2f} ms on the card (CUDA events)"
+        f"; of it the optimizer {adam_ms:.2f} ms and the MLM CE forward "
+        f"and backward {ce_ms:.2f} ms (CUDA events, each alone). The "
+        f"Trainer step of this run: median {trainer['median_step_ms']:.2f} "
+        f"ms, device {trainer['device_ms_per_step']:.2f} ms, idle share "
+        + (f"{trainer['idle_share']:.4f}" if trainer["idle_share"] is not None
+           else "not measured"))
+    for e in by_kernel[:24]:
+        log(f"[{tag}]   {e['ms']:8.3f} ms x{e['calls']:4d}  {e['name'][:90]}")
+    totals = {k: sum(cn[k] for cn in counts) for k in DP_STEP_LAUNCHES}
+    layout_totals = {k: {n: sum(ly[k].get(n, 0) for ly in layouts)
+                         for n in want_layout[k]} for k in want_layout}
+    del dps, nets
+    return dict(mode=mode, batch=TRAIN_B, seq=TRAIN_T, dropout=TRAIN_P,
+                lr=TRAIN_LR, params=n_params, step_ms=times, warmup=WARMUP,
+                median_step_ms=med, tokens_per_s=tokens_s,
+                flops_per_token=flops_token, peak=peak, peak_share=share,
+                device_ms_per_step=dev_ms, idle_share=idle,
+                replay_span_ms=replay_ms, profiled_tries=tries,
+                optimizer_device_ms=adam_ms, mlm_ce_device_ms=ce_ms,
+                losses=vals, captures=captures[-1], capture_step=WARMUP,
+                replays_vs_eager=how,
+                launches_at_capture=DP_STEP_LAUNCHES,
+                launches_in_a_profiled_replay=seen,
+                device_ms_by_kernel=by_kernel[:40],
+                trainer=dict(median_step_ms=trainer["median_step_ms"],
+                             tokens_per_s=trainer["tokens_per_s"],
+                             device_ms_per_step=trainer[
+                                 "device_ms_per_step"],
+                             idle_share=trainer["idle_share"])), (
+                    totals, layout_totals)
 
 def phase_times_train(torch, attn, k3, k4b, drop):
     import torch.nn.functional as F
@@ -1907,10 +2366,13 @@ def _pass_view(c, bwd):
                    else {}))
 
 
-def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None):
-    """The nine kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
+def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None,
+                 fold=None):
+    """The kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
     training kernels' cases, ``gd`` the K6 cases, ``by_layout`` the row
-    kernels' main-path launches by layout (K4, K4b, K3f, K3b)."""
+    kernels' main-path launches by layout (K4, K4b, K3f, K3b), ``fold``
+    the fold kernel's case (it replaces no Pallas kernel: the reference
+    folds its step's key with `jax.random.fold_in`)."""
     by_layout = by_layout or {}
 
     def entry(name, source, replaces, n, cases, main, library, key=None):
@@ -2009,6 +2471,13 @@ def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None):
             + "F.dropout(F.gelu(u, approximate='none')) (xla_ms: F.gelu "
             "then the port's dropout kernel, the reference's composed "
             "route)"))
+    if fold is not None:
+        cases = [(fold, f"{len(fold['sites'])} site keys")]
+        out.append(entry(
+            "fold_keys", src + "dropout.cu",
+            "incubator_mxnet_tpu/parallel/sharded.py:123 (jax.random."
+            "fold_in of the step's key; not a Pallas kernel)",
+            launches["fold"], cases, _case_row(*cases[0]), None))
     return {"kernels": out}
 
 
@@ -2046,23 +2515,35 @@ def main():
     torch.cuda.empty_cache()
     trained_tf32, _ = phase_train(torch, dev, "tf32")  # a number, no path
     torch.cuda.empty_cache()
+    fold_case = phase_device_keys(torch, dev)
+    dp_amp, (dp_amp_launches, dp_amp_layouts) = phase_train_dp(
+        torch, dev, trained_amp, "amp")
+    torch.cuda.empty_cache()
+    dp_f32, (dp_f32_launches, dp_f32_layouts) = phase_train_dp(
+        torch, dev, trained, "f32")
+    torch.cuda.empty_cache()
     gd_path, gd_launches = phase_gelu_dropout_path(torch, dev)
     torch.cuda.empty_cache()
     for k, n in (list(train_launches.items()) + list(amp_launches.items())
+                 + list(dp_amp_launches.items())
+                 + list(dp_f32_launches.items())
                  + list(gd_launches.items())):
         launches[k] = launches.get(k, 0) + n
     by_layout = {k: dict(v) for k, v in f32_layouts.items()}
-    for k, v in amp_layouts.items():
-        for name, n in v.items():
-            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    for layouts in (amp_layouts, dp_amp_layouts, dp_f32_layouts):
+        for k, v in layouts.items():
+            for name, n in v.items():
+                by_layout[k][name] = by_layout[k].get(name, 0) + n
     by_layout["K4"]["f32"] += sum(r["k4_launches"] for r in served)
     log(f"[done] launches on the main paths (serving + {STEPS} timed "
-        f"training steps in f32 and {STEPS} under AMP + {GD_STEPS} "
-        f"gelu_dropout steps): {launches}; the row kernels' by layout "
-        f"{by_layout}")
+        f"training steps in f32 and {STEPS} under AMP + the DataParallel "
+        f"steps, AMP and f32, that launched through the wrappers: the "
+        f"eager and the capturing step of each + {GD_STEPS} gelu_dropout "
+        f"steps): {launches}; the row kernels' by layout {by_layout}")
     phase_times(torch, attn, lns)
     phase_times_train(torch, *train_cases)
     phase_times_gelu_dropout(torch, gd_cases)
+    key_times = phase_times_device_keys(torch, fold_case)
     log(f"[done] phases took {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
@@ -2072,13 +2553,16 @@ def main():
     log(json.dumps({"train": trained}))
     log(json.dumps({"train_amp": trained_amp}))
     log(json.dumps({"train_tf32": trained_tf32}))
+    dp_amp["device_key_vs_by_value_ms"] = key_times
+    log(json.dumps({"train_dp_amp": dp_amp}))
+    log(json.dumps({"train_dp": dp_f32}))
     log(json.dumps({"serve": served}))
     gd_path["max_abs_err_vs_float64"] = {
         name: {"k6": k6, "erff": erff}
         for name, (k6, erff) in gd_accuracy.items()}
     log(json.dumps({"gelu_dropout": gd_path}))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
-                                gd_cases, by_layout)))
+                                gd_cases, by_layout, fold_case)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

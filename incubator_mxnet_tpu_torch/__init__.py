@@ -16,16 +16,19 @@ kernels, with `gluon.Trainer` and Adam; `npx.gelu_dropout` through the
 fused exact-erf GELU + dropout kernel, forward and backward. With it
 every Pallas kernel of the reference has its CUDA counterpart. `amp`
 trains those models in bfloat16 mixed precision through the same
-kernels. Entry
+kernels. `parallel.DataParallel` is the reference's compiled training
+step on one card: forward, backward and the optimizer replayed as one
+CUDA graph a step, its dropout keys folded on the card. Entry
 points run on ``cuda:0`` unless the caller passes ``device="cpu"``. This
 package imports neither jax nor the reference package.
 """
-from . import amp, base, device, gluon, models, ops, optimizer, random
+from . import (amp, base, device, gluon, models, ops, optimizer, parallel,
+               random)
 from . import numpy_extension as npx
 from .base import MXNetError
 from .device import cpu, default_device, gpu, num_gpus
 
 __all__ = ["amp", "base", "device", "gluon", "models", "ops", "optimizer",
-           "random",
+           "parallel", "random",
            "npx", "MXNetError",
            "cpu", "gpu", "num_gpus", "default_device"]

@@ -274,6 +274,7 @@ __global__ void __launch_bounds__(kLnWarps * 32)
       static_cast<long long>(blockIdx.x) * kLnWarps + threadIdx.x / 32;
   if (row >= rows) return;  // whole warps leave together
   const long long base = row * cols;
+  if constexpr (kMode == kLnXPlusDropH) key = load_key(key);
 
   float v[NV][E];
   float sum = 0.f;
@@ -419,6 +420,7 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32,
   constexpr int NA = kRegAcc ? NV : 1;
   constexpr int NK = (NV * E + 31) / 32;  // words of keep bits a lane
   extern __shared__ __align__(16) float acc[];  // [warps][2][cols]
+  if constexpr (kMode == kLnXPlusDropH) key = load_key(key);
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int warps = blockDim.x / 32;
   float* dg_acc = acc + warp * 2 * cols;

@@ -36,6 +36,9 @@
 // products): 10 bytes an element forward, 16 backward. A lane's vectors
 // follow x's width, so h is read 8 bytes at a time at x's offsets, and
 // the mask is the one the f32 layout and K5 draw for the same key.
+//
+// The key comes by value or, through the `_dk` entries, from device
+// memory (a site of a step replayed as a CUDA graph; philox.cuh).
 #include "common.cuh"
 
 namespace {
@@ -88,20 +91,11 @@ int layout(int dtype, int h_dtype, int param_dtype) {
   return -1;
 }
 
-}  // namespace
-
-// y, mean, rstd = LN(x + dropout(h)) over rows of `cols` elements; x and y
-// in `dtype`, h in `h_dtype`, gamma/beta in `param_dtype` (a layout
-// above). `mode` is kLnXPlusH or kLnXPlusDropH; (k0, k1) the key,
-// `threshold` and `scale` the keep rule (used in kLnXPlusDropH only). Runs
-// on the caller's current device; returns the cudaError_t of the launch.
-MX_EXPORT int mx_residual_dropout_ln_fwd(
-    int dtype, int h_dtype, int param_dtype, int mode, const void* x,
-    const void* h, const void* gamma, const void* beta, void* y, void* mean,
-    void* rstd, int rows, int cols, float eps, unsigned k0, unsigned k1,
-    unsigned threshold, float scale, void* stream) {
+int fwd_entry(int dtype, int h_dtype, int param_dtype, int mode,
+              const void* x, const void* h, const void* gamma,
+              const void* beta, void* y, void* mean, void* rstd, int rows,
+              int cols, float eps, mx::DropoutKey key, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const mx::DropoutKey key{k0, k1, threshold, scale};
   switch (layout(dtype, h_dtype, param_dtype)) {
     case 0:
       return fwd<float, float, float>(mode, x, h, gamma, beta, y, mean, rstd,
@@ -118,19 +112,12 @@ MX_EXPORT int mx_residual_dropout_ln_fwd(
   }
 }
 
-// dx (rows, cols) in `dtype`, dh in `h_dtype` and dgamma/dbeta (2, cols)
-// in `dgb`, in `param_dtype`, regenerating the forward's mask from the
-// same key; dy is in `dtype`. `partials` is f32 scratch of (nblocks, 2,
-// cols); a fixed nblocks gives the same dgamma/dbeta in every run. Runs on
-// the caller's current device; returns the cudaError_t of the launches.
-MX_EXPORT int mx_residual_dropout_ln_bwd(
-    int dtype, int h_dtype, int param_dtype, int mode, const void* x,
-    const void* h, const void* dy, const void* mean, const void* rstd,
-    const void* gamma, void* dx, void* dh, void* partials, void* dgb,
-    int rows, int cols, int nblocks, unsigned k0, unsigned k1,
-    unsigned threshold, float scale, void* stream) {
+int bwd_entry(int dtype, int h_dtype, int param_dtype, int mode,
+              const void* x, const void* h, const void* dy, const void* mean,
+              const void* rstd, const void* gamma, void* dx, void* dh,
+              void* partials, void* dgb, int rows, int cols, int nblocks,
+              mx::DropoutKey key, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const mx::DropoutKey key{k0, k1, threshold, scale};
   switch (layout(dtype, h_dtype, param_dtype)) {
     case 0:
       return bwd<float, float, float>(mode, x, h, dy, mean, rstd, gamma, dx,
@@ -147,4 +134,69 @@ MX_EXPORT int mx_residual_dropout_ln_bwd(
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// y, mean, rstd = LN(x + dropout(h)) over rows of `cols` elements; x and y
+// in `dtype`, h in `h_dtype`, gamma/beta in `param_dtype` (a layout
+// above). `mode` is kLnXPlusH or kLnXPlusDropH; (k0, k1) the key,
+// `threshold` and `scale` the keep rule (used in kLnXPlusDropH only). Runs
+// on the caller's current device; returns the cudaError_t of the launch.
+MX_EXPORT int mx_residual_dropout_ln_fwd(
+    int dtype, int h_dtype, int param_dtype, int mode, const void* x,
+    const void* h, const void* gamma, const void* beta, void* y, void* mean,
+    void* rstd, int rows, int cols, float eps, unsigned k0, unsigned k1,
+    unsigned threshold, float scale, void* stream) {
+  return fwd_entry(dtype, h_dtype, param_dtype, mode, x, h, gamma, beta, y,
+                   mean, rstd, rows, cols, eps,
+                   mx::DropoutKey{k0, k1, threshold, scale}, stream);
+}
+
+// mx_residual_dropout_ln_fwd in kLnXPlusDropH mode with the key's two
+// words read from device memory at `key_words` when the kernel runs.
+MX_EXPORT int mx_residual_dropout_ln_fwd_dk(
+    int dtype, int h_dtype, int param_dtype, const void* x, const void* h,
+    const void* gamma, const void* beta, void* y, void* mean, void* rstd,
+    int rows, int cols, float eps, const void* key_words, unsigned threshold,
+    float scale, void* stream) {
+  if (key_words == nullptr) return cudaErrorInvalidValue;
+  return fwd_entry(dtype, h_dtype, param_dtype, mx::kLnXPlusDropH, x, h,
+                   gamma, beta, y, mean, rstd, rows, cols, eps,
+                   mx::DropoutKey{0u, 0u, threshold, scale,
+                                  static_cast<const uint2*>(key_words)},
+                   stream);
+}
+
+// dx (rows, cols) in `dtype`, dh in `h_dtype` and dgamma/dbeta (2, cols)
+// in `dgb`, in `param_dtype`, regenerating the forward's mask from the
+// same key; dy is in `dtype`. `partials` is f32 scratch of (nblocks, 2,
+// cols); a fixed nblocks gives the same dgamma/dbeta in every run. Runs on
+// the caller's current device; returns the cudaError_t of the launches.
+MX_EXPORT int mx_residual_dropout_ln_bwd(
+    int dtype, int h_dtype, int param_dtype, int mode, const void* x,
+    const void* h, const void* dy, const void* mean, const void* rstd,
+    const void* gamma, void* dx, void* dh, void* partials, void* dgb,
+    int rows, int cols, int nblocks, unsigned k0, unsigned k1,
+    unsigned threshold, float scale, void* stream) {
+  return bwd_entry(dtype, h_dtype, param_dtype, mode, x, h, dy, mean, rstd,
+                   gamma, dx, dh, partials, dgb, rows, cols, nblocks,
+                   mx::DropoutKey{k0, k1, threshold, scale}, stream);
+}
+
+// mx_residual_dropout_ln_bwd in kLnXPlusDropH mode with the key's two
+// words read from device memory at `key_words` when the kernel runs.
+MX_EXPORT int mx_residual_dropout_ln_bwd_dk(
+    int dtype, int h_dtype, int param_dtype, const void* x, const void* h,
+    const void* dy, const void* mean, const void* rstd, const void* gamma,
+    void* dx, void* dh, void* partials, void* dgb, int rows, int cols,
+    int nblocks, const void* key_words, unsigned threshold, float scale,
+    void* stream) {
+  if (key_words == nullptr) return cudaErrorInvalidValue;
+  return bwd_entry(dtype, h_dtype, param_dtype, mx::kLnXPlusDropH, x, h, dy,
+                   mean, rstd, gamma, dx, dh, partials, dgb, rows, cols,
+                   nblocks,
+                   mx::DropoutKey{0u, 0u, threshold, scale,
+                                  static_cast<const uint2*>(key_words)},
+                   stream);
 }

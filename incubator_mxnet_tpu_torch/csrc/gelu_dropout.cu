@@ -25,8 +25,9 @@
 // issues all its loads before any arithmetic, and only the last block
 // checks the end of the tensor, vector by vector, with a scalar tail when
 // numel is not a multiple of the vector width. With kDrop false (p = 0)
-// the kernel draws no Philox words. Inputs and outputs are contiguous and
-// 16-byte aligned; the Python wrapper sees to both.
+// the kernel draws no Philox words. The key comes by value or, through
+// the `_dk` entries, from device memory (philox.cuh). Inputs and outputs
+// are contiguous and 16-byte aligned; the Python wrapper sees to both.
 #include "common.cuh"
 
 namespace {
@@ -145,6 +146,7 @@ __global__ void __launch_bounds__(kThreads)
     gelu_dropout_kernel(const T* __restrict__ u, const T* __restrict__ dy,
                         T* __restrict__ out, long long n, mx::DropoutKey key) {
   constexpr int E = mx::Vec16<T>::n;
+  if constexpr (kDrop) key = mx::load_key(key);
   constexpr long long kBlockElems =
       static_cast<long long>(kVecs<T>) * kThreads * E;
   const long long block_first =
@@ -187,11 +189,10 @@ cudaError_t launch(const void* u, const void* dy, void* out, long long n,
 }
 
 cudaError_t dispatch(int dtype, const void* u, const void* dy, void* out,
-                     long long n, int drop, unsigned k0, unsigned k1,
-                     unsigned threshold, float scale, void* stream) {
+                     long long n, int drop, mx::DropoutKey key,
+                     void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const mx::DropoutKey key{k0, k1, threshold, scale};
   switch (dtype) {
     case kFloat32:
       return launch<float>(u, dy, out, n, drop != 0, key, s);
@@ -213,7 +214,20 @@ MX_EXPORT int mx_gelu_dropout_fwd(int dtype, const void* u, void* y,
                                   long long n, int drop, unsigned k0,
                                   unsigned k1, unsigned threshold,
                                   float scale, void* stream) {
-  return dispatch(dtype, u, nullptr, y, n, drop, k0, k1, threshold, scale,
+  return dispatch(dtype, u, nullptr, y, n, drop,
+                  mx::DropoutKey{k0, k1, threshold, scale}, stream);
+}
+
+// mx_gelu_dropout_fwd with the mask, its key's two words read from
+// device memory at `key_words` when the kernel runs.
+MX_EXPORT int mx_gelu_dropout_fwd_dk(int dtype, const void* u, void* y,
+                                     long long n, const void* key_words,
+                                     unsigned threshold, float scale,
+                                     void* stream) {
+  if (key_words == nullptr) return cudaErrorInvalidValue;
+  return dispatch(dtype, u, nullptr, y, n, 1,
+                  mx::DropoutKey{0u, 0u, threshold, scale,
+                                 static_cast<const uint2*>(key_words)},
                   stream);
 }
 
@@ -224,6 +238,20 @@ MX_EXPORT int mx_gelu_dropout_bwd(int dtype, const void* u, const void* dy,
                                   unsigned threshold, float scale,
                                   void* stream) {
   if (dy == nullptr) return cudaErrorInvalidValue;
-  return dispatch(dtype, u, dy, du, n, drop, k0, k1, threshold, scale,
+  return dispatch(dtype, u, dy, du, n, drop,
+                  mx::DropoutKey{k0, k1, threshold, scale}, stream);
+}
+
+// mx_gelu_dropout_bwd with the mask, its key's two words read from
+// device memory at `key_words` when the kernel runs.
+MX_EXPORT int mx_gelu_dropout_bwd_dk(int dtype, const void* u,
+                                     const void* dy, void* du, long long n,
+                                     const void* key_words,
+                                     unsigned threshold, float scale,
+                                     void* stream) {
+  if (dy == nullptr || key_words == nullptr) return cudaErrorInvalidValue;
+  return dispatch(dtype, u, dy, du, n, 1,
+                  mx::DropoutKey{0u, 0u, threshold, scale,
+                                 static_cast<const uint2*>(key_words)},
                   stream);
 }

@@ -9,7 +9,9 @@ Dropout applies when the caller says it is training (``training=True``;
 the layers pass their module's ``training`` flag, the port's counterpart
 of the reference's ``autograd.is_training()``) or with
 ``mode="always"``. Each application draws a fresh key from
-:func:`random.next_key`.
+:func:`random.next_key`: two host words, or inside
+`random.trace_key_scope` (a `parallel.DataParallel` step) the step's
+next device key, which the kernels read from the card.
 
 ``impl`` ("auto" | "kernel" | "plain") is handed to the kernels'
 wrappers: "auto" launches the kernel for a CUDA tensor and runs the plain

@@ -14,8 +14,16 @@ asks for ``impl="plain"``); on a CUDA tensor ``impl="auto"`` launches the
 kernel or raises. ``p == 0`` is the identity and launches nothing;
 ``p == 1`` gives zeros, as the reference's composed path does.
 
+A key is two host words or, inside `random.trace_key_scope` (a step
+replayed as a CUDA graph), an `ops._philox.DeviceKey`, whose words the
+kernel reads from the card (``mx_dropout_dk``): the scope's table of
+site keys, which :func:`site_key_ptr` fills with the fold kernel of
+``csrc/dropout.cu`` at a chunk's first use. The plain version folds the
+same words in PyTorch ops (`ops._philox.fold`), so both draw the mask the
+by-value kernel draws for those words.
+
 ``launches`` counts kernel launches, forward and backward alike (one per
-call that reaches the card).
+call that reaches the card); ``fold_launches`` the fold kernel's.
 """
 from __future__ import annotations
 
@@ -25,13 +33,18 @@ import torch
 
 from ..base import MXNetError
 from . import _build
-from ._philox import dropout_scale, keep_mask, threshold
+from ._philox import DeviceKey, dropout_scale, keep_mask, threshold
 
-__all__ = ["plain_dropout", "dropout_fwd", "dropout", "launches"]
+__all__ = ["plain_dropout", "dropout_fwd", "dropout", "launches",
+           "fold_launches", "site_key_ptr", "KEY_CHUNK"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: site keys the fold kernel writes a launch: a step's first dropout site
+#: of each chunk launches it once (BERT-base's 49 sites take one chunk)
+KEY_CHUNK = 64
 
 launches = 0
+fold_launches = 0
 _LIB = None
 
 
@@ -56,8 +69,46 @@ def _lib():
                        ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32,
                        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.mx_dropout_dk
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint32,
+                       ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.mx_fold_keys
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def site_key_ptr(key, device):
+    """The device address of a `DeviceKey`'s two words in its scope's
+    table of site keys on ``device``. The first site of a chunk of
+    :data:`KEY_CHUNK` launches the fold kernel for the chunk's sites on
+    the current stream, ahead of the kernels that read them: each table
+    entry is ``fold(fold(base, t), site)`` at the time the fold kernel
+    runs, as `ops._philox.key_words` computes it."""
+    global fold_launches
+    if key.device != device:
+        raise MXNetError(f"dropout: the step's key is on {key.device}, the "
+                         f"tensor on {device}")
+    chunk, row = divmod(key.site, KEY_CHUNK)
+    table = key.tables.get(chunk)
+    if table is None:
+        base = key.base.to(torch.int64).contiguous()
+        t = key.t.to(torch.int64).contiguous()
+        table = torch.empty((KEY_CHUNK, 2), dtype=torch.int32, device=device)
+        lib = _lib()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = lib.mx_fold_keys(base.data_ptr(), t.data_ptr(),
+                                   table.data_ptr(), chunk * KEY_CHUNK,
+                                   KEY_CHUNK, stream)
+        _build.check(lib, err, "fold_keys")
+        fold_launches += 1
+        key.tables[chunk] = table
+    return table[row].data_ptr()
 
 
 def _kernel(x, key, p):
@@ -72,9 +123,16 @@ def _kernel(x, key, p):
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.mx_dropout(_DTYPES[x.dtype], x.data_ptr(), y.data_ptr(),
-                             x.numel(), int(key[0]), int(key[1]),
-                             threshold(p), dropout_scale(p), stream)
+        if isinstance(key, DeviceKey):
+            err = lib.mx_dropout_dk(_DTYPES[x.dtype], x.data_ptr(),
+                                    y.data_ptr(), x.numel(),
+                                    site_key_ptr(key, x.device),
+                                    threshold(p), dropout_scale(p), stream)
+        else:
+            err = lib.mx_dropout(_DTYPES[x.dtype], x.data_ptr(),
+                                 y.data_ptr(), x.numel(), int(key[0]),
+                                 int(key[1]), threshold(p),
+                                 dropout_scale(p), stream)
     _build.check(lib, err, "dropout")
     launches += 1
     return y
@@ -82,7 +140,8 @@ def _kernel(x, key, p):
 
 def dropout_fwd(x, key, p, impl="auto"):
     """Dropout of ``x`` with drop probability ``p`` under ``key`` (two
-    uint32 words): no gradient, the function both directions run.
+    uint32 words or a `DeviceKey`): no gradient, the function both
+    directions run.
 
     ``impl``: "auto" launches the kernel for a CUDA tensor and runs the
     plain version for a CPU tensor; "kernel" requires a CUDA tensor;

@@ -64,6 +64,13 @@ still runs, without drawing a mask, as `_gd_call` does
 (``use_rng=False``); at p = 1 the result and the gradient are zeros and
 nothing is launched. The counters
 are ``gd_launches`` and ``gd_bwd_launches``.
+
+**Keys.** A key is two host words or, inside `random.trace_key_scope`
+(a step replayed as a CUDA graph), an `ops._philox.DeviceKey`: K3 and
+K6 then read its words from the card (the ``_dk`` entries of their
+sources) at the address `ops.dropout.site_key_ptr` gives, and the plain
+versions fold the same words in PyTorch ops. The autograd functions keep
+the forward's key for the backward, whichever form it has.
 """
 from __future__ import annotations
 
@@ -75,7 +82,8 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from . import _build
-from ._philox import dropout_scale, keep_mask, threshold
+from ._philox import DeviceKey, dropout_scale, keep_mask, threshold
+from .dropout import site_key_ptr
 from .layer_norm import (BWD_KERNELS, bwd_blocks, check_kernel_args,
                          layer_norm_bwd, layer_norm_fwd, layout_name,
                          plain_layer_norm, plain_ln_grads, sm_count,
@@ -153,6 +161,19 @@ def _lib():
                        + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.mx_residual_dropout_ln_fwd_dk
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.mx_residual_dropout_ln_bwd_dk
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p,
+                                               ctypes.c_uint32,
+                                               ctypes.c_float,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -180,14 +201,21 @@ def _kernel(x2d, h2d, gamma, beta, key, p, eps):
     rstd = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     if rows == 0:
         return y, mean, rstd
-    mode, *key_args = _mode_key_args(key, p)
     lib = _lib()
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        err = lib.mx_residual_dropout_ln_fwd(
-            *_codes(x2d, h2d, gamma), mode, x2d.data_ptr(), h2d.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), rows, feat, float(eps), *key_args, stream)
+        args = (x2d.data_ptr(), h2d.data_ptr(), gamma.data_ptr(),
+                   beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                   rstd.data_ptr(), rows, feat, float(eps))
+        if isinstance(key, DeviceKey) and p > 0:
+            err = lib.mx_residual_dropout_ln_fwd_dk(
+                *_codes(x2d, h2d, gamma), *args,
+                site_key_ptr(key, x2d.device), threshold(p),
+                dropout_scale(p), stream)
+        else:
+            mode, *key_args = _mode_key_args(key, p)
+            err = lib.mx_residual_dropout_ln_fwd(
+                *_codes(x2d, h2d, gamma), mode, *args, *key_args, stream)
     _build.check(lib, err, "residual_dropout_ln_fwd")
     launches += 1
     layout_launches[layout_name(x2d.dtype, gamma.dtype, h2d.dtype)] += 1
@@ -210,16 +238,22 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
     partials = torch.empty((nblocks, 2, feat), dtype=torch.float32,
                            device=x2d.device)
     dgb = torch.empty((2, feat), dtype=gamma.dtype, device=x2d.device)
-    mode, *key_args = _mode_key_args(key, p)
     lib = _lib()
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        err = lib.mx_residual_dropout_ln_bwd(
-            *_codes(x2d, h2d, gamma), mode, x2d.data_ptr(), h2d.data_ptr(),
-            dy2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            gamma.data_ptr(), dx.data_ptr(), dh.data_ptr(),
-            partials.data_ptr(), dgb.data_ptr(), rows, feat, nblocks,
-            *key_args, stream)
+        args = (x2d.data_ptr(), h2d.data_ptr(), dy2d.data_ptr(),
+                   mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
+                   dx.data_ptr(), dh.data_ptr(), partials.data_ptr(),
+                   dgb.data_ptr(), rows, feat, nblocks)
+        if isinstance(key, DeviceKey) and p > 0:
+            err = lib.mx_residual_dropout_ln_bwd_dk(
+                *_codes(x2d, h2d, gamma), *args,
+                site_key_ptr(key, x2d.device), threshold(p),
+                dropout_scale(p), stream)
+        else:
+            mode, *key_args = _mode_key_args(key, p)
+            err = lib.mx_residual_dropout_ln_bwd(
+                *_codes(x2d, h2d, gamma), mode, *args, *key_args, stream)
     _build.check(lib, err, "residual_dropout_ln_bwd")
     bwd_launches += BWD_KERNELS
     bwd_layout_launches[layout_name(x2d.dtype, gamma.dtype,
@@ -230,9 +264,9 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
 def residual_dropout_ln_fwd(x2d, h2d, gamma, beta, key, p, eps=1e-5,
                             impl="auto"):
     """(y, mean, rstd) of (rows, C) tensors; ``key`` is two uint32 words
-    (unused at p = 0 or 1). ``impl``: "auto" launches the kernel for CUDA
-    tensors and runs the plain version for CPU tensors; "kernel" requires
-    CUDA tensors; "plain" forces the plain version."""
+    or a `DeviceKey` (unused at p = 0 or 1). ``impl``: "auto" launches the
+    kernel for CUDA tensors and runs the plain version for CPU tensors;
+    "kernel" requires CUDA tensors; "plain" forces the plain version."""
     _check_p(p)
     if use_plain("residual_dropout_ln", x2d, impl):
         return plain_residual_dropout_ln(x2d, h2d, gamma, beta, key, p, eps)
@@ -335,6 +369,14 @@ def _gd_lib():
         lib.mx_gelu_dropout_bwd.argtypes = [ctypes.c_int] + [
             ctypes.c_void_p] * 3 + tail
         lib.mx_gelu_dropout_bwd.restype = ctypes.c_int
+        dk_tail = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint32,
+                   ctypes.c_float, ctypes.c_void_p]
+        lib.mx_gelu_dropout_fwd_dk.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 2 + dk_tail
+        lib.mx_gelu_dropout_fwd_dk.restype = ctypes.c_int
+        lib.mx_gelu_dropout_bwd_dk.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 3 + dk_tail
+        lib.mx_gelu_dropout_bwd_dk.restype = ctypes.c_int
         _GD_LIB = lib
     return _GD_LIB
 
@@ -356,21 +398,26 @@ def _gd_kernel(u, dy, key, p):
     if u.numel() == 0:
         return out
     drop = 0 < p
-    key_args = ((int(key[0]), int(key[1]), threshold(p), dropout_scale(p))
-                if drop else (0, 0, 0, 1.0))
     lib = _gd_lib()
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    if dy is not None:
+        dy = _build.aligned(dy)
     with torch.cuda.device(u.device):
-        if dy is None:
-            err = lib.mx_gelu_dropout_fwd(_DTYPES[u.dtype], u.data_ptr(),
-                                          out.data_ptr(), u.numel(),
-                                          int(drop), *key_args, stream)
+        args = ((u.data_ptr(), out.data_ptr()) if dy is None else
+                   (u.data_ptr(), dy.data_ptr(), out.data_ptr()))
+        if isinstance(key, DeviceKey) and drop:
+            entry = (lib.mx_gelu_dropout_fwd_dk if dy is None
+                     else lib.mx_gelu_dropout_bwd_dk)
+            err = entry(_DTYPES[u.dtype], *args, u.numel(),
+                        site_key_ptr(key, u.device), threshold(p),
+                        dropout_scale(p), stream)
         else:
-            dy = _build.aligned(dy)
-            err = lib.mx_gelu_dropout_bwd(_DTYPES[u.dtype], u.data_ptr(),
-                                          dy.data_ptr(), out.data_ptr(),
-                                          u.numel(), int(drop), *key_args,
-                                          stream)
+            key_args = ((int(key[0]), int(key[1]), threshold(p),
+                         dropout_scale(p)) if drop else (0, 0, 0, 1.0))
+            entry = (lib.mx_gelu_dropout_fwd if dy is None
+                     else lib.mx_gelu_dropout_bwd)
+            err = entry(_DTYPES[u.dtype], *args, u.numel(), int(drop),
+                        *key_args, stream)
     _build.check(lib, err, what)
     if dy is None:
         gd_launches += 1

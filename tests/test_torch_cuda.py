@@ -854,3 +854,151 @@ def test_npx_gelu_dropout_launches_k6_not_k5(dev):
     assert (fb.gd_launches, dp.launches) == (1, 1)
     with pytest.raises(MXNetError):
         npx.gelu_dropout(x.half(), p=0.1, training=True)
+
+
+# -- device keys (a step replayed as a CUDA graph) and DataParallel ----------
+
+def _device_key(dev, t=3, site=2, base=(123456789, 987654321)):
+    return ph.DeviceKey(torch.tensor(base, device=dev),
+                        torch.tensor(t, device=dev), site, {})
+
+
+def _host_words(key):
+    return tuple(int(w) for w in ph.key_words(key))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 13), (1000, 768)])
+def test_device_key_launches_equal_the_by_value_launches(dev, dtype, shape):
+    """K5, K3 (forward and backward) and K6 (forward and backward) on a
+    device key: the fold kernel's table words are the plain fold's, and
+    every output is the by-value launch's for those words and the plain
+    version's, bit for bit (K6 within its f32 tolerance of the plain
+    version, as at a host key)."""
+    g = _gen(dev, 7)
+    key = _device_key(dev, site=70)  # in the second chunk of the table
+    words = _host_words(key)
+    fold_before = dp.fold_launches
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    got = dp.dropout_fwd(x, key, 0.1)
+    assert dp.fold_launches == fold_before + 1
+    table = key.tables[70 // dp.KEY_CHUNK][70 % dp.KEY_CHUNK]
+    assert tuple(int(w) & 0xFFFFFFFF for w in table.tolist()) == words
+    assert torch.equal(got, dp.dropout_fwd(x, words, 0.1))
+    assert torch.equal(got, dp.dropout_fwd(x, key, 0.1, impl="plain"))
+    if shape[1] % 8 == 0:
+        h = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        dy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        gamma = torch.ones(shape[1], device=dev, dtype=dtype)
+        beta = torch.zeros(shape[1], device=dev, dtype=dtype)
+        fwd = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key, 0.1)
+        ref = fb.residual_dropout_ln_fwd(x, h, gamma, beta, words, 0.1)
+        assert all(torch.equal(a, b) for a, b in zip(fwd, ref))
+        _, mean, rstd = fwd
+        bwd = fb.residual_dropout_ln_bwd(x, h, dy, mean, rstd, gamma, key,
+                                         0.1)
+        ref = fb.residual_dropout_ln_bwd(x, h, dy, mean, rstd, gamma, words,
+                                         0.1)
+        assert all(torch.equal(a, b) for a, b in zip(bwd, ref))
+    gd = fb.gelu_dropout_fwd(x, key, 0.1)
+    assert torch.equal(gd, fb.gelu_dropout_fwd(x, words, 0.1))
+    assert torch.equal(gd != 0, got != 0)
+    gdb = fb.gelu_dropout_bwd(x, x, key, 0.1)
+    assert torch.equal(gdb, fb.gelu_dropout_bwd(x, x, words, 0.1))
+    assert dp.fold_launches == fold_before + 1  # the chunk is filled once
+
+
+def test_device_key_reads_t_when_the_kernel_runs(dev):
+    """A graph captured with a device key drops other elements when t
+    changes before a replay, and those of the by-value launch for the new
+    words."""
+    x = torch.randn(64, 256, device=dev)
+    t = torch.tensor(5, device=dev)
+    base = torch.tensor([11, 22], device=dev)
+    dp.dropout_fwd(x, ph.DeviceKey(base, t, 0, {}), 0.5)  # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = dp.dropout_fwd(x, ph.DeviceKey(base, t, 0, {}), 0.5)
+    masks = []
+    for step in (5, 6):
+        t.fill_(step)
+        graph.replay()
+        words = _host_words(ph.DeviceKey(base, t, 0, {}))
+        assert torch.equal(y, dp.dropout_fwd(x, words, 0.5))
+        masks.append(y != 0)
+    assert not torch.equal(*masks)
+
+
+@pytest.mark.parametrize("amp_on", [False, True])
+def test_data_parallel_captures_once_and_replays_its_step_fn(dev, amp_on):
+    """DataParallel(bert_small) on the card: one eager warm-up step, then
+    one capture; later steps replay it. The losses and parameters of the
+    replays equal those of `_step_fn` run eagerly from the same state,
+    the Python launch counters do not move on a replay, and successive
+    replays draw other masks (the losses differ on the same batch)."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_small
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import DataParallel
+
+    ce = SoftmaxCrossEntropyLoss()
+    gen = torch.Generator().manual_seed(2)
+    tok = torch.randint(0, 97, (4, 32), generator=gen).to(dev)
+    lab = torch.randint(0, 97, (4, 32), generator=gen).to(dev)
+    nets = [bert_small(vocab_size=97, max_length=32, dropout=0.1,
+                       device=dev, seed=1) for _ in range(2)]
+    dps = [DataParallel(n, lambda out, y: ce(out[0], y),
+                        Adam(learning_rate=1e-3)) for n in nets]
+    if amp_on:
+        amp.init("bfloat16")
+    try:
+        mxrandom.seed(9)
+        replayed = [dps[0].step(tok, lab) for _ in range(2)]
+        counts = (dp.launches, fb.launches, fb.bwd_launches)
+        replayed += [dps[0].step(tok, lab) for _ in range(3)]
+        assert (dp.launches, fb.launches, fb.bwd_launches) == counts
+        assert dps[0].captures == 1
+        mxrandom.seed(9)
+        eager = []
+        for _ in range(5):
+            eager.append(dps[1]._step_fn(*dps[1]._prepare(), tok, lab))
+    finally:
+        amp.deinit()
+    assert dps[1].captures == 0
+    assert len({float(v) for v in replayed}) == 5
+    for a, b in zip(replayed, eager):
+        assert torch.equal(a, b)
+    for pa, pb in zip(nets[0].parameters(), nets[1].parameters()):
+        assert torch.equal(pa, pb)
+
+
+def test_data_parallel_capture_failure_raises_without_fallback(dev):
+    """A step that synchronises with the host (here `.item()` in the
+    loss) runs eagerly as its warm-up, then fails to capture: the step
+    raises `MXNetError`, nothing of it ran, and the next call tries the
+    capture again rather than running eagerly."""
+    from incubator_mxnet_tpu_torch.models.bert import bert_small
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import DataParallel
+
+    net = bert_small(vocab_size=97, max_length=32, dropout=0.1, device=dev,
+                     seed=3)
+
+    def syncing_loss(out, y):
+        scores = out[0]
+        return (scores.float().logsumexp(-1).mean(-1)
+                * (1.0 + 0.0 * scores.sum().item()))
+
+    dp_ = DataParallel(net, syncing_loss, Adam(learning_rate=1e-3))
+    tok = torch.randint(0, 97, (2, 16), device=dev)
+    dp_.step(tok, tok)  # the eager warm-up step
+    before = [p.detach().clone() for p in net.parameters()]
+    for _ in range(2):
+        with pytest.raises(MXNetError, match="capturing"):
+            dp_.step(tok, tok)
+    torch.cuda.synchronize()
+    assert dp_.captures == 0 and dp_.optimizer.num_update == 1
+    assert all(torch.equal(a, p) for a, p in zip(before, net.parameters()))
+    assert torch.ones(4, device=dev).sum().item() == 4.0

@@ -159,3 +159,82 @@ def test_npx_and_gluon_dropout_apply_only_in_training():
     assert layer.eval()(x) is x
     with pytest.raises(ValueError):
         npx.dropout(x, p=0.5, axes=(0,), training=True)
+
+
+# -- device keys: a step's keys folded from its base key, t and the site ----
+
+def _dkey(t, site, base=(123456789, 987654321)):
+    return ph.DeviceKey(torch.tensor(base), torch.tensor(t), site, {})
+
+
+def test_fold_is_philox_at_a_counter_no_mask_draws():
+    """fold(key, n) is the first two words of the Philox block at counter
+    (n mod 2^32, n >> 32, 0, 1): word 3 is 1, where every block of a
+    mask's stream has word 3 = 0."""
+    key = (0xA4093822, 0x299F31D0)
+    for n in (0, 5, 2 ** 32 + 7):
+        c = [torch.tensor([v]) for v in (n & 0xFFFFFFFF, n >> 32, 0, 1)]
+        words = ph.philox4x32_10(c, key)
+        got = ph.fold(key, n)
+        assert (int(got[0]), int(got[1])) == (int(words[0]), int(words[1]))
+        mask_block = ph.philox4x32_10(c[:3] + [torch.tensor([0])], key)
+        assert int(mask_block[0]) != int(words[0])
+
+
+def test_fold_is_deterministic_and_separates_t_and_site():
+    keys = {}
+    for t in (1, 2, 3):
+        for site in (0, 1, 2):
+            w = tuple(int(v) for v in ph.key_words(_dkey(t, site)))
+            assert w == tuple(int(v) for v in ph.key_words(_dkey(t, site)))
+            assert all(0 <= v < 2 ** 32 for v in w)
+            keys[t, site] = w
+    assert len(set(keys.values())) == len(keys)  # (1, 2) != (2, 1) too
+    assert ph.key_words(_dkey(1, 0, base=(1, 2))) != ph.key_words(
+        _dkey(1, 0, base=(1, 3)))
+    # host ints and int64 tensors fold alike
+    assert tuple(int(v) for v in ph.fold((5, 6), 9)) == tuple(
+        int(v) for v in ph.fold((torch.tensor(5), torch.tensor(6)),
+                                torch.tensor(9)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_device_key_gives_the_mask_of_its_host_words(dtype):
+    """K5's plain version on a device key drops what it drops on the two
+    words the key stands for, forward and backward."""
+    key = _dkey(4, 3)
+    words = tuple(int(v) for v in ph.key_words(key))
+    x = (_x((9, 70), seed=8) + 3.0).to(dtype).requires_grad_()
+    y = tdp.dropout(x, key, 0.2)
+    assert torch.equal(y, tdp.dropout(x.detach(), words, 0.2))
+    y.backward(torch.ones_like(y))
+    scale = torch.tensor(ph.dropout_scale(0.2))
+    assert torch.equal(x.grad, ((y != 0).float() * scale).to(dtype))
+
+
+def test_next_key_in_a_trace_scope_draws_sites_not_host_words():
+    """Inside `trace_key_scope` next_key() returns the scope's sites in
+    order and draws nothing from the host generator; outside it, keys are
+    the host words they always were, and a re-seed restarts the sites."""
+    mxrandom.seed(42)
+    expected = [mxrandom.next_key() for _ in range(2)]
+    mxrandom.seed(42)
+    base, t = torch.tensor([1, 2]), torch.tensor(3)
+    with mxrandom.trace_key_scope(base, t) as scope:
+        a, b = mxrandom.next_key(), mxrandom.next_key()
+        assert (a.site, b.site) == (0, 1) and a.base is base and a.t is t
+        epoch = mxrandom.seed_epoch()
+        mxrandom.seed(42)
+        assert mxrandom.seed_epoch() == epoch + 1
+        assert scope.counter == 0 and mxrandom.next_key().site == 0
+    assert [mxrandom.next_key() for _ in range(2)] == expected
+    mxrandom.seed(1)
+    y = npx.dropout(_x((4, 32), seed=9), p=0.5, training=True)
+    mxrandom.seed(1)
+    with mxrandom.trace_key_scope(base, t):
+        z = npx.dropout(_x((4, 32), seed=9), p=0.5, training=True)
+    w = tuple(int(v) for v in ph.key_words(ph.DeviceKey(base, t, 0, {})))
+    assert torch.equal(z, tdp.dropout(_x((4, 32), seed=9), w, 0.5))
+    mxrandom.seed(1)
+    assert torch.equal(y, npx.dropout(_x((4, 32), seed=9), p=0.5,
+                                      training=True))

@@ -221,3 +221,66 @@ def test_f32_x_bf16_h_is_the_f32_kernel_on_widened_h(p):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1],
                                                        ref[1].bfloat16())
     assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+
+
+# -- device keys (a step replayed as a CUDA graph): K3 and K6 ---------------
+
+def _device_key(t=2, site=5):
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+
+    key = ph.DeviceKey(torch.tensor([31, 41]), torch.tensor(t), site, {})
+    return key, tuple(int(w) for w in ph.key_words(key))
+
+
+def test_k3_device_key_gives_the_mask_of_its_host_words():
+    """K3's plain forward and backward (through autograd) on a device key
+    equal those on the words it stands for, bit for bit."""
+    key, words = _device_key()
+    r = onp.random.RandomState(12)
+    x, h, dy = (torch.from_numpy(r.normal(0, 1, (6, 64)).astype("float32"))
+                for _ in range(3))
+    gamma = torch.from_numpy(r.normal(1, 0.2, 64).astype("float32"))
+    beta = torch.zeros(64)
+    outs = []
+    for k in (key, words):
+        xl, hl = x.clone().requires_grad_(), h.clone().requires_grad_()
+        y = tfb.residual_dropout_ln(xl, hl, gamma, beta, 0.3, k)
+        y.backward(dy)
+        outs.append((y.detach(), xl.grad, hl.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert (outs[0][2] == 0).any()  # some of h dropped
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_device_key_gives_the_mask_of_its_host_words(dtype):
+    key, words = _device_key(t=9, site=0)
+    u = torch.from_numpy(onp.random.RandomState(13).normal(
+        0, 1, (5, 96)).astype("float32")).to(dtype)
+    for fn in (tfb.gelu_dropout_fwd,):
+        assert torch.equal(fn(u, key, 0.1), fn(u, words, 0.1))
+    dy = torch.ones_like(u)
+    assert torch.equal(tfb.gelu_dropout_bwd(u, dy, key, 0.1),
+                       tfb.gelu_dropout_bwd(u, dy, words, 0.1))
+    assert torch.equal(tfb.gelu_dropout_fwd(u, key, 0.1) != 0,
+                       tdp.dropout(torch.ones_like(u), words, 0.1) != 0)
+
+
+def test_npx_sites_in_a_trace_scope_fold_their_keys():
+    """In a `trace_key_scope` each npx site takes the next site's key:
+    residual_dropout_ln then gelu_dropout draw sites 0 and 1."""
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+
+    base, t = torch.tensor([7, 8]), torch.tensor(4)
+    r = onp.random.RandomState(14)
+    x, h = (torch.from_numpy(r.normal(0, 1, (4, 64)).astype("float32"))
+            for _ in range(2))
+    gamma, beta = torch.ones(64), torch.zeros(64)
+    with mxrandom.trace_key_scope(base, t):
+        y = npx.residual_dropout_ln(x, h, gamma, beta, p=0.2, training=True)
+        g = npx.gelu_dropout(x, p=0.2, training=True)
+    w0, w1 = (tuple(int(v) for v in ph.key_words(ph.DeviceKey(base, t, s,
+                                                               {})))
+              for s in (0, 1))
+    assert torch.equal(y, tfb.residual_dropout_ln(x, h, gamma, beta, 0.2,
+                                                  w0))
+    assert torch.equal(g, tfb.gelu_dropout(x, w1, 0.2))
