@@ -31,7 +31,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    vocab 50257, seeded random weights) through ``GPTModel.generate``,
    counting each kernel's launches in that run, and compares the logits
    with the same path on the plain versions, teacher-forced on the
-   kernel path's tokens;
+   kernel path's tokens; then serves ``gpt2_small`` through
+   ``serve.ServeEngine`` (8 slots of 256 tokens, paged KV, chunked
+   prefill, the decode step one CUDA graph) on ``bench.py``'s arrival
+   trace (``bench_gpt_serve``) and a shared-prefix trace: one capture, a
+   flat program count, a replay bit for bit its function run eagerly,
+   K4 launched inside the replay, every token the plain path's argmax,
+   every page back after shutdown;
 4. checks one BERT-base training step at full width (8 x 512 tokens,
    ragged ``valid_length``, dropout 0.1) on the kernels against the same
    step on the plain versions: same weights, same dropout keys, loss and
@@ -83,7 +89,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
-``{"serve": ...}`` and ``{"gelu_dropout": ...}`` lines, one
+``{"serve": ...}``, ``{"serve_engine": ...}`` and ``{"gelu_dropout": ...}``
+lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -189,6 +196,23 @@ GD_LARGE = (65536, FFN)          # BERT-base at sequence 512, bf16
 # operations an element (f32, on the CUDA cores): an erff or expf counted
 # as its ~10 multiply-adds, Philox's integer work not counted
 GD_FWD_OPS, GD_BWD_OPS = 20, 40
+
+# the serving engine (serve.ServeEngine) on gpt2_small, f32: 8 slots of
+# 256 tokens, the default 16-token pages and 64-token prefill chunks.
+# Trace A is bench.py's `bench_gpt_serve` (:629): 32 greedy requests,
+# prompts randint(8, 64), budgets randint(48, 96), Poisson arrivals with
+# a mean gap of 0.03 s, seed 0. Trace B is the shape of
+# `bench_gpt_serve_prefix` (:774): 8 requests of one 128-token system
+# prompt plus a unique 1-15-token tail, 6 new tokens each.
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 256
+TRACE_A = dict(requests=32, prompt_lo=8, prompt_hi=64, new_lo=48,
+               new_hi=96, gap_s=0.03, seed=0)
+TRACE_B = dict(requests=8, prefix=128, tail_hi=16, new=6, seed=0)
+# K4 launches of one prefill chunk or one decode step: two a layer and
+# the final LayerNorm
+SERVE_K4_PER_PASS = 2 * LAYERS + 1
+# replays timed with CUDA events for the decode graph's device time
+SERVE_REPLAYS = 20
 
 
 def log(*args):
@@ -732,6 +756,364 @@ def phase_serve(torch, dev):
                             logit_err_decode=err_decode,
                             greedy_agreement=agree))
     return launches, results
+
+
+def _serve_trace_a(onp):
+    """Trace A's prompts, budgets and arrival times (bench_gpt_serve's
+    draws, in its order)."""
+    t = TRACE_A
+    rng = onp.random.RandomState(t["seed"])
+    prompts = [rng.randint(0, VOCAB, (int(rng.randint(t["prompt_lo"],
+                                                      t["prompt_hi"])),))
+               .astype(onp.int32) for _ in range(t["requests"])]
+    budgets = [int(rng.randint(t["new_lo"], t["new_hi"]))
+               for _ in range(t["requests"])]
+    arrivals = onp.cumsum(rng.exponential(t["gap_s"], t["requests"]))
+    return prompts, budgets, arrivals
+
+
+def _serve_trace_b(onp):
+    """Trace B's prompts: one system prompt and a unique tail each."""
+    t = TRACE_B
+    rng = onp.random.RandomState(t["seed"])
+    system = rng.randint(0, VOCAB, (t["prefix"],)).astype(onp.int32)
+    return [onp.concatenate([system, rng.randint(
+        0, VOCAB, (int(rng.randint(1, t["tail_hi"])),)).astype(onp.int32)])
+        for _ in range(t["requests"])]
+
+
+def replay_device_ms(torch, slots, reps=SERVE_REPLAYS):
+    """Device time of one replay of the decode graph: CUDA events around
+    ``reps`` replays on the graph's current inputs."""
+    slots._graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        slots._graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_replay(torch, slots):
+    """(launches of the port's kernels, device ms) of one profiled replay
+    of the decode graph, after a spin on the card (so tracing is running
+    when the replay starts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        slots._graph.replay()
+        torch.cuda.synchronize()
+    counts, _ = _profile_counts(prof)
+    return counts, _device_ms(prof, skip=SPIN_KERNEL)
+
+
+def replay_vs_eager(torch, slots):
+    """The decode graph replayed, and the function it captured run eagerly
+    from the same (cloned) pools and the same static inputs: (tokens
+    equal, pool leaves equal, leaves the step wrote)."""
+    pools = slots._pk + slots._pv
+    before = [t.clone() for t in pools]
+    slots._graph.replay()
+    replayed = slots._graph_out.clone()
+    after = [t.clone() for t in pools]
+    for t, b in zip(pools, before):
+        t.copy_(b)
+    eager = slots._decode_fn(slots._table_dev, slots._step_dev,
+                             slots._temp_dev)
+    torch.cuda.synchronize()
+    leaves = sum(not torch.equal(a, b) for a, b in zip(after, before))
+    return (torch.equal(replayed, eager),
+            all(torch.equal(a, t) for a, t in zip(after, pools)), leaves)
+
+
+def decode_host_split(torch, slots, sched, reps=SERVE_REPLAYS):
+    """Host wall (ms) of the parts of a decode step, each alone over
+    ``reps`` calls: the weight fingerprint, the input upload, the graph's
+    launch (the call returns before the card finishes), and a replay with
+    the token fetch that waits for it."""
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e3
+
+    def launch():
+        slots._graph.replay()
+        torch.cuda.synchronize()
+
+    def launch_only():
+        t0 = time.perf_counter()
+        slots._graph.replay()
+        launched.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+
+    launched = []
+    out = dict(
+        fingerprint=ms(slots._fingerprint),
+        load_inputs=ms(lambda: slots._load_step(
+            sched._last, sched._pos, sched._active, (0, 0), sched._temps)),
+        replay_and_fetch=ms(lambda: (slots._graph.replay(),
+                                     slots._graph_out.cpu())),
+        replay_and_sync=ms(launch))
+    for _ in range(reps):
+        launch_only()
+    out["replay_launch"] = sum(launched) / reps * 1e3
+    return out
+
+
+def prefill_chunk_device_ms(torch, slots, bucket):
+    """Device time of one prefill chunk of ``bucket`` tokens without the
+    host's launch cost (`time_ms`: CUDA-graph replays), its pages all the
+    trash page."""
+    ints = torch.zeros(bucket, dtype=torch.int64, device=slots._device)
+    rows = torch.zeros(slots.pages_per_slot, dtype=torch.int64,
+                       device=slots._device)
+    pages = torch.zeros(bucket // slots.page_tokens, dtype=torch.int64,
+                        device=slots._device)
+    return time_ms(lambda: slots._prefill_fn(ints, rows, pages, 0, bucket,
+                                             None, None), [()], 10)
+
+
+def _timed(fn, walls):
+    """``fn`` with each call's host wall time (s) appended to ``walls``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        walls.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def phase_serve_engine(torch, dev):
+    """serve.ServeEngine on gpt2_small (full width and depth, f32, seeded
+    random weights): trace A through the bench's submit/step loop after
+    its warm-up, a replay checked bit for bit against the function it
+    captured, trace B's shared prefix; every token held to the plain
+    path's teacher-forced logits. Returns (the phase's numbers, K4
+    launches through the wrapper)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.decoding import GPTDecoder
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
+    model = gpt2_small(device=dev, seed=0).eval()
+    engine = serve.ServeEngine(model, max_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN)
+    slots = engine._sched.slots
+    decode_walls, chunk_walls, chunk_starts = [], {}, []
+    decode_step, prefill_step = slots.decode_step, slots.prefill_chunk_step
+
+    def prefill_recorded(slot, chunk_tokens, t_start, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = prefill_step(slot, chunk_tokens, t_start, *args, **kwargs)
+        chunk_walls.setdefault(out[1], []).append(time.perf_counter() - t0)
+        chunk_starts.append(int(t_start))
+        return out
+
+    slots.decode_step = _timed(decode_step, decode_walls)
+    slots.prefill_chunk_step = prefill_recorded
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    hits = registry.counter("mx_serve_prefix_hits_total")
+    occ_gauge = registry.gauge("mx_serve_slot_occupancy")
+    prompts, budgets, arrivals = _serve_trace_a(onp)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+    # bench_gpt_serve's warm-up (16 and 48 tokens of the first prompt: the
+    # 48-token one reuses the 16-token one's first page, so it runs one
+    # 32-token chunk), and 48 tokens of the second prompt, so every chunk
+    # bucket (16, 32, 64) is seen before the trace
+    t0 = time.perf_counter()
+    for warm in (onp.resize(prompts[0], 16), onp.resize(prompts[0], 48),
+                 onp.resize(prompts[1], 48)):
+        engine.generate(warm, 2)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    count_warm = engine.xla_program_count()
+    check(slots.captures == 1, "the warm-up did not capture the decode "
+          "graph once")
+    del decode_walls[:]
+    chunk_walls.clear()
+
+    # trace A: the bench's own loop
+    handles, occ = [], []
+    i = 0
+    t0 = time.perf_counter()
+    while i < len(prompts) or not all(h.done for h in handles):
+        now = time.perf_counter() - t0
+        while i < len(prompts) and arrivals[i] <= now:
+            handles.append(engine.submit(prompts[i], budgets[i]))
+            i += 1
+        progressed = engine.step()
+        if handles:
+            occ.append(float(occ_gauge.value or 0.0))
+        if not progressed and i < len(prompts):
+            wait = arrivals[i] - (time.perf_counter() - t0) \
+                if arrivals[i] > now else 0.001
+            time.sleep(min(0.001, max(0.0, wait)))
+    t_total = time.perf_counter() - t0
+    count_a = engine.xla_program_count()
+    failed = [h for h in handles if h.error is not None]
+    check(not failed and all(h.done for h in handles),
+          f"trace A: {len(failed)} of {len(handles)} requests failed")
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = onp.array([h.ttft for h in handles]) * 1e3
+    step_ms = onp.array(decode_walls) * 1e3
+    chunk_ms = {b: float(onp.median(w) * 1e3)
+                for b, w in sorted(chunk_walls.items())}
+
+    # a replay against the function it captured, at a state with every
+    # slot decoding
+    checks = [engine.submit(p, 24) for p in prompts[:SERVE_SLOTS]]
+    while not all(engine._sched._active) and not any(h.done
+                                                     for h in checks):
+        engine.step()
+    engine.step()
+    # the next step's inputs (the last step's would rewrite what it wrote)
+    sched = engine._sched
+    slots._load_step(sched._last, sched._pos, sched._active,
+                     sched._next_key(), sched._temps)
+    k4_before = read_counts()["K4"]
+    same_tokens, same_pools, written = replay_vs_eager(torch, slots)
+    check_k4 = read_counts()["K4"] - k4_before
+    log(f"[serve engine] a replay vs its function run eagerly from cloned "
+        f"pools on the same inputs: tokens equal={same_tokens}, all "
+        f"{len(slots._pk) * 2} pool leaves equal={same_pools} ({written} "
+        f"written by the step)")
+    check(same_tokens and same_pools and written > 0,
+          "the decode graph's replay differs from its function run eagerly")
+    replay_ms = replay_device_ms(torch, slots)
+    prof_counts, prof_ms = profiled_replay(torch, slots)
+    host_split = decode_host_split(torch, slots, sched)
+    chunk_dev = {b: prefill_chunk_device_ms(torch, slots, b)
+                 for b in slots.chunk_buckets}
+    # the checks' and timings' launches through the wrapper are not the
+    # path's
+    measure_k4 = read_counts()["K4"] - k4_before
+    engine._drive_until(checks)
+
+    # trace B: the bench's prefix warm-up caches the system prompt, then
+    # every request attaches its pages and prefills only its tail
+    prompts_b = _serve_trace_b(onp)
+    half = TRACE_B["prefix"] // 2 + 3
+    for warm in (prompts_b[0][:7], prompts_b[0][:half], prompts_b[0]):
+        engine.generate(warm, 2)
+    hits0, starts0 = hits.value, len(chunk_starts)
+    handles_b = [engine.submit(p, TRACE_B["new"]) for p in prompts_b]
+    engine._drive_until(handles_b)
+    hits_b = hits.value - hits0
+    offset_chunks = sum(t > 0 for t in chunk_starts[starts0:])
+    check(all(h.error is None for h in handles_b), "trace B failed")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    launches["K4"] -= measure_k4
+    n_chunks = chunks.value - chunks0
+    count_b = engine.xla_program_count()
+    captures = slots.captures
+    engine.shutdown(drain=True)
+    used = slots.allocator.used_pages
+
+    # every token against the plain path's teacher-forced logits
+    plain = GPTDecoder(model, impl="plain")
+    kernel_dec = GPTDecoder(model)
+    worst, agree, total = 0.0, 0, 0
+    for p, h in zip(prompts + prompts_b, handles + handles_b):
+        toks = torch.tensor(h.tokens, device=dev)[None]
+        prompt = torch.from_numpy(p[None].astype(onp.int64)).to(dev)
+        lp = plain.score(prompt, toks)[0]
+        scale = max(1.0, lp.abs().max().item())
+        gap = (lp.max(dim=-1).values
+               - lp.gather(-1, toks[0][:, None])[:, 0]).max().item()
+        check(bool(torch.isfinite(lp).all()), "non-finite plain logits")
+        check(gap <= LOGIT_REL_TOL * scale,
+              f"request {h.id}: a token is not the argmax of the plain "
+              f"path's logits (gap {gap:.3e}, tol {LOGIT_REL_TOL:g} x "
+              f"{scale:.2f})")
+        worst = max(worst, gap / scale)
+        ref = kernel_dec.generate(prompt, len(h.tokens))[0, p.size:]
+        agree += int((ref == toks[0]).sum())
+        total += len(h.tokens)
+
+    expected_k4 = SERVE_K4_PER_PASS * (n_chunks + 2)
+    out = dict(
+        model="gpt2_small", dtype="float32", slots=SERVE_SLOTS,
+        max_len=SERVE_MAX_LEN, page_tokens=slots.page_tokens,
+        prefill_chunk=slots.prefill_chunk, warmup_s=warm_s,
+        trace_a=dict(TRACE_A, tokens=tokens, seconds=t_total,
+                     tokens_per_s=tokens / t_total,
+                     ttft_p50_ms=float(onp.percentile(ttft, 50)),
+                     ttft_p99_ms=float(onp.percentile(ttft, 99)),
+                     mean_slot_occupancy=float(onp.mean(occ)),
+                     decode_steps=len(step_ms),
+                     decode_step_wall_ms_median=float(onp.median(step_ms)),
+                     decode_step_wall_ms_mean=float(step_ms.mean()),
+                     replay_device_ms=replay_ms,
+                     profiled_replay_device_ms=prof_ms,
+                     idle_share=1 - replay_ms / float(onp.median(step_ms)),
+                     decode_step_host_split_ms=host_split,
+                     prefill_chunk_ms_median_by_bucket=chunk_ms,
+                     prefill_chunk_device_ms_by_bucket=chunk_dev),
+        trace_b=dict(TRACE_B, prefix_hits=hits_b,
+                     chunks_with_offset=offset_chunks,
+                     tokens=sum(len(h.tokens) for h in handles_b)),
+        program_count=dict(after_warmup=count_warm, after_trace_a=count_a,
+                           after_trace_b=count_b),
+        captures=captures, replay_k4_launches=prof_counts["K4"],
+        k4_launches_through_wrapper=launches["K4"],
+        k4_launches_expected=expected_k4, prefill_chunks=n_chunks,
+        worst_token_gap_rel=worst,
+        token_agreement_with_gpt_decoder=agree / total,
+        pages_used_after_shutdown=used)
+    log(f"[serve engine] trace A: {tokens} tokens of {len(handles)} "
+        f"requests in {t_total:.3f} s: {tokens / t_total:.1f} tokens/s, "
+        f"TTFT p50 {out['trace_a']['ttft_p50_ms']:.2f} ms p99 "
+        f"{out['trace_a']['ttft_p99_ms']:.2f} ms, mean slot occupancy "
+        f"{out['trace_a']['mean_slot_occupancy']:.3f}")
+    log(f"[serve engine]   decode step: wall median "
+        f"{out['trace_a']['decode_step_wall_ms_median']:.3f} ms (mean "
+        f"{out['trace_a']['decode_step_wall_ms_mean']:.3f}, "
+        f"{len(step_ms)} steps), one replay's device time {replay_ms:.4f} "
+        f"ms (CUDA events; profiled {prof_ms:.4f}): idle share "
+        f"{out['trace_a']['idle_share']:.3f}; prefill chunk wall median "
+        f"by bucket {chunk_ms} ms")
+    log("[serve engine]   a decode step's parts alone (host wall, ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in host_split.items())
+        + "; a prefill chunk's device time by bucket (graph replays, ms): "
+        + ", ".join(f"{b}: {v:.4f}" for b, v in chunk_dev.items()))
+    log(f"[serve engine] trace B: {len(handles_b)} requests, prefix hits "
+        f"{hits_b}, chunks with t_start > 0: {offset_chunks}")
+    log(f"[serve engine] program count {count_warm} after warm-up, "
+        f"{count_a} after trace A, {count_b} after trace B; captures "
+        f"{captures}; K4 in a profiled replay {prof_counts['K4']} (expected "
+        f"{SERVE_K4_PER_PASS}), through the wrapper {launches['K4']} "
+        f"(expected {expected_k4}: {n_chunks} chunks, the eager first "
+        f"step, the capture); worst token gap {worst:.3e} of the plain "
+        f"logits' scale (tol {LOGIT_REL_TOL:g}); token agreement with "
+        f"GPTDecoder.generate one at a time {agree / total:.4f}; pages in "
+        f"use after shutdown {used}")
+    check(count_warm == count_a == count_b,
+          "the program count moved after the warm-up")
+    check(captures == 1, f"the decode graph was captured {captures} times")
+    check(prof_counts["K4"] == SERVE_K4_PER_PASS,
+          "a replay did not launch K4 at every LayerNorm")
+    check(launches["K4"] == expected_k4 and check_k4 == SERVE_K4_PER_PASS,
+          "unexpected K4 launches through the wrapper")
+    check(hits_b == TRACE_B["requests"] and offset_chunks >= hits_b,
+          "trace B did not reuse the system prompt's pages")
+    check(used == 0, f"{used} pages still in use after shutdown")
+    return out, launches["K4"]
 
 
 def phase_times(torch, attn, lns):
@@ -2506,6 +2888,10 @@ def main():
     gd_accuracy = phase_gelu_accuracy(torch, dev)
     phase_small_reference(torch, dev)
     launches, served = phase_serve(torch, dev)
+    torch.cuda.empty_cache()
+    serve_engine, engine_k4 = phase_serve_engine(torch, dev)
+    launches["K4"] += engine_k4
+    torch.cuda.empty_cache()
     check_result = phase_train_step_check(torch, dev)
     torch.cuda.empty_cache()
     trained, (train_launches, f32_layouts) = phase_train(torch, dev)
@@ -2534,8 +2920,10 @@ def main():
         for k, v in layouts.items():
             for name, n in v.items():
                 by_layout[k][name] = by_layout[k].get(name, 0) + n
-    by_layout["K4"]["f32"] += sum(r["k4_launches"] for r in served)
-    log(f"[done] launches on the main paths (serving + {STEPS} timed "
+    by_layout["K4"]["f32"] += sum(r["k4_launches"] for r in served) \
+        + engine_k4
+    log(f"[done] launches on the main paths (serving, the serving "
+        f"engine's warm-up and traces + {STEPS} timed "
         f"training steps in f32 and {STEPS} under AMP + the DataParallel "
         f"steps, AMP and f32, that launched through the wrappers: the "
         f"eager and the capturing step of each + {GD_STEPS} gelu_dropout "
@@ -2557,6 +2945,7 @@ def main():
     log(json.dumps({"train_dp_amp": dp_amp}))
     log(json.dumps({"train_dp": dp_f32}))
     log(json.dumps({"serve": served}))
+    log(json.dumps({"serve_engine": serve_engine}))
     gd_path["max_abs_err_vs_float64"] = {
         name: {"k6": k6, "erff": erff}
         for name, (k6, erff) in gd_accuracy.items()}

@@ -1,7 +1,7 @@
 """KV-cache incremental decoding for causal LMs (the serving path).
 
 Port of `incubator_mxnet_tpu/models/decoding.py` (`bucket_prompt` :45,
-`GPTDecoder` :155). The reference compiles the whole decode as one XLA
+`chunk_buckets` :83, `bucket_chunk` :107, `GPTDecoder` :155). The reference compiles the whole decode as one XLA
 program; the port runs eagerly on the card:
 
 - a static KV cache ``(L, N, H, S, d)`` allocated once per call and
@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from ..ops.flash_attention import flash_attention
 from ..ops.layer_norm import layer_norm
 
-__all__ = ["GPTDecoder", "bucket_prompt", "PROMPT_BUCKETS", "sample",
-           "make_generator"]
+__all__ = ["GPTDecoder", "bucket_prompt", "PROMPT_BUCKETS", "chunk_buckets",
+           "bucket_chunk", "sample", "make_generator"]
 
 #: Default pad-to-bucket prompt lengths (as in the reference): prompts
 #: snap to the smallest bucket that holds them, so the cache shapes and
@@ -61,6 +61,39 @@ def bucket_prompt(ids, buckets=PROMPT_BUCKETS, max_len=None, pad_id=0):
     if not fits or fits[0] == t0:
         return ids, t0
     return F.pad(ids, (0, fits[0] - t0), value=pad_id), t0
+
+
+def chunk_buckets(page_tokens, prefill_chunk):
+    """Chunk-length buckets of the paged serving prefill
+    (`serve.SlotDecoder`): power-of-two multiples of ``page_tokens`` below
+    ``prefill_chunk``, plus ``prefill_chunk`` itself. Every chunk is a
+    whole number of pages, so chunk writes land on page boundaries and the
+    prefill's launch shapes come from len(buckets) sizes."""
+    pt = int(page_tokens)
+    chunk = int(prefill_chunk)
+    if pt < 1:
+        raise ValueError(f"page_tokens must be >= 1, got {pt}")
+    if chunk % pt:
+        raise ValueError(
+            f"prefill_chunk ({chunk}) must be a multiple of page_tokens "
+            f"({pt}) so chunks stay page-aligned")
+    out = set()
+    b = pt
+    while b < chunk:
+        out.add(b)
+        b *= 2
+    out.add(chunk)
+    return tuple(sorted(out))
+
+
+def bucket_chunk(n, buckets):
+    """Smallest chunk bucket >= n (a prompt's last prefill chunk is padded
+    up to it)."""
+    fits = [b for b in buckets if b >= n]
+    if not fits:
+        raise ValueError(f"chunk of {n} tokens exceeds every bucket "
+                         f"{tuple(buckets)}")
+    return min(fits)
 
 
 def make_generator(device, seed=None):

@@ -1,0 +1,508 @@
+"""Iteration-level scheduler of `serve`, the host half (port of
+`incubator_mxnet_tpu/serve/scheduler.py`: `QueueFull`,
+`DeadlineExceeded`, `EngineClosed` :102-117, `Request` :120, `Scheduler`
+:254).
+
+Continuous batching over the paged engine: the unit of scheduling is one
+decode step, and prefill is chunked. Every `Scheduler.step`:
+
+1. expires requests past their deadline (queued, prefilling and
+   decoding);
+2. admits waiting requests into free slots: the prefix cache is probed
+   for a shared page-aligned prompt prefix (its pages attached
+   read-only, ``mx_serve_prefix_hits_total``), and the pages for the rest
+   of the request are allocated up front, so decode never runs out of
+   pages mid-flight;
+3. runs one prefill chunk for every prefilling slot
+   (``mx_serve_prefill_chunks_total``); the final chunk samples the
+   request's first token (time to first token is measured here), flips
+   the slot to decoding and registers the prompt's full pages in the
+   prefix cache;
+4. runs one batched decode step over all decoding slots;
+5. retires slots whose request hit EOS or its token budget: pages are
+   dereferenced (shared pages survive in the cache) and the slot is free
+   at once;
+6. refreshes the queue-depth and slot-occupancy gauges.
+
+Admission policies: ``"fifo"`` and ``"sjf"``, which orders by remaining
+prefill chunks (a long prompt whose prefix is cached is cheaper than a
+shorter cold one), prompt length breaking ties. Admission is page-aware:
+a request the pool cannot cover, even after dropping unused prefix-cache
+entries, stays queued until running requests retire. Backpressure is
+loud: a full queue raises `QueueFull` at ``submit``, an expired deadline
+fails the request with `DeadlineExceeded` (a ``TimeoutError``).
+
+All mutable slot state (``pos``, ``last``, ``active``, page tables) is
+host numpy passed into the engine's step, so the loop never branches on
+device values; the one device-to-host sync a step is the token fetch.
+Step keys are the engine seed's Philox key folded with a step counter
+(`ops._philox`), where the reference folds its counter into
+``PRNGKey(seed)``.
+"""
+from __future__ import annotations
+
+import collections
+import queue as _queue
+import threading
+import time
+
+import numpy as onp
+
+from ..ops import _philox
+from ..telemetry import registry
+from .engine import PagePoolExhausted, SlotDecoder
+
+__all__ = ["QueueFull", "DeadlineExceeded", "EngineClosed", "Request",
+           "Scheduler", "POLICIES", "TTFT", "TOKENS", "QUEUE_DEPTH",
+           "SLOT_OCCUPANCY", "EVICTIONS", "PREFIX_HITS", "PREFILL_CHUNKS"]
+
+POLICIES = ("fifo", "sjf")
+
+TTFT = registry.histogram(
+    "mx_serve_ttft_seconds",
+    "time-to-first-token: submit() to the final prefill chunk's sampled "
+    "token")
+TOKENS = registry.counter(
+    "mx_serve_tokens_total", "tokens generated by the serving engine")
+QUEUE_DEPTH = registry.gauge(
+    "mx_serve_queue_depth", "requests waiting for a slot")
+SLOT_OCCUPANCY = registry.gauge(
+    "mx_serve_slot_occupancy",
+    "fraction of slots occupied (prefilling + decoding) [0, 1]")
+EVICTIONS = registry.counter(
+    "mx_serve_evictions_total",
+    "slots freed (EOS / length / deadline / shutdown)")
+PREFIX_HITS = registry.counter(
+    "mx_serve_prefix_hits_total",
+    "admissions that reused shared-prefix KV pages from the cache")
+PREFIX_TOKENS = registry.counter(
+    "mx_serve_prefix_tokens_total",
+    "prompt tokens whose prefill was skipped via shared-prefix reuse")
+PREFILL_CHUNKS = registry.counter(
+    "mx_serve_prefill_chunks_total",
+    "prefill chunks executed (long prompts span several, interleaved "
+    "with decode steps)")
+
+_MASK32 = 0xFFFFFFFF
+
+
+class QueueFull(RuntimeError):
+    """Admission queue at capacity: loud backpressure, nothing is silently
+    dropped."""
+
+
+class DeadlineExceeded(TimeoutError):
+    """The request's deadline passed before it finished (queued or
+    mid-decode)."""
+
+
+class EngineClosed(RuntimeError):
+    """The engine is shut down (or draining) and rejects new work."""
+
+
+_DONE = object()          # stream sentinel
+
+
+class Request:
+    """One in-flight generation request, also the user's handle.
+
+    Tokens stream into ``_stream`` as they are produced; ``wait()`` blocks
+    until completion; ``result()`` returns the generated tokens, raising
+    the request's error if it failed."""
+
+    __slots__ = ("id", "prompt", "max_new", "temperature", "eos_id",
+                 "deadline", "submit_t", "first_token_t", "finish_t",
+                 "tokens", "state", "error", "slot", "pages",
+                 "shared_tokens", "prefill_pos", "chunks_done", "_stream",
+                 "_done")
+
+    def __init__(self, rid, prompt, max_new, temperature, eos_id,
+                 deadline):
+        self.id = rid
+        self.prompt = prompt
+        self.max_new = max_new
+        self.temperature = temperature
+        self.eos_id = eos_id
+        self.deadline = deadline          # absolute monotonic, or None
+        self.submit_t = None
+        self.first_token_t = None
+        self.finish_t = None
+        self.tokens = []
+        self.state = "queued"             # queued|running|done|failed
+        self.error = None
+        self.slot = None
+        self.pages = None                 # KV pool pages mapped at admit
+        self.shared_tokens = 0            # prefix tokens reused from cache
+        self.prefill_pos = 0              # prompt tokens already in cache
+        self.chunks_done = 0
+        # bounded by max_new tokens + one sentinel
+        self._stream = _queue.Queue()
+        self._done = threading.Event()
+
+    # -- handle surface ----------------------------------------------------
+
+    @property
+    def done(self):
+        return self._done.is_set()
+
+    @property
+    def ttft(self):
+        """Seconds from submit to the first token (None before it)."""
+        if self.submit_t is None or self.first_token_t is None:
+            return None
+        return self.first_token_t - self.submit_t
+
+    def wait(self, timeout=None):
+        return self._done.wait(timeout)
+
+    def result(self):
+        """Generated tokens (list of ints). Raises the failure if the
+        request did not complete."""
+        if not self._done.is_set():
+            raise RuntimeError(
+                f"request {self.id} not finished (state={self.state}); "
+                "wait() on it or drive the engine")
+        if self.error is not None:
+            raise self.error
+        return list(self.tokens)
+
+    # -- scheduler side ----------------------------------------------------
+
+    def _emit(self, tok, now):
+        if self.first_token_t is None:
+            self.first_token_t = now
+            TTFT.observe(now - self.submit_t)
+        self.tokens.append(tok)
+        self._stream.put(tok)
+        TOKENS.inc()
+
+    def _finish(self, now):
+        self.state = "done"
+        self.finish_t = now
+        self._stream.put(_DONE)
+        self._done.set()
+
+    def _fail(self, exc, now):
+        self.state = "failed"
+        self.error = exc
+        self.finish_t = now
+        self._stream.put(_DONE)
+        self._done.set()
+
+
+class Scheduler:
+    """Single-threaded scheduling core (the thread-safe wrapper is
+    `api.ServeEngine`; everything here assumes the caller holds its
+    lock)."""
+
+    def __init__(self, slots: SlotDecoder, max_queue=128, policy="fifo",
+                 default_deadline=None, eos_id=None, seed=0):
+        if policy not in POLICIES:
+            raise ValueError(
+                f"unknown policy {policy!r} (valid: {', '.join(POLICIES)})")
+        self.slots = slots
+        self.max_queue = int(max_queue)
+        self.policy = policy
+        self.default_deadline = default_deadline
+        self.eos_id = eos_id
+        self._seed_key = (seed & _MASK32, (seed >> 32) & _MASK32)
+        self._key_ctr = 0
+        S = slots.max_slots
+        # bounded by the max_queue check in submit (QueueFull is the loud
+        # contract; deque(maxlen=) would drop silently)
+        self._queue = collections.deque()
+        self._in_slot = [None] * S          # Request or None
+        self._pos = onp.zeros(S, onp.int32)
+        self._last = onp.zeros(S, onp.int32)
+        self._active = onp.zeros(S, bool)   # decode-active (prefilled)
+        self._temps = onp.ones(S, onp.float32)
+        self._n_active = 0                  # occupied (prefilling+decoding)
+        self._n_decoding = 0
+        self._next_id = 0
+        self.closed = False
+
+    # -- keys ---------------------------------------------------------------
+
+    def _next_key(self):
+        """The next step key: Philox4x32-10 under the seed's key at
+        counter (n mod 2^32, n >> 32, 0, 1), the first two words
+        (`ops._philox.fold` on host ints)."""
+        self._key_ctr += 1
+        n = self._key_ctr
+        words = _philox.philox4x32_10((n & _MASK32, n >> 32, 0, 1),
+                                      self._seed_key)
+        return int(words[0]), int(words[1])
+
+    # -- admission ----------------------------------------------------------
+
+    def _pages_needed(self, req):
+        """Pool pages for the whole request: the prompt plus every
+        generated token that gets a KV write (the last sampled token is
+        returned but never attended, so it needs no page)."""
+        pt = self.slots.page_tokens
+        return -(-(req.prompt.size + req.max_new - 1) // pt)
+
+    def submit(self, prompt_ids, max_new_tokens, temperature=1.0,
+               eos_id=None, deadline_s=None):
+        if self.closed:
+            raise EngineClosed("serve engine is shut down; new work is "
+                               "rejected")
+        prompt = onp.asarray(prompt_ids, onp.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        max_new = int(max_new_tokens)
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        total = prompt.size + max_new
+        if total > self.slots.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new}) "
+                f"exceeds the engine's max_len ({self.slots.max_len})")
+        if len(self._queue) >= self.max_queue:
+            raise QueueFull(
+                f"admission queue at capacity ({self.max_queue} waiting, "
+                f"{self._n_active}/{self.slots.max_slots} slots busy) — "
+                "shed load, raise max_queue, or retry with backoff")
+        if deadline_s is None:
+            deadline_s = self.default_deadline
+        now = time.monotonic()
+        req = Request(self._next_id, prompt, max_new, float(temperature),
+                      self.eos_id if eos_id is None else eos_id,
+                      None if deadline_s is None else now + float(deadline_s))
+        if self._pages_needed(req) > self.slots.allocator.usable_pages:
+            raise PagePoolExhausted(
+                f"request needs {self._pages_needed(req)} KV pages but the "
+                f"pool only has {self.slots.allocator.usable_pages} — "
+                "raise n_pages or shrink prompt/max_new_tokens")
+        self._next_id += 1
+        req.submit_t = now
+        self._queue.append(req)
+        QUEUE_DEPTH.set(len(self._queue))
+        return req
+
+    def _sjf_key(self, req):
+        """SJF under chunked prefill: fewest remaining prefill chunks
+        first, prompt length as the cold-cache tie-break, id last."""
+        shared = self.slots.prefix_cache.shared_tokens(req.prompt)
+        remaining = max(1, int(req.prompt.size) - shared)
+        chunks = -(-remaining // self.slots.prefill_chunk)
+        return (chunks, int(req.prompt.size), req.id)
+
+    def _next_index(self):
+        if self.policy == "sjf":
+            return min(range(len(self._queue)),
+                       key=lambda j: self._sjf_key(self._queue[j]))
+        return 0
+
+    def _remove_at(self, i):
+        self._queue.rotate(-i)
+        req = self._queue.popleft()
+        self._queue.rotate(i)
+        return req
+
+    # -- the step loop ------------------------------------------------------
+
+    def step(self):
+        """One scheduling iteration (expire, admit, prefill chunks,
+        decode, retire). Returns True if any progress was made."""
+        now = time.monotonic()
+        self._expire(now)
+        admitted = self._admit()
+        chunks = self._prefill_step()
+        decoded = self._decode_once()
+        self._refresh_gauges()
+        return bool(admitted or chunks or decoded)
+
+    def _expire(self, now):
+        for req in [r for r in self._queue
+                    if r.deadline is not None and now > r.deadline]:
+            self._queue.remove(req)
+            req._fail(DeadlineExceeded(
+                f"request {req.id} expired after "
+                f"{now - req.submit_t:.3f}s in queue"), now)
+        for s, req in enumerate(self._in_slot):
+            if req is not None and req.deadline is not None \
+                    and now > req.deadline:
+                self._retire(s, "deadline", now)
+
+    def _admit(self):
+        """Map queued requests onto free slots and their pages. The full
+        page budget is taken up front so decode never runs out mid-flight;
+        when even the unused prefix-cache entries cannot cover it, the
+        request stays queued until running slots retire."""
+        admitted = 0
+        alloc = self.slots.allocator
+        cache = self.slots.prefix_cache
+        while self._queue and self._n_active < self.slots.max_slots:
+            i = self._next_index()
+            req = self._queue[i]
+            shared_tokens, shared_pages = cache.lookup(req.prompt)
+            need = self._pages_needed(req) - len(shared_pages)
+            if need > alloc.free_pages:
+                cache.evict_unused(need)
+            if need > alloc.free_pages:
+                break                      # pages pinned by live requests
+            self._remove_at(i)
+            slot = self._in_slot.index(None)
+            alloc.incref(shared_pages)
+            req.pages = shared_pages + alloc.alloc(need)
+            req.shared_tokens = shared_tokens
+            req.prefill_pos = shared_tokens
+            self.slots.set_slot_pages(slot, req.pages)
+            req.state = "running"
+            req.slot = slot
+            self._in_slot[slot] = req
+            self._n_active += 1
+            admitted += 1
+            if shared_tokens:
+                PREFIX_HITS.inc()
+                PREFIX_TOKENS.inc(shared_tokens)
+        if admitted:
+            QUEUE_DEPTH.set(len(self._queue))
+        return admitted
+
+    def _prefill_step(self):
+        """One chunk for every slot still prefilling: chunks of different
+        requests and decode steps interleave, so a long prompt cannot
+        stall the engine for its whole prefill. The final chunk emits the
+        request's first token and flips the slot to decoding."""
+        ran = 0
+        for slot, req in enumerate(self._in_slot):
+            if req is None or req.prefill_pos >= req.prompt.size:
+                continue
+            t0 = req.prefill_pos
+            n = min(self.slots.prefill_chunk, req.prompt.size - t0)
+            first, _, _ = self.slots.prefill_chunk_step(
+                slot, req.prompt[t0:t0 + n], t0, self._next_key(),
+                req.temperature)
+            req.prefill_pos = t0 + n
+            req.chunks_done += 1
+            PREFILL_CHUNKS.inc()
+            ran += 1
+            if req.prefill_pos < req.prompt.size:
+                continue
+            # the whole prompt is resident: its full pages become shareable
+            self.slots.prefix_cache.register(req.prompt, req.pages)
+            t = time.monotonic()
+            req._emit(first, t)
+            if self._is_complete(req, first):
+                # a one-token request (or instant EOS) retires without
+                # joining a decode step
+                self._retire(slot, self._complete_reason(req, first), t)
+                continue
+            self._pos[slot] = req.prompt.size
+            self._last[slot] = first
+            self._temps[slot] = max(req.temperature, 1e-6)
+            self._active[slot] = True
+            self._n_decoding += 1
+        return ran
+
+    def _is_complete(self, req, tok):
+        return (len(req.tokens) >= req.max_new
+                or (req.eos_id is not None and tok == req.eos_id))
+
+    def _complete_reason(self, req, tok):
+        if req.eos_id is not None and tok == req.eos_id:
+            return "eos"
+        return "length"
+
+    def _decode_once(self):
+        if self._n_decoding == 0:
+            return False
+        nxt = self.slots.decode_step(self._last, self._pos, self._active,
+                                     self._next_key(), self._temps)
+        now = time.monotonic()
+        for s, req in enumerate(self._in_slot):
+            if req is None or not self._active[s]:
+                continue                   # free or still prefilling
+            tok = int(nxt[s])
+            req._emit(tok, now)
+            self._pos[s] += 1
+            self._last[s] = tok
+            if self._is_complete(req, tok):
+                self._retire(s, self._complete_reason(req, tok), now)
+        return True
+
+    def _retire(self, slot, reason, now):
+        """Free ``slot`` and dereference its pages (shared pages survive
+        through their cache references). EOS and length complete the
+        request; deadline and shutdown fail it."""
+        req = self._in_slot[slot]
+        self._in_slot[slot] = None
+        if self._active[slot]:
+            self._n_decoding -= 1
+        self._active[slot] = False
+        self._pos[slot] = 0
+        self._last[slot] = 0
+        self._temps[slot] = 1.0
+        self._n_active -= 1
+        if req.pages:
+            self.slots.allocator.decref(req.pages)
+        req.pages = None
+        self.slots.clear_slot(slot)
+        req.slot = None
+        EVICTIONS.inc()
+        registry.counter(
+            "mx_serve_evictions_total",
+            "slots freed (EOS / length / deadline / shutdown)",
+            labels={"reason": reason}).inc()
+        if reason == "deadline":
+            req._fail(DeadlineExceeded(
+                f"request {req.id} expired mid-flight after "
+                f"{len(req.tokens)}/{req.max_new} tokens"), now)
+        elif reason == "shutdown":
+            req._fail(EngineClosed(
+                f"engine shut down with request {req.id} mid-flight "
+                f"({len(req.tokens)}/{req.max_new} tokens)"), now)
+        else:
+            req._finish(now)
+
+    @property
+    def free_slots(self):
+        return self.slots.max_slots - self._n_active
+
+    def _refresh_gauges(self):
+        QUEUE_DEPTH.set(len(self._queue))
+        SLOT_OCCUPANCY.set(self._n_active / self.slots.max_slots)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    @property
+    def queue_depth(self):
+        return len(self._queue)
+
+    @property
+    def n_active(self):
+        return self._n_active
+
+    @property
+    def idle(self):
+        return self._n_active == 0 and not self._queue
+
+    def close(self, drain):
+        """Stop admission. With ``drain`` the caller keeps stepping until
+        the occupied slots finish (prefilling ones complete their chunks
+        first); queued, never-started requests fail either way."""
+        self.closed = True
+        now = time.monotonic()
+        while self._queue:
+            req = self._queue.popleft()
+            req._fail(EngineClosed(
+                f"engine shut down before request {req.id} was "
+                "admitted"), now)
+        if not drain:
+            for s, req in enumerate(self._in_slot):
+                if req is not None:
+                    self._retire(s, "shutdown", now)
+        self._refresh_gauges()
+
+    def abandon(self):
+        """Teardown after the engine under this scheduler died, with every
+        in-flight request already owned by the caller: unlike `close`,
+        nothing is failed; queue and slots are dropped as they are so the
+        page pool can be released."""
+        self.closed = True
+        self._queue.clear()
+        self._in_slot = [None] * self.slots.max_slots
+        self._n_active = 0
+        self._refresh_gauges()

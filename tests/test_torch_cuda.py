@@ -1002,3 +1002,234 @@ def test_data_parallel_capture_failure_raises_without_fallback(dev):
     assert dp_.captures == 0 and dp_.optimizer.num_update == 1
     assert all(torch.equal(a, p) for a, p in zip(before, net.parameters()))
     assert torch.ones(4, device=dev).sum().item() == 4.0
+
+
+# -- serve.ServeEngine: the decode step as one CUDA graph -------------------
+
+def _serve_model(dev, seed=3):
+    """A tiny GPT on the card with scaled random weights (greedy decode
+    then depends on the tokens), and the same weights on the CPU. Built
+    on the CPU and moved: the card's default generator is not used."""
+    import copy
+
+    cpu = gpt_tiny(vocab_size=97, max_length=64, dropout=0.0, device="cpu",
+                   seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.dim() >= 2:
+                p.normal_(0, 0.35, generator=g)
+    return copy.deepcopy(cpu).to(dev), cpu
+
+
+def _serve_prompts(n, seed=0):
+    import numpy as onp
+
+    r = onp.random.RandomState(seed)
+    return [r.randint(0, 97, (int(r.randint(3, 20)),)).astype(onp.int32)
+            for _ in range(n)]
+
+
+def _one_at_a_time(model, prompt, budget):
+    out = GPTDecoder(model).generate(
+        torch.from_numpy(prompt[None, :]).to(model.device), budget)
+    return out[0].cpu().numpy()
+
+
+def test_serve_engine_captures_once_over_20_steps(dev):
+    """One request of 22 tokens (21 decode steps) and then four more: one
+    capture, the program count flat after it, the Python K4 counter still
+    on replays, and every token the one-at-a-time decoder's."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=3, max_len=64)
+    s = e._sched.slots
+    p = _serve_prompts(1, seed=1)[0]
+    got = e.generate(p, 22)
+    onp.testing.assert_array_equal(got, _one_at_a_time(model, p, 22))
+    assert s.captures == 1
+    prompts = _serve_prompts(4, seed=2)
+    k4 = ln.launches
+    outs = e.generate_many(prompts, 12)
+    # the replays launched no K4 through the wrapper; the prefills did
+    assert ln.launches - k4 == 4 * (2 * len(model.blocks) + 1)
+    for q, out in zip(prompts, outs):
+        onp.testing.assert_array_equal(out, _one_at_a_time(model, q, 12))
+    count = e.xla_program_count()              # every bucket seen
+    again = e.generate_many(prompts, 12)
+    assert all(onp.array_equal(a, b) for a, b in zip(again, outs))
+    assert s.captures == 1 and e.xla_program_count() == count
+    e.shutdown()
+    assert s.allocator.used_pages == 0
+
+
+def test_serve_replay_equals_the_captured_function_run_eagerly(dev):
+    """A replay and `_decode_fn` run eagerly from cloned pools on the same
+    static inputs: the same tokens and every pool leaf bit for bit."""
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=3, max_len=64)
+    s = e._sched.slots
+    hs = [e.submit(p, 16) for p in _serve_prompts(3, seed=4)]
+    while s._graph is None:
+        e.step()
+    e.step()
+    # the next step's inputs (the last step's would rewrite what it wrote)
+    sched = e._sched
+    s._load_step(sched._last, sched._pos, sched._active, sched._next_key(),
+                 sched._temps)
+    pools = s._pk + s._pv
+    before = [t.clone() for t in pools]
+    s._graph.replay()
+    replayed = s._graph_out.clone()
+    after = [t.clone() for t in pools]
+    for t, b in zip(pools, before):
+        t.copy_(b)
+    eager = s._decode_fn(s._table_dev, s._step_dev, s._temp_dev)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    assert all(torch.equal(a, t) for a, t in zip(after, pools))
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+    e._drive_until(hs)
+
+
+def test_serve_failed_capture_raises_without_an_eager_step(dev):
+    """A decode function that syncs with the host runs as the eager first
+    step, then fails to capture: the step raises MXNetError, nothing of it
+    ran (pools and tokens unchanged), the next step tries the capture
+    again rather than running eagerly, and with the sync gone the engine
+    captures and finishes with the right tokens."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=2, max_len=64)
+    s = e._sched.slots
+    decode_fn = s._decode_fn
+
+    def syncing(*args):
+        out = decode_fn(*args)
+        return out + 0 * int(out.sum().item())
+
+    s._decode_fn = syncing
+    p = _serve_prompts(1, seed=5)[0]
+    h = e.submit(p, 8)
+    e.step()                                  # prefill + eager first step
+    assert len(h.tokens) == 2 and s.captures == 0
+    pools = [t.clone() for t in s._pk + s._pv]
+    for _ in range(2):
+        with pytest.raises(MXNetError, match="capturing"):
+            e.step()
+        torch.cuda.synchronize()
+        assert len(h.tokens) == 2 and s.captures == 0
+        assert all(torch.equal(a, t) for a, t in zip(pools, s._pk + s._pv))
+    s._decode_fn = decode_fn
+    e._drive_until([h])
+    assert s.captures == 1
+    onp.testing.assert_array_equal(
+        onp.concatenate([p, h.result()]), _one_at_a_time(model, p, 8))
+
+
+def test_serve_replays_from_the_driver_thread(dev):
+    """The driver thread captures (thread-local capture mode) and replays
+    while this thread only submits and waits."""
+    import threading
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=3, max_len=64)
+    s = e._sched.slots
+    capture = s._capture
+    threads = []
+
+    def recording(args):
+        threads.append(threading.current_thread().name)
+        capture(args)
+
+    s._capture = recording
+    e.start()
+    try:
+        prompts = _serve_prompts(6, seed=6)
+        hs = [e.submit(p, 10) for p in prompts]
+        assert all(h.wait(timeout=120.0) for h in hs)
+    finally:
+        e.stop()
+    assert threads == ["mx-serve-driver"] and s.captures == 1
+    for p, h in zip(prompts, hs):
+        onp.testing.assert_array_equal(onp.concatenate([p, h.result()]),
+                                       _one_at_a_time(model, p, 10))
+
+
+def test_serve_recaptures_after_a_weight_is_replaced(dev):
+    """A weight replaced by a new tensor changes the fingerprint: the next
+    step runs eagerly, the one after captures again (the program count
+    rises by one), and the tokens follow the new weight; an in-place
+    update is seen by the same graph. (Without prefix reuse: the prefix
+    cache keeps pages prefilled under the old weights, as the
+    reference's does.)"""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=2, max_len=64,
+                          prefix_reuse=False)
+    s = e._sched.slots
+    p = _serve_prompts(1, seed=7)[0]
+    e.generate(p, 6)
+    count = e.xla_program_count()
+    assert s.captures == 1
+    blk = model.blocks[0]
+    blk.ffn.ffn1.weight = torch.nn.Parameter(blk.ffn.ffn1.weight.detach()
+                                             * 1.5)
+    got = e.generate(p, 6)
+    onp.testing.assert_array_equal(got, _one_at_a_time(model, p, 6))
+    assert s.captures == 2 and e.xla_program_count() == count + 1
+    with torch.no_grad():
+        blk.ffn.ffn1.weight.mul_(-1.0)
+    got = e.generate(p, 6)
+    onp.testing.assert_array_equal(got, _one_at_a_time(model, p, 6))
+    assert s.captures == 2
+
+
+def test_serve_sampling_on_the_card(dev):
+    """Sampled decoding inside the graph: each replay reads its step key
+    from the key buffer, so the same seed gives the same tokens and
+    another seed others; top-k = 1 is greedy; a top-k = 3 draw stays in
+    the 3 largest teacher-forced logits."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    prompts = _serve_prompts(4, seed=8)
+
+    def draw(seed, top_k):
+        e = serve.ServeEngine(model, max_slots=2, max_len=64,
+                              do_sample=True, top_k=top_k, temperature=1.5,
+                              seed=seed)
+        try:
+            return e.generate_many(prompts, 12)
+        finally:
+            e.shutdown(drain=False)
+
+    a = draw(5, 3)
+    assert all(onp.array_equal(x, y) for x, y in zip(a, draw(5, 3)))
+    assert not all(onp.array_equal(x, y) for x, y in zip(a, draw(6, 3)))
+    for p, out in zip(prompts, a):
+        logits = GPTDecoder(model).score(
+            torch.from_numpy(p[None, :]).to(dev),
+            torch.from_numpy(out[None, p.size:].astype(onp.int64)).to(dev))
+        top3 = torch.topk(logits[0], 3, dim=-1).indices.cpu()
+        assert all(int(t) in top3[i].tolist()
+                   for i, t in enumerate(out[p.size:]))
+    for p, out in zip(prompts, draw(5, 1)):
+        onp.testing.assert_array_equal(out, _one_at_a_time(model, p, 12))
