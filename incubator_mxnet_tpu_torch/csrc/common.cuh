@@ -6,9 +6,11 @@
 // Besides the small helpers, it holds the LayerNorm row code that the
 // LayerNorm kernels (layer_norm.cu) and the fused residual + dropout +
 // LayerNorm kernels (fused_block.cu) share: one warp per row, 16-byte
-// loads, f32 statistics, and a backward on a grid sized for the card whose
-// dgamma/dbeta are summed per warp, per block and then across blocks by a
-// second kernel, in a fixed order.
+// loads, f32 statistics; a forward whose warps issue every load of a row
+// before its first reduction and walk rows with the next one in flight,
+// on a grid the caller picks for the row count; and a backward on a grid
+// sized for the card whose dgamma/dbeta are summed per warp, per block and
+// then across blocks by a second kernel, in a fixed order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -213,7 +215,6 @@ cudaError_t prefer_shared(Kernel kernel, std::atomic<int>* done) {
 // gives them (load_vec), so the lane-to-column map and the Philox
 // counters are those of x's all-same-type layout.
 
-constexpr int kLnWarps = 4;     // forward rows per block (one warp each)
 constexpr int kLnBwdWarps = 8;  // backward warps per block, at most
 constexpr int kLnMaxCols = 4096;
 
@@ -257,81 +258,274 @@ __device__ __forceinline__ void ln_load_s(const TX* __restrict__ x,
   }
 }
 
+// How a RawVec load goes through the caches: plainly, through the
+// read-only path (__ldg: data every row shares, gamma and beta), or
+// streaming (__ldcs: evict first, data read once)
+enum MxCache : int { kCachePlain = 0, kCacheShared = 1, kCacheStream = 2 };
+
+// N elements of T as raw 32-bit words: loaded in 16-byte accesses (8-byte
+// ones for four bf16) and widened to f32 only where they are used, so a
+// load stays in flight until then.
+template <typename T, int N>
+struct RawVec {
+  static constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  static_assert(kBytes % 8 == 0, "whole 8-byte accesses");
+  unsigned w[kBytes / 4];
+
+  template <int kCache>
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+      for (int i = 0; i < kBytes / 16; ++i) {
+        const uint4* q = reinterpret_cast<const uint4*>(p) + i;
+        uint4 v;
+        if constexpr (kCache == kCacheShared) v = __ldg(q);
+        else if constexpr (kCache == kCacheStream) v = __ldcs(q);
+        else v = *q;
+        w[4 * i] = v.x;
+        w[4 * i + 1] = v.y;
+        w[4 * i + 2] = v.z;
+        w[4 * i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBytes / 8; ++i) {
+        const uint2* q = reinterpret_cast<const uint2*>(p) + i;
+        uint2 v;
+        if constexpr (kCache == kCacheShared) v = __ldg(q);
+        else if constexpr (kCache == kCacheStream) v = __ldcs(q);
+        else v = *q;
+        w[2 * i] = v.x;
+        w[2 * i + 1] = v.y;
+      }
+    }
+  }
+
+  // exact: a bf16 is the high half of the f32 with the same value
+  __device__ __forceinline__ void widen(float* out) const {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) out[i] = __uint_as_float(w[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        out[2 * i] = __uint_as_float(w[i] << 16);
+        out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+};
+
 // Forward: y = (s - mean) * rstd * gamma + beta with mean first, then the
 // centred variance, rstd = rsqrt(var + eps), all f32; y in TX, the f32 row
-// statistics saved for the backward. One warp per row holds its row in
-// registers (NV vectors per lane), so each input is read once.
+// statistics saved for the backward.
+//
+// Bound by bytes at every row count the port gives it, and at a few rows
+// (decode: 1 to 8) by latency: the launch and one round trip to device
+// memory. So (1) a row's loads are issued before its first reduction:
+// x and h (in kLnXPlusDropH mode the row's Philox words are drawn while
+// they are in flight) and, in kLnX mode, gamma and beta (K3 reads them
+// per row after its reductions, from the L1 cache: held, they spill K3's
+// registers); (2) a warp walks rows
+// (row = block * warps + warp, then strided by the grid) and, while a lane
+// holds at most kLnFwdHoldElems elements of a row (C <= 768, as raw
+// words), issues the next row's loads before it reduces the current one,
+// and in kLnX mode keeps gamma and beta in registers across its rows,
+// loaded once; wider rows are loaded and widened in place, one at a time,
+// as registers allow; (3) NV is the row's exact vector count up to 8;
+// (4) x and h, read once, are streamed (evict first) in K4, whose
+// few-row calls with cold gamma and beta time faster so, and in K3 with
+// bf16 x; K3 with f32 x loads them plainly, which times faster there.
+// Held, a C = 768 row takes 111-125 registers at two blocks an SM (a
+// wider one spills). The caller picks the number of kLnFwdWarps-warp
+// blocks (`row_blocks` in ops/layer_norm.py, the backward's grid): one row
+// a warp while rows are few, at most kLnFwdBlocksPerSm blocks an SM past
+// that. Any grid gives the same result: one warp computes a row, with the
+// same lane-to-column map and the same sums, whatever the grid and the
+// call's row count.
+constexpr int kLnFwdWarps = 8;        // warps of a block
+constexpr int kLnFwdBlocksPerSm = 2;  // resident blocks an SM
+constexpr int kLnFwdHoldElems = 24;   // a lane holds the next row up to this
+
+// the keep bits of row `row` in kLnXPlusDropH mode: bit e of keep[j] says
+// whether element e of the lane's vector j of h is kept, from the Philox
+// words at the elements' flat offsets
+template <typename TX, int NV>
+__device__ __forceinline__ void ln_fwd_keep(long long row, int cols,
+                                            int lane, const DropoutKey& key,
+                                            unsigned (&keep)[NV]) {
+  constexpr int E = Vec16<TX>::n;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (j * 32 + lane) * E;
+    keep[j] = 0u;
+    if (c < cols) {
+      unsigned words[E];
+      philox_words<E>(static_cast<unsigned long long>(row * cols + c), key,
+                      words);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        keep[j] |= static_cast<unsigned>(words[e] >= key.threshold) << e;
+    }
+  }
+}
+
+// issue the raw loads of row `row` (x, and h when the mode has it) and, in
+// kLnXPlusDropH mode, draw its keep bits while they are in flight
+template <typename TX, typename TH, int NV, int NH, int kMode>
+__device__ __forceinline__ void ln_fwd_issue(
+    const TX* __restrict__ x, const TH* __restrict__ h, long long row,
+    int cols, int lane, const DropoutKey& key,
+    RawVec<TX, Vec16<TX>::n> (&xr)[NV], RawVec<TH, Vec16<TX>::n> (&hr)[NH],
+    unsigned (&keep)[NV]) {
+  constexpr int E = Vec16<TX>::n;
+  constexpr int kCache =
+      kMode == kLnX || sizeof(TX) == 2 ? kCacheStream : kCachePlain;
+  const long long base = row * cols;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (j * 32 + lane) * E;
+    if (c < cols) {
+      xr[j].template load<kCache>(x + base + c);
+      if constexpr (kMode != kLnX) hr[j].template load<kCache>(h + base + c);
+    }
+  }
+  if constexpr (kMode == kLnXPlusDropH)
+    ln_fwd_keep<TX, NV>(row, cols, lane, key, keep);
+}
+
 template <typename TX, typename TH, typename TP, int NV, int kMode>
-__global__ void __launch_bounds__(kLnWarps * 32)
+__global__ void __launch_bounds__(kLnFwdWarps * 32,
+                                  NV * Vec16<TX>::n <= kLnFwdHoldElems
+                                      ? kLnFwdBlocksPerSm
+                                      : 1)
     ln_fwd_kernel(const TX* __restrict__ x, const TH* __restrict__ h,
                   const TP* __restrict__ gamma, const TP* __restrict__ beta,
                   TX* __restrict__ y, float* __restrict__ mean_out,
                   float* __restrict__ rstd_out, int rows, int cols, float eps,
                   DropoutKey key) {
   constexpr int E = Vec16<TX>::n;
+  // the row held as raw words, the next row's loads in flight
+  constexpr bool kHold = NV * E <= kLnFwdHoldElems;
+  constexpr bool kParams = kHold && kMode == kLnX;  // gamma/beta held
+  constexpr int NR = kHold ? NV : 1;  // raw vectors held (kHold)
+  constexpr int NH = kMode == kLnX ? 1 : NR;
+  constexpr int NP = kParams ? NV : 1;
   const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kLnWarps + threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  const long long stride = static_cast<long long>(gridDim.x) * warps;
+  long long row =
+      static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
   if (row >= rows) return;  // whole warps leave together
-  const long long base = row * cols;
   if constexpr (kMode == kLnXPlusDropH) key = load_key(key);
 
-  float v[NV][E];
-  float sum = 0.f;
+  RawVec<TX, E> xr[NR];
+  RawVec<TH, E> hr[NH];
+  RawVec<TP, E> gr[NP], br[NP];
+  unsigned keep[NV];
+  if constexpr (kHold)
+    ln_fwd_issue<TX, TH, NV, NH, kMode>(x, h, row, cols, lane, key, xr, hr,
+                                        keep);
+  if constexpr (kParams) {
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (j * 32 + lane) * E;
-    if (c < cols) {
-      unsigned keep = 0u;
-      ln_load_s<TX, TH, kMode>(x, h, base + c, key, v[j], keep);
-#pragma unroll
-      for (int e = 0; e < E; ++e) sum += v[j][e];
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) v[j][e] = 0.f;
-    }
-  }
-  const float mean = group_sum<32>(sum) / cols;
-
-  float sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (j * 32 + lane) * E;
-    if (c < cols) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        v[j][e] -= mean;
-        sq += v[j][e] * v[j][e];
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * 32 + lane) * E;
+      if (c < cols) {
+        gr[j].template load<kCacheShared>(gamma + c);
+        br[j].template load<kCacheShared>(beta + c);
       }
     }
   }
-  const float rstd = rsqrtf(group_sum<32>(sq) / cols + eps);
+  while (true) {
+    const long long base = row * cols;
+    float v[NV][E];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * 32 + lane) * E;
+      if (c < cols) {
+        if constexpr (kHold) {
+          xr[j % NR].widen(v[j]);
+          if constexpr (kMode != kLnX) {
+            float hv[E];
+            hr[j % NH].widen(hv);
+            if constexpr (kMode == kLnXPlusDropH) {
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                hv[e] = (keep[j] >> e) & 1u ? hv[e] * key.scale : 0.f;
+            }
+#pragma unroll
+            for (int e = 0; e < E; ++e) v[j][e] += hv[e];
+          }
+        } else {  // wide rows: load and widen in place, as registers allow
+          unsigned bits = 0u;
+          ln_load_s<TX, TH, kMode>(x, h, base + c, key, v[j], bits);
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) sum += v[j][e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[j][e] = 0.f;
+      }
+    }
+    const long long next = row + stride;
+    if constexpr (kHold) {
+      if (next < rows)
+        ln_fwd_issue<TX, TH, NV, NH, kMode>(x, h, next, cols, lane, key, xr,
+                                            hr, keep);
+    }
+    const float mean = group_sum<32>(sum) / cols;
+
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * 32 + lane) * E;
+      if (c < cols) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          v[j][e] -= mean;
+          sq += v[j][e] * v[j][e];
+        }
+      }
+    }
+    const float rstd = rsqrtf(group_sum<32>(sq) / cols + eps);
 
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (j * 32 + lane) * E;
-    if (c < cols) {
-      float g[E], b[E], out[E];
-      load_vec<E>(gamma + c, g);
-      load_vec<E>(beta + c, b);
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * 32 + lane) * E;
+      if (c < cols) {
+        float g[E], b[E], out[E];
+        if constexpr (kParams) {
+          gr[j % NP].widen(g);
+          br[j % NP].widen(b);
+        } else {
+          RawVec<TP, E> gq, bq;
+          gq.template load<kCacheShared>(gamma + c);
+          bq.template load<kCacheShared>(beta + c);
+          gq.widen(g);
+          bq.widen(b);
+        }
 #pragma unroll
-      for (int e = 0; e < E; ++e) out[e] = v[j][e] * rstd * g[e] + b[e];
-      store_vec<E>(y + base + c, out);
+        for (int e = 0; e < E; ++e) out[e] = v[j][e] * rstd * g[e] + b[e];
+        store_vec<E>(y + base + c, out);
+      }
     }
-  }
-  if (lane == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+    row = next;
+    if (row >= rows) break;
   }
 }
 
 template <typename TX, typename TH, typename TP, int NV, int kMode>
 cudaError_t ln_fwd_launch(const void* x, const void* h, const void* g,
                           const void* b, void* y, void* mean, void* rstd,
-                          int rows, int cols, float eps, DropoutKey key,
-                          cudaStream_t stream) {
-  const int blocks = (rows + kLnWarps - 1) / kLnWarps;
-  ln_fwd_kernel<TX, TH, TP, NV, kMode><<<blocks, kLnWarps * 32, 0, stream>>>(
+                          int rows, int cols, float eps, int blocks,
+                          DropoutKey key, cudaStream_t stream) {
+  ln_fwd_kernel<TX, TH, TP, NV, kMode>
+      <<<blocks, kLnFwdWarps * 32, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TH*>(h),
       static_cast<const TP*>(g), static_cast<const TP*>(b),
       static_cast<TX*>(y), static_cast<float*>(mean),
@@ -339,25 +533,37 @@ cudaError_t ln_fwd_launch(const void* x, const void* h, const void* g,
   return cudaGetLastError();
 }
 
-// the smallest power-of-two vector count per lane that covers `cols`
+// y, mean, rstd on a grid of `blocks` blocks of kLnFwdWarps warps (any
+// grid covers every row). NV, the vectors a lane takes of a row: exactly
+// the row's count up to 8, then 12, 16, 24 or 32
 template <typename TX, typename TH, typename TP, int kMode>
 cudaError_t ln_fwd_dispatch(const void* x, const void* h, const void* g,
                             const void* b, void* y, void* mean, void* rstd,
-                            int rows, int cols, float eps, DropoutKey key,
-                            cudaStream_t s) {
+                            int rows, int cols, float eps, int blocks,
+                            DropoutKey key, cudaStream_t s) {
   constexpr int E = Vec16<TX>::n;
-  if (rows <= 0 || cols <= 0 || cols > kLnMaxCols || cols % E)
+  if (rows <= 0 || cols <= 0 || cols > kLnMaxCols || cols % E || blocks < 1)
     return cudaErrorInvalidValue;
   const int nv = (cols + 32 * E - 1) / (32 * E);
 #define MX_LN_FWD(NV)                                                    \
   return ln_fwd_launch<TX, TH, TP, NV, kMode>(x, h, g, b, y, mean, rstd, \
-                                              rows, cols, eps, key, s)
-  if (nv <= 1) MX_LN_FWD(1);
-  if (nv <= 2) MX_LN_FWD(2);
-  if (nv <= 4) MX_LN_FWD(4);
-  if (nv <= 8) MX_LN_FWD(8);
+                                              rows, cols, eps, blocks,   \
+                                              key, s)
+  switch (nv) {
+    case 1: MX_LN_FWD(1);
+    case 2: MX_LN_FWD(2);
+    case 3: MX_LN_FWD(3);
+    case 4: MX_LN_FWD(4);
+    case 5: MX_LN_FWD(5);
+    case 6: MX_LN_FWD(6);
+    case 7: MX_LN_FWD(7);
+    case 8: MX_LN_FWD(8);
+    default: break;
+  }
+  if (nv <= 12) MX_LN_FWD(12);
   if (nv <= 16) MX_LN_FWD(16);
   if constexpr (E == 4) {
+    if (nv <= 24) MX_LN_FWD(24);
     if (nv <= 32) MX_LN_FWD(32);
   }
 #undef MX_LN_FWD
@@ -374,7 +580,7 @@ cudaError_t ln_fwd_dispatch(const void* x, const void* h, const void* g,
 // Bound by bytes on the H100, so the design keeps a call's fixed costs
 // (partials, shared-memory traffic, a second pass over the grid) small:
 // the wrapper launches at most kLnBwdBlocksPerSm blocks of kLnBwdWarps
-// warps an SM (`bwd_blocks` in ops/layer_norm.py), all resident at once,
+// warps an SM (`row_blocks` in ops/layer_norm.py), all resident at once,
 // and each warp walks its rows (row = block * warps + warp, then strided
 // by the grid) in two passes unrolled over the NV vectors of its lane
 // (NV exactly the row's vector count up to 8). The first pass sums c1

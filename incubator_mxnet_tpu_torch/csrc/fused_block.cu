@@ -23,7 +23,9 @@
 // (3 * rows * C * itemsize); backward reads x, h and dy and writes dx and
 // dh (5 * rows * C * itemsize), plus the f32 statistics. Design: the
 // LayerNorm row code of common.cuh (one warp per row, 16-byte loads, the
-// forward's row held in registers; the backward on a grid of resident
+// forward's row held in registers, x, h and the Philox words of a row in
+// flight together and, on the caller's grid, the next row's loads issued
+// before the current row's reductions; the backward on a grid of resident
 // blocks whose warps walk many rows, its Philox words drawn once a row,
 // dgamma/dbeta summed per warp in shared memory and then in a fixed
 // order across the per-block partials). C is at most 4096 and a multiple of the vector
@@ -46,14 +48,15 @@ namespace {
 template <typename TX, typename TH, typename TP>
 cudaError_t fwd(int mode, const void* x, const void* h, const void* g,
                 const void* b, void* y, void* mean, void* rstd, int rows,
-                int cols, float eps, mx::DropoutKey key, cudaStream_t s) {
+                int cols, float eps, int blocks, mx::DropoutKey key,
+                cudaStream_t s) {
   switch (mode) {
     case mx::kLnXPlusH:
       return mx::ln_fwd_dispatch<TX, TH, TP, mx::kLnXPlusH>(
-          x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
+          x, h, g, b, y, mean, rstd, rows, cols, eps, blocks, key, s);
     case mx::kLnXPlusDropH:
       return mx::ln_fwd_dispatch<TX, TH, TP, mx::kLnXPlusDropH>(
-          x, h, g, b, y, mean, rstd, rows, cols, eps, key, s);
+          x, h, g, b, y, mean, rstd, rows, cols, eps, blocks, key, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -94,19 +97,21 @@ int layout(int dtype, int h_dtype, int param_dtype) {
 int fwd_entry(int dtype, int h_dtype, int param_dtype, int mode,
               const void* x, const void* h, const void* gamma,
               const void* beta, void* y, void* mean, void* rstd, int rows,
-              int cols, float eps, mx::DropoutKey key, void* stream) {
+              int cols, float eps, int blocks, mx::DropoutKey key,
+              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout(dtype, h_dtype, param_dtype)) {
     case 0:
       return fwd<float, float, float>(mode, x, h, gamma, beta, y, mean, rstd,
-                                      rows, cols, eps, key, s);
+                                      rows, cols, eps, blocks, key, s);
     case 1:
       return fwd<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
-          mode, x, h, gamma, beta, y, mean, rstd, rows, cols, eps, key, s);
+          mode, x, h, gamma, beta, y, mean, rstd, rows, cols, eps, blocks,
+          key, s);
     case 2:
       return fwd<float, __nv_bfloat16, float>(mode, x, h, gamma, beta, y,
                                               mean, rstd, rows, cols, eps,
-                                              key, s);
+                                              blocks, key, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -141,15 +146,16 @@ int bwd_entry(int dtype, int h_dtype, int param_dtype, int mode,
 // y, mean, rstd = LN(x + dropout(h)) over rows of `cols` elements; x and y
 // in `dtype`, h in `h_dtype`, gamma/beta in `param_dtype` (a layout
 // above). `mode` is kLnXPlusH or kLnXPlusDropH; (k0, k1) the key,
-// `threshold` and `scale` the keep rule (used in kLnXPlusDropH only). Runs
+// `threshold` and `scale` the keep rule (used in kLnXPlusDropH only); the
+// grid `blocks` 8-warp blocks (the result does not depend on it). Runs
 // on the caller's current device; returns the cudaError_t of the launch.
 MX_EXPORT int mx_residual_dropout_ln_fwd(
     int dtype, int h_dtype, int param_dtype, int mode, const void* x,
     const void* h, const void* gamma, const void* beta, void* y, void* mean,
     void* rstd, int rows, int cols, float eps, unsigned k0, unsigned k1,
-    unsigned threshold, float scale, void* stream) {
+    unsigned threshold, float scale, int blocks, void* stream) {
   return fwd_entry(dtype, h_dtype, param_dtype, mode, x, h, gamma, beta, y,
-                   mean, rstd, rows, cols, eps,
+                   mean, rstd, rows, cols, eps, blocks,
                    mx::DropoutKey{k0, k1, threshold, scale}, stream);
 }
 
@@ -159,10 +165,10 @@ MX_EXPORT int mx_residual_dropout_ln_fwd_dk(
     int dtype, int h_dtype, int param_dtype, const void* x, const void* h,
     const void* gamma, const void* beta, void* y, void* mean, void* rstd,
     int rows, int cols, float eps, const void* key_words, unsigned threshold,
-    float scale, void* stream) {
+    float scale, int blocks, void* stream) {
   if (key_words == nullptr) return cudaErrorInvalidValue;
   return fwd_entry(dtype, h_dtype, param_dtype, mx::kLnXPlusDropH, x, h,
-                   gamma, beta, y, mean, rstd, rows, cols, eps,
+                   gamma, beta, y, mean, rstd, rows, cols, eps, blocks,
                    mx::DropoutKey{0u, 0u, threshold, scale,
                                   static_cast<const uint2*>(key_words)},
                    stream);

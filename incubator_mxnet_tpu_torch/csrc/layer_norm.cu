@@ -14,12 +14,18 @@
 // Bound on the H100: bytes. The forward reads each row once and writes it
 // once (2 * rows * C * itemsize, plus 8 bytes of statistics a row); the
 // backward reads x and dy and writes dx (3 * rows * C * itemsize plus the
-// statistics); both do a few operations per byte. Design (the row code is
-// in common.cuh, shared with fused_block.cu): one warp per row, 16-byte
-// loads, the loops over a row unrolled for its width. The forward (four
-// rows per 128-thread block) holds its row in registers, so x crosses
-// device memory once. The backward runs on a grid of at most two
-// 8-warp blocks an SM, all resident, each warp walking many rows; up to
+// statistics); both do a few operations per byte. At the decode's few
+// rows (1 to 8) the forward is bound by latency instead: its launch and
+// one round trip to device memory. Design (the row code is in
+// common.cuh, shared with fused_block.cu): one warp per row, 16-byte
+// loads, the loops over a row unrolled for its exact vector count. The
+// forward holds its row in registers, so x crosses device memory once
+// (streamed: read once, evict first), and issues x, gamma and beta
+// together before its first reduction. Both run on the caller's grid
+// (`row_blocks` in ops/layer_norm.py): 8-warp blocks, one row a warp while
+// rows are few, at most two blocks an SM, all resident, past that, whose
+// warps walk the rows. A forward warp keeps its next row's loads in
+// flight and gamma/beta in registers, read once a warp. Up to
 // C = 1024 a lane holds its row and, up to C = 768, its columns'
 // dgamma/dbeta sums in registers. The TPU kernel accumulated dgamma/dbeta across its
 // sequential grid in VMEM, but Hopper's blocks run in parallel, so each
@@ -39,9 +45,9 @@ namespace {
 template <typename TX, typename TP>
 cudaError_t fwd(const void* x, const void* gamma, const void* beta, void* y,
                 void* mean, void* rstd, int rows, int cols, float eps,
-                cudaStream_t s) {
+                int blocks, cudaStream_t s) {
   return mx::ln_fwd_dispatch<TX, TX, TP, mx::kLnX>(
-      x, nullptr, gamma, beta, y, mean, rstd, rows, cols, eps,
+      x, nullptr, gamma, beta, y, mean, rstd, rows, cols, eps, blocks,
       mx::DropoutKey{}, s);
 }
 
@@ -57,22 +63,23 @@ cudaError_t bwd(const void* x, const void* dy, const void* mean,
 }  // namespace
 
 // y, mean, rstd = LayerNorm(x) over rows of `cols` elements, x and y in
-// `dtype`, gamma/beta in `param_dtype` (a layout above), on the caller's
-// current device. Returns the cudaError_t of the launch.
+// `dtype`, gamma/beta in `param_dtype` (a layout above), on a grid of
+// `blocks` 8-warp blocks (the result does not depend on it), on the
+// caller's current device. Returns the cudaError_t of the launch.
 MX_EXPORT int mx_layer_norm_fwd(int dtype, int param_dtype, const void* x,
                                 const void* gamma, const void* beta, void* y,
                                 void* mean, void* rstd, int rows, int cols,
-                                float eps, void* stream) {
+                                float eps, int blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && param_dtype == kFloat32)
     return fwd<float, float>(x, gamma, beta, y, mean, rstd, rows, cols, eps,
-                             s);
+                             blocks, s);
   if (dtype == kBFloat16 && param_dtype == kBFloat16)
     return fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mean, rstd,
-                                             rows, cols, eps, s);
+                                             rows, cols, eps, blocks, s);
   if (dtype == kBFloat16 && param_dtype == kFloat32)
     return fwd<__nv_bfloat16, float>(x, gamma, beta, y, mean, rstd, rows,
-                                     cols, eps, s);
+                                     cols, eps, blocks, s);
   return cudaErrorInvalidValue;
 }
 

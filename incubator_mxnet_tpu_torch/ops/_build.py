@@ -14,10 +14,12 @@ a CUDA tensor calls :func:`load`. The wrappers bind each entry point with
 ``argtypes`` (``c_void_p`` for every pointer and the stream) and raise
 when the entry returns a non-zero ``cudaError_t``. :func:`use_plain` is
 the wrappers' one rule for kernel or plain version, :func:`aligned` their
-one way of meeting the kernels' 16-byte loads.
+one way of meeting the kernels' 16-byte loads; :func:`on_device` and
+:func:`stream_of` give a C entry its device and stream.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,10 +28,13 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 from ..base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "load", "check", "build_logs", "IMPLS", "use_plain", "aligned"]
+           "load", "check", "build_logs", "IMPLS", "use_plain", "aligned",
+           "on_device", "stream_of"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "torch_kernels"
@@ -157,3 +162,18 @@ def aligned(t):
     as the kernels' 16-byte loads need."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def on_device(device):
+    """A context that makes the CUDA ``device`` current around a C entry
+    (which launches on the current device): none when it already is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_of(device):
+    """The current stream of the CUDA ``device``, as the C entries take
+    it (a ``cudaStream_t`` as an int): PyTorch's own raw getter (what its
+    generated kernels launch on), with no Stream object built around it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

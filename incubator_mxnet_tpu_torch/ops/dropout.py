@@ -100,8 +100,8 @@ def site_key_ptr(key, device):
         t = key.t.to(torch.int64).contiguous()
         table = torch.empty((KEY_CHUNK, 2), dtype=torch.int32, device=device)
         lib = _lib()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
+        stream = _build.stream_of(device)
+        with _build.on_device(device):
             err = lib.mx_fold_keys(base.data_ptr(), t.data_ptr(),
                                    table.data_ptr(), chunk * KEY_CHUNK,
                                    KEY_CHUNK, stream)
@@ -121,8 +121,8 @@ def _kernel(x, key, p):
     if x.numel() == 0:
         return y
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    stream = _build.stream_of(x.device)
+    with _build.on_device(x.device):
         if isinstance(key, DeviceKey):
             err = lib.mx_dropout_dk(_DTYPES[x.dtype], x.data_ptr(),
                                     y.data_ptr(), x.numel(),

@@ -229,9 +229,9 @@ def _kernel(q, k, v, lengths, causal, sm_scale, layout):
         return o, lse
     lens = _lens_arg(lengths, b, q.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.stream_of(q.device)
     strides = [s for t in (q, k, v, o) for s in _bht_strides(t, layout)]
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = lib.mx_flash_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(),
@@ -258,8 +258,8 @@ def _kernel_bwd(q, k, v, o, lse, do, lengths, causal, sm_scale, layout):
         s for t in (q, k, v, o, do, dq, dk, dv)
         for s in _bht_strides(t, layout)])
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    stream = _build.stream_of(q.device)
+    with _build.on_device(q.device):
         err = lib.mx_flash_attention_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),

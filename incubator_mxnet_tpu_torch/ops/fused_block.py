@@ -9,7 +9,8 @@ Port of `incubator_mxnet_tpu/ops/fused_block.py` `residual_dropout_ln`
 ``csrc/fused_block.cu`` over the LayerNorm row code of ``csrc/common.cuh``
 (shared with ``csrc/layer_norm.cu``): y = LN(x + dropout_p(h)), one warp
 per row. The forward reads x and h once and writes y and the f32 row
-statistics; the backward regenerates the mask from the key and writes
+statistics; both run on K4's grid (`ops.layer_norm.row_blocks`); the
+backward regenerates the mask from the key and writes
 dx, dh and dgamma/dbeta (per-block partials summed in a fixed order).
 Bound by bytes on the H100: 3 * rows * C * itemsize forward,
 5 * rows * C * itemsize backward.
@@ -84,10 +85,9 @@ from ..base import MXNetError
 from . import _build
 from ._philox import DeviceKey, dropout_scale, keep_mask, threshold
 from .dropout import site_key_ptr
-from .layer_norm import (BWD_KERNELS, bwd_blocks, check_kernel_args,
-                         layer_norm_bwd, layer_norm_fwd, layout_name,
-                         plain_layer_norm, plain_ln_grads, sm_count,
-                         use_plain)
+from .layer_norm import (BWD_KERNELS, check_kernel_args, layer_norm_bwd,
+                         layer_norm_fwd, layout_name, plain_layer_norm,
+                         plain_ln_grads, row_blocks, sm_count, use_plain)
 
 __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "residual_dropout_ln_fwd", "residual_dropout_ln_bwd",
@@ -154,7 +154,7 @@ def _lib():
         fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
                        + [ctypes.c_uint32] * 3
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.mx_residual_dropout_ln_bwd
         fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
@@ -165,7 +165,7 @@ def _lib():
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.mx_residual_dropout_ln_bwd_dk
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
@@ -196,30 +196,32 @@ def _kernel(x2d, h2d, gamma, beta, key, p, eps):
     check_kernel_args("residual_dropout_ln", x2d, (gamma, beta), h=h2d)
     x2d, h2d, gamma, beta = (_build.aligned(t)
                              for t in (x2d, h2d, gamma, beta))
+    dev = x2d.device
     y = torch.empty_like(x2d)
-    mean = torch.empty(rows, dtype=torch.float32, device=x2d.device)
-    rstd = torch.empty(rows, dtype=torch.float32, device=x2d.device)
+    stats = torch.empty((2, rows), dtype=torch.float32, device=dev)
     if rows == 0:
-        return y, mean, rstd
+        return y, stats[0], stats[1]
     lib = _lib()
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with torch.cuda.device(x2d.device):
+    stream = _build.stream_of(dev)
+    blocks = row_blocks(rows, sm_count(dev))
+    ptr = stats.data_ptr()
+    with _build.on_device(dev):
         args = (x2d.data_ptr(), h2d.data_ptr(), gamma.data_ptr(),
-                   beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
-                   rstd.data_ptr(), rows, feat, float(eps))
+                beta.data_ptr(), y.data_ptr(), ptr, ptr + 4 * rows, rows,
+                feat, float(eps))
         if isinstance(key, DeviceKey) and p > 0:
             err = lib.mx_residual_dropout_ln_fwd_dk(
-                *_codes(x2d, h2d, gamma), *args,
-                site_key_ptr(key, x2d.device), threshold(p),
-                dropout_scale(p), stream)
+                *_codes(x2d, h2d, gamma), *args, site_key_ptr(key, dev),
+                threshold(p), dropout_scale(p), blocks, stream)
         else:
             mode, *key_args = _mode_key_args(key, p)
             err = lib.mx_residual_dropout_ln_fwd(
-                *_codes(x2d, h2d, gamma), mode, *args, *key_args, stream)
+                *_codes(x2d, h2d, gamma), mode, *args, *key_args, blocks,
+                stream)
     _build.check(lib, err, "residual_dropout_ln_fwd")
     launches += 1
     layout_launches[layout_name(x2d.dtype, gamma.dtype, h2d.dtype)] += 1
-    return y, mean, rstd
+    return y, stats[0], stats[1]
 
 
 def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
@@ -234,13 +236,13 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
     if rows == 0:
         zero = torch.zeros(feat, dtype=gamma.dtype, device=x2d.device)
         return dx, dh, zero, zero.clone()
-    nblocks = bwd_blocks(rows, sm_count(x2d.device))
+    nblocks = row_blocks(rows, sm_count(x2d.device))
     partials = torch.empty((nblocks, 2, feat), dtype=torch.float32,
                            device=x2d.device)
     dgb = torch.empty((2, feat), dtype=gamma.dtype, device=x2d.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with torch.cuda.device(x2d.device):
+    stream = _build.stream_of(x2d.device)
+    with _build.on_device(x2d.device):
         args = (x2d.data_ptr(), h2d.data_ptr(), dy2d.data_ptr(),
                    mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
                    dx.data_ptr(), dh.data_ptr(), partials.data_ptr(),
@@ -399,10 +401,10 @@ def _gd_kernel(u, dy, key, p):
         return out
     drop = 0 < p
     lib = _gd_lib()
-    stream = torch.cuda.current_stream(u.device).cuda_stream
+    stream = _build.stream_of(u.device)
     if dy is not None:
         dy = _build.aligned(dy)
-    with torch.cuda.device(u.device):
+    with _build.on_device(u.device):
         args = ((u.data_ptr(), out.data_ptr()) if dy is None else
                    (u.data_ptr(), dy.data_ptr(), out.data_ptr()))
         if isinstance(key, DeviceKey) and drop:

@@ -8,8 +8,13 @@ Port of `incubator_mxnet_tpu/ops/layer_norm.py` (`_fwd_kernel` :49,
 per row; the forward holds the row in registers, so x is read once and y
 written once; the backward writes dx and per-block dgamma/dbeta partials
 that a second kernel sums in a fixed order. Both are bound by bytes on
-the H100: the backward's grid fills the card once (:func:`bwd_blocks`)
-and its warps walk the rows, summing dgamma/dbeta in registers.
+the H100, the forward at the decode's few rows by latency (its launch
+and one round trip to device memory). Both run on :func:`row_blocks`:
+one row a warp while rows are few, and past that a grid that fills the
+card once, whose warps walk the rows. A forward warp issues its next
+row's loads before it reduces the current one (x streamed, read once)
+and holds gamma/beta in registers; a row's result does not depend on
+the grid. The backward's warps sum dgamma/dbeta in registers.
 
 :func:`plain_layer_norm` and :func:`plain_layer_norm_bwd` repeat the
 kernels' arithmetic in PyTorch: mean first, then the centred variance,
@@ -48,7 +53,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["MAX_FEATURES", "BWD_KERNELS", "LAYOUTS", "RESIDUAL_LAYOUTS",
-           "supports", "layout_name", "bwd_blocks", "sm_count",
+           "supports", "layout_name", "row_blocks", "sm_count",
            "column_sum_tol",
            "plain_layer_norm", "plain_ln_grads", "plain_layer_norm_bwd",
            "layer_norm_fwd", "layer_norm_bwd", "layer_norm", "launches",
@@ -57,13 +62,14 @@ __all__ = ["MAX_FEATURES", "BWD_KERNELS", "LAYOUTS", "RESIDUAL_LAYOUTS",
 #: Largest feature size the kernels take: 32 lanes x 32 float4 vectors
 #: (f32) or 16 eight-wide vectors (bf16) held in registers per row.
 MAX_FEATURES = 4096
-#: Backward blocks an SM (csrc/common.cuh kLnBwdBlocksPerSm): the grid is
-#: at most two 8-warp blocks per SM, all resident at once, and its
-#: dgamma/dbeta partials are (blocks, 2, C) f32. A fixed grid for a given
-#: row count and card fixes the order of the sums.
-BWD_BLOCKS_PER_SM = 2
-#: Rows a backward block takes before the grid is full: one a warp.
-BWD_WARPS = 8
+#: Row-kernel blocks an SM (csrc/common.cuh kLnBwdBlocksPerSm,
+#: kLnFwdBlocksPerSm): the grid is at most two 8-warp blocks per SM, all
+#: resident at once; the backward's dgamma/dbeta partials are (blocks, 2,
+#: C) f32. A fixed grid for a given row count and card fixes the order of
+#: the backward's sums.
+ROW_BLOCKS_PER_SM = 2
+#: Rows a row-kernel block takes before the grid is full: one a warp.
+ROW_WARPS = 8
 #: Warps of the reduction of the partials (csrc/common.cuh
 #: kLnReduceWarps): each adds every BWD_REDUCE_WARPS-th partial in turn.
 BWD_REDUCE_WARPS = 32
@@ -108,6 +114,7 @@ def supports(shape, axis, feat, dtype=torch.float32, param_dtype=None,
 _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+@functools.lru_cache(maxsize=None)
 def layout_name(x_dtype, param_dtype, h_dtype=None):
     """"f32" or "bf16" when every operand has one dtype, else e.g.
     "bf16 x, f32 gamma" or "f32 x, bf16 h, f32 gamma"."""
@@ -157,7 +164,7 @@ def _lib():
         fn = lib.mx_layer_norm_fwd
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.mx_layer_norm_bwd
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
@@ -171,48 +178,64 @@ def _names(dtypes):
     return "(" + ", ".join(str(d).replace("torch.", "") for d in dtypes) + ")"
 
 
+@functools.lru_cache(maxsize=None)
+def _feat_ok(feat, dtype):
+    return supports((1, feat), -1, feat, dtype, dtype)
+
+
 def check_kernel_args(what, x2d, params, others=(), h=None):
     """Raise unless the row kernels take x2d with these (C,) parameters,
     same-shape companions ``others`` in x's dtype (dy) and, for the
     residual kernels, a same-shape ``h``: the dtypes of (x, gamma) must be
     one of :data:`LAYOUTS`, or those of (x, h, gamma) one of
-    :data:`RESIDUAL_LAYOUTS`."""
-    feat = x2d.shape[1]
-    comp = (*others, *(() if h is None else (h,)))
+    :data:`RESIDUAL_LAYOUTS`. (One pass of plain loops: the eager
+    wrappers check on every call.)"""
+    shape, dev, xdt = x2d.shape, x2d.device, x2d.dtype
+    feat, pdt = shape[1], params[0].dtype
+    comp = others if h is None else (*others, h)
     if h is None:
-        names, layouts = "x, gamma", LAYOUTS
-        got = (x2d.dtype, params[0].dtype)
+        names, layouts, got = "x, gamma", LAYOUTS, (xdt, pdt)
     else:
         names, layouts = "x, h, gamma", RESIDUAL_LAYOUTS
-        got = (x2d.dtype, h.dtype, params[0].dtype)
-    if got not in layouts or any(t.dtype != got[-1] for t in params):
+        got = (xdt, h.dtype, pdt)
+    bad_dtype, bad_shape, bad_dev = got not in layouts, False, False
+    for t in params:
+        bad_dtype |= t.dtype != pdt
+        bad_shape |= t.shape != (feat,)
+        bad_dev |= t.device != dev
+    bad_comp = False
+    for t in comp:
+        bad_comp |= t.shape != shape
+        bad_dev |= t.device != dev
+    if bad_dtype:
         raise MXNetError(
             f"{what} kernel takes ({names}) dtypes "
             f"{', '.join(_names(k) for k in layouts)}, beta in gamma's; got "
             f"{_names(got)}, beta {_names(t.dtype for t in params[1:])}")
-    if any(t.dtype != x2d.dtype for t in others):
-        raise MXNetError(f"{what} kernel: dy must have x's dtype "
-                         f"{x2d.dtype}")
-    if any(t.shape != (feat,) for t in params):
+    for t in others:
+        if t.dtype != xdt:
+            raise MXNetError(f"{what} kernel: dy must have x's dtype {xdt}")
+    if bad_shape:
         raise MXNetError(f"{what}: gamma/beta must be ({feat},), got "
                          f"{[tuple(t.shape) for t in params]}")
-    if any(t.shape != x2d.shape for t in comp):
+    if bad_comp:
         raise MXNetError(f"{what}: inputs must share the shape "
-                         f"{tuple(x2d.shape)}")
-    if not supports(x2d.shape, -1, feat, x2d.dtype):
+                         f"{tuple(shape)}")
+    if not _feat_ok(feat, xdt):
         raise MXNetError(
             f"{what} kernel takes a feature size that is a multiple of "
             f"{16 // x2d.element_size()} and at most {MAX_FEATURES}, got "
             f"{feat}")
-    if any(t.device != x2d.device for t in (*params, *comp)):
+    if bad_dev:
         raise MXNetError(f"{what}: all inputs must share a device")
 
 
-def bwd_blocks(rows, sms):
-    """The backward's grid on a card of ``sms`` SMs: one row a warp
-    (BWD_WARPS a block) while rows are few, else BWD_BLOCKS_PER_SM blocks
-    an SM whose warps walk the rows."""
-    return max(1, min(-(-rows // BWD_WARPS), BWD_BLOCKS_PER_SM * sms))
+def row_blocks(rows, sms):
+    """The row kernels' grid (K4, K3 forward and backward, K4b) on a card
+    of ``sms`` SMs: blocks of ROW_WARPS warps, one row a warp while rows
+    are few, else ROW_BLOCKS_PER_SM blocks an SM whose warps walk the
+    rows."""
+    return max(1, min(-(-rows // ROW_WARPS), ROW_BLOCKS_PER_SM * sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,7 +244,7 @@ def _sm_count(index):
 
 
 def sm_count(device):
-    """The SMs of a CUDA device (what :func:`bwd_blocks` sizes for)."""
+    """The SMs of a CUDA device (what :func:`row_blocks` sizes for)."""
     device = torch.device(device)
     return _sm_count(torch.cuda.current_device() if device.index is None
                      else device.index)
@@ -230,7 +253,7 @@ def sm_count(device):
 def column_sum_tol(terms_abs_sum, rows, nblocks):
     """Bound on |kernel - plain| of a float32 dgamma/dbeta column summed
     over ``rows`` rows on a backward grid of ``nblocks`` blocks
-    (:func:`bwd_blocks`), from the orders of the two sums. A block has at
+    (:func:`row_blocks`), from the orders of the two sums. A block has at
     least 4 warps (7 at C = 4096), so a warp adds at most
     ceil(rows / (4 * nblocks)) rows in turn; a block sums its up to 8 warp
     slots; each of the reduce kernel's BWD_REDUCE_WARPS warps adds
@@ -245,25 +268,27 @@ def column_sum_tol(terms_abs_sum, rows, nblocks):
 
 def _kernel(x2d, gamma, beta, eps):
     global launches
-    rows = x2d.shape[0]
+    rows, feat = x2d.shape
     check_kernel_args("layer_norm", x2d, (gamma, beta))
-    x2d, gamma, beta = (_build.aligned(t) for t in (x2d, gamma, beta))
+    x2d, gamma = _build.aligned(x2d), _build.aligned(gamma)
+    beta, dev = _build.aligned(beta), x2d.device
     y = torch.empty_like(x2d)
-    mean = torch.empty(rows, dtype=torch.float32, device=x2d.device)
-    rstd = torch.empty(rows, dtype=torch.float32, device=x2d.device)
+    stats = torch.empty((2, rows), dtype=torch.float32, device=dev)
     if rows == 0:
-        return y, mean, rstd
+        return y, stats[0], stats[1]
     lib = _lib()
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with torch.cuda.device(x2d.device):
+    blocks = row_blocks(rows, sm_count(dev))
+    ptr = stats.data_ptr()
+    with _build.on_device(dev):
         err = lib.mx_layer_norm_fwd(
             _DTYPES[x2d.dtype], _DTYPES[gamma.dtype], x2d.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), rows, x2d.shape[1], float(eps), stream)
+            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), ptr,
+            ptr + 4 * rows, rows, feat, float(eps), blocks,
+            _build.stream_of(dev))
     _build.check(lib, err, "layer_norm_fwd")
     launches += 1
     layout_launches[layout_name(x2d.dtype, gamma.dtype)] += 1
-    return y, mean, rstd
+    return y, stats[0], stats[1]
 
 
 def _kernel_bwd(x2d, dy2d, mean, rstd, gamma):
@@ -276,18 +301,18 @@ def _kernel_bwd(x2d, dy2d, mean, rstd, gamma):
     if rows == 0:
         zero = torch.zeros(feat, dtype=gamma.dtype, device=x2d.device)
         return dx, zero, zero.clone()
-    nblocks = bwd_blocks(rows, sm_count(x2d.device))
+    nblocks = row_blocks(rows, sm_count(x2d.device))
     partials = torch.empty((nblocks, 2, feat), dtype=torch.float32,
                            device=x2d.device)
     dgb = torch.empty((2, feat), dtype=gamma.dtype, device=x2d.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with torch.cuda.device(x2d.device):
+    with _build.on_device(x2d.device):
         err = lib.mx_layer_norm_bwd(
             _DTYPES[x2d.dtype], _DTYPES[gamma.dtype], x2d.data_ptr(),
             dy2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             gamma.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-            dgb.data_ptr(), rows, feat, nblocks, stream)
+            dgb.data_ptr(), rows, feat, nblocks,
+            _build.stream_of(x2d.device))
     _build.check(lib, err, "layer_norm_bwd")
     bwd_launches += BWD_KERNELS
     bwd_layout_launches[layout_name(x2d.dtype, gamma.dtype)] += BWD_KERNELS

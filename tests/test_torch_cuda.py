@@ -309,7 +309,7 @@ def _assert_column_sums(dev, rows, got, ref, dy, xhat):
     kernel ran on; in bfloat16 plus one spacing of the plain value (each
     side rounds its own f32 sum once; at many rows a column can cancel to
     a value whose f32 order error exceeds its spacing)."""
-    nblocks = ln.bwd_blocks(rows, ln.sm_count(dev))
+    nblocks = ln.row_blocks(rows, ln.sm_count(dev))
     dy = dy.float()
     for g, r, terms in zip(got, ref, ((dy * xhat).abs().sum(0),
                                       dy.abs().sum(0))):
@@ -443,6 +443,168 @@ def test_residual_dropout_ln_mask_is_the_dropout_kernels(dev):
     ref = ln.layer_norm(x + dp.dropout(h, key, 0.1, impl="kernel"), gamma,
                         beta, impl="kernel")
     torch.testing.assert_close(y, ref, rtol=0, atol=2e-5)
+
+
+def _full_grid_rows(dev):
+    """The most rows `ln.row_blocks` gives one warp each on this card:
+    past them, its warps walk the rows."""
+    return ln.ROW_WARPS * ln.ROW_BLOCKS_PER_SM * ln.sm_count(dev)
+
+
+def _grid_rows(dev):
+    """{regime of `ln.row_blocks`: row counts that take it} on this card:
+    both ends of each."""
+    full = _full_grid_rows(dev)
+    return {"one row a warp": (1, full), "walk": (full + 1, 3 * full + 5)}
+
+
+_ROW_LAYOUTS = [(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("layout", _ROW_LAYOUTS,
+                         ids=["f32", "bf16", "bf16-x-f32-gamma"])
+@pytest.mark.parametrize("kind", ["one row a warp", "walk"])
+def test_layer_norm_fwd_each_grid_vs_plain(dev, kind, layout):
+    """K4 on each regime of its grid (`ln.row_blocks`: one row a warp,
+    walking warps) against its plain version."""
+    xdt, pdt = layout
+    for rows in _grid_rows(dev)[kind]:
+        g = _gen(dev, rows)
+        x = (torch.randn(rows, 768, generator=g, device=dev) * 2
+             + 0.5).to(xdt)
+        gamma = (1 + 0.3 * torch.randn(768, generator=g, device=dev)).to(pdt)
+        beta = (0.3 * torch.randn(768, generator=g, device=dev)).to(pdt)
+        y, m, r = ln.layer_norm_fwd(x, gamma, beta, impl="kernel")
+        yp, mp, rp = ln.layer_norm_fwd(x, gamma, beta, impl="plain")
+        torch.cuda.synchronize()
+        if xdt == torch.bfloat16:
+            _bf16_close(y, yp)
+        else:
+            torch.testing.assert_close(y, yp, rtol=0, atol=2e-5)
+        torch.testing.assert_close(m, mp, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(r, rp, rtol=2e-5, atol=2e-5)
+
+
+def test_layer_norm_fwd_entry_rejects_a_grid_it_cannot_launch(dev):
+    x = torch.randn(4, 768, device=dev)
+    g, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    y, st = torch.empty_like(x), torch.empty(2, 4, device=dev)
+    lib = ln._lib()
+    for blocks in (0, -1):
+        err = lib.mx_layer_norm_fwd(
+            0, 0, x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            st.data_ptr(), st[1].data_ptr(), 4, 768, 1e-5, blocks,
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+
+
+@pytest.mark.parametrize("layout", _ROW_LAYOUTS,
+                         ids=["f32", "bf16", "bf16-x-f32-gamma"])
+@pytest.mark.parametrize("c", [768, 64, 4096])
+def test_layer_norm_fwd_rows_are_bit_for_bit_any_row_count(dev, layout, c):
+    """A row's y, mean and rstd are the same bits in a call of 1 row, of
+    the rows on each side of the count past which the grid's warps walk
+    and of many rows a warp: the first n rows alone against the same rows
+    of the whole call."""
+    xdt, pdt = layout
+    if c % (16 // (torch.finfo(xdt).bits // 8)):
+        pytest.skip("feature size not a whole number of 16-byte vectors")
+    full = _full_grid_rows(dev)
+    big = 3 * full + 5
+    g = _gen(dev, c)
+    x = (torch.randn(big, c, generator=g, device=dev) * 2 + 0.5).to(xdt)
+    gamma = (1 + 0.3 * torch.randn(c, generator=g, device=dev)).to(pdt)
+    beta = (0.3 * torch.randn(c, generator=g, device=dev)).to(pdt)
+    whole = ln.layer_norm_fwd(x, gamma, beta, impl="kernel")
+    for n in (1, 7, full, full + 1, 2 * full + 3):
+        part = ln.layer_norm_fwd(x[:n], gamma, beta, impl="kernel")
+        assert all(torch.equal(a, b[:n]) for a, b in zip(part, whole)), n
+
+
+@pytest.mark.parametrize("layout", [(torch.float32,) * 3,
+                                    (torch.bfloat16,) * 3,
+                                    (torch.float32, torch.bfloat16,
+                                     torch.float32)],
+                         ids=["f32", "bf16", "f32-x-bf16-h"])
+@pytest.mark.parametrize("device_key", [False, True])
+def test_residual_fwd_rows_bit_for_bit_and_masks_k5s(dev, layout,
+                                                     device_key):
+    """K3's forward at p = 0.1 on every grid: the first n rows alone
+    equal the same rows of the whole call bit for bit (its Philox
+    counters are flat element offsets). Its mask is K5's, bit for bit:
+    at p = 0.5 (scale 2, exact in bf16) K3 equals K3 at p = 0 on the
+    dropout kernel's output on h; and where x is f32 (the lane-to-column
+    map of f32 rows), K3 at p = 0.1 equals K4 on x + the dropout kernel's
+    output on h widened to f32."""
+    xdt, hdt, pdt = layout
+    full = _full_grid_rows(dev)
+    big = 3 * full + 5
+    g = _gen(dev, 3)
+    x = (torch.randn(big, 768, generator=g, device=dev) + 0.3).to(xdt)
+    h = torch.randn(big, 768, generator=g, device=dev).to(hdt)
+    gamma = (1 + 0.3 * torch.randn(768, generator=g, device=dev)).to(pdt)
+    beta = (0.3 * torch.randn(768, generator=g, device=dev)).to(pdt)
+    key = (ph.DeviceKey(torch.tensor([99, 1 << 30], device=dev),
+                        torch.tensor(4, device=dev), 2, {})
+           if device_key else (31415, 92653))
+    whole = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key, 0.1,
+                                       impl="kernel")
+    for n in (1, 7, full, full + 1, 2 * full + 3):
+        part = fb.residual_dropout_ln_fwd(x[:n], h[:n], gamma, beta, key,
+                                          0.1, impl="kernel")
+        assert all(torch.equal(a, b[:n]) for a, b in zip(part, whole)), n
+    half = fb.residual_dropout_ln_fwd(x, h, gamma, beta, key, 0.5,
+                                      impl="kernel")
+    ref = fb.residual_dropout_ln_fwd(x, dp.dropout_fwd(h, key, 0.5,
+                                                       impl="kernel"),
+                                     gamma, beta, key, 0.0, impl="kernel")
+    assert all(torch.equal(a, b) for a, b in zip(half, ref))
+    if xdt == torch.float32:
+        s = x + dp.dropout_fwd(h.float(), key, 0.1, impl="kernel")
+        y, m, r = ln.layer_norm_fwd(s, gamma, beta, impl="kernel")
+        assert torch.equal(whole[0], y)
+        assert torch.equal(whole[1], m) and torch.equal(whole[2], r)
+
+
+def test_row_fwd_graph_replay_equals_eager(dev):
+    """K4 (each layout, each regime of its grid) and K3 captured in one
+    CUDA graph: a replay writes the bits the same calls write eagerly."""
+    ins = []
+    for rows_list in _grid_rows(dev).values():
+        for xdt, pdt in _ROW_LAYOUTS:
+            rows = rows_list[-1]
+            g = _gen(dev, rows)
+            x = torch.randn(rows, 768, generator=g, device=dev).to(xdt)
+            gamma = torch.rand(768, generator=g, device=dev).to(pdt)
+            beta = torch.rand(768, generator=g, device=dev).to(pdt)
+            ins.append((x, gamma, beta))
+    h = torch.randn(9, 768, device=dev)
+
+    def run():
+        outs = [ln.layer_norm_fwd(*a, impl="kernel") for a in ins]
+        x, gamma, beta = ins[0]
+        outs.append(fb.residual_dropout_ln_fwd(x[:9], h, gamma, beta,
+                                               (5, 6), 0.1, impl="kernel"))
+        return outs
+
+    eager = run()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for outs in captured:              # the replay must write them again
+        for t in outs:
+            t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, ref in zip(captured, eager):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 # (B, H, Tq, Tk, d, causal, lengths): ATTN_CASES above, run backward

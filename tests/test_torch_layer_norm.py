@@ -34,7 +34,8 @@ def _inputs(rows, c, seed):
 # rows that are not a multiple of any block; C from a narrow head size to
 # GPT-2's width
 @pytest.mark.parametrize("rows,c", [(13, 64), (37, 96), (10, 768),
-                                    (3, 768)])
+                                    (3, 768), (1, 768), (4, 768), (16, 768),
+                                    (64, 768), (800, 768)])
 def test_matches_pallas_fwd_interpret(rows, c):
     x, g, b = _inputs(rows, c, seed=rows + c)
     y_ref, m_ref, r_ref = jln._fwd(jnp.asarray(x), jnp.asarray(g),
@@ -144,11 +145,44 @@ def test_plain_bwd_is_the_explicit_formula():
     (1, 132, 1), (7, 132, 1), (8, 132, 1), (9, 132, 2), (2112, 132, 264),
     (2113, 132, 264), (8192, 132, 264), (65536, 132, 264), (8192, 78, 156)])
 def test_bwd_grid_is_fixed_per_row_count(rows, sms, blocks):
-    assert tln.bwd_blocks(rows, sms) == blocks
-    assert tln.bwd_blocks(rows, sms) == tln.bwd_blocks(rows, sms)
+    assert tln.row_blocks(rows, sms) == blocks
+    assert tln.row_blocks(rows, sms) == tln.row_blocks(rows, sms)
     # every warp of the grid has at most ceil(rows / warps) rows
-    assert blocks * tln.BWD_WARPS * -(-rows // (blocks * tln.BWD_WARPS)) \
+    assert blocks * tln.ROW_WARPS * -(-rows // (blocks * tln.ROW_WARPS)) \
         >= rows
+
+
+# SMs: the H100 SXM's 132, the H100 PCIe's 114, a smaller card, one SM
+@pytest.mark.parametrize("sms", [132, 114, 78, 1])
+def test_row_grid_covers_every_row_count(sms):
+    """One grid of the row kernels (forward and backward) for each row
+    count from 1 to 65536: every block has a row and every row a warp;
+    one row a warp while every row's warp fits on the card at once, the
+    card's resident blocks, each walking, past that."""
+    full = tln.ROW_WARPS * tln.ROW_BLOCKS_PER_SM * sms
+    for rows in range(1, 65537):
+        blocks = tln.row_blocks(rows, sms)
+        lanes = blocks * tln.ROW_WARPS
+        assert 1 <= blocks and (blocks - 1) * tln.ROW_WARPS < rows
+        if rows <= full:   # one row a warp
+            assert rows <= lanes < rows + tln.ROW_WARPS
+        else:              # the card's resident blocks, each walking
+            assert blocks == tln.ROW_BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("sms", [132, 78])
+def test_row_grid_bound_is_the_one_chip_smoke_checks(sms):
+    """chip_smoke.py checks the forward's bit-for-bit invariance on both
+    sides of the row count past which the grid's warps walk, at one row
+    and at 8192."""
+    import chip_smoke
+
+    rows = chip_smoke.fwd_invariance_rows(sms)
+    assert {1, 8192} <= set(rows)
+    full = tln.ROW_WARPS * tln.ROW_BLOCKS_PER_SM * sms
+    assert {full, full + 1} <= set(rows)
+    assert tln.row_blocks(full, sms) * tln.ROW_WARPS == full
+    assert tln.row_blocks(full + 1, sms) == tln.row_blocks(full, sms)
 
 
 def _kernel_order_sum(terms, nblocks, warps=8):
@@ -186,7 +220,7 @@ def test_column_sum_tol_covers_the_kernel_order(rows):
     terms = (r.normal(0, 1, (rows, c)) * r.lognormal(0, 2, (rows, 1))
              ).astype(onp.float32)
     exact = terms.astype(onp.float64).sum(0)
-    nblocks = tln.bwd_blocks(rows, 132)
+    nblocks = tln.row_blocks(rows, 132)
     tol = tln.column_sum_tol(
         torch.from_numpy(onp.abs(terms).sum(0).astype(onp.float32)), rows,
         nblocks).double().numpy()
@@ -210,7 +244,9 @@ def _bf16_inputs(rows, c, seed):
     return torch.from_numpy(x).bfloat16(), g, b
 
 
-@pytest.mark.parametrize("rows,c", [(13, 64), (10, 768), (3, 768)])
+@pytest.mark.parametrize("rows,c", [(13, 64), (10, 768), (3, 768),
+                                    (1, 768), (4, 768), (16, 768), (64, 768),
+                                    (800, 768)])
 def test_bf16_x_f32_gamma_fwd_matches_pallas_interpret(rows, c):
     xt, g, b = _bf16_inputs(rows, c, seed=rows * 3 + c)
     xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
@@ -290,3 +326,17 @@ def test_check_kernel_args_raises_on_other_layouts(dts):
     if dts[1] == dts[2] and dts[3] == dts[0]:
         assert not tln.supports((4, 64), -1, 64, dts[0], dts[1],
                                 None if h is None else h.dtype)
+
+
+# ... and shapes they do not take: gamma of another width, a companion
+# (dy, h) of another shape, C not a whole number of 16-byte vectors
+@pytest.mark.parametrize("case", ["gamma", "beta", "dy", "h", "feat"])
+def test_check_kernel_args_raises_on_other_shapes(case):
+    c = 66 if case == "feat" else 64
+    x = torch.zeros(4, c)
+    g = torch.zeros(32 if case == "gamma" else c)
+    b = torch.zeros(32 if case == "beta" else c)
+    dy = torch.zeros(4, 32) if case == "dy" else torch.zeros(4, c)
+    h = torch.zeros(3, c) if case == "h" else None
+    with pytest.raises(MXNetError):
+        tln.check_kernel_args("t", x, (g, b), (dy,), h=h)
