@@ -45,7 +45,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    flat program count, a replay bit for bit its function run eagerly,
    K4 launched inside the replay (a profiled replay's device time split
    by kernel, K4's summed), every token the plain path's argmax, every
-   page back after shutdown;
+   page back after shutdown; then the same trace through engines with
+   speculative decoding (k = 4: the n-gram draft, the reference bench's
+   ``gpt_serve_spec``, and the target as its own draft model, each round
+   a draft and a verify graph) and with the int8 KV pool (and int8 under
+   the n-gram draft on 8 requests, a check only): one capture of each
+   graph a run uses, a flat program count, each replay bit for bit its
+   function run eagerly (the trash page left out), K4 25 times a verify
+   replay and 25 k a draft replay, the page ledger after every step, the
+   tokens against the f32 engine's and the plain path's argmax, the
+   self-draft accepting more than 0.9 of its drafts, and the reference's
+   int8 bar (first tokens exact, the divergence-free prefix, a quarter of
+   the bytes a slot);
 4. checks one BERT-base training step at full width (8 x 512 tokens,
    ragged ``valid_length``, dropout 0.1) on the kernels against the same
    step on the plain versions: same weights, same dropout keys, loss and
@@ -100,8 +111,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
-``{"serve": ...}``, ``{"serve_engine": ...}`` and ``{"gelu_dropout": ...}``
-lines, one
+``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}`` and
+``{"gelu_dropout": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -224,6 +235,19 @@ TRACE_B = dict(requests=8, prefix=128, tail_hi=16, new=6, seed=0)
 SERVE_K4_PER_PASS = 2 * LAYERS + 1
 # replays timed with CUDA events for the decode graph's device time
 SERVE_REPLAYS = 20
+# speculative decoding and the int8 pool on trace A (`phase_serve_spec`):
+# the reference bench's `gpt_serve_spec` run (bench.py:1846-1858, k = 4,
+# the n-gram draft), a self-draft (the target as its own draft model, the
+# harness-overhead floor of bench.py:645) and the int8 pool without
+# speculation; int8 under the n-gram draft on the first SPEC_INT8_CHECK
+# requests as a check with no number
+SPEC_K = 4
+SPEC_INT8_CHECK = 8
+# the reference's bars (tests/test_serve.py:459, :730): a self-draft's
+# accept rate; the int8 tokens' divergence-free prefix against the f32
+# engine's, and the int8 pool's bytes a slot against the f32 pool's
+SPEC_SELF_ACCEPT = 0.9
+INT8_PREFIX_SHARE, INT8_BYTES_SHARE = 0.5, 0.3
 
 
 def log(*args):
@@ -612,9 +636,9 @@ def split_qkv(c, base):
 
 # the row counts the main paths give K4 at C = 768: GPTDecoder's decode
 # steps (1, 4, 8: a batch of each request) and prefills (800, 2000, 1000),
-# the serving engine's decode (8) and prefill chunks (16, 32, 64), the
-# BERT-base step (8192)
-SERVE_LN_ROWS = (1, 4, 8, 16, 32, 64, 800, 1000, 2000, ROWS)
+# the serving engine's decode and draft steps (8), verify step (8 slots x
+# (k + 1) = 40) and prefill chunks (16, 32, 64), the BERT-base step (8192)
+SERVE_LN_ROWS = (1, 4, 8, 16, 32, 40, 64, 800, 1000, 2000, ROWS)
 # the whole call whose first rows the forward row kernels' invariance
 # check calls alone (the reference's BERT-base at sequence 512)
 INVARIANCE_ROWS = 65536
@@ -650,13 +674,14 @@ def ln_cases(torch, dev):
 
 def fwd_invariance_rows(sms):
     """The row counts at which the forward row kernels' bit-for-bit
-    invariance is checked: one row, the training step's rows, and both
-    sides of the most rows `ops.layer_norm.row_blocks` gives one warp
-    each (past them the warps walk)."""
+    invariance is checked: one row, the serving engine's verify step
+    (slots x (k + 1)), the training step's rows, and both sides of the
+    most rows `ops.layer_norm.row_blocks` gives one warp each (past them
+    the warps walk)."""
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
     full = ln.ROW_WARPS * ln.ROW_BLOCKS_PER_SM * sms
-    return sorted({1, ROWS, full, full + 1})
+    return sorted({1, SERVE_SLOTS * (SPEC_K + 1), ROWS, full, full + 1})
 
 
 def phase_row_fwd_invariance(torch, dev):
@@ -910,32 +935,35 @@ def _serve_trace_b(onp):
         for _ in range(t["requests"])]
 
 
-def replay_device_ms(torch, slots, reps=SERVE_REPLAYS):
-    """Device time of one replay of the decode graph: CUDA events around
-    ``reps`` replays on the graph's current inputs."""
-    slots._graph.replay()
+def replay_device_ms(torch, slots, name="decode", reps=SERVE_REPLAYS):
+    """Device time of one replay of the engine's ``name`` graph (decode,
+    verify or draft): CUDA events around ``reps`` replays on the graph's
+    current inputs."""
+    graph = slots._graphs[name][0]
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        slots._graph.replay()
+        graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def profiled_replay(torch, slots):
+def profiled_replay(torch, slots, name="decode"):
     """(launches of the port's kernels, device ms, {kernel: device us}) of
-    one profiled replay of the decode graph, after a spin on the card (so
-    tracing is running when the replay starts)."""
+    one profiled replay of the engine's ``name`` graph, after a spin on
+    the card (so tracing is running when the replay starts)."""
     from torch.profiler import ProfilerActivity, profile
 
+    graph = slots._graphs[name][0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(SPIN_CYCLES)
-        slots._graph.replay()
+        graph.replay()
         torch.cuda.synchronize()
     counts, _ = _profile_counts(prof)
     return (counts, _device_ms(prof, skip=SPIN_KERNEL),
@@ -964,23 +992,35 @@ def _device_us_by_kernel(prof, skip=None):
     return out
 
 
-def replay_vs_eager(torch, slots):
-    """The decode graph replayed, and the function it captured run eagerly
-    from the same (cloned) pools and the same static inputs: (tokens
-    equal, pool leaves equal, leaves the step wrote)."""
-    pools = slots._pk + slots._pv
+def replay_vs_eager(torch, slots, name, args, trash=True, read=None):
+    """The engine's ``name`` graph replayed, and the function it captured
+    run eagerly on the same static inputs ``args`` from the same (cloned)
+    pools: (outputs equal, pool leaves equal, leaves the step wrote).
+    With ``trash=False`` page 0 is left out: the rows of inactive slots
+    and the rows past a slot's limit all write the trash page, an
+    index_put with duplicate indices whose order is unspecified on CUDA.
+    ``read`` (bool, the output's shape) keeps the outputs the scheduler
+    reads: a verify or draft row past its slot's limit attends to the
+    trash page, so its token is not the same run to run, and the
+    scheduler never reads it."""
+    graph, out = slots._graphs[name]
+    pools = slots._pool_leaves()
     before = [t.clone() for t in pools]
-    slots._graph.replay()
-    replayed = slots._graph_out.clone()
+    graph.replay()
+    replayed = out.clone()
     after = [t.clone() for t in pools]
     for t, b in zip(pools, before):
         t.copy_(b)
-    eager = slots._decode_fn(slots._table_dev, slots._step_dev,
-                             slots._temp_dev)
+    eager = getattr(slots, f"_{name}_fn")(*args)
     torch.cuda.synchronize()
-    leaves = sum(not torch.equal(a, b) for a, b in zip(after, before))
+    lo = 0 if trash else 1
+    leaves = sum(not torch.equal(a[lo:], b[lo:])
+                 for a, b in zip(after, before))
+    if read is not None:
+        replayed, eager = replayed[read], eager[read]
     return (torch.equal(replayed, eager),
-            all(torch.equal(a, t) for a, t in zip(after, pools)), leaves)
+            all(torch.equal(a[lo:], t[lo:]) for a, t in zip(after, pools)),
+            leaves)
 
 
 def decode_host_split(torch, slots, sched, reps=SERVE_REPLAYS):
@@ -997,13 +1037,15 @@ def decode_host_split(torch, slots, sched, reps=SERVE_REPLAYS):
         torch.cuda.synchronize()
         return (t1 - t0) / reps * 1e3
 
+    graph, graph_out = slots._graphs["decode"]
+
     def launch():
-        slots._graph.replay()
+        graph.replay()
         torch.cuda.synchronize()
 
     def launch_only():
         t0 = time.perf_counter()
-        slots._graph.replay()
+        graph.replay()
         launched.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
 
@@ -1012,8 +1054,7 @@ def decode_host_split(torch, slots, sched, reps=SERVE_REPLAYS):
         fingerprint=ms(slots._fingerprint),
         load_inputs=ms(lambda: slots._load_step(
             sched._last, sched._pos, sched._active, (0, 0), sched._temps)),
-        replay_and_fetch=ms(lambda: (slots._graph.replay(),
-                                     slots._graph_out.cpu())),
+        replay_and_fetch=ms(lambda: (graph.replay(), graph_out.cpu())),
         replay_and_sync=ms(launch))
     for _ in range(reps):
         launch_only()
@@ -1044,13 +1085,94 @@ def _timed(fn, walls):
     return call
 
 
+def _serve_warmup(engine, prompts):
+    """bench_gpt_serve's warm-up (16 and 48 tokens of the first prompt:
+    the 48-token one reuses the 16-token one's first page, so it runs one
+    32-token chunk), and 48 tokens of the second prompt, so every chunk
+    bucket (16, 32, 64) is seen before the trace; three requests of two
+    tokens, so every step's graph runs eagerly, is captured and replays.
+    Returns the seconds it took."""
+    import numpy as onp
+    import torch
+
+    t0 = time.perf_counter()
+    for warm in (onp.resize(prompts[0], 16), onp.resize(prompts[0], 48),
+                 onp.resize(prompts[1], 48)):
+        engine.generate(warm, 2)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _serve_trace(engine, trace, after_step=None):
+    """Trace A through the bench's own submit/step loop: each request
+    submitted at its arrival time, the engine stepped in between.
+    ``after_step()`` runs after every step. Returns (handles, seconds,
+    slot occupancy samples)."""
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
+    prompts, budgets, arrivals = trace
+    occ_gauge = registry.gauge("mx_serve_slot_occupancy")
+    handles, occ = [], []
+    i = 0
+    t0 = time.perf_counter()
+    while i < len(prompts) or not all(h.done for h in handles):
+        now = time.perf_counter() - t0
+        while i < len(prompts) and arrivals[i] <= now:
+            handles.append(engine.submit(prompts[i], budgets[i]))
+            i += 1
+        progressed = engine.step()
+        if after_step is not None:
+            after_step()
+        if handles:
+            occ.append(float(occ_gauge.value or 0.0))
+        if not progressed and i < len(prompts):
+            wait = arrivals[i] - (time.perf_counter() - t0) \
+                if arrivals[i] > now else 0.001
+            time.sleep(min(0.001, max(0.0, wait)))
+    t_total = time.perf_counter() - t0
+    failed = [h for h in handles if h.error is not None]
+    check(not failed and all(h.done for h in handles),
+          f"trace A: {len(failed)} of {len(handles)} requests failed")
+    return handles, t_total, occ
+
+
+def _fill_slots(engine, prompts, new):
+    """Submit one request of ``new`` tokens a slot and step until every
+    slot decodes: the state at which the replays are checked and timed.
+    Returns the handles."""
+    sched = engine._sched
+    handles = [engine.submit(p, new) for p in prompts[:SERVE_SLOTS]]
+    while not all(sched._active) and not any(h.done for h in handles):
+        engine.step()
+    engine.step()
+    return handles
+
+
+def _plain_gap(plain, dev, prompt, tokens):
+    """(largest gap between the plain path's top logit and the served
+    token's, the logits' scale) over a request's tokens, teacher-forced
+    through the plain path."""
+    import numpy as onp
+    import torch
+
+    toks = torch.tensor(tokens, device=dev)[None]
+    p = torch.from_numpy(prompt[None].astype(onp.int64)).to(dev)
+    lp = plain.score(p, toks)[0]
+    check(bool(torch.isfinite(lp).all()), "non-finite plain logits")
+    gap = (lp.max(dim=-1).values
+           - lp.gather(-1, toks[0][:, None])[:, 0]).max().item()
+    return gap, max(1.0, lp.abs().max().item())
+
+
 def phase_serve_engine(torch, dev):
     """serve.ServeEngine on gpt2_small (full width and depth, f32, seeded
     random weights): trace A through the bench's submit/step loop after
     its warm-up, a replay checked bit for bit against the function it
     captured, trace B's shared prefix; every token held to the plain
     path's teacher-forced logits. Returns (the phase's numbers, K4
-    launches through the wrapper)."""
+    launches through the wrapper, what `phase_serve_spec` compares with:
+    the model, trace A's tokens a request, tokens/s, the decode replay's
+    device ms and the f32 pool's bytes a slot)."""
     import numpy as onp
 
     from incubator_mxnet_tpu_torch import serve
@@ -1076,22 +1198,13 @@ def phase_serve_engine(torch, dev):
     slots.prefill_chunk_step = prefill_recorded
     chunks = registry.counter("mx_serve_prefill_chunks_total")
     hits = registry.counter("mx_serve_prefix_hits_total")
-    occ_gauge = registry.gauge("mx_serve_slot_occupancy")
-    prompts, budgets, arrivals = _serve_trace_a(onp)
+    trace = _serve_trace_a(onp)
+    prompts = trace[0]
 
     torch.cuda.synchronize()
     reset_counts()
     chunks0 = chunks.value
-    # bench_gpt_serve's warm-up (16 and 48 tokens of the first prompt: the
-    # 48-token one reuses the 16-token one's first page, so it runs one
-    # 32-token chunk), and 48 tokens of the second prompt, so every chunk
-    # bucket (16, 32, 64) is seen before the trace
-    t0 = time.perf_counter()
-    for warm in (onp.resize(prompts[0], 16), onp.resize(prompts[0], 48),
-                 onp.resize(prompts[1], 48)):
-        engine.generate(warm, 2)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    warm_s = _serve_warmup(engine, prompts)
     count_warm = engine.xla_program_count()
     check(slots.captures == 1, "the warm-up did not capture the decode "
           "graph once")
@@ -1099,26 +1212,8 @@ def phase_serve_engine(torch, dev):
     chunk_walls.clear()
 
     # trace A: the bench's own loop
-    handles, occ = [], []
-    i = 0
-    t0 = time.perf_counter()
-    while i < len(prompts) or not all(h.done for h in handles):
-        now = time.perf_counter() - t0
-        while i < len(prompts) and arrivals[i] <= now:
-            handles.append(engine.submit(prompts[i], budgets[i]))
-            i += 1
-        progressed = engine.step()
-        if handles:
-            occ.append(float(occ_gauge.value or 0.0))
-        if not progressed and i < len(prompts):
-            wait = arrivals[i] - (time.perf_counter() - t0) \
-                if arrivals[i] > now else 0.001
-            time.sleep(min(0.001, max(0.0, wait)))
-    t_total = time.perf_counter() - t0
+    handles, t_total, occ = _serve_trace(engine, trace)
     count_a = engine.xla_program_count()
-    failed = [h for h in handles if h.error is not None]
-    check(not failed and all(h.done for h in handles),
-          f"trace A: {len(failed)} of {len(handles)} requests failed")
     tokens = sum(len(h.tokens) for h in handles)
     ttft = onp.array([h.ttft for h in handles]) * 1e3
     step_ms = onp.array(decode_walls) * 1e3
@@ -1127,17 +1222,15 @@ def phase_serve_engine(torch, dev):
 
     # a replay against the function it captured, at a state with every
     # slot decoding
-    checks = [engine.submit(p, 24) for p in prompts[:SERVE_SLOTS]]
-    while not all(engine._sched._active) and not any(h.done
-                                                     for h in checks):
-        engine.step()
-    engine.step()
+    checks = _fill_slots(engine, prompts, 24)
+    kv_bytes = slots.kv_bytes_per_slot
     # the next step's inputs (the last step's would rewrite what it wrote)
     sched = engine._sched
-    slots._load_step(sched._last, sched._pos, sched._active,
-                     sched._next_key(), sched._temps)
+    args = slots._load_step(sched._last, sched._pos, sched._active,
+                            sched._next_key(), sched._temps)
     k4_before = read_counts()["K4"]
-    same_tokens, same_pools, written = replay_vs_eager(torch, slots)
+    same_tokens, same_pools, written = replay_vs_eager(torch, slots,
+                                                       "decode", args)
     check_k4 = read_counts()["K4"] - k4_before
     log(f"[serve engine] a replay vs its function run eagerly from cloned "
         f"pools on the same inputs: tokens equal={same_tokens}, all "
@@ -1182,13 +1275,9 @@ def phase_serve_engine(torch, dev):
     kernel_dec = GPTDecoder(model)
     worst, agree, total = 0.0, 0, 0
     for p, h in zip(prompts + prompts_b, handles + handles_b):
-        toks = torch.tensor(h.tokens, device=dev)[None]
+        gap, scale = _plain_gap(plain, dev, p, h.tokens)
         prompt = torch.from_numpy(p[None].astype(onp.int64)).to(dev)
-        lp = plain.score(prompt, toks)[0]
-        scale = max(1.0, lp.abs().max().item())
-        gap = (lp.max(dim=-1).values
-               - lp.gather(-1, toks[0][:, None])[:, 0]).max().item()
-        check(bool(torch.isfinite(lp).all()), "non-finite plain logits")
+        toks = torch.tensor(h.tokens, device=dev)[None]
         check(gap <= LOGIT_REL_TOL * scale,
               f"request {h.id}: a token is not the argmax of the plain "
               f"path's logits (gap {gap:.3e}, tol {LOGIT_REL_TOL:g} x "
@@ -1271,7 +1360,378 @@ def phase_serve_engine(torch, dev):
     check(hits_b == TRACE_B["requests"] and offset_chunks >= hits_b,
           "trace B did not reuse the system prompt's pages")
     check(used == 0, f"{used} pages still in use after shutdown")
-    return out, launches["K4"]
+    base = dict(model=model, tokens=[list(h.tokens) for h in handles],
+                tokens_per_s=tokens / t_total, replay_ms=replay_ms,
+                kv_bytes_per_slot=kv_bytes)
+    return out, launches["K4"], base
+
+
+def _read_rows(pos, active, limit, n):
+    """Which of a verify's (``n`` = k + 1) or a draft's (``n`` = k)
+    outputs the scheduler reads: an inactive slot's (its own tokens) and
+    an active slot's rows at positions up to its limit (the room it
+    accepts from); bool (S, n) on the host."""
+    import numpy as onp
+    import torch
+
+    p = onp.asarray(pos)[:, None] + onp.arange(n)
+    return torch.from_numpy(~onp.asarray(active, bool)[:, None]
+                            | (p <= onp.asarray(limit)[:, None]))
+
+
+def _spec_inputs_now(slots, sched):
+    """A speculative round's inputs at the scheduler's state without its
+    page extension: each slot's limit its last mapped position (rows past
+    it write the trash page), the drafts its last token repeated."""
+    import numpy as onp
+
+    pt = slots.page_tokens
+    limit = onp.array([len(r.pages) * pt - 1 if r is not None and a else 0
+                       for r, a in zip(sched._in_slot, sched._active)])
+    drafts = onp.repeat(sched._last[:, None], slots.spec_k, axis=1)
+    return sched._last, drafts, sched._pos, sched._active, limit
+
+
+def _write_pages_disjoint(slots, pos, active, limit, rows):
+    """Fail unless the active slots' write pages (``rows`` positions from
+    ``pos``, those within ``limit``) are mapped and no two slots share
+    one: the int8 write is an index_put of whole pages, and only the
+    trash page may take duplicate writes."""
+    import numpy as onp
+
+    pt = slots.page_tokens
+    seen = set()
+    for s in onp.flatnonzero(active):
+        p = onp.arange(int(pos[s]), min(int(pos[s]) + rows - 1,
+                                        int(limit[s])) + 1)
+        pages = set(slots._table[s, p // pt].tolist())
+        check(0 not in pages and not pages & seen,
+              f"slot {s}: its write pages {sorted(pages)} are the trash "
+              "page or another active slot's")
+        seen |= pages
+
+
+def int8_write_ms(torch, slots, reps=SERVE_REPLAYS):
+    """Device time of the int8 decode step's 2L token writes alone (grow
+    the page scale, re-quantize the page, write the token: the page
+    re-quantization), at the decode graph's current inputs, on copies of
+    the pools: one graph of ``reps`` steps' writes."""
+    S, pt = slots.max_slots, slots.page_tokens
+    step, table = slots._step_dev, slots._table_dev
+    pos, active = step[S:2 * S], step[2 * S:3 * S] != 0
+    rows = torch.arange(S, device=table.device)
+    wpage = torch.where(active, table[rows, pos // pt], 0)
+    woff = pos % pt
+    planes = [(p.clone(), sc.clone())
+              for pools, scales in ((slots._pk, slots._sk),
+                                    (slots._pv, slots._sv))
+              for p, sc in zip(pools, scales)]
+    _, H, _, d = planes[0][0].shape
+    g = torch.Generator(device=table.device).manual_seed(5)
+    t = torch.randn(S, H, d, generator=g, device=table.device)
+
+    def writes():
+        for pool, scale in planes:
+            slots._write_token(pool, scale, wpage, woff, t)
+
+    return time_ms(writes, [()], reps)
+
+
+def _serve_spec_run(torch, dev, run, kw, trace, base, first=None):
+    """One engine over trace A (the bench's warm-up and loop; with
+    ``first``, its first ``first`` requests submitted at once), every
+    check of `phase_serve_spec` on the way. Returns (the run's numbers,
+    K4 launches through the wrapper on its path)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.decoding import GPTDecoder
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
+    model = base["model"]
+    draft = kw.get("draft")
+    engine = serve.ServeEngine(model, max_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN, **kw)
+    slots, sched = engine._sched.slots, engine._sched
+    pt, k = slots.page_tokens, slots.spec_k
+    model_draft = slots.draft_kind == "model"
+    walls = {n: [] for n in ("verify", "draft", "decode", "propose",
+                             "checks")}
+    verify = _timed(slots.spec_verify_step, walls["verify"])
+    decode = _timed(slots.decode_step, walls["decode"])
+    checks = _timed(_write_pages_disjoint, walls["checks"])
+
+    def verify_checked(last, drafts, pos, active, limit):
+        checks(slots, pos, active, limit, k + 1)
+        return verify(last, drafts, pos, active, limit)
+
+    def decode_checked(last, pos, active, key, temps):
+        checks(slots, pos, active, pos, 1)
+        return decode(last, pos, active, key, temps)
+
+    slots.spec_verify_step = verify_checked
+    slots.spec_draft_step = _timed(slots.spec_draft_step, walls["draft"])
+    slots.decode_step = decode_checked
+    slots.spec_propose = _timed(slots.spec_propose, walls["propose"])
+    alloc = slots.allocator
+
+    def ledger():
+        check(alloc.free_pages >= sched._spec_reserved_total(),
+              f"{run}: {alloc.free_pages} free pages under "
+              f"{sched._spec_reserved_total()} reserved")
+        # a decoding slot holds the page of every position it wrote and
+        # none past its position's page; after a round whose tokens end on
+        # a page boundary the page of pos is mapped by the next round's
+        # extension, before its write (the reference's scheduler)
+        for s, req in enumerate(sched._in_slot):
+            if req is not None and sched._active[s]:
+                pos = int(sched._pos[s])
+                check((pos - 1) // pt + 1 <= len(req.pages) <= pos // pt + 1,
+                      f"{run}: slot {s} holds {len(req.pages)} pages at "
+                      f"position {pos}")
+
+    pages_ok = _timed(ledger, walls["checks"])
+
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    prompts, budgets, _ = trace
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+    if first is None:
+        warm_s = _serve_warmup(engine, prompts)
+        count_warm = engine.xla_program_count()
+        for w in walls.values():
+            del w[:]
+        handles, t_total, occ = _serve_trace(
+            engine, trace, pages_ok if k else None)
+        count_trace = engine.xla_program_count()
+    else:
+        handles = [engine.submit(p, b) for p, b in
+                   zip(prompts[:first], budgets[:first])]
+        while not all(h.done for h in handles):
+            engine.step()
+            pages_ok()
+        check(all(h.error is None for h in handles), f"{run} failed")
+    path_k4 = read_counts()["K4"]
+    n_chunks = chunks.value - chunks0
+    out = dict(run=run, **{key: (v if isinstance(v, (int, str)) else
+                                 "GPTDecoder(gpt2_small)")
+                           for key, v in kw.items()})
+    names = ["verify", "draft"] if model_draft else \
+        ["verify"] if k else ["decode"]
+    if first is None:
+        tokens = sum(len(h.tokens) for h in handles)
+        ttft = onp.array([h.ttft for h in handles]) * 1e3
+        # the replays against their functions and their times, at a state
+        # with every slot decoding
+        fills = _fill_slots(engine, prompts, 24)
+        k4_before = read_counts()["K4"]
+        if k:
+            last, drafts, pos, active, limit = _spec_inputs_now(slots, sched)
+            loads = {"verify": (last, drafts, pos, active, limit),
+                     "draft": (last, None, pos, active, limit)}
+        dev_ms, by_kernel, prof_k4 = {}, {}, {}
+        for name in names:
+            read = None
+            if k:
+                args = slots._load_spec(*loads[name])
+                read = _read_rows(pos, active, limit,
+                                  k + (name == "verify")).to(dev)
+            else:
+                args = slots._load_step(sched._last, sched._pos,
+                                        sched._active, sched._next_key(),
+                                        sched._temps)
+            same, pools_same, written = replay_vs_eager(
+                torch, slots, name, args, trash=False, read=read)
+            log(f"[serve spec] {run}: a {name} replay vs its function run "
+                f"eagerly from cloned pools on the same inputs: outputs "
+                + (f"the scheduler reads ({int(read.sum())} of "
+                   f"{read.numel()}) " if read is not None else "")
+                + f"equal={same}, every pool leaf but the trash page equal="
+                f"{pools_same} ({written} written)")
+            check(same and pools_same and written > 0,
+                  f"{run}: the {name} graph's replay differs from its "
+                  "function run eagerly")
+            dev_ms[name] = replay_device_ms(torch, slots, name)
+            counts, _, by_kernel[name] = profiled_replay(torch, slots, name)
+            prof_k4[name] = counts["K4"]
+        measure_k4 = read_counts()["K4"] - k4_before
+        mem = torch.cuda.memory_allocated()
+        write_ms = int8_write_ms(torch, slots) if slots._int8 else None
+        engine._drive_until(fills)
+        pages_ok()
+    captures = dict(slots.captures_by_step)
+    stats = engine.spec_stats()
+    kv_bytes = slots.kv_bytes_per_slot
+    engine.shutdown(drain=True)
+    used = alloc.used_pages
+    check(used == 0, f"{run}: {used} pages still in use after shutdown")
+    expected_caps = {n: int(n in names) for n in ("decode", "verify",
+                                                  "draft")}
+    check(captures == expected_caps,
+          f"{run}: captures {captures}, expected {expected_caps}")
+
+    # every token against the f32 engine's (phase_serve_engine) and, where
+    # it differs, against the plain path's teacher-forced logits (the same
+    # tokens were checked there)
+    same_tokens, total, worst, rechecked = 0, 0, 0.0, 0
+    prefix, first_ok, first_n = 0, True, 0
+    plain = GPTDecoder(model, impl="plain")
+    for i, h in enumerate(handles):
+        ref = base["tokens"][i]
+        n = 0
+        while n < len(ref) and n < len(h.tokens) and h.tokens[n] == ref[n]:
+            n += 1
+        same_tokens += sum(a == b for a, b in zip(h.tokens, ref))
+        total += len(ref)
+        prefix += n
+        check(len(h.tokens) == len(ref) and all(
+            0 <= t < VOCAB for t in h.tokens), f"{run}: request {h.id} "
+            "returned malformed tokens")
+        if slots._int8:
+            if h.shared_tokens == 0:   # a single chunk, no cached prefix
+                first_n += 1
+                first_ok &= h.tokens[0] == ref[0]
+        elif h.tokens != ref:
+            gap, scale = _plain_gap(plain, dev, prompts[i], h.tokens)
+            rechecked += 1
+            worst = max(worst, gap / scale)
+            check(gap <= LOGIT_REL_TOL * scale,
+                  f"{run}: request {h.id}: a token is not the argmax of the "
+                  f"plain path's logits (gap {gap:.3e}, tol "
+                  f"{LOGIT_REL_TOL:g} x {scale:.2f})")
+    expected_k4 = SERVE_K4_PER_PASS * (
+        n_chunks * (2 if model_draft else 1)
+        + 2 * sum(k if n == "draft" else 1 for n in names))
+    out.update(tokens_equal_to_f32_engine=same_tokens, tokens=total,
+               captures=captures, pages_used_after_shutdown=used,
+               prefill_chunks=n_chunks, k4_launches_through_wrapper=path_k4,
+               k4_launches_expected=expected_k4 if first is None else None)
+    log(f"[serve spec] {run}: {same_tokens} of {total} tokens equal to the "
+        f"f32 engine's ({len(handles)} requests); "
+        + (f"first token equal in {first_n} requests without a cached "
+           f"prefix: {first_ok}; divergence-free prefix {prefix / total:.3f}"
+           f" (bar {INT8_PREFIX_SHARE})" if slots._int8 else
+           f"{rechecked} requests differ, each token within "
+           f"{LOGIT_REL_TOL:g} of the plain path's argmax (worst "
+           f"{worst:.3e})")
+        + f"; captures {captures}; K4 through the wrapper {path_k4}; "
+        f"pages in use after shutdown {used}")
+    check(path_k4 > 0, f"{run}: K4 was not launched on the path")
+    if slots._int8:
+        check(first_ok, f"{run}: a single-chunk prompt's first token "
+              "differs from the f32 engine's")
+        check(prefix / total >= INT8_PREFIX_SHARE,
+              f"{run}: int8 drift too large: {prefix}/{total}")
+        check(kv_bytes < INT8_BYTES_SHARE * base["kv_bytes_per_slot"],
+              f"{run}: {kv_bytes} bytes a slot, not under "
+              f"{INT8_BYTES_SHARE} of the f32 pool's "
+              f"{base['kv_bytes_per_slot']}")
+        out.update(first_token_checked=first_n,
+                   divergence_free_prefix=prefix / total,
+                   kv_bytes_per_slot=kv_bytes,
+                   kv_bytes_per_slot_f32=base["kv_bytes_per_slot"])
+    else:
+        out.update(worst_token_gap_rel=worst, requests_rechecked=rechecked)
+    if k:
+        out.update(spec_stats=stats, accept_rate=stats["accept_rate"])
+        if model_draft and draft is not None:
+            check(stats["accept_rate"] > SPEC_SELF_ACCEPT,
+                  f"{run}: accept rate {stats['accept_rate']}, not above "
+                  f"{SPEC_SELF_ACCEPT}")
+    if first is not None:
+        return out, path_k4
+
+    check(count_warm == count_trace,
+          f"{run}: the program count moved after the warm-up "
+          f"({count_warm} -> {count_trace})")
+    check(path_k4 == expected_k4, f"{run}: {path_k4} K4 launches through "
+          f"the wrapper, expected {expected_k4}")
+    for name in names:
+        want = SERVE_K4_PER_PASS * (k if name == "draft" else 1)
+        check(prof_k4[name] == want, f"{run}: a profiled {name} replay "
+              f"launched {prof_k4[name]} K4, expected {want}")
+    k4_us = {n: sum(us for key, us in by_kernel[n].items()
+                    if key.startswith("K4 ")) for n in names}
+    step_walls = {n: float(onp.median(walls[n]) * 1e3) for n in names}
+    out.update(
+        tokens_per_s=tokens / t_total, seconds=t_total, warmup_s=warm_s,
+        vs_base=tokens / t_total / base["tokens_per_s"],
+        ttft_p50_ms=float(onp.percentile(ttft, 50)),
+        ttft_p99_ms=float(onp.percentile(ttft, 99)),
+        mean_slot_occupancy=float(onp.mean(occ)),
+        # the host's page checks after every step, inside the trace's wall
+        page_checks_s=float(sum(walls["checks"])),
+        program_count=dict(after_warmup=count_warm, after_trace=count_trace),
+        steps={n: len(walls[n]) for n in names},
+        step_wall_ms_median=step_walls, replay_device_ms=dev_ms,
+        idle_share=1 - sum(dev_ms.values()) / sum(step_walls.values()),
+        replay_k4_launches=prof_k4, replay_k4_device_us=k4_us,
+        replay_device_us_by_kernel={
+            n: dict(sorted(v.items(), key=lambda kv: -kv[1])[:8])
+            for n, v in by_kernel.items()},
+        memory_allocated_after_captures=mem)
+    if k and not model_draft:
+        out["propose_host_ms_median"] = float(onp.median(walls["propose"])
+                                              * 1e3)
+    if write_ms is not None:
+        out.update(page_write_device_ms=write_ms,
+                   page_write_share=write_ms / dev_ms["decode"],
+                   replay_device_ms_f32=base["replay_ms"],
+                   vs_f32_replay=dev_ms["decode"] / base["replay_ms"])
+    log(f"[serve spec] {run}: {tokens} tokens of {len(handles)} requests in "
+        f"{t_total:.3f} s: {out['tokens_per_s']:.1f} tokens/s "
+        f"({out['vs_base']:.3f} of the f32 engine's), TTFT p50 "
+        f"{out['ttft_p50_ms']:.2f} ms p99 {out['ttft_p99_ms']:.2f} ms; "
+        f"{out['steps']} steps, wall median {step_walls} ms, one replay's "
+        f"device time {dev_ms} ms: idle share {out['idle_share']:.3f}; K4 in "
+        f"a profiled replay {prof_k4} ({k4_us} us); program count "
+        f"{count_warm} -> {count_trace}; memory allocated {mem} bytes"
+        + (f"; accept rate {stats['accept_rate']:.4f}" if k else "")
+        + (f"; n-gram proposal {out['propose_host_ms_median']:.4f} ms a "
+           "round on the host" if "propose_host_ms_median" in out else "")
+        + (f"; the page re-quantization {write_ms:.4f} ms of the replay's "
+           f"{dev_ms['decode']:.4f} ({out['page_write_share']:.3f}), the f32 "
+           f"replay {base['replay_ms']:.4f} ms" if write_ms is not None
+           else ""))
+    return out, path_k4
+
+
+def phase_serve_spec(torch, dev, base):
+    """serve.ServeEngine on gpt2_small (the model of `phase_serve_engine`)
+    with speculative decoding and the int8 pool, on trace A after the
+    bench's warm-up: (a) the n-gram draft, k = 4; (b) the target as its
+    own draft model; (c) the int8 pool, no speculation; (d) the int8 pool
+    under the n-gram draft on the first requests, a check only. Checks:
+    one capture of each graph the run uses and a flat program count; a
+    verify, draft or decode replay bit for bit its function run eagerly
+    (the trash page left out); K4 25 times a verify replay and 25 k a
+    draft replay; after every step the page ledger (free pages at least
+    the reservations, each decoding slot the pages of the positions it
+    wrote and none past its position's page)
+    and no two active slots on one write page; every page back after
+    shutdown; (a), (b): every token the plain path's argmax within
+    LOGIT_REL_TOL, (b) accepting more than 0.9 of its drafts; (c), (d):
+    the reference's int8 bar against the f32 engine's tokens. Returns
+    (the phase's numbers, K4 launches through the wrapper)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch.models.decoding import GPTDecoder
+
+    trace = _serve_trace_a(onp)
+    runs = [("ngram", dict(spec_k=SPEC_K, draft="ngram"), None),
+            ("self_draft", dict(spec_k=SPEC_K,
+                                draft=GPTDecoder(base["model"])), None),
+            ("int8", dict(kv_dtype="int8"), None),
+            ("int8_ngram", dict(kv_dtype="int8", spec_k=SPEC_K,
+                                draft="ngram"), SPEC_INT8_CHECK)]
+    out, k4 = {}, 0
+    for run, kw, first in runs:
+        out[run], n = _serve_spec_run(torch, dev, run, kw, trace, base,
+                                      first)
+        k4 += n
+        torch.cuda.empty_cache()
+    return out, k4
 
 
 def phase_times(torch, attn, lns):
@@ -3143,8 +3603,12 @@ def main():
     phase_small_reference(torch, dev)
     launches, served = phase_serve(torch, dev)
     torch.cuda.empty_cache()
-    serve_engine, engine_k4 = phase_serve_engine(torch, dev)
+    serve_engine, engine_k4, base = phase_serve_engine(torch, dev)
     launches["K4"] += engine_k4
+    torch.cuda.empty_cache()
+    serve_spec, spec_k4 = phase_serve_spec(torch, dev, base)
+    launches["K4"] += spec_k4
+    del base
     torch.cuda.empty_cache()
     check_result = phase_train_step_check(torch, dev)
     torch.cuda.empty_cache()
@@ -3175,7 +3639,7 @@ def main():
             for name, n in v.items():
                 by_layout[k][name] = by_layout[k].get(name, 0) + n
     by_layout["K4"]["f32"] += sum(r["k4_launches"] for r in served) \
-        + engine_k4
+        + engine_k4 + spec_k4
     log(f"[done] launches on the main paths (serving, the serving "
         f"engine's warm-up and traces + {STEPS} timed "
         f"training steps in f32 and {STEPS} under AMP + the DataParallel "
@@ -3200,6 +3664,7 @@ def main():
     log(json.dumps({"train_dp": dp_f32}))
     log(json.dumps({"serve": served}))
     log(json.dumps({"serve_engine": serve_engine}))
+    log(json.dumps({"serve_spec": serve_spec}))
     gd_path["max_abs_err_vs_float64"] = {
         name: {"k6": k6, "erff": erff}
         for name, (k6, erff) in gd_accuracy.items()}

@@ -1,7 +1,8 @@
 """KV-cache incremental decoding for causal LMs (the serving path).
 
 Port of `incubator_mxnet_tpu/models/decoding.py` (`bucket_prompt` :45,
-`chunk_buckets` :83, `bucket_chunk` :107, `GPTDecoder` :155). The reference compiles the whole decode as one XLA
+`chunk_buckets` :83, `bucket_chunk` :107, `GPTDecoder` :155,
+`NgramProposer` :436). The reference compiles the whole decode as one XLA
 program; the port runs eagerly on the card:
 
 - a static KV cache ``(L, N, H, S, d)`` allocated once per call and
@@ -22,19 +23,23 @@ FFN, tied LM head), so greedy decode emits the tokens of the full-forward
 loop. ``impl`` ("auto" | "kernel" | "plain") is handed to both kernels'
 wrappers; "plain" runs the same path on the plain versions, which is
 what the kernels are held against on the card.
+
+`NgramProposer` is the host draft source of the serving engine's
+speculative decoding (numpy, no device work).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as onp
 import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
 from ..ops.layer_norm import layer_norm
 
-__all__ = ["GPTDecoder", "bucket_prompt", "PROMPT_BUCKETS", "chunk_buckets",
-           "bucket_chunk", "sample", "make_generator"]
+__all__ = ["GPTDecoder", "NgramProposer", "bucket_prompt", "PROMPT_BUCKETS",
+           "chunk_buckets", "bucket_chunk", "sample", "make_generator"]
 
 #: Default pad-to-bucket prompt lengths (as in the reference): prompts
 #: snap to the smallest bucket that holds them, so the cache shapes and
@@ -287,3 +292,50 @@ class GPTDecoder:
         for i in range(n_new - 1):
             logits.append(self._step(cont[:, i], t0 + i, ck, cv))
         return torch.stack(logits, dim=1)
+
+
+class NgramProposer:
+    """Model-free draft source for speculative decoding.
+
+    Proposes the ``k`` tokens that followed the most recent earlier
+    occurrence of the sequence's longest matching suffix n-gram (up to
+    ``max_ngram`` tokens): greedy decode of small models, and structured
+    output generally, repeats itself, so a host suffix match drafts useful
+    continuations with no device work. When nothing matches it proposes
+    a repeat of the last token.
+
+    A proposal is only a hint: the target model verifies every drafted
+    token (`serve.SlotDecoder.spec_verify_step`), so a bad draft costs
+    acceptance rate, never correctness.
+    """
+
+    def __init__(self, k, max_ngram=3):
+        self.k = int(k)
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.max_ngram = int(max_ngram)
+        if self.max_ngram < 1:
+            raise ValueError(f"max_ngram must be >= 1, got {max_ngram}")
+
+    def propose(self, seq):
+        """Draft ``k`` tokens continuing the 1-D token ids ``seq`` (prompt
+        and everything generated so far). Returns ``(k,)`` int32 numpy."""
+        seq = onp.asarray(seq, onp.int32).reshape(-1)
+        if seq.size == 0:
+            return onp.zeros(self.k, onp.int32)
+        out = onp.full(self.k, seq[-1], onp.int32)     # fallback: repeat
+        for n in range(min(self.max_ngram, seq.size - 1), 0, -1):
+            pat = seq[-n:]
+            # candidate windows strictly before the suffix itself
+            wins = onp.lib.stride_tricks.sliding_window_view(seq, n)[:-1]
+            hits = onp.flatnonzero((wins == pat).all(axis=1))
+            if hits.size == 0:
+                continue
+            i = int(hits[-1])                          # most recent match
+            cont = seq[i + n:i + n + self.k]
+            if cont.size == 0:
+                continue
+            out[:cont.size] = cont
+            out[cont.size:] = cont[-1]
+            return out
+        return out

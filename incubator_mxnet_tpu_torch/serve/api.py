@@ -1,5 +1,6 @@
 """`serve.ServeEngine`, the thread-safe front door of the serving engine
-(port of `incubator_mxnet_tpu/serve/api.py`, `ServeEngine` :41).
+(port of `incubator_mxnet_tpu/serve/api.py`, `ServeEngine` :41, with its
+speculative-decoding arguments and `spec_stats` :84-151).
 
 Three ways in, one engine:
 
@@ -13,8 +14,9 @@ Threading: one `threading.Lock` guards the scheduler; `step()` holds it
 for a whole iteration, `submit()` only for admission. A background driver
 (``start()``) can own the step loop while client threads submit and
 stream; with no driver, whichever thread waits on a result steps the
-engine itself. On the card the decode graph is captured in the thread
-that steps (``"thread_local"`` capture mode, `engine.SlotDecoder`).
+engine itself. On the card the decode, verify and draft graphs are
+captured in the thread that steps (``"thread_local"`` capture mode,
+`engine.SlotDecoder`).
 ``shutdown(drain=True)`` stops admission, finishes the requests already in
 slots and fails the never-admitted queue.
 """
@@ -54,7 +56,8 @@ class ServeEngine:
     page_tokens / prefill_chunk / n_pages / kv_dtype / prefix_reuse
         Paged-KV knobs, forwarded to `SlotDecoder` (defaults from
         ``MXNET_SERVE_PAGE_TOKENS``, ``MXNET_SERVE_PREFILL_CHUNK``,
-        ``MXNET_SERVE_KV_DTYPE``).
+        ``MXNET_SERVE_KV_DTYPE``; ``kv_dtype="int8"`` stores the pool as
+        int8 with one scale per page and head).
     policy : "fifo" | "sjf", optional
         Admission order (default ``MXNET_SERVE_POLICY`` or fifo).
     max_queue : int, optional
@@ -71,8 +74,14 @@ class ServeEngine:
     seed : int
         Seed of the step keys of sampled decoding (greedy ignores it).
     spec_k : int, optional
-        Speculative decoding: not ported yet, so a value above 0 (or
-        ``MXNET_SERVE_SPEC_K`` > 0) raises `MXNetError`.
+        Speculative-decoding draft length (default ``MXNET_SERVE_SPEC_K``
+        or 0 = off). Requires greedy decoding; the output stays token for
+        token that of ``spec_k=0``.
+    draft : str | GPTModel | GPTDecoder, optional
+        Draft source when ``spec_k > 0``: ``"ngram"`` (the host n-gram
+        proposer, no device work; the default, also by
+        ``MXNET_SERVE_SPEC_DRAFT``) or a small model that shares the
+        target's vocabulary.
     """
 
     def __init__(self, block_or_decoder, max_slots=8, max_len=None,
@@ -80,12 +89,13 @@ class ServeEngine:
                  kv_dtype=None, prefix_reuse=True, policy=None,
                  max_queue=None, deadline_s=None, eos_id=None,
                  do_sample=False, top_k=None, temperature=1.0, seed=0,
-                 spec_k=None):
+                 spec_k=None, draft=None):
         slots = SlotDecoder(block_or_decoder, max_slots=max_slots,
                             max_len=max_len, page_tokens=page_tokens,
                             prefill_chunk=prefill_chunk, n_pages=n_pages,
                             kv_dtype=kv_dtype, prefix_reuse=prefix_reuse,
-                            do_sample=do_sample, top_k=top_k, spec_k=spec_k)
+                            do_sample=do_sample, top_k=top_k, spec_k=spec_k,
+                            draft=draft)
         if policy is None:
             policy = os.environ.get("MXNET_SERVE_POLICY", "fifo")
         if max_queue is None:
@@ -136,10 +146,15 @@ class ServeEngine:
         """Resident KV pool bytes per decode slot (0 before first use)."""
         return self._sched.slots.kv_bytes_per_slot
 
+    def spec_stats(self):
+        """Speculative-decoding counters: ``{"k", "draft", "drafted",
+        "accepted", "accept_rate"}`` (zeros and None when ``spec_k=0``)."""
+        return self._sched.slots.spec_stats()
+
     def xla_program_count(self):
-        """Programs built: prefill chunk buckets seen plus the decode
-        program's builds (`SlotDecoder.xla_program_count`); flat in
-        steady state."""
+        """Programs built: prefill chunk buckets seen plus the decode,
+        verify and draft steps' builds (`SlotDecoder.xla_program_count`);
+        flat in steady state."""
         return self._sched.slots.xla_program_count()
 
     # -- submission ---------------------------------------------------------
@@ -296,7 +311,7 @@ class ServeEngine:
         """Stop the engine. ``drain=True`` finishes the requests already in
         slots (new work and the never-admitted queue are rejected with
         `EngineClosed`); ``drain=False`` fails everything at once.
-        Releases the device KV pool and the decode graph."""
+        Releases the device KV pools and the graphs."""
         with self._lock:
             self._sched.close(drain=drain)
             running = [r for r in self._sched._in_slot if r is not None]

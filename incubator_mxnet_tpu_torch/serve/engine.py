@@ -1,13 +1,19 @@
 """Paged slot-cache decoding, the device half of `serve` (port of
 `incubator_mxnet_tpu/serve/engine.py`: `PagePoolExhausted` :137,
-`PageAllocator` :144, `PrefixCache` :232, `SlotDecoder` :361), in the
-reference's base configuration: a KV pool in the weights' dtype, no
-speculative decoding, one card.
+`PageAllocator` :144, `PrefixCache` :232, `SlotDecoder` :361) on one card:
+the KV pool in the weights' dtype or in int8, and speculative decoding
+with an n-gram or a draft-model draft.
 
 - **page pool**: per layer, one K and one V tensor of shape ``(n_pages,
   H, page_tokens, d)``, allocated once and written in place. Page 0 is
   the *trash* page: unallocated page-table entries and the writes of
   inactive slots land there, and no mask ever admits it.
+- **int8 pool** (``kv_dtype="int8"``): the K and V tensors hold int8
+  codes and each layer adds two ``(n_pages, H)`` f32 scale planes, one
+  scale per (page, head) in the symmetric +-127 convention of
+  `contrib.quantization`. A prefill chunk quantizes its whole pages; a
+  token write raises the page's scale only when it must (grow-only) and
+  re-quantizes that one page. Reads dequantize the gathered pages.
 - **page table**: a host ``(max_slots, pages_per_slot)`` array mapping
   each slot's token range to pool pages, copied into a device buffer only
   when an allocation changed it. Decode gathers each slot's view of the
@@ -18,7 +24,7 @@ speculative decoding, one card.
   its pages), so a shared system prompt is prefilled once and its pages
   attached read-only to every later request that starts with it.
 
-Two functions run against the pool:
+Functions that run against the pool:
 
 - **chunked prefill** (`SlotDecoder.prefill_chunk_step`, eager): one
   page-aligned chunk of one request's prompt, padded to a chunk bucket
@@ -27,19 +33,37 @@ Two functions run against the pool:
   gathered view under the causal-with-offset mask (key j is visible to
   row i iff j <= t_start + i; K1's causal mask is aligned at query 0 and
   cannot express it) and samples a first token from the chunk's last
-  real row: one host sync, the token.
+  real row: one host sync, the token. Under int8 the chunk attends to its
+  own K/V before quantization. A model draft prefills the same chunk into
+  its own pools.
 - **decode** (`SlotDecoder.decode_step`): one token for every slot. Each
   slot writes its new K/V at ``table[s, pos // page_tokens]``, offset
   ``pos % page_tokens`` (inactive slots write to the trash page), gathers
-  its view, attends under ``key <= pos`` in f32 and samples. On a CUDA
-  model the step is **one CUDA graph**, captured once over the static
-  pool and input buffers and replayed every step; on a CPU model the same
-  function runs eagerly.
+  its view, attends under ``key <= pos`` in f32 and samples.
+- **verify** (`SlotDecoder.spec_verify_step`, ``spec_k > 0``): the
+  target runs ``k + 1`` rows for every slot in one batched pass, row
+  ``i`` consuming ``[last, d_1..d_k][i]`` at position ``pos + i`` and
+  attending to positions ``<= pos + i``, so the pass equals ``k + 1``
+  sequential decode steps; each row's K/V is written column by column
+  (the int8 scales depend on the order), rows past the slot's mapped
+  pages write to the trash page, and the output is each row's greedy
+  token.
+- **draft** (`SlotDecoder.spec_draft_step`, model drafts only): ``k``
+  unrolled greedy decode steps of the draft model against its own
+  per-layer pools (same page table and allocator). The ``"ngram"`` draft
+  runs on the host (`models.decoding.NgramProposer`) with no device work.
 
-Every LayerNorm of both is the LayerNorm kernel (K4), through
-`models.decoding.GPTDecoder`'s layer helpers. The int8 pool, speculative
-decoding, the disaggregation hand-off and the sharding and HBM methods of
-the reference are not ported yet (`ROADMAP.md` §1 item 2).
+On a CUDA model each of decode, verify and draft is **one CUDA graph**,
+captured once over the static pools and input buffers and replayed every
+call; on a CPU model the same functions run eagerly. Acceptance of drafts
+is host work in the scheduler.
+
+Every LayerNorm of all four is the LayerNorm kernel (K4), through
+`models.decoding.GPTDecoder`'s layer helpers: 2 a layer and the final one
+a pass, over S rows in decode, S (k + 1) in verify, S in each draft step.
+The disaggregation hand-off (``copy_pages_out``/``copy_pages_in``), the
+HBM-census owners and the sharding pre-flight of the reference are not
+ported yet (`ROADMAP.md` §1 item 2).
 
 Stale-row safety (the reference's argument, per page): position ``p`` of
 a slot enters the mask only once the slot's ``pos`` reaches ``p``, and
@@ -59,7 +83,9 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from ..models.decoding import GPTDecoder, bucket_chunk, chunk_buckets
+from ..contrib.quantization import quantize_symmetric
+from ..models.decoding import (GPTDecoder, NgramProposer, bucket_chunk,
+                               chunk_buckets)
 from ..ops import _philox
 from ..telemetry import registry
 from ..util import env_int
@@ -73,7 +99,8 @@ DEFAULT_PAGE_TOKENS = 16
 #: Prefill chunk ceiling in tokens (MXNET_SERVE_PREFILL_CHUNK); rounded
 #: up to a multiple of the page size.
 DEFAULT_PREFILL_CHUNK = 64
-_NOT_PORTED = "is not ported yet (ROADMAP.md §1 item 2)"
+#: The steps replayed as CUDA graphs on the card.
+_STEPS = ("decode", "verify", "draft")
 
 PAD_TOKENS = registry.counter(
     "mx_decode_bucket_pad_tokens_total",
@@ -307,6 +334,18 @@ def _gumbel(shape, key):
     return (-torch.log(-torch.log(u))).float().reshape(shape)
 
 
+def _as_decoder(source, what):
+    """``source`` as a `GPTDecoder` (a `GPTDecoder`, or a GPT-shaped model
+    it wraps)."""
+    if isinstance(source, GPTDecoder):
+        return source
+    if hasattr(source, "blocks") and hasattr(source, "position_embed"):
+        return GPTDecoder(source)
+    raise TypeError(
+        f"{what} needs a GPTDecoder or a GPT-shaped model (blocks + "
+        f"position_embed), got {type(source).__name__}")
+
+
 class SlotDecoder:
     """Paged slot-cache decoder over a `GPTDecoder`, or the `GPTModel` it
     would wrap.
@@ -329,9 +368,10 @@ class SlotDecoder:
     n_pages : int
         Pool pages including the trash page 0. Defaults to full backing
         for every slot (``max_slots * pages_per_slot + 1``).
-    kv_dtype : "fp"
+    kv_dtype : "fp" or "int8"
         KV storage (default ``MXNET_SERVE_KV_DTYPE`` or "fp": the weights'
-        dtype). "int8" raises `MXNetError`: it is not ported yet.
+        dtype). "int8" stores each layer's pool as int8 codes with one f32
+        scale per (page, head).
     prefix_reuse : bool
         Arm the shared-prefix cache (default True).
     do_sample / top_k
@@ -340,20 +380,27 @@ class SlotDecoder:
         step's key.
     spec_k : int
         Speculative decoding draft length (default ``MXNET_SERVE_SPEC_K``
-        or 0). A value above 0 raises `MXNetError`: not ported yet.
+        or 0 = off). Needs greedy decoding.
+    draft : "ngram", GPTDecoder or GPTModel
+        Draft source when ``spec_k > 0`` (default
+        ``MXNET_SERVE_SPEC_DRAFT`` or "ngram", the host
+        `models.decoding.NgramProposer`): a model draft shares the
+        target's vocabulary and device and holds at least ``max_len``
+        positions.
 
-    On a CUDA model the decode step is captured as a CUDA graph: a weight
-    fingerprint's first step runs eagerly on a side stream (kernel loads,
-    cuBLAS handles), its second captures the step and replays it, and
-    every later step copies its inputs into the graph's static buffers
-    and replays. The capture runs in whichever thread steps the engine
-    (the driver thread of `ServeEngine.start`), in the
-    ``"thread_local"`` capture mode, so other threads' CUDA calls do not
-    invalidate it. A capture that fails raises `MXNetError`; nothing falls
-    back to eager steps on the card. The graph reads the weights by
-    address: a weight updated in place is seen, and one replaced by a new
-    tensor changes the fingerprint (the ``data_ptr`` of every parameter),
-    which drops the graph so the next steps capture again. The prefix
+    On a CUDA model the decode step, the verify step and the draft step
+    are each captured as a CUDA graph: a weight fingerprint's first call
+    of a step runs it eagerly on a side stream (kernel loads, cuBLAS
+    handles), the second captures it and replays it, and every later call
+    copies its inputs into the graph's static buffers and replays. The
+    capture runs in whichever thread steps the engine (the driver thread
+    of `ServeEngine.start`), in the ``"thread_local"`` capture mode, so
+    other threads' CUDA calls do not invalidate it. A capture that fails
+    raises `MXNetError`; nothing falls back to eager steps on the card.
+    The graphs read the weights by address: a weight updated in place is
+    seen, and one replaced by a new tensor changes the fingerprint (the
+    ``data_ptr`` of every parameter of the target and the draft model),
+    which drops the graphs so the next calls capture again. The prefix
     cache keeps pages prefilled under earlier weights, as the reference's
     does (its hot swap lets in-flight KV continue under new weights): a
     caller that swaps weights and wants fresh prefixes clears
@@ -363,15 +410,8 @@ class SlotDecoder:
     def __init__(self, source, max_slots=8, max_len=None, page_tokens=None,
                  prefill_chunk=None, n_pages=None, kv_dtype=None,
                  prefix_reuse=True, do_sample=False, top_k=None,
-                 spec_k=None):
-        if isinstance(source, GPTDecoder):
-            self._dec = source
-        elif hasattr(source, "blocks") and hasattr(source, "position_embed"):
-            self._dec = GPTDecoder(source)
-        else:
-            raise TypeError(
-                "SlotDecoder needs a GPTDecoder or a GPT-shaped model "
-                f"(blocks + position_embed), got {type(source).__name__}")
+                 spec_k=None, draft=None):
+        self._dec = _as_decoder(source, "SlotDecoder")
         model_max = self._dec._max_length
         self.max_len = int(max_len) if max_len is not None else model_max
         if self.max_len > model_max:
@@ -401,17 +441,8 @@ class SlotDecoder:
             raise ValueError(
                 f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r} "
                 "(MXNET_SERVE_KV_DTYPE)")
-        if kv_dtype == "int8":
-            raise MXNetError(f"the int8 KV pool {_NOT_PORTED}")
         self.kv_dtype = kv_dtype
-        spec_k = int(spec_k) if spec_k is not None else \
-            env_int("MXNET_SERVE_SPEC_K", 0)
-        if spec_k < 0:
-            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        if spec_k:
-            raise MXNetError(f"speculative decoding (spec_k={spec_k}) "
-                             f"{_NOT_PORTED}")
-        self.spec_k = 0
+        self._int8 = kv_dtype == "int8"
 
         default_pages = self.max_slots * self.pages_per_slot + 1
         self.n_pages = int(n_pages) if n_pages is not None else default_pages
@@ -427,25 +458,82 @@ class SlotDecoder:
         self._do_sample = bool(do_sample)
         self._top_k = None if top_k is None else int(top_k)
 
+        # -- speculative decoding ------------------------------------------
+        self.spec_k = int(spec_k) if spec_k is not None else \
+            env_int("MXNET_SERVE_SPEC_K", 0)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if draft is None:
+            draft = os.environ.get("MXNET_SERVE_SPEC_DRAFT", "ngram")
+        self.draft_kind = "off"
+        self._draft_dec = None
+        self._ngram = None
+        if self.spec_k:
+            if self._do_sample:
+                raise ValueError(
+                    "speculative decoding (spec_k > 0) requires greedy "
+                    "decoding (do_sample=False): greedy verification is "
+                    "what makes spec output token-for-token identical")
+            if isinstance(draft, str):
+                if draft != "ngram":
+                    raise ValueError(
+                        f"unknown draft source {draft!r} "
+                        "(MXNET_SERVE_SPEC_DRAFT): expected 'ngram', a "
+                        "GPTDecoder, or a GPT-shaped model")
+                self.draft_kind = "ngram"
+                self._ngram = NgramProposer(self.spec_k)
+            else:
+                dd = _as_decoder(draft, "the draft")
+                if dd._max_length < self.max_len:
+                    raise ValueError(
+                        f"draft model position table ({dd._max_length}) "
+                        f"is shorter than max_len ({self.max_len})")
+                dv = dd._model.word_embed.weight.shape[0]
+                tv = self._dec._model.word_embed.weight.shape[0]
+                if dv != tv:
+                    raise ValueError(
+                        f"draft vocab ({dv}) != target vocab ({tv}): "
+                        "drafted token ids index the target embedding")
+                if dd._model.device != self._device:
+                    raise ValueError(
+                        f"draft model on {dd._model.device}, target on "
+                        f"{self._device}")
+                self.draft_kind = "model"
+                self._draft_dec = dd
+        self._spec_drafted = 0              # lifetime drafted tokens
+        self._spec_accepted = 0             # lifetime accepted drafts
+        self._spec_gauge = False
+        # registry label of this engine's series (the reference's
+        # compile-ledger and HBM-census attribution name)
+        self.census_name = "serve"
+
         # host page table; its device copy is refreshed only when an
         # allocation changed it
         self._table = onp.zeros((self.max_slots, self.pages_per_slot),
                                 onp.int32)
         self._table_dirty = True
-        # the step's host inputs, uploaded with one copy: last_tok, pos,
-        # active (0/1) and the step key's two words
+        # the decode step's host inputs, uploaded with one copy: last_tok,
+        # pos, active (0/1) and the step key's two words
         self._step_host = onp.zeros(3 * self.max_slots + 2, onp.int64)
         self._temp_host = None
-        # per-layer pools and the device buffers the decode graph reads,
-        # allocated together (`_ensure_pool`) and dropped together
-        self._pk = self._pv = None
+        # the verify and draft steps' host inputs: the (S, k + 1) tokens
+        # [last, drafts], pos, active and limit
+        self._spec_host = onp.zeros(self.max_slots * (self.spec_k + 4),
+                                    onp.int64)
+        # per-layer pools (target and draft; int8 adds the scale planes)
+        # and the device buffers the graphs read, allocated together
+        # (`_ensure_pool`) and dropped together
+        self._pk = self._pv = self._sk = self._sv = None
+        self._dpk = self._dpv = self._dsk = self._dsv = None
         self._table_dev = self._step_dev = self._temp_dev = None
+        self._spec_dev = None
         self._buckets_seen = set()
-        self._decode_builds = 0
-        self._program_fp = None     # weight fingerprint of the decode program
-        self._graph = self._graph_out = None
+        self._builds = 0            # programs built: graphs, or CPU fps
+        self._program_fp = {}       # step name -> weight fingerprint
+        self._graphs = {}           # step name -> (CUDAGraph, its output)
         self._side = None
-        self.captures = 0           # decode graphs captured (card only)
+        self.captures = 0           # graphs captured (card only)
+        self.captures_by_step = dict.fromkeys(_STEPS, 0)
 
     @property
     def _device(self):
@@ -477,67 +565,159 @@ class SlotDecoder:
 
     # -- pool ---------------------------------------------------------------
 
-    def _make_pools(self):
-        """Per-layer page pools: tuples of L tensors ``(n_pages, H,
-        page_tokens, d)`` in the weights' dtype on the model's device."""
-        dec = self._dec
+    def _make_pools(self, dec):
+        """Per-layer page pools of ``dec``: tuples of L tensors ``(n_pages,
+        H, page_tokens, d)`` in the weights' dtype on the model's device,
+        or int8 with per-layer ``(n_pages, H)`` f32 scale planes."""
         blocks = dec._model.blocks
         H = dec._n_heads
         shape = (self.n_pages, H, self.page_tokens, dec._units // H)
+        dev = self._device
+
+        def planes(shape, dtype):
+            return tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                         for _ in blocks)
+
+        if self._int8:
+            return (planes(shape, torch.int8), planes(shape, torch.int8),
+                    planes(shape[:2], torch.float32),
+                    planes(shape[:2], torch.float32))
         dtype = blocks[0].attn.qkv.weight.dtype
-        pk = tuple(torch.zeros(shape, dtype=dtype, device=self._device)
-                   for _ in blocks)
-        pv = tuple(torch.zeros(shape, dtype=dtype, device=self._device)
-                   for _ in blocks)
-        return pk, pv
+        return planes(shape, dtype), planes(shape, dtype), None, None
+
+    def _layer_pools(self, draft=False):
+        """Per layer ``(pk, pv, sk, sv)`` of the target's (or the draft's)
+        pools; the scales are None in an fp pool."""
+        pools = ((self._dpk, self._dpv, self._dsk, self._dsv) if draft
+                 else (self._pk, self._pv, self._sk, self._sv))
+        L = len(pools[0])
+        return zip(*(p if p is not None else (None,) * L for p in pools))
 
     def _ensure_pool(self):
         if self._pk is not None:
             return
-        self._pk, self._pv = self._make_pools()
+        self._pk, self._pv, self._sk, self._sv = self._make_pools(self._dec)
+        if self._draft_dec is not None:
+            (self._dpk, self._dpv,
+             self._dsk, self._dsv) = self._make_pools(self._draft_dec)
         dev, S = self._device, self.max_slots
         self._table_dev = torch.zeros((S, self.pages_per_slot),
                                       dtype=torch.int64, device=dev)
         self._step_dev = torch.zeros(3 * S + 2, dtype=torch.int64,
                                      device=dev)
         self._temp_dev = torch.ones(S, dtype=torch.float32, device=dev)
+        self._spec_dev = torch.zeros(self._spec_host.size,
+                                     dtype=torch.int64, device=dev)
         self._temp_host = None
         self._table_dirty = True
 
+    def _pool_leaves(self):
+        return [t for leaves in (self._pk, self._pv, self._sk, self._sv,
+                                 self._dpk, self._dpv, self._dsk, self._dsv)
+                if leaves is not None for t in leaves]
+
     def release(self):
-        """Drop the device pool and the decode graph with it (shutdown);
-        the next prefill reallocates and the decode step captures again."""
-        self._pk = self._pv = None
+        """Drop the device pools and the graphs with them (shutdown); the
+        next prefill reallocates and the steps capture again."""
+        self._pk = self._pv = self._sk = self._sv = None
+        self._dpk = self._dpv = self._dsk = self._dsv = None
         self._table_dev = self._step_dev = self._temp_dev = None
-        self._graph = self._graph_out = None
-        self._program_fp = None
+        self._spec_dev = None
+        self._graphs.clear()
+        self._program_fp.clear()
         self._table_dirty = True
 
     @property
     def cache_bytes(self):
-        """Device bytes held by the KV pools, 0 if released."""
-        if self._pk is None:
-            return 0
-        return sum(t.numel() * t.element_size()
-                   for t in self._pk + self._pv)
+        """Device bytes held by the KV pools, target and (with a model
+        draft) draft, scale planes included; 0 if released."""
+        return sum(t.numel() * t.element_size() for t in self._pool_leaves())
 
     @property
     def kv_bytes_per_slot(self):
-        """Resident pool bytes per decode slot."""
+        """Resident pool bytes per decode slot (int8 about a quarter of
+        f32's)."""
         if self._pk is None:
             return 0
         return self.cache_bytes / self.max_slots
 
     @property
     def page_bytes(self):
-        """Bytes one pool page holds across all layers (K + V), from the
-        shapes, so it needs no allocated pool."""
+        """Bytes one pool page holds across all layers (K + V, plus the
+        int8 scale planes), from the shapes, so it needs no allocated
+        pool."""
         dec = self._dec
         blocks = dec._model.blocks
         H = dec._n_heads
-        itemsize = blocks[0].attn.qkv.weight.element_size()
-        return len(blocks) * 2 * H * self.page_tokens * (
-            dec._units // H) * itemsize
+        d = dec._units // H
+        if self._int8:
+            # int8 K and V slabs plus two f32 per-(page, head) scales
+            per_layer = 2 * H * self.page_tokens * d + 2 * H * 4
+        else:
+            itemsize = blocks[0].attn.qkv.weight.element_size()
+            per_layer = 2 * H * self.page_tokens * d * itemsize
+        return len(blocks) * per_layer
+
+    # -- the pool's reads and writes ----------------------------------------
+
+    @staticmethod
+    def _dequant_view(pool, scale, idx):
+        """Pages ``idx`` of one layer's pool as real values (leading dims
+        follow ``idx``): an fp pool gathers straight through, an int8 one
+        multiplies by each (page, head) scale in f32."""
+        v = pool[idx]
+        if scale is not None:
+            v = v.float() * scale[idx][..., None, None]
+        return v
+
+    def _write_token(self, pool, scale, wpage, woff, t):
+        """Write one token's K or V ``t`` (S, H, d) of every slot at
+        (``wpage``, ``woff``) in place. An int8 pool re-quantizes the
+        whole written page under a grow-only scale: the new scale is
+        max(old, amax / 127), the page's codes are rescaled by old / new
+        and rounded, then the token is quantized into it."""
+        if scale is None:
+            pool[wpage, :, woff] = t.to(pool.dtype)
+            return
+        old = scale[wpage]                                   # (S, H)
+        amax = t.abs().amax(dim=-1)                          # (S, H)
+        new = torch.maximum(old, amax.clamp_min(1e-8) / 127.0)
+        page = pool[wpage].float()                           # (S, H, pt, d)
+        page = torch.clamp(
+            torch.round(page * (old / new)[:, :, None, None]), -127, 127)
+        tq, _ = quantize_symmetric(t, (), scale=new[:, :, None])
+        rows = torch.arange(t.shape[0], device=t.device)
+        page[rows, :, woff] = tq.float()
+        pool[wpage] = page.to(torch.int8)
+        scale[wpage] = new
+
+    def _slot_layer(self, dec, blk, x, pools, table, wpage, woff, mask):
+        """One layer of ``dec`` over T new rows a slot, the body of the
+        decode (T = 1), verify (T = k + 1) and draft (T = 1, k times)
+        steps: writes row i's K/V at (``wpage[:, i]``, ``woff[:, i]``)
+        column by column (under int8 this order sets the page scales),
+        gathers each slot's view through ``table`` and attends under
+        ``mask`` (S, T, view) with f32 scores. ``x`` is (S, T, C)."""
+        S, T, _ = x.shape
+        pk, pv, sk, sv = pools
+        q, k, v = dec._qkv(x, blk)                            # (S, T, H, d)
+        H, d = q.shape[2], q.shape[3]
+        for i in range(T):
+            self._write_token(pk, sk, wpage[:, i], woff[:, i], k[:, i])
+            self._write_token(pv, sv, wpage[:, i], woff[:, i], v[:, i])
+        # per-slot logical view: (S, P, H, pt, d) -> (S, H, P * pt, d)
+        vk = self._dequant_view(pk, sk, table).transpose(1, 2).reshape(
+            S, H, -1, d)
+        vv = self._dequant_view(pv, sv, table).transpose(1, 2).reshape(
+            S, H, -1, d)
+        s = torch.matmul(q.transpose(1, 2).float(),
+                         vk.float().transpose(-1, -2)) / math.sqrt(d)
+        s = s.masked_fill(~mask[:, None], float("-inf"))
+        p = torch.softmax(s, dim=-1).to(vv.dtype)
+        o = torch.matmul(p, vv).transpose(1, 2).reshape(S, T, H * d)
+        a = blk.attn
+        o = F.linear(o.to(x.dtype), a.proj.weight, a.proj.bias)
+        return dec._ffn(x + o, blk)
 
     # -- sampling -----------------------------------------------------------
 
@@ -557,12 +737,14 @@ class SlotDecoder:
     # -- chunked prefill ----------------------------------------------------
 
     def _prefill_fn(self, tokens, pages_row, chunk_pages, t_start, t_len,
-                    key, temperature):
-        """One chunk (``tokens`` (C,), padded to its bucket) of one slot:
-        writes its K/V pages, attends to the slot's view (prefix pages and
-        itself) under the causal-with-offset mask, and returns the token
-        sampled from row ``t_len - 1`` (a 1-element tensor)."""
-        dec = self._dec
+                    key, temperature, draft=False):
+        """One chunk (``tokens`` (C,), padded to its bucket) of one slot,
+        through the target (or, with ``draft``, the draft model into its
+        own pools): writes its K/V pages, attends to the slot's view
+        (prefix pages and itself) under the causal-with-offset mask, and
+        returns the token sampled from row ``t_len - 1`` (a 1-element
+        tensor)."""
+        dec = self._draft_dec if draft else self._dec
         m = dec._model
         C = tokens.shape[0]
         pt, PT = self.page_tokens, self.view_tokens
@@ -573,20 +755,38 @@ class SlotDecoder:
         # key j is visible to chunk row i iff j <= t_start + i: the prefix
         # pages, in-chunk causality, and no stale, trash or padding page
         mask = torch.arange(PT, device=dev)[None, :] <= qpos[:, None]
-        for blk, pk, pv in zip(m.blocks, self._pk, self._pv):
+        # the chunk's own rows inside the view (a bucket may overshoot it)
+        own = min(C, PT - t_start)
+        for blk, (pk, pv, sk, sv) in zip(m.blocks, self._layer_pools(draft)):
             q, k, v = dec._qkv(x, blk)                       # (1, C, H, d)
             H, d = q.shape[2], q.shape[3]
-            pk[chunk_pages] = k[0].reshape(C // pt, pt, H, d).transpose(1, 2)
-            pv[chunk_pages] = v[0].reshape(C // pt, pt, H, d).transpose(1, 2)
-            vk = pk[pages_row].transpose(0, 1).reshape(H, PT, d)
-            vv = pv[pages_row].transpose(0, 1).reshape(H, PT, d)
+            kp = k[0].reshape(C // pt, pt, H, d).transpose(1, 2)
+            vp = v[0].reshape(C // pt, pt, H, d).transpose(1, 2)
+            if sk is None:
+                pk[chunk_pages] = kp
+                pv[chunk_pages] = vp
+            else:
+                # whole chunk pages, one scale per (page, head)
+                kq, ks = quantize_symmetric(kp, (2, 3))
+                vq, vs = quantize_symmetric(vp, (2, 3))
+                pk[chunk_pages], sk[chunk_pages] = kq, ks[:, :, 0, 0]
+                pv[chunk_pages], sv[chunk_pages] = vq, vs[:, :, 0, 0]
+            vk = self._dequant_view(pk, sk, pages_row).transpose(
+                0, 1).reshape(H, PT, d)
+            vv = self._dequant_view(pv, sv, pages_row).transpose(
+                0, 1).reshape(H, PT, d)
+            if sk is not None:
+                # the chunk attends to its own K/V before quantization:
+                # only the prefix pays for it
+                vk[:, t_start:t_start + own] = k[0, :own].transpose(0, 1)
+                vv[:, t_start:t_start + own] = v[0, :own].transpose(0, 1)
             # the reference's `_xla_attention`: scaled scores, masked to
             # finfo.min / 2, softmax in the scores' dtype
-            s = torch.matmul(q[0].transpose(0, 1), vk.transpose(-1, -2)) \
-                * (1.0 / math.sqrt(d))
+            s = torch.matmul(q[0].transpose(0, 1).to(vk.dtype),
+                             vk.transpose(-1, -2)) * (1.0 / math.sqrt(d))
             s = s.masked_fill(~mask, torch.finfo(s.dtype).min / 2)
             o = torch.matmul(torch.softmax(s, dim=-1), vv)   # (H, C, d)
-            o = o.transpose(0, 1).reshape(1, C, H * d)
+            o = o.transpose(0, 1).reshape(1, C, H * d).to(x.dtype)
             a = blk.attn
             x = dec._ffn(x + F.linear(o, a.proj.weight, a.proj.bias), blk)
         # the chunk's last real row (padding is causally after it)
@@ -602,7 +802,10 @@ class SlotDecoder:
         with ``t_start`` a multiple of ``page_tokens`` (0 or the shared
         prefix's end). ``key`` is the step key's two words. Returns
         ``(first_token, bucket, pad)``: the sampled token is meaningful
-        only on the prompt's final chunk."""
+        only on the prompt's final chunk. With a model draft, the draft
+        prefills the same chunk into its own pools after the target (same
+        pages: the table and allocator are shared), so drafting starts
+        from a warm draft KV."""
         self._ensure_pool()
         pt = self.page_tokens
         if t_start % pt:
@@ -632,34 +835,14 @@ class SlotDecoder:
             k_dev = torch.tensor(key, dtype=torch.int64, device=self._device)
             t_dev = torch.tensor([max(float(temperature), 1e-6)],
                                  dtype=torch.float32, device=self._device)
-        first = self._prefill_fn(ints[:bucket], ints[bucket:bucket + P],
-                                 ints[bucket + P:], int(t_start), n, k_dev,
-                                 t_dev)
+        args = (ints[:bucket], ints[bucket:bucket + P], ints[bucket + P:],
+                int(t_start), n, k_dev, t_dev)
+        first = self._prefill_fn(*args)
+        if self._draft_dec is not None:
+            self._prefill_fn(*args, draft=True)
         return int(first[0]), bucket, pad
 
-    # -- decode -------------------------------------------------------------
-
-    def _decode_layer_step(self, blk, x, pk, pv, table, wpage, woff, mask):
-        """One layer of the single-token decode body for every slot: writes
-        each slot's K/V at (``wpage``, ``woff``) of the layer's pools
-        ``pk``/``pv``, gathers each slot's view through ``table`` and
-        attends under ``mask`` with f32 scores."""
-        dec = self._dec
-        S = self.max_slots
-        q, k, v = dec._qkv(x, blk)                            # (S, 1, H, d)
-        H, d = q.shape[2], q.shape[3]
-        pk[wpage, :, woff] = k[:, 0]
-        pv[wpage, :, woff] = v[:, 0]
-        # per-slot logical view: (S, P, H, pt, d) -> (S, H, P * pt, d)
-        vk = pk[table].transpose(1, 2).reshape(S, H, -1, d)
-        vv = pv[table].transpose(1, 2).reshape(S, H, -1, d)
-        s = torch.matmul(q.transpose(1, 2).float(),
-                         vk.float().transpose(-1, -2)) / math.sqrt(d)
-        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
-        p = torch.softmax(s, dim=-1).to(vv.dtype)
-        o = torch.matmul(p, vv).transpose(1, 2).reshape(S, 1, H * d)
-        a = blk.attn
-        return dec._ffn(x + F.linear(o, a.proj.weight, a.proj.bias), blk)
+    # -- the replayed steps -------------------------------------------------
 
     def _decode_fn(self, table, step, temperature):
         """One decode step for every slot on the device inputs: ``table``
@@ -667,7 +850,7 @@ class SlotDecoder:
         active (0/1) and the key's two words; ``temperature`` (S,) f32.
         Writes the pools in place and returns the next token per slot (S,)
         int64 (inactive slots carry their last token). It syncs nothing
-        with the host: this is the function the CUDA graph captures."""
+        with the host: this is the function the decode graph captures."""
         dec = self._dec
         m = dec._model
         S, pt = self.max_slots, self.page_tokens
@@ -678,21 +861,89 @@ class SlotDecoder:
         # each slot writes at its own page and offset; free and
         # prefilling slots are redirected to the trash page
         rows = torch.arange(S, device=pos.device)
-        wpage = torch.where(active, table[rows, pos // pt], 0)
-        woff = pos % pt
-        mask = torch.arange(self.view_tokens,
-                            device=pos.device)[None, :] <= pos[:, None]
-        for blk, pk, pv in zip(m.blocks, self._pk, self._pv):
-            x = self._decode_layer_step(blk, x, pk, pv, table, wpage, woff,
-                                        mask)
+        wpage = torch.where(active, table[rows, pos // pt], 0)[:, None]
+        woff = (pos % pt)[:, None]
+        mask = (torch.arange(self.view_tokens, device=pos.device)[None, :]
+                <= pos[:, None])[:, None]
+        for blk, pools in zip(m.blocks, self._layer_pools()):
+            x = self._slot_layer(dec, blk, x, pools, table, wpage, woff,
+                                 mask)
         nxt = self._sample_slots(dec._logits(x[:, 0]), key, temperature)
         return torch.where(active, nxt, last_tok)
 
+    def _spec_inputs(self, spec):
+        """The verify and draft steps' device inputs out of ``spec``:
+        tokens (S, k + 1), pos, active (bool) and limit (S,)."""
+        S, K1 = self.max_slots, self.spec_k + 1
+        n = S * K1
+        return (spec[:n].view(S, K1), spec[n:n + S],
+                spec[n + S:n + 2 * S] != 0, spec[n + 2 * S:])
+
+    def _verify_fn(self, table, spec):
+        """The verify step: one batched target pass over k + 1 rows a slot.
+        Row i consumes token ``[last, d_1..d_k][i]`` at position ``pos +
+        i``, writes its K/V to the slot's pages (rows past ``limit``, the
+        slot's last page-mapped position, write to the trash page) and
+        attends to positions ``<= pos + i``, so the pass equals k + 1
+        sequential decode steps. Returns the greedy token per row (S, k +
+        1) int64, an inactive slot's rows its own tokens. This is the
+        function the verify graph captures."""
+        dec = self._dec
+        m = dec._model
+        S, K1, pt = self.max_slots, self.spec_k + 1, self.page_tokens
+        toks, pos, active, limit = self._spec_inputs(spec)
+        dev = toks.device
+        p_abs = pos[:, None] + torch.arange(K1, device=dev)      # (S, K1)
+        x = (m.word_embed.weight[toks]
+             + m.position_embed[p_abs.clamp(0, m.max_length - 1)])
+        writable = active[:, None] & (p_abs <= limit[:, None])
+        page = table.gather(1, (p_abs // pt).clamp(0, table.shape[1] - 1))
+        wpage = torch.where(writable, page, 0)
+        mask = (torch.arange(self.view_tokens, device=dev)[None, None, :]
+                <= p_abs[:, :, None])                              # (S, K1, PT)
+        for blk, pools in zip(m.blocks, self._layer_pools()):
+            x = self._slot_layer(dec, blk, x, pools, table, wpage,
+                                 p_abs % pt, mask)
+        logits = dec._logits(x.reshape(S * K1, -1)).reshape(S, K1, -1)
+        return torch.where(active[:, None], logits.argmax(dim=-1), toks)
+
+    def _draft_fn(self, table, spec):
+        """The draft step: k unrolled greedy decode steps of the draft
+        model against its own pools, from each slot's last token at
+        ``pos`` (the spec tokens' first column). Returns the drafts (S, k)
+        int64. This is the function the draft graph captures."""
+        dec = self._draft_dec
+        m = dec._model
+        S, pt = self.max_slots, self.page_tokens
+        toks, pos, active, limit = self._spec_inputs(spec)
+        dev = toks.device
+        rows = torch.arange(S, device=dev)
+        view = torch.arange(self.view_tokens, device=dev)
+        cur, outs = toks[:, 0], []
+        for i in range(self.spec_k):
+            p_i = pos + i
+            page = table[rows, (p_i // pt).clamp(0, table.shape[1] - 1)]
+            wpage = torch.where(active & (p_i <= limit), page, 0)[:, None]
+            mask = (view[None, :] <= p_i[:, None])[:, None]
+            x = (m.word_embed.weight[cur]
+                 + m.position_embed[p_i.clamp(0, m.max_length - 1)])[:, None]
+            for blk, pools in zip(m.blocks, self._layer_pools(draft=True)):
+                x = self._slot_layer(dec, blk, x, pools, table, wpage,
+                                     (p_i % pt)[:, None], mask)
+            cur = torch.where(active, dec._logits(x[:, 0]).argmax(dim=-1),
+                              cur)
+            outs.append(cur)
+        return torch.stack(outs, dim=1)
+
     def _fingerprint(self):
-        """The ``data_ptr`` of every parameter, walking the module tree
-        anew (a replaced submodule is seen too) through the modules' own
-        dicts: `Module.parameters()` costs ~0.3 ms a step at gpt2_small."""
+        """The ``data_ptr`` of every parameter of the target and the draft
+        model, walking the module trees anew (a replaced submodule is seen
+        too) through the modules' own dicts: `Module.parameters()` costs
+        ~0.3 ms a step at gpt2_small."""
         ptrs, stack = [], [self._dec._model]
+        if self._draft_dec is not None \
+                and self._draft_dec._model is not self._dec._model:
+            stack.append(self._draft_dec._model)
         while stack:
             m = stack.pop()
             ptrs.extend(p.data_ptr() for p in m._parameters.values()
@@ -701,9 +952,10 @@ class SlotDecoder:
         return tuple(ptrs)
 
     def _load_step(self, last_tok, pos, active, key, temperature):
-        """Copy the step's host inputs into the static device buffers
-        (``copy_``, never a rebind); the table and the temperatures only
-        when they changed. Returns the decode function's arguments."""
+        """Copy the decode step's host inputs into its static device
+        buffers (``copy_``, never a rebind); the table and the
+        temperatures only when they changed. Returns the decode function's
+        arguments."""
         S = self.max_slots
         h = self._step_host
         h[:S] = last_tok
@@ -718,30 +970,73 @@ class SlotDecoder:
             self._temp_dev.copy_(torch.from_numpy(self._temp_host))
         return self._table_device(), self._step_dev, self._temp_dev
 
-    def _eager_on_side_stream(self, args):
-        """A fingerprint's first step on the card: the decode function run
-        eagerly on a side stream, so what a step does once (kernel loads,
-        cuBLAS handles) happens before the capture."""
+    def _load_spec(self, last_tok, drafts, pos, active, limit):
+        """Copy the verify or draft step's host inputs into their static
+        device buffer with one ``copy_``; ``drafts`` None leaves the draft
+        columns as they are (the draft step reads only ``last_tok``).
+        Returns the step function's arguments."""
+        S, K1 = self.max_slots, self.spec_k + 1
+        h = self._spec_host
+        toks = h[:S * K1].reshape(S, K1)
+        toks[:, 0] = last_tok
+        if drafts is not None:
+            toks[:, 1:] = drafts
+        h[S * K1:S * K1 + S] = pos
+        h[S * K1 + S:S * K1 + 2 * S] = active
+        h[S * K1 + 2 * S:] = limit
+        self._spec_dev.copy_(torch.from_numpy(h))
+        return self._table_device(), self._spec_dev
+
+    def _eager_on_side_stream(self, fn, args):
+        """A fingerprint's first call of a step on the card: the step
+        function run eagerly on a side stream, so what a step does once
+        (kernel loads, cuBLAS handles) happens before the capture."""
         if self._side is None:
             self._side = torch.cuda.Stream(self._device)
         main = torch.cuda.current_stream(self._device)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            out = self._decode_fn(*args)
+            out = fn(*args)
         main.wait_stream(self._side)
         return out
 
-    def _capture(self, args):
+    def _capture(self, name, fn, args):
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                out = self._decode_fn(*args)
+                out = fn(*args)
         except Exception as e:
-            raise MXNetError(f"SlotDecoder: capturing the decode step as a "
+            raise MXNetError(f"SlotDecoder: capturing the {name} step as a "
                              f"CUDA graph failed: {e}") from e
-        self._graph, self._graph_out = graph, out
+        self._graphs[name] = (graph, out)
         self.captures += 1
-        self._decode_builds += 1
+        self.captures_by_step[name] += 1
+        self._builds += 1
+
+    def _run_step(self, name, args):
+        """Run the step ``name`` ("decode", "verify", "draft") on its
+        loaded device inputs: eagerly on a CPU model; on the card, eagerly
+        at a new weight fingerprint, captured at the next call and
+        replayed from then on. Returns the step's device output."""
+        fn = getattr(self, f"_{name}_fn")
+        fp = self._fingerprint()
+        if self._device.type != "cuda":
+            if fp != self._program_fp.get(name):
+                self._program_fp[name] = fp
+                self._builds += 1
+            return fn(*args)
+        if fp != self._program_fp.get(name):
+            # new weights (or a new pool): one eager step, then capture
+            self._graphs.pop(name, None)
+            self._program_fp[name] = fp
+            with torch.cuda.device(self._device):
+                return self._eager_on_side_stream(fn, args)
+        if name not in self._graphs:
+            with torch.cuda.device(self._device):
+                self._capture(name, fn, args)
+        graph, out = self._graphs[name]
+        graph.replay()
+        return out
 
     @torch.no_grad()
     def decode_step(self, last_tok, pos, active, key, temperature):
@@ -753,40 +1048,97 @@ class SlotDecoder:
         host int32 numpy: the one host sync of the step."""
         self._ensure_pool()
         args = self._load_step(last_tok, pos, active, key, temperature)
-        fp = self._fingerprint()
-        if self._device.type != "cuda":
-            if fp != self._program_fp:
-                self._program_fp = fp
-                self._decode_builds += 1
-            nxt = self._decode_fn(*args)
-        elif fp != self._program_fp:
-            # new weights (or a new pool): one eager step, then capture
-            self._graph = self._graph_out = None
-            self._program_fp = fp
-            with torch.cuda.device(self._device):
-                nxt = self._eager_on_side_stream(args)
-        else:
-            if self._graph is None:
-                with torch.cuda.device(self._device):
-                    self._capture(args)
-            self._graph.replay()
-            nxt = self._graph_out
+        nxt = self._run_step("decode", args)
         return nxt.cpu().numpy().astype(onp.int32)
+
+    # -- speculative decoding -----------------------------------------------
+
+    def spec_propose(self, seqs):
+        """Host n-gram drafts: ``seqs`` is a per-slot list (None for slots
+        not decoding) of 1-D prompt + generated token arrays. Returns
+        ``(max_slots, spec_k)`` int32 numpy. No device work: the n-gram
+        draft's whole cost is this call."""
+        out = onp.zeros((self.max_slots, self.spec_k), onp.int32)
+        for s, seq in enumerate(seqs):
+            if seq is not None:
+                out[s] = self._ngram.propose(seq)
+        return out
+
+    @torch.no_grad()
+    def spec_draft_step(self, last_tok, pos, active, limit):
+        """Run the draft model's k-step draft for every slot; returns the
+        drafted tokens ``(max_slots, spec_k)`` as host int32 numpy."""
+        self._ensure_pool()
+        args = self._load_spec(last_tok, None, pos, active, limit)
+        toks = self._run_step("draft", args)
+        return toks.cpu().numpy().astype(onp.int32)
+
+    @torch.no_grad()
+    def spec_verify_step(self, last_tok, drafts, pos, active, limit):
+        """Verify ``drafts`` (host ``(max_slots, spec_k)``) for every
+        decoding slot in one batched target pass. Returns the greedy target
+        token per row as host int32 numpy ``(max_slots, spec_k + 1)``: row
+        ``i`` is the token the target emits after consuming ``[last,
+        d_1..d_i]``; the scheduler accepts the longest drafted prefix
+        matching rows ``0..m-1`` plus row ``m`` as the bonus token."""
+        self._ensure_pool()
+        if not self._spec_gauge:
+            self._register_spec_gauge()
+        args = self._load_spec(last_tok, drafts, pos, active, limit)
+        tgt = self._run_step("verify", args)
+        return tgt.cpu().numpy().astype(onp.int32)
+
+    def spec_count(self, drafted, accepted):
+        """Scheduler callback: fold one slot-round's drafted and accepted
+        token counts into the engine's lifetime acceptance stats."""
+        self._spec_drafted += int(drafted)
+        self._spec_accepted += int(accepted)
+
+    def spec_stats(self):
+        """Lifetime speculative-decoding stats: ``{"k", "draft",
+        "drafted", "accepted", "accept_rate"}``."""
+        drafted = self._spec_drafted
+        return {"k": self.spec_k, "draft": self.draft_kind,
+                "drafted": drafted, "accepted": self._spec_accepted,
+                "accept_rate": (self._spec_accepted / drafted)
+                if drafted else None}
+
+    def _register_spec_gauge(self):
+        """The pull gauge of the lifetime acceptance rate, labelled with
+        ``census_name``; registered at the first verify, so a caller that
+        renames the engine first is seen. Weakly bound, like the
+        occupancy probe."""
+        self._spec_gauge = True
+        ref = weakref.ref(self)
+
+        def probe():
+            eng = ref()
+            if eng is None or not eng._spec_drafted:
+                return None
+            return eng._spec_accepted / eng._spec_drafted
+
+        registry.register_pull_gauge(
+            "mx_serve_spec_accept_rate", probe,
+            "accepted draft tokens / drafted tokens since engine start "
+            "[0, 1] (speculative decoding)",
+            labels={"model": self.census_name})
 
     # -- debug / tests ------------------------------------------------------
 
     @torch.no_grad()
     def slot_kv(self, slot, n_tokens):
         """Host f32 copies ``(L, H, n_tokens, d)`` of a slot's first
-        ``n_tokens`` of K and V, for parity checks (not a hot path)."""
+        ``n_tokens`` of K and V (dequantized under int8), for parity
+        checks (not a hot path)."""
         self._ensure_pool()
         idx = torch.from_numpy(self._table[slot].astype(onp.int64)).to(
             self._device)
         outs = []
-        for pools in (self._pk, self._pv):
+        for pools, scales in ((self._pk, self._sk), (self._pv, self._sv)):
             views = []
-            for pool in pools:
-                v = pool[idx]                                # (P, H, pt, d)
+            for li, pool in enumerate(pools):
+                v = self._dequant_view(
+                    pool, None if scales is None else scales[li], idx)
                 P, H, pt, d = v.shape
                 views.append(v.transpose(0, 1).reshape(H, P * pt, d)
                              [:, :n_tokens])
@@ -796,11 +1148,14 @@ class SlotDecoder:
     def xla_program_count(self):
         """The programs this engine built, under the reference's name (its
         recompile gate asserts the count stays flat in steady state): the
-        distinct prefill chunk buckets seen, plus the decode program once
-        per build. On the card a build is a captured decode graph (a new
-        pool or new weights capture again); on a CPU model, where nothing
-        is captured, the first step under a new weight fingerprint."""
-        return len(self._buckets_seen) + self._decode_builds
+        distinct prefill chunk buckets seen (twice with a model draft,
+        which prefills each chunk too), plus each step (decode, verify,
+        draft) once per build. On the card a build is a captured graph (a
+        new pool or new weights capture again); on a CPU model, where
+        nothing is captured, the first call under a new weight
+        fingerprint."""
+        prefills = 2 if self._draft_dec is not None else 1
+        return prefills * len(self._buckets_seen) + self._builds
 
 
 def _occupancy_probe(allocator):

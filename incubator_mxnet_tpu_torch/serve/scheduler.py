@@ -1,7 +1,7 @@
 """Iteration-level scheduler of `serve`, the host half (port of
 `incubator_mxnet_tpu/serve/scheduler.py`: `QueueFull`,
 `DeadlineExceeded`, `EngineClosed` :102-117, `Request` :120, `Scheduler`
-:254).
+:254, its speculative round `_spec_decode_once` :666 and `preempt` :793).
 
 Continuous batching over the paged engine: the unit of scheduling is one
 decode step, and prefill is chunked. Every `Scheduler.step`:
@@ -18,7 +18,14 @@ decode step, and prefill is chunked. Every `Scheduler.step`:
    request's first token (time to first token is measured here), flips
    the slot to decoding and registers the prompt's full pages in the
    prefix cache;
-4. runs one batched decode step over all decoding slots;
+4. runs one batched decode step over all decoding slots, or with
+   speculative decoding armed one round: the pages of the verify window
+   are mapped, ``k`` tokens drafted (host n-gram or the draft step),
+   all ``k + 1`` rows verified in one target pass, and the longest
+   drafted prefix that matches the target's own tokens accepted, plus
+   the target's token after it (none after a full accept with a model
+   draft: the draft pool holds no K/V for its own last draft); pages
+   mapped for rejected positions roll back at once;
 5. retires slots whose request hit EOS or its token budget: pages are
    dereferenced (shared pages survive in the cache) and the slot is free
    at once;
@@ -28,7 +35,14 @@ Admission policies: ``"fifo"`` and ``"sjf"``, which orders by remaining
 prefill chunks (a long prompt whose prefix is cached is cheaper than a
 shorter cold one), prompt length breaking ties. Admission is page-aware:
 a request the pool cannot cover, even after dropping unused prefix-cache
-entries, stays queued until running requests retire. Backpressure is
+entries, stays queued until running requests retire. Under speculative
+decoding a request holds only its prompt's pages and its first decode
+page at admission; the rest of its worst case is a reservation
+(``Request.spec_reserved``) counted against later admissions, so
+``free_pages >= reserved`` always holds and a round's page extension
+cannot fail. `Scheduler.preempt` evicts a request without finishing it,
+its page-aligned resident prefix kept in the prefix cache for a warm
+resubmission. Backpressure is
 loud: a full queue raises `QueueFull` at ``submit``, an expired deadline
 fails the request with `DeadlineExceeded` (a ``TimeoutError``).
 
@@ -54,7 +68,8 @@ from .engine import PagePoolExhausted, SlotDecoder
 
 __all__ = ["QueueFull", "DeadlineExceeded", "EngineClosed", "Request",
            "Scheduler", "POLICIES", "TTFT", "TOKENS", "QUEUE_DEPTH",
-           "SLOT_OCCUPANCY", "EVICTIONS", "PREFIX_HITS", "PREFILL_CHUNKS"]
+           "SLOT_OCCUPANCY", "EVICTIONS", "PREFIX_HITS", "PREFILL_CHUNKS",
+           "SPEC_DRAFTED", "SPEC_ACCEPTED"]
 
 POLICIES = ("fifo", "sjf")
 
@@ -82,6 +97,12 @@ PREFILL_CHUNKS = registry.counter(
     "mx_serve_prefill_chunks_total",
     "prefill chunks executed (long prompts span several, interleaved "
     "with decode steps)")
+SPEC_DRAFTED = registry.counter(
+    "mx_serve_spec_drafted_tokens_total",
+    "draft tokens proposed to the verify program (speculative decoding)")
+SPEC_ACCEPTED = registry.counter(
+    "mx_serve_spec_accepted_tokens_total",
+    "draft tokens accepted by the verify program (speculative decoding)")
 
 _MASK32 = 0xFFFFFFFF
 
@@ -113,8 +134,8 @@ class Request:
     __slots__ = ("id", "prompt", "max_new", "temperature", "eos_id",
                  "deadline", "submit_t", "first_token_t", "finish_t",
                  "tokens", "state", "error", "slot", "pages",
-                 "shared_tokens", "prefill_pos", "chunks_done", "_stream",
-                 "_done")
+                 "shared_tokens", "prefill_pos", "chunks_done",
+                 "spec_reserved", "_stream", "_done")
 
     def __init__(self, rid, prompt, max_new, temperature, eos_id,
                  deadline):
@@ -128,13 +149,15 @@ class Request:
         self.first_token_t = None
         self.finish_t = None
         self.tokens = []
-        self.state = "queued"             # queued|running|done|failed
+        # queued|running|done|failed|preempted
+        self.state = "queued"
         self.error = None
         self.slot = None
         self.pages = None                 # KV pool pages mapped at admit
         self.shared_tokens = 0            # prefix tokens reused from cache
         self.prefill_pos = 0              # prompt tokens already in cache
         self.chunks_done = 0
+        self.spec_reserved = 0            # budgeted, not yet allocated pages
         # bounded by max_new tokens + one sentinel
         self._stream = _queue.Queue()
         self._done = threading.Event()
@@ -220,6 +243,9 @@ class Scheduler:
         self._n_decoding = 0
         self._next_id = 0
         self.closed = False
+        # speculative decoding: k drafted tokens verified a round (0 =
+        # one-token decode steps; a stub engine may have no spec_k)
+        self._spec_k = int(getattr(slots, "spec_k", 0) or 0)
 
     # -- keys ---------------------------------------------------------------
 
@@ -241,6 +267,24 @@ class Scheduler:
         returned but never attended, so it needs no page)."""
         pt = self.slots.page_tokens
         return -(-(req.prompt.size + req.max_new - 1) // pt)
+
+    def _pages_initial(self, req):
+        """Pages allocated at admission: the whole worst case without
+        speculation (decode never runs out mid-flight); with it, only the
+        prompt and the first decode write position. The rest of the worst
+        case stays a reservation (``spec_reserved``) that rounds draw on
+        page by page and rejected suffixes give back, so unaccepted
+        lookahead never holds pages while admission pressure is the
+        non-speculative engine's."""
+        if not self._spec_k:
+            return self._pages_needed(req)
+        return -(-(req.prompt.size + 1) // self.slots.page_tokens)
+
+    def _spec_reserved_total(self):
+        """Pages budgeted to live requests but not held. ``free_pages >=
+        reserved_total`` is an invariant of admission, so drawing on a
+        reservation never needs eviction and never deadlocks."""
+        return sum(r.spec_reserved for r in self._in_slot if r is not None)
 
     def submit(self, prompt_ids, max_new_tokens, temperature=1.0,
                eos_id=None, deadline_s=None):
@@ -327,9 +371,10 @@ class Scheduler:
 
     def _admit(self):
         """Map queued requests onto free slots and their pages. The full
-        page budget is taken up front so decode never runs out mid-flight;
-        when even the unused prefix-cache entries cannot cover it, the
-        request stays queued until running slots retire."""
+        page budget is taken up front (allocated, or under speculation
+        partly reserved) so decode never runs out mid-flight; when even
+        the unused prefix-cache entries cannot cover it, the request stays
+        queued until running slots retire."""
         admitted = 0
         alloc = self.slots.allocator
         cache = self.slots.prefix_cache
@@ -337,15 +382,20 @@ class Scheduler:
             i = self._next_index()
             req = self._queue[i]
             shared_tokens, shared_pages = cache.lookup(req.prompt)
+            # the budget is always the worst case: reserved pages count
+            # against later admissions as allocated ones do
             need = self._pages_needed(req) - len(shared_pages)
-            if need > alloc.free_pages:
-                cache.evict_unused(need)
-            if need > alloc.free_pages:
+            reserved = self._spec_reserved_total()
+            if need > alloc.free_pages - reserved:
+                cache.evict_unused(need + reserved)
+            if need > alloc.free_pages - reserved:
                 break                      # pages pinned by live requests
             self._remove_at(i)
             slot = self._in_slot.index(None)
             alloc.incref(shared_pages)
-            req.pages = shared_pages + alloc.alloc(need)
+            grab = self._pages_initial(req) - len(shared_pages)
+            req.pages = shared_pages + alloc.alloc(grab)
+            req.spec_reserved = need - grab
             req.shared_tokens = shared_tokens
             req.prefill_pos = shared_tokens
             self.slots.set_slot_pages(slot, req.pages)
@@ -409,6 +459,8 @@ class Scheduler:
     def _decode_once(self):
         if self._n_decoding == 0:
             return False
+        if self._spec_k:
+            return self._spec_decode_once()
         nxt = self.slots.decode_step(self._last, self._pos, self._active,
                                      self._next_key(), self._temps)
         now = time.monotonic()
@@ -423,10 +475,105 @@ class Scheduler:
                 self._retire(s, self._complete_reason(req, tok), now)
         return True
 
-    def _retire(self, slot, reason, now):
-        """Free ``slot`` and dereference its pages (shared pages survive
-        through their cache references). EOS and length complete the
-        request; deadline and shutdown fail it."""
+    def _extend_spec_pages(self, slot, req, k):
+        """Draw on ``req``'s reservation so that every position the verify
+        step may write this round (up to ``pos + k``, capped at the last
+        position the request can ever write) is page-mapped. ``len(pages)
+        + spec_reserved`` stays the admission-time worst case, so the
+        allocation never exceeds the reservation and cannot fail. Returns
+        the last page-mapped position (the verify step's ``limit``)."""
+        pt = self.slots.page_tokens
+        pos = int(self._pos[slot])
+        # the last written position: the final token's K/V is never stored
+        res_end = req.prompt.size + req.max_new - 2
+        want = min(pos + k, res_end) // pt + 1
+        grab = min(want - len(req.pages), req.spec_reserved)
+        if grab > 0:
+            req.pages = list(req.pages) + self.slots.allocator.alloc(grab)
+            req.spec_reserved -= grab
+            self.slots.set_slot_pages(slot, req.pages)
+        return len(req.pages) * pt - 1
+
+    def _trim_spec_pages(self, slot, req):
+        """Roll back after acceptance: pages mapped past the committed
+        position go back to the free list and to the request's
+        reservation. They are always this round's extension (the kept
+        pages cover the prompt and an emitted token), never shared-prefix
+        pages, so their refcount is 1 and the decref frees them."""
+        keep = int(self._pos[slot]) // self.slots.page_tokens + 1
+        if len(req.pages) > keep:
+            extra = req.pages[keep:]
+            req.pages = list(req.pages[:keep])
+            self.slots.allocator.decref(extra)
+            req.spec_reserved += len(extra)
+            self.slots.set_slot_pages(slot, req.pages)
+
+    def _spec_decode_once(self):
+        """One speculative round: map the verify window's pages, draft
+        ``k`` tokens (host n-gram, or the draft step), verify all ``k + 1``
+        rows in one target pass, and accept on the host the longest
+        drafted prefix that matches the target's tokens. Every emitted
+        token is the target's own greedy choice, so the output is the
+        non-speculative greedy decode's, token for token."""
+        k = self._spec_k
+        slots = self.slots
+        limit = onp.zeros(slots.max_slots, onp.int64)
+        for s, req in enumerate(self._in_slot):
+            if req is not None and self._active[s]:
+                limit[s] = self._extend_spec_pages(s, req, k)
+        if slots.draft_kind == "model":
+            drafts = slots.spec_draft_step(self._last, self._pos,
+                                           self._active, limit)
+        else:
+            seqs = [None] * slots.max_slots
+            for s, req in enumerate(self._in_slot):
+                if req is not None and self._active[s]:
+                    seqs[s] = onp.concatenate(
+                        [req.prompt, onp.asarray(req.tokens, onp.int32)])
+            drafts = slots.spec_propose(seqs)
+        targets = slots.spec_verify_step(self._last, drafts, self._pos,
+                                         self._active, limit)
+        now = time.monotonic()
+        for s, req in enumerate(self._in_slot):
+            if req is None or not self._active[s]:
+                continue
+            pos = int(self._pos[s])
+            # rows past the page-mapped window wrote to the trash page:
+            # their targets are no continuation
+            room = int(limit[s]) - pos
+            m = 0
+            while (m < k and m < room
+                   and int(drafts[s, m]) == int(targets[s, m])):
+                m += 1
+            # a full accept with a model draft takes no bonus token: the
+            # draft step wrote no K/V for its own last draft (positions
+            # pos..pos+k-1), and moving past it would leave a hole in the
+            # draft pool. The verify step wrote row k's target K/V anyway.
+            bonus = 0 if m == k and slots.draft_kind == "model" else 1
+            emitted, done_reason = 0, None
+            for i in range(min(m + bonus, req.max_new - len(req.tokens))):
+                tok = int(targets[s, i])
+                req._emit(tok, now)
+                emitted += 1
+                if self._is_complete(req, tok):
+                    done_reason = self._complete_reason(req, tok)
+                    break
+            accepted = min(m, emitted)
+            SPEC_DRAFTED.inc(k)
+            SPEC_ACCEPTED.inc(accepted)
+            slots.spec_count(k, accepted)
+            self._pos[s] = pos + emitted
+            self._last[s] = req.tokens[-1]
+            if done_reason is not None:
+                self._retire(s, done_reason, now)
+            else:
+                self._trim_spec_pages(s, req)
+        return True
+
+    def _free_slot(self, slot):
+        """Clear ``slot``'s state and drop its request's page references
+        (shared pages survive through the cache's); returns the
+        request."""
         req = self._in_slot[slot]
         self._in_slot[slot] = None
         if self._active[slot]:
@@ -439,8 +586,16 @@ class Scheduler:
         if req.pages:
             self.slots.allocator.decref(req.pages)
         req.pages = None
+        req.spec_reserved = 0
         self.slots.clear_slot(slot)
         req.slot = None
+        return req
+
+    def _retire(self, slot, reason, now):
+        """Free ``slot`` and dereference its pages (shared pages survive
+        through their cache references). EOS and length complete the
+        request; deadline and shutdown fail it."""
+        req = self._free_slot(slot)
         EVICTIONS.inc()
         registry.counter(
             "mx_serve_evictions_total",
@@ -456,6 +611,43 @@ class Scheduler:
                 f"({len(req.tokens)}/{req.max_new} tokens)"), now)
         else:
             req._finish(now)
+
+    def preempt(self, slot):
+        """Evict the request in ``slot`` without finishing or failing it
+        (the seam of a gateway's priority preemption).
+
+        The page-aligned part of its resident work (prefilled prompt
+        pages and decoded-token pages) is registered in the prefix cache
+        before the slot's references drop, so a resubmission of ``prompt
+        + tokens so far`` re-attaches those pages as a shared prefix and
+        prefills only the unaligned tail. Under page pressure the cached
+        pages are reclaimed through `PrefixCache.evict_unused` as any
+        other entry's: preempted work pins no pages. Returns the `Request`
+        with ``state="preempted"``; re-queueing what is left is the
+        caller's."""
+        req = self._in_slot[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is empty: nothing to preempt")
+        pt = self.slots.page_tokens
+        # tokens whose K/V is in the pool: the prefilled range of a
+        # prefilling slot, pos (prompt and all but the newest token) of a
+        # decoding one
+        resident = int(self._pos[slot]) if self._active[slot] \
+            else int(req.prefill_pos)
+        aligned = resident // pt * pt
+        if aligned and req.pages:
+            gen = req.tokens[:max(0, resident - req.prompt.size)]
+            seq = onp.concatenate(
+                [req.prompt, onp.asarray(gen, onp.int32)])[:aligned]
+            self.slots.prefix_cache.register(seq, req.pages[:aligned // pt])
+        self._free_slot(slot)
+        req.state = "preempted"
+        EVICTIONS.inc()
+        registry.counter(
+            "mx_serve_evictions_total",
+            "slots freed (EOS / length / deadline / shutdown)",
+            labels={"reason": "preempted"}).inc()
+        return req
 
     @property
     def free_slots(self):

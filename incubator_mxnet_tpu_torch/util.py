@@ -2,9 +2,7 @@
 `env_float` :100, and the serving rows of the knob table :371-408).
 
 Only the ``MXNET_SERVE_*`` knobs that the ported serving engine reads are
-here. Two of the reference's knobs select paths the port does not have
-yet: ``MXNET_SERVE_KV_DTYPE=int8`` and ``MXNET_SERVE_SPEC_K`` > 0 raise
-`MXNetError` in `serve.SlotDecoder` rather than being ignored.
+here, with the reference's texts.
 """
 from __future__ import annotations
 
@@ -54,11 +52,22 @@ _ENV_KNOBS = {
         "serve.SlotDecoder", "prefill chunk ceiling in tokens (default 64, "
         "rounded up to a page multiple)"),
     "MXNET_SERVE_KV_DTYPE": (
-        "serve.SlotDecoder", "fp (default); int8 is not ported yet and "
-        "raises MXNetError (ROADMAP.md)"),
+        "serve.SlotDecoder", "fp (default) or int8: int8 stores the KV "
+        "pool quantized with one scale per (layer, page, head) — half "
+        "the resident KV bytes per slot, parity within tolerance "
+        "(honored, this build's addition)"),
     "MXNET_SERVE_SPEC_K": (
-        "serve.SlotDecoder", "0 (default); speculative decoding (> 0) is "
-        "not ported yet and raises MXNetError (ROADMAP.md)"),
+        "serve.SlotDecoder", "speculative-decoding draft length "
+        "(default 0 = off): each decode round drafts k tokens and "
+        "verifies all k+1 rows in one batched target program; greedy "
+        "output stays token-for-token identical (honored, this "
+        "build's addition — see SERVING.md)"),
+    "MXNET_SERVE_SPEC_DRAFT": (
+        "serve.SlotDecoder", "draft source when SPEC_K > 0: ngram "
+        "(default, host n-gram proposer — zero extra device programs); "
+        "a draft *model* is passed programmatically via "
+        "ServeEngine(draft=...) or Gateway registry.add(..., draft=...) "
+        "(honored, this build's addition — see SERVING.md)"),
 }
 
 

@@ -67,8 +67,9 @@ def _gen(dev, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c", [(1, 64), (5, 96), (13, 768), (1000, 768),
-                                    (7, 1000), (3, 4096), (33, 8)])
+@pytest.mark.parametrize("rows,c", [(1, 64), (5, 96), (13, 768), (40, 768),
+                                    (1000, 768), (7, 1000), (3, 4096),
+                                    (33, 8)])
 def test_layer_norm_kernel_vs_plain(dev, dtype, rows, c):
     if c % (16 // (torch.finfo(dtype).bits // 8)):
         pytest.skip("feature size not a whole number of 16-byte vectors")
@@ -1237,26 +1238,146 @@ def test_serve_replay_equals_the_captured_function_run_eagerly(dev):
     e = serve.ServeEngine(model, max_slots=3, max_len=64)
     s = e._sched.slots
     hs = [e.submit(p, 16) for p in _serve_prompts(3, seed=4)]
-    while s._graph is None:
+    while "decode" not in s._graphs:
         e.step()
     e.step()
     # the next step's inputs (the last step's would rewrite what it wrote)
     sched = e._sched
-    s._load_step(sched._last, sched._pos, sched._active, sched._next_key(),
-                 sched._temps)
-    pools = s._pk + s._pv
+    args = s._load_step(sched._last, sched._pos, sched._active,
+                        sched._next_key(), sched._temps)
+    same_out, same_pools, written = _replay_vs_eager(s, "decode", args)
+    assert same_out and same_pools and written > 0
+    e._drive_until(hs)
+
+
+def _replay_vs_eager(s, name, args, trash=True, read=None):
+    """Step ``name``'s graph replayed, and its function run eagerly on the
+    same static inputs from cloned pools: (outputs equal, every pool leaf
+    equal, leaves the step wrote). With ``trash=False`` the trash page is
+    left out: rows of inactive slots and rows past ``limit`` write it
+    with duplicate indices, in no set order on the card. ``read`` keeps
+    the outputs the scheduler reads: a row past its slot's limit attends
+    to the trash page, so its token is not the same run to run."""
+    graph, out = s._graphs[name]
+    pools = s._pool_leaves()
     before = [t.clone() for t in pools]
-    s._graph.replay()
-    replayed = s._graph_out.clone()
+    graph.replay()
+    replayed = out.clone()
     after = [t.clone() for t in pools]
     for t, b in zip(pools, before):
         t.copy_(b)
-    eager = s._decode_fn(s._table_dev, s._step_dev, s._temp_dev)
+    eager = getattr(s, f"_{name}_fn")(*args)
     torch.cuda.synchronize()
-    assert torch.equal(replayed, eager)
-    assert all(torch.equal(a, t) for a, t in zip(after, pools))
-    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+    lo = 0 if trash else 1
+    same = all(torch.equal(a[lo:], t[lo:]) for a, t in zip(after, pools))
+    written = sum(not torch.equal(a[lo:], b[lo:])
+                  for a, b in zip(after, before))
+    if read is not None:
+        replayed, eager = replayed[read], eager[read]
+    return torch.equal(replayed, eager), same, written
+
+
+def _next_spec_inputs(e):
+    """A speculative round's inputs at the scheduler's state, without its
+    page extension: limit at each slot's last mapped position."""
+    import numpy as onp
+
+    sched, s = e._sched, e._sched.slots
+    limit = onp.array([len(r.pages) * s.page_tokens - 1 if r is not None
+                       and a else 0 for r, a in zip(sched._in_slot,
+                                                    sched._active)])
+    drafts = onp.repeat(sched._last[:, None], s.spec_k, axis=1)
+    return sched._last, drafts, sched._pos, sched._active, limit
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_serve_spec_graphs_replay_their_functions(dev, kv_dtype):
+    """Speculative decoding with a model draft (the target itself) on the
+    card: one capture each of the verify and the draft graph and none of
+    decode, a flat program count, the fp tokens the one-at-a-time
+    decoder's, the accept rate above 0.9, and a verify and a draft replay
+    bit for bit their functions run eagerly from the same pools (the trash
+    page left out)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=3, max_len=64, spec_k=3,
+                          draft=GPTDecoder(model), kv_dtype=kv_dtype)
+    s = e._sched.slots
+    prompts = _serve_prompts(3, seed=9)
+    hs = [e.submit(p, 24) for p in prompts]
+    while "verify" not in s._graphs or "draft" not in s._graphs:
+        e.step()
+    e.step()
+    count = e.xla_program_count()
+    last, drafts, pos, active, limit = _next_spec_inputs(e)
+    for name, args, n in (
+            ("verify", s._load_spec(last, drafts, pos, active, limit), 4),
+            ("draft", s._load_spec(last, None, pos, active, limit), 3)):
+        # the rows the scheduler reads: an inactive slot's, and an active
+        # slot's up to its limit
+        rows = pos[:, None] + onp.arange(n)
+        read = torch.from_numpy(~active[:, None] | (rows <= limit[:, None]))
+        same_out, same_pools, written = _replay_vs_eager(
+            s, name, args, trash=False, read=read.to(dev))
+        assert same_out and same_pools and written > 0, name
     e._drive_until(hs)
+    assert s.captures_by_step == {"decode": 0, "verify": 1, "draft": 1}
+    assert e.xla_program_count() == count
+    assert e.spec_stats()["accept_rate"] > 0.9
+    if kv_dtype == "fp":
+        for p, h in zip(prompts, hs):
+            onp.testing.assert_array_equal(onp.concatenate([p, h.result()]),
+                                           _one_at_a_time(model, p, 24))
+    e.shutdown()
+    assert s.allocator.used_pages == 0
+
+
+def test_serve_spec_ngram_on_the_card(dev):
+    """The n-gram draft: one verify capture, no draft graph, the tokens
+    the one-at-a-time decoder's, every page back after shutdown."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=3, max_len=64, spec_k=4,
+                          draft="ngram")
+    s = e._sched.slots
+    prompts = _serve_prompts(5, seed=10)
+    outs = e.generate_many(prompts, 20)
+    for p, out in zip(prompts, outs):
+        onp.testing.assert_array_equal(out, _one_at_a_time(model, p, 20))
+    assert s.captures_by_step == {"decode": 0, "verify": 1, "draft": 0}
+    assert e.spec_stats()["drafted"] > 0
+    e.shutdown()
+    assert s.allocator.used_pages == 0
+
+
+def test_serve_int8_decode_replay_equals_its_function(dev):
+    """The int8 pool's decode graph (grow-only page scales rewritten in
+    the replay) against its function run eagerly from cloned pools and
+    scale planes, the trash page left out; one capture; finite tokens."""
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=3, max_len=64, kv_dtype="int8")
+    s = e._sched.slots
+    hs = [e.submit(p, 16) for p in _serve_prompts(3, seed=11)]
+    while "decode" not in s._graphs:
+        e.step()
+    e.step()
+    sched = e._sched
+    args = s._load_step(sched._last, sched._pos, sched._active,
+                        sched._next_key(), sched._temps)
+    same_out, same_pools, written = _replay_vs_eager(s, "decode", args,
+                                                     trash=False)
+    assert same_out and same_pools and written > 0
+    e._drive_until(hs)
+    assert s.captures == 1 and all(0 <= t < 97 for h in hs
+                                   for t in h.result())
 
 
 def test_serve_failed_capture_raises_without_an_eager_step(dev):
@@ -1312,9 +1433,9 @@ def test_serve_replays_from_the_driver_thread(dev):
     capture = s._capture
     threads = []
 
-    def recording(args):
+    def recording(*args):
         threads.append(threading.current_thread().name)
-        capture(args)
+        capture(*args)
 
     s._capture = recording
     e.start()

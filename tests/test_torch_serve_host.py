@@ -1,9 +1,9 @@
 """The host half of the port's serving engine, with no model: the page
 allocator, the prefix cache, the scheduler against a stub slot decoder
 (the port of `tests/test_serve.py`'s host tests, without the fault-seam
-test, whose seam is not ported), the knobs that are not ported yet, the
-step keys, the chunk buckets and the metrics registry against the
-reference's.
+test, whose seam is not ported), the speculative-decoding validation and
+the knobs, the step keys, the chunk buckets and the metrics registry
+against the reference's.
 """
 import time
 
@@ -13,9 +13,9 @@ import torch
 
 from incubator_mxnet_tpu.fault.retry import classify_exception
 from incubator_mxnet_tpu.models import decoding as jdecoding
+from incubator_mxnet_tpu import util as jutil
 from incubator_mxnet_tpu.telemetry import registry as jregistry
 from incubator_mxnet_tpu_torch import util
-from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.models.decoding import (bucket_chunk,
                                                        chunk_buckets)
 from incubator_mxnet_tpu_torch.models.gpt import gpt_tiny
@@ -175,6 +175,110 @@ class _StubSlots:
 def _prompt(n, seed=0):
     return onp.random.RandomState(seed).randint(
         0, VOCAB, (n,)).astype(onp.int32)
+
+
+class _SpecStubSlots(_StubSlots):
+    """A speculative stub: the target's next token is the last plus one,
+    so a draft of last + 1, last + 2, ... is accepted whole, and one that
+    is off at column ``miss_at`` is rejected from there. It records, for
+    each verify and each active slot, (pos, limit, mapped pages, the
+    request) through ``sched``."""
+
+    def __init__(self, spec_k, draft_kind, miss_at=None, **kw):
+        super().__init__(**kw)
+        self.spec_k, self.draft_kind, self.miss_at = spec_k, draft_kind, \
+            miss_at
+        self.table = {}
+        self.verifies = []
+        self.counted = [0, 0]
+        self.sched = None
+
+    def set_slot_pages(self, slot, pages):
+        self.table[slot] = list(pages)
+
+    def clear_slot(self, slot):
+        self.table.pop(slot, None)
+
+    def _drafts(self, last):
+        d = last[:, None] + onp.arange(1, self.spec_k + 1)
+        if self.miss_at is not None:
+            d[:, self.miss_at] += 1000
+        return d.astype(onp.int32)
+
+    def spec_propose(self, seqs):
+        return self._drafts(onp.array([0 if q is None else q[-1]
+                                       for q in seqs]))
+
+    def spec_draft_step(self, last_tok, pos, active, limit):
+        return self._drafts(onp.asarray(last_tok))
+
+    def spec_verify_step(self, last_tok, drafts, pos, active, limit):
+        self.verifies.append([(int(pos[s]), int(limit[s]),
+                               list(self.table[s]), self.sched._in_slot[s])
+                              for s in onp.flatnonzero(active)])
+        return (onp.asarray(last_tok)[:, None]
+                + onp.arange(1, self.spec_k + 2)).astype(onp.int32)
+
+    def spec_count(self, drafted, accepted):
+        self.counted[0] += drafted
+        self.counted[1] += accepted
+
+
+@pytest.mark.parametrize("draft_kind,miss_at", [("ngram", None),
+                                                ("model", None),
+                                                ("ngram", 1)])
+def test_spec_round_acceptance_and_page_ledger(draft_kind, miss_at):
+    """The speculative round against a stub target (reference
+    `scheduler.py:666-755`): a whole accepted draft emits k tokens and the
+    bonus with the n-gram draft, k without it with a model draft (the
+    draft pool has no K/V for its own last draft), a draft wrong at
+    column 1 emits 1 + the bonus; every verify finds every position it may
+    write page-mapped (limit >= min(pos + k, the last position the request
+    writes)); after every step a decoding slot holds the pages of every
+    position it wrote and none past its position's page (a round whose
+    tokens end on a page boundary leaves that page to the next round's
+    extension), reservations never exceed the free pages, and every page
+    comes back."""
+    k, pt = 3, 4
+    stub = _SpecStubSlots(k, draft_kind, miss_at, max_slots=2, max_len=64,
+                          page_tokens=pt)
+    sched = Scheduler(stub, max_queue=8)
+    stub.sched = sched
+    alloc = stub.allocator
+    reqs = [sched.submit(_prompt(n, seed=n), b)
+            for n, b in ((8, 30), (9, 17), (3, 11))]
+    on_boundary = 0
+    while not all(r.done for r in reqs):
+        sched.step()
+        assert alloc.free_pages >= sched._spec_reserved_total()
+        for s, req in enumerate(sched._in_slot):
+            if req is None or not sched._active[s]:
+                continue
+            pos = int(sched._pos[s])
+            assert (pos - 1) // pt + 1 <= len(req.pages) <= pos // pt + 1
+            on_boundary += len(req.pages) == pos // pt
+            assert stub.table[s] == req.pages and req.spec_reserved >= 0
+    drafted = 0
+    for rows in stub.verifies:
+        for pos, limit, pages, req in rows:
+            assert limit == len(pages) * pt - 1
+            assert limit >= min(pos + k, req.prompt.size + req.max_new - 2)
+            drafted += k
+    per_round = {None: k + (draft_kind == "ngram"), 1: 2}[miss_at]
+    for r in reqs:
+        # the stub's tokens count up from the prompt length
+        assert r.result() == list(range(r.prompt.size,
+                                        r.prompt.size + r.max_new))
+        assert r.done and r.pages is None and r.spec_reserved == 0
+    rounds = len(stub.verifies)
+    assert stub.counted[0] == drafted and stub.counted[1] <= drafted
+    if miss_at is None and draft_kind == "ngram":
+        assert on_boundary > 0             # the case the ledger allows
+    assert rounds <= sum(-(-(r.max_new - 1) // per_round) for r in reqs)
+    assert alloc.used_pages == len(stub.prefix_cache._entries) and \
+        sched._spec_reserved_total() == 0
+    stub.prefix_cache.clear()
+    assert alloc.used_pages == 0
 
 
 def test_queue_backpressure_raises():
@@ -381,23 +485,55 @@ def tiny():
                     device="cpu", seed=0)
 
 
-@pytest.mark.parametrize("how", ["env", "arg"])
-@pytest.mark.parametrize("what", ["kv_int8", "spec_k"])
-def test_unported_paths_raise(tiny, monkeypatch, how, what):
-    """int8 KV and speculative decoding are not ported: asking for either,
-    by argument or by knob, raises MXNetError naming ROADMAP.md."""
-    kw = {}
-    if what == "kv_int8":
-        if how == "env":
-            monkeypatch.setenv("MXNET_SERVE_KV_DTYPE", "int8")
-        else:
-            kw["kv_dtype"] = "int8"
-    elif how == "env":
-        monkeypatch.setenv("MXNET_SERVE_SPEC_K", "2")
+@pytest.mark.parametrize("case", ["do_sample", "unknown_draft",
+                                  "draft_vocab", "draft_positions"])
+def test_spec_validation_raises(tiny, case):
+    """The reference's spec validation (`tests/test_serve.py:666`):
+    sampling with spec_k, an unknown draft string, a draft whose
+    vocabulary differs from the target's, and a draft whose position table
+    is shorter than max_len all fail loudly at construction."""
+    kw, match = dict(max_slots=2, max_len=64, spec_k=3), None
+    if case == "do_sample":
+        kw["do_sample"], match = True, "greedy"
+    elif case == "unknown_draft":
+        kw["draft"], match = "medusa", "unknown draft source"
+    elif case == "draft_vocab":
+        kw["draft"], match = gpt_tiny(vocab_size=31, max_length=64,
+                                      dropout=0.0, device="cpu"), "vocab"
     else:
-        kw["spec_k"] = 1
-    with pytest.raises(MXNetError, match="ROADMAP.md"):
-        ServeEngine(tiny, max_slots=2, **kw)
+        kw["draft"], match = gpt_tiny(vocab_size=VOCAB, max_length=32,
+                                      dropout=0.0, device="cpu"), \
+            "position table"
+    with pytest.raises(ValueError, match=match):
+        SlotDecoder(tiny, **kw)
+
+
+@pytest.mark.parametrize("how", ["env", "arg"])
+def test_spec_and_int8_knobs(tiny, monkeypatch, how):
+    """``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_SPEC_DRAFT`` and
+    ``MXNET_SERVE_KV_DTYPE`` are read as the arguments are; the draft knob
+    rejects an unknown source; spec_k 0 leaves speculation off."""
+    if how == "env":
+        monkeypatch.setenv("MXNET_SERVE_SPEC_K", "2")
+        monkeypatch.setenv("MXNET_SERVE_SPEC_DRAFT", "ngram")
+        monkeypatch.setenv("MXNET_SERVE_KV_DTYPE", "int8")
+        s = SlotDecoder(tiny, max_slots=2, max_len=64)
+    else:
+        s = SlotDecoder(tiny, max_slots=2, max_len=64, spec_k=2,
+                        draft="ngram", kv_dtype="int8")
+    assert s.spec_k == 2 and s.draft_kind == "ngram"
+    assert s.kv_dtype == "int8"
+    # int8 K and V codes plus two f32 scales a (page, head), per layer
+    assert s.page_bytes == 2 * (2 * 4 * 16 * 16 + 2 * 4 * 4)
+    assert s.spec_stats() == {"k": 2, "draft": "ngram", "drafted": 0,
+                              "accepted": 0, "accept_rate": None}
+    if how == "env":
+        monkeypatch.setenv("MXNET_SERVE_SPEC_DRAFT", "medusa")
+        with pytest.raises(ValueError, match="MXNET_SERVE_SPEC_DRAFT"):
+            SlotDecoder(tiny, max_slots=2, max_len=64)
+        monkeypatch.delenv("MXNET_SERVE_SPEC_K")
+    s = SlotDecoder(tiny, max_slots=2, max_len=64, spec_k=0)
+    assert s.spec_k == 0 and s.draft_kind == "off"
 
 
 def test_slot_decoder_validation_and_knobs(tiny, monkeypatch):
@@ -433,9 +569,14 @@ def test_env_knobs_name_only_the_serving_knobs_read():
         "MXNET_SERVE_MAX_QUEUE", "MXNET_SERVE_POLICY",
         "MXNET_SERVE_DEADLINE_S", "MXNET_SERVE_PAGE_TOKENS",
         "MXNET_SERVE_PREFILL_CHUNK", "MXNET_SERVE_KV_DTYPE",
-        "MXNET_SERVE_SPEC_K"}
-    assert "ROADMAP.md" in knobs["MXNET_SERVE_KV_DTYPE"][1]
-    assert "ROADMAP.md" in knobs["MXNET_SERVE_SPEC_K"][1]
+        "MXNET_SERVE_SPEC_K", "MXNET_SERVE_SPEC_DRAFT"}
+    # the int8 pool and speculative decoding are ported: their knobs
+    # carry the reference's own texts
+    ref = jutil._ENV_KNOBS
+    for name in ("MXNET_SERVE_KV_DTYPE", "MXNET_SERVE_SPEC_K",
+                 "MXNET_SERVE_SPEC_DRAFT"):
+        assert knobs[name] == ref[name]
+        assert "not ported" not in knobs[name][1]
 
 
 @pytest.mark.parametrize("pt,chunk", [(16, 64), (8, 16), (8, 24), (4, 4),
