@@ -126,6 +126,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory rate, the f32
 # rate outside the tensor cores, the bf16 and TF32 tensor-core rates
@@ -248,6 +249,30 @@ SPEC_INT8_CHECK = 8
 # engine's, and the int8 pool's bytes a slot against the f32 pool's
 SPEC_SELF_ACCEPT = 0.9
 INT8_PREFIX_SHARE, INT8_BYTES_SHARE = 0.5, 0.3
+# the serving plane on gpt2_small, f32. [gateway A]: trace A through a
+# one-model serve.Gateway over the [serve engine] configuration.
+# [gateway]: the shape of bench.py's `bench_gpt_gateway` (:943) at full
+# width: two models under one 120-page budget split 2:1, 4 slots of 128
+# tokens, three tenants on three tiers, `loadgen.synth_trace` (30
+# requests, seed 0), then the acceptance test's preemption episode.
+# [disagg]: the shape of `bench_gpt_serve_disagg` (:1180): 1 prefill + 1
+# decode replica against 2 homogeneous ones, 72 pages, 8 slots of 64
+# tokens, `loadgen.mixed_length_trace` (20 requests, seed 0). [fault]:
+# one serve_step fault on FAULT_REQUESTS requests of FAULT_NEW tokens.
+GATEWAY = dict(total_pages=120, max_slots=4, max_len=128, requests=30,
+               seed=0, duration_s=0.8, prompt_mean=20, prompt_max=60,
+               max_new_range=(4, 12), warm_lens=(12, 24, 48))
+GATEWAY_TENANTS = {"acme": (3.0, "high"), "beta": (2.0, "normal"),
+                   "crawl": (1.0, "low")}
+DISAGG = dict(total_pages=72, max_slots=8, max_len=64, requests=20, seed=0,
+              duration_s=0.25, long_frac=0.3, long_prompt=30,
+              long_jitter=0.1, long_new_range=(2, 4), chat_prompt_mean=8,
+              chat_new_range=(20, 28), warm_lens=(8, 20, 36))
+# a page of the f32 pool across the 12 layers: K and V, 12 heads x 16
+# tokens x 64 x 4 bytes
+PAGE_BYTES_F32 = LAYERS * 2 * H * 16 * D * 4
+MIGRATION_REPS = 20
+FAULT_REQUESTS, FAULT_NEW = 4, 8
 
 
 def log(*args):
@@ -1362,7 +1387,12 @@ def phase_serve_engine(torch, dev):
     check(used == 0, f"{used} pages still in use after shutdown")
     base = dict(model=model, tokens=[list(h.tokens) for h in handles],
                 tokens_per_s=tokens / t_total, replay_ms=replay_ms,
-                kv_bytes_per_slot=kv_bytes)
+                kv_bytes_per_slot=kv_bytes,
+                ttft_p50_ms=out["trace_a"]["ttft_p50_ms"],
+                ttft_p99_ms=out["trace_a"]["ttft_p99_ms"],
+                decode_step_wall_ms=out["trace_a"][
+                    "decode_step_wall_ms_median"],
+                host_split=host_split)
     return out, launches["K4"], base
 
 
@@ -1731,6 +1761,872 @@ def phase_serve_spec(torch, dev, base):
                                       first)
         k4 += n
         torch.cuda.empty_cache()
+    return out, k4
+
+
+# -- the serving plane on one card ---------------------------------------------
+
+def _loadgen():
+    """``tools/loadgen.py`` (numpy only; in neither package), loaded from
+    the checkout as bench.py loads it (:960-964)."""
+    import os
+
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tools"))
+    try:
+        import loadgen
+    finally:
+        sys.path.pop(0)
+    return loadgen
+
+
+def _page_ledger(slots, sched, what):
+    """The page ledger of one engine between steps: every page's refcount
+    is the references its owners hold (the requests in its slots, the
+    prefilled segments waiting for the migration plane, the prefix
+    cache's entries), and the free pages cover the reservations."""
+    import numpy as onp
+
+    alloc = slots.allocator
+    want = onp.zeros(alloc.n_pages, onp.int64)
+    for req in list(sched._in_slot) + list(sched._prefilled):
+        if req is not None and req.pages:
+            onp.add.at(want, onp.asarray(req.pages, onp.int64), 1)
+    for e in slots.prefix_cache._entries.values():
+        onp.add.at(want, onp.asarray(e.pages, onp.int64), 1)
+    bad = onp.nonzero(want[1:] != alloc._ref[1:])[0]
+    check(not bad.size, f"{what}: pages {list(bad[:8] + 1)} hold "
+          f"{list(alloc._ref[bad[:8] + 1])} references, their owners "
+          f"{list(want[bad[:8] + 1])}")
+    check(alloc.free_pages >= sched._spec_reserved_total(),
+          f"{what}: {alloc.free_pages} free pages under the reservations")
+
+
+def _gateway_ledger(gw, what):
+    for m in gw._models.values():
+        for rep in m.replicas:
+            _page_ledger(rep.slots, rep.sched, f"{what} {rep.label}")
+
+
+def _checked_steps(gw, what, walls):
+    """Make ``gw.step`` check every engine's page ledger after each step
+    (`loadgen.replay` and ``_drive_until`` step through the attribute);
+    the checks' host time goes to ``walls``."""
+    step = gw.step
+    ledger = _timed(lambda: _gateway_ledger(gw, what), walls)
+
+    def checked():
+        out = step()
+        ledger()
+        return out
+
+    gw.step = checked
+
+
+def _engines(gw):
+    return [rep for m in gw._models.values() for rep in m.replicas]
+
+
+def _plane_k4(what, reps, chunks, k4):
+    """The serving plane's K4 launches through the wrapper against their
+    count: 25 a prefill chunk, and 25 for each graph's eager step and 25
+    for its capture (a replay launches through no wrapper)."""
+    captures = sum(rep.slots.captures for rep in reps)
+    want = SERVE_K4_PER_PASS * (chunks + 2 * captures)
+    check(k4 > 0, f"{what}: K4 was not launched on the path")
+    check(k4 == want, f"{what}: {k4} K4 launches through the wrapper, "
+          f"expected {want} ({chunks} chunks, {captures} captures)")
+    return want
+
+
+def _pct(values, q):
+    import numpy as onp
+
+    return float(onp.percentile(onp.asarray(values, float), q)) \
+        if len(values) else None
+
+
+def _trace_a_run(torch, base, kind, traced=False):
+    """One run of trace A, after the bench's warm-up, through a fresh
+    `ServeEngine` (``kind="engine"``, the [serve engine] configuration)
+    or a one-model `Gateway` over one (``"gateway"``), each request
+    submitted at its arrival and the front door stepped in between; with
+    ``traced``, span tracing is on for the trace (not the warm-up). Every
+    token is checked against the bare engine's of `phase_serve_engine`,
+    and the program count and the pages after shutdown. Returns (numbers,
+    the run's slots, its handles, its finished spans if traced). The
+    numbers split the run's wall: the front door's steps, the engine's
+    steps inside them, the decode steps and prefill chunks inside those,
+    and the wall outside any step (waiting for arrivals)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.telemetry import tracing
+
+    prompts, budgets, arrivals = _serve_trace_a(onp)
+    model = base["model"]
+    if kind == "engine":
+        door = serve.ServeEngine(model, max_slots=SERVE_SLOTS,
+                                 max_len=SERVE_MAX_LEN)
+        sched = door._sched
+
+        def submit(i):
+            return door.submit(prompts[i], budgets[i])
+
+        def warm(p):
+            door.generate(p, 2)
+
+        def queued():
+            return sched.queue_depth
+
+        def programs():
+            return door.xla_program_count()
+    else:
+        reg = serve.ModelRegistry()
+        reg.add("gpt2", model, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+        door = serve.Gateway(reg)
+        sched = door._models["gpt2"].replicas[0].sched
+
+        def submit(i):
+            return door.submit("gpt2", prompts[i], budgets[i])
+
+        def warm(p):
+            door.generate("gpt2", p, 2)
+
+        def queued():
+            return door.queue_depth + sched.queue_depth
+
+        def programs():
+            return door.xla_program_counts()["gpt2"]
+    slots = sched.slots
+    walls = {n: [] for n in ("step", "engine", "decode", "prefill")}
+    sched.step = _timed(sched.step, walls["engine"])
+    slots.decode_step = _timed(slots.decode_step, walls["decode"])
+    slots.prefill_chunk_step = _timed(slots.prefill_chunk_step,
+                                      walls["prefill"])
+    step = _timed(door.step, walls["step"])
+    for p in (onp.resize(prompts[0], 16), onp.resize(prompts[0], 48),
+              onp.resize(prompts[1], 48)):
+        warm(p)
+    torch.cuda.synchronize()
+    count_warm = programs()
+    for w in walls.values():
+        del w[:]
+    spans = None
+    if traced:
+        tracing.reset()
+        tracing.enable()
+    try:
+        handles, depth, busy, i = [], [], [], 0
+        t0 = time.perf_counter()
+        while i < len(prompts) or not all(h.done for h in handles):
+            now = time.perf_counter() - t0
+            while i < len(prompts) and arrivals[i] <= now:
+                handles.append(submit(i))
+                i += 1
+            progressed = step()
+            depth.append(queued())
+            busy.append(sched.n_active)
+            if not progressed and i < len(prompts):
+                wait = arrivals[i] - (time.perf_counter() - t0) \
+                    if arrivals[i] > now else 0.001
+                time.sleep(min(0.001, max(0.0, wait)))
+        t_total = time.perf_counter() - t0
+        host = decode_host_split(torch, slots, sched)
+        if traced:
+            spans = tracing.finished_spans()
+    finally:
+        if traced:
+            tracing.disable()
+            tracing.reset()
+    count_trace = programs()
+    what = f"[{'trace' if traced else kind}] {kind}"
+    check(all(h.error is None and h.done for h in handles),
+          f"{what}: a request failed")
+    door.shutdown(drain=True)
+    used = slots.allocator.used_pages
+    same = sum(a == b for h, ref in zip(handles, base["tokens"])
+               for a, b in zip(h.tokens, ref))
+    total = sum(len(ref) for ref in base["tokens"])
+    tokens = sum(len(h.tokens) for h in handles)
+    check(same == total and tokens == total,
+          f"{what}: {same} of {total} tokens equal to the engine's")
+    check(count_warm == count_trace, f"{what}: the program count moved")
+    check(slots.captures == 1, f"{what}: {slots.captures} captures")
+    check(used == 0, f"{what}: {used} pages in use after shutdown")
+    sums = {n: float(sum(w)) for n, w in walls.items()}
+    ttft = [h.ttft * 1e3 for h in handles]
+    n = len(walls["step"])
+    out = dict(
+        kind=kind, traced=traced, tokens=tokens, tokens_equal=same,
+        seconds=t_total, tokens_per_s=tokens / t_total,
+        ttft_p50_ms=_pct(ttft, 50), ttft_p99_ms=_pct(ttft, 99),
+        steps=n, decode_steps=len(walls["decode"]),
+        prefill_chunks=len(walls["prefill"]),
+        mean_queued=float(onp.mean(depth)),
+        mean_slot_occupancy=float(onp.mean(busy)) / SERVE_SLOTS,
+        # where the run's wall went, ms a step
+        door_host_ms_a_step=(sums["step"] - sums["engine"]) / n * 1e3,
+        scheduler_host_ms_a_step=(sums["engine"] - sums["decode"]
+                                  - sums["prefill"]) / n * 1e3,
+        decode_ms_a_decode_step=sums["decode"]
+        / max(len(walls["decode"]), 1) * 1e3,
+        prefill_ms_a_chunk=sums["prefill"]
+        / max(len(walls["prefill"]), 1) * 1e3,
+        outside_steps_s=t_total - sums["step"],
+        decode_step_host_split_ms=host)
+    return out, slots, handles, spans
+
+
+def _run_text(r):
+    return (f"{r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{r['ttft_p50_ms']:.2f} ms p99 {r['ttft_p99_ms']:.2f}, "
+            f"{r['steps']} steps ({r['decode_steps']} decode, "
+            f"{r['prefill_chunks']} chunks), queued {r['mean_queued']:.2f},"
+            f" occupancy {r['mean_slot_occupancy']:.3f}; ms a step: front "
+            f"door {r['door_host_ms_a_step']:.4f}, scheduler "
+            f"{r['scheduler_host_ms_a_step']:.4f}; decode step "
+            f"{r['decode_ms_a_decode_step']:.4f} ms, chunk "
+            f"{r['prefill_ms_a_chunk']:.4f} ms; outside steps "
+            f"{r['outside_steps_s']:.4f} s")
+
+
+def phase_gateway_a(torch, dev, base):
+    """Trace A through a one-model `serve.Gateway` over the engine of
+    `phase_serve_engine` (gpt2_small, f32, 8 slots of 256 tokens), in
+    turns with the bare engine (engine, gateway, gateway, engine: host
+    time varies run to run, so the two are compared only within the
+    phase), each a fresh front door after the bench's warm-up, each
+    request submitted at its arrival: every token equal to the bare
+    engine's, one capture and a flat program count a run, exact K4
+    launches, every page back; tokens/s and TTFT (submit to first token)
+    beside the bare engine's, and each run's wall split by layer.
+    Returns (the phase's numbers, K4 launches through the wrapper)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+    runs, reps = [], []
+    for kind in ("engine", "gateway", "gateway", "engine"):
+        out, slots, _, _ = _trace_a_run(torch, base, kind)
+        runs.append(out)
+        reps.append(SimpleNamespace(slots=slots))
+        log(f"[gateway A] {kind}: {out['tokens_equal']} of {out['tokens']} "
+            f"tokens equal to the bare engine's; " + _run_text(out))
+    k4 = read_counts()["K4"]
+    want_k4 = _plane_k4("[gateway A]", reps, chunks.value - chunks0, k4)
+
+    def med(kind, key):
+        return float(onp.median([r[key] for r in runs if r["kind"] == kind]))
+
+    summary = {key: {k: med(k, key) for k in ("engine", "gateway")}
+               for key in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                           "door_host_ms_a_step",
+                           "scheduler_host_ms_a_step")}
+    out = dict(model="gpt2_small", dtype="float32", slots=SERVE_SLOTS,
+               max_len=SERVE_MAX_LEN, order=[r["kind"] for r in runs],
+               runs=runs, medians=summary,
+               vs_engine=summary["tokens_per_s"]["gateway"]
+               / summary["tokens_per_s"]["engine"],
+               k4_launches_through_wrapper=k4, k4_launches_expected=want_k4)
+    log(f"[gateway A] medians of two runs each: tokens/s gateway "
+        f"{summary['tokens_per_s']['gateway']:.1f} against the engine's "
+        f"{summary['tokens_per_s']['engine']:.1f} ({out['vs_engine']:.3f});"
+        f" TTFT p50 {summary['ttft_p50_ms']['gateway']:.2f} against "
+        f"{summary['ttft_p50_ms']['engine']:.2f} ms, p99 "
+        f"{summary['ttft_p99_ms']['gateway']:.2f} against "
+        f"{summary['ttft_p99_ms']['engine']:.2f}; the gateway's own host "
+        f"{summary['door_host_ms_a_step']['gateway']:.4f} ms a step; K4 "
+        f"through the wrapper {k4} (expected {want_k4})")
+    return out, k4
+
+
+def phase_gateway(torch, dev, base):
+    """The shape of the reference's `bench_gpt_gateway` (bench.py:943) at
+    full width: two co-resident gpt2_small models (weight seeds 0 and 1,
+    f32) under one 120-page budget split 2:1, 4 slots of 128 tokens each,
+    tenants acme (weight 3, high), beta (2, normal) and crawl (1, low) on
+    `loadgen.synth_trace` (30 requests, seed 0) replayed by
+    `loadgen.replay`; then the acceptance test's deterministic episode
+    (tests/test_gateway.py:558-580, at 4 slots: four low requests of 20
+    tokens fill gpt-a, a high one preempts exactly one, every low one
+    finishes its 20 tokens with those from before the preemption kept).
+    After every step, every engine's page ledger; no failed request,
+    program counts flat after the warm-up, exact K4 launches, every page
+    back after shutdown. Returns (the phase's numbers, K4 launches)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
+    loadgen = _loadgen()
+    g = GATEWAY
+    models = {"gpt-a": base["model"],
+              "gpt-b": gpt2_small(device=dev, seed=1).eval()}
+    reg = serve.ModelRegistry(total_pages=g["total_pages"])
+    for name, share in (("gpt-a", 2.0), ("gpt-b", 1.0)):
+        reg.add(name, models[name], share=share, max_slots=g["max_slots"],
+                max_len=g["max_len"])
+    gw = serve.Gateway(reg, tenants={t: {"weight": w} for t, (w, _)
+                                     in GATEWAY_TENANTS.items()})
+    check_walls = []
+    _checked_steps(gw, "[gateway]", check_walls)
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    rng = onp.random.RandomState(g["seed"])
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+    for name in models:
+        for n in g["warm_lens"]:
+            gw.generate(name, rng.randint(0, VOCAB, (n,)), 2)
+    programs_warm = gw.xla_program_counts()
+    pages = {n: m.slots.allocator.usable_pages
+             for n, m in gw._models.items()}
+    events = loadgen.synth_trace(
+        g["requests"], models={"gpt-a": 2.0, "gpt-b": 1.0},
+        tenants=GATEWAY_TENANTS, seed=g["seed"],
+        duration_s=g["duration_s"], prompt_mean=g["prompt_mean"],
+        prompt_max=g["prompt_max"], max_new_range=g["max_new_range"])
+    del check_walls[:]
+    report = loadgen.replay(gw, events, VOCAB, timeout=120.0)
+    programs_trace = gw.xla_program_counts()
+    check(not report["failed"], f"[gateway]: {len(report['failed'])} "
+          f"requests failed, first {report['failed'][:1]}")
+    check(report["completed"] == len(events),
+          f"[gateway]: {report['completed']} of {len(events)} completed")
+    tiers = {t: dict(count=v["count"], ttft_p50_ms=_pct(
+        [x * 1e3 for x in v["ttft"]], 50), ttft_p99_ms=_pct(
+        [x * 1e3 for x in v["ttft"]], 99)) for t, v in
+        report["per_tier"].items()}
+    tenants = {t: v["tokens"] / report["wall_s"]
+               for t, v in report["per_tenant"].items()}
+
+    # the deterministic episode: the lows fill gpt-a's slots, a high
+    # arrival preempts one, every low finishes with its tokens kept
+    pre0 = gw.preemptions_total
+    lows = [gw.submit("gpt-a", onp.random.RandomState(70 + i).randint(
+        0, VOCAB, (6,)), 20, tenant="crawl", priority="low")
+        for i in range(g["max_slots"])]
+    while not all(r.tokens for r in lows):
+        gw.step()
+    kept = {r.id: list(r.tokens) for r in lows}
+    high = gw.submit("gpt-a", onp.random.RandomState(99).randint(
+        0, VOCAB, (8,)), 4, tenant="acme", priority="high")
+    gw.step()
+    episode_preemptions = gw.preemptions_total - pre0
+    gw._drive_until(lows + [high], timeout=120.0)
+    victims = [r for r in lows if r.preemptions]
+    programs_end = gw.xla_program_counts()
+    k4 = read_counts()["K4"]
+    n_chunks = chunks.value - chunks0
+    reps = _engines(gw)
+    want_k4 = _plane_k4("[gateway]", reps, n_chunks, k4)
+    captures = {rep.label: rep.slots.captures for rep in reps}
+    gw.shutdown(drain=True)
+    used = {rep.label: rep.slots.allocator.used_pages for rep in reps}
+    out = dict(
+        models=["gpt2_small seed 0", "gpt2_small seed 1"], dtype="float32",
+        total_pages=g["total_pages"], usable_pages=pages,
+        max_slots=g["max_slots"], max_len=g["max_len"],
+        requests=len(events), completed=report["completed"],
+        wall_s=report["wall_s"], tiers=tiers, tenant_tokens_per_s=tenants,
+        preemptions=report["preemptions"],
+        resumed_completed=report["resumed_completed"],
+        episode=dict(preemptions=episode_preemptions,
+                     victims=len(victims),
+                     low_tokens=[len(r.tokens) for r in lows],
+                     high_tokens=len(high.tokens)),
+        program_counts=dict(after_warmup=programs_warm,
+                            after_trace=programs_trace,
+                            after_episode=programs_end),
+        captures=captures, page_checks_s=float(sum(check_walls)),
+        prefill_chunks=n_chunks, k4_launches_through_wrapper=k4,
+        k4_launches_expected=want_k4, pages_used_after_shutdown=used)
+    log(f"[gateway] two gpt2_small models, pages {pages}: {len(events)} "
+        f"requests in {report['wall_s']:.3f} s, TTFT by tier "
+        + ", ".join(f"{t} p50 {v['ttft_p50_ms']:.2f} ms p99 "
+                    f"{v['ttft_p99_ms']:.2f} ms ({v['count']})"
+                    for t, v in tiers.items())
+        + f"; preemptions {report['preemptions']}; tokens/s by tenant "
+        + ", ".join(f"{t} {v:.1f}" for t, v in tenants.items()))
+    log(f"[gateway] episode: {episode_preemptions} preemption(s), "
+        f"{len(victims)} victim(s), low tokens "
+        f"{out['episode']['low_tokens']}, high {len(high.tokens)}; program "
+        f"counts {programs_warm} -> {programs_trace} -> {programs_end}; "
+        f"captures {captures}; page checks {out['page_checks_s']:.4f} s "
+        f"(the trace's); K4 through the wrapper {k4} (expected {want_k4}); "
+        f"pages in use after shutdown {used}")
+    check(episode_preemptions == 1,
+          f"[gateway]: {episode_preemptions} preemptions in the episode")
+    check(len(victims) == 1, f"[gateway]: {len(victims)} victims")
+    for r in lows:
+        check(r.state == "done" and len(r.tokens) == 20,
+              f"[gateway]: low request {r.id} {r.state} with "
+              f"{len(r.tokens)} tokens")
+        check(r.tokens[:len(kept[r.id])] == kept[r.id],
+              f"[gateway]: request {r.id} lost its tokens from before the "
+              "preemption")
+    check(high.state == "done" and len(high.tokens) == 4,
+          "[gateway]: the high request did not finish")
+    check(programs_warm == programs_trace == programs_end,
+          "[gateway]: the program counts moved after the warm-up")
+    check(not any(used.values()), f"[gateway]: pages in use {used}")
+    return out, k4
+
+
+def _disagg_gateway(serve, model, disaggregated):
+    d = DISAGG
+    reg = serve.ModelRegistry(total_pages=d["total_pages"])
+    if disaggregated:
+        reg.add("gpt", model, prefill_replicas=1, decode_replicas=1,
+                max_slots=d["max_slots"], max_len=d["max_len"])
+    else:
+        reg.add("gpt", model, replicas=2, max_slots=d["max_slots"],
+                max_len=d["max_len"])
+    return serve.Gateway(reg, tenants={"archive": {"weight": 1.0},
+                                       "chat": {"weight": 2.0}})
+
+
+def _disagg_warm(gw, disaggregated, rng):
+    """The bench's warm-up (bench.py:1236-1256): the prefill-capable
+    replicas serve one request of each warm length straight through their
+    schedulers (the co-located fallback must not build anything later);
+    the decode replica warms only through the migration plane."""
+    import numpy as onp
+
+    m = gw._models["gpt"]
+    for rep in (m.role_replicas("prefill") if disaggregated
+                else m.replicas):
+        for n in DISAGG["warm_lens"]:
+            seg = rep.sched.submit(
+                rng.randint(0, VOCAB, (n,)).astype(onp.int32), 2)
+            while not seg.done:
+                rep.sched.step()
+    if disaggregated:
+        for n in DISAGG["warm_lens"]:
+            h = gw.submit("gpt", rng.randint(0, VOCAB, (n,)).astype(
+                onp.int32), 3)
+            gw._drive_until([h], timeout=60.0)
+
+
+def _disagg_leg(gw, disaggregated, events):
+    """The bench's leg (bench.py:1258-1300): each event submitted at its
+    arrival, the gateway stepped, the decode-capable replicas' decoding
+    slots sampled after each step. Returns (numbers, handles)."""
+    import numpy as onp
+
+    loadgen = _loadgen()
+    d = DISAGG
+    m = gw._models["gpt"]
+    decode_reps = m.role_replicas("decode") if disaggregated else m.replicas
+    programs0 = gw.xla_program_counts(per_replica=True)
+    handles, samples = [], []
+    t0 = time.monotonic()
+    i = 0
+    while i < len(events) or not all(h.done for _, h in handles):
+        now = time.monotonic() - t0
+        while i < len(events) and events[i].t <= now:
+            e = events[i]
+            plen = min(e.prompt_len, d["max_len"] - e.max_new - 1)
+            handles.append((e, gw.submit(
+                "gpt", onp.random.RandomState(e.seed).randint(
+                    0, VOCAB, (plen,)).astype(onp.int32),
+                e.max_new, tenant=e.tenant, priority=e.priority)))
+            i += 1
+        gw.step()
+        samples.append(sum(r.sched._n_decoding for r in decode_reps)
+                       / len(decode_reps))
+    wall = time.monotonic() - t0
+    leg = "disagg" if disaggregated else "homogeneous"
+    failed = [(h.id, h.state) for _, h in handles if h.state != "done"]
+    check(not failed, f"[disagg] {leg} leg: {len(failed)} requests failed")
+    programs1 = gw.xla_program_counts(per_replica=True)
+    check(programs1 == programs0, f"[disagg] {leg} leg: program counts "
+          f"{programs0} -> {programs1}")
+    chat = [h.ttft * 1e3 for e, h in handles if e.tenant == "chat"
+            and h.ttft is not None]
+    tokens = sum(len(h.tokens) for _, h in handles)
+    out = dict(resident_mean=float(onp.mean(samples)),
+               chat_ttft_p50_ms=loadgen.percentile(chat, 50),
+               chat_ttft_p99_ms=loadgen.percentile(chat, 99),
+               tokens=tokens, seconds=wall, tokens_per_s=tokens / wall,
+               steps=len(samples), program_counts=programs1,
+               replicas={h.replica for _, h in handles})
+    out["replicas"] = sorted(out["replicas"])
+    return out, [h for _, h in handles]
+
+
+def phase_disagg(torch, dev, base):
+    """The shape of the reference's `bench_gpt_serve_disagg`
+    (bench.py:1180) at full width: one gpt2_small (f32, the model of
+    `phase_serve_engine`) as a 1-prefill + 1-decode pod against 2
+    homogeneous replicas under the same 72-page budget, 8 slots of 64
+    tokens, on `loadgen.mixed_length_trace` (20 requests, seed 0). Checks:
+    every request done on both legs, each one's tokens on the
+    disaggregated leg bit for bit its tokens on the homogeneous leg,
+    program counts flat on both legs, the byte audit (bytes = pages moved
+    x ``page_bytes``, 1,179,648 a page), no prefill on the decode
+    replica (`disagg.decode_prefill_families`), every engine's page
+    ledger after every step, one ``page_migration`` fault falling back
+    co-located with no page leak, exact K4 launches, every page back.
+    Numbers: migrations, the decode residency ratio (recorded, not
+    checked), one page's copy out plus copy in on the card (CUDA events
+    over graph replays) against its bound, the chat tier's TTFT. Returns
+    (the phase's numbers, K4 launches)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.fault import injection
+    from incubator_mxnet_tpu_torch.serve import disagg
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
+    loadgen = _loadgen()
+    d = DISAGG
+    model = base["model"]
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    events = loadgen.mixed_length_trace(
+        d["requests"], "gpt", seed=d["seed"], duration_s=d["duration_s"],
+        long_frac=d["long_frac"], long_prompt=d["long_prompt"],
+        long_jitter=d["long_jitter"], long_new_range=d["long_new_range"],
+        chat_prompt_mean=d["chat_prompt_mean"],
+        chat_new_range=d["chat_new_range"])
+    rng = onp.random.RandomState(d["seed"])
+    check_walls = []
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+    reps = []
+
+    # leg (a): disaggregated
+    gw = _disagg_gateway(serve, model, True)
+    reps += _engines(gw)
+    _checked_steps(gw, "[disagg] disagg", check_walls)
+    m = gw._models["gpt"]
+    src, dst = m.replicas[0].slots, m.replicas[1].slots
+    _disagg_warm(gw, True, rng)
+    p0, b0 = disagg.migration_counts("gpt")
+    dis, dis_h = _disagg_leg(gw, True, events)
+    p1, b1 = disagg.migration_counts("gpt")
+    moved, moved_b = p1 - p0, b1 - b0
+    families = disagg.decode_prefill_families(gw, "gpt")
+    migrated = sum(h.replica == "gpt#1" for h in dis_h)
+
+    # one page's copy out + copy in on the card: free pages of each side,
+    # the engine's own device halves in a graph (time_ms)
+    for s in (src, dst):
+        s.prefix_cache.evict_unused(1)
+    ps, pd = src.allocator.alloc(1), dst.allocator.alloc(1)
+    idx_s, idx_d = src._page_index(ps), dst._page_index(pd)
+    copy_ms = time_ms(lambda: dst._scatter_pages(
+        idx_d, src._gather_pages(idx_s)), [()], MIGRATION_REPS)
+    walls = []
+    for _ in range(MIGRATION_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_pages_in(pd, src.copy_pages_out(ps))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    src.allocator.decref(ps)
+    dst.allocator.decref(pd)
+    page_bytes = src.page_bytes
+    bound_ms = 2 * page_bytes / PEAK_BYTES_S * 1e3
+
+    # the page_migration fault: co-located on the prefill replica, nothing
+    # moved, the decode pool as it was
+    free_d = dst.allocator.free_pages
+    injection.configure_injection("page_migration:1.0:0:1")
+    try:
+        e = events[0]
+        h = gw.submit("gpt", onp.random.RandomState(e.seed).randint(
+            0, VOCAB, (min(e.prompt_len, d["max_len"] - e.max_new - 1),))
+            .astype(onp.int32), e.max_new, tenant=e.tenant)
+        gw._drive_until([h], timeout=60.0)
+        fired = injection.schedule_info()["page_migration"]["fired"]
+    finally:
+        injection.clear_injection()
+    fault_ok = (h.state == "done" and h.replica == "gpt#0" and fired == 1
+                and disagg.migration_counts("gpt")[0] == p1
+                and dst.allocator.free_pages == free_d
+                and h.tokens == dis_h[0].tokens)
+    families_after = disagg.decode_prefill_families(gw, "gpt")
+    gw.shutdown(drain=True)
+    used_a = {rep.label: rep.slots.allocator.used_pages
+              for rep in _engines(gw)}
+    torch.cuda.empty_cache()
+
+    # leg (b): homogeneous, the same budget
+    gw_b = _disagg_gateway(serve, model, False)
+    reps += _engines(gw_b)
+    _checked_steps(gw_b, "[disagg] homogeneous", check_walls)
+    _disagg_warm(gw_b, False, rng)
+    homo, homo_h = _disagg_leg(gw_b, False, events)
+    gw_b.shutdown(drain=True)
+    used_b = {rep.label: rep.slots.allocator.used_pages
+              for rep in _engines(gw_b)}
+    k4 = read_counts()["K4"]
+    n_chunks = chunks.value - chunks0
+    want_k4 = _plane_k4("[disagg]", reps, n_chunks, k4)
+    same = sum(a.tokens == b.tokens for a, b in zip(dis_h, homo_h))
+    ratio = dis["resident_mean"] / max(homo["resident_mean"], 1e-9)
+    out = dict(
+        model="gpt2_small", dtype="float32", total_pages=d["total_pages"],
+        max_slots=d["max_slots"], max_len=d["max_len"],
+        requests=len(events), disagg=dis, homogeneous=homo,
+        requests_equal=same, migrated_requests=migrated,
+        pages_moved=moved, bytes_moved=moved_b, page_bytes=page_bytes,
+        decode_residency_ratio=ratio,
+        page_copy_device_ms=copy_ms, page_copy_bound_ms=bound_ms,
+        page_copy_bound_by="bytes", page_copy_host_wall_ms_median=float(
+            onp.median(walls) * 1e3),
+        decode_prefill_families=families, fault_fallback_ok=fault_ok,
+        page_checks_s=float(sum(check_walls)), prefill_chunks=n_chunks,
+        k4_launches_through_wrapper=k4, k4_launches_expected=want_k4,
+        pages_used_after_shutdown=dict(used_a, **{
+            f"homogeneous {k}": v for k, v in used_b.items()}))
+    log(f"[disagg] 1 prefill + 1 decode replica against 2 homogeneous, "
+        f"{d['total_pages']} pages: {same} of {len(events)} requests' tokens "
+        f"equal across the legs, {migrated} finished on the decode replica "
+        f"(the rest co-located on the prefill replica: no decode slot or "
+        f"pages free at their hand-off);"
+        f" {moved} pages moved, {moved_b} bytes ({page_bytes} a page); "
+        f"decode residency {dis['resident_mean']:.3f} against "
+        f"{homo['resident_mean']:.3f} a replica: ratio {ratio:.3f} (the "
+        f"reference bench's gate 1.5, recorded here, not checked); chat "
+        f"TTFT p99 {dis['chat_ttft_p99_ms']:.2f} ms against "
+        f"{homo['chat_ttft_p99_ms']:.2f}; tokens/s "
+        f"{dis['tokens_per_s']:.1f} against {homo['tokens_per_s']:.1f}")
+    log(f"[disagg] one page's copy out + copy in: {copy_ms:.4f} ms of "
+        f"device time (graph replays, CUDA events) against the bound "
+        f"{bound_ms:.6f} ms (2 x {page_bytes} bytes at 3.35 TB/s), the "
+        f"call's host wall {out['page_copy_host_wall_ms_median']:.4f} ms; "
+        f"prefill on the decode replica {families}; the page_migration "
+        f"fault fell back co-located: {fault_ok}; page checks "
+        f"{out['page_checks_s']:.4f} s; K4 through the wrapper {k4} "
+        f"(expected {want_k4}); pages in use after shutdown "
+        f"{out['pages_used_after_shutdown']}")
+    check(same == len(events), f"[disagg]: {len(events) - same} requests' "
+          "tokens differ between the legs")
+    check(migrated > 0 and moved > 0, "[disagg]: nothing migrated")
+    check(page_bytes == PAGE_BYTES_F32, f"[disagg]: {page_bytes} bytes a "
+          f"page, expected {PAGE_BYTES_F32}")
+    check(moved_b == moved * page_bytes, f"[disagg]: {moved_b} bytes for "
+          f"{moved} pages of {page_bytes}")
+    check(not families and not families_after,
+          f"[disagg]: prefill on the decode replica {families_after}")
+    check(fault_ok, "[disagg]: the page_migration fault did not fall back "
+          "co-located with the decode pool untouched")
+    check(not any(out["pages_used_after_shutdown"].values()),
+          f"[disagg]: pages in use {out['pages_used_after_shutdown']}")
+    return out, k4
+
+
+def phase_trace(torch, dev, base):
+    """Trace A through a fresh `ServeEngine` (the [serve engine]
+    configuration) in turns untraced, traced, traced, untraced, tracing
+    on for the trace only: every token the bare engine's; in each traced
+    run every request a ``serve.request`` root with its queue, prefill
+    and decode spans under it, a ``serve.step`` span for every step and a
+    ``serve.decode_step`` for every decode step, and the Chrome export
+    valid JSON (written to ``build/serve_trace_a.json``); the decode
+    step's host parts (fingerprint, upload, launch) and the scheduler's
+    host time a step, traced against untraced; a span's cost on and off.
+    Returns (the phase's numbers, K4 launches through the wrapper)."""
+    import os
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch.telemetry import registry, tracing
+
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+    runs, reps, bad, chrome = [], [], [], None
+    for traced in (False, True, True, False):
+        out, slots, handles, spans = _trace_a_run(torch, base, "engine",
+                                                  traced)
+        reps.append(SimpleNamespace(slots=slots))
+        if traced:
+            for h in handles:
+                mine = [s for s in spans if s.trace_id == h.trace_id]
+                root = [s for s in mine if s.name == "serve.request"]
+                if sorted(s.name for s in mine) != [
+                        "serve.decode", "serve.prefill", "serve.queue",
+                        "serve.request"] or root[0].attrs.get(
+                        "tokens") != len(h.tokens) or any(
+                        s.parent_id != root[0].span_id for s in mine
+                        if s is not root[0]):
+                    bad.append(h.id)
+            out["serve_step_spans"] = sum(s.name == "serve.step"
+                                          for s in spans)
+            out["decode_step_spans"] = sum(s.name == "serve.decode_step"
+                                           for s in spans)
+            check(out["serve_step_spans"] == out["steps"]
+                  and out["decode_step_spans"] == out["decode_steps"],
+                  "[trace]: a step without its span")
+            if chrome is None:
+                chrome = json.dumps(tracing.chrome_trace(
+                    include_device=True, spans=spans))
+        runs.append(out)
+        log(f"[trace] {'traced' if traced else 'untraced'}: "
+            + _run_text(out))
+    events = json.loads(chrome)["traceEvents"]
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "serve_trace_a.json")
+    with open(path, "w") as f:
+        f.write(chrome)
+
+    def span_us(n=10000):
+        t0 = time.perf_counter()
+        for i in range(n):
+            with tracing.span("serve.step", queued=i, active=i):
+                pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+    tracing.enable()
+    try:
+        span_on = span_us()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    span_off = span_us()
+    k4 = read_counts()["K4"]
+    want_k4 = _plane_k4("[trace]", reps, chunks.value - chunks0, k4)
+
+    def med(traced, key, part=None):
+        vals = [r[key] if part is None else r[key][part] for r in runs
+                if r["traced"] == traced]
+        return float(onp.median(vals))
+
+    parts = ("fingerprint", "load_inputs", "replay_launch")
+    summary = {name: {"traced": med(True, *k), "untraced": med(False, *k)}
+               for name, k in (
+                   ("tokens_per_s", ("tokens_per_s",)),
+                   ("scheduler_host_ms_a_step",
+                    ("scheduler_host_ms_a_step",)),
+                   *((p, ("decode_step_host_split_ms", p)) for p in parts))}
+    out = dict(order=["traced" if r["traced"] else "untraced" for r in runs],
+               runs=runs, medians=summary,
+               engine_decode_step_host_split_ms={
+                   p: base["host_split"][p] for p in parts},
+               requests_with_bad_traces=bad, chrome_events=len(events),
+               chrome_bytes=len(chrome), span_us_on=span_on,
+               span_us_off=span_off, k4_launches_through_wrapper=k4,
+               k4_launches_expected=want_k4)
+    log(f"[trace] {2 * len(base['tokens']) - len(bad)} of "
+        f"{2 * len(base['tokens'])} traced requests with their four spans "
+        f"under one root; the Chrome export {len(events)} events, "
+        f"{len(chrome)} bytes of valid JSON ({path})")
+    log("[trace] medians traced / untraced (ms): a decode step's host "
+        "parts " + ", ".join(
+            f"{p} {summary[p]['traced']:.4f} / {summary[p]['untraced']:.4f}"
+            f" ([serve engine] {base['host_split'][p]:.4f})" for p in parts)
+        + f"; the scheduler's host a step "
+        f"{summary['scheduler_host_ms_a_step']['traced']:.4f} / "
+        f"{summary['scheduler_host_ms_a_step']['untraced']:.4f}; tokens/s "
+        f"{summary['tokens_per_s']['traced']:.1f} / "
+        f"{summary['tokens_per_s']['untraced']:.1f}; a serve.step span "
+        f"{span_on:.3f} us on, {span_off:.3f} us off; K4 through the "
+        f"wrapper {k4} (expected {want_k4})")
+    check(not bad, f"[trace]: requests {bad[:8]} lack a complete trace")
+    return out, k4
+
+
+def phase_fault(torch, dev, base):
+    """One ``serve_step`` fault armed through ``MXNET_FAULT_INJECT`` (read
+    by `util._apply_env_config`, as at the package's import) on a live
+    engine on the card with tracing on: the step raises `FaultInjected`,
+    the flight dump (``MXNET_FLIGHTREC_DIR`` under ``build/``) exists and
+    holds the requests' open spans and the fired schedule, the next steps
+    serve every request with the bare engine's tokens, and every page
+    comes back. Returns (the phase's numbers, K4 launches)."""
+    import glob
+    import os
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import fault, serve, util
+    from incubator_mxnet_tpu_torch.telemetry import tracing
+
+    dump_dir = os.path.abspath(os.path.join("build", "flightrec"))
+    os.makedirs(dump_dir, exist_ok=True)
+    for old in glob.glob(os.path.join(dump_dir, "flightrec_*.json")):
+        os.remove(old)
+    prompts = _serve_trace_a(onp)[0][:FAULT_REQUESTS]
+    engine = serve.ServeEngine(base["model"], max_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    reset_counts()
+    env = {"MXNET_FAULT_INJECT": "serve_step:1.0:0:1",
+           "MXNET_FLIGHTREC_DIR": dump_dir}
+    saved = {k: os.environ.get(k) for k in env}
+    tracing.enable()
+    try:
+        handles = [engine.submit(p, FAULT_NEW) for p in prompts]
+        engine.step()                      # admitted, prefilled
+        held = engine._sched.slots.allocator.used_pages
+        os.environ.update(env)
+        util._apply_env_config()
+        armed = fault.injection_enabled("serve_step")
+        raised = None
+        try:
+            engine.step()
+        except fault.FaultInjected as e:
+            raised = e
+        fired = fault.schedule_info()["serve_step"]["fired"]
+        dumps = glob.glob(os.path.join(dump_dir,
+                                       "flightrec_serve_step_*.json"))
+        payload = json.loads(open(dumps[0]).read()) if dumps else {}
+        open_ids = {s["attrs"].get("request")
+                    for s in payload.get("open_spans", [])
+                    if s["name"] == "serve.request"}
+        engine._drive_until(handles)
+    finally:
+        fault.clear_injection()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tracing.disable()
+        tracing.reset()
+    k4 = read_counts()["K4"]
+    engine.shutdown(drain=True)
+    used = engine._sched.slots.allocator.used_pages
+    same = all(h.tokens == base["tokens"][i][:FAULT_NEW]
+               for i, h in enumerate(handles))
+    out = dict(requests=len(handles), armed=armed,
+               raised=type(raised).__name__ if raised else None,
+               fired=fired, dumps=len(dumps),
+               dump_error=payload.get("error"),
+               open_request_spans=sorted(i for i in open_ids
+                                         if i is not None),
+               pages_held_at_fault=held, tokens_equal_to_engine=same,
+               k4_launches_through_wrapper=k4,
+               pages_used_after_shutdown=used)
+    log(f"[fault] MXNET_FAULT_INJECT=serve_step:1.0:0:1 on a live engine "
+        f"({len(handles)} requests holding {held} pages): armed {armed}, "
+        f"the step raised {out['raised']} (fired {fired}); flight dumps "
+        f"{len(dumps)}, its open serve.request spans "
+        f"{out['open_request_spans']}; then every request served with the "
+        f"bare engine's tokens: {same}; K4 through the wrapper {k4}; pages "
+        f"in use after shutdown {used}")
+    check(armed and raised is not None and fired == 1,
+          "[fault]: the serve_step fault did not fire from the step")
+    check(len(dumps) == 1 and payload["error"]["type"] == "FaultInjected",
+          f"[fault]: {len(dumps)} flight dumps")
+    check(open_ids >= {h.id for h in handles},
+          "[fault]: the dump lacks the requests' open spans")
+    check(payload["fault_schedule"]["serve_step"]["fired"] == 1,
+          "[fault]: the dump lacks the fired schedule")
+    check(same, "[fault]: tokens after the fault differ from the engine's")
+    check(k4 > 0, "[fault]: K4 was not launched on the path")
+    check(used == 0, f"[fault]: {used} pages in use after shutdown")
     return out, k4
 
 
@@ -3608,6 +4504,14 @@ def main():
     torch.cuda.empty_cache()
     serve_spec, spec_k4 = phase_serve_spec(torch, dev, base)
     launches["K4"] += spec_k4
+    plane, plane_k4 = {}, 0
+    for name, phase in (("gateway_a", phase_gateway_a),
+                        ("gateway", phase_gateway), ("disagg", phase_disagg),
+                        ("trace", phase_trace), ("fault", phase_fault)):
+        plane[name], k4 = phase(torch, dev, base)
+        plane_k4 += k4
+        torch.cuda.empty_cache()
+    launches["K4"] += plane_k4
     del base
     torch.cuda.empty_cache()
     check_result = phase_train_step_check(torch, dev)
@@ -3639,9 +4543,10 @@ def main():
             for name, n in v.items():
                 by_layout[k][name] = by_layout[k].get(name, 0) + n
     by_layout["K4"]["f32"] += sum(r["k4_launches"] for r in served) \
-        + engine_k4 + spec_k4
+        + engine_k4 + spec_k4 + plane_k4
     log(f"[done] launches on the main paths (serving, the serving "
-        f"engine's warm-up and traces + {STEPS} timed "
+        f"engine's warm-up and traces, the serving plane's gateways, pods "
+        f"and traced and faulted engines + {STEPS} timed "
         f"training steps in f32 and {STEPS} under AMP + the DataParallel "
         f"steps, AMP and f32, that launched through the wrappers: the "
         f"eager and the capturing step of each + {GD_STEPS} gelu_dropout "
@@ -3665,6 +4570,8 @@ def main():
     log(json.dumps({"serve": served}))
     log(json.dumps({"serve_engine": serve_engine}))
     log(json.dumps({"serve_spec": serve_spec}))
+    for name, numbers in plane.items():
+        log(json.dumps({name: numbers}))
     gd_path["max_abs_err_vs_float64"] = {
         name: {"k6": k6, "erff": erff}
         for name, (k6, erff) in gd_accuracy.items()}

@@ -21,17 +21,23 @@ step on one card: forward, backward and the optimizer replayed as one
 CUDA graph a step, its dropout keys folded on the card. `serve` is the
 reference's serving engine (continuous batching over a paged KV pool,
 prefix reuse, chunked prefill, speculative decoding, an int8 KV pool),
-its decode, verify and draft steps each replayed as one CUDA graph;
-`telemetry.registry` holds its metrics. Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``. This
+its decode, verify and draft steps each replayed as one CUDA graph,
+and its serving plane: `serve.Gateway` over co-resident models (priority
+tiers, tenants, quotas, preemption, replicas sharing the card) and
+disaggregated prefill and decode replicas whose KV pages migrate on the
+card. `telemetry` holds its metrics, spans, cost and latency ledgers and
+SLOs; `fault` its chaos seams and retry policies. Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``. This
 package imports neither jax nor the reference package.
 """
-from . import (amp, base, contrib, device, gluon, models, ops, optimizer,
-               parallel, random, serve, telemetry, util)
+from . import (amp, base, contrib, device, fault, gluon, models, ops,
+               optimizer, parallel, random, serve, telemetry, util)
 from . import numpy_extension as npx
 from .base import MXNetError
 from .device import cpu, default_device, gpu, num_gpus
 
-__all__ = ["amp", "base", "contrib", "device", "gluon", "models", "ops",
-           "optimizer", "parallel", "random", "serve", "telemetry", "util",
-           "npx", "MXNetError",
+__all__ = ["amp", "base", "contrib", "device", "fault", "gluon", "models",
+           "ops", "optimizer", "parallel", "random", "serve", "telemetry",
+           "util", "npx", "MXNetError",
            "cpu", "gpu", "num_gpus", "default_device"]
+
+util._apply_env_config()

@@ -1,5 +1,5 @@
 """Gluon Trainer (port of `incubator_mxnet_tpu/gluon/trainer.py`
-`Trainer` :15: `step` :80, `update` :111, `_update` :119).
+`Trainer` :15: `step` :83, `update` :113, `_update` :119).
 
 The port runs on one card, so there is no gradient reduction: the
 reference's KVStore step is a no-op there too. Gradients live in each
@@ -7,7 +7,8 @@ parameter's ``.grad`` and accumulate across backward passes, as PyTorch's
 do (MXNet's ``grad_req="add"``); clear them between steps with
 ``module.zero_grad()``. A parameter whose ``.grad`` is None (one the loss
 does not reach, such as BERT's NSP head under an MLM-only loss) is
-skipped, as `_update` skips it.
+skipped, as `_update` skips it, with or without ``ignore_stale_grad``
+(the reference's `_update` skips it either way too).
 
 ``_scale`` (1.0 until `amp.scale_loss` folds 1 / loss scale into it, and
 again after `amp.unscale`) multiplies into the optimizer's
@@ -52,14 +53,15 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size):
+    def step(self, batch_size, ignore_stale_grad=False):
         """Rescale gradients by 1/batch_size and apply the optimizer (on
         one card there is nothing to reduce first)."""
-        self.update(batch_size)
+        self.update(batch_size, ignore_stale_grad)
 
-    def update(self, batch_size):
+    def update(self, batch_size, ignore_stale_grad=False):  # noqa: ARG002
         """Apply the optimizer with gradients rescaled by
-        ``_scale``/batch_size."""
+        ``_scale``/batch_size. A parameter without a gradient is skipped
+        whatever ``ignore_stale_grad`` says, as in the reference."""
         self._optimizer.rescale_grad = self._scale / batch_size
         for i, p in enumerate(self._params):
             if not p.requires_grad or p.grad is None:

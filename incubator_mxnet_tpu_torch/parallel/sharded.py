@@ -31,8 +31,10 @@ together by `Optimizer.step_multi`, the reference's concatenated segment
 per-parameter update.
 
 On a CPU net the same step function runs eagerly on the plain versions
-(the tests). ``mesh``, ``param_shardings``, ``remat``, `rebuild` and
-`shardcheck_report` are not ported yet (`ROADMAP.md` §1 items 7 and 10).
+(the tests). ``data_axis`` names the mesh's batch axis; with no mesh it
+is unused, as in the reference (:203). ``mesh``, ``param_shardings``,
+``remat``, `rebuild` and `shardcheck_report` are not ported yet
+(`ROADMAP.md` §1 items 9 and 11).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ __all__ = ["DataParallel"]
 
 _SMALL = 1 << 14
 _EAGER_STEPS = 1  # a signature's eager steps before its capture
-_NOT_PORTED = "is not ported yet (ROADMAP.md §1 item 7: the mesh paths)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md §1 item 9: the mesh paths)"
 
 
 def _fusion_off():
@@ -146,7 +148,7 @@ class DataParallel:
     for each input signature (shape and dtype of x and y, AMP on or off);
     ``captures`` counts them."""
 
-    def __init__(self, net, loss_fn, optimizer, mesh=None,
+    def __init__(self, net, loss_fn, optimizer, mesh=None, data_axis="dp",
                  param_shardings=None, remat=None):
         if mesh is not None:
             raise MXNetError(f"DataParallel: mesh {_NOT_PORTED}")
@@ -154,7 +156,7 @@ class DataParallel:
             raise MXNetError(f"DataParallel: param_shardings {_NOT_PORTED}")
         if remat is not None:
             raise MXNetError("DataParallel: remat is not ported yet "
-                             "(ROADMAP.md §1 item 10)")
+                             "(ROADMAP.md §1 item 11)")
         params = [p for p in net.parameters() if p.requires_grad]
         if not params:
             raise MXNetError("DataParallel: the net has no trainable "

@@ -18,19 +18,36 @@ over a paged KV pool (Orca's iteration-level batching, vLLM's paged KV).
   or length mid-flight, and ``preempt``;
 - `api`: `ServeEngine`, thread-safe blocking ``generate``, streaming
   ``submit``/``iter_tokens``, ``generate_many``, a background driver
-  thread, ``spec_stats()`` and ``shutdown(drain=True)``.
+  thread, ``spec_stats()`` and ``shutdown(drain=True)``;
+- `gateway`: `ModelRegistry` (co-resident models under one page budget,
+  N replicas a model sharing the card, or a prefill/decode split) and
+  `Gateway`, the multi-tenant front door: priority tiers, weighted
+  deficit round robin across tenants (`tenancy`), token quotas,
+  preemption through ``Scheduler.preempt``, replica routing (`router`),
+  ``hot_swap``;
+- `disagg`: the migration plane of a disaggregated pod: a prefill
+  replica's finished prompt pages are copied whole into a decode
+  replica's pools on the card and the request is adopted there.
 
-The registry (`telemetry.registry`) carries ``mx_serve_ttft_seconds``,
+The engine joins the telemetry plane: each request is a trace
+(``serve.request`` with its queue, prefill and decode spans, under the
+gateway's ``gateway.request`` when it came through one), every step a
+``serve.step`` span with the ``serve_step`` fault seam, the capacity and
+anatomy ledgers are charged at the prefill and decode seams, and a
+failed step leaves a flight-recorder dump. The registry
+(`telemetry.registry`) carries ``mx_serve_ttft_seconds``,
 ``mx_serve_tokens_total``, ``mx_serve_queue_depth``,
 ``mx_serve_slot_occupancy``, ``mx_serve_page_occupancy``,
 ``mx_serve_prefix_hits_total``, ``mx_serve_prefill_chunks_total``,
 ``mx_serve_evictions_total``, ``mx_serve_spec_drafted_tokens_total``,
 ``mx_serve_spec_accepted_tokens_total``,
-``mx_serve_spec_accept_rate{model=...}`` and
-``mx_decode_bucket_pad_tokens_total``. The disaggregation hand-off, the
-sharding and HBM pre-flights, tracing spans, the capacity and anatomy
-ledgers, the gateway, tenancy, routing and the sharded engine are not
-ported yet (`ROADMAP.md`).
+``mx_serve_spec_accept_rate{model=...}``,
+``mx_decode_bucket_pad_tokens_total``, the gateway's
+``mx_gateway_queue_depth{priority=}``, ``mx_gateway_dispatch_total``,
+``mx_serve_replica_free_pages{replica=}``, and the migration plane's
+``mx_serve_page_migration_pages_total`` and ``..._bytes_total``. The
+sharded engine, the elastic replica controller and the autoscale
+advisor are not ported yet (`ROADMAP.md`).
 
 Typical use::
 
@@ -42,16 +59,26 @@ Typical use::
     for tok in engine.iter_tokens(h):
         ...
     engine.shutdown(drain=True)
+
+    reg = serve.ModelRegistry(total_pages=120)
+    reg.add("chat", model, share=2.0, max_slots=4, max_len=128)
+    gw = serve.Gateway(reg, tenants={"acme": {"weight": 3.0}})
+    out = gw.generate("chat", prompt_ids, 32, tenant="acme",
+                      priority="high")
 """
 from __future__ import annotations
 
-from . import api, engine, scheduler
+from . import api, disagg, engine, gateway, router, scheduler, tenancy
 from .api import ServeEngine
 from .engine import PageAllocator, PagePoolExhausted, PrefixCache, SlotDecoder
+from .gateway import Gateway, GatewayRequest, ModelRegistry
+from .router import ReplicaRouter
 from .scheduler import (DeadlineExceeded, EngineClosed, QueueFull, Request,
                         Scheduler)
 
 __all__ = ["ServeEngine", "SlotDecoder", "Scheduler", "Request",
            "PageAllocator", "PrefixCache", "PagePoolExhausted",
            "QueueFull", "DeadlineExceeded", "EngineClosed",
-           "api", "engine", "scheduler"]
+           "ModelRegistry", "Gateway", "GatewayRequest", "ReplicaRouter",
+           "api", "engine", "scheduler", "gateway", "tenancy", "router",
+           "disagg"]

@@ -1,6 +1,8 @@
 """`serve.ServeEngine`, the thread-safe front door of the serving engine
 (port of `incubator_mxnet_tpu/serve/api.py`, `ServeEngine` :41, with its
-speculative-decoding arguments and `spec_stats` :84-151).
+speculative-decoding arguments and `spec_stats` :84-151, the tracked lock
+:108, the anatomy record at submit :176 and the flight dump of a failed
+step :190-203).
 
 Three ways in, one engine:
 
@@ -10,15 +12,20 @@ Three ways in, one engine:
   tokens are yielded as each step lands them;
 - ``generate_many([...])``: batch convenience over submit and drive.
 
-Threading: one `threading.Lock` guards the scheduler; `step()` holds it
-for a whole iteration, `submit()` only for admission. A background driver
+Threading: one lock (``tracked_lock("serve.engine")``, a plain
+``threading`` lock unless the lock witness is armed) guards the
+scheduler; `step()` holds it for a whole iteration, `submit()` only for
+admission. A background driver
 (``start()``) can own the step loop while client threads submit and
 stream; with no driver, whichever thread waits on a result steps the
 engine itself. On the card the decode, verify and draft graphs are
 captured in the thread that steps (``"thread_local"`` capture mode,
 `engine.SlotDecoder`).
 ``shutdown(drain=True)`` stops admission, finishes the requests already in
-slots and fails the never-admitted queue.
+slots and fails the never-admitted queue. A step that raises (an injected
+``serve_step`` fault among others) leaves a flight-recorder dump behind
+while tracing is armed, and propagates; the reference's HBM post-mortem
+comes with the port's `telemetry.hbm` (`ROADMAP.md` §1 item 10).
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import time
 
 import numpy as onp
 
+from ..telemetry import anatomy, tracing
+from ..telemetry.locks import tracked_lock
 from ..util import env_float, env_int
 from .engine import SlotDecoder
 from .scheduler import Request, Scheduler, _DONE
@@ -106,7 +115,7 @@ class ServeEngine:
                                 default_deadline=deadline_s, eos_id=eos_id,
                                 seed=seed)
         self._default_temperature = float(temperature)
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("serve.engine")
         self._driver = None
         self._stop = threading.Event()
 
@@ -169,18 +178,34 @@ class ServeEngine:
         if temperature is None:
             temperature = self._default_temperature
         with self._lock:
-            return self._sched.submit(prompt_ids, max_new_tokens,
-                                      temperature=temperature,
-                                      eos_id=eos_id, deadline_s=deadline_s)
+            req = self._sched.submit(prompt_ids, max_new_tokens,
+                                     temperature=temperature,
+                                     eos_id=eos_id, deadline_s=deadline_s)
+            # a standalone engine owns its requests' anatomy records end
+            # to end (the gateway attaches its own to the segments it
+            # dispatches)
+            rec = anatomy.begin(
+                req.id, req.tenant, self._sched.capacity_model,
+                "normal", req.submit_t, deadline=req.deadline)
+            if rec is not None:
+                rec.owner = "engine"
+                req.anatomy = rec
+            return req
 
     # -- driving ------------------------------------------------------------
 
     def step(self):
         """One scheduling iteration (admit, prefill chunks, one decode
         step for every decoding slot). Returns True if progress was
-        made."""
-        with self._lock:
-            return self._sched.step()
+        made. A step that raises leaves a flight-recorder dump (the open
+        spans of the requests in flight) while tracing is armed, and
+        propagates unchanged."""
+        try:
+            with self._lock:
+                return self._sched.step()
+        except Exception as e:
+            tracing.maybe_flight_dump("serve_step", e)
+            raise
 
     def _driver_running(self):
         d = self._driver

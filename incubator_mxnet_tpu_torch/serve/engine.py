@@ -1,6 +1,7 @@
 """Paged slot-cache decoding, the device half of `serve` (port of
 `incubator_mxnet_tpu/serve/engine.py`: `PagePoolExhausted` :137,
-`PageAllocator` :144, `PrefixCache` :232, `SlotDecoder` :361) on one card:
+`PageAllocator` :144, `PrefixCache` :232, `SlotDecoder` :361, its page
+migration :711-766) on one card:
 the KV pool in the weights' dtype or in int8, and speculative decoding
 with an n-gram or a draft-model draft.
 
@@ -61,9 +62,12 @@ is host work in the scheduler.
 Every LayerNorm of all four is the LayerNorm kernel (K4), through
 `models.decoding.GPTDecoder`'s layer helpers: 2 a layer and the final one
 a pass, over S rows in decode, S (k + 1) in verify, S in each draft step.
-The disaggregation hand-off (``copy_pages_out``/``copy_pages_in``), the
-HBM-census owners and the sharding pre-flight of the reference are not
-ported yet (`ROADMAP.md` §1 item 2).
+The disaggregation hand-off's transfer (`SlotDecoder.copy_pages_out` and
+``copy_pages_in``, reference :711-766) gathers whole pages into device
+tensors and writes them into the peer's pools in place, so the captured
+graphs read them at their next replay. The HBM-census owners and the
+sharding pre-flight of the reference are not ported yet (`ROADMAP.md` §1
+items 9 and 10).
 
 Stale-row safety (the reference's argument, per page): position ``p`` of
 a slot enters the mask only once the slot's ``pos`` reaches ``p``, and
@@ -645,7 +649,8 @@ class SlotDecoder:
     def page_bytes(self):
         """Bytes one pool page holds across all layers (K + V, plus the
         int8 scale planes), from the shapes, so it needs no allocated
-        pool."""
+        pool: the migration plane's unit (its bytes counter is pages moved
+        times this)."""
         dec = self._dec
         blocks = dec._model.blocks
         H = dec._n_heads
@@ -657,6 +662,94 @@ class SlotDecoder:
             itemsize = blocks[0].attn.qkv.weight.element_size()
             per_layer = 2 * H * self.page_tokens * d * itemsize
         return len(blocks) * per_layer
+
+    # -- page migration (the disaggregation hand-off's transfer seam) -------
+
+    @torch.no_grad()
+    def copy_pages_out(self, pages):
+        """Gather pool pages ``pages`` (whole pages) of every layer's K and
+        V planes, and int8's scale planes, into new device tensors: the
+        export half of the hand-off (`serve.disagg` is its caller).
+        Returns an opaque payload for the ``copy_pages_in`` of an engine
+        of the same shapes. The replicas share the card, so the payload
+        stays on it."""
+        self._ensure_pool()
+        return self._gather_pages(self._page_index(pages))
+
+    @torch.no_grad()
+    def copy_pages_in(self, pages, payload):
+        """Write a peer engine's `copy_pages_out` payload into this pool at
+        ``pages``, whole pages, so the bytes land bit for bit. The write
+        is in place (``index_copy_`` into the same tensors): the decode,
+        verify and draft graphs read the pools by address, so the next
+        replay reads the migrated pages and nothing is captured again. A
+        payload whose planes this pool lacks, or that lacks planes this
+        pool has (an fp and an int8 replica), raises ``ValueError``."""
+        self._ensure_pool()
+        for name, attr in (("k", "_pk"), ("v", "_pv"),
+                           ("sk", "_sk"), ("sv", "_sv")):
+            mine = getattr(self, attr) is not None
+            if mine != bool(payload.get(name)):
+                raise ValueError(
+                    f"payload {'lacks' if mine else 'carries'} {name!r} "
+                    f"planes this engine {'holds' if mine else 'has none of'}"
+                    " (kv_dtype mismatch across replicas?)")
+        self._scatter_pages(self._page_index(pages), payload)
+        for name, attr in (("k", "_pk"), ("v", "_pv"),
+                           ("sk", "_sk"), ("sv", "_sv")):
+            leaves = getattr(self, attr)
+            if leaves is not None and any(
+                    a is not b for a, b in
+                    zip(self._place_migrated(leaves, name), leaves)):
+                raise MXNetError(
+                    "SlotDecoder: a migration must leave the pools where "
+                    "they are: the captured graphs read them by address")
+
+    def _page_index(self, pages):
+        """Host page ids as an int64 index on the pool's device."""
+        return torch.as_tensor(list(pages), dtype=torch.int64).to(
+            self._device)
+
+    def _gather_pages(self, idx):
+        """The device half of `copy_pages_out`: the pages at ``idx`` of
+        every plane, gathered into new tensors."""
+        return {name: [pool.index_select(0, idx) for pool in leaves]
+                for name, leaves in (("k", self._pk), ("v", self._pv),
+                                     ("sk", self._sk), ("sv", self._sv))
+                if leaves is not None}
+
+    def _scatter_pages(self, idx, payload):
+        """The device half of `copy_pages_in`: each payload plane written
+        into the pool's pages at ``idx`` in place."""
+        for name, leaves in (("k", self._pk), ("v", self._pv),
+                             ("sk", self._sk), ("sv", self._sv)):
+            if leaves is not None:
+                for pool, blk in zip(leaves, payload[name]):
+                    pool.index_copy_(0, idx, blk.to(pool.device, pool.dtype))
+
+    def _place_migrated(self, leaves, name):  # noqa: ARG002
+        """Placement seam after a migration's write: the base engine wrote
+        its pools in place and keeps them (the graphs read them by
+        address); the reference's sharded engine re-pins here, and a port
+        of it must do so in place too."""
+        return leaves
+
+    def _refresh_params(self):
+        """Whether the weights changed since the steps' programs were
+        built (a parameter replaced by a new tensor: a new fingerprint).
+        If so, the graphs are dropped here, so the next call of each step
+        runs eagerly and the one after captures again, as `_run_step`
+        would do at its next call anyway; a weight updated in place is
+        read by the graphs as it is. The gateway's `hot_swap` calls it a
+        replica at a time."""
+        if not self._program_fp:
+            return False
+        fp = self._fingerprint()
+        if all(v == fp for v in self._program_fp.values()):
+            return False
+        self._graphs.clear()
+        self._program_fp = {name: None for name in self._program_fp}
+        return True
 
     # -- the pool's reads and writes ----------------------------------------
 

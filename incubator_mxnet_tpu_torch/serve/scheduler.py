@@ -1,11 +1,15 @@
 """Iteration-level scheduler of `serve`, the host half (port of
 `incubator_mxnet_tpu/serve/scheduler.py`: `QueueFull`,
 `DeadlineExceeded`, `EngineClosed` :102-117, `Request` :120, `Scheduler`
-:254, its speculative round `_spec_decode_once` :666 and `preempt` :793).
+:254, its speculative round `_spec_decode_once` :666, `preempt` :793 and
+the disaggregation hand-off :856-974).
 
 Continuous batching over the paged engine: the unit of scheduling is one
-decode step, and prefill is chunked. Every `Scheduler.step`:
+decode step, and prefill is chunked. Every `Scheduler.step`, inside a
+``serve.step`` span:
 
+0. fires the ``serve_step`` fault seam (``MXNET_FAULT_INJECT`` chaos) and
+   accrues the occupied slots' KV page-seconds to the capacity ledger;
 1. expires requests past their deadline (queued, prefilling and
    decoding);
 2. admits waiting requests into free slots: the prefix cache is probed
@@ -30,6 +34,19 @@ decode step, and prefill is chunked. Every `Scheduler.step`:
    dereferenced (shared pages survive in the cache) and the slot is free
    at once;
 6. refreshes the queue-depth and slot-occupancy gauges.
+
+Every request carries one trace: its ``serve.request`` root span opens at
+``submit`` (joining the gateway's trace when ``parent_span`` is given) and
+closes when it retires, with ``serve.queue``, ``serve.prefill`` and
+``serve.decode`` children. The prefill chunks and the decode step (or the
+speculative round's ``serve.spec_draft`` and ``serve.spec_verify``) are
+timed for the capacity and anatomy ledgers when either is armed; each
+window closes after the step's tokens reached the host, so on the card it
+is the step's time, not its launch's. A ``prefill_only`` request (the
+disaggregated plane's first stage) frees its slot when its first token is
+sampled and keeps its page references for the migration plane
+(`take_prefilled`); `adopt` admits a request prefilled elsewhere straight
+into decoding.
 
 Admission policies: ``"fifo"`` and ``"sjf"``, which orders by remaining
 prefill chunks (a long prompt whose prefix is cached is cheaper than a
@@ -63,7 +80,7 @@ import time
 import numpy as onp
 
 from ..ops import _philox
-from ..telemetry import registry
+from ..telemetry import anatomy, capacity, registry, tracing
 from .engine import PagePoolExhausted, SlotDecoder
 
 __all__ = ["QueueFull", "DeadlineExceeded", "EngineClosed", "Request",
@@ -122,6 +139,7 @@ class EngineClosed(RuntimeError):
 
 
 _DONE = object()          # stream sentinel
+_NULL = tracing._NULL_SPAN   # default for closed-span pops in _trace_close
 
 
 class Request:
@@ -133,13 +151,15 @@ class Request:
 
     __slots__ = ("id", "prompt", "max_new", "temperature", "eos_id",
                  "deadline", "submit_t", "first_token_t", "finish_t",
-                 "tokens", "state", "error", "slot", "pages",
-                 "shared_tokens", "prefill_pos", "chunks_done",
-                 "spec_reserved", "_stream", "_done")
+                 "tokens", "state", "error", "error_class", "slot",
+                 "pages", "shared_tokens", "prefill_pos", "chunks_done",
+                 "spec_reserved", "tenant", "prefill_only", "first_token",
+                 "anatomy", "trace_id", "_spans", "_stream", "_done")
 
     def __init__(self, rid, prompt, max_new, temperature, eos_id,
-                 deadline):
+                 deadline, parent_span=None, tenant=None):
         self.id = rid
+        self.tenant = tenant              # cost-ledger attribution
         self.prompt = prompt
         self.max_new = max_new
         self.temperature = temperature
@@ -149,15 +169,31 @@ class Request:
         self.first_token_t = None
         self.finish_t = None
         self.tokens = []
-        # queued|running|done|failed|preempted
+        # queued|running|done|failed|preempted|prefilled|migrated
         self.state = "queued"
         self.error = None
+        self.error_class = None           # fault.retry's classification
         self.slot = None
         self.pages = None                 # KV pool pages mapped at admit
         self.shared_tokens = 0            # prefix tokens reused from cache
         self.prefill_pos = 0              # prompt tokens already in cache
         self.chunks_done = 0
         self.spec_reserved = 0            # budgeted, not yet allocated pages
+        self.prefill_only = False         # disaggregation's first stage
+        self.first_token = None           # sampled on the prefill side
+        self.anatomy = None               # the latency-anatomy record
+        # one trace a request: the root opens at submit on the client's
+        # thread and closes at retirement on whichever thread steps; with
+        # ``parent_span`` (the gateway's root) it joins that trace. No-op
+        # singletons while tracing is off.
+        root = tracing.open_span("serve.request", parent=parent_span,
+                                 lane=f"req {rid}", request=rid,
+                                 prompt_len=int(prompt.size),
+                                 max_new=max_new)
+        self.trace_id = root.trace_id
+        self._spans = {"request": root,
+                       "queue": tracing.open_span("serve.queue",
+                                                  parent=root)}
         # bounded by max_new tokens + one sentinel
         self._stream = _queue.Queue()
         self._done = threading.Event()
@@ -199,16 +235,41 @@ class Request:
         self._stream.put(tok)
         TOKENS.inc()
 
+    def _trace_close(self, error=None):
+        """Close the lifecycle spans still open, queue, prefill, decode,
+        then the root (idempotent; no-ops while tracing is off)."""
+        spans = self._spans
+        spans.pop("queue", _NULL).close(error=error)
+        spans.pop("prefill", _NULL).annotate(
+            chunks=self.chunks_done).close(error=error)
+        spans.pop("decode", _NULL).annotate(
+            tokens=len(self.tokens)).close(error=error)
+        spans.pop("request", _NULL).annotate(
+            tokens=len(self.tokens), state=self.state).close(error=error)
+
     def _finish(self, now):
         self.state = "done"
         self.finish_t = now
+        if self.anatomy is not None and self.anatomy.owner == "engine":
+            anatomy.complete(self.anatomy, now, "ok",
+                             tokens=len(self.tokens))
+        self._trace_close()
         self._stream.put(_DONE)
         self._done.set()
 
     def _fail(self, exc, now):
+        from ..fault.retry import classify_exception
+
         self.state = "failed"
         self.error = exc
+        self.error_class = classify_exception(exc)
         self.finish_t = now
+        if self.anatomy is not None and self.anatomy.owner == "engine":
+            anatomy.complete(
+                self.anatomy, now,
+                "expired" if isinstance(exc, DeadlineExceeded)
+                else "failed", tokens=len(self.tokens))
+        self._trace_close(error=exc)
         self._stream.put(_DONE)
         self._done.set()
 
@@ -241,8 +302,13 @@ class Scheduler:
         self._temps = onp.ones(S, onp.float32)
         self._n_active = 0                  # occupied (prefilling+decoding)
         self._n_decoding = 0
+        self._prefilled = []                # disaggregation: to migrate
         self._next_id = 0
         self.closed = False
+        # cost-ledger identity (the gateway stamps the model's name) and
+        # the previous step's clock for the KV page-second accrual
+        self.capacity_model = "serve"
+        self._cap_last_t = None
         # speculative decoding: k drafted tokens verified a round (0 =
         # one-token decode steps; a stub engine may have no spec_k)
         self._spec_k = int(getattr(slots, "spec_k", 0) or 0)
@@ -264,8 +330,13 @@ class Scheduler:
     def _pages_needed(self, req):
         """Pool pages for the whole request: the prompt plus every
         generated token that gets a KV write (the last sampled token is
-        returned but never attended, so it needs no page)."""
+        returned but never attended, so it needs no page). A
+        ``prefill_only`` segment needs only the prompt's pages: its first
+        token is sampled without a KV write, and every decode write
+        happens on the replica that adopts it."""
         pt = self.slots.page_tokens
+        if req.prefill_only:
+            return -(-req.prompt.size // pt)
         return -(-(req.prompt.size + req.max_new - 1) // pt)
 
     def _pages_initial(self, req):
@@ -276,7 +347,7 @@ class Scheduler:
         page by page and rejected suffixes give back, so unaccepted
         lookahead never holds pages while admission pressure is the
         non-speculative engine's."""
-        if not self._spec_k:
+        if req.prefill_only or not self._spec_k:
             return self._pages_needed(req)
         return -(-(req.prompt.size + 1) // self.slots.page_tokens)
 
@@ -287,7 +358,8 @@ class Scheduler:
         return sum(r.spec_reserved for r in self._in_slot if r is not None)
 
     def submit(self, prompt_ids, max_new_tokens, temperature=1.0,
-               eos_id=None, deadline_s=None):
+               eos_id=None, deadline_s=None, parent_span=None,
+               tenant=None, prefill_only=False):
         if self.closed:
             raise EngineClosed("serve engine is shut down; new work is "
                                "rejected")
@@ -312,8 +384,11 @@ class Scheduler:
         now = time.monotonic()
         req = Request(self._next_id, prompt, max_new, float(temperature),
                       self.eos_id if eos_id is None else eos_id,
-                      None if deadline_s is None else now + float(deadline_s))
+                      None if deadline_s is None else now + float(deadline_s),
+                      parent_span=parent_span, tenant=tenant)
+        req.prefill_only = bool(prefill_only)
         if self._pages_needed(req) > self.slots.allocator.usable_pages:
+            req._trace_close()
             raise PagePoolExhausted(
                 f"request needs {self._pages_needed(req)} KV pages but the "
                 f"pool only has {self.slots.allocator.usable_pages} — "
@@ -349,13 +424,39 @@ class Scheduler:
     def step(self):
         """One scheduling iteration (expire, admit, prefill chunks,
         decode, retire). Returns True if any progress was made."""
-        now = time.monotonic()
-        self._expire(now)
-        admitted = self._admit()
-        chunks = self._prefill_step()
-        decoded = self._decode_once()
-        self._refresh_gauges()
+        from ..fault.injection import inject_at
+
+        # a host-side span: nothing a graph captures opens one
+        with tracing.span("serve.step", queued=len(self._queue),
+                          active=self._n_active):
+            inject_at("serve_step")
+            now = time.monotonic()
+            self._accrue_page_seconds()
+            self._expire(now)
+            admitted = self._admit(now)
+            chunks = self._prefill_step()
+            decoded = self._decode_once()
+            self._refresh_gauges()
         return bool(admitted or chunks or decoded)
+
+    def _accrue_page_seconds(self):
+        """Cost-ledger seam: resident KV pages x seconds since the last
+        step, for each occupied slot (one flag check while the ledger is
+        disarmed)."""
+        if not capacity._ENABLED:
+            self._cap_last_t = None
+            return
+        t = time.perf_counter()
+        last, self._cap_last_t = self._cap_last_t, t
+        if last is None:
+            return
+        dt = t - last
+        if dt <= 0:
+            return
+        for req in self._in_slot:
+            if req is not None and req.pages:
+                capacity.charge_kv_page_seconds(
+                    req.tenant, self.capacity_model, len(req.pages) * dt)
 
     def _expire(self, now):
         for req in [r for r in self._queue
@@ -369,7 +470,7 @@ class Scheduler:
                     and now > req.deadline:
                 self._retire(s, "deadline", now)
 
-    def _admit(self):
+    def _admit(self, now):
         """Map queued requests onto free slots and their pages. The full
         page budget is taken up front (allocated, or under speculation
         partly reserved) so decode never runs out mid-flight; when even
@@ -404,9 +505,19 @@ class Scheduler:
             self._in_slot[slot] = req
             self._n_active += 1
             admitted += 1
+            if req.anatomy is not None and req.anatomy.owner == "engine":
+                # a standalone engine: admission is dispatch (the gateway
+                # stamps its own records at its dispatch)
+                req.anatomy.dispatched(now, anatomy._sched_replica(self)[0])
             if shared_tokens:
                 PREFIX_HITS.inc()
                 PREFIX_TOKENS.inc(shared_tokens)
+            root = req._spans.get("request", _NULL)
+            req._spans.pop("queue", _NULL).close()   # admission ends the wait
+            req._spans["prefill"] = tracing.open_span(
+                "serve.prefill", parent=root, slot=slot,
+                prompt_len=int(req.prompt.size),
+                shared_tokens=shared_tokens)
         if admitted:
             QUEUE_DEPTH.set(len(self._queue))
         return admitted
@@ -422,29 +533,61 @@ class Scheduler:
                 continue
             t0 = req.prefill_pos
             n = min(self.slots.prefill_chunk, req.prompt.size - t0)
-            first, _, _ = self.slots.prefill_chunk_step(
+            cap_t0 = time.perf_counter() \
+                if (capacity._ENABLED or anatomy._ENABLED) else None
+            # the chunk returns its sampled token on the host: the window
+            # closes after the chunk ran, not after its launch
+            first, bucket, pad = self.slots.prefill_chunk_step(
                 slot, req.prompt[t0:t0 + n], t0, self._next_key(),
                 req.temperature)
+            if cap_t0 is not None:
+                # one window a chunk: exact per-slot prefill attribution,
+                # shared by the capacity and anatomy ledgers
+                if capacity._ENABLED:
+                    capacity.split_device_seconds(
+                        (req.tenant,), self.capacity_model, "prefill",
+                        time.perf_counter() - cap_t0)
+                anatomy.on_prefill_chunk(self, req, cap_t0,
+                                         time.perf_counter())
             req.prefill_pos = t0 + n
             req.chunks_done += 1
             PREFILL_CHUNKS.inc()
             ran += 1
+            req._spans.get("prefill", _NULL).annotate(bucket=bucket,
+                                                      pad_tokens=pad)
             if req.prefill_pos < req.prompt.size:
                 continue
             # the whole prompt is resident: its full pages become shareable
             self.slots.prefix_cache.register(req.prompt, req.pages)
+            req._spans.pop("prefill", _NULL).annotate(
+                chunks=req.chunks_done).close()
             t = time.monotonic()
+            if req.anatomy is not None:
+                req.anatomy.prefill_done(t, handoff=req.prefill_only)
             req._emit(first, t)
             if self._is_complete(req, first):
                 # a one-token request (or instant EOS) retires without
                 # joining a decode step
+                req._spans.get("request", _NULL).annotate(
+                    reason=self._complete_reason(req, first))
                 self._retire(slot, self._complete_reason(req, first), t)
+                continue
+            if req.prefill_only:
+                # disaggregation: the slot frees now, the page references
+                # ride with the request to the migration plane
+                # (`serve.disagg`, through `take_prefilled`)
+                req.first_token = int(first)
+                self._handoff(slot, req)
                 continue
             self._pos[slot] = req.prompt.size
             self._last[slot] = first
             self._temps[slot] = max(req.temperature, 1e-6)
             self._active[slot] = True
             self._n_decoding += 1
+            # the slot's decode segment of the trace, closed at retirement
+            req._spans["decode"] = tracing.open_span(
+                "serve.decode", parent=req._spans.get("request", _NULL),
+                slot=slot)
         return ran
 
     def _is_complete(self, req, tok):
@@ -461,8 +604,24 @@ class Scheduler:
             return False
         if self._spec_k:
             return self._spec_decode_once()
-        nxt = self.slots.decode_step(self._last, self._pos, self._active,
-                                     self._next_key(), self._temps)
+        cap_t0 = time.perf_counter() \
+            if (capacity._ENABLED or anatomy._ENABLED) else None
+        # the step returns its tokens on the host: the window below closes
+        # after the replay ran, not after its launch
+        with tracing.span("serve.decode_step", slots=self._n_decoding):
+            nxt = self.slots.decode_step(self._last, self._pos,
+                                         self._active, self._next_key(),
+                                         self._temps)
+        if cap_t0 is not None:
+            # one batched step: its wall split evenly across the slots
+            # that decoded in it
+            if capacity._ENABLED:
+                capacity.split_device_seconds(
+                    [r.tenant for s, r in enumerate(self._in_slot)
+                     if r is not None and self._active[s]],
+                    self.capacity_model, "decode",
+                    time.perf_counter() - cap_t0)
+            anatomy.on_decode_step(self, cap_t0, time.perf_counter())
         now = time.monotonic()
         for s, req in enumerate(self._in_slot):
             if req is None or not self._active[s]:
@@ -517,22 +676,40 @@ class Scheduler:
         non-speculative greedy decode's, token for token."""
         k = self._spec_k
         slots = self.slots
+        cap_t0 = time.perf_counter() \
+            if (capacity._ENABLED or anatomy._ENABLED) else None
         limit = onp.zeros(slots.max_slots, onp.int64)
         for s, req in enumerate(self._in_slot):
             if req is not None and self._active[s]:
                 limit[s] = self._extend_spec_pages(s, req, k)
-        if slots.draft_kind == "model":
-            drafts = slots.spec_draft_step(self._last, self._pos,
-                                           self._active, limit)
-        else:
-            seqs = [None] * slots.max_slots
-            for s, req in enumerate(self._in_slot):
-                if req is not None and self._active[s]:
-                    seqs[s] = onp.concatenate(
-                        [req.prompt, onp.asarray(req.tokens, onp.int32)])
-            drafts = slots.spec_propose(seqs)
-        targets = slots.spec_verify_step(self._last, drafts, self._pos,
-                                         self._active, limit)
+        with tracing.span("serve.spec_draft", slots=self._n_decoding, k=k):
+            if slots.draft_kind == "model":
+                drafts = slots.spec_draft_step(self._last, self._pos,
+                                               self._active, limit)
+            else:
+                seqs = [None] * slots.max_slots
+                for s, req in enumerate(self._in_slot):
+                    if req is not None and self._active[s]:
+                        seqs[s] = onp.concatenate(
+                            [req.prompt, onp.asarray(req.tokens, onp.int32)])
+                drafts = slots.spec_propose(seqs)
+        with tracing.span("serve.spec_verify", slots=self._n_decoding,
+                          k=k):
+            targets = slots.spec_verify_step(self._last, drafts, self._pos,
+                                             self._active, limit)
+        spec_dt = 0.0
+        if cap_t0 is not None:
+            # draft and verify are the round's decode work, split across
+            # the slots in the round (the targets are on the host here)
+            if capacity._ENABLED:
+                capacity.split_device_seconds(
+                    [r.tenant for s, r in enumerate(self._in_slot)
+                     if r is not None and self._active[s]],
+                    self.capacity_model, "decode",
+                    time.perf_counter() - cap_t0)
+            spec_dt = anatomy.on_decode_step(self, cap_t0,
+                                             time.perf_counter())
+        n_round = max(self._n_decoding, 1)
         now = time.monotonic()
         for s, req in enumerate(self._in_slot):
             if req is None or not self._active[s]:
@@ -559,6 +736,12 @@ class Scheduler:
                     done_reason = self._complete_reason(req, tok)
                     break
             accepted = min(m, emitted)
+            if spec_dt and req.anatomy is not None:
+                # the rejected share of this slot's part of the round is
+                # speculation waste; the rest stays decode_compute
+                req.anatomy.carve(
+                    "spec_overhead",
+                    spec_dt * (k - accepted) / max(k, 1) / n_round)
             SPEC_DRAFTED.inc(k)
             SPEC_ACCEPTED.inc(accepted)
             slots.spec_count(k, accepted)
@@ -595,7 +778,9 @@ class Scheduler:
         """Free ``slot`` and dereference its pages (shared pages survive
         through their cache references). EOS and length complete the
         request; deadline and shutdown fail it."""
-        req = self._free_slot(slot)
+        req = self._in_slot[slot]
+        req._spans.get("request", _NULL).annotate(reason=reason)
+        self._free_slot(slot)
         EVICTIONS.inc()
         registry.counter(
             "mx_serve_evictions_total",
@@ -612,7 +797,7 @@ class Scheduler:
         else:
             req._finish(now)
 
-    def preempt(self, slot):
+    def preempt(self, slot, now=None):
         """Evict the request in ``slot`` without finishing or failing it
         (the seam of a gateway's priority preemption).
 
@@ -623,8 +808,11 @@ class Scheduler:
         prefills only the unaligned tail. Under page pressure the cached
         pages are reclaimed through `PrefixCache.evict_unused` as any
         other entry's: preempted work pins no pages. Returns the `Request`
-        with ``state="preempted"``; re-queueing what is left is the
-        caller's."""
+        with ``state="preempted"`` and its trace closed; re-queueing what
+        is left is the caller's. ``now`` is the caller's clock (the
+        gateway's step), taken here when absent."""
+        if now is None:
+            now = time.monotonic()
         req = self._in_slot[slot]
         if req is None:
             raise ValueError(f"slot {slot} is empty: nothing to preempt")
@@ -647,7 +835,128 @@ class Scheduler:
             "mx_serve_evictions_total",
             "slots freed (EOS / length / deadline / shutdown)",
             labels={"reason": "preempted"}).inc()
+        req._spans.get("request", _NULL).annotate(
+            reason="preempted", resident_tokens=resident,
+            kept_pages=aligned // pt)
+        req._trace_close()
         return req
+
+    # -- disaggregation: the prefill/decode hand-off (`serve.disagg`) -------
+
+    def _handoff(self, slot, req):
+        """Free ``slot`` without dropping the request's page references:
+        the prompt's K/V stays resident (the prefix cache's references and
+        the request's own) while the request moves to the migration
+        plane. The slot is free for the next prompt at once: a prefill
+        replica's slots turn over a prompt at a time."""
+        self._in_slot[slot] = None
+        self._n_active -= 1
+        self.slots.clear_slot(slot)
+        req.slot = None
+        req.state = "prefilled"
+        self._prefilled.append(req)
+
+    def take_prefilled(self):
+        """Claim the requests whose prefill-only segment completed since
+        the last call. The caller (the migration plane) inherits their
+        page references and must migrate, adopt or release each one."""
+        out, self._prefilled = self._prefilled, []
+        return out
+
+    @property
+    def prefill_backlog(self):
+        """Prefill chunks still owed: the queued prompts' and the unrun
+        rest of every prefilling slot's (the router's placement key for
+        prefill replicas)."""
+        pc = self.slots.prefill_chunk
+        n = 0
+        for r in self._queue:
+            n += -(-max(1, int(r.prompt.size)) // pc)
+        for r in self._in_slot:
+            if r is not None and r.prefill_pos < r.prompt.size:
+                n += -(-(int(r.prompt.size) - r.prefill_pos) // pc)
+        return n
+
+    def adopt_page_plan(self, prompt_len, max_new):
+        """The page budget of adopting a prefilled request: ``(content,
+        physical, reserved)``. ``content`` pages carry the migrated
+        prompt's K/V, ``physical`` pages are what the caller hands to
+        `adopt` (under speculation the tail stays a reservation, as in
+        `_pages_initial`), and ``reserved`` seeds ``spec_reserved``."""
+        pt = self.slots.page_tokens
+        content = -(-prompt_len // pt)
+        total = -(-(prompt_len + max_new - 1) // pt)
+        if self._spec_k:
+            physical = max(content, -(-(prompt_len + 1) // pt))
+        else:
+            physical = total
+        return content, physical, total - physical
+
+    def adopt(self, prompt_ids, first_token, max_new_tokens, pages,
+              spec_reserved=0, temperature=1.0, eos_id=None,
+              deadline_s=None, parent_span=None, tenant=None):
+        """Admit a request whose prefill ran elsewhere: the decode half of
+        the hand-off. ``pages`` (owned from now on, no incref) already
+        hold the prompt's K/V in this engine's pool, as `adopt_page_plan`
+        sizes them; ``first_token`` is the token the prefill side
+        sampled. The request enters decoding at once, so this replica
+        never runs a prefill chunk for it.
+
+        The adopted request is page for page and position for position
+        the one that would have prefilled here (the first token seeded as
+        ``tokens[0]``, ``pos`` at the prompt's end), so its greedy decode
+        is bit for bit the co-located one."""
+        if self.closed:
+            raise EngineClosed("serve engine is shut down; new work is "
+                               "rejected")
+        if self._n_active >= self.slots.max_slots:
+            raise QueueFull(
+                f"no free slot to adopt into "
+                f"({self._n_active}/{self.slots.max_slots} busy): the "
+                "migration plane must pick a replica that can take it")
+        prompt = onp.asarray(prompt_ids, onp.int32).reshape(-1)
+        max_new = int(max_new_tokens)
+        now = time.monotonic()
+        if deadline_s is None:
+            deadline_s = self.default_deadline
+        req = Request(self._next_id, prompt, max_new, float(temperature),
+                      self.eos_id if eos_id is None else eos_id,
+                      None if deadline_s is None else now + float(deadline_s),
+                      parent_span=parent_span, tenant=tenant)
+        self._next_id += 1
+        req.submit_t = now
+        # the first token was sampled (and its TTFT observed) on the
+        # prefill side: seeded, not emitted again
+        req.first_token_t = now
+        req.first_token = int(first_token)
+        req.tokens.append(int(first_token))
+        req.prefill_pos = prompt.size
+        slot = self._in_slot.index(None)
+        req.pages = list(pages)
+        req.spec_reserved = int(spec_reserved)
+        self.slots.set_slot_pages(slot, req.pages)
+        req.state = "running"
+        req.slot = slot
+        self._in_slot[slot] = req
+        self._n_active += 1
+        self._pos[slot] = prompt.size
+        self._last[slot] = int(first_token)
+        self._temps[slot] = max(float(temperature), 1e-6)
+        self._active[slot] = True
+        self._n_decoding += 1
+        root = req._spans.get("request", _NULL)
+        root.annotate(adopted=True)
+        req._spans.pop("queue", _NULL).close()
+        req._spans["decode"] = tracing.open_span(
+            "serve.decode", parent=root, slot=slot)
+        return req
+
+    def finish_handoff(self, req):
+        """Close a prefilled segment whose work moved on (migrated or
+        re-queued); its pages were handed off or released by the caller,
+        so this settles only the trace."""
+        req.state = "migrated"
+        req._trace_close()
 
     @property
     def free_slots(self):
@@ -682,6 +991,16 @@ class Scheduler:
             req._fail(EngineClosed(
                 f"engine shut down before request {req.id} was "
                 "admitted"), now)
+        # prefilled segments awaiting migration cannot finish on a closed
+        # engine: their pages go back and they fail loudly
+        for req in self._prefilled:
+            if req.pages:
+                self.slots.allocator.decref(req.pages)
+            req.pages = None
+            req._fail(EngineClosed(
+                f"engine shut down with request {req.id} awaiting "
+                "migration"), now)
+        self._prefilled = []
         if not drain:
             for s, req in enumerate(self._in_slot):
                 if req is not None:
@@ -696,5 +1015,6 @@ class Scheduler:
         self.closed = True
         self._queue.clear()
         self._in_slot = [None] * self.slots.max_slots
+        self._prefilled = []
         self._n_active = 0
         self._refresh_gauges()

@@ -1,8 +1,9 @@
 """Environment knobs (port of `incubator_mxnet_tpu/util.py`: `env_int` :94,
-`env_float` :100, and the serving rows of the knob table :371-408).
+`env_float` :100, the serving rows of the knob table :371-408, and the
+telemetry and fault-injection arming of `_apply_env_config` :571).
 
 Only the ``MXNET_SERVE_*`` knobs that the ported serving engine reads are
-here, with the reference's texts.
+in the table, with the reference's texts.
 """
 from __future__ import annotations
 
@@ -74,3 +75,21 @@ _ENV_KNOBS = {
 def env_knobs():
     """The knob table: name -> (reader, description)."""
     return dict(_ENV_KNOBS)
+
+
+def _apply_env_config():
+    """Honor the arming knobs at the package's import, as the reference's
+    `_apply_env_config` does for the modules the port has: a truthy
+    ``MXNET_TELEMETRY`` arms span tracing and the lock witness (the
+    capacity and anatomy ledgers arm themselves from it at import), and
+    ``MXNET_FAULT_INJECT`` arms the chaos schedule."""
+    telem = os.environ.get("MXNET_TELEMETRY", "0")
+    if telem and telem != "0":
+        from .telemetry import locks, tracing
+
+        tracing.enable()
+        locks.enable()
+    if os.environ.get("MXNET_FAULT_INJECT"):
+        from .fault import injection
+
+        injection.configure_from_env()

@@ -184,6 +184,46 @@ def test_trainer_skips_parameters_without_gradient_and_sets_lr(ref):
     assert trainer.optimizer.num_update == 1
 
 
+def test_trainer_step_takes_ignore_stale_grad(ref):
+    """``trainer.step(batch_size, ignore_stale_grad=True)``, MXNet's common
+    idiom (reference `gluon/trainer.py:83`, `:113`), on both packages:
+    the flag changes nothing where every gradient is fresh, so both step
+    as they do without it (the JAX step bit for bit its own), and the
+    port skips the gradient-less NSP head either way."""
+    params, cases = ref
+    mx.random.seed(3)
+    jm = jax_bert_small(vocab_size=VOCAB, max_length=32, dropout=0.0)
+    jm.initialize()
+    for n, p in jm.collect_params().items():
+        p.set_data(np.array(params[n]))
+    tok, lab, _ = _data(1)
+    trainer = gluon.Trainer(jm.collect_params(), "adam",
+                            {"learning_rate": LR})
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+            jm(np.array(tok))[0], np.array(lab))
+    loss.backward()
+    trainer.step(tok.shape[0], ignore_stale_grad=True)
+    want = cases[False]["stepped"]
+    for n, p in jm.collect_params().items():
+        onp.testing.assert_array_equal(p.data().asnumpy(), want[n],
+                                       err_msg=n)
+    for call in ("step", "update"):
+        tm = _port(params).train()
+        _step(tm, False)
+        tt = Trainer(tm.named_parameters(), Adam(learning_rate=LR))
+        getattr(tt, call)(3, ignore_stale_grad=True)
+        g = cases[False]["grads"]
+        for name, p in tm.named_parameters():
+            got = p.detach().numpy()
+            if name not in g:
+                onp.testing.assert_array_equal(got, params[name])
+                continue
+            sure = onp.abs(g[name]) > 10 * _grad_tol(g[name])
+            onp.testing.assert_allclose(got[sure], want[name][sure], rtol=0,
+                                        atol=1e-6, err_msg=name)
+
+
 def test_only_the_flash_path_is_ported():
     with pytest.raises(MXNetError):
         bert_small(use_flash=False, device="cpu")

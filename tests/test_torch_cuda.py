@@ -1516,3 +1516,68 @@ def test_serve_sampling_on_the_card(dev):
                    for i, t in enumerate(out[p.size:]))
     for p, out in zip(prompts, draw(5, 1)):
         onp.testing.assert_array_equal(out, _one_at_a_time(model, p, 12))
+
+
+# -- serve.disagg: pages migrated into captured pools ------------------------
+
+def test_migrated_pages_land_in_the_captured_pools_in_place(dev):
+    """A disaggregated pod on the card: the decode replica captures its
+    decode graph on the first requests, then a later request's pages are
+    copied into its pools (`copy_pages_in`, ``index_copy_``). The next
+    replays read them: the tokens are the one-at-a-time decoder's; no new
+    capture, the program count unchanged, the pools the same tensors."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    reg = serve.ModelRegistry(total_pages=40)
+    reg.add("g", model, prefill_replicas=1, decode_replicas=1, max_slots=2,
+            max_len=64)
+    gw = serve.Gateway(reg)
+    try:
+        dec = gw._models["g"].replicas[1].slots
+        for p in _serve_prompts(2, seed=11):
+            got = gw.generate("g", p, 8)
+            onp.testing.assert_array_equal(got, _one_at_a_time(model, p, 8))
+        assert dec.captures == 1
+        count = gw.xla_program_counts(per_replica=True)
+        ptrs = [t.data_ptr() for t in dec._pool_leaves()]
+        for p in _serve_prompts(3, seed=12):
+            h = gw.submit("g", p, 10)
+            gw._drive_until([h], timeout=120.0)
+            assert h.replica == "g#1"
+            onp.testing.assert_array_equal(
+                onp.concatenate([p, h.tokens]),
+                _one_at_a_time(model, p, 10))
+        assert dec.captures == 1
+        assert gw.xla_program_counts(per_replica=True) == count
+        assert [t.data_ptr() for t in dec._pool_leaves()] == ptrs
+        assert not dec._buckets_seen
+    finally:
+        gw.shutdown(drain=False)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_copy_pages_on_the_card_bit_for_bit(dev, kv_dtype):
+    """`copy_pages_out` / `copy_pages_in` between two engines on the card:
+    the destination pages equal the source's bit for bit in every plane;
+    the payload stays on the card."""
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    src = serve.SlotDecoder(model, max_slots=2, max_len=64,
+                            kv_dtype=kv_dtype)
+    dst = serve.SlotDecoder(model, max_slots=2, max_len=64,
+                            kv_dtype=kv_dtype)
+    src.set_slot_pages(0, [3, 5])
+    src.prefill_chunk_step(0, _serve_prompts(1, seed=13)[0], 0, (0, 0))
+    payload = src.copy_pages_out([3, 5])
+    assert all(t.is_cuda for planes in payload.values() for t in planes)
+    dst.copy_pages_in([6, 1], payload)
+    for name in ("_pk", "_pv", "_sk", "_sv"):
+        s_l, d_l = getattr(src, name), getattr(dst, name)
+        if s_l is None:
+            continue
+        for s, d in zip(s_l, d_l):
+            assert torch.equal(d[[6, 1]], s[[3, 5]])

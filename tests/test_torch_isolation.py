@@ -48,3 +48,48 @@ def test_runtime_imports_stay_isolated():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+SERVING_PLANE = ("telemetry.locks", "telemetry.tracing", "telemetry.capacity",
+                 "telemetry.anatomy", "telemetry.slo", "fault",
+                 "fault.injection", "fault.retry", "serve.tenancy",
+                 "serve.router", "serve.gateway", "serve.disagg")
+
+
+def test_serving_plane_modules_stand_alone():
+    """Every module of the serving plane (telemetry, fault, tenancy,
+    routing, gateway, disaggregation) imports alone in a fresh
+    interpreter, and a gateway over a disaggregated tiny GPT serves a
+    traced request on the CPU, without loading jax or the reference
+    package; `serve.tenancy` imports nothing of the package at all."""
+    tenancy = PKG / "serve" / "tenancy.py"
+    rel = [n for n in ast.walk(ast.parse(tenancy.read_text()))
+           if isinstance(n, ast.ImportFrom) and n.level > 0]
+    assert not rel, "serve/tenancy.py imports from the package"
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SERVING_PLANE!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "from incubator_mxnet_tpu_torch import serve\n"
+        "from incubator_mxnet_tpu_torch.models import gpt_tiny\n"
+        "from incubator_mxnet_tpu_torch.telemetry import tracing\n"
+        "tracing.enable()\n"
+        "m = gpt_tiny(vocab_size=50, max_length=32, dropout=0.0,"
+        " device='cpu', seed=0)\n"
+        "reg = serve.ModelRegistry(total_pages=24)\n"
+        "reg.add('g', m, prefill_replicas=1, decode_replicas=1,"
+        " max_slots=2, max_len=32)\n"
+        "gw = serve.Gateway(reg)\n"
+        "out = gw.generate('g', list(range(5)), 3, tenant='t')\n"
+        "assert out.shape == (8,)\n"
+        "assert tracing.finished_spans()\n"
+        "gw.shutdown()\n"
+        "bad = [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        "print('LOADED', bad)\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

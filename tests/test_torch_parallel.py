@@ -268,6 +268,33 @@ def test_mesh_shardings_and_remat_raise():
             fn()
 
 
+def test_data_axis_takes_the_references_call(ref):
+    """``DataParallel(net, loss, opt, None, "dp")`` and ``data_axis="dp"``
+    as a keyword (reference `parallel/sharded.py:203`): with no mesh the
+    axis is unused. On both packages each form trains a step, and the
+    port's first loss is the JAX one's."""
+    params, runs = ref
+    mx.random.seed(3)
+    jm = jax_bert_small(vocab_size=VOCAB, max_length=32, dropout=0.0)
+    jm.initialize()
+    for n, p in jm.collect_params().items():
+        p.set_data(np.array(params[n]))
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    tok, lab = _batch(0)
+    jdp = JaxDataParallel(jm, lambda out, y: ce(out[0], y),
+                          jax_optimizer.Adam(learning_rate=LR), None, "dp")
+    jloss = float(jdp.step(np.array(tok), np.array(lab)).asnumpy())
+    onp.testing.assert_allclose(jloss, runs[0.0]["losses"][0], rtol=1e-6)
+    for kw in ({}, {"data_axis": "dp"}):
+        args = (None, "dp") if not kw else ()
+        dp = DataParallel(_port(params), _ce(), Adam(learning_rate=LR),
+                          *args, **kw)
+        onp.testing.assert_allclose(float(_steps(dp, 1)[0]), jloss,
+                                    rtol=1e-4, atol=1e-4)
+        with pytest.raises(MXNetError, match="ROADMAP"):
+            DataParallel(_port(), _ce(), Adam(), object(), "dp")
+
+
 def _dropout_run(seed, steps=3):
     tm = _port(dropout=0.1, seed=5)
     mxrandom.seed(seed)
