@@ -56,7 +56,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    tokens against the f32 engine's and the plain path's argmax, the
    self-draft accepting more than 0.9 of its drafts, and the reference's
    int8 bar (first tokens exact, the divergence-free prefix, a quarter of
-   the bytes a slot);
+   the bytes a slot); then the serving plane on the same model: trace A
+   through a `serve.Gateway` ([gateway A]), two co-resident models with
+   tiers, tenants and preemption ([gateway]), a disaggregated prefill +
+   decode pod ([disagg]), traced and faulted engines ([trace], [fault]),
+   and, last of all the phases (after the timings of 7.), the elastic
+   plane ([elastic]: the reference's diurnal day through
+   a gateway whose autoscale advisor and elastic controller spawn, drain
+   and replace replicas, against a static two-replica fleet and a
+   replica killed mid-trace; no failed request, no program after a
+   replica's publication, the memory of a released replica back, the
+   device-memory census against the pools, the chips-hours ratio, the
+   high tier's TTFT SLO, the sampler's host cost a step);
 4. checks one BERT-base training step at full width (8 x 512 tokens,
    ragged ``valid_length``, dropout 0.1) on the kernels against the same
    step on the plain versions: same weights, same dropout keys, loss and
@@ -111,7 +122,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
-``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}`` and
+``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}``,
+the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -273,6 +285,26 @@ DISAGG = dict(total_pages=72, max_slots=8, max_len=64, requests=20, seed=0,
 PAGE_BYTES_F32 = LAYERS * 2 * H * 16 * D * 4
 MIGRATION_REPS = 20
 FAULT_REQUESTS, FAULT_NEW = 4, 8
+# [elastic]: the shape of `bench_gpt_serve_elastic` (bench.py:1019): one
+# gpt2_small model, 2 slots of 64 tokens, a 24-page cut a replica of a
+# 48-page budget, at most 2 replicas, the seeded `loadgen.diurnal_trace`
+# day (trough 4 s at 0.5/s, steady 4 s at 2/s, surge 4 s at 30/s, burst
+# 1.5 s at 80/s; prompts mean 16 and max 36, 16-26 new tokens), the
+# advisor's knobs of bench.py:1087-1089, the timeseries sampler at 0.25 s.
+# The warm lengths (bench.py:1068) cover every chunk bucket (16, 32, 64):
+# a resumed request (prompt + its tokens so far, up to 62) reaches 64.
+ELASTIC = dict(max_slots=2, max_len=64, pages_a_replica=24, max_replicas=2,
+               seed=0, trough=(4.0, 0.5), steady=(4.0, 2.0),
+               surge=(4.0, 30.0), burst=(1.5, 80.0), prompt_mean=16,
+               prompt_max=36, max_new_range=(16, 26),
+               warm_lens=(12, 24, 48), ts_interval=0.25,
+               ts_samples=8192, advisor_period=0.5,
+               advisor=dict(up_occupancy=0.65, down_occupancy=0.25,
+                            fast_window_s=1.5, slow_window_s=4.0,
+                            cooldown_s=3.0, burst_queue=6),
+               ttft_slo=(20.0, 0.6), tail_s=15.0, crash_requests=12,
+               crash_at=4, sampler_requests=24)
+ELASTIC_MEM_TOL = 1 << 20        # bytes: memory back after a retire
 
 
 def log(*args):
@@ -2630,6 +2662,565 @@ def phase_fault(torch, dev, base):
     return out, k4
 
 
+def _elastic_gateway(serve, model, replicas):
+    e = ELASTIC
+    reg = serve.ModelRegistry(total_pages=e["pages_a_replica"]
+                              * e["max_replicas"])
+    reg.add("gpt", model, max_slots=e["max_slots"], max_len=e["max_len"],
+            replicas=replicas)
+    return serve.Gateway(reg, tenants={"acme": {"weight": 2.0},
+                                       "beta": {"weight": 1.0}})
+
+
+def _elastic_warm(rep, rng):
+    """bench.py's `warm_all` for one replica (its scheduler driven
+    directly, out of the routing set): one request of each warm length,
+    so every chunk bucket runs once and the decode graph is captured."""
+    import numpy as onp
+
+    for n in ELASTIC["warm_lens"]:
+        seg = rep.sched.submit(
+            rng.randint(0, VOCAB, (n,)).astype(onp.int32), 2)
+        while not seg.done:
+            rep.sched.step()
+
+
+def _collect_handles(gw):
+    """Keep every handle `gw.submit` returns (`loadgen.replay` keeps
+    none), in submission order."""
+    handles = []
+    submit = gw.submit
+
+    def keep(*args, **kwargs):
+        h = submit(*args, **kwargs)
+        handles.append(h)
+        return h
+
+    gw.submit = keep
+    return handles
+
+
+def _family_entries(compiles, label):
+    """Program-ledger entries of one replica (its ``serve:<label>.*``
+    families)."""
+    prefix = f"serve:{label}."
+    return sum(len(v) for k, v in compiles.ledger().items()
+               if k.startswith(prefix))
+
+
+def _census_text(census, labels):
+    own = census["owners"]
+    return (f"total {census['total']} B, kv_pool "
+            + ", ".join(f"{lb} {own.get(f'serve:{lb}.kv_pool', 0)}"
+                        for lb in labels)
+            + f", params {sum(v for k, v in own.items() if k.endswith('.params'))}"
+            f", unattributed {census['unattributed']}")
+
+
+class _ElasticWatch:
+    """Hooks on a `ReplicaSetController` for `phase_elastic`: every spawn
+    and every release (retire or death) with the card's allocated bytes
+    and the census before and after (its kv_pool bytes checked against
+    the live replicas' pools after each), each spawned replica's ledger
+    entries at publication, and every engine the leg ever had (the K4
+    count). A release must give back the bytes its replica took at its
+    spawn (within `ELASTIC_MEM_TOL`), and where no other replica joined or
+    left in between, bring the card back to its level before the spawn."""
+
+    def __init__(self, torch, dev, ctl, hbm, compiles, engines, what):
+        self.torch, self.dev, self.hbm, self.compiles = torch, dev, hbm, \
+            compiles
+        self.what, self.engines = what, engines
+        self.spawns, self.releases, self.events = {}, [], []
+        self.published = {}
+        spawn, release = ctl._spawn, ctl._release
+
+        def spawn_(m, now, reason, role=None):
+            before = self._mem()
+            cen = hbm.census(top_k=0)
+            rep = spawn(m, now, reason, role=role)
+            after = self._mem()
+            self.spawns[rep.label] = dict(
+                before=before, after=after, seq=len(self.events),
+                warm_s=ctl.warm_seconds.get(rep.label),
+                captures=rep.slots.captures,
+                programs=ctl.warm_programs.get(rep.label))
+            self.published[rep.label] = _family_entries(compiles,
+                                                         rep.label)
+            self.events.append(("spawn", rep.label))
+            engines.append(rep)
+            _kv_census_check(hbm, ctl._gw, f"{what} after spawning "
+                             f"{rep.label}")
+            labels = [r.label for r in m.replicas]
+            log(f"{what} spawn {rep.label} ({reason}): allocated {before} ->"
+                f" {after} B; census before: {_census_text(cen, labels)};"
+                f" after: {_census_text(hbm.census(top_k=0), labels)}")
+            return rep
+
+        def release_(rep):
+            before = self._mem()
+            cen = hbm.census(top_k=0)
+            release(rep)
+            after = self._mem()
+            sp = self.spawns.get(rep.label)
+            row = dict(label=rep.label, before=before, after=after,
+                       freed=before - after,
+                       programs=rep.slots.xla_program_count(),
+                       ledger=_family_entries(compiles, rep.label))
+            if sp is not None:
+                row["programs_at_publication"] = sp["programs"]
+                row["ledger_at_publication"] = self.published[rep.label]
+                row["took"] = sp["after"] - sp["before"]
+                row["lifo"] = self.events[sp["seq"] + 1:] == []
+                row["vs_before_spawn"] = after - sp["before"]
+            self.releases.append(row)
+            self.events.append(("release", rep.label))
+            _kv_census_check(hbm, ctl._gw, f"{what} after releasing "
+                             f"{rep.label}")
+            log(f"{what} release {rep.label}: allocated {before} -> "
+                f"{after} B ({row}); census before: "
+                f"{_census_text(cen, [rep.label])}; after: "
+                f"{_census_text(hbm.census(top_k=0), [rep.label])}")
+
+        ctl._spawn, ctl._release = spawn_, release_
+
+    def _mem(self):
+        self.torch.cuda.synchronize(self.dev)
+        return int(self.torch.cuda.memory_allocated(self.dev))
+
+    def check(self):
+        for row in self.releases:
+            if "took" not in row:
+                continue
+            check(row["programs"] == row["programs_at_publication"]
+                  and row["ledger"] == row["ledger_at_publication"],
+                  f"{self.what} {row['label']}: programs "
+                  f"{row['programs_at_publication']} at publication, "
+                  f"{row['programs']} at its release (ledger entries "
+                  f"{row['ledger_at_publication']} -> {row['ledger']})")
+            check(abs(row["freed"] - row["took"]) <= ELASTIC_MEM_TOL,
+                  f"{self.what} {row['label']}: its release freed "
+                  f"{row['freed']} B, its spawn took {row['took']} B")
+            if row["lifo"]:
+                check(abs(row["vs_before_spawn"]) <= ELASTIC_MEM_TOL,
+                      f"{self.what} {row['label']}: allocated bytes "
+                      f"{row['vs_before_spawn']} B off their level before "
+                      "its spawn after its release")
+
+
+def _spawn_report(compiles, watch):
+    """Each spawn of a leg: its warmup wall on the step thread, its
+    captures and prefill buckets with their seconds from the program
+    ledger (reset at the leg's start), its allocated bytes around it."""
+    out = {}
+    led = compiles.ledger()
+    for lb, sp in watch.spawns.items():
+        entries = [dict(family=f, seconds=x["seconds"], bucket=x["bucket"],
+                        cause=x["cause"])
+                   for f, es in led.items() if f.startswith(f"serve:{lb}.")
+                   for x in es]
+        built = sum(x["seconds"] for x in entries)
+        out[lb] = dict(warm_s=sp["warm_s"], captures=sp["captures"],
+                       allocated_before=sp["before"],
+                       allocated_after=sp["after"], ledger=entries,
+                       outside_ledger_s=sp["warm_s"] - built)
+        log(f"{watch.what} spawn {lb}: warmup {sp['warm_s']:.4f} s on the "
+            f"step thread ({sp['warm_s'] - built:.4f} s outside the "
+            f"programs it built), {sp['captures']} capture(s) "
+            + ", ".join(f"{x['family']} {x['seconds']:.4f} s"
+                        for x in entries
+                        if not x["family"].endswith("prefill"))
+            + "; prefill buckets "
+            + ", ".join(f"{x['bucket']} {x['seconds']:.4f} s"
+                        for x in entries if x["family"].endswith("prefill")))
+    return out
+
+
+def _kv_census_check(hbm, gw, what):
+    """The census's kv_pool owners equal the live replicas' cache bytes
+    exactly (released replicas drop out)."""
+    live = sum(r.slots.cache_bytes for r in gw._models["gpt"].replicas)
+    own = hbm.census(top_k=0)["owners"]
+    kv = sum(v for k, v in own.items()
+             if k.startswith("serve:gpt") and k.endswith(".kv_pool"))
+    check(kv == live, f"{what}: census kv_pool {kv} B, the live replicas' "
+          f"cache_bytes {live} B")
+    return kv
+
+
+def _sched_host_ms(torch, serve, model, events, interval):
+    """The scheduler's host ms a step on `ELASTIC["sampler_requests"]`
+    requests of the trace, all submitted at once to a fresh one-replica
+    gateway and stepped to the end, with the timeseries sampler at
+    ``interval`` seconds (None: disarmed): each engine step's wall minus
+    its decode steps and prefill chunks, over the steps."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch.telemetry import timeseries as ts
+
+    gw = _elastic_gateway(serve, model, 1)
+    rep = gw._models["gpt"].replicas[0]
+    _elastic_warm(rep, onp.random.RandomState(1))
+    walls = {n: [] for n in ("engine", "decode", "prefill")}
+    rep.sched.step = _timed(rep.sched.step, walls["engine"])
+    rep.slots.decode_step = _timed(rep.slots.decode_step, walls["decode"])
+    rep.slots.prefill_chunk_step = _timed(rep.slots.prefill_chunk_step,
+                                          walls["prefill"])
+    torch.cuda.synchronize()
+    for w in walls.values():
+        del w[:]
+    ts.reset()
+    if interval is not None:
+        ts.enable(interval_s=interval, samples=ELASTIC["ts_samples"])
+    try:
+        hs = [gw.submit("gpt", onp.random.RandomState(e.seed).randint(
+            0, VOCAB, (e.prompt_len,)).astype(onp.int32), e.max_new)
+            for e in events[:ELASTIC["sampler_requests"]]]
+        gw._drive_until(hs, timeout=120.0)
+        ticks = ts.sample_count()
+    finally:
+        ts.disable()
+        ts.reset()
+    gw.shutdown(drain=False)
+    n = len(walls["engine"])
+    host = (sum(walls["engine"]) - sum(walls["decode"])
+            - sum(walls["prefill"])) / n * 1e3
+    return host, n, ticks, [h.tokens for h in hs], rep
+
+
+def phase_elastic(torch, dev, base):
+    """The shape of the reference's `bench_gpt_serve_elastic`
+    (bench.py:1019-1178) at full width: gpt2_small (f32, the model of
+    `phase_serve_engine`) behind a `serve.Gateway` with the autoscale
+    advisor and the elastic replica controller, on the seeded diurnal day
+    of `loadgen.diurnal_trace` (`ELASTIC`). Leg (a): live from one
+    replica, the timeseries sampler (0.25 s) and the device-memory census
+    armed, the advisor every 0.5 s, the controller spawning (warmed on the
+    step thread before publication) and draining replicas; then idle steps
+    until a drain retires a replica or `ELASTIC["tail_s"]` passes. Leg
+    (b): static at two replicas. Leg (c): the first
+    `ELASTIC["crash_requests"]` requests of the day at once on two
+    replicas (one spawned by the controller), ``MXNET_FAULT_INJECT`` set
+    to ``replica_crash@1`` after `ELASTIC["crash_at"]` submissions (read
+    through `util._apply_env_config`): the dead replica is released, its
+    requests re-queued and a replacement spawned. Then the scheduler's
+    host ms a step with the sampler off, at 0.25 s and at 0.01 s, in
+    turns (each a fresh one-replica gateway, its tokens the same). Checks
+    (each raises): no failed request on any leg, at least
+    one scale event in (a), no program built on a live replica after it
+    joined the routing set (its program count equals its count at
+    publication, and the program ledger has no entry of its families
+    since), the high tier's ``slo.gateway_ttft`` (20 s, target 0.6),
+    the chips-hours ratio in (0, 1), every request's tokens equal in (a)
+    and (b), the dead replica replaced and its requests finished in (c),
+    a released replica's bytes back (`_ElasticWatch`), the census's
+    kv_pool bytes equal to the live replicas' cache bytes, the page
+    ledger after every step, exact K4 launches. Returns (the phase's
+    numbers, K4 launches)."""
+    import gc
+    import os
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve, util
+    from incubator_mxnet_tpu_torch.fault import injection
+    from incubator_mxnet_tpu_torch.serve.advisor import AutoscaleAdvisor
+    from incubator_mxnet_tpu_torch.telemetry import compiles, hbm, registry
+    from incubator_mxnet_tpu_torch.telemetry import slo
+    from incubator_mxnet_tpu_torch.telemetry import timeseries as ts
+
+    loadgen = _loadgen()
+    e = ELASTIC
+    model = base["model"]
+    gc.collect()
+    events, segments = loadgen.diurnal_trace(
+        models={"gpt": 1.0},
+        tenants={"acme": (2.0, "high"), "beta": (1.0, "normal")},
+        seed=e["seed"], trough_s=e["trough"][0], steady_s=e["steady"][0],
+        surge_s=e["surge"][0], burst_s=e["burst"][0],
+        trough_rate=e["trough"][1], steady_rate=e["steady"][1],
+        surge_rate=e["surge"][1], burst_rate=e["burst"][1],
+        prompt_mean=e["prompt_mean"], prompt_max=e["prompt_max"],
+        max_new_range=e["max_new_range"])
+    rng = onp.random.RandomState(e["seed"])
+    chunks = registry.counter("mx_serve_prefill_chunks_total")
+    check_walls = []
+    engines = []
+    compiles.reset()
+    compiles.enable()
+    hbm.reset()
+    hbm.enable()
+    torch.cuda.synchronize()
+    reset_counts()
+    chunks0 = chunks.value
+
+    # -- leg (a): live from one replica -------------------------------
+    gw = _elastic_gateway(serve, model, 1)
+    engines += _engines(gw)
+    ts.reset()
+    ts.enable(interval_s=e["ts_interval"], samples=e["ts_samples"])
+    gw._advisor_period = e["advisor_period"]
+    gw._advisor_next_t = None
+    gw._advisors = {"gpt": AutoscaleAdvisor("gpt", **e["advisor"])}
+    ctl = gw.enable_elastic(min_replicas=1, max_replicas=e["max_replicas"],
+                            warm_lens=e["warm_lens"], warm_new=2)
+    watch = _ElasticWatch(torch, dev, ctl, hbm, compiles, engines,
+                          "[elastic] (a)")
+    for rep in gw._models["gpt"].replicas:
+        _elastic_warm(rep, rng)
+    base_programs = {r.label: r.slots.xla_program_count()
+                     for r in gw._models["gpt"].replicas}
+    published = {r.label: _family_entries(compiles, r.label)
+                 for r in gw._models["gpt"].replicas}
+    obj = slo.gateway_ttft("high", threshold_s=e["ttft_slo"][0],
+                           target=e["ttft_slo"][1], name="elastic_live_high")
+    _checked_steps(gw, "[elastic] (a)", check_walls)
+    live_h = _collect_handles(gw)
+    try:
+        t0 = time.monotonic()
+        live = loadgen.replay(gw, events, VOCAB, timeout=300.0)
+        t1 = time.monotonic()
+        for _ in range(8):
+            gw.step()                    # retire finished drains
+        journal_trace = ctl.scale_log()
+        programs = {}
+        for rep in gw._models["gpt"].replicas:
+            want = ctl.warm_programs.get(rep.label,
+                                         base_programs.get(rep.label))
+            pub = watch.published.get(rep.label, published.get(rep.label))
+            programs[rep.label] = dict(
+                at_publication=want, now=rep.slots.xla_program_count(),
+                ledger_at_publication=pub,
+                ledger_now=_family_entries(compiles, rep.label))
+        # idle tail: the advisor's slow window empties, a drain retires a
+        # replica (its memory comes back) or the tail ends
+        t_tail = time.monotonic()
+        while time.monotonic() - t_tail < e["tail_s"] and not any(
+                ev["direction"] == "down" for ev in ctl.scale_log()):
+            if not gw.step():
+                time.sleep(0.005)
+        tail_s = time.monotonic() - t_tail
+        journal = ctl.scale_log()
+        res = obj.evaluate()
+        kv_a = _kv_census_check(hbm, gw, "[elastic] (a)")
+        advice = gw.advisor_log()
+        ticks = ts.sample_count()
+    finally:
+        slo.tracker().remove("elastic_live_high")
+        ts.disable()
+        ts.reset()
+        gw.shutdown(drain=False)
+    check(not live["failed"], f"[elastic] (a): {len(live['failed'])} "
+          f"requests failed, first {live['failed'][:1]}")
+    check(journal_trace, "[elastic] (a): no scale event across the day "
+          "(the advisor loop never closed)")
+    for label, p in programs.items():
+        check(p["at_publication"] is not None
+              and p["now"] == p["at_publication"],
+              f"[elastic] (a) {label}: program count {p['at_publication']}"
+              f" at publication, {p['now']} now")
+        check(p["ledger_now"] == p["ledger_at_publication"],
+              f"[elastic] (a) {label}: {p['ledger_now']} ledger entries, "
+              f"{p['ledger_at_publication']} at publication")
+    check(res["ok"], f"[elastic] (a): the high tier's TTFT SLO {res}")
+    chip_s, n_prev, t_prev = 0.0, 1, t0
+    for ev in journal_trace:
+        t = min(max(ev["t"], t0), t1)
+        chip_s += n_prev * (t - t_prev)
+        n_prev, t_prev = ev["n"], t
+    chip_s += n_prev * (t1 - t_prev)
+    live_wall = t1 - t0
+    ratio = (chip_s / live_wall) / float(e["max_replicas"])
+    check(0.0 < ratio < 1.0, f"[elastic]: chips-hours ratio {ratio}")
+    high = [h.ttft for h in live_h if h.priority == "high"
+            and h.ttft is not None]
+    tok_a = sum(len(h.tokens) for h in live_h)
+    spawns = {"a": _spawn_report(compiles, watch)}
+    log(f"[elastic] (a) scale journal: "
+        + "; ".join(f"{ev['t'] - t0:+.3f} s {ev['direction']} "
+                    f"{ev['replica']} -> {ev['n']} ({ev['reason'][:60]})"
+                    for ev in journal))
+    watch.check()
+
+    # -- leg (b): static at the peak -----------------------------------
+    compiles.reset()
+    gw_b = _elastic_gateway(serve, model, e["max_replicas"])
+    engines += _engines(gw_b)
+    for rep in gw_b._models["gpt"].replicas:
+        _elastic_warm(rep, rng)
+    programs_b0 = gw_b.xla_program_counts(per_replica=True)
+    _checked_steps(gw_b, "[elastic] (b)", check_walls)
+    static_h = _collect_handles(gw_b)
+    try:
+        static = loadgen.replay(gw_b, events, VOCAB, timeout=300.0)
+        programs_b1 = gw_b.xla_program_counts(per_replica=True)
+    finally:
+        gw_b.shutdown(drain=False)
+    check(not static["failed"], f"[elastic] (b): {len(static['failed'])} "
+          "requests failed")
+    check(programs_b1 == programs_b0, f"[elastic] (b): program counts "
+          f"{programs_b0} -> {programs_b1}")
+    tok_b = sum(len(h.tokens) for h in static_h)
+    same = sum(a.tokens == b.tokens for a, b in zip(live_h, static_h))
+    differ = [(a.id, a.preemptions, b.preemptions)
+              for a, b in zip(live_h, static_h) if a.tokens != b.tokens]
+
+    # -- leg (c): a replica dies mid-trace -------------------------------
+    compiles.reset()
+    gw_c = _elastic_gateway(serve, model, 1)
+    engines += _engines(gw_c)
+    ctl_c = gw_c.enable_elastic(min_replicas=1,
+                                max_replicas=e["max_replicas"],
+                                warm_lens=e["warm_lens"], warm_new=2)
+    watch_c = _ElasticWatch(torch, dev, ctl_c, hbm, compiles, engines,
+                            "[elastic] (c)")
+    for rep in gw_c._models["gpt"].replicas:
+        _elastic_warm(rep, rng)
+    ctl_c.scale_up("gpt")                # gpt#1, the one that dies
+    _checked_steps(gw_c, "[elastic] (c)", check_walls)
+    crash_events = sorted(events, key=lambda ev: ev.t)[:e["crash_requests"]]
+    saved = os.environ.get("MXNET_FAULT_INJECT")
+    crash_h = []
+    try:
+        t0c = time.monotonic()
+        for i, ev in enumerate(crash_events):
+            crash_h.append(gw_c.submit(
+                "gpt", onp.random.RandomState(ev.seed).randint(
+                    0, VOCAB, (ev.prompt_len,)).astype(onp.int32),
+                ev.max_new, tenant=ev.tenant, priority=ev.priority))
+            gw_c.step()
+            if i + 1 == e["crash_at"]:
+                os.environ["MXNET_FAULT_INJECT"] = "replica_crash@1:1.0:0:1"
+                util._apply_env_config()
+        gw_c._drive_until(crash_h, timeout=120.0)
+        wall_c = time.monotonic() - t0c
+        fired = injection.schedule_info()["replica_crash"]["fired"]
+        journal_c = ctl_c.scale_log()
+        kv_c = _kv_census_check(hbm, gw_c, "[elastic] (c)")
+        labels_c = [r.label for r in gw_c._models["gpt"].replicas]
+    finally:
+        injection.clear_injection()
+        if saved is None:
+            os.environ.pop("MXNET_FAULT_INJECT", None)
+        else:
+            os.environ["MXNET_FAULT_INJECT"] = saved
+        gw_c.shutdown(drain=False)
+    replaced = [ev for ev in journal_c if ev["direction"] == "replace"]
+    requeued = int(replaced[0]["reason"].split("requeued ")[1].split()[0]) \
+        if replaced else 0
+    check(fired == 1 and len(replaced) == 1
+          and replaced[0]["replica"] == "gpt#1",
+          f"[elastic] (c): the crash did not fire on gpt#1: {journal_c}")
+    check("gpt#1" not in labels_c and len(labels_c) == e["max_replicas"],
+          f"[elastic] (c): replicas after the crash {labels_c}")
+    check(all(h.state == "done" for h in crash_h),
+          f"[elastic] (c): {[h.state for h in crash_h]}")
+    watch_c.check()
+    spawns["c"] = _spawn_report(compiles, watch_c)
+    # the day's first requests, in order: leg (b) served the same ones
+    crash_same = sum(h.tokens == b.tokens for h, b in zip(crash_h, static_h))
+
+    # -- the sampler's cost: the scheduler's host ms a step, in turns ------
+    host = []
+    for interval in (None, e["ts_interval"], 0.01, 0.01, e["ts_interval"],
+                     None):
+        ms, steps, ticks_s, toks, rep = _sched_host_ms(
+            torch, serve, model, events, interval)
+        engines.append(rep)
+        host.append(dict(interval_s=interval, host_ms_a_step=ms,
+                         steps=steps, sampler_ticks=ticks_s))
+        if len(host) == 1:
+            ref_toks = toks
+        check(toks == ref_toks, "[elastic] sampler turns: tokens moved "
+              f"with the sampler at {interval}")
+    compiles.disable()
+    hbm.disable()
+
+    k4 = read_counts()["K4"]
+    n_chunks = chunks.value - chunks0
+    want_k4 = _plane_k4("[elastic]", engines, n_chunks, k4)
+    out = dict(
+        model="gpt2_small", dtype="float32", max_slots=e["max_slots"],
+        max_len=e["max_len"], pages_a_replica=e["pages_a_replica"],
+        max_replicas=e["max_replicas"], requests=len(events),
+        segments=[list(sg) for sg in segments],
+        live=dict(wall_s=live["wall_s"], tokens=tok_a,
+                  tokens_per_s=tok_a / live["wall_s"],
+                  completed=live["completed"],
+                  preemptions=live["preemptions"],
+                  scale_events=len(journal_trace),
+                  scale_ups=sum(ev["direction"] == "up"
+                                for ev in journal_trace),
+                  scale_downs=sum(ev["direction"] == "down"
+                                  for ev in journal_trace),
+                  tail_s=tail_s, tail_downs=sum(
+                      ev["direction"] == "down" for ev in journal)
+                  - sum(ev["direction"] == "down" for ev in journal_trace),
+                  journal=[dict(ev, t=ev["t"] - t0) for ev in journal],
+                  chips_hours_ratio=ratio,
+                  mean_live_replicas=chip_s / live_wall,
+                  high_ttft_p50_s=_pct(high, 50),
+                  high_ttft_p99_s=_pct(high, 99),
+                  high_ttft_compliance=res["compliance"],
+                  advisor_decisions=len(advice),
+                  advisor_actions=sorted({r["action"] for r in advice}),
+                  sampler_ticks=ticks, programs=programs,
+                  kv_pool_census_bytes=kv_a),
+        static=dict(wall_s=static["wall_s"], tokens=tok_b,
+                    tokens_per_s=tok_b / static["wall_s"],
+                    completed=static["completed"],
+                    preemptions=static["preemptions"],
+                    program_counts=programs_b1),
+        requests_equal=same, requests_differing=differ,
+        crash=dict(requests=len(crash_h), wall_s=wall_c,
+                   tokens_per_s=sum(len(h.tokens) for h in crash_h)
+                   / wall_c, requeued=requeued,
+                   journal=[dict(ev, t=ev["t"] - t0c) for ev in journal_c],
+                   replicas_after=labels_c, kv_pool_census_bytes=kv_c,
+                   tokens_equal_to_static=crash_same),
+        spawns=spawns, releases=watch.releases + watch_c.releases,
+        sampler_host_ms=host, page_checks_s=float(sum(check_walls)),
+        prefill_chunks=n_chunks, k4_launches_through_wrapper=k4,
+        k4_launches_expected=want_k4)
+    log(f"[elastic] (a) live from 1 replica: {live['completed']} requests in"
+        f" {live['wall_s']:.3f} s, {out['live']['tokens_per_s']:.1f} "
+        f"tokens/s; {len(journal_trace)} scale events in the day "
+        f"({out['live']['scale_ups']} up, {out['live']['scale_downs']} "
+        f"down), {out['live']['tail_downs']} down in the {tail_s:.2f} s "
+        f"tail; mean live replicas {chip_s / live_wall:.3f}, chips-hours "
+        f"ratio {ratio:.4f}; high-tier TTFT p50 {_pct(high, 50):.4f} s p99 "
+        f"{_pct(high, 99):.4f} s, compliance {res['compliance']:.4f} "
+        f"(gate 20 s at 0.6); preemptions {live['preemptions']}; "
+        f"{len(advice)} advisor decisions {out['live']['advisor_actions']};"
+        f" {ticks} sampler ticks; programs {programs}")
+    log(f"[elastic] (b) static at {e['max_replicas']}: {static['completed']}"
+        f" requests in {static['wall_s']:.3f} s, "
+        f"{out['static']['tokens_per_s']:.1f} tokens/s; {same} of "
+        f"{len(live_h)} requests' tokens equal to leg (a)'s")
+    log(f"[elastic] (c) replica_crash@1 after {e['crash_at']} of "
+        f"{len(crash_h)} requests: journal "
+        + "; ".join(f"{ev['direction']} {ev['replica']} -> {ev['n']}"
+                    for ev in journal_c)
+        + f"; {requeued} requests re-queued, all {len(crash_h)} done in "
+        f"{wall_c:.3f} s ({out['crash']['tokens_per_s']:.1f} tokens/s), "
+        f"{crash_same} with leg (b)'s tokens; replicas {labels_c}")
+    log("[elastic] scheduler host ms a step (sampler off / 0.25 s / "
+        "0.01 s, in turns): " + ", ".join(
+            f"{h['interval_s']}: {h['host_ms_a_step']:.4f} "
+            f"({h['steps']} steps, {h['sampler_ticks']} ticks)"
+            for h in host))
+    log(f"[elastic] releases {out['releases']}; page checks "
+        f"{out['page_checks_s']:.4f} s; K4 through the wrapper {k4} "
+        f"(expected {want_k4})")
+    check(same == len(live_h) == len(static_h),
+          f"[elastic]: {len(live_h) - same} requests' tokens differ "
+          f"between legs (a) and (b): (id, preemptions a, b) {differ[:8]}")
+    check(any(r.get("took") is not None for r in out["releases"]),
+          "[elastic]: no spawned replica was released: the memory check "
+          "did not run")
+    return out, k4
+
+
 def phase_times(torch, attn, lns):
     import torch.nn.functional as F
 
@@ -4555,6 +5146,19 @@ def main():
     phase_times_train(torch, *train_cases)
     phase_times_gelu_dropout(torch, gd_cases)
     key_times = phase_times_device_keys(torch, fold_case)
+    torch.cuda.empty_cache()
+    # [elastic] runs after every phase that reads a profile: after it, a
+    # profiled DataParallel replay's first kernels went missing from the
+    # trace in every full run (PERF.md §7); its model is the [serve
+    # engine]'s (gpt2_small, seed 0) built again
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+
+    plane["elastic"], elastic_k4 = phase_elastic(
+        torch, dev, {"model": gpt2_small(device=dev, seed=0).eval()})
+    launches["K4"] += elastic_k4
+    by_layout["K4"]["f32"] += elastic_k4
+    log(f"[done] with [elastic]'s {elastic_k4} K4 launches: K4 "
+        f"{launches['K4']}, by layout {by_layout['K4']}")
     log(f"[done] phases took {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

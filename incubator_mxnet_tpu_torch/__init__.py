@@ -25,9 +25,13 @@ its decode, verify and draft steps each replayed as one CUDA graph,
 and its serving plane: `serve.Gateway` over co-resident models (priority
 tiers, tenants, quotas, preemption, replicas sharing the card) and
 disaggregated prefill and decode replicas whose KV pages migrate on the
-card. `telemetry` holds its metrics, spans, cost and latency ledgers and
-SLOs; `fault` its chaos seams and retry policies. Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``. This
-package imports neither jax nor the reference package.
+card; the autoscale advisor and the elastic replica controller resize a
+model's replica set on the card. `telemetry` holds its metrics, spans,
+cost and latency ledgers, SLOs, the timeseries history, burn-rate
+alerts, the goodput ledger, the device-memory census and the program
+ledger; `fault` its chaos seams and retry policies. Entry points run on
+``cuda:0`` unless the caller passes ``device="cpu"``. This package
+imports neither jax nor the reference package.
 """
 from . import (amp, base, contrib, device, fault, gluon, models, ops,
                optimizer, parallel, random, serve, telemetry, util)

@@ -35,16 +35,27 @@ On a CPU net the same step function runs eagerly on the plain versions
 is unused, as in the reference (:203). ``mesh``, ``param_shardings``,
 ``remat``, `rebuild` and `shardcheck_report` are not ported yet
 (`ROADMAP.md` §1 items 9 and 11).
+
+Observability (reference :173-176, :313-341): each capture (on a CPU net,
+the first step of each input signature) is an entry of the program
+ledger under ``"train.DataParallel.step"`` (`telemetry.compiles`), and
+the parameters and the optimizer state are the device-memory census
+owners ``"train.params"`` and ``"train.optimizer"`` (`telemetry.hbm`).
+As in the reference, the step charges no goodput state.
 """
 from __future__ import annotations
 
 import os
+import time
+import weakref
 
 import torch
 
 from .. import amp
 from .. import random as _random
 from ..base import MXNetError
+from ..telemetry import compiles as _compiles
+from ..telemetry import hbm as _hbm
 
 __all__ = ["DataParallel"]
 
@@ -177,8 +188,40 @@ class DataParallel:
         self._host = {"lr": None, "wd": None}
         self._key_epoch = None
         self._captures: dict = {}
+        self._eager_sigs = set()        # CPU: input signatures stepped
         self.captures = 0
         self._side = None
+        self._register_hbm_owners()
+
+    def _register_hbm_owners(self):
+        """Device-memory census owners (`telemetry.hbm`): the parameters
+        (frozen ones too) and the optimizer state. The probes read the
+        live tensors through a weakref (host state only)."""
+        ref = weakref.ref(self)
+
+        def _leaves(obj):
+            if isinstance(obj, torch.Tensor):
+                return [obj]
+            if isinstance(obj, dict):
+                obj = list(obj.values())
+            if isinstance(obj, (list, tuple)):
+                return [t for o in obj for t in _leaves(o)]
+            return []
+
+        def _params_probe():
+            tr = ref()
+            if tr is None:
+                return None
+            return {"arrays": list(tr.net.parameters())}
+
+        def _opt_probe():
+            tr = ref()
+            if tr is None:
+                return None
+            return {"arrays": _leaves(tr.opt_states)}
+
+        _hbm.register_owner("train.params", _params_probe)
+        _hbm.register_owner("train.optimizer", _opt_probe)
 
     def _set_scalar(self, name, value):
         """Upload ``lr`` or ``wd`` only when it changed since the last step
@@ -205,10 +248,16 @@ class DataParallel:
         args = self._prepare()
         x = torch.as_tensor(x, device=self.device)
         y = torch.as_tensor(y, device=self.device)
-        if self.device.type != "cuda":
-            return self._step_fn(*args, x, y)
         sig = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
                amp.amp_active(), amp.amp_active() and amp.amp_dtype())
+        if self.device.type != "cuda":
+            if sig in self._eager_sigs:
+                return self._step_fn(*args, x, y)
+            self._eager_sigs.add(sig)
+            t0 = time.perf_counter()
+            loss = self._step_fn(*args, x, y)
+            self._ledger(t0, x, y)
+            return loss
         cap = self._captures.get(sig)
         if cap is None:
             cap = self._captures[sig] = _Capture(x, y)
@@ -235,6 +284,7 @@ class DataParallel:
         return loss
 
     def _capture(self, cap, args):
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -246,7 +296,16 @@ class DataParallel:
                              f"graph failed: {e}") from e
         cap.graph = graph
         self.captures += 1
+        self._ledger(t0, cap.x, cap.y)
 
+    @staticmethod
+    def _ledger(t0, x, y):
+        """One program-ledger entry for the step just built (a capture,
+        or a CPU net's first step of a signature)."""
+        if _compiles.is_enabled():
+            _compiles.record_compile("train.DataParallel.step",
+                                     time.perf_counter() - t0, args=(x, y),
+                                     donate=(0, 2, 3))
     def rebuild(self, *args, **kwargs):  # noqa: ARG002
         raise MXNetError(f"DataParallel.rebuild {_NOT_PORTED}")
 

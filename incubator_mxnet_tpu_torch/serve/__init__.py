@@ -27,7 +27,13 @@ over a paged KV pool (Orca's iteration-level batching, vLLM's paged KV).
   ``hot_swap``;
 - `disagg`: the migration plane of a disaggregated pod: a prefill
   replica's finished prompt pages are copied whole into a decode
-  replica's pools on the card and the request is adopted there.
+  replica's pools on the card and the request is adopted there;
+- `advisor`: `AutoscaleAdvisor`, observe-only scale recommendations from
+  the timeseries history (occupancy, queue depth) and the burn-rate
+  alerts, refined by role residency on a disaggregated pod;
+- `elastic`: `ReplicaSetController`, which acts on the advice: spawns
+  (funded, built, warmed, then published), drains and retires replicas,
+  and replaces a dead one with its requests re-queued.
 
 The engine joins the telemetry plane: each request is a trace
 (``serve.request`` with its queue, prefill and decode spans, under the
@@ -45,9 +51,14 @@ failed step leaves a flight-recorder dump. The registry
 ``mx_decode_bucket_pad_tokens_total``, the gateway's
 ``mx_gateway_queue_depth{priority=}``, ``mx_gateway_dispatch_total``,
 ``mx_serve_replica_free_pages{replica=}``, and the migration plane's
-``mx_serve_page_migration_pages_total`` and ``..._bytes_total``. The
-sharded engine, the elastic replica controller and the autoscale
-advisor are not ported yet (`ROADMAP.md`).
+``mx_serve_page_migration_pages_total`` and ``..._bytes_total``, the
+advisor's ``mx_advisor_recommendation{action=}``, the controller's
+``mx_elastic_scale_events_total{direction=}`` and
+``mx_serve_replicas{model=}``. Each engine's KV pool and weights are
+device-memory census owners (`telemetry.hbm`), and each program it
+builds (a captured step, a new prefill bucket) is a ledger entry
+(`telemetry.compiles`). The sharded engine is not ported yet
+(`ROADMAP.md`).
 
 Typical use::
 
@@ -68,9 +79,12 @@ Typical use::
 """
 from __future__ import annotations
 
-from . import api, disagg, engine, gateway, router, scheduler, tenancy
+from . import (advisor, api, disagg, elastic, engine, gateway, router,
+               scheduler, tenancy)
+from .advisor import AutoscaleAdvisor
 from .api import ServeEngine
 from .engine import PageAllocator, PagePoolExhausted, PrefixCache, SlotDecoder
+from .elastic import ReplicaScaleError, ReplicaSetController
 from .gateway import Gateway, GatewayRequest, ModelRegistry
 from .router import ReplicaRouter
 from .scheduler import (DeadlineExceeded, EngineClosed, QueueFull, Request,
@@ -80,5 +94,6 @@ __all__ = ["ServeEngine", "SlotDecoder", "Scheduler", "Request",
            "PageAllocator", "PrefixCache", "PagePoolExhausted",
            "QueueFull", "DeadlineExceeded", "EngineClosed",
            "ModelRegistry", "Gateway", "GatewayRequest", "ReplicaRouter",
+           "ReplicaSetController", "ReplicaScaleError", "AutoscaleAdvisor",
            "api", "engine", "scheduler", "gateway", "tenancy", "router",
-           "disagg"]
+           "disagg", "advisor", "elastic"]

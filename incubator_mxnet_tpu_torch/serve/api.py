@@ -1,8 +1,8 @@
 """`serve.ServeEngine`, the thread-safe front door of the serving engine
 (port of `incubator_mxnet_tpu/serve/api.py`, `ServeEngine` :41, with its
 speculative-decoding arguments and `spec_stats` :84-151, the tracked lock
-:108, the anatomy record at submit :176 and the flight dump of a failed
-step :190-203).
+:108, the anatomy record at submit :176 and the OOM post-mortem or flight
+dump of a failed step :190-203).
 
 Three ways in, one engine:
 
@@ -23,9 +23,10 @@ captured in the thread that steps (``"thread_local"`` capture mode,
 `engine.SlotDecoder`).
 ``shutdown(drain=True)`` stops admission, finishes the requests already in
 slots and fails the never-admitted queue. A step that raises (an injected
-``serve_step`` fault among others) leaves a flight-recorder dump behind
-while tracing is armed, and propagates; the reference's HBM post-mortem
-comes with the port's `telemetry.hbm` (`ROADMAP.md` §1 item 10).
+``serve_step`` fault among others) propagates; one that ran out of device
+memory gets the OOM post-mortem (`telemetry.hbm.maybe_oom_postmortem`: a
+flight dump carrying the memory census and the program ledger) when it
+is armed, any other leaves a flight-recorder dump while tracing is armed.
 """
 from __future__ import annotations
 
@@ -198,13 +199,20 @@ class ServeEngine:
         """One scheduling iteration (admit, prefill chunks, one decode
         step for every decoding slot). Returns True if progress was
         made. A step that raises leaves a flight-recorder dump (the open
-        spans of the requests in flight) while tracing is armed, and
-        propagates unchanged."""
+        spans of the requests in flight): the OOM post-mortem's, with the
+        memory census and the program ledger, when it ran out of device
+        memory and the post-mortem is armed, else the generic one while
+        tracing is armed; the error propagates unchanged."""
         try:
             with self._lock:
                 return self._sched.step()
         except Exception as e:
-            tracing.maybe_flight_dump("serve_step", e)
+            from ..telemetry import hbm
+
+            # RESOURCE_EXHAUSTED gets the OOM post-mortem (census +
+            # program ledger); everything else the generic flight dump
+            if hbm.maybe_oom_postmortem("serve_step", e) is None:
+                tracing.maybe_flight_dump("serve_step", e)
             raise
 
     def _driver_running(self):

@@ -377,18 +377,27 @@ def warm_decode_replica(rep, warm_lens=(8,), warm_new=2):
 
 def decode_prefill_families(gw, model):
     """Prefill evidence on `model`'s decode-role replicas — MUST be
-    empty. The reference checks its live program caches (a built
-    ``_prefill_jit``) and its compile ledger; the port's live evidence
-    is the prefill chunk buckets a decode replica has run
-    (``SlotDecoder._buckets_seen``). The ledger half waits for the
-    port's compile and graph-capture ledger (`telemetry.compiles`,
-    `ROADMAP.md` §1 item 10)."""
+    empty; tests and `chip_smoke.py` assert on it. Checks both the live
+    evidence (the prefill chunk buckets a decode replica has run,
+    ``SlotDecoder._buckets_seen``, the port's counterpart of the
+    reference's built ``_prefill_jit``) and the program ledger (any
+    ``serve:<label>.*prefill*`` family with entries, `telemetry.compiles`)."""
+    from ..telemetry import compiles
+
     m = gw._models[model]
+    led = compiles.ledger()
     bad = {}
     for rep in m.replicas:
         if role_of(rep) != "decode":
             continue
+        evidence = []
         seen = getattr(rep.slots, "_buckets_seen", None)
         if seen:
-            bad[rep.label] = [f"live:_buckets_seen={sorted(seen)}"]
+            evidence.append(f"live:_buckets_seen={sorted(seen)}")
+        prefix = f"serve:{rep.label}."
+        for fam, entries in led.items():
+            if fam.startswith(prefix) and "prefill" in fam and entries:
+                evidence.append(f"ledger:{fam}")
+        if evidence:
+            bad[rep.label] = evidence
     return bad

@@ -65,9 +65,19 @@ a pass, over S rows in decode, S (k + 1) in verify, S in each draft step.
 The disaggregation hand-off's transfer (`SlotDecoder.copy_pages_out` and
 ``copy_pages_in``, reference :711-766) gathers whole pages into device
 tensors and writes them into the peer's pools in place, so the captured
-graphs read them at their next replay. The HBM-census owners and the
-sharding pre-flight of the reference are not ported yet (`ROADMAP.md` §1
-items 9 and 10).
+graphs read them at their next replay.
+
+Observability (reference :619-659, :917-929): the first prefill registers
+two device-memory census owners (`telemetry.hbm`),
+``"{census_name}.kv_pool"`` (every leaf of the pools, with the prefix
+cache's share as ``derived``) and ``"{census_name}.params"``; each program
+the engine builds (a captured step, or on a CPU model a step's first call
+under new weights, and a new prefill bucket's first eager run) is one
+entry of the program ledger (`telemetry.compiles`) under
+``"{census_name}.{prefill,draft_prefill,decode,verify,draft}"``, so the
+ledger counts what `xla_program_count` counts. The sharding pre-flight
+and `hbm_crosscheck` (shardcheck's SC006) are not ported yet
+(`ROADMAP.md` §1 items 9 and 10).
 
 Stale-row safety (the reference's argument, per page): position ``p`` of
 a slot enters the mask only once the slot's ``pos`` reaches ``p``, and
@@ -80,6 +90,7 @@ from __future__ import annotations
 import hashlib
 import math
 import os
+import time
 import weakref
 
 import numpy as onp
@@ -91,6 +102,8 @@ from ..contrib.quantization import quantize_symmetric
 from ..models.decoding import (GPTDecoder, NgramProposer, bucket_chunk,
                                chunk_buckets)
 from ..ops import _philox
+from ..telemetry import compiles as _compiles
+from ..telemetry import hbm as _hbm
 from ..telemetry import registry
 from ..util import env_int
 
@@ -535,7 +548,6 @@ class SlotDecoder:
         self._builds = 0            # programs built: graphs, or CPU fps
         self._program_fp = {}       # step name -> weight fingerprint
         self._graphs = {}           # step name -> (CUDAGraph, its output)
-        self._side = None
         self.captures = 0           # graphs captured (card only)
         self.captures_by_step = dict.fromkeys(_STEPS, 0)
 
@@ -614,6 +626,43 @@ class SlotDecoder:
                                      dtype=torch.int64, device=dev)
         self._temp_host = None
         self._table_dirty = True
+        self._register_hbm_owners()
+
+    def _register_hbm_owners(self):
+        """Attribute this engine's device memory to named census owners
+        (`telemetry.hbm`): the KV pool (every pool leaf, with the prefix
+        cache's share as derived page math — cached pages live inside the
+        pool tensors) and the decoder params. The probes hold a weakref
+        and read host state only, so a released engine drops out of the
+        census and a sampler thread never syncs the card."""
+        ref = weakref.ref(self)
+
+        def _pool_probe():
+            eng = ref()
+            if eng is None or eng._pk is None:
+                return None
+            page_bytes = eng.cache_bytes / eng.n_pages if eng.n_pages else 0
+            cached = eng.prefix_cache.cached_pages
+            return {
+                "arrays": eng._pool_leaves(),
+                "detail": {"kv_dtype": eng.kv_dtype,
+                           "n_pages": eng.n_pages,
+                           "pages_used": eng.allocator.used_pages,
+                           "prefix_cached_pages": cached},
+                "derived": {"prefix_cache": int(cached * page_bytes)},
+            }
+
+        def _params_probe():
+            eng = ref()
+            if eng is None:
+                return None
+            models = [eng._dec._model]
+            if eng._draft_dec is not None:
+                models.append(eng._draft_dec._model)
+            return {"arrays": [p for m in models for p in m.parameters()]}
+
+        _hbm.register_owner(f"{self.census_name}.kv_pool", _pool_probe)
+        _hbm.register_owner(f"{self.census_name}.params", _params_probe)
 
     def _pool_leaves(self):
         return [t for leaves in (self._pk, self._pv, self._sk, self._sv,
@@ -912,7 +961,6 @@ class SlotDecoder:
         if pad:
             chunk = onp.pad(chunk, (0, pad))
             PAD_TOKENS.inc(pad)
-        self._buckets_seen.add(bucket)
         # the chunk's pages, the trash page where the bucket overshoots
         # the slot's mapped range (pad-token K/V is discarded)
         first_page = t_start // pt
@@ -930,10 +978,32 @@ class SlotDecoder:
                                  dtype=torch.float32, device=self._device)
         args = (ints[:bucket], ints[bucket:bucket + P], ints[bucket + P:],
                 int(t_start), n, k_dev, t_dev)
+        fresh = bucket not in self._buckets_seen
+        self._buckets_seen.add(bucket)
+        t0 = time.perf_counter()
         first = self._prefill_fn(*args)
+        if fresh:
+            self._ledger("prefill", t0, args, bucket, first)
         if self._draft_dec is not None:
-            self._prefill_fn(*args, draft=True)
+            t0 = time.perf_counter()
+            out = self._prefill_fn(*args, draft=True)
+            if fresh:
+                self._ledger("draft_prefill", t0, args, bucket, out)
         return int(first[0]), bucket, pad
+
+    def _ledger(self, kind, t0, args, bucket=None, out=None):
+        """One program-ledger entry (`telemetry.compiles`) for a program
+        this engine just built, its wall counted from ``t0``: a captured
+        step, a CPU model's step under new weights, or a new prefill
+        bucket's first eager run (``out``, its output, is waited for, so
+        the wall covers the run). A dead branch while the ledger is
+        off."""
+        if _compiles.is_enabled():
+            if out is not None:
+                out.cpu()
+            _compiles.record_compile(
+                f"{self.census_name}.{kind}", time.perf_counter() - t0,
+                args=args, bucket=bucket)
 
     # -- the replayed steps -------------------------------------------------
 
@@ -1083,17 +1153,21 @@ class SlotDecoder:
     def _eager_on_side_stream(self, fn, args):
         """A fingerprint's first call of a step on the card: the step
         function run eagerly on a side stream, so what a step does once
-        (kernel loads, cuBLAS handles) happens before the capture."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self._device)
+        (kernel loads, cuBLAS handles) happens before the capture. The
+        side stream is one per device, shared by every engine: cuBLAS
+        keeps a workspace per stream for the process's life, so an
+        engine of its own would leave one behind at each spawn of an
+        elastic replica."""
+        side = _side_stream(self._device)
         main = torch.cuda.current_stream(self._device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
             out = fn(*args)
-        main.wait_stream(self._side)
+        main.wait_stream(side)
         return out
 
     def _capture(self, name, fn, args):
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -1105,6 +1179,7 @@ class SlotDecoder:
         self.captures += 1
         self.captures_by_step[name] += 1
         self._builds += 1
+        self._ledger(name, t0, args)
 
     def _run_step(self, name, args):
         """Run the step ``name`` ("decode", "verify", "draft") on its
@@ -1114,10 +1189,14 @@ class SlotDecoder:
         fn = getattr(self, f"_{name}_fn")
         fp = self._fingerprint()
         if self._device.type != "cuda":
-            if fp != self._program_fp.get(name):
-                self._program_fp[name] = fp
-                self._builds += 1
-            return fn(*args)
+            if fp == self._program_fp.get(name):
+                return fn(*args)
+            self._program_fp[name] = fp
+            self._builds += 1
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._ledger(name, t0, args)
+            return out
         if fp != self._program_fp.get(name):
             # new weights (or a new pool): one eager step, then capture
             self._graphs.pop(name, None)
@@ -1238,6 +1317,17 @@ class SlotDecoder:
             outs.append(torch.stack(views).float().cpu().numpy())
         return outs[0], outs[1]
 
+    def hbm_crosscheck(self, mesh=None):  # noqa: ARG002
+        """The reference compares this engine's census bytes (its
+        ``kv_pool`` and ``params`` owners, `telemetry.hbm`) with
+        shardcheck's SC006 static estimate of the decode program. The
+        census is here; shardcheck is not ported, so this raises
+        `MXNetError`."""
+        raise MXNetError(
+            "SlotDecoder.hbm_crosscheck needs shardcheck's SC006 static "
+            "estimate, which is not ported yet (ROADMAP.md §1 item 10); "
+            "telemetry.hbm.census() gives the census half")
+
     def xla_program_count(self):
         """The programs this engine built, under the reference's name (its
         recompile gate asserts the count stays flat in steady state): the
@@ -1249,6 +1339,19 @@ class SlotDecoder:
         fingerprint."""
         prefills = 2 if self._draft_dec is not None else 1
         return prefills * len(self._buckets_seen) + self._builds
+
+
+_SIDE_STREAMS = {}            # device index -> the engines' side stream
+
+
+def _side_stream(device):
+    """The side stream of the engines' eager first steps on ``device``."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _SIDE_STREAMS.get(idx)
+    if stream is None:
+        stream = _SIDE_STREAMS[idx] = torch.cuda.Stream(idx)
+    return stream
 
 
 def _occupancy_probe(allocator):

@@ -56,13 +56,16 @@ share the device, each with its own pool and graphs.
 ``add(prefill_replicas=, decode_replicas=)`` splits a model into prefill
 and decode replicas whose KV pages migrate on the card (`serve.disagg`).
 
+Elastic: ``MXNET_ADVISOR`` arms one `serve.advisor.AutoscaleAdvisor` a
+model (evaluated on the step cadence, `advisor_log`), and
+`Gateway.enable_elastic` (or ``MXNET_ELASTIC_SERVE=1``) a
+`serve.elastic.ReplicaSetController` that acts on the advice, spawning,
+draining and replacing replicas; both tick at the end of every `step()`.
+A failed step gets the device-memory post-mortem (`telemetry.hbm`) when
+it ran out of memory, else the flight dump.
+
 Not ported yet, and raising `MXNetError` that names the `ROADMAP.md` item:
-``add(mesh=...)`` and the sharded engine (`serve.sharded`, §1 item 9),
-`Gateway.enable_elastic` and ``MXNET_ELASTIC_SERVE`` (`serve.elastic`,
-§1 item 1), and the autoscale advisor, ``MXNET_ADVISOR``
-(`serve.advisor`, §1 item 1). The reference's HBM post-mortem of a
-failed step comes with `telemetry.hbm` (§1 item 10); the flight dump is
-here.
+``add(mesh=...)`` and the sharded engine (`serve.sharded`, §1 item 9).
 """
 from __future__ import annotations
 
@@ -105,13 +108,13 @@ class _Replica:
     the metric/census identity — ``"<model>"`` for a single-replica
     model (the pre-replica series names), ``"<model>#<i>"`` otherwise.
     ``draining`` marks a replica being retired: the router stops
-    dispatching to it while its in-flight work finishes (the reference's
-    elastic controller owns the flag). ``role`` is the disaggregation
-    assignment: ``"both"`` (homogeneous default) serves the full
-    request; ``"prefill"`` runs only chunked prefill and hands finished
-    segments to the migration plane; ``"decode"`` only ever receives
-    already-prefilled requests via `Scheduler.adopt` and never runs a
-    prefill chunk."""
+    dispatching to it while its in-flight work finishes
+    (`serve/elastic.py` owns the flag and the replica list). ``role`` is
+    the disaggregation assignment: ``"both"`` (homogeneous default) serves
+    the full request; ``"prefill"`` runs only chunked prefill and hands
+    finished segments to the migration plane; ``"decode"`` only ever
+    receives already-prefilled requests via `Scheduler.adopt` and never
+    runs a prefill chunk."""
 
     __slots__ = ("model", "index", "label", "slots", "sched", "live",
                  "draining", "role")
@@ -264,8 +267,7 @@ class ModelRegistry:
         """THE page-budget split: per-replica page count for model
         `name` at `n_replicas` replicas — used both at construction
         (`_build`) and by `serve.elastic.ReplicaSetController` every
-        time the replica count changes in the reference, so the two can
-        never disagree.
+        time the replica count changes, so the two can never disagree.
         Returns None when there is no joint budget (``total_pages``
         unset). Raises `PagePoolExhausted` LOUDLY when the model's cut
         cannot fund that many replicas (< 4 pages each) — a replica the
@@ -323,9 +325,10 @@ class ModelRegistry:
 
     def build_engine(self, name, mesh=None, n_pages=None):
         """Construct ONE fresh engine for `name` from its registered
-        spec — the reference's elastic scale-up path (the construction
+        spec — the elastic controller's scale-up path (the construction
         path is `_build`). Pre-built-decoder entries carry no recipe to
-        rebuild from. ``mesh`` raises until the sharded engine is
+        rebuild from; scaling those needs a factory passed to the
+        controller. ``mesh`` raises until the sharded engine is
         ported."""
         spec = self._specs.get(name)
         if spec is None:
@@ -652,31 +655,71 @@ class Gateway:
         self._driver = None
         self._stop = threading.Event()
         self.preemptions_total = 0
-        if os.environ.get("MXNET_ADVISOR", "") not in ("", "0"):
-            self._arm_advisor()
-        if os.environ.get("MXNET_ELASTIC_SERVE", "") not in ("", "0"):
+        # the controller rebuilds schedulers for spawned replicas with
+        # the same knobs the construction path used
+        self._build_params = {"policy": policy,
+                              "max_queue": engine_max_queue,
+                              "default_deadline": deadline_s,
+                              "eos_id": eos_id, "seed": seed}
+        self._advisors = {}
+        self._advisor_period = None
+        self._advisor_next_t = None
+        adv = os.environ.get("MXNET_ADVISOR", "")
+        if adv not in ("", "0"):
+            self._arm_advisor(5.0 if adv == "1" else float(adv))
+        self._elastic = None
+        es = os.environ.get("MXNET_ELASTIC_SERVE", "")
+        if es not in ("", "0"):
             self.enable_elastic()
         self._arm_probes()
 
-    def enable_elastic(self, **kwargs):  # noqa: ARG002
-        """The reference arms its `serve.elastic.ReplicaSetController`
-        here (also through ``MXNET_ELASTIC_SERVE=1``). Not ported yet:
-        raises `MXNetError`."""
-        raise MXNetError(
-            "Gateway.enable_elastic: serve.elastic.ReplicaSetController "
-            "is not ported yet (ROADMAP.md §1 item 1)")
+    def enable_elastic(self, **kwargs):
+        """Arm the `serve.elastic.ReplicaSetController` (the
+        ``MXNET_ELASTIC_SERVE=1`` path does this automatically): the
+        controller is ticked from every `step()` and acts on advisor
+        recommendations, drains/spawns replicas, and replaces dead
+        ones. kwargs forward to the controller ctor (min_replicas,
+        max_replicas, factories, warm_lens...). Returns the
+        controller."""
+        from .elastic import ReplicaSetController
 
-    def _arm_advisor(self):
-        """The reference arms one `serve.advisor.AutoscaleAdvisor` a model
-        here (``MXNET_ADVISOR``). Not ported yet: raises `MXNetError`."""
-        raise MXNetError(
-            "Gateway: the autoscale advisor (serve.advisor, MXNET_ADVISOR) "
-            "is not ported yet (ROADMAP.md §1 item 1)")
+        ctl = ReplicaSetController(self, **kwargs)
+        with self._lock:
+            self._elastic = ctl
+        return ctl
 
-    def advisor_log(self, tail=None):  # noqa: ARG002
-        """The advisors' merged decision log: empty, as no advisor is
-        armed until `serve.advisor` is ported."""
-        return []
+    def _arm_advisor(self, period_s):
+        """One observe-only `serve.advisor.AutoscaleAdvisor` per model,
+        evaluated every ``period_s`` seconds on the step loop
+        (``MXNET_ADVISOR``). Arms the timeseries history layer if the
+        caller hasn't — the advisor is blind without it."""
+        from ..telemetry import timeseries
+        from .advisor import AutoscaleAdvisor
+
+        if not timeseries.is_enabled():
+            timeseries.enable()
+        self._advisor_period = float(period_s)
+        self._advisor_next_t = None
+        for name in self._models:
+            self._advisors[name] = AutoscaleAdvisor(name)
+
+    def _advise(self, now):
+        """Periodic advisor tick (the step loop's cadence)."""
+        if not self._advisors:
+            return
+        if self._advisor_next_t is not None \
+                and now < self._advisor_next_t:
+            return
+        self._advisor_next_t = now + self._advisor_period
+        for adv in self._advisors.values():
+            adv.evaluate()
+
+    def advisor_log(self, tail=None):
+        """Merged advisor decision log across models (time-ordered)."""
+        recs = [r for adv in self._advisors.values()
+                for r in adv.decision_log()]
+        recs.sort(key=lambda r: r["t"])
+        return recs if tail is None else recs[-int(tail):]
 
     # -- observability probes (weakly bound: a collected gateway drops
     # -- its series instead of being kept alive by the registry) ----------
@@ -716,7 +759,8 @@ class Gateway:
         tracing.register_flight_context("gateway", _flight)
 
     def _arm_replica_probe(self, rep):
-        """Per-replica free-page pull gauge."""
+        """Per-replica free-page pull gauge — also called by the
+        elastic controller for every replica it spawns."""
         sref = weakref.ref(rep.slots)
 
         def _free(sref=sref):
@@ -900,7 +944,10 @@ class Gateway:
             with self._lock:
                 return self._step()
         except Exception as e:
-            tracing.maybe_flight_dump("gateway_step", e)
+            from ..telemetry import hbm
+
+            if hbm.maybe_oom_postmortem("gateway_step", e) is None:
+                tracing.maybe_flight_dump("gateway_step", e)
             raise
 
     def _step(self):
@@ -925,7 +972,10 @@ class Gateway:
                         disagg.pump_migrations(self, m,
                                                time.monotonic()))
             pumped = self._pump(time.monotonic())
-        return bool(expired or dispatched or stepped or pumped)
+            self._advise(now)
+            scaled = (self._elastic.tick(now)
+                      if self._elastic is not None else 0)
+        return bool(expired or dispatched or stepped or pumped or scaled)
 
     def _expire(self, now):
         """Fail gateway-queued requests past their deadline — INCLUDING

@@ -9,14 +9,28 @@
   plane;
 - `anatomy`: each request's wall split by state, and each serving
   replica's residency by role;
-- `slo`: declarative objectives over registry series.
+- `slo`: declarative objectives over registry series;
+- `timeseries`: opt-in ring-buffer history of every registry series
+  (``MXNET_TS_INTERVAL`` / ``MXNET_TS_SAMPLES``) with windowed queries,
+  the signal layer of the burn-rate alerts and the autoscale advisor;
+- `burnrate`: multi-window burn-rate alerts over the SLO burn gauges
+  (``MXNET_BURN_WINDOWS``);
+- `goodput`: the training goodput ledger (every wall second in one
+  state);
+- `hbm`: the device-memory census by owner (the caching allocator on the
+  card), the growth watchdog (``MXNET_MEMWATCH_INTERVAL``) and the OOM
+  post-mortem (``MXNET_OOM_POSTMORTEM``);
+- `compiles`: the ledger of every program built (a CUDA-graph capture,
+  a new prefill bucket's first run) with recompile forensics.
 
 Every probe is a dead branch until the plane is armed
 (``MXNET_TELEMETRY=1`` at import, or each module's ``enable()``). The
-device-bound modules (compile and HBM ledgers, the profiler, the health
-monitor) and `timeseries`, `burnrate` and `goodput` are not ported yet
-(`ROADMAP.md`).
+profiler-bound modules (roofline, kernel census, the health monitor,
+the fleet plane) are not ported yet (`ROADMAP.md`).
 """
-from . import anatomy, capacity, locks, registry, slo, tracing
+from . import locks  # noqa: I001  (first: tracked_lock feeds the rest)
+from . import (anatomy, burnrate, capacity, compiles, goodput, hbm,
+               registry, slo, timeseries, tracing)
 
-__all__ = ["registry", "locks", "tracing", "capacity", "anatomy", "slo"]
+__all__ = ["registry", "locks", "tracing", "capacity", "anatomy", "slo",
+           "timeseries", "burnrate", "goodput", "hbm", "compiles"]

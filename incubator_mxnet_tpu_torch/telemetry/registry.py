@@ -16,8 +16,10 @@ The serving engine (`serve/`) owns ``mx_serve_ttft_seconds``,
 ``mx_serve_slot_occupancy``, ``mx_serve_page_occupancy``,
 ``mx_serve_prefix_hits_total``, ``mx_serve_prefill_chunks_total``,
 ``mx_serve_evictions_total`` and ``mx_decode_bucket_pad_tokens_total``.
-The reference's XLA series (`observe_compile` :293, the jit-cache
-collector :314) have no counterpart here.
+`observe_compile` (reference :293) feeds ``mx_jit_compile_seconds`` from
+the program ledger (`telemetry.compiles`: a graph capture or a new
+prefill bucket's first run); the reference's jit-cache collector (:314)
+has no counterpart here.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import threading
 
 __all__ = ["counter", "gauge", "histogram", "register_collector",
            "register_pull_gauge", "report", "exposition", "reset",
-           "Counter", "Gauge", "Histogram"]
+           "observe_compile", "Counter", "Gauge", "Histogram"]
 
 _LOCK = threading.Lock()
 _METRICS: dict = {}          # (name, labels tuple) -> metric
@@ -206,6 +208,16 @@ def gauge(name, help="", labels=None):
 
 def histogram(name, help="", labels=None, buckets=None):
     return _get_or_make(Histogram, name, help, labels, buckets=buckets)
+
+
+def observe_compile(program, seconds):
+    """Feed the program-build series: the unlabeled aggregate and a
+    per-program one (called by `telemetry.compiles` at each ledger
+    entry)."""
+    histogram("mx_jit_compile_seconds",
+              "trace+compile wall time per program").observe(seconds)
+    histogram("mx_jit_compile_seconds", "trace+compile wall time",
+              labels={"program": str(program)[:80]}).observe(seconds)
 
 
 def register_collector(fn):

@@ -1581,3 +1581,120 @@ def test_copy_pages_on_the_card_bit_for_bit(dev, kv_dtype):
             continue
         for s, d in zip(s_l, d_l):
             assert torch.equal(d[[6, 1]], s[[3, 5]])
+
+
+def test_oom_postmortem_on_a_real_out_of_memory(dev, tmp_path, monkeypatch):
+    """A faulted engine step asks the caching allocator for more than the
+    card holds: the real ``torch.cuda.OutOfMemoryError`` propagates, and
+    `telemetry.hbm.maybe_oom_postmortem` writes one flight dump carrying
+    the census (the engine's owners, the card's top blocks) and the
+    program ledger, and the generic dump is skipped."""
+    import glob
+    import json
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.telemetry import compiles, hbm, tracing
+
+    monkeypatch.setenv("MXNET_FLIGHTREC_DIR", str(tmp_path))
+    compiles.reset()
+    hbm.reset()
+    compiles.enable()
+    hbm.enable()
+    tracing.enable()
+    model, _ = _serve_model(dev)
+    e = serve.ServeEngine(model, max_slots=2, max_len=64)
+    try:
+        e.generate(_serve_prompts(1, seed=4)[0], 4)   # a capture, a bucket
+        slots = e._sched.slots
+
+        def faulted(*a, **k):
+            return torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+
+        slots.decode_step = faulted
+        e.submit(_serve_prompts(1, seed=5)[0], 3)
+        with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+            for _ in range(4):
+                e.step()
+        assert hbm.is_resource_exhausted(ei.value)
+        dumps = glob.glob(str(tmp_path / "flightrec_*.json"))
+        assert [p.split("/")[-1].startswith("flightrec_oom_serve_step_")
+                for p in dumps] == [True]
+        payload = json.loads(open(dumps[0]).read())
+        assert payload["error"]["type"] == "OutOfMemoryError"
+        census = payload["context"]["hbm_census"]
+        assert census["owners"]["serve.kv_pool"] == slots.cache_bytes
+        assert census["total"] >= census["owners"]["serve.kv_pool"]
+        assert census["top"] and census["top"][0]["bytes"] > 0
+        led = payload["context"]["compile_ledger"]
+        assert led["report"]["serve.decode"]["compiles"] == 1
+        assert "serve.prefill" in led["report"]
+        assert onp.isfinite(census["unattributed"])
+    finally:
+        compiles.disable()
+        compiles.reset()
+        hbm.disable()
+        hbm.reset()
+        tracing.disable()
+        tracing.reset()
+
+
+def test_sampler_during_captured_replays_touches_no_device_state(dev):
+    """The timeseries sampler at 0.01 s, with the census armed, while an
+    engine captures its decode graph and replays it: the tokens are those
+    of a run with the sampler off, one capture, and the sampler took its
+    samples (every probe reads host state: no sync, no capture broken)."""
+    import time
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.telemetry import hbm, timeseries
+
+    model, _ = _serve_model(dev)
+    prompts = _serve_prompts(6, seed=8)
+
+    def run():
+        e = serve.ServeEngine(model, max_slots=3, max_len=64)
+        outs = e.generate_many(prompts, 20)
+        caps = e._sched.slots.captures
+        e.shutdown()
+        return outs, caps
+
+    want, _ = run()
+    timeseries.reset()
+    hbm.enable()
+    timeseries.enable(interval_s=0.01, samples=4096)
+    try:
+        got, caps = run()
+        deadline = time.monotonic() + 5.0
+        while timeseries.sample_count() < 5:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert timeseries.history("mx_hbm_live_bytes_total")
+    finally:
+        hbm.disable()
+        timeseries.disable()
+        timeseries.reset()
+    assert caps == 1
+    assert all((a == b).all() for a, b in zip(got, want))
+
+
+def test_release_returns_the_pools_and_the_graphs_memory(dev):
+    """`SlotDecoder.release` after prefills and a captured decode graph:
+    the card's allocated bytes come back to their level before the
+    engine's first use (the pools and the graph's private pool freed)."""
+    from incubator_mxnet_tpu_torch import serve
+
+    model, _ = _serve_model(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    e = serve.ServeEngine(model, max_slots=2, max_len=64)
+    e.generate_many(_serve_prompts(3, seed=9), 10)
+    slots = e._sched.slots
+    assert slots.captures == 1
+    held = torch.cuda.memory_allocated(dev) - before
+    assert held >= slots.cache_bytes > 0
+    e.shutdown()
+    slots.release()
+    torch.cuda.synchronize()
+    assert abs(torch.cuda.memory_allocated(dev) - before) <= 1 << 20

@@ -255,21 +255,37 @@ def test_gateway_constructor_validation(pkg):
 
 
 def test_gateway_not_ported_parts_raise_naming_the_roadmap():
+    """Mesh-sharded replicas still raise naming their `ROADMAP.md` item;
+    the elastic controller and the advisor, once stubs that raised, now
+    arm: `enable_elastic` returns the controller, and ``MXNET_ADVISOR`` /
+    ``MXNET_ELASTIC_SERVE`` arm the advisor and the controller at
+    construction (the reference's knobs)."""
+    from incubator_mxnet_tpu_torch.serve.advisor import AutoscaleAdvisor
+    from incubator_mxnet_tpu_torch.serve.elastic import ReplicaSetController
+    from incubator_mxnet_tpu_torch.telemetry import timeseries
+
     reg = tserve.ModelRegistry()
     with pytest.raises(MXNetError, match="item 9"):
         reg.add("m", _StubSlots(PKGS["port"]), mesh="tp=2")
     reg.add("m", _StubSlots(PKGS["port"]))
     gw = tserve.Gateway(reg)
-    with pytest.raises(MXNetError, match="item 1"):
-        gw.enable_elastic()
+    assert isinstance(gw.enable_elastic(), ReplicaSetController)
     assert gw.advisor_log() == []
-    for knob in ("MXNET_ADVISOR", "MXNET_ELASTIC_SERVE"):
-        os.environ[knob] = "1"
-        try:
-            with pytest.raises(MXNetError, match="item 1"):
-                _stub_gateway(PKGS["port"])
-        finally:
-            del os.environ[knob]
+    try:
+        for knob in ("MXNET_ADVISOR", "MXNET_ELASTIC_SERVE"):
+            os.environ[knob] = "1"
+            try:
+                gw = _stub_gateway(PKGS["port"])
+            finally:
+                del os.environ[knob]
+            if knob == "MXNET_ADVISOR":
+                assert isinstance(gw._advisors["m"], AutoscaleAdvisor)
+                assert gw._advisor_period == 5.0
+            else:
+                assert isinstance(gw._elastic, ReplicaSetController)
+    finally:
+        timeseries.disable()
+        timeseries.reset()
 
 
 def test_registry_builds_engines_from_its_recipe():

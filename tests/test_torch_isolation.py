@@ -93,3 +93,53 @@ def test_serving_plane_modules_stand_alone():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+OBSERVATORY_AND_ELASTIC = ("telemetry.timeseries", "telemetry.burnrate",
+                           "telemetry.goodput", "telemetry.hbm",
+                           "telemetry.compiles", "serve.advisor",
+                           "serve.elastic")
+
+
+def test_observatory_and_elastic_modules_stand_alone():
+    """The seven modules of the serving plane's history, budgets and
+    control (timeseries, burn rate, goodput, the device-memory census,
+    the program ledger, the advisor, the elastic controller) import
+    alone in a fresh interpreter, each without loading jax or the
+    reference package; then an elastic gateway over a tiny GPT, with the
+    sampler, the census and the ledger armed, scales up on the CPU and
+    serves, still without them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {OBSERVATORY_AND_ELASTIC!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "from incubator_mxnet_tpu_torch import serve\n"
+        "from incubator_mxnet_tpu_torch.models import gpt_tiny\n"
+        "from incubator_mxnet_tpu_torch.telemetry import (compiles, hbm,"
+        " timeseries)\n"
+        "compiles.enable(); hbm.enable()\n"
+        "timeseries.enable(interval_s=0.05, samples=64)\n"
+        "m = gpt_tiny(vocab_size=50, max_length=32, dropout=0.0,"
+        " device='cpu', seed=0)\n"
+        "reg = serve.ModelRegistry(total_pages=24)\n"
+        "reg.add('g', m, max_slots=2, max_len=32)\n"
+        "gw = serve.Gateway(reg)\n"
+        "ctl = gw.enable_elastic(max_replicas=2, warm_lens=(5,))\n"
+        "assert [r.label for r in ctl.scale_up('g')] == ['g#1']\n"
+        "out = gw.generate('g', list(range(5)), 3, tenant='t')\n"
+        "assert out.shape == (8,)\n"
+        "assert 'serve:g#1.decode' in compiles.ledger()\n"
+        "assert hbm.census(top_k=0)['owners']['serve:g#1.kv_pool'] > 0\n"
+        "gw.shutdown()\n"
+        "timeseries.disable()\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

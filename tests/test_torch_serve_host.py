@@ -564,12 +564,23 @@ def test_slot_decoder_validation_and_knobs(tiny, monkeypatch):
 
 
 def test_env_knobs_name_only_the_serving_knobs_read():
+    """The knob table names exactly the knobs the port reads (the serving
+    knobs among them): every ``MXNET_*`` name the package's source reads
+    from the environment, and no other."""
+    import re
+    from pathlib import Path
+
     knobs = util.env_knobs()
-    assert set(knobs) == {
-        "MXNET_SERVE_MAX_QUEUE", "MXNET_SERVE_POLICY",
-        "MXNET_SERVE_DEADLINE_S", "MXNET_SERVE_PAGE_TOKENS",
-        "MXNET_SERVE_PREFILL_CHUNK", "MXNET_SERVE_KV_DTYPE",
-        "MXNET_SERVE_SPEC_K", "MXNET_SERVE_SPEC_DRAFT"}
+    root = Path(util.__file__).resolve().parent
+    read = re.compile(r'(?:environ\.get|env_int|env_float|_env_float|'
+                      r'_env_int)\(\s*"(MXNET_[A-Z0-9_]+)"')
+    names = {m for path in root.rglob("*.py")
+             for m in read.findall(path.read_text())}
+    assert {"MXNET_SERVE_MAX_QUEUE", "MXNET_SERVE_POLICY",
+            "MXNET_SERVE_DEADLINE_S", "MXNET_SERVE_PAGE_TOKENS",
+            "MXNET_SERVE_PREFILL_CHUNK", "MXNET_SERVE_KV_DTYPE",
+            "MXNET_SERVE_SPEC_K", "MXNET_SERVE_SPEC_DRAFT"} <= names
+    assert set(knobs) == names
     # the int8 pool and speculative decoding are ported: their knobs
     # carry the reference's own texts
     ref = jutil._ENV_KNOBS

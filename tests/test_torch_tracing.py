@@ -345,7 +345,9 @@ def test_slo_throughput_and_gauge_windows(pkg):
     c = reg.counter("t_torch_slo_tokens_total")
     s = slo.tracker().throughput("tput", "t_torch_slo_tokens_total",
                                  min_rate=100.0, target=0.5)
-    now = 1000.0
+    # The virtual windows precede `_measure`'s own `time.monotonic()` window
+    # on any host, however short its uptime.
+    now = time.monotonic() - 100.0
     s.observe_window(now)
     c.inc(500)
     now += 1.0
@@ -406,18 +408,28 @@ def test_retry_events_annotate_span(pkg):
 
 
 def test_mxnet_telemetry_env_arms_tracing_and_the_lock_witness(monkeypatch):
+    """``MXNET_TELEMETRY=1`` arms span tracing and the lock witness (and,
+    since the program ledger, the census and the goodput ledger are
+    ported, those three too: the test disarms whatever it armed)."""
+    from incubator_mxnet_tpu_torch.telemetry import compiles, goodput, hbm
+
     assert not ttracing.is_enabled()
     monkeypatch.setenv("MXNET_TELEMETRY", "1")
     was = tlocks.is_enabled()
+    others = [(m, m.is_enabled()) for m in (compiles, goodput, hbm)]
     tutil._apply_env_config()
     try:
         assert ttracing.is_enabled() and tlocks.is_enabled()
+        assert all(m.is_enabled() for m, _ in others)
         lk = tlocks.tracked_lock("t.env_lock", kind="lock")
         assert isinstance(lk, tlocks.TrackedLock)
     finally:
         ttracing.disable()
         if not was:
             tlocks.disable()
+        for m, on in others:
+            if not on:
+                m.disable()
 
 
 # ---------------------------------------------------------------------------
