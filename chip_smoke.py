@@ -119,12 +119,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the same way), and its wrapper's host time a call; the row backward's
    device time split by kernel (``torch.profiler``).
 
+8. drives the reference's imperative front door on the card (``[nd]``,
+   after the timings, before ``[elastic]``): NDArrays made on ``cuda:0``
+   with no scope open; ``bench.py``'s dot pair (100 chained ``mx.np.dot``
+   on (1024, 1024) f32 against ``torch.matmul``, one scalar fetch, the
+   median of three rounds' ratios) and the funnel's host time a call;
+   BERT-base's embedding, LayerNorm, dropout and one post-LN encoder
+   layer at 64 x 128 composed of ``mx.np``/``npx`` calls on NDArrays
+   (``nd_encoder_layer``) under ``autograd.record()`` and
+   ``.backward()``, held against the port's ``BERTEncoder`` on the same
+   seeded weights at p = 0 and at p = 0.1 (the same keys, checked) in
+   f32 and under AMP, its launches (K1, K2, K3 both ways, K4, K4b, K5)
+   exactly the module path's, and a second ``backward`` over the same
+   graph bit for bit the first; K6 through ``npx.gelu_dropout(nd,
+   impl="pallas")`` in f32 and bf16, bit for bit the torch-tensor call;
+   and the autograd semantics (a second backward, ``grad_req="add"``,
+   ``grad(create_graph=True)``, a custom ``Function``) on the card
+   against the CPU.
+
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
 ``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}``,
 the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
-``{"gelu_dropout": ...}`` lines, one
+``{"gelu_dropout": ...}``, ``{"nd": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -4279,7 +4297,7 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
     ``trainer``: phase_train's result in the same mode, printed beside.
     ``mode``: "amp" or "f32"."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from incubator_mxnet_tpu_torch import amp
     from incubator_mxnet_tpu_torch import random as mxrandom
@@ -4364,17 +4382,23 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
               f"loss")
         check(vals[-1] < vals[WARMUP], f"{tag}: the loss did not fall")
 
-        # one profiled replay. The card spins ~25 ms first: a replay that
-        # starts on the card as tracing starts can lose its first kernels'
-        # records (seen once in a full run); a short trace is profiled
-        # again, at most three times, and the tries are reported
+        # one profiled replay. The card spins ~25 ms first, and the
+        # recorded replay is the second of the profiler's session, after a
+        # warm-up cycle whose records are dropped: a replay profiled as
+        # tracing starts can lose its first kernels' records (PERF.md §7);
+        # a short trace is profiled again, at most three times, and the
+        # tries are reported
         for tries in range(1, 4):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                torch.cuda._sleep(SPIN_CYCLES)
-                dps[0].step(tokens, labels)
-                torch.cuda.synchronize()
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    torch.cuda._sleep(SPIN_CYCLES)
+                    dps[0].step(tokens, labels)
+                    torch.cuda.synchronize()
+                    prof.step()
             seen, reduce = _profile_counts(prof)
             if seen == DP_STEP_LAUNCHES:
                 break
@@ -4906,6 +4930,520 @@ def phase_times_gelu_dropout(torch, cases):
             f"{c['bwd_bound_ms'] / c['bwd_ms']:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# [nd]: the reference's imperative path (NDArray, mx.np/npx, autograd)
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_dot_pair: chained (1024, 1024) f32 dots, one scalar fetch
+ND_DOT_N, ND_DOT_ITERS, ND_DOT_WARMUP, ND_DOT_ROUNDS = 1024, 100, 10, 3
+ND_HOST_CALLS = 1000
+ND_WARMUP, ND_STEPS, ND_SEED = 1, 5, 123
+# the NDArray path against the module path on the same weights and keys,
+# f32: output and every gradient, max|d| / max|module path|
+ND_TOL = 1e-6
+# the same under AMP: normwise relative, tests/test_torch_amp.py's
+# SCORE_TOL
+ND_AMP_TOL = 2.0 ** -5
+# launches of one NDArray step (forward and backward) of the layer at
+# p = 0.1: K5 at the embedding, the attention output and the FFN hidden,
+# both ways; a K2 call is 3 kernels, a K4b or K3 backward call 2
+ND_LAUNCHES = {"K1": 1, "K2": 3, "K4": 1, "K4b": 2, "K3f": 2, "K3b": 4,
+               "K5": 6, "K6f": 0, "K6b": 0, "fold": 0}
+# the card's result of the autograd semantics against the CPU's
+ND_SEM_TOL = 1e-5
+
+
+def nd_encoder_layer(mx, P, tokens, token_types, valid_length, p, heads):
+    """BERT's embedding sum, LayerNorm (K4), dropout (K5) and one post-LN
+    encoder layer as the reference's `models/bert.py` computes it
+    (`MultiHeadAttention` :72-90 in "bthd" with ``valid_length``, K1;
+    `PositionwiseFFN` :133; the residual sites :164 and :169, K3),
+    composed of ``mx.np``/``mx.npx`` calls on the NDArrays of ``P``,
+    which are named as the port's `BERTEncoder` parameters. ``mx`` is
+    either package: the CPU tests run it on the reference too."""
+    npx = mx.npx
+    x = npx.embedding(tokens, P["word_embed.weight"]) + npx.embedding(
+        token_types, P["token_type_embed.weight"])
+    x = npx.layer_norm(x + P["position_embed"][:tokens.shape[1]],
+                       P["ln.gamma"], P["ln.beta"])
+    x = npx.dropout(x, p=p)
+    n, t, c = x.shape
+    d = c // heads
+    cell = "layers.0."
+
+    def dense(h, name):
+        w = P[cell + name + ".weight"]
+        return npx.fully_connected(h, w, P[cell + name + ".bias"],
+                                   num_hidden=w.shape[0], flatten=False)
+
+    qkv = dense(x, "attention.qkv")
+    q = qkv[..., :c].reshape(n, t, heads, d)
+    k = qkv[..., c:2 * c].reshape(n, t, heads, d)
+    v = qkv[..., 2 * c:].reshape(n, t, heads, d)
+    out = npx.flash_attention(q, k, v, valid_length=valid_length,
+                              layout="bthd")
+    out = npx.dropout(out.reshape(n, t, c), p=p)
+    x = npx.residual_dropout_ln(x, dense(out, "attention.proj"),
+                                P[cell + "ln1.gamma"], P[cell + "ln1.beta"],
+                                p=p)
+    h = npx.activation(dense(x, "ffn.ffn1"), act_type="gelu")
+    h = npx.dropout(h, p=p)
+    return npx.residual_dropout_ln(x, dense(h, "ffn.ffn2"),
+                                   P[cell + "ln2.gamma"],
+                                   P[cell + "ln2.beta"], p=p)
+
+
+def _nd_dot_chain(torch, fn, a, b, iters, warmup):
+    """(ms an op, host us an op) of ``iters`` chained ``fn(acc, b)`` after
+    ``warmup``, synced by one scalar fetch (bench.py:128)."""
+    acc = a
+    for _ in range(warmup):
+        acc = fn(acc, b)
+    float(acc[0, 0])
+    start = time.perf_counter()
+    for _ in range(iters):
+        acc = fn(acc, b)
+    host = time.perf_counter() - start
+    float(acc[0, 0])
+    wall = time.perf_counter() - start
+    return wall / iters * 1e3, host / iters * 1e6
+
+
+def phase_nd_dot(torch, mx):
+    """bench.py's bench_dot_pair on the card: ``mx.np.dot`` through the
+    funnel against ``torch.matmul`` on the same tensors, interleaved
+    rounds, the median of the rounds' ratios."""
+    import numpy as onp
+
+    rng = onp.random.RandomState(0)
+    a = mx.np.array(rng.uniform(-1, 1, (ND_DOT_N, ND_DOT_N))
+                    .astype("float32"))
+    b = mx.np.array((rng.uniform(-1, 1, (ND_DOT_N, ND_DOT_N)) / ND_DOT_N)
+                    .astype("float32"))
+    check(a._data.is_cuda and b._data.is_cuda, "[nd] arrays not on the card")
+    fw, raw, ratios = [], [], []
+    for _ in range(ND_DOT_ROUNDS):
+        f = _nd_dot_chain(torch, mx.np.dot, a, b, ND_DOT_ITERS,
+                          ND_DOT_WARMUP)
+        r = _nd_dot_chain(torch, torch.matmul, a._data, b._data,
+                          ND_DOT_ITERS, ND_DOT_WARMUP)
+        fw.append(f)
+        raw.append(r)
+        ratios.append(f[0] / r[0])
+    out = mx.np.dot(a, b)
+    ref = torch.matmul(a._data, b._data)
+    check(torch.equal(out._data, ref), "[nd] np.dot is not torch.matmul")
+    res = dict(n=ND_DOT_N, iters=ND_DOT_ITERS, rounds=ND_DOT_ROUNDS,
+               np_dot_ms_per_op=min(x[0] for x in fw),
+               matmul_ms_per_op=min(x[0] for x in raw),
+               np_dot_host_us_per_op=min(x[1] for x in fw),
+               matmul_host_us_per_op=min(x[1] for x in raw),
+               ratio_median=sorted(ratios)[len(ratios) // 2],
+               ratios=ratios,
+               bound_ms=bound(3 * ND_DOT_N ** 2 * 4, 2 * ND_DOT_N ** 3,
+                              "float32")[0])
+    log(f"[nd] dot {ND_DOT_N}^2 f32 x {ND_DOT_ITERS} chained, "
+        f"{ND_DOT_ROUNDS} rounds: mx.np.dot {res['np_dot_ms_per_op']:.4f} "
+        f"ms an op (host {res['np_dot_host_us_per_op']:.1f} us), "
+        f"torch.matmul {res['matmul_ms_per_op']:.4f} ms "
+        f"(host {res['matmul_host_us_per_op']:.1f} us), ratio median "
+        f"{res['ratio_median']:.4f} (rounds "
+        + ", ".join(f"{x:.4f}" for x in ratios)
+        + f"); bound {res['bound_ms']:.4f} ms")
+    return res
+
+
+def phase_nd_host(torch, mx):
+    """The funnel's host time an op: ``x + y`` on (8,) NDArrays on the
+    card, ND_HOST_CALLS calls, against ``torch.add`` on their tensors,
+    outside and inside ``autograd.record()`` (x with a gradient buffer)."""
+    x = mx.np.ones((8,))
+    y = mx.np.ones((8,))
+
+    def per_call_us(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(ND_HOST_CALLS):
+            fn()
+        us = (time.perf_counter() - start) / ND_HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    res = dict(nd_add_us=per_call_us(lambda: x + y),
+               torch_add_us=per_call_us(lambda: torch.add(x._data,
+                                                          y._data)))
+    x.attach_grad()
+    with mx.autograd.record():
+        res["nd_add_recorded_us"] = per_call_us(lambda: x + y)
+    xt = x._data
+    res["torch_add_recorded_us"] = per_call_us(lambda: torch.add(xt,
+                                                                 y._data))
+    res["funnel_us"] = res["nd_add_us"] - res["torch_add_us"]
+    log(f"[nd] host us a call, (8,) f32 on the card: x + y "
+        f"{res['nd_add_us']:.2f} (torch.add {res['torch_add_us']:.2f}: "
+        f"the funnel {res['funnel_us']:.2f}); recorded "
+        f"{res['nd_add_recorded_us']:.2f} (torch.add with grad "
+        f"{res['torch_add_recorded_us']:.2f})")
+    return res
+
+
+def _nd_rel(got, ref):
+    """max|d| / max|ref| and normwise relative error, in float64."""
+    g, r = got.double(), ref.double()
+    d = (g - r).abs()
+    return (d.max().item() / max(r.abs().max().item(), 1e-30),
+            (d.norm() / r.norm().clamp_min(1e-30)).item())
+
+
+def phase_nd_bert(torch, dev, mx):
+    """BERT-base's embedding and one encoder layer at 64 x 128 through
+    NDArrays under ``autograd.record()`` and ``.backward()``, against the
+    same computation through the port's `nn.Module` path on the same
+    weights (a seeded `BERTModel`'s): at p = 0 and at p = 0.1 with the same
+    keys drawn in the same order, f32 and under AMP; launches counted by
+    the wrappers; a second ``backward`` over the same graph."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.ndarray import ndarray as ndmod
+
+    model = BERTModel(num_layers=1, max_length=TRAIN_T, dropout=TRAIN_P,
+                      device=dev, seed=0)
+    enc = model.encoder
+    named = dict(enc.named_parameters())
+    P = {n: mx.nd.array(prm.detach().clone()) for n, prm in named.items()}
+    for arr in P.values():
+        arr.attach_grad()
+    g = torch.Generator(device=dev).manual_seed(17)
+    tok = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                        device=dev)
+    typ = torch.randint(0, 2, (TRAIN_B, TRAIN_T), generator=g, device=dev)
+    vl = torch.randint(TRAIN_T // 2, TRAIN_T + 1, (TRAIN_B,), generator=g,
+                       device=dev)
+    gy = torch.randn(TRAIN_B, TRAIN_T, C, generator=g, device=dev)
+    tok_nd, typ_nd, vl_nd, gy_nd = (mx.nd.array(t) for t in
+                                    (tok, typ, vl, gy))
+    keys = []
+    draw = mxrandom.next_key
+
+    def recording_draw():
+        k = draw()
+        keys.append(k)
+        return k
+
+    ops = [0]
+    finish = ndmod._finish
+
+    def counting_finish(*a, **kw):
+        ops[0] += 1
+        return finish(*a, **kw)
+
+    def nd_step(p, twice=False):
+        mxrandom.seed(ND_SEED)
+        with mx.autograd.record():
+            out = nd_encoder_layer(mx, P, tok_nd, typ_nd, vl_nd, p, H)
+            loss = (out * gy_nd).sum()
+        loss.backward()
+        grads = {n: a.grad._data for n, a in P.items()}
+        if twice:
+            loss.backward()
+            return out._data, grads, {n: a.grad._data for n, a in P.items()}
+        return out._data, grads
+
+    def module_step(p):
+        enc.train(p > 0)
+        enc.zero_grad(set_to_none=True)
+        mxrandom.seed(ND_SEED)
+        out = enc(tok, typ, vl)
+        (out * gy).sum().backward()
+        return out.detach(), {n: prm.grad for n, prm in named.items()}
+
+    def timed(step, p):
+        for _ in range(ND_WARMUP):
+            step(p)
+        torch.cuda.synchronize()
+        walls, counts, layouts = [], [], []
+        for _ in range(ND_STEPS):
+            reset_counts()
+            start = time.perf_counter()
+            out = step(p)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - start) * 1e3)
+            counts.append(read_counts())
+            layouts.append(read_layout_counts())
+        return out, walls, counts, layouts
+
+    def med(v):
+        return sorted(v)[len(v) // 2]
+
+    res, launches, by_layout = {}, {}, {}
+
+    def add_launches(counts, layouts):
+        for cn in counts:
+            for k, n in cn.items():
+                launches[k] = launches.get(k, 0) + n
+        for lay in layouts:
+            for k, v in lay.items():
+                for name, n in v.items():
+                    by_layout.setdefault(k, {})
+                    by_layout[k][name] = by_layout[k].get(name, 0) + n
+
+    for mode in ("f32", "amp"):
+        if mode == "amp":
+            amp.init("bfloat16")
+        try:
+            for p in ((0.0, TRAIN_P) if mode == "f32" else (TRAIN_P,)):
+                tag = f"{mode} p={p:g}"
+                mxrandom.next_key = recording_draw
+                ndmod._finish = counting_finish
+                try:
+                    keys.clear()
+                    ops[0] = 0
+                    (o_nd, g_nd), w_nd, c_nd, l_nd = timed(nd_step, p)
+                    nd_keys, nd_ops = list(keys), ops[0]
+                    ndmod._finish = finish
+                    keys.clear()
+                    (o_mod, g_mod), w_mod, c_mod, l_mod = timed(module_step,
+                                                                p)
+                    mod_keys = list(keys)
+                finally:
+                    mxrandom.next_key = draw
+                    ndmod._finish = finish
+                add_launches(c_nd, l_nd)
+                steps = ND_WARMUP + ND_STEPS
+                check(o_nd.shape == (TRAIN_B, TRAIN_T, C)
+                      and bool(torch.isfinite(o_nd.float()).all()),
+                      f"[nd] {tag}: output malformed")
+                check(nd_keys == mod_keys and len(nd_keys) ==
+                      steps * (5 if p > 0 else 0),
+                      f"[nd] {tag}: keys {len(nd_keys)} drawn, module path "
+                      f"{len(mod_keys)}, or not the same")
+                check(all(cn == c_mod[0] for cn in c_nd + c_mod),
+                      f"[nd] {tag}: launches {c_nd} vs module {c_mod}")
+                check(all(lay == l_mod[0] for lay in l_nd + l_mod),
+                      f"[nd] {tag}: launches by layout {l_nd} vs module "
+                      f"{l_mod}")
+                if mode == "f32" and p > 0:
+                    check(c_nd[0] == ND_LAUNCHES,
+                          f"[nd] {tag}: launches {c_nd[0]}, expected "
+                          f"{ND_LAUNCHES}")
+                check(all(c_nd[0][k] > 0 for k in ("K1", "K2", "K3f",
+                                                     "K3b", "K4", "K4b"))
+                      and (p == 0 or c_nd[0]["K5"] > 0),
+                      f"[nd] {tag}: a kernel did not launch: {c_nd[0]}")
+                errs = {"out": _nd_rel(o_nd, o_mod)}
+                for n in named:
+                    check(g_nd[n] is not None and g_mod[n] is not None,
+                          f"[nd] {tag}: no gradient for {n}")
+                    errs[n] = _nd_rel(g_nd[n], g_mod[n])
+                bitwise = torch.equal(o_nd, o_mod) and all(
+                    torch.equal(g_nd[n], g_mod[n]) for n in named)
+                worst = max(e[1 if mode == "amp" else 0]
+                            for e in errs.values())
+                tol = ND_AMP_TOL if mode == "amp" else ND_TOL
+                log(f"[nd] BERT-base embedding + 1 layer {TRAIN_B} x "
+                    f"{TRAIN_T}, {tag}: NDArray path vs module path, "
+                    f"output and {len(named)} gradients: worst "
+                    + ("normwise rel" if mode == "amp" else
+                       "max|d|/max|module|")
+                    + f" {worst:.3e} (tol {tol:g}), bitwise equal "
+                    f"{bitwise}; keys drawn {len(nd_keys)} (equal); "
+                    f"launches a step {c_nd[0]}; funnel calls a step "
+                    f"{nd_ops // steps}; step wall ms median NDArray "
+                    f"{med(w_nd):.3f}, module {med(w_mod):.3f} (NDArray "
+                    + ", ".join(f"{w:.2f}" for w in w_nd) + "; module "
+                    + ", ".join(f"{w:.2f}" for w in w_mod) + ")")
+                check(worst <= tol, f"[nd] {tag}: NDArray path disagrees "
+                      f"with the module path: {worst:.3e}")
+                # the same ops, kernels, layouts, order and keys: the same
+                # bits (an AMP cast the funnel skipped shows here, far
+                # under the tolerance above)
+                check(bitwise, f"[nd] {tag}: NDArray path not bit for bit "
+                      f"the module path's")
+                res[tag] = dict(worst_err=worst, tol=tol, bitwise=bitwise,
+                                keys=len(nd_keys), launches=c_nd[0],
+                                funnel_calls_per_step=nd_ops // steps,
+                                nd_step_ms=w_nd, module_step_ms=w_mod,
+                                nd_median_step_ms=med(w_nd),
+                                module_median_step_ms=med(w_mod))
+        finally:
+            if mode == "amp":
+                amp.deinit()
+    # a second backward over the same graph: the same gradients
+    reset_counts()
+    _, first, second = nd_step(TRAIN_P, twice=True)
+    torch.cuda.synchronize()
+    cn = read_counts()
+    add_launches([cn], [read_layout_counts()])
+    same = all(torch.equal(first[n], second[n]) for n in first)
+    log(f"[nd] backward twice over one graph (p={TRAIN_P:g}): every "
+        f"gradient bit for bit the same {same}; launches {cn}")
+    check(same, "[nd] a second backward gave other gradients")
+    check(cn["K2"] == 2 * ND_LAUNCHES["K2"] and cn["K5"] ==
+          ND_LAUNCHES["K5"] + ND_LAUNCHES["K5"] // 2,
+          f"[nd] backward twice: launches {cn}")
+    res["backward_twice_equal"] = same
+    del model, enc, P
+    return res, launches, by_layout
+
+
+def phase_nd_gelu_dropout(torch, mx):
+    """K6 through NDArrays: ``npx.gelu_dropout(nd, p=0.1, impl="pallas")``
+    on (8192, 3072) under ``record()``, then ``.backward()``, against the
+    torch-tensor call with the same key: output and gradient equal."""
+    from incubator_mxnet_tpu_torch import npx
+    from incubator_mxnet_tpu_torch import random as mxrandom
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    res, launches = {}, {"K6f": 0, "K6b": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.randn(ROWS, FFN, generator=g, device="cuda").to(dtype)
+        x = mx.nd.array(u.clone())
+        x.attach_grad()
+        mxrandom.seed(ND_SEED)
+        reset_counts()
+        with mx.autograd.record():
+            y = npx.gelu_dropout(x, p=TRAIN_P, impl="pallas")
+        y.backward()
+        torch.cuda.synchronize()
+        cn = read_counts()
+        launches["K6f"] += cn["K6f"]
+        launches["K6b"] += cn["K6b"]
+        ut = u.clone().requires_grad_()
+        mxrandom.seed(ND_SEED)
+        yt = npx.gelu_dropout(ut, p=TRAIN_P, impl="pallas", training=True)
+        yt.backward(torch.ones_like(yt))
+        same = torch.equal(y._data, yt.detach()) and torch.equal(
+            x.grad._data, ut.grad)
+        name = _dt(dtype)
+        log(f"[nd] K6 through NDArrays ({ROWS}, {FFN}) {name} p={TRAIN_P:g}:"
+            f" launches {cn['K6f']} forward, {cn['K6b']} backward; output "
+            f"and gradient bit for bit the torch-tensor call's {same}")
+        check(cn["K6f"] == 1 and cn["K6b"] == 1,
+              f"[nd] K6 {name}: launches {cn}")
+        check(same, f"[nd] K6 {name}: NDArray path differs")
+        res[name] = dict(equal=same, launches=cn["K6f"] + cn["K6b"])
+    return res, launches
+
+
+def _nd_semantics(mx, np_seed=4):
+    """The autograd semantics the reference has and torch does not give by
+    itself, on the current device: {name: [numpy arrays]}."""
+    import numpy as onp
+
+    np, ag = mx.np, mx.autograd
+    rng = onp.random.RandomState(np_seed)
+    x0 = rng.uniform(-1, 1, (4, 6)).astype("float32")
+    w0 = rng.uniform(-1, 1, (6, 3)).astype("float32")
+    out = {}
+    x, w = np.array(x0), np.array(w0)
+    x.attach_grad()
+    w.attach_grad()
+    with ag.record():
+        y = np.tanh(np.dot(x, w)).sum()
+    y.backward()
+    first = [x.grad.asnumpy(), w.grad.asnumpy()]
+    y.backward()
+    out["backward_twice"] = first + [x.grad.asnumpy(), w.grad.asnumpy()]
+    x = np.array(x0)
+    x.attach_grad(grad_req="add")
+    with ag.record():
+        y = (np.exp(x) * x).sum()
+    y.backward()
+    once = x.grad.asnumpy()
+    y.backward()
+    out["grad_req_add"] = [once, x.grad.asnumpy()]
+    x = np.array(x0)
+    x.attach_grad()
+    with ag.record():
+        y = (x ** 3).sum()
+        (dx,) = ag.grad([y], [x], create_graph=True)
+        s = dx.sum()
+    s.backward()
+    out["create_graph"] = [dx.asnumpy(), x.grad.asnumpy()]
+
+    class Sigmoid(ag.Function):
+        def forward(self, a):
+            b = 1.0 / (1.0 + np.exp(-a))
+            self.save_for_backward(b)
+            return b
+
+        def backward(self, dy):
+            (b,) = self.saved_tensors
+            return dy * b * (1.0 - b)
+
+    x = np.array(x0)
+    x.attach_grad()
+    with ag.record():
+        y = Sigmoid()(x)
+        z = (y * y).sum()
+    z.backward()
+    out["function"] = [y.asnumpy(), x.grad.asnumpy()]
+    return out, x0
+
+
+def phase_nd_semantics(torch, mx):  # noqa: ARG001
+    """The autograd semantics on the card against the same port code on
+    the CPU, and against their closed forms."""
+    import numpy as onp
+
+    card, x0 = _nd_semantics(mx)
+    with mx.cpu():
+        cpu, _ = _nd_semantics(mx)
+    worst = 0.0
+    for name, arrays in card.items():
+        for a, b in zip(arrays, cpu[name]):
+            check(a.shape == b.shape and onp.isfinite(a).all(),
+                  f"[nd] semantics {name}: malformed")
+            worst = max(worst, float(onp.abs(a - b).max()
+                                     / max(onp.abs(b).max(), 1e-30)))
+    bt = card["backward_twice"]
+    ok_twice = onp.array_equal(bt[0], bt[2]) and onp.array_equal(bt[1], bt[3])
+    add = card["grad_req_add"]
+    ok_add = onp.allclose(add[1], 2 * add[0], rtol=ND_SEM_TOL)
+    cg = card["create_graph"]
+    ok_cg = onp.allclose(cg[0], 3 * x0 ** 2, rtol=ND_SEM_TOL,
+                         atol=ND_SEM_TOL) and onp.allclose(
+        cg[1], 6 * x0, rtol=ND_SEM_TOL, atol=ND_SEM_TOL)
+    sig = 1 / (1 + onp.exp(-x0.astype("float64")))
+    fn = card["function"]
+    ok_fn = onp.allclose(fn[1], 2 * sig * sig * (1 - sig), rtol=1e-4,
+                         atol=1e-6)
+    log(f"[nd] semantics on the card vs the CPU: worst max|d|/max|cpu| "
+        f"{worst:.2e} (tol {ND_SEM_TOL:g}); backward twice equal {ok_twice},"
+        f" grad_req='add' doubles {ok_add}, grad(create_graph=True) "
+        f"3x^2 and 6x {ok_cg}, custom Function's gradient {ok_fn}")
+    check(worst <= ND_SEM_TOL and ok_twice and ok_add and ok_cg and ok_fn,
+          "[nd] autograd semantics on the card")
+    return dict(worst_vs_cpu=worst, backward_twice=ok_twice,
+                grad_req_add=ok_add, create_graph=ok_cg, function=ok_fn)
+
+
+def phase_nd(torch, dev):
+    """[nd]: the reference's imperative front door on the card, NDArray
+    creation on ``cuda:0`` by default (no scope open)."""
+    import incubator_mxnet_tpu_torch as mx
+
+    check(mx.current_device() == mx.gpu(0)
+          and mx.np.zeros((1,))._data.device == dev,
+          "[nd] NDArray creation does not target cuda:0 by default")
+    start = time.perf_counter()
+    res = {"dot": phase_nd_dot(torch, mx), "host": phase_nd_host(torch, mx)}
+    res["bert"], launches, by_layout = phase_nd_bert(torch, dev, mx)
+    torch.cuda.empty_cache()
+    res["gelu_dropout"], gd = phase_nd_gelu_dropout(torch, mx)
+    for k, n in gd.items():
+        launches[k] = launches.get(k, 0) + n
+    res["semantics"] = phase_nd_semantics(torch, mx)
+    mx.waitall()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - start
+    log(f"[nd] launches through NDArrays: {launches}; {res['seconds']:.1f} s")
+    return res, launches, by_layout
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one."""
@@ -5147,6 +5685,15 @@ def main():
     phase_times_gelu_dropout(torch, gd_cases)
     key_times = phase_times_device_keys(torch, fold_case)
     torch.cuda.empty_cache()
+    nd, nd_launches, nd_layouts = phase_nd(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in nd_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in nd_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [nd]'s NDArray launches {nd_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -5180,6 +5727,7 @@ def main():
         name: {"k6": k6, "erff": erff}
         for name, (k6, erff) in gd_accuracy.items()}
     log(json.dumps({"gelu_dropout": gd_path}))
+    log(json.dumps({"nd": nd}))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

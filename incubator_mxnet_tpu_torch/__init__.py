@@ -29,19 +29,29 @@ card; the autoscale advisor and the elastic replica controller resize a
 model's replica set on the card. `telemetry` holds its metrics, spans,
 cost and latency ledgers, SLOs, the timeseries history, burn-rate
 alerts, the goodput ledger, the device-memory census and the program
-ledger; `fault` its chaos seams and retry policies. Entry points run on
-``cuda:0`` unless the caller passes ``device="cpu"``. This package
-imports neither jax nor the reference package.
+ledger; `fault` its chaos seams and retry policies. `NDArray` and its op
+funnel, `np` (`mx.np`), `nd`, `npx` and `autograd` are the reference's
+imperative front door over torch tensors, recorded on torch's autograd
+graph; `npx`'s kernel-bearing ops take NDArrays to the same kernels.
+Entry points run on ``cuda:0`` unless the caller asks for the CPU (``with
+mx.cpu():``, or ``device="cpu"``). This package imports neither jax nor
+the reference package.
 """
-from . import (amp, base, contrib, device, fault, gluon, models, ops,
-               optimizer, parallel, random, serve, telemetry, util)
+from . import (amp, autograd, base, contrib, device, dlpack, fault, gluon,
+               models, ops, optimizer, parallel, random, serve, telemetry,
+               test_utils, util)
+from . import ndarray as nd
+from . import numpy as np
 from . import numpy_extension as npx
 from .base import MXNetError
-from .device import cpu, default_device, gpu, num_gpus
+from .device import (Context, Device, cpu, current_device, default_device,
+                     gpu, num_gpus)
+from .ndarray import NDArray, waitall
 
-__all__ = ["amp", "base", "contrib", "device", "fault", "gluon", "models",
-           "ops", "optimizer", "parallel", "random", "serve", "telemetry",
-           "util", "npx", "MXNetError",
-           "cpu", "gpu", "num_gpus", "default_device"]
+__all__ = ["amp", "autograd", "base", "contrib", "device", "dlpack",
+           "fault", "gluon", "models", "ops", "optimizer", "parallel",
+           "random", "serve", "telemetry", "test_utils", "util", "nd", "np",
+           "npx", "MXNetError", "NDArray", "waitall", "Device", "Context",
+           "current_device", "cpu", "gpu", "num_gpus", "default_device"]
 
 util._apply_env_config()

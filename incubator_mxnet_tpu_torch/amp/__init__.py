@@ -14,12 +14,16 @@ f32 gamma/beta (`ops/layer_norm.py` ``LAYOUTS``, ``RESIDUAL_LAYOUTS``).
 Parameters stay float32: the casts are differentiable, so gradients come
 back float32.
 
-The reference applies the lists inside its op funnel (`apply_op`); the
-port has no funnel yet, so the casts sit where the ported layers call the
-listed ops, through :func:`cast_inputs`: ``gluon.nn.Dense``
-("fully_connected"), ``gluon.nn.Embedding`` ("embedding") and
-``npx.flash_attention``. A list entry whose op is not ported yet has no
-call site. ``torch.autocast`` is not used: its lists are not the
+The reference applies the lists inside its op funnel (`apply_op`), and so
+does the port for NDArrays: `ndarray.apply_op` reads :func:`op_cast_mode`
+for the op's name and casts with :func:`cast_vals` inside the op's
+function, so autograd sees the casts. On the torch-tensor path of the
+port's `nn.Module` layers the casts sit where the layers call the listed
+ops, through :func:`cast_inputs`: ``gluon.nn.Dense`` and
+``npx.fully_connected`` ("fully_connected"), ``gluon.nn.Embedding`` and
+``npx.embedding`` ("embedding") and ``npx.flash_attention``; an npx op
+called with NDArrays leaves the cast to the funnel, so nothing is cast
+twice. ``torch.autocast`` is not used: its lists are not the
 reference's (it runs layer_norm in f32) and it does not reach the port's
 kernels.
 

@@ -332,6 +332,7 @@ def configure_injection(spec):
             sched[seam] = _SeamState(*cfg, rank=rank)
     with _LOCK:
         _SCHEDULE = sched or None
+    _arm_hot_hooks()
     return tuple(sched)
 
 
@@ -349,6 +350,25 @@ def clear_injection():
     global _SCHEDULE
     with _LOCK:
         _SCHEDULE = None
+    _arm_hot_hooks()
+
+
+def _arm_hot_hooks():
+    """The NDArray host->device inlet is the one per-op-hot seam: a
+    module-global hook (`ndarray._FAULT_HOOK`) that stays None unless the
+    schedule names 'h2d', so an is-None check is the whole off-path. The
+    NDArray module arms itself at import from the schedule already set."""
+    import sys
+
+    sched = _SCHEDULE
+    nd_mod = sys.modules.get("incubator_mxnet_tpu_torch.ndarray.ndarray")
+    if nd_mod is not None:
+        nd_mod._FAULT_HOOK = (_h2d_probe
+                              if (sched and "h2d" in sched) else None)
+
+
+def _h2d_probe(nbytes):  # noqa: ARG001 — hook signature shared with telemetry
+    inject_at("h2d")
 
 
 def injection_enabled(seam=None):

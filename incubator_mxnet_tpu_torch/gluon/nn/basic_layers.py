@@ -3,7 +3,8 @@
 Thin `torch.nn.Module`s with MXNet's constructor arguments and parameter
 names. Shapes are given up front (``in_units``, ``in_channels``): the
 port has no deferred shape inference. Parameters are created on
-``device`` (default: :func:`device.default_device`, the card) and
+``device`` (default: :func:`device.current_device`, the card unless a
+``with mx.cpu():`` scope is open) and
 initialised as the reference's defaults do: weights uniform in
 [-0.07, 0.07], biases and betas zero, gammas one. ``reset_parameters``
 takes an optional `torch.Generator` so a model can be made from a seed.

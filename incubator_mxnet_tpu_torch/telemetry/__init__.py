@@ -23,6 +23,9 @@
 - `compiles`: the ledger of every program built (a CUDA-graph capture,
   a new prefill bucket's first run) with recompile forensics.
 
+Importing the package arms the NDArray host->device inlet
+(``mx_h2d_bytes_total``, `registry.add_h2d_bytes`).
+
 Every probe is a dead branch until the plane is armed
 (``MXNET_TELEMETRY=1`` at import, or each module's ``enable()``). The
 profiler-bound modules (roofline, kernel census, the health monitor,
@@ -31,6 +34,12 @@ the fleet plane) are not ported yet (`ROADMAP.md`).
 from . import locks  # noqa: I001  (first: tracked_lock feeds the rest)
 from . import (anatomy, burnrate, capacity, compiles, goodput, hbm,
                registry, slo, timeseries, tracing)
+
+# arm the host->device byte inlet (a counter inc per transfer: rare
+# events, so always on once telemetry is imported)
+from ..ndarray import ndarray as _nd_mod  # noqa: E402
+
+_nd_mod._H2D_HOOK = registry.add_h2d_bytes
 
 __all__ = ["registry", "locks", "tracing", "capacity", "anatomy", "slo",
            "timeseries", "burnrate", "goodput", "hbm", "compiles"]

@@ -29,7 +29,8 @@ import threading
 
 __all__ = ["counter", "gauge", "histogram", "register_collector",
            "register_pull_gauge", "report", "exposition", "reset",
-           "observe_compile", "Counter", "Gauge", "Histogram"]
+           "observe_compile", "add_h2d_bytes", "Counter", "Gauge",
+           "Histogram"]
 
 _LOCK = threading.Lock()
 _METRICS: dict = {}          # (name, labels tuple) -> metric
@@ -218,6 +219,13 @@ def observe_compile(program, seconds):
               "trace+compile wall time per program").observe(seconds)
     histogram("mx_jit_compile_seconds", "trace+compile wall time",
               labels={"program": str(program)[:80]}).observe(seconds)
+
+
+def add_h2d_bytes(n):
+    """Count ``n`` host->device bytes at the NDArray inlet (armed by the
+    `telemetry` package's import)."""
+    counter("mx_h2d_bytes_total",
+            "host->device transfer bytes at the NDArray inlet").inc(n)
 
 
 def register_collector(fn):

@@ -1698,3 +1698,175 @@ def test_release_returns_the_pools_and_the_graphs_memory(dev):
     slots.release()
     torch.cuda.synchronize()
     assert abs(torch.cuda.memory_allocated(dev) - before) <= 1 << 20
+
+
+# ---------------------------------------------------------------------------
+# NDArrays on the card: each kernel-bearing npx op through the funnel, the
+# encoder layer's double backward, the autograd semantics
+# ---------------------------------------------------------------------------
+
+def _nd_chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _nd_counts():
+    return {"K1": fa.launches, "K2": fa.bwd_launches, "K3f": fb.launches,
+            "K3b": fb.bwd_launches, "K4": ln.launches,
+            "K4b": ln.bwd_launches, "K5": dp.launches,
+            "K6f": fb.gd_launches, "K6b": fb.gd_bwd_launches}
+
+
+def _nd_case(mx, op, device):
+    """(output, gradients) of ``op`` on NDArrays made on ``device`` under
+    record(); the same seeded inputs and key on every device."""
+    g = torch.Generator().manual_seed(7)
+    if op == "flash_attention":
+        shapes = [(2, 64, 2, 32)] * 3
+    elif op in ("layer_norm", "dropout", "residual_dropout_ln"):
+        shapes = [(40, 768)] * (2 if op == "residual_dropout_ln" else 1)
+    else:
+        shapes = [(40, 3072)]
+    xs = [mx.nd.array(torch.randn(s, generator=g), device=device)
+          for s in shapes]
+    params = []
+    if op in ("layer_norm", "residual_dropout_ln"):
+        params = [mx.nd.array(1 + 0.2 * torch.randn(768, generator=g),
+                              device=device),
+                  mx.nd.array(0.2 * torch.randn(768, generator=g),
+                              device=device)]
+    for a in xs + params:
+        a.attach_grad()
+    probe = None
+    mx.random.seed(5)
+    with mx.autograd.record():
+        if op == "flash_attention":
+            vl = mx.nd.array(torch.tensor([40, 64]), device=device)
+            out = mx.npx.flash_attention(*xs, valid_length=vl,
+                                         layout="bthd")
+        elif op == "layer_norm":
+            out = mx.npx.layer_norm(xs[0], *params)
+        elif op == "dropout":
+            out = mx.npx.dropout(xs[0], p=0.1)
+        elif op == "residual_dropout_ln":
+            out = mx.npx.residual_dropout_ln(xs[0], xs[1], *params, p=0.1)
+        else:
+            out = mx.npx.gelu_dropout(xs[0], p=0.1)
+        probe = mx.nd.array(torch.randn(out.shape, generator=g),
+                            device=device)
+        loss = (out * probe).sum()
+    loss.backward()
+    return out.asnumpy(), [a.grad.asnumpy() for a in xs + params]
+
+
+ND_KERNELS = {"flash_attention": ("K1", "K2"), "layer_norm": ("K4", "K4b"),
+              "dropout": ("K5",), "residual_dropout_ln": ("K3f", "K3b"),
+              "gelu_dropout": ("K6f", "K6b")}
+
+
+@pytest.mark.parametrize("op", sorted(ND_KERNELS))
+def test_nd_op_launches_its_kernel_and_matches_the_cpu(dev, op):
+    """An npx op on NDArrays on the card launches its kernels, forward and
+    backward, and agrees with the same NDArray code on the CPU (the plain
+    versions; dropout masks bit for bit, the rest within 1e-4 of the
+    largest magnitude)."""
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+
+    before = _nd_counts()
+    got = _nd_case(mx, op, mx.gpu(0))
+    after = _nd_counts()
+    for k in ND_KERNELS[op]:
+        assert after[k] > before[k], (op, k, before, after)
+    want = _nd_case(mx, op, mx.cpu())
+    if op in ("dropout", "gelu_dropout"):
+        assert onp.array_equal(got[0] == 0, want[0] == 0), op   # one mask
+    for g, w in zip([got[0]] + got[1], [want[0]] + want[1]):
+        assert g.shape == w.shape and onp.isfinite(g).all()
+        scale = max(float(onp.abs(w).max()), 1e-30)
+        assert float(onp.abs(g - w).max()) <= 1e-4 * scale, op
+
+
+def test_nd_creation_targets_the_card(dev):
+    import incubator_mxnet_tpu_torch as mx
+
+    assert mx.current_device() == mx.gpu(0)
+    assert mx.np.zeros((2,))._data.device == torch.device("cuda", 0)
+    assert mx.np.array([1.0]).device == mx.gpu(0)
+    with mx.cpu():
+        assert mx.np.arange(3)._data.device.type == "cpu"
+
+
+def test_nd_array_of_cpu_data_lands_on_the_card(dev):
+    """`np.array`/`nd.array` of a CPU tensor, a CPU NDArray or a pickled
+    array land on the current device, ``cuda:0`` with no scope open."""
+    import pickle
+
+    import incubator_mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        x = mx.np.array([1.0, 2.0])
+    for y in (mx.np.array(torch.zeros(2)), mx.nd.array(torch.zeros(2)),
+              mx.np.array(x), pickle.loads(pickle.dumps(x))):
+        assert y._data.device == torch.device("cuda", 0)
+
+
+def test_nd_encoder_layer_backward_twice_on_the_card(dev):
+    """chip_smoke's composition on the card (units 64, 2 heads, p = 0.1):
+    K1, K2, K3 both ways, K4, K4b and K5 launch from NDArray calls, and a
+    second backward over the same graph gives every gradient bit for bit
+    again (the kernels' Functions keep their saved tensors and key)."""
+    import incubator_mxnet_tpu_torch as mx
+
+    layer = _nd_chip_smoke().nd_encoder_layer
+    from incubator_mxnet_tpu_torch.models.bert import BERTEncoder
+
+    enc = BERTEncoder(50, 64, 128, 1, 2, 32, 0.1, device=dev)
+    P = {n: mx.nd.array(p.detach().clone()) for n, p in
+         enc.named_parameters()}
+    for a in P.values():
+        a.attach_grad()
+    g = torch.Generator(device=dev).manual_seed(3)
+    tok = mx.nd.array(torch.randint(0, 50, (2, 32), generator=g,
+                                    device=dev))
+    typ = mx.nd.array(torch.randint(0, 2, (2, 32), generator=g, device=dev))
+    vl = mx.nd.array(torch.tensor([20, 32], device=dev))
+    before = _nd_counts()
+    mx.random.seed(1)
+    with mx.autograd.record():
+        loss = (layer(mx, P, tok, typ, vl, 0.1, 2) ** 2).sum()
+    loss.backward()
+    first = {n: a.grad.asnumpy() for n, a in P.items()}
+    loss.backward()
+    after = _nd_counts()
+    for k in ("K1", "K2", "K3f", "K3b", "K4", "K4b", "K5"):
+        assert after[k] > before[k], (k, before, after)
+    for n, a in P.items():
+        assert (a.grad.asnumpy() == first[n]).all(), n
+
+
+def test_nd_autograd_semantics_on_the_card_match_the_cpu(dev):
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+
+    sem = _nd_chip_smoke()._nd_semantics
+    card, x0 = sem(mx)
+    with mx.cpu():
+        cpu, _ = sem(mx)
+    for name, arrays in card.items():
+        for a, b in zip(arrays, cpu[name]):
+            onp.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                        err_msg=name)
+    bt = card["backward_twice"]
+    assert (bt[0] == bt[2]).all() and (bt[1] == bt[3]).all()
+    onp.testing.assert_allclose(card["grad_req_add"][1],
+                                2 * card["grad_req_add"][0], rtol=1e-6)
+    onp.testing.assert_allclose(card["create_graph"][1], 6 * x0, rtol=1e-5)

@@ -143,3 +143,42 @@ def test_observatory_and_elastic_modules_stand_alone():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+NDARRAY_SLICE = ("base", "device", "autograd", "_tnp", "ndarray",
+                 "ndarray.ndarray", "numpy", "numpy.random", "dlpack",
+                 "test_utils", "numpy_extension")
+
+
+def test_ndarray_slice_modules_stand_alone():
+    """The NDArray slice's modules (NDArray and its funnel, `mx.np`,
+    `mx.nd`, `autograd`, `dlpack`, `test_utils`) import alone in a fresh
+    interpreter, each without loading jax or the reference package; then
+    the reference's imperative user code runs on the CPU, still without
+    them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {NDARRAY_SLICE!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import np, npx, autograd\n"
+        "with mx.cpu():\n"
+        "    x = np.random.uniform(size=(4, 8))\n"
+        "    w = np.array([[0.5] * 3] * 8)\n"
+        "    x.attach_grad()\n"
+        "    with autograd.record():\n"
+        "        y = npx.layer_norm(np.dot(x, w), np.ones(3), np.zeros(3))\n"
+        "        loss = npx.dropout(y, p=0.1).sum()\n"
+        "    loss.backward()\n"
+        "    assert x.grad.shape == (4, 8)\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
