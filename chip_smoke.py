@@ -885,7 +885,8 @@ def phase_small_reference(torch, dev):
         for p in cpu.parameters():
             if p.dim() >= 2:
                 p.normal_(0, 0.35, generator=g)
-    gpu = gpt_tiny(vocab_size=97, max_length=64, dropout=0.0, device=dev)
+    gpu = gpt_tiny(vocab_size=97, max_length=64, dropout=0.0, device=dev,
+                   seed=3)
     gpu.load_state_dict(cpu.state_dict())
     x = torch.randint(0, 97, (2, 12), generator=g)
     got = gpu.generate(x.to(dev), 20).cpu()
@@ -3473,6 +3474,14 @@ def _layout_counters():
             "K3f": fb.layout_launches, "K3b": fb.bwd_layout_launches}
 
 
+def grads_to_none(model):
+    """Every parameter's gradient None (torch's ``zero_grad(set_to_none=
+    True)``): a step then takes the gradients backward writes, with no
+    zeroing pass (gluon's ``zero_grad()`` zeroes them in place)."""
+    for prm in model.parameters():
+        prm.grad = None
+
+
 def reset_counts():
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
@@ -3826,12 +3835,13 @@ def phase_row_bwd_checks(torch, dev):
 def phase_train_step_check(torch, dev):
     """One BERT-base step at full width on the kernels against the same
     step on the plain versions: same weights, same dropout keys."""
+    from incubator_mxnet_tpu_torch import autograd
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from incubator_mxnet_tpu_torch.models.bert import bert_base
 
     models = {impl: bert_base(dropout=TRAIN_P, device=dev, seed=21,
-                              impl=impl).train()
+                              impl=impl)
               for impl in ("auto", "plain")}
     models["plain"].load_state_dict(models["auto"].state_dict())
     g = torch.Generator(device=dev).manual_seed(5)
@@ -3846,7 +3856,8 @@ def phase_train_step_check(torch, dev):
     for impl, model in models.items():
         mxrandom.seed(99)
         reset_counts()
-        loss = ce(model(tok, valid_length=vl)[0], lab).mean()
+        with autograd.train_mode():
+            loss = ce(model(tok, valid_length=vl)[0], lab).mean()
         loss.backward()
         torch.cuda.synchronize()
         out[impl] = (loss.item(), read_counts(),
@@ -3917,7 +3928,7 @@ def phase_train(torch, dev, mode="f32"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch import amp, autograd
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon import Trainer
     from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -3926,8 +3937,8 @@ def phase_train(torch, dev, mode="f32"):
 
     tag = {"f32": "train", "amp": "train amp", "tf32": "train tf32"}[mode]
     model = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
-                      seed=0).train()
-    trainer = Trainer(model.named_parameters(), Adam(learning_rate=TRAIN_LR))
+                      seed=0)
+    trainer = Trainer(model.collect_params(), Adam(learning_rate=TRAIN_LR))
     ce = SoftmaxCrossEntropyLoss()
     g = torch.Generator(device=dev).manual_seed(0)
     tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
@@ -3937,8 +3948,9 @@ def phase_train(torch, dev, mode="f32"):
     n_params = sum(p.numel() for p in model.parameters())
 
     def step(fwd_counts=None):
-        model.zero_grad(set_to_none=True)
-        loss = ce(model(tokens)[0], labels)
+        grads_to_none(model)
+        with autograd.train_mode():
+            loss = ce(model(tokens)[0], labels)
         if fwd_counts is not None:
             fwd_counts.append(read_counts())
         loss.backward(torch.ones_like(loss))
@@ -4770,15 +4782,18 @@ def phase_gelu_dropout_path(torch, dev):
     from incubator_mxnet_tpu_torch import npx
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.initializer import generator_scope
 
     g = torch.Generator(device=dev).manual_seed(31)
     d1 = nn.Dense(FFN, in_units=C, flatten=False, device=dev)
     d2 = nn.Dense(C, in_units=FFN, flatten=False, device=dev)
     for layer in (d1, d2):
-        layer.reset_parameters(generator=g)
+        with generator_scope(g):
+            layer.initialize()
         with torch.no_grad():
-            layer.bias.normal_(0, 0.1, generator=g)
-    params = [d1.weight, d1.bias, d2.weight, d2.bias]
+            layer.bias.data()._data.normal_(0, 0.1, generator=g)
+    params = [p.data()._data for p in (d1.weight, d1.bias, d2.weight,
+                                       d2.bias)]
     names = ["x", "dense1.weight", "dense1.bias", "dense2.weight",
              "dense2.bias"]
     x = torch.randn(TRAIN_B, TRAIN_T, C, generator=g, device=dev)
@@ -5153,10 +5168,10 @@ def phase_nd_bert(torch, dev, mx):
         return out._data, grads
 
     def module_step(p):
-        enc.train(p > 0)
-        enc.zero_grad(set_to_none=True)
+        grads_to_none(enc)
         mxrandom.seed(ND_SEED)
-        out = enc(tok, typ, vl)
+        with mx.autograd.pause(train_mode=p > 0):
+            out = enc(tok, typ, vl)
         (out * gy).sum().backward()
         return out.detach(), {n: prm.grad for n, prm in named.items()}
 
@@ -5444,6 +5459,499 @@ def phase_nd(torch, dev):
     return res, launches, by_layout
 
 
+# ---------------------------------------------------------------------------
+# [gluon]: the reference's gluon training loop on the card
+# ---------------------------------------------------------------------------
+
+# the reference's quick-start training script (the README's), with the
+# package's name changed and nothing else
+VERIFY_SCRIPT = '''
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import np, autograd, gluon
+net = gluon.nn.HybridSequential()
+net.add(gluon.nn.Dense(32, activation="relu"), gluon.nn.Dense(10))
+net.initialize(); net.hybridize()
+trainer = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": 1e-3})
+loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+x, y = np.random.uniform(size=(64, 20)), np.random.randint(0, 10, (64,))
+with autograd.record():
+    loss = loss_fn(net(x), y)
+loss.backward(); trainer.step(64)
+print(float(loss.mean().item()))
+'''
+VERIFY_MORE = 20          # steps after the script's one
+GLUON_STEPS = 3           # gluon-vs-module steps a mode (one of them warm)
+GLUON_HYB_STEPS = 6       # hybridized steps: eager, capturing, replays
+GLUON_DP_STEPS = 5        # DataParallel steps a rule: eager, capture, replays
+GLUON_SEED = 41
+# optimizer rules on the card against the CPU, 3 updates of a (256, 768)
+# weight: 1e-6 of the weight's largest magnitude (f32), 1e-5 where the
+# rule takes a norm
+GLUON_OPT_TOL, GLUON_OPT_NORM_TOL = 1e-6, 1e-5
+GLUON_OPT_CASES = (
+    ("SGD", dict(momentum=0.9)), ("NAG", dict(momentum=0.9)), ("Adam", {}),
+    ("AdamW", {}), ("AdaBelief", {}), ("AdaDelta", {}), ("AdaGrad", {}),
+    ("Adamax", {}), ("DCASGD", dict(momentum=0.9)), ("FTML", {}),
+    ("FTRL", {}), ("LAMB", {}), ("LANS", {}), ("LARS", {}), ("Nadam", {}),
+    ("RMSProp", dict(centered=True)), ("Signum", {}), ("GroupAdaGrad", {}))
+
+
+def phase_gluon_verify(torch, dev):
+    """The verify script as written on cuda:0 (no scope open), then
+    ``VERIFY_MORE`` more steps of its loop: the loss must fall, and the
+    hybridized net captures its recorded signature once."""
+    scope = {}
+    exec(compile(VERIFY_SCRIPT, "verify_script", "exec"), scope)
+    loss, net = scope["loss"], scope["net"]
+    first = float(loss.mean().item())
+    check(loss._data.device == dev and math.isfinite(first),
+          f"[gluon] the verify script's loss is {first} on "
+          f"{loss._data.device}")
+    losses = [first]
+    for _ in range(VERIFY_MORE):
+        with scope["autograd"].record():
+            loss = scope["loss_fn"](net(scope["x"]), scope["y"])
+        loss.backward()
+        scope["trainer"].step(64)
+        losses.append(float(loss.mean().item()))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < first,
+          f"[gluon] the verify script's loss did not fall: {losses}")
+    check(net.captures == 1, f"[gluon] the verify net captured "
+          f"{net.captures} graphs, expected 1 (its recorded signature)")
+    log(f"[gluon] the verify script on {dev}: loss {first:.6f}, after "
+        f"{VERIFY_MORE} more steps {losses[-1]:.6f}; captures "
+        f"{net.captures}")
+    return dict(first_loss=first, last_loss=losses[-1], losses=losses,
+                captures=net.captures)
+
+
+def _gluon_batch(torch, dev, mx):
+    g = torch.Generator(device=dev).manual_seed(GLUON_SEED)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    return tokens, labels, mx.nd.array(tokens), mx.nd.array(labels)
+
+
+def _gluon_pair(mx, dev, p):
+    """A module-path BERT-base (seeded) and a gluon one made with
+    ``initialize()``, the module path's weights carried into it by
+    ``load_dict``."""
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+
+    mod = bert_base(max_length=TRAIN_T, dropout=p, device=dev, seed=0)
+    glu = bert_base(max_length=TRAIN_T, dropout=p, device=dev)
+    mx.random.seed(GLUON_SEED)
+    glu.initialize()
+    glu.load_dict({n: q.data()._data
+                   for n, q in mod.collect_params().items()})
+    return mod, glu
+
+
+def _same_params(a, b):
+    import torch
+
+    return all(torch.equal(x.data()._data, y.data()._data)
+               for x, y in zip(a.collect_params().values(),
+                               b.collect_params().values()))
+
+
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2 - 1] / 2 + v[len(v) // 2] / 2 if len(v) % 2 == 0 \
+        else v[len(v) // 2]
+
+
+def _profiled_ms(torch, step):
+    """Device busy ms of one ``step()`` (torch.profiler, one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return _device_ms(prof)
+
+
+def phase_gluon_bert(torch, dev, mx):
+    """BERT-base at 64 x 128 through the gluon loop (NDArrays, record(),
+    Trainer by name "adam") against the module path on the same weights
+    and keys, in f32 at p = 0 and 0.1 and under AMP: losses, every
+    gradient and every parameter bit for bit, launches per step. Returns
+    (numbers, launches, by layout, the AMP steps' walls by path)."""
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon
+
+    tokens, labels, tok_nd, lab_nd = _gluon_batch(torch, dev, mx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    res, launches, by_layout, walls = {}, {}, {}, {}
+
+    def module_step(model, trainer):
+        grads_to_none(model)
+        with autograd.train_mode():
+            loss = ce(model(tokens)[0], labels)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(TRAIN_B)
+        return loss.detach()
+
+    def gluon_step(net, trainer):
+        with autograd.record():
+            loss = ce(net(tok_nd)[0], lab_nd)
+        loss.backward()
+        trainer.step(TRAIN_B)
+        return loss._data.detach()
+
+    for mode, p in (("f32", 0.0), ("f32", TRAIN_P), ("amp", TRAIN_P)):
+        tag = f"{mode} p={p:g}"
+        mod, glu = _gluon_pair(mx, dev, p)
+        check(_same_params(mod, glu), f"[gluon {tag}] load_dict did not "
+              f"carry the weights")
+        tm = gluon.Trainer(mod.collect_params(), "adam",
+                           {"learning_rate": TRAIN_LR})
+        tg = gluon.Trainer(glu.collect_params(), "adam",
+                           {"learning_rate": TRAIN_LR})
+        if mode == "amp":
+            amp.init("bfloat16")
+        try:
+            exact, counts, layouts, w = True, [], [], {"module": [],
+                                                       "gluon": []}
+            for i in range(GLUON_STEPS):
+                out = {}
+                for path, fn, model, trainer in (
+                        ("module", module_step, mod, tm),
+                        ("gluon", gluon_step, glu, tg)):
+                    mx.random.seed(GLUON_SEED + i)
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss = fn(model, trainer)
+                    torch.cuda.synchronize()
+                    w[path].append((time.perf_counter() - t0) * 1e3)
+                    out[path] = (loss, read_counts(), read_layout_counts(),
+                                 {n: q.data()._data.grad for n, q in
+                                  model.collect_params().items()})
+                (lm, cm, ym, gm), (lg, cg, yg, gg) = out["module"], \
+                    out["gluon"]
+                same_grads = all((gm[n] is None and gg[n] is None)
+                                 or (gm[n] is not None and gg[n] is not None
+                                     and torch.equal(gm[n], gg[n]))
+                                 for n in gm)
+                exact &= (torch.equal(lm, lg) and same_grads
+                          and _same_params(mod, glu))
+                check(cm == cg and ym == yg, f"[gluon {tag}] step {i}: "
+                      f"launches {cg} (by layout {yg}) through the gluon "
+                      f"loop, {cm} ({ym}) on the module path")
+                counts.append(cg)
+                layouts.append(yg)
+        finally:
+            amp.deinit()
+        check(exact, f"[gluon {tag}] the gluon loop is not the module path "
+              f"bit for bit")
+        c = counts[-1]
+        check(c["K1"] == 12 and c["K2"] == 36 and c["K3f"] == 24
+              and c["K3b"] == 48, f"[gluon {tag}] launches a step {c}")
+        if p == TRAIN_P:
+            check(c == STEP_LAUNCHES, f"[gluon {tag}] launches a step {c}, "
+                  f"expected {STEP_LAUNCHES}")
+        if mode == "amp":
+            check(layouts[-1] == AMP_LAYOUT_LAUNCHES, f"[gluon {tag}] "
+                  f"launches by layout {layouts[-1]}")
+            walls["module"], walls["gluon"] = w["module"], w["gluon"]
+        for cn, ly in zip(counts, layouts):
+            for k, n in cn.items():
+                launches[k] = launches.get(k, 0) + n
+            for k, v in ly.items():
+                for name, n in v.items():
+                    by_layout.setdefault(k, {})
+                    by_layout[k][name] = by_layout[k].get(name, 0) + n
+        log(f"[gluon {tag}] BERT-base {TRAIN_B} x {TRAIN_T}, {GLUON_STEPS} "
+            f"steps of the gluon loop (NDArrays, record(), Trainer 'adam') "
+            f"against the module path from the same weights and keys: "
+            f"losses, gradients and parameters bit for bit; launches a "
+            f"step {c}; step ms gluon "
+            + ", ".join(f"{v:.1f}" for v in w["gluon"]) + "; module "
+            + ", ".join(f"{v:.1f}" for v in w["module"]))
+        res[tag] = dict(steps=GLUON_STEPS, bit_for_bit=exact,
+                        launches_per_step=c, gluon_ms=w["gluon"],
+                        module_ms=w["module"])
+        del mod, glu, tm, tg
+        torch.cuda.empty_cache()
+    return res, launches, by_layout, walls
+
+
+def phase_gluon_hybrid(torch, dev, mx):
+    """hybridize() under AMP at p = 0.1: the first call of the recorded
+    signature eager, the second captured, the rest replayed; each step
+    (forward replay, backward replay, Trainer) bit for bit the same
+    function run eagerly with the same key on a twin net; two replays
+    draw different masks; predict-mode calls a signature of their own;
+    one capture a signature; step times and the device's idle share of
+    the gluon loop eager, hybridized and the module path."""
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon
+    from incubator_mxnet_tpu_torch.gluon.block import _CachedGraph
+
+    tokens, labels, tok_nd, lab_nd = _gluon_batch(torch, dev, mx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    _, hyb = _gluon_pair(mx, dev, TRAIN_P)
+    mod, ref = _gluon_pair(mx, dev, TRAIN_P)
+    check(_same_params(hyb, ref), "[gluon hybrid] twins differ")
+    hyb.hybridize(static_alloc=True, static_shape=True)
+    th = gluon.Trainer(hyb.collect_params(), "adam",
+                       {"learning_rate": TRAIN_LR})
+    tr = gluon.Trainer(ref.collect_params(), "adam",
+                       {"learning_rate": TRAIN_LR})
+    twin = _CachedGraph(ref)
+    amp.init("bfloat16")
+    try:
+        exact, walls, keys = True, [], []
+        for i in range(GLUON_HYB_STEPS):
+            mx.random.seed(GLUON_SEED + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with autograd.record():
+                out = hyb(tok_nd)[0]
+                loss = ce(out, lab_nd)
+            loss.backward()
+            th.step(TRAIN_B)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            replayed = [e for e in hyb._cached_graph.entries.values()
+                        if e.fwd is not None]
+            mx.random.seed(GLUON_SEED + i)
+            with autograd.record():
+                if replayed:   # the same captured function, eagerly
+                    k = replayed[0].key.tolist()
+                    keys.append(k)
+                    ro = twin.eager((tok_nd,), k[:2], k[2])[0]
+                else:          # the first call: eager on both
+                    ro = ref(tok_nd)[0]
+                rl = ce(ro, lab_nd)
+            rl.backward()
+            same = torch.equal(loss._data, rl._data) and all(
+                torch.equal(a.data()._data.grad, b.data()._data.grad)
+                for a, b in zip(hyb.collect_params().values(),
+                                ref.collect_params().values())
+                if b.data()._data.grad is not None)
+            tr.step(TRAIN_B)
+            exact &= same and _same_params(hyb, ref)
+        check(exact, "[gluon hybrid] the replayed steps are not the eager "
+              "steps with the same keys bit for bit")
+        check(hyb.captures == 1, f"[gluon hybrid] {hyb.captures} captures "
+              f"for one (mode, signature)")
+        check(len({tuple(k) for k in keys}) == len(keys), "[gluon hybrid] "
+              "replays reused a key")
+        with autograd.record():
+            a = hyb(tok_nd)[0]._data.clone()
+            b = hyb(tok_nd)[0]._data
+        masks_differ = not torch.equal(a, b)
+        check(masks_differ, "[gluon hybrid] two replays drew the same masks")
+        pred = [hyb(tok_nd)[0]._data.clone() for _ in range(3)]
+        want = ref(tok_nd)[0]._data
+        check(all(torch.equal(x, want) for x in pred) and hyb.captures == 2,
+              f"[gluon hybrid] predict-mode calls: {hyb.captures} captures, "
+              f"outputs equal to the eager net's: "
+              f"{[torch.equal(x, want) for x in pred]}")
+        del a, b, pred, want
+        # the device's idle share of each path's step
+        tm = gluon.Trainer(mod.collect_params(), "adam",
+                           {"learning_rate": TRAIN_LR})
+
+        def hyb_step():
+            with autograd.record():
+                loss = ce(hyb(tok_nd)[0], lab_nd)
+            loss.backward()
+            th.step(TRAIN_B)
+
+        def eager_step():
+            with autograd.record():
+                loss = ce(ref(tok_nd)[0], lab_nd)
+            loss.backward()
+            tr.step(TRAIN_B)
+
+        def module_step():
+            grads_to_none(mod)
+            with autograd.train_mode():
+                loss = ce(mod(tokens)[0], labels)
+            loss.backward(torch.ones_like(loss))
+            tm.step(TRAIN_B)
+
+        times = {}
+        for name, fn in (("hybridized", hyb_step), ("eager", eager_step),
+                         ("module", module_step)):
+            fn()
+            w = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                w.append((time.perf_counter() - t0) * 1e3)
+            dev_ms = _profiled_ms(torch, fn)
+            med = _median(w)
+            times[name] = dict(step_ms=w, median_step_ms=med,
+                               device_ms=dev_ms,
+                               idle_share=1 - dev_ms / med
+                               if dev_ms > 0 else None)
+    finally:
+        amp.deinit()
+    for name, t in times.items():
+        idle = t["idle_share"]
+        log(f"[gluon hybrid] AMP {name} step: median {t['median_step_ms']:.2f}"
+            f" ms, device busy {t['device_ms']:.2f} ms -> idle share "
+            + (f"{idle:.4f}" if idle is not None else "not measured"))
+    log(f"[gluon hybrid] AMP p={TRAIN_P:g}: {GLUON_HYB_STEPS} steps (eager, "
+        f"capturing, replays) bit for bit the eager function with the same "
+        f"keys (losses, gradients, parameters); {hyb.captures} captures "
+        f"(record, predict); two replays' masks differ: {masks_differ}; "
+        f"step ms " + ", ".join(f"{v:.1f}" for v in walls))
+    out = dict(steps=GLUON_HYB_STEPS, bit_for_bit=exact,
+               captures=hyb.captures, masks_differ=masks_differ,
+               step_ms=walls, times=times)
+    del hyb, ref, mod, th, tr, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gluon_dp(torch, dev, mx):
+    """`DataParallel` over the HybridBlock BERT-base with the optimizers
+    made by name, "adamw" and "lamb", under AMP: one capture each, the
+    replays bit for bit `_step_fn` run eagerly from the same state and
+    seed on a twin net."""
+    from incubator_mxnet_tpu_torch import amp, gluon, optimizer
+    from incubator_mxnet_tpu_torch.parallel import DataParallel
+
+    tokens, labels, _, _ = _gluon_batch(torch, dev, mx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = {}
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+
+    def net():
+        n = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev)
+        mx.random.seed(GLUON_SEED)
+        n.initialize()
+        return n
+
+    for name in ("adamw", "lamb"):
+        nets = [net() for _ in range(2)]
+        dps = [DataParallel(n, lambda out, y: ce(out[0], y),
+                            optimizer.create(name, learning_rate=TRAIN_LR,
+                                             wd=0.01)) for n in nets]
+        amp.init("bfloat16")
+        try:
+            mx.random.seed(GLUON_SEED)
+            walls, losses = [], []
+            for _ in range(GLUON_DP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(dps[0].step(tokens, labels))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            mx.random.seed(GLUON_SEED)
+            eager = [dps[1]._step_fn(*dps[1]._prepare(), tokens, labels)
+                     for _ in range(GLUON_DP_STEPS)]
+            exact = all(torch.equal(a, b) for a, b in zip(losses, eager)) \
+                and all(torch.equal(a, b) for a, b in
+                        zip(nets[0].parameters(), nets[1].parameters()))
+            dev_ms = _profiled_ms(torch, lambda: dps[0].step(tokens, labels))
+        finally:
+            amp.deinit()
+        check(exact and dps[0].captures == 1 and dps[1].captures == 0,
+              f"[gluon dp {name}] captures {dps[0].captures}, replays bit "
+              f"for bit the eager step: {exact}")
+        vals = [v.item() for v in losses]
+        check(all(math.isfinite(v) for v in vals),
+              f"[gluon dp {name}] losses {vals}")
+        med = _median(walls[2:])
+        res[name] = dict(captures=dps[0].captures, bit_for_bit=exact,
+                         elementwise=dps[0].optimizer.elementwise,
+                         fused_params=len(dps[0]._fused), step_ms=walls,
+                         median_replay_ms=med, device_ms=dev_ms,
+                         idle_share=1 - dev_ms / med if dev_ms > 0 else None,
+                         losses=vals)
+        idle = res[name]["idle_share"]
+        log(f"[gluon dp {name}] DataParallel over the HybridBlock BERT-base "
+            f"(AMP, p={TRAIN_P:g}, optimizer.create({name!r})): 1 capture, "
+            f"{GLUON_DP_STEPS} steps bit for bit `_step_fn` eagerly; "
+            f"small-parameter segment {len(dps[0]._fused)} parameters; "
+            f"replay median {med:.2f} ms, device busy {dev_ms:.2f} ms -> "
+            f"idle share "
+            + (f"{idle:.4f}" if idle is not None else "not measured"))
+        del nets, dps
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_gluon_optimizers(torch, dev, mx):
+    """Each ported rule (SGLD's noise aside) on the card against its CPU
+    result on the same numpy inputs: 3 updates of a (256, 768) weight
+    with rescale_grad, clip_gradient and weight decay."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import optimizer
+
+    r = onp.random.RandomState(GLUON_SEED)
+    w0 = r.normal(0, 1, (256, 768)).astype("float32")
+    grads = [r.normal(0, 1, (256, 768)).astype("float32")
+             for _ in range(3)]
+    res = {}
+    for cls, kw in GLUON_OPT_CASES:
+        out = {}
+        for where in ("cpu", dev):
+            opt = getattr(optimizer, cls)(learning_rate=0.01,
+                                          rescale_grad=0.5,
+                                          clip_gradient=1.5, wd=0.01, **kw)
+            w = torch.from_numpy(w0.copy()).to(where)
+            state = opt.create_state(0, w)
+            for g in grads:
+                opt.update(0, w, torch.from_numpy(g).to(where), state)
+            out[str(where)] = w.cpu()
+        want, got = out["cpu"], out[str(dev)]
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        tol = GLUON_OPT_NORM_TOL if cls in ("LAMB", "LANS", "LARS") \
+            else GLUON_OPT_TOL
+        check(err <= tol, f"[gluon opt] {cls} on the card is {err:.2e} of "
+              f"the weight's largest magnitude from the CPU (tol {tol:g})")
+        res[cls] = err
+    log("[gluon opt] rules on the card vs the CPU, max |d| / max |w| after "
+        "3 updates: " + ", ".join(f"{k} {v:.1e}" for k, v in res.items()))
+    return res
+
+
+def phase_gluon(torch, dev, beside=None):
+    """[gluon]: the reference's gluon loop on the card. ``beside``: the
+    same run's [train amp] and [train dp amp] results, whose AMP step
+    times are printed next to the gluon loop's."""
+    import incubator_mxnet_tpu_torch as mx
+
+    start = time.perf_counter()
+    res = {"verify": phase_gluon_verify(torch, dev)}
+    torch.cuda.empty_cache()
+    res["bert"], launches, by_layout, _ = phase_gluon_bert(torch, dev, mx)
+    res["hybrid"] = phase_gluon_hybrid(torch, dev, mx)
+    res["dp"] = phase_gluon_dp(torch, dev, mx)
+    res["optimizers"] = phase_gluon_optimizers(torch, dev, mx)
+    mx.waitall()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - start
+    t = res["hybrid"]["times"]
+    rows = [(f"gluon loop, {k}", v["median_step_ms"], v["idle_share"])
+            for k, v in t.items()]
+    rows += [(f"gluon DataParallel {k}", v["median_replay_ms"],
+              v["idle_share"]) for k, v in res["dp"].items()]
+    for tag, r in (beside or {}).items():
+        rows.append((tag, r["median_step_ms"], r["idle_share"]))
+    res["amp_step_ms"] = {n: dict(median_ms=m, idle_share=i)
+                          for n, m, i in rows}
+    log("[gluon] AMP step times, BERT-base 64 x 128 (median ms, idle "
+        "share): " + "; ".join(
+            f"{n} {m:.2f} ({'not measured' if i is None else f'{i:.4f}'})"
+            for n, m, i in rows))
+    log(f"[gluon] launches through the gluon loop's eager steps: {launches};"
+        f" {res['seconds']:.1f} s")
+    return res, launches, by_layout
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one."""
@@ -5694,6 +6202,17 @@ def main():
             by_layout.setdefault(k, {})
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [nd]'s NDArray launches {nd_launches}: {launches}")
+    glu, glu_launches, glu_layouts = phase_gluon(
+        torch, dev, {"module path, Trainer ([train amp])": trained_amp,
+                     "module path, DataParallel ([train dp amp])": dp_amp})
+    torch.cuda.empty_cache()
+    for k, n in glu_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in glu_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [gluon]'s launches {glu_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -5728,6 +6247,7 @@ def main():
         for name, (k6, erff) in gd_accuracy.items()}
     log(json.dumps({"gelu_dropout": gd_path}))
     log(json.dumps({"nd": nd}))
+    log(json.dumps({"gluon": glu}))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

@@ -38,8 +38,9 @@ mx.cpu():``, or ``device="cpu"``). This package imports neither jax nor
 the reference package.
 """
 from . import (amp, autograd, base, contrib, device, dlpack, fault, gluon,
-               models, ops, optimizer, parallel, random, serve, telemetry,
-               test_utils, util)
+               initializer, lr_scheduler, models, ops, optimizer, parallel,
+               preemption, random, serve, telemetry, test_utils, util)
+from . import initializer as init
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
@@ -49,7 +50,8 @@ from .device import (Context, Device, cpu, current_device, default_device,
 from .ndarray import NDArray, waitall
 
 __all__ = ["amp", "autograd", "base", "contrib", "device", "dlpack",
-           "fault", "gluon", "models", "ops", "optimizer", "parallel",
+           "fault", "gluon", "initializer", "init", "lr_scheduler", "models",
+           "ops", "optimizer", "parallel", "preemption",
            "random", "serve", "telemetry", "test_utils", "util", "nd", "np",
            "npx", "MXNetError", "NDArray", "waitall", "Device", "Context",
            "current_device", "cpu", "gpu", "num_gpus", "default_device"]

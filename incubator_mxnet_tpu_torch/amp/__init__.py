@@ -17,13 +17,12 @@ back float32.
 The reference applies the lists inside its op funnel (`apply_op`), and so
 does the port for NDArrays: `ndarray.apply_op` reads :func:`op_cast_mode`
 for the op's name and casts with :func:`cast_vals` inside the op's
-function, so autograd sees the casts. On the torch-tensor path of the
-port's `nn.Module` layers the casts sit where the layers call the listed
-ops, through :func:`cast_inputs`: ``gluon.nn.Dense`` and
-``npx.fully_connected`` ("fully_connected"), ``gluon.nn.Embedding`` and
-``npx.embedding`` ("embedding") and ``npx.flash_attention``; an npx op
-called with NDArrays leaves the cast to the funnel, so nothing is cast
-twice. ``torch.autocast`` is not used: its lists are not the
+function, so autograd sees the casts. On the torch-tensor path (a gluon
+block called with tensors) the casts sit in the listed npx ops, through
+:func:`cast_inputs`: ``npx.fully_connected`` ("fully_connected", under
+``gluon.nn.Dense``), ``npx.embedding`` ("embedding", under
+``gluon.nn.Embedding``) and ``npx.flash_attention``; an npx op called
+with NDArrays leaves the cast to the funnel, so nothing is cast twice. ``torch.autocast`` is not used: its lists are not the
 reference's (it runs layer_norm in f32) and it does not reach the port's
 kernels.
 
@@ -37,7 +36,6 @@ from __future__ import annotations
 import threading
 
 import torch
-from torch import nn
 
 from ..base import MXNetError
 from .loss_scaler import LossScaler
@@ -188,57 +186,73 @@ def convert_model(net, target_dtype="bfloat16"):
     """Cast every parameter of ``net`` for low-precision inference
     (reference: amp.convert_model, which calls ``net.cast``)."""
     _check_target(target_dtype)
-    return net.to(getattr(torch, target_dtype))
+    net.cast(target_dtype)
+    return net
 
 
-class _AMPWrapped(nn.Module):
-    """AMP is active for the wrapped forward: LayerNorm keeps f32
-    parameters, so its f32 outputs would promote later bf16-weight
-    products back to f32; the listed ops' casts re-lower those
-    activations. Float32 inputs enter in the target dtype; outputs leave
-    in float32."""
+def _to_target(a, target_dtype):
+    """A float32 input in the target dtype (NDArray or tensor)."""
+    from ..ndarray.ndarray import NDArray
 
-    def __init__(self, inner, target_dtype):
-        super().__init__()
-        self.net = inner
-        self._target = target_dtype
+    if isinstance(a, NDArray):
+        return a.astype(target_dtype) if a._data.dtype == torch.float32 \
+            else a
+    if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+        return a.to(getattr(torch, target_dtype))
+    return a
 
-    def forward(self, *args):
-        dt = getattr(torch, self._target)
-        cast_args = [a.to(dt) if isinstance(a, torch.Tensor)
-                     and a.dtype == torch.float32 else a for a in args]
-        was_active, was_dtype = _STATE.active, _STATE.dtype
-        _STATE.active, _STATE.dtype = True, self._target
-        try:
-            out = self.net(*cast_args)
-        finally:
-            _STATE.active, _STATE.dtype = was_active, was_dtype
-        if isinstance(out, (list, tuple)):
-            return type(out)(o.float() for o in out)
-        return out.float()
+
+def _to_f32(o):
+    from ..ndarray.ndarray import NDArray
+
+    return o.astype("float32") if isinstance(o, NDArray) else o.float()
 
 
 def convert_hybrid_block(net, target_dtype="bfloat16",
                          cast_params_offline=True):
-    """Selective low-precision rewrite of a net (reference:
-    `amp.convert_hybrid_block`): the parameters of its matmul-class layers
-    (Dense, Embedding) are cast to the target dtype, LayerNorm keeps
-    float32 parameters, and the returned module runs ``net`` under AMP
-    with float32 inputs cast on entry and outputs restored to float32."""
+    """Selective low-precision rewrite of a gluon net (reference:
+    `amp.convert_hybrid_block`): walking the block tree, the parameters of
+    its matmul-class layers (Dense, Embedding) are cast to the target
+    dtype, LayerNorm keeps float32 parameters, and the returned
+    HybridBlock runs ``net`` under AMP with float32 inputs cast on entry
+    and outputs restored to float32 (NDArrays or tensors). AMP stays
+    active for the wrapped forward: LayerNorm's f32 outputs would
+    otherwise promote later bf16-weight products back to f32, and the
+    listed ops' casts re-lower those activations."""
     _check_target(target_dtype)
     from ..gluon import nn as gnn
-
-    dt = getattr(torch, target_dtype)
+    from ..gluon.block import HybridBlock
 
     def walk(block):
         if isinstance(block, gnn.LayerNorm):
             return
         if isinstance(block, (gnn.Dense, gnn.Embedding)):
-            block.to(dt)
+            block.cast(target_dtype)
             return
-        for child in block.children():
+        for child in block._children.values():
             walk(child)
 
     if cast_params_offline:
         walk(net)
-    return _AMPWrapped(net, target_dtype)
+
+    class _AMPWrapped(HybridBlock):
+        def __init__(self, inner):
+            super().__init__()
+            self.net = inner
+
+        def forward(self, *args):
+            cast_args = [_to_target(a, target_dtype) for a in args]
+            was_active, was_dtype = _STATE.active, _STATE.dtype
+            _STATE.active, _STATE.dtype = True, target_dtype
+            try:
+                out = self.net(*cast_args)
+            finally:
+                _STATE.active, _STATE.dtype = was_active, was_dtype
+            if isinstance(out, (list, tuple)):
+                return type(out)(_to_f32(o) for o in out)
+            return _to_f32(out)
+
+    wrapped = _AMPWrapped(net)
+    if isinstance(net, HybridBlock) and net._active:
+        wrapped.hybridize()
+    return wrapped

@@ -1,12 +1,18 @@
-"""``mx.gluon`` of the port: the layers, losses and trainer the serving
-and training slices build on.
+"""``mx.gluon`` of the port: Parameters, Blocks and HybridBlocks (with
+``hybridize`` as CUDA graphs), the layers, the losses and the Trainer
+(port of `incubator_mxnet_tpu/gluon/`).
 
-Layers are `torch.nn.Module`s that keep MXNet's parameter names (``weight``,
-``bias``, ``gamma``, ``beta``), so a model's ``named_parameters()`` match
-the reference's ``collect_params()`` names one to one. Torch tensors and
-autograd take the place of the reference's NDArray funnel and tape.
+A Block is a `torch.nn.Module` whose `Parameter`s register their tensors
+under MXNet's names (``weight``, ``bias``, ``gamma``, ``beta``), so
+``named_parameters()`` and ``collect_params()`` agree one to one. A
+block takes NDArrays (the reference's convention) or torch tensors (the
+port's module path); see `gluon.block`.
 """
-from . import loss, nn
+from . import utils
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import Constant, Parameter, ParameterDict
 from .trainer import Trainer
+from . import loss, nn
 
-__all__ = ["loss", "nn", "Trainer"]
+__all__ = ["utils", "Block", "HybridBlock", "SymbolBlock", "Constant",
+           "Parameter", "ParameterDict", "Trainer", "loss", "nn"]

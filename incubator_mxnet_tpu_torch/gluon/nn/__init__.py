@@ -1,5 +1,7 @@
 """Neural-network layers (``mx.gluon.nn``) of the port."""
-from .basic_layers import (Dense, Dropout, Embedding, HybridSequential,
-                           LayerNorm)
+from .activations import *  # noqa: F401,F403
+from .basic_layers import *  # noqa: F401,F403
+from .activations import __all__ as _acts
+from .basic_layers import __all__ as _basic
 
-__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm"]
+__all__ = list(_basic) + list(_acts)

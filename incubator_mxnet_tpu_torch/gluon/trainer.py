@@ -1,46 +1,81 @@
 """Gluon Trainer (port of `incubator_mxnet_tpu/gluon/trainer.py`
-`Trainer` :15: `step` :83, `update` :113, `_update` :119).
+`Trainer` :15: `step` :83, `allreduce_grads` :91, `update` :113,
+`_update` :119, `save_states`/`load_states` :137).
 
 The port runs on one card, so there is no gradient reduction: the
-reference's KVStore step is a no-op there too. Gradients live in each
-parameter's ``.grad`` and accumulate across backward passes, as PyTorch's
-do (MXNet's ``grad_req="add"``); clear them between steps with
-``module.zero_grad()``. A parameter whose ``.grad`` is None (one the loss
-does not reach, such as BERT's NSP head under an MLM-only loss) is
-skipped, as `_update` skips it, with or without ``ignore_stale_grad``
-(the reference's `_update` skips it either way too).
-
-``_scale`` (1.0 until `amp.scale_loss` folds 1 / loss scale into it, and
-again after `amp.unscale`) multiplies into the optimizer's
-``rescale_grad`` at every step, as in the reference (:30, :87, :116).
+reference's KVStore step is a no-op there too ("device", "local" or None;
+another kvstore raises, ROADMAP.md §1 item 9). Parameters are indexed in
+name order, as the reference sorts its dict, so the per-index optimizer
+state lines up with the reference's. A parameter's gradient is its
+tensor's ``.grad`` (`gluon.parameter`): one a backward never reached is
+None and the parameter is skipped, with or without
+``ignore_stale_grad`` (the reference's `_update` skips a parameter
+without a gradient either way too). ``_scale`` (1.0 until
+`amp.scale_loss` folds 1 / loss scale into it, and again after
+`amp.unscale`) multiplies into the optimizer's ``rescale_grad`` at every
+step, as in the reference (:30, :87, :116). The optimizer updates each
+parameter's tensor in place.
 """
 from __future__ import annotations
 
-from ..optimizer import Optimizer
+import pickle
+
+import numpy as onp
+import torch
+
+from .. import optimizer as opt_mod
+from ..base import MXNetError
 
 __all__ = ["Trainer"]
 
+_KVSTORES = ("device", "local", None)
+
 
 class Trainer:
-    """Applies an optimizer to a module's parameters.
+    """Applies an optimizer to a set of Parameters.
 
-    ``params``: ``module.named_parameters()`` (or any iterable of
-    (name, parameter) pairs, or a dict); ``optimizer``: an
-    :class:`~..optimizer.Optimizer` instance, such as ``Adam(...)``. Parameters are indexed in name
-    order, as the reference sorts its ``collect_params()`` dict, so the
-    per-index optimizer state lines up with the reference's.
-    """
+    ``params``: ``block.collect_params()`` (a dict of name → Parameter) or
+    a list of Parameters; ``optimizer``: an :class:`~..optimizer.Optimizer`
+    or its registered name, made with ``optimizer_params``."""
 
-    def __init__(self, params, optimizer):
-        named = dict(params.items() if isinstance(params, dict) else params)
-        self._params = [named[n] for n in sorted(named)]
-        if not isinstance(optimizer, Optimizer):
-            raise TypeError(f"Trainer takes an Optimizer instance (the port "
-                            f"has no optimizer registry yet), got "
-                            f"{optimizer!r}")
-        self._optimizer = optimizer
+    def __init__(self, params, optimizer, optimizer_params=None, kvstore="device",
+                 compression_params=None, update_on_kvstore=None):
+        if kvstore not in _KVSTORES:
+            raise MXNetError(f"Trainer(kvstore={kvstore!r}): the port runs on "
+                             f"one card; other kvstores are not ported "
+                             f"(ROADMAP.md §1 item 9)")
+        if compression_params:
+            raise MXNetError("Trainer(compression_params=...): gradient "
+                             "compression is not ported (ROADMAP.md §1 "
+                             "item 9)")
+        from .parameter import Parameter
+
+        if isinstance(params, dict):
+            param_dict = dict(params)
+        else:
+            params = list(params)
+            if params and not all(isinstance(p, Parameter) for p in params):
+                raise TypeError("Trainer takes collect_params() or a list of "
+                                "gluon Parameters")
+            param_dict = {getattr(p, "name", str(i)): p
+                          for i, p in enumerate(params)}
+        self._params = []
+        self._params_by_name = {}
+        for name, p in sorted(param_dict.items()):
+            p.name = name
+            self._params.append(p)
+            self._params_by_name[name] = p
         self._scale = 1.0
-        self._states = {}  # index -> optimizer state, made at first update
+        optimizer_params = optimizer_params or {}
+        if isinstance(optimizer, opt_mod.Optimizer):
+            self._optimizer = optimizer
+        else:
+            self._optimizer = opt_mod.create(optimizer, **optimizer_params)
+        self._optimizer.param_dict = {p.name: p for p in self._params}
+        self._states = [None] * len(self._params)
+        self._states_initialized = [False] * len(self._params)
+        self._kvstore_type = kvstore
+        self._update_on_kvstore = bool(update_on_kvstore)
 
     @property
     def learning_rate(self):
@@ -53,19 +88,93 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    # -- step ---------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale gradients by 1/batch_size and apply the optimizer (on
-        one card there is nothing to reduce first)."""
-        self.update(batch_size, ignore_stale_grad)
-
-    def update(self, batch_size, ignore_stale_grad=False):  # noqa: ARG002
-        """Apply the optimizer with gradients rescaled by
-        ``_scale``/batch_size. A parameter without a gradient is skipped
-        whatever ``ignore_stale_grad`` says, as in the reference."""
+        """Rescale gradients by ``_scale``/batch_size and apply the
+        optimizer (on one card there is nothing to reduce first)."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def allreduce_grads(self):
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        """One card: nothing to reduce."""
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad=False):  # noqa: ARG002
+        opt = self._optimizer
         for i, p in enumerate(self._params):
-            if not p.requires_grad or p.grad is None:
+            if p.grad_req == "null" or p._data is None:
                 continue
-            if i not in self._states:
-                self._states[i] = self._optimizer.create_state(i, p)
-            self._optimizer.update(i, p, p.grad, self._states[i])
+            t = p._data._data
+            if t.grad is None:
+                continue
+            if not self._states_initialized[i]:
+                self._states[i] = opt.create_state_multi_precision(i, t)
+                self._states_initialized[i] = True
+            opt.idx2name[i] = p.name
+            opt.update_multi_precision(i, p._data, t.grad, self._states[i])
+
+    # -- checkpointing (reference: trainer.py:137,170) ----------------------
+    def save_states(self, fname):
+        """The optimizer states (and the update counts that drive the bias
+        corrections) in the reference's pickle layout, written crash-safe
+        with a checksum sidecar."""
+        from .. import preemption
+
+        payload = []
+        for s in self._states:
+            if s is None:
+                payload.append(None)
+            elif isinstance(s, list):
+                payload.append([x.detach().cpu().numpy() for x in s])
+            else:
+                payload.append(s.detach().cpu().numpy())
+        blob = {"states": payload,
+                "num_update": self._optimizer.num_update,
+                "index_update_count":
+                    dict(self._optimizer._index_update_count)}
+
+        def _write(tmp):
+            with open(tmp, "wb") as f:
+                pickle.dump(blob, f)
+
+        preemption.atomic_save(fname, _write)
+
+    def load_states(self, fname):
+        from .. import preemption
+
+        if preemption.verify_checkpoint(fname) is False:
+            raise MXNetError(
+                f"trainer state file {fname} failed checksum validation "
+                "(truncated or corrupt)")
+        with open(fname, "rb") as f:
+            payload = pickle.load(f)
+
+        def load(x, i):
+            p = self._params[i] if i < len(self._params) else None
+            dev = p._data._data.device if p is not None and \
+                p._data is not None else torch.device("cpu")
+            return torch.from_numpy(onp.array(x)).to(dev)
+
+        states = []
+        for i, s in enumerate(payload["states"]):
+            if s is None:
+                states.append(None)
+            elif isinstance(s, list):
+                states.append([load(x, i) for x in s])
+            elif isinstance(s, tuple):
+                raise MXNetError("load_states: multi-precision states are "
+                                 "not ported (ROADMAP.md §1 item 8)")
+            else:
+                states.append(load(s, i))
+        self._states = states
+        self._states_initialized = [s is not None for s in states]
+        self._optimizer.num_update = payload.get("num_update", 0)
+        self._optimizer._index_update_count = dict(
+            payload.get("index_update_count", {}))

@@ -14,38 +14,48 @@ Every kernel of the reference's training step runs here as a CUDA kernel:
 - dropout after the embedding, on the attention output and on the FFN
   hidden through ``npx.dropout`` (K5).
 
-The Dense layers and the MLM decoder stay ``F.linear``, as the reference
+The blocks are the reference's `HybridBlock`s, line for line, so a model
+takes NDArrays (the reference's training loop: ``autograd.record()``,
+``gluon.Trainer``, ``hybridize()``) or torch tensors (the port's module
+path: `parallel.DataParallel`, the tests), and gives the same numbers
+either way. Dropout applies where ``autograd.is_training()`` says. The
+Dense layers and the MLM decoder stay ``F.linear``, as the reference
 leaves them to XLA. ``impl`` ("auto" | "kernel" | "plain") is handed to
 every kernel's wrapper, so one model on the card can run its plain
 versions, which is what the kernels are held against. Only the flash
 path is ported: ``use_flash=False`` (the reference's ``masked_softmax`` /
-``batch_dot`` path) raises. Parameter names match the reference's
-``collect_params()`` one to one (:meth:`BERTModel.load_jax_params`).
+``batch_dot`` path) raises. Parameter names are the reference's
+``collect_params()`` names (:meth:`BERTModel.load_jax_params`), and
+``named_parameters()`` gives the same.
 
-Entry points (`bert_base`, `bert_small`, `BERTModel`) build on the card
-by default and raise when there is none, unless ``device="cpu"`` is
-passed.
+The port's extras: ``device=`` (parameters are made there; the entry
+points build on the card by default and raise when there is none,
+unless ``device="cpu"`` is passed), ``dtype=``, ``impl=``, and ``seed=``:
+a model made with a seed comes initialised from a `torch.Generator`
+seeded by it (the reference's default initializers, drawn in module
+order); without one it waits for ``initialize()``, as the reference's
+does (seed the draws with ``mx.random.seed``).
 """
 from __future__ import annotations
-
-import torch
-from torch import nn
 
 from .. import numpy_extension as npx
 from ..base import MXNetError
 from ..device import resolve_device
-from ..gluon import nn as gnn
-from .params import initialize, load_params
+from ..gluon import nn
+from ..gluon.block import HybridBlock
+from ..gluon.parameter import Parameter
+from ..numpy_extension import _op
+from .params import init_seeded, load_params
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "BERTEncoder", "BERTModel", "bert_base", "bert_small"]
 
 
 def _dropout(rate, impl):
-    return gnn.Dropout(rate, impl=impl) if rate else None
+    return nn.Dropout(rate, impl=impl) if rate else None
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(HybridBlock):
     """Self-attention through the flash kernels, dropout on the output."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_flash=True,
@@ -59,11 +69,12 @@ class MultiHeadAttention(nn.Module):
                              "ported (use_flash=True)")
         self._units = units
         self._num_heads = num_heads
+        self._use_flash = use_flash
         self._impl = impl
-        self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
-                             dtype=dtype, device=device)
-        self.proj = gnn.Dense(units, flatten=False, in_units=units,
-                              dtype=dtype, device=device)
+        self.qkv = nn.Dense(3 * units, flatten=False, use_bias=True,
+                            in_units=units, dtype=dtype, device=device)
+        self.proj = nn.Dense(units, flatten=False, use_bias=True,
+                             in_units=units, dtype=dtype, device=device)
         self.dropout = _dropout(dropout, impl)
 
     def forward(self, x, mask=None, valid_length=None):
@@ -74,7 +85,9 @@ class MultiHeadAttention(nn.Module):
         H = self._num_heads
         # q, k, v stay views of the projection (the reference's
         # qkv[..., :C] etc.), read in place ("bthd")
-        q, k, v = self.qkv(x).view(N, T, 3, H, C // H).unbind(2)
+        q, k, v = _op("qkv_split",
+                      lambda t: t.view(N, T, 3, H, C // H).unbind(2),
+                      self.qkv(x))
         out = npx.flash_attention(q, k, v, valid_length=valid_length,
                                   layout="bthd", impl=self._impl)
         out = out.reshape(N, T, C)
@@ -83,17 +96,17 @@ class MultiHeadAttention(nn.Module):
         return self.proj(out)
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(HybridBlock):
     """``ffn2(dropout(act(ffn1(x))))``; ``activation="gelu"`` is the tanh
     approximation, as in the reference."""
 
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
                  dtype="float32", device=None, impl="auto"):
         super().__init__()
-        self.ffn1 = gnn.Dense(hidden_size, flatten=False, in_units=units,
-                              dtype=dtype, device=device)
-        self.ffn2 = gnn.Dense(units, flatten=False, in_units=hidden_size,
-                              dtype=dtype, device=device)
+        self.ffn1 = nn.Dense(hidden_size, flatten=False, in_units=units,
+                             dtype=dtype, device=device)
+        self.ffn2 = nn.Dense(units, flatten=False, in_units=hidden_size,
+                             dtype=dtype, device=device)
         self._activation = activation
         self._drop_rate = dropout
         self.dropout = _dropout(dropout, impl)
@@ -105,7 +118,7 @@ class PositionwiseFFN(nn.Module):
         return self.ffn2(h)
 
 
-class TransformerEncoderCell(nn.Module):
+class TransformerEncoderCell(HybridBlock):
     """Transformer block: post-LN (BERT) through the fused residual +
     dropout + LayerNorm op, or pre-LN with ``pre_norm=True``."""
 
@@ -121,16 +134,17 @@ class TransformerEncoderCell(nn.Module):
                                             device=device, impl=impl)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout, dtype=dtype,
                                    device=device, impl=impl)
-        self.ln1 = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                 device=device, impl=impl)
-        self.ln2 = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                 device=device, impl=impl)
+        self.ln1 = nn.LayerNorm(in_channels=units, dtype=dtype,
+                                device=device, impl=impl)
+        self.ln2 = nn.LayerNorm(in_channels=units, dtype=dtype,
+                                device=device, impl=impl)
         self.dropout = _dropout(dropout, impl)
 
     def _residual_ln(self, x, h, ln):
-        return npx.residual_dropout_ln(x, h, ln.gamma, ln.beta,
+        # the post-LN residual site through the fused residual + dropout
+        # + LayerNorm op (K3)
+        return npx.residual_dropout_ln(x, h, ln.gamma.data(), ln.beta.data(),
                                        p=self._drop_rate, eps=ln._epsilon,
-                                       training=self.training,
                                        impl=self._impl)
 
     def forward(self, x, mask=None, valid_length=None):
@@ -144,28 +158,35 @@ class TransformerEncoderCell(nn.Module):
         return self._residual_ln(x, self.ffn(x), self.ln2)
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     """Token (+ token type) + position embedding → LayerNorm → dropout →
     N transformer cells."""
 
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512, dropout=0.1,
-                 type_vocab_size=2, use_flash=True, dtype="float32",
-                 device=None, impl="auto"):
+                 type_vocab_size=2, use_flash=True, seq_shard_axis=None,
+                 batch_shard_axis="dp", dtype="float32", device=None,
+                 impl="auto"):
         super().__init__()
-        device = resolve_device(device)
+        if seq_shard_axis is not None:
+            raise MXNetError("BERTEncoder(seq_shard_axis=...): sequence "
+                             "parallelism is not ported (ROADMAP.md §1 "
+                             "item 9)")
         self._units = units
-        self.word_embed = gnn.Embedding(vocab_size, units, dtype=dtype,
-                                        device=device)
-        self.token_type_embed = gnn.Embedding(type_vocab_size, units,
-                                              dtype=dtype, device=device)
-        self.position_embed = nn.Parameter(torch.empty(
-            (max_length, units), dtype=self.word_embed.weight.dtype,
-            device=device))
-        self.ln = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                device=device, impl=impl)
+        self._use_flash = use_flash
+        self._seq_shard_axis = seq_shard_axis
+        self._batch_shard_axis = batch_shard_axis
+        self.word_embed = nn.Embedding(vocab_size, units, dtype=dtype,
+                                       device=device)
+        self.token_type_embed = nn.Embedding(type_vocab_size, units,
+                                             dtype=dtype, device=device)
+        self.position_embed = Parameter(shape=(max_length, units),
+                                        dtype=dtype, init="normal")
+        self.position_embed._device_hint = device
+        self.ln = nn.LayerNorm(in_channels=units, dtype=dtype, device=device,
+                               impl=impl)
         self.dropout = _dropout(dropout, impl)
-        self.layers = gnn.HybridSequential()
+        self.layers = nn.HybridSequential()
         for _ in range(num_layers):
             self.layers.add(TransformerEncoderCell(
                 units, hidden_size, num_heads, dropout, use_flash=use_flash,
@@ -179,7 +200,8 @@ class BERTEncoder(nn.Module):
         x = self.word_embed(tokens)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
-        x = self.ln(x + self.position_embed[:T])
+        x = x + self.position_embed.data()[:T]
+        x = self.ln(x)
         if self.dropout is not None:
             x = self.dropout(x)
         for cell in self.layers:
@@ -187,42 +209,40 @@ class BERTEncoder(nn.Module):
         return x
 
 
-class BERTModel(nn.Module):
-    """Encoder + MLM and NSP heads (the pretraining objective).
-
-    Weights are initialised as the reference's defaults (uniform ±0.07,
-    position embedding normal with sigma 0.01, LN gamma 1 / beta 0) from a
-    `torch.Generator` seeded by ``seed``.
-    """
+class BERTModel(HybridBlock):
+    """Encoder + MLM and NSP heads (the pretraining objective)."""
 
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512, dropout=0.1,
-                 use_flash=True, dtype="float32", device=None, seed=None,
-                 impl="auto"):
+                 use_flash=True, seq_shard_axis=None, batch_shard_axis="dp",
+                 dtype="float32", device=None, seed=None, impl="auto"):
         super().__init__()
-        device = resolve_device(device)
+        self._device = resolve_device(device)
+        device = self._device
         self.encoder = BERTEncoder(vocab_size, units, hidden_size, num_layers,
                                    num_heads, max_length, dropout,
-                                   use_flash=use_flash, dtype=dtype,
+                                   use_flash=use_flash,
+                                   seq_shard_axis=seq_shard_axis,
+                                   batch_shard_axis=batch_shard_axis,
+                                   dtype=dtype, device=device, impl=impl)
+        self.mlm_dense = nn.Dense(units, flatten=False, activation="tanh",
+                                  in_units=units, dtype=dtype, device=device)
+        self.mlm_ln = nn.LayerNorm(in_channels=units, dtype=dtype,
                                    device=device, impl=impl)
-        self.mlm_dense = gnn.Dense(units, activation="tanh", flatten=False,
-                                   in_units=units, dtype=dtype, device=device)
-        self.mlm_ln = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                    device=device, impl=impl)
-        self.mlm_decoder = gnn.Dense(vocab_size, flatten=False,
-                                     in_units=units, dtype=dtype,
-                                     device=device)
-        self.nsp = gnn.Dense(2, in_units=units, dtype=dtype, device=device)
-        self.initialize(seed)
+        self.mlm_decoder = nn.Dense(vocab_size, flatten=False,
+                                    in_units=units, dtype=dtype,
+                                    device=device)
+        self.nsp = nn.Dense(2, in_units=units, dtype=dtype, device=device)
+        if seed is not None:
+            init_seeded(self, seed)
 
     @property
     def device(self):
-        return self.encoder.position_embed.device
-
-    def initialize(self, seed=None):
-        """(Re)initialise every parameter from a generator seeded by
-        ``seed`` (a fresh nondeterministic seed when None)."""
-        initialize(self, self.device, seed, [self.encoder.position_embed])
+        """The parameters' device (the ``device=`` given until they are
+        made)."""
+        p = self.position_embed if hasattr(self, "position_embed") \
+            else self.encoder.position_embed
+        return p._data._data.device if p._data is not None else self._device
 
     def load_jax_params(self, params):
         """Copy weights from ``{name: numpy array}`` keyed by the
@@ -238,16 +258,18 @@ class BERTModel(nn.Module):
 
 
 def bert_base(vocab_size=30522, max_length=512, dropout=0.1, use_flash=True,
-              dtype="float32", device=None, seed=None, impl="auto"):
+              seq_shard_axis=None, dtype="float32", device=None, seed=None,
+              impl="auto"):
     """BERT-base: 768 units, 12 layers, 12 heads, FFN 3072."""
     return BERTModel(vocab_size, 768, 3072, 12, 12, max_length, dropout,
-                     use_flash=use_flash, dtype=dtype, device=device,
-                     seed=seed, impl=impl)
+                     use_flash=use_flash, seq_shard_axis=seq_shard_axis,
+                     dtype=dtype, device=device, seed=seed, impl=impl)
 
 
 def bert_small(vocab_size=1000, max_length=128, dropout=0.1, use_flash=True,
-               dtype="float32", device=None, seed=None, impl="auto"):
+               seq_shard_axis=None, dtype="float32", device=None, seed=None,
+               impl="auto"):
     """Tiny config for tests: 64 units, 2 layers, 4 heads, FFN 128."""
     return BERTModel(vocab_size, 64, 128, 2, 4, max_length, dropout,
-                     use_flash=use_flash, dtype=dtype, device=device,
-                     seed=seed, impl=impl)
+                     use_flash=use_flash, seq_shard_axis=seq_shard_axis,
+                     dtype=dtype, device=device, seed=seed, impl=impl)

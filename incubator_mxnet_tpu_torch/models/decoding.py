@@ -101,6 +101,12 @@ def bucket_chunk(n, buckets):
     return min(fits)
 
 
+def _t(param):
+    """The tensor of a gluon Parameter (the decoder reads the model's
+    tensors directly, outside any block call)."""
+    return param.data()._data
+
+
 def make_generator(device, seed=None):
     """A `torch.Generator` on ``device``, seeded by ``seed`` (or from a
     fresh nondeterministic seed when ``seed`` is None)."""
@@ -155,18 +161,18 @@ class GPTDecoder:
     # -- math ---------------------------------------------------------------
 
     def _ln(self, x, ln):
-        return layer_norm(x, ln.gamma, ln.beta, eps=ln._epsilon,
+        return layer_norm(x, _t(ln.gamma), _t(ln.beta), eps=ln._epsilon,
                           impl=self._impl)
 
     def _logits(self, x):
         m = self._model
-        return F.linear(self._ln(x, m.ln_f), m.word_embed.weight)
+        return F.linear(self._ln(x, m.ln_f), _t(m.word_embed.weight))
 
     def _ffn(self, x, blk):
         f = blk.ffn
         h = self._ln(x, blk.ln2)
-        return x + F.linear(_gelu(F.linear(h, f.ffn1.weight, f.ffn1.bias)),
-                            f.ffn2.weight, f.ffn2.bias)
+        h = _gelu(F.linear(h, _t(f.ffn1.weight), _t(f.ffn1.bias)))
+        return x + F.linear(h, _t(f.ffn2.weight), _t(f.ffn2.bias))
 
     def _qkv(self, x, blk):
         """(N, T, C) -> q, k, v views (N, T, H, d) of the fused
@@ -174,7 +180,7 @@ class GPTDecoder:
         N, T, C = x.shape
         a = blk.attn
         h = self._ln(x, blk.ln1)
-        qkv = F.linear(h, a.qkv.weight, a.qkv.bias)
+        qkv = F.linear(h, _t(a.qkv.weight), _t(a.qkv.bias))
         return qkv.view(N, T, 3, self._n_heads, C // self._n_heads).unbind(2)
 
     def _prefill_layer(self, x, blk):
@@ -186,7 +192,8 @@ class GPTDecoder:
                             sm_scale=1.0 / math.sqrt(q.shape[-1]),
                             impl=self._impl, layout="bthd")
         a = blk.attn
-        x = x + F.linear(o.reshape(N, T, C), a.proj.weight, a.proj.bias)
+        x = x + F.linear(o.reshape(N, T, C), _t(a.proj.weight),
+                         _t(a.proj.bias))
         return self._ffn(x, blk), k, v
 
     def _decode_layer(self, x, blk, ck, cv, pos):
@@ -206,7 +213,7 @@ class GPTDecoder:
         p = torch.softmax(s, dim=-1).to(cv.dtype)
         o = torch.matmul(p, cv).transpose(1, 2).reshape(N, 1, C)
         a = blk.attn
-        x = x + F.linear(o, a.proj.weight, a.proj.bias)
+        x = x + F.linear(o, _t(a.proj.weight), _t(a.proj.bias))
         return self._ffn(x, blk)
 
     def _prefill(self, tokens, t0, ck, cv):
@@ -215,7 +222,7 @@ class GPTDecoder:
         token."""
         m = self._model
         B = tokens.shape[1]
-        x = m.word_embed.weight[tokens] + m.position_embed[:B]
+        x = _t(m.word_embed.weight)[tokens] + _t(m.position_embed)[:B]
         for layer, blk in enumerate(m.blocks):
             x, k, v = self._prefill_layer(x, blk)
             ck[layer, :, :, :B] = k.transpose(1, 2)
@@ -225,8 +232,8 @@ class GPTDecoder:
     def _step(self, tok, pos, ck, cv):
         """Feed token ids (N,) at position ``pos``; returns logits (N, V)."""
         m = self._model
-        x = (m.word_embed.weight[tok][:, None]
-             + m.position_embed[pos:pos + 1])
+        x = (_t(m.word_embed.weight)[tok][:, None]
+             + _t(m.position_embed)[pos:pos + 1])
         for layer, blk in enumerate(m.blocks):
             x = self._decode_layer(x, blk, ck[layer], cv[layer], pos)
         return self._logits(x[:, 0])
@@ -250,7 +257,7 @@ class GPTDecoder:
         N, H = toks.shape[0], self._n_heads
         shape = (len(m.blocks), N, H, padded.shape[1] + n_new,
                  self._units // H)
-        ck = torch.zeros(shape, dtype=m.position_embed.dtype,
+        ck = torch.zeros(shape, dtype=_t(m.position_embed).dtype,
                          device=m.device)
         return toks, padded, t0, ck, torch.zeros_like(ck)
 

@@ -4,14 +4,19 @@
 Token + position embedding → dropout → N pre-norm blocks (LayerNorm
 kernel, fused QKV projection, causal flash-attention kernel, dropout on
 the attention output and on the tanh-gelu FFN's hidden) → final
-LayerNorm → LM head tied to the token embedding (GPT-2). Dropout (the
-dropout kernel) applies in training mode, as the reference's applies
-under ``autograd.record()``. Parameter names match the reference's
-``collect_params()`` one to one, so :meth:`GPTModel.load_jax_params`
-carries a reference model's weights across.
+LayerNorm → LM head tied to the token embedding (GPT-2). The blocks are
+the reference's `HybridBlock`s and take NDArrays or torch tensors (see
+`models/bert.py`); dropout (the dropout kernel) applies where
+``autograd.is_training()`` says, as the reference's does. Parameter
+names are the reference's ``collect_params()`` names, so
+:meth:`GPTModel.load_jax_params` carries a reference model's weights
+across.
 
-Entry points (`gpt2_small`, `gpt_tiny`, `GPTModel`) build on the card by
-default and raise when there is none, unless ``device="cpu"`` is passed.
+The port's extras are `models/bert.py`'s: ``device=`` (the entry points
+build on the card by default and raise when there is none, unless
+``device="cpu"`` is passed), ``dtype=`` and ``seed=`` (initialised from
+a generator seeded by it; without one the model waits for
+``initialize()``).
 """
 from __future__ import annotations
 
@@ -19,20 +24,24 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from .. import autograd
 from .. import numpy_extension as npx
+from ..base import MXNetError
 from ..device import resolve_device
-from ..gluon import nn as gnn
+from ..gluon import nn
+from ..gluon.block import HybridBlock
+from ..gluon.parameter import Parameter
+from ..numpy_extension import _op
 from .bert import PositionwiseFFN
 from .decoding import GPTDecoder, make_generator, sample
-from .params import initialize, load_params
+from .params import init_seeded, load_params
 
 __all__ = ["CausalSelfAttention", "GPTBlock", "GPTModel", "gpt2_small",
            "gpt_tiny"]
 
 
-class CausalSelfAttention(nn.Module):
+class CausalSelfAttention(HybridBlock):
     def __init__(self, units, num_heads, dropout=0.0, dtype="float32",
                  device=None):
         super().__init__()
@@ -41,18 +50,19 @@ class CausalSelfAttention(nn.Module):
                              f"{num_heads}")
         self._units = units
         self._num_heads = num_heads
-        self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
-                             dtype=dtype, device=device)
-        self.proj = gnn.Dense(units, flatten=False, in_units=units,
-                              dtype=dtype, device=device)
-        self.dropout = gnn.Dropout(dropout) if dropout else None
+        self.qkv = nn.Dense(3 * units, flatten=False, use_bias=True,
+                            in_units=units, dtype=dtype, device=device)
+        self.proj = nn.Dense(units, flatten=False, use_bias=True,
+                             in_units=units, dtype=dtype, device=device)
+        self.dropout = nn.Dropout(dropout) if dropout else None
 
     def forward(self, x):
         N, T, C = x.shape
         H = self._num_heads
         d = C // H
         # q, k, v stay views of the projection, read in place ("bthd")
-        q, k, v = self.qkv(x).view(N, T, 3, H, d).unbind(2)
+        q, k, v = _op("qkv_split",
+                      lambda t: t.view(N, T, 3, H, d).unbind(2), self.qkv(x))
         out = npx.flash_attention(q, k, v, causal=True,
                                   sm_scale=1.0 / math.sqrt(d), layout="bthd")
         out = out.reshape(N, T, C)
@@ -61,18 +71,16 @@ class CausalSelfAttention(nn.Module):
         return self.proj(out)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(HybridBlock):
     """Pre-norm residual block (the GPT-2 layout)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
                  dtype="float32", device=None):
         super().__init__()
-        self.ln1 = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                 device=device)
+        self.ln1 = nn.LayerNorm(in_channels=units, dtype=dtype, device=device)
         self.attn = CausalSelfAttention(units, num_heads, dropout,
                                         dtype=dtype, device=device)
-        self.ln2 = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                 device=device)
+        self.ln2 = nn.LayerNorm(in_channels=units, dtype=dtype, device=device)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout,
                                    activation="gelu", dtype=dtype,
                                    device=device)
@@ -82,45 +90,46 @@ class GPTBlock(nn.Module):
         return x + self.ffn(self.ln2(x))
 
 
-class GPTModel(nn.Module):
-    """Token+position embed → N pre-norm blocks → final LN → tied LM head.
-
-    Weights are initialised as the reference's defaults (uniform ±0.07,
-    position embedding normal with sigma 0.01, LN gamma 1 / beta 0) from a
-    `torch.Generator` seeded by ``seed``.
-    """
+class GPTModel(HybridBlock):
+    """Token+position embed → N pre-norm blocks → final LN → tied LM head."""
 
     def __init__(self, vocab_size, units, hidden_size, num_layers,
-                 num_heads, max_length, dropout=0.1, dtype="float32",
-                 device=None, seed=None):
+                 num_heads, max_length, dropout=0.1, tie_weights=True,
+                 dtype="float32", device=None, seed=None):
         super().__init__()
-        device = resolve_device(device)
-        self.word_embed = gnn.Embedding(vocab_size, units, dtype=dtype,
-                                        device=device)
-        self.position_embed = nn.Parameter(torch.empty(
-            (max_length, units), dtype=self.word_embed.weight.dtype,
-            device=device))
-        self.dropout = gnn.Dropout(dropout) if dropout else None
-        self.blocks = gnn.HybridSequential()
+        if not tie_weights:
+            raise MXNetError("GPTModel(tie_weights=False): the serving "
+                             "engines read the tied head; an untied head is "
+                             "not ported")
+        self._device = resolve_device(device)
+        device = self._device
+        self._tie = tie_weights
+        self.word_embed = nn.Embedding(vocab_size, units, dtype=dtype,
+                                       device=device)
+        self.position_embed = Parameter(shape=(max_length, units),
+                                        dtype=dtype, init="normal")
+        self.position_embed._device_hint = device
+        self.dropout = nn.Dropout(dropout) if dropout else None
+        self.blocks = nn.HybridSequential()
         for _ in range(num_layers):
             self.blocks.add(GPTBlock(units, hidden_size, num_heads, dropout,
                                      dtype=dtype, device=device))
-        self.ln_f = gnn.LayerNorm(in_channels=units, dtype=dtype,
-                                  device=device)
-        self.initialize(seed)
+        self.ln_f = nn.LayerNorm(in_channels=units, dtype=dtype,
+                                 device=device)
+        if seed is not None:
+            init_seeded(self, seed)
 
     @property
     def device(self):
-        return self.position_embed.device
+        """The parameters' device (the ``device=`` given until they are
+        made)."""
+        p = self.position_embed if hasattr(self, "position_embed") \
+            else self.encoder.position_embed
+        return p._data._data.device if p._data is not None else self._device
 
     @property
     def max_length(self):
         return self.position_embed.shape[0]
-
-    def initialize(self, seed=None):
-        """(Re)initialise every parameter from a generator seeded by
-        ``seed`` (a fresh nondeterministic seed when None)."""
-        initialize(self, self.device, seed, [self.position_embed])
 
     def load_jax_params(self, params):
         """Copy weights from ``{name: numpy array}`` keyed by the
@@ -133,11 +142,12 @@ class GPTModel(nn.Module):
         if T > self.max_length:
             raise ValueError(f"sequence length {T} exceeds max_length "
                              f"{self.max_length}")
-        x = self.word_embed(tokens) + self.position_embed[:T]
+        x = self.word_embed(tokens) + self.position_embed.data()[:T]
         if self.dropout is not None:
             x = self.dropout(x)
         x = self.ln_f(self.blocks(x))
-        return F.linear(x, self.word_embed.weight)  # tied: h @ E^T
+        # weight tying (GPT-2): logits = h @ E^T
+        return _op("tied_head", F.linear, x, self.word_embed.weight.data())
 
     @torch.no_grad()
     def generate(self, tokens, max_new_tokens, temperature=1.0, top_k=None,
@@ -148,10 +158,10 @@ class GPTModel(nn.Module):
         ``use_cache=True`` (default) runs the KV-cache decoder
         (`models/decoding.py`): O(T) work per token. ``use_cache=False``
         keeps the full-forward loop (O(T²); the parity reference for
-        tests), run in eval mode: generation never drops out. Greedy
-        unless ``do_sample=True``, which draws from the temperature-scaled,
-        optionally top-k-truncated distribution with a `torch.Generator`
-        seeded by ``seed``.
+        tests), run under ``autograd.predict_mode()``: generation never
+        drops out. Greedy unless ``do_sample=True``, which draws from the
+        temperature-scaled, optionally top-k-truncated distribution with
+        a `torch.Generator` seeded by ``seed``.
         """
         if use_cache:
             return GPTDecoder(self).generate(
@@ -163,15 +173,11 @@ class GPTModel(nn.Module):
                 f"prompt ({out.shape[1]}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_length ({self.max_length})")
         gen = make_generator(self.device, seed) if do_sample else None
-        was_training = self.training
-        self.eval()
-        try:
+        with autograd.predict_mode():
             for _ in range(max_new_tokens):
                 logits = self(out)[:, -1]
                 nxt = sample(logits, gen, temperature, top_k, do_sample)
                 out = torch.cat([out, nxt[:, None]], dim=1)
-        finally:
-            self.train(was_training)
         return out
 
 

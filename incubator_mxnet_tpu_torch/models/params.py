@@ -1,37 +1,39 @@
-"""Parameter helpers the port's models share: seeded initialisation and
-loading weights named as the reference model's ``collect_params()``."""
+"""Parameter helpers the port's models share: initialisation from a seed
+and loading weights named as the reference model's ``collect_params()``."""
 from __future__ import annotations
 
 import numpy as onp
-import torch
 
 from ..base import MXNetError
+from ..initializer import generator_scope
 from .decoding import make_generator
 
-__all__ = ["initialize", "load_params"]
+__all__ = ["init_seeded", "load_params"]
 
 
-def initialize(model, device, seed=None, normal=()):
-    """(Re)initialise every parameter of ``model`` from a generator on
-    ``device`` seeded by ``seed`` (a fresh nondeterministic seed when
-    None): each submodule's ``reset_parameters``, then the parameters in
-    ``normal`` (the position embeddings) from N(0, 0.01), as the
-    reference's ``init="normal"``."""
-    gen = make_generator(device, seed)
+def init_seeded(model, seed):
+    """(Re)initialise every parameter of ``model`` by its initializer from
+    one generator on the model's device seeded by ``seed``: the modules in
+    order, each one's parameters in order, the ``init="normal"`` ones (the
+    position embeddings) last. The draws (and so the weights a seed gives)
+    are those of the port's models before they were gluon Blocks."""
+    names = {id(p): n for n, p in model.collect_params().items()}
+    first, last = [], []
     for mod in model.modules():
-        if mod is not model and hasattr(mod, "reset_parameters"):
-            mod.reset_parameters(generator=gen)
-    with torch.no_grad():
-        for p in normal:
-            p.normal_(0.0, 0.01, generator=gen)
+        for p in getattr(mod, "_reg_params", {}).values():
+            (last if p.init == "normal" else first).append(p)
+    with generator_scope(make_generator(model.device, seed)):
+        for p in first + last:
+            p.name = names[id(p)]
+            p.initialize(force_reinit=True)
 
 
 def load_params(model, params):
     """Copy weights into ``model`` from ``{name: numpy array}`` keyed by
-    the reference model's ``collect_params()`` names, which the port's
-    ``named_parameters()`` match one to one. Raises, copying nothing, on a
-    missing or extra name or a wrong shape."""
-    own = dict(model.named_parameters())
+    the reference model's ``collect_params()`` names (`set_data`: into
+    the existing tensors). Raises, copying nothing, on a missing or extra
+    name or a wrong shape."""
+    own = model.collect_params()
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
@@ -45,6 +47,5 @@ def load_params(model, params):
                 f"load_jax_params: {name} has shape {arr.shape}, the "
                 f"model expects {tuple(own[name].shape)}")
         arrays[name] = arr
-    with torch.no_grad():
-        for name, arr in arrays.items():
-            own[name].copy_(torch.from_numpy(arr))
+    for name, arr in arrays.items():
+        own[name].set_data(arr)

@@ -1,10 +1,11 @@
 """Legacy `mx.nd` namespace (port of `incubator_mxnet_tpu/ndarray/`).
 
 The modern `np`/`npx` namespaces are the primary API (as in MXNet 2.0);
-this module re-exports the NDArray type plus legacy-named ops. Unknown
-attributes forward to the numpy namespace, and the legacy CamelCase
-names to the `npx` ops that are ported. The reference's legacy op long
-tail (`legacy_ops`), functional optimizer updates (`optim_ops`), sparse
+this module re-exports the NDArray type plus legacy-named ops and the
+functional optimizer updates (`optim_ops`: ``nd.sgd_update``,
+``nd.adam_update``, ...). Unknown attributes forward to the numpy
+namespace, and the legacy CamelCase names to the `npx` ops that are
+ported. The reference's legacy op long tail (`legacy_ops`), sparse
 storage (`sparse`) and `contrib` are not ported yet (`ROADMAP.md`).
 """
 from __future__ import annotations
@@ -14,8 +15,10 @@ import os
 import numpy as onp
 
 from ..base import MXNetError
+from . import optim_ops
 from .ndarray import (NDArray, apply_op, apply_op_flat, array, from_jax,  # noqa: F401
                       unwrap_arrays, waitall)
+from .optim_ops import *  # noqa: F401,F403  (functional optimizer updates)
 
 # legacy CamelCase op names -> the ported npx equivalents
 _LEGACY_TO_NPX = {
@@ -231,4 +234,5 @@ def load(fname):
 
 __all__ = ["NDArray", "apply_op", "apply_op_flat", "array", "waitall",
            "add_n", "concat", "Concat", "stack", "swapaxes", "SwapAxis",
-           "take", "norm", "Flatten", "flatten", "save", "load"]
+           "take", "norm", "Flatten", "flatten", "save", "load",
+           "optim_ops"] + list(optim_ops.__all__)

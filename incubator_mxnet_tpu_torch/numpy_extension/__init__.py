@@ -9,13 +9,14 @@ Port of `incubator_mxnet_tpu/numpy_extension/__init__.py` (`gelu` :162,
 Each op takes NDArrays, as the reference's do, and then goes through the
 NDArray funnel (`ndarray.apply_op`): recorded under
 ``autograd.record()``, its inputs cast by AMP as the op's name says. It
-also takes torch tensors, for the port's `nn.Module` layers, and then
-runs on them directly (torch's own grad mode; AMP's casts made here).
+also takes torch tensors, for a gluon block called with tensors (the
+port's module path), and then runs on them directly (torch's own grad
+mode; AMP's casts made here).
 
 Dropout applies where the caller says it is training, or under
 ``autograd.is_training()`` when the caller says nothing
-(``training=None``, the reference's rule; the port's layers pass their
-module's ``training`` flag), or with ``mode="always"``. Each application
+(``training=None``, the reference's rule, which the gluon layers
+follow), or with ``mode="always"``. Each application
 draws a fresh key from :func:`random.next_key`: two host words, or
 inside `random.trace_key_scope` (a `parallel.DataParallel` step) the
 step's next device key, which the kernels read from the card.
@@ -42,15 +43,23 @@ from ..ops import flash_attention as _fa
 from ..ops import fused_block as _fb
 from ..ops import layer_norm as _ln
 
-__all__ = ["gelu", "activation", "fully_connected", "embedding",
-           "layer_norm", "dropout", "flash_attention", "residual_dropout_ln",
+__all__ = ["relu", "sigmoid", "gelu", "activation", "leaky_relu",
+           "log_softmax", "fully_connected", "embedding", "layer_norm",
+           "dropout", "flash_attention", "residual_dropout_ln",
            "gelu_dropout"]
 
 _ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "log_sigmoid": F.logsigmoid,
+    "mish": F.mish,
     # the reference calls jax.nn.gelu, whose default is the tanh
     # approximation; PyTorch's default is the exact erf form
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "tanh": torch.tanh,
+    "silu": F.silu,
 }
 
 
@@ -61,6 +70,23 @@ def _nd(*args):
 
 def _training(training):
     return autograd.is_training() if training is None else training
+
+
+def _op(name, fn, *args):
+    """``fn`` of the tensors of ``args``: through the funnel (recorded,
+    cast by AMP as ``name`` says) when any is an NDArray, else directly on
+    the tensors (None positions pass as they are)."""
+    if _nd(*args):
+        return apply_op(name, fn, args)
+    return fn(*args)
+
+
+def relu(data):
+    return _op("relu", torch.relu, data)
+
+
+def sigmoid(data):
+    return _op("sigmoid", torch.sigmoid, data)
 
 
 def gelu(data, approximate=True):
@@ -75,16 +101,63 @@ def gelu(data, approximate=True):
 
 
 def activation(data, act_type="relu", **kwargs):  # noqa: ARG001
-    """``act_type`` "gelu" (the tanh approximation, as the reference's) or
-    "tanh", the activations the ported models call. The reference's other
-    activations are ported with the slice that first calls them."""
+    """The reference's activation types: relu, sigmoid, tanh, softrelu,
+    softsign, log_sigmoid, mish, gelu (the tanh approximation, as the
+    reference's ``jax.nn.gelu``) and silu."""
     if act_type not in _ACTIVATIONS:
-        raise ValueError(f"activation {act_type!r} is not ported; the port "
-                         f"has {sorted(_ACTIVATIONS)}")
-    if _nd(data):
-        return apply_op(f"activation.{act_type}", _ACTIVATIONS[act_type],
-                        (data,))
-    return _ACTIVATIONS[act_type](data)
+        raise ValueError(f"unknown activation {act_type!r}")
+    return _op(f"activation.{act_type}", _ACTIVATIONS[act_type], data)
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, **kwargs):  # noqa: ARG001
+    """The reference's leaky_relu family: "leaky" (``slope`` below 0),
+    "elu" (alpha ``slope``), "selu", "gelu" (the erf form), "prelu"
+    (learned ``gamma``, broadcast over axis 1) and "rrelu" (a slope drawn
+    uniformly from [lower_bound, upper_bound] per element in training,
+    their mean otherwise)."""
+    if act_type == "leaky":
+        return _op("leaky_relu",
+                      lambda x: torch.where(x >= 0, x, slope * x), data)
+    if act_type == "elu":
+        return _op("elu", lambda x: F.elu(x, alpha=slope), data)
+    if act_type == "selu":
+        return _op("selu", F.selu, data)
+    if act_type == "gelu":
+        return _op("gelu", lambda x: F.gelu(x, approximate="none"), data)
+    if act_type == "prelu":
+        def f(x, g):
+            if g.dim() == 1 and x.dim() > 2:
+                g = g.reshape((1, -1) + (1,) * (x.dim() - 2))
+            return torch.where(x >= 0, x, g * x)
+
+        return _op("prelu", f, data, gamma)
+    if act_type == "rrelu":
+        if autograd.is_training():
+            seed = _random.host_seed()
+
+            def f(x):
+                gen = torch.Generator(device=x.device)
+                gen.manual_seed(seed)
+                u = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                u.uniform_(lower_bound, upper_bound, generator=gen)
+                return torch.where(x >= 0, x, u * x)
+
+            return _op("rrelu", f, data)
+        mid = (lower_bound + upper_bound) / 2.0
+        return _op("rrelu", lambda x: torch.where(x >= 0, x, mid * x),
+                      data)
+    raise ValueError(f"unknown leaky_relu act_type {act_type!r}")
+
+
+def log_softmax(data, axis=-1, temperature=None, dtype=None, **kwargs):  # noqa: ARG001
+    def f(x):
+        if temperature is not None and temperature != 1.0:
+            x = x / temperature
+        out = torch.log_softmax(x, dim=axis)
+        return out.to(canonical_dtype(dtype)) if dtype else out
+
+    return _op("log_softmax", f, data)
 
 
 def _fc(x, w, b, flatten):

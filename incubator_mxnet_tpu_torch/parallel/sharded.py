@@ -51,7 +51,9 @@ import weakref
 
 import torch
 
+from .. import _graphs
 from .. import amp
+from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
 from ..telemetry import compiles as _compiles
@@ -60,7 +62,7 @@ from ..telemetry import hbm as _hbm
 __all__ = ["DataParallel"]
 
 _SMALL = 1 << 14
-_EAGER_STEPS = 1  # a signature's eager steps before its capture
+_EAGER_STEPS = _graphs.EAGER_CALLS  # a signature's eager steps before its capture
 _NOT_PORTED = "is not ported yet (ROADMAP.md §1 item 9: the mesh paths)"
 
 
@@ -84,24 +86,6 @@ def _fused_indices(params, states, optimizer):
     return idx if len(idx) >= 2 else []
 
 
-class _TrainMode:
-    """Every module of ``net`` in training mode for the step, as the
-    reference's ``autograd.pause(train_mode=True)``; each mode restored
-    after."""
-
-    def __init__(self, net):
-        self._net = net
-
-    def __enter__(self):
-        self._modes = [(m, m.training) for m in self._net.modules()]
-        self._net.train(True)
-
-    def __exit__(self, *exc):
-        for m, mode in self._modes:
-            m.training = mode
-        return False
-
-
 def _build_pure_step(net, loss_fn, optimizer, states):
     """``(step, update, params, fused)``. ``step(t, lr, wd, base_key, x, y)
     -> loss`` is the reference's pure step with the parameters and
@@ -123,7 +107,7 @@ def _build_pure_step(net, loss_fn, optimizer, states):
 
     def step(t, lr, wd, base_key, x, y):
         # the step differentiates whatever autograd mode its caller is in
-        with torch.enable_grad(), _TrainMode(net), \
+        with torch.enable_grad(), autograd.train_mode(), \
                 _random.trace_key_scope(base_key, t):
             loss = loss_fn(net(x), y).mean()
             grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -190,7 +174,7 @@ class DataParallel:
         self._captures: dict = {}
         self._eager_sigs = set()        # CPU: input signatures stepped
         self.captures = 0
-        self._side = None
+        self._side = _graphs.SideStream()
         self._register_hbm_owners()
 
     def _register_hbm_owners(self):
@@ -274,27 +258,19 @@ class DataParallel:
 
     def _eager(self, cap, args):
         """A warm-up step: the step function on a side stream."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            loss = self._step_fn(*args, cap.x, cap.y).clone()
-        main.wait_stream(self._side)
-        return loss
+        return self._side.run(self.device, lambda: self._step_fn(
+            *args, cap.x, cap.y).clone())
 
     def _capture(self, cap, args):
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
-                cap.loss = self._step_fn(*args, cap.x, cap.y)
-        except Exception as e:
+            cap.graph, cap.loss = _graphs.capture(
+                lambda: self._step_fn(*args, cap.x, cap.y),
+                "DataParallel: the step")
+        except MXNetError:
             self.optimizer.num_update -= 1
             cap.calls -= 1
-            raise MXNetError(f"DataParallel: capturing the step as a CUDA "
-                             f"graph failed: {e}") from e
-        cap.graph = graph
+            raise
         self.captures += 1
         self._ledger(t0, cap.x, cap.y)
 
@@ -306,8 +282,9 @@ class DataParallel:
             _compiles.record_compile("train.DataParallel.step",
                                      time.perf_counter() - t0, args=(x, y),
                                      donate=(0, 2, 3))
-    def rebuild(self, *args, **kwargs):  # noqa: ARG002
+    def rebuild(self, mesh=None, data_axis=None, param_shardings=None):  # noqa: ARG002
         raise MXNetError(f"DataParallel.rebuild {_NOT_PORTED}")
 
-    def shardcheck_report(self, *args, **kwargs):  # noqa: ARG002
+    def shardcheck_report(self, x=None, y=None, hbm_budget_gb=None,  # noqa: ARG002
+                          mode=None, compile=True):  # noqa: A002,ARG002
         raise MXNetError(f"DataParallel.shardcheck_report {_NOT_PORTED}")

@@ -23,7 +23,7 @@ import torch
 
 from .ops._philox import DeviceKey
 
-__all__ = ["seed", "seed_epoch", "next_key", "trace_key_scope"]
+__all__ = ["seed", "seed_epoch", "next_key", "host_seed", "trace_key_scope"]
 
 _LOCK = threading.Lock()
 _GEN = torch.Generator(device="cpu")
@@ -63,10 +63,22 @@ def next_key():
     `ops._philox.DeviceKey`."""
     if _FRAMES.stack:
         return _FRAMES.stack[-1].next_site()
+    return _host_words()
+
+
+def _host_words():
     with _LOCK:
         words = torch.randint(0, 2 ** 32, (2,), generator=_GEN,
                               dtype=torch.int64)
     return int(words[0]), int(words[1])
+
+
+def host_seed() -> int:
+    """A seed for a `torch.Generator` from the next two host words of the
+    key stream (inside a `trace_key_scope` too): initializers draw from
+    it, so ``seed(s)`` reproduces an ``initialize()``."""
+    w0, w1 = _host_words()
+    return ((w0 << 32) | w1) & ((1 << 63) - 1)
 
 
 class trace_key_scope:

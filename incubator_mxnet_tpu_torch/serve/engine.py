@@ -99,7 +99,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..contrib.quantization import quantize_symmetric
-from ..models.decoding import (GPTDecoder, NgramProposer, bucket_chunk,
+from ..models.decoding import (GPTDecoder, NgramProposer, _t, bucket_chunk,
                                chunk_buckets)
 from ..ops import _philox
 from ..telemetry import compiles as _compiles
@@ -598,7 +598,7 @@ class SlotDecoder:
             return (planes(shape, torch.int8), planes(shape, torch.int8),
                     planes(shape[:2], torch.float32),
                     planes(shape[:2], torch.float32))
-        dtype = blocks[0].attn.qkv.weight.dtype
+        dtype = _t(blocks[0].attn.qkv.weight).dtype
         return planes(shape, dtype), planes(shape, dtype), None, None
 
     def _layer_pools(self, draft=False):
@@ -708,7 +708,7 @@ class SlotDecoder:
             # int8 K and V slabs plus two f32 per-(page, head) scales
             per_layer = 2 * H * self.page_tokens * d + 2 * H * 4
         else:
-            itemsize = blocks[0].attn.qkv.weight.element_size()
+            itemsize = _t(blocks[0].attn.qkv.weight).element_size()
             per_layer = 2 * H * self.page_tokens * d * itemsize
         return len(blocks) * per_layer
 
@@ -858,7 +858,7 @@ class SlotDecoder:
         p = torch.softmax(s, dim=-1).to(vv.dtype)
         o = torch.matmul(p, vv).transpose(1, 2).reshape(S, T, H * d)
         a = blk.attn
-        o = F.linear(o.to(x.dtype), a.proj.weight, a.proj.bias)
+        o = F.linear(o.to(x.dtype), _t(a.proj.weight), _t(a.proj.bias))
         return dec._ffn(x + o, blk)
 
     # -- sampling -----------------------------------------------------------
@@ -892,8 +892,9 @@ class SlotDecoder:
         pt, PT = self.page_tokens, self.view_tokens
         dev = tokens.device
         qpos = t_start + torch.arange(C, device=dev)
-        x = (m.word_embed.weight[tokens]
-             + m.position_embed[qpos.clamp(max=m.max_length - 1)])[None]
+        x = (_t(m.word_embed.weight)[tokens]
+             + _t(m.position_embed)[qpos.clamp(
+                 max=m.max_length - 1)])[None]
         # key j is visible to chunk row i iff j <= t_start + i: the prefix
         # pages, in-chunk causality, and no stale, trash or padding page
         mask = torch.arange(PT, device=dev)[None, :] <= qpos[:, None]
@@ -930,7 +931,8 @@ class SlotDecoder:
             o = torch.matmul(torch.softmax(s, dim=-1), vv)   # (H, C, d)
             o = o.transpose(0, 1).reshape(1, C, H * d).to(x.dtype)
             a = blk.attn
-            x = dec._ffn(x + F.linear(o, a.proj.weight, a.proj.bias), blk)
+            x = dec._ffn(x + F.linear(o, _t(a.proj.weight),
+                                      _t(a.proj.bias)), blk)
         # the chunk's last real row (padding is causally after it)
         logits = dec._logits(x[:, t_len - 1])                # (1, V)
         return self._sample_slots(logits, key, temperature)
@@ -1020,7 +1022,8 @@ class SlotDecoder:
         last_tok, pos = step[:S], step[S:2 * S]
         active = step[2 * S:3 * S] != 0
         key = step[3 * S:]
-        x = (m.word_embed.weight[last_tok] + m.position_embed[pos])[:, None]
+        x = (_t(m.word_embed.weight)[last_tok]
+             + _t(m.position_embed)[pos])[:, None]
         # each slot writes at its own page and offset; free and
         # prefilling slots are redirected to the trash page
         rows = torch.arange(S, device=pos.device)
@@ -1057,8 +1060,8 @@ class SlotDecoder:
         toks, pos, active, limit = self._spec_inputs(spec)
         dev = toks.device
         p_abs = pos[:, None] + torch.arange(K1, device=dev)      # (S, K1)
-        x = (m.word_embed.weight[toks]
-             + m.position_embed[p_abs.clamp(0, m.max_length - 1)])
+        x = (_t(m.word_embed.weight)[toks]
+             + _t(m.position_embed)[p_abs.clamp(0, m.max_length - 1)])
         writable = active[:, None] & (p_abs <= limit[:, None])
         page = table.gather(1, (p_abs // pt).clamp(0, table.shape[1] - 1))
         wpage = torch.where(writable, page, 0)
@@ -1088,8 +1091,9 @@ class SlotDecoder:
             page = table[rows, (p_i // pt).clamp(0, table.shape[1] - 1)]
             wpage = torch.where(active & (p_i <= limit), page, 0)[:, None]
             mask = (view[None, :] <= p_i[:, None])[:, None]
-            x = (m.word_embed.weight[cur]
-                 + m.position_embed[p_i.clamp(0, m.max_length - 1)])[:, None]
+            x = (_t(m.word_embed.weight)[cur]
+                 + _t(m.position_embed)[p_i.clamp(
+                     0, m.max_length - 1)])[:, None]
             for blk, pools in zip(m.blocks, self._layer_pools(draft=True)):
                 x = self._slot_layer(dec, blk, x, pools, table, wpage,
                                      (p_i % pt)[:, None], mask)

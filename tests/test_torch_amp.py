@@ -271,7 +271,7 @@ def test_adam_step_matches_jax_amp_trainer(ref):
     _amp_step(tm)
     grads = {n: p.grad.clone() for n, p in tm.named_parameters()
              if p.grad is not None}
-    Trainer(tm.named_parameters(), Adam(learning_rate=LR)).step(3)
+    Trainer(tm.collect_params(), Adam(learning_rate=LR)).step(3)
     agree = total = 0
     for name, p in tm.named_parameters():
         got, want = p.detach().numpy(), ref["stepped"][name]
@@ -298,7 +298,7 @@ def test_scaled_step_equals_unscaled_step(ref):
     stepped, scales = [], []
     for scaled in (False, True):
         tm = _port(ref["params"])
-        trainer = Trainer(tm.named_parameters(), Adam(learning_rate=LR))
+        trainer = Trainer(tm.collect_params(), Adam(learning_rate=LR))
         tok, lab, vl = _data()
         amp.init("bfloat16")
         try:

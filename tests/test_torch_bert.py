@@ -21,6 +21,7 @@ import torch
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu import autograd, gluon, np
 from incubator_mxnet_tpu.models.bert import bert_small as jax_bert_small
+from incubator_mxnet_tpu_torch import autograd as tautograd
 from incubator_mxnet_tpu_torch import random as mxrandom
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.gluon import Trainer
@@ -128,7 +129,7 @@ def test_adam_step_matches_jax_trainer(ref, with_vl):
     params, cases = ref
     tm = _port(params).train()
     _step(tm, with_vl)
-    trainer = Trainer(tm.named_parameters(), Adam(learning_rate=LR))
+    trainer = Trainer(tm.collect_params(), Adam(learning_rate=LR))
     trainer.step(3)
     c = cases[with_vl]
     for name, p in tm.named_parameters():
@@ -150,9 +151,10 @@ def test_dropout_is_seeded_and_reaches_the_gradients(ref):
     params, _ = ref
 
     def run(seed):
-        tm = _port(params, dropout=0.1).train()
+        tm = _port(params, dropout=0.1)
         mxrandom.seed(seed)
-        _, _, loss = _step(tm, True)
+        with tautograd.train_mode():
+            _, _, loss = _step(tm, True)
         return loss.detach(), [p.grad for p in tm.parameters()]
 
     la, ga = run(7)
@@ -164,7 +166,7 @@ def test_dropout_is_seeded_and_reaches_the_gradients(ref):
     assert not torch.equal(la, lc)
     tok, _, vl = _data(1)
     with torch.no_grad():
-        a = _port(params, dropout=0.1).eval()(torch.from_numpy(tok).long())
+        a = _port(params, dropout=0.1)(torch.from_numpy(tok).long())
         b = _port(params, dropout=0.0)(torch.from_numpy(tok).long())
     assert torch.equal(a[0], b[0])
 
@@ -175,12 +177,13 @@ def test_trainer_skips_parameters_without_gradient_and_sets_lr(ref):
     _step(tm, True)
     with pytest.raises(TypeError):
         Trainer(tm.named_parameters(), "adam")
-    trainer = Trainer(tm.named_parameters(), Adam(learning_rate=0.5))
+    trainer = Trainer(tm.collect_params(), Adam(learning_rate=0.5))
     assert trainer.learning_rate == 0.5
     trainer.set_learning_rate(LR)
-    before = tm.nsp.weight.detach().clone()
+    nsp = tm.nsp.weight.data()._data
+    before = nsp.detach().clone()
     trainer.step(3)
-    assert tm.nsp.weight.grad is None and torch.equal(tm.nsp.weight, before)
+    assert nsp.grad is None and torch.equal(nsp, before)
     assert trainer.optimizer.num_update == 1
 
 
@@ -211,7 +214,7 @@ def test_trainer_step_takes_ignore_stale_grad(ref):
     for call in ("step", "update"):
         tm = _port(params).train()
         _step(tm, False)
-        tt = Trainer(tm.named_parameters(), Adam(learning_rate=LR))
+        tt = Trainer(tm.collect_params(), Adam(learning_rate=LR))
         getattr(tt, call)(3, ignore_stale_grad=True)
         g = cases[False]["grads"]
         for name, p in tm.named_parameters():

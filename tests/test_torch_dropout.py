@@ -21,7 +21,7 @@ import numpy as onp
 import pytest
 import torch
 
-from incubator_mxnet_tpu_torch import npx
+from incubator_mxnet_tpu_torch import autograd, npx
 from incubator_mxnet_tpu_torch import random as mxrandom
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.gluon import nn as gnn
@@ -155,8 +155,9 @@ def test_npx_and_gluon_dropout_apply_only_in_training():
     assert torch.equal(y, npx.dropout(x, p=0.5, mode="always"))
     layer = gnn.Dropout(0.5)
     mxrandom.seed(1)
-    assert torch.equal(layer(x), y)                        # training mode
-    assert layer.eval()(x) is x
+    with autograd.train_mode():
+        assert torch.equal(layer(x), y)                    # training mode
+    assert layer(x) is x
     with pytest.raises(ValueError):
         npx.dropout(x, p=0.5, axes=(0,), training=True)
 

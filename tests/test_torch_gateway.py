@@ -572,9 +572,9 @@ def test_hot_swap_recaptures_only_replaced_weights():
         gw.generate("g", _prompt(5), 3)
         assert gw.hot_swap() == {"g": False}
         with torch.no_grad():
-            m.blocks[0].attn.proj.weight.mul_(1.0)
+            m.blocks[0].attn.proj.weight.data()._data.mul_(1.0)
         assert gw.hot_swap("g") == {"g": False}
-        w = m.blocks[0].attn.proj.weight
+        w = m.blocks[0].attn.proj.weight.data()._data
         m.blocks[0].attn.proj.weight = torch.nn.Parameter(w.detach() * 0.5)
         assert gw.hot_swap("g") == {"g": True}
         with pytest.raises(ValueError):

@@ -182,3 +182,52 @@ def test_ndarray_slice_modules_stand_alone():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+GLUON_SLICE = ("initializer", "lr_scheduler", "preemption", "_graphs",
+               "gluon.parameter", "gluon.block", "gluon.nn.basic_layers",
+               "gluon.nn.activations", "gluon.nn", "gluon.loss",
+               "gluon.trainer", "gluon.utils", "gluon", "optimizer",
+               "optimizer.optimizer", "models.params", "models.bert",
+               "models.gpt", "parallel.sharded", "amp")
+
+
+def test_gluon_slice_modules_stand_alone():
+    """The gluon slice's modules (Parameter, Block and HybridBlock, the
+    layers, losses, initializers, optimizers, schedulers and Trainer, the
+    models as HybridBlocks) import alone in a fresh interpreter, each
+    without loading jax or the reference package; then the verify
+    script's gluon loop runs on the CPU as written, hybridized, still
+    without them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {GLUON_SLICE!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import np, autograd, gluon\n"
+        "with mx.cpu():\n"
+        "    net = gluon.nn.HybridSequential()\n"
+        "    net.add(gluon.nn.Dense(32, activation='relu'),"
+        " gluon.nn.Dense(10))\n"
+        "    net.initialize(); net.hybridize()\n"
+        "    trainer = gluon.Trainer(net.collect_params(), 'adam',"
+        " {'learning_rate': 1e-3})\n"
+        "    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()\n"
+        "    x, y = np.random.uniform(size=(64, 20)),"
+        " np.random.randint(0, 10, (64,))\n"
+        "    for _ in range(3):\n"
+        "        with autograd.record():\n"
+        "            loss = loss_fn(net(x), y)\n"
+        "        loss.backward(); trainer.step(64)\n"
+        "    assert loss.shape == (64,)\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

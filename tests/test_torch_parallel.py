@@ -131,7 +131,7 @@ def test_losses_and_parameters_match_jax_data_parallel(ref, wd):
         onp.testing.assert_allclose(got[sure], want[sure], rtol=0, atol=1e-6,
                                     err_msg=name)
         assert (onp.abs(got - want) <= 2 * LR * STEPS * (1 + 1e-5)).all(), name
-    nsp = tm.nsp.weight.detach().numpy()
+    nsp = tm.nsp.weight.data()._data.detach().numpy()
     if wd:  # moved by weight decay alone, as the reference moves it
         assert not onp.array_equal(nsp, params["nsp.weight"])
     else:
@@ -153,7 +153,7 @@ class _Wide(nn.Module):
         self.low = nn.Parameter(torch.zeros(4, dtype=torch.bfloat16))
 
     def forward(self, x):
-        h = npx.dropout(x @ self.big, p=0.1, training=self.training)
+        h = npx.dropout(x @ self.big, p=0.1)
         return h @ self.small + self.bias + self.low.float()
 
 
@@ -318,7 +318,7 @@ class _Probe(nn.Module):
         self.masks = []
 
     def forward(self, x):
-        y = npx.dropout(x * self.w, p=0.1, training=self.training)
+        y = npx.dropout(x * self.w, p=0.1)
         self.masks.append((y != 0).detach())
         return y
 
@@ -339,7 +339,8 @@ def test_each_step_draws_a_fresh_mask_folded_from_its_key():
     for m in net.masks:
         kept, n = int(m.sum()), m.numel()
         assert abs(kept / n - 0.9) <= 6 * math.sqrt(0.1 * 0.9 / n)
-    # the step runs in training mode and then restores the module's mode
+    # the step runs in training mode (autograd.train_mode), whatever the
+    # module's flag, and leaves the flag as it was
     net.eval()
     dp.step(x, y)
     assert not net.training and not net.masks[-1].all()

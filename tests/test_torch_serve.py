@@ -348,14 +348,14 @@ def test_replaced_weight_is_seen_and_rebuilds_the_decode_program(pair):
         e.generate(p, 4)
         assert e.xla_program_count() == count
         blk = m.blocks[1]
-        new = blk.ffn.ffn2.weight.detach() * 1.7
+        new = blk.ffn.ffn2.weight.data()._data.detach() * 1.7
         blk.ffn.ffn2.weight = torch.nn.Parameter(new)
         got = e.generate(p, 6)
         onp.testing.assert_array_equal(got, _one_at_a_time(m, p, 6))
         assert not onp.array_equal(got, _one_at_a_time(tm, p, 6))
         assert e.xla_program_count() == count + 1
         with torch.no_grad():              # in place: no new program
-            blk.ffn.ffn2.weight.mul_(0.5)
+            blk.ffn.ffn2.weight.data()._data.mul_(0.5)
         onp.testing.assert_array_equal(e.generate(p, 6),
                                        _one_at_a_time(m, p, 6))
         assert e.xla_program_count() == count + 1
