@@ -13,17 +13,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    instruction counts by opcode class, registers and spills, failing on a
    spill;
 2. holds each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16: the forward kernels at the shapes of the serving
-   path (flash attention also at the training step's call), the training
+   float32, bfloat16 and float16: the forward kernels at the shapes of
+   the serving path (flash attention also at the training step's call),
+   the training
    kernels (flash-attention backward, fused residual +
    dropout + LayerNorm forward and backward, LayerNorm backward, dropout)
    at the shapes of the BERT-base training step, dropout masks bit for
    bit; the row backward (K4b, K3 backward) also at 65536 rows, at one
    row and at each vector count a lane can take, two calls bitwise
-   equal; the row kernels also in AMP's layouts, K3 with f32 x, bf16 h
-   and f32 gamma/beta (8192 and 1000 rows: equal to the f32 kernels on h
-   widened to f32 bit for bit, its mask the dropout kernel's), K4 and
-   K4b with bf16 x and f32 gamma/beta (8192 and 8 rows), dgamma/dbeta in
+   equal; the row kernels also in AMP's layouts (bf16 or f16), K3 with
+   f32 x, a 2-byte h and f32 gamma/beta (8192 and 1000 rows: equal to the
+   f32 kernels on h widened to f32 bit for bit, its mask the dropout
+   kernel's), K4 and K4b with a 2-byte x and f32 gamma/beta (8192 and 8
+   rows), dgamma/dbeta in
    f32 and bitwise equal across two calls; K4 at every row count the
    main paths give it (1 to 64 rows of decode steps and prefill chunks,
    800 to 2000 of prefills, 8192 of the training step); and the forward
@@ -137,12 +139,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``grad(create_graph=True)``, a custom ``Function``) on the card
    against the CPU.
 
+9. ``[amp16]`` (after ``[gluon]``): BERT-base 64 x 128 under
+   ``amp.init("float16")``: one step through the kernels against the
+   plain versions at p = 0 (loss, unscaled gradients, one Adam step); 20
+   steps at p = 0.1 in MXNet's loop (``scale_loss``, ``backward``,
+   ``has_overflow``, skip and ``update_scale`` on an overflow, else
+   ``trainer.step``), launches a step by layout (K3 in f32 x, f16 h; the
+   MLM LayerNorm f16 x), every flash kernel float16 (a profiled step);
+   the same model through ``DataParallel`` (one capture, replays bit for
+   bit the eager step function); ``net.cast("float16")`` through
+   ``Trainer("adam", {"multi_precision": True})``, 10 steps, each float16
+   weight its f32 master's cast after every step, the row kernels
+   all-f16.
+10. ``[dense]``: BERT-base ``use_flash=False`` (``batch_dot``,
+   ``masked_softmax`` over the dense (N*H, T, T) mask, dropout on the
+   probabilities through K5) at 64 x 128 with ragged lengths against the
+   flash model on the same weights (f32 and bf16 AMP), both paths' step
+   times; ``BERTClassifier`` over it, 10 steps; ``gpt2_small(
+   tie_weights=False)`` with its head a copy of the embedding through
+   ``GPTModel.generate`` (8 x 100 -> 64) and a ``ServeEngine`` over trace
+   A's first 8 requests: the tied model's tokens, one decode capture, and
+   a recapture after a new tensor is bound to ``lm_head.weight``.
+
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
 ``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}``,
 the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
-``{"gelu_dropout": ...}``, ``{"nd": ...}`` lines, one
+``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
+``{"amp16": ...}``, ``{"dense": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -162,7 +187,8 @@ from types import SimpleNamespace
 # rate outside the tensor cores, the bf16 and TF32 tensor-core rates
 PEAK_BYTES_S = 3.35e12
 L2_BYTES = 50 * 2**20
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
+              "tf32": 495e12}
 # f32-accurate products on the tensor cores: three TF32 products (495
 # TFLOP/s dense) for each f32 product. The least time of an f32 attention
 # kernel (K1, K2) counts its operations at this rate, since the card can
@@ -178,6 +204,8 @@ PEAK_3XTF32 = 495e12 / 3
 ATTN_TOL = 1e-4
 LN_TOL = 2e-5
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# float16: the same rule at its own precision (10 stored mantissa bits)
+F16_RTOL, F16_ATOL = 2.0 ** -10, 1e-5
 STATS_TOL = 2e-5  # LN mean / rstd (f32 on both sides)
 LSE_TOL = 1e-4
 # flash attention (K1, K2) in bfloat16: the kernels round P and dS to bf16
@@ -188,6 +216,12 @@ LSE_TOL = 1e-4
 # the plain tensor's, and every element within 2^-6 of its largest
 # magnitude (two bf16 spacings at the top of its range)
 ATTN_BF16_NORM_TOL, ATTN_BF16_MAX_TOL = 2.0 ** -7, 2.0 ** -6
+# float16: the same at its own precision, plus the elementwise rule's
+# absolute term (F16_ATOL) an element: a float16 gradient near zero is the
+# f32 noise of sums in another order (its f16 x f16 products are exact,
+# their sums are not), or lies in its subnormals (spacing 2^-24)
+ATTN_F16_NORM_TOL, ATTN_F16_MAX_TOL = 2.0 ** -10, 2.0 ** -9
+F16_SUBNORMAL = 2.0 ** -24
 # end to end, f32: logits of the kernel path vs the plain path after 12
 # layers, relative to the largest logit
 LOGIT_REL_TOL = 1e-3
@@ -241,6 +275,11 @@ ROW_BWD_ROWS = 1000
 # (two 768/3072-deep matrix products around the kernel).
 GD_TOL = 2e-6
 GD_PATH_REL_TOL = 1e-4
+# the path under amp.init("float16"), kernels against plain versions (the
+# same f16 products around K6): K6's output within one f16 spacing of the
+# plain version's, carried through one f16 product 3072 deep; the output
+# and every gradient within 2^-7 of their largest magnitude
+GD_PATH_F16_TOL = 2.0 ** -7
 GD_WARMUP, GD_STEPS = 1, 5
 # K6's gelu and gelu' against float64 at this many points of [-10, 10]
 GD_SWEEP = 2 ** 22 + 1
@@ -396,13 +435,16 @@ def time_ms(fn, sets, reps, keep=False):
 def agree(got, ref, f32_tol):
     """(ok, max abs error, normwise relative error) of a kernel's output
     against its plain version's: float32 within ``f32_tol`` elementwise,
-    bfloat16 within BF16_RTOL * |plain| + BF16_ATOL elementwise."""
+    bfloat16 within BF16_RTOL * |plain| + BF16_ATOL elementwise, float16
+    within F16_RTOL * |plain| + F16_ATOL."""
     import torch
 
     g, r = got.float(), ref.float()
     d = (g - r).abs()
     if got.dtype == torch.bfloat16:
         ok = bool((d <= BF16_RTOL * r.abs() + BF16_ATOL).all())
+    elif got.dtype == torch.float16:
+        ok = bool((d <= F16_RTOL * r.abs() + F16_ATOL).all())
     else:
         ok = d.max().item() <= f32_tol
     rel = (d.norm() / r.norm().clamp_min(1e-30)).item()
@@ -423,6 +465,10 @@ def agree_attn(got, ref, f32_tol):
     top = err / max(r.abs().max().item(), 1e-30)
     if got.dtype == torch.bfloat16:
         ok = rel <= ATTN_BF16_NORM_TOL and top <= ATTN_BF16_MAX_TOL
+    elif got.dtype == torch.float16:
+        ok = (d.norm().item() <= ATTN_F16_NORM_TOL * r.norm().item()
+              + F16_ATOL * r.numel() ** 0.5
+              and err <= ATTN_F16_MAX_TOL * r.abs().max().item() + F16_ATOL)
     else:
         ok = err <= f32_tol
     return ok, err, rel, top
@@ -431,6 +477,11 @@ def agree_attn(got, ref, f32_tol):
 def tol_text(dtype, f32_tol, attn=False):
     if dtype == "float32":
         return f"tol {f32_tol:g}"
+    if dtype == "float16":
+        if attn:
+            return (f"tol normwise 2^-10, max 2^-9*max|plain| (+ "
+                    f"{F16_ATOL:g} an element)")
+        return f"tol 2^-10*|plain| + {F16_ATOL:g} elementwise"
     if attn:
         return "tol normwise 2^-7, max 2^-6*max|plain|"
     return f"tol 2^-7*|plain| + {BF16_ATOL:g} elementwise"
@@ -477,16 +528,20 @@ def _cuobjdump():
     return next((str(f) for f in found if f.exists()), None)
 
 
+# element types as they appear in the kernels' mangled names
+_MANGLED_DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
 def _flash_label(mangled):
     """'fwd f32 d<=64' for a flash kernel's mangled name, else None."""
     import re
 
     m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv|bwd_delta)_kernelI"
-                  r"(f|13__nv_bfloat16)(?:Li(\d+)E)?", mangled)
+                  r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?", mangled)
     if m is None:
         return None
     kind = m.group(1).replace("bwd_", "")
-    dt = "f32" if m.group(2) == "f" else "bf16"
+    dt = _MANGLED_DTYPES[m.group(2)]
     return f"{kind} {dt}" + (f" d<={m.group(3)}" if m.group(3) else "")
 
 
@@ -527,18 +582,24 @@ def _row_kernel_label(mangled):
     """'K6 fwd bf16 p>0', 'row fwd f32 x, bf16 h, f32 gamma NV=8 K3 drop',
     'row bwd bf16 x, f32 gamma NV=3 K4b' or 'row bwd reduce f32' for a K6
     or LayerNorm row kernel's mangled name, else None. The row kernels
-    take three element types (x, h, gamma); a repeated bf16 is a
-    substitution (``S1_``), float is always ``f``."""
+    take three element types (x, h, gamma); a repeated bf16 or f16 is a
+    substitution (``S1_``) of the one 2-byte type a kernel takes, float
+    is always ``f``."""
     import re
 
     m = re.search(r"(gelu_dropout_kernel|ln_fwd_kernel|ln_bwd_kernel|"
-                  r"ln_partials_reduce_kernel)I((?:f|13__nv_bfloat16|S\d*_)+)"
-                  r"((?:L[bi]\d+E)*)", mangled)
+                  r"ln_partials_reduce_kernel)I((?:f|13__nv_bfloat16|6__half|"
+                  r"S\d*_)+)((?:L[bi]\d+E)*)", mangled)
     if m is None:
         return None
     kind = m.group(1)
-    types = ["f32" if t == "f" else "bf16" for t in
-             re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2))]
+    types = []
+    for t in re.findall(r"f|13__nv_bfloat16|6__half|S\d*_", m.group(2)):
+        if t.startswith("S"):
+            t = next(x for x in types if x != "f32")
+            types.append(t)
+        else:
+            types.append(_MANGLED_DTYPES[t])
     vals = re.findall(r"L[bi](\d+)E", m.group(3))
     if kind == "gelu_dropout_kernel":
         drop, bwd = vals
@@ -619,7 +680,7 @@ def phase_build():
     lib = ctypes.CDLL(str(paths["flash_attention"]))
     smem = {}
     for kind, code in (("fwd", 0), ("dq", 1), ("dkv", 2)):
-        for dt, dcode in (("f32", 0), ("bf16", 1)):
+        for dt, dcode in (("f32", 0), ("bf16", 1), ("f16", 2)):
             for dp in (64, 128):
                 smem[f"{kind} {dt} d<={dp}"] = lib.mx_flash_attention_smem(
                     code, dcode, dp)
@@ -661,7 +722,9 @@ def phase_build():
             check(ops["HGMMA"] + ops["HMMA"] > 0,
                   f"flash kernel {label} has no tensor-core instruction")
     if tool is not None:
-        check(len(sass) == 14, f"expected 14 flash kernels in the SASS, "
+        # forward, dq and dk/dv at d <= 64 and 128, and the delta pre-pass,
+        # in f32, bf16 and f16
+        check(len(sass) == 21, f"expected 21 flash kernels in the SASS, "
               f"found {sorted(sass)}")
 
     for stem in redesigned:
@@ -687,7 +750,7 @@ def attn_cases(torch, dev):
     BERT-base training step's call, (64, 128, 3, H, d) views, not
     causal."""
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for n, t, causal in [(N, t, True) for t in ATTN_T] + [
                 (TRAIN_B, TRAIN_T, False)]:
             g = torch.Generator(device=dev).manual_seed(t)
@@ -730,11 +793,12 @@ def ln_cases(torch, dev):
     MLM LayerNorm) and at N rows."""
     from incubator_mxnet_tpu_torch.ops.layer_norm import layout_name
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     rows_f32 = sorted(set(SERVE_LN_ROWS) | {N * t for t in ATTN_T})
     specs = [(f32, f32, rows) for rows in rows_f32]
-    specs += [(bf16, bf16, rows) for rows in [N * t for t in ATTN_T] + [N]]
-    specs += [(bf16, f32, ROWS), (bf16, f32, N)]
+    for low in (bf16, f16):
+        specs += [(low, low, rows) for rows in [N * t for t in ATTN_T] + [N]]
+        specs += [(low, f32, ROWS), (low, f32, N)]
     cases = []
     for dtype, pdt, rows in specs:
         g = torch.Generator(device=dev).manual_seed(rows)
@@ -761,9 +825,10 @@ def fwd_invariance_rows(sms):
 
 def phase_row_fwd_invariance(torch, dev):
     """A row's y, mean and rstd from the forward row kernels are the same
-    bits whatever the call's row count and grid: K4 (f32, and AMP's
-    bf16 x with f32 gamma) and K3 at p = 0.1 on a device key (f32, and
-    AMP's f32 x with bf16 h) on the first n rows of a 65536-row input,
+    bits whatever the call's row count and grid: K4 (f32, AMP's bf16 or
+    f16 x with f32 gamma, all-f16) and K3 at p = 0.1 on a device key
+    (f32, AMP's f32 x with bf16 or f16 h, all-f16) on the first n rows of
+    a 65536-row input,
     against the same rows of the whole call, at each of
     `fwd_invariance_rows`; K3's mask the dropout kernel's."""
     from incubator_mxnet_tpu_torch.ops import _philox as ph
@@ -773,15 +838,19 @@ def phase_row_fwd_invariance(torch, dev):
     sms = ln.sm_count(dev)
     rows_list = fwd_invariance_rows(sms)
     big = INVARIANCE_ROWS
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     key = ph.DeviceKey(torch.tensor([1414213562, 1732050807], device=dev),
                        torch.tensor(3, device=dev), 5, {})
     words = tuple(int(w) for w in ph.key_words(key))
     g = torch.Generator(device=dev).manual_seed(29)
     for name, xdt, hdt, pdt in (("K4", f32, None, f32),
                                 ("K4", bf16, None, f32),
+                                ("K4", f16, None, f32),
+                                ("K4", f16, None, f16),
                                 ("K3", f32, f32, f32),
-                                ("K3", f32, bf16, f32)):
+                                ("K3", f32, bf16, f32),
+                                ("K3", f32, f16, f32),
+                                ("K3", f16, f16, f16)):
         x = (torch.randn(big, C, generator=g, device=dev) + 0.3).to(xdt)
         gamma = (1 + 0.3 * torch.randn(C, generator=g, device=dev)).to(pdt)
         beta = (0.3 * torch.randn(C, generator=g, device=dev)).to(pdt)
@@ -807,7 +876,7 @@ def phase_row_fwd_invariance(torch, dev):
             kinds.append(f"{n}: {ln.row_blocks(n, sms)}")
             check(same, f"{name} {layout}: the first {n} rows alone differ "
                   f"from the same rows of a {big}-row call")
-        if h is not None:  # the kept elements are the dropout kernel's
+        if h is not None and xdt == f32:  # the dropout kernel's mask
             keep = ph.keep_mask(h.shape, words, TRAIN_P, device=dev)
             s = x.float() + torch.where(keep, h.float() * ph.dropout_scale(
                 TRAIN_P), 0.0)
@@ -822,7 +891,7 @@ def phase_row_fwd_invariance(torch, dev):
             f"call, bit for bit, at n (8-warp blocks) "
             + ", ".join(kinds)
             + ("; K3 = K4 on x + the dropout kernel's mask on h, bit for "
-               "bit" if h is not None else ""))
+               "bit" if h is not None and xdt == f32 else ""))
     return rows_list
 
 
@@ -3401,7 +3470,8 @@ def empty_launch(torch, blocks, threads):
 def _ops_dtype(c):
     """The dtype whose peak rate bounds a row kernel case's operations:
     its own, or float32 for a mixed layout (its arithmetic is f32)."""
-    return _dt(c["dtype"]) if c["layout"] in ("f32", "bf16") else "float32"
+    return _dt(c["dtype"]) if c["layout"] in ("f32", "bf16", "f16") \
+        else "float32"
 
 
 def layer_norm_library(torch, x, gamma, beta):
@@ -3502,7 +3572,7 @@ def train_attn_cases(torch, dev):
     one (B, T, 3, H, d) projection output ("bthd"), not causal, without and
     with lengths; plus a causal T = 1000 case, which GPT training hits."""
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for b, t, causal, with_len in ((TRAIN_B, TRAIN_T, False, False),
                                        (TRAIN_B, TRAIN_T, False, True),
                                        (N, 1000, True, False)):
@@ -3519,16 +3589,19 @@ def train_attn_cases(torch, dev):
 
 def train_row_cases(torch, dev):
     """(8192, 768) rows as the BERT-base step's LayerNorm and residual
-    sites give them: f32, bf16, and AMP's layouts, f32 x with bf16 h and
-    f32 gamma/beta (K3, also at 1000 rows) and bf16 x with f32
-    gamma/beta (K4b, also at N rows); K3 at p = 0.1 and p = 0."""
+    sites give them: f32, bf16, f16, and AMP's layouts in either 2-byte
+    dtype, f32 x with a bf16 or f16 h and f32 gamma/beta (K3, also at
+    1000 rows) and a bf16 or f16 x with f32 gamma/beta (K4b, also at N
+    rows); K3 at p = 0.1 and p = 0."""
     from incubator_mxnet_tpu_torch.ops.layer_norm import layout_name
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = torch.float32
     k3, k4b = [], []
-    specs = [(f32, f32, f32, ROWS, True), (bf16, bf16, bf16, ROWS, True),
-             (f32, bf16, f32, ROWS, False), (f32, bf16, f32, 1000, False),
-             (bf16, bf16, f32, ROWS, True), (bf16, bf16, f32, N, True)]
+    specs = [(f32, f32, f32, ROWS, True)]
+    for low in (torch.bfloat16, torch.float16):
+        specs += [(low, low, low, ROWS, True), (f32, low, f32, ROWS, False),
+                  (f32, low, f32, 1000, False), (low, low, f32, ROWS, True),
+                  (low, low, f32, N, True)]
     for xdt, hdt, pdt, rows, is_ln in specs:
         g = torch.Generator(device=dev).manual_seed(17)
         x = torch.randn(rows, C, generator=g, device=dev) + 0.3
@@ -3550,7 +3623,7 @@ def train_row_cases(torch, dev):
 
 def train_dropout_cases(torch, dev):
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for cols in (C, FFN):
             g = torch.Generator(device=dev).manual_seed(cols)
             x = torch.randn(ROWS, cols, generator=g, device=dev)
@@ -3580,14 +3653,16 @@ def _column_check(tag, what, got, ref, terms, rows=ROWS, bf16_sums=False):
 
     d = (got.float() - ref.float()).abs()
     rel = (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
-    if got.dtype == torch.bfloat16 and not bf16_sums:
+    low = got.dtype in (torch.bfloat16, torch.float16)
+    if low and not bf16_sums:
         ok, err, rel = agree(got, ref, 0.0)
         _log_check(tag, what, got.dtype, ok, err, rel, 0.0)
         return err
     tol = ln.column_sum_tol(terms, rows,
                             ln.row_blocks(rows, ln.sm_count(got.device)))
-    if got.dtype == torch.bfloat16:
-        tol = BF16_RTOL * ref.float().abs() + 2 * tol
+    if low:
+        rtol = BF16_RTOL if got.dtype == torch.bfloat16 else F16_RTOL
+        tol = rtol * ref.float().abs() + 2 * tol
     ok = bool((d <= tol).all())
     log(f"[{tag}] {what}: max|d|={d.max().item():.3e} (tol per column "
         f"{tol.min().item():.2e}..{tol.max().item():.2e}: "
@@ -3671,7 +3746,7 @@ def phase_train_kernels_vs_plain(torch, dev):
         c["bwd_err"], c["bwd_rel"] = max(errs), rel
         if p > 0:  # the kernel's mask is the plain Philox mask
             keep = ph.keep_mask((rows, C), key, p, device=dev)
-            same = torch.equal(got[1] != 0, keep & (ref[1] != 0))
+            same = dh_zeros_are_the_mask(torch, got[1], ref[1], keep)
             log(f"[K3 bwd] {what} mask (dh != 0) equals the plain Philox "
                 f"mask: {same}")
             check(same, "K3 mask differs from the plain Philox mask")
@@ -3726,10 +3801,10 @@ def phase_train_kernels_vs_plain(torch, dev):
 
 
 def _mixed_k3_checks(torch, c, fwd, got, mp, rp):
-    """AMP's K3 layout (f32 x, bf16 h): the forward and backward equal
-    the f32 kernels on h widened to f32, bit for bit (dh rounded to bf16
-    once), two backward calls are bitwise equal, and at p > 0 the zeros
-    of dh are the dropout kernel's (K5) mask for the same key."""
+    """AMP's K3 layout (f32 x, bf16 or f16 h): the forward and backward
+    equal the f32 kernels on h widened to f32, bit for bit (dh rounded to
+    h's dtype once), two backward calls are bitwise equal, and at p > 0
+    the zeros of dh are the dropout kernel's (K5) mask for the same key."""
     from incubator_mxnet_tpu_torch.ops import dropout as dp
     from incubator_mxnet_tpu_torch.ops import fused_block as fb
 
@@ -3744,7 +3819,7 @@ def _mixed_k3_checks(torch, c, fwd, got, mp, rp):
     torch.cuda.synchronize()
     same = (all(torch.equal(a, b) for a, b in zip(fwd, f32))
             and torch.equal(got[0], g32[0])
-            and torch.equal(got[1], g32[1].bfloat16())
+            and torch.equal(got[1], g32[1].to(c["h"].dtype))
             and torch.equal(got[2], g32[2]) and torch.equal(got[3], g32[3]))
     log(f"[K3 mixed] {what}: y, mean, rstd, dx, dh, dgamma, dbeta equal "
         f"the f32 kernels' on h widened to f32 bit for bit: {same}")
@@ -3756,10 +3831,25 @@ def _mixed_k3_checks(torch, c, fwd, got, mp, rp):
     if p > 0:
         k5 = dp.dropout_fwd(torch.ones_like(c["h"]), key, p,
                             impl="kernel") != 0
-        same = torch.equal(got[1] != 0, k5 & (got[0] != 0))
+        same = dh_zeros_are_the_mask(torch, got[1], got[0], k5)
         log(f"[K3 mixed] {what}: dh's zeros are the dropout kernel's mask "
             f"bit for bit: {same}")
         check(same, f"K3 {what}: mask differs from K5's")
+
+
+def dh_zeros_are_the_mask(torch, dh, dx, keep):
+    """Whether dh (= ds * scale where kept, else 0) is nonzero exactly
+    where ``keep`` holds and dx (ds, or the plain dh) is nonzero. In
+    float16 a ds within two subnormal spacings (2^-24) of zero can round
+    to 0 on one side and to the smallest subnormal on the other: such
+    elements are exempt, but a dropped element is never nonzero."""
+    nz, want = dh != 0, keep & (dx != 0)
+    if dh.dtype != torch.float16:
+        return torch.equal(nz, want)
+    tiny = ((dh.float().abs() <= 2 * F16_SUBNORMAL)
+            & (dx.float().abs() <= 2 * F16_SUBNORMAL))
+    return (not bool((nz & ~keep).any())
+            and bool(((nz == want) | tiny).all()))
 
 
 def phase_row_bwd_checks(torch, dev):
@@ -3773,7 +3863,7 @@ def phase_row_bwd_checks(torch, dev):
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
     shapes = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         vec = 16 // (torch.finfo(dtype).bits // 8)
         shapes += [(dtype, rows, C) for rows in (1, GD_LARGE[0])]
         shapes += [(dtype, ROW_BWD_ROWS, nv * 32 * vec) for nv in ROW_BWD_NV]
@@ -3826,7 +3916,7 @@ def phase_row_bwd_checks(torch, dev):
             check(same, f"row bwd {kind} {what}: two calls differ")
             if kind != "K4b":  # dh = dx * scale where kept, else 0
                 keep = ph.keep_mask((rows, cols), key, p, device=dev)
-                same = torch.equal(got[1] != 0, keep & (got[0] != 0))
+                same = dh_zeros_are_the_mask(torch, got[1], got[0], keep)
                 log(f"[row bwd] {kind} {what}: dh's zeros are the plain "
                     f"Philox mask's: {same}")
                 check(same, f"row bwd {kind} {what}: mask differs from K5's")
@@ -3914,7 +4004,8 @@ AMP_LAYOUT_LAUNCHES = {"K4": {"f32": 1, AMP_K4: 1},
                        "K3f": {AMP_K3: 24}, "K3b": {AMP_K3: 48}}
 # the peak a training mode's model-FLOPs share is of: its products' rate
 # (bench.py's cell runs under amp.init("bfloat16"): bf16 tensor cores)
-TRAIN_MODES = {"f32": "float32", "amp": "bfloat16", "tf32": "tf32"}
+TRAIN_MODES = {"f32": "float32", "amp": "bfloat16", "tf32": "tf32",
+               "amp16": "float16"}
 F32_LAYOUT_LAUNCHES = {k: {"f32": sum(v.values())}
                        for k, v in AMP_LAYOUT_LAUNCHES.items()}
 
@@ -4307,7 +4398,8 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
     against `_step_fn` run eagerly from the same state and seed, device
     time by kernel, the optimizer's and the CE's own device time.
     ``trainer``: phase_train's result in the same mode, printed beside.
-    ``mode``: "amp" or "f32"."""
+    ``mode``: "amp" (bf16), "amp16" (float16, without loss scaling, as
+    the reference's DataParallel steps) or "f32"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -4318,7 +4410,8 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
     from incubator_mxnet_tpu_torch.optimizer import Adam
     from incubator_mxnet_tpu_torch.parallel import DataParallel
 
-    tag = {"f32": "train dp", "amp": "train dp amp"}[mode]
+    tag = {"f32": "train dp", "amp": "train dp amp",
+           "amp16": "amp16 dp"}[mode]
     ce = SoftmaxCrossEntropyLoss()
 
     def mlm_loss(out, y):
@@ -4334,11 +4427,12 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
     labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
                            device=dev)
     n_params = sum(p.numel() for p in nets[0].parameters())
-    want_layout = AMP_LAYOUT_LAUNCHES if mode == "amp" else \
-        F32_LAYOUT_LAUNCHES
+    want_layout = {"amp": AMP_LAYOUT_LAUNCHES,
+                   "amp16": AMP16_LAYOUT_LAUNCHES}.get(mode,
+                                                       F32_LAYOUT_LAUNCHES)
     none = {k: 0 for k in DP_STEP_LAUNCHES}
-    if mode == "amp":
-        amp.init("bfloat16")
+    if mode in ("amp", "amp16"):
+        amp.init("bfloat16" if mode == "amp" else "float16")
     try:
         mxrandom.seed(0)
         losses, times, counts, layouts, captures = [], [], [], [], []
@@ -4667,7 +4761,8 @@ def gelu_dropout_cases(torch, dev):
     mask); the site the reference sized its kernel for, BERT-base at
     sequence 512 (65536, 3072) bf16 (`ops/fused_block.py:261`); a ragged
     f32 shape for the scalar tail."""
-    specs = [((ROWS, FFN), dt, p) for dt in (torch.float32, torch.bfloat16)
+    specs = [((ROWS, FFN), dt, p)
+             for dt in (torch.float32, torch.bfloat16, torch.float16)
              for p in (TRAIN_P, 0.0)]
     specs += [(GD_LARGE, torch.bfloat16, TRAIN_P),
               (GD_RAGGED, torch.float32, TRAIN_P)]
@@ -4854,6 +4949,37 @@ def phase_gelu_dropout_path(torch, dev):
 
     launches = {"K6f": sum(cn["K6f"] for cn in runs["auto"]["counts"]),
                 "K6b": sum(cn["K6b"] for cn in runs["auto"]["counts"])}
+    # the same path under float16 AMP: the Dense products in f16, K6 in f16
+    from incubator_mxnet_tpu_torch import amp
+
+    f16 = {}
+    amp.init("float16")
+    try:
+        for impl in ("auto", "plain"):
+            step(impl)
+            torch.cuda.synchronize()
+            reset_counts()
+            f16[impl] = (step(impl), read_counts())
+            torch.cuda.synchronize()
+    finally:
+        amp.deinit()
+    w16 = 0.0
+    for name, got, ref in zip(["y"] + names, f16["auto"][0], f16["plain"][0]):
+        check(got.shape == ref.shape
+              and bool(torch.isfinite(got.float()).all()),
+              f"gelu_dropout path under float16 AMP: {name} malformed")
+        scale = ref.float().abs().max().item()
+        w16 = max(w16, (got.float() - ref.float()).abs().max().item()
+                  / max(scale, 1e-30))
+    ok16 = (f16["auto"][1] == expect["auto"] and f16["plain"][1] == zero
+            and w16 <= GD_PATH_F16_TOL)
+    log(f"[gelu_dropout] under amp.init('float16'): y "
+        f"{_dt(f16['auto'][0][0].dtype)}, launches {f16['auto'][1]}; auto "
+        f"vs plain worst max|d| / "
+        f"max|plain| {w16:.2e} (tol 2^-7): {'ok' if ok16 else 'EXCEEDED'}")
+    check(ok16, "gelu_dropout path under float16 AMP disagrees with plain")
+    launches["K6f"] += 1
+    launches["K6b"] += 1
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4874,6 +5000,7 @@ def phase_gelu_dropout_path(torch, dev):
                   launches_per_step={k: r["counts"][0]
                                      for k, r in runs.items()},
                   worst_rel_err_vs_plain=worst["plain"],
+                  f16_amp_worst_rel_err_vs_plain=w16,
                   worst_rel_err_vs_xla=worst["xla"],
                   device_ms_per_step=dev_ms, k6_device_ms_per_step=k6_ms)
     auto_ms = result["auto_median_step_ms"]
@@ -5952,12 +6079,584 @@ def phase_gluon(torch, dev, beside=None):
     return res, launches, by_layout
 
 
+# -- [amp16]: BERT-base under amp.init("float16") ---------------------------
+
+# the layouts the float16 AMP step's row kernels take, launches a step
+# (the MLM LayerNorm f16 x with f32 gamma/beta; the encoder LayerNorm f32;
+# every residual site f32 x with an f16 h): the bf16 AMP step's counts
+AMP16_K3 = "f32 x, f16 h, f32 gamma"
+AMP16_K4 = "f16 x, f32 gamma"
+AMP16_LAYOUT_LAUNCHES = {"K4": {"f32": 1, AMP16_K4: 1},
+                         "K4b": {"f32": 2, AMP16_K4: 2},
+                         "K3f": {AMP16_K3: 24}, "K3b": {AMP16_K3: 48}}
+# a float16 net (net.cast("float16")): every row kernel all-f16
+F16_LAYOUT_LAUNCHES = {k: {"f16": sum(v.values())}
+                       for k, v in AMP16_LAYOUT_LAUNCHES.items()}
+AMP16_STEPS = 20
+MP_STEPS = 10
+# the kernels against the plain versions, one float16 AMP step at p = 0:
+# both run the same cuBLAS products in f16; they differ where K1/K2 round
+# P and dS at the running max (the plain version at the final max), in
+# the row kernels' f32 sum orders, and from there through 12 layers of f16
+# products. Loss within 2^-10 relative; the gradients (unscaled, f32)
+# normwise within 2^-6 all together and 2^-3 each (a parameter whose
+# gradient norm is at least 1e-3 of the largest); Adam's first step is
+# about lr * sign(g): the parameters within 2 lr of each other, the
+# update signs agreeing on at least 0.97 of the elements (the bf16 AMP
+# test's rule, `tests/test_torch_amp.py`)
+AMP16_LOSS_TOL, AMP16_GRAD_TOL, AMP16_GRAD_EACH_TOL = \
+    2.0 ** -10, 2.0 ** -6, 2.0 ** -3
+AMP16_SIGN_AGREE = 0.97
+
+
+def _flash_dtypes(torch, prof):
+    """The element types of the flash kernels a profile recorded."""
+    from torch.autograd import DeviceType
+
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "flash_" in e.key]
+    return names, {("f16" if "__half" in n else "bf16" if "bfloat16" in n
+                    else "f32") for n in names}
+
+
+def _amp16_eager_vs_plain(torch, dev, tokens, labels, vl):
+    """One float16 AMP step at p = 0, through the kernels and through the
+    plain versions, from the same weights: loss, unscaled gradients,
+    parameters after one Adam step."""
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+
+    ce = SoftmaxCrossEntropyLoss()
+    out = {}
+    base = None
+    for impl in ("auto", "plain"):
+        model = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev,
+                          seed=0, impl=impl)
+        if base is None:
+            base = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+        trainer = Trainer(model.collect_params(),
+                          Adam(learning_rate=TRAIN_LR))
+        amp.scale_loss._scaler = amp.LossScaler()
+        amp.init("float16")
+        try:
+            with autograd.train_mode():
+                loss = ce(model(tokens, None, vl)[0], labels)
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward(torch.ones_like(scaled))
+        finally:
+            amp.deinit()
+        scale = amp.scale_loss._scaler.loss_scale
+        grads = {n: p.grad.float() / scale
+                 for n, p in model.named_parameters() if p.grad is not None}
+        trainer.step(TRAIN_B)
+        torch.cuda.synchronize()
+        out[impl] = dict(loss=loss.mean().item(), grads=grads,
+                         params={n: p.detach().clone()
+                                 for n, p in model.named_parameters()})
+        del model, trainer
+    k, p = out["auto"], out["plain"]
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    finite = all(bool(torch.isfinite(g).all()) for g in k["grads"].values())
+    num = sum(float((k["grads"][n] - g).norm() ** 2)
+              for n, g in p["grads"].items())
+    den = sum(float(g.norm() ** 2) for g in p["grads"].values())
+    grad_rel = (num / den) ** 0.5
+    top = max(float(g.norm()) for g in p["grads"].values())
+    each = max(float((k["grads"][n] - g).norm() / g.norm())
+               for n, g in p["grads"].items()
+               if float(g.norm()) >= 1e-3 * top)
+    step_ok, agree_n, total = True, 0, 0
+    for n, w0 in base.items():
+        wk, wp = k["params"][n], p["params"][n]
+        step_ok &= bool(((wk - wp).abs() <= 2 * TRAIN_LR * (1 + 1e-5))
+                        .all())
+        agree_n += int((torch.sign(wk - w0) == torch.sign(wp - w0)).sum())
+        total += w0.numel()
+    agree = agree_n / total
+    ok = (loss_rel <= AMP16_LOSS_TOL and finite and grad_rel <= AMP16_GRAD_TOL
+          and each <= AMP16_GRAD_EACH_TOL and step_ok
+          and agree >= AMP16_SIGN_AGREE)
+    log(f"[amp16] one step at p = 0, kernels vs plain (same weights): loss "
+        f"{k['loss']:.6f} vs {p['loss']:.6f}, rel {loss_rel:.3e} (tol "
+        f"2^-10); gradients unscaled, all finite: {finite}, normwise "
+        f"{grad_rel:.3e} together (tol 2^-6), at most {each:.3e} each "
+        f"(tol 2^-3); after one Adam step every parameter within 2 lr: "
+        f"{step_ok}, update signs agree on {agree:.5f} (tol "
+        f"{AMP16_SIGN_AGREE}): {'ok' if ok else 'EXCEEDED'}")
+    check(ok, "[amp16]: the float16 AMP step through the kernels "
+          "disagrees with the plain versions")
+    return dict(loss=k["loss"], plain_loss=p["loss"], loss_rel=loss_rel,
+                grad_norm_rel=grad_rel, grad_each_rel=each,
+                adam_within_2lr=step_ok, update_sign_agreement=agree)
+
+
+def _scaled_loop(torch, model, trainer, tokens, labels, steps, what,
+                 want_layout, amp16=True, after_step=None):
+    """MXNet's float16 loop: ``scale_loss``, ``backward``,
+    ``has_overflow``; on an overflow ``update_scale(True)`` and no step,
+    else ``update_scale(False)``, ``trainer.step`` and ``after_step()``.
+    The loss is taken of f32 scores; the forward and backward run under
+    ``amp.init("float16")`` with ``amp16`` (else the model's own dtypes).
+    Launches counted a step by kernel and layout. Returns (losses, step
+    ms, overflows, scales)."""
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    ce = SoftmaxCrossEntropyLoss()
+    amp.scale_loss._scaler = scaler = amp.LossScaler()
+    params = model.collect_params()
+    losses, times, overflows, scales = [], [], 0, []
+    for i in range(steps):
+        reset_counts()
+        grads_to_none(model)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if amp16:
+            amp.init("float16")
+        try:
+            with autograd.train_mode():
+                loss = ce(model(tokens)[0].float(), labels)
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward(torch.ones_like(scaled))
+        finally:
+            amp.deinit()
+        scales.append(scaler.loss_scale)
+        if scaler.has_overflow(params):
+            scaler.update_scale(True)
+            overflows += 1
+        else:
+            scaler.update_scale(False)
+            trainer.step(TRAIN_B)
+            if after_step is not None:
+                after_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(loss.float().mean().item())
+        counts, layouts = read_counts(), read_layout_counts()
+        check(counts == STEP_LAUNCHES and layouts == want_layout,
+              f"{what} step {i}: launches {counts}, by layout {layouts}; "
+              f"expected {STEP_LAUNCHES}, {want_layout}")
+    return losses, times, overflows, scales
+
+
+def phase_amp16(torch, dev, dp_amp):
+    """[amp16]: BERT-base at 64 x 128, MLM CE, under amp.init("float16"):
+    the step through the kernels against the plain versions at p = 0;
+    20 steps at p = 0.1 in MXNet's dynamic-loss-scale loop (launches a
+    step by layout, every flash kernel float16); the same model through
+    `DataParallel` (one capture, replays bit for bit the eager step);
+    and a float16 net (``net.cast("float16")``) through ``Trainer(...,
+    {"multi_precision": True})``, each float16 weight its f32 master's
+    cast after every step. ``dp_amp``: the same run's [train dp amp]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+
+    start_s = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    vl = torch.randint(TRAIN_T // 2, TRAIN_T + 1, (TRAIN_B,), generator=g,
+                       device=dev)
+    res = {"eager_vs_plain": _amp16_eager_vs_plain(torch, dev, tokens,
+                                                   labels, vl)}
+    torch.cuda.empty_cache()
+
+    # the training loop, dropout 0.1
+    model = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
+                      seed=0)
+    trainer = Trainer(model.collect_params(), Adam(learning_rate=TRAIN_LR))
+    n_params = sum(p.numel() for p in model.parameters())
+    mxrandom.seed(0)
+    losses, times, overflows, scales = _scaled_loop(
+        torch, model, trainer, tokens, labels, AMP16_STEPS, "[amp16]",
+        AMP16_LAYOUT_LAUNCHES)
+    check(all(math.isfinite(v) for v in losses), "[amp16]: non-finite loss")
+    check(sum(losses[-5:]) < sum(losses[:5]), "[amp16]: the loss did not "
+          "fall")
+    timed = sorted(times[WARMUP:])
+    med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
+    amp.init("float16")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            grads_to_none(model)
+            with autograd.train_mode():
+                loss = SoftmaxCrossEntropyLoss()(model(tokens)[0], labels)
+            loss.backward(torch.ones_like(loss))
+            torch.cuda.synchronize()
+    finally:
+        amp.deinit()
+    names, kinds = _flash_dtypes(torch, prof)
+    check(names and kinds == {"f16"}, f"[amp16]: flash kernels in the step "
+          f"not all float16: {sorted(set(names))[:6]}")
+    dev_ms = _device_ms(prof)
+    idle = 1 - dev_ms / med if dev_ms > 0 else None
+    log(f"[amp16] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam "
+        f"lr {TRAIN_LR}, {n_params} parameters, amp.init('float16'), "
+        f"scale_loss + has_overflow + update_scale: step ms "
+        + ", ".join(f"{t:.1f}" for t in times) + "; loss "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; loss scale a step {scales}; {overflows} overflow(s) skipped")
+    log(f"[amp16] launches per step {STEP_LAUNCHES}, by layout "
+        f"{AMP16_LAYOUT_LAUNCHES}: every step as expected; the flash "
+        f"kernels of a profiled forward and backward all float16 "
+        f"({len(names)} records)")
+    log(f"[amp16] median step {med:.2f} ms (loop with the overflow check), "
+        f"{TRAIN_B * TRAIN_T / (med / 1e3):.1f} tokens/s; device busy "
+        f"{dev_ms:.2f} ms of a forward and backward (torch.profiler)")
+    res["train"] = dict(losses=losses, step_ms=times, median_step_ms=med,
+                        overflows=overflows, loss_scales=scales,
+                        fwd_bwd_device_ms=dev_ms, idle_share=idle,
+                        launches_per_step=STEP_LAUNCHES,
+                        launches_by_layout_per_step=AMP16_LAYOUT_LAUNCHES)
+    launches = {k: v * AMP16_STEPS for k, v in STEP_LAUNCHES.items()}
+    layouts = {k: {n: c * AMP16_STEPS for n, c in v.items()}
+               for k, v in AMP16_LAYOUT_LAUNCHES.items()}
+    del model, trainer, prof
+    torch.cuda.empty_cache()
+
+    # DataParallel, the same model under float16 AMP
+    dp_res, (dp_launches, dp_layouts) = phase_train_dp(
+        torch, dev, dict(median_step_ms=med,
+                         tokens_per_s=TRAIN_B * TRAIN_T / (med / 1e3),
+                         device_ms_per_step=dev_ms, idle_share=idle),
+        "amp16")
+    res["dp"] = dp_res
+    # the idle share of a replay from CUDA events: 1 - its span on the card
+    # over the step's median wall (the profiler's device sum of a replay
+    # counts its span twice, PERF.md §7)
+    idle16 = 1 - dp_res["replay_span_ms"] / dp_res["median_step_ms"]
+    idle_bf16 = 1 - dp_amp["replay_span_ms"] / dp_amp["median_step_ms"]
+    res["dp_idle_share_events"] = dict(float16=idle16, bfloat16=idle_bf16)
+    log(f"[amp16] DataParallel replay: median {dp_res['median_step_ms']:.2f}"
+        f" ms, span {dp_res['replay_span_ms']:.2f} ms on the card, idle "
+        f"share {idle16:.4f} (CUDA events); [train dp amp] (bf16) of this "
+        f"run: median {dp_amp['median_step_ms']:.2f} ms, span "
+        f"{dp_amp['replay_span_ms']:.2f} ms, idle share {idle_bf16:.4f}")
+    for k, n in dp_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in dp_layouts.items():
+        for name, n in v.items():
+            layouts[k][name] = layouts[k].get(name, 0) + n
+    torch.cuda.empty_cache()
+
+    # a float16 net with f32 master weights
+    net = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev, seed=0)
+    net.cast("float16")
+    mp_trainer = Trainer(net.collect_params(), "adam",
+                         {"learning_rate": TRAIN_LR,
+                          "multi_precision": True})
+    params = sorted(net.collect_params().items())
+    exact = []
+
+    def masters_exact():
+        ok = True
+        for i, (_, prm) in enumerate(params):
+            st = mp_trainer._states[i]
+            if st is None:
+                continue
+            ok &= (isinstance(st, tuple)
+                   and st[0].dtype == torch.float32
+                   and torch.equal(prm._data._data, st[0].half()))
+        return ok
+
+    mxrandom.seed(1)
+    mp_losses, _, mp_overflows, _ = _scaled_loop(
+        torch, net, mp_trainer, tokens, labels, MP_STEPS,
+        "[amp16] multi-precision", F16_LAYOUT_LAUNCHES, amp16=False,
+        after_step=lambda: exact.append(masters_exact()))
+    for k, n in STEP_LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + n * MP_STEPS
+    for k, v in F16_LAYOUT_LAUNCHES.items():
+        for name, n in v.items():
+            layouts[k][name] = layouts[k].get(name, 0) + n * MP_STEPS
+    check(all(math.isfinite(v) for v in mp_losses) and exact and all(exact),
+          f"[amp16] multi-precision: losses {mp_losses}, every float16 "
+          f"weight its master's cast after each step: {exact}")
+    check(sum(mp_losses[-3:]) < sum(mp_losses[:3]),
+          "[amp16] multi-precision: the loss did not fall")
+    log(f"[amp16] net.cast('float16') + Trainer('adam', multi_precision): "
+        f"loss " + ", ".join(f"{v:.4f}" for v in mp_losses)
+        + f"; {mp_overflows} overflow(s) skipped; after each of "
+        f"{len(exact)} steps every float16 weight equals its f32 master's "
+        f"cast bit for bit; the row kernels all-f16 ({F16_LAYOUT_LAUNCHES} "
+        f"a step)")
+    res["multi_precision"] = dict(losses=mp_losses, overflows=mp_overflows,
+                                  masters_exact=all(exact))
+    res["seconds"] = time.perf_counter() - start_s
+    del net, mp_trainer
+    return res, launches, layouts
+
+
+# -- [dense]: BERT's dense-mask path, BERTClassifier, GPT's untied head -------
+
+# the dense path against the flash path on the same weights, p = 0: f32
+# (both f32-accurate: cuBLAS in full f32, the flash kernels 3xTF32) the
+# scores and every gradient within 1e-3 of their largest magnitude (12
+# layers, sums in other orders); under bf16 AMP the dense path rounds the
+# scores to bf16 (its batch_dot's output, as the reference's) where the
+# flash kernels keep them f32, so normwise 2^-4 for the scores and the
+# gradients together (each side lies about that far from its f32 run,
+# `tests/test_torch_amp.py`)
+DENSE_F32_TOL = 1e-3
+DENSE_AMP_TOL = 2.0 ** -4
+DENSE_STEPS, CLASSIFIER_STEPS = 5, 10
+
+
+def _dense_pair_step(torch, models, tokens, labels, vl, target=None):
+    """Scores and gradients of one MLM step of each model."""
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    out = []
+    for model in models:
+        grads_to_none(model)
+        if target:
+            amp.init(target)
+        try:
+            with autograd.train_mode():
+                scores = model(tokens, None, vl)[0]
+                loss = SoftmaxCrossEntropyLoss()(scores, labels)
+            loss.backward(torch.ones_like(loss))
+        finally:
+            amp.deinit()
+        out.append((scores.detach().float(),
+                    {n: p.grad.float() for n, p in model.named_parameters()
+                     if p.grad is not None}))
+    return out
+
+
+def phase_dense(torch, dev):
+    """[dense]: BERT-base ``use_flash=False`` at 64 x 128 with ragged
+    valid_length against the flash model on the same weights (f32 and
+    bf16 AMP, p = 0), its K5 launches on the probabilities at p = 0.1 and
+    both paths' step times; BERTClassifier over that encoder, 10
+    fine-tuning steps; gpt2_small with ``tie_weights=False`` and its head
+    set to the embedding's copy through ``GPTModel.generate`` and a
+    ``ServeEngine``, the tied model's tokens, one decode capture, and a
+    recapture after a new tensor is bound to ``lm_head.weight``."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import (BERTClassifier,
+                                                        bert_base)
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+
+    start_s = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    vl = torch.randint(TRAIN_T // 4, TRAIN_T + 1, (TRAIN_B,), generator=g,
+                       device=dev)
+    res = {}
+    flash = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=0)
+    dense = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=0,
+                      use_flash=False)
+    dense.load_state_dict(flash.state_dict())
+    for mode, target in (("f32", None), ("amp", "bfloat16")):
+        reset_counts()
+        (sd, gd), (sf, gf) = _dense_pair_step(torch, (dense, flash), tokens,
+                                              labels, vl, target)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if mode == "f32":
+            err = (sd - sf).abs().max().item() / sf.abs().max().item()
+            gerr = max(((gd[n] - v).abs().max() / v.abs().max()
+                        .clamp_min(1e-30)).item() for n, v in gf.items())
+            ok = err <= DENSE_F32_TOL and gerr <= DENSE_F32_TOL
+            tol = f"1e-3 of the largest magnitude"
+        else:
+            err = ((sd - sf).norm() / sf.norm()).item()
+            num = sum(float((gd[n] - v).norm() ** 2) for n, v in gf.items())
+            gerr = (num / sum(float(v.norm() ** 2)
+                              for v in gf.values())) ** 0.5
+            ok = err <= DENSE_AMP_TOL and gerr <= DENSE_AMP_TOL
+            tol = "2^-4 normwise"
+        check(sorted(gd) == sorted(gf), f"[dense] {mode}: gradients of "
+              f"other parameters")
+        # the flash model's call launched K1/K2; the dense one none
+        check(counts["K1"] == 12 and counts["K2"] == 36,
+              f"[dense] {mode}: launches {counts}")
+        log(f"[dense] {mode} p=0, {TRAIN_B} x {TRAIN_T}, ragged valid_length"
+            f" ({int(vl.min())}..{int(vl.max())}): dense path vs the flash "
+            f"path on the same weights: MLM scores {err:.3e}, gradients "
+            f"{gerr:.3e} ({tol}: {'ok' if ok else 'EXCEEDED'}); launches of "
+            f"both steps {counts} (K1/K2 the flash model's only)")
+        check(ok, f"[dense] {mode}: the dense path disagrees with the flash "
+              f"path")
+        res[mode] = dict(score_err=err, grad_err=gerr)
+    del flash
+    torch.cuda.empty_cache()
+
+    # dropout 0.1: K5 on the probabilities (N*H, T, T) at every layer
+    shapes = []
+    kernel = dp._kernel
+
+    def recording(x, key, p):
+        shapes.append(tuple(x.shape))
+        return kernel(x, key, p)
+
+    dp._kernel = recording
+    try:
+        dense_p = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
+                            seed=0, use_flash=False)
+        mxrandom.seed(0)
+        reset_counts()
+        _dense_pair_step(torch, (dense_p,), tokens, labels, vl)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        dp._kernel = kernel
+    probs = sum(s == (TRAIN_B * H, TRAIN_T, TRAIN_T) for s in shapes)
+    want = dict(STEP_LAUNCHES, K1=0, K2=0)
+    check(counts == want and probs == 24,
+          f"[dense] p={TRAIN_P}: launches {counts} (expected {want}), K5 on "
+          f"the probabilities {probs} times (expected 12 forward + 12 "
+          f"backward)")
+    res["launches_p01_step"] = dense_launches = counts
+    log(f"[dense] p={TRAIN_P}: launches a step {counts}; K5 on the "
+        f"({TRAIN_B * H}, {TRAIN_T}, {TRAIN_T}) probabilities {probs} times "
+        f"(12 forward, 12 backward)")
+
+    # both paths' step times under bf16 AMP at p = 0.1, Trainer("adam")
+    times = {}
+    for name, use_flash in (("dense", False), ("flash", True)):
+        model = dense_p if not use_flash else bert_base(
+            max_length=TRAIN_T, dropout=TRAIN_P, device=dev, seed=0)
+        trainer = Trainer(model.collect_params(),
+                          Adam(learning_rate=TRAIN_LR))
+        walls = []
+        for _ in range(WARMUP + DENSE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _dense_pair_step(torch, (model,), tokens, labels, vl,
+                             "bfloat16")
+            trainer.step(TRAIN_B)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        timed = sorted(walls[WARMUP:])
+        times[name] = timed[len(timed) // 2]
+        del trainer
+        if use_flash:
+            del model
+    log(f"[dense] step under bf16 AMP at p={TRAIN_P}, {TRAIN_B} x "
+        f"{TRAIN_T}, Trainer('adam'), median of {DENSE_STEPS}: dense "
+        f"{times['dense']:.2f} ms, flash {times['flash']:.2f} ms")
+    res["step_ms"] = times
+    torch.cuda.empty_cache()
+
+    # BERTClassifier over the dense encoder, 10 fine-tuning steps
+    clf = BERTClassifier(dense_p.encoder, 2, dropout=TRAIN_P, seed=4)
+    y = torch.randint(0, 2, (TRAIN_B,), generator=g, device=dev)
+    trainer = Trainer(clf.collect_params(), "adam",
+                      {"learning_rate": TRAIN_LR})
+    ce = SoftmaxCrossEntropyLoss()
+    clf_losses = []
+    mxrandom.seed(2)
+    for _ in range(CLASSIFIER_STEPS):
+        grads_to_none(clf)
+        with autograd.train_mode():
+            loss = ce(clf(tokens, None, vl), y)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(TRAIN_B)
+        clf_losses.append(loss.mean().item())
+    check(all(math.isfinite(v) for v in clf_losses)
+          and sum(clf_losses[-3:]) < sum(clf_losses[:3]),
+          f"[dense] BERTClassifier: the loss did not fall: {clf_losses}")
+    log(f"[dense] BERTClassifier(2 classes, dropout {TRAIN_P}) over the "
+        f"dense encoder, {CLASSIFIER_STEPS} Adam steps on one batch: loss "
+        + ", ".join(f"{v:.4f}" for v in clf_losses))
+    res["classifier_losses"] = clf_losses
+    del clf, trainer, dense, dense_p
+    torch.cuda.empty_cache()
+
+    # gpt2_small with its own head, set to a copy of the embedding
+    tied = gpt2_small(device=dev, seed=0).eval()
+    untied = gpt2_small(device=dev, seed=0, tie_weights=False).eval()
+    own = untied.collect_params()
+    for n, prm in tied.collect_params().items():
+        own[n].set_data(prm._data._data)
+    untied.lm_head.weight.set_data(tied.word_embed.weight._data._data.clone())
+    batch, t0, new = REQUESTS[0]
+    prompt = torch.randint(0, VOCAB, (batch, t0), generator=g, device=dev)
+    with torch.no_grad():
+        a = untied.generate(prompt, new)
+        b = tied.generate(prompt, new)
+    same_gen = torch.equal(a, b)
+    check(same_gen, "[dense] untied GPT: generate differs from the tied "
+          "model's")
+    prompts, budgets, _ = _serve_trace_a(onp)
+    outs, engines = [], []
+    for model in (untied, tied):
+        e = serve.ServeEngine(model, max_slots=SERVE_SLOTS,
+                              max_len=SERVE_MAX_LEN)
+        handles = [e.submit(p, n) for p, n in zip(prompts[:8], budgets[:8])]
+        e._drive_until(handles)
+        outs.append([list(h.result()) for h in handles])
+        engines.append(e)
+    slots = engines[0]._sched.slots
+    captures = dict(slots.captures_by_step)
+    same_serve = outs[0] == outs[1]
+    # a new tensor bound to lm_head.weight: the decode graph is captured
+    # again at the next step, and the tokens stay the tied model's
+    untied.lm_head.weight._bind(untied.lm_head.weight._data._data.clone())
+    again = engines[0].generate(prompts[0], budgets[0])[len(prompts[0]):]
+    recaptured = slots.captures_by_step["decode"]
+    same_after = list(again) == outs[1][0]
+    for e in engines:
+        e.shutdown(drain=False)
+    check(same_serve and captures["decode"] == 1 and recaptured == 2
+          and same_after,
+          f"[dense] untied GPT engine: tokens equal {same_serve}, decode "
+          f"captures {captures} then {recaptured} after the swap, tokens "
+          f"after the swap equal {same_after}")
+    log(f"[dense] gpt2_small(tie_weights=False), lm_head = a copy of the "
+        f"embedding: generate {batch} x {t0} -> {new} new tokens equal the "
+        f"tied model's: {same_gen}; ServeEngine over trace A's first 8 "
+        f"requests: tokens equal the tied engine's: {same_serve}, decode "
+        f"captured {captures['decode']} time(s); a new tensor bound to "
+        f"lm_head.weight: captured again ({recaptured}), tokens still "
+        f"equal: {same_after}")
+    res["gpt_untied"] = dict(generate_equal=same_gen,
+                             engine_equal=same_serve,
+                             decode_captures=captures["decode"],
+                             recaptures_after_swap=recaptured - 1)
+    res["seconds"] = time.perf_counter() - start_s
+    del tied, untied, engines
+    torch.cuda.empty_cache()
+    return res, dense_launches
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
-    layout ("f32 x, bf16 h, f32 gamma") where it has one."""
+    layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
+    case's "bthd"/"bhtd" names its axes, not its dtypes)."""
     layout = c.get("layout", "")
+    if layout in ("bthd", "bhtd"):
+        layout = ""
     row = dict(shape=shape,
-               dtype=_dt(c["dtype"]) if layout in ("", "f32", "bf16")
+               dtype=_dt(c["dtype"]) if layout in ("", "f32", "bf16", "f16")
                else layout,
                max_abs_err=c["max_abs_err"],
                norm_rel_err=c["norm_rel_err"], ms=c["ms"],
@@ -6213,6 +6912,20 @@ def main():
             by_layout.setdefault(k, {})
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [gluon]'s launches {glu_launches}: {launches}")
+    amp16, amp16_launches, amp16_layouts = phase_amp16(torch, dev, dp_amp)
+    torch.cuda.empty_cache()
+    dense, dense_launches = phase_dense(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in dense_launches.items():
+        amp16_launches[k] = amp16_launches.get(k, 0) + n
+    for k, n in amp16_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in amp16_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [amp16]'s and [dense]'s p = 0.1 step's launches "
+        f"{amp16_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -6248,6 +6961,8 @@ def main():
     log(json.dumps({"gelu_dropout": gd_path}))
     log(json.dumps({"nd": nd}))
     log(json.dumps({"gluon": glu}))
+    log(json.dumps({"amp16": amp16}, default=str))
+    log(json.dumps({"dense": dense}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

@@ -1,16 +1,20 @@
-"""AMP: automatic mixed precision, bfloat16 target (port of
+"""AMP: automatic mixed precision, bfloat16 or float16 target (port of
 `incubator_mxnet_tpu/amp/__init__.py`; reference: `python/mxnet/amp/amp.py`,
 the lists of `amp/lists/symbol_bf16.py`).
 
 Under :func:`init` the inputs of the matmul-class ops in
-:data:`TARGET_DTYPE_OPS` are cast from float32 to bfloat16, so the products
-run on the tensor cores in bf16, and the ops of :data:`FP32_OPS` take
+:data:`TARGET_DTYPE_OPS` are cast from float32 to the target dtype
+(bfloat16 by default, or float16: the reference MXNet's own AMP on
+NVIDIA cards), so the products run on the tensor cores in it, and the
+ops of :data:`FP32_OPS` take
 float32; every other op computes in the dtypes it is given, with PyTorch's
-promotion, which is JAX's for two tensors (a bf16 product added to an f32
-tensor is f32). So BERT's residual stream stays float32 and only its
-products are bf16: the fused residual + dropout + LayerNorm kernels take
-an f32 x with a bf16 h, and the MLM head's LayerNorm a bf16 x, both with
-f32 gamma/beta (`ops/layer_norm.py` ``LAYOUTS``, ``RESIDUAL_LAYOUTS``).
+promotion, which is JAX's for two tensors (a bf16 or f16 product added to
+an f32 tensor is f32). So BERT's residual stream stays float32 and only
+its products are in the target dtype: the fused residual + dropout +
+LayerNorm kernels take an f32 x with a bf16 or f16 h, and the MLM head's
+LayerNorm a bf16 or f16 x, both with f32 gamma/beta (`ops/layer_norm.py`
+``LAYOUTS``, ``RESIDUAL_LAYOUTS``); every kernel takes float16 as it
+takes bfloat16.
 Parameters stay float32: the casts are differentiable, so gradients come
 back float32.
 
@@ -26,10 +30,13 @@ with NDArrays leaves the cast to the funnel, so nothing is cast twice. ``torch.a
 reference's (it runs layer_norm in f32) and it does not reach the port's
 kernels.
 
-The float16 target needs float16 kernels and master weights
-(``multi_precision``), which are not ported: :func:`init` raises for it.
 Loss scaling (:class:`scale_loss`, :class:`LossScaler`) is the
-reference's, optional for bf16.
+reference's: ``scale_loss`` multiplies the loss by ``loss_scale`` (2^16)
+and folds 1/loss_scale into the trainer's next step; it never updates
+the scale and skips no step. A loop that wants dynamic scaling (float16)
+calls ``LossScaler.has_overflow`` and ``update_scale`` itself, as MXNet
+users do. float16 parameters (``net.cast("float16")``) train with f32
+master weights through ``Trainer(..., {"multi_precision": True})``.
 """
 from __future__ import annotations
 
@@ -37,12 +44,11 @@ import threading
 
 import torch
 
-from ..base import MXNetError
 from .loss_scaler import LossScaler
 
 __all__ = ["init", "deinit", "scale_loss", "unscale", "convert_model",
            "convert_hybrid_block", "LossScaler", "amp_active", "amp_dtype",
-           "lists", "op_cast_mode", "cast_vals", "cast_inputs",
+           "lists", "op_cast_mode", "cast_vals", "cast_inputs", "state_key",
            "cast_for_matmul", "TARGET_DTYPE_OPS", "FP32_OPS"]
 
 
@@ -88,9 +94,6 @@ class lists:
 def _check_target(target_dtype):
     if target_dtype not in ("bfloat16", "float16"):
         raise ValueError("target_dtype must be bfloat16 or float16")
-    if target_dtype == "float16":
-        raise MXNetError("float16 kernels are not ported (ROADMAP §2a "
-                         "item 2)")
 
 
 def op_cast_mode(name):
@@ -117,6 +120,11 @@ def cast_vals(mode, vals):
             else v for v in vals]
 
 
+def state_key():
+    """The AMP state as a hashable key (active, target dtype name)."""
+    return (_STATE.active, _STATE.dtype)
+
+
 def cast_inputs(name, *vals):
     """The inputs of the op ``name`` as AMP has it take them (the
     reference's funnel cast): ``vals`` themselves when AMP is off or the
@@ -126,8 +134,8 @@ def cast_inputs(name, *vals):
 
 
 def init(target_dtype="bfloat16"):
-    """Enable mixed precision in this thread (reference: amp.init). Only
-    "bfloat16" is ported; "float16" raises :class:`MXNetError`."""
+    """Enable mixed precision in this thread (reference: amp.init), with
+    target "bfloat16" or "float16"."""
     _check_target(target_dtype)
     _STATE.active = True
     _STATE.dtype = target_dtype
@@ -217,7 +225,7 @@ def convert_hybrid_block(net, target_dtype="bfloat16",
     HybridBlock runs ``net`` under AMP with float32 inputs cast on entry
     and outputs restored to float32 (NDArrays or tensors). AMP stays
     active for the wrapped forward: LayerNorm's f32 outputs would
-    otherwise promote later bf16-weight products back to f32, and the
+    otherwise promote later low-precision products back to f32, and the
     listed ops' casts re-lower those activations."""
     _check_target(target_dtype)
     from ..gluon import nn as gnn

@@ -7,6 +7,17 @@ import torch
 __all__ = ["LossScaler"]
 
 
+def _grad_of(p):
+    """The gradient tensor of a Parameter, NDArray or tensor, or None."""
+    t = p
+    if hasattr(p, "grad_req"):            # a gluon Parameter
+        if p._data is None:
+            return None
+        t = p._data
+    t = getattr(t, "_data", t)            # an NDArray's tensor
+    return t.grad if isinstance(t, torch.Tensor) else None
+
+
 class LossScaler:
     """The loss scale and its update rule: halve it (down to
     ``min_scale``) on an overflow, double it after ``scale_window`` steps
@@ -21,12 +32,19 @@ class LossScaler:
         self._unskipped = 0
 
     def has_overflow(self, params):
-        """True if any gradient is non-finite. ``params``: tensors (or
-        parameters) whose ``.grad`` is checked where it is set. The check
-        runs on the gradients' device, one ``isfinite`` reduction a
-        gradient gathered into one flag, and syncs the host once."""
-        flags = [torch.isfinite(p.grad).all() for p in params
-                 if getattr(p, "grad", None) is not None]
+        """True if any gradient is non-finite. ``params``: gluon
+        Parameters (``collect_params()`` or its values), NDArrays or
+        tensors; each gradient is read where it is set (a Parameter's is
+        its tensor's ``.grad``). The check runs on the gradients' device:
+        one ``isfinite`` reduction a gradient, gathered into one flag, and
+        the host syncs once."""
+        if isinstance(params, dict):
+            params = params.values()
+        flags = []
+        for p in params:
+            g = _grad_of(p)
+            if g is not None:
+                flags.append(torch.isfinite(g).all())
         return bool(flags) and not bool(torch.stack(flags).all())
 
     def update_scale(self, overflow: bool):

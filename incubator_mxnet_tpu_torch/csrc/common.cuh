@@ -14,16 +14,18 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "philox.cuh"
 
 #define MX_EXPORT extern "C" __attribute__((visibility("default")))
 
 // dtype codes passed by the Python wrappers
-enum MxDtype : int { kFloat32 = 0, kBFloat16 = 1 };
+enum MxDtype : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 MX_EXPORT const char* mx_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -37,6 +39,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -48,6 +51,35 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// the two 2-byte types (bf16, f16): their pair type and its conversions
+// to and from two f32 values, rounded to nearest even
+template <typename T>
+struct Half2;
+template <>
+struct Half2<__nv_bfloat16> {
+  using pair = __nv_bfloat162;
+  static __device__ __forceinline__ float2 widen(pair v) {
+    return __bfloat1622float2(v);
+  }
+  static __device__ __forceinline__ pair narrow(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+template <>
+struct Half2<__half> {
+  using pair = __half2;
+  static __device__ __forceinline__ float2 widen(pair v) {
+    return __half22float2(v);
+  }
+  static __device__ __forceinline__ pair narrow(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+};
 
 // sum over the lanes of a group of `width` neighbouring lanes (a power of
 // two up to 32); every lane of the warp must take part
@@ -83,32 +115,33 @@ struct Vec16<float> {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
   }
 };
-template <>
-struct Vec16<__nv_bfloat16> {
+// bf16 or f16
+template <typename T>
+struct Vec16 {
+  static_assert(sizeof(T) == 2, "Vec16: f32, bf16 or f16");
+  using P = Half2<T>;
   static constexpr int n = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
+  static __device__ __forceinline__ void load(const T* p, float* out) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    const typename P::pair* h = reinterpret_cast<const typename P::pair*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
+      const float2 f = P::widen(h[i]);
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* in) {
+  static __device__ __forceinline__ void store(T* p, const float* in) {
     uint4 v;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    typename P::pair* h = reinterpret_cast<typename P::pair*>(&v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    for (int i = 0; i < 4; ++i) h[i] = P::narrow(in[2 * i], in[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = v;
   }
 };
 
 // N elements of T (N a multiple of 4) to and from f32, in 16-byte accesses,
-// or 8-byte ones for four bf16: a companion array read at the element
+// or 8-byte ones for four bf16 or f16: a companion array read at the element
 // offsets of another of a wider type (a bf16 h beside an f32 x, f32 gamma
 // beside a bf16 x) keeps that array's lane-to-column map
 template <int N>
@@ -117,19 +150,20 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) Vec16<float>::load(p + 4 * i, out + 4 * i);
 }
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
+template <int N, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
   static_assert(N % 4 == 0, "whole 8-byte vectors");
+  using P = Half2<T>;
   if constexpr (N % 8 == 0) {
 #pragma unroll
-    for (int i = 0; i < N / 8; ++i)
-      Vec16<__nv_bfloat16>::load(p + 8 * i, out + 8 * i);
+    for (int i = 0; i < N / 8; ++i) Vec16<T>::load(p + 8 * i, out + 8 * i);
   } else {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) {
       const uint2 v = *reinterpret_cast<const uint2*>(p + 4 * i);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      const typename P::pair* h =
+          reinterpret_cast<const typename P::pair*>(&v);
+      const float2 a = P::widen(h[0]), b = P::widen(h[1]);
       out[4 * i] = a.x;
       out[4 * i + 1] = a.y;
       out[4 * i + 2] = b.x;
@@ -143,20 +177,20 @@ __device__ __forceinline__ void store_vec(float* p, const float* in) {
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) Vec16<float>::store(p + 4 * i, in + 4 * i);
 }
-template <int N>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
+template <int N, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* in) {
   static_assert(N % 4 == 0, "whole 8-byte vectors");
+  using P = Half2<T>;
   if constexpr (N % 8 == 0) {
 #pragma unroll
-    for (int i = 0; i < N / 8; ++i)
-      Vec16<__nv_bfloat16>::store(p + 8 * i, in + 8 * i);
+    for (int i = 0; i < N / 8; ++i) Vec16<T>::store(p + 8 * i, in + 8 * i);
   } else {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) {
       uint2 v;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-      h[0] = __floats2bfloat162_rn(in[4 * i], in[4 * i + 1]);
-      h[1] = __floats2bfloat162_rn(in[4 * i + 2], in[4 * i + 3]);
+      typename P::pair* h = reinterpret_cast<typename P::pair*>(&v);
+      h[0] = P::narrow(in[4 * i], in[4 * i + 1]);
+      h[1] = P::narrow(in[4 * i + 2], in[4 * i + 3]);
       *reinterpret_cast<uint2*>(p + 4 * i) = v;
     }
   }
@@ -301,11 +335,20 @@ struct RawVec {
     }
   }
 
-  // exact: a bf16 is the high half of the f32 with the same value
+  // exact: a bf16 is the high half of the f32 with the same value; an f16
+  // widens through the hardware conversion
   __device__ __forceinline__ void widen(float* out) const {
     if constexpr (sizeof(T) == 4) {
 #pragma unroll
       for (int i = 0; i < N; ++i) out[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float2 f =
+            __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+        out[2 * i] = f.x;
+        out[2 * i + 1] = f.y;
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) {

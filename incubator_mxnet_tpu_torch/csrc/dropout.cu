@@ -11,7 +11,7 @@
 // mask is saved.
 //
 // Bound on the H100: bytes (read x, write y: 2 * numel * itemsize). One
-// thread per 16-byte vector (4 f32 or 8 bf16 elements: one or two Philox
+// thread per 16-byte vector (4 f32 or 8 bf16 or f16 elements: one or two Philox
 // blocks of four words), with a scalar tail when numel is not a multiple
 // of the vector width. Inputs and outputs are contiguous and 16-byte
 // aligned; the Python wrapper sees to both.
@@ -74,6 +74,8 @@ int dispatch(int dtype, const void* x, void* y, long long n,
       return launch<float>(x, y, n, key, s);
     case kBFloat16:
       return launch<__nv_bfloat16>(x, y, n, key, s);
+    case kFloat16:
+      return launch<__half>(x, y, n, key, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -27,7 +27,7 @@
 // products run on the tensor cores through `wgmma` (sm_90a, see
 // sm90.cuh): one warpgroup of 128 threads owns 64 rows (queries in the
 // forward and the dq kernel, keys in the dk/dv kernel), and every product
-// of a tile is one chain of m64nNk16 (bf16) or m64nNk8 (TF32) steps:
+// of a tile is one chain of m64nNk16 (bf16, f16) or m64nNk8 (TF32) steps:
 //
 //   forward   S = Q K^T (A, B from shared memory), then O += P V with P
 //             from registers: the S accumulator is the A fragment of the
@@ -39,10 +39,15 @@
 //
 // The online softmax runs on the accumulator fragments; a row's max and
 // sum reduce over the 4 lanes that share it. Following the reference
-// (:97, :196, :234, :236), bf16 inputs round P and dS to bf16 before the
-// second product of each pair; f32 inputs keep them f32.
+// (:97, :196, :234, :236), bf16 and f16 inputs round P and dS to their own
+// type before the second product of each pair; f32 inputs keep them f32.
+// Scores, the softmax statistics and every accumulator are f32 in all
+// three, and masked scores take the finite -1e30 in f32, so a float16 run
+// overflows only where a rounded P or dS (or an output) passes 65504.
 //
-// bf16: Q, K, V, dO are copied into 128-byte-swizzled tiles with 16-byte
+// The two 2-byte types share every tile, layout and staging path; only
+// the wgmma instruction (.bf16 or .f16) and the rounding differ, so "bf16"
+// below stands for both. bf16: Q, K, V, dO are copied into 128-byte-swizzled tiles with 16-byte
 // `cp.async` (zero-filled past d and past the last row; a chunk whose
 // source is not 16-byte aligned, e.g. odd d, is copied by scalar loads)
 // in a ring of two stages, so the next tile's copy overlaps the current
@@ -133,19 +138,19 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ---- staging ----------------------------------------------------------------
 
-// rows [r0, r0 + R) of a bf16 matrix (row stride st, d columns) into a
+// rows [r0, r0 + R) of a bf16 or f16 matrix (row stride st, d columns) into a
 // swizzled tile of depth DP with 16-byte cp.async. A tile whose rows are
 // all in range, with d = DP and 16-byte aligned rows, takes the plain
 // loop; otherwise each chunk is zero-filled past d, a chunk whose source
 // is not 16-byte aligned is copied by scalar loads, and rows at or past
 // n_rows are zeros. The caller commits and waits.
 template <int R, int DP>
-__device__ __forceinline__ void load_bf16(uint8_t* tile,
-                                          const __nv_bfloat16* src,
-                                          long long st, int r0, int n_rows,
-                                          int d) {
+__device__ __forceinline__ void load_h16(uint8_t* tile, const void* src_any,
+                                         long long st, int r0, int n_rows,
+                                         int d) {
   constexpr int CH = DP / 8;
-  const __nv_bfloat16* base = src + static_cast<long long>(r0) * st;
+  const uint16_t* src = static_cast<const uint16_t*>(src_any);
+  const uint16_t* base = src + static_cast<long long>(r0) * st;
   const bool full =
       r0 + R <= n_rows && d == DP &&
       ((reinterpret_cast<uintptr_t>(base) | static_cast<uintptr_t>(2 * st)) &
@@ -164,16 +169,15 @@ __device__ __forceinline__ void load_bf16(uint8_t* tile,
     const int r = idx / CH, c = idx % CH;
     const int n = r0 + r < n_rows ? min(max(d - 8 * c, 0), 8) : 0;
     uint8_t* dst = tile + swz(R, r, 16 * c);
-    const __nv_bfloat16* p = base + r * st + 8 * c;
+    const uint16_t* p = base + r * st + 8 * c;
     if (n > 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
       cp_async16(smem_u32(dst), p, 2 * n);
     } else {
       uint32_t w[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const uint32_t lo = 2 * e < n ? __bfloat16_as_ushort(p[2 * e]) : 0u;
-        const uint32_t hi =
-            2 * e + 1 < n ? __bfloat16_as_ushort(p[2 * e + 1]) : 0u;
+        const uint32_t lo = 2 * e < n ? p[2 * e] : 0u;
+        const uint32_t hi = 2 * e + 1 < n ? p[2 * e + 1] : 0u;
         w[e] = lo | (hi << 16);
       }
       *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -306,11 +310,11 @@ __device__ __forceinline__ void product_ss(float (&acc)[N / 2], uint32_t a,
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     if constexpr (Op<T>::kF32) {
-      mma_ss<true, N>(acc, desc_k(a + a_lo, a_rows, ks), desc_k(b, N, ks));
-      mma_ss<true, N>(acc, desc_k(a, a_rows, ks), desc_k(b + b_lo, N, ks));
-      mma_ss<true, N>(acc, desc_k(a, a_rows, ks), desc_k(b, N, ks));
+      mma_ss<float, N>(acc, desc_k(a + a_lo, a_rows, ks), desc_k(b, N, ks));
+      mma_ss<float, N>(acc, desc_k(a, a_rows, ks), desc_k(b + b_lo, N, ks));
+      mma_ss<float, N>(acc, desc_k(a, a_rows, ks), desc_k(b, N, ks));
     } else {
-      mma_ss<false, N>(acc, desc_k(a, a_rows, ks), desc_k(b, N, ks));
+      mma_ss<T, N>(acc, desc_k(a, a_rows, ks), desc_k(b, N, ks));
     }
   }
 }
@@ -338,7 +342,7 @@ struct RegProduct {
     } else {
 #pragma unroll
       for (int i = 0; i < BT / 4; ++i)
-        hi[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+        hi[i] = pack2<T>(x[2 * i], x[2 * i + 1]);
     }
   }
 
@@ -349,15 +353,15 @@ struct RegProduct {
       for (int j = 0; j < BT / 8; ++j) {
         const uint32_t* h = hi + 4 * j;
         const uint32_t* l = lo + 4 * j;
-        mma_rs<true, DP>(acc, l[0], l[1], l[2], l[3], desc_k(b, DP, j));
-        mma_rs<true, DP>(acc, h[0], h[1], h[2], h[3], desc_k(b + b_lo, DP, j));
-        mma_rs<true, DP>(acc, h[0], h[1], h[2], h[3], desc_k(b, DP, j));
+        mma_rs<float, DP>(acc, l[0], l[1], l[2], l[3], desc_k(b, DP, j));
+        mma_rs<float, DP>(acc, h[0], h[1], h[2], h[3], desc_k(b + b_lo, DP, j));
+        mma_rs<float, DP>(acc, h[0], h[1], h[2], h[3], desc_k(b, DP, j));
       }
     } else {
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk) {
         const uint32_t* h = hi + 4 * kk;
-        mma_rs<false, DP>(acc, h[0], h[1], h[2], h[3], desc_mn(b, BT, kk));
+        mma_rs<T, DP>(acc, h[0], h[1], h[2], h[3], desc_mn(b, BT, kk));
       }
     }
   }
@@ -400,8 +404,8 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, long long st,
         if constexpr (Op<T>::kF32)
           *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
         else
-          *reinterpret_cast<__nv_bfloat162*>(at) =
-              __floats2bfloat162_rn(x0, x1);
+          *reinterpret_cast<typename mx::Half2<T>::pair*>(at) =
+              mx::Half2<T>::narrow(x0, x1);
       } else {
         if (col < d) at[0] = mx::from_float<T>(x0);
         if (col + 1 < d) at[1] = mx::from_float<T>(x1);
@@ -467,10 +471,10 @@ __global__ void __launch_bounds__(kThreads)
       vr.load(vb, svt, 0, Tk, d);
     }
   } else {
-    load_bf16<kRows, DP>(qs, qb, sqt, q0, Tq, d);
+    load_h16<kRows, DP>(qs, qb, sqt, q0, Tq, d);
     if (n_tiles > 0) {
-      load_bf16<BT, DP>(kv, kb, skt, 0, Tk, d);
-      load_bf16<BT, DP>(kv + L::KT, vb, svt, 0, Tk, d);
+      load_h16<BT, DP>(kv, kb, skt, 0, Tk, d);
+      load_h16<BT, DP>(kv + L::KT, vb, svt, 0, Tk, d);
     }
     cp_async_commit();
   }
@@ -513,8 +517,8 @@ __global__ void __launch_bounds__(kThreads)
         }
       } else {
         uint8_t* nk = kv + ((t + 1) & 1) * 2 * L::KT;
-        load_bf16<BT, DP>(nk, kb, skt, k0 + BT, Tk, d);
-        load_bf16<BT, DP>(nk + L::KT, vb, svt, k0 + BT, Tk, d);
+        load_h16<BT, DP>(nk, kb, skt, k0 + BT, Tk, d);
+        load_h16<BT, DP>(nk + L::KT, vb, svt, k0 + BT, Tk, d);
       }
     }
     if constexpr (!F32) cp_async_commit();
@@ -730,11 +734,11 @@ __global__ void __launch_bounds__(kThreads)
       vr.load(vb, st.v.t, 0, Tk, d);
     }
   } else {
-    load_bf16<kRows, DP>(qs, qb, st.q.t, q0, Tq, d);
-    load_bf16<kRows, DP>(dos, dob, st.dO.t, q0, Tq, d);
+    load_h16<kRows, DP>(qs, qb, st.q.t, q0, Tq, d);
+    load_h16<kRows, DP>(dos, dob, st.dO.t, q0, Tq, d);
     if (n_tiles > 0) {
-      load_bf16<BT, DP>(kv, kb, st.k.t, 0, Tk, d);
-      load_bf16<BT, DP>(kv + L::KT, vb, st.v.t, 0, Tk, d);
+      load_h16<BT, DP>(kv, kb, st.k.t, 0, Tk, d);
+      load_h16<BT, DP>(kv + L::KT, vb, st.v.t, 0, Tk, d);
     }
     cp_async_commit();
   }
@@ -785,8 +789,8 @@ __global__ void __launch_bounds__(kThreads)
         }
       } else {
         uint8_t* nk = kv + ((t + 1) & 1) * 2 * L::KT;
-        load_bf16<BT, DP>(nk, kb, st.k.t, k0 + BT, Tk, d);
-        load_bf16<BT, DP>(nk + L::KT, vb, st.v.t, k0 + BT, Tk, d);
+        load_h16<BT, DP>(nk, kb, st.k.t, k0 + BT, Tk, d);
+        load_h16<BT, DP>(nk + L::KT, vb, st.v.t, k0 + BT, Tk, d);
       }
     }
     if constexpr (!F32) cp_async_commit();
@@ -889,9 +893,9 @@ __global__ void __launch_bounds__(kThreads)
   // copy one query tile (bf16) into ring slot `slot`
   auto load_q_tile = [&](int q0, int slot) {
     uint8_t* qt = qd + slot * 2 * L::QT;
-    load_bf16<BT, DP>(qt, reinterpret_cast<const __nv_bfloat16*>(qb),
+    load_h16<BT, DP>(qt, (qb),
                       st.q.t, q0, Tq, d);
-    load_bf16<BT, DP>(qt + L::QT, reinterpret_cast<const __nv_bfloat16*>(dob),
+    load_h16<BT, DP>(qt + L::QT, (dob),
                       st.dO.t, q0, Tq, d);
     float* sl = stats + slot * 2 * BT;
     for (int i = threadIdx.x; i < BT; i += kThreads) {
@@ -916,12 +920,12 @@ __global__ void __launch_bounds__(kThreads)
     KTile::template copy<false>(v + b * st.v.b + h * st.v.h, st.v.t, k0, Tk,
                                 d, vs, vs + L::KT);
   } else {
-    load_bf16<kRows, DP>(ks,
-                         reinterpret_cast<const __nv_bfloat16*>(
+    load_h16<kRows, DP>(ks,
+                         (
                              k + b * st.k.b + h * st.k.h),
                          st.k.t, k0, Tk, d);
-    load_bf16<kRows, DP>(vs,
-                         reinterpret_cast<const __nv_bfloat16*>(
+    load_h16<kRows, DP>(vs,
+                         (
                              v + b * st.v.b + h * st.v.h),
                          st.v.t, k0, Tk, d);
     if (n_q > 0) load_q_tile(q_begin, 0);
@@ -1170,6 +1174,9 @@ MX_EXPORT int mx_flash_attention_fwd(
     case kBFloat16:
       return dispatch<__nv_bfloat16>(q, k, v, o, lse, lengths, st, B, H, Tq,
                                      Tk, d, sm_scale, causal, s);
+    case kFloat16:
+      return dispatch<__half>(q, k, v, o, lse, lengths, st, B, H, Tq, Tk, d,
+                              sm_scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1202,6 +1209,10 @@ MX_EXPORT int mx_flash_attention_bwd(
       return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dO, lse, delta, dq, dk,
                                          dv, lengths, st, B, H, Tq, Tk, d,
                                          sm_scale, causal, s);
+    case kFloat16:
+      return dispatch_bwd<__half>(q, k, v, o, dO, lse, delta, dq, dk, dv,
+                                  lengths, st, B, H, Tq, Tk, d, sm_scale,
+                                  causal, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -32,10 +32,10 @@
 // width; the Python wrapper checks both and the 16-byte alignment.
 //
 // Layouts (x, y, dx and dy; h and dh; gamma/beta and dgamma/dbeta): all
-// float32, all bfloat16, and float32 x with bfloat16 h and float32
-// gamma/beta, which AMP feeds both residual sites of a BERT cell (the
-// residual stream stays f32, the attention and FFN outputs are bf16
-// products): 10 bytes an element forward, 16 backward. A lane's vectors
+// float32, all bfloat16, all float16, and float32 x with bfloat16 or
+// float16 h and float32 gamma/beta, which AMP feeds both residual sites
+// of a BERT cell (the residual stream stays f32, the attention and FFN
+// outputs are products in the AMP dtype): 10 bytes an element forward, 16 backward. A lane's vectors
 // follow x's width, so h is read 8 bytes at a time at x's offsets, and
 // the mask is the one the f32 layout and K5 draw for the same key.
 //
@@ -82,7 +82,8 @@ cudaError_t bwd(int mode, const void* x, const void* h, const void* dy,
 }
 
 // the layout of (dtype, h_dtype, param_dtype): 0 all f32, 1 all bf16,
-// 2 f32 x with bf16 h and f32 gamma/beta, -1 one not instantiated
+// 2 f32 x with bf16 h and f32 gamma/beta, 3 all f16, 4 f32 x with f16 h
+// and f32 gamma/beta, -1 one not instantiated
 int layout(int dtype, int h_dtype, int param_dtype) {
   if (dtype == kFloat32 && h_dtype == kFloat32 && param_dtype == kFloat32)
     return 0;
@@ -91,6 +92,10 @@ int layout(int dtype, int h_dtype, int param_dtype) {
     return 1;
   if (dtype == kFloat32 && h_dtype == kBFloat16 && param_dtype == kFloat32)
     return 2;
+  if (dtype == kFloat16 && h_dtype == kFloat16 && param_dtype == kFloat16)
+    return 3;
+  if (dtype == kFloat32 && h_dtype == kFloat16 && param_dtype == kFloat32)
+    return 4;
   return -1;
 }
 
@@ -112,6 +117,13 @@ int fwd_entry(int dtype, int h_dtype, int param_dtype, int mode,
       return fwd<float, __nv_bfloat16, float>(mode, x, h, gamma, beta, y,
                                               mean, rstd, rows, cols, eps,
                                               blocks, key, s);
+    case 3:
+      return fwd<__half, __half, __half>(mode, x, h, gamma, beta, y, mean,
+                                         rstd, rows, cols, eps, blocks, key,
+                                         s);
+    case 4:
+      return fwd<float, __half, float>(mode, x, h, gamma, beta, y, mean, rstd,
+                                       rows, cols, eps, blocks, key, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -136,6 +148,14 @@ int bwd_entry(int dtype, int h_dtype, int param_dtype, int mode,
       return bwd<float, __nv_bfloat16, float>(mode, x, h, dy, mean, rstd,
                                               gamma, dx, dh, partials, dgb,
                                               rows, cols, nblocks, key, s);
+    case 3:
+      return bwd<__half, __half, __half>(mode, x, h, dy, mean, rstd, gamma,
+                                         dx, dh, partials, dgb, rows, cols,
+                                         nblocks, key, s);
+    case 4:
+      return bwd<float, __half, float>(mode, x, h, dy, mean, rstd, gamma, dx,
+                                       dh, partials, dgb, rows, cols, nblocks,
+                                       key, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -20,7 +20,7 @@
 // element at that bound; Philox and Phi take most of them (erff's
 // two-range form, with its per-range coefficients, took more than all of
 // them), and the design spends as few instructions as it can outside
-// them: a thread takes kVecs 16-byte vectors (4 f32 or 8 bf16 elements each, a
+// them: a thread takes kVecs 16-byte vectors (4 f32 or 8 bf16 or f16 elements each, a
 // block's vectors side by side so a warp's loads are contiguous) and
 // issues all its loads before any arithmetic, and only the last block
 // checks the end of the tensor, vector by vector, with a scalar tail when
@@ -33,7 +33,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-// 16-byte vectors a thread: 2 in bf16 (16 elements), 1 in f32 (4), the
+// 16-byte vectors a thread: 2 in bf16 and f16 (16 elements), 1 in f32 (4), the
 // faster of 1, 2 and 4 on the H100 for each (kernel_ablation.py)
 template <typename T>
 constexpr int kVecs = sizeof(T) == 2 ? 2 : 1;
@@ -198,6 +198,8 @@ cudaError_t dispatch(int dtype, const void* u, const void* dy, void* out,
       return launch<float>(u, dy, out, n, drop != 0, key, s);
     case kBFloat16:
       return launch<__nv_bfloat16>(u, dy, out, n, drop != 0, key, s);
+    case kFloat16:
+      return launch<__half>(u, dy, out, n, drop != 0, key, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -34,10 +34,11 @@
 // them in gamma's dtype. C is at most 4096 and a multiple of the vector
 // width; the Python wrapper checks both and the 16-byte alignment.
 //
-// Layouts (x and y, gamma/beta): both float32, both bfloat16, and
-// bfloat16 x with float32 gamma/beta, which AMP feeds the MLM head's
-// LayerNorm (`models/bert.py` mlm_ln): the row is read and written in
-// bf16, gamma/beta and dgamma/dbeta are f32.
+// Layouts (x and y, gamma/beta): both float32, both bfloat16, both
+// float16, and bfloat16 or float16 x with float32 gamma/beta, which AMP
+// feeds the MLM head's LayerNorm (`models/bert.py` mlm_ln): the row is
+// read and written in the 2-byte type, gamma/beta and dgamma/dbeta are
+// f32.
 #include "common.cuh"
 
 namespace {
@@ -80,6 +81,12 @@ MX_EXPORT int mx_layer_norm_fwd(int dtype, int param_dtype, const void* x,
   if (dtype == kBFloat16 && param_dtype == kFloat32)
     return fwd<__nv_bfloat16, float>(x, gamma, beta, y, mean, rstd, rows,
                                      cols, eps, blocks, s);
+  if (dtype == kFloat16 && param_dtype == kFloat16)
+    return fwd<__half, __half>(x, gamma, beta, y, mean, rstd, rows, cols, eps,
+                               blocks, s);
+  if (dtype == kFloat16 && param_dtype == kFloat32)
+    return fwd<__half, float>(x, gamma, beta, y, mean, rstd, rows, cols, eps,
+                              blocks, s);
   return cudaErrorInvalidValue;
 }
 
@@ -105,5 +112,11 @@ MX_EXPORT int mx_layer_norm_bwd(int dtype, int param_dtype, const void* x,
   if (dtype == kBFloat16 && param_dtype == kFloat32)
     return bwd<__nv_bfloat16, float>(x, dy, mean, rstd, gamma, dx, partials,
                                      dgb, rows, cols, nblocks, s);
+  if (dtype == kFloat16 && param_dtype == kFloat16)
+    return bwd<__half, __half>(x, dy, mean, rstd, gamma, dx, partials, dgb,
+                               rows, cols, nblocks, s);
+  if (dtype == kFloat16 && param_dtype == kFloat32)
+    return bwd<__half, float>(x, dy, mean, rstd, gamma, dx, partials, dgb,
+                              rows, cols, nblocks, s);
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels: warpgroup
-// matrix products (`wgmma.mma_async`) in bf16 and TF32, their shared-memory
+// matrix products (`wgmma.mma_async`) in bf16, f16 and TF32, their shared-memory
 // descriptors and the 128-byte swizzle they name, 16-byte `cp.async`
 // copies, and the split of an f32 value into two TF32 halves (3xTF32).
 //
 // Operand tiles in shared memory. A tile holds `rows` rows of a matrix
 // whose other axis (the tile's depth) is stored contiguously; it is cut
-// into column blocks 128 bytes wide (64 bf16 or 32 f32 values), each
+// into column blocks 128 bytes wide (64 bf16 or f16, or 32 f32 values), each
 // block `rows * 128` bytes, one row after the other. Inside a block, the
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8): the 128-byte
 // swizzle, which the descriptors below name (layout type 1). Tiles start
@@ -13,15 +13,16 @@
 //
 // - K-major operand (A, or B stored as N rows of K): the product's depth
 //   runs along the tile's depth. One wgmma step consumes 32 bytes of depth
-//   (16 bf16, 8 TF32); the descriptor of step s starts s * 32 bytes in.
-// - MN-major B (bf16 only): the product's depth runs along the tile's rows
+//   (16 bf16 or f16, 8 TF32); the descriptor of step s starts s * 32 bytes
+//   in.
+// - MN-major B (bf16 and f16 only): the product's depth runs along the tile's rows
 //   and N along its depth, e.g. V stored (keys, d) as B of P V. One step
 //   consumes 16 rows; LBO is the stride between column blocks along N and
 //   SBO the stride between groups of 8 rows.
 //
 // Accumulators (m64nN, f32): thread t of warp w in the warpgroup holds
 // d[4 j + e] for j < N / 8 at row 16 w + t / 4 + 8 * (e / 2), column
-// 8 j + 2 (t % 4) + e % 2. A register A fragment (bf16, m64nNk16) holds
+// 8 j + 2 (t % 4) + e % 2. A register A fragment (bf16 or f16, m64nNk16) holds
 // rows 16 w + t / 4 (+ 8) and columns 2 (t % 4) (+ 1, + 8, + 9), so the
 // accumulator of one product packs, two values a register, into the A
 // operand of the next. The TF32 fragment (m64nNk8) holds columns t % 4
@@ -32,7 +33,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mx {
 namespace sm90 {
@@ -141,10 +145,23 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two f32 values rounded to T (bf16 or f16), `lo` in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
+
+// the operand type of a product: TF32 (f32 values), bf16 or f16
+template <typename T>
+constexpr bool kIsTf32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
 
 #define MX_R16                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
@@ -166,17 +183,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define MX_F64(d) \
   MX_F32(d), MX_F8(d, 32), MX_F8(d, 40), MX_F8(d, 48), MX_F8(d, 56)
 
-// d (m64 x N, f32) += A (smem) B (smem), both K-major. kTf32: TF32 inputs
-// (m64nNk8), else bf16 (m64nNk16). N = 32 or 64.
-template <bool kTf32, int N>
+// d (m64 x N, f32) += A (smem) B (smem), both K-major. T: float for TF32
+// inputs (m64nNk8), else __nv_bfloat16 or __half (m64nNk16). N = 32 or 64.
+template <typename T, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b) {
   static_assert(N == 32 || N == 64, "mma_ss: N is 32 or 64");
-  if constexpr (N == 32 && kTf32) {
+  if constexpr (N == 32 && kIsTf32<T>) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " MX_R16
         ", %16, %17, p, 1, 1;\n}\n"
+        : MX_F16(d)
+        : "l"(a), "l"(b), "r"(1));
+  } else if constexpr (N == 32 && kIsF16<T>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " MX_R16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
         : MX_F16(d)
         : "l"(a), "l"(b), "r"(1));
   } else if constexpr (N == 32) {
@@ -186,11 +210,18 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
         ", %16, %17, p, 1, 1, 0, 0;\n}\n"
         : MX_F16(d)
         : "l"(a), "l"(b), "r"(1));
-  } else if constexpr (kTf32) {
+  } else if constexpr (kIsTf32<T>) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MX_R32
         ", %32, %33, p, 1, 1;\n}\n"
+        : MX_F32(d)
+        : "l"(a), "l"(b), "r"(1));
+  } else if constexpr (kIsF16<T>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " MX_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
         : MX_F32(d)
         : "l"(a), "l"(b), "r"(1));
   } else {
@@ -204,17 +235,24 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
 }
 
 // d (m64 x N, f32) += A (registers, one step's fragment) B (smem). TF32: B
-// K-major; bf16: B MN-major (transposed). N = 64 or 128.
-template <bool kTf32, int N>
+// K-major; bf16 and f16: B MN-major (transposed). N = 64 or 128.
+template <typename T, int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        uint64_t b) {
   static_assert(N == 64 || N == 128, "mma_rs: N is 64 or 128");
-  if constexpr (N == 64 && kTf32) {
+  if constexpr (N == 64 && kIsTf32<T>) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MX_R32
         ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : MX_F32(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  } else if constexpr (N == 64 && kIsF16<T>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " MX_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : MX_F32(d)
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
   } else if constexpr (N == 64) {
@@ -224,11 +262,18 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], uint32_t a0,
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : MX_F32(d)
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-  } else if constexpr (kTf32) {
+  } else if constexpr (kIsTf32<T>) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " MX_R64
         ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : MX_F64(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  } else if constexpr (kIsF16<T>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " MX_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : MX_F64(d)
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
   } else {

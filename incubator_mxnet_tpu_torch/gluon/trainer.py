@@ -14,7 +14,11 @@ without a gradient either way too). ``_scale`` (1.0 until
 `amp.scale_loss` folds 1 / loss scale into it, and again after
 `amp.unscale`) multiplies into the optimizer's ``rescale_grad`` at every
 step, as in the reference (:30, :87, :116). The optimizer updates each
-parameter's tensor in place.
+parameter's tensor in place. With ``multi_precision`` a float16
+parameter's state is ``(f32 master, inner state)`` (`Optimizer.
+create_state_multi_precision`), and `save_states`/`load_states` write
+and read it in the reference's layout, ``("mp", master, [inner...])``,
+so either package reads the other's file.
 """
 from __future__ import annotations
 
@@ -127,14 +131,20 @@ class Trainer:
         with a checksum sidecar."""
         from .. import preemption
 
+        def host(x):
+            return x.detach().cpu().numpy()
+
         payload = []
         for s in self._states:
             if s is None:
                 payload.append(None)
             elif isinstance(s, list):
-                payload.append([x.detach().cpu().numpy() for x in s])
+                payload.append([host(x) for x in s])
+            elif isinstance(s, tuple):
+                payload.append(("mp", host(s[0]),
+                                [host(x) for x in (s[1] or [])]))
             else:
-                payload.append(s.detach().cpu().numpy())
+                payload.append(host(s))
         blob = {"states": payload,
                 "num_update": self._optimizer.num_update,
                 "index_update_count":
@@ -168,9 +178,8 @@ class Trainer:
                 states.append(None)
             elif isinstance(s, list):
                 states.append([load(x, i) for x in s])
-            elif isinstance(s, tuple):
-                raise MXNetError("load_states: multi-precision states are "
-                                 "not ported (ROADMAP.md §1 item 8)")
+            elif isinstance(s, tuple) and len(s) == 3 and s[0] == "mp":
+                states.append((load(s[1], i), [load(x, i) for x in s[2]]))
             else:
                 states.append(load(s, i))
         self._states = states

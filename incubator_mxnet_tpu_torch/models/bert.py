@@ -6,7 +6,13 @@ Every kernel of the reference's training step runs here as a CUDA kernel:
 - attention through ``npx.flash_attention`` (K1 forward, K2 backward),
   straight from the fused QKV projection ("bthd", read in place), with
   ``valid_length`` as (B,) lengths instead of a dense mask; dropout is on
-  the attention output, as in the reference's flash path;
+  the attention output, as in the reference's flash path. With
+  ``use_flash=False`` (or a dense ``mask``) attention is the reference's
+  other path, line for line: ``npx.batch_dot`` for the scores (a plain
+  product, as the reference leaves it to XLA), ``npx.masked_softmax`` over
+  the dense (N*H, T, T) mask of :func:`_dense_mask_from_valid_length`
+  (or ``npx.softmax``), dropout on the probabilities (K5) and
+  ``npx.batch_dot`` with V;
 - both post-LN residual sites of every cell through
   ``npx.residual_dropout_ln`` (K3, forward and backward);
 - the embedding LayerNorm and ``mlm_ln`` through ``npx.layer_norm``
@@ -22,9 +28,8 @@ either way. Dropout applies where ``autograd.is_training()`` says. The
 Dense layers and the MLM decoder stay ``F.linear``, as the reference
 leaves them to XLA. ``impl`` ("auto" | "kernel" | "plain") is handed to
 every kernel's wrapper, so one model on the card can run its plain
-versions, which is what the kernels are held against. Only the flash
-path is ported: ``use_flash=False`` (the reference's ``masked_softmax`` /
-``batch_dot`` path) raises. Parameter names are the reference's
+versions, which is what the kernels are held against. Parameter names
+are the reference's
 ``collect_params()`` names (:meth:`BERTModel.load_jax_params`), and
 ``named_parameters()`` gives the same.
 
@@ -38,6 +43,10 @@ does (seed the draws with ``mx.random.seed``).
 """
 from __future__ import annotations
 
+import math
+
+import torch
+
 from .. import numpy_extension as npx
 from ..base import MXNetError
 from ..device import resolve_device
@@ -45,10 +54,13 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
 from ..numpy_extension import _op
+from ..initializer import generator_scope
+from .decoding import make_generator
 from .params import init_seeded, load_params
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "BERTEncoder", "BERTModel", "bert_base", "bert_small"]
+           "BERTEncoder", "BERTModel", "BERTClassifier", "bert_base",
+           "bert_small"]
 
 
 def _dropout(rate, impl):
@@ -56,7 +68,9 @@ def _dropout(rate, impl):
 
 
 class MultiHeadAttention(HybridBlock):
-    """Self-attention through the flash kernels, dropout on the output."""
+    """Self-attention: through the flash kernels with dropout on the
+    output, or (``use_flash=False``, or a dense ``mask``) as scores,
+    masked softmax and dropout on the probabilities."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_flash=True,
                  dtype="float32", device=None, impl="auto"):
@@ -64,9 +78,6 @@ class MultiHeadAttention(HybridBlock):
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by num_heads "
                              f"{num_heads}")
-        if not use_flash:
-            raise MXNetError("MultiHeadAttention: only the flash path is "
-                             "ported (use_flash=True)")
         self._units = units
         self._num_heads = num_heads
         self._use_flash = use_flash
@@ -78,22 +89,53 @@ class MultiHeadAttention(HybridBlock):
         self.dropout = _dropout(dropout, impl)
 
     def forward(self, x, mask=None, valid_length=None):
-        if mask is not None:
-            raise MXNetError("MultiHeadAttention: dense masks are not "
-                             "ported; pass valid_length")
         N, T, C = x.shape
         H = self._num_heads
-        # q, k, v stay views of the projection (the reference's
-        # qkv[..., :C] etc.), read in place ("bthd")
-        q, k, v = _op("qkv_split",
-                      lambda t: t.view(N, T, 3, H, C // H).unbind(2),
-                      self.qkv(x))
-        out = npx.flash_attention(q, k, v, valid_length=valid_length,
-                                  layout="bthd", impl=self._impl)
-        out = out.reshape(N, T, C)
+        d = C // H
+        qkv = self.qkv(x)
+        if self._use_flash and mask is None:
+            # q, k, v stay views of the projection (the reference's
+            # qkv[..., :C] etc.), read in place ("bthd")
+            q, k, v = _op("qkv_split",
+                          lambda t: t.view(N, T, 3, H, d).unbind(2), qkv)
+            out = npx.flash_attention(q, k, v, valid_length=valid_length,
+                                      layout="bthd", impl=self._impl)
+            out = out.reshape(N, T, C)
+            if self.dropout is not None:
+                out = self.dropout(out)
+            return self.proj(out)
+        # (N, T, 3, H, d) -> three (N*H, T, d)
+        q, k, v = _op("qkv_heads",
+                      lambda t: t.reshape(N, T, 3, H, d).permute(2, 0, 3, 1, 4)
+                      .reshape(3, N * H, T, d).unbind(0), qkv)
+        if mask is None and valid_length is not None:
+            mask = _dense_mask_from_valid_length(x, valid_length, H)
+        scores = npx.batch_dot(q, k, transpose_b=True) / math.sqrt(d)
+        if mask is not None:
+            att = npx.masked_softmax(scores, mask)
+        else:
+            att = npx.softmax(scores, axis=-1)
         if self.dropout is not None:
-            out = self.dropout(out)
+            att = self.dropout(att)
+        out = npx.batch_dot(att, v)  # (N*H, T, d)
+        out = _op("heads_merge",
+                  lambda t: t.reshape(N, H, T, d).transpose(1, 2)
+                  .reshape(N, T, C), out)
         return self.proj(out)
+
+
+def _dense_mask_from_valid_length(x, valid_length, num_heads):
+    """(N*H, T, T) float32 pairwise validity mask from (N,) lengths: pair
+    (i, j) is live where both i and j are below the length."""
+    steps = npx.arange_like(x, axis=1)
+
+    def f(s, vl):
+        vl = vl.reshape(-1, 1, 1).float()
+        m = s.reshape(1, -1, 1) < vl
+        m2 = s.reshape(1, 1, -1) < vl
+        return torch.repeat_interleave((m & m2).float(), num_heads, dim=0)
+
+    return _op("dense_mask", f, steps, valid_length)
 
 
 class PositionwiseFFN(HybridBlock):
@@ -204,8 +246,17 @@ class BERTEncoder(HybridBlock):
         x = self.ln(x)
         if self.dropout is not None:
             x = self.dropout(x)
+        if self._use_flash:
+            # (B,) lengths straight into the kernel, no dense mask
+            for cell in self.layers:
+                x = cell(x, None, valid_length)
+            return x
+        mask = None
+        if valid_length is not None:
+            H = self.layers[0].attention._num_heads
+            mask = _dense_mask_from_valid_length(x, valid_length, H)
         for cell in self.layers:
-            x = cell(x, None, valid_length)
+            x = cell(x, mask)
         return x
 
 
@@ -255,6 +306,45 @@ class BERTModel(HybridBlock):
         mlm_scores = self.mlm_decoder(self.mlm_ln(self.mlm_dense(seq)))
         nsp_scores = self.nsp(seq[:, 0])
         return mlm_scores, nsp_scores
+
+
+class BERTClassifier(HybridBlock):
+    """A classification head over an encoder: dropout, then a Dense of
+    ``num_classes`` over the first token's state. The classifier's input
+    width is deferred, as in the reference (call ``initialize()``, or pass
+    ``seed=`` for the head's weights)."""
+
+    def __init__(self, encoder, num_classes=2, dropout=0.1, dtype="float32",
+                 device=None, seed=None, impl="auto"):
+        super().__init__()
+        self.encoder = encoder
+        self.dropout = nn.Dropout(dropout, impl=impl)
+        self.classifier = nn.Dense(
+            num_classes, dtype=dtype,
+            device=self.device if device is None else device)
+        if seed is not None:
+            self.classifier.weight.shape = (num_classes, encoder._units)
+            self.classifier.bias.shape = (num_classes,)
+            with generator_scope(make_generator(self.device, seed)):
+                for p in (self.classifier.weight, self.classifier.bias):
+                    p.initialize(force_reinit=True)
+
+    @property
+    def device(self):
+        """The encoder's parameters' device."""
+        p = self.encoder.position_embed
+        return p._data._data.device if p._data is not None else \
+            resolve_device(p._device_hint)
+
+    def load_jax_params(self, params):
+        """Copy weights from ``{name: numpy array}`` keyed by the
+        reference model's ``collect_params()`` names."""
+        load_params(self, params)
+
+    def forward(self, tokens, token_types=None, valid_length=None):
+        seq = self.encoder(tokens, token_types, valid_length)
+        pooled = seq[:, 0]
+        return self.classifier(self.dropout(pooled))
 
 
 def bert_base(vocab_size=30522, max_length=512, dropout=0.1, use_flash=True,

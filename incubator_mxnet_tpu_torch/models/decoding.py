@@ -19,7 +19,7 @@ program; the port runs eagerly on the card:
   `torch.Generator` seeded by ``seed=``.
 
 The layer math mirrors `GPTModel.forward` (pre-norm blocks, tanh-gelu
-FFN, tied LM head), so greedy decode emits the tokens of the full-forward
+FFN, the tied LM head or the model's ``lm_head``), so greedy decode emits the tokens of the full-forward
 loop. ``impl`` ("auto" | "kernel" | "plain") is handed to both kernels'
 wrappers; "plain" runs the same path on the plain versions, which is
 what the kernels are held against on the card.
@@ -166,7 +166,8 @@ class GPTDecoder:
 
     def _logits(self, x):
         m = self._model
-        return F.linear(self._ln(x, m.ln_f), _t(m.word_embed.weight))
+        head = m.word_embed.weight if m._tie else m.lm_head.weight
+        return F.linear(self._ln(x, m.ln_f), _t(head))
 
     def _ffn(self, x, blk):
         f = blk.ffn

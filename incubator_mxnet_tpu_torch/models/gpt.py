@@ -27,7 +27,6 @@ import torch.nn.functional as F
 
 from .. import autograd
 from .. import numpy_extension as npx
-from ..base import MXNetError
 from ..device import resolve_device
 from ..gluon import nn
 from ..gluon.block import HybridBlock
@@ -91,16 +90,14 @@ class GPTBlock(HybridBlock):
 
 
 class GPTModel(HybridBlock):
-    """Token+position embed → N pre-norm blocks → final LN → tied LM head."""
+    """Token+position embed → N pre-norm blocks → final LN → LM head: tied
+    to the token embedding (GPT-2), or with ``tie_weights=False`` its own
+    ``lm_head``, a bias-free Dense, as in the reference."""
 
     def __init__(self, vocab_size, units, hidden_size, num_layers,
                  num_heads, max_length, dropout=0.1, tie_weights=True,
                  dtype="float32", device=None, seed=None):
         super().__init__()
-        if not tie_weights:
-            raise MXNetError("GPTModel(tie_weights=False): the serving "
-                             "engines read the tied head; an untied head is "
-                             "not ported")
         self._device = resolve_device(device)
         device = self._device
         self._tie = tie_weights
@@ -116,6 +113,10 @@ class GPTModel(HybridBlock):
                                      dtype=dtype, device=device))
         self.ln_f = nn.LayerNorm(in_channels=units, dtype=dtype,
                                  device=device)
+        if not tie_weights:
+            self.lm_head = nn.Dense(vocab_size, flatten=False,
+                                    use_bias=False, in_units=units,
+                                    dtype=dtype, device=device)
         if seed is not None:
             init_seeded(self, seed)
 
@@ -146,8 +147,11 @@ class GPTModel(HybridBlock):
         if self.dropout is not None:
             x = self.dropout(x)
         x = self.ln_f(self.blocks(x))
-        # weight tying (GPT-2): logits = h @ E^T
-        return _op("tied_head", F.linear, x, self.word_embed.weight.data())
+        if self._tie:
+            # weight tying (GPT-2): logits = h @ E^T
+            return _op("tied_head", F.linear, x,
+                       self.word_embed.weight.data())
+        return self.lm_head(x)
 
     @torch.no_grad()
     def generate(self, tokens, max_new_tokens, temperature=1.0, top_k=None,
@@ -182,14 +186,16 @@ class GPTModel(HybridBlock):
 
 
 def gpt2_small(vocab_size=50257, max_length=1024, dropout=0.1,
-               dtype="float32", device=None, seed=None):
+               dtype="float32", device=None, seed=None, tie_weights=True):
     """GPT-2 124M configuration."""
     return GPTModel(vocab_size, 768, 3072, 12, 12, max_length, dropout,
-                    dtype=dtype, device=device, seed=seed)
+                    tie_weights=tie_weights, dtype=dtype, device=device,
+                    seed=seed)
 
 
 def gpt_tiny(vocab_size=1000, max_length=128, dropout=0.1, dtype="float32",
-             device=None, seed=None):
+             device=None, seed=None, tie_weights=True):
     """Tiny config for tests and compile checks."""
     return GPTModel(vocab_size, 64, 128, 2, 4, max_length, dropout,
-                    dtype=dtype, device=device, seed=seed)
+                    tie_weights=tie_weights, dtype=dtype, device=device,
+                    seed=seed)

@@ -27,19 +27,24 @@ _LEGACY_TO_NPX = {
     "Activation": "activation",
     "Dropout": "dropout",
     "Embedding": "embedding",
+    "LeakyReLU": "leaky_relu",
+    "softmax": "softmax",
+    "log_softmax": "log_softmax",
+    "batch_dot": "batch_dot",
+    "softsign": "softsign",
 }
 
 # the reference's other legacy npx names: each waits for its npx op
 _LEGACY_NPX_QUEUED = (
     "Convolution", "Deconvolution", "BatchNorm", "InstanceNorm", "GroupNorm",
-    "LeakyReLU", "Pooling", "SoftmaxOutput", "softmax", "log_softmax",
+    "Pooling", "SoftmaxOutput",
     "SequenceMask", "SequenceLast", "SequenceReverse", "RNN", "one_hot",
-    "pick", "topk", "batch_dot", "gather_nd", "scatter_nd",
+    "pick", "topk", "gather_nd", "scatter_nd",
     "L2Normalization", "Cast", "cast", "BilinearSampler", "GridGenerator",
     "SpatialTransformer", "ROIPooling", "Correlation", "ROIAlign", "box_nms",
     "box_iou", "slice_like", "broadcast_like", "sequence_mask", "erfinv",
     "gamma", "gammaln", "digamma", "slice", "SliceChannel", "slice_channel",
-    "softsign", "Pad", "pad", "ElementWiseSum", "CTCLoss", "ctc_loss",
+    "Pad", "pad", "ElementWiseSum", "CTCLoss", "ctc_loss",
     "boolean_mask", "AdaptiveAvgPooling2D", "BilinearResize2D", "Custom",
     "contrib", "sparse",
 )

@@ -15,9 +15,12 @@ place.
 
 Multi-tensor variants (`multi_sgd_update`, `preloaded_*`) take the
 reference's interleaved argument layout and make one call per tensor.
-The multi-precision forms (``mp_*``, ``multi_mp_*``) raise: float16
-master weights are ROADMAP.md §1 item 8. `sparse_adagrad_update` takes
-dense gradients only (row-sparse storage is item 11).
+The multi-precision forms (``mp_*``, ``multi_mp_*``, ``preloaded_multi_mp_*``)
+take a float16 weight and its f32 master ``weight32``: the rule runs on
+``weight32`` with the gradient in f32, ``weight32`` is rebound to its new
+value, and the weight (``out``) takes its cast to the weight's dtype.
+`sparse_adagrad_update` takes dense gradients only (row-sparse storage
+is ROADMAP.md §1 item 11).
 """
 from __future__ import annotations
 
@@ -43,10 +46,6 @@ __all__ = [
     "multi_sum_sq", "multi_lars", "reset_arrays",
     "sparse_adagrad_update", "group_adagrad_update", "square_sum",
 ]
-
-_MP = ("is not ported: multi-precision (float16 master weights) is "
-       "ROADMAP.md §1 item 8")
-
 
 def _pg(g, rescale, clip):
     """rescale then (optionally) clip the gradient: the preamble every
@@ -137,13 +136,39 @@ def mp_sgd_update(weight, grad, weight32, lr, wd=0.0, rescale_grad=1.0,
                   clip_gradient=-1.0, lazy_update=None, out=None):
     """Mixed-precision SGD: fp32 master `weight32` updated, low-precision
     weight is its cast."""
-    raise MXNetError(f"nd.mp_sgd_update {_MP}")
+    _ignored_arg("mp_sgd_update", "lazy_update", lazy_update)
+
+    def fn(w, g, w32):
+        g32 = _pg(g.float(), rescale_grad, clip_gradient)
+        w32n = w32 - lr * (g32 + wd * w32)
+        return w32n.to(w.dtype), w32n
+
+    new_w, new_w32 = apply_op("mp_sgd_update", fn,
+                              (weight, grad, weight32), n_outputs=2,
+                              static_info=("h", lr, wd, rescale_grad,
+                                           clip_gradient))
+    _mutate(weight32, new_w32)
+    return _finish(out, weight, new_w)
 
 
 def mp_sgd_mom_update(weight, grad, mom, weight32, lr, momentum=0.0,
                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
                       lazy_update=None, out=None):
-    raise MXNetError(f"nd.mp_sgd_mom_update {_MP}")
+    _ignored_arg("mp_sgd_mom_update", "lazy_update", lazy_update)
+
+    def fn(w, g, m, w32):
+        g32 = _pg(g.float(), rescale_grad, clip_gradient)
+        m2 = momentum * m - lr * (g32 + wd * w32)
+        w32n = w32 + m2
+        return w32n.to(w.dtype), m2, w32n
+
+    new_w, new_m, new_w32 = apply_op(
+        "mp_sgd_mom_update", fn, (weight, grad, mom, weight32),
+        n_outputs=3, static_info=("h", lr, momentum, wd, rescale_grad,
+                                  clip_gradient))
+    _mutate(mom, new_m)
+    _mutate(weight32, new_w32)
+    return _finish(out, weight, new_w)
 
 
 def nag_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
@@ -166,7 +191,20 @@ def nag_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
 def mp_nag_mom_update(weight, grad, mom, weight32, lr, momentum=0.0,
                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
                       out=None):
-    raise MXNetError(f"nd.mp_nag_mom_update {_MP}")
+    def fn(w, g, m, w32):
+        gr = _pg(g.float(), rescale_grad, clip_gradient) \
+            + wd * w32
+        m2 = momentum * m + gr
+        w32n = w32 - lr * (gr + momentum * m2)
+        return w32n.to(w.dtype), m2, w32n
+
+    new_w, new_m, new_w32 = apply_op(
+        "mp_nag_mom_update", fn, (weight, grad, mom, weight32),
+        n_outputs=3, static_info=("h", lr, momentum, wd, rescale_grad,
+                                  clip_gradient))
+    _mutate(mom, new_m)
+    _mutate(weight32, new_w32)
+    return _finish(out, weight, new_w)
 
 
 def signsgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0,
@@ -255,7 +293,28 @@ def adamw_update(weight, grad, mean, var, rescale_grad, lr, eta,
 def mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad,
                     lr, eta, beta1=0.9, beta2=0.999, epsilon=1e-8,
                     wd=0.0, clip_gradient=-1.0, out=None):
-    raise MXNetError(f"nd.mp_adamw_update {_MP}")
+    def fn(w, g, m, v, w32, rs):
+        ok = torch.isfinite(rs).all()
+        gr = _pg(g.float(), rs, clip_gradient)
+        m2 = beta1 * m + (1 - beta1) * gr
+        v2 = beta2 * v + (1 - beta2) * gr * gr
+        w32n = w32 - eta * (lr * m2 / (torch.sqrt(v2) + epsilon)
+                            + wd * w32)
+        w32n = torch.where(ok, w32n, w32)
+        return (w32n.to(w.dtype), torch.where(ok, m2, m),
+                torch.where(ok, v2, v), w32n)
+
+    if not isinstance(rescale_grad, NDArray):
+        rescale_grad = array(float(rescale_grad), device=weight.device)
+    new_w, new_m, new_v, new_w32 = apply_op(
+        "mp_adamw_update", fn,
+        (weight, grad, mean, var, weight32, rescale_grad), n_outputs=4,
+        static_info=("h", lr, eta, beta1, beta2, epsilon, wd,
+                     clip_gradient))
+    _mutate(mean, new_m)
+    _mutate(var, new_v)
+    _mutate(weight32, new_w32)
+    return _finish(out, weight, new_w)
 
 
 def adabelief_update(weight, grad, mean, var, lr, beta1=0.9,
@@ -282,7 +341,23 @@ def adabelief_update(weight, grad, mean, var, lr, beta1=0.9,
 def mp_adabelief_update(weight, grad, mean, var, weight32, lr,
                         beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
                         rescale_grad=1.0, clip_gradient=-1.0, out=None):
-    raise MXNetError(f"nd.mp_adabelief_update {_MP}")
+    def fn(w, g, m, v, w32):
+        gr = _pg(g.float(), rescale_grad, clip_gradient) \
+            + wd * w32
+        m2 = beta1 * m + (1 - beta1) * gr
+        diff = gr - m2
+        v2 = beta2 * v + (1 - beta2) * diff * diff + epsilon
+        w32n = w32 - lr * m2 / (torch.sqrt(v2) + epsilon)
+        return w32n.to(w.dtype), m2, v2, w32n
+
+    new_w, new_m, new_v, new_w32 = apply_op(
+        "mp_adabelief_update", fn, (weight, grad, mean, var, weight32),
+        n_outputs=4, static_info=("h", lr, beta1, beta2, epsilon, wd,
+                                  rescale_grad, clip_gradient))
+    _mutate(mean, new_m)
+    _mutate(var, new_v)
+    _mutate(weight32, new_w32)
+    return _finish(out, weight, new_w)
 
 
 def ftml_update(weight, grad, d, v, z, lr, beta1=0.6, beta2=0.999,
@@ -424,12 +499,19 @@ def lamb_update_phase2(weight, g, r1, r2, lr, lower_bound=-1.0,
 
 def mp_lamb_update_phase1(weight, grad, mean, var, weight32, **kwargs):
     """Multi-precision LAMB phase 1: direction computed in fp32."""
-    raise MXNetError(f"nd.mp_lamb_update_phase1 {_MP}")
+    out = kwargs.pop("out", None)
+    g32 = NDArray(grad._data.float())
+    return lamb_update_phase1(NDArray(weight32._data), g32, mean, var,
+                              out=out, **kwargs)
 
 
 def mp_lamb_update_phase2(weight, g, r1, r2, weight32, lr,
                           lower_bound=-1.0, upper_bound=-1.0, out=None):
-    raise MXNetError(f"nd.mp_lamb_update_phase2 {_MP}")
+    new32 = lamb_update_phase2(NDArray(weight32._data), g, r1, r2, lr,
+                               lower_bound, upper_bound)
+    _mutate(weight32, new32)
+    new_w = NDArray(new32._data.to(weight._data.dtype))
+    return _finish(out, weight, new_w)
 
 
 # ------------------------------------------------------ multi-tensor family
@@ -476,13 +558,25 @@ def multi_sgd_mom_update(*args, lrs=None, wds=None, momentum=0.0,
 
 def multi_mp_sgd_update(*args, lrs=None, wds=None, rescale_grad=1.0,
                         clip_gradient=-1.0, num_weights=1, out=None):
-    raise MXNetError(f"nd.multi_mp_sgd_update {_MP}")
+    return _multi(
+        "multi_mp_sgd_update", args, 3,
+        lambda i, grp, o: mp_sgd_update(
+            grp[0], grp[1], grp[2], lrs[i], wd=wds[i],
+            rescale_grad=rescale_grad, clip_gradient=clip_gradient,
+            out=o),
+        num_weights, out)
 
 
 def multi_mp_sgd_mom_update(*args, lrs=None, wds=None, momentum=0.0,
                             rescale_grad=1.0, clip_gradient=-1.0,
                             num_weights=1, out=None):
-    raise MXNetError(f"nd.multi_mp_sgd_mom_update {_MP}")
+    return _multi(
+        "multi_mp_sgd_mom_update", args, 4,
+        lambda i, grp, o: mp_sgd_mom_update(
+            grp[0], grp[1], grp[2], grp[3], lrs[i], momentum=momentum,
+            wd=wds[i], rescale_grad=rescale_grad,
+            clip_gradient=clip_gradient, out=o),
+        num_weights, out)
 
 
 def _preloaded(args, stride, num_weights):
@@ -515,13 +609,22 @@ def preloaded_multi_sgd_mom_update(*args, num_weights=1, momentum=0.0,
 
 def preloaded_multi_mp_sgd_update(*args, num_weights=1, rescale_grad=1.0,
                                   clip_gradient=-1.0, out=None):
-    raise MXNetError(f"nd.preloaded_multi_mp_sgd_update {_MP}")
+    tensors, lrs, wds = _preloaded(args, 3, num_weights)
+    return multi_mp_sgd_update(*tensors, lrs=lrs, wds=wds,
+                               rescale_grad=rescale_grad,
+                               clip_gradient=clip_gradient,
+                               num_weights=num_weights, out=out)
 
 
 def preloaded_multi_mp_sgd_mom_update(*args, num_weights=1, momentum=0.0,
                                       rescale_grad=1.0,
                                       clip_gradient=-1.0, out=None):
-    raise MXNetError(f"nd.preloaded_multi_mp_sgd_mom_update {_MP}")
+    tensors, lrs, wds = _preloaded(args, 4, num_weights)
+    return multi_mp_sgd_mom_update(*tensors, lrs=lrs, wds=wds,
+                                   momentum=momentum,
+                                   rescale_grad=rescale_grad,
+                                   clip_gradient=clip_gradient,
+                                   num_weights=num_weights, out=out)
 
 
 def _lamb_full(weight, grad, mean, var, lr, wd, beta1, beta2, epsilon,
@@ -564,7 +667,19 @@ def multi_mp_lamb_update(*args, learning_rates=None, wds=None,
                          rescale_grad=1.0, clip_gradient=-1.0,
                          lower_bound=-1.0, upper_bound=-1.0,
                          num_tensors=1, out=None):
-    raise MXNetError(f"nd.multi_mp_lamb_update {_MP}")
+    lrs = learning_rates
+    steps = step_count or [1] * num_tensors
+
+    def rule(i, grp, o):
+        w, g, m, v, w32 = grp
+        new32 = _lamb_full(NDArray(w32._data), NDArray(g._data.float()), m, v, lrs[i], wds[i], beta1, beta2, epsilon,
+            steps[i], bias_correction, rescale_grad, clip_gradient,
+            lower_bound, upper_bound, None)
+        _mutate(w32, new32)
+        return _finish(o, w, NDArray(new32._data.to(w._data.dtype)))
+
+    return _multi("multi_mp_lamb_update", args, 5, rule, num_tensors,
+                  out)
 
 
 def _lans_full(weight, grad, mean, var, lr, wd, beta1, beta2, epsilon,
@@ -616,7 +731,20 @@ def multi_mp_lans_update(*args, learning_rates=None, wds=None,
                          beta1=0.9, beta2=0.999, epsilon=1e-6,
                          step_count=None, rescale_grad=1.0,
                          clip_gradient=-1.0, num_tensors=1, out=None):
-    raise MXNetError(f"nd.multi_mp_lans_update {_MP}")
+    lrs = learning_rates
+    steps = step_count or [1] * num_tensors
+
+    def rule(i, grp, o):
+        w, g, m, v, w32 = grp
+        new32 = _lans_full(NDArray(w32._data),
+                           NDArray(g._data.float()), m, v,
+                           lrs[i], wds[i], beta1, beta2, epsilon,
+                           steps[i], rescale_grad, clip_gradient, None)
+        _mutate(w32, new32)
+        return _finish(o, w, NDArray(new32._data.to(w._data.dtype)))
+
+    return _multi("multi_mp_lans_update", args, 5, rule, num_tensors,
+                  out)
 
 
 def multi_adamw_update(*args, learning_rates=None, wds=None, etas=None,
@@ -639,7 +767,15 @@ def multi_mp_adamw_update(*args, learning_rates=None, wds=None,
                           etas=None, beta1=0.9, beta2=0.999,
                           epsilon=1e-8, clip_gradient=-1.0,
                           num_weights=1, out=None):
-    raise MXNetError(f"nd.multi_mp_adamw_update {_MP}")
+    rescale = args[-1]
+    return _multi(
+        "multi_mp_adamw_update", args[:-1], 5,
+        lambda i, grp, o: mp_adamw_update(
+            grp[0], grp[1], grp[2], grp[3], grp[4], rescale,
+            learning_rates[i], etas[i], beta1=beta1, beta2=beta2,
+            epsilon=epsilon, wd=wds[i], clip_gradient=clip_gradient,
+            out=o),
+        num_weights, out)
 
 
 def multi_adabelief_update(*args, learning_rates=None, wds=None,
@@ -660,7 +796,14 @@ def multi_mp_adabelief_update(*args, learning_rates=None, wds=None,
                               beta1=0.9, beta2=0.999, epsilon=1e-8,
                               rescale_grad=1.0, clip_gradient=-1.0,
                               num_weights=1, out=None):
-    raise MXNetError(f"nd.multi_mp_adabelief_update {_MP}")
+    return _multi(
+        "multi_mp_adabelief_update", args, 5,
+        lambda i, grp, o: mp_adabelief_update(
+            grp[0], grp[1], grp[2], grp[3], grp[4], learning_rates[i],
+            beta1=beta1, beta2=beta2, epsilon=epsilon, wd=wds[i],
+            rescale_grad=rescale_grad, clip_gradient=clip_gradient,
+            out=o),
+        num_weights, out)
 
 
 # ----------------------------------------------------------- LARS utilities

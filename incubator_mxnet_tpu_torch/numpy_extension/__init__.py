@@ -2,16 +2,21 @@
 NDArray slices call.
 
 Port of `incubator_mxnet_tpu/numpy_extension/__init__.py` (`gelu` :162,
-`activation` :168, `fully_connected` :353, `layer_norm` :591, `dropout`
-:699, `embedding` :731, `flash_attention` :834, `residual_dropout_ln`
-:860, `gelu_dropout` :902).
+`activation` :168, `softmax` :221, `softmin` :264, `log_softmax` :304,
+`masked_softmax` :316, `masked_log_softmax` :334, `fully_connected`
+:353, `layer_norm` :591, `dropout` :699, `embedding` :731,
+`flash_attention` :834, `residual_dropout_ln` :860, `gelu_dropout` :902,
+`batch_dot` :973, `arange_like` :1326) and of `softsign`
+(`numpy_extension/_contrib_misc.py:384`).
 
 Each op takes NDArrays, as the reference's do, and then goes through the
 NDArray funnel (`ndarray.apply_op`): recorded under
 ``autograd.record()``, its inputs cast by AMP as the op's name says. It
 also takes torch tensors, for a gluon block called with tensors (the
 port's module path), and then runs on them directly (torch's own grad
-mode; AMP's casts made here).
+mode; AMP's casts made here for the ops of AMP's lists that the port's
+models call: ``fully_connected``, ``embedding``, ``flash_attention``,
+``batch_dot``, ``softmax``, ``softmin``, ``masked_softmax``).
 
 Dropout applies where the caller says it is training, or under
 ``autograd.is_training()`` when the caller says nothing
@@ -30,6 +35,8 @@ kernel and "xla" for its composed ops.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -44,9 +51,10 @@ from ..ops import fused_block as _fb
 from ..ops import layer_norm as _ln
 
 __all__ = ["relu", "sigmoid", "gelu", "activation", "leaky_relu",
-           "log_softmax", "fully_connected", "embedding", "layer_norm",
-           "dropout", "flash_attention", "residual_dropout_ln",
-           "gelu_dropout"]
+           "softmax", "softmin", "log_softmax", "masked_softmax",
+           "masked_log_softmax", "batch_dot", "arange_like", "softsign",
+           "fully_connected", "embedding", "layer_norm", "dropout",
+           "flash_attention", "residual_dropout_ln", "gelu_dropout"]
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -79,6 +87,20 @@ def _op(name, fn, *args):
     if _nd(*args):
         return apply_op(name, fn, args)
     return fn(*args)
+
+
+def _amp_op(name, fn, *args):
+    """:func:`_op` with AMP's cast of ``name`` made here on the tensor
+    path too (the funnel makes it for NDArrays)."""
+    if _nd(*args):
+        return apply_op(name, fn, args)
+    return fn(*amp.cast_inputs(name, *args))
+
+
+def _safe_accumulation():
+    """``MXNET_SAFE_ACCUMULATION=1``: softmax reduces a bf16 or f16 input
+    in f32 and casts back (the reference's :119-126)."""
+    return os.environ.get("MXNET_SAFE_ACCUMULATION") == "1"
 
 
 def relu(data):
@@ -150,6 +172,53 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     raise ValueError(f"unknown leaky_relu act_type {act_type!r}")
 
 
+def softmax(data, axis=-1, length=None, temperature=None, use_length=False,
+            dtype=None, **kwargs):  # noqa: ARG001
+    """Softmax over ``axis``; with ``length`` (or ``use_length``) the
+    entries at or past each row's length are masked out (probability 0).
+    ``temperature`` divides the input first; ``dtype`` casts the output.
+    Under AMP it runs in float32 ("softmax"). Under
+    ``MXNET_SAFE_ACCUMULATION=1`` a bf16 or f16 input reduces in f32 and
+    the output takes the input's dtype back unless ``dtype`` says
+    otherwise."""
+    safe = _safe_accumulation()
+
+    def f(x, ln):
+        in_dt = x.dtype
+        if safe and in_dt in (torch.float16, torch.bfloat16):
+            x = x.float()
+        if temperature is not None and temperature != 1.0:
+            x = x / temperature
+        if ln is not None:
+            ax = axis % x.dim()
+            shape = [1] * x.dim()
+            shape[ax] = -1
+            idx = torch.arange(x.shape[ax], device=x.device).reshape(shape)
+            mask = idx < ln.unsqueeze(ax)
+            out = torch.softmax(x.masked_fill(~mask, float("-inf")),
+                                dim=axis)
+            out = torch.where(mask, out, 0.0)
+        else:
+            out = torch.softmax(x, dim=axis)
+        if dtype:
+            return out.to(canonical_dtype(dtype))
+        return out.to(in_dt) if safe else out
+
+    ln = length if (use_length or length is not None) else None
+    return _amp_op("softmax", f, data, ln)
+
+
+def softmin(data, axis=-1, temperature=None, dtype=None, **kwargs):  # noqa: ARG001
+    """Softmax of the negated input (float32 under AMP)."""
+    def f(x):
+        if temperature is not None and temperature != 1.0:
+            x = x / temperature
+        out = torch.softmax(-x, dim=axis)
+        return out.to(canonical_dtype(dtype)) if dtype else out
+
+    return _amp_op("softmin", f, data)
+
+
 def log_softmax(data, axis=-1, temperature=None, dtype=None, **kwargs):  # noqa: ARG001
     def f(x):
         if temperature is not None and temperature != 1.0:
@@ -158,6 +227,69 @@ def log_softmax(data, axis=-1, temperature=None, dtype=None, **kwargs):  # noqa:
         return out.to(canonical_dtype(dtype)) if dtype else out
 
     return _op("log_softmax", f, data)
+
+
+def masked_softmax(data, mask=None, axis=-1, temperature=1.0, **kwargs):  # noqa: ARG001
+    """Softmax over ``axis`` of the entries where ``mask`` is nonzero;
+    masked entries (and rows with none left) are 0. Float32 under AMP."""
+    def f(x, m):
+        if temperature != 1.0:
+            x = x / temperature
+        if m is None:
+            return torch.softmax(x, dim=axis)
+        keep = m.bool()
+        out = torch.softmax(x.masked_fill(~keep, float("-inf")), dim=axis)
+        return torch.where(keep, out, 0.0)
+
+    return _amp_op("masked_softmax", f, data, mask)
+
+
+def masked_log_softmax(data, mask=None, axis=-1, temperature=1.0):
+    """Log-softmax over ``axis`` of the entries where ``mask`` is nonzero;
+    masked entries are -inf."""
+    def f(x, m):
+        if temperature != 1.0:
+            x = x / temperature
+        if m is not None:
+            x = x.masked_fill(~m.bool(), float("-inf"))
+        return torch.log_softmax(x, dim=axis)
+
+    return _amp_op("masked_log_softmax", f, data, mask)
+
+
+def batch_dot(a, b, transpose_a=False, transpose_b=False, **kwargs):  # noqa: ARG001
+    """Batched matrix product over the last two axes, either operand
+    transposed first. A plain product: the reference leaves it to XLA
+    (no kernel), the port to ``torch.matmul``. Under AMP float32 operands
+    take the target dtype ("batch_dot")."""
+    def f(x, y):
+        if transpose_a:
+            x = x.transpose(-1, -2)
+        if transpose_b:
+            y = y.transpose(-1, -2)
+        return torch.matmul(x, y)
+
+    return _amp_op("batch_dot", f, a, b)
+
+
+def arange_like(data, start=0.0, step=1.0, repeat=1, axis=None):  # noqa: ARG001
+    """``start + step * i`` in ``data``'s dtype and device: over every
+    element in ``data``'s shape, or along ``axis`` (a vector of that
+    axis's length). ``repeat`` is taken and unused, as in the
+    reference."""
+    t = data._data if isinstance(data, NDArray) else data
+    n = t.numel() if axis is None else t.shape[axis]
+    out = start + step * torch.arange(n, dtype=torch.float64,
+                                      device=t.device)
+    out = out.to(t.dtype)
+    if axis is None:
+        out = out.reshape(t.shape)
+    return NDArray(out) if isinstance(data, NDArray) else out
+
+
+def softsign(data):
+    """``x / (1 + |x|)``."""
+    return _op("softsign", lambda x: x / (1 + x.abs()), data)
 
 
 def _fc(x, w, b, flatten):
@@ -257,23 +389,43 @@ def _applies(p, mode, training):
     return p > 0 and (mode == "always" or _training(training))
 
 
+def _broadcast_dropout(x, key, p, axes, impl):
+    """Dropout with one mask for every index along ``axes``: the mask is
+    K5 applied to ones of x's shape with those axes set to 1 (f32: the
+    values 1/(1-p) or 0), drawn on the card for a CUDA tensor, and the
+    product is rounded once to x's dtype."""
+    shape = list(x.shape)
+    for ax in axes:
+        shape[ax] = 1
+    ones = torch.ones(shape, dtype=torch.float32, device=x.device)
+    mask = _dp.dropout_fwd(ones, key, p, impl=impl)
+    return (x.float() * mask).to(x.dtype)
+
+
 def dropout(data, p=0.5, axes=(), mode="training", training=None,
             impl="auto", **kwargs):  # noqa: ARG001
     """Dropout with drop probability ``p`` where it applies (training, see
     the module's docstring, or ``mode="always"``), else the identity. A
     CUDA tensor goes to the dropout kernel (`ops/dropout.py`), which
-    launches or raises; a CPU tensor takes its plain version. Broadcast
-    masks (``axes``) are not ported."""
-    if axes:
-        raise ValueError("dropout: broadcast masks (axes) are not ported")
+    launches or raises; a CPU tensor takes its plain version. With
+    ``axes`` the mask is drawn once over the shape with those axes set to
+    1 and broadcast along them (the reference's :720-727), through the
+    same kernel on a ones tensor of that shape."""
     if not _applies(p, mode, training):
         return data
     key = _random.next_key()
+    p = float(p)
+    if axes:
+        axes = (axes,) if isinstance(axes, int) else tuple(axes)
+
+        def f(x):
+            return _broadcast_dropout(x, key, p, axes, impl)
+    else:
+        def f(x):
+            return _dp.dropout(x, key, p, impl=impl)
     if _nd(data):
-        return apply_op("dropout",
-                        lambda x: _dp.dropout(x, key, float(p), impl=impl),
-                        (data,))
-    return _dp.dropout(data, key, float(p), impl=impl)
+        return apply_op("dropout", f, (data,))
+    return f(data)
 
 
 def _flash(q, k, v, vl, causal, sm_scale, impl, layout):
@@ -286,7 +438,7 @@ def flash_attention(query, key, value, valid_length=None, causal=False,
     """Fused memory-linear attention, differentiable: the kernels in
     `ops/flash_attention.py` for CUDA tensors, their plain versions for
     CPU tensors. ``valid_length``: (B,) valid sequence lengths. Under AMP
-    float32 q, k, v are cast to bf16."""
+    float32 q, k, v are cast to the target dtype (bf16 or f16)."""
     if _nd(query, key, value, valid_length):
         return apply_op(
             "flash_attention",

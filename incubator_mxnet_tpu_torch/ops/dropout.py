@@ -38,7 +38,7 @@ from ._philox import DeviceKey, dropout_scale, keep_mask, threshold
 __all__ = ["plain_dropout", "dropout_fwd", "dropout", "launches",
            "fold_launches", "site_key_ptr", "KEY_CHUNK"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: site keys the fold kernel writes a launch: a step's first dropout site
 #: of each chunk launches it once (BERT-base's 49 sites take one chunk)
 KEY_CHUNK = 64
@@ -114,7 +114,8 @@ def site_key_ptr(key, device):
 def _kernel(x, key, p):
     global launches
     if x.dtype not in _DTYPES:
-        raise MXNetError(f"dropout kernel takes float32/bfloat16, got "
+        raise MXNetError(f"dropout kernel takes float32/bfloat16/float16, "
+                           f"got "
                          f"{x.dtype}")
     x = _build.aligned(x)
     y = torch.empty_like(x)

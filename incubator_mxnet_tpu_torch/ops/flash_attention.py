@@ -6,7 +6,8 @@ Port of `incubator_mxnet_tpu/ops/flash_attention.py` (`_fwd_kernel` :57,
 `_flash_core` custom vjp :328-358, public `flash_attention` :419,
 `mha_flash` :497). The kernels are ``csrc/flash_attention.cu``, bound by
 operations on the H100, their products on the tensor cores (`wgmma`;
-bf16 directly, f32 as 3xTF32, f32-accurate; see the source's notes):
+bf16 and f16 directly, f32 as 3xTF32, f32-accurate; see the source's
+notes):
 
 - forward: blockwise online-softmax attention, one warpgroup per
   (batch*head, 64-row query tile), looping over key tiles in shared
@@ -16,8 +17,8 @@ bf16 directly, f32 as 3xTF32, f32-accurate; see the source's notes):
   (one per 64-key tile, looping over query tiles), both recomputing
   P = exp(s - lse).
 
-Like the reference, bf16 inputs round P and dS to bf16 before the
-products that take them; the plain versions do the same.
+Like the reference, bf16 and f16 inputs round P and dS to their own dtype
+before the products that take them; the plain versions do the same.
 
 They mask the ragged edges themselves, so the TPU wrapper's pad-to-block
 copies (:470-482) are gone, and they address q, k, v, o, dO and the
@@ -58,7 +59,7 @@ __all__ = ["MAX_HEAD_DIM", "plain_attention", "plain_attention_bwd",
 
 #: Largest head size the kernels take (GPT and BERT use 64).
 MAX_HEAD_DIM = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LAYOUTS = ("bhtd", "bthd")
 
 launches = 0
@@ -189,7 +190,8 @@ def _check_kernel_args(q, k, v, layout, others=()):
     """(b, h, tq, tk, d), raising unless the kernels take these inputs."""
     b, h, tq, tk, d = _dims(q, k, layout)
     if q.dtype not in _DTYPES:
-        raise MXNetError(f"flash_attention kernel takes float32/bfloat16, "
+        raise MXNetError(f"flash_attention kernel takes float32/bfloat16/"
+                           f"float16, "
                          f"got {q.dtype}")
     if any(t.dtype != q.dtype for t in (k, v, *others)):
         raise MXNetError("flash_attention: q, k, v (and o, dO) must share a "

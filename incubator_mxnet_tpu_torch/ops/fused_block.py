@@ -32,9 +32,10 @@ them only for CPU tensors or when asked with ``impl="plain"``.
 
 Layouts (`ops.layer_norm.RESIDUAL_LAYOUTS`): x, y, dx and dy in one
 dtype, h and dh in one, gamma/beta and dgamma/dbeta in one: all float32,
-all bfloat16, or float32 x with bfloat16 h and float32 gamma/beta, what
-AMP feeds BERT's residual sites (the residual stream f32, the attention
-and FFN outputs bf16 products), as the reference's kernels take any mix.
+all bfloat16, all float16, or float32 x with bfloat16 or float16 h and
+float32 gamma/beta, what AMP feeds BERT's residual sites (the residual
+stream f32, the attention and FFN outputs products in the AMP dtype), as
+the reference's kernels take any mix.
 Another layout raises on a CUDA tensor; nothing is cast to one the
 kernels take (casting h to f32 would add a pass and 2 bytes an element).
 
@@ -49,7 +50,7 @@ kernel and the reduction of its dgamma/dbeta partials.
 and the `_gd_core` custom vjp (:335-352). The kernels are
 ``csrc/gelu_dropout.cu``: y = dropout_p(gelu(u)) with the exact erf form
 of GELU, and du = dy * gelu'(u) * mask * scale with gelu'(u) = Phi(u) +
-u * phi(u), all in f32, one (f32) or two (bf16) 16-byte vectors a
+u * phi(u), all in f32, one (f32) or two (bf16, f16) 16-byte vectors a
 thread. Bound by bytes on the H100: 2 * numel * itemsize forward,
 3 * numel * itemsize backward. The saved residuals are u and the key, as
 `_gd_core_fwd` (:340) saves them: neither the mask nor gelu(u). The mask
@@ -97,7 +98,7 @@ __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "gelu_dropout_bwd", "gelu_dropout", "gd_launches",
            "gd_bwd_launches"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # csrc/common.cuh LnMode
 _ADD, _DROP = 1, 2
 
@@ -390,7 +391,8 @@ def _gd_kernel(u, dy, key, p):
     tensors = (u,) if dy is None else (u, dy)
     for t in tensors:
         if t.dtype not in _DTYPES:
-            raise MXNetError(f"{what} kernel takes float32/bfloat16, got "
+            raise MXNetError(f"{what} kernel takes float32/bfloat16/float16, "
+                             f"got "
                              f"{t.dtype}")
     if dy is not None and (dy.shape != u.shape or dy.dtype != u.dtype):
         raise MXNetError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} must "

@@ -27,9 +27,9 @@ the forward with the backward and saves x, gamma, mean and rstd, as
 `_ln_core_fwd` does.
 
 Layouts (:data:`LAYOUTS`): x, y and dx in one dtype and gamma/beta and
-dgamma/dbeta in one, both float32, both bfloat16, or bfloat16 x with
-float32 gamma/beta, what AMP feeds a LayerNorm whose input is a bf16
-product (BERT's ``mlm_ln``), as the reference's kernels take any mix
+dgamma/dbeta in one, both float32, both bfloat16, both float16, or a
+bfloat16 or float16 x with float32 gamma/beta, what AMP feeds a
+LayerNorm whose input is a product in the AMP dtype (BERT's ``mlm_ln``), as the reference's kernels take any mix
 (they cast every input to f32 and write y in x's dtype, dgamma/dbeta in
 gamma's). A CUDA tensor in another layout raises: nothing is cast to a
 layout the kernels take, which would add a pass over the row.
@@ -60,7 +60,7 @@ __all__ = ["MAX_FEATURES", "BWD_KERNELS", "LAYOUTS", "RESIDUAL_LAYOUTS",
            "bwd_launches", "layout_launches", "bwd_layout_launches"]
 
 #: Largest feature size the kernels take: 32 lanes x 32 float4 vectors
-#: (f32) or 16 eight-wide vectors (bf16) held in registers per row.
+#: (f32) or 16 eight-wide vectors (bf16, f16) held in registers per row.
 MAX_FEATURES = 4096
 #: Row-kernel blocks an SM (csrc/common.cuh kLnBwdBlocksPerSm,
 #: kLnFwdBlocksPerSm): the grid is at most two 8-warp blocks per SM, all
@@ -76,14 +76,19 @@ BWD_REDUCE_WARPS = 32
 #: Kernels one backward call launches: the row kernel, then the reduction
 #: of its per-block dgamma/dbeta partials.
 BWD_KERNELS = 2
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: (x, gamma) dtypes the LayerNorm kernels take; the last is AMP's
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: (x, gamma) dtypes the LayerNorm kernels take; a 2-byte x with f32
+#: gamma is AMP's (bf16 or f16)
 LAYOUTS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-           (torch.bfloat16, torch.float32))
+           (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+           (torch.float16, torch.float32))
 #: (x, h, gamma) dtypes the fused residual + dropout + LayerNorm kernels
-#: (`ops/fused_block.py`, the same row code) take; the last is AMP's
+#: (`ops/fused_block.py`, the same row code) take; f32 x with a 2-byte h
+#: and f32 gamma is AMP's (bf16 or f16)
 RESIDUAL_LAYOUTS = ((torch.float32,) * 3, (torch.bfloat16,) * 3,
-                    (torch.float32, torch.bfloat16, torch.float32))
+                    (torch.float32, torch.bfloat16, torch.float32),
+                    (torch.float16,) * 3,
+                    (torch.float32, torch.float16, torch.float32))
 
 launches = 0
 bwd_launches = 0
@@ -111,7 +116,7 @@ def supports(shape, axis, feat, dtype=torch.float32, param_dtype=None,
     return 0 < feat <= MAX_FEATURES and feat % vec == 0
 
 
-_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 @functools.lru_cache(maxsize=None)

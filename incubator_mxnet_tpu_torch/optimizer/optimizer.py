@@ -23,8 +23,11 @@ per-tensor statistics (LAMB, LANS, LARS, GroupAdaGrad) set
 ``elementwise = False``. :meth:`Optimizer.step_multi` updates a list of
 parameters at once: `DataParallel`'s small-parameter segment.
 
-``multi_precision`` (float16 master weights) and the lazy row-sparse
-update raise: ROADMAP.md §1 items 8 and 11.
+``multi_precision`` keeps an f32 master copy of each float16 weight, as
+the reference does (:133-137, :190-200): the state is ``(master,
+inner_state)``, the rule runs on the master with the gradient in f32,
+and the weight's tensor takes the master's cast to float16, in place.
+The lazy row-sparse update raises: ROADMAP.md §1 item 11.
 """
 from __future__ import annotations
 
@@ -76,9 +79,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=None, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False, param_dict=None,
                  aggregate_num=0, use_fused_step=True, **kwargs):  # noqa: ARG002
-        if multi_precision:
-            raise MXNetError("multi_precision (float16 master weights) is "
-                             "not ported (ROADMAP.md §1 item 8)")
         self.rescale_grad = rescale_grad
         self.lr = 0.01 if learning_rate is None else learning_rate
         self.lr_scheduler = lr_scheduler
@@ -152,6 +152,13 @@ class Optimizer:
         return None
 
     def create_state_multi_precision(self, index, weight):
+        """``(master, inner_state)`` for a float16 weight under
+        ``multi_precision``: the master an f32 copy, the inner state made
+        for it; else :meth:`create_state`."""
+        w = _tensor(weight)
+        if self.multi_precision and w.dtype == torch.float16:
+            master = w.detach().float()
+            return (master, self.create_state(index, master))
         return self.create_state(index, weight)
 
     # -- update -------------------------------------------------------------
@@ -183,6 +190,22 @@ class Optimizer:
                          "(ROADMAP.md §1 item 11, ndarray/sparse.py)")
 
     def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update` on the f32 master of a float16 weight (a state
+        from :meth:`create_state_multi_precision`) with the gradient in
+        f32, then the weight's tensor set to the master's cast, in place;
+        any other weight and state take :meth:`update`."""
+        w = _tensor(weight)
+        if self.multi_precision and isinstance(state, tuple) \
+                and len(state) == 2 and isinstance(state[0], torch.Tensor) \
+                and state[0].dtype == torch.float32 \
+                and w.dtype == torch.float16:
+            master, inner = state
+            self.update(index, master, _tensor(grad).float(), inner)
+            with torch.no_grad():
+                w.copy_(master)
+            if not isinstance(weight, torch.Tensor):
+                weight._version += 1
+            return state
         return self.update(index, weight, grad, state)
 
     def step(self, w, g, state, lr, wd, t):

@@ -38,6 +38,10 @@ def env_float(name, default):
 
 
 _ENV_KNOBS = {
+    "MXNET_SAFE_ACCUMULATION": (
+        "npx.softmax", "1 -> a float16 or bfloat16 input reduces in f32 "
+        "and the output takes the input's dtype back (products "
+        "accumulate in f32 regardless)"),
     "MXNET_SERVE_MAX_QUEUE": (
         "serve.ServeEngine", "admission-queue depth before submit() "
         "raises QueueFull (default 128)"),

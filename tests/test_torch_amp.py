@@ -37,7 +37,8 @@ versions), dropout 0.
   JAX ones (normwise 2^-5, 2^-4 for the all-bf16 `convert_model`, whose
   residual stream is bf16 too).
 - A clean exit: after `amp.deinit()` the float32 path is bitwise what it
-  was without AMP. `init("float16")` raises.
+  was without AMP. `init` takes "bfloat16" (the default) and "float16"
+  (`tests/test_torch_amp16.py`).
 """
 import numpy as onp
 import pytest
@@ -50,7 +51,6 @@ from incubator_mxnet_tpu import numpy_extension as jnpx
 from incubator_mxnet_tpu.models.bert import bert_small as jax_bert_small
 from incubator_mxnet_tpu_torch import amp
 from incubator_mxnet_tpu_torch import numpy_extension as tnpx
-from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.gluon import Trainer
 from incubator_mxnet_tpu_torch.gluon import nn as tnn
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -421,13 +421,18 @@ def test_deinit_restores_the_float32_path_bitwise(ref):
 
 
 def test_init_takes_bfloat16_only():
-    with pytest.raises(MXNetError, match="float16 kernels are not ported"):
-        amp.init("float16")
+    """The default target is bfloat16; float16 is taken too (the float16
+    kernels), any other target raises ValueError, as in the reference."""
+    amp.init("float16")
+    try:
+        assert amp.amp_active() and amp.amp_dtype() == torch.float16
+    finally:
+        amp.deinit()
     assert not amp.amp_active()
     with pytest.raises(ValueError):
         amp.init("int8")
-    with pytest.raises(MXNetError):
-        amp.convert_model(torch.nn.Linear(2, 2), "float16")
+    with pytest.raises(ValueError):
+        amp.convert_model(torch.nn.Linear(2, 2), "int8")
     amp.init()
     try:
         assert amp.amp_active() and amp.amp_dtype() == torch.bfloat16

@@ -23,7 +23,6 @@ from incubator_mxnet_tpu import autograd, gluon, np
 from incubator_mxnet_tpu.models.bert import bert_small as jax_bert_small
 from incubator_mxnet_tpu_torch import autograd as tautograd
 from incubator_mxnet_tpu_torch import random as mxrandom
-from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.gluon import Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.models.bert import bert_small
@@ -227,6 +226,19 @@ def test_trainer_step_takes_ignore_stale_grad(ref):
                                         atol=1e-6, err_msg=name)
 
 
-def test_only_the_flash_path_is_ported():
-    with pytest.raises(MXNetError):
-        bert_small(use_flash=False, device="cpu")
+def test_only_the_flash_path_is_ported(ref):
+    """Both attention paths are ported: ``use_flash=False`` (dense masks,
+    `tests/test_torch_dense.py`) builds the same parameters and, on the
+    same weights, the flash path's scores within 1e-5."""
+    params, _ = ref
+    dense = bert_small(vocab_size=VOCAB, max_length=32, dropout=0.0,
+                       use_flash=False, device="cpu", seed=0)
+    assert sorted(dict(dense.collect_params())) == sorted(params)
+    dense.load_jax_params(params)
+    tok, _, vl = _data(1)
+    with torch.no_grad():
+        a = dense(torch.from_numpy(tok).long(), None, torch.from_numpy(vl))
+        b = _port(params)(torch.from_numpy(tok).long(), None,
+                          torch.from_numpy(vl))
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)

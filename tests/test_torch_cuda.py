@@ -17,7 +17,13 @@ the kernels round P and dS to bf16 as the reference does, the forward at
 its running max and the plain version at the final max, so an element
 near zero, a sum of terms that cancel, may differ by more than one
 spacing of its own; the error is at most 2^-7 of the plain tensor's norm
-and, elementwise, 2^-6 of its largest magnitude. Dropout is bit-identical (same Philox words, same f32 multiply).
+and, elementwise, 2^-6 of its largest magnitude. float16 is held
+by the same rules at its own precision: 2^-10 rel and 1e-5 abs
+elementwise, flash attention 2^-10 normwise and 2^-9 of the largest
+magnitude, each plus the elementwise rule's 1e-5 an element, for
+gradients near zero (the f32 noise of a gradient that is zero in exact
+arithmetic, or one in float16's subnormals). Dropout is bit-identical
+(same Philox words, same f32 multiply).
 AMP's mixed layouts (LayerNorm: bf16 x with f32 gamma/beta; the residual
 kernels: f32 x with bf16 h and f32 gamma/beta) by the same rules per
 output dtype, and the mixed residual kernels equal the f32 ones on h
@@ -47,10 +53,19 @@ pytestmark = pytest.mark.cuda
 
 # (rtol, atol)
 BF16_TOL = (2.0 ** -7, 1e-5)
-LN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: BF16_TOL}
+# float16: the same rule at its own precision (10 stored mantissa bits)
+F16_TOL = (2.0 ** -10, 1e-5)
+LOW_TOL = {torch.bfloat16: BF16_TOL, torch.float16: F16_TOL}
+LN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: BF16_TOL,
+          torch.float16: F16_TOL}
 # flash attention in bfloat16: normwise relative, and elementwise relative
-# to the plain tensor's largest magnitude
+# to the plain tensor's largest magnitude; float16 the same at its own
+# precision
 ATTN_BF16_NORM_TOL, ATTN_BF16_MAX_TOL = 2.0 ** -7, 2.0 ** -6
+ATTN_LOW_TOL = {torch.bfloat16: (ATTN_BF16_NORM_TOL, ATTN_BF16_MAX_TOL),
+                torch.float16: (2.0 ** -10, 2.0 ** -9)}
+# float16's subnormals: below 2^-14 its spacing is 2^-24 absolute
+F16_SUBNORMAL = 2.0 ** -24
 
 
 @pytest.fixture
@@ -66,7 +81,8 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("rows,c", [(1, 64), (5, 96), (13, 768), (40, 768),
                                     (1000, 768), (7, 1000), (3, 4096),
                                     (33, 8)])
@@ -164,13 +180,23 @@ def _attn_close(got, ref, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         return
+    norm_tol, max_tol = ATTN_LOW_TOL[dtype]
+    # float16: plus the elementwise rule's absolute term (F16_TOL) an
+    # element. A float16 gradient near zero (one that is zero in exact
+    # arithmetic, as dq and dk of one query over one key, or one that
+    # underflows to the subnormals) is the f32 rounding noise of sums whose
+    # f16 x f16 products are exact but whose order differs (delta against
+    # dO V^T); bf16's 16-bit products sum exactly there
+    floor = F16_TOL[1] if dtype == torch.float16 else 0.0
     g, r = got.float(), ref.float()
     d = g - r
-    assert d.norm().item() <= ATTN_BF16_NORM_TOL * r.norm().item()
-    assert d.abs().max().item() <= ATTN_BF16_MAX_TOL * r.abs().max().item()
+    assert d.norm().item() <= (norm_tol * r.norm().item()
+                               + floor * r.numel() ** 0.5)
+    assert d.abs().max().item() <= max_tol * r.abs().max().item() + floor
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_flash_attention_kernel_vs_plain(dev, dtype, case):
     b, h, tq, tk, d, causal, lengths = case
@@ -194,7 +220,8 @@ def test_flash_attention_kernel_vs_plain(dev, dtype, case):
             assert (o[i, :, n:] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_attention_bthd_views_of_fused_qkv(dev, dtype):
     """The main path's call: q, k, v are strided views of one (N, T, 3, H,
     d) projection output, read in place."""
@@ -255,11 +282,14 @@ def test_tiny_gpt_on_card_matches_cpu(dev):
 # -- the training slice's kernels: K2, K3, K4b, K5 ---------------------------
 
 def _bf16_close(got, ref):
+    """Elementwise at the 2-byte dtype's precision (bf16 or f16)."""
+    rtol, atol = LOW_TOL[got.dtype]
     g, r = got.float(), ref.float()
-    assert bool(((g - r).abs() <= BF16_TOL[0] * r.abs() + BF16_TOL[1]).all())
+    assert bool(((g - r).abs() <= rtol * r.abs() + atol).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("shape,p", [((1, 4), 0.5), ((7, 13), 0.1),
                                      ((1000, 768), 0.1), ((33, 3072), 0.1),
                                      ((5, 8), 0.9)])
@@ -293,7 +323,7 @@ def test_dropout_misaligned_noncontiguous_and_trivial_p(dev):
     assert (dp.dropout_fwd(x, key, 1.0) == 0).all()  # p = 1: zeros
     assert dp.launches == 0
     with pytest.raises(MXNetError):
-        dp.dropout_fwd(x.half(), key, 0.2)           # no fp16 kernel
+        dp.dropout_fwd(x.double(), key, 0.2)         # no f64 kernel
 
 
 def test_dropout_backward_reuses_the_mask(dev):
@@ -317,12 +347,13 @@ def _assert_column_sums(dev, rows, got, ref, dy, xhat):
                                       dy.abs().sum(0))):
         tol = ln.column_sum_tol(terms, rows, nblocks)
         g, r = g.float(), r.float()
-        if got[0].dtype == torch.bfloat16:
-            tol = BF16_TOL[0] * r.abs() + 2 * tol
+        if got[0].dtype != torch.float32:
+            tol = LOW_TOL[got[0].dtype][0] * r.abs() + 2 * tol
         assert ((g - r).abs() <= tol).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("rows,c", [(1, 64), (5, 96), (13, 768),
                                     (1000, 768), (7, 1000), (3, 4096),
                                     (4100, 64)])
@@ -339,7 +370,7 @@ def test_layer_norm_bwd_kernel_vs_plain(dev, dtype, rows, c):
     rx, rg, rb = ln.layer_norm_bwd(x, dy, mean, rstd, gamma, impl="plain")
     torch.cuda.synchronize()
     assert dx.dtype == dtype and dg.dtype == db.dtype == dtype
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         for got, ref in ((dx, rx), (dg, rg), (db, rb)):
             _bf16_close(got, ref)
         return
@@ -348,7 +379,8 @@ def test_layer_norm_bwd_kernel_vs_plain(dev, dtype, rows, c):
     _assert_column_sums(dev, rows, (dg, db), (rg, rb), dy, xhat)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("rows,c", [(3, 64), (130, 768), (1000, 768)])
 @pytest.mark.parametrize("p", [0.0, 0.1, 1.0])
 def test_residual_dropout_ln_kernel_vs_plain(dev, dtype, rows, c, p):
@@ -375,7 +407,7 @@ def test_residual_dropout_ln_kernel_vs_plain(dev, dtype, rows, c, p):
     assert counts == ((0, 0, 1, 2) if p == 1 else (1, 2, 0, 0))
     torch.testing.assert_close(m, mp, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(r, rp, rtol=2e-5, atol=2e-5)
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         for got, ref in ((y, yp), *zip(grads, refs)):
             _bf16_close(got, ref)
         return
@@ -393,7 +425,8 @@ def test_residual_dropout_ln_kernel_vs_plain(dev, dtype, rows, c, p):
 
 # NV, the 16-byte vectors a lane takes of a row: each count the row
 # backward instantiates apart (C = NV * 32 * vector width)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("nv", [1, 3, 6, 8, 16])
 @pytest.mark.parametrize("rows", [1, 7, 65536])
 def test_row_bwd_kernel_vs_plain_at_each_vector_count(dev, dtype, nv, rows):
@@ -422,7 +455,7 @@ def test_row_bwd_kernel_vs_plain_at_each_vector_count(dev, dtype, nv, rows):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         assert all(t.dtype == dtype for t in got)
         for gt, rf in zip(got[:-2], ref[:-2]):          # dx (and dh)
-            if dtype == torch.bfloat16:
+            if dtype != torch.float32:
                 _bf16_close(gt, rf)
             else:
                 torch.testing.assert_close(gt, rf, rtol=0, atol=2e-5)
@@ -432,7 +465,15 @@ def test_row_bwd_kernel_vs_plain_at_each_vector_count(dev, dtype, nv, rows):
     # itself: at 65536 rows some plain dx cancel to exactly 0 where the
     # kernel's does not, and the other way round)
     keep = ph.keep_mask((rows, c), key, p, device=dev)
-    assert torch.equal(got[1] != 0, keep & (got[0] != 0))
+    if dtype != torch.float16:
+        assert torch.equal(got[1] != 0, keep & (got[0] != 0))
+        return
+    # float16: a ds of a subnormal's size rounds to 0 in dx and to the
+    # smallest subnormal in dh = ds * scale (or back): those are exempt
+    tiny = ((got[0].float().abs() <= 2 * F16_SUBNORMAL)
+            & (got[1].float().abs() <= 2 * F16_SUBNORMAL))
+    assert not bool(((got[1] != 0) & ~keep).any())
+    assert bool((((got[1] != 0) == (keep & (got[0] != 0))) | tiny).all())
 
 
 def test_residual_dropout_ln_mask_is_the_dropout_kernels(dev):
@@ -462,11 +503,14 @@ def _grid_rows(dev):
 
 _ROW_LAYOUTS = [(torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
-                (torch.bfloat16, torch.float32)]
+                (torch.bfloat16, torch.float32),
+                (torch.float16, torch.float16),
+                (torch.float16, torch.float32)]
 
 
 @pytest.mark.parametrize("layout", _ROW_LAYOUTS,
-                         ids=["f32", "bf16", "bf16-x-f32-gamma"])
+                         ids=["f32", "bf16", "bf16-x-f32-gamma", "f16",
+                              "f16-x-f32-gamma"])
 @pytest.mark.parametrize("kind", ["one row a warp", "walk"])
 def test_layer_norm_fwd_each_grid_vs_plain(dev, kind, layout):
     """K4 on each regime of its grid (`ln.row_blocks`: one row a warp,
@@ -481,7 +525,7 @@ def test_layer_norm_fwd_each_grid_vs_plain(dev, kind, layout):
         y, m, r = ln.layer_norm_fwd(x, gamma, beta, impl="kernel")
         yp, mp, rp = ln.layer_norm_fwd(x, gamma, beta, impl="plain")
         torch.cuda.synchronize()
-        if xdt == torch.bfloat16:
+        if xdt != torch.float32:
             _bf16_close(y, yp)
         else:
             torch.testing.assert_close(y, yp, rtol=0, atol=2e-5)
@@ -503,7 +547,8 @@ def test_layer_norm_fwd_entry_rejects_a_grid_it_cannot_launch(dev):
 
 
 @pytest.mark.parametrize("layout", _ROW_LAYOUTS,
-                         ids=["f32", "bf16", "bf16-x-f32-gamma"])
+                         ids=["f32", "bf16", "bf16-x-f32-gamma", "f16",
+                              "f16-x-f32-gamma"])
 @pytest.mark.parametrize("c", [768, 64, 4096])
 def test_layer_norm_fwd_rows_are_bit_for_bit_any_row_count(dev, layout, c):
     """A row's y, mean and rstd are the same bits in a call of 1 row, of
@@ -528,8 +573,12 @@ def test_layer_norm_fwd_rows_are_bit_for_bit_any_row_count(dev, layout, c):
 @pytest.mark.parametrize("layout", [(torch.float32,) * 3,
                                     (torch.bfloat16,) * 3,
                                     (torch.float32, torch.bfloat16,
+                                     torch.float32),
+                                    (torch.float16,) * 3,
+                                    (torch.float32, torch.float16,
                                      torch.float32)],
-                         ids=["f32", "bf16", "f32-x-bf16-h"])
+                         ids=["f32", "bf16", "f32-x-bf16-h", "f16",
+                              "f32-x-f16-h"])
 @pytest.mark.parametrize("device_key", [False, True])
 def test_residual_fwd_rows_bit_for_bit_and_masks_k5s(dev, layout,
                                                      device_key):
@@ -610,7 +659,8 @@ def test_row_fwd_graph_replay_equals_eager(dev):
 
 
 # (B, H, Tq, Tk, d, causal, lengths): ATTN_CASES above, run backward
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_flash_attention_bwd_kernel_vs_plain(dev, dtype, case):
     b, h, tq, tk, d, causal, lengths = case
@@ -629,7 +679,7 @@ def test_flash_attention_bwd_kernel_vs_plain(dev, dtype, case):
     for gt, rf in zip(got, ref):
         assert gt.shape == rf.shape and gt.dtype == dtype
         assert bool(torch.isfinite(gt.float()).all())
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             _attn_close(gt, rf, dtype)
         else:
             scale = max(1.0, rf.abs().max().item())
@@ -664,7 +714,7 @@ def test_new_npx_ops_launch_or_raise(dev):
     g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     dp.launches = fb.launches = 0
     with pytest.raises(MXNetError):
-        npx.dropout(x.half(), p=0.5, training=True)           # fp16
+        npx.dropout(x.double(), p=0.5, training=True)         # f64
     with pytest.raises(MXNetError):
         npx.residual_dropout_ln(x[..., :62], x[..., :62], g[:62], b[:62],
                                 p=0.1, training=True)        # C % 4 != 0
@@ -833,7 +883,7 @@ def test_amp_layouts_only_the_taken_mixes_launch(dev):
     for args in ((x.bfloat16(), x.bfloat16(), g32, b32),   # bf16 x and h
                  (x, x.bfloat16(), g16, b16),              # bf16 gamma
                  (x.bfloat16(), x, g32, b32),              # bf16 x, f32 h
-                 (x, x.half(), g32, b32)):                 # float16 h
+                 (x.half(), x.bfloat16(), g32, b32)):      # f16 x, bf16 h
         with pytest.raises(MXNetError):
             npx.residual_dropout_ln(*args, p=0.1, training=True)
     with pytest.raises(MXNetError):
@@ -908,13 +958,14 @@ GD_F32_TOL = 2e-6
 
 def _gd_close(got, ref):
     assert got.dtype == ref.dtype and bool(torch.isfinite(got.float()).all())
-    if got.dtype == torch.bfloat16:
+    if got.dtype != torch.float32:
         _bf16_close(got, ref)
     else:
         torch.testing.assert_close(got, ref, rtol=0, atol=GD_F32_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 # numels below, at and past one block (4096 f32 / 8192 bf16 elements,
 # 16 / 32 a thread), most of them no multiple of a thread's elements
 @pytest.mark.parametrize("shape", [(1, 4), (7, 13), (1000, 771),
@@ -981,7 +1032,7 @@ def test_gelu_dropout_misaligned_noncontiguous_and_trivial_p(dev):
     assert (fb.gelu_dropout_bwd(u, dyt, key, 1.0) == 0).all()
     assert (fb.gd_launches, fb.gd_bwd_launches) == (0, 0)
     with pytest.raises(MXNetError):
-        fb.gelu_dropout_fwd(u.half(), key, 0.2)          # no fp16 kernel
+        fb.gelu_dropout_fwd(u.double(), key, 0.2)        # no f64 kernel
     with pytest.raises(MXNetError):
         fb.gelu_dropout_bwd(u, dyt.bfloat16(), key, 0.2)  # dtypes differ
     assert (fb.gd_launches, fb.gd_bwd_launches) == (0, 0)
@@ -1022,7 +1073,7 @@ def test_npx_gelu_dropout_launches_k6_not_k5(dev):
         ev, torch.nn.functional.gelu(x, approximate="none"))
     assert (fb.gd_launches, dp.launches) == (1, 1)
     with pytest.raises(MXNetError):
-        npx.gelu_dropout(x.half(), p=0.1, training=True)
+        npx.gelu_dropout(x.double(), p=0.1, training=True)
 
 
 # -- device keys (a step replayed as a CUDA graph) and DataParallel ----------
@@ -1036,7 +1087,8 @@ def _host_words(key):
     return tuple(int(w) for w in ph.key_words(key))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("shape", [(7, 13), (1000, 768)])
 def test_device_key_launches_equal_the_by_value_launches(dev, dtype, shape):
     """K5, K3 (forward and backward) and K6 (forward and backward) on a

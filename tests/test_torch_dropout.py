@@ -158,8 +158,9 @@ def test_npx_and_gluon_dropout_apply_only_in_training():
     with autograd.train_mode():
         assert torch.equal(layer(x), y)                    # training mode
     assert layer(x) is x
-    with pytest.raises(ValueError):
-        npx.dropout(x, p=0.5, axes=(0,), training=True)
+    # broadcast masks (axes): one mask row shared by every row
+    y = npx.dropout(x, p=0.5, axes=(0,), training=True)
+    assert torch.equal(y != 0, (y[:1] != 0).expand_as(y) & (x != 0))
 
 
 # -- device keys: a step's keys folded from its base key, t and the site ----

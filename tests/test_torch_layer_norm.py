@@ -79,7 +79,9 @@ def test_supports_gate_sized_for_hopper():
     assert tln.supports((8, 776), -1, 776, torch.bfloat16)
     assert not tln.supports((8, 772), -1, 772, torch.bfloat16)
     assert not tln.supports((8, 768, 4), 1, 768)          # not last axis
-    assert not tln.supports((8, 768), -1, 768, torch.float16)
+    assert tln.supports((8, 768), -1, 768, torch.float16)
+    assert not tln.supports((8, 772), -1, 772, torch.float16)
+    assert not tln.supports((8, 768), -1, 768, torch.float64)
 
 
 def test_impl_kernel_on_cpu_raises():
@@ -298,7 +300,9 @@ _F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 @pytest.mark.parametrize("dts", [
     (_F32, _F32, _F32, _F32, None), (_BF16, _BF16, _BF16, _BF16, None),
     (_BF16, _F32, _F32, _BF16, None), (_F32, _F32, _F32, _F32, _F32),
-    (_BF16, _BF16, _BF16, _BF16, _BF16), (_F32, _F32, _F32, _F32, _BF16)])
+    (_BF16, _BF16, _BF16, _BF16, _BF16), (_F32, _F32, _F32, _F32, _BF16),
+    (_F16, _F16, _F16, _F16, None), (_F16, _F32, _F32, _F16, None),
+    (_F16, _F16, _F16, _F16, _F16), (_F32, _F32, _F32, _F32, _F16)])
 def test_check_kernel_args_takes_the_kernels_layouts(dts):
     x, g, b, dy, h = (None if d is None else torch.zeros(4, 64, dtype=d)
                       for d in dts)
@@ -312,12 +316,12 @@ def test_check_kernel_args_takes_the_kernels_layouts(dts):
     (_F32, _BF16, _BF16, _F32, None),      # f32 x, bf16 gamma
     (_BF16, _F32, _BF16, _BF16, None),     # gamma and beta differ
     (_BF16, _F32, _F32, _F32, None),       # dy not in x's dtype
-    (_F16, _F16, _F16, _F16, None),        # float16
-    (_F16, _F32, _F32, _F16, None),
+    (_F16, _BF16, _BF16, _F16, None),      # f16 x, bf16 gamma
+    (_F32, _F16, _F16, _F32, None),        # f32 x, f16 gamma
     (_BF16, _F32, _F32, _BF16, _BF16),     # bf16 x and h, f32 gamma
     (_F32, _BF16, _BF16, _F32, _BF16),     # bf16 h and gamma, f32 x
     (_BF16, _F32, _F32, _BF16, _F32),      # bf16 x, f32 h
-    (_F32, _F32, _F32, _F32, _F16)])       # float16 h
+    (_F16, _F32, _F32, _F16, _F16)])       # f16 x and h, f32 gamma
 def test_check_kernel_args_raises_on_other_layouts(dts):
     x, g, b, dy, h = (None if d is None else torch.zeros(4, 64, dtype=d)
                       for d in dts)

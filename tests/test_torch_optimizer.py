@@ -328,16 +328,30 @@ def test_nd_optim_multi_forms_match_the_reference():
 
 
 def test_nd_optim_multi_precision_forms_raise():
+    """The multi-precision forms are ported (they raised before float16
+    came): each takes a float16 weight and its f32 master, updates the
+    master and writes its cast into ``out``
+    (`tests/test_torch_amp16.py` holds them to the reference's)."""
     with tmx.cpu():
-        w = tmx.nd.array(onp.ones((2, 2), "float32"))
-        calls = (lambda: tmx.nd.mp_sgd_update(w, w, w, 0.1),
-                 lambda: tmx.nd.multi_mp_sgd_update(w, w, w, lrs=[0.1],
-                                                    wds=[0.0]),
-                 lambda: tmx.nd.mp_adamw_update(w, w, w, w, w, 1.0, 0.1,
-                                                1.0),
-                 lambda: tmx.nd.preloaded_multi_mp_sgd_mom_update(
-                     w, w, w, w, w, w),
-                 lambda: tmx.nd.mp_lamb_update_phase2(w, w, w, w, w, 0.1))
+        w32 = tmx.nd.array(onp.full((2, 2), 0.5, "float32"))
+        g = tmx.nd.array(onp.ones((2, 2), "float16"))
+        m = tmx.nd.array(onp.zeros((2, 2), "float32"))
+        lrs = tmx.nd.array(onp.asarray([0.1]))
+        wds = tmx.nd.array(onp.asarray([0.0]))
+        calls = (lambda w: tmx.nd.mp_sgd_update(w, g, w32, 0.1, out=w),
+                 lambda w: tmx.nd.multi_mp_sgd_update(w, g, w32, lrs=[0.1],
+                                                      wds=[0.0], out=[w]),
+                 lambda w: tmx.nd.mp_adamw_update(w, g, m, m, w32, 1.0, 0.1,
+                                                  1.0, out=w),
+                 lambda w: tmx.nd.preloaded_multi_mp_sgd_mom_update(
+                     w, g, m, w32, lrs, wds, out=[w]),
+                 lambda w: tmx.nd.mp_lamb_update_phase2(w, g, w32, w32, w32,
+                                                        0.1, out=w))
         for call in calls:
-            with pytest.raises(MXNetError):
-                call()
+            w = w32.astype("float16")
+            before = w32.asnumpy()
+            call(w)
+            assert w.dtype == onp.float16
+            assert not onp.array_equal(w32.asnumpy(), before)
+            onp.testing.assert_array_equal(
+                w.asnumpy(), w32.asnumpy().astype(onp.float16))
