@@ -160,6 +160,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``GPTModel.generate`` (8 x 100 -> 64) and a ``ServeEngine`` over trace
    A's first 8 requests: the tied model's tokens, one decode capture, and
    a recapture after a new tensor is bound to ``lm_head.weight``.
+11. ``[vision]`` (after ``[dense]``): ``bench.py:310``'s ResNet-50-v1
+   training as written (batch 128 x 3 x 224^2, SGD with momentum 0.9,
+   softmax CE, ``DataParallel``: one CUDA graph) in f32 and under
+   ``amp.init("bfloat16")``: images/s, the median step, the idle share
+   from CUDA events, one capture, the model FLOPs share from the net's
+   own conv and dense shapes, a profiled replay's device time by kernel
+   class; one batch-4 step on the card against the CPU's f32 run (loss,
+   running statistics) and f64 run (every gradient); one
+   running-statistics update a step through the eager, capturing and
+   replayed steps; the gluon loop eager and hybridized against
+   ``DataParallel``; ``alexnet()`` at batch 128 with its two dropouts
+   through K5 inside the replayed step (launches counted, new masks a
+   replay, K5 against its plain version); the packaged
+   ``mobilenet0.25_digits`` weights and every zoo family on the card
+   against the CPU.
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
@@ -167,7 +182,7 @@ power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}``,
 the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
-``{"amp16": ...}``, ``{"dense": ...}`` lines, one
+``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -176,6 +191,7 @@ except in the TF32 training run, which restores it.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -900,7 +916,8 @@ def _dt(dtype):
 
 
 def phase_kernels_vs_plain(torch, dev):
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
     attn, lns = attn_cases(torch, dev), ln_cases(torch, dev)
@@ -984,7 +1001,8 @@ def decode_step_device_ms(torch, model, prompt, cont):
 def phase_serve(torch, dev):
     from incubator_mxnet_tpu_torch.models.decoding import GPTDecoder
     from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
     model = gpt2_small(device=dev, seed=0).eval()
@@ -3312,7 +3330,9 @@ def phase_elastic(torch, dev, base):
 def phase_times(torch, attn, lns):
     import torch.nn.functional as F
 
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module(
+
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
     for c in attn:
@@ -3524,7 +3544,8 @@ def _split_text(split):
 def _counters():
     """The port's launch counters: name -> (module, attribute)."""
     from incubator_mxnet_tpu_torch.ops import dropout as dp
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
     from incubator_mxnet_tpu_torch.ops import fused_block as fb
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
@@ -3676,7 +3697,8 @@ def phase_train_kernels_vs_plain(torch, dev):
     the BERT-base step; dropout masks bit for bit."""
     from incubator_mxnet_tpu_torch.ops import _philox as ph
     from incubator_mxnet_tpu_torch.ops import dropout as dp
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
     from incubator_mxnet_tpu_torch.ops import fused_block as fb
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
@@ -4601,7 +4623,8 @@ def phase_times_train(torch, attn, k3, k4b, drop):
     import torch.nn.functional as F
 
     from incubator_mxnet_tpu_torch.ops import dropout as dp
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
     from incubator_mxnet_tpu_torch.ops import fused_block as fb
     from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
@@ -6648,6 +6671,588 @@ def phase_dense(torch, dev):
     return res, dense_launches
 
 
+# ---------------------------------------------------------------------------
+# [vision]: bench.py's ResNet-50-v1 training and the vision zoo on the card
+# ---------------------------------------------------------------------------
+
+VISION_B = 128                  # bench.py:310's batch, 3 x 224 x 224
+VISION_SIZE = 224
+VISION_WARMUP, VISION_STEPS = 2, 20
+VISION_CHECK_B = 4              # the step held against the CPU's
+VISION_REPLAY_STEPS = 5         # eager, capturing, 3 replays (lr 0)
+VISION_GLUON_STEPS = 3
+VISION_LOSS_TOL = 1e-4          # relative: the card's f32 loss, the CPU's
+VISION_GRAD_ERR_X = 3.0         # a gradient's distance from the CPU's
+#                                 float64 one: at most 3 x the CPU float32
+#                                 run's own, + 1e-4 of its norm, + 1e-6 an
+VISION_GRAD_ATOL = 1e-6         # element (a conv bias ahead of a BatchNorm:
+#                                 its gradient is 0 up to rounding)
+VISION_STAT_TOL = 1e-4          # of each statistic's largest entry
+VISION_LOGIT_TOL = 1e-4         # of the largest logit
+VISION_FAMILIES = (("alexnet", 224), ("resnet18_v1", 224),
+                   ("resnet18_v2", 224), ("vgg11", 224), ("vgg11_bn", 224),
+                   ("mobilenet0.25", 224), ("mobilenetv2_0.25", 224),
+                   ("squeezenet1.1", 224), ("densenet121", 224),
+                   ("inceptionv3", 299))
+VISION_FAMILY_B = 8
+VISION_DIGITS_N = 64
+ALEXNET_K5_PER_STEP = 4         # 2 Dropout(0.5) sites, forward and backward
+# peak rates of the model-FLOPs share (PERF.md §2): f32 FMA, dense bf16
+VISION_PEAK = {"f32": 67e12, "bf16": 989e12}
+
+
+def _vision_macs(net, x):
+    """Forward multiply-adds of one call of ``net`` on ``x``, from its
+    convolutions' and dense layers' own shapes (forward hooks): a
+    convolution's output elements a filter times the filter's size, a
+    dense layer's rows times its weight's size."""
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    total = [0]
+
+    def hook(block, args, out):  # noqa: ARG001
+        w = block.weight.data()
+        w = getattr(w, "_data", w)
+        if isinstance(block, nn.Dense):
+            total[0] += out.shape[0] * w.numel()
+        else:
+            n_out = math.prod(out.shape)
+            total[0] += n_out // block._channels * w.numel()
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if type(m).__name__ in ("Conv2D", "Dense")]
+    try:
+        net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def _vision_cpu_net(mx, make, size, seed):
+    """``make()`` on the CPU, initialised from ``seed`` and called once
+    (deferred shapes)."""
+    import torch
+
+    with mx.cpu():
+        mx.random.seed(seed)
+        net = make()
+        net.initialize()
+        net(torch.zeros(1, 3, size, size))
+    return net
+
+
+def _vision_on(mx, net, device):
+    import copy
+
+    twin = copy.deepcopy(net)
+    twin.reset_device(device)
+    return twin
+
+
+def _stats(net):
+    return {k: p.data()._data.detach().clone()
+            for k, p in net.collect_params().items() if "running" in k}
+
+
+def _rel_max(got, ref):
+    scale = max(float(ref.abs().max()), 1e-30)
+    return float((got.double() - ref.double()).abs().max()) / scale
+
+
+_VISION_CLASSES = (
+    ("convolution", ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad",
+                     "dgrad", "winograd", "fft", "sm90_", "sm80_")),
+    ("batch_norm", ("batch_norm", "batchnorm", "welford")),
+    ("cast_copy", ("copy", "cast", "to_copy", "fill")),
+)
+
+
+def _vision_profile(torch, step):
+    """Device ms of one ``step()`` (a replay) by kernel class
+    (convolutions and products, BatchNorm, casts and copies, the rest)
+    and its six longest kernels, from ``torch.profiler`` (a warm-up
+    cycle first, the card spun ahead of the recorded step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # a trace with no device records (PERF.md §7) is taken again, at most
+    # three times
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                torch.cuda._sleep(SPIN_CYCLES)
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        out = {name: 0.0 for name, _ in _VISION_CLASSES}
+        out["other"] = 0.0
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or SPIN_KERNEL in e.key \
+                    or e.key.startswith("ProfilerStep"):
+                continue
+            ms = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            key = e.key.lower()
+            cls = next((name for name, parts in _VISION_CLASSES
+                        if any(p in key for p in parts)), "other")
+            out[cls] += ms
+            rows.append((ms, e.count, e.key[:90]))
+        out["total"] = sum(v for k, v in out.items())
+        if out["total"] > 0:
+            break
+    out["top"] = [(round(ms, 3), n, k) for ms, n, k in
+                  sorted(rows, reverse=True)[:6]]
+    return out
+
+
+def phase_vision_bench(torch, dev, mode):
+    """`bench.py:310` (`bench_resnet50_train`) as written, on the port:
+    `resnet50_v1()`, ``initialize()``, one call at 1 x 3 x 224 x 224,
+    `DataParallel` with `SoftmaxCrossEntropyLoss` and SGD (lr 0.01,
+    momentum 0.9) on a batch of 128, 2 warm-up steps (eager, capturing)
+    and 20 timed replays, in f32 (TF32 off) or under
+    ``amp.init("bfloat16")``; then 20 more, each timed alone, for the
+    median step; a replay's span on the card from CUDA events."""
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import amp, gluon, np, optimizer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from incubator_mxnet_tpu_torch.parallel.sharded import DataParallel
+
+    tag = f"vision {mode}"
+    mx.random.seed(0)
+    net = resnet50_v1()
+    net.initialize()
+    rng = onp.random.RandomState(0)
+    x1 = np.array(rng.uniform(-1, 1, (1, 3, VISION_SIZE, VISION_SIZE))
+                  .astype("float32"))
+    macs = _vision_macs(net, x1)          # the bench's own first call
+    dp = DataParallel(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      optimizer.SGD(learning_rate=0.01, momentum=0.9))
+    x = np.array(rng.uniform(-1, 1, (VISION_B, 3, VISION_SIZE, VISION_SIZE))
+                 .astype("float32"))
+    y = np.array(rng.randint(0, 1000, (VISION_B,)).astype("int32"))
+    if mode == "bf16":
+        amp.init("bfloat16")
+    try:
+        losses = []
+        for _ in range(VISION_WARMUP):
+            losses.append(dp.step(x, y))
+        float(losses[-1].asnumpy())
+        t0 = time.perf_counter()
+        for _ in range(VISION_STEPS):
+            losses.append(dp.step(x, y))
+        float(losses[-1].asnumpy())
+        dt = (time.perf_counter() - t0) / VISION_STEPS
+        walls = []
+        for _ in range(VISION_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dp.step(x, y)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        dp.step(x, y)
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end)
+        split = _vision_profile(torch, lambda: dp.step(x, y))
+    finally:
+        amp.deinit()
+    vals = [float(v.asnumpy()) for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"{tag}: a non-finite loss")
+    check(vals[-1] < vals[0], f"{tag}: the loss did not fall ({vals[0]} -> "
+          f"{vals[-1]})")
+    check(dp.captures == 1, f"{tag}: {dp.captures} captures, expected 1")
+    med = _median(walls)
+    flops = 6.0 * macs * VISION_B
+    out = dict(batch=VISION_B, images_per_s=VISION_B / dt,
+               images_per_s_median_step=VISION_B / (med / 1e3),
+               median_step_ms=med, replay_device_ms=replay_ms,
+               idle_share=1 - replay_ms / med, captures=dp.captures,
+               macs_per_image=macs, flops_per_step=flops,
+               flops_share=flops / (med / 1e3) / VISION_PEAK[mode],
+               bound_ms=flops / VISION_PEAK[mode] * 1e3,
+               loss_first=vals[0], loss_last=vals[-1])
+    out["device_ms_by_class"] = split
+    log(f"[{tag}] a profiled replay's device time by class: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()
+                    if k != "top"))
+    log(f"[{tag}] its longest kernels: {split['top']}")
+    log(f"[{tag}] resnet50_v1 batch {VISION_B} x 3 x {VISION_SIZE}^2, SGD "
+        f"lr 0.01 momentum 0.9, DataParallel (one CUDA graph, "
+        f"{dp.captures} capture): {out['images_per_s']:.1f} images/s "
+        f"(bench.py's timing, {VISION_STEPS} chained steps), median step "
+        f"{med:.3f} ms ({out['images_per_s_median_step']:.1f} images/s), a "
+        f"replay {replay_ms:.3f} ms on the card (CUDA events): idle share "
+        f"{out['idle_share']:.4f}; {macs} forward multiply-adds an image, "
+        f"{flops / 1e12:.4f} TFLOP a step: model FLOPs share "
+        f"{out['flops_share']:.4f} of {VISION_PEAK[mode] / 1e12:.0f} "
+        f"TFLOP/s (bound {out['bound_ms']:.3f} ms); loss {vals[0]:.4f} -> "
+        f"{vals[-1]:.4f}")
+    del dp, net, x, y, losses
+    return out
+
+
+def _vision_grads(torch, mx, net, xn, yn, device, dtype):
+    """(loss, gradients on the CPU in float64, running statistics after)
+    of one training forward and backward of ``net`` (its own device and
+    dtype) on the batch; the autograd graph goes with the call, so no
+    node of it (its streams) outlives it."""
+    from incubator_mxnet_tpu_torch import autograd, gluon
+
+    x = torch.from_numpy(xn).to(device=device, dtype=dtype)
+    y = torch.from_numpy(yn).to(device)
+    params = [p for p in net.parameters() if p.requires_grad]
+    with autograd.train_mode():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
+        grads = torch.autograd.grad(loss, params)
+    return (float(loss.detach()), [g.detach().double().cpu() for g in grads],
+            {k: v.double().cpu() for k, v in _stats(net).items()})
+
+
+def phase_vision_check(torch, dev):
+    """ResNet-50-v1 at batch 4 x 3 x 224 x 224 on the card against the
+    port's CPU run of the same weights and batch: the loss and the
+    running statistics after the step against the CPU's float32 run, each
+    gradient (normwise) against the CPU's float64 run, allowed
+    ``VISION_GRAD_ERR_X`` times the CPU float32 run's own distance from
+    it (a fresh ResNet-50's gradients at batch 4 are ill-conditioned:
+    f32 rounding alone moves a BatchNorm's gamma gradient by ~2.6%
+    normwise on the CPU) plus 1e-4 of its norm and 1e-6 an element; then
+    one running-statistics update a step through `DataParallel` (eager,
+    capturing, replays; SGD at lr 0, so each step sees the same batch
+    statistics): after n steps rm = m^n rm0 + (1 - m^n) batch."""
+    import copy
+
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, optimizer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from incubator_mxnet_tpu_torch.parallel.sharded import DataParallel
+
+    cpu = _vision_cpu_net(mx, resnet50_v1, VISION_SIZE, 1)
+    card = _vision_on(mx, cpu, mx.gpu(0))
+    cpu64 = copy.deepcopy(cpu)
+    cpu64.cast("float64")
+    rng = onp.random.RandomState(1)
+    xn = rng.uniform(-1, 1, (VISION_CHECK_B, 3, VISION_SIZE, VISION_SIZE)) \
+        .astype("float32")
+    yn = rng.randint(0, 1000, (VISION_CHECK_B,)).astype("int32")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    cpu_dev = torch.device("cpu")
+    lc, gc, sc = _vision_grads(torch, mx, cpu, xn, yn, cpu_dev,
+                               torch.float32)
+    l64, g64, _ = _vision_grads(torch, mx, cpu64, xn, yn, cpu_dev,
+                                torch.float64)
+    lg, gg, sg = _vision_grads(torch, mx, card, xn, yn, dev, torch.float32)
+    loss_rel = abs(lg - lc) / abs(lc)
+    names = [k for k, p in cpu.collect_params().items()
+             if p.grad_req != "null"]
+    worst, worst_name, worst_pair = 0.0, None, None
+    for n, a, b, r in zip(names, gg, gc, g64):
+        err = float((a - r).norm())
+        own = float((b - r).norm())
+        allowed = VISION_GRAD_ERR_X * own + 1e-4 * float(r.norm()) \
+            + VISION_GRAD_ATOL * math.sqrt(r.numel())
+        if err / allowed > worst:
+            worst, worst_name = err / allowed, n
+            worst_pair = (err / max(float(r.norm()), 1e-30),
+                          own / max(float(r.norm()), 1e-30))
+    stat_err = max(_rel_max(sg[k], sc[k]) for k in sc)
+    log(f"[vision check] resnet50_v1 batch {VISION_CHECK_B}, one training "
+        f"forward and backward, card (f32, TF32 off) against the CPU, same "
+        f"weights and batch: loss {lg:.6f} vs {lc:.6f} (rel {loss_rel:.2e}, "
+        f"tol {VISION_LOSS_TOL}; float64 {l64:.6f}); {len(gg)} gradients "
+        f"against the CPU's float64, the worst {worst_name} at "
+        f"{worst:.3f} of its allowance ({VISION_GRAD_ERR_X} x the CPU "
+        f"float32's own distance + 1e-4 of the norm + "
+        f"{VISION_GRAD_ATOL} an element; normwise "
+        f"{worst_pair[0]:.2e} card, {worst_pair[1]:.2e} CPU float32); "
+        f"{len(sc)} running statistics after the step within "
+        f"{stat_err:.2e} of their largest entry (tol {VISION_STAT_TOL})")
+    check(loss_rel <= VISION_LOSS_TOL, "vision check: loss")
+    check(worst <= 1.0, f"vision check: gradient {worst_name}")
+    check(stat_err <= VISION_STAT_TOL, "vision check: running statistics")
+    del cpu64
+
+    # one update a step: eager, capturing, replays
+    m = 0.9
+    twin = _vision_on(mx, card, dev)
+    before = _stats(card)
+    xs = torch.from_numpy(xn).to(dev)
+    ys = torch.from_numpy(yn).to(dev)
+    with autograd.train_mode():
+        twin(xs)                                # one update, eagerly
+    one = _stats(twin)
+    dp = DataParallel(card, loss_fn, optimizer.SGD(learning_rate=0.0,
+                                                   momentum=0.9))
+    for _ in range(VISION_REPLAY_STEPS):
+        dp.step(xs, ys)
+    torch.cuda.synchronize()
+    after = _stats(card)
+    n = VISION_REPLAY_STEPS
+    worst_upd = 0.0
+    for k, v1 in one.items():
+        rm0 = before[k]
+        # v1 = m rm0 + (1 - m) batch: after n steps m^n rm0 + (1 - m^n) batch
+        batch = (v1 - m * rm0) / (1 - m)
+        want = m ** n * rm0 + (1 - m ** n) * batch
+        worst_upd = max(worst_upd, _rel_max(after[k], want))
+    log(f"[vision check] DataParallel, {n} steps (eager, capturing, "
+        f"{n - 2} replays; {dp.captures} capture): every running statistic "
+        f"m^n rm0 + (1 - m^n) batch within {worst_upd:.2e} of its largest "
+        f"entry (one update a step; tol {VISION_STAT_TOL})")
+    check(dp.captures == 1, "vision check: captures")
+    check(worst_upd <= VISION_STAT_TOL, "vision check: not one running "
+          "statistics update a step")
+    return dict(loss_card=lg, loss_cpu=lc, loss_cpu_f64=l64,
+                loss_rel_err=loss_rel, grad_worst_share_of_allowance=worst,
+                grad_worst=worst_name, grad_worst_rel_err_card=worst_pair[0],
+                grad_worst_rel_err_cpu_f32=worst_pair[1],
+                stats_rel_err=stat_err, steps=n, update_rel_err=worst_upd)
+
+
+def phase_vision_gluon(torch, dev):
+    """The gluon loop (``autograd.record()`` + `Trainer`, SGD lr 0.01
+    momentum 0.9) on the same net and batches as `DataParallel`, eager
+    and hybridized (eager, capturing, replaying), for 3 steps: before
+    each step the loops' nets take `DataParallel`'s weights and
+    statistics (copied in place, so the hybridized graphs read them), and
+    after it their running statistics are held against `DataParallel`'s
+    (a fresh ResNet-50's gradients at batch 4 are ill-conditioned, so
+    weights that drift apart by rounding would move the next step's
+    statistics by more than the update's own error); predict mode leaves
+    them alone."""
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, np, optimizer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from incubator_mxnet_tpu_torch.parallel.sharded import DataParallel
+
+    base = _vision_cpu_net(mx, resnet50_v1, VISION_SIZE, 2)
+    nets = {k: _vision_on(mx, base, mx.gpu(0))
+            for k in ("dp", "eager", "hybridized")}
+    nets["hybridized"].hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    dp = DataParallel(nets["dp"], loss_fn,
+                      optimizer.SGD(learning_rate=0.01, momentum=0.9))
+    trainers = {k: gluon.Trainer(nets[k].collect_params(), "sgd",
+                                 {"learning_rate": 0.01, "momentum": 0.9})
+                for k in ("eager", "hybridized")}
+    rng = onp.random.RandomState(2)
+    worst = {k: 0.0 for k in trainers}
+    with mx.gpu(0):
+        for _ in range(VISION_GLUON_STEPS):
+            x = np.array(rng.uniform(-1, 1, (VISION_CHECK_B, 3, VISION_SIZE,
+                                             VISION_SIZE)).astype("float32"))
+            y = np.array(rng.randint(0, 1000, (VISION_CHECK_B,))
+                         .astype("int32"))
+            state = {k: p.data()._data.detach().clone()
+                     for k, p in nets["dp"].collect_params().items()}
+            dp.step(x, y)
+            for k, tr in trainers.items():
+                for name, p in nets[k].collect_params().items():
+                    p.set_data(state[name])
+                with autograd.record():
+                    loss = loss_fn(nets[k](x), y)
+                loss.backward()
+                tr.step(VISION_CHECK_B)
+            ref = _stats(nets["dp"])
+            for k in trainers:
+                got = _stats(nets[k])
+                worst[k] = max(worst[k], max(_rel_max(got[s], ref[s])
+                                             for s in ref))
+        frozen = {k: _stats(nets[k]) for k in trainers}
+        for k in trainers:
+            nets[k](x)                        # predict mode
+        still = all(torch.equal(frozen[k][s], v)
+                    for k in trainers for s, v in _stats(nets[k]).items())
+    hyb = nets["hybridized"].captures
+    log(f"[vision gluon] resnet50_v1 batch {VISION_CHECK_B}, "
+        f"{VISION_GLUON_STEPS} steps from DataParallel's weights: the gluon "
+        f"loop's running statistics after each step within "
+        f"{worst['eager']:.2e} (eager) and {worst['hybridized']:.2e} "
+        f"(hybridized: {hyb} capture) of DataParallel's largest (tol "
+        f"{VISION_STAT_TOL}); a predict-mode call leaves them "
+        f"{'alone' if still else 'CHANGED'}")
+    check(max(worst.values()) <= VISION_STAT_TOL,
+          "vision gluon: running statistics")
+    check(still, "vision gluon: predict mode moved the running statistics")
+    check(hyb == 1, f"vision gluon: {hyb} captures, expected 1")
+    return dict(steps=VISION_GLUON_STEPS,
+                stats_rel_err_vs_dp=worst, hybridized_captures=hyb,
+                predict_leaves_stats=still)
+
+
+def phase_vision_dropout(torch, dev):
+    """`alexnet()` at batch 128 x 3 x 224 x 224 through `DataParallel`
+    (SGD at lr 0: the weights stay, so only the masks move the loss):
+    its two ``Dropout(0.5)`` through K5, 2 launches forward and 2
+    backward a step, counted at the eager and the capturing step and read
+    back from a profiled replay; the masks differ across replays (the
+    losses do); K5 against its plain version at the sites' shape (p = 0:
+    the identity, no launch; p = 0.5 bit for bit)."""
+    import numpy as onp
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, np, optimizer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import alexnet
+    from incubator_mxnet_tpu_torch.ops import dropout as dpo
+    from incubator_mxnet_tpu_torch.parallel.sharded import DataParallel
+
+    mx.random.seed(3)
+    net = alexnet()
+    net.initialize()
+    rng = onp.random.RandomState(3)
+    x = np.array(rng.uniform(-1, 1, (VISION_B, 3, VISION_SIZE, VISION_SIZE))
+                 .astype("float32"))
+    y = np.array(rng.randint(0, 1000, (VISION_B,)).astype("int32"))
+    net(x[:1])
+    dp = DataParallel(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      optimizer.SGD(learning_rate=0.0, momentum=0.9))
+    reset_counts()
+    losses = [dp.step(x, y) for _ in range(2)]   # eager, capturing
+    counted = read_counts()
+    losses += [dp.step(x, y) for _ in range(3)]
+    vals = [float(v.asnumpy()) for v in losses]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(SPIN_CYCLES)
+            dp.step(x, y)
+            torch.cuda.synchronize()
+            prof.step()
+    seen, _ = _profile_counts(prof)
+    distinct = len(set(vals[2:])) == len(vals[2:])
+    log(f"[vision dropout] alexnet batch {VISION_B}, DataParallel (lr 0): K5 "
+        f"launches at the eager and the capturing step {counted['K5']} "
+        f"(expected {2 * ALEXNET_K5_PER_STEP}; the key fold "
+        f"{counted['fold']}), in a profiled replay {seen['K5']} (expected "
+        f"{ALEXNET_K5_PER_STEP}; fold {seen['fold']}); replays' losses "
+        f"{[round(v, 6) for v in vals[2:]]}: "
+        f"{'all different' if distinct else 'NOT all different'} (new masks "
+        f"a replay)")
+    check(counted["K5"] == 2 * ALEXNET_K5_PER_STEP,
+          "vision dropout: K5 launches counted")
+    check(seen["K5"] == ALEXNET_K5_PER_STEP and seen["fold"] == 1,
+          "vision dropout: K5 and fold launches in a replay")
+    # the step's keys: one fold a step, at the first dropout site
+    check(counted["fold"] == 2 and all(
+        v == 0 for k, v in counted.items() if k not in ("K5", "fold")),
+        f"vision dropout: launched {counted}")
+    check(distinct, "vision dropout: the masks did not change across replays")
+    # K5 at the sites' shape against its plain version
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        h = torch.randn(VISION_B, 4096, device=dev).to(dt)
+        same0 = dpo.dropout(h, (5, 6), 0.0, impl="kernel") is h
+        k = dpo.dropout(h, (5, 6), 0.5, impl="kernel")
+        p = dpo.dropout(h, (5, 6), 0.5, impl="plain")
+        errs[str(dt).replace("torch.", "")] = float((k.float() - p.float())
+                                                    .abs().max())
+        check(same0 and torch.equal(k, p),
+              f"vision dropout: K5 {dt} against plain")
+    log(f"[vision dropout] K5 at ({VISION_B}, 4096), p = 0.5, against its "
+        f"plain version: max abs err {errs} (bit for bit); p = 0 the identity")
+    return dict(k5_counted=counted["K5"], k5_profiled_replay=seen["K5"],
+                replay_losses=vals[2:], k5_vs_plain_max_abs_err=errs), {
+                    k: v for k, v in counted.items() if v}
+
+
+def phase_vision_inference(torch, dev):
+    """The packaged `mobilenet0.25_digits` weights: card logits against
+    CPU logits on 64 seeded 3 x 32 x 32 inputs; every family of
+    ``vision._models`` (its smallest member) at batch 8, 224^2
+    (Inception 299^2) in predict mode: shape, finite values, the first
+    image's logits against the CPU's."""
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import model_store, vision
+
+    with mx.cpu():
+        cpu = vision.mobilenet0_25(classes=10)
+        cpu.load_parameters(model_store.get_model_file("mobilenet0.25_digits"))
+    card = _vision_on(mx, cpu, mx.gpu(0))
+    xn = onp.random.RandomState(4).uniform(
+        0, 1, (VISION_DIGITS_N, 3, 32, 32)).astype("float32")
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(xn))
+        got = card(torch.from_numpy(xn).to(dev)).cpu()
+    digits_err = _rel_max(got, want)
+    log(f"[vision infer] mobilenet0.25_digits (the packaged weights), "
+        f"{VISION_DIGITS_N} inputs 3 x 32^2: card logits within "
+        f"{digits_err:.2e} of the CPU's largest (tol {VISION_LOGIT_TOL}); "
+        f"argmax agrees on "
+        f"{int((got.argmax(1) == want.argmax(1)).sum())}/{VISION_DIGITS_N}")
+    check(digits_err <= VISION_LOGIT_TOL, "vision infer: digits logits")
+    fam = {}
+    for i, (name, size) in enumerate(VISION_FAMILIES):
+        cpu = _vision_cpu_net(mx, lambda n=name: vision.get_model(n),
+                              size, 10 + i)
+        card = _vision_on(mx, cpu, mx.gpu(0))
+        xn = onp.random.RandomState(20 + i).uniform(
+            -1, 1, (VISION_FAMILY_B, 3, size, size)).astype("float32")
+        with torch.no_grad():
+            out = card(torch.from_numpy(xn).to(dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card(torch.from_numpy(xn).to(dev))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ref = cpu(torch.from_numpy(xn[:1]))
+        err = _rel_max(out[:1].cpu(), ref)
+        ok = tuple(out.shape) == (VISION_FAMILY_B, 1000) \
+            and bool(torch.isfinite(out).all()) and err <= VISION_LOGIT_TOL
+        fam[name] = dict(size=size, shape=list(out.shape), rel_err=err,
+                         forward_ms=ms)
+        log(f"[vision infer] {name} batch {VISION_FAMILY_B} x 3 x {size}^2: "
+            f"{tuple(out.shape)}, finite, first image within {err:.2e} of "
+            f"the CPU's largest logit; forward {ms:.2f} ms (wall)")
+        check(ok, f"vision infer: {name}")
+        del cpu, card, out
+    return dict(digits_rel_err=digits_err, families=fam)
+
+
+def phase_vision(torch, dev):
+    """[vision]: bench.py's ResNet-50-v1 training (f32 and bf16 AMP), the
+    step against the CPU and one statistics update a step, the gluon
+    loops, AlexNet's dropout through K5, inference of the zoo. Returns
+    (numbers, K5 launches of the main path)."""
+    t0 = time.perf_counter()
+    out = {}
+    out["f32"] = phase_vision_bench(torch, dev, "f32")
+    torch.cuda.empty_cache()
+    out["bf16"] = phase_vision_bench(torch, dev, "bf16")
+    torch.cuda.empty_cache()
+    out["check"] = phase_vision_check(torch, dev)
+    torch.cuda.empty_cache()
+    out["gluon"] = phase_vision_gluon(torch, dev)
+    torch.cuda.empty_cache()
+    out["dropout"], counted = phase_vision_dropout(torch, dev)
+    torch.cuda.empty_cache()
+    out["inference"] = phase_vision_inference(torch, dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[vision] phase took {out['seconds']:.1f} s")
+    return out, counted
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -6926,6 +7531,11 @@ def main():
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [amp16]'s and [dense]'s p = 0.1 step's launches "
         f"{amp16_launches}: {launches}")
+    vision, vision_launches = phase_vision(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in vision_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[done] with [vision]'s launches {vision_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -6963,6 +7573,7 @@ def main():
     log(json.dumps({"gluon": glu}))
     log(json.dumps({"amp16": amp16}, default=str))
     log(json.dumps({"dense": dense}, default=str))
+    log(json.dumps({"vision": vision}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

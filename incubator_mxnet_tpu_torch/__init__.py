@@ -46,7 +46,8 @@ from . import numpy as np
 from . import numpy_extension as npx
 from .base import MXNetError
 from .device import (Context, Device, cpu, current_device, default_device,
-                     gpu, num_gpus)
+                     gpu, gpu_memory_info, memory_stats, num_gpus, num_tpus,
+                     tpu)
 from .ndarray import NDArray, waitall
 
 __all__ = ["amp", "autograd", "base", "contrib", "device", "dlpack",
@@ -54,6 +55,7 @@ __all__ = ["amp", "autograd", "base", "contrib", "device", "dlpack",
            "ops", "optimizer", "parallel", "preemption",
            "random", "serve", "telemetry", "test_utils", "util", "nd", "np",
            "npx", "MXNetError", "NDArray", "waitall", "Device", "Context",
-           "current_device", "cpu", "gpu", "num_gpus", "default_device"]
+           "current_device", "cpu", "gpu", "num_gpus", "default_device",
+           "gpu_memory_info", "memory_stats", "num_tpus", "tpu"]
 
 util._apply_env_config()

@@ -252,7 +252,11 @@ def heaviside(x1, x2, **kwargs):  # noqa: ARG001
 
 
 def clip(a, a_min=None, a_max=None, out=None, **kwargs):  # noqa: ARG001
+    """With neither bound, ``a``'s values (a new array), as the
+    reference's."""
     a = _arr(a)
+    if a_min is None and a_max is None:
+        return a.clone()
     lo = a_min if not isinstance(a_min, (list, onp.ndarray)) else _arr(
         a_min, a.device)
     hi = a_max if not isinstance(a_max, (list, onp.ndarray)) else _arr(
@@ -1390,7 +1394,18 @@ def isscalar(element):
 
 
 def can_cast(from_, to, casting="safe"):
-    return bool(onp.can_cast(from_, to, casting))
+    """numpy's rule over dtypes, or arrays' dtypes; a 0-dim bool array,
+    as the reference's funnel returns."""
+    def dt(v):
+        if isinstance(v, torch.Tensor):
+            v = v.dtype
+        if isinstance(v, torch.dtype):
+            # numpy has no bfloat16: it casts as a 2-byte float does
+            return onp.dtype("float16") if v == torch.bfloat16 \
+                else torch.empty((), dtype=v).numpy().dtype
+        return v
+
+    return torch.tensor(bool(onp.can_cast(dt(from_), dt(to), casting)))
 
 
 def iscomplexobj(x):

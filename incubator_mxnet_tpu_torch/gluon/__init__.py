@@ -6,13 +6,16 @@ A Block is a `torch.nn.Module` whose `Parameter`s register their tensors
 under MXNet's names (``weight``, ``bias``, ``gamma``, ``beta``), so
 ``named_parameters()`` and ``collect_params()`` agree one to one. A
 block takes NDArrays (the reference's convention) or torch tensors (the
-port's module path); see `gluon.block`.
+port's module path); see `gluon.block`. `model_zoo` holds the vision
+models and the local pretrained-weight store.
 """
 from . import utils
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Constant, Parameter, ParameterDict
 from .trainer import Trainer
 from . import loss, nn
+from . import model_zoo
 
 __all__ = ["utils", "Block", "HybridBlock", "SymbolBlock", "Constant",
-           "Parameter", "ParameterDict", "Trainer", "loss", "nn"]
+           "Parameter", "ParameterDict", "Trainer", "loss", "nn",
+           "model_zoo"]

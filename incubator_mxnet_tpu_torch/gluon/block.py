@@ -28,6 +28,11 @@ to every compiled call (:344). A capture that fails raises
 call's own tensors (copies of the graph's output buffers). A call with
 torch tensors (the port's own module path) runs eagerly. On a CPU block
 a hybridized call runs eagerly with the same per-signature bookkeeping.
+Auxiliary state (BatchNorm's running statistics) is written in place
+inside the forward graph, so each call in training mode moves it once:
+the eager calls, and each replay (the capture's warm-up puts back what
+it wrote; the capture itself runs no kernel), where the reference
+carries the functional updates out of its program (:380-397).
 Each capture (on the CPU: each first call of a signature) is a
 program-ledger entry ``cached_op:<BlockName>`` (`telemetry.compiles`,
 `telemetry.registry.observe_compile`), as in the reference (:356-369).
@@ -526,7 +531,13 @@ class _CachedGraph:
             return {a: a._data.detach().requires_grad_(a._data.requires_grad)
                     for a in arrays}
 
+        # auxiliary state (BatchNorm's running statistics) is updated in
+        # place by the forward: the warm-up leaves it as it found it, so
+        # that the call moves it once, by the replay that follows
+        aux = [a._data for a in arrays if not a._data.requires_grad]
+
         def warm():
+            saved = [t.detach().clone() for t in aux]
             al = aliases()
             outs, _ = self._run(entry, sig, entry.inputs, al)
             if recording:
@@ -537,6 +548,9 @@ class _CachedGraph:
                                         + diff_in,
                                         [torch.ones_like(o) for o in fl],
                                         allow_unused=True)
+            with torch.no_grad():
+                for t, s in zip(aux, saved):
+                    t.copy_(s)
 
         self._side.run(dev, warm)
         torch.cuda.synchronize(dev)

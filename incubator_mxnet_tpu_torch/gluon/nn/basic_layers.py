@@ -15,10 +15,13 @@ the plain versions its kernels are held against. Dropout applies where
 
 Under AMP (`amp.init("bfloat16")`) ``Dense`` and ``Embedding`` take their
 inputs as the reference's "fully_connected" and "embedding" ops do:
-float32 inputs, weight and bias cast to bfloat16.
+float32 inputs, weight and bias cast to bfloat16; the norms
+(``BatchNorm``, ``GroupNorm``, ``InstanceNorm``) compute in float32.
 
-``BatchNorm``, ``GroupNorm`` and ``InstanceNorm`` come with the conv and
-pooling layers (ROADMAP.md §1 item 11, the vision model zoo): they raise.
+``BatchNorm``'s running statistics are Parameters with ``grad_req``
+"null" (their tensors do not require a gradient, so no optimizer sees
+them); a training call updates them in place (`npx.batch_norm`), once a
+call, eager or replayed in a captured graph.
 """
 from __future__ import annotations
 
@@ -34,10 +37,6 @@ __all__ = [
     "BatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm", "Embedding",
     "Lambda", "HybridLambda", "Identity", "Concatenate", "HybridConcatenate",
 ]
-
-_NORMS = ("is not ported (ROADMAP.md §1 item 11: it comes with the conv "
-          "and pooling layers of the vision model zoo)")
-
 
 def _place(device, *params):
     for p in params:
@@ -190,10 +189,42 @@ class _NormBase(HybridBlock):
 
 
 class BatchNorm(_NormBase):
-    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,  # noqa: ARG002
-                 scale=True, use_global_stats=False, in_channels=0,  # noqa: ARG002
+    """Batch normalisation over every axis but ``axis`` with running
+    statistics (reference: basic_layers.py BatchNorm): batch statistics
+    in training (``autograd.is_training()``), the running ones otherwise
+    or with ``use_global_stats``; ``scale=False`` fixes gamma at one."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
                  dtype="float32", **kwargs):  # noqa: ARG002
-        raise MXNetError(f"gluon.nn.BatchNorm {_NORMS}")
+        super().__init__(in_channels, scale, center, dtype)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._use_global_stats = use_global_stats
+        self._scale = scale
+        self.running_mean = Parameter(shape=(in_channels,), dtype=dtype,
+                                      init="zeros", allow_deferred_init=True,
+                                      differentiable=False)
+        self.running_var = Parameter(shape=(in_channels,), dtype=dtype,
+                                     init="ones", allow_deferred_init=True,
+                                     differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def forward(self, x):
+        return npx.batch_norm(
+            x, self.gamma.data(), self.beta.data(), self.running_mean.data(),
+            self.running_var.data(), eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale, use_global_stats=self._use_global_stats,
+            axis=self._axis)
+
+    def __repr__(self):
+        return (f"BatchNorm(axis={self._axis}, eps={self._epsilon}, "
+                f"momentum={self._momentum})")
 
 
 class LayerNorm(HybridBlock):
@@ -225,15 +256,51 @@ class LayerNorm(HybridBlock):
 
 
 class GroupNorm(HybridBlock):
-    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,  # noqa: ARG002
+    """Normalisation over groups of channels and the spatial axes of each
+    sample (reference: basic_layers.py GroupNorm)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
                  in_channels=0, dtype="float32", **kwargs):  # noqa: ARG002
-        raise MXNetError(f"gluon.nn.GroupNorm {_NORMS}")
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self.gamma = Parameter(shape=(in_channels,), dtype=dtype, init="ones",
+                               allow_deferred_init=True, differentiable=scale)
+        self.beta = Parameter(shape=(in_channels,), dtype=dtype, init="zeros",
+                              allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def forward(self, x):
+        return npx.group_norm(x, self.gamma.data(), self.beta.data(),
+                              num_groups=self._num_groups, eps=self._epsilon)
 
 
 class InstanceNorm(HybridBlock):
-    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,  # noqa: ARG002
+    """Normalisation over the spatial axes of each sample and channel
+    (reference: basic_layers.py InstanceNorm; its ``axis`` is taken and,
+    as there, unused)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
                  in_channels=0, dtype="float32", **kwargs):  # noqa: ARG002
-        raise MXNetError(f"gluon.nn.InstanceNorm {_NORMS}")
+        super().__init__()
+        self._epsilon = epsilon
+        self.gamma = Parameter(shape=(in_channels,), dtype=dtype, init="ones",
+                               allow_deferred_init=True, differentiable=scale)
+        self.beta = Parameter(shape=(in_channels,), dtype=dtype, init="zeros",
+                              allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def forward(self, x):
+        return npx.instance_norm(x, self.gamma.data(), self.beta.data(),
+                                 eps=self._epsilon)
 
 
 class Embedding(HybridBlock):

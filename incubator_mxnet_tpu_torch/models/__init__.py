@@ -1,8 +1,10 @@
 """Models of the port: GPT (KV-cache serving) and BERT (MLM training)."""
 from . import bert, decoding, gpt, params
-from .bert import BERTModel, bert_base, bert_small
+from .bert import (BERTClassifier, BERTEncoder, BERTModel,
+                   TransformerEncoderCell, bert_base, bert_small)
 from .decoding import GPTDecoder
 from .gpt import GPTModel, gpt2_small, gpt_tiny
 
-__all__ = ["bert", "decoding", "gpt", "params", "BERTModel", "bert_base",
+__all__ = ["bert", "decoding", "gpt", "params", "BERTModel", "BERTEncoder",
+           "BERTClassifier", "TransformerEncoderCell", "bert_base",
            "bert_small", "GPTDecoder", "GPTModel", "gpt2_small", "gpt_tiny"]

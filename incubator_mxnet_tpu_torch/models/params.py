@@ -28,11 +28,20 @@ def init_seeded(model, seed):
             p.initialize(force_reinit=True)
 
 
+def _fits(shape, want):
+    """Whether an array of ``shape`` fits a parameter of shape ``want``,
+    whose unknown (deferred, 0) sizes take any size."""
+    return want is not None and len(shape) == len(want) and all(
+        w in (0, s) for s, w in zip(shape, want))
+
+
 def load_params(model, params):
     """Copy weights into ``model`` from ``{name: numpy array}`` keyed by
     the reference model's ``collect_params()`` names (`set_data`: into
-    the existing tensors). Raises, copying nothing, on a missing or extra
-    name or a wrong shape."""
+    the existing tensors), running statistics included. A parameter whose
+    shape is still deferred (a vision net before its first call) takes
+    the array's. Raises, copying nothing, on a missing or extra name or
+    a wrong shape."""
     own = model.collect_params()
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -42,7 +51,7 @@ def load_params(model, params):
     arrays = {}
     for name, arr in params.items():
         arr = onp.array(arr, copy=True)
-        if tuple(arr.shape) != tuple(own[name].shape):
+        if not _fits(tuple(arr.shape), own[name].shape):
             raise MXNetError(
                 f"load_jax_params: {name} has shape {arr.shape}, the "
                 f"model expects {tuple(own[name].shape)}")

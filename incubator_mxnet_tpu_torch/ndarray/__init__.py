@@ -32,20 +32,28 @@ _LEGACY_TO_NPX = {
     "log_softmax": "log_softmax",
     "batch_dot": "batch_dot",
     "softsign": "softsign",
+    "Convolution": "convolution",
+    "Deconvolution": "deconvolution",
+    "BatchNorm": "batch_norm",
+    "InstanceNorm": "instance_norm",
+    "GroupNorm": "group_norm",
+    "Pooling": "pooling",
+    "AdaptiveAvgPooling2D": "adaptive_avg_pooling2d",
+    "Pad": "pad",
+    "pad": "pad",
 }
 
 # the reference's other legacy npx names: each waits for its npx op
 _LEGACY_NPX_QUEUED = (
-    "Convolution", "Deconvolution", "BatchNorm", "InstanceNorm", "GroupNorm",
-    "Pooling", "SoftmaxOutput",
+    "SoftmaxOutput",
     "SequenceMask", "SequenceLast", "SequenceReverse", "RNN", "one_hot",
     "pick", "topk", "gather_nd", "scatter_nd",
     "L2Normalization", "Cast", "cast", "BilinearSampler", "GridGenerator",
     "SpatialTransformer", "ROIPooling", "Correlation", "ROIAlign", "box_nms",
     "box_iou", "slice_like", "broadcast_like", "sequence_mask", "erfinv",
     "gamma", "gammaln", "digamma", "slice", "SliceChannel", "slice_channel",
-    "Pad", "pad", "ElementWiseSum", "CTCLoss", "ctc_loss",
-    "boolean_mask", "AdaptiveAvgPooling2D", "BilinearResize2D", "Custom",
+    "ElementWiseSum", "CTCLoss", "ctc_loss",
+    "boolean_mask", "BilinearResize2D", "Custom",
     "contrib", "sparse",
 )
 

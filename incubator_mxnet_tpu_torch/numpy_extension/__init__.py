@@ -6,8 +6,26 @@ Port of `incubator_mxnet_tpu/numpy_extension/__init__.py` (`gelu` :162,
 `masked_softmax` :316, `masked_log_softmax` :334, `fully_connected`
 :353, `layer_norm` :591, `dropout` :699, `embedding` :731,
 `flash_attention` :834, `residual_dropout_ln` :860, `gelu_dropout` :902,
-`batch_dot` :973, `arange_like` :1326) and of `softsign`
-(`numpy_extension/_contrib_misc.py:384`).
+`batch_dot` :973, `arange_like` :1326, and the vision path's
+`batch_flatten` :257, `convolution` :382, `deconvolution` :417,
+`pooling` :449, `batch_norm` :539, `group_norm` :638, `instance_norm`
+:659), of `softsign`, `adaptive_avg_pooling2d`, `batch_norm_with_relu`
+and `pad` (`_contrib_misc.py`) and of `deformable_convolution`
+(`_spatial.py`).
+
+The reference computes convolution, pooling and the norms in XLA, with
+no Pallas kernel; their counterpart here is PyTorch's own ops (cuDNN and
+PyTorch's CUDA kernels on the card), as ``torch.matmul`` is for the
+products. A CUDA input runs on the card; an input the port does not
+take raises :class:`MXNetError`.
+
+``batch_norm`` in training updates the running statistics in place,
+once a call, with the biased batch variance:
+``rm = rm * momentum + mean * (1 - momentum)`` (the reference's
+`register_aux_update`, :562-566). The write is an ordinary in-place
+op on the statistics' tensors, so a captured CUDA graph (a
+`parallel.DataParallel` step, a hybridized block) replays it by address
+and the statistics move once a replay.
 
 Each op takes NDArrays, as the reference's do, and then goes through the
 NDArray funnel (`ndarray.apply_op`): recorded under
@@ -35,6 +53,7 @@ kernel and "xla" for its composed ops.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -46,7 +65,7 @@ from .. import random as _random
 from ..base import MXNetError, canonical_dtype
 from ..ndarray.ndarray import NDArray, apply_op
 from ..ops import dropout as _dp
-from ..ops import flash_attention as _fa
+from ..ops.flash_attention import flash_attention as _flash_attention
 from ..ops import fused_block as _fb
 from ..ops import layer_norm as _ln
 
@@ -54,7 +73,11 @@ __all__ = ["relu", "sigmoid", "gelu", "activation", "leaky_relu",
            "softmax", "softmin", "log_softmax", "masked_softmax",
            "masked_log_softmax", "batch_dot", "arange_like", "softsign",
            "fully_connected", "embedding", "layer_norm", "dropout",
-           "flash_attention", "residual_dropout_ln", "gelu_dropout"]
+           "flash_attention", "residual_dropout_ln", "gelu_dropout",
+           "batch_flatten", "convolution", "deconvolution", "pooling",
+           "batch_norm", "group_norm", "instance_norm",
+           "adaptive_avg_pooling2d", "batch_norm_with_relu", "pad",
+           "deformable_convolution", "modulated_deformable_convolution"]
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -287,11 +310,6 @@ def arange_like(data, start=0.0, step=1.0, repeat=1, axis=None):  # noqa: ARG001
     return NDArray(out) if isinstance(data, NDArray) else out
 
 
-def softsign(data):
-    """``x / (1 + |x|)``."""
-    return _op("softsign", lambda x: x / (1 + x.abs()), data)
-
-
 def _fc(x, w, b, flatten):
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
@@ -429,8 +447,8 @@ def dropout(data, p=0.5, axes=(), mode="training", training=None,
 
 
 def _flash(q, k, v, vl, causal, sm_scale, impl, layout):
-    return _fa.flash_attention(q, k, v, lengths=vl, causal=causal,
-                               sm_scale=sm_scale, impl=impl, layout=layout)
+    return _flash_attention(q, k, v, lengths=vl, causal=causal,
+                            sm_scale=sm_scale, impl=impl, layout=layout)
 
 
 def flash_attention(query, key, value, valid_length=None, causal=False,
@@ -506,7 +524,310 @@ def gelu_dropout(data, p=0.0, impl="auto", training=None):
             return _dp.dropout(F.gelu(u, approximate="none"), key, p_eff)
     else:
         def f(u):
-            return _fb.gelu_dropout(u, key, p_eff, impl=_GD_IMPLS[impl])
+            return _fb.gelu_dropout(u, p_eff, key, impl=_GD_IMPLS[impl])
     if _nd(data):
         return apply_op("gelu_dropout", f, (data,))
     return f(data)
+
+
+# ---------------------------------------------------------------------------
+# the vision path: convolution, pooling, normalisation
+# ---------------------------------------------------------------------------
+
+_NC_LAYOUTS = {1: "NCW", 2: "NCHW", 3: "NCDHW"}
+_LAST_LAYOUTS = {1: "NWC", 2: "NHWC", 3: "NDHWC"}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+_11B = "ROADMAP.md §1 item 11b"
+
+
+def _tuple(x, n):
+    if x is None:
+        return (1,) * n
+    if isinstance(x, int):
+        return (x,) * n
+    return tuple(x)
+
+
+def _channels_last(ndim, layout):
+    """Whether ``layout`` puts the channels last (N...C) rather than
+    second (NC...); the reference's layouts only."""
+    if layout is None or layout == _NC_LAYOUTS.get(ndim):
+        return False
+    if layout == _LAST_LAYOUTS.get(ndim):
+        return True
+    raise MXNetError(f"layout {layout!r} is not a {ndim}-d spatial layout "
+                     f"(NC... or N...C)")
+
+
+def batch_flatten(data, **kwargs):  # noqa: ARG001
+    """Collapse all non-batch axes: (batch, -1)."""
+    return _op("batch_flatten", lambda x: x.reshape(x.shape[0], -1), data)
+
+
+def _conv(x, w, b, stride, pad, dilate, groups, last):
+    nd = x.dim() - 2
+    if last:
+        # N...C data and the reference's ...IO kernel, as NC... and OI...
+        x = x.movedim(-1, 1)
+        w = w.permute(nd + 1, nd, *range(nd))
+    if b is not None:
+        b = b.to(x.dtype)
+    y = _CONV[nd](x, w, b, stride, pad, dilate, groups)
+    return y.movedim(1, -1) if last else y
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, layout=None, **kwargs):  # noqa: ARG001
+    """N-d convolution (1-, 2- or 3-d) with stride, dilation, padding and
+    ``num_group`` groups (depthwise at ``num_group`` = channels). NC...
+    layouts take an (O, I/g, *k) weight; N...C layouts the reference's
+    (*k, I/g, O). Under AMP data, weight and bias take the target dtype
+    ("convolution"); the bias is added in the product's epilogue (one
+    rounding, where the reference rounds the product and the sum)."""
+    nd = len(kernel) if kernel is not None else data.ndim - 2
+    stride, dilate = _tuple(stride, nd), _tuple(dilate, nd)
+    pad = _tuple(pad, nd) if pad is not None else (0,) * nd
+    last = _channels_last(nd, layout)
+    b = None if no_bias else bias
+
+    def f(x, w, bv):
+        return _conv(x, w, bv, stride, pad, dilate, num_group, last)
+
+    return _amp_op("convolution", f, data, weight, b)
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=False, layout=None, target_shape=None,  # noqa: ARG001
+                  **kwargs):  # noqa: ARG001
+    """Transposed convolution, MXNet's: weight (in, out/g, *k), output
+    size (in - 1)·stride − 2·pad + dilate·(k − 1) + 1 + adj, ``num_group``
+    groups. The reference reads the weight as (out, in, *k) (its
+    ``conv_transpose`` with ``transpose_kernel``) and drops ``adj`` and
+    ``num_group``; where it runs (in = out, one group, adj 0) the port's
+    output is the reference's for the weight with its first two axes
+    swapped (`ROADMAP.md` §3, accepted divergences). N...C layouts take a
+    (*k, in, out/g) weight. Under AMP: the target dtype
+    ("deconvolution")."""
+    nd = len(kernel) if kernel is not None else data.ndim - 2
+    stride, dilate = _tuple(stride, nd), _tuple(dilate, nd)
+    pad = _tuple(pad, nd) if pad is not None else (0,) * nd
+    adj = _tuple(adj, nd) if adj is not None else (0,) * nd
+    last = _channels_last(nd, layout)
+    b = None if no_bias else bias
+
+    def f(x, w, bv):
+        if last:
+            x = x.movedim(-1, 1)
+            w = w.permute(nd, nd + 1, *range(nd))
+        if bv is not None:
+            bv = bv.to(x.dtype)
+        y = _CONV_T[nd](x, w, bv, stride, pad, adj, num_group, dilate)
+        return y.movedim(1, -1) if last else y
+
+    return _amp_op("deconvolution", f, data, weight, b)
+
+
+def _sum_pool(x, k, s):
+    """Window sums with no padding (``avg_pool`` with divisor 1)."""
+    if len(k) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + k, (1,) + s,
+                            divisor_override=1).squeeze(2)
+    return _AVG_POOL[len(k)](x, k, s, divisor_override=1)
+
+
+def _pool_nc(x, k, s, p, kind, include_pad, full):
+    """The reference's windowed pooling of an NC... tensor: "valid"
+    (floor) or "full" (ceil: the high side padded so that a partial last
+    window is emitted); "avg" divides by the window's size (with
+    ``include_pad``; in "full", the size clipped to the input plus its
+    padding) or by its count of input elements. torch's own pooling
+    where its windows are the reference's (padding at most half the
+    window, and in "full" the same output size: torch drops a last window
+    that starts in the high padding, the reference keeps it), else the
+    reference's arithmetic on an explicitly padded tensor."""
+    nd = len(k)
+    if not x.is_floating_point():
+        raise MXNetError(f"npx.pooling: {x.dtype} pooling (the int8 chain "
+                         f"of quantize_net) is not ported ({_11B})")
+    size = x.shape[2:]
+    extra = []
+    for n, kk, ss, pp in zip(size, k, s, p):
+        rem = (n + 2 * pp - kk) % ss
+        extra.append(ss - rem if full and rem else 0)
+    native = all(pp <= kk // 2 for kk, pp in zip(k, p)) and kind != "sum"
+    if native and full:
+        # torch's ceil mode keeps a last window only if it starts inside
+        # the input or its low padding
+        native = all((n + 2 * pp + e - kk) // ss * ss < n + pp
+                     for n, kk, ss, pp, e in zip(size, k, s, p, extra))
+    if native:
+        if kind == "max":
+            return _MAX_POOL[nd](x, k, s, p, ceil_mode=full)
+        return _AVG_POOL[nd](x, k, s, p, ceil_mode=full,
+                             count_include_pad=include_pad)
+    pads = []
+    for pp, e in zip(reversed(p), reversed(extra)):
+        pads += [pp, pp + e]
+    if kind == "max":
+        return _MAX_POOL[nd](F.pad(x, pads, value=float("-inf")), k, s)
+    total = _sum_pool(F.pad(x, pads), k, s)
+    if kind == "sum":
+        return total
+    if include_pad and not full:
+        return total / float(math.prod(k))
+    ones = torch.ones((1, 1) + tuple(size), dtype=x.dtype, device=x.device)
+    if include_pad:
+        # the padding counts, the ceil extension does not
+        ones = F.pad(ones, [q for pp in reversed(p) for q in (pp, pp)],
+                     value=1.0)
+        ones = F.pad(ones, [q for e in reversed(extra) for q in (0, e)])
+    else:
+        ones = F.pad(ones, pads)
+    return total / _sum_pool(ones, k, s)
+
+
+def pooling(data, kernel=None, stride=None, pad=None, pool_type="max",
+            global_pool=False, layout=None, count_include_pad=True,
+            pooling_convention="valid", **kwargs):  # noqa: ARG001
+    """Max, average or sum pooling over the spatial axes (1-, 2- or 3-d),
+    windowed (``pooling_convention`` "valid" or "full") or global
+    (``global_pool``: also "lp", the L2 norm of each map, as in the
+    reference, where "lp" is global only). See :func:`_pool_nc`."""
+    nd = data.ndim - 2
+    last = _channels_last(nd, layout)
+    if global_pool:
+        reduce = {"max": lambda x, a: x.amax(dim=a, keepdim=True),
+                  "avg": lambda x, a: x.mean(dim=a, keepdim=True),
+                  "sum": lambda x, a: x.sum(dim=a, keepdim=True),
+                  "lp": lambda x, a: x.abs().square().sum(
+                      dim=a, keepdim=True).sqrt()}
+        if pool_type not in reduce:
+            raise ValueError(f"unsupported pool_type {pool_type!r}")
+
+        def g(x):
+            axes = tuple(i for i in range(1, x.dim() - 1)) if last \
+                else tuple(range(2, x.dim()))
+            return reduce[pool_type](x, axes)
+
+        return _op("global_pool", g, data)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"unsupported pool_type {pool_type!r}")
+    kernel, stride = _tuple(kernel, nd), _tuple(stride, nd)
+    pad = _tuple(pad, nd) if pad is not None else (0,) * nd
+    full = pooling_convention == "full"
+
+    def f(x):
+        if last:
+            x = x.movedim(-1, 1)
+        y = _pool_nc(x, kernel, stride, pad, pool_type, count_include_pad,
+                     full)
+        return y.movedim(1, -1) if last else y
+
+    return _op(f"pooling.{pool_type}", f, data)
+
+
+def _bn_batch(x, g, b, eps, axis, composed):
+    """Training-mode batch norm of ``x`` over every axis but ``axis``:
+    (out, batch mean, biased batch variance). ``g`` None is gamma fixed
+    at one. One fused op (``torch.native_batch_norm`` with no running
+    buffers: the statistics come back with the output) unless
+    ``composed`` (the statistics differentiable, for
+    ``output_mean_var``)."""
+    ax = axis % x.dim()
+    if composed:
+        red = [i for i in range(x.dim()) if i != ax]
+        var, mean = torch.var_mean(x, dim=red, correction=0)
+        shape = [1] * x.dim()
+        shape[ax] = -1
+        inv = torch.rsqrt(var + eps)
+        if g is not None:
+            inv = g * inv
+        out = (x - mean.reshape(shape)) * inv.reshape(shape) \
+            + b.reshape(shape)
+        return out, mean, var
+    xc = x if ax == 1 else x.movedim(ax, 1)
+    out, mean, invstd = torch.native_batch_norm(xc, g, b, None, None, True,
+                                                0.0, eps)
+    if ax != 1:
+        out = out.movedim(1, ax)
+    return out, mean, invstd.pow(-2) - eps
+
+
+@torch.no_grad()
+def _bn_update(rm, rv, mean, var, momentum):
+    """The running statistics' update, in place (one a call)."""
+    m = momentum
+    rm.copy_(rm * m + mean.detach().to(rm.dtype) * (1 - m))
+    rv.copy_(rv * m + var.detach().to(rv.dtype) * (1 - m))
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, **kwargs):  # noqa: ARG001
+    """Batch normalisation over every axis but ``axis``. In training
+    (``autograd.is_training() and not use_global_stats``) it normalises
+    with the batch statistics and updates ``running_mean`` and
+    ``running_var`` in place with the biased batch variance; otherwise
+    it normalises with the running statistics. ``fix_gamma``: gamma is
+    taken as ones (and gets no gradient). A float32 op under AMP."""
+    training = autograd.is_training() and not use_global_stats
+    rm = running_mean._data if isinstance(running_mean, NDArray) \
+        else running_mean
+    rv = running_var._data if isinstance(running_var, NDArray) \
+        else running_var
+    if training:
+        def f(xv, g, b):
+            out, mean, var = _bn_batch(xv, None if fix_gamma else g, b, eps,
+                                       axis, output_mean_var)
+            _bn_update(rm, rv, mean, var, momentum)
+            return (out, mean, var) if output_mean_var else out
+
+        out = _amp_op("batch_norm", f, x, gamma, beta)
+        for a in (running_mean, running_var):
+            if isinstance(a, NDArray):
+                a._version += 1
+        return out
+
+    def f(xv, g, b, m, v):
+        ax = axis % xv.dim()
+        xc = xv if ax == 1 else xv.movedim(ax, 1)
+        out = F.batch_norm(xc, m, v, None if fix_gamma else g, b, False,
+                           0.0, eps)
+        return out if ax == 1 else out.movedim(1, ax)
+
+    out = _amp_op("batch_norm", f, x, gamma, beta, running_mean, running_var)
+    if output_mean_var:
+        return out, running_mean, running_var
+    return out
+
+
+def group_norm(data, gamma=None, beta=None, num_groups=1, eps=1e-5,
+               **kwargs):  # noqa: ARG001
+    """Normalisation over each group of ``C / num_groups`` channels and
+    the spatial axes of each sample, then gamma and beta a channel. A
+    float32 op under AMP."""
+    def f(x, g, b):
+        return F.group_norm(x, num_groups, g, b, eps)
+
+    return _amp_op("group_norm", f, data, gamma, beta)
+
+
+def instance_norm(data, gamma=None, beta=None, eps=1e-5, **kwargs):  # noqa: ARG001
+    """Normalisation over the spatial axes of each sample and channel,
+    then gamma and beta a channel. A float32 op under AMP."""
+    def f(x, g, b):
+        return F.group_norm(x, x.shape[1], g, b, eps)
+
+    return _amp_op("instance_norm", f, data, gamma, beta)
+
+
+from ._contrib_misc import (adaptive_avg_pooling2d,  # noqa: E402
+                            batch_norm_with_relu, pad, softsign)
+from ._spatial import (deformable_convolution,  # noqa: E402
+                       modulated_deformable_convolution)

@@ -8,7 +8,13 @@ runs the plain version for CPU tensors, counts its launches in
 and ``gd_bwd_launches``), and builds the kernel
 from ``csrc/`` at first use (see :mod:`._build`). `_philox` holds the
 plain version of the dropout kernels' random stream.
-"""
-from . import dropout, flash_attention, fused_block, layer_norm
 
-__all__ = ["dropout", "flash_attention", "fused_block", "layer_norm"]
+As in the reference, the package's ``flash_attention`` and ``mha_flash``
+are the functions; the module of that name (its counters, its plain
+versions) is ``importlib.import_module(__name__ + ".flash_attention")``.
+"""
+from . import dropout, fused_block, layer_norm
+from .flash_attention import flash_attention, mha_flash
+
+__all__ = ["dropout", "flash_attention", "mha_flash", "fused_block",
+           "layer_norm"]

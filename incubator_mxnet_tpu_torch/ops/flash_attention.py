@@ -334,7 +334,8 @@ def flash_attention_with_lse(q, k, v, lengths=None, causal=False,
 
 
 def flash_attention(q, k, v, lengths=None, causal=False, sm_scale=None,
-                    impl="auto", layout="bhtd"):
+                    block_q=512, block_k=512, interpret=None, impl="auto",  # noqa: ARG001
+                    layout="bhtd"):
     """Fused scaled-dot-product attention.
 
     - ``layout``: "bhtd" (B, H, T, D) or "bthd" (B, T, H, D, the natural
@@ -347,6 +348,9 @@ def flash_attention(q, k, v, lengths=None, causal=False, sm_scale=None,
       versions for CPU tensors; "kernel" requires CUDA tensors; "plain"
       forces the plain versions (the reference the kernels are held
       against).
+    - ``block_q``, ``block_k``, ``interpret``: the reference's TPU tiling
+      and Pallas interpret switch, taken and unused (the kernels pick
+      their own tiles).
 
     Differentiable in q, k, v (the backward kernels on the card).
     """

@@ -54,8 +54,8 @@ u * phi(u), all in f32, one (f32) or two (bf16, f16) 16-byte vectors a
 thread. Bound by bytes on the H100: 2 * numel * itemsize forward,
 3 * numel * itemsize backward. The saved residuals are u and the key, as
 `_gd_core_fwd` (:340) saves them: neither the mask nor gelu(u). The mask
-is K5's for the same key and shape, so the plain ``gelu_dropout(u, key,
-p)`` equals ``dropout(F.gelu(u, approximate="none"), key, p)`` in
+is K5's for the same key and shape, so the plain ``gelu_dropout(u, p,
+key)`` equals ``dropout(F.gelu(u, approximate="none"), key, p)`` in
 float32, bit for bit. The reference's erf is the Abramowitz-Stegun
 approximation (within 1.5e-7), there only because Pallas has no erf
 lowering on the TPU. The kernel computes Phi and phi from one rational
@@ -311,11 +311,15 @@ class _ResidualDropoutLN(torch.autograd.Function):
         return dx, dh, dg, db, None, None, None, None
 
 
-def residual_dropout_ln(x, h, gamma, beta, p, key, eps=1e-5, impl="auto"):
+def residual_dropout_ln(x, h, gamma, beta, p, seeds, eps=1e-5,
+                        interpret=None, impl="auto"):  # noqa: ARG001
     """``layer_norm(x + dropout_p(h))`` over the last axis, one fused pass
     each way; differentiable. x and h share a shape (leading axes collapse
-    to rows); gamma/beta are (C,); ``key`` two uint32 words (a fresh
-    framework key per call)."""
+    to rows); gamma/beta are (C,); ``seeds`` two uint32 words (a fresh
+    framework key per call), or a device key. ``interpret`` is the
+    reference's Pallas interpret switch, taken and unused (``impl``
+    picks the plain versions)."""
+    key = seeds
     if tuple(x.shape) != tuple(h.shape):
         raise MXNetError(f"residual_dropout_ln: x {tuple(x.shape)} and h "
                          f"{tuple(h.shape)} must share a shape")
@@ -469,11 +473,14 @@ class _GeluDropout(torch.autograd.Function):
                 None, None)
 
 
-def gelu_dropout(u, key, p, impl="auto"):
+def gelu_dropout(u, p, seeds, interpret=None, impl="auto"):  # noqa: ARG001
     """``dropout_p(gelu(u))`` with the exact erf gelu, one fused pass each
     way; differentiable. Any shape (the mask follows the flat index);
-    ``key`` two uint32 words (a fresh framework key per call). An empty
-    ``u`` is returned as it is."""
+    ``seeds`` two uint32 words (a fresh framework key per call), or a
+    device key: the reference's order, ``(u, p, seeds)``. ``interpret``
+    (the reference's Pallas interpret switch) is taken and unused. An
+    empty ``u`` is returned as it is."""
+    key = seeds
     p = float(p)
     _check_p(p, "gelu_dropout")
     if u.numel() == 0:

@@ -367,10 +367,12 @@ class _LayerNorm(torch.autograd.Function):
         return dx, dg, db, None, None
 
 
-def layer_norm(x, gamma, beta, eps=1e-5, impl="auto"):
+def layer_norm(x, gamma, beta, eps=1e-5, block_r=256, interpret=None,  # noqa: ARG001
+               impl="auto"):
     """Last-axis layer norm over a tensor of any rank (leading axes
     collapse to rows); differentiable. See :func:`layer_norm_fwd` for
-    ``impl``."""
+    ``impl``. ``block_r`` and ``interpret`` are the reference's TPU row
+    tile and Pallas interpret switch, taken and unused."""
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     if torch.is_grad_enabled() and any(

@@ -22,6 +22,13 @@ card from the base key and ``t`` (`random.trace_key_scope`,
 states are updated in place (the reference donates them, :287), so the
 ``nn.Module`` is current between steps.
 
+Auxiliary state (BatchNorm's running statistics, Parameters with
+``grad_req`` "null") is written in place by the forward itself
+(`npx.batch_norm`), the reference's functional aux updates (:38-63)
+carried out of its program: the eager step updates it once, the
+capture runs no kernel, and each replay updates it once again, by
+address.
+
 Every trainable parameter is updated: one the loss does not reach (BERT's
 NSP head under an MLM loss) gets a zero gradient, and moves where
 ``wd > 0``, as in the reference. Small parameters (float32, at most 2^14
@@ -56,6 +63,7 @@ from .. import amp
 from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
 from ..telemetry import compiles as _compiles
 from ..telemetry import hbm as _hbm
 
@@ -227,7 +235,11 @@ class DataParallel:
 
     def step(self, x, y):
         """One training step on the batch ``(x, y)``; returns the mean loss
-        (a 0-dim tensor of its own)."""
+        (a 0-dim tensor of its own; an NDArray when ``x`` is one, as in
+        the reference)."""
+        if isinstance(x, NDArray):
+            return NDArray(self.step(x._data, y._data if isinstance(
+                y, NDArray) else y))
         self.optimizer.num_update += 1
         args = self._prepare()
         x = torch.as_tensor(x, device=self.device)

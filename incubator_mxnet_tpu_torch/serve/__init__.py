@@ -86,14 +86,17 @@ from .api import ServeEngine
 from .engine import PageAllocator, PagePoolExhausted, PrefixCache, SlotDecoder
 from .elastic import ReplicaScaleError, ReplicaSetController
 from .gateway import Gateway, GatewayRequest, ModelRegistry
+from .disagg import MigrationAborted
 from .router import ReplicaRouter
 from .scheduler import (DeadlineExceeded, EngineClosed, QueueFull, Request,
                         Scheduler)
+from .tenancy import Tenant, TokenBucket, WDRRQueue
 
 __all__ = ["ServeEngine", "SlotDecoder", "Scheduler", "Request",
            "PageAllocator", "PrefixCache", "PagePoolExhausted",
            "QueueFull", "DeadlineExceeded", "EngineClosed",
            "ModelRegistry", "Gateway", "GatewayRequest", "ReplicaRouter",
            "ReplicaSetController", "ReplicaScaleError", "AutoscaleAdvisor",
+           "Tenant", "TokenBucket", "WDRRQueue", "MigrationAborted",
            "api", "engine", "scheduler", "gateway", "tenancy", "router",
            "disagg", "advisor", "elastic"]

@@ -38,6 +38,12 @@ def env_float(name, default):
 
 
 _ENV_KNOBS = {
+    "MXNET_GLUON_REPO": (
+        "gluon.model_zoo model_store", "override the pretrained-artifact "
+        "root (a local directory; nothing downloads)"),
+    "MXNET_HOME": (
+        "gluon.model_zoo model_store", "data/artifact cache root: "
+        "pretrained weights resolve in $MXNET_HOME/models"),
     "MXNET_SAFE_ACCUMULATION": (
         "npx.softmax", "1 -> a float16 or bfloat16 input reduces in f32 "
         "and the output takes the input's dtype back (products "

@@ -34,6 +34,7 @@ within ~4e-7 of float64 there; only last bits and the order of the
 roundings differ), bfloat16 as above, and its mask bit for bit the
 dropout kernel's.
 """
+import importlib
 import math
 
 import pytest
@@ -45,7 +46,8 @@ from incubator_mxnet_tpu_torch.models.decoding import GPTDecoder
 from incubator_mxnet_tpu_torch.models.gpt import gpt_tiny
 from incubator_mxnet_tpu_torch.ops import _philox as ph
 from incubator_mxnet_tpu_torch.ops import dropout as dp
-from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+fa = importlib.import_module(
+    "incubator_mxnet_tpu_torch.ops.flash_attention")
 from incubator_mxnet_tpu_torch.ops import fused_block as fb
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 
@@ -1041,7 +1043,7 @@ def test_gelu_dropout_misaligned_noncontiguous_and_trivial_p(dev):
 def test_gelu_dropout_backward_reuses_the_mask(dev):
     u = torch.randn(16, 64, device=dev, requires_grad=True)
     fb.gd_launches = fb.gd_bwd_launches = 0
-    y = fb.gelu_dropout(u, (9, 9), 0.3)
+    y = fb.gelu_dropout(u, 0.3, (9, 9))
     y.backward(torch.ones_like(y))
     assert (fb.gd_launches, fb.gd_bwd_launches) == (1, 1)
     keep = ph.keep_mask(u.shape, (9, 9), 0.3, device=dev)
@@ -2077,3 +2079,108 @@ def test_gluon_verify_script_on_the_card(dev):  # noqa: ARG001
     assert loss._data.device.type == "cuda"
     assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
     assert net.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# the vision path: conv, pooling and norms on the card; BatchNorm's running
+# statistics inside the captured graphs (f32, TF32 off: 1e-4 of the largest
+# entry against the same op on the CPU)
+# ---------------------------------------------------------------------------
+
+VISION_TOL = 1e-4
+
+
+def _vision_close(got, ref, tol=VISION_TOL):
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    scale = max(float(ref.abs().max()), 1e-30)
+    assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("case", ["conv", "deconv", "max_full", "avg_excl",
+                                  "bn_train", "bn_infer", "group", "pad"])
+def test_vision_ops_on_the_card_match_the_cpu(dev, case):
+    import incubator_mxnet_tpu_torch as mx
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 6, 11, 11, generator=g)
+    w = torch.randn(8, 3, 3, 3, generator=g) * 0.2
+    b = torch.randn(8, generator=g)
+    gam, bet = torch.rand(6, generator=g) + 0.5, torch.randn(6, generator=g)
+    npx = mx.npx
+
+    def run(d):
+        rm, rv = torch.zeros(6, device=d), torch.ones(6, device=d)
+        xs = x.to(d)
+        with mx.autograd.train_mode():
+            out = {
+                "conv": lambda: npx.convolution(
+                    xs, w.to(d), b.to(d), kernel=(3, 3), stride=2, pad=1,
+                    num_group=2),
+                "deconv": lambda: npx.deconvolution(
+                    xs, w.reshape(6, 4, 3, 3).to(d), None, kernel=(3, 3),
+                    stride=2, pad=1, adj=1, num_group=2, no_bias=True),
+                "max_full": lambda: npx.pooling(
+                    xs, kernel=(2, 2), stride=(2, 2),
+                    pooling_convention="full"),
+                "avg_excl": lambda: npx.pooling(
+                    xs, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    pool_type="avg", count_include_pad=False),
+                "bn_train": lambda: npx.batch_norm(
+                    xs, gam.to(d), bet.to(d), rm, rv, fix_gamma=False),
+                "group": lambda: npx.group_norm(xs, gam.to(d), bet.to(d),
+                                                num_groups=3),
+                "pad": lambda: npx.pad(xs, mode="reflect",
+                                       pad_width=(0, 0, 0, 0, 2, 3, 1, 1)),
+            }.get(case, lambda: npx.batch_norm(
+                xs, gam.to(d), bet.to(d), rm + 0.1, rv * 2, fix_gamma=False,
+                use_global_stats=True))()
+        assert out.device.type == d.type
+        return out, rm, rv
+
+    got, grm, grv = run(dev)
+    ref, rrm, rrv = run(torch.device("cpu"))
+    _vision_close(got, ref)
+    _vision_close(grm, rrm)
+    _vision_close(grv, rrv)
+
+
+def test_vision_batchnorm_updates_once_a_step_in_the_graphs(dev):
+    """DataParallel (eager, capturing, replays) and a hybridized block
+    (eager, capturing, replays) move the running statistics once a step:
+    with the weights fixed (lr 0), rm_n = m^n rm0 + (1 - m^n) mean."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, optimizer
+    from incubator_mxnet_tpu_torch.parallel import DataParallel
+
+    def net():
+        n = gluon.nn.HybridSequential()
+        n.add(gluon.nn.Conv2D(4, 3, padding=1, in_channels=3),
+              gluon.nn.BatchNorm(in_channels=4), gluon.nn.Activation("relu"),
+              gluon.nn.GlobalAvgPool2D(), gluon.nn.Dense(5, in_units=4))
+        n.initialize(device=mx.gpu(0))
+        return n
+
+    x = torch.randn(8, 3, 6, 6, device=dev)
+    y = torch.randint(0, 5, (8,), device=dev)
+    probe = net()
+    with mx.autograd.train_mode():
+        mean = probe[0](x).mean(dim=(0, 2, 3))
+    n_steps, m = 5, 0.9
+    want = (1 - m ** n_steps) * mean
+    a = net()
+    a.load_dict({k: p.data() for k, p in probe.collect_params().items()})
+    dp = DataParallel(a, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      optimizer.SGD(learning_rate=0.0))
+    for _ in range(n_steps):
+        dp.step(x, y)
+    assert dp.captures == 1
+    _vision_close(a[1].running_mean.data()._data, want)
+    h = net()
+    h.load_dict({k: p.data() for k, p in probe.collect_params().items()})
+    h.hybridize()
+    xs = mx.nd.NDArray(x)
+    for _ in range(n_steps):
+        with mx.autograd.record():
+            h(xs)
+    assert h.captures == 1
+    _vision_close(h[1].running_mean.data()._data, want)

@@ -37,7 +37,8 @@ import torch
 from incubator_mxnet_tpu.ops import layer_norm as jln
 from incubator_mxnet_tpu_torch.ops import _philox as ph
 from incubator_mxnet_tpu_torch.ops import dropout as tdp
-from incubator_mxnet_tpu_torch.ops import flash_attention as tfa
+tfa = importlib.import_module(
+    "incubator_mxnet_tpu_torch.ops.flash_attention")
 from incubator_mxnet_tpu_torch.ops import fused_block as tfb
 from incubator_mxnet_tpu_torch.ops import layer_norm as tln
 
@@ -251,7 +252,7 @@ def test_f16_gelu_dropout_p0_matches_pallas_core(shape):
     ref, vjp = jax.vjp(core, uj)
     (dref,) = vjp(dyj)
     leaf = ut.clone().requires_grad_()
-    y = tfb.gelu_dropout(leaf, (0, 0), 0.0)
+    y = tfb.gelu_dropout(leaf, 0.0, (0, 0))
     y.backward(dyt)
     assert y.dtype == leaf.grad.dtype == torch.float16
     onp.testing.assert_allclose(_t(y), _np(ref), rtol=2.0 ** -10, atol=2e-5)

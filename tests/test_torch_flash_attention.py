@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.ops import flash_attention as tfa
+tfa = importlib.import_module(
+    "incubator_mxnet_tpu_torch.ops.flash_attention")
 
 # the reference package's `ops` re-exports the function under the
 # module's name, so reach the module itself

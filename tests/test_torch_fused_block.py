@@ -283,4 +283,4 @@ def test_npx_sites_in_a_trace_scope_fold_their_keys():
               for s in (0, 1))
     assert torch.equal(y, tfb.residual_dropout_ln(x, h, gamma, beta, 0.2,
                                                   w0))
-    assert torch.equal(g, tfb.gelu_dropout(x, w1, 0.2))
+    assert torch.equal(g, tfb.gelu_dropout(x, 0.2, w1))

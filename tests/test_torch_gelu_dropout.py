@@ -81,7 +81,7 @@ def test_p0_forward_matches_pallas_interpret(shape, dtype):
     u = _u(shape, seed=shape[0])
     ref, _ = _jax_core(u, dtype)
     ut = torch.from_numpy(u).to(getattr(torch, dtype))
-    got = tfb.gelu_dropout(ut, (0, 0), 0.0)
+    got = tfb.gelu_dropout(ut, 0.0, (0, 0))
     assert got.dtype == ut.dtype and got.shape == shape
     _close(got.float().numpy(), onp.asarray(ref.astype(jnp.float32)), dtype)
     # the reference's exact-gelu emulation agrees at the same tolerance
@@ -97,7 +97,7 @@ def test_p0_backward_matches_pallas_vjp(shape, dtype):
     (ref,) = vjp(jnp.asarray(dy).astype(dtype))
     tdt = getattr(torch, dtype)
     leaf = torch.from_numpy(u).to(tdt).requires_grad_()
-    tfb.gelu_dropout(leaf, (0, 0), 0.0).backward(torch.from_numpy(dy).to(tdt))
+    tfb.gelu_dropout(leaf, 0.0, (0, 0)).backward(torch.from_numpy(dy).to(tdt))
     ref = onp.asarray(ref.astype(jnp.float32))
     _close(leaf.grad.float().numpy(), ref, dtype)
     explicit = tfb.plain_gelu_dropout_bwd(leaf.detach(),
@@ -120,7 +120,7 @@ def test_gelu_grad_is_finite_where_phi_underflows():
 def test_equals_dropout_of_gelu_bit_for_bit(p, shape):
     u = torch.from_numpy(_u(shape, seed=7))
     key = (31337, 4242)
-    got = tfb.gelu_dropout(u, key, p)
+    got = tfb.gelu_dropout(u, p, key)
     ref = tdp.plain_dropout(F.gelu(u, approximate="none"), key, p)
     assert torch.equal(got, ref)
     assert torch.equal(got, tfb.plain_gelu_dropout(u, key, p))
@@ -133,7 +133,7 @@ def test_reference_contract(p):
     backward drops where the forward dropped."""
     u = torch.from_numpy(_u((64, 512), seed=11)) + 7.0   # gelu(u) != 0
     key = (5, 6)
-    y = tfb.gelu_dropout(u, key, p)
+    y = tfb.gelu_dropout(u, p, key)
     kept = y != 0
     assert _binomial_ok(int(kept.sum()), u.numel(), p)
     scale = torch.tensor(ph.dropout_scale(p))
@@ -142,10 +142,10 @@ def test_reference_contract(p):
                                atol=0)
     assert torch.equal(y[kept], g[kept] * scale)
     assert torch.equal(kept, ph.keep_mask(u.shape, key, p))
-    assert torch.equal(y, tfb.gelu_dropout(u, key, p))
-    assert not torch.equal(y, tfb.gelu_dropout(u, (5, 7), p))
+    assert torch.equal(y, tfb.gelu_dropout(u, p, key))
+    assert not torch.equal(y, tfb.gelu_dropout(u, p, (5, 7)))
     leaf = u.clone().requires_grad_()
-    tfb.gelu_dropout(leaf, key, p).backward(torch.ones_like(u))
+    tfb.gelu_dropout(leaf, p, key).backward(torch.ones_like(u))
     assert torch.equal(leaf.grad != 0, kept)
 
 
@@ -156,7 +156,7 @@ def test_autograd_matches_the_composed_plain_ops(dtype, p):
     dy = torch.from_numpy(_u((24, 160), seed=14, scale=1.0)).to(dtype)
     key = (77, 1 << 31)
     leaf = u.clone().requires_grad_()
-    y = tfb.gelu_dropout(leaf, key, p)
+    y = tfb.gelu_dropout(leaf, p, key)
     y.backward(dy)
     comp = u.float().requires_grad_()
     ref = tdp.dropout(F.gelu(comp, approximate="none"), key, p)
@@ -172,23 +172,23 @@ def test_autograd_matches_the_composed_plain_ops(dtype, p):
 
 def test_p1_zeros_bad_p_empty_and_bad_impl():
     u = torch.from_numpy(_u((4, 8), seed=5)).requires_grad_()
-    y = tfb.gelu_dropout(u, (1, 1), 1.0)
+    y = tfb.gelu_dropout(u, 1.0, (1, 1))
     assert (y == 0).all()
     y.sum().backward()
     assert (u.grad == 0).all()
     for bad in (-0.1, 1.5):
         with pytest.raises(ValueError):
-            tfb.gelu_dropout(u, (1, 1), bad)
+            tfb.gelu_dropout(u, bad, (1, 1))
         with pytest.raises(ValueError):
             npx.gelu_dropout(u, p=bad, training=True)
     empty = torch.zeros(0, 8)
-    assert tfb.gelu_dropout(empty, (1, 1), 0.5) is empty
+    assert tfb.gelu_dropout(empty, 0.5, (1, 1)) is empty
     with pytest.raises(ValueError):
-        tfb.gelu_dropout(u, (1, 1), 0.5, impl="pallas")
+        tfb.gelu_dropout(u, 0.5, (1, 1), impl="pallas")
     with pytest.raises(ValueError):
         npx.gelu_dropout(u, p=0.5, impl="cuda", training=True)
     with pytest.raises(MXNetError):
-        tfb.gelu_dropout(u, (1, 1), 0.5, impl="kernel")  # CPU tensor
+        tfb.gelu_dropout(u, 0.5, (1, 1), impl="kernel")  # CPU tensor
     with pytest.raises(MXNetError):
         npx.gelu_dropout(u, p=0.5, impl="pallas", training=True)
 
@@ -231,7 +231,7 @@ def test_npx_gelu_dropout_in_training_draws_one_key():
     mxrandom.seed(8)
     key = mxrandom.next_key()
     assert mxrandom.next_key() == after                   # one key drawn
-    assert torch.equal(y, tfb.gelu_dropout(x, key, 0.3))
+    assert torch.equal(y, tfb.gelu_dropout(x, 0.3, key))
     mxrandom.seed(8)
     assert torch.equal(y, npx.gelu_dropout(x, p=0.3, training=True))
     mxrandom.seed(8)

@@ -231,3 +231,62 @@ def test_gluon_slice_modules_stand_alone():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+VISION_SLICE = ("numpy_extension._contrib_misc", "numpy_extension._spatial",
+                "gluon.nn.conv_layers", "gluon.nn.extra_layers",
+                "gluon.model_zoo.model_store", "gluon.model_zoo.vision",
+                "gluon.model_zoo.vision.resnet", "gluon.model_zoo.vision.vgg",
+                "gluon.model_zoo.vision.alexnet",
+                "gluon.model_zoo.vision.mobilenet",
+                "gluon.model_zoo.vision.squeezenet",
+                "gluon.model_zoo.vision.densenet",
+                "gluon.model_zoo.vision.inception", "gluon.model_zoo")
+
+
+def test_vision_slice_modules_stand_alone():
+    """The vision slice's modules (the conv, pooling and norm ops and
+    layers, the model store, the zoo) import alone in a fresh
+    interpreter, each without loading jax or the reference package; then
+    bench.py's training step (`DataParallel`, SGD with momentum) runs on
+    a small ResNet on the CPU, and the packaged digits weights load,
+    still without them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {VISION_SLICE!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import numpy as onp\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import gluon, np, optimizer\n"
+        "from incubator_mxnet_tpu_torch.gluon.model_zoo import model_store\n"
+        "from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import ("
+        "mobilenet0_25, resnet18_v1)\n"
+        "from incubator_mxnet_tpu_torch.parallel.sharded import "
+        "DataParallel\n"
+        "with mx.cpu():\n"
+        "    net = resnet18_v1(classes=10)\n"
+        "    net.initialize()\n"
+        "    rng = onp.random.RandomState(0)\n"
+        "    net(np.array(rng.uniform(-1, 1, (1, 3, 32, 32))"
+        ".astype('float32')))\n"
+        "    dp = DataParallel(net, gluon.loss.SoftmaxCrossEntropyLoss(),"
+        " optimizer.SGD(learning_rate=0.01, momentum=0.9))\n"
+        "    x = np.array(rng.uniform(-1, 1, (2, 3, 32, 32))"
+        ".astype('float32'))\n"
+        "    y = np.array(rng.randint(0, 10, (2,)).astype('int32'))\n"
+        "    loss = dp.step(x, y)\n"
+        "    assert onp.isfinite(float(loss.asnumpy()))\n"
+        "    m = mobilenet0_25(classes=10)\n"
+        "    m.load_parameters(model_store.get_model_file("
+        "'mobilenet0.25_digits'))\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
