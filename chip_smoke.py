@@ -175,6 +175,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    replay, K5 against its plain version); the packaged
    ``mobilenet0.25_digits`` weights and every zoo family on the card
    against the CPU.
+12. ``[np4]`` (after ``[vision]``): a reference-style user script that
+   begins with ``npx.set_np()`` on ``cuda:0``: two self-attention layers
+   of npx ops (``interleaved_matmul_selfatt_qk``/``_valatt``,
+   ``masked_softmax``, ``sequence_mask``, ``layer_norm`` on K4/K4b,
+   ``dropout`` on K5) at 8 x 64 x 768, 12 heads, ``one_hot``/``pick``
+   losses, a ``topk`` metric, ``clip_global_norm`` and three SGD steps
+   under ``autograd.record()``, against the same script on the CPU at
+   p = 0 and at p = 0.1 (the same dropout keys), its K4, K4b and K5
+   launches exact; the dropout contract; every ``np.linalg`` name on the
+   card against the CPU and ``solve``/``svd`` through the funnel against
+   ``torch.linalg``; 10^6 draws of each of the 20 distributions against
+   their moments; a legacy ``.params`` round trip through
+   ``load_parameters``; the funnel's host time of ``topk``, ``pick``,
+   ``one_hot`` and ``reshape`` with codes.
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
@@ -182,7 +196,8 @@ power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"serve": ...}``, ``{"serve_engine": ...}``, ``{"serve_spec": ...}``,
 the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
-``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}`` lines, one
+``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}``,
+``{"np4": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -7253,6 +7268,543 @@ def phase_vision(torch, dev):
     return out, counted
 
 
+# ---------------------------------------------------------------------------
+# [np4]: the np/npx/nd remainder, a reference-style user script on the card
+# ---------------------------------------------------------------------------
+
+NP4_B, NP4_T, NP4_C, NP4_H = 8, 64, 768, 12   # BERT-base's width and heads
+NP4_LAYERS, NP4_CLASSES, NP4_STEPS = 2, 16, 3
+NP4_P, NP4_LR, NP4_CLIP, NP4_SEED = 0.1, 0.5, 1.0, 17
+# the script on the card against the CPU at p = 0: losses, gradient norms,
+# the metric and the final weights, max|d| / max|cpu| (f32, TF32 off:
+# cuBLAS and the CPU's BLAS sum the products in other orders)
+NP4_TOL = 1e-4
+# every np.linalg name on the card against the CPU (its invariants: the
+# decompositions by their values and reconstructions)
+NP4_LINALG_TOL = 1e-4
+NP4_LINALG_N = 64
+NP4_SAMPLES = 10 ** 6
+NP4_MOMENT_SE = 6.0            # moments within this many standard errors
+NP4_HOST_CALLS = 1000
+NP4_LINALG_REPS = 20
+# launches of the main path a step: a layer's LayerNorm (K4 forward; K4b
+# backward, two kernels a call) and its two dropouts (K5 forward and K5
+# backward each)
+NP4_LAUNCHES = {"K4": NP4_LAYERS, "K4b": 2 * NP4_LAYERS,
+                "K5": 4 * NP4_LAYERS}
+
+
+def np4_script(mx, p, seed=NP4_SEED, steps=NP4_STEPS):
+    """The reference-style user script on the current device: ``set_np``,
+    a seeded two-layer self-attention classifier written with npx ops
+    (``interleaved_matmul_selfatt_qk``/``_valatt``, ``masked_softmax``,
+    ``sequence_mask``, ``layer_norm``, ``dropout``), ``one_hot`` and
+    ``pick`` for the loss, ``topk`` for the metric, ``clip_global_norm``
+    on the gradients and a plain SGD update, ``steps`` times under
+    ``autograd.record()``. Returns numbers and the final weights (numpy)."""
+    import numpy as onp
+
+    np, npx, ag = mx.np, mx.npx, mx.autograd
+    npx.set_np()
+    npx.seed(seed)
+    rng = onp.random.RandomState(seed)
+    c, h = NP4_C, NP4_H
+
+    def w(*shape, scale=0.02):
+        return np.array(rng.normal(0, scale, shape).astype("float32"))
+
+    params = {"emb": w(1000, c, scale=0.5), "out": w(c, NP4_CLASSES)}
+    for layer in range(NP4_LAYERS):
+        params[f"qkv{layer}"] = w(c, 3 * c)
+        params[f"proj{layer}"] = w(c, c)
+        params[f"gamma{layer}"] = np.ones(c)
+        params[f"beta{layer}"] = np.zeros(c)
+    for a in params.values():
+        a.attach_grad()
+    tokens = np.array(rng.randint(0, 1000, (NP4_B, NP4_T)).astype("int32"))
+    vl = np.array(rng.randint(NP4_T // 2, NP4_T + 1, NP4_B)
+                  .astype("float32"))
+    labels = np.array(rng.randint(0, NP4_CLASSES, NP4_B).astype("float32"))
+    # the (B·H, T, T) key mask of the valid lengths, batch-major as the
+    # interleaved scores
+    mask = np.arange(NP4_T).reshape(1, 1, 1, NP4_T) < vl.reshape(-1, 1, 1, 1)
+    mask = npx.reshape(np.broadcast_to(mask, (NP4_B, h, NP4_T, NP4_T)),
+                       (-3, -2))
+    losses, picked_losses, norms, top1, top5 = [], [], [], [], []
+    for _ in range(steps):
+        with ag.record():
+            x = npx.embedding(tokens, params["emb"])
+            x = npx.sequence_mask(np.transpose(x, (1, 0, 2)), vl,
+                                  use_sequence_length=True, axis=0)
+            for layer in range(NP4_LAYERS):
+                qkv = np.dot(x, params[f"qkv{layer}"])
+                att = npx.interleaved_matmul_selfatt_qk(qkv, heads=h)
+                att = npx.dropout(npx.masked_softmax(att, mask), p=p)
+                ctx = npx.interleaved_matmul_selfatt_valatt(qkv, att,
+                                                            heads=h)
+                out = npx.dropout(np.dot(ctx, params[f"proj{layer}"]), p=p)
+                x = npx.layer_norm(x + out, params[f"gamma{layer}"],
+                                   params[f"beta{layer}"])
+            pooled = npx.sequence_last(x, vl, use_sequence_length=True)
+            logits = np.dot(pooled, params["out"])
+            logp = npx.log_softmax(logits)
+            loss = -(logp * npx.one_hot(labels, NP4_CLASSES)).sum() / NP4_B
+        loss.backward()
+        picked_losses.append(float(-npx.pick(logp, labels).mean()))
+        losses.append(float(loss))
+        norms.append(npx.clip_global_norm([a.grad for a in params.values()],
+                                          NP4_CLIP))
+        top = npx.topk(logits, k=5)
+        hit = (top == labels.reshape(-1, 1)).astype("float32")
+        top1.append(float(hit[:, 0].mean()))
+        top5.append(float(hit.sum(axis=-1).mean()))
+        for a in params.values():
+            a[:] = a - NP4_LR * a.grad
+    return dict(losses=losses, picked_losses=picked_losses, grad_norms=norms,
+                top1=top1, top5=top5), {n: a.asnumpy() for n, a in
+                                        params.items()}
+
+
+def _np4_rel(got, ref):
+    import numpy as onp
+
+    got, ref = onp.asarray(got, "float64"), onp.asarray(ref, "float64")
+    return float(onp.abs(got - ref).max() / max(onp.abs(ref).max(), 1e-30))
+
+
+def phase_np4_script(torch, dev, mx):
+    """The script on the card against the CPU at p = 0, and at p = NP4_P
+    with the same dropout keys (recorded on both sides), its K4, K4b and
+    K5 launches counted exactly; the dropout contract on the card."""
+    res = {}
+    t0 = time.perf_counter()
+    card0, w_card0 = np4_script(mx, 0.0)
+    torch.cuda.synchronize()
+    res["card_p0_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with mx.cpu():
+        cpu0, w_cpu0 = np4_script(mx, 0.0)
+    res["cpu_p0_s"] = time.perf_counter() - t0
+    errs = {k: _np4_rel(card0[k], cpu0[k]) for k in ("losses",
+                                                     "picked_losses",
+                                                     "grad_norms")}
+    errs["weights"] = max(_np4_rel(w_card0[n], w_cpu0[n]) for n in w_cpu0)
+    same_metric = card0["top1"] == cpu0["top1"] and \
+        card0["top5"] == cpu0["top5"]
+    worst = max(errs.values())
+    log(f"[np4] script ({NP4_LAYERS} self-attention layers, {NP4_B} x "
+        f"{NP4_T} x {NP4_C}, {NP4_H} heads, {NP4_STEPS} SGD steps) at p = 0, "
+        f"the card vs the CPU: max|d|/max|cpu| {errs} (tol {NP4_TOL:g}); "
+        f"losses card {card0['losses']} cpu {cpu0['losses']}; top-1/top-5 "
+        f"equal {same_metric}; one-hot loss = pick loss "
+        f"{_np4_rel(card0['losses'], card0['picked_losses']):.2e}")
+    check(all(math.isfinite(v) for v in card0["losses"]
+              + card0["grad_norms"]), "[np4] script: non-finite loss")
+    check(worst <= NP4_TOL and same_metric,
+          f"[np4] script on the card disagrees with the CPU: {errs}")
+    check(_np4_rel(card0["losses"], card0["picked_losses"]) <= 1e-6,
+          "[np4] script: the one-hot loss is not the pick loss")
+    res.update(p0_vs_cpu=errs, p0_losses=card0["losses"],
+               p0_grad_norms=card0["grad_norms"])
+    # p > 0: the main path, counted, its dropout keys recorded; the CPU's
+    # run with the same seed draws the same keys, and its plain dropout
+    # the same Philox masks, so it agrees within the same tolerance
+    from incubator_mxnet_tpu_torch import random as mxrandom
+
+    draw, keys = mxrandom.next_key, {"card": [], "cpu": []}
+
+    def recording(where):
+        def next_key():
+            k = draw()
+            keys[where].append(k)
+            return k
+        return next_key
+
+    try:
+        mxrandom.next_key = recording("card")
+        reset_counts()
+        t0 = time.perf_counter()
+        card1, w_card1 = np4_script(mx, NP4_P)
+        torch.cuda.synchronize()
+        res["card_p_s"] = time.perf_counter() - t0
+        counted, layouts = read_counts(), read_layout_counts()
+        mxrandom.next_key = recording("cpu")
+        with mx.cpu():
+            cpu1, w_cpu1 = np4_script(mx, NP4_P)
+    finally:
+        mxrandom.next_key = draw
+    errs1 = {k: _np4_rel(card1[k], cpu1[k]) for k in ("losses",
+                                                      "grad_norms")}
+    errs1["weights"] = max(_np4_rel(w_card1[n], w_cpu1[n]) for n in w_cpu1)
+    same_keys = keys["card"] == keys["cpu"] and len(keys["card"]) == \
+        2 * NP4_LAYERS * NP4_STEPS
+    want = {k: n * NP4_STEPS for k, n in NP4_LAUNCHES.items()}
+    log(f"[np4] script at p = {NP4_P:g} on the card: losses "
+        f"{card1['losses']}, grad norms {card1['grad_norms']}; the CPU with "
+        f"the same seed drew the same {len(keys['card'])} dropout keys "
+        f"{same_keys}, max|d|/max|cpu| {errs1} (tol {NP4_TOL:g}); launches "
+        f"{counted} (expected {want}); {res['card_p_s']:.2f} s")
+    check(same_keys and max(errs1.values()) <= NP4_TOL,
+          f"[np4] script at p = {NP4_P:g}: keys equal {same_keys}, "
+          f"vs the CPU {errs1}")
+    check(all(counted[k] == n for k, n in want.items()) and all(
+        v == 0 for k, v in counted.items() if k not in want),
+        f"[np4] script launches {counted}, expected {want}")
+    res.update(p_losses=card1["losses"], p_vs_cpu=errs1,
+               p_keys=len(keys["card"]), launches=counted)
+    # the dropout contract at p = NP4_P on the card: the keep fraction,
+    # the 1/(1-p) scale, the backward's mask the forward's
+    x = mx.np.ones((NP4_B * NP4_T, NP4_C))
+    x.attach_grad()
+    with mx.autograd.record():
+        y = mx.npx.dropout(x, p=NP4_P)
+    y.backward()
+    yt, gt = y._data, x.grad._data
+    keep = float((yt != 0).float().mean())
+    n = yt.numel()
+    se = math.sqrt(NP4_P * (1 - NP4_P) / n)
+    scale_ok = bool(torch.all((yt == 0) | ((yt - 1 / (1 - NP4_P)).abs()
+                                           <= 1e-6)))
+    same_mask = bool(torch.equal(gt, yt))
+    log(f"[np4] dropout contract on the card ({n} elements, p = {NP4_P:g}): "
+        f"keep fraction {keep:.5f} (1 - p = {1 - NP4_P:g}, "
+        f"{abs(keep - (1 - NP4_P)) / se:.2f} SE), kept values 1/(1-p) "
+        f"{scale_ok}, the backward's mask the forward's {same_mask}")
+    check(abs(keep - (1 - NP4_P)) <= NP4_MOMENT_SE * se and scale_ok
+          and same_mask, "[np4] dropout contract")
+    res["dropout_contract"] = dict(keep=keep, scale=scale_ok,
+                                   same_mask=same_mask)
+    return res, counted, layouts
+
+
+def _np4_linalg_cases(mx, a_np, b_np, spd_np, rect_np, low_np):
+    """name -> (function of (mx, arrays) -> list of invariant arrays,
+    inputs)."""
+    import numpy as onp
+
+    la = mx.np.linalg
+
+    def recon_svd(m):
+        u, s, vh = la.svd(m, full_matrices=False)
+        return [s, (u * s.reshape(1, -1)) @ vh]
+
+    def recon_qr(m):
+        q, r = la.qr(m)
+        return [q @ r, mx.np.abs(r)]
+
+    def recon_eigh(m):
+        w, v = la.eigh(m)
+        return [w, (v * w.reshape(1, -1)) @ v.T]
+
+    def recon_eig(m):
+        w, v = la.eig(m)
+        return [mx.np.sort(mx.np.real(w)),
+                mx.np.real(v @ (w.reshape(-1, 1) * la.inv(v)))]
+
+    def recon_syevd(m):
+        u, lam = la.syevd(m)
+        return [lam, (u.T * lam.reshape(1, -1)) @ u]
+
+    def recon_gelqf(m):
+        lo, q = la.gelqf(m)
+        return [lo @ q, mx.np.abs(lo)]
+
+    A, B, S, Rm, L = a_np, b_np, spd_np, rect_np, low_np
+    one = onp.ones(6, "float32")
+    return {
+        "norm": (lambda m: [la.norm(m), la.norm(m, 1, axis=0)], [Rm]),
+        "svd": (recon_svd, [Rm]),
+        "cholesky": (lambda m: [la.cholesky(m)], [S]),
+        "qr": (recon_qr, [Rm]),
+        "inv": (lambda m: [la.inv(m)], [A]),
+        "pinv": (lambda m: [la.pinv(m)], [Rm]),
+        "det": (lambda m: [la.det(m / 8)], [A]),
+        "slogdet": (lambda m: list(la.slogdet(m)), [A]),
+        "solve": (lambda m, b: [la.solve(m, b)], [A, B]),
+        "lstsq": (lambda m, b: [r for i, r in enumerate(la.lstsq(m, b))
+                                if i != 2], [Rm, onp.concatenate([B, B])
+                                             [:Rm.shape[0]]]),
+        "eig": (recon_eig, [A]),
+        "eigh": (recon_eigh, [S]),
+        "eigvals": (lambda m: [mx.np.sort(mx.np.real(la.eigvals(m)))], [S]),
+        "eigvalsh": (lambda m: [la.eigvalsh(m)], [S]),
+        "matrix_rank": (lambda m: [la.matrix_rank(m)], [Rm]),
+        "matrix_power": (lambda m: [la.matrix_power(m / 8, 3)], [A]),
+        "multi_dot": (lambda m, b: [la.multi_dot([m, m, b])], [A, B]),
+        "tensorinv": (lambda m: [la.tensorinv(m, ind=1)], [A]),
+        "tensorsolve": (lambda m, b: [la.tensorsolve(m, b[:, 0])], [A, B]),
+        "cond": (lambda m: [la.cond(m)], [A]),
+        "gemm2": (lambda m, b: [la.gemm2(m, b, alpha=0.5)], [A, B]),
+        "gemm": (lambda m, b: [la.gemm(m, m, b @ b.T, transpose_b=True,
+                                       beta=-1.0)], [A, B]),
+        "syevd": (recon_syevd, [S]),
+        "potrf": (lambda m: [la.potrf(m)], [S]),
+        "potri": (lambda m: [la.potri(m)], [L]),
+        "trsm": (lambda m, b: [la.trsm(m, b, alpha=2.0)], [L, B]),
+        "trmm": (lambda m, b: [la.trmm(m, b, transpose=True)], [L, B]),
+        "syrk": (lambda m: [la.syrk(m, alpha=0.5)], [Rm]),
+        "gelqf": (recon_gelqf, [Rm.T.copy()]),
+        "sumlogdiag": (lambda m: [la.sumlogdiag(m)], [S]),
+        "extractdiag": (lambda m: [la.extractdiag(m, offset=1)], [A]),
+        "makediag": (lambda v: [la.makediag(v, offset=-1)], [one]),
+        "extracttrian": (lambda m: [la.extracttrian(m)], [A]),
+        "maketrian": (lambda v: [la.maketrian(v)], [onp.ones(21,
+                                                             "float32")]),
+        "inverse": (lambda m: [la.inverse(m)], [A]),
+    }
+
+
+def phase_np4_linalg(torch, mx):
+    """Every np.linalg name once on the card against the CPU, and
+    solve/svd through the funnel against ``torch.linalg`` on the same
+    tensors (wall time a call, synchronised)."""
+    import numpy as onp
+
+    n = NP4_LINALG_N
+    rng = onp.random.RandomState(NP4_SEED)
+    a = (rng.normal(size=(n, n)) + n ** 0.5 * onp.eye(n)).astype("float32")
+    b = rng.normal(size=(n, 8)).astype("float32")
+    spd = (a @ a.T / n + onp.eye(n)).astype("float32")
+    rect = rng.normal(size=(n + 16, n // 2)).astype("float32")
+    low = onp.tril(a).astype("float32")
+    cases = _np4_linalg_cases(mx, a, b, spd, rect, low)
+    errs = {}
+    for name, (fn, arrays) in cases.items():
+        card = fn(*[mx.np.array(v) for v in arrays])
+        with mx.cpu():
+            cpu = fn(*[mx.np.array(v) for v in arrays])
+        check(all(c._data.device.type == "cuda" for c in card),
+              f"[np4] linalg.{name} did not run on the card")
+        errs[name] = max(_np4_rel(c.asnumpy(), r.asnumpy())
+                         for c, r in zip(card, cpu))
+    worst = max(errs, key=errs.get)
+    log(f"[np4] np.linalg: {len(errs)} names on the card vs the CPU "
+        f"(n = {n}), worst {worst} {errs[worst]:.2e} (tol "
+        f"{NP4_LINALG_TOL:g}); " + ", ".join(f"{k} {v:.1e}"
+                                            for k, v in errs.items()))
+    check(errs[worst] <= NP4_LINALG_TOL, f"[np4] linalg.{worst} on the "
+          f"card disagrees with the CPU: {errs[worst]:.2e}")
+    # solve and svd: through the funnel vs torch.linalg direct
+    A, B = mx.np.array(a), mx.np.array(b)
+    at, bt = A._data, B._data
+
+    def wall_us(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(NP4_LINALG_REPS):
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e6)
+        return sorted(times)[len(times) // 2]
+
+    ratios = {}
+    for name, funnel, direct in (
+            ("solve", lambda: mx.np.linalg.solve(A, B),
+             lambda: torch.linalg.solve(at, bt)),
+            ("svd", lambda: mx.np.linalg.svd(A),
+             lambda: torch.linalg.svd(at))):
+        f_us, d_us = wall_us(funnel), wall_us(direct)
+        ratios[name] = dict(funnel_us=f_us, torch_us=d_us,
+                            ratio=f_us / d_us)
+    log(f"[np4] np.linalg through the funnel / torch.linalg direct, "
+        f"({n}, {n}) f32, median wall us a call (synchronised): "
+        + "; ".join(f"{k} {v['funnel_us']:.1f} / {v['torch_us']:.1f} = "
+                    f"{v['ratio']:.3f}" for k, v in ratios.items()))
+    return dict(vs_cpu=errs, funnel_vs_torch=ratios)
+
+
+def _np4_moments():
+    """name -> (args, exact mean, exact variance) of each scalar
+    distribution at the parameters ``[np4]`` draws it with."""
+    g = math.gamma
+    k = 1.5
+    w1, w2 = g(1 + 1 / k), g(1 + 2 / k)
+    ln_m, ln_s = 0.5, 0.25
+    return {
+        "beta": ((2.0, 3.0), 0.4, 0.04),
+        "gamma": ((2.0, 1.5), 3.0, 4.5),
+        "exponential": ((2.0,), 2.0, 4.0),
+        "chisquare": ((3.0,), 3.0, 6.0),
+        "laplace": ((1.0, 2.0), 1.0, 8.0),
+        "logistic": ((1.0, 2.0), 1.0, math.pi ** 2 / 3 * 4),
+        "lognormal": ((ln_m, ln_s), math.exp(ln_m + ln_s ** 2 / 2),
+                      (math.exp(ln_s ** 2) - 1)
+                      * math.exp(2 * ln_m + ln_s ** 2)),
+        "pareto": ((5.0,), 0.25, 5 / (16 * 3)),
+        "power": ((2.5,), 2.5 / 3.5, 2.5 / (3.5 ** 2 * 4.5)),
+        "rayleigh": ((2.0,), 2 * math.sqrt(math.pi / 2),
+                     (4 - math.pi) / 2 * 4),
+        "weibull": ((k,), w1, w2 - w1 * w1),
+        "gumbel": ((1.0, 2.0), 1 + 2 * 0.5772156649015329,
+                   math.pi ** 2 / 6 * 4),
+        "binomial": ((10, 0.3), 3.0, 2.1),
+        "poisson": ((3.5,), 3.5, 3.5),
+        "geometric": ((0.3,), 1 / 0.3, 0.7 / 0.09),
+        "negative_binomial": ((3, 0.4), 4.5, 11.25),
+        "f": ((5.0, 20.0), 20 / 18,
+              2 * 400 * 23 / (5 * 18 ** 2 * 16)),
+    }
+
+
+def phase_np4_random(torch, mx):
+    """NP4_SAMPLES draws of each of the 20 distributions on the card: the
+    sample mean and variance against the exact ones within NP4_MOMENT_SE
+    standard errors (the variance's from the sample's fourth moment); the
+    vector ones (multinomial, multivariate_normal, dirichlet) by each
+    component's mean and variance."""
+    n = NP4_SAMPLES
+    mx.random.seed(NP4_SEED)
+    worst, rows = 0.0, {}
+
+    def moments(x, mean, var, name):
+        nonlocal worst
+        x = x.double()
+        m, v = float(x.mean()), float(x.var(correction=0))
+        m4 = float(((x - m) ** 4).mean())
+        z_mean = abs(m - mean) / math.sqrt(var / n)
+        z_var = abs(v - var) / math.sqrt(max(m4 - v * v, 1e-300) / n)
+        worst = max(worst, z_mean, z_var)
+        rows[name] = dict(mean=m, exact_mean=mean, var=v, exact_var=var,
+                          z_mean=z_mean, z_var=z_var)
+
+    t0 = time.perf_counter()
+    for name, (args, mean, var) in _np4_moments().items():
+        x = getattr(mx.np.random, name)(*args, size=n)._data
+        check(x.device.type == "cuda" and x.numel() == n,
+              f"[np4] np.random.{name}: not {n} draws on the card")
+        moments(x, mean, var, name)
+    pv = [0.2, 0.3, 0.5]
+    c = mx.np.random.multinomial(10, pv, size=n)._data
+    check(bool((c.sum(-1) == 10).all()), "[np4] multinomial counts")
+    for i, p in enumerate(pv):
+        moments(c[:, i], 10 * p, 10 * p * (1 - p), f"multinomial[{i}]")
+    cov = [[2.0, 0.6], [0.6, 1.0]]
+    z = mx.np.random.multivariate_normal(mx.np.array([1.0, -2.0]),
+                                         mx.np.array(cov), size=n)._data
+    for i, mu in enumerate((1.0, -2.0)):
+        moments(z[:, i], mu, cov[i][i], f"multivariate_normal[{i}]")
+    moments(z[:, 0] + z[:, 1], -1.0, 2.0 + 1.0 + 1.2,
+            "multivariate_normal[0+1]")
+    alpha = [1.0, 2.0, 3.0]
+    d = mx.np.random.dirichlet(mx.np.array(alpha), size=n)._data
+    a0 = sum(alpha)
+    for i, a in enumerate(alpha):
+        moments(d[:, i], a / a0, a * (a0 - a) / (a0 ** 2 * (a0 + 1)),
+                f"dirichlet[{i}]")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"[np4] np.random: {n} draws of each of the 20 distributions on the "
+        f"card, {len(rows)} moments checked, the worst "
+        f"{worst:.2f} standard errors off (limit {NP4_MOMENT_SE:g}); "
+        f"{secs:.2f} s; " + ", ".join(
+            f"{k} z {v['z_mean']:.2f}/{v['z_var']:.2f}"
+            for k, v in rows.items()))
+    check(worst <= NP4_MOMENT_SE, "[np4] a distribution's moments are off")
+    return dict(worst_z=worst, seconds=secs, moments=rows)
+
+
+def phase_np4_legacy_io(torch, dev, mx):
+    """A gluon block's weights through the reference's binary ``.params``
+    container on the card: saved with MXNet's ``arg:`` prefixes, loaded by
+    ``load_parameters`` into a second block, bit for bit, the same
+    outputs."""
+    import os
+    import tempfile
+
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(64, in_units=NP4_C, activation="relu"),
+            mx.gluon.nn.Dense(NP4_CLASSES, in_units=64))
+    mx.random.seed(NP4_SEED)
+    net.initialize(device=mx.gpu(0))
+    twin = mx.gluon.nn.HybridSequential()
+    twin.add(mx.gluon.nn.Dense(64, in_units=NP4_C, activation="relu"),
+             mx.gluon.nn.Dense(NP4_CLASSES, in_units=64))
+    twin.initialize(device=mx.gpu(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "net.params")
+        mx.nd.save(path, {f"arg:{k}": p.data() for k, p in
+                          net.collect_params().items()}, format="legacy")
+        size = os.path.getsize(path)
+        twin.load_parameters(path)
+        back = mx.nd.load(path)
+    same = all(torch.equal(p.data()._data, q.data()._data) for p, q in zip(
+        net.collect_params().values(), twin.collect_params().values()))
+    x = mx.np.random.normal(size=(NP4_B, NP4_C))
+    out_same = torch.equal(net(x)._data, twin(x)._data)
+    on_card = all(v._data.device == dev for v in back.values())
+    log(f"[np4] legacy .params on the card: {len(back)} arrays, {size} "
+        f"bytes; load_parameters bit for bit {same}, outputs equal "
+        f"{out_same}, nd.load onto cuda:0 {on_card}")
+    check(same and out_same and on_card, "[np4] legacy .params round trip")
+    return dict(arrays=len(back), bytes=size, bitwise=same)
+
+
+def phase_np4_host(torch, mx):
+    """The funnel's host us a call for topk, pick, one_hot and reshape
+    with codes on (64, 128) f32 NDArrays on the card, beside the torch
+    call closest to each on the same tensors."""
+    import torch.nn.functional as F
+
+    x = mx.np.random.uniform(size=(64, 128))
+    idx = mx.np.array(list(range(64)), dtype="int32")
+    xt, it = x._data, idx._data.long()
+
+    def per_call_us(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(NP4_HOST_CALLS):
+            fn()
+        us = (time.perf_counter() - start) / NP4_HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    ops = {
+        "topk": (lambda: mx.npx.topk(x, k=5),
+                 lambda: torch.topk(xt, 5)),
+        "pick": (lambda: mx.npx.pick(x, idx),
+                 lambda: xt.gather(1, it[:, None])),
+        "one_hot": (lambda: mx.npx.one_hot(idx, 128),
+                    lambda: F.one_hot(it, 128)),
+        "reshape_codes": (lambda: mx.npx.reshape(x, (-4, 8, -1, -2)),
+                          lambda: xt.reshape(8, 8, 128)),
+    }
+    res = {}
+    for name, (nd_fn, t_fn) in ops.items():
+        res[name] = dict(npx_us=per_call_us(nd_fn), torch_us=per_call_us(t_fn))
+    log("[np4] host us a call, (64, 128) f32 on the card, npx (the funnel) "
+        "vs the closest torch call: " + "; ".join(
+            f"{k} {v['npx_us']:.2f} vs {v['torch_us']:.2f}"
+            for k, v in res.items()))
+    return res
+
+
+def phase_np4(torch, dev):
+    """[np4]: the np/npx/nd remainder on the card: the reference-style
+    ``npx.set_np()`` script against the CPU (p = 0) and at p = NP4_P (K4,
+    K4b, K5 counted), every np.linalg name against the CPU, 10^6 draws of
+    each distribution against its moments, a legacy ``.params`` round
+    trip, the funnel's host time. Returns (numbers, launches, launches by
+    layout)."""
+    import incubator_mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    res = {}
+    res["script"], launches, layouts = phase_np4_script(torch, dev, mx)
+    res["linalg"] = phase_np4_linalg(torch, mx)
+    res["random"] = phase_np4_random(torch, mx)
+    res["legacy_io"] = phase_np4_legacy_io(torch, dev, mx)
+    res["host"] = phase_np4_host(torch, mx)
+    mx.waitall()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[np4] phase took {res['seconds']:.1f} s; launches {launches}")
+    return res, launches, layouts
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -7536,6 +8088,15 @@ def main():
     for k, n in vision_launches.items():
         launches[k] = launches.get(k, 0) + n
     log(f"[done] with [vision]'s launches {vision_launches}: {launches}")
+    np4, np4_launches, np4_layouts = phase_np4(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in np4_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in np4_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [np4]'s launches {np4_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -7574,6 +8135,7 @@ def main():
     log(json.dumps({"amp16": amp16}, default=str))
     log(json.dumps({"dense": dense}, default=str))
     log(json.dumps({"vision": vision}, default=str))
+    log(json.dumps({"np4": np4}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

@@ -1286,6 +1286,152 @@ def polyval(p, x):
     return y
 
 
+def interp(x, xp, fp, left=None, right=None, period=None):
+    """numpy's piecewise-linear interpolation by ``jnp.interp``'s formula:
+    ``searchsorted`` for each point's interval, a gather of its ends; a
+    zero-width interval gives its left value. ``left``/``right`` (or
+    "extrapolate") outside [xp[0], xp[-1]]; ``period`` wraps x and xp."""
+    x = _float(_arr(x))
+    xp = _float(_arr(xp, x.device))
+    fp = _float(_arr(fp, x.device))
+    dt = torch.promote_types(x.dtype, xp.dtype)
+    x, xp = x.to(dt), xp.to(dt)
+    if xp.shape != fp.shape or xp.dim() != 1:
+        raise ValueError("xp and fp must be one-dimensional arrays of equal "
+                         "size")
+    for name, v in (("left", left), ("right", right)):
+        if isinstance(v, str) and v != "extrapolate":
+            raise ValueError(f"the only valid string value of `{name}` is "
+                             f"'extrapolate', but got: {v!r}")
+    if period is not None:
+        period = abs(period)
+        x = torch.remainder(x, period)
+        xp = torch.remainder(xp, period)
+        xp, order = torch.sort(xp)
+        fp = fp[order]
+        xp = torch.cat([xp[-1:] - period, xp, xp[:1] + period])
+        fp = torch.cat([fp[-1:], fp, fp[:1]])
+    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    e = torch.tensor(torch.finfo(dt).eps, dtype=dt)
+    eps = float(torch.nextafter(e, torch.tensor(math.inf, dtype=dt)) - e)
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1, dx)) * df)
+    if period is None:
+        if not isinstance(left, str):
+            f = torch.where(x < xp[0], fp[0] if left is None else left, f)
+        if not isinstance(right, str):
+            f = torch.where(x > xp[-1], fp[-1] if right is None else right,
+                            f)
+    return f
+
+
+def polyfit(x, y, deg, rcond=None, full=False, w=None, cov=False):
+    """numpy's least-squares polynomial fit, ``jnp.polyfit``'s steps: the
+    Vandermonde matrix (highest power first), columns scaled to unit
+    norm, the SVD least-squares solution, coefficients unscaled; ``full``
+    adds (residuals, rank, singular values, rcond), ``cov`` the
+    covariance ("unscaled" or scaled by the residual variance)."""
+    from .numpy.linalg import _lstsq
+
+    x = _float(_arr(x))
+    y = _float(_arr(y, x.device))
+    deg = int(deg)
+    if deg < 0:
+        raise ValueError("expected deg >= 0")
+    if x.dim() != 1:
+        raise TypeError("expected 1D vector for x")
+    if y.dim() < 1 or y.dim() > 2:
+        raise TypeError("expected 1D or 2D array for y")
+    if x.shape[0] != y.shape[0]:
+        raise TypeError("expected x and y to have same length")
+    order = deg + 1
+    if rcond is None:
+        rcond = x.shape[0] * float(torch.finfo(x.dtype).eps)
+    lhs = vander(x, order)
+    rhs = y
+    if w is not None:
+        wt = _float(_arr(w, x.device))
+        lhs = lhs * wt[:, None]
+        rhs = rhs * (wt[:, None] if rhs.dim() == 2 else wt)
+    scale = torch.sqrt((lhs * lhs).sum(dim=0))
+    lhs = lhs / scale[None, :]
+    c, resids, rank, s = _lstsq(lhs, rhs, rcond)
+    c = (c.T / scale[None, :]).T if c.dim() > 1 else c / scale
+    if full:
+        return c, resids, rank, s, torch.tensor(rcond, dtype=x.dtype)
+    if cov:
+        vbase = torch.linalg.inv(lhs.T @ lhs) / torch.outer(scale, scale)
+        if cov == "unscaled":
+            fac = 1
+        else:
+            if x.shape[0] <= order:
+                raise ValueError("the number of data points must exceed "
+                                 "order to scale the covariance matrix")
+            fac = resids / (x.shape[0] - order)
+            fac = fac[0] if fac.dim() == 1 and fac.numel() == 1 else fac
+        if y.dim() == 1:
+            return c, vbase * fac
+        return c, vbase[:, :, None] * fac
+    return c
+
+
+def histogram2d(x, y, bins=10, range=None, weights=None, density=None):  # noqa: A002
+    """numpy's 2-d histogram, on the array's device: each axis's edges
+    (``bins`` equal bins over ``range`` or the data's span, or given
+    edges), each sample's bin by ``bucketize`` with numpy's edge rule
+    (the last bin closed), the counts by ``bincount`` of the flat bin
+    (samples outside every bin go to one dropped extra bin). Int32
+    counts without weights (the reference's); ``density`` divides by the
+    total and the bin areas. Returns (H, xedges, yedges)."""
+    x = _float(_arr(x)).reshape(-1)
+    y = _float(_arr(y, x.device)).reshape(-1)
+    dt = torch.promote_types(x.dtype, y.dtype)
+    x, y = x.to(dt), y.to(dt)
+    try:
+        per_axis = list(bins) if len(bins) == 2 else [bins, bins]
+    except TypeError:
+        per_axis = [bins, bins]
+    edges, idx = [], []
+    for i, (v, b) in enumerate(zip((x, y), per_axis)):
+        if isinstance(b, int):
+            if range is None or range[i] is None:
+                lo, hi = v.min(), v.max()
+            else:
+                lo = torch.tensor(range[i][0], dtype=dt, device=v.device)
+                hi = torch.tensor(range[i][1], dtype=dt, device=v.device)
+            same = lo == hi
+            lo, hi = torch.where(same, lo - 0.5, lo), \
+                torch.where(same, hi + 0.5, hi)
+            e = lo + (hi - lo) * (torch.arange(b + 1, device=v.device,
+                                               dtype=dt) / b)
+            e = torch.cat([e[:-1], hi.reshape(1)])
+        else:
+            e = _float(_arr(b, v.device)).to(dt)
+        k = torch.searchsorted(e, v, right=True)
+        k = torch.where(v == e[-1], k - 1, k)
+        edges.append(e)
+        idx.append(k)
+    nx, ny = edges[0].numel() - 1, edges[1].numel() - 1
+    inside = (idx[0] >= 1) & (idx[0] <= nx) & (idx[1] >= 1) & (idx[1] <= ny)
+    flat = torch.where(inside, (idx[0] - 1) * ny + (idx[1] - 1), nx * ny)
+    wts = None if weights is None else _float(_arr(weights, x.device)) \
+        .reshape(-1)
+    hist = torch.bincount(flat, weights=wts, minlength=nx * ny + 1)
+    hist = hist[:nx * ny].reshape(nx, ny)
+    if weights is None:
+        hist = hist.to(torch.int32)
+    if density:
+        hist = hist.to(dt)
+        hist = hist / hist.sum()
+        hist = hist / torch.diff(edges[0])[:, None] / torch.diff(
+            edges[1])[None, :]
+    return hist, edges[0], edges[1]
+
+
 def meshgrid(*xi, copy=True, sparse=False, indexing="xy"):  # noqa: ARG001
     xi = _list(xi)
     if sparse:

@@ -238,25 +238,36 @@ class Block(torch.nn.Module):
                         allow_missing=False, ignore_extra=False,
                         cast_dtype=False, dtype_source="current"):  # noqa: ARG002
         """Load an npz file written by `save_parameters` (of either
-        package). A ``.crc32`` sidecar that does not match raises
-        :class:`MXNetError` before any parameter is touched; the
-        reference's legacy binary ``.params`` container raises until
-        ``ndarray/legacy_io.py`` is ported. Values are copied into the
-        parameters' tensors (`Parameter.set_data`)."""
+        package), or the reference's binary ``.params`` container
+        (detected by its magic; `ndarray/legacy_io.py`), whose ``arg:`` /
+        ``aux:`` name prefixes are dropped. A ``.crc32`` sidecar that does
+        not match raises :class:`MXNetError` before any parameter is
+        touched, as does a binary file without names or a file of
+        neither format. Values are copied into the parameters' tensors
+        (`Parameter.set_data`)."""
         from .. import preemption
+        from ..ndarray import legacy_io
 
         if preemption.verify_checkpoint(filename) is False:
             raise MXNetError(
                 f"parameter file {filename} failed checksum validation "
                 "(truncated or corrupt) — restore a previous checkpoint "
                 "generation")
-        if not zipfile.is_zipfile(filename):
-            raise MXNetError(
-                f"{filename}: the legacy binary .params format is not "
-                f"ported (ROADMAP.md §1: ndarray/legacy_io.py); save with "
-                f"save_parameters (npz)")
-        with onp.load(filename, allow_pickle=False) as z:
-            loaded = {k: z[k] for k in z.keys()}
+        if legacy_io.is_legacy_file(filename):
+            try:
+                raw = legacy_io.load(filename)
+            except ValueError as e:
+                raise MXNetError(f"{filename}: {e}") from e
+            if not isinstance(raw, dict):
+                raise MXNetError(f"{filename} carries no parameter names")
+            loaded = {(k[4:] if k.startswith(("arg:", "aux:")) else k):
+                      v._data for k, v in raw.items()}
+        elif not zipfile.is_zipfile(filename):
+            raise MXNetError(f"{filename} is neither an npz file nor the "
+                             f"reference's binary .params container")
+        else:
+            with onp.load(filename, allow_pickle=False) as z:
+                loaded = {k: z[k] for k in z.keys()}
         params = self.collect_params()
         for name, p in params.items():
             if name in loaded:

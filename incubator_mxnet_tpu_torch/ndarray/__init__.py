@@ -1,21 +1,26 @@
 """Legacy `mx.nd` namespace (port of `incubator_mxnet_tpu/ndarray/`).
 
 The modern `np`/`npx` namespaces are the primary API (as in MXNet 2.0);
-this module re-exports the NDArray type plus legacy-named ops and the
+this module re-exports the NDArray type plus legacy-named ops, the
 functional optimizer updates (`optim_ops`: ``nd.sgd_update``,
-``nd.adam_update``, ...). Unknown attributes forward to the numpy
-namespace, and the legacy CamelCase names to the `npx` ops that are
-ported. The reference's legacy op long tail (`legacy_ops`), sparse
-storage (`sparse`) and `contrib` are not ported yet (`ROADMAP.md`).
+``nd.adam_update``, ...) and the legacy op long tail (`legacy_ops`).
+Unknown attributes forward to the numpy namespace (``nd.linalg`` is
+``np.linalg``, as in the reference), and the legacy CamelCase names to
+the `npx` ops. ``nd.contrib`` forwards the contrib spellings; ``save``
+and ``load`` also speak the reference's binary container
+(`legacy_io`). Sparse storage (`sparse`) and the npx families of
+`ROADMAP.md` §1 item 11b raise :class:`MXNetError` naming it.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as onp
+import torch
 
-from ..base import MXNetError
-from . import optim_ops
+from ..base import MXNetError, canonical_dtype
+from . import contrib, legacy_io, legacy_ops, optim_ops  # noqa: F401
+from .legacy_ops import *  # noqa: F401,F403  (the legacy op long tail)
 from .ndarray import (NDArray, apply_op, apply_op_flat, array, from_jax,  # noqa: F401
                       unwrap_arrays, waitall)
 from .optim_ops import *  # noqa: F401,F403  (functional optimizer updates)
@@ -41,20 +46,37 @@ _LEGACY_TO_NPX = {
     "AdaptiveAvgPooling2D": "adaptive_avg_pooling2d",
     "Pad": "pad",
     "pad": "pad",
+    "SoftmaxOutput": "softmax",
+    "SequenceMask": "sequence_mask",
+    "SequenceLast": "sequence_last",
+    "SequenceReverse": "sequence_reverse",
+    "one_hot": "one_hot",
+    "pick": "pick",
+    "topk": "topk",
+    "gather_nd": "gather_nd",
+    "scatter_nd": "scatter_nd",
+    "L2Normalization": "l2_normalization",
+    "Cast": "cast",
+    "cast": "cast",
+    "slice_like": "slice_like",
+    "broadcast_like": "broadcast_like",
+    "sequence_mask": "sequence_mask",
+    "erfinv": "erfinv",
+    "gamma": "gamma",          # the Γ function, not a draw
+    "gammaln": "gammaln",
+    "digamma": "digamma",
+    "slice": "slice",
+    "SliceChannel": "slice_channel",
+    "slice_channel": "slice_channel",
+    "ElementWiseSum": "add_n",
+    "boolean_mask": "boolean_mask",
 }
 
-# the reference's other legacy npx names: each waits for its npx op
+# the reference's other legacy npx names: ROADMAP.md §1 item 11b's
 _LEGACY_NPX_QUEUED = (
-    "SoftmaxOutput",
-    "SequenceMask", "SequenceLast", "SequenceReverse", "RNN", "one_hot",
-    "pick", "topk", "gather_nd", "scatter_nd",
-    "L2Normalization", "Cast", "cast", "BilinearSampler", "GridGenerator",
-    "SpatialTransformer", "ROIPooling", "Correlation", "ROIAlign", "box_nms",
-    "box_iou", "slice_like", "broadcast_like", "sequence_mask", "erfinv",
-    "gamma", "gammaln", "digamma", "slice", "SliceChannel", "slice_channel",
-    "ElementWiseSum", "CTCLoss", "ctc_loss",
-    "boolean_mask", "BilinearResize2D", "Custom",
-    "contrib", "sparse",
+    "RNN", "BilinearSampler", "GridGenerator", "SpatialTransformer",
+    "ROIPooling", "Correlation", "ROIAlign", "box_nms", "box_iou", "CTCLoss",
+    "ctc_loss", "BilinearResize2D", "Custom", "sparse",
 )
 
 # legacy names resolving to np-namespace ops under a different name
@@ -92,17 +114,11 @@ _LEGACY_TO_NP = {
 
 
 def add_n(*args):
-    """Sum of all inputs in ONE funnel call (reference:
+    """Sum of all inputs in one funnel call: `npx.add_n` (reference:
     `src/operator/tensor/elemwise_sum.cc`)."""
-    arrays = unwrap_arrays(args)
+    from ..numpy_extension import add_n as _add_n
 
-    def f(*vals):
-        out = vals[0]
-        for v in vals[1:]:
-            out = out + v
-        return out
-
-    return apply_op_flat("add_n", f, tuple(arrays))
+    return _add_n(*args)
 
 
 def concat(*args, dim=None, axis=None, **kwargs):  # noqa: ARG001
@@ -167,9 +183,27 @@ def norm(data, ord=2, axis=None, keepdims=False, **kwargs):  # noqa: A002, ARG00
     raise ValueError(f"nd.norm supports ord 1 or 2, got {ord!r}")
 
 
-def sample_multinomial(data, shape=None, get_prob=False, dtype="int32"):  # noqa: ARG001
-    raise MXNetError("nd.sample_multinomial is not ported yet (ROADMAP.md "
-                     "§1 item 4: the legacy op long tail)")
+def sample_multinomial(data, shape=None, get_prob=False, dtype="int32"):
+    """Category indices drawn from probability rows ``data`` ((k,) or
+    (batch, k)): ``shape`` draws a row (one without it), the draw axes
+    last; with ``get_prob`` also each draw's log-probability. One key
+    from the framework's key source (``torch.multinomial`` on the
+    array's device)."""
+    from ..numpy.random import _gen
+    from ..numpy.random import _shape as _size
+
+    pv = data._data if isinstance(data, NDArray) else array(data)._data
+    n = _size(shape)
+    count = int(onp.prod(n)) if n else 1
+    rows = pv.float().reshape(-1, pv.shape[-1])
+    draws = torch.multinomial(rows, count, replacement=True,
+                              generator=_gen(pv.device))
+    out_shape = tuple(pv.shape[:-1]) + n
+    picked = torch.log(rows.clamp_min(1e-38)).gather(1, draws)
+    out = NDArray(draws.reshape(out_shape).to(canonical_dtype(dtype)))
+    if get_prob:
+        return out, NDArray(picked.reshape(out_shape))
+    return out
 
 
 def Flatten(data):  # noqa: N802
@@ -195,7 +229,7 @@ def __getattr__(name):
         return getattr(_np, _LEGACY_TO_NP[name])
     if name in _LEGACY_NPX_QUEUED:
         raise _NotPortedAttribute(f"mx.nd.{name} is not ported yet "
-                                  f"(ROADMAP.md §1 item 4)")
+                                  f"(ROADMAP.md §1 item 11b)")
     from .. import numpy as _np
 
     if hasattr(_np, name):
@@ -212,10 +246,12 @@ def __dir__():
 
 def save(fname, data, format="npz"):  # noqa: A002
     """Save NDArrays (a list, or a dict by name) to a numpy ``.npz``
-    container. The reference's ``format="legacy"`` binary container is
-    not ported."""
+    container, or with ``format="legacy"`` to the reference's binary
+    container (`legacy_io`); :func:`load` tells them apart."""
+    if format == "legacy":
+        return legacy_io.save(fname, data)
     if format != "npz":
-        raise MXNetError(f"nd.save(format={format!r}): only npz is ported")
+        raise MXNetError(f"nd.save(format={format!r}): npz or legacy")
     if isinstance(data, NDArray):
         data = [data]
     payload: dict = {}
@@ -233,7 +269,10 @@ def save(fname, data, format="npz"):  # noqa: A002
 
 
 def load(fname):
-    """Load what :func:`save` wrote: a list, or a dict by name."""
+    """Load what :func:`save` wrote, in either container: a list, or a
+    dict by name."""
+    if legacy_io.is_legacy_file(fname):
+        return legacy_io.load(fname)
     with onp.load(fname, allow_pickle=False) as z:
         entries = {k: z[k] for k in z.keys()}
     keys = list(entries)
@@ -248,4 +287,5 @@ def load(fname):
 __all__ = ["NDArray", "apply_op", "apply_op_flat", "array", "waitall",
            "add_n", "concat", "Concat", "stack", "swapaxes", "SwapAxis",
            "take", "norm", "Flatten", "flatten", "save", "load",
-           "optim_ops"] + list(optim_ops.__all__)
+           "sample_multinomial", "optim_ops", "legacy_ops", "legacy_io",
+           "contrib"] + list(optim_ops.__all__) + list(legacy_ops.__all__)

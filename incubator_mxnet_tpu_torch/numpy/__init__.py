@@ -6,9 +6,9 @@ name through the autograd-aware funnel (`apply_op_flat`). The port maps
 each onto its counterpart in `_tnp` (numpy's signature over torch
 tensors) through the port's funnel, so every op is differentiable under
 ``autograd.record()`` and runs on the array's device. A name the
-reference maps that torch has no faithful counterpart for raises
-:class:`MXNetError` naming it (`ROADMAP.md` lists them); the ``linalg``
-submodule is not ported yet.
+reference maps whose reference call itself raises (``result_type``,
+``promote_types``) raises :class:`MXNetError` naming it. ``linalg`` is
+`numpy/linalg.py`, ``random`` `numpy/random.py`.
 
 Creation ops make arrays on the current device (``with mx.cpu():``, or
 ``device=``), which is the card unless the caller asks for the CPU.
@@ -137,8 +137,7 @@ def _make(name, fn):
 
 def _not_ported(name, why):
     def op(*args, **kwargs):  # noqa: ARG001
-        raise MXNetError(f"mx.np.{name} is not ported: {why} "
-                         f"(ROADMAP.md §1 item 4)")
+        raise MXNetError(f"mx.np.{name} is not ported: {why}")
 
     op.__name__ = name
     return op
@@ -199,11 +198,6 @@ _ELEMWISE_AND_FRIENDS = [
 # Names of the reference's table that the port does not compute, each with
 # the reason; every one raises MXNetError naming it.
 NOT_PORTED = {
-    "histogram2d": "torch has no two-axis histogram",
-    "interp": "torch has no piecewise-linear interpolation of numpy's "
-              "semantics",
-    "polyfit": "torch has no least-squares polynomial fit of numpy's "
-               "semantics",
     "result_type": "the reference's call raises TypeError (a dtype is "
                    "not an array)",
     "promote_types": "the reference's call raises TypeError (a dtype is "
@@ -315,15 +309,4 @@ def bfloat16(x=None):
     return _torch.bfloat16 if x is None else NDArray(x, dtype="bfloat16")
 
 
-def __getattr__(name):
-    if name == "linalg":
-        raise _NotPortedAttribute("mx.np.linalg is not ported yet "
-                                  "(ROADMAP.md §1 item 11)")
-    raise AttributeError(f"module 'numpy' has no attribute {name!r}")
-
-
-class _NotPortedAttribute(MXNetError, AttributeError):
-    """An MXNetError that ``hasattr`` reads as a missing attribute."""
-
-
-from . import random  # noqa: E402,F401
+from . import linalg, random  # noqa: E402,F401

@@ -11,7 +11,15 @@ Port of `incubator_mxnet_tpu/numpy_extension/__init__.py` (`gelu` :162,
 `pooling` :449, `batch_norm` :539, `group_norm` :638, `instance_norm`
 :659), of `softsign`, `adaptive_avg_pooling2d`, `batch_norm_with_relu`
 and `pad` (`_contrib_misc.py`) and of `deformable_convolution`
-(`_spatial.py`).
+(`_spatial.py`); and the np/npx remainder: the plain ops
+(`reshape_like` :278, `l2_normalization` :677, `one_hot` :782, `pick`
+:792, `topk` :807, `gather_nd` :995, `scatter_nd` :1005, the sequence
+ops :1020-1076, the special functions :1227-1265, `cast`, `reshape`,
+`shape_array`, `stop_gradient` :1272-1343, `boolean_mask` :1578,
+`clip_global_norm` :1609), `slice_like`, `broadcast_like` and
+`batch_take` (`_boxes.py` :305-345), the control flow (`foreach`
+:1373, `while_loop` :1425, `cond` :1542) and the mode switches and
+state (:1624-1662).
 
 The reference computes convolution, pooling and the norms in XLA, with
 no Pallas kernel; their counterpart here is PyTorch's own ops (cuDNN and
@@ -53,6 +61,7 @@ kernel and "xla" for its composed ops.
 """
 from __future__ import annotations
 
+import builtins
 import math
 import os
 
@@ -77,7 +86,24 @@ __all__ = ["relu", "sigmoid", "gelu", "activation", "leaky_relu",
            "batch_flatten", "convolution", "deconvolution", "pooling",
            "batch_norm", "group_norm", "instance_norm",
            "adaptive_avg_pooling2d", "batch_norm_with_relu", "pad",
-           "deformable_convolution", "modulated_deformable_convolution"]
+           "deformable_convolution", "modulated_deformable_convolution",
+           "reshape_like", "l2_normalization", "one_hot", "pick", "topk",
+           "gather_nd", "scatter_nd", "sequence_mask", "sequence_last",
+           "sequence_reverse", "erf", "erfinv", "gamma", "gammaln",
+           "digamma", "smooth_l1", "cast", "reshape", "shape_array",
+           "stop_gradient", "boolean_mask", "clip_global_norm",
+           "slice_like", "broadcast_like", "batch_take", "foreach",
+           "while_loop", "cond", "set_np", "reset_np", "is_np_array",
+           "is_np_shape", "waitall", "seed", "load", "save",
+           "quadratic", "index_copy", "index_array", "gradientmultiplier",
+           "dynamic_reshape", "round_ste", "sign_ste", "all_finite",
+           "multi_all_finite", "norm", "slice", "slice_channel", "add_n",
+           "interleaved_matmul_selfatt_qk",
+           "interleaved_matmul_selfatt_valatt",
+           "interleaved_matmul_encdec_qk",
+           "interleaved_matmul_encdec_valatt", "div_sqrt_dim",
+           "sldwin_atten_score", "sldwin_atten_context",
+           "sldwin_atten_mask_like"]
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -827,7 +853,628 @@ def instance_norm(data, gamma=None, beta=None, eps=1e-5, **kwargs):  # noqa: ARG
     return _amp_op("instance_norm", f, data, gamma, beta)
 
 
+# ---------------------------------------------------------------------------
+# the np/npx remainder: plain ops (no kernel: the reference composes them
+# in jnp)
+# ---------------------------------------------------------------------------
+
+def _capturing():
+    """Whether the current CUDA stream is capturing a graph (a
+    `parallel.DataParallel` step or a hybridized block being captured)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def _no_capture(what):
+    """Raise for an op that must read device values on the host (a
+    data-dependent shape, a Python result): inside a capture that read
+    would be a synchronisation the graph cannot hold."""
+    if _capturing():
+        raise MXNetError(f"npx.{what} reads device values on the host (a "
+                         f"data-dependent result), which a CUDA-graph "
+                         f"capture cannot hold; call it outside the "
+                         f"hybridized block or DataParallel step")
+
+
+def _take_along(x, idx, axis):
+    """``take_along_axis(x, idx, axis)`` with numpy's broadcasting of the
+    other axes and its wrap of negative indices (``torch.gather`` does
+    neither)."""
+    ax = axis % x.dim()
+    idx = torch.where(idx < 0, idx + x.shape[ax], idx)
+    shape = list(torch.broadcast_shapes(
+        tuple(1 if d == ax else n for d, n in enumerate(x.shape)),
+        tuple(1 if d == ax else n for d, n in enumerate(idx.shape))))
+    xs = list(shape)
+    xs[ax] = x.shape[ax]
+    shape[ax] = idx.shape[ax]
+    return torch.gather(x.expand(xs), ax, idx.expand(shape))
+
+
+def reshape_like(lhs, rhs, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                 rhs_end=None, **kwargs):  # noqa: ARG001
+    """Reshape ``lhs`` to ``rhs``'s shape; the range form replaces
+    ``lhs.shape[lhs_begin:lhs_end]`` by ``rhs.shape[rhs_begin:rhs_end]``."""
+    lshape, rshape = tuple(lhs.shape), tuple(rhs.shape)
+    lb = 0 if lhs_begin is None else lhs_begin
+    le = len(lshape) if lhs_end is None else lhs_end
+    rb = 0 if rhs_begin is None else rhs_begin
+    re_ = len(rshape) if rhs_end is None else rhs_end
+    lb += len(lshape) if lb < 0 else 0
+    le += len(lshape) if le < 0 else 0
+    rb += len(rshape) if rb < 0 else 0
+    re_ += len(rshape) if re_ < 0 else 0
+    shape = lshape[:lb] + rshape[rb:re_] + lshape[le:]
+    if math.prod(shape) != math.prod(lshape):
+        raise ValueError(
+            f"reshape_like: target shape {shape} has {math.prod(shape)} "
+            f"elements, lhs has {math.prod(lshape)}")
+    return _op("reshape_like", lambda x: x.reshape(shape), lhs)
+
+
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``x / sqrt(sum(x²) + eps)`` over every axis but the first
+    ("instance"), over axis 1 ("channel") or over the spatial axes
+    ("spatial")."""
+    if mode not in ("instance", "channel", "spatial"):
+        raise ValueError(mode)
+
+    def f(x):
+        axes = {"instance": tuple(range(1, x.dim())), "channel": (1,),
+                "spatial": tuple(range(2, x.dim()))}[mode]
+        return x / torch.sqrt((x * x).sum(dim=axes, keepdim=True) + eps)
+
+    return _op("l2_normalization", f, data)
+
+
+def one_hot(data, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+    """Rows of ``depth`` entries, ``on_value`` at each index and
+    ``off_value`` elsewhere; an index outside [0, depth) gives a row of
+    ``off_value`` (the reference's ``jax.nn.one_hot``). The indices are
+    truncated to integers first."""
+    dt = canonical_dtype(dtype)
+
+    def f(idx):
+        i = idx.to(torch.int32).unsqueeze(-1)
+        oh = (i == torch.arange(depth, device=idx.device,
+                                dtype=torch.int32)).to(dt)
+        return oh * (on_value - off_value) + off_value
+
+    return _op("one_hot", f, data)
+
+
+def pick(data, index, axis=-1, mode="clip", keepdims=False):
+    """``data``'s entry at ``index`` along ``axis`` (an index array of
+    data's shape without that axis); "clip" clamps an index into range,
+    any other mode wraps it."""
+    def f(x, idx):
+        ax = axis % x.dim()
+        n = x.shape[ax]
+        i = idx.to(torch.int64)
+        i = i.clamp(0, n - 1) if mode == "clip" else i.remainder(n)
+        out = _take_along(x, i.unsqueeze(ax), ax)
+        return out if keepdims else out.squeeze(ax)
+
+    if not isinstance(index, (NDArray, torch.Tensor)):
+        dev = (data._data if isinstance(data, NDArray) else data).device
+        index = torch.as_tensor(index, device=dev)
+    return _op("pick", f, data, index)
+
+
+def topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The ``k`` largest (``is_ascend``: smallest) entries along ``axis``,
+    ties taken in index order, lower index first (as ``lax.top_k``): a
+    stable sort, so the order holds on the card too. ``ret_typ``:
+    "value", "indices" (in ``dtype``, float32 by default), "both" or
+    "mask" (``dtype`` ones at each row's k positions)."""
+    if ret_typ not in ("value", "indices", "both", "mask"):
+        raise ValueError(ret_typ)
+    dt = canonical_dtype(dtype)
+
+    def f(x):
+        xm = x.movedim(axis, -1)
+        vals, idx = torch.sort(xm, dim=-1, descending=not is_ascend,
+                               stable=True)
+        vals, idx = vals[..., :k], idx[..., :k]
+        if ret_typ == "mask":
+            m = torch.zeros(xm.shape, dtype=dt, device=x.device)
+            return m.scatter(-1, idx, 1).movedim(-1, axis)
+        vals, idx = vals.movedim(-1, axis), idx.movedim(-1, axis).to(dt)
+        if ret_typ == "value":
+            return vals
+        if ret_typ == "indices":
+            return idx
+        return vals, idx
+
+    return _op("topk", f, data)
+
+
+def _index_tuple(idx):
+    idx = idx.to(torch.int64)
+    return tuple(idx[i] for i in range(idx.shape[0]))
+
+
+def gather_nd(data, indices):
+    """``data[indices[0], ..., indices[M-1]]``: the first axis of
+    ``indices`` indexes data's first M axes."""
+    return _op("gather_nd", lambda x, i: x[_index_tuple(i)], data, indices)
+
+
+def scatter_nd(data, indices, shape):
+    """Zeros of ``shape`` with ``data`` added at ``indices`` (the inverse
+    of :func:`gather_nd`; repeated indices add up)."""
+    def f(d, i):
+        out = torch.zeros(shape, dtype=d.dtype, device=d.device)
+        return out.index_put(_index_tuple(i), d, accumulate=True)
+
+    return _op("scatter_nd", f, data, indices)
+
+
+# ---------------------------------------------------------------------------
+# sequence ops: (T, N, ...) at axis 0, (N, T, ...) at axis 1
+# ---------------------------------------------------------------------------
+
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """``value`` at every step at or past each sequence's length."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+
+    def f(x, ln):
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        lshape = [1] * x.dim()
+        lshape[1 - axis] = -1
+        steps = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+        return torch.where(steps < ln.reshape(lshape), x, value)
+
+    return _op("sequence_mask", f, data, sequence_length)
+
+
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """Each sequence's last valid step (the last step without lengths)."""
+    def f(x, ln):
+        if ln is None:
+            return x.select(axis, -1)
+        idx = (ln - 1).to(torch.int64)
+        idx = idx.reshape((1, -1) + (1,) * (x.dim() - 2)) if axis == 0 \
+            else idx.reshape((-1, 1) + (1,) * (x.dim() - 2))
+        return _take_along(x, idx, axis).squeeze(axis)
+
+    ln = sequence_length if use_sequence_length else None
+    return _op("sequence_last", f, data, ln)
+
+
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's valid prefix reversed in place, the padding after it
+    kept (all steps reversed without lengths)."""
+    def f(x, ln):
+        if ln is None:
+            return x.flip(axis)
+        t = x.shape[axis]
+        steps = torch.arange(t, device=x.device)
+        ln_i = ln.to(torch.int64)
+        rev = torch.where(steps[None, :] < ln_i[:, None],
+                          ln_i[:, None] - 1 - steps[None, :], steps[None, :])
+        xm = x.movedim(axis, 0)
+        ind = rev.movedim(-1, 0).reshape((t, -1) + (1,) * (xm.dim() - 2))
+        return _take_along(xm, ind, 0).movedim(0, axis)
+
+    ln = sequence_length if use_sequence_length else None
+    return _op("sequence_reverse", f, data, ln)
+
+
+# ---------------------------------------------------------------------------
+# special functions
+# ---------------------------------------------------------------------------
+
+def erf(data):
+    return _op("erf", torch.special.erf, data)
+
+
+def erfinv(data):
+    return _op("erfinv", torch.special.erfinv, data)
+
+
+def gamma(data):
+    """``exp(gammaln(x))``, the reference's form: |Γ(x)|, so a negative
+    non-integer gives a positive value where Γ(x) is negative."""
+    return _op("gamma", lambda x: torch.exp(torch.lgamma(x)), data)
+
+
+def gammaln(data):
+    """log |Γ(x)|."""
+    return _op("gammaln", torch.lgamma, data)
+
+
+def digamma(data):
+    return _op("digamma", torch.special.digamma, data)
+
+
+def smooth_l1(data, scalar=1.0):
+    """``0.5 (σx)²`` where ``|x| < 1/σ²``, else ``|x| - 0.5/σ²``."""
+    s2 = scalar * scalar
+
+    def f(x):
+        return torch.where(x.abs() < 1.0 / s2, 0.5 * s2 * x * x,
+                           x.abs() - 0.5 / s2)
+
+    return _op("smooth_l1", f, data)
+
+
+# ---------------------------------------------------------------------------
+# shape utilities
+# ---------------------------------------------------------------------------
+
+def cast(data, dtype):
+    if isinstance(data, NDArray):
+        return data.astype(dtype)
+    return data.to(canonical_dtype(dtype))
+
+
+def _reshape_codes(in_shape, newshape):
+    """The target shape of MXNet's reshape codes, as the reference reads
+    them: 0 copies the input's axis, -1 infers, -2 copies the remaining
+    axes, -3 merges two, -4 splits one into the next two entries (either
+    may be -1), -5 merges the remaining axes; any other negative entry
+    goes to the reshape as it is (which rejects it)."""
+    shape = list(newshape) if isinstance(newshape, (list, tuple)) \
+        else [newshape]
+    if all(isinstance(s, int) and s >= -1 for s in shape):
+        return tuple(in_shape[i] if s == 0 and i < len(in_shape) else s
+                     for i, s in enumerate(shape))
+    out = []
+    i = 0
+    it = iter(range(len(shape)))
+    for si in it:
+        s = shape[si]
+        if s == -2:
+            out.extend(in_shape[i:])
+            i = len(in_shape)
+        elif s == -3:
+            out.append(in_shape[i] * in_shape[i + 1])
+            i += 2
+        elif s == -5:
+            out.append(math.prod(in_shape[i:]))
+            i = len(in_shape)
+        elif s == -4:
+            d1, d2 = shape[si + 1], shape[si + 2]
+            next(it)
+            next(it)
+            if d1 == -1:
+                d1 = in_shape[i] // d2
+            if d2 == -1:
+                d2 = in_shape[i] // d1
+            out.extend([d1, d2])
+            i += 1
+        elif s == -1:
+            out.append(-1)
+            i += 1
+        elif s == 0:
+            out.append(in_shape[i])
+            i += 1
+        else:
+            out.append(s)
+            i += 1
+    return tuple(out)
+
+
+def reshape(data, newshape, reverse=False, **kwargs):  # noqa: ARG001
+    """Reshape with MXNet's codes (see :func:`_reshape_codes`); the
+    all-nonnegative fast path reads 0 as "copy this input axis" by
+    position. ``reverse`` is taken and ignored, as in the reference."""
+    shape = _reshape_codes(list(data.shape), newshape)
+    return data.reshape(shape)
+
+
+def shape_array(data):
+    """The shape as an int32 vector on data's device."""
+    t = data._data if isinstance(data, NDArray) else data
+    out = torch.tensor(tuple(t.shape), dtype=torch.int32, device=t.device)
+    return NDArray(out) if isinstance(data, NDArray) else out
+
+
+def stop_gradient(data):
+    return data.detach()
+
+
+def slice_like(data, shape_like, axes=None):
+    """``data`` sliced from 0 to ``shape_like``'s size on ``axes`` (every
+    axis by default)."""
+    target = tuple(shape_like.shape)
+
+    def f(d):
+        sl = [builtins.slice(None)] * d.dim()
+        for a in (range(d.dim()) if axes is None else axes):
+            sl[a] = builtins.slice(0, target[a])
+        return d[tuple(sl)]
+
+    return _op("slice_like", f, data)
+
+
+def broadcast_like(data, other, lhs_axes=None, rhs_axes=None):
+    """``data`` broadcast to ``other``'s shape (only on ``lhs_axes``, to
+    ``other``'s sizes on ``rhs_axes``, when given)."""
+    target = tuple(other.shape)
+
+    def f(d):
+        if lhs_axes is None:
+            return torch.broadcast_to(d, target)
+        shape = list(d.shape)
+        for la, ra in zip(lhs_axes, rhs_axes):
+            shape[la] = target[ra]
+        return torch.broadcast_to(d, tuple(shape))
+
+    return _op("broadcast_like", f, data)
+
+
+def batch_take(a, indices):
+    """``out[i] = a[i, indices[i]]`` over the last axis."""
+    def f(x, idx):
+        return _take_along(x, idx.to(torch.int64).unsqueeze(-1),
+                           -1).squeeze(-1)
+
+    return _op("batch_take", f, a, indices)
+
+
+def boolean_mask(data, index, axis=0):
+    """The slices of ``data`` along ``axis`` where ``index`` is nonzero.
+    The output's shape depends on the mask's values, so the mask is read
+    on the host (a synchronisation, as the reference resolves it
+    eagerly); inside a CUDA-graph capture that raises
+    :class:`MXNetError`. The selection is a differentiable gather."""
+    _no_capture("boolean_mask")
+    m = index._data if isinstance(index, NDArray) else index
+    m = torch.as_tensor(m).detach()
+    if m.shape[0] != data.shape[axis]:
+        raise ValueError(f"boolean_mask: mask length {m.shape[0]} != "
+                         f"data.shape[{axis}] = {data.shape[axis]}")
+    keep = torch.nonzero(m.reshape(-1).cpu() != 0).reshape(-1)
+
+    def f(v):
+        return v.index_select(axis, keep.to(v.device))
+
+    return _op("boolean_mask", f, data)
+
+
+def clip_global_norm(arrays, max_norm, check_isfinite=True):
+    """Scale ``arrays`` (rebound, as the reference's ``_set_data``) so that
+    their global L2 norm is at most ``max_norm``; returns that norm
+    before scaling as a Python float, which reads it on the host once
+    (one synchronisation, the reference's contract; raises
+    :class:`MXNetError` inside a CUDA-graph capture). ``check_isfinite``:
+    a norm that is not finite raises ValueError."""
+    _no_capture("clip_global_norm")
+    tensors = [a._data if isinstance(a, NDArray) else a for a in arrays]
+    with torch.no_grad():
+        sums = torch.stack([(t.detach().float() ** 2).sum()
+                            for t in tensors])
+        total = float(sums.double().sum())
+    total_norm = math.sqrt(total)
+    if check_isfinite and not math.isfinite(total_norm):
+        raise ValueError("global norm is not finite")
+    scale = max_norm / (total_norm + 1e-8)
+    if scale < 1.0:
+        for a in arrays:
+            if isinstance(a, NDArray):
+                a._set_data(a._data * scale)
+            else:
+                with torch.no_grad():
+                    a.mul_(scale)
+    return total_norm
+
+
+# ---------------------------------------------------------------------------
+# control flow: eager Python loops; inside a CUDA-graph capture (a
+# hybridized block, a DataParallel step) the traced form of the reference
+# (lax.scan / lax.while_loop / lax.cond), with no value read on the host
+# ---------------------------------------------------------------------------
+
+def _stack(outputs):
+    if isinstance(outputs[0], NDArray):
+        from .. import numpy as _np
+
+        return _np.stack(outputs)
+    return torch.stack(outputs)
+
+
+def foreach(body, data, init_states):
+    """``body(x_i, states) -> (out, states)`` over axis-0 slices of
+    ``data`` (an array or a list of arrays), the outputs stacked. A
+    Python loop of the data's static length: it reads no value on the
+    host, so it runs inside a capture as it does eagerly."""
+    multi_data = isinstance(data, (list, tuple))
+    multi_state = isinstance(init_states, (list, tuple))
+    states = list(init_states) if multi_state else [init_states]
+    outputs = []
+    n = data[0].shape[0] if multi_data else data.shape[0]
+    for i in range(n):
+        x_i = [d[i] for d in data] if multi_data else data[i]
+        out, states = body(x_i, states if multi_state else states[0])
+        states = list(states) if isinstance(states, (list, tuple)) \
+            else [states]
+        outputs.append(out)
+    if outputs and isinstance(outputs[0], (list, tuple)):
+        stacked = [_stack([o[j] for o in outputs])
+                   for j in range(len(outputs[0]))]
+    else:
+        stacked = _stack(outputs)
+    return stacked, (states if multi_state else states[0])
+
+
+def _where(active, new, old):
+    """``new`` where ``active`` (a device bool scalar), else ``old``,
+    recorded through the funnel for NDArrays."""
+    return _op("where", lambda n, o: torch.where(active, n, o), new, old)
+
+
+def _zeros_like(o):
+    return _op("zeros_like", torch.zeros_like, o)
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _while_loop_captured(cond, func, loop_vars, max_iterations):
+    """The traced ``while_loop`` (the reference's ``lax.while_loop`` with
+    its output buffers): ``max_iterations`` steps predicated on a device
+    flag, ``active = active & cond(vars)``; an inactive step keeps the
+    loop variables and writes zeros to the outputs, which come stacked
+    to length ``max_iterations``. No value is read on the host, so a
+    CUDA graph can hold it; ``func`` runs every step and must be pure,
+    as the reference requires."""
+    if max_iterations is None:
+        raise MXNetError("npx.while_loop inside a CUDA-graph capture needs "
+                         "max_iterations (the loop cannot stop on a value "
+                         "read on the host)")
+    loop_vars = list(loop_vars)
+    first = loop_vars[0]
+    t = first._data if isinstance(first, NDArray) else first
+    active = torch.ones((), dtype=torch.bool, device=t.device)
+    outputs = []
+    tuple_out = False
+    for _ in range(max_iterations):
+        c = cond(*loop_vars)
+        c = c._data if isinstance(c, NDArray) else torch.as_tensor(
+            c, device=t.device)
+        active = active & c.detach().reshape(()).bool()
+        out, new_vars = func(*loop_vars)
+        loop_vars = [_where(active, nv, v)
+                     for nv, v in zip(_as_list(new_vars), loop_vars)]
+        if out is not None:
+            tuple_out = isinstance(out, (list, tuple))
+            outputs.append([_where(active, o, _zeros_like(o))
+                            for o in _as_list(out)])
+    if not outputs:
+        return None, loop_vars
+    stacked = [_stack([o[j] for o in outputs])
+               for j in range(len(outputs[0]))]
+    return (stacked if tuple_out else stacked[0]), loop_vars
+
+
+def while_loop(cond, func, loop_vars, max_iterations=None):
+    """``func(*vars) -> (out, vars)`` while ``cond(*vars)`` holds, at most
+    ``max_iterations`` times; the per-step outputs stacked, padded with
+    zeros to ``max_iterations`` when it is given (the reference's
+    contract). Eagerly the condition is read on the host each step;
+    inside a CUDA-graph capture the loop is :func:`_while_loop_captured`
+    (``max_iterations`` required)."""
+    if _capturing():
+        return _while_loop_captured(cond, func, loop_vars, max_iterations)
+    loop_vars = list(loop_vars)
+    steps = 0
+    outputs = []
+    while bool(cond(*loop_vars)):
+        if max_iterations is not None and steps >= max_iterations:
+            break
+        out, loop_vars = func(*loop_vars)
+        loop_vars = list(loop_vars)
+        if out is not None:
+            outputs.append(out)
+        steps += 1
+    if not outputs:
+        if max_iterations is None:
+            return None, loop_vars
+        # the padded-output contract with no step run: func (pure) probes
+        # the outputs' structure
+        probe, _ = func(*loop_vars)
+        if probe is None:
+            return None, loop_vars
+        zeros = [_op("zeros", lambda o: o.new_zeros(
+            (max_iterations,) + tuple(o.shape)), o) for o in _as_list(probe)]
+        return (zeros if isinstance(probe, (list, tuple)) else zeros[0]), \
+            loop_vars
+    tuple_out = isinstance(outputs[0], (list, tuple))
+    stacked = [_stack([_as_list(o)[j] for o in outputs])
+               for j in range(len(_as_list(outputs[0])))]
+    if max_iterations is not None and len(outputs) < max_iterations:
+        pad = max_iterations - len(outputs)
+        stacked = [_op("pad", lambda s: torch.cat(
+            [s, s.new_zeros((pad,) + tuple(s.shape[1:]))]), s)
+            for s in stacked]
+    return (stacked if tuple_out else stacked[0]), loop_vars
+
+
+def _cond_captured(pred, then_func, else_func):
+    """The traced ``cond`` (``lax.cond`` as it runs traced): both branches
+    evaluated, each output selected on the device by ``pred``."""
+    p = pred._data if isinstance(pred, NDArray) else torch.as_tensor(pred)
+    p = p.detach().reshape(()).bool()
+    a, b = then_func(), else_func()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_where(p, x, y) for x, y in zip(a, b))
+    return _where(p, a, b)
+
+
+def cond(pred, then_func, else_func):
+    """``then_func()`` if ``pred`` else ``else_func()``: eagerly ``pred``
+    is read on the host; inside a CUDA-graph capture both branches run
+    and the result is selected on the device (:func:`_cond_captured`)."""
+    if _capturing():
+        return _cond_captured(pred, then_func, else_func)
+    return then_func() if bool(pred) else else_func()
+
+
+# ---------------------------------------------------------------------------
+# mode switches and state
+# ---------------------------------------------------------------------------
+
+def set_np(shape=True, array=True, dtype=False):  # noqa: ARG001
+    """NumPy semantics are always on in the port, as in the reference:
+    returns True."""
+    return True
+
+
+def reset_np():
+    return True
+
+
+def is_np_array():
+    return True
+
+
+def is_np_shape():
+    return True
+
+
+def waitall():
+    from ..ndarray.ndarray import waitall as _waitall
+
+    _waitall()
+
+
+def seed(s):
+    _random.seed(s)
+
+
+def load(fname):
+    from ..ndarray import load as _load
+
+    return _load(fname)
+
+
+def save(fname, data):
+    from ..ndarray import save as _save
+
+    return _save(fname, data)
+
+
 from ._contrib_misc import (adaptive_avg_pooling2d,  # noqa: E402
-                            batch_norm_with_relu, pad, softsign)
+                            add_n, all_finite, batch_norm_with_relu,
+                            dynamic_reshape, gradientmultiplier,
+                            index_array, index_copy, multi_all_finite, norm,
+                            pad, quadratic, round_ste, sign_ste, slice,
+                            slice_channel, softsign)
 from ._spatial import (deformable_convolution,  # noqa: E402
                        modulated_deformable_convolution)
+from ._transformer import (div_sqrt_dim,  # noqa: E402
+                           interleaved_matmul_encdec_qk,
+                           interleaved_matmul_encdec_valatt,
+                           interleaved_matmul_selfatt_qk,
+                           interleaved_matmul_selfatt_valatt,
+                           sldwin_atten_context, sldwin_atten_mask_like,
+                           sldwin_atten_score)

@@ -1,5 +1,6 @@
 """The framework's random keys (port of `incubator_mxnet_tpu/random.py`,
-`seed` :69, `seed_epoch` :77, `next_key` :88, `trace_key_scope` :102).
+`rng_impl` :47, `seed` :69, `seed_epoch` :77, `get_state` :82,
+`next_key` :88, `trace_key_scope` :102).
 
 The reference splits a JAX PRNG key for every random op. The port keeps
 one CPU `torch.Generator` on the host and draws two uint32 words from it
@@ -23,7 +24,8 @@ import torch
 
 from .ops._philox import DeviceKey
 
-__all__ = ["seed", "seed_epoch", "next_key", "host_seed", "trace_key_scope"]
+__all__ = ["seed", "seed_epoch", "next_key", "host_seed", "trace_key_scope",
+           "get_state", "rng_impl"]
 
 _LOCK = threading.Lock()
 _GEN = torch.Generator(device="cpu")
@@ -49,6 +51,21 @@ def seed(seed_state: int):
         _EPOCH += 1
     for frame in _FRAMES.stack:
         frame.counter = 0
+
+
+def rng_impl() -> str:
+    """The name of the bit generator the keys feed: "philox" (the
+    kernels' `ops/_philox.py`; the reference answers "threefry" or "rbg",
+    an accepted divergence, `ROADMAP.md` §3)."""
+    return "philox"
+
+
+def get_state():
+    """The key source's state: a copy of the host generator's state (a
+    uint8 tensor). ``seed(s)`` then ``get_state()`` gives the same state
+    every time, and no key is drawn by reading it."""
+    with _LOCK:
+        return _GEN.get_state().clone()
 
 
 def seed_epoch() -> int:

@@ -1,7 +1,9 @@
 """Test harness library (port of `incubator_mxnet_tpu/test_utils.py`):
 the comparisons, the random shapes and arrays, the numeric gradient
 check and the cross-device consistency check (CPU against the card).
-The symbolic checks wait for `symbol/` (`ROADMAP.md` §1 item 11)."""
+``tpu`` is the port's `device.tpu`, the reference's accelerator
+spelling for the card. The symbolic checks wait for `symbol/`
+(`ROADMAP.md` §1 item 11)."""
 from __future__ import annotations
 
 import contextlib
@@ -10,7 +12,7 @@ import os
 import numpy as onp
 
 from .base import MXNetError
-from .device import cpu, current_device
+from .device import cpu, current_device, tpu  # noqa: F401
 from .ndarray.ndarray import NDArray
 
 __all__ = [

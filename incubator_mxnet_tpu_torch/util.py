@@ -1,17 +1,113 @@
-"""Environment knobs (port of `incubator_mxnet_tpu/util.py`: `env_int` :94,
-`env_float` :100, the knob table :110-507, and the telemetry,
-fault-injection, goodput, memory-watch and post-mortem arming of
-`_apply_env_config` :571).
+"""Environment knobs and the numpy-mode switches (port of
+`incubator_mxnet_tpu/util.py`: `is_np_array` ... `default_array`
+:12-76, `env_int` :94, `env_float` :100, the knob table :110-507, the
+telemetry, fault-injection, goodput, memory-watch and post-mortem arming
+of `_apply_env_config` :571, and the data loader's worker defaults
+`default_num_workers` :656, `default_worker_retries` :670).
+
+NumPy semantics are always on in the port, as in the reference: the
+switches answer True and change nothing.
 
 The table holds every knob the port reads, with the reference's texts
 (where the port's behaviour differs, the port's).
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 
-__all__ = ["env_int", "env_float", "env_knobs"]
+__all__ = ["is_np_array", "is_np_shape", "set_np", "reset_np", "use_np",
+           "np_shape", "np_array", "getenv", "setenv", "default_array",
+           "env_int", "env_float", "env_knobs", "default_num_workers",
+           "default_worker_retries"]
+
+
+def is_np_array():
+    return True
+
+
+def is_np_shape():
+    return True
+
+
+def set_np(shape=True, array=True, dtype=False):  # noqa: ARG001
+    return True
+
+
+def reset_np():
+    return True
+
+
+def use_np(func):
+    """A decorator for a function or a class: a class comes back as it is,
+    a function wrapped unchanged (numpy semantics are always on)."""
+    if isinstance(func, type):
+        return func
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        return func(*args, **kwargs)
+
+    return wrapper
+
+
+class _AlwaysOnScope:
+    def __init__(self, active=True):
+        self._active = active
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def np_shape(active=True):
+    """A scope that changes nothing (the np shape mode is always on)."""
+    return _AlwaysOnScope(active)
+
+
+def np_array(active=True):
+    """A scope that changes nothing (the np array mode is always on)."""
+    return _AlwaysOnScope(active)
+
+
+def getenv(name):
+    return os.environ.get(name)
+
+
+def setenv(name, value):
+    os.environ[name] = str(value)
+
+
+def default_array(source_array, ctx=None, dtype=None):
+    """An NDArray of ``source_array`` on ``ctx`` (the current device by
+    default: the card unless the caller asks for the CPU)."""
+    from .ndarray.ndarray import NDArray
+
+    return NDArray(source_array, device=ctx, dtype=dtype)
+
+
+def default_num_workers():
+    """The data loader's default worker count: MXNET_CPU_WORKER_NTHREADS,
+    or its alias MXNET_MP_WORKER_NTHREADS; 0 when unset or junk."""
+    v = os.environ.get("MXNET_CPU_WORKER_NTHREADS") \
+        or os.environ.get("MXNET_MP_WORKER_NTHREADS")
+    try:
+        return max(0, int(v)) if v else 0
+    except ValueError:
+        return 0
+
+
+def default_worker_retries():
+    """The data loader's retries of a worker task (MXNET_WORKER_RETRIES,
+    default 2)."""
+    v = os.environ.get("MXNET_WORKER_RETRIES")
+    try:
+        return max(0, int(v)) if v else 2
+    except ValueError:
+        return 2
 
 
 def _env_number(name, default, parse):
@@ -38,6 +134,15 @@ def env_float(name, default):
 
 
 _ENV_KNOBS = {
+    "MXNET_CPU_WORKER_NTHREADS": (
+        "util.default_num_workers", "the data loader's default worker "
+        "count (the port's DataLoader is ROADMAP.md §1 item 12)"),
+    "MXNET_MP_WORKER_NTHREADS": (
+        "util.default_num_workers", "alias consulted after "
+        "MXNET_CPU_WORKER_NTHREADS for the default worker count"),
+    "MXNET_WORKER_RETRIES": (
+        "util.default_worker_retries", "the data loader's worker-task "
+        "retry budget (default 2)"),
     "MXNET_GLUON_REPO": (
         "gluon.model_zoo model_store", "override the pretrained-artifact "
         "root (a local directory; nothing downloads)"),

@@ -2184,3 +2184,117 @@ def test_vision_batchnorm_updates_once_a_step_in_the_graphs(dev):
             h(xs)
     assert h.captures == 1
     _vision_close(h[1].running_mean.data()._data, want)
+
+
+# ---------------------------------------------------------------------------
+# the np/npx/nd remainder on the card
+# ---------------------------------------------------------------------------
+
+def test_np4_topk_ties_keep_index_order_on_the_card(dev):
+    """Rows full of ties (and long rows, where torch.topk's CUDA order is
+    not promised): the card's indices are the CPU's, lower index first."""
+    import incubator_mxnet_tpu_torch as mx
+
+    g = _gen(dev, 3)
+    x = torch.randint(0, 4, (64, 3000), generator=g, device=dev).float()
+    for kw in (dict(k=7), dict(k=50, is_ascend=True),
+               dict(k=5, axis=0, ret_typ="both")):
+        got = npx.topk(mx.nd.NDArray(x), **kw)
+        with mx.cpu():
+            ref = npx.topk(mx.nd.NDArray(x.cpu()), **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(got, ref):
+            assert a._data.device.type == "cuda"
+            assert torch.equal(a._data.cpu(), b._data)
+
+
+def test_np4_while_loop_and_cond_replay_inside_a_cuda_graph(dev):
+    """``npx.while_loop`` (max_iterations 6) and ``npx.cond`` captured in
+    one CUDA graph run their predicated forms: replays with other inputs
+    (another number of live steps, the other branch) equal the eager
+    loop, which reads the condition on the host. The constants are device
+    arrays: a Python scalar operand is copied from the host, which a
+    capture cannot hold."""
+    import incubator_mxnet_tpu_torch as mx
+
+    def const(v, shape=()):
+        return mx.nd.NDArray(torch.full(shape, v, device=dev))
+
+    i0, s0, p0 = const(0.0), const(1.0, (4,)), const(1.0)
+    lim, one, two, ten, zero = (const(v) for v in (40.0, 1.0, 2.0, 10.0,
+                                                   0.0))
+
+    def step():
+        out, (i, s) = npx.while_loop(
+            lambda i, s: s.sum() < lim,
+            lambda i, s: (s * two, (i + one, s + one)), [i0, s0],
+            max_iterations=6)
+        c = npx.cond(p0 > zero, lambda: s * ten, lambda: s - ten)
+        return out._data, i._data, c._data
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for start, pred in ((1.0, 1.0), (3.0, -1.0), (9.0, 1.0), (20.0, -1.0)):
+        s0._data.fill_(start)
+        p0._data.fill_(pred)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = step()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b), (start, pred)
+
+
+def test_np4_host_reading_ops_raise_inside_a_capture(dev):
+    import incubator_mxnet_tpu_torch as mx
+
+    x = mx.nd.NDArray(torch.randn(3, 4, device=dev))
+    m = mx.nd.NDArray(torch.tensor([1, 0, 1], device=dev))
+    shape = mx.nd.NDArray(torch.tensor([4, 3], device=dev))
+    for call in (lambda: npx.boolean_mask(x, m),
+                 lambda: npx.dynamic_reshape(x, shape),
+                 lambda: npx.clip_global_norm([x], 1.0)):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(MXNetError, match="capture"):
+            with torch.cuda.graph(graph):
+                call()
+    assert npx.boolean_mask(x, m).shape == (2, 4)
+
+
+def test_np4_linalg_random_and_legacy_io_on_the_card(dev, tmp_path):
+    import incubator_mxnet_tpu_torch as mx
+
+    g = _gen(dev, 5)
+    a = torch.randn(6, 6, generator=g, device=dev) + 6 * torch.eye(6,
+                                                                    device=dev)
+    b = torch.randn(6, 2, generator=g, device=dev)
+    A, B = mx.nd.NDArray(a), mx.nd.NDArray(b)
+    with mx.cpu():
+        Ac, Bc = mx.nd.NDArray(a.cpu()), mx.nd.NDArray(b.cpu())
+        x_cpu = mx.np.linalg.solve(Ac, Bc)._data
+        s_cpu = mx.np.linalg.svd(Ac, compute_uv=False)._data
+        x_ls = mx.np.linalg.lstsq(Ac, Bc)[0]._data
+    x = mx.np.linalg.solve(A, B)._data
+    assert x.device.type == "cuda"
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mx.np.linalg.svd(A, compute_uv=False)._data
+                               .cpu(), s_cpu, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mx.np.linalg.lstsq(A, B)[0]._data.cpu(),
+                               x_ls, rtol=1e-4, atol=1e-5)
+    # cholesky of an indefinite matrix: NaN, no exception, no host read
+    assert torch.isnan(mx.np.linalg.cholesky(-A)._data).all()
+    mx.random.seed(4)
+    for name, args in (("gamma", (2.0,)), ("poisson", (3.0,)),
+                       ("binomial", (5, 0.5)), ("dirichlet",
+                                                ([1.0, 2.0],))):
+        d = getattr(mx.np.random, name)(*args, size=(1000,))
+        assert d._data.device.type == "cuda"
+    path = str(tmp_path / "w.params")
+    mx.nd.save(path, {"arg:weight": A}, format="legacy")
+    net = mx.gluon.nn.Dense(6, in_units=6, use_bias=False)
+    net.initialize(device=mx.gpu(0))
+    net.load_parameters(path)
+    assert torch.equal(net.weight.data()._data, a)

@@ -637,7 +637,11 @@ SURFACE = ("gluon/parameter.py", "gluon/block.py", "gluon/loss.py",
            "gluon/model_zoo/vision/mobilenet.py",
            "gluon/model_zoo/vision/resnet.py",
            "gluon/model_zoo/vision/squeezenet.py",
-           "gluon/model_zoo/vision/vgg.py")
+           "gluon/model_zoo/vision/vgg.py",
+           # the np/npx/nd remainder
+           "numpy_extension/_transformer.py", "numpy/linalg.py",
+           "ndarray/legacy_ops.py", "ndarray/legacy_io.py",
+           "ndarray/contrib.py")
 # the reference's public names the port has no counterpart for yet, each
 # with its reason (ROADMAP.md §1): the test fails if the port grows one
 NOT_PORTED = {
@@ -657,11 +661,14 @@ NOT_PORTED = {
         "supports": "the TPU kernel's lane gate; the port's wrappers gate "
                     "through layer_norm.supports and raise where it fails"},
 }
-# the npx files the vision path ports from: every other function of them
-# is ROADMAP.md §1 item 4's or 11b's
+# the npx files the vision path and the np/npx remainder port from: every
+# other function of them is ROADMAP.md §1 item 11b's
 VISION_NPX = {"numpy_extension/_contrib_misc.py": (
                   "adaptive_avg_pooling2d", "batch_norm_with_relu", "pad",
-                  "softsign"),
+                  "softsign", "quadratic", "index_copy", "index_array",
+                  "gradientmultiplier", "dynamic_reshape", "round_ste",
+                  "sign_ste", "all_finite", "multi_all_finite", "norm",
+                  "slice", "slice_channel", "add_n"),
               "numpy_extension/_spatial.py": (
                   "deformable_convolution",
                   "modulated_deformable_convolution"),
@@ -674,7 +681,7 @@ def _npx_rest(rel, ported):
     import incubator_mxnet_tpu
 
     path = os.path.join(os.path.dirname(incubator_mxnet_tpu.__file__), rel)
-    return {n: "ROADMAP.md §1 items 4 and 11b (the npx remainder)"
+    return {n: "ROADMAP.md §1 item 11b (the npx remainder)"
             for n in _signatures(path)
             if "." not in n and not n.startswith("_") and n not in ported}
 

@@ -290,3 +290,54 @@ def test_vision_slice_modules_stand_alone():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+REMAINDER_SLICE = ("util", "random", "test_utils", "numpy.linalg",
+                   "numpy.random", "numpy_extension._transformer",
+                   "numpy_extension._contrib_misc", "ndarray.legacy_ops",
+                   "ndarray.legacy_io", "ndarray.contrib")
+
+
+def test_np_remainder_modules_stand_alone(tmp_path):
+    """The np/npx/nd remainder's modules (the mode switches, linalg, the
+    distributions, the transformer and contrib ops, the legacy ops, the
+    legacy container, nd.contrib) import alone in a fresh interpreter,
+    each without loading jax or the reference package; then a
+    reference-style ``npx.set_np()`` script runs on the CPU and a legacy
+    ``.params`` file round-trips, still without them."""
+    params = str(tmp_path / "w.params")
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {REMAINDER_SLICE!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import np, npx, autograd\n"
+        "npx.set_np()\n"
+        "npx.seed(0)\n"
+        "with mx.cpu():\n"
+        "    qkv = np.random.normal(size=(5, 2, 24))\n"
+        "    qkv.attach_grad()\n"
+        "    with autograd.record():\n"
+        "        att = npx.interleaved_matmul_selfatt_qk(qkv, heads=2)\n"
+        "        att = npx.masked_softmax(att, np.ones((4, 5, 5)))\n"
+        "        out = npx.interleaved_matmul_selfatt_valatt(qkv, att,"
+        " heads=2)\n"
+        "        loss = npx.pick(npx.topk(out, k=2, ret_typ='value'),"
+        " npx.one_hot(np.zeros((5, 2)), 2).argmax(-1)).sum()\n"
+        "    loss.backward()\n"
+        "    assert qkv.grad.shape == (5, 2, 24)\n"
+        "    assert np.linalg.solve(np.eye(3) * 2, np.ones(3)).shape == (3,)\n"
+        "    assert np.random.gamma(2.0, size=4).shape == (4,)\n"
+        f"    mx.nd.save({params!r}, {{'w': qkv}}, format='legacy')\n"
+        f"    assert mx.nd.load({params!r})['w'].shape == (5, 2, 24)\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

@@ -27,26 +27,13 @@ INCIDENTAL = {"os", "re", "functools", "onp", "annotations", "Callable",
               "Sequence", "np_dtype", "apply_op_flat", "register_aux_update",
               "next_key"}
 
-ITEM_4 = "ROADMAP.md §1 item 4 (the np/npx/nd remainder)"
 ITEM_9 = "ROADMAP.md §1 item 9 (distributed training, sharded serving)"
 ITEM_10 = "ROADMAP.md §1 item 10 (device telemetry, profiler, analysis)"
 ITEM_11B = "ROADMAP.md §1 item 11b (the rest of the breadth)"
 ITEM_12 = "ROADMAP.md §1 item 12 (the training loop's ecosystem)"
 
-NPX_ITEM_4 = (
-    "add_n all_finite batch_take broadcast_like cast clip_global_norm cond "
-    "digamma div_sqrt_dim dynamic_reshape erf erfinv foreach gamma gammaln "
-    "gather_nd gradientmultiplier index_array index_copy "
-    "interleaved_matmul_encdec_qk interleaved_matmul_encdec_valatt "
-    "interleaved_matmul_selfatt_qk interleaved_matmul_selfatt_valatt "
-    "is_np_array is_np_shape l2_normalization load multi_all_finite norm "
-    "one_hot pick quadratic reset_np reshape reshape_like round_ste save "
-    "scatter_nd seed sequence_last sequence_mask sequence_reverse set_np "
-    "shape_array sign_ste sldwin_atten_context sldwin_atten_mask_like "
-    "sldwin_atten_score slice slice_channel slice_like smooth_l1 "
-    "stop_gradient topk waitall while_loop").split()
 NPX_ITEM_11B = (
-    "bilinear_resize2d bilinear_sampler bipartite_matching boolean_mask "
+    "bilinear_resize2d bilinear_sampler bipartite_matching "
     "box_decode box_encode box_iou box_nms correlation count_sketch "
     "ctc_loss deformable_psroi_pooling dgl_adjacency "
     "dgl_csr_neighbor_non_uniform_sample dgl_csr_neighbor_uniform_sample "
@@ -55,26 +42,21 @@ NPX_ITEM_11B = (
     "multibox_prior multibox_target proposal psroi_pooling rnn "
     "rnn_param_size roi_align roi_pooling rroi_align spatial_transformer "
     "sync_batch_norm").split()
-ND_ITEM_4 = (
-    "BlockGrad Cast ElementWiseSum IdentityAttachKLSparseReg L2Normalization "
-    "LRN LinearRegressionOutput LogisticRegressionOutput MAERegressionOutput "
-    "MakeLoss SVMOutput SequenceLast SequenceMask SequenceReverse SliceChannel "
-    "SoftmaxActivation SoftmaxOutput UpSampling argmax_channel broadcast_axes "
-    "broadcast_axis broadcast_like cast cast_storage choose_element_0index "
-    "col2im contrib crop depth_to_space digamma erfinv exponential "
-    "exponential_like gamma gamma_like gammaln gather_nd "
-    "generalized_negative_binomial generalized_negative_binomial_like "
-    "hard_sigmoid im2col legacy_ops linalg log_sigmoid make_loss mish "
-    "moments negative_binomial negative_binomial_like normal normal_like "
-    "one_hot pick poisson poisson_like random_exponential random_gamma "
-    "random_normal random_poisson random_uniform rcbrt reverse rsqrt "
-    "scatter_nd sequence_mask shuffle size_array slice slice_axis "
-    "slice_channel slice_like softmax_cross_entropy space_to_depth topk "
-    "uniform uniform_like").split()
 ND_ITEM_11B = (
     "BilinearResize2D BilinearSampler CTCLoss Correlation GridGenerator RNN "
-    "ROIAlign ROIPooling SpatialTransformer boolean_mask box_iou box_nms "
+    "ROIAlign ROIPooling SpatialTransformer box_iou box_nms "
     "ctc_loss sparse").split()
+# nd.contrib's names that are not ported: the reference forwards its
+# whole contrib corpus
+ND_CONTRIB_ITEM_11B = (
+    "BilinearResize2D DeformablePSROIPooling MultiBoxDetection MultiBoxPrior "
+    "MultiBoxTarget MultiProposal PSROIPooling Proposal ROIAlign RROIAlign "
+    "SyncBatchNorm bipartite_matching box_decode box_encode box_iou box_nms "
+    "count_sketch ctc_loss deformable_psroi_pooling dgl_adjacency "
+    "dgl_csr_neighbor_non_uniform_sample dgl_csr_neighbor_uniform_sample "
+    "dgl_graph_compact dgl_subgraph edge_id fft getnnz hawkesll ifft "
+    "mrcnn_mask_target multi_proposal proposal psroi_pooling "
+    "rroi_align").split()
 
 NOT_PORTED = {
     "": dict.fromkeys(
@@ -104,23 +86,20 @@ NOT_PORTED = {
     "device": {}, "base": {},
     "autograd": {"TapeNode": "the port's tape is torch's autograd graph",
                  "vjp_cache_info": "eager torch has no vjp program cache"},
-    "random": dict.fromkeys("get_state rng_impl".split(), ITEM_4),
+    "random": {},
     "initializer": {},
-    "numpy_extension": dict.fromkeys(NPX_ITEM_4, ITEM_4)
-    | dict.fromkeys(NPX_ITEM_11B + ["image"], ITEM_11B)
+    "numpy_extension": dict.fromkeys(NPX_ITEM_11B + ["image"], ITEM_11B)
     | {"sharding_constraint": ITEM_9},
-    "ndarray": dict.fromkeys(ND_ITEM_4, ITEM_4)
-    | dict.fromkeys(ND_ITEM_11B, ITEM_11B)
-    | {"legacy_io": ITEM_4},
-    "numpy": {"linalg": ITEM_4},
+    "ndarray": dict.fromkeys(ND_ITEM_11B, ITEM_11B),
+    "ndarray.contrib": dict.fromkeys(ND_CONTRIB_ITEM_11B, ITEM_11B),
+    "numpy": {},
+    "numpy.linalg": {},
+    "numpy.random": {},
     "telemetry": dict.fromkeys("Monitor install_nan_hook kernels monitor "
                                "roofline stages".split(), ITEM_10)
     | {"fleet": ITEM_9},
-    "util": dict.fromkeys(
-        "default_array default_num_workers default_worker_retries getenv "
-        "is_np_array is_np_shape np_array np_shape reset_np set_np setenv "
-        "use_np".split(), ITEM_4),
-    "test_utils": {"tpu": ITEM_4},
+    "util": {},
+    "test_utils": {},
     "contrib": dict.fromkeys("tensorboard text".split(), ITEM_11B),
 }
 
