@@ -78,7 +78,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    sequence 128, dropout 0.1, ``Trainer`` with Adam at lr 1e-4, softmax
    cross-entropy): 2 warm-up and 10 timed steps, with each kernel's
    launches counted per step, a falling loss required, and the device's
-   busy time of one step from ``torch.profiler``; then the same workload
+   busy time of one step from the package's kernel census (every
+   profiled window of the script goes through ``profiler.start()``,
+   ``stop()`` and ``telemetry.kernels.census``); then the same workload
    under ``amp.init("bfloat16")`` (the reference bench's own setting),
    its launches counted per step by layout (the row kernels in AMP's
    mixed layouts, the flash kernels bf16), its device time by kernel;
@@ -119,7 +121,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    beta cycled beyond the L2 cache too (as a decode replay finds them)
    and beside its launch floor (an empty kernel on the same grid, timed
    the same way), and its wrapper's host time a call; the row backward's
-   device time split by kernel (``torch.profiler``).
+   device time split by kernel (the kernel census).
 
 8. drives the reference's imperative front door on the card (``[nd]``,
    after the timings, before ``[elastic]``): NDArrays made on ``cuda:0``
@@ -189,6 +191,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    their moments; a legacy ``.params`` round trip through
    ``load_parameters``; the funnel's host time of ``topk``, ``pick``,
    ``one_hot`` and ``reshape`` with codes.
+13. ``[observe]`` (after ``[np4]``): the profiler and its consumers,
+   through the package's own API: ``bench.py:400``'s cross-check on the
+   port (``profiler.start()``, three ``DataParallel`` steps of BERT-base
+   at 64 x 128 under bf16 AMP, ``profiler.stop()``,
+   ``telemetry.kernels.census`` and ``program_mfu``), each port kernel's
+   census count equal to the captured graph's launch log, its bytes and
+   FLOPs its wrapper's ``cost()`` times its count, byte coverage 1 over
+   them, the trace MFU at least 0.95 of the wall MFU, the roofline
+   phases summing to the census's device time; trace A through
+   ``ServeEngine`` on ``gpt2_small`` with one profiled decode replay (25
+   K4 launches, its device slices inside the step's host span in
+   ``tracing.chrome_trace(include_device=True)``); ``[np4]``'s funnel
+   timings with the stage probes; the NaN hook raising at the CPU's op
+   on an eager step and guarding a ``hybridize`` capture without a host
+   sync; the auditor naming ``LossScaler.has_overflow``'s host sync in an
+   eager float16 step and none in the hybridized BERT block; a measured
+   copy rate and bf16 product rate beside the data sheet's. After
+   ``[elastic]``, a profiled decode replay with no warm-up cycle, and one
+   after a replay inside a pause, reports whether records are lost.
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
@@ -197,7 +218,7 @@ power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
 ``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}``,
-``{"np4": ...}`` lines, one
+``{"np4": ...}``, ``{"observe": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -316,9 +337,6 @@ GD_WARMUP, GD_STEPS = 1, 5
 GD_SWEEP = 2 ** 22 + 1
 GD_RAGGED = (1000, 771)          # numel not a multiple of the vector width
 GD_LARGE = (65536, FFN)          # BERT-base at sequence 512, bf16
-# operations an element (f32, on the CUDA cores): an erff or expf counted
-# as its ~10 multiply-adds, Philox's integer work not counted
-GD_FWD_OPS, GD_BWD_OPS = 20, 40
 
 # the serving engine (serve.ServeEngine) on gpt2_small, f32: 8 slots of
 # 256 tokens, the default 16-token pages and 64-token prefill chunks.
@@ -518,6 +536,12 @@ def tol_text(dtype, f32_tol, attn=False):
     return f"tol 2^-7*|plain| + {BF16_ATOL:g} elementwise"
 
 
+def on_host(lengths):
+    """``lengths`` on the host (or None): a cost reckons lengths it can
+    read without waiting for the card."""
+    return None if lengths is None else lengths.cpu()
+
+
 def bound(bytes_moved, flops, dtype, tensor_cores=False):
     """(least ms, "bytes" or "operations"); ``tensor_cores``: f32
     operations at the 3xTF32 rate (K1, K2)."""
@@ -526,14 +550,6 @@ def bound(bytes_moved, flops, dtype, tensor_cores=False):
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def live_share(lengths, t):
-    """The share of rows (or keys) that ``lengths`` leaves live: a kernel
-    need not read the inputs of the others."""
-    if lengths is None:
-        return 1.0
-    return float(lengths.double().sum()) / (lengths.numel() * t)
 
 
 def _cuobjdump():
@@ -1130,44 +1146,80 @@ def replay_device_ms(torch, slots, name="decode", reps=SERVE_REPLAYS):
     return start.elapsed_time(end) / reps
 
 
+def profiled(torch, fn, held=True):
+    """The kernel census of one ``fn()`` through the package's own
+    profiler (``profiler.start()``, ``fn()``, ``profiler.stop()``,
+    ``kernels.census()``): every profiled window of this script goes
+    through it. ``held`` (the default): ``fn()`` runs once inside
+    ``profiler.pause()`` first, its records dropped, as the first
+    kernels of a profiling session after the process's first lose their
+    records, a graph's replay's and eager launches' alike (PERF.md §7);
+    the census's ``meta["lost_launches"]`` says whether the window lost
+    any."""
+    from incubator_mxnet_tpu_torch import profiler
+    from incubator_mxnet_tpu_torch.telemetry import kernels
+
+    torch.cuda.synchronize()
+    profiler.start()
+    try:
+        if held:
+            profiler.pause()
+            fn()
+            torch.cuda.synchronize()
+            profiler.resume()
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop()
+    return kernels.census()
+
+
+def census_ms(cen):
+    """A census's device busy ms (one stream: the sum of its kernels',
+    copies' and sets' times)."""
+    return cen["meta"]["total_device_us"] / 1e3
+
+
+def census_launches(cen):
+    """(launches of the port's kernels in a census, in the counters'
+    units; the row backward's reduction kernels seen). A K3b or K4b call
+    counts its row kernel and its reduction, as the counters do."""
+    out = {k: 0 for k in DP_STEP_LAUNCHES}
+    reduce = 0
+    for r in cen["rows"]:
+        got = _obs_class(r["name"])
+        if got is None:
+            continue
+        cls = got[0]
+        if cls == "reduce":
+            reduce += r["count"]
+        else:
+            out[cls] += r["count"] * (2 if cls in ("K4b", "K3b") else 1)
+    return out, reduce
+
+
+def census_top(cen, n=40):
+    """The census's ``n`` longest kernels: [{ms, calls, name}]."""
+    return [dict(ms=r["time_us"] / 1e3, calls=r["count"],
+                 name=r["name"][:160]) for r in cen["rows"][:n]]
+
+
 def profiled_replay(torch, slots, name="decode"):
     """(launches of the port's kernels, device ms, {kernel: device us}) of
-    one profiled replay of the engine's ``name`` graph, after a spin on
-    the card (so tracing is running when the replay starts)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    one profiled replay of the engine's ``name`` graph (`profiled`, held:
+    a replay inside a pause first); the LayerNorm forward row kernels
+    named "K4 ..." (mode 0) or "K3 ...". A K3b or K4b launch counts its
+    row kernel and its reduction, as the counters do."""
     graph = slots._graphs[name][0]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SPIN_CYCLES)
-        graph.replay()
-        torch.cuda.synchronize()
-    counts, _ = _profile_counts(prof)
-    return (counts, _device_ms(prof, skip=SPIN_KERNEL),
-            _device_us_by_kernel(prof, skip=SPIN_KERNEL))
-
-
-def _device_us_by_kernel(prof, skip=None):
-    """{kernel name: device us} of a profiled window; the LayerNorm
-    forward row kernels named "K4 ..." (mode 0) or "K3 ..."."""
-    import re
-
-    from torch.autograd import DeviceType
-
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or (skip and skip in e.key):
-            continue
-        name = e.key.split("(")[0].replace("void ", "")
-        row = re.search(r"ln_fwd_kernel<([^>]*)>", e.key)
-        if row:
-            name = ("K4 " if int(row.group(1).split(",")[-1]) == 0
-                    else "K3 ") + name
-        out[name] = out.get(name, 0.0) + getattr(
-            e, "self_device_time_total",
-            getattr(e, "self_cuda_time_total", 0.0))
-    return out
+    cen = profiled(torch, graph.replay)
+    by_kernel = {}
+    for r in cen["rows"]:
+        key = r["name"].split("(")[0].replace("void ", "")
+        got = _obs_class(r["name"])
+        if got is not None and got[0] in ("K4", "K3f"):
+            key = ("K4 " if got[0] == "K4" else "K3 ") + key
+        by_kernel[key] = by_kernel.get(key, 0.0) + r["time_us"]
+    return census_launches(cen)[0], census_ms(cen), by_kernel
 
 
 def replay_vs_eager(torch, slots, name, args, trash=True, read=None):
@@ -3373,16 +3425,11 @@ def phase_times(torch, attn, lns):
         c["plain_ms"] = time_ms(lambda b: run(b, "plain"), sets, 5)
         c["library_ms"] = time_ms(lib, sets, 20)
         n, t, dt = c["n"], c["t"], _dt(c["dtype"])
-        item = c["base"].element_size()
-        if c["lengths"] is None:
-            flops = 4 * n * H * t * t * D / (2 if c["causal"] else 1)
-        else:  # rows and keys past each length are not needed
-            flops = 4 * H * D * float((c["lengths"].double() ** 2).sum())
-        # q, k, v read where live; o and lse written in full
-        live = live_share(c["lengths"], t)
+        # the wrapper's reckoning: q, k, v read where live, o and lse
+        # written in full; rows and keys past each length are not needed
         c["bound_ms"], c["bound_by"] = bound(
-            (3 * live + 1) * n * H * t * D * item + n * H * t * 4, flops, dt,
-            tensor_cores=True)
+            *fa.cost(n, H, t, t, D, c["base"].dtype, on_host(c["lengths"]),
+                     c["causal"]), dt, tensor_cores=True)
         log(f"[time] K1 N={n} T={t} {dt} causal={c['causal']} "
             f"lengths={c['lengths'] is not None}: "
             f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
@@ -3400,7 +3447,7 @@ def phase_times(torch, attn, lns):
         c["plain_ms"] = time_ms(lambda x: ln.layer_norm_fwd(
             x, gm, bt, impl="plain"), sets, 20, keep=True)
         lib_warm = time_ms(lambda x: lib(x, gm, bt), sets, 50, keep=True)
-        rows, ix, ip = c["rows"], x.element_size(), gm.element_size()
+        rows = c["rows"]
         c["blocks"] = ln.row_blocks(rows, sms)
         extra = ""
         if rows <= COLD_LN_ROWS:  # gamma and beta cold too, as in a replay
@@ -3418,8 +3465,7 @@ def phase_times(torch, attn, lns):
         else:
             c["ms"], c["library_ms"] = warm, lib_warm
         c["bound_ms"], c["bound_by"] = bound(
-            2 * rows * C * ix + 8 * rows + 2 * C * ip, 8 * rows * C,
-            _ops_dtype(c))
+            *ln.cost(rows, C, x.dtype, gm.dtype), _ops_dtype(c))
         log(f"[time] K4 ({rows}, {C}) {c['layout']} "
             f"{c['blocks']} blocks: kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, {c['library']} {c['library_ms']:.4f} "
@@ -3529,25 +3575,18 @@ def layer_norm_library(torch, x, gamma, beta):
 
 
 def kernel_split_ms(torch, fn, sets, reps):
-    """{kernel name: device ms of one call of ``fn``} from torch.profiler
-    over ``reps`` calls cycling through the argument ``sets`` (after a
-    warm-up call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*sets[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """{kernel name: device ms of one call of ``fn``} from the kernel
+    census (`profiled`) of ``reps`` calls cycling through the argument
+    ``sets`` (after a warm-up call)."""
+    def calls():
         for i in range(reps):
             fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
+
+    fn(*sets[0])
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            name = e.key.split("(")[0].replace("void ", "")
-            out[name] = out.get(name, 0.0) + getattr(
-                e, "self_device_time_total", 0.0) / 1e3 / reps
+    for r in profiled(torch, calls)["rows"]:
+        name = r["name"].split("(")[0].replace("void ", "")
+        out[name] = out.get(name, 0.0) + r["time_us"] / 1e3 / reps
     return out
 
 
@@ -4016,21 +4055,6 @@ def phase_train_step_check(torch, dev):
                 n_grads=len(gp))
 
 
-def _device_ms(prof, skip=None):
-    """Sum of the device time of the kernels, copies and sets in a
-    profiler trace, in ms (one stream, so their sum is the busy time);
-    ``skip``: a name part of kernels left out (a spin that delays the
-    work)."""
-    from torch.autograd import DeviceType
-
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not (skip and skip in e.key):
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-    return total / 1e3
-
-
 # the layouts the AMP step's row kernels must take, launches a step (the
 # MLM LayerNorm bf16 x with f32 gamma/beta; the encoder LayerNorm f32;
 # every residual site f32 x with a bf16 h)
@@ -4053,9 +4077,6 @@ def phase_train(torch, dev, mode="f32"):
     step. ``mode``: "f32" (TF32 off), "amp" (under amp.init("bfloat16"),
     deinit in a finally), or "tf32" (f32 with TF32 products, restored
     after)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from incubator_mxnet_tpu_torch import amp, autograd
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon import Trainer
@@ -4132,15 +4153,11 @@ def phase_train(torch, dev, mode="f32"):
               f"loss")
         check(losses[-1] < losses[WARMUP], f"{tag}: the loss did not fall")
 
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
+        cen = profiled(torch, step)
     finally:
         amp.deinit()
         torch.backends.cuda.matmul.allow_tf32 = tf32_was
-    dev_ms = _device_ms(prof)
+    dev_ms = census_ms(cen)
     tokens_s = TRAIN_B * TRAIN_T / (med / 1e3)
     flops_token = 6.0 * n_params + 12.0 * 12 * TRAIN_T * C
     peak = TRAIN_MODES[mode]
@@ -4149,17 +4166,13 @@ def phase_train(torch, dev, mode="f32"):
     log(f"[{tag}] median step {med:.2f} ms, {tokens_s:.1f} tokens/s, "
         f"model FLOPs {flops_token:.4g}/token -> share of the {peak} peak "
         f"({PEAK_FLOPS[peak] / 1e12:g} TFLOP/s) {share:.4f}; device busy "
-        f"{dev_ms:.2f} ms of a step (torch.profiler) -> idle share "
+        f"{dev_ms:.2f} ms of a step (the kernel census) -> idle share "
         + (f"{idle:.4f}" if idle is not None else "not measured"))
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: -getattr(e, "self_device_time_total", 0.0))
-    by_kernel = [dict(ms=getattr(e, "self_device_time_total", 0) / 1e3,
-                      calls=e.count, name=e.key[:160]) for e in top]
+    by_kernel = census_top(cen, len(cen["rows"]))
     for e in by_kernel[:24 if mode == "amp" else 14]:
         log(f"[{tag}]   {e['ms']:8.3f} ms x{e['calls']:4d}  {e['name'][:90]}")
-    row_bwd = {k: sum(getattr(e, "self_device_time_total", 0.0) / 1e3
-                      for e in top if k in e.key)
+    row_bwd = {k: sum(r["time_us"] / 1e3 for r in cen["rows"]
+                      if k in r["name"])
                for k in ("ln_bwd_kernel", "ln_partials_reduce_kernel")}
     log(f"[{tag}] row backward (K3 backward, K4b) in the step: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in row_bwd.items())
@@ -4188,55 +4201,6 @@ def phase_train(torch, dev, mode="f32"):
 # kernel once (the step's first dropout site fills the chunk of its key
 # table that all 49 sites share)
 DP_STEP_LAUNCHES = dict(STEP_LAUNCHES, fold=1)
-# the fold kernel's work: KEY_CHUNK sites, each two Philox4x32-10 blocks of
-# 10 rounds of ~12 integer operations, counted at the f32 rate of the CUDA
-# cores (the data sheet gives no integer rate outside the tensor cores)
-FOLD_OPS_PER_SITE = 2 * 10 * 12
-# the spin ahead of a profiled replay (`torch.cuda._sleep`), ~25 ms at the
-# H100's clocks, and its kernel's name, left out of the device time
-SPIN_CYCLES = 50_000_000
-SPIN_KERNEL = "spin_kernel"
-
-
-def _profile_counts(prof):
-    """(launches of the port's kernels in a profiled window, in the
-    counters' units, from the kernels' names; the row backward's
-    reduction kernels seen). A K3b or K4b call counts its row kernel and
-    its reduction, as the counters do."""
-    import re
-
-    from torch.autograd import DeviceType
-
-    out = {k: 0 for k in DP_STEP_LAUNCHES}
-    reduce = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        key, n = e.key, e.count
-        row = re.search(r"ln_(fwd|bwd)_kernel<([^>]*)>", key)
-        gd = re.search(r"gelu_dropout_kernel<([^>]*)>", key)
-        if "flash_fwd_kernel" in key:
-            out["K1"] += n
-        elif re.search(r"flash_bwd_(delta|dq|dkv)_kernel", key):
-            out["K2"] += n
-        elif row:
-            mode = int(row.group(2).split(",")[-1])
-            if row.group(1) == "fwd":
-                out["K4" if mode == 0 else "K3f"] += n
-            else:
-                out["K4b" if mode == 0 else "K3b"] += 2 * n
-        elif "ln_partials_reduce_kernel" in key:
-            reduce += n
-        elif gd:
-            bwd = gd.group(1).split(",")[-1].strip() == "true"
-            out["K6b" if bwd else "K6f"] += n
-        elif "::dropout_kernel<" in key:
-            out["K5"] += n
-        elif "fold_keys_kernel" in key:
-            out["fold"] += n
-    return out, reduce
-
-
 def phase_device_keys(torch, dev):
     """K5, K3 and K6 on a device key (the keys of a step replayed as a
     CUDA graph) at the training step's shapes: every output bit for bit
@@ -4382,8 +4346,7 @@ def phase_times_device_keys(torch, c):
                                             sites), [()], 5)
     c["library_ms"] = None
     n = dp.KEY_CHUNK
-    c["bound_ms"], c["bound_by"] = bound(3 * 8 + n * 8,
-                                         n * FOLD_OPS_PER_SITE, "float32")
+    c["bound_ms"], c["bound_by"] = bound(*dp.fold_cost(n), "float32")
     log(f"[time] fold kernel ({n} site keys): kernel {c['ms']:.4f} ms, "
         f"plain {c['plain_ms']:.4f} ms, no library call, bound "
         f"{c['bound_ms']:.2e} ms ({c['bound_by']}): a launch's cost")
@@ -4437,9 +4400,6 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
     ``trainer``: phase_train's result in the same mode, printed beside.
     ``mode``: "amp" (bf16), "amp16" (float16, without loss scaling, as
     the reference's DataParallel steps) or "f32"."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     from incubator_mxnet_tpu_torch import amp
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -4525,25 +4485,15 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
               f"loss")
         check(vals[-1] < vals[WARMUP], f"{tag}: the loss did not fall")
 
-        # one profiled replay. The card spins ~25 ms first, and the
-        # recorded replay is the second of the profiler's session, after a
-        # warm-up cycle whose records are dropped: a replay profiled as
-        # tracing starts can lose its first kernels' records (PERF.md §7);
-        # a short trace is profiled again, at most three times, and the
-        # tries are reported
+        # one profiled replay, held (`profiled`: a replay inside a pause
+        # first, as a replay profiled as tracing starts can lose its first
+        # kernels' records, PERF.md §7); a census that lost launches is
+        # profiled again, at most three times, and the tries are reported
         for tries in range(1, 4):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1,
-                                           repeat=1)) as prof:
-                for _ in range(2):
-                    torch.cuda._sleep(SPIN_CYCLES)
-                    dps[0].step(tokens, labels)
-                    torch.cuda.synchronize()
-                    prof.step()
-            seen, reduce = _profile_counts(prof)
-            if seen == DP_STEP_LAUNCHES:
+            cen = profiled(torch, lambda: dps[0].step(tokens, labels))
+            seen, reduce = census_launches(cen)
+            if seen == DP_STEP_LAUNCHES \
+                    and cen["meta"].get("lost_launches") == 0:
                 break
         check(seen == DP_STEP_LAUNCHES
               and 2 * reduce == seen["K3b"] + seen["K4b"],
@@ -4573,18 +4523,13 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
         amp.deinit()
     timed = sorted(times[WARMUP:])
     med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
-    dev_ms = _device_ms(prof, skip=SPIN_KERNEL)
+    dev_ms = census_ms(cen)
     tokens_s = TRAIN_B * TRAIN_T / (med / 1e3)
     flops_token = 6.0 * n_params + 12.0 * 12 * TRAIN_T * C
     peak = TRAIN_MODES[mode]
     share = flops_token * tokens_s / PEAK_FLOPS[peak]
     idle = 1 - dev_ms / med if dev_ms > 0 else None
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and SPIN_KERNEL not in e.key),
-                 key=lambda e: -getattr(e, "self_device_time_total", 0.0))
-    by_kernel = [dict(ms=getattr(e, "self_device_time_total", 0) / 1e3,
-                      calls=e.count, name=e.key[:160]) for e in top]
+    by_kernel = census_top(cen, len(cen["rows"]))
     log(f"[{tag}] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam "
         f"lr {TRAIN_LR}, {n_params} parameters, DataParallel "
         f"({len(dps[0]._fused)} of {len(dps[0].params)} parameters in the "
@@ -4599,7 +4544,7 @@ def phase_train_dp(torch, dev, trainer, mode="amp"):
         f"(profiled {tries} time{'s' if tries > 1 else ''})")
     log(f"[{tag}] median step {med:.2f} ms, {tokens_s:.1f} tokens/s, share "
         f"of the {peak} peak {share:.4f}; device busy {dev_ms:.2f} ms of a "
-        f"replay (torch.profiler, {sum(e['calls'] for e in by_kernel)} "
+        f"replay (the kernel census, {sum(e['calls'] for e in by_kernel)} "
         f"kernels) -> idle share "
         + (f"{idle:.4f}" if idle is not None else "not measured")
         + f"; a replay spans {replay_ms:.2f} ms on the card (CUDA events)"
@@ -4668,16 +4613,12 @@ def phase_times_train(torch, attn, k3, k4b, drop):
 
         c["library_ms"] = (time_ms(lib, sets, 10) - time_ms(
             lambda *a: lib(*a, backward=False), sets, 10))
-        t, b, item = c["t"], c["b"], c["base"].element_size()
-        if c["lengths"] is None:
-            flops = 5 * 2 * b * H * t * t * D / (2 if c["causal"] else 1)
-        else:
-            flops = 5 * 2 * H * D * float((c["lengths"].double() ** 2).sum())
-        # q, k, v, o, dO read where live; dq, dk, dv, lse and delta in full
-        live = live_share(c["lengths"], t)
+        t, b = c["t"], c["b"]
+        # the wrapper's reckoning: q, k, v, o, dO read where live; dq, dk,
+        # dv, lse and delta in full
         c["bound_ms"], c["bound_by"] = bound(
-            (5 * live + 3) * b * t * H * D * item + 2 * b * H * t * 4, flops,
-            _dt(c["dtype"]), tensor_cores=True)
+            *fa.bwd_cost(b, H, t, t, D, c["base"].dtype, on_host(c["lengths"]),
+                         c["causal"]), _dt(c["dtype"]), tensor_cores=True)
         log(f"[time] K2 B={b} T={t} {_dt(c['dtype'])} causal={c['causal']} "
             f"lengths={c['lengths'] is not None}: kernel {c['ms']:.4f} ms, "
             f"plain {c['plain_ms']:.4f} ms, sdpa backward "
@@ -4689,7 +4630,6 @@ def phase_times_train(torch, attn, k3, k4b, drop):
     for c in k3:
         gm, bt, key, p = c["gamma"], c["beta"], c["key"], c["p"]
         rows, dt = c["rows"], _ops_dtype(c)
-        ix, ih, ip = (t.element_size() for t in (c["x"], c["h"], gm))
         sets = input_sets([c["x"], c["h"]], 20)  # outputs kept: y cycles
         c["ms"] = time_ms(lambda x, h: fb.residual_dropout_ln_fwd(
             x, h, gm, bt, key, p, impl="kernel"), sets, 20, keep=True)
@@ -4699,8 +4639,7 @@ def phase_times_train(torch, attn, k3, k4b, drop):
             x + F.dropout(h, p, training=True), (C,), gm, bt, 1e-5), sets,
             20, keep=True)
         c["bound_ms"], c["bound_by"] = bound(
-            (2 * ix + ih) * rows * C + 8 * rows + 2 * C * ip, 10 * rows * C,
-            dt)
+            *fb.cost(rows, C, c["x"].dtype, c["h"].dtype, gm.dtype), dt)
         _, m, r = fb.residual_dropout_ln_fwd(c["x"], c["h"], gm, bt, key, p,
                                              impl="plain")
         bsets = input_sets([c["x"], c["h"], c["dy"]], 20)
@@ -4721,14 +4660,13 @@ def phase_times_train(torch, attn, k3, k4b, drop):
         c["bwd_library_ms"] = (time_ms(lib, bsets, 20) - time_ms(
             lambda *a: lib(*a, backward=False), bsets, 20))
         c["bwd_bound_ms"], c["bwd_bound_by"] = bound(
-            (3 * ix + 2 * ih) * rows * C + 8 * rows + 3 * C * ip,
-            16 * rows * C, dt)
+            *fb.bwd_cost(rows, C, c["x"].dtype, c["h"].dtype, gm.dtype), dt)
         c["bwd_split"] = kernel_split_ms(
             torch, lambda x, h, dy: fb.residual_dropout_ln_bwd(
                 x, h, dy, m, r, gm, key, p, impl="kernel"), bsets, 20)
         what = f"({rows}, {C}) {c['layout']} p={p}"
         log(f"[time] K3 {what} backward by kernel "
-            f"(torch.profiler, a call): {_split_text(c['bwd_split'])}")
+            f"(the kernel census, a call): {_split_text(c['bwd_split'])}")
         log(f"[time] K3 {what}: forward kernel "
             f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, composed "
             f"F.dropout+add+F.layer_norm {c['library_ms']:.4f} ms, bound "
@@ -4742,7 +4680,6 @@ def phase_times_train(torch, attn, k3, k4b, drop):
     for c in k4b:
         gm, m, r = c["gamma"], c["mean"], c["rstd"]
         rows, dt = c["rows"], _ops_dtype(c)
-        ix, ip = c["x"].element_size(), gm.element_size()
         lib_fn, c["library"] = layer_norm_library(torch, c["x"], gm,
                                                   c["beta"])
         sets = input_sets([c["x"], c["dy"]], 20)
@@ -4762,11 +4699,11 @@ def phase_times_train(torch, attn, k3, k4b, drop):
         c["library_ms"] = (time_ms(lib, sets, 20) - time_ms(
             lambda *a: lib(*a, backward=False), sets, 20))
         c["bound_ms"], c["bound_by"] = bound(
-            3 * rows * C * ix + 8 * rows + 3 * C * ip, 12 * rows * C, dt)
+            *ln.bwd_cost(rows, C, c["x"].dtype, gm.dtype), dt)
         c["split"] = kernel_split_ms(torch, lambda x, dy: ln.layer_norm_bwd(
             x, dy, m, r, gm, impl="kernel"), sets, 20)
         what = f"({rows}, {C}) {c['layout']}"
-        log(f"[time] K4b {what} by kernel (torch.profiler, a "
+        log(f"[time] K4b {what} by kernel (the kernel census, a "
             f"call): {_split_text(c['split'])}")
         log(f"[time] K4b {what}: kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, {c['library']} backward "
@@ -4783,9 +4720,8 @@ def phase_times_train(torch, attn, k3, k4b, drop):
             x, key, p, impl="plain"), sets, 5)
         c["library_ms"] = time_ms(lambda x: F.dropout(x, p, training=True),
                                   sets, 20)
-        numel, item = c["x"].numel(), c["x"].element_size()
-        c["bound_ms"], c["bound_by"] = bound(2 * numel * item, numel,
-                                             _dt(c["dtype"]))
+        c["bound_ms"], c["bound_by"] = bound(
+            *dp.cost(c["x"].numel(), c["x"].dtype), _dt(c["dtype"]))
         log(f"[time] K5 ({ROWS}, {c['cols']}) {_dt(c['dtype'])}: kernel "
             f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, F.dropout "
             f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
@@ -5016,20 +4952,14 @@ def phase_gelu_dropout_path(torch, dev):
         f"vs plain worst max|d| / "
         f"max|plain| {w16:.2e} (tol 2^-7): {'ok' if ok16 else 'EXCEEDED'}")
     check(ok16, "gelu_dropout path under float16 AMP disagrees with plain")
-    launches["K6f"] += 1
-    launches["K6b"] += 1
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step("auto")
-        torch.cuda.synchronize()
-    dev_ms = _device_ms(prof)
-    k6_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and "gelu_dropout" in e.key) / 1e3
+    reset_counts()
+    cen = profiled(torch, lambda: step("auto"))
+    held = read_counts()        # the profiled step and the one held
+    launches["K6f"] += held["K6f"]
+    launches["K6b"] += held["K6b"]
+    dev_ms = census_ms(cen)
+    k6_ms = sum(r["time_us"] for r in cen["rows"]
+                if "gelu_dropout" in r["name"]) / 1e3
     result = dict(batch=TRAIN_B, seq=TRAIN_T, units=C, hidden=FFN, p=TRAIN_P,
                   steps=GD_STEPS,
                   **{f"{k}_step_ms": r["walls"] for k, r in runs.items()},
@@ -5046,7 +4976,7 @@ def phase_gelu_dropout_path(torch, dev):
     log(f"[gelu_dropout] median step ms: auto (K6) {auto_ms:.3f}, xla "
         f"(F.gelu + K5) {result['xla_median_step_ms']:.3f}, plain "
         f"{result['plain_median_step_ms']:.3f}; one auto step's device "
-        f"time (torch.profiler) {dev_ms:.3f} ms, of which K6 {k6_ms:.3f} "
+        f"time (the kernel census) {dev_ms:.3f} ms, of which K6 {k6_ms:.3f} "
         f"ms -> idle share "
         + (f"{result['idle_share']:.4f}" if dev_ms > 0 else "not measured"))
     return result, launches
@@ -5060,7 +4990,7 @@ def phase_times_gelu_dropout(torch, cases):
 
     for c in cases:
         key, p = c["key"], c["p"]
-        numel, item = c["u"].numel(), c["u"].element_size()
+        numel = c["u"].numel()
 
         def lib(u, dy=None, c=c):
             leaf = u.detach().requires_grad_(dy is not None)
@@ -5085,8 +5015,8 @@ def phase_times_gelu_dropout(torch, cases):
             u, key, p, impl="plain"), sets, 3)
         c["library_ms"] = time_ms(lib, sets, 20)
         c["xla_ms"] = time_ms(xla, sets, 20)
-        c["bound_ms"], c["bound_by"] = bound(2 * numel * item,
-                                             GD_FWD_OPS * numel, "float32")
+        c["bound_ms"], c["bound_by"] = bound(
+            *fb.gd_cost(numel, c["u"].dtype), "float32")
         bsets = input_sets([c["u"], c["dy"]], 20)
         c["bwd_ms"] = time_ms(lambda u, dy: fb.gelu_dropout_bwd(
             u, dy, key, p, impl="kernel"), bsets, 20)
@@ -5097,7 +5027,7 @@ def phase_times_gelu_dropout(torch, cases):
         c["bwd_xla_ms"] = (time_ms(xla, bsets, 20)
                            - time_ms(lambda u, _: xla(u), bsets, 20))
         c["bwd_bound_ms"], c["bwd_bound_by"] = bound(
-            3 * numel * item, GD_BWD_OPS * numel, "float32")
+            *fb.gd_cost(numel, c["u"].dtype, bwd=True), "float32")
         log(f"[time] K6 {_gd_what(c)}: forward kernel {c['ms']:.4f} ms, "
             f"plain {c['plain_ms']:.4f} ms, F.dropout(F.gelu) "
             f"{c['library_ms']:.4f} ms, F.gelu + K5 {c['xla_ms']:.4f} ms, "
@@ -5729,15 +5659,9 @@ def _median(v):
 
 
 def _profiled_ms(torch, step):
-    """Device busy ms of one ``step()`` (torch.profiler, one stream)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    return _device_ms(prof)
+    """Device busy ms of one ``step()`` (the kernel census, held: a
+    step may be a graph's replay)."""
+    return census_ms(profiled(torch, step))
 
 
 def phase_gluon_bert(torch, dev, mx):
@@ -6147,12 +6071,9 @@ AMP16_LOSS_TOL, AMP16_GRAD_TOL, AMP16_GRAD_EACH_TOL = \
 AMP16_SIGN_AGREE = 0.97
 
 
-def _flash_dtypes(torch, prof):
-    """The element types of the flash kernels a profile recorded."""
-    from torch.autograd import DeviceType
-
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "flash_" in e.key]
+def _flash_dtypes(cen):
+    """The element types of the flash kernels a census holds."""
+    names = [r["name"] for r in cen["rows"] if "flash_" in r["name"]]
     return names, {("f16" if "__half" in n else "bf16" if "bfloat16" in n
                     else "f32") for n in names}
 
@@ -6290,8 +6211,6 @@ def phase_amp16(torch, dev, dp_amp):
     and a float16 net (``net.cast("float16")``) through ``Trainer(...,
     {"multi_precision": True})``, each float16 weight its f32 master's
     cast after every step. ``dp_amp``: the same run's [train dp amp]."""
-    from torch.profiler import ProfilerActivity, profile
-
     from incubator_mxnet_tpu_torch import amp, autograd
     from incubator_mxnet_tpu_torch import random as mxrandom
     from incubator_mxnet_tpu_torch.gluon import Trainer
@@ -6325,22 +6244,21 @@ def phase_amp16(torch, dev, dp_amp):
           "fall")
     timed = sorted(times[WARMUP:])
     med = timed[len(timed) // 2 - 1] / 2 + timed[len(timed) // 2] / 2
+    def fwd_bwd():
+        grads_to_none(model)
+        with autograd.train_mode():
+            loss = SoftmaxCrossEntropyLoss()(model(tokens)[0], labels)
+        loss.backward(torch.ones_like(loss))
+
     amp.init("float16")
     try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            grads_to_none(model)
-            with autograd.train_mode():
-                loss = SoftmaxCrossEntropyLoss()(model(tokens)[0], labels)
-            loss.backward(torch.ones_like(loss))
-            torch.cuda.synchronize()
+        cen = profiled(torch, fwd_bwd)
     finally:
         amp.deinit()
-    names, kinds = _flash_dtypes(torch, prof)
+    names, kinds = _flash_dtypes(cen)
     check(names and kinds == {"f16"}, f"[amp16]: flash kernels in the step "
           f"not all float16: {sorted(set(names))[:6]}")
-    dev_ms = _device_ms(prof)
+    dev_ms = census_ms(cen)
     idle = 1 - dev_ms / med if dev_ms > 0 else None
     log(f"[amp16] BERT-base {TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam "
         f"lr {TRAIN_LR}, {n_params} parameters, amp.init('float16'), "
@@ -6354,7 +6272,7 @@ def phase_amp16(torch, dev, dp_amp):
         f"({len(names)} records)")
     log(f"[amp16] median step {med:.2f} ms (loop with the overflow check), "
         f"{TRAIN_B * TRAIN_T / (med / 1e3):.1f} tokens/s; device busy "
-        f"{dev_ms:.2f} ms of a forward and backward (torch.profiler)")
+        f"{dev_ms:.2f} ms of a forward and backward (the kernel census)")
     res["train"] = dict(losses=losses, step_ms=times, median_step_ms=med,
                         overflows=overflows, loss_scales=scales,
                         fwd_bwd_device_ms=dev_ms, idle_share=idle,
@@ -6363,7 +6281,7 @@ def phase_amp16(torch, dev, dp_amp):
     launches = {k: v * AMP16_STEPS for k, v in STEP_LAUNCHES.items()}
     layouts = {k: {n: c * AMP16_STEPS for n, c in v.items()}
                for k, v in AMP16_LAYOUT_LAUNCHES.items()}
-    del model, trainer, prof
+    del model, trainer, cen
     torch.cuda.empty_cache()
 
     # DataParallel, the same model under float16 AMP
@@ -6786,43 +6704,24 @@ _VISION_CLASSES = (
 def _vision_profile(torch, step):
     """Device ms of one ``step()`` (a replay) by kernel class
     (convolutions and products, BatchNorm, casts and copies, the rest)
-    and its six longest kernels, from ``torch.profiler`` (a warm-up
-    cycle first, the card spun ahead of the recorded step)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    and its six longest kernels, from the kernel census (`profiled`,
+    held)."""
     # a trace with no device records (PERF.md §7) is taken again, at most
     # three times
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                torch.cuda._sleep(SPIN_CYCLES)
-                step()
-                torch.cuda.synchronize()
-                prof.step()
+        cen = profiled(torch, step)
         out = {name: 0.0 for name, _ in _VISION_CLASSES}
         out["other"] = 0.0
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or SPIN_KERNEL in e.key \
-                    or e.key.startswith("ProfilerStep"):
-                continue
-            ms = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-            key = e.key.lower()
+        for r in cen["rows"]:
+            key = r["name"].lower()
             cls = next((name for name, parts in _VISION_CLASSES
                         if any(p in key for p in parts)), "other")
-            out[cls] += ms
-            rows.append((ms, e.count, e.key[:90]))
+            out[cls] += r["time_us"] / 1e3
         out["total"] = sum(v for k, v in out.items())
         if out["total"] > 0:
             break
-    out["top"] = [(round(ms, 3), n, k) for ms, n, k in
-                  sorted(rows, reverse=True)[:6]]
+    out["top"] = [(round(r["time_us"] / 1e3, 3), r["count"], r["name"][:90])
+                  for r in cen["rows"][:6]]
     return out
 
 
@@ -7120,7 +7019,6 @@ def phase_vision_dropout(torch, dev):
     losses do); K5 against its plain version at the sites' shape (p = 0:
     the identity, no launch; p = 0.5 bit for bit)."""
     import numpy as onp
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import gluon, np, optimizer
@@ -7143,16 +7041,7 @@ def phase_vision_dropout(torch, dev):
     counted = read_counts()
     losses += [dp.step(x, y) for _ in range(3)]
     vals = [float(v.asnumpy()) for v in losses]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            torch.cuda._sleep(SPIN_CYCLES)
-            dp.step(x, y)
-            torch.cuda.synchronize()
-            prof.step()
-    seen, _ = _profile_counts(prof)
+    seen, _ = census_launches(profiled(torch, lambda: dp.step(x, y)))
     distinct = len(set(vals[2:])) == len(vals[2:])
     log(f"[vision dropout] alexnet batch {VISION_B}, DataParallel (lr 0): K5 "
         f"launches at the eager and the capturing step {counted['K5']} "
@@ -7805,6 +7694,744 @@ def phase_np4(torch, dev):
     return res, launches, layouts
 
 
+# ---------------------------------------------------------------------------
+# [observe]: the profiler, the kernel census and roofline, the funnel's
+# stages, the monitor and the auditor on the card, through the package's
+# own API
+# ---------------------------------------------------------------------------
+
+OBS_STEPS = 3        # bench.py:400's profiled DataParallel steps
+OBS_TIMED = 10       # unprofiled replays timed for the wall MFU
+OBS_MFU_RATIO = 0.95  # trace MFU at least this share of the wall MFU
+OBS_BATCHES, OBS_BATCH = 40, 50   # the host-time batches of [observe stages]
+# [np4]'s host us a call of each npx call and of the closest torch call
+# before the funnel had its seams, two runs (PERF.md §6): (npx, torch)
+OBS_NP4_BEFORE = {"topk": ((82.46, 15.32), (93.01, 33.10)),
+                "pick": ((94.26, 10.87), (149.04, 22.31)),
+                "one_hot": ((64.67, 18.54), (76.63, 19.06)),
+                "reshape_codes": ((11.12, 2.62), (10.57, 1.59))}
+OBS_NP4_CALLS, OBS_NP4_LOOPS = 200, 5  # [np4]'s loop, the least of 5
+OBS_COPY_BYTES = 1 << 30   # the device-to-device copy of the peaks
+OBS_GEMM_N = 8192          # the bf16 product of the peaks (n x n x n)
+# the census rows of the port's kernels by class (a row backward counts
+# its row kernel and its reduction, as the counters do)
+_OBS_TAGS = {"flash_fwd_kernel": "K1", "flash_bwd_delta_kernel": "K2",
+             "flash_bwd_dq_kernel": "K2", "flash_bwd_dkv_kernel": "K2",
+             "dropout_kernel": "K5", "fold_keys_kernel": "fold",
+             "ln_partials_reduce_kernel": "reduce"}
+
+
+def _obs_class(name):
+    """(K class, launch-log tag) of a census row's kernel name, or None
+    for a kernel that is not the port's."""
+    import re
+
+    from incubator_mxnet_tpu_torch import profiler
+
+    m = profiler.PORT_KERNEL.search(name)
+    if m is None:
+        return None
+    tag = m.group(1)
+    row = re.search(r"ln_(fwd|bwd)_kernel<([^>]*)>", name)
+    gd = re.search(r"gelu_dropout_kernel<([^>]*)>", name)
+    if row:
+        mode = int(row.group(2).split(",")[-1])
+        if row.group(1) == "fwd":
+            return ("K4" if mode == 0 else "K3f"), tag
+        return ("K4b" if mode == 0 else "K3b"), tag
+    if gd:
+        bwd = gd.group(1).split(",")[-1].strip() == "true"
+        return ("K6b" if bwd else "K6f"), tag
+    return _OBS_TAGS[tag], tag
+
+
+def _obs_dtype(torch, name):
+    """The first template argument of a kernel's name as a torch dtype."""
+    import re
+
+    m = re.search(r"<\s*([A-Za-z_0-9:]+)", name)
+    arg = m.group(1) if m else ""
+    return {"float": torch.float32, "__nv_bfloat16": torch.bfloat16,
+            "__half": torch.float16}.get(arg.split("::")[-1])
+
+
+def _obs_classes(rows):
+    """{class: [count, bytes, flops, bytes-known, flops-known]} and {log
+    tag: count} of a census's port-kernel rows."""
+    by_class, by_tag = {}, {}
+    for r in rows:
+        got = _obs_class(r["name"])
+        if got is None:
+            continue
+        cls, tag = got
+        acc = by_class.setdefault(cls, [0, 0, 0, 0, 0])
+        for i, k in enumerate(("count", "bytes", "flops", "bytes_known",
+                               "flops_known")):
+            acc[i] += r[k]
+        by_tag[tag] = by_tag.get(tag, 0) + r["count"]
+    return by_class, by_tag
+
+
+def _obs_bert_costs(torch):
+    """{class: (bytes, flops)} a step of the BERT-base AMP DataParallel
+    step launches, from the wrappers' cost functions at its shapes
+    (PERF.md §6): K1/K2 bf16 (64, 12, 128, 64); the embedding LayerNorm
+    f32 and the MLM one bf16 x with f32 gamma; 24 residual sites f32 x,
+    bf16 h, f32 gamma; one fold. K5's sites are held row by row."""
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    heads = 12
+
+    def add(*costs):
+        return (sum(c[0] for c in costs), sum(c[1] for c in costs))
+
+    def times(n, cost):
+        return n * cost[0], n * cost[1]
+
+    att = (TRAIN_B, heads, TRAIN_T, TRAIN_T, C // heads, bf16)
+    k2 = add(*[fa.bwd_cost(*att, kernel=k) for k in fa.BWD_KERNELS])
+    return {
+        "K1": times(12, fa.cost(*att)),
+        "K2": times(12, k2),
+        "K4": add(ln.cost(ROWS, C, f32, f32), ln.cost(ROWS, C, bf16, f32)),
+        "K4b": add(ln.bwd_cost(ROWS, C, f32, f32, kernel="rows"),
+                   ln.bwd_cost(ROWS, C, bf16, f32, kernel="rows")),
+        "K3f": times(24, fb.cost(ROWS, C, f32, bf16, f32)),
+        "K3b": times(24, fb.bwd_cost(ROWS, C, f32, bf16, f32,
+                                     kernel="rows")),
+        "reduce": add(ln.bwd_cost(ROWS, C, f32, f32, kernel="reduce"),
+                      ln.bwd_cost(ROWS, C, bf16, f32, kernel="reduce"),
+                      times(24, fb.bwd_cost(ROWS, C, f32, bf16, f32,
+                                            kernel="reduce"))),
+        "fold": dp.fold_cost(),
+    }
+
+
+def _obs_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_observe_train(torch, dev, card, smi):
+    """bench.py:400's cross-check on the port: profiler.start(), three
+    DataParallel steps of BERT-base at 64 x 128 under bf16 AMP,
+    profiler.stop(), kernels.census and program_mfu; the census held to
+    the captured graph's launch log and the wrappers' costs; the roofline
+    phases; the wall MFU of the same step unprofiled. The cycle as
+    bench.py runs it comes first and is reported; the held cycle replays
+    once inside profiler.pause() before its three steps."""
+    from incubator_mxnet_tpu_torch import amp, profiler
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import DataParallel
+    from incubator_mxnet_tpu_torch.telemetry import compiles, kernels, roofline
+
+    ce = SoftmaxCrossEntropyLoss()
+
+    def mlm_loss(out, y):
+        return ce(out[0], y)
+
+    net = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev, seed=0)
+    dp = DataParallel(net, mlm_loss, Adam(learning_rate=TRAIN_LR))
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    n_params = sum(p.numel() for p in net.parameters())
+    flops_token = 6.0 * n_params + 12.0 * 12 * TRAIN_T * C
+    was_on = compiles.is_enabled()
+    compiles.enable()
+    amp.init("bfloat16")
+    try:
+        mxrandom.seed(0)
+        for _ in range(WARMUP):        # eager, then capture and replay
+            dp.step(tokens, labels)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(OBS_TIMED):
+            t0 = time.perf_counter()
+            dp.step(tokens, labels)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        # bench.py:400's cycle as it is written: what the trace kept is
+        # reported (PERF.md §7: a graph's first replay in a profiling
+        # session after the first loses its first records)
+        profiler.start()
+        try:
+            for _ in range(OBS_STEPS):
+                loss = dp.step(tokens, labels)
+            loss.item()
+        finally:
+            profiler.stop()
+        first = profiler.trace_meta()
+        first_lost = kernels.census(device=card)["meta"].get(
+            "lost_launches")
+        log(f"[observe] {OBS_STEPS} replays as the session's first: the "
+            f"census says {first_lost} launches lost; {first}")
+        # the held cycle: the graph's first replay of the session inside
+        # a pause (its events and launches dropped), then the three steps
+        profiler.start()
+        try:
+            profiler.pause()
+            dp.step(tokens, labels).item()
+            profiler.resume()
+            for _ in range(OBS_STEPS):
+                loss = dp.step(tokens, labels)
+            loss_v = loss.item()
+        finally:
+            profiler.stop()
+    finally:
+        amp.deinit()
+        if not was_on:
+            compiles.disable()
+    check(math.isfinite(loss_v), "[observe] non-finite loss")
+    check(dp.captures == 1, f"[observe] {dp.captures} captures, expected 1")
+    graph_log = next(iter(dp._captures.values())).graph.launch_log
+    ledger = compiles.ledger_report()
+    fam = ledger.get("train.DataParallel.step", {})
+    events = profiler.device_events()
+    meta = profiler.trace_meta()
+    cen = kernels.census(events, device=card, ledger=ledger)
+    check(cen["meta"].get("lost_launches") == 0, f"[observe] the held "
+          f"cycle's census lost {cen['meta'].get('lost_launches')} launches "
+          f"({meta})")
+    by_class, by_tag = _obs_classes(cen["rows"])
+    log_tags = {}
+    for tag, _b, _f in graph_log:
+        log_tags[tag] = log_tags.get(tag, 0) + OBS_STEPS
+    log(f"[observe] trace: {meta}; the captured step's launch log "
+        f"{len(graph_log)} entries a replay, by kernel {log_tags} over "
+        f"{OBS_STEPS} replays; the census's port kernels by kernel "
+        f"{by_tag}")
+    check(by_tag == log_tags, f"[observe] the census's port-kernel counts "
+          f"{by_tag} differ from the launch log's {log_tags}")
+    want = {k: v * OBS_STEPS for k, v in DP_STEP_LAUNCHES.items() if v}
+    got = {k: v[0] for k, v in by_class.items() if k != "reduce"}
+    got["K4b"] = 2 * got.get("K4b", 0)       # row kernel + its reduction
+    got["K3b"] = 2 * got.get("K3b", 0)
+    check(got == want and by_class.get("reduce", [0])[0]
+          == (got["K4b"] + got["K3b"]) // 2,
+          f"[observe] census launches by class {got} (reductions "
+          f"{by_class.get('reduce', [0])[0]}), expected {want}")
+    costs = _obs_bert_costs(torch)
+    for cls, (nb, nf) in costs.items():
+        acc = by_class.get(cls, [0, 0, 0, 0, 0])
+        check(acc[1] == OBS_STEPS * nb and acc[2] == OBS_STEPS * nf,
+              f"[observe] {cls}: census bytes {acc[1]}, flops {acc[2]}; "
+              f"cost() x count {OBS_STEPS * nb}, {OBS_STEPS * nf}")
+    from incubator_mxnet_tpu_torch.ops import dropout as dpmod
+
+    for r in cen["rows"]:
+        got_c = _obs_class(r["name"])
+        if got_c is None:
+            continue
+        check(r["bytes_known"] == r["count"] == r["flops_known"],
+              f"[observe] {r['name'][:80]}: {r['bytes_known']} of "
+              f"{r['count']} launches with bytes, {r['flops_known']} with "
+              f"flops")
+        if got_c[0] == "K5":
+            # one instantiation serves the (8192, 768) and (8192, 3072)
+            # sites: the row is n of one and count - n of the other
+            dt = _obs_dtype(torch, r["name"])
+            small, big = (dpmod.cost(ROWS * w, dt) for w in (C, FFN))
+            n_big, rem = divmod(r["bytes"] - r["count"] * small[0],
+                                big[0] - small[0])
+            check(rem == 0 and 0 <= n_big <= r["count"]
+                  and r["flops"] == (r["count"] - n_big) * small[1]
+                  + n_big * big[1],
+                  f"[observe] K5 row {r['name'][:60]}: {r['bytes']} bytes, "
+                  f"{r['flops']} flops over {r['count']} launches are no "
+                  f"sum of its sites' cost() {small}, {big}")
+            log(f"[observe]   K5 {dt}: {r['count'] - n_big} launches at "
+                f"({ROWS}, {C}), {n_big} at ({ROWS}, {FFN})")
+    k_rows = [r for r in cen["rows"] if _obs_class(r["name"])]
+    cover = (sum(r["bytes_known"] for r in k_rows)
+             / max(1, sum(r["count"] for r in k_rows)))
+    check(cover == 1.0, f"[observe] bytes coverage over the K rows {cover}")
+    med = sorted(walls)[OBS_TIMED // 2 - 1] / 2 + \
+        sorted(walls)[OBS_TIMED // 2] / 2
+    wall_mfu = flops_token * TRAIN_B * TRAIN_T / (med / 1e3) \
+        / PEAK_FLOPS["bfloat16"]
+    dev_s = cen["meta"]["named_us"] * 1e-6
+    trace_mfu = kernels.program_mfu(flops_token * TRAIN_B * TRAIN_T,
+                                    OBS_STEPS, dev_s,
+                                    peak_tflops=PEAK_FLOPS["bfloat16"] / 1e12)
+    ratio = trace_mfu / wall_mfu
+    log(f"[observe] {smi}: BERT-base {TRAIN_B} x {TRAIN_T} bf16 AMP "
+        f"DataParallel, {n_params} parameters: wall MFU {wall_mfu:.4f} "
+        f"(median of {OBS_TIMED} unprofiled replays {med:.3f} ms), trace "
+        f"MFU {trace_mfu:.4f} ({OBS_STEPS} profiled replays, "
+        f"{cen['meta']['named_us'] / OBS_STEPS / 1e3:.3f} ms of kernels, "
+        f"copies and sets a step), ratio {ratio:.4f} (at least "
+        f"{OBS_MFU_RATIO})")
+    check(ratio >= OBS_MFU_RATIO, f"[observe] trace MFU {trace_mfu:.4f} is "
+          f"{ratio:.4f} of the wall MFU {wall_mfu:.4f}")
+    log("[observe] census, top 24:\n" + kernels.format_census(cen, top=24))
+    for cls in sorted(by_class):
+        cnt, nb, nf = by_class[cls][:3]
+        log(f"[observe]   {cls}: {cnt} launches, {nb} bytes, {nf} flops")
+    roof = roofline.analyze(events, device=card)
+    log("[observe] roofline phases:\n" + roofline.format_table(roof))
+    total_us = cen["meta"]["total_device_us"]
+    check(abs(roof["total"]["time_us"] - total_us) <= 1e-6 * total_us,
+          f"[observe] roofline phases sum to {roof['total']['time_us']} us, "
+          f"the census's device total is {total_us} us")
+    log(f"[observe] the program ledger's DataParallel step: flops "
+        f"{fam.get('flops')}, bytes_accessed (the port's kernels) "
+        f"{fam.get('bytes_accessed')}; census programs "
+        f"{cen['programs'].get('train.DataParallel.step')}")
+    check(fam.get("flops") and fam.get("bytes_accessed") == sum(
+        b for _t, b, _f in graph_log),
+        f"[observe] ledger entry {fam} lacks the capture's costs")
+    out = dict(steps=OBS_STEPS, wall_median_ms=med, wall_mfu=wall_mfu,
+               trace_mfu=trace_mfu, mfu_ratio=ratio,
+               named_us=cen["meta"]["named_us"],
+               total_device_us=total_us,
+               attributed_frac=cen["meta"]["attributed_frac"],
+               launches_by_class={k: v[0] for k, v in by_class.items()},
+               bytes_by_class={k: v[1] for k, v in by_class.items()},
+               flops_by_class={k: v[2] for k, v in by_class.items()},
+               phases={r["phase"]: r["time_us"] for r in roof["rows"]},
+               ledger_flops=fam.get("flops"),
+               ledger_bytes=fam.get("bytes_accessed"),
+               trace_meta=meta, first_replays_meta=first,
+               first_replays_lost_launches=first_lost,
+               top=[dict(name=r["name"][:120], count=r["count"],
+                         us=r["time_us"], gbs=r["achieved_gbs"],
+                         bound_by=r["bound_by"]) for r in cen["rows"][:16]])
+    del dp, net
+    return out
+
+
+def _obs_engine(torch, dev):
+    """gpt2_small's ServeEngine, warmed as [serve engine] warms it, with
+    every slot decoding."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+
+    model = gpt2_small(device=dev, seed=0).eval()
+    engine = serve.ServeEngine(model, max_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN)
+    trace = _serve_trace_a(onp)
+    _serve_warmup(engine, trace[0])
+    return engine, trace
+
+
+def _obs_profiled_step(torch, engine):
+    """One engine step (a decode replay, every slot decoding) between
+    profiler.start() and stop(), held (`profiled`: a step inside a pause
+    first): (census, its K4 launches, trace meta)."""
+    from incubator_mxnet_tpu_torch import profiler
+
+    cen = profiled(torch, engine.step)
+    by_class, _ = _obs_classes(cen["rows"])
+    return cen, by_class.get("K4", [0])[0], profiler.trace_meta()
+
+
+def phase_observe_serve(torch, dev):
+    """Trace A through ServeEngine on gpt2_small with span tracing on, then
+    one profiled decode replay after a warm-up cycle: 25 K4 launches in
+    the census, and every device slice of the step inside its host span
+    in chrome_trace(include_device=True)."""
+    from incubator_mxnet_tpu_torch.telemetry import tracing
+
+    engine, trace = _obs_engine(torch, dev)
+    tracing.enable()
+    try:
+        _serve_trace(engine, trace)
+        _fill_slots(engine, trace[0], 32)
+        _obs_profiled_step(torch, engine)            # the warm-up cycle
+        cen, k4, meta = _obs_profiled_step(torch, engine)
+        payload = tracing.chrome_trace(include_device=True)
+    finally:
+        tracing.disable()
+    check(k4 == 25, f"[observe serve] the census has {k4} K4 launches in "
+          f"the profiled decode replay, expected 25 ({meta})")
+    from incubator_mxnet_tpu_torch import profiler
+
+    spans = [e for e in payload["traceEvents"]
+             if e.get("ph") == "X" and e.get("name") == "serve.decode_step"]
+    devs = [e for e in payload["traceEvents"]
+            if e.get("ph") == "X" and e.get("pid", 0) >= 1000]
+    # the replay's slices: the kernels that share the graph launch's
+    # correlation id with its K4 launches
+    corr = {e["args"].get("correlation") for e in devs
+            if "ln_fwd_kernel" in e["name"]
+            and profiler.PORT_KERNEL.search(e["name"])}
+    replay = [e for e in devs if e["args"].get("correlation") in corr]
+    check(spans and len(corr) == 1 and replay, f"[observe serve] "
+          f"{len(spans)} decode spans, {len(devs)} device slices, launch "
+          f"correlations of the K4 slices {corr}")
+    span = max(spans, key=lambda e: e["ts"])
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    first = min(e["ts"] for e in replay)
+    last = max(e["ts"] + e["dur"] for e in replay)
+    others = sorted((e for e in devs if e not in replay),
+                    key=lambda e: e["ts"])
+    log(f"[observe serve] the profiled step's decode span [{lo:.1f}, "
+        f"{hi:.1f}] us (epoch), its replay's {len(replay)} kernel slices "
+        f"[{first:.1f}, {last:.1f}]: {first - lo:.1f} us after the span "
+        f"opens, {hi - last:.1f} us before it closes; {len(others)} other "
+        f"device slices (copies, sets, eager kernels) "
+        + ", ".join(f"{e['name'][:40]} at {e['ts'] - lo:.1f}"
+                    for e in others[:12])
+        + f"; census K4 {k4}, trace {meta}")
+    check(lo <= first and last <= hi, "[observe serve] the replay's kernel "
+          "slices do not lie inside the step's host span")
+    del engine
+    return dict(k4=k4, span_us=[lo, hi], device_us=[first, last],
+                lead_us=first - lo, tail_us=hi - last, slices=len(replay),
+                device_ms=cen["meta"]["total_device_us"] / 1e3,
+                trace_meta=meta)
+
+
+def phase_observe_first_cycle(torch, dev):
+    """PERF.md §7's first-cycle question, after [elastic]: a profiled
+    decode replay with no warm-up cycle, and one preceded by a replay
+    inside a pause (`profiled`, held); the device events each kept, its
+    K4 launches in the census against the 25 the launch log holds, and
+    the launches the census says the trace lost. A report, not a check."""
+    from incubator_mxnet_tpu_torch import profiler
+
+    engine, trace = _obs_engine(torch, dev)
+    _fill_slots(engine, trace[0], 32)
+    res = {}
+    for name, held in (("no warm-up", False),
+                       ("a paused replay first", True)):
+        cen = profiled(torch, engine.step, held=held)
+        by_class, _ = _obs_classes(cen["rows"])
+        meta = profiler.trace_meta()
+        res[name] = dict(k4=by_class.get("K4", [0])[0],
+                         lost_launches=cen["meta"].get("lost_launches"),
+                         trace_meta=meta)
+        log(f"[observe first cycle] after [elastic], one profiled decode "
+            f"replay, {name}: {meta['events']} device events kept, census "
+            f"K4 {res[name]['k4']} of 25, lost launches "
+            f"{res[name]['lost_launches']}; trace {meta}")
+    del engine
+    return res
+
+
+def phase_observe_stages(torch, mx):
+    """[np4]'s funnel timings with stages.enable(): each stage's us a
+    call; the stages sum to no more than the call's host us (batches of
+    OBS_BATCH calls timed before their synchronisation, so no launch waits
+    on a full queue: the least batch and the mean). With no hook, the
+    funnel's host us a call beside the closest torch call's, by [np4]'s
+    own unsynchronised loop (phase_np4_host), the least of OBS_NP4_LOOPS:
+    within the spread of those figures before the seams (OBS_NP4_BEFORE),
+    in us or as a ratio to the torch call (the card's host speed differs
+    from run to run by more than those two runs did; the ratio takes it
+    out, except where the torch call's few us are all noise)."""
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.telemetry import stages
+
+    x = mx.np.random.uniform(size=(64, 128))
+    idx = mx.np.array(list(range(64)), dtype="int32")
+    xt, it = x._data, idx._data.long()
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        batches = []
+        for _ in range(OBS_BATCHES):
+            t0 = time.perf_counter()
+            for _ in range(OBS_BATCH):
+                fn()
+            batches.append((time.perf_counter() - t0) / OBS_BATCH * 1e6)
+            torch.cuda.synchronize()
+        return min(batches), sum(batches) / len(batches)
+
+    def loop_us(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        loops = []
+        for _ in range(OBS_NP4_LOOPS):
+            t0 = time.perf_counter()
+            for _ in range(OBS_NP4_CALLS):
+                fn()
+            loops.append((time.perf_counter() - t0) / OBS_NP4_CALLS * 1e6)
+            torch.cuda.synchronize()
+        return min(loops)
+
+    ops = {"topk": (lambda: mx.npx.topk(x, k=5),
+                    lambda: torch.topk(xt, 5)),
+           "pick": (lambda: mx.npx.pick(x, idx),
+                    lambda: xt.gather(1, it[:, None])),
+           "one_hot": (lambda: mx.npx.one_hot(idx, 128),
+                       lambda: F.one_hot(it, 128)),
+           "reshape_codes": (lambda: mx.npx.reshape(x, (-4, 8, -1, -2)),
+                             lambda: xt.reshape(8, 8, 128))}
+    res = {}
+    for name, (fn, t_fn) in ops.items():
+        npx_us, torch_us = loop_us(fn), loop_us(t_fn)
+        off_us, off_mean = host_us(fn)
+        fn()
+        torch.cuda.synchronize()
+        stages.reset()
+        stages.enable()
+        try:
+            on_us, on_mean = host_us(fn)
+        finally:
+            stages.disable()
+        rep = stages.stage_report()
+        calls = OBS_BATCHES * OBS_BATCH + 1
+        per = {k: v["total_us"] / calls for k, v in rep.items()}
+        funnel = rep.get("prologue", {}).get("count", 0) / calls
+        ratios = [a / b for a, b in OBS_NP4_BEFORE[name]]
+        figs = [a for a, _b in OBS_NP4_BEFORE[name]]
+        ratio = npx_us / torch_us
+        res[name] = dict(npx_us=npx_us, torch_us=torch_us, ratio=ratio,
+                         pr17_us=figs, pr17_ratios=ratios, off_us=off_us,
+                         off_mean_us=off_mean, on_us=on_us,
+                         on_mean_us=on_mean, stage_us=per,
+                         funnel_calls=funnel)
+        log(f"[observe stages] {name}: no hook {npx_us:.2f} us a call "
+            f"(before: {figs[0]}, {figs[1]}), the closest torch call "
+            f"{torch_us:.2f} ([np4]'s loop, least of {OBS_NP4_LOOPS}): ratio "
+            f"{ratio:.3f} (before: " + ", ".join(f"{r:.3f}" for r in ratios)
+            + f"); batched {off_us:.2f} (least; mean {off_mean:.2f}) with "
+            f"no hook, {on_us:.2f} (mean {on_mean:.2f}) with the stage "
+            f"probes; {funnel:g} funnel call(s) a call; stage us a call "
+            + ", ".join(f"{k} {v:.2f}" for k, v in per.items()))
+        check(per["total"] <= on_mean, f"[observe stages] {name}: the "
+              f"stages sum to {per['total']:.2f} us a call, more than the "
+              f"call's {on_mean:.2f} us")
+        check(npx_us <= max(figs) + abs(figs[0] - figs[1])
+              or ratio <= max(ratios) + abs(ratios[0] - ratios[1]),
+              f"[observe stages] {name}: the funnel took {npx_us:.2f} us, "
+              f"{ratio:.3f} x the closest torch call, with no hook: past "
+              f"the spread before the seams ({figs}, ratios {ratios})")
+    stages.reset()
+    return res
+
+
+def phase_observe_monitor(torch, dev, mx):
+    """install_nan_hook("raise") on an eager gluon step with one injected
+    NaN raises naming the op (the op the CPU names too); the hook during a
+    hybridize capture: the capture succeeds, the launches are those of
+    the capture without it, a clean replay passes check() and a NaN
+    replay fails it naming an op."""
+    from incubator_mxnet_tpu_torch import autograd, gluon
+    from incubator_mxnet_tpu_torch.telemetry import monitor
+
+    import numpy as onp
+
+    def eager_nan(device):
+        with mx.cpu() if device == "cpu" else mx.gpu(0):
+            net = gluon.nn.HybridSequential()
+            net.add(gluon.nn.Dense(16, in_units=8),
+                    gluon.nn.LayerNorm(in_channels=16))
+            net.initialize()
+            xn = onp.ones((4, 8), "float32")
+            xn[1, 3] = float("nan")
+            x = mx.np.array(xn)
+            monitor.install_nan_hook("raise")
+            try:
+                with autograd.record():
+                    out = net(x)
+                    (out * out).sum().backward()
+            except mx.MXNetError as e:
+                return str(e)
+            finally:
+                monitor.uninstall_nan_hook()
+                monitor.clear_nan_findings()
+        return None
+
+    card_msg, cpu_msg = eager_nan("gpu"), eager_nan("cpu")
+    log(f"[observe monitor] eager step with a NaN, raise mode: card "
+        f"{card_msg!r}; CPU {cpu_msg!r}")
+    check(card_msg is not None and card_msg == cpu_msg
+          and "at op '" in card_msg,
+          "[observe monitor] the NaN hook did not raise at the same op on "
+          "the card as on the CPU")
+
+    def hybrid(hook):
+        mx.random.seed(3)
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(C, in_units=C), gluon.nn.LayerNorm(
+            in_channels=C), gluon.nn.Dropout(0.1))
+        net.initialize(device=dev)
+        net.hybridize()
+        x = mx.np.random.uniform(size=(64, C), device=dev)
+        if hook:
+            monitor.install_nan_hook("warn")
+        try:
+            reset_counts()
+            with autograd.train_mode():
+                for _ in range(3):              # eager, capture, replay
+                    net(x)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            caps = net._cached_graph.captures
+            found = None
+            if hook:
+                monitor.check()                 # a clean replay passes
+                bad = x.asnumpy()
+                bad[5, 7] = float("nan")
+                with autograd.train_mode():
+                    net(mx.np.array(bad, device=dev))
+                torch.cuda.synchronize()
+                try:
+                    monitor.check()
+                except mx.MXNetError as e:
+                    found = str(e)
+        finally:
+            monitor.uninstall_nan_hook()
+            monitor.clear_nan_findings()
+        return counts, caps, found
+
+    plain_counts, plain_caps, _ = hybrid(False)
+    hook_counts, hook_caps, found = hybrid(True)
+    log(f"[observe monitor] hybridize capture without the hook: launches "
+        f"{plain_counts}, captures {plain_caps}; with install_nan_hook: "
+        f"launches {hook_counts}, captures {hook_caps}; a NaN replay: "
+        f"{found!r}")
+    check(hook_caps == plain_caps == 1 and hook_counts == plain_counts,
+          "[observe monitor] the hook changed the capture or its launches")
+    check(found is not None and "(graph)" in found,
+          "[observe monitor] a NaN replay under the hook went unseen")
+    return dict(eager=card_msg, launches=hook_counts, graph=found)
+
+
+def phase_observe_audit(torch, dev, mx):
+    """The auditor: one step of the eager float16 loop ([amp16]) yields a
+    host-sync finding at LossScaler.has_overflow; the hybridized BERT
+    block has none."""
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import bert_base
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+
+    model = bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
+                      seed=0)
+    trainer = Trainer(model.collect_params(), Adam(learning_rate=TRAIN_LR))
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    labels = torch.randint(0, BERT_VOCAB, (TRAIN_B, TRAIN_T), generator=g,
+                           device=dev)
+    ce = SoftmaxCrossEntropyLoss()
+    amp.scale_loss._scaler = scaler = amp.LossScaler()
+    params = model.collect_params()
+
+    def f16_step(tokens, labels):
+        grads_to_none(model)
+        amp.init("float16")
+        try:
+            with autograd.train_mode():
+                loss = ce(model(tokens)[0].float(), labels)
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward(torch.ones_like(scaled))
+        finally:
+            amp.deinit()
+        if scaler.has_overflow(params):
+            scaler.update_scale(True)
+        else:
+            scaler.update_scale(False)
+            trainer.step(TRAIN_B)
+
+    rep = mx.analysis.audit(f16_step, tokens, labels)
+    log(f"[observe audit] one eager float16 step: {rep.summary()}")
+    sites = [f.site or "" for f in rep.by_kind("host-sync")]
+    check(any("LossScaler.has_overflow" in s for s in sites),
+          f"[observe audit] no host-sync finding at LossScaler.has_overflow "
+          f"({sites})")
+    del trainer
+    model.hybridize()
+    nd_tokens = mx.nd.NDArray(tokens)
+    for _ in range(2):                          # eager, capture
+        model(nd_tokens)
+    torch.cuda.synchronize()
+    rep2 = model.audit(nd_tokens)
+    log(f"[observe audit] the hybridized BERT block: {rep2.summary()}; "
+        f"abstract pass ran {len(rep2.jaxpr or [])} funnel ops")
+    check(not rep2.by_kind("host-sync"), "[observe audit] the hybridized "
+          "BERT block has a host-sync finding")
+    out = dict(f16_step=[repr(f) for f in rep],
+               f16_sites=sites,
+               bert_hybridized=[repr(f) for f in rep2._all])
+    del model
+    return out
+
+
+def phase_observe_peaks(torch, dev, smi):
+    """A device-to-device copy's GB/s and a bf16 cuBLAS product's TFLOP/s,
+    beside the data-sheet peaks the tables and bounds keep."""
+    from incubator_mxnet_tpu_torch.telemetry import kernels, roofline
+
+    src = torch.empty(OBS_COPY_BYTES // 4, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    src.normal_()
+    copy_ms = time_ms(lambda: dst.copy_(src), [()], 20)
+    gbs = 2 * OBS_COPY_BYTES / (copy_ms / 1e3) / 1e9
+    del src, dst
+    n = OBS_GEMM_N
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    gemm_ms = time_ms(lambda: a @ b, [()], 20)
+    tflops = 2 * n ** 3 / (gemm_ms / 1e3) / 1e12
+    del a, b
+    card = smi.split(",")[0].strip().lower()
+    sheet_gbs = roofline.PEAK_HBM_GBS.get(card)
+    sheet_tf = kernels.PEAK_TFLOPS.get(card)
+    log(f"[observe peaks] {smi}: a {OBS_COPY_BYTES >> 20} MiB device copy "
+        f"{copy_ms:.4f} ms -> {gbs:.1f} GB/s (read + write; data sheet "
+        f"{sheet_gbs} GB/s, the tables' roof); a bf16 {n}^3 cuBLAS product "
+        f"{gemm_ms:.4f} ms -> {tflops:.1f} TFLOP/s (data sheet "
+        f"{sheet_tf} TFLOP/s dense, the tables' roof)")
+    check(sheet_gbs is not None and sheet_tf is not None,
+          f"[observe peaks] no table entry for the card {card!r}")
+    return dict(copy_gbs=gbs, copy_ms=copy_ms, gemm_tflops=tflops,
+                gemm_ms=gemm_ms, sheet_gbs=sheet_gbs, sheet_tflops=sheet_tf)
+
+
+def phase_observe(torch, dev):
+    """[observe]: the profiler and its consumers on the card: the training
+    path's census (bench.py:400's cross-check), the serving path's
+    profiled decode replay and its Chrome trace, the funnel's stages, the
+    NaN hook, the auditor, measured peaks. Returns (numbers, launches
+    through the wrappers)."""
+    import incubator_mxnet_tpu_torch as mx
+
+    smi = _obs_smi()
+    card = smi.split(",")[0].strip()
+    t0 = time.perf_counter()
+    reset_counts()
+    res = {"card": smi}
+    res["train"] = phase_observe_train(torch, dev, card, smi)
+    torch.cuda.empty_cache()
+    res["serve"] = phase_observe_serve(torch, dev)
+    torch.cuda.empty_cache()
+    res["stages"] = phase_observe_stages(torch, mx)
+    res["monitor"] = phase_observe_monitor(torch, dev, mx)
+    torch.cuda.empty_cache()
+    res["audit"] = phase_observe_audit(torch, dev, mx)
+    torch.cuda.empty_cache()
+    res["peaks"] = phase_observe_peaks(torch, dev, smi)
+    torch.cuda.empty_cache()
+    launches, layouts = read_counts(), read_layout_counts()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[observe] phase took {res['seconds']:.1f} s; launches through "
+        f"the wrappers {launches}")
+    return res, launches, layouts
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -8097,6 +8724,15 @@ def main():
             by_layout.setdefault(k, {})
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [np4]'s launches {np4_launches}: {launches}")
+    observe, obs_launches, obs_layouts = phase_observe(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in obs_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in obs_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [observe]'s launches {obs_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -8109,6 +8745,13 @@ def main():
     by_layout["K4"]["f32"] += elastic_k4
     log(f"[done] with [elastic]'s {elastic_k4} K4 launches: K4 "
         f"{launches['K4']}, by layout {by_layout['K4']}")
+    # PERF.md §7's first-cycle question, asked after [elastic]
+    reset_counts()
+    observe["first_cycle"] = phase_observe_first_cycle(torch, dev)
+    first_k4 = read_counts()["K4"]
+    launches["K4"] += first_k4
+    by_layout["K4"]["f32"] += first_k4
+    torch.cuda.empty_cache()
     log(f"[done] phases took {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
@@ -8136,6 +8779,7 @@ def main():
     log(json.dumps({"dense": dense}, default=str))
     log(json.dumps({"vision": vision}, default=str))
     log(json.dumps({"np4": np4}, default=str))
+    log(json.dumps({"observe": observe}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

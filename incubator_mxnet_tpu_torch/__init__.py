@@ -29,7 +29,12 @@ card; the autoscale advisor and the elastic replica controller resize a
 model's replica set on the card. `telemetry` holds its metrics, spans,
 cost and latency ledgers, SLOs, the timeseries history, burn-rate
 alerts, the goodput ledger, the device-memory census and the program
-ledger; `fault` its chaos seams and retry policies. `NDArray` and its op
+ledger, the funnel's stage accounting, the kernel census and roofline
+over `profiler`'s device trace (torch.profiler on the card, each port
+kernel's bytes and FLOPs joined from its launches), and the health
+monitor; `analysis` audits a program for what a CUDA-graph capture
+cannot take (host syncs, recaptures, promotion drift, aliased
+mutation); `fault` its chaos seams and retry policies. `NDArray` and its op
 funnel, `np` (`mx.np`), `nd`, `npx` and `autograd` are the reference's
 imperative front door over torch tensors, recorded on torch's autograd
 graph; `npx`'s kernel-bearing ops take NDArrays to the same kernels.
@@ -37,9 +42,10 @@ Entry points run on ``cuda:0`` unless the caller asks for the CPU (``with
 mx.cpu():``, or ``device="cpu"``). This package imports neither jax nor
 the reference package.
 """
-from . import (amp, autograd, base, contrib, device, dlpack, fault, gluon,
-               initializer, lr_scheduler, models, ops, optimizer, parallel,
-               preemption, random, serve, telemetry, test_utils, util)
+from . import (amp, analysis, autograd, base, contrib, device, dlpack,
+               fault, gluon, initializer, lr_scheduler, models, ops,
+               optimizer, parallel, preemption, profiler, random, serve,
+               telemetry, test_utils, util)
 from . import initializer as init
 from . import ndarray as nd
 from . import numpy as np
@@ -50,9 +56,9 @@ from .device import (Context, Device, cpu, current_device, default_device,
                      tpu)
 from .ndarray import NDArray, waitall
 
-__all__ = ["amp", "autograd", "base", "contrib", "device", "dlpack",
-           "fault", "gluon", "initializer", "init", "lr_scheduler", "models",
-           "ops", "optimizer", "parallel", "preemption",
+__all__ = ["amp", "analysis", "autograd", "base", "contrib", "device",
+           "dlpack", "fault", "gluon", "initializer", "init", "lr_scheduler",
+           "models", "ops", "optimizer", "parallel", "preemption", "profiler",
            "random", "serve", "telemetry", "test_utils", "util", "nd", "np",
            "npx", "MXNetError", "NDArray", "waitall", "Device", "Context",
            "current_device", "cpu", "gpu", "num_gpus", "default_device",

@@ -13,7 +13,8 @@
   replacement for a silent ``except Exception: pass``.
 
 The reference's `resilience` (the Estimator's handler) and `elastic` (the
-topology controller) are not ported yet (`ROADMAP.md` §1 item 10).
+topology controller) are not ported yet (`ROADMAP.md` §1 items 12 and
+9).
 Recoveries are counted in the registry: ``mx_faults_injected_total``,
 ``mx_retries_total``.
 """

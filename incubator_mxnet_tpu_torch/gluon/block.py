@@ -213,8 +213,12 @@ class Block(torch.nn.Module):
         for p in self.collect_params().values():
             p.zero_grad()
 
-    def audit(self, *args, train_mode=None, **kwargs):  # noqa: ARG002
-        raise MXNetError(f"Block.audit: the analysis module {_ITEM11}")
+    def audit(self, *args, train_mode=None, **kwargs):
+        """Audit this block's forward on ``args`` for capture hazards
+        (`analysis.audit`): returns an `AuditReport`."""
+        from ..analysis import audit
+
+        return audit(self, *args, train_mode=train_mode, **kwargs)
 
     # -- checkpointing (reference: block.py:160 save_parameters / :177) -----
     def save_parameters(self, filename, deduplicate=False):  # noqa: ARG002
@@ -378,18 +382,25 @@ def _unflatten(tree, flat, pos=0):
     return kind(items), pos
 
 
-def _ledger(block, seconds, args):
+def _ledger(block, seconds, args, entry=None):
     """A program-ledger entry ``cached_op:<BlockName>``, as the
-    reference's (when the telemetry modules are loaded)."""
+    reference's (when the telemetry modules are loaded), with a capture's
+    FLOPs and kernel costs (``entry``'s)."""
     family = f"cached_op:{type(block).__name__}"
     reg = sys.modules.get("incubator_mxnet_tpu_torch.telemetry.registry")
     if reg is not None:
         reg.observe_compile(family, seconds)
     comp = sys.modules.get("incubator_mxnet_tpu_torch.telemetry.compiles")
     if comp is not None:
-        comp.record_compile(family, seconds,
+        log = None
+        if entry is not None and entry.fwd is not None:
+            log = entry.fwd.launch_log + (
+                entry.bwd.launch_log if entry.bwd is not None else [])
+        comp.record_capture(family, seconds,
                             args=tuple(a._data if isinstance(a, NDArray)
-                                       else a for a in args), observe=False)
+                                       else a for a in args), observe=False,
+                            flops=None if entry is None else entry.flops,
+                            launch_log=log)
 
 
 class _Entry:
@@ -408,6 +419,7 @@ class _Entry:
         self.grad_ins = []     # its gradients of `diff`
         self.key = None        # int64 [w0, w1, t] read by the dropout sites
         self.gen = 0           # forward replays so far
+        self.flops = None      # the warm-up's torch FLOPs (ledger on)
 
 
 class _Replay(torch.autograd.Function):
@@ -490,7 +502,7 @@ class _CachedGraph:
             t0 = time.perf_counter()
             self._capture(entry, args, sig, dev)
             self.captures += 1
-            _ledger(self.block, time.perf_counter() - t0, args)
+            _ledger(self.block, time.perf_counter() - t0, args, entry)
         return self._replay(entry, args)
 
     def _run(self, entry, sig, inputs, aliases=None):
@@ -563,12 +575,17 @@ class _CachedGraph:
                 for t, s in zip(aux, saved):
                     t.copy_(s)
 
-        self._side.run(dev, warm)
+        comp = sys.modules.get("incubator_mxnet_tpu_torch.telemetry.compiles")
+        if comp is not None and comp.is_enabled():
+            _, entry.flops = self._side.run(
+                dev, lambda: _graphs.count_flops(warm))
+        else:
+            self._side.run(dev, warm)
         torch.cuda.synchronize(dev)
         al = aliases()
         entry.fwd, (entry.outs, entry.tree) = _graphs.capture(
             lambda: self._run(entry, sig, entry.inputs, al),
-            f"hybridize: {name}'s forward")
+            f"hybridize: {name}'s forward", owner=f"graph:cached_op:{name}")
         if not recording:
             return
         entry.diff = [al[a] for a in arrays if a._data.requires_grad] \

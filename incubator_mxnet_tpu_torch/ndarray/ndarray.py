@@ -20,8 +20,15 @@ The reference runs with x64 off: an array made from host data, and every
 op's output, holds float32 for float64, int32 for int64 (and uint32,
 complex64 for uint64, complex128); ``argmax``/``argmin`` give int32
 except over an axis past 2**31 elements.
+
+The funnel carries the reference's seams, each one global load and an
+``is not None`` test while off: the profiler's per-op host timing, the
+stage probes (`telemetry.stages`), the auditor's op observer
+(`analysis`) and the monitor's output tap (`telemetry.monitor`).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as onp
 import torch
@@ -42,6 +49,20 @@ _H2D_HOOK = None
 # fault-injection probe for the same inlet (`fault.injection` arms it only
 # when the MXNET_FAULT_INJECT schedule names the 'h2d' seam; None = off)
 _FAULT_HOOK = None
+
+# The funnel's seams, each None when off (one global load and an
+# ``is not None`` test a call), as in the reference:
+# _PROFILER: the `profiler` module while it runs with profile_imperative
+#   (its `record_op(name, seconds)` gets each call's dispatch time);
+# _STAGE_HOOK: `telemetry.stages._record(stage, t0_ns) -> now_ns`;
+# _ANALYSIS_HOOK: `analysis` auditor's (name, input tensors, output
+#   tensors, meta) observer while an audit runs;
+# _MONITOR_HOOK: `telemetry.monitor._observe(name, output tensors)` (the
+#   health stats and the NaN guard).
+_PROFILER = None
+_STAGE_HOOK = None
+_ANALYSIS_HOOK = None
+_MONITOR_HOOK = None
 
 _AG = autograd._STATE
 
@@ -729,6 +750,33 @@ def _run(fn, vals):
     return fn()
 
 
+def _run_staged(sh, t, fn, vals):
+    """`_run` with the stage probes: ``tape`` is switching torch's grad
+    mode on for a recorded call (torch's graph records the op inside the
+    call itself), ``dispatch`` the call. Returns (outputs, clock)."""
+    if _AG.recording:
+        if torch.is_grad_enabled():
+            t = sh("tape", t)
+            out = fn()
+        else:
+            with torch.enable_grad():
+                t = sh("tape", t)
+                out = fn()
+        return out, sh("dispatch", t)
+    out = _run(fn, vals)
+    return out, sh("dispatch", t)
+
+
+def _observe(name, vals, outs):
+    """Feed the analysis and monitor seams one call's tensors."""
+    out_list = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    out_list = [o for o in out_list if isinstance(o, torch.Tensor)]
+    if _ANALYSIS_HOOK is not None:
+        _ANALYSIS_HOOK(name, vals, out_list, {})
+    if _MONITOR_HOOK is not None:
+        _MONITOR_HOOK(name, out_list)
+
+
 def _finish(outs, vals, out=None, as_list=False):
     """An op's outputs as NDArrays: one, or a tuple (a list with
     ``as_list``) for a tuple or list of outputs; or taken over by ``out``.
@@ -754,6 +802,8 @@ def _apply(name, jfn, args, kwargs, nested, out=None, as_list=False):
     ``nested``, of the lists and tuples among them, one level deep), cast
     once inside the call under AMP so that autograd sees the cast, run in
     the grad mode of `_run`, outputs wrapped by `_finish`."""
+    sh = _STAGE_HOOK   # stage probes: dead branches when None
+    t = time.perf_counter_ns() if sh is not None else 0
     paths = []       # (i,) or (i, j) positions of NDArray leaves
     vals = []
     for i, a in enumerate(args):
@@ -765,7 +815,11 @@ def _apply(name, jfn, args, kwargs, nested, out=None, as_list=False):
                 if isinstance(b, NDArray):
                     paths.append((i, j))
                     vals.append(b._data)
+    if sh is not None:
+        t = sh("prologue", t)
     amp_mode = _amp_mode(name)
+    if sh is not None:
+        t = sh("amp_lookup", t)
 
     def call():
         tvals = vals
@@ -782,7 +836,21 @@ def _apply(name, jfn, args, kwargs, nested, out=None, as_list=False):
                 c[path[0]][path[1]] = v
         return jfn(*c, **(kwargs or {}))
 
-    return _finish(_run(call, vals), vals, out, as_list)
+    prof = _PROFILER
+    if prof is not None:
+        t0 = time.perf_counter()
+    if sh is None:
+        outs = _run(call, vals)
+    else:
+        outs, t = _run_staged(sh, t, call, vals)
+    if prof is not None:
+        prof.record_op(name, time.perf_counter() - t0)
+    if _ANALYSIS_HOOK is not None or _MONITOR_HOOK is not None:
+        _observe(name, vals, outs)
+    res = _finish(outs, vals, out, as_list)
+    if sh is not None:
+        sh("wrap", t)
+    return res
 
 
 def apply_op(name, jfn, args, kwargs=None, n_outputs=1, out=None,

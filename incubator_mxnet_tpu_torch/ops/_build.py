@@ -16,6 +16,17 @@ when the entry returns a non-zero ``cudaError_t``. :func:`use_plain` is
 the wrappers' one rule for kernel or plain version, :func:`aligned` their
 one way of meeting the kernels' 16-byte loads; :func:`on_device` and
 :func:`stream_of` give a C entry its device and stream.
+
+The launch log: while :data:`LAUNCH_LOG` holds a list, each wrapper
+appends one ``(kernel, bytes, flops)`` entry to it for every kernel it
+launches, in launch order: the kernel's name as the CUDA source spells it
+(the CUPTI trace's names contain it) and the bytes and operations its
+``cost`` function gives that launch (None where the launch's shapes do
+not tell them, as a data-dependent cost inside a capture). The profiler
+holds its list there while it runs, and a CUDA-graph capture its own
+(`_graphs`), so that a replay, which runs no Python, brings the costs of
+the launches it replays (as one list entry). Off (None, the default), a launch pays one
+global load and an ``is None`` test.
 """
 from __future__ import annotations
 
@@ -29,12 +40,13 @@ import threading
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
            "load", "check", "build_logs", "IMPLS", "use_plain", "aligned",
-           "on_device", "stream_of"]
+           "on_device", "stream_of", "LAUNCH_LOG", "item_size"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "torch_kernels"
@@ -43,6 +55,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+#: the launch log's receiver (a list) or None; see the module docstring
+LAUNCH_LOG = None
 
 
 def sources() -> list[Path]:
@@ -146,15 +161,28 @@ IMPLS = ("auto", "kernel", "plain")
 
 def use_plain(what, t, impl):
     """Whether a wrapper runs its plain version on ``t``: for
-    ``impl="plain"``, or "auto" on a CPU tensor. "kernel" on a CPU tensor
-    raises; otherwise the wrapper launches its kernel (or raises)."""
+    ``impl="plain"``, "auto" on a CPU tensor, or any ``impl`` on a fake
+    tensor (`analysis.audit`'s abstract pass: shapes and dtypes, no
+    data, so nothing to launch on). "kernel" on a CPU tensor raises;
+    otherwise the wrapper launches its kernel (or raises)."""
     if impl not in IMPLS:
         raise ValueError(f"{what}: unknown impl {impl!r}")
-    if impl == "plain" or (impl == "auto" and t.device.type != "cuda"):
+    if impl == "plain" or isinstance(t, FakeTensor) \
+            or (impl == "auto" and t.device.type != "cuda"):
         return True
     if t.device.type != "cuda":
         raise MXNetError(f"{what}: impl='kernel' needs CUDA tensors")
     return False
+
+
+def item_size(dtype):
+    """Bytes an element of a torch ``dtype`` (the cost functions')."""
+    return torch.empty((), dtype=dtype).element_size() \
+        if dtype not in _ITEM else _ITEM[dtype]
+
+
+_ITEM = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2,
+         torch.int32: 4, torch.int64: 8}
 
 
 def aligned(t):

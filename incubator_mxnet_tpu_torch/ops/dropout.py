@@ -36,12 +36,19 @@ from . import _build
 from ._philox import DeviceKey, dropout_scale, keep_mask, threshold
 
 __all__ = ["plain_dropout", "dropout_fwd", "dropout", "launches",
-           "fold_launches", "site_key_ptr", "KEY_CHUNK"]
+           "fold_launches", "site_key_ptr", "KEY_CHUNK", "cost",
+           "fold_cost", "FOLD_OPS_PER_SITE"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: site keys the fold kernel writes a launch: a step's first dropout site
 #: of each chunk launches it once (BERT-base's 49 sites take one chunk)
 KEY_CHUNK = 64
+
+#: the fold kernel's operations a site key: two Philox4x32-10 blocks of
+#: 10 rounds of ~12 integer operations (`PERF.md` counts them at the f32
+#: rate of the CUDA cores: the data sheet gives no integer rate outside
+#: the tensor cores)
+FOLD_OPS_PER_SITE = 2 * 10 * 12
 
 launches = 0
 fold_launches = 0
@@ -82,6 +89,20 @@ def _lib():
     return _LIB
 
 
+def cost(numel, dtype):
+    """``(bytes, flops)`` of one K5 launch on ``numel`` elements: x read,
+    y written, one operation an element (the keep test and the scale)."""
+    return 2 * numel * _build.item_size(dtype), numel
+
+
+def fold_cost(sites=None):
+    """``(bytes, flops)`` of one fold launch over ``sites`` site keys (a
+    chunk, :data:`KEY_CHUNK`): the base key's two words and t read, two
+    words a site written; :data:`FOLD_OPS_PER_SITE` a site."""
+    sites = KEY_CHUNK if sites is None else sites
+    return 3 * 8 + sites * 8, sites * FOLD_OPS_PER_SITE
+
+
 def site_key_ptr(key, device):
     """The device address of a `DeviceKey`'s two words in its scope's
     table of site keys on ``device``. The first site of a chunk of
@@ -107,6 +128,8 @@ def site_key_ptr(key, device):
                                    KEY_CHUNK, stream)
         _build.check(lib, err, "fold_keys")
         fold_launches += 1
+        if _build.LAUNCH_LOG is not None:
+            _build.LAUNCH_LOG.append(("fold_keys_kernel", *fold_cost()))
         key.tables[chunk] = table
     return table[row].data_ptr()
 
@@ -136,6 +159,9 @@ def _kernel(x, key, p):
                                  dropout_scale(p), stream)
     _build.check(lib, err, "dropout")
     launches += 1
+    if _build.LAUNCH_LOG is not None:
+        _build.LAUNCH_LOG.append(("dropout_kernel", *cost(x.numel(),
+                                                          x.dtype)))
     return y
 
 

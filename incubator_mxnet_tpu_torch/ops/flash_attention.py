@@ -41,7 +41,9 @@ for CPU tensors (or when the caller asks for ``impl="plain"``).
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones: a backward call that reaches the card launches three kernels, the
 delta pre-pass, the dq kernel and the dk/dv kernel (two when there are no
-keys).
+keys). :func:`cost` and :func:`bwd_cost` give a call's ``(bytes, flops)``
+(:func:`bwd_cost` also a launch's share of its three kernels), counting
+what this call's data needs: with ``lengths``, the live rows and keys.
 """
 from __future__ import annotations
 
@@ -55,16 +57,82 @@ from . import _build
 
 __all__ = ["MAX_HEAD_DIM", "plain_attention", "plain_attention_bwd",
            "flash_attention_with_lse", "flash_attention_bwd",
-           "flash_attention", "mha_flash", "launches", "bwd_launches"]
+           "flash_attention", "mha_flash", "launches", "bwd_launches",
+           "cost", "bwd_cost", "BWD_KERNELS"]
 
 #: Largest head size the kernels take (GPT and BERT use 64).
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LAYOUTS = ("bhtd", "bthd")
 
+#: the backward's kernels, in launch order (the dk/dv kernel only when
+#: there are keys)
+BWD_KERNELS = ("delta", "dq", "dkv")
+
 launches = 0
 bwd_launches = 0
 _LIB = None
+
+
+def _live(b, tq, tk, lengths, causal):
+    """(live query rows, live keys, live (row, key) pairs), summed over the
+    batch: a row or key at or past its length is not needed; a causal
+    call needs half the pairs. None when ``lengths`` lies on the card: the
+    host would have to wait for the card to read it (and cannot inside a
+    CUDA-graph capture), and a cost never costs a sync; pass the lengths
+    on the host to reckon such a call."""
+    if lengths is None:
+        rows, keys, pairs = b * tq, b * tk, b * tq * tk
+    else:
+        if isinstance(lengths, torch.Tensor) and lengths.device.type \
+                != "cpu":
+            return None
+        lens = [int(n) for n in torch.as_tensor(lengths).reshape(-1).tolist()]
+        rows = sum(min(n, tq) for n in lens)
+        keys = sum(min(n, tk) for n in lens)
+        pairs = sum(min(n, tq) * min(n, tk) for n in lens)
+    return rows, keys, pairs / 2 if causal else pairs
+
+
+def cost(b, h, tq, tk, d, dtype, lengths=None, causal=False):
+    """``(bytes, flops)`` of one forward call (K1): q, k and v read where
+    live, o written, the f32 lse written; two products (4 operations a
+    live (row, key) pair a unit of d). ``(None, None)`` when the lengths
+    cannot be read (see :func:`_live`)."""
+    live = _live(b, tq, tk, lengths, causal)
+    if live is None:
+        return None, None
+    rows, keys, pairs = live
+    item = _build.item_size(dtype)
+    nbytes = (rows + 2 * keys + b * tq) * h * d * item + b * h * tq * 4
+    return int(nbytes), int(4 * h * d * pairs)
+
+
+def bwd_cost(b, h, tq, tk, d, dtype, lengths=None, causal=False,
+             kernel=None):
+    """``(bytes, flops)`` of one backward call (K2): q, o and dO read for
+    the live rows, k and v for the live keys, dq, dk and dv written, the
+    f32 lse read and delta written; five products (10 operations a live
+    pair a unit of d). ``kernel`` (one of :data:`BWD_KERNELS`) gives that
+    launch's share: the delta pre-pass reads o and dO and writes delta;
+    the dq kernel reads q, k, v and lse, writes dq and makes three of the
+    products (s, dP, dq); the dk/dv kernel writes dk and dv and makes the
+    other two. ``(None, None)`` as :func:`cost`."""
+    live = _live(b, tq, tk, lengths, causal)
+    if live is None:
+        return None, None
+    rows, keys, pairs = live
+    item = _build.item_size(dtype)
+    stats = b * h * tq * 4
+    parts = {"delta": (2 * rows * h * d * item + stats, 0),
+             "dq": ((rows + 2 * keys + b * tq) * h * d * item + stats,
+                    6 * h * d * pairs),
+             "dkv": (2 * b * tk * h * d * item, 4 * h * d * pairs)}
+    if kernel is not None:
+        nbytes, flops = parts[kernel]
+        return int(nbytes), int(flops)
+    return (int(sum(p[0] for p in parts.values())),
+            int(sum(p[1] for p in parts.values())))
 
 
 def _dims(q, k, layout):
@@ -241,6 +309,9 @@ def _kernel(q, k, v, lengths, causal, sm_scale, layout):
             b, h, tq, tk, d, float(sm_scale), int(bool(causal)), stream)
     _build.check(lib, err, "flash_attention_fwd")
     launches += 1
+    if _build.LAUNCH_LOG is not None:
+        _build.LAUNCH_LOG.append(("flash_fwd_kernel", *cost(
+            b, h, tq, tk, d, q.dtype, lengths, causal)))
     return o, lse
 
 
@@ -270,6 +341,10 @@ def _kernel_bwd(q, k, v, o, lse, do, lengths, causal, sm_scale, layout):
             b, h, tq, tk, d, float(sm_scale), int(bool(causal)), stream)
     _build.check(lib, err, "flash_attention_bwd")
     bwd_launches += 3 if tk else 2  # delta, dq, then dk/dv over the keys
+    if _build.LAUNCH_LOG is not None:
+        for part in BWD_KERNELS[:3 if tk else 2]:
+            _build.LAUNCH_LOG.append((f"flash_bwd_{part}_kernel", *bwd_cost(
+                b, h, tq, tk, d, q.dtype, lengths, causal, kernel=part)))
     return dq, dk, dv
 
 

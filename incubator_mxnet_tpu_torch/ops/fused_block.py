@@ -43,7 +43,9 @@ kernels take (casting h to f32 would add a pass and 2 bytes an element).
 ones: a backward call that reaches the card launches two kernels, the row
 kernel and the reduction of its dgamma/dbeta partials.
 ``layout_launches`` and ``bwd_layout_launches`` count them by layout
-(`ops.layer_norm.layout_name`).
+(`ops.layer_norm.layout_name`). :func:`cost` and :func:`bwd_cost` give
+a call's ``(bytes, flops)`` (each input read once, each output written
+once), :func:`bwd_cost` also a launch's share of its two kernels.
 
 **K6.** Port of `gelu_dropout` (:366) with its kernels `_gd_fwd_kernel`
 (:289) and `_gd_bwd_kernel` (:298), launched through `_gd_call` (:311),
@@ -65,7 +67,8 @@ version within a few f32 roundings, not bit for bit. At p = 0 the kernel
 still runs, without drawing a mask, as `_gd_call` does
 (``use_rng=False``); at p = 1 the result and the gradient are zeros and
 nothing is launched. The counters
-are ``gd_launches`` and ``gd_bwd_launches``.
+are ``gd_launches`` and ``gd_bwd_launches``; :func:`gd_cost` gives a
+launch's ``(bytes, flops)``.
 
 **Keys.** A key is two host words or, inside `random.trace_key_scope`
 (a step replayed as a CUDA graph), an `ops._philox.DeviceKey`: K3 and
@@ -87,8 +90,9 @@ from . import _build
 from ._philox import DeviceKey, dropout_scale, keep_mask, threshold
 from .dropout import site_key_ptr
 from .layer_norm import (BWD_KERNELS, check_kernel_args, layer_norm_bwd,
-                         layer_norm_fwd, layout_name, plain_layer_norm,
-                         plain_ln_grads, row_blocks, sm_count, use_plain)
+                         layer_norm_fwd, layout_name, log_bwd,
+                         plain_layer_norm, plain_ln_grads, row_blocks,
+                         sm_count, use_plain)
 
 __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "residual_dropout_ln_fwd", "residual_dropout_ln_bwd",
@@ -96,11 +100,20 @@ __all__ = ["plain_residual_dropout_ln", "plain_residual_dropout_ln_bwd",
            "layout_launches", "bwd_layout_launches",
            "plain_gelu_dropout", "plain_gelu_dropout_bwd", "gelu_dropout_fwd",
            "gelu_dropout_bwd", "gelu_dropout", "gd_launches",
-           "gd_bwd_launches"]
+           "gd_bwd_launches", "cost", "bwd_cost", "gd_cost",
+           "FWD_OPS", "BWD_OPS", "GD_FWD_OPS", "GD_BWD_OPS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # csrc/common.cuh LnMode
 _ADD, _DROP = 1, 2
+
+#: operations an element: K3's forward (the residual sum and its dropout
+#: on top of LayerNorm's 8) and backward (dh's mask and the sum on top of
+#: its 12); K6's forward and backward (f32, on the CUDA cores: an erff or
+#: expf counted as its ~10 multiply-adds, Philox's integer work not
+#: counted), as `PERF.md`'s bounds count them
+FWD_OPS, BWD_OPS = 10, 16
+GD_FWD_OPS, GD_BWD_OPS = 20, 40
 
 launches = 0
 bwd_launches = 0
@@ -179,6 +192,45 @@ def _lib():
     return _LIB
 
 
+def cost(rows, feat, x_dtype, h_dtype, param_dtype):
+    """``(bytes, flops)`` of one K3 forward call on (rows, feat) x and h:
+    x and h read, y written, gamma and beta read, the f32 mean and rstd
+    written; :data:`FWD_OPS` operations an element."""
+    ix, ih, ip = (_build.item_size(d) for d in (x_dtype, h_dtype,
+                                                   param_dtype))
+    return ((2 * ix + ih) * rows * feat + 8 * rows + 2 * feat * ip,
+            FWD_OPS * rows * feat)
+
+
+def bwd_cost(rows, feat, x_dtype, h_dtype, param_dtype, kernel=None):
+    """``(bytes, flops)`` of one K3 backward call: x, h and dy read, dx
+    and dh written, the statistics and gamma read, dgamma and dbeta
+    written; :data:`BWD_OPS` operations an element. ``kernel`` "rows" or
+    "reduce" gives that launch's share, as `ops.layer_norm.bwd_cost`
+    splits it."""
+    ix, ih, ip = (_build.item_size(d) for d in (x_dtype, h_dtype,
+                                                   param_dtype))
+    rows_part = ((3 * ix + 2 * ih) * rows * feat + 8 * rows + feat * ip,
+                 BWD_OPS * rows * feat)
+    reduce_part = (2 * feat * ip, 0)
+    if kernel == "rows":
+        return rows_part
+    if kernel == "reduce":
+        return reduce_part
+    return rows_part[0] + reduce_part[0], rows_part[1]
+
+
+def gd_cost(numel, dtype, bwd=False):
+    """``(bytes, flops)`` of one K6 launch on ``numel`` elements: u read
+    and the output written (forward), u and dy read and du written
+    (backward); :data:`GD_FWD_OPS` or :data:`GD_BWD_OPS` operations an
+    element."""
+    item = _build.item_size(dtype)
+    if bwd:
+        return 3 * numel * item, GD_BWD_OPS * numel
+    return 2 * numel * item, GD_FWD_OPS * numel
+
+
 def _codes(x2d, h2d, gamma):
     """The C entries' dtype codes of x, h and gamma."""
     return _DTYPES[x2d.dtype], _DTYPES[h2d.dtype], _DTYPES[gamma.dtype]
@@ -221,6 +273,9 @@ def _kernel(x2d, h2d, gamma, beta, key, p, eps):
                 stream)
     _build.check(lib, err, "residual_dropout_ln_fwd")
     launches += 1
+    if _build.LAUNCH_LOG is not None:
+        _build.LAUNCH_LOG.append(("ln_fwd_kernel", *cost(
+            rows, feat, x2d.dtype, h2d.dtype, gamma.dtype)))
     layout_launches[layout_name(x2d.dtype, gamma.dtype, h2d.dtype)] += 1
     return y, stats[0], stats[1]
 
@@ -259,6 +314,9 @@ def _kernel_bwd(x2d, h2d, dy2d, mean, rstd, gamma, key, p):
                 *_codes(x2d, h2d, gamma), mode, *args, *key_args, stream)
     _build.check(lib, err, "residual_dropout_ln_bwd")
     bwd_launches += BWD_KERNELS
+    if _build.LAUNCH_LOG is not None:
+        log_bwd(_build.LAUNCH_LOG, bwd_cost, rows, feat, x2d.dtype,
+                h2d.dtype, gamma.dtype)
     bwd_layout_launches[layout_name(x2d.dtype, gamma.dtype,
                                     h2d.dtype)] += BWD_KERNELS
     return dx, dh, dgb[0], dgb[1]
@@ -431,6 +489,9 @@ def _gd_kernel(u, dy, key, p):
         gd_launches += 1
     else:
         gd_bwd_launches += 1
+    if _build.LAUNCH_LOG is not None:
+        _build.LAUNCH_LOG.append(("gelu_dropout_kernel", *gd_cost(
+            u.numel(), u.dtype, bwd=dy is not None)))
     return out
 
 

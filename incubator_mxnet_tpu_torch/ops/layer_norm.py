@@ -40,6 +40,12 @@ kernels, the row kernel and the reduction of its dgamma/dbeta partials.
 ``layout_launches`` and ``bwd_layout_launches`` count the same launches by
 layout name (:func:`layout_name`), so a run can show which layout it
 took.
+
+:func:`cost` and :func:`bwd_cost` give a call's ``(bytes, flops)``: each
+input read once, each output written once, and the operations the
+function needs (`PERF.md`'s bound reckoning); :func:`bwd_cost` also a
+launch's share of the backward's two kernels. Each launch appends its
+share to the launch log (`_build.LAUNCH_LOG`) when one is open.
 """
 from __future__ import annotations
 
@@ -57,7 +63,8 @@ __all__ = ["MAX_FEATURES", "BWD_KERNELS", "LAYOUTS", "RESIDUAL_LAYOUTS",
            "column_sum_tol",
            "plain_layer_norm", "plain_ln_grads", "plain_layer_norm_bwd",
            "layer_norm_fwd", "layer_norm_bwd", "layer_norm", "launches",
-           "bwd_launches", "layout_launches", "bwd_layout_launches"]
+           "bwd_launches", "layout_launches", "bwd_layout_launches",
+           "cost", "bwd_cost", "FWD_OPS", "BWD_OPS"]
 
 #: Largest feature size the kernels take: 32 lanes x 32 float4 vectors
 #: (f32) or 16 eight-wide vectors (bf16, f16) held in registers per row.
@@ -89,6 +96,11 @@ RESIDUAL_LAYOUTS = ((torch.float32,) * 3, (torch.bfloat16,) * 3,
                     (torch.float32, torch.bfloat16, torch.float32),
                     (torch.float16,) * 3,
                     (torch.float32, torch.float16, torch.float32))
+
+#: operations an element of the forward (mean, centring, variance, scale
+#: and shift) and of the backward (x-hat, the two row sums, dx, dgamma and
+#: dbeta), as `PERF.md`'s bounds count them
+FWD_OPS, BWD_OPS = 8, 12
 
 launches = 0
 bwd_launches = 0
@@ -128,6 +140,35 @@ def layout_name(x_dtype, param_dtype, h_dtype=None):
         return _SHORT[x_dtype]
     h = "" if h_dtype is None else f", {_SHORT[h_dtype]} h"
     return f"{_SHORT[x_dtype]} x{h}, {_SHORT[param_dtype]} gamma"
+
+
+def cost(rows, feat, x_dtype, param_dtype=None):
+    """``(bytes, flops)`` of one forward call (K4) on a (rows, feat) x: x
+    read and y written, gamma and beta read, the f32 mean and rstd
+    written; :data:`FWD_OPS` operations an element."""
+    ix = _build.item_size(x_dtype)
+    ip = _build.item_size(x_dtype if param_dtype is None else param_dtype)
+    return (2 * rows * feat * ix + 8 * rows + 2 * feat * ip,
+            FWD_OPS * rows * feat)
+
+
+def bwd_cost(rows, feat, x_dtype, param_dtype=None, kernel=None):
+    """``(bytes, flops)`` of one backward call (K4b): x and dy read, dx
+    written, the statistics and gamma read, dgamma and dbeta written;
+    :data:`BWD_OPS` operations an element. ``kernel`` "rows" or "reduce"
+    gives that launch's share: the row kernel everything but the
+    dgamma/dbeta writes, which are the reduction's (its partials are the
+    call's own scratch, counted by neither)."""
+    ix = _build.item_size(x_dtype)
+    ip = _build.item_size(x_dtype if param_dtype is None else param_dtype)
+    rows_part = (3 * rows * feat * ix + 8 * rows + feat * ip,
+                 BWD_OPS * rows * feat)
+    reduce_part = (2 * feat * ip, 0)
+    if kernel == "rows":
+        return rows_part
+    if kernel == "reduce":
+        return reduce_part
+    return rows_part[0] + reduce_part[0], rows_part[1]
 
 
 def plain_layer_norm(x2d, gamma, beta, eps=1e-5):
@@ -292,6 +333,9 @@ def _kernel(x2d, gamma, beta, eps):
             _build.stream_of(dev))
     _build.check(lib, err, "layer_norm_fwd")
     launches += 1
+    if _build.LAUNCH_LOG is not None:
+        _build.LAUNCH_LOG.append(
+            ("ln_fwd_kernel", *cost(rows, feat, x2d.dtype, gamma.dtype)))
     layout_launches[layout_name(x2d.dtype, gamma.dtype)] += 1
     return y, stats[0], stats[1]
 
@@ -320,8 +364,19 @@ def _kernel_bwd(x2d, dy2d, mean, rstd, gamma):
             _build.stream_of(x2d.device))
     _build.check(lib, err, "layer_norm_bwd")
     bwd_launches += BWD_KERNELS
+    if _build.LAUNCH_LOG is not None:
+        log_bwd(_build.LAUNCH_LOG, bwd_cost, rows, feat, x2d.dtype,
+                gamma.dtype)
     bwd_layout_launches[layout_name(x2d.dtype, gamma.dtype)] += BWD_KERNELS
     return dx, dgb[0], dgb[1]
+
+
+def log_bwd(log, costs, *args):
+    """Append a row backward's two launches to the launch log ``log``:
+    the row kernel and the reduction of its partials, their shares of
+    ``costs(*args, kernel=...)``."""
+    log.append(("ln_bwd_kernel", *costs(*args, kernel="rows")))
+    log.append(("ln_partials_reduce_kernel", *costs(*args, kernel="reduce")))
 
 
 def use_plain(what, x2d, impl):

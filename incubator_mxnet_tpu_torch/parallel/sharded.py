@@ -45,7 +45,10 @@ is unused, as in the reference (:203). ``mesh``, ``param_shardings``,
 
 Observability (reference :173-176, :313-341): each capture (on a CPU net,
 the first step of each input signature) is an entry of the program
-ledger under ``"train.DataParallel.step"`` (`telemetry.compiles`), and
+ledger under ``"train.DataParallel.step"`` (`telemetry.compiles`), with
+the FLOPs of its eager step (counted while the ledger is on) and its
+kernels' costs from the capture's launch log; the capture's private
+memory pool is the census owner ``"graph:train.DataParallel.step"``; and
 the parameters and the optimizer state are the device-memory census
 owners ``"train.params"`` and ``"train.optimizer"`` (`telemetry.hbm`).
 As in the reference, the step charges no goodput state.
@@ -136,6 +139,7 @@ class _Capture:
         self.calls = 0
         self.graph = None
         self.loss = None
+        self.flops = None   # the eager step's torch FLOPs (ledger on)
 
 
 class DataParallel:
@@ -269,31 +273,40 @@ class DataParallel:
         return cap.loss.clone()
 
     def _eager(self, cap, args):
-        """A warm-up step: the step function on a side stream."""
-        return self._side.run(self.device, lambda: self._step_fn(
-            *args, cap.x, cap.y).clone())
+        """A warm-up step: the step function on a side stream (its torch
+        FLOPs counted for the ledger while the ledger is on)."""
+        def run():
+            return self._step_fn(*args, cap.x, cap.y).clone()
+
+        if not _compiles.is_enabled():
+            return self._side.run(self.device, run)
+        loss, cap.flops = self._side.run(
+            self.device, lambda: _graphs.count_flops(run))
+        return loss
 
     def _capture(self, cap, args):
         t0 = time.perf_counter()
         try:
             cap.graph, cap.loss = _graphs.capture(
                 lambda: self._step_fn(*args, cap.x, cap.y),
-                "DataParallel: the step")
+                "DataParallel: the step",
+                owner="graph:train.DataParallel.step")
         except MXNetError:
             self.optimizer.num_update -= 1
             cap.calls -= 1
             raise
         self.captures += 1
-        self._ledger(t0, cap.x, cap.y)
+        self._ledger(t0, cap.x, cap.y, cap.flops, cap.graph.launch_log)
 
     @staticmethod
-    def _ledger(t0, x, y):
+    def _ledger(t0, x, y, flops=None, launch_log=None):
         """One program-ledger entry for the step just built (a capture,
         or a CPU net's first step of a signature)."""
         if _compiles.is_enabled():
-            _compiles.record_compile("train.DataParallel.step",
+            _compiles.record_capture("train.DataParallel.step",
                                      time.perf_counter() - t0, args=(x, y),
-                                     donate=(0, 2, 3))
+                                     donate=(0, 2, 3), flops=flops,
+                                     launch_log=launch_log)
     def rebuild(self, mesh=None, data_axis=None, param_shardings=None):  # noqa: ARG002
         raise MXNetError(f"DataParallel.rebuild {_NOT_PORTED}")
 

@@ -75,9 +75,12 @@ the engine builds (a captured step, or on a CPU model a step's first call
 under new weights, and a new prefill bucket's first eager run) is one
 entry of the program ledger (`telemetry.compiles`) under
 ``"{census_name}.{prefill,draft_prefill,decode,verify,draft}"``, so the
-ledger counts what `xla_program_count` counts. The sharding pre-flight
-and `hbm_crosscheck` (shardcheck's SC006) are not ported yet
-(`ROADMAP.md` §1 items 9 and 10).
+ledger counts what `xla_program_count` counts; a captured step's entry
+carries the FLOPs of the eager step before it and its kernels' costs
+(`_graphs`), and its private memory pool is the census owner
+``"graph:{census_name}.{step}"``. The sharding pre-flight and
+`hbm_crosscheck` (shardcheck's SC006) are not ported yet (`ROADMAP.md`
+§1 item 9).
 
 Stale-row safety (the reference's argument, per page): position ``p`` of
 a slot enters the mask only once the slot's ``pos`` reaches ``p``, and
@@ -97,6 +100,7 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
+from .. import _graphs
 from ..base import MXNetError
 from ..contrib.quantization import quantize_symmetric
 from ..models.decoding import (GPTDecoder, NgramProposer, _t, bucket_chunk,
@@ -548,6 +552,7 @@ class SlotDecoder:
         self._builds = 0            # programs built: graphs, or CPU fps
         self._program_fp = {}       # step name -> weight fingerprint
         self._graphs = {}           # step name -> (CUDAGraph, its output)
+        self._warm_flops = {}       # step name -> its eager step's FLOPs
         self.captures = 0           # graphs captured (card only)
         self.captures_by_step = dict.fromkeys(_STEPS, 0)
 
@@ -993,7 +998,8 @@ class SlotDecoder:
                 self._ledger("draft_prefill", t0, args, bucket, out)
         return int(first[0]), bucket, pad
 
-    def _ledger(self, kind, t0, args, bucket=None, out=None):
+    def _ledger(self, kind, t0, args, bucket=None, out=None, flops=None,
+                launch_log=None):
         """One program-ledger entry (`telemetry.compiles`) for a program
         this engine just built, its wall counted from ``t0``: a captured
         step, a CPU model's step under new weights, or a new prefill
@@ -1003,9 +1009,10 @@ class SlotDecoder:
         if _compiles.is_enabled():
             if out is not None:
                 out.cpu()
-            _compiles.record_compile(
+            _compiles.record_capture(
                 f"{self.census_name}.{kind}", time.perf_counter() - t0,
-                args=args, bucket=bucket)
+                args=args, bucket=bucket, flops=flops,
+                launch_log=launch_log)
 
     # -- the replayed steps -------------------------------------------------
 
@@ -1172,18 +1179,21 @@ class SlotDecoder:
 
     def _capture(self, name, fn, args):
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = _graphs.Graph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with _graphs.logging_launches(graph), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 out = fn(*args)
         except Exception as e:
             raise MXNetError(f"SlotDecoder: capturing the {name} step as a "
                              f"CUDA graph failed: {e}") from e
+        _graphs.register_pool(graph, f"graph:{self.census_name}.{name}")
         self._graphs[name] = (graph, out)
         self.captures += 1
         self.captures_by_step[name] += 1
         self._builds += 1
-        self._ledger(name, t0, args)
+        self._ledger(name, t0, args, flops=self._warm_flops.pop(name, None),
+                     launch_log=graph.launch_log)
 
     def _run_step(self, name, args):
         """Run the step ``name`` ("decode", "verify", "draft") on its
@@ -1206,7 +1216,12 @@ class SlotDecoder:
             self._graphs.pop(name, None)
             self._program_fp[name] = fp
             with torch.cuda.device(self._device):
-                return self._eager_on_side_stream(fn, args)
+                if not _compiles.is_enabled():
+                    return self._eager_on_side_stream(fn, args)
+                # the ledger's FLOPs of the graph captured next
+                out, self._warm_flops[name] = self._eager_on_side_stream(
+                    lambda *a: _graphs.count_flops(lambda: fn(*a)), args)
+                return out
         if name not in self._graphs:
             with torch.cuda.device(self._device):
                 self._capture(name, fn, args)
@@ -1329,7 +1344,7 @@ class SlotDecoder:
         `MXNetError`."""
         raise MXNetError(
             "SlotDecoder.hbm_crosscheck needs shardcheck's SC006 static "
-            "estimate, which is not ported yet (ROADMAP.md §1 item 10); "
+            "estimate, which is not ported yet (ROADMAP.md §1 item 9); "
             "telemetry.hbm.census() gives the census half")
 
     def xla_program_count(self):

@@ -21,19 +21,30 @@
   card), the growth watchdog (``MXNET_MEMWATCH_INTERVAL``) and the OOM
   post-mortem (``MXNET_OOM_POSTMORTEM``);
 - `compiles`: the ledger of every program built (a CUDA-graph capture,
-  a new prefill bucket's first run) with recompile forensics.
+  a new prefill bucket's first run) with recompile forensics, a
+  capture's FLOPs and its kernels' bytes;
+- `stages`: the op funnel's per-stage µs (dead branches when off);
+- `roofline`: the profiler's device trace as phases of bytes against
+  time against the card's memory rate;
+- `kernels`: the per-kernel census of the device trace, roofline
+  placement per kernel (``bound_by``, an unknown-bytes kernel never read
+  as fast), the program-ledger join, `program_mfu` and `diff_census`;
+- `monitor`: `Monitor` (per-tensor health stats, one batched host
+  sync), `install_nan_hook()` (eager ops, and a device flag inside a
+  CUDA-graph capture), health checks and the rank statistics.
 
 Importing the package arms the NDArray host->device inlet
 (``mx_h2d_bytes_total``, `registry.add_h2d_bytes`).
 
 Every probe is a dead branch until the plane is armed
 (``MXNET_TELEMETRY=1`` at import, or each module's ``enable()``). The
-profiler-bound modules (roofline, kernel census, the health monitor,
-the fleet plane) are not ported yet (`ROADMAP.md`).
+fleet plane (the cross-rank view) is `ROADMAP.md` §1 item 9.
 """
 from . import locks  # noqa: I001  (first: tracked_lock feeds the rest)
 from . import (anatomy, burnrate, capacity, compiles, goodput, hbm,
-               registry, slo, timeseries, tracing)
+               kernels, monitor, registry, roofline, slo, stages,
+               timeseries, tracing)
+from .monitor import Monitor, install_nan_hook
 
 # arm the host->device byte inlet (a counter inc per transfer: rare
 # events, so always on once telemetry is imported)
@@ -42,4 +53,6 @@ from ..ndarray import ndarray as _nd_mod  # noqa: E402
 _nd_mod._H2D_HOOK = registry.add_h2d_bytes
 
 __all__ = ["registry", "locks", "tracing", "capacity", "anatomy", "slo",
-           "timeseries", "burnrate", "goodput", "hbm", "compiles"]
+           "timeseries", "burnrate", "goodput", "hbm", "compiles",
+           "stages", "roofline", "kernels", "monitor", "Monitor",
+           "install_nan_hook"]

@@ -28,11 +28,17 @@ the signature is the same: new weights, a new pool), plus a span
 annotation and a trace event. ``weak_type`` is a jax notion; torch
 tensors never carry it.
 
-XLA's own accounting has no torch counterpart: an entry's ``flops``,
-``bytes_accessed``, ``memory`` (argument/output/temp bytes, the
-input/output alias map) and ``hlo_fingerprint`` are None, and so are the
-rollup's ``flops``, ``bytes_accessed``, ``peak_bytes`` and
-``last_fingerprint``. ``donate`` is kept when a caller passes it.
+XLA's cost analysis has a partial counterpart: an entry for a captured
+graph carries ``flops``, the torch operations' FLOPs of the eager run
+that precedes the capture (``torch.utils.flop_counter``) plus the port
+kernels' FLOPs from the capture's launch log (`_graphs`), and
+``bytes_accessed``, the port kernels' bytes from that log (no counter
+gives the torch operations' bytes); each is None where nothing counted
+it (the CPU's eager entries, a prefill bucket). ``memory`` and
+``hlo_fingerprint`` have no torch counterpart and stay None, as do the
+rollup's ``peak_bytes`` and ``last_fingerprint``; the rollup's ``flops``
+and ``bytes_accessed`` are the last entry's that has them. ``donate`` is
+kept when a caller passes it.
 
 `instrument_jit` and `ledgered_jit` keep their names as thin wrappers over
 the same seam: they record the first call of each distinct signature of a
@@ -52,7 +58,8 @@ from . import registry, tracing
 from .locks import tracked_lock
 
 __all__ = ["enable", "disable", "is_enabled", "reset", "ledger",
-           "ledger_report", "record_compile", "signature_of",
+           "ledger_report", "record_compile", "record_capture",
+           "signature_of",
            "instrument_jit", "ledgered_jit", "diagnose",
            "OBSERVATORY_ENTRY_POINTS", "CAUSES"]
 
@@ -162,20 +169,48 @@ def record_compile(family, seconds, args=(), kwargs=None, fn=None,
     the first entry, run forensics against the previous one. Returns the
     entry dict (None when the observatory is disabled). Never raises.
     ``fn`` is accepted for the reference's signature; the port has no
-    compiler accounting to pull from it."""
+    compiler accounting to pull from it (`record_capture` takes a
+    capture's costs)."""
+    return record_capture(family, seconds, args=args, kwargs=kwargs,
+                          bucket=bucket, cache_key=cache_key, donate=donate,
+                          observe=observe)
+
+
+def record_capture(family, seconds, args=(), kwargs=None, flops=None,
+                   launch_log=None, bucket=None, cache_key=None,
+                   donate=None, observe=True):
+    """`record_compile` with a build's costs: ``flops``, the torch
+    operations' FLOPs of its warm-up run, and ``launch_log``, a capture's
+    launch log, whose kernels' costs are added (see the module doc)."""
     if not _ENABLED:
         return None
     try:
         return _record(family, seconds, args, kwargs, bucket, cache_key,
-                       donate, observe)
+                       donate, observe, flops, launch_log)
     except Exception:
         return None
 
 
+def _log_costs(flops, launch_log):
+    """(flops, bytes) of a build: the torch operations' FLOPs plus the
+    kernels' from the launch log; bytes from the log alone. A field no
+    source counted, or whose log holds a launch of unknown cost, is
+    None."""
+    if not launch_log:
+        return flops, None
+    k_bytes = [b for _k, b, _f in launch_log]
+    k_flops = [f for _k, _b, f in launch_log]
+    nbytes = None if None in k_bytes else int(sum(k_bytes))
+    if None in k_flops:
+        return None, nbytes
+    return int(flops or 0) + int(sum(k_flops)), nbytes
+
+
 def _record(family, seconds, args, kwargs, bucket, cache_key, donate,
-            observe):
+            observe, flops=None, launch_log=None):
     family = str(family)
     sig = signature_of(args, kwargs)
+    flops, nbytes = _log_costs(flops, launch_log)
     with _LOCK:
         entries = _LEDGER.setdefault(family, [])
         seen_buckets = _BUCKETS.setdefault(family, set())
@@ -197,8 +232,8 @@ def _record(family, seconds, args, kwargs, bucket, cache_key, donate,
             "bucket": bucket,
             "signature": sig,
             "donate": donate,
-            "flops": None,
-            "bytes_accessed": None,
+            "flops": flops,
+            "bytes_accessed": nbytes,
             "memory": None,
             "hlo_fingerprint": None,
             "cause": cause,
@@ -233,22 +268,27 @@ def ledger(family=None):
 
 
 def ledger_report():
-    """Per-family rollup: build count, total build seconds, the
-    recompile-cause histogram and the buckets seen; ``flops``,
-    ``bytes_accessed``, ``peak_bytes`` and ``last_fingerprint`` are None
-    (no compiler accounting in the port)."""
+    """Per-family rollup: build count, total build seconds, the last
+    known ``flops`` and ``bytes_accessed``, the recompile-cause histogram
+    and the buckets seen; ``peak_bytes`` and ``last_fingerprint`` are
+    None (no compiler accounting in the port)."""
     with _LOCK:
         out = {}
         for fam, entries in _LEDGER.items():
             causes: dict = {}
+            flops = nbytes = None
             for e in entries:
                 if e["cause"] != "first":
                     causes[e["cause"]] = causes.get(e["cause"], 0) + 1
+                if e["flops"] is not None:
+                    flops = e["flops"]
+                if e["bytes_accessed"] is not None:
+                    nbytes = e["bytes_accessed"]
             out[fam] = {
                 "compiles": len(entries),
                 "seconds": sum(e["seconds"] for e in entries),
-                "flops": None,
-                "bytes_accessed": None,
+                "flops": flops,
+                "bytes_accessed": nbytes,
                 "peak_bytes": None,
                 "causes": causes,
                 "buckets": sorted(_BUCKETS.get(fam, ()),

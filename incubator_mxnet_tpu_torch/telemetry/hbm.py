@@ -24,10 +24,14 @@ Owners claim **storages**, not tensors (the untyped storage's device and
 wins. Everything reads host-side allocator state: no probe syncs the
 card, so the census is safe from the timeseries sampler thread.
 
-What stays ``unattributed`` on the card: the CUDA graphs' private memory
-pools (a captured step's intermediates and outputs), cuBLAS workspaces,
-the engines' small step buffers (page table, step inputs) and anything no
-owner claims. No owner is invented for them.
+The CUDA graphs' private memory pools (a captured step's intermediates
+and outputs) belong to the graph that owns each pool: on the card the
+census reads the snapshot's segments and gives a pool's active blocks
+that no owner claimed to the owner the capture named
+(``"graph:<program>"``, `_graphs.register_pool`). What stays
+``unattributed``: cuBLAS workspaces, the engines' small step buffers
+(page table, step inputs) and anything no owner claims. No owner is
+invented for them.
 
 The census is exposed three ways, as in the reference: pull gauges
 ``mx_hbm_live_bytes_total`` / ``mx_hbm_live_bytes{owner=}`` /
@@ -183,27 +187,48 @@ def _claims(owners, device_type):
     return claim, owner_bytes, derived, detail
 
 
-def _card_sweep(claim, top_k):
-    """(total, n, tops) of the card: the caching allocator's counters and
-    (only when ``top_k``) its snapshot's active blocks."""
+def graph_pool_bytes(snapshot, pools, claimed):
+    """{owner: bytes} of the active blocks in the segments of the graphs'
+    private pools (``pools``: {pool id: owner}, `_graphs.pool_owners`)
+    whose address no owner claimed (``claimed``, a set of addresses)."""
+    out: dict = {}
+    for seg in snapshot:
+        who = pools.get(tuple(seg.get("segment_pool_id") or ()))
+        if who is None:
+            continue
+        for blk in seg.get("blocks", ()):
+            if blk.get("state") == "active_allocated" \
+                    and blk.get("address") not in claimed:
+                out[who] = out.get(who, 0) + int(blk.get("size", 0))
+    return out
+
+
+def _card_sweep(claim, top_k, pools=None):
+    """(total, n, tops, graph pools' bytes by owner) of the card: the
+    caching allocator's counters and (only when ``top_k`` or ``pools``)
+    its snapshot's active blocks."""
     total = n = 0
     for d in range(torch.cuda.device_count()):
         stats = torch.cuda.memory_stats(d)
         total += int(stats.get("allocated_bytes.all.current", 0))
         n += int(stats.get("active.all.current", 0))
-    tops = []
-    if top_k:
+    tops, by_pool = [], {}
+    if top_k or pools:
         by_addr = {key[2]: (who, shape, dtype)
                    for key, (who, _b, shape, dtype) in claim.items()
                    if key[0] == "cuda"}
-        for seg in torch.cuda.memory_snapshot():
+        snap = torch.cuda.memory_snapshot()
+        if pools:
+            by_pool = graph_pool_bytes(snap, pools, set(by_addr))
+        for seg in snap if top_k else ():
+            who = (pools or {}).get(tuple(seg.get("segment_pool_id") or ()))
             for blk in seg.get("blocks", ()):
                 if blk.get("state") != "active_allocated":
                     continue
-                who, shape, dtype = by_addr.get(
-                    blk.get("address"), (None, None, "?"))
-                tops.append((int(blk.get("size", 0)), shape, dtype, who))
-    return total, n, tops
+                owner, shape, dtype = by_addr.get(
+                    blk.get("address"), (who, None, "?"))
+                tops.append((int(blk.get("size", 0)), shape, dtype, owner))
+    return total, n, tops, by_pool
 
 
 def _cpu_sweep(claim, top_k):
@@ -227,7 +252,7 @@ def _cpu_sweep(claim, top_k):
         for key, (b, shape, dtype) in seen.items():
             who = claim.get(key)
             tops.append((b, shape, dtype, None if who is None else who[0]))
-    return total, len(seen), tops
+    return total, len(seen), tops, {}
 
 
 def census(top_k=8):
@@ -250,9 +275,17 @@ def census(top_k=8):
     claim, owner_bytes, derived, detail = _claims(
         owners, "cuda" if card else "cpu")
     try:
-        total, n, tops = (_card_sweep if card else _cpu_sweep)(claim, top_k)
+        if card:
+            from .. import _graphs
+
+            total, n, tops, by_pool = _card_sweep(claim, top_k,
+                                                  _graphs.pool_owners())
+        else:
+            total, n, tops, by_pool = _cpu_sweep(claim, top_k)
     except Exception:
-        total, n, tops = 0, 0, []
+        total, n, tops, by_pool = 0, 0, [], {}
+    for who, b in by_pool.items():
+        owner_bytes[who] = owner_bytes.get(who, 0) + b
     attributed = sum(owner_bytes.values())
     report = {
         "total": total,

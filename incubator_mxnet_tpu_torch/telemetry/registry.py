@@ -11,6 +11,17 @@ cells on demand. Series whose source of truth lives elsewhere (the
 serving pool's page occupancy) are pull gauges: a probe read at every
 `report()` / `exposition()`.
 
+Built-in series (reference :283-365): ``mx_step_time_seconds``
+(`STEP_TIME`, fed by `step()`), ``mx_examples_total`` (`EXAMPLES`),
+``mx_h2d_bytes_total`` (`H2D_BYTES`, fed by the NDArray inlet's
+``_H2D_HOOK``), ``mx_jit_compile_seconds`` (`JIT_COMPILE`) and the pull
+pair ``mx_jit_cache_hits_total`` / ``mx_jit_cache_misses_total``: the
+port's programs are CUDA graphs, so a hit is a graph replay and a miss a
+program build the ledger counted (a capture or a new prefill bucket,
+`telemetry.compiles`). `dump(path)` writes `report()` as JSON;
+``MXNET_TELEMETRY_DUMP=<path>[:interval_s]`` (`arm_textfile_dump`) keeps
+an `exposition()` snapshot in a file for a textfile scraper.
+
 The serving engine (`serve/`) owns ``mx_serve_ttft_seconds``,
 ``mx_serve_tokens_total``, ``mx_serve_queue_depth``,
 ``mx_serve_slot_occupancy``, ``mx_serve_page_occupancy``,
@@ -18,19 +29,22 @@ The serving engine (`serve/`) owns ``mx_serve_ttft_seconds``,
 ``mx_serve_evictions_total`` and ``mx_decode_bucket_pad_tokens_total``.
 `observe_compile` (reference :293) feeds ``mx_jit_compile_seconds`` from
 the program ledger (`telemetry.compiles`: a graph capture or a new
-prefill bucket's first run); the reference's jit-cache collector (:314)
-has no counterpart here.
+prefill bucket's first run).
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
 import re
+import sys
 import threading
 
 __all__ = ["counter", "gauge", "histogram", "register_collector",
-           "register_pull_gauge", "report", "exposition", "reset",
-           "observe_compile", "add_h2d_bytes", "Counter", "Gauge",
-           "Histogram"]
+           "register_pull_gauge", "report", "dump", "exposition", "reset",
+           "step", "observe_compile", "add_h2d_bytes", "Counter", "Gauge",
+           "Histogram", "arm_textfile_dump", "stop_textfile_dump",
+           "STEP_TIME", "EXAMPLES", "JIT_COMPILE", "H2D_BYTES"]
 
 _LOCK = threading.Lock()
 _METRICS: dict = {}          # (name, labels tuple) -> metric
@@ -211,12 +225,21 @@ def histogram(name, help="", labels=None, buckets=None):
     return _get_or_make(Histogram, name, help, labels, buckets=buckets)
 
 
+STEP_TIME = histogram("mx_step_time_seconds", "train-step wall time")
+EXAMPLES = counter("mx_examples_total", "examples processed")
+H2D_BYTES = counter("mx_h2d_bytes_total",
+                    "host->device transfer bytes at the NDArray inlet")
+# JIT_COMPILE is the unlabeled aggregate; per-program series are created
+# on demand by observe_compile()
+JIT_COMPILE = histogram("mx_jit_compile_seconds",
+                        "trace+compile wall time per program")
+
+
 def observe_compile(program, seconds):
     """Feed the program-build series: the unlabeled aggregate and a
     per-program one (called by `telemetry.compiles` at each ledger
     entry)."""
-    histogram("mx_jit_compile_seconds",
-              "trace+compile wall time per program").observe(seconds)
+    JIT_COMPILE.observe(seconds)
     histogram("mx_jit_compile_seconds", "trace+compile wall time",
               labels={"program": str(program)[:80]}).observe(seconds)
 
@@ -224,8 +247,15 @@ def observe_compile(program, seconds):
 def add_h2d_bytes(n):
     """Count ``n`` host->device bytes at the NDArray inlet (armed by the
     `telemetry` package's import)."""
-    counter("mx_h2d_bytes_total",
-            "host->device transfer bytes at the NDArray inlet").inc(n)
+    H2D_BYTES.inc(n)
+
+
+def step(seconds, examples=0):
+    """Record one train step: latency and examples (examples/s is
+    rate(mx_examples_total) or the step histogram's sum over count)."""
+    STEP_TIME.observe(seconds)
+    if examples:
+        EXAMPLES.inc(examples)
 
 
 def register_collector(fn):
@@ -258,6 +288,21 @@ def register_pull_gauge(name, probe, help="", labels=None):
     _pull.__name__ = f"pull_gauge[{series}]"
     register_collector(_pull)
     return _pull
+
+
+@register_collector
+def _jit_cache_collector():
+    """The port's program cache: hits are CUDA-graph replays (`_graphs`),
+    misses the program builds the ledger counted (captures and new
+    prefill buckets, `telemetry.compiles`)."""
+    out = {}
+    graphs = sys.modules.get("incubator_mxnet_tpu_torch._graphs")
+    if graphs is not None:
+        out["mx_jit_cache_hits_total"] = graphs.Graph.replays
+    comp = sys.modules.get("incubator_mxnet_tpu_torch.telemetry.compiles")
+    out["mx_jit_cache_misses_total"] = 0 if comp is None else sum(
+        r["compiles"] for r in comp.ledger_report().values())
+    return out
 
 
 def _log_collector_failure(fn, exc):
@@ -379,9 +424,87 @@ def exposition():
     return "\n".join(lines) + "\n"
 
 
+def dump(path):
+    """Write `report()` as JSON; returns the path."""
+    with open(path, "w") as f:
+        json.dump(report(), f, indent=2, sort_keys=True)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# MXNET_TELEMETRY_DUMP: periodic Prometheus-textfile snapshots
+# ---------------------------------------------------------------------------
+
+_TEXTFILE = {"path": None, "interval": None, "thread": None,
+             "stop": None}
+
+
+def _write_textfile(path):
+    """One atomic exposition() snapshot (tmp + os.replace, so a scraper
+    never reads a half-written file)."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(exposition())
+    os.replace(tmp, path)
+    return path
+
+
+def arm_textfile_dump(spec):
+    """Arm ``MXNET_TELEMETRY_DUMP=<path>[:interval_s]``: write
+    `exposition()` to `path` now and, when an interval is given, keep
+    refreshing it from a daemon thread (the node-exporter textfile
+    collector's pattern). Returns (path, interval). Re-arming replaces
+    the previous schedule."""
+    spec = str(spec)
+    path, interval = spec, None
+    if ":" in spec:
+        head, _, tail = spec.rpartition(":")
+        try:
+            interval = float(tail)
+            path = head
+        except ValueError:
+            path, interval = spec, None   # a colon inside the path itself
+    if interval is not None and interval <= 0:
+        interval = None
+    stop_textfile_dump()
+    _write_textfile(path)
+    log = logging.getLogger("incubator_mxnet_tpu_torch.telemetry")
+    if interval is None:
+        log.info("telemetry dump: one-shot exposition snapshot at %s", path)
+        _TEXTFILE.update(path=path, interval=None)
+        return path, None
+    stop = threading.Event()
+
+    def _loop():
+        while not stop.wait(interval):
+            try:
+                _write_textfile(path)
+            except OSError as e:
+                log.warning("telemetry dump to %s failed: %s", path, e)
+
+    t = threading.Thread(target=_loop, name="mx-telemetry-dump",
+                         daemon=True)
+    t.start()
+    _TEXTFILE.update(path=path, interval=interval, thread=t, stop=stop)
+    log.info("telemetry dump: exposition snapshots at %s every %.3gs",
+             path, interval)
+    return path, interval
+
+
+def stop_textfile_dump():
+    """Stop the periodic dump thread (tests / re-arming)."""
+    stop = _TEXTFILE.get("stop")
+    if stop is not None:
+        stop.set()
+        t = _TEXTFILE.get("thread")
+        if t is not None:
+            t.join(timeout=2.0)
+    _TEXTFILE.update(path=None, interval=None, thread=None, stop=None)
+
+
 def reset():
-    """Zero every registered series (tests). Pull collectors are not reset
-    (their values live elsewhere)."""
+    """Zero every registered series (tests). Built-ins stay registered;
+    pull collectors are not reset (their values live elsewhere)."""
     with _LOCK:
         metrics = list(_METRICS.values())
     for m in metrics:

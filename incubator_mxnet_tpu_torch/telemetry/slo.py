@@ -21,11 +21,10 @@ Results surface three ways, loudest last:
    other series): ``mx_slo_compliance{slo=...}``,
    ``mx_slo_error_budget_burn{slo=...}``, ``mx_slo_ok{slo=...}``;
 2. `violations()` → the violated subset with numbers attached;
-3. the health-monitor hook: in the reference `install_health_check()`
-   registers the default tracker with `telemetry.monitor`, so
-   `monitor.check()` also raises `MXNetError` on a burned error budget.
-   The port has no `monitor` yet (`ROADMAP.md` §1 item 10), so it raises
-   `MXNetError` saying so; `check()` is the loud form meanwhile.
+3. the health-monitor hook: `install_health_check()` registers the
+   default tracker with `telemetry.monitor`, so `monitor.check()` (the
+   call that already surfaces NaN findings) also raises `MXNetError` on
+   a burned error budget.
 
 Latency compliance is computed conservatively from histogram buckets:
 observations are counted good only up to the largest bucket boundary
@@ -289,14 +288,13 @@ def check():
 
 
 def install_health_check():
-    """The reference registers the default tracker with
-    `telemetry.monitor` here. The port has no `monitor` yet, so this
-    raises `MXNetError`; call `check()` for the loud form."""
-    from ..base import MXNetError
+    """Register the default tracker with `telemetry.monitor`: from now
+    on `monitor.check()` raises on a burned SLO budget as it raises on a
+    pending NaN finding. Idempotent; returns the tracker."""
+    from . import monitor
 
-    raise MXNetError(
-        "slo.install_health_check needs telemetry.monitor, which is not "
-        "ported yet (ROADMAP.md §1 item 10); call slo.check() instead")
+    monitor.add_health_check(_DEFAULT.check, name="slo")
+    return _DEFAULT
 
 
 # -- presets over the built-in series ---------------------------------------

@@ -52,12 +52,12 @@ postmortem carries the last N spans of context. The serving engine's and
 the gateway's ``step`` and the installed `sys.excepthook` call
 `maybe_flight_dump` — a no-op while tracing is off.
 
-Device lanes: the reference's `chrome_trace(include_device=True)` merges
-the device events its profiler captured on the last ``profiler.stop()``,
-a list that is empty before any device trace completes. The port has no
-profiler yet (`ROADMAP.md` §1 item 10), so its device-lane hook
-(`device_events`) returns that empty list, and the export holds the host
-spans only.
+Device lanes: `chrome_trace(include_device=True)` merges the device
+events the profiler captured on the last ``profiler.stop()``
+(`device_events`: the card's kernels, copies and sets from
+torch.profiler, rebased onto this module's epoch-µs clock), a list that
+is empty before any device trace completes and on a machine with no
+CUDA device.
 """
 from __future__ import annotations
 
@@ -437,19 +437,19 @@ def chrome_events(spans=None):
 
 
 def device_events():
-    """The device lanes of the last completed device trace, as Chrome
-    events on the spans' clock base. The reference reads them from its
-    profiler, and its list is empty before any device trace completes;
-    the port has no profiler yet (`ROADMAP.md` §1 item 10), so this is
-    that empty list."""
-    return []
+    """The device lanes of the last completed device trace
+    (`profiler.device_events()`), as Chrome events on the spans' clock
+    base; empty before any device trace completes."""
+    from .. import profiler
+
+    return profiler.device_events()
 
 
 def chrome_trace(include_device=True, spans=None):
     """One Chrome-trace payload: host spans (+ their instant events)
-    merged with the device lanes of `device_events` (none until the port
-    has a profiler). Both sides share the epoch-µs clock base, so request
-    spans sit directly above the device slices they caused."""
+    merged with the device lanes of `device_events`. Both sides share the
+    epoch-µs clock base, so request spans sit directly above the device
+    slices they caused."""
     events = chrome_events(spans)
     if include_device:
         events = events + device_events()

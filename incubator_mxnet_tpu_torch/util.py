@@ -186,10 +186,26 @@ _ENV_KNOBS = {
         "ServeEngine(draft=...) or Gateway registry.add(..., draft=...) "
         "(honored, this build's addition — see SERVING.md)"),
     "MXNET_TELEMETRY": (
-        "telemetry", "1 = span tracing, the lock witness, the program "
-        "ledger, the device-memory census and the goodput ledger on (the "
-        "capacity and anatomy ledgers arm themselves from it); 0/unset = "
-        "off with zero per-op cost (honored, this build's addition)"),
+        "telemetry", "1 = the funnel's stage probes, span tracing, the lock "
+        "witness, the program ledger, the device-memory census and the "
+        "goodput ledger on (the capacity and anatomy ledgers arm "
+        "themselves from it); raise / warn = the same plus the NaN guard "
+        "in that mode; 0/unset = off with zero per-op cost (honored, this "
+        "build's addition)"),
+    "MXNET_TELEMETRY_DUMP": (
+        "telemetry.registry.arm_textfile_dump", "<path>[:interval_s] — "
+        "atomic Prometheus exposition() snapshots to a textfile for "
+        "node-exporter scraping, refreshed every interval_s when given "
+        "(honored, this build's addition)"),
+    "MXNET_ANALYSIS": (
+        "analysis.audit", "warn|raise: program-auditor findings are logged "
+        "as warnings or raised as MXNetError; unset returns reports "
+        "silently (honored, this build's addition)"),
+    "MXNET_PROFILER_AUTOSTART": (
+        "profiler", "start the profiler at import (honored)"),
+    "MXNET_PROFILER_MODE": (
+        "profiler.set_config", "0 = device only (imperative op timing "
+        "off), 1 = all (honored at autostart)"),
     "MXNET_MEMWATCH_INTERVAL": (
         "telemetry.hbm.arm_memwatch", "seconds between HBM growth-watchdog "
         "census samples (daemon thread); warns on sustained unattributed "
@@ -346,9 +362,12 @@ def env_knobs():
 def _apply_env_config():
     """Honor the arming knobs at the package's import, as the reference's
     `_apply_env_config` does for the modules the port has: a truthy
-    ``MXNET_TELEMETRY`` arms span tracing, the lock witness, the program
-    ledger, the device-memory census and the goodput ledger (the capacity
-    and anatomy ledgers arm themselves from it at import);
+    ``MXNET_TELEMETRY`` arms the funnel's stage probes, span tracing, the
+    lock witness, the program ledger, the device-memory census and the
+    goodput ledger (the capacity and anatomy ledgers arm themselves from
+    it at import), and ``raise`` or ``warn`` the NaN guard in that mode;
+    ``MXNET_TELEMETRY_DUMP=<path>[:interval_s]`` the registry's textfile
+    snapshots;
     ``MXNET_GOODPUT`` arms the goodput ledger alone,
     ``MXNET_MEMWATCH_INTERVAL`` the memory watchdog's thread, and
     ``MXNET_FAULT_INJECT`` the chaos schedule. ``MXNET_OOM_POSTMORTEM`` is
@@ -356,13 +375,17 @@ def _apply_env_config():
     sampler at that module's import."""
     telem = os.environ.get("MXNET_TELEMETRY", "0")
     if telem and telem != "0":
-        from .telemetry import compiles, goodput, hbm, locks, tracing
+        from .telemetry import (compiles, goodput, hbm, locks, monitor,
+                                stages, tracing)
 
+        stages.enable()
         tracing.enable()
         locks.enable()
         compiles.enable()       # program ledger + recompile forensics
         hbm.enable()            # device-memory census gauges + OOM seams
         goodput.enable()        # training goodput ledger (lease seams)
+        if telem in ("raise", "warn"):
+            monitor.install_nan_hook(mode=telem)
     if os.environ.get("MXNET_GOODPUT", "0") not in ("0", ""):
         from .telemetry import goodput as _goodput
 
@@ -381,3 +404,15 @@ def _apply_env_config():
         from .fault import injection
 
         injection.configure_from_env()
+    dump_spec = os.environ.get("MXNET_TELEMETRY_DUMP")
+    if dump_spec:
+        from .telemetry import registry as _registry
+
+        try:
+            _registry.arm_textfile_dump(dump_spec)
+        except OSError as e:
+            import logging
+
+            logging.getLogger("incubator_mxnet_tpu_torch.telemetry").warning(
+                "MXNET_TELEMETRY_DUMP=%s: cannot write the snapshot: %s",
+                dump_spec, e)

@@ -2298,3 +2298,185 @@ def test_np4_linalg_random_and_legacy_io_on_the_card(dev, tmp_path):
     net.initialize(device=mx.gpu(0))
     net.load_parameters(path)
     assert torch.equal(net.weight.data()._data, a)
+
+
+# ---------------------------------------------------------------------------
+# the profiler, the kernel census and the NaN hook on the card
+# ---------------------------------------------------------------------------
+
+def _census_of(fn):
+    """The census (at the data sheet's H100 roofs) and trace meta of a
+    profiled ``fn()``, held: ``fn()`` runs inside ``pause()`` first, as a
+    profiling session after the process's first loses its first kernels'
+    records."""
+    from incubator_mxnet_tpu_torch import profiler
+    from incubator_mxnet_tpu_torch.telemetry import kernels
+
+    torch.cuda.synchronize()
+    profiler.start()
+    try:
+        profiler.pause()
+        for _ in range(16):     # up to 16 records have been lost
+            fn()
+        torch.cuda.synchronize()
+        profiler.resume()
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop()
+    return (kernels.census(peak_gbs=3350.0, peak_tflops=989.0),
+            profiler.trace_meta())
+
+
+def test_profiler_census_carries_each_launchs_cost(dev):
+    """Eager launches of K4, K5 and K1: each port kernel's census row has
+    its launches' bytes and FLOPs, the wrappers' cost() times its count,
+    and every launch joined to its event."""
+    x = torch.randn(64, 768, device=dev)
+    g, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    q = torch.randn(2, 4, 128, 64, device=dev, dtype=torch.bfloat16)
+
+    def run():
+        for _ in range(3):
+            ln.layer_norm_fwd(x, g, b)
+        dp.dropout_fwd(x, (1, 2), 0.1)
+        fa.flash_attention(q, q, q, causal=True)
+
+    cen, meta = _census_of(run)
+    assert meta["joined"] == meta["launch_log"] == 5
+    assert cen["meta"]["lost_launches"] == 0
+    rows = {r["name"]: r for r in cen["rows"]}
+    ln_row = next(r for n, r in rows.items() if "ln_fwd_kernel" in n)
+    assert ln_row["count"] == 3 and ln_row["bytes_known"] == 3
+    assert ln_row["bytes"] == 3 * ln.cost(64, 768, torch.float32)[0]
+    fl = next(r for n, r in rows.items() if "flash_fwd_kernel" in n)
+    assert (fl["bytes"], fl["flops"]) == fa.cost(2, 4, 128, 128, 64,
+                                                 torch.bfloat16,
+                                                 causal=True)
+    assert fl["bound_by"] in ("memory", "compute")
+
+
+def test_graph_replay_brings_its_capture_log(dev):
+    """A captured graph runs no Python when it replays: a profiled replay
+    carries the costs of the launches its capture logged."""
+    from incubator_mxnet_tpu_torch import _graphs
+
+    x = torch.randn(8, 768, device=dev)
+    g, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    ln.layer_norm_fwd(x, g, b)
+    graph, _ = _graphs.capture(lambda: ln.layer_norm_fwd(x, g, b)[0],
+                               "test")
+    assert [k for k, _b, _f in graph.launch_log] == ["ln_fwd_kernel"]
+    cen, meta = _census_of(lambda: (graph.replay(), graph.replay()))
+    assert meta["joined"] == 2 and cen["meta"]["lost_launches"] == 0
+    row = next(r for r in cen["rows"] if "ln_fwd_kernel" in r["name"])
+    assert row["count"] == 2
+    assert row["bytes"] == 2 * ln.cost(8, 768, torch.float32)[0]
+
+
+def _syncs(fn):
+    """The synchronising CUDA calls ``fn()`` makes outside torch's own
+    files, as the sync debug mode warns of them: the (file, line) that
+    made each (torch's own: entering the mode warns once)."""
+    import os
+    import warnings
+
+    own = os.path.dirname(torch.__file__)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [(w.filename, w.lineno) for w in seen
+            if "synchroniz" in str(w.message)
+            and not w.filename.startswith(own)]
+
+
+def test_profiler_adds_no_sync_for_lengths_on_the_card(dev):
+    """K1 with its lengths on the card: the launch log reads no lengths
+    (the row's cost is unknown), so a profiled call syncs as often as an
+    unprofiled one."""
+    from incubator_mxnet_tpu_torch import profiler
+
+    q = torch.randn(2, 4, 128, 64, device=dev, dtype=torch.bfloat16)
+    lengths = torch.tensor([100, 128], device=dev, dtype=torch.int32)
+
+    def call():
+        fa.flash_attention(q, q, q, lengths=lengths)
+
+    call()
+    plain = _syncs(call)
+    profiler.start()
+    try:
+        profiled = _syncs(call)
+    finally:
+        profiler.stop()
+    assert len(profiled) == len(plain), (plain, profiled)
+    assert fa.cost(2, 4, 128, 128, 64, torch.bfloat16, lengths) == \
+        (None, None)
+    assert fa.cost(2, 4, 128, 128, 64, torch.bfloat16, lengths.cpu())[0] \
+        > 0
+
+
+def test_audit_leaves_another_threads_launches_alone(dev):
+    """A kernel launched on a second thread during both of audit's passes
+    is launched (its counter moves, its output is the kernel's), and the
+    thread's host read is no finding of the audited program."""
+    import threading
+
+    import incubator_mxnet_tpu_torch as mx
+
+    x = torch.randn(64, 768, device=dev)
+    g, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    want = ln.layer_norm_fwd(x, g, b, impl="kernel")[0]
+    outs = []
+
+    def launch():
+        y = ln.layer_norm_fwd(x, g, b)[0]
+        outs.append((torch.equal(y, want), float(y.sum().item())))
+
+    def f(a):
+        t = threading.Thread(target=launch)
+        t.start()
+        t.join()
+        return (a * 2).sum()
+
+    before = ln.launches
+    rep = mx.analysis.audit(f, mx.np.ones((4, 4), device=dev))
+    assert ln.launches - before == 2
+    assert [ok for ok, _ in outs] == [True, True]
+    assert rep.by_kind("host-sync") == []
+
+
+def test_nan_hook_guards_a_capture_without_a_sync(dev):
+    """install_nan_hook inside a hybridize capture: the capture succeeds
+    (no host sync), a clean replay passes check(), a replay with a NaN
+    input fails it naming the op."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.telemetry import monitor
+
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(16, in_units=8),
+            gluon.nn.LayerNorm(in_channels=16))
+    net.initialize(device=dev)
+    net.hybridize()
+    x = mx.np.ones((4, 8), device=dev)
+    monitor.install_nan_hook("warn")
+    try:
+        for _ in range(3):
+            net(x)
+        assert net._cached_graph.captures == 1
+        monitor.check()
+        bad = x.asnumpy()
+        bad[0, 0] = float("nan")
+        net(mx.np.array(bad, device=dev))
+        with pytest.raises(MXNetError, match="fully_connected' \\(graph\\)"):
+            monitor.check()
+    finally:
+        monitor.uninstall_nan_hook()
+        monitor.clear_nan_findings()

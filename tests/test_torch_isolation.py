@@ -341,3 +341,49 @@ def test_np_remainder_modules_stand_alone(tmp_path):
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+PROFILER_AND_ANALYSIS = ("profiler", "analysis", "analysis.auditor",
+                         "analysis.findings", "telemetry.kernels",
+                         "telemetry.roofline", "telemetry.stages",
+                         "telemetry.monitor", "telemetry.registry",
+                         "_graphs")
+
+
+def test_profiler_and_analysis_modules_stand_alone():
+    """The profiler, the kernel census and roofline, the funnel's stages,
+    the monitor and the auditor each import alone in a fresh interpreter
+    without loading jax or the reference package; then a profiled,
+    staged, monitored and audited program runs on the CPU, still without
+    them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {PROFILER_AND_ANALYSIS!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import profiler\n"
+        "from incubator_mxnet_tpu_torch.telemetry import (kernels, monitor,"
+        " roofline, stages)\n"
+        "with mx.cpu():\n"
+        "    a = mx.np.ones((4, 4))\n"
+        "    profiler.start(); stages.enable()\n"
+        "    monitor.install_nan_hook('raise')\n"
+        "    b = mx.np.dot(a, a) + 1\n"
+        "    profiler.stop(); stages.disable()\n"
+        "    assert 'dot' in profiler.dumps()\n"
+        "    assert stages.stage_report()['dispatch']['count'] >= 2\n"
+        "    assert kernels.census()['rows'] == []\n"
+        "    assert roofline.from_profiler()['rows'] == []\n"
+        "    rep = mx.analysis.audit(lambda x: x * float(x.sum()), a)\n"
+        "    assert rep.by_kind('host-sync')\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

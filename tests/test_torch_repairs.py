@@ -28,7 +28,6 @@ INCIDENTAL = {"os", "re", "functools", "onp", "annotations", "Callable",
               "next_key"}
 
 ITEM_9 = "ROADMAP.md §1 item 9 (distributed training, sharded serving)"
-ITEM_10 = "ROADMAP.md §1 item 10 (device telemetry, profiler, analysis)"
 ITEM_11B = "ROADMAP.md §1 item 11b (the rest of the breadth)"
 ITEM_12 = "ROADMAP.md §1 item 12 (the training loop's ecosystem)"
 
@@ -60,7 +59,7 @@ ND_CONTRIB_ITEM_11B = (
 
 NOT_PORTED = {
     "": dict.fromkeys(
-        "analysis partition profiler remat".split(), ITEM_10) | dict.fromkeys(
+        "partition remat".split(), ITEM_11B) | dict.fromkeys(
         "kv kvstore".split(), ITEM_9) | dict.fromkeys(
         "callback image io model recordio".split(), ITEM_12) | dict.fromkeys(
         "AttrScope attribute context engine error executor libinfo library "
@@ -95,9 +94,21 @@ NOT_PORTED = {
     "numpy": {},
     "numpy.linalg": {},
     "numpy.random": {},
-    "telemetry": dict.fromkeys("Monitor install_nan_hook kernels monitor "
-                               "roofline stages".split(), ITEM_10)
-    | {"fleet": ITEM_9},
+    "telemetry": {"fleet": ITEM_9},
+    # the estimator's handler and the imports only it needs
+    "telemetry.monitor": dict.fromkeys(
+        "BatchBegin BatchEnd EpochEnd TelemetryHandler TrainBegin json "
+        "registry".split(), ITEM_12),
+    "telemetry.kernels": {}, "telemetry.roofline": {},
+    "telemetry.stages": {}, "telemetry.registry": {},
+    "analysis": dict.fromkeys(
+        "racecheck racecheck_fixtures racecheck_paths racecheck_report "
+        "racecheck_source runtime_report".split(), ITEM_11B)
+    | {"shardcheck": ITEM_9},
+    # the reference reads XPlane's gzipped trace files; torch.profiler
+    # exports plain JSON
+    "profiler": dict.fromkeys("glob gzip".split(),
+                              "torch.profiler's trace is plain JSON"),
     "util": {},
     "test_utils": {},
     "contrib": dict.fromkeys("tensorboard text".split(), ITEM_11B),

@@ -164,9 +164,10 @@ def test_chrome_export_lanes_and_clock_base(pkg, tmp_path):
 
 
 def test_port_device_lanes_are_the_empty_list():
-    """With no profiler yet, the port's device-lane hook is the list the
-    reference has before any device trace completes: empty, so the
-    export with ``include_device=True`` equals the host-only one."""
+    """Before any device trace completes (and always on a machine with
+    no CUDA device), the port's device-lane hook, `profiler`'s device
+    events, is the list the reference has then: empty, so the export
+    with ``include_device=True`` equals the host-only one."""
     ttracing.enable()
     try:
         with ttracing.span("x"):
@@ -382,11 +383,30 @@ def test_slo_presets_register(pkg):
 
 
 def test_slo_health_hook_needs_the_monitor():
-    """`install_health_check` needs `telemetry.monitor`, not ported yet:
-    it raises `MXNetError` naming the ROADMAP item; `check()` stays the
-    loud form."""
-    with pytest.raises(MXNetError, match="item 10"):
-        tslo.install_health_check()
+    """`install_health_check` registers the default tracker with
+    `telemetry.monitor` in both packages: `monitor.check()` then raises
+    `MXNetError` on a burning objective, as the reference's does."""
+    from incubator_mxnet_tpu.telemetry import monitor as jmonitor
+    from incubator_mxnet_tpu_torch.telemetry import monitor as tmonitor
+
+    for reg, slo, monitor in ((jregistry, jslo, jmonitor),
+                              (tregistry, tslo, tmonitor)):
+        assert slo.install_health_check() is slo.tracker()
+        assert "slo" in monitor._HEALTH_CHECKS
+        h = reg.histogram("t_torch_slo_health_seconds",
+                          buckets=(0.1, 0.5, 1.0))
+        for _ in range(10):
+            h.observe(0.7)
+        slo.tracker().latency("health_burn", "t_torch_slo_health_seconds",
+                              0.1, target=0.99)
+        try:
+            with pytest.raises(MXNetError if slo is tslo else jmx.MXNetError,
+                               match="health_burn"):
+                monitor.check()
+        finally:
+            monitor.remove_health_check("slo")
+            slo.tracker().remove("health_burn")
+        assert "slo" not in monitor._HEALTH_CHECKS
 
 
 def test_retry_events_annotate_span(pkg):
