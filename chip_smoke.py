@@ -211,6 +211,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``[elastic]``, a profiled decode replay with no warm-up cycle, and one
    after a replay inside a pause, reports whether records are lost.
 
+14. ``[fit]`` (after ``[observe]``): BERT-base at full width in
+   ``BERTClassifier(num_classes=2, dropout=0.1)``, seeded, hybridized,
+   under bf16 AMP, fine-tuned through ``gluon.contrib.estimator.
+   Estimator.fit(batches=64)`` with ``Trainer("adam")``, fed by a
+   ``gluon.data.DataLoader`` with two worker processes (2048 seeded rows
+   of 128 tokens, batch 32, shuffled, ``pin_memory``), with the logging,
+   validation (every 32 batches), checkpoint and telemetry handlers and a
+   ``ResilienceHandler`` over a ``TrainingCheckpointer`` (every 16
+   steps): each kernel's launches over the fit (the launch log) and in a
+   profiled step (the census) against the model's count a step, one
+   training and one predict-mode capture, the first 4 losses against
+   the same fit on the plain versions, the first epoch's batches against
+   the loader without workers on the CPU, a preemption at batch 40
+   resumed bit for bit by a fresh net and Trainer, a crash injected at
+   batch 50 (``inject_at("estimator_step")``) resumed from the last
+   checkpoint; the median step's wall and CUDA-event time, the busy time
+   of a step, examples/s, the goodput ledger's seconds.
+15. ``[pipeline]``: ``bench.py:239``'s input pipeline on the port: 512
+   seeded 256^2 images packed with ``recordio.pack_img`` into an indexed
+   record file, ``io.ImageRecordIter`` (crop, mirror, 8 threads,
+   prefetch 4): the best images/s over 2 epochs after a warm one, the
+   codec that ran, the native reader (``librtio``, built with g++) used,
+   the host's cores; one batch on the card equal to the CPU iterator's.
+
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 ``{"train_tf32": ...}``, ``{"train_dp_amp": ...}``, ``{"train_dp": ...}``,
@@ -218,7 +242,8 @@ power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
 the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
 ``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}``,
-``{"np4": ...}``, ``{"observe": ...}`` lines, one
+``{"np4": ...}``, ``{"observe": ...}``, ``{"fit": ...}``,
+``{"pipeline": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -8432,6 +8457,550 @@ def phase_observe(torch, dev):
     return res, launches, layouts
 
 
+# ---------------------------------------------------------------------------
+# [fit]: BERT-base fine-tuned through Estimator.fit, fed by a DataLoader
+# with worker processes
+# ---------------------------------------------------------------------------
+
+FIT_ROWS, FIT_VAL_ROWS, FIT_T, FIT_B = 2048, 256, 128, 32
+FIT_BATCHES, FIT_VAL_PERIOD, FIT_CK_EVERY, FIT_CK_KEEP = 64, 32, 16, 2
+FIT_PREEMPT_AT, FIT_CRASH_AT, FIT_PLAIN_BATCHES = 40, 50, 4
+FIT_SEED, FIT_LR, FIT_WORKERS = 19, 5e-5, 2
+# the first batches' mean losses, kernels against plain versions, under
+# bf16 AMP: the same cuBLAS products; K1/K2 round P and dS at the running
+# max (the plain version at the final max) and the row kernels sum in
+# another order, through 12 layers of bf16 products: relative, the
+# normwise bound of `tests/test_torch_amp.py` (ND_AMP_TOL)
+FIT_LOSS_TOL = 2.0 ** -5
+# kernel launches of one training step of BERTClassifier over BERT-base's
+# encoder at p = 0.1 (no MLM head): K4 at the embedding LayerNorm, K3 at
+# the 24 post-LN sites, K5 at the embedding, 12 attention-output, 12
+# FFN-hidden sites and the classifier's dropout, forward and backward; a
+# K2 call is 3 kernels, a K4b or K3 backward call 2 (row kernel and
+# dgamma/dbeta reduction); the replayed forward folds the step's 26 site
+# keys in one fold launch (ops.dropout.KEY_CHUNK = 64 sites a fold)
+FIT_STEP_LAUNCHES = {"K1": 12, "K2": 12 * 3, "K4": 1, "K4b": 1 * 2,
+                     "K3f": 24, "K3b": 24 * 2, "K5": 26 * 2, "K6f": 0,
+                     "K6b": 0, "fold": 1}
+# one validation batch (predict mode: no dropout, no backward)
+FIT_EVAL_LAUNCHES = {"K1": 12, "K2": 0, "K4": 1, "K4b": 0, "K3f": 24,
+                     "K3b": 0, "K5": 0, "K6f": 0, "K6b": 0, "fold": 0}
+# the launch log's tags of a step (K3's forward and K4 share
+# ln_fwd_kernel, their backwards ln_bwd_kernel and its reduction)
+FIT_LOG_TAGS = {"flash_fwd_kernel": ("K1",), "flash_bwd_delta_kernel":
+                ("K2",), "flash_bwd_dq_kernel": ("K2",),
+                "flash_bwd_dkv_kernel": ("K2",),
+                "ln_fwd_kernel": ("K4", "K3f"),
+                "ln_bwd_kernel": ("K4b", "K3b"),
+                "ln_partials_reduce_kernel": ("K4b", "K3b"),
+                "dropout_kernel": ("K5",), "fold_keys_kernel": ("fold",)}
+
+
+def _log_counts(expected):
+    """{launch-log tag: count} that ``expected`` (counter units) gives:
+    a K4b or K3b count is two log entries, one of each tag."""
+    out = {}
+    for tag, classes in FIT_LOG_TAGS.items():
+        n = sum(expected.get(c, 0) for c in classes)
+        if tag in ("ln_bwd_kernel", "ln_partials_reduce_kernel"):
+            n //= 2
+        if tag.startswith("flash_bwd"):
+            n //= 3
+        out[tag] = n
+    return out
+
+
+def _tally(log_entries):
+    """{tag: count} of a launch log (a replay's entry is its capture's
+    list)."""
+    out = {}
+    for e in log_entries:
+        for k in (e if isinstance(e, list) else [e]):
+            out[k[0]] = out.get(k[0], 0) + 1
+    return out
+
+
+def fit_data(onp, rows, seed):
+    """Seeded token rows (int32, FIT_T long) and their labels by a fixed
+    rule of the tokens (whether the second token lies in the vocabulary's
+    lower half), so that accuracy can move."""
+    r = onp.random.RandomState(seed)
+    tok = r.randint(0, BERT_VOCAB, (rows, FIT_T)).astype("int32")
+    return tok, (tok[:, 1] < BERT_VOCAB // 2).astype("int32")
+
+
+def _fit_net(dev, impl="auto"):
+    from incubator_mxnet_tpu_torch.models.bert import (BERTClassifier,
+                                                        bert_base)
+
+    enc = bert_base(max_length=FIT_T, dropout=TRAIN_P, device=dev, seed=0,
+                    impl=impl).encoder
+    return BERTClassifier(enc, 2, dropout=TRAIN_P, device=dev, seed=1,
+                          impl=impl)
+
+
+def _fit_states(trainer):
+    return [None if s is None else [t.detach().clone() for t in s]
+            for s in trainer._states]
+
+
+def _same_states(a, b):
+    """Two Trainers' optimizer states (`_fit_states`) bit for bit."""
+    import torch
+
+    return len(a) == len(b) and all(
+        (x is None) == (y is None) and (x is None or (
+            len(x) == len(y) and all(torch.equal(u, v)
+                                     for u, v in zip(x, y))))
+        for x, y in zip(a, b))
+
+
+def phase_fit_run(torch, dev, mx, loader, val, ckdir):
+    """The kernel path's fit: the handlers of the slice, the preemption at
+    FIT_PREEMPT_AT, the crash at FIT_CRASH_AT; returns its records."""
+    import os
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import gluon, preemption
+    from incubator_mxnet_tpu_torch.fault import injection
+    from incubator_mxnet_tpu_torch.fault.resilience import ResilienceHandler
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator as E
+    from incubator_mxnet_tpu_torch.ops import _build
+    from incubator_mxnet_tpu_torch.telemetry import goodput, registry
+    from incubator_mxnet_tpu_torch.telemetry.monitor import TelemetryHandler
+
+    net = _fit_net(dev)
+    net.hybridize(static_alloc=True, static_shape=True)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": FIT_LR})
+    est = E.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      train_metrics=[gluon.metric.Accuracy()],
+                      trainer=trainer)
+    ck = preemption.TrainingCheckpointer(
+        os.path.join(ckdir, "fit"), net, trainer, every_n=FIT_CK_EVERY,
+        keep=FIT_CK_KEEP)
+    rec = dict(losses=[], batches=[], walls=[], events=[], captures=[],
+               preempt=None, evals=0, resumed=[], keys=[])
+    resume = ck.resume
+
+    def recorded_resume():
+        rec["resumed"].append(resume())
+        return rec["resumed"][-1]
+
+    ck.resume = recorded_resume
+
+    class Record(E.event_handler.BatchBegin, E.event_handler.BatchEnd):
+        """Each batch's host copy (at batch_begin: a crashed batch
+        too), each step's wall and CUDA-event interval, the loss, the
+        captures (first of the batch_end handlers)."""
+
+        def __init__(self):
+            self.priority = -2000
+
+        def batch_begin(self, estimator, *args, **kwargs):
+            b = kwargs["batch"]
+            rec["batches"].append((b[0]._data.cpu(), b[1]._data.cpu()))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.t0, self.ev0 = time.perf_counter(), ev
+
+        def batch_end(self, estimator, *args, **kwargs):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec["losses"].append(float(kwargs["loss"].mean().item()))
+            rec["walls"].append((time.perf_counter() - self.t0) * 1e3)
+            rec["events"].append((self.ev0, ev))
+            rec["captures"].append(net.captures)
+            # the key buffer of the step's replay (None: the eager first
+            # call, whose keys went by value)
+            train = [e for sig, e in net._cached_graph.entries.items()
+                     if sig[1] and e.fwd is not None]
+            rec["keys"].append(train[0].key.tolist() if train else None)
+
+    class Preempt(E.event_handler.BatchEnd):
+        """After the checkpointer's cadence (last of the batch_end
+        handlers): the preemption at FIT_PREEMPT_AT, resumed at once by a
+        fresh net and Trainer and held to the live state; the crash armed
+        for FIT_CRASH_AT."""
+
+        def __init__(self):
+            self.n = 0
+            self.priority = 100
+
+        def batch_end(self, estimator, *args, **kwargs):
+            self.n += 1
+            if self.n == FIT_CRASH_AT - 1:
+                injection.configure_injection("estimator_step:1.0:0:1")
+            if self.n != FIT_PREEMPT_AT:
+                return
+            preemption.trigger()
+            path = ck._mgr.latest()
+            fresh = _fit_net(dev)
+            ftr = gluon.Trainer(fresh.collect_params(), "adam",
+                                {"learning_rate": FIT_LR})
+            step = preemption.TrainingCheckpointer(
+                os.path.join(ckdir, "fit"), fresh, ftr,
+                register_signal=False).resume()
+            live = net.collect_params()
+            rec["preempt"] = dict(
+                step=step, path=path, live_step=ck._mgr._step,
+                params=all(torch.equal(p.data()._data,
+                                       live[k].data()._data)
+                           for k, p in fresh.collect_params().items()),
+                states=_same_states(_fit_states(ftr), _fit_states(trainer)),
+                num_update=(ftr.optimizer.num_update,
+                            trainer.optimizer.num_update))
+
+    def evaluate(*args, **kwargs):
+        rec["evals"] += 1
+        return est.evaluate(*args, **kwargs)
+
+    handlers = [Record(), Preempt(), E.LoggingHandler(),
+                E.ValidationHandler(val, evaluate,
+                                    batch_period=FIT_VAL_PERIOD),
+                E.CheckpointHandler(ckdir, max_checkpoints=FIT_CK_KEEP),
+                TelemetryHandler(), ResilienceHandler(ck)]
+    resumes = registry.counter("mx_resumes_total").value
+    goodput.reset()
+    goodput.enable()
+    mx.random.seed(FIT_SEED)
+    onp.random.seed(FIT_SEED)
+    _build.LAUNCH_LOG = log = []
+    t0 = time.perf_counter()
+    try:
+        est.fit(loader, batches=FIT_BATCHES, event_handlers=handlers)
+        torch.cuda.synchronize()
+    finally:
+        _build.LAUNCH_LOG = None
+        injection.clear_injection()
+        preemption.clear_preemption_hooks()
+        goodput.disable()
+    rec["fit_s"] = time.perf_counter() - t0
+    rec["goodput"] = goodput.report()
+    rec["log"] = _tally(log)
+    rec["resumes"] = registry.counter("mx_resumes_total").value - resumes
+    rec["resumes_total"] = registry.counter("mx_resumes_total").value
+    rec["resumed_to"] = rec["resumed"]
+    rec["metrics"] = {m.name: float(m.get()[1])
+                      for m in est.train_metrics + est.val_metrics}
+    rec["captures_end"] = net.captures
+    rec["entries"] = len(net._cached_graph.entries)
+    return net, trainer, est, rec
+
+
+def phase_fit(torch, dev):
+    """[fit]: BERT-base (768 units, 12 layers, 12 heads, FFN 3072, vocab
+    30522) in ``BERTClassifier(num_classes=2, dropout=0.1)``, seeded,
+    hybridized, under bf16 AMP, ``Trainer("adam")``, fine-tuned through
+    ``Estimator.fit(batches=64)`` on FIT_ROWS seeded rows of 128 tokens,
+    fed by ``DataLoader(batch_size=32, shuffle=True, num_workers=2,
+    last_batch="discard", pin_memory=True)``, with LoggingHandler,
+    ValidationHandler (every 32 batches, FIT_VAL_ROWS rows),
+    CheckpointHandler, TelemetryHandler and ResilienceHandler over a
+    TrainingCheckpointer (every 16 steps). It checks each kernel's
+    launches (the launch log over the fit, the census of a profiled
+    step) against FIT_STEP_LAUNCHES a step, one training and one
+    predict-mode capture, the first FIT_PLAIN_BATCHES losses against the
+    same fit on the plain versions, the first epoch's batches against the
+    loader run without workers on the CPU, a preemption at batch 40
+    resumed bit for bit by a fresh net and Trainer, and a crash injected
+    at batch 50 recovered. Returns (numbers, launches through the
+    wrappers)."""
+    import shutil
+    import tempfile
+
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon
+    from incubator_mxnet_tpu_torch.gluon.block import _CachedGraph
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator as E
+
+    t_phase = time.perf_counter()
+    tok, lab = fit_data(onp, FIT_ROWS, FIT_SEED)
+    vtok, vlab = fit_data(onp, FIT_VAL_ROWS, FIT_SEED + 1)
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(tok, lab), batch_size=FIT_B, shuffle=True,
+        num_workers=FIT_WORKERS, last_batch="discard", pin_memory=True)
+    val = gluon.data.DataLoader(gluon.data.ArrayDataset(vtok, vlab),
+                                batch_size=FIT_B, last_batch="discard")
+    ckdir = tempfile.mkdtemp(prefix="mx_fit_")
+    amp.init("bfloat16")
+    try:
+        reset_counts()
+        net, trainer, est, rec = phase_fit_run(torch, dev, mx, loader, val,
+                                               ckdir)
+        launches, layouts = read_counts(), read_layout_counts()
+        # the preemption: a fresh net and Trainer resumed bit for bit
+        pre = rec["preempt"]
+        check(pre is not None and pre["step"] == pre["live_step"]
+              == FIT_PREEMPT_AT
+              and pre["path"].endswith(f"-{FIT_PREEMPT_AT:07d}.ckpt")
+              and pre["params"] and pre["states"]
+              and pre["num_update"][0] == pre["num_update"][1],
+              f"[fit] the preemption at batch {FIT_PREEMPT_AT}: {pre}")
+        torch.cuda.empty_cache()
+        # the crash
+        check(rec["resumes"] == 1 and rec["resumed_to"] == [
+                  FIT_CK_EVERY * ((FIT_CRASH_AT - 1) // FIT_CK_EVERY)]
+              and math.isfinite(rec["losses"][-1]),
+              f"[fit] the crash at batch {FIT_CRASH_AT}: resumes "
+              f"{rec['resumes']}, resumed to step {rec['resumed_to']}, last "
+              f"loss {rec['losses'][-1]}")
+        # launches: the launch log over the fit, the census of one step
+        # steps + the capture's warm-up, less the eager first step's fold
+        # (its keys go by value), and the validation batches + theirs
+        steps = len(rec["losses"])
+        vbatches = rec["evals"] * (FIT_VAL_ROWS // FIT_B)
+        want = {k: FIT_STEP_LAUNCHES[k] * (steps + 1)
+                + FIT_EVAL_LAUNCHES[k] * (vbatches + 1)
+                for k in FIT_STEP_LAUNCHES}
+        want["fold"] -= FIT_STEP_LAUNCHES["fold"]
+        want_log = _log_counts(want)
+        check(rec["log"] == want_log,
+              f"[fit] the launch log over the fit {rec['log']} is not "
+              f"{steps} steps + the capture's warm-up of FIT_STEP_LAUNCHES "
+              f"and {vbatches} validation batches + its warm-up of "
+              f"FIT_EVAL_LAUNCHES: {want_log}")
+        batch = (mx.nd.array(tok[:FIT_B], device=dev),
+                 mx.nd.array(lab[:FIT_B], device=dev))
+        assert batch[0].dtype == onp.int32
+
+        def one_step():
+            est.fit_batch(batch)
+            trainer.step(FIT_B)
+
+        cen = profiled(torch, one_step)
+        step_census, _ = census_launches(cen)
+        check(step_census == FIT_STEP_LAUNCHES,
+              f"[fit] the census of a replayed step {step_census} is not "
+              f"FIT_STEP_LAUNCHES {FIT_STEP_LAUNCHES}")
+        busy_ms = census_ms(cen)
+        check(rec["captures"][1] == 1 and rec["captures_end"] == 2
+              and rec["entries"] == 2,
+              f"[fit] captures after each batch {rec['captures'][:4]}..., "
+              f"{rec['captures_end']} at the end over {rec['entries']} "
+              f"signatures (one training, one predict-mode)")
+        check(all(n > 0 for k, n in launches.items()
+                  if FIT_STEP_LAUNCHES[k]),
+              f"[fit] a kernel of the path was not launched: {launches}")
+        # the loader: the first epoch against no workers on the CPU
+        n_epoch = FIT_ROWS // FIT_B
+        onp.random.seed(FIT_SEED)
+        with mx.cpu():
+            cpu = [(b[0]._data, b[1]._data) for b in gluon.data.DataLoader(
+                gluon.data.ArrayDataset(tok, lab), batch_size=FIT_B,
+                shuffle=True, num_workers=0, last_batch="discard")]
+        same_loader = len(rec["batches"]) >= n_epoch and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(rec["batches"][:n_epoch], cpu))
+        check(same_loader, "[fit] the first epoch's batches on the card "
+              "differ from the loader's without workers on the CPU")
+        # the plain versions: the same fit's first batches. Their fold of
+        # the keys copies from the host, which a capture refuses: each
+        # step runs the captured function eagerly with the key buffer the
+        # kernel path's replay of that step read (the first, eager, step
+        # draws the same keys by value from the same seed)
+        plain = _fit_net(dev, impl="plain")
+        twin = _CachedGraph(plain)
+        keys = iter(rec["keys"])
+
+        class PlainEstimator(E.Estimator):
+            def fit_batch(self, train_batch, batch_axis=0):
+                data, label = self._get_data_and_label(train_batch,
+                                                       batch_axis)
+                k = next(keys)
+                with autograd.record():
+                    pred = plain(data) if k is None else \
+                        twin.eager((data,), k[:2], k[2])
+                    loss = self.loss(pred, label)
+                loss.backward()
+                return data, label, pred, loss
+
+        pest = PlainEstimator(plain, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              train_metrics=[gluon.metric.Accuracy()],
+                              trainer=gluon.Trainer(
+                                  plain.collect_params(), "adam",
+                                  {"learning_rate": FIT_LR}))
+        plosses = []
+
+        class Losses(E.event_handler.BatchEnd):
+            def batch_end(self, estimator, *args, **kwargs):
+                plosses.append(float(kwargs["loss"].mean().item()))
+
+        mx.random.seed(FIT_SEED)
+        onp.random.seed(FIT_SEED)
+        pest.fit(loader, batches=FIT_PLAIN_BATCHES,
+                 event_handlers=[Losses()])
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(rec["losses"][:FIT_PLAIN_BATCHES], plosses)]
+        check(len(plosses) == FIT_PLAIN_BATCHES and max(rel) <= FIT_LOSS_TOL,
+              f"[fit] the first {FIT_PLAIN_BATCHES} losses on the kernels "
+              f"{rec['losses'][:FIT_PLAIN_BATCHES]} against the plain "
+              f"versions {plosses}: relative {rel} > {FIT_LOSS_TOL}")
+        del plain, pest, twin
+    finally:
+        amp.deinit()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    walls = rec["walls"][2:]
+    dev_ms = [a.elapsed_time(b) for a, b in rec["events"][2:]]
+    med = _median(walls)
+    gp = rec["goodput"]
+    secs = gp.get("states", {})
+    out = dict(
+        steps=len(rec["losses"]), batch=FIT_B, tokens=FIT_T,
+        loss_first=rec["losses"][0], loss_last=rec["losses"][-1],
+        metrics=rec["metrics"], plain_losses=plosses,
+        kernel_losses=rec["losses"][:FIT_PLAIN_BATCHES],
+        loss_rel_vs_plain=max(rel), loss_tol=FIT_LOSS_TOL,
+        median_step_wall_ms=med, median_step_event_ms=_median(dev_ms),
+        step_busy_ms=busy_ms,
+        idle_share=1 - busy_ms / med if busy_ms > 0 else None,
+        examples_per_s=FIT_B / (med / 1e3),
+        fit_s=rec["fit_s"], goodput_s={k: secs.get(k) for k in
+                                       ("compute", "data_wait",
+                                        "checkpoint", "recovery", "idle")},
+        accounted_frac=gp.get("accounted_frac"), launch_log=rec["log"],
+        step_census=step_census, captures=rec["captures_end"],
+        preempt_resume_step=rec["preempt"]["step"],
+        validations=rec["evals"], resumes=rec["resumes"],
+        resumes_total=rec["resumes_total"], loader_equal=same_loader,
+        workers=FIT_WORKERS, seconds=time.perf_counter() - t_phase)
+    log(f"[fit] {out['steps']} steps of BERTClassifier(BERT-base) at "
+        f"{FIT_B} x {FIT_T}, bf16 AMP, Adam, hybridized: loss "
+        f"{out['loss_first']:.4f} -> {out['loss_last']:.4f}, metrics "
+        f"{rec['metrics']}; median step {med:.2f} ms wall, "
+        f"{out['median_step_event_ms']:.2f} ms between CUDA events, "
+        f"{busy_ms:.2f} ms busy (census) -> idle share "
+        + (f"{out['idle_share']:.4f}" if out["idle_share"] is not None
+           else "not measured")
+        + f"; {out['examples_per_s']:.1f} examples/s")
+    log(f"[fit] goodput {out['goodput_s']} s, accounted "
+        f"{out['accounted_frac']}; fit {rec['fit_s']:.1f} s")
+    log(f"[fit] launch log {rec['log']}; census of a step {step_census}; "
+        f"captures {rec['captures_end']}; losses vs plain relative "
+        f"{max(rel):.2e} (tol {FIT_LOSS_TOL:g}); preemption resumed bit "
+        f"for bit at {FIT_PREEMPT_AT}; crash resumed to step "
+        f"{rec['resumed_to']} (mx_resumes_total {rec['resumes_total']}); "
+        f"loader equal to the CPU's: {same_loader}; phase "
+        f"{out['seconds']:.1f} s")
+    del net, trainer, est, loader
+    torch.cuda.empty_cache()
+    return out, launches, layouts
+
+
+# ---------------------------------------------------------------------------
+# [pipeline]: bench.py:239's input pipeline on the port
+# ---------------------------------------------------------------------------
+
+PIPE_IMAGES, PIPE_SIZE, PIPE_B, PIPE_EPOCHS, PIPE_SEED = 512, 256, 64, 2, 0
+
+
+def _pipe_iter(mxio, rec_path, rand):
+    return mxio.ImageRecordIter(path_imgrec=rec_path,
+                                data_shape=(3, 224, 224), batch_size=PIPE_B,
+                                shuffle=True, rand_crop=rand,
+                                rand_mirror=rand, preprocess_threads=8,
+                                prefetch_buffer=4)
+
+
+def phase_pipeline(torch, dev):
+    """[pipeline]: ``bench.py:239``'s ``bench_input_pipeline`` on the port
+    as written there: PIPE_IMAGES seeded 256² images packed with
+    ``recordio.pack_img`` (quality 90) into an ``MXIndexedRecordIO``, then
+    ``io.ImageRecordIter(data_shape=(3, 224, 224), batch_size=64,
+    shuffle=True, rand_crop=True, rand_mirror=True, preprocess_threads=8,
+    prefetch_buffer=4)``: the best images/s over 2 epochs after a warm
+    one. It runs no kernel of the port. It checks that the native reader
+    (librtio, built by g++) read the records and that one batch's pixels
+    on the card (the uint8 batch uploaded, cast and transposed there)
+    equal the CPU iterator's for the same seeds; that check takes the
+    center crop, since the random crop's draws come from the 8 decode
+    threads in no fixed order, in either package."""
+    import os as _os
+    import random
+    import shutil
+    import tempfile
+
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import _native, image
+    from incubator_mxnet_tpu_torch import io as mxio
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import recordio
+
+    t0 = time.perf_counter()
+    rng = onp.random.RandomState(PIPE_SEED)
+    d = tempfile.mkdtemp(prefix="mx_pipe_")
+    rec_path = _os.path.join(d, "imgs.rec")
+    try:
+        w = recordio.MXIndexedRecordIO(_os.path.join(d, "imgs.idx"),
+                                       rec_path, "w")
+        for i in range(PIPE_IMAGES):
+            img = rng.randint(0, 255, (PIPE_SIZE, PIPE_SIZE, 3),
+                              dtype=onp.uint8)
+            w.write_idx(i, recordio.pack_img(
+                recordio.IRHeader(0, float(i % 10), i, 0), img, quality=90))
+        w.close()
+        rtio = _native.rtio() is not None
+        calls, codecs = _native.native_calls, dict(image.decode_counts)
+        it = _pipe_iter(mxio, rec_path, True)
+        try:
+            rates = []
+            for _ in range(PIPE_EPOCHS + 1):   # the first warms the pools
+                cnt = 0
+                t1 = time.perf_counter()
+                for b in it:
+                    b.data[0].wait_to_read()
+                    cnt += b.data[0].shape[0]
+                rates.append(cnt / (time.perf_counter() - t1))
+                it.reset()
+        finally:
+            it.close()
+        native_reads = _native.native_calls - calls
+        used = {k: image.decode_counts[k] - codecs[k] for k in codecs
+                if image.decode_counts[k] > codecs[k]}
+        check(rtio and native_reads > 0,
+              f"[pipeline] the native reader was not used: librtio loaded "
+              f"{rtio}, {native_reads} native batch reads")
+        check(b.data[0].shape == (PIPE_B, 3, 224, 224)
+              and b.data[0]._data.device.type == "cuda"
+              and b.data[0]._data.dtype == torch.float32,
+              f"[pipeline] a batch is {b.data[0].shape} "
+              f"{b.data[0]._data.dtype} on {b.data[0]._data.device}")
+        firsts = []
+        for scope in (mx.gpu(dev.index or 0), mx.cpu()):
+            random.seed(PIPE_SEED)
+            onp.random.seed(PIPE_SEED)
+            with scope:
+                it = _pipe_iter(mxio, rec_path, False)
+            try:
+                b = next(it)
+                firsts.append((b.data[0]._data.cpu(), b.label[0]._data.cpu()))
+            finally:
+                it.close()
+        same = torch.equal(firsts[0][0], firsts[1][0]) and \
+            torch.equal(firsts[0][1], firsts[1][1])
+        check(same, "[pipeline] a batch's pixels on the card differ from "
+              "the CPU iterator's")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = dict(images=PIPE_IMAGES, batch=PIPE_B,
+               images_per_s=max(rates[1:]), epoch_images_per_s=rates,
+               codec=used, librtio=rtio, native_batch_reads=native_reads,
+               host_cores=_os.cpu_count(), batch_equal_cpu=same,
+               seconds=time.perf_counter() - t0)
+    log(f"[pipeline] {PIPE_IMAGES} images of {PIPE_SIZE}^2 through "
+        f"ImageRecordIter (batch {PIPE_B}, rand_crop, rand_mirror, 8 "
+        f"threads, prefetch 4): best {out['images_per_s']:.1f} images/s "
+        f"over {PIPE_EPOCHS} epochs after a warm one ({rates}); codec "
+        f"{used}; librtio loaded {rtio}, {native_reads} native batch "
+        f"reads; host cores {out['host_cores']}; a batch equal to the "
+        f"CPU's: {same}; no kernel of the port runs here")
+    return out
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -8733,6 +9302,16 @@ def main():
             by_layout.setdefault(k, {})
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [observe]'s launches {obs_launches}: {launches}")
+    fit, fit_launches, fit_layouts = phase_fit(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in fit_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in fit_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [fit]'s launches {fit_launches}: {launches}")
+    pipeline = phase_pipeline(torch, dev)
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -8780,6 +9359,8 @@ def main():
     log(json.dumps({"vision": vision}, default=str))
     log(json.dumps({"np4": np4}, default=str))
     log(json.dumps({"observe": observe}, default=str))
+    log(json.dumps({"fit": fit}, default=str))
+    log(json.dumps({"pipeline": pipeline}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)

@@ -38,14 +38,21 @@ mutation); `fault` its chaos seams and retry policies. `NDArray` and its op
 funnel, `np` (`mx.np`), `nd`, `npx` and `autograd` are the reference's
 imperative front door over torch tensors, recorded on torch's autograd
 graph; `npx`'s kernel-bearing ops take NDArrays to the same kernels.
+The training loop's ecosystem is the reference's too: `gluon.data` (the
+datasets, samplers, transforms and the multiprocess `DataLoader`, which
+uploads each host batch), `gluon.metric`, the `gluon.contrib` Estimator
+and its handlers, `preemption` (crash-safe, preemption-triggered
+checkpoints), `fault.resilience`, `callback`, `model`, and the input
+pipeline of `io`, `recordio` (with its native reader) and `image`.
 Entry points run on ``cuda:0`` unless the caller asks for the CPU (``with
 mx.cpu():``, or ``device="cpu"``). This package imports neither jax nor
 the reference package.
 """
-from . import (amp, analysis, autograd, base, contrib, device, dlpack,
-               fault, gluon, initializer, lr_scheduler, models, ops,
-               optimizer, parallel, preemption, profiler, random, serve,
-               telemetry, test_utils, util)
+from . import (amp, analysis, autograd, base, callback, contrib, device,
+               dlpack, fault, gluon, image, initializer, io, lr_scheduler,
+               model, models, ops, optimizer, parallel, preemption,
+               profiler, random, recordio, serve, telemetry, test_utils,
+               util)
 from . import initializer as init
 from . import ndarray as nd
 from . import numpy as np
@@ -56,10 +63,12 @@ from .device import (Context, Device, cpu, current_device, default_device,
                      tpu)
 from .ndarray import NDArray, waitall
 
-__all__ = ["amp", "analysis", "autograd", "base", "contrib", "device",
-           "dlpack", "fault", "gluon", "initializer", "init", "lr_scheduler",
-           "models", "ops", "optimizer", "parallel", "preemption", "profiler",
-           "random", "serve", "telemetry", "test_utils", "util", "nd", "np",
+__all__ = ["amp", "analysis", "autograd", "base", "callback", "contrib",
+           "device", "dlpack", "fault", "gluon", "image", "initializer",
+           "init", "io", "lr_scheduler", "model", "models", "ops",
+           "optimizer", "parallel", "preemption", "profiler", "random",
+           "recordio", "serve", "telemetry", "test_utils", "util", "nd",
+           "np",
            "npx", "MXNetError", "NDArray", "waitall", "Device", "Context",
            "current_device", "cpu", "gpu", "num_gpus", "default_device",
            "gpu_memory_info", "memory_stats", "num_tpus", "tpu"]

@@ -10,13 +10,17 @@
   with the module that owns it. Off = dead branches;
 - `retry` — :class:`RetryPolicy` (jittered exponential backoff, deadline,
   retryable-vs-fatal classification) and `suppressed()`, the logged
-  replacement for a silent ``except Exception: pass``.
+  replacement for a silent ``except Exception: pass``;
+- `resilience` — :class:`ResilienceHandler` for the Estimator: skip
+  non-finite-loss steps (with AMP loss-scale backoff), auto-resume from
+  the last good checkpoint after a mid-step crash, checkpoint cadence.
 
-The reference's `resilience` (the Estimator's handler) and `elastic` (the
-topology controller) are not ported yet (`ROADMAP.md` §1 items 12 and
-9).
+The reference's `elastic` (the topology controller) is not ported yet
+(`ROADMAP.md` §1 item 9).
 Recoveries are counted in the registry: ``mx_faults_injected_total``,
-``mx_retries_total``.
+``mx_retries_total``, ``mx_steps_skipped_nonfinite_total``,
+``mx_resumes_total``, ``mx_checkpoint_fallbacks_total``,
+``mx_dataloader_fallbacks_total``.
 """
 from __future__ import annotations
 
@@ -31,4 +35,18 @@ __all__ = ["injection", "retry", "FaultInjected", "SEAMS", "inject_at",
            "injection_enabled", "configure_injection", "configure_from_env",
            "clear_injection", "schedule_info", "RetryPolicy",
            "RetryExhausted", "classify_exception", "retry_call",
-           "suppressed"]
+           "suppressed", "resilience", "ResilienceHandler"]
+
+
+def __getattr__(name):
+    # `resilience` imports gluon's estimator handlers; gluon is mid-import
+    # when the package first imports `fault`, so the handler half loads
+    # lazily (PEP 562) on first touch
+    if name in ("ResilienceHandler", "resilience"):
+        import importlib
+
+        mod = importlib.import_module(".resilience", __name__)
+        if name == "resilience":
+            return mod
+        return mod.ResilienceHandler
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

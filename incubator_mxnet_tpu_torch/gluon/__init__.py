@@ -7,15 +7,20 @@ under MXNet's names (``weight``, ``bias``, ``gamma``, ``beta``), so
 ``named_parameters()`` and ``collect_params()`` agree one to one. A
 block takes NDArrays (the reference's convention) or torch tensors (the
 port's module path); see `gluon.block`. `model_zoo` holds the vision
-models and the local pretrained-weight store.
+models and the local pretrained-weight store; `data` the datasets,
+samplers, transforms and the DataLoader; `metric` the evaluation
+metrics; `contrib` the Estimator and the composable vision loader.
 """
 from . import utils
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Constant, Parameter, ParameterDict
 from .trainer import Trainer
 from . import loss, nn
+from . import metric
+from . import data
 from . import model_zoo
+from . import contrib
 
 __all__ = ["utils", "Block", "HybridBlock", "SymbolBlock", "Constant",
-           "Parameter", "ParameterDict", "Trainer", "loss", "nn",
-           "model_zoo"]
+           "Parameter", "ParameterDict", "Trainer", "loss", "nn", "metric",
+           "data", "model_zoo", "contrib"]

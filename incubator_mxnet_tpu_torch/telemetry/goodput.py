@@ -36,11 +36,14 @@ that report names the rank with the worst data_wait. A flight-context
 block carries the last snapshot into every flight record (elastic
 transitions dump one).
 
-In the port the ledger stands alone: its producers in the reference (the
-estimator, the dataloader, `preemption.py`, `fault/elastic.py`) are not
-ported yet, and each charges it when it is (`ROADMAP.md` §1 items 6, 10
-and 11). `parallel.DataParallel` does not charge it, as the reference's
-does not.
+In the port its producers are the reference's: the Estimator's step
+body (``compute``), the DataLoader's batch wait (``data_wait``, upload
+included), `preemption.atomic_save` (``checkpoint``) and
+`TrainingCheckpointer.resume` and the resilience handler's crash
+recovery (``recovery``). `fault/elastic.py`, the producer of
+``reshard`` and ``drain``, is `ROADMAP.md` §1 item 9's.
+`parallel.DataParallel` does not charge it, as the reference's does
+not.
 """
 from __future__ import annotations
 

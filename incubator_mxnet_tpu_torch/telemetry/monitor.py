@@ -28,23 +28,30 @@ NaN hook (`install_nan_hook`): catches the first non-finite op output.
 
 Rank statistics: `queue_rank_stats()`, `sync_rank_stats()` and
 `rank_aggregate()` take the single-process path (the local summary); the
-exchange across processes is `ROADMAP.md` §1 item 9. The estimator's
-`TelemetryHandler` is item 12.
+exchange across processes is `ROADMAP.md` §1 item 9.
+
+`TelemetryHandler` is the Estimator's handler feeding the registry's
+step series (`registry.step`): each batch's wall time and examples.
 """
 from __future__ import annotations
 
+import json
+import os
 import re
 import time
 
 import torch
 
 from ..base import MXNetError
+from ..gluon.contrib.estimator.event_handler import (BatchBegin, BatchEnd,
+                                                     EpochEnd, TrainBegin)
+from . import registry
 
 __all__ = ["Monitor", "install_nan_hook", "uninstall_nan_hook",
            "nan_findings", "clear_nan_findings", "check",
            "add_health_check", "remove_health_check",
            "queue_rank_stats", "sync_rank_stats", "rank_aggregate",
-           "default_stats", "FLAG_SLOTS"]
+           "default_stats", "FLAG_SLOTS", "TelemetryHandler"]
 
 _ACTIVE_MONITORS: list = []
 _NAN_MODE = None                 # None | "warn" | "raise"
@@ -348,3 +355,57 @@ def sync_rank_stats():
 def rank_aggregate():
     """Last synced cross-rank aggregate: {name: {min, max, mean, ranks}}."""
     return dict(_RANK_AGGREGATE)
+
+
+# ---------------------------------------------------------------------------
+# estimator integration
+# ---------------------------------------------------------------------------
+
+class TelemetryHandler(TrainBegin, BatchBegin, BatchEnd, EpochEnd):
+    """Estimator event handler feeding the metrics registry: per-batch
+    step time + example counts into `mx_step_time_seconds` /
+    `mx_examples_total`, and a registry report logged at every epoch end
+    (plus every MXNET_TELEMETRY_INTERVAL batches when that knob is set).
+    The step time is the host's wall time from `batch_begin` to
+    `batch_end`, as in the reference: on the card it reads the queued
+    work's end only where the step syncs (the metrics' host copy)."""
+
+    def __init__(self, interval=None, priority=-100):
+        if interval is None:
+            try:
+                interval = int(os.environ.get("MXNET_TELEMETRY_INTERVAL",
+                                              "0"))
+            except ValueError:
+                interval = 0
+        self.interval = interval          # batches between log lines
+        self.priority = priority
+        self._t0 = None
+        self._batches = 0
+
+    def train_begin(self, estimator, *args, **kwargs):
+        self._batches = 0
+
+    def batch_begin(self, estimator, *args, **kwargs):
+        self._t0 = time.perf_counter()
+
+    def batch_end(self, estimator, *args, **kwargs):
+        if self._t0 is None:
+            return
+        dt = time.perf_counter() - self._t0
+        batch = kwargs.get("batch")
+        n = 0
+        try:
+            n = int(batch[0].shape[0])
+        except (TypeError, AttributeError, IndexError, KeyError):
+            pass                      # batch without a leading array leaf
+        registry.step(dt, examples=n)
+        self._batches += 1
+        if self.interval and self._batches % self.interval == 0:
+            estimator.logger.info("telemetry[batch %d]: %s", self._batches,
+                                  json.dumps(registry.report(),
+                                             sort_keys=True, default=str))
+
+    def epoch_end(self, estimator, *args, **kwargs):
+        estimator.logger.info("telemetry: %s",
+                              json.dumps(registry.report(), sort_keys=True,
+                                         default=str))

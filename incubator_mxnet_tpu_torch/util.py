@@ -136,13 +136,23 @@ def env_float(name, default):
 _ENV_KNOBS = {
     "MXNET_CPU_WORKER_NTHREADS": (
         "util.default_num_workers", "the data loader's default worker "
-        "count (the port's DataLoader is ROADMAP.md §1 item 12)"),
+        "count (gluon.data.DataLoader with num_workers=None)"),
     "MXNET_MP_WORKER_NTHREADS": (
         "util.default_num_workers", "alias consulted after "
         "MXNET_CPU_WORKER_NTHREADS for the default worker count"),
     "MXNET_WORKER_RETRIES": (
         "util.default_worker_retries", "the data loader's worker-task "
         "retry budget (default 2)"),
+    "MXNET_MP_OPENCV_NUM_THREADS": (
+        "gluon.data.DataLoader workers", "cv2.setNumThreads in each "
+        "worker (keeps P workers from P x N decode threads)"),
+    "MXNET_MP_START_METHOD": (
+        "gluon.data.DataLoader", "the workers' multiprocessing start "
+        "method; default forkserver, else spawn (a forked child of a "
+        "process with a CUDA context cannot use CUDA)"),
+    "MXNET_TELEMETRY_INTERVAL": (
+        "telemetry.monitor.TelemetryHandler", "batches between registry "
+        "log lines in the estimator loop; 0/unset = epoch-end only"),
     "MXNET_GLUON_REPO": (
         "gluon.model_zoo model_store", "override the pretrained-artifact "
         "root (a local directory; nothing downloads)"),

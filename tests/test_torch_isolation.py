@@ -387,3 +387,70 @@ def test_profiler_and_analysis_modules_stand_alone():
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+TRAINING_LOOP = ("gluon.data", "gluon.data.dataset", "gluon.data.sampler",
+                 "gluon.data.batchify", "gluon.data.dataloader",
+                 "gluon.data.vision", "gluon.data.vision.datasets",
+                 "gluon.data.vision.transforms", "gluon.metric",
+                 "gluon.contrib", "gluon.contrib.data.vision",
+                 "gluon.contrib.estimator", "telemetry.monitor", "callback",
+                 "model", "preemption", "fault.resilience", "recordio",
+                 "_native", "image", "io")
+
+
+def test_training_loop_modules_stand_alone(tmp_path):
+    """The training loop's ecosystem (the data pipeline, the metrics, the
+    Estimator and its handlers, the checkpointers, resilience, RecordIO,
+    image and io) imports alone in a fresh interpreter, each module
+    without loading jax or the reference package; then a tiny net is
+    fitted through `Estimator.fit` fed by a two-worker `DataLoader`, with
+    a resilient checkpointer, on the CPU, and a record file is packed and
+    read back through `io.ImageRecordIter`, still without them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {TRAINING_LOOP!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import numpy as onp\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import gluon, io, preemption,"
+        " recordio\n"
+        "from incubator_mxnet_tpu_torch.fault.resilience import"
+        " ResilienceHandler\n"
+        "from incubator_mxnet_tpu_torch.gluon.contrib.estimator import"
+        " Estimator\n"
+        "r = onp.random.RandomState(0)\n"
+        "x = r.normal(size=(16, 4)).astype('float32')\n"
+        "y = r.randint(0, 2, 16).astype('int32')\n"
+        "with mx.cpu():\n"
+        "    net = gluon.nn.Dense(2, in_units=4)\n"
+        "    net.initialize()\n"
+        "    tr = gluon.Trainer(net.collect_params(), 'sgd')\n"
+        "    est = Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),"
+        " trainer=tr)\n"
+        f"    ck = preemption.TrainingCheckpointer({str(tmp_path / 'c')!r},"
+        " net, tr, every_n=2, register_signal=False)\n"
+        "    dl = gluon.data.DataLoader(gluon.data.ArrayDataset(x, y),"
+        " batch_size=4, num_workers=2)\n"
+        "    est.fit(dl, batches=6, event_handlers=[ResilienceHandler(ck)])\n"
+        "    assert ck._mgr.latest().endswith('0000006.ckpt')\n"
+        f"    rec = recordio.MXIndexedRecordIO({str(tmp_path / 'i.idx')!r},"
+        f" {str(tmp_path / 'i.rec')!r}, 'w')\n"
+        "    for i in range(4):\n"
+        "        rec.write_idx(i, recordio.pack_img(recordio.IRHeader(0,"
+        " float(i), i, 0), r.randint(0, 256, (10, 10, 3)).astype('uint8')))\n"
+        "    rec.close()\n"
+        f"    it = io.ImageRecordIter({str(tmp_path / 'i.rec')!r},"
+        " (3, 8, 8), batch_size=2)\n"
+        "    assert next(it).data[0].shape == (2, 3, 8, 8)\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

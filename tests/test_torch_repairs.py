@@ -29,7 +29,6 @@ INCIDENTAL = {"os", "re", "functools", "onp", "annotations", "Callable",
 
 ITEM_9 = "ROADMAP.md §1 item 9 (distributed training, sharded serving)"
 ITEM_11B = "ROADMAP.md §1 item 11b (the rest of the breadth)"
-ITEM_12 = "ROADMAP.md §1 item 12 (the training loop's ecosystem)"
 
 NPX_ITEM_11B = (
     "bilinear_resize2d bilinear_sampler bipartite_matching "
@@ -61,7 +60,6 @@ NOT_PORTED = {
     "": dict.fromkeys(
         "partition remat".split(), ITEM_11B) | dict.fromkeys(
         "kv kvstore".split(), ITEM_9) | dict.fromkeys(
-        "callback image io model recordio".split(), ITEM_12) | dict.fromkeys(
         "AttrScope attribute context engine error executor libinfo library "
         "log name onnx operator registry rtc runtime sym symbol utils "
         "visualization viz".split(), ITEM_11B),
@@ -69,8 +67,7 @@ NOT_PORTED = {
     "serve": dict.fromkeys("ServeLayout ShardedSlotDecoder replica_meshes "
                            "serve_mesh sharded".split(), ITEM_9),
     "ops": {},
-    "gluon": dict.fromkeys("contrib data metric".split(), ITEM_12)
-    | dict.fromkeys("probability rnn".split(), ITEM_11B),
+    "gluon": dict.fromkeys("probability rnn".split(), ITEM_11B),
     "gluon.nn": {},
     "gluon.model_zoo": {},
     "gluon.model_zoo.vision": {},
@@ -81,7 +78,7 @@ NOT_PORTED = {
         "ring_permute ring_self_attention shard_train_step dist moe "
         "pipeline".split(), ITEM_9),
     "amp": {}, "optimizer": {}, "lr_scheduler": {},
-    "fault": {"elastic": ITEM_9, "resilience": ITEM_12},
+    "fault": {"elastic": ITEM_9},
     "device": {}, "base": {},
     "autograd": {"TapeNode": "the port's tape is torch's autograd graph",
                  "vjp_cache_info": "eager torch has no vjp program cache"},
@@ -95,10 +92,7 @@ NOT_PORTED = {
     "numpy.linalg": {},
     "numpy.random": {},
     "telemetry": {"fleet": ITEM_9},
-    # the estimator's handler and the imports only it needs
-    "telemetry.monitor": dict.fromkeys(
-        "BatchBegin BatchEnd EpochEnd TelemetryHandler TrainBegin json "
-        "registry".split(), ITEM_12),
+    "telemetry.monitor": {},
     "telemetry.kernels": {}, "telemetry.roofline": {},
     "telemetry.stages": {}, "telemetry.registry": {},
     "analysis": dict.fromkeys(
@@ -112,6 +106,21 @@ NOT_PORTED = {
     "util": {},
     "test_utils": {},
     "contrib": dict.fromkeys("tensorboard text".split(), ITEM_11B),
+    # the training loop's ecosystem
+    "gluon.data": {}, "gluon.data.dataset": {}, "gluon.data.sampler": {},
+    "gluon.data.batchify": {}, "gluon.data.dataloader": {},
+    "gluon.data.vision": {}, "gluon.data.vision.datasets": {},
+    # the reference's funnel import: the port's transforms compute on the
+    # host in numpy
+    "gluon.data.vision.transforms": {
+        "apply_op": "host numpy transforms, no funnel op"},
+    "gluon.metric": {},
+    "gluon.contrib": dict.fromkeys("MoEFFN moe".split(), ITEM_11B),
+    "gluon.contrib.data": {}, "gluon.contrib.data.vision": {},
+    "gluon.contrib.estimator": {}, "gluon.contrib.estimator.estimator": {},
+    "gluon.contrib.estimator.event_handler": {},
+    "io": {}, "io.io": {}, "image": {}, "recordio": {}, "callback": {},
+    "model": {"sym": ITEM_11B}, "preemption": {}, "fault.resilience": {},
 }
 
 
