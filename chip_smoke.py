@@ -234,6 +234,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    prefetch 4): the best images/s over 2 epochs after a warm one, the
    codec that ran, the native reader (``librtio``, built with g++) used,
    the host's cores; one batch on the card equal to the CPU iterator's.
+16. ``[dist]`` (after ``[pipeline]``, before ``[elastic]``): distributed
+   training. An NCCL world of one: ``bench.py:337``'s BERT-base step
+   (64 x 128, dropout 0.1, Adam, MLM CE, bf16 AMP) through
+   ``DataParallel`` on a (dp 1, tp 1) mesh with ``tp_param_shardings``
+   and ``seq_shard_axis="tp"``, bit for bit the no-mesh step (losses and
+   parameters after 3 steps), one capture each, launches exact, a
+   replay's wall and idle share. Then 4 processes on ``cuda:0`` (this
+   script with ``--dist-worker``): NCCL's refusal of several ranks on one
+   card logged, then a gloo world whose CUDA tensors go through host
+   memory: BERT-base 16 x 128 f32 over dp 2 x tp 2 with its compute split
+   over tp and SP, held to the no-mesh step (losses 1e-4 relative, the
+   parameters after 3 steps at the train phases' tolerance, with the
+   tests' bound where a gradient is near zero, and one SGD step's update
+   at lr 1, the reduced gradient, at the same tolerance), every
+   rank's parameters the same bits, the step's wall, idle share and
+   exchanges by axis against TP alone, a bf16 p = 0.1 step and the
+   dropout keys' contract on K5; ring attention over sp = 4 at T = 32768
+   (causal and not) against one K1/K2 call over the whole sequence, one
+   hop's K1 and K2 (a full block and a causal one, K2 given the whole
+   sequence's O and lse) against their plain versions, K1/K2 launches a
+   hop, its time against K1's; GPipe
+   over pp = 4 and top-2 MoE over ep = 4 against one rank, 3 falling
+   training steps each. ``--only dist`` runs the build and ``[dist]``
+   alone (no result line).
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
@@ -243,7 +267,7 @@ the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
 ``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}``,
 ``{"np4": ...}``, ``{"observe": ...}``, ``{"fit": ...}``,
-``{"pipeline": ...}`` lines, one
+``{"pipeline": ...}``, ``{"dist": ...}`` lines, one
 ``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
@@ -9001,6 +9025,850 @@ def phase_pipeline(torch, dev):
     return out
 
 
+# [dist]: distributed training on the card. (1) an NCCL world of one:
+# bench.py:337's BERT-base step (64 x 128, dropout 0.1, Adam, MLM CE,
+# bf16 AMP) through DataParallel on a (dp 1, tp 1) mesh with the Megatron
+# specs and SP, against the no-mesh DataParallel. (2)-(4) a world of
+# DIST_WORLD ranks, processes on the same card: NCCL refuses a second rank
+# on one device, so the world takes gloo (CUDA tensors exchanged through
+# host memory), BERT-base at full width over dp 2 x tp 2 with TP + SP,
+# ring attention over sp, GPipe over pp and top-2 MoE over ep.
+DIST_WORLD = 4
+DIST_B, DIST_STEPS = 16, 3            # (2): the global batch, Adam steps
+DIST_LOSS_REL = 1e-4                  # (2) against the no-mesh step
+DIST_RING = dict(b=1, h=12, t=32768, d=64)
+DIST_PIPE = dict(width=768, micro=4, rows=64, lr=0.05, steps=3)
+DIST_MOE = dict(units=768, hidden=FFN, experts=4, cf=1.25, tokens=8 * 128,
+                lr=0.5, steps=3)
+DIST_F32_REL = 1e-4                   # GPipe and MoE against one rank
+DIST_TIMEOUT_S = 600
+DIST_NEAR_ZERO = 1e-3   # a gradient this far below its leaf's largest
+
+
+def _dist_batch(torch, dev, b):
+    """(tokens, labels) of BERT-base, (b, TRAIN_T), from a CPU generator
+    seeded 0 (the same in every process)."""
+    g = torch.Generator().manual_seed(0)
+    return tuple(torch.randint(0, BERT_VOCAB, (b, TRAIN_T), generator=g)
+                 .to(dev) for _ in range(2))
+
+
+def _dist_ring_inputs(torch, dev):
+    """q, k, v, dO (B, H, T, d) bf16 from a CPU generator seeded 1."""
+    g = torch.Generator().manual_seed(1)
+    r = DIST_RING
+    return [torch.randn(r["b"], r["h"], r["t"], r["d"], generator=g)
+            .to(dev, torch.bfloat16) for _ in range(4)]
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mlm(ce):
+    def f(out, y):
+        return ce(out[0], y)
+    return f
+
+
+def _dist_hop_checks(torch, fa, q, k, v, do, o, lse, causal):
+    """One hop of the ring on its own: K1 and K2 at the ring's shapes
+    (one rank's block of DIST_RING's sequence, bhtd bf16) against their
+    plain versions on the same inputs. The second rank's queries attend to
+    the first block in full and (``causal``) to their own block causally,
+    the two kinds of hop the ring runs; K2 is given the whole sequence's
+    O and lse for those queries (``o``, ``lse`` from one K1 call), as the
+    ring's backward gives it the merged ones. Returns the errors a
+    hop."""
+    c = DIST_RING["t"] // DIST_WORLD
+    rows = slice(c, 2 * c)
+    qb, dob, ob = (x[:, :, rows].contiguous() for x in (q, do, o))
+    lseb = lse[:, rows].contiguous()
+    out = {}
+    for src, mode in ((0, False),) + (((1, True),) if causal else ()):
+        kb, vb = (x[:, :, src * c:(src + 1) * c].contiguous()
+                  for x in (k, v))
+        got = (tuple(fa.flash_attention_with_lse(qb, kb, vb, causal=mode))
+               + tuple(fa.flash_attention_bwd(qb, kb, vb, ob, lseb, dob,
+                                              causal=mode)))
+        want = (tuple(fa.plain_attention(qb, kb, vb, causal=mode))
+                + tuple(fa.plain_attention_bwd(qb, kb, vb, ob, lseb, dob,
+                                               causal=mode)))
+        errs = {}
+        for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+            ok, err, nrel, top = agree_attn(g, w, ATTN_TOL)
+            check(ok, f"[dist 3] one hop, queries of block 1 against block "
+                  f"{src} (causal={mode}), ring causal={causal}: {name} "
+                  f"against the plain version: max abs {err:.3e}, normwise "
+                  f"{nrel:.3e}, max/top {top:.3e} ("
+                  + (tol_text("float32", ATTN_TOL) if name == "lse" else
+                     tol_text("bfloat16", ATTN_TOL, attn=True)) + ")")
+            errs[name] = dict(max_abs=err, normwise=nrel, top=top)
+        del got, want
+        torch.cuda.empty_cache()
+        key = f"block {src} causal={mode}"
+        out[key] = errs
+        log(f"[dist 3] one hop at the ring's shapes (B={DIST_RING['b']} "
+            f"H={DIST_RING['h']} {c} queries x {c} keys, d={DIST_RING['d']}"
+            f", bhtd bf16), queries of block 1 against block {src} "
+            f"(causal={mode}), K2 given the whole causal={causal} "
+            f"sequence's O and lse: K1 and K2 against their plain versions: "
+            + "; ".join(f"{n} max abs {e['max_abs']:.3e}, normwise "
+                        f"{e['normwise']:.3e}" for n, e in errs.items())
+            + f" (o, dq, dk, dv {tol_text('bfloat16', ATTN_TOL, attn=True)}"
+            f"; lse {tol_text('float32', ATTN_TOL)})")
+    return out
+
+
+def _dist_world_of_one(torch, dev, store):
+    """(1): returns (numbers, launches, layouts)."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import (bert_base,
+                                                       tp_param_shardings)
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import (DataParallel, dist,
+                                                    make_mesh)
+
+    dist.initialize(init_method=f"file://{store}", num_processes=1,
+                    process_id=0, backend="nccl")
+    check(dist.is_initialized()
+          and torch.distributed.get_backend() == "nccl",
+          "[dist] the NCCL world of one did not start")
+    ce = SoftmaxCrossEntropyLoss()
+    try:
+        mesh = make_mesh({"dp": 1, "tp": 1})
+        nets = [bert_base(max_length=TRAIN_T, dropout=TRAIN_P, device=dev,
+                          seed=0, seq_shard_axis=ax) for ax in ("tp", None)]
+        dps = [DataParallel(nets[0], _mlm(ce), Adam(learning_rate=TRAIN_LR),
+                            mesh=mesh,
+                            param_shardings=tp_param_shardings(nets[0])),
+               DataParallel(nets[1], _mlm(ce), Adam(learning_rate=TRAIN_LR))]
+        tokens, labels = _dist_batch(torch, dev, TRAIN_B)
+        amp.init("bfloat16")
+        try:
+            out, after = [], []
+            for dp, net in zip(dps, nets):
+                mxrandom.seed(0)
+                losses, counts, layouts, walls = [], [], [], []
+                for _ in range(3):
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses.append(dp.step(tokens, labels))
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    counts.append(read_counts())
+                    layouts.append(read_layout_counts())
+                out.append((losses, counts, layouts, walls))
+                after.append([p.detach().clone() for p in net.parameters()])
+            # a replay's wall time and device busy time (mesh step)
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dps[0].step(tokens, labels)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            cen = profiled(torch, lambda: dps[0].step(tokens, labels))
+        finally:
+            amp.deinit()
+        torch.cuda.synchronize()
+        (lm, cm, ym, wm), (ln_, cn, yn, _wn) = out
+        none = {k: 0 for k in DP_STEP_LAUNCHES}
+        for i, (c, y) in enumerate(zip(cm, ym)):
+            want = DP_STEP_LAUNCHES if i < 2 else none
+            check(c == want and (i == 2 or y == AMP_LAYOUT_LAUNCHES),
+                  f"[dist 1] mesh step {i}: launches {c}, by layout {y}; "
+                  f"expected {want}")
+        check(cm == cn, f"[dist 1] mesh launches {cm} != no-mesh {cn}")
+        check(dps[0].captures == 1 and dps[1].captures == 1,
+              f"[dist 1] captures {dps[0].captures} (mesh), "
+              f"{dps[1].captures} (no mesh); expected one each")
+        exact = (all(torch.equal(a, b) for a, b in zip(lm, ln_))
+                 and all(torch.equal(a, b) for a, b in zip(*after)))
+        loss_rel = max(abs(a.item() - b.item()) / abs(b.item())
+                       for a, b in zip(lm, ln_))
+        param_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)).item() for a, b in zip(*after))
+        how = ("bit for bit" if exact else
+               f"losses within {loss_rel:.3e}, parameters within "
+               f"{param_rel:.3e} of their largest magnitude")
+        check(exact or (loss_rel <= LOSS_REL_TOL
+                        and param_rel <= GRAD_REL_TOL),
+              f"[dist 1] the mesh step disagrees with the no-mesh step: "
+              f"{how} (tol {LOSS_REL_TOL:g}, {GRAD_REL_TOL:g})")
+        seen, _ = census_launches(cen)
+        dev_ms = census_ms(cen)
+        walls.sort()
+        wall = walls[len(walls) // 2]
+        idle = 1 - dev_ms / wall if dev_ms > 0 else None
+        nccl = sum(r["count"] for r in cen["rows"]
+                   if "nccl" in r["name"].lower())
+        log(f"[dist 1] NCCL world of one, mesh (dp 1, tp 1), "
+            f"tp_param_shardings + seq_shard_axis='tp', BERT-base "
+            f"{TRAIN_B} x {TRAIN_T}, dropout {TRAIN_P}, Adam lr "
+            f"{TRAIN_LR}, bf16 AMP: losses "
+            + ", ".join(f"{v.item():.6f}" for v in lm)
+            + f" against the no-mesh DataParallel's "
+            + ", ".join(f"{v.item():.6f}" for v in ln_)
+            + f": {how}; launches a step {cm[0]} (eager), {cm[1]} "
+            f"(capturing), {cm[2]} (replay), as the no-mesh step's; one "
+            f"capture each; a profiled replay launched {seen} and {nccl} "
+            f"NCCL kernels inside the graph; step ms "
+            + ", ".join(f"{t:.2f}" for t in wm)
+            + f"; a replay's median wall {wall:.2f} ms, device busy "
+            f"{dev_ms:.2f} ms (the kernel census) -> idle share "
+            + (f"{idle:.4f}" if idle is not None else "not measured"))
+        totals = {k: sum(c[k] for c in cm + cn) for k in DP_STEP_LAUNCHES}
+        layouts = {k: {} for k in AMP_LAYOUT_LAUNCHES}
+        for y in ym + yn:
+            for k, v in y.items():
+                for name, n in v.items():
+                    layouts[k][name] = layouts[k].get(name, 0) + n
+        del dps, nets, after
+        torch.cuda.empty_cache()
+    finally:
+        dist._shutdown()
+    torch.cuda.empty_cache()
+    numbers = dict(losses_mesh=[v.item() for v in lm],
+                   losses_no_mesh=[v.item() for v in ln_],
+                   agreement=how, launches_a_step=cm, captures=2,
+                   nccl_kernels_in_a_replay=nccl, step_ms=wm,
+                   replay_wall_ms=wall, device_busy_ms=dev_ms,
+                   idle_share=idle)
+    return numbers, totals, layouts
+
+
+def _dist_spawn(backend, store, out, timeout):
+    """The world's DIST_WORLD worker processes (this script with
+    ``--dist-worker``) on the card: (return codes, outputs)."""
+    import os
+
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker",
+         str(r), str(DIST_WORLD), store, out, backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(DIST_WORLD)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                o, _ = p.communicate(timeout=max(1.0, deadline -
+                                                 time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                o, _ = p.communicate()
+                o = (o or "") + "\n(killed at the time limit)"
+            outs.append(o or "")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def phase_dist(torch, dev):
+    """[dist] (see the constants above); returns (numbers, launches,
+    launches by layout)."""
+    import os
+    import shutil
+
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "dist_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    one, totals, layouts = _dist_world_of_one(
+        torch, dev, os.path.join(work, "store_one"))
+    t1 = time.perf_counter()
+    # NCCL with DIST_WORLD ranks on one card: expected to refuse
+    rcs, outs = _dist_spawn("nccl", os.path.join(work, "store_nccl"),
+                            work, 120)
+    lines = [line.strip() for o in outs for line in o.splitlines()]
+    said = ([x for x in lines if "Duplicate GPU" in x]
+            or [x for x in lines if "NCCL" in x
+                and ("rror" in x or "nvalid" in x)])
+    nccl_answer = said[0][:300] if said else None
+    log(f"[dist 2] NCCL with {DIST_WORLD} ranks on one card: return codes "
+        f"{rcs}; NCCL said: {nccl_answer!r}")
+    check(any(rcs) or nccl_answer is None,
+          "[dist 2] unexpected: NCCL took several ranks on one card")
+    nccl_took = not any(rcs)
+    t2 = time.perf_counter()
+    rcs, outs = _dist_spawn("gloo", os.path.join(work, "store_gloo"), work,
+                            DIST_TIMEOUT_S)
+    for r, (rc, o) in enumerate(zip(rcs, outs)):
+        for line in o.splitlines():
+            if line.startswith("[dist"):
+                log(line)
+    check(not any(rcs), "[dist] workers failed " + str(rcs) + ":\n" + "\n".join(
+        f"--- rank {r} ---\n{o[-3000:]}" for r, (rc, o) in
+        enumerate(zip(rcs, outs)) if rc))
+    t3 = time.perf_counter()
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(DIST_WORLD)]
+    numbers = dict(world_of_one=one, nccl_several_ranks_one_card=dict(
+        took=nccl_took, answer=nccl_answer), transport="gloo, CUDA tensors "
+        "through host memory")
+    # (2) BERT-base over dp 2 x tp 2
+    want = res[0]["no_mesh_losses"]
+    for r in res:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["bert_losses"],
+                                                      want))
+        check(rel <= DIST_LOSS_REL,
+              f"[dist 2] rank {r['rank']} losses {r['bert_losses']} vs "
+              f"the no-mesh step's {want}: {rel:.3e} > {DIST_LOSS_REL:g}")
+    check(all(r["tp_axis"] == "tp" for r in res),
+          "[dist 2] the step did not split BERT's compute over tp")
+    for s in range(DIST_STEPS):
+        digests = {r["bert_digests"][s] for r in res}
+        check(len(digests) == 1, f"[dist 2] step {s}: the ranks' "
+              f"parameters differ (digests {digests})")
+    check(len({r["amp_digest"] for r in res}) == 1,
+          "[dist 2] the bf16 p = 0.1 step: the ranks' parameters differ")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["bert_losses"],
+                                                  want))
+    p = res[0]["probe"]
+    masks = [r["probe"]["digests"] for r in res]
+    for s in range(2):
+        rep = [m[s][0] for m in masks]
+        sp = [m[s][1] for m in masks]
+        check(rep[0] == rep[1] and rep[2] == rep[3] and rep[0] != rep[2],
+              f"[dist 2] step {s}: replicated-site masks {rep}: the same on "
+              f"a tp pair, another on each dp rank expected")
+        check(sp[0] == sp[1] and sp[2] == sp[3],
+              f"[dist 2] step {s}: sequence-parallel masks {sp}")
+    check(all(r["probe"]["halves_differ"] and r["probe"]["fresh"]
+              and abs(r["probe"]["keep"] - (1 - TRAIN_P))
+              <= 6 * r["probe"]["keep_sigma"] for r in res),
+          f"[dist 2] the dropout contract: {[r['probe'] for r in res]}")
+    pr, sr = res[0]["param_rel"], res[0]["sgd_rel"]
+    check(pr["max"] <= GRAD_REL_TOL and pr["near_max_abs"] <= pr["near_bound"],
+          f"[dist 2] the parameters after {DIST_STEPS} Adam steps against "
+          f"the no-mesh step's: {pr['max']:.3e} of the leaf's largest "
+          f"magnitude ({pr['leaf']}; tol {GRAD_REL_TOL:g}), "
+          f"{pr['near_max_abs']:.3e} where the gradient is near zero (tol "
+          f"{pr['near_bound']:g})")
+    check(sr["max"] <= GRAD_REL_TOL,
+          f"[dist 2] one SGD step's update against the no-mesh step's: "
+          f"{sr['max']:.3e} of the leaf's largest ({sr['leaf']}) > "
+          f"{GRAD_REL_TOL:g}")
+    tpa = res[0]["tp_alone"]
+    tpa_rel = abs(tpa["first_loss"] - want[0]) / abs(want[0])
+    check(tpa_rel <= DIST_LOSS_REL,
+          f"[dist 2] TP alone: first loss {tpa['first_loss']} against the "
+          f"no-mesh step's {want[0]}: {tpa_rel:.3e} > {DIST_LOSS_REL:g}")
+    wall = sorted(res[0]["bert_walls"][1:])[len(res[0]["bert_walls"][1:])
+                                            // 2]
+    busy = res[0].get("busy_ms")
+    # the idle share against the unprofiled step's wall (the profiler
+    # slows gloo's host transport, so the profiled step's wall is longer)
+    idle = 1 - busy / wall if busy else None
+    idle_profiled = 1 - busy / res[0]["profiled_wall_ms"] if busy else None
+
+    def ex_text(ex):
+        return ", ".join(f"{a} {c} ({b / 2**20:.1f} MiB, {ms:.1f} ms)"
+                         for a, (c, b, ms) in sorted(ex.items()))
+    log(f"[dist 2] BERT-base ({C} units, {H} heads, FFN {FFN}, {LAYERS} "
+        f"layers), global batch {DIST_B} x {TRAIN_T}, f32, dropout 0, Adam "
+        f"lr {TRAIN_LR}, {DIST_WORLD} ranks on cuda:0 (gloo), dp 2 x tp 2 "
+        f"with TP (the compute split over tp: 6 heads, 1536 FFN units and "
+        f"half the vocabulary a rank) + SP: losses {res[0]['bert_losses']} against the no-mesh "
+        f"step's {want}: max rel {rel:.3e} (tol {DIST_LOSS_REL:g}); every "
+        f"rank's parameters the same bits after each step; step wall ms "
+        + ", ".join(f"{t:.1f}" for t in res[0]["bert_walls"])
+        + f" (median of steps 2-{DIST_STEPS}: {wall:.1f}); parameters "
+        f"after {DIST_STEPS} steps against the no-mesh step's within "
+        f"{pr['max']:.3e} of each leaf's largest magnitude (worst "
+        f"{pr['leaf']}, {pr['leaves']} leaves; tol {GRAD_REL_TOL:g}) and, "
+        f"at the {pr['near_count']} elements whose first gradient is "
+        f"within {DIST_NEAR_ZERO:g} of their leaf's largest, within "
+        f"{pr['near_max_abs']:.3e} (tol 2 lr a step, "
+        f"{pr['near_bound']:g}); one SGD step at lr 1 (its update the "
+        f"reduced gradient) within {sr['max']:.3e} of each leaf's largest "
+        f"update of the no-mesh step's (worst {sr['leaf']}; tol "
+        f"{GRAD_REL_TOL:g}); a "
+        f"profiled step's device busy "
+        + (f"{busy:.2f} ms -> idle share {idle:.4f} of the unprofiled "
+           f"median wall ({idle_profiled:.4f} of the profiled step's "
+           f"{res[0]['profiled_wall_ms']:.1f} ms wall, which the profiler "
+           f"stretches)" if busy else "not measured")
+        + f"; the last step's exchanges by axis (count, buffer MiB, host "
+        f"ms inside them), TP + SP: "
+        f"{ex_text(res[0]['exchanges_sp'])}; TP alone (no SP): "
+        f"{ex_text(tpa['exchanges'])}, its second step's wall "
+        f"{tpa['wall_ms']:.1f} ms, its first loss {tpa_rel:.3e} from the "
+        f"no-mesh step's; the bf16 AMP p = {TRAIN_P} step: loss "
+        f"{res[0]['amp_loss']:.5f}, the ranks' parameters the same bits; "
+        f"K5 at p = {TRAIN_P} on ({DIST_B // 2}, {TRAIN_T}, {C}) a rank: "
+        f"keep fraction {p['keep']:.5f} (6 sigma {6 * p['keep_sigma']:.5f}),"
+        f" masks the same on a tp pair, others on each dp rank, the "
+        f"sequence blocks of a rank's own, a fresh mask each step")
+    # (3) ring attention over sp
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
+    q, k, v, do = _dist_ring_inputs(torch, dev)
+    ring = {}
+    for causal in (False, True):
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        o, lse = fa.flash_attention_with_lse(qr, kr, vr, causal=causal)
+        o.backward(do)
+        hop = _dist_hop_checks(torch, fa, q, k, v, do, o.detach(), lse,
+                               causal)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        fa.flash_attention_with_lse(q, k, v, causal=causal)
+        end.record()
+        end.synchronize()
+        k1_ms = start.elapsed_time(end)
+        got = [torch.cat([r[f"ring_{causal}"][i] for r in res],
+                         dim=2).to(dev) for i in range(4)]
+        checks = []
+        for name, g, want_ in zip(("o", "dq", "dk", "dv"), got,
+                                  (o, qr.grad, kr.grad, vr.grad)):
+            ok, err, nrel, top = agree_attn(g, want_.detach(), ATTN_TOL)
+            checks.append((name, ok, err, nrel, top))
+            check(ok, f"[dist 3] ring causal={causal} {name}: max abs "
+                  f"{err:.3e}, normwise {nrel:.3e}, max/top {top:.3e} "
+                  f"({tol_text('bfloat16', ATTN_TOL, attn=True)})")
+        hops = [r[f"ring_hops_{causal}"] for r in res]
+        ring_ms = max(r[f"ring_ms_{causal}"] for r in res)
+        ring[str(causal)] = dict(
+            k1_whole_ms=k1_ms, ring_fwd_ms=ring_ms, hops=hops,
+            errors={n: dict(max_abs=e, normwise=nr, top=t)
+                    for n, _ok, e, nr, t in checks}, hop_vs_plain=hop)
+        log(f"[dist 3] ring attention B={DIST_RING['b']} H={DIST_RING['h']}"
+            f" T={DIST_RING['t']} ({DIST_RING['t'] // DIST_WORLD} a rank) "
+            f"d={DIST_RING['d']} bf16 causal={causal} over sp = "
+            f"{DIST_WORLD}: O, dQ, dK, dV against one K1 / K2 call over "
+            f"the whole sequence: "
+            + "; ".join(f"{n} max abs {e:.3e}, normwise {nr:.3e}"
+                        for n, _ok, e, nr, _t in checks)
+            + f" ({tol_text('bfloat16', ATTN_TOL, attn=True)}); K1 and K2 "
+            f"launches a rank (forward, backward) {hops}; the ring's "
+            f"forward {ring_ms:.2f} ms (slowest rank, CUDA events, with "
+            f"its host-memory exchanges) against K1 over the whole "
+            f"sequence {k1_ms:.3f} ms")
+        del got, qr, kr, vr, o
+    del q, k, v, do
+    # (4) GPipe and MoE
+    for name in ("pipe", "moe"):
+        r0 = res[0][name]
+        check(r0["rel"] <= DIST_F32_REL,
+              f"[dist 4] {name}: against one rank {r0['rel']:.3e} > "
+              f"{DIST_F32_REL:g}")
+        check(all(r[name]["losses"][-1] < r[name]["losses"][0]
+                  for r in res), f"[dist 4] {name}: the loss did not fall "
+              f"{[r[name]['losses'] for r in res]}")
+        log(f"[dist 4] {r0['what']}: the output against one rank's "
+            f"unsharded computation within {r0['rel']:.3e} (tol "
+            f"{DIST_F32_REL:g}); {len(r0['losses'])} SGD steps, losses "
+            + ", ".join(f"{v:.6f}" for v in r0["losses"]))
+    numbers.update(
+        bert=dict(losses=res[0]["bert_losses"], no_mesh=want,
+                  max_rel=rel, step_wall_ms=res[0]["bert_walls"],
+                  median_wall_ms=wall, profiled_wall_ms=res[0][
+                      "profiled_wall_ms"], device_busy_ms=busy,
+                  idle_share=idle, idle_share_of_profiled_wall=idle_profiled,
+                  param_rel=pr, sgd_update_rel=sr,
+                  exchanges_sp=res[0]["exchanges_sp"],
+                  tp_alone=tpa, amp_p01_loss=res[0]["amp_loss"],
+                  dropout_keep=p["keep"]),
+        ring=ring, pipe=res[0]["pipe"], moe=res[0]["moe"])
+    for r in res:
+        for key, n in r["counts"].items():
+            totals[key] = totals.get(key, 0) + n
+        for key, v in r["layouts"].items():
+            for name, n in v.items():
+                layouts.setdefault(key, {})
+                layouts[key][name] = layouts[key].get(name, 0) + n
+    t4 = time.perf_counter()
+    numbers["seconds"] = dict(world_of_one=t1 - t0, nccl_probe=t2 - t1,
+                              world=t3 - t2, checks=t4 - t3, total=t4 - t0)
+    log(f"[dist] took {t4 - t0:.1f} s: the world of one {t1 - t0:.1f}, "
+        f"NCCL's answer {t2 - t1:.1f}, the {DIST_WORLD}-rank world "
+        f"{t3 - t2:.1f}, the references and checks {t4 - t3:.1f}; "
+        f"launches {totals}")
+    shutil.rmtree(work, ignore_errors=True)
+    return numbers, totals, layouts
+
+
+def dist_worker(rank, n, store, out, backend):
+    """One rank of [dist]'s world on cuda:0 (this script with
+    ``--dist-worker``): with "nccl" only a first all-reduce (the
+    probe of NCCL's answer); with "gloo" parts (2)-(4), its results to
+    ``out/rank<r>.pt``."""
+    import os
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from incubator_mxnet_tpu_torch.parallel import dist
+
+    dist.initialize(init_method=f"file://{store}", num_processes=n,
+                    process_id=rank, backend=backend)
+    try:
+        if backend == "nccl":
+            x = torch.ones(1, device=dev)
+            torch.distributed.all_reduce(x)
+            torch.cuda.synchronize()
+            return 0
+        reset_counts()
+        res = {"rank": rank}
+        _worker_bert(torch, dev, rank, res)
+        _worker_ring(torch, dev, rank, n, res)
+        _worker_pipe_moe(torch, dev, rank, n, res)
+        res["counts"] = read_counts()
+        res["layouts"] = read_layout_counts()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        torch.distributed.barrier()
+    finally:
+        dist._shutdown()
+    return 0
+
+
+def _count_exchanges(torch, mesh, fn):
+    """(fn(), {axis: [exchanges, bytes, ms]}): the collectives ``fn``
+    made through the port's transport (`parallel.collectives._exchange`,
+    which every raw exchange calls), by the mesh axis of their group;
+    bytes are each exchange's larger buffer, in or out; ms the host's
+    time inside them (the card synchronized on entry and exit, so the
+    time is the exchange's own, waits for the peers included)."""
+    import torch.distributed as tdist
+    from incubator_mxnet_tpu_torch.parallel import collectives
+
+    axes = {tuple(tdist.get_process_group_ranks(mesh.group(a))): a
+            for a in mesh.shape if mesh.group(a) is not None}
+    real, seen = collectives._exchange, {}
+
+    def counting(group, f, out, *ins):
+        axis = ("world" if group is None else axes.get(
+            tuple(tdist.get_process_group_ranks(group)), "other"))
+        c = seen.setdefault(axis, [0, 0, 0.0])
+        c[0] += 1
+        c[1] += max(t.numel() * t.element_size() for t in (out,) + ins)
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real(group, f, out, *ins)
+        finally:
+            if out.is_cuda:
+                torch.cuda.synchronize()
+            c[2] += (time.perf_counter() - t0) * 1e3
+
+    collectives._exchange = counting
+    try:
+        return fn(), seen
+    finally:
+        collectives._exchange = real
+
+
+def _worker_bert(torch, dev, rank, res):
+    from incubator_mxnet_tpu_torch import amp, npx
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import (bert_base,
+                                                       tp_param_shardings)
+    from incubator_mxnet_tpu_torch.optimizer import SGD, Adam
+    from incubator_mxnet_tpu_torch.parallel import (DataParallel, _layout,
+                                                    make_mesh)
+
+    ce = SoftmaxCrossEntropyLoss()
+    mesh = make_mesh({"dp": 2, "tp": 2})
+    tokens, labels = _dist_batch(torch, dev, DIST_B)
+    if rank == 0:
+        # the no-mesh f32 step on the same weights and batch, which the
+        # world is held against: its losses, its parameters after
+        # DIST_STEPS Adam steps, and its update in one SGD step at lr 1
+        # (the gradient); the other ranks wait in the first exchange
+        net = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=0)
+        dp = DataParallel(net, _mlm(ce), Adam(learning_rate=TRAIN_LR))
+        mxrandom.seed(0)
+        res["no_mesh_losses"] = [dp.step(tokens, labels).item()
+                                 for _ in range(DIST_STEPS)]
+        want = {n: p_.detach().clone() for n, p_ in net.named_parameters()}
+        net = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=0)
+        dp = DataParallel(net, _mlm(ce), SGD(learning_rate=1.0))
+        before = {n: p_.detach().clone() for n, p_ in net.named_parameters()}
+        dp.step(tokens, labels)
+        sgd = {n: p_.detach() - before[n] for n, p_ in net.named_parameters()}
+        del net, dp, before
+        torch.cuda.empty_cache()
+
+    def run(dropout, steps, walls=None, seq_axis="tp", exchanges=None):
+        """``exchanges``: a dict that takes the last step's exchanges."""
+        net = bert_base(max_length=TRAIN_T, dropout=dropout, device=dev,
+                        seed=0, seq_shard_axis=seq_axis)
+        dp = DataParallel(net, _mlm(ce), Adam(learning_rate=TRAIN_LR),
+                          mesh=mesh, param_shardings=tp_param_shardings(net))
+        mxrandom.seed(0)
+        losses, digests = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if exchanges is not None and i == steps - 1:
+                loss, ex = _count_exchanges(
+                    torch, mesh, lambda: dp.step(tokens, labels).item())
+                exchanges.update(ex)
+            else:
+                loss = dp.step(tokens, labels).item()
+            losses.append(loss)
+            torch.cuda.synchronize()
+            if walls is not None:
+                walls.append((time.perf_counter() - t0) * 1e3)
+            digests.append(_digest(net.parameters()))
+        return net, dp, losses, digests
+
+    walls, res["exchanges_sp"] = [], {}
+    net, dp, res["bert_losses"], res["bert_digests"] = run(
+        0.0, DIST_STEPS, walls, exchanges=res["exchanges_sp"])
+    res["bert_walls"] = walls
+    res["tp_axis"] = dp._plan.tp_axis    # the compute split over tp
+    if rank == 0:
+        # the parameters after the last step against the no-mesh step's
+        # (every rank's are the same bits: the digests), as the tests hold
+        # Adam's: where the first step's gradient is near zero (within
+        # DIST_NEAR_ZERO of its leaf's largest; the no-mesh SGD step's
+        # update), lr·sign(g) may flip and the element is held to the
+        # steps' bound, 2 lr a step; elsewhere within GRAD_REL_TOL of the
+        # leaf's largest magnitude
+        far, near_abs, n_near = {}, 0.0, 0
+        for name, prm in net.named_parameters():
+            w, g = want[name], sgd[name].abs()
+            near = g <= DIST_NEAR_ZERO * g.max()
+            d = (prm.detach() - w).abs()
+            far[name] = (d[~near].max().item() / max(w.abs().max().item(),
+                                                     1e-30)
+                         if (~near).any() else 0.0)
+            if near.any():
+                near_abs = max(near_abs, d[near].max().item())
+                n_near += int(near.sum())
+        worst = max(far, key=far.get)
+        res["param_rel"] = dict(max=far[worst], leaf=worst, leaves=len(far),
+                                near_max_abs=near_abs, near_count=n_near,
+                                near_bound=2 * TRAIN_LR * DIST_STEPS)
+        del want
+    # one more step profiled on rank 0 (its device busy time), the same
+    # steps unprofiled elsewhere
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rank == 0:
+        cen = profiled(torch, lambda: dp.step(tokens, labels), held=False)
+        res["busy_ms"] = census_ms(cen) or None
+    else:
+        dp.step(tokens, labels)
+    torch.cuda.synchronize()
+    res["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    del net, dp
+    torch.cuda.empty_cache()
+    # one SGD step at lr 1 from the same weights: its update is the
+    # reduced gradient, held against the no-mesh step's (a gradient-scale
+    # fault, which Adam's update hides, shows here)
+    net = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=0,
+                    seq_shard_axis="tp")
+    dp = DataParallel(net, _mlm(ce), SGD(learning_rate=1.0), mesh=mesh,
+                      param_shardings=tp_param_shardings(net))
+    before = {n: p_.detach().clone() for n, p_ in net.named_parameters()}
+    dp.step(tokens, labels)
+    if rank == 0:
+        errs = {}
+        for name, prm in net.named_parameters():
+            w = sgd[name]
+            d = (prm.detach() - before[name] - w).abs().max().item()
+            top = w.abs().max().item()
+            # a leaf the loss does not reach (the NSP head) has no update
+            errs[name] = d / top if top > 0 else d
+        worst = max(errs, key=errs.get)
+        res["sgd_rel"] = dict(max=errs[worst], leaf=worst, leaves=len(errs))
+        del sgd
+    del net, dp, before
+    torch.cuda.empty_cache()
+    # TP alone (no sequence parallelism) on the same world and batch: its
+    # second step's wall and exchanges, against the TP + SP run's last
+    ex, tp_walls = {}, []
+    net, dp, tp_losses, _ = run(0.0, 2, tp_walls, seq_axis=None,
+                                exchanges=ex)
+    res["tp_alone"] = dict(wall_ms=tp_walls[-1], exchanges=ex,
+                           first_loss=tp_losses[0])
+    del net, dp
+    torch.cuda.empty_cache()
+    amp.init("bfloat16")
+    try:
+        net, dp, losses, digests = run(TRAIN_P, 1)
+    finally:
+        amp.deinit()
+    res["amp_loss"], res["amp_digest"] = losses[0], digests[0]
+    del net, dp
+    torch.cuda.empty_cache()
+
+    # the dropout contract: K5 at a replicated and a sequence-parallel
+    # site of BERT-base's activation, a rank's rows of the batch
+    class Probe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(C, device=dev))
+            self.masks = []
+
+        def forward(self, x):
+            ones = torch.ones(x.shape[0], TRAIN_T, C, device=dev)
+            rep = npx.dropout(ones, p=TRAIN_P)
+            sp = _layout.seq_region(lambda a: npx.dropout(a, p=TRAIN_P),
+                                    (ones,), "tp")
+            self.masks.append((rep != 0, sp != 0))
+            return (rep + sp) * self.w
+
+    probe = Probe()
+    dpp = DataParallel(probe, lambda o, y: o.mean(), SGD(learning_rate=0.0),
+                       mesh=mesh)
+    x = torch.zeros(DIST_B, 1, device=dev)
+    for _ in range(2):
+        dpp.step(x, x)
+    (r0, s0), (r1, s1) = probe.masks
+    half = TRAIN_T // 2
+    cnt = r0.numel()
+    res["probe"] = dict(
+        digests=[(_digest([m[0]]), _digest([m[1]])) for m in probe.masks],
+        keep=r0.float().mean().item(),
+        keep_sigma=(TRAIN_P * (1 - TRAIN_P) / cnt) ** 0.5,
+        halves_differ=bool((s0[:, :half] != s0[:, half:]).any()),
+        fresh=bool((r0 != r1).any() and (s0 != s1).any()))
+    del probe, dpp
+
+
+def _worker_ring(torch, dev, rank, n, res):
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.flash_attention")
+    from incubator_mxnet_tpu_torch.parallel import (make_mesh, mesh_scope,
+                                                    ring_attention)
+
+    mesh = make_mesh({"sp": n})
+    q, k, v, do = _dist_ring_inputs(torch, dev)
+    c = q.shape[2] // n
+    blocks = [x[:, :, rank * c:(rank + 1) * c].contiguous()
+              for x in (q, k, v, do)]
+    del q, k, v, do
+    for causal in (False, True):
+        qb, kb, vb = (x.clone().requires_grad_() for x in blocks[:3])
+        f0, b0 = fa.launches, fa.bwd_launches
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        with mesh_scope(mesh):
+            torch.distributed.barrier()
+            start.record()
+            o = ring_attention(qb, kb, vb, "sp", causal=causal)
+            end.record()
+            end.synchronize()
+            o.backward(blocks[3])
+        torch.cuda.synchronize()
+        res[f"ring_ms_{causal}"] = start.elapsed_time(end)
+        res[f"ring_hops_{causal}"] = (fa.launches - f0, fa.bwd_launches - b0)
+        res[f"ring_{causal}"] = [t.detach().cpu() for t in
+                                 (o, qb.grad, kb.grad, vb.grad)]
+
+
+def _worker_pipe_moe(torch, dev, rank, n, res):
+    from incubator_mxnet_tpu_torch.optimizer import SGD
+    from incubator_mxnet_tpu_torch.parallel import (collectives, make_mesh,
+                                                    mesh_scope,
+                                                    shard_train_step)
+    from incubator_mxnet_tpu_torch.parallel.moe import (
+        moe_dispatch_combine, moe_ffn_apply)
+    from incubator_mxnet_tpu_torch.parallel.pipeline import (
+        PipelineParallel, pipeline_apply)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    # GPipe over pp = n: a width-768 dense stage, 4 microbatches
+    p = DIST_PIPE
+    g = torch.Generator().manual_seed(2)
+    w = (torch.randn(n, p["width"], p["width"], generator=g)
+         / p["width"] ** 0.5).to(dev)
+    b = torch.zeros(n, p["width"], device=dev)
+    x = torch.randn(p["micro"], p["rows"], p["width"], generator=g).to(dev)
+    y = torch.randn(p["micro"], p["rows"], p["width"], generator=g).to(dev)
+
+    def stage(prm, act):
+        return torch.tanh(act @ prm["w"] + prm["b"])
+
+    pp = make_mesh({"pp": n})
+    f = shard_train_step(
+        lambda ww, bb, xx: pipeline_apply(stage, {"w": ww[0], "b": bb[0]},
+                                          xx, "pp")[None],
+        pp, in_specs=(("pp",), ("pp",), ()), out_specs=("pp",))
+    out = f(w, b, x)[-1]
+    ref = x
+    for s in range(n):
+        ref = stage({"w": w[s], "b": b[s]}, ref)
+    trainer = PipelineParallel(stage, {"w": w, "b": b},
+                               lambda o, yy: ((o - yy) ** 2).mean(),
+                               SGD(learning_rate=p["lr"]), pp)
+    losses = [trainer.step(x, y).item() for _ in range(p["steps"])]
+    res["pipe"] = dict(
+        what=f"GPipe over pp = {n}: a {p['width']}-wide tanh dense stage a "
+             f"rank, {p['micro']} microbatches of {p['rows']} rows, f32",
+        rel=rel(out, ref), losses=losses)
+    # top-2 MoE over ep = n: BERT-base's FFN widths, 4 experts
+    m = DIST_MOE
+    g = torch.Generator().manual_seed(3)
+    D, Hd, E = m["units"], m["hidden"], m["experts"]
+    prm = {"gw": torch.randn(D, E, generator=g) / D ** 0.5,
+           "w1": torch.randn(E, D, Hd, generator=g) / D ** 0.5,
+           "b1": torch.zeros(E, Hd),
+           "w2": torch.randn(E, Hd, D, generator=g) / Hd ** 0.5,
+           "b2": torch.zeros(E, D)}
+    prm = {k: t.to(dev) for k, t in prm.items()}
+    xs = torch.randn(n * m["tokens"], D, generator=g).to(dev)
+    ys = torch.randn(n * m["tokens"], D, generator=g).to(dev)
+    T = m["tokens"]
+    xb, yb = xs[rank * T:(rank + 1) * T], ys[rank * T:(rank + 1) * T]
+    el = E // n
+    mine = {k: (v[rank * el:(rank + 1) * el] if k != "gw" else v)
+            for k, v in prm.items()}
+    ep = make_mesh({"ep": n})
+
+    def layer(q, axis):
+        return moe_dispatch_combine(
+            xb, xb @ q["gw"], moe_ffn_apply(q["w1"], q["b1"], q["w2"],
+                                            q["b2"]),
+            capacity_factor=m["cf"], axis_name=axis, top_k=2)
+
+    with mesh_scope(ep):
+        sharded, _ = layer(mine, "ep")
+    local, _ = layer(prm, None)
+    losses = []
+    with mesh_scope(ep):
+        for _ in range(m["steps"]):
+            q = {k: v.clone().requires_grad_() for k, v in mine.items()}
+            o, aux = layer(q, "ep")
+            loss = ((o - yb) ** 2).mean() + 0.01 * aux
+            (loss / n).backward()
+            losses.append(collectives.all_reduce(loss.detach(), "ep",
+                                                 "mean").item())
+            gr = {k: v.grad for k, v in q.items()}
+            gr["gw"] = collectives.all_reduce(gr["gw"], "ep")
+            mine = {k: mine[k] - m["lr"] * gr[k] for k in mine}
+    res["moe"] = dict(
+        what=f"top-2 MoE over ep = {n}: {E} experts {D} -> {Hd} -> {D}, "
+             f"capacity factor {m['cf']}, {T} tokens a rank, f32",
+        rel=rel(sharded, local), losses=losses)
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -9178,6 +10046,12 @@ def main():
     t_start = time.perf_counter()
 
     phase_build()
+    if sys.argv[1:] == ["--only", "dist"]:
+        # [dist] alone, after the build: a short run, no result line
+        distributed, dist_launches, _ = phase_dist(torch, dev)
+        log(json.dumps({"dist": distributed}, default=str))
+        log(f"[done] [dist] alone: launches {dist_launches}")
+        return 3
     attn, lns = phase_kernels_vs_plain(torch, dev)
     phase_row_fwd_invariance(torch, dev)
     torch.cuda.empty_cache()
@@ -9312,6 +10186,16 @@ def main():
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [fit]'s launches {fit_launches}: {launches}")
     pipeline = phase_pipeline(torch, dev)
+    torch.cuda.empty_cache()
+    distributed, dist_launches, dist_layouts = phase_dist(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in dist_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in dist_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [dist]'s launches {dist_launches}: {launches}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -9361,6 +10245,7 @@ def main():
     log(json.dumps({"observe": observe}, default=str))
     log(json.dumps({"fit": fit}, default=str))
     log(json.dumps({"pipeline": pipeline}, default=str))
+    log(json.dumps({"dist": distributed}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)
@@ -9371,4 +10256,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4], sys.argv[5], sys.argv[6]))
     sys.exit(main())

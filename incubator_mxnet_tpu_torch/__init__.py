@@ -54,6 +54,8 @@ from . import (amp, analysis, autograd, base, callback, contrib, device,
                profiler, random, recordio, serve, telemetry, test_utils,
                util)
 from . import initializer as init
+from . import kvstore
+from . import kvstore as kv
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
@@ -65,7 +67,7 @@ from .ndarray import NDArray, waitall
 
 __all__ = ["amp", "analysis", "autograd", "base", "callback", "contrib",
            "device", "dlpack", "fault", "gluon", "image", "initializer",
-           "init", "io", "lr_scheduler", "model", "models", "ops",
+           "init", "io", "kv", "kvstore", "lr_scheduler", "model", "models", "ops",
            "optimizer", "parallel", "preemption", "profiler", "random",
            "recordio", "serve", "telemetry", "test_utils", "util", "nd",
            "np",

@@ -7,7 +7,7 @@ host-sync, promotion-drift and buffer-aliasing hazards as structured
 findings; `jit_cache_report` reports the graphs a block or a step keeps
 capturing. The findings' report classes of the mesh pre-flight
 (`ShardReport`) and the concurrency pass (`RaceReport`) are here as plain
-data; `shardcheck` itself is `ROADMAP.md` §1 item 9, and
+data; `shardcheck` itself is `ROADMAP.md` §1 item 13, and
 `racecheck_report`, `racecheck_paths`, `racecheck_source` and
 `runtime_report` are item 11b.
 

@@ -17,7 +17,7 @@ Severity contract:
 - ``info``: advisory notes that depend on global session state; not
   counted as findings.
 
-`ShardFinding`/`ShardReport` (shardcheck, `ROADMAP.md` §1 item 9) and
+`ShardFinding`/`ShardReport` (shardcheck, `ROADMAP.md` §1 item 13) and
 `RaceFinding`/`RaceReport` (racecheck, item 11b) are the report classes
 those passes fill; the passes themselves are not ported yet.
 """

@@ -16,7 +16,7 @@
   the last good checkpoint after a mid-step crash, checkpoint cadence.
 
 The reference's `elastic` (the topology controller) is not ported yet
-(`ROADMAP.md` §1 item 9).
+(`ROADMAP.md` §1 item 13).
 Recoveries are counted in the registry: ``mx_faults_injected_total``,
 ``mx_retries_total``, ``mx_steps_skipped_nonfinite_total``,
 ``mx_resumes_total``, ``mx_checkpoint_fallbacks_total``,

@@ -365,6 +365,15 @@ def _arm_hot_hooks():
     if nd_mod is not None:
         nd_mod._FAULT_HOOK = (_h2d_probe
                               if (sched and "h2d" in sched) else None)
+    dist_mod = sys.modules.get("incubator_mxnet_tpu_torch.parallel.dist")
+    if dist_mod is not None:  # dist arms itself at import too
+        dist_mod._FAULT_HOOK = (
+            _collective_probe
+            if (sched and "collective_delay" in sched) else None)
+
+
+def _collective_probe():
+    inject_at("collective_delay")
 
 
 def _h2d_probe(nbytes):  # noqa: ARG001 — hook signature shared with telemetry

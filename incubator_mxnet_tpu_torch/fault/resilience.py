@@ -28,7 +28,7 @@ training:
    saves), so there is always a recent generation to resume from.
 
 The ``elastic=`` controller (a rank leaving or joining the fleet) is
-`ROADMAP.md` §1 item 9's: passing one raises.
+`ROADMAP.md` §1 item 13's: passing one raises.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ class ResilienceHandler(StepGuard, TrainBegin, BatchEnd):
         Loud-failure bound on back-to-back non-finite steps.
     elastic : fault.elastic.ElasticController, optional
         The reference polls it at every `batch_end`; the controller is
-        `ROADMAP.md` §1 item 9's, and passing one raises `MXNetError`.
+        `ROADMAP.md` §1 item 13's, and passing one raises `MXNetError`.
     """
 
     def __init__(self, checkpointer=None, skip_nonfinite=True,
@@ -86,7 +86,7 @@ class ResilienceHandler(StepGuard, TrainBegin, BatchEnd):
 
             raise MXNetError("ResilienceHandler(elastic=...): the elastic "
                              "controller (fault.elastic) is ROADMAP.md "
-                             "§1 item 9")
+                             "§1 item 13")
         self.elastic = elastic
         self._resumes = 0
         self._consecutive_skips = 0

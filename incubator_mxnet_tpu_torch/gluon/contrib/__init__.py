@@ -1,6 +1,6 @@
 """gluon.contrib (port of `incubator_mxnet_tpu/gluon/contrib/__init__.py`):
-the composable vision loader and the Estimator. The reference's `MoEFFN`
-is `ROADMAP.md` §1 item 11b."""
+the composable vision loader, the Estimator and `MoEFFN`."""
 from . import data, estimator
+from .moe import MoEFFN
 
-__all__ = ["estimator", "data"]
+__all__ = ["estimator", "data", "MoEFFN"]

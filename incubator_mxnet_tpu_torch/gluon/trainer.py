@@ -2,9 +2,13 @@
 `Trainer` :15: `step` :83, `allreduce_grads` :91, `update` :113,
 `_update` :119, `save_states`/`load_states` :137).
 
-The port runs on one card, so there is no gradient reduction: the
-reference's KVStore step is a no-op there too ("device", "local" or None;
-another kvstore raises, ROADMAP.md §1 item 9). Parameters are indexed in
+``kvstore`` is the reference's (a type string for `kvstore.create`, a
+store, or None), made at the first step: `allreduce_grads` pushpulls each
+gradient through it, so "dist_sync" sums the gradients across the
+processes of a `torch.distributed` world (`parallel.dist`), and
+``compression_params`` compress the push leg (`kvstore.compression`).
+On a one-process store ("device", "local") without compression the
+pushpull is the identity, and the step skips it. Parameters are indexed in
 name order, as the reference sorts its dict, so the per-index optimizer
 state lines up with the reference's. A parameter's gradient is its
 tensor's ``.grad`` (`gluon.parameter`): one a backward never reached is
@@ -32,7 +36,6 @@ from ..base import MXNetError
 
 __all__ = ["Trainer"]
 
-_KVSTORES = ("device", "local", None)
 
 
 class Trainer:
@@ -44,14 +47,6 @@ class Trainer:
 
     def __init__(self, params, optimizer, optimizer_params=None, kvstore="device",
                  compression_params=None, update_on_kvstore=None):
-        if kvstore not in _KVSTORES:
-            raise MXNetError(f"Trainer(kvstore={kvstore!r}): the port runs on "
-                             f"one card; other kvstores are not ported "
-                             f"(ROADMAP.md §1 item 9)")
-        if compression_params:
-            raise MXNetError("Trainer(compression_params=...): gradient "
-                             "compression is not ported (ROADMAP.md §1 "
-                             "item 9)")
         from .parameter import Parameter
 
         if isinstance(params, dict):
@@ -78,8 +73,29 @@ class Trainer:
         self._optimizer.param_dict = {p.name: p for p in self._params}
         self._states = [None] * len(self._params)
         self._states_initialized = [False] * len(self._params)
+        self._compression_params = compression_params
+        self._kvstore = None
         self._kvstore_type = kvstore
         self._update_on_kvstore = bool(update_on_kvstore)
+        self._kv_initialized = False
+
+    # -- kvstore (reference: trainer.py:54) ----------------------------------
+    def _init_kvstore(self):
+        from .. import kvstore as kv_mod
+
+        if self._kvstore_type is None:
+            self._kvstore = None
+        elif isinstance(self._kvstore_type, str):
+            self._kvstore = kv_mod.create(self._kvstore_type)
+        else:
+            self._kvstore = self._kvstore_type
+        if self._kvstore is not None and self._compression_params:
+            if not hasattr(self._kvstore, "set_gradient_compression"):
+                raise ValueError(
+                    f"kvstore {type(self._kvstore).__name__} does not "
+                    "support gradient compression")
+            self._kvstore.set_gradient_compression(self._compression_params)
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -94,19 +110,42 @@ class Trainer:
 
     # -- step ---------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale gradients by ``_scale``/batch_size and apply the
-        optimizer (on one card there is nothing to reduce first)."""
+        """Rescale gradients by ``_scale``/batch_size, reduce them through
+        the kvstore and apply the optimizer."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._allreduce_grads()
 
     def _allreduce_grads(self):
-        """One card: nothing to reduce."""
+        from ..kvstore.horovod import Horovod
+        from ..kvstore.kvstore import KVStoreDevice, KVStoreLocal
+        from ..ndarray.ndarray import NDArray
+
+        kv = self._kvstore
+        if kv is None or (isinstance(kv, (KVStoreDevice, KVStoreLocal))
+                          and not isinstance(kv, Horovod)
+                          and getattr(kv, "_compression", None) is None):
+            return   # the identity reduce
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or p._data is None:
+                continue
+            t = p._data._data
+            if t.grad is None:
+                continue
+            g = NDArray(t.grad.detach())
+            kv.pushpull(i, g, out=g)
+            t.grad.copy_(g._data)
 
     def update(self, batch_size, ignore_stale_grad=False):
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 

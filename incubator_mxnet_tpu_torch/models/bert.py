@@ -33,6 +33,32 @@ are the reference's
 ``collect_params()`` names (:meth:`BERTModel.load_jax_params`), and
 ``named_parameters()`` gives the same.
 
+Tensor and sequence parallelism (reference :28-56, :205-220):
+:func:`tp_param_shardings` gives the reference's Megatron specs for
+`parallel.DataParallel`, which keeps each parameter whole on every rank,
+shards its optimizer state by the spec, updates the rank's block and
+gathers the updated blocks after each step (`parallel/sharded.py`).
+Given them, the step splits the model's compute over their axis as
+Megatron does: each rank runs the flash kernels on its heads (the
+head-aligned rows of the fused qkv weight, which the spec cuts
+contiguously, read from the whole weight) and proj on their columns, the
+FFN on its hidden units, the word embedding on its rows of the
+vocabulary (the masked ids' lookup) and the MLM decoder on its rows (the
+scores gathered whole for the softmax); Megatron's f and g
+(`parallel._layout.copy_to`, `reduce_from`) join the regions, and the
+dropout inside a split region folds the rank's index into its key.
+``seq_shard_axis``
+(e.g. "tp") runs the LayerNorm and dropout regions, the embedding's
+LayerNorm and dropout and both post-LN residual sites of every cell, on
+this rank's rows of the sequence under an active mesh
+(`parallel._layout.seq_region`: `npx.sharding_constraint` for the rows,
+K3 and K4 on them, the rows gathered back; γ's and β's gradients are
+the rank's shares, which the step sums over the axis, and the dropout
+keys are folded with the rank's coordinate).
+Between the regions the activation is whole on every rank, which is the
+reference's layout up to where GSPMD places the gather. With no mesh
+the axis is unused.
+
 The port's extras: ``device=`` (parameters are made there; the entry
 points build on the card by default and raise when there is none,
 unless ``device="cpu"`` is passed), ``dtype=``, ``impl=``, and ``seed=``:
@@ -54,17 +80,82 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
 from ..numpy_extension import _op
+from ..parallel import _layout
+from ..parallel._layout import seq_region
 from ..initializer import generator_scope
 from .decoding import make_generator
 from .params import init_seeded, load_params
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "BERTEncoder", "BERTModel", "BERTClassifier", "bert_base",
-           "bert_small"]
+           "bert_small", "tp_param_shardings"]
+
+
+class _TPSpecs(list):
+    """`tp_param_shardings`' list, marked with its axis: `DataParallel`
+    splits a model's compute over it when the model supports it."""
+
+    tensor_parallel_axis = None
+
+
+def tp_param_shardings(net, tp_axis="tp"):
+    """Megatron-style tensor-parallel specs for a gluon BERT, aligned with
+    `parallel.DataParallel`'s trainable parameters (``collect_params()``
+    values whose ``grad_req`` is not "null"): qkv and ffn1 shard their
+    output dimension, proj and ffn2 their input dimension, the word
+    embedding and the MLM decoder the vocabulary; the rest replicate. A
+    spec is a tuple, one entry per dimension (the reference's
+    `PartitionSpec`)."""
+    specs = _TPSpecs()
+    specs.tensor_parallel_axis = tp_axis
+    for name, p in net.collect_params().items():
+        if p.grad_req == "null":
+            continue
+        if name.endswith(("qkv.weight", "ffn1.weight")):
+            specs.append((tp_axis, None))
+        elif name.endswith(("qkv.bias", "ffn1.bias")):
+            specs.append((tp_axis,))
+        elif name.endswith(("proj.weight", "ffn2.weight")):
+            specs.append((None, tp_axis))
+        elif name.endswith(("word_embed.weight", "mlm_decoder.weight")):
+            specs.append((tp_axis, None))
+        elif name.endswith("mlm_decoder.bias"):
+            specs.append((tp_axis,))
+        else:
+            specs.append(())
+    return specs
 
 
 def _dropout(rate, impl):
     return nn.Dropout(rate, impl=impl) if rate else None
+
+
+# -- tensor parallelism (the TP path of a `DataParallel` step) --------------
+def _block(t, n, j, dim):
+    """This rank's block of dimension ``dim`` of a parameter (a view)."""
+    start, stop = _layout.bounds(t.shape[dim], j, n)
+    return _op("tp_block", lambda w: w.narrow(dim, start, stop - start), t)
+
+
+def _tp_copy(x, tp):
+    mesh, axis = tp[:2]
+    return _op("tp_copy", lambda t: _layout.copy_to(t, mesh, axis), x)
+
+
+def _tp_reduce(x, tp):
+    mesh, axis = tp[:2]
+    return _op("tp_reduce", lambda t: _layout.reduce_from(t, mesh, axis), x)
+
+
+def _tp_dropout(drop, x, tp):
+    """Dropout of an activation split over the axis: each rank's share
+    draws its own mask (keys folded with the rank's index)."""
+    if drop is None:
+        return x
+    from .. import random as _random
+
+    with _random.fold_key_scope(tp[3]):
+        return drop(x)
 
 
 class MultiHeadAttention(HybridBlock):
@@ -88,10 +179,47 @@ class MultiHeadAttention(HybridBlock):
                              in_units=units, dtype=dtype, device=device)
         self.dropout = _dropout(dropout, impl)
 
+    def _tp_forward(self, x, valid_length, tp):
+        """Megatron's split: this rank's heads of q, k and v (rows of the
+        fused qkv weight, whose spec cuts it contiguously, so the whole
+        weight is read), flash attention on them, and proj on their
+        columns, summed over the axis."""
+        N, T, C = x.shape
+        n, j = tp[2], tp[3]
+        H = self._num_heads
+        if H % n:
+            raise MXNetError(f"tensor parallelism: {H} heads do not split "
+                             f"over {n} ranks")
+        d, cl, hl = C // H, C // n, H // n
+
+        def heads(w):
+            return torch.cat([w.narrow(0, s * C + j * cl, cl)
+                              for s in range(3)])
+
+        w = _op("qkv_heads", heads, self.qkv.weight.data())
+        b = _op("qkv_heads", heads, self.qkv.bias.data())
+        qkv = npx.fully_connected(_tp_copy(x, tp), w, b, num_hidden=3 * cl,
+                                  flatten=False)
+        q, k, v = _op("qkv_split",
+                      lambda t: t.view(N, T, 3, hl, d).unbind(2), qkv)
+        out = npx.flash_attention(q, k, v, valid_length=valid_length,
+                                  layout="bthd", impl=self._impl)
+        out = _tp_dropout(self.dropout, out.reshape(N, T, cl), tp)
+        part = npx.fully_connected(out, _block(self.proj.weight.data(), n, j,
+                                               1), None, num_hidden=C,
+                                   no_bias=True, flatten=False)
+        return _tp_reduce(part, tp) + self.proj.bias.data()
+
     def forward(self, x, mask=None, valid_length=None):
         N, T, C = x.shape
         H = self._num_heads
         d = C // H
+        tp = _layout.tp()
+        if tp is not None:
+            if not self._use_flash or mask is not None:
+                raise MXNetError("tensor parallelism takes the flash path "
+                                 "(use_flash=True, no dense mask)")
+            return self._tp_forward(x, valid_length, tp)
         qkv = self.qkv(x)
         if self._use_flash and mask is None:
             # q, k, v stay views of the projection (the reference's
@@ -154,6 +282,21 @@ class PositionwiseFFN(HybridBlock):
         self.dropout = _dropout(dropout, impl)
 
     def forward(self, x):
+        tp = _layout.tp()
+        if tp is not None:
+            # Megatron's split: this rank's hidden units (ffn1's rows,
+            # ffn2's columns), summed over the axis
+            n, j = tp[2], tp[3]
+            w1 = _block(self.ffn1.weight.data(), n, j, 0)
+            h = npx.fully_connected(_tp_copy(x, tp), w1,
+                                    _block(self.ffn1.bias.data(), n, j, 0),
+                                    num_hidden=w1.shape[0], flatten=False)
+            h = _tp_dropout(self.dropout,
+                            npx.activation(h, act_type=self._activation), tp)
+            part = npx.fully_connected(
+                h, _block(self.ffn2.weight.data(), n, j, 1), None,
+                num_hidden=x.shape[-1], no_bias=True, flatten=False)
+            return _tp_reduce(part, tp) + self.ffn2.bias.data()
         h = npx.activation(self.ffn1(x), act_type=self._activation)
         if self.dropout is not None:
             h = self.dropout(h)
@@ -171,6 +314,7 @@ class TransformerEncoderCell(HybridBlock):
         self._pre_norm = pre_norm
         self._drop_rate = dropout
         self._impl = impl
+        self._seq_shard_axis = None   # set by BERTEncoder(seq_shard_axis=)
         self.attention = MultiHeadAttention(units, num_heads, dropout,
                                             use_flash=use_flash, dtype=dtype,
                                             device=device, impl=impl)
@@ -184,10 +328,15 @@ class TransformerEncoderCell(HybridBlock):
 
     def _residual_ln(self, x, h, ln):
         # the post-LN residual site through the fused residual + dropout
-        # + LayerNorm op (K3)
-        return npx.residual_dropout_ln(x, h, ln.gamma.data(), ln.beta.data(),
-                                       p=self._drop_rate, eps=ln._epsilon,
-                                       impl=self._impl)
+        # + LayerNorm op (K3), on this rank's rows under sequence
+        # parallelism
+        def site(x, h, gamma, beta):
+            return npx.residual_dropout_ln(x, h, gamma, beta,
+                                           p=self._drop_rate,
+                                           eps=ln._epsilon, impl=self._impl)
+
+        return seq_region(site, (x, h), self._seq_shard_axis,
+                          (ln.gamma.data(), ln.beta.data()))
 
     def forward(self, x, mask=None, valid_length=None):
         if self._pre_norm:
@@ -210,10 +359,6 @@ class BERTEncoder(HybridBlock):
                  batch_shard_axis="dp", dtype="float32", device=None,
                  impl="auto"):
         super().__init__()
-        if seq_shard_axis is not None:
-            raise MXNetError("BERTEncoder(seq_shard_axis=...): sequence "
-                             "parallelism is not ported (ROADMAP.md §1 "
-                             "item 9)")
         self._units = units
         self._use_flash = use_flash
         self._seq_shard_axis = seq_shard_axis
@@ -233,19 +378,51 @@ class BERTEncoder(HybridBlock):
             self.layers.add(TransformerEncoderCell(
                 units, hidden_size, num_heads, dropout, use_flash=use_flash,
                 dtype=dtype, device=device, impl=impl))
+        for cell in self.layers:
+            cell._seq_shard_axis = seq_shard_axis
+
+    def _embed(self, tokens):
+        """The word embedding; under tensor parallelism this rank's rows of
+        the vocabulary (the masked ids' lookup), summed over the axis."""
+        tp = _layout.tp()
+        if tp is None:
+            return self.word_embed(tokens)
+        n, j = tp[2], tp[3]
+        w = self.word_embed.weight.data()
+        start, stop = _layout.bounds(w.shape[0], j, n)
+        local = _op("tp_ids", lambda t: t.long() - start, tokens)
+        keep = _op("tp_ids", lambda t: ((t >= 0) & (t < stop - start)),
+                   local)
+        ids = _op("tp_ids", lambda t, k: torch.where(k, t, 0), local, keep)
+        x = npx.embedding(ids, _block(w, n, j, 0), input_dim=stop - start,
+                          output_dim=w.shape[1])
+        x = _op("tp_mask", lambda e, k: e * k.unsqueeze(-1).to(e.dtype), x,
+                keep)
+        return _tp_reduce(x, tp)
+
+    def _embed_ln(self, x):
+        # the embedding's LayerNorm (K4) and dropout, on this rank's rows
+        # under sequence parallelism
+        ln = self.ln
+
+        def site(x, gamma, beta):
+            x = npx.layer_norm(x, gamma, beta, axis=ln._axis,
+                               eps=ln._epsilon, impl=ln._impl)
+            return self.dropout(x) if self.dropout is not None else x
+
+        return seq_region(site, (x,), self._seq_shard_axis,
+                          (ln.gamma.data(), ln.beta.data()))
 
     def forward(self, tokens, token_types=None, valid_length=None):
         T = tokens.shape[1]
         if T > self.position_embed.shape[0]:
             raise ValueError(f"sequence length {T} exceeds max_length "
                              f"{self.position_embed.shape[0]}")
-        x = self.word_embed(tokens)
+        x = self._embed(tokens)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         x = x + self.position_embed.data()[:T]
-        x = self.ln(x)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        x = self._embed_ln(x)
         if self._use_flash:
             # (B,) lengths straight into the kernel, no dense mask
             for cell in self.layers:
@@ -301,9 +478,32 @@ class BERTModel(HybridBlock):
         :func:`params.load_params`)."""
         load_params(self, params)
 
+    @property
+    def supports_tensor_parallel(self):
+        """`parallel.DataParallel` splits this model's compute over the
+        axis of `tp_param_shardings` (the flash path)."""
+        return self.encoder._use_flash
+
+    def _decode(self, h):
+        """The MLM decoder; under tensor parallelism this rank's rows of
+        the vocabulary, the scores gathered whole (the softmax needs the
+        whole row)."""
+        tp = _layout.tp()
+        if tp is None:
+            return self.mlm_decoder(h)
+        mesh, axis, n, j = tp
+        w = _block(self.mlm_decoder.weight.data(), n, j, 0)
+        local = npx.fully_connected(
+            _tp_copy(h, tp), w, _block(self.mlm_decoder.bias.data(), n, j,
+                                       0), num_hidden=w.shape[0],
+            flatten=False)
+        vocab = self.mlm_decoder.weight.shape[0]
+        return _op("tp_gather", lambda t: _layout.gather(
+            t, mesh, (axis,), t.dim() - 1, vocab), local)
+
     def forward(self, tokens, token_types=None, valid_length=None):
         seq = self.encoder(tokens, token_types, valid_length)
-        mlm_scores = self.mlm_decoder(self.mlm_ln(self.mlm_dense(seq)))
+        mlm_scores = self._decode(self.mlm_ln(self.mlm_dense(seq)))
         nsp_scores = self.nsp(seq[:, 0])
         return mlm_scores, nsp_scores
 

@@ -78,8 +78,8 @@ from ..ops.flash_attention import flash_attention as _flash_attention
 from ..ops import fused_block as _fb
 from ..ops import layer_norm as _ln
 
-__all__ = ["relu", "sigmoid", "gelu", "activation", "leaky_relu",
-           "softmax", "softmin", "log_softmax", "masked_softmax",
+__all__ = ["sharding_constraint", "relu", "sigmoid", "gelu", "activation",
+           "leaky_relu", "softmax", "softmin", "log_softmax", "masked_softmax",
            "masked_log_softmax", "batch_dot", "arange_like", "softsign",
            "fully_connected", "embedding", "layer_norm", "dropout",
            "flash_attention", "residual_dropout_ln", "gelu_dropout",
@@ -150,6 +150,33 @@ def _safe_accumulation():
     """``MXNET_SAFE_ACCUMULATION=1``: softmax reduces a bf16 or f16 input
     in f32 and casts back (the reference's :119-126)."""
     return os.environ.get("MXNET_SAFE_ACCUMULATION") == "1"
+
+
+def sharding_constraint(data, spec):
+    """Lay an activation out over the active mesh as ``spec`` says
+    (reference `numpy_extension/__init__.py:937`): the identity with no
+    active mesh; under one, this rank's block of each dimension the spec
+    cuts (`parallel._layout`), whose gradient is gathered back. Axes the
+    mesh lacks are dropped, as in the reference, and so are the axes the
+    tensors are already local along (a `DataParallel` step's batch
+    axis)."""
+    from ..parallel import _layout
+    from ..parallel.mesh import _world, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or not _world()[0]:
+        return data
+
+    def f(x):
+        cspec = _layout.clean_spec(spec, x.dim(), mesh)
+        done = _layout.laid_out_axes()
+        for d, axes in enumerate(cspec):
+            axes = tuple(a for a in axes if a not in done)
+            if axes:
+                x = _layout.scatter(x, mesh, axes, d)
+        return x
+
+    return _op("sharding_constraint", f, data)
 
 
 def relu(data):

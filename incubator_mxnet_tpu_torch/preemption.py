@@ -29,7 +29,7 @@ Design:
 The runtime layout (`_runtime_layout`) is the minimal one of a process
 on one host: the format, the card count, one process, generation 0. The
 mesh entry, `fault.elastic.checkpoint_layout` and resharding a
-checkpoint onto another device count are `ROADMAP.md` §1 item 9's: a
+checkpoint onto another device count are `ROADMAP.md` §1 item 13's: a
 resume across a device-count change raises `LayoutMismatch`.
 """
 from __future__ import annotations
@@ -135,7 +135,7 @@ class LayoutMismatch(RuntimeError):
     generation-fallback trigger: every older generation was written under
     the same dead topology, so `resume` raises instead of walking the
     rotation. Resharding onto the live topology (the reference's route
-    with ``MXNET_ELASTIC`` on) is `ROADMAP.md` §1 item 9's."""
+    with ``MXNET_ELASTIC`` on) is `ROADMAP.md` §1 item 13's."""
 
     non_retryable = True
 
@@ -323,7 +323,7 @@ def _runtime_layout():
     """Minimal topology fingerprint of the live runtime, the default
     layout sidecar: the format, the card count, one process, generation
     0 (`fault.elastic.checkpoint_layout`, the rich per-leaf-spec version
-    elastic trainers install instead, is `ROADMAP.md` §1 item 9's)."""
+    elastic trainers install instead, is `ROADMAP.md` §1 item 13's)."""
     import torch
 
     return {"format": 1, "device_count": int(torch.cuda.device_count()),
@@ -425,7 +425,7 @@ class TrainingCheckpointer:
         """Layout-sidecar guard: a checkpoint written under a different
         device count raises a clear :class:`LayoutMismatch`, never a
         shape error deep inside a load. Resharding it onto the live
-        topology is `ROADMAP.md` §1 item 9's (`fault.elastic`)."""
+        topology is `ROADMAP.md` §1 item 13's (`fault.elastic`)."""
         if side is None:            # pre-elastic legacy checkpoint
             return
         import torch
@@ -437,7 +437,7 @@ class TrainingCheckpointer:
         raise LayoutMismatch(
             f"checkpoint {path} was written on {saved} device(s) but the "
             f"runtime has {live}: resharding a checkpoint onto another "
-            f"device count (fault.elastic) is ROADMAP.md §1 item 9")
+            f"device count (fault.elastic) is ROADMAP.md §1 item 13")
 
     def _resume_impl(self, log, tempfile):
         paths = self._mgr.generations()

@@ -47,7 +47,7 @@ A trace started on a machine with no CUDA device records the host lanes
 only (the funnel and the spans): ``device_events()`` stays empty and
 ``trace_meta()`` says why; nothing pretends to be a device lane.
 ``profile_process="server"`` takes the single-process path; the
-distributed commands are `ROADMAP.md` §1 item 9.
+distributed commands are `ROADMAP.md` §1 item 13.
 
 Memory goes through the caching allocator: `memory_stats` reads
 ``torch.cuda.memory_stats``, `live_buffer_table` and `analyze_memory`
@@ -115,7 +115,7 @@ def set_config(**kwargs):
     """Update the profiler's configuration. ``profile_process="server"``
     queues the config for every process of a distributed job, which is
     this one alone until the distributed path is ported (`ROADMAP.md` §1
-    item 9)."""
+    item 13)."""
     if kwargs.pop("profile_process", "worker") == "server":
         _REMOTE_PENDING.append(("set_config", dict(kwargs)))
     _CONFIG.update(kwargs)
@@ -307,7 +307,9 @@ def _launched_at(events):
 def _ingest_trace(data, log, anchor_us=None):
     """Keep the device lanes' complete events of a torch.profiler chrome
     trace (``data``), with their lane metadata rows, pids remapped to
-    1000 + pid, ts rebased onto the epoch clock, the work launched inside
+    1000 + pid, ts rebased onto the epoch clock (and moved on as far as
+    the card's clock puts a kernel before its launch call), the work
+    launched inside
     a paused interval dropped (by the host's launch call, which shares
     the pause's clock, where the trace holds it, else by the event's own
     ts; before the join: the log is off there too), and the launch log
@@ -323,12 +325,20 @@ def _ingest_trace(data, log, anchor_us=None):
                    and e.get("cat") in _DEVICE_CATS),
                   key=lambda e: float(e.get("ts", 0.0)))
     n_work = len(work)
+    launched = _launched_at(events)
     if _PAUSED_INTERVALS:
-        launched = _launched_at(events)
         work = [e for e in work if not _in_paused_interval(
             shift + launched.get((e.get("args") or {}).get("correlation"),
                                  float(e["ts"])))]
     dropped = n_work - len(work)
+    # the card's clock, as the trace converts it to the host's, can put a
+    # kernel before the host call that launched it (by up to ~2 ms on the
+    # card): no work starts before its launch, so the device lanes are
+    # moved on by the largest such lead
+    lead = max([launched[c] - float(e["ts"]) for e in work
+                for c in [(e.get("args") or {}).get("correlation")]
+                if c in launched] + [0.0])
+    shift_dev = shift + lead
     ports = [e for e in work if PORT_KERNEL.search(e.get("name", ""))]
     joined, unjoined = join_launch_log(ports, log)
     cost = {id(ports[i]): entry for i, entry in joined.items()}
@@ -351,7 +361,7 @@ def _ingest_trace(data, log, anchor_us=None):
             m.pop("ts", None)
             kept.append(m)
     for e in work:
-        ts = float(e["ts"]) + shift
+        ts = float(e["ts"]) + shift_dev
         corr = (e.get("args") or {}).get("correlation")
         k = {"name": e.get("name", "?"), "ph": "X",
              "pid": _DEVICE_PID_BASE + int(e["pid"]), "tid": e.get("tid", 0),

@@ -15,6 +15,10 @@ for the next site of the step instead: the scope's base key and step
 counter, device tensors that the step's replays read anew, and the
 site's index, counted per scope as the reference's frame ``[base_key,
 counter]`` counts it.
+
+Under sharding (`parallel`), a :class:`fold_key_scope` folds a shard's
+coordinate into the keys of the sites drawn inside it, so that shards of
+one activation draw distinct masks while replicas draw the same one.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 from .ops._philox import DeviceKey
 
 __all__ = ["seed", "seed_epoch", "next_key", "host_seed", "trace_key_scope",
-           "get_state", "rng_impl"]
+           "fold_key_scope", "get_state", "rng_impl"]
 
 _LOCK = threading.Lock()
 _GEN = torch.Generator(device="cpu")
@@ -116,6 +120,56 @@ class trace_key_scope:
         return key
 
     def __enter__(self):
+        _FRAMES.stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _FRAMES.stack.pop()
+        return False
+
+
+class fold_key_scope:
+    """The sites drawn inside take the enclosing key folded with ``n``
+    (an int >= 0): inside a :class:`trace_key_scope`, the scope's base
+    key is folded, ``fold(base, n)``, and the sites keep the enclosing
+    scope's count, so a site's number is what it would be without this
+    scope; outside one, each host key is folded with ``n``. The
+    sequence-sharded regions of `parallel` fold a rank's coordinate along
+    the sharding axis in, so each shard draws its own mask."""
+
+    def __init__(self, n):
+        self.n = int(n)
+        self.outer = None    # an enclosing fold_key_scope
+        self.parent = None   # the trace_key_scope whose sites count on
+        self.base = None
+        self.tables = {}
+
+    def next_site(self):
+        from .ops._philox import fold
+
+        if self.parent is None:
+            inner = (self.outer.next_site() if self.outer is not None
+                     else _host_words())
+            words = fold(inner, self.n)
+            return int(words[0]), int(words[1])
+        key = DeviceKey(self.base, self.parent.t, self.parent.counter,
+                        self.tables)
+        self.parent.counter += 1
+        return key
+
+    def __enter__(self):
+        from .ops._philox import fold
+
+        top = _FRAMES.stack[-1] if _FRAMES.stack else None
+        if isinstance(top, fold_key_scope):
+            self.outer = top
+            self.parent, base = top.parent, top.base
+        else:
+            self.parent, base = top, (top.base_key if top is not None else None)
+        if self.parent is not None:
+            t = self.parent.t
+            self.base = torch.stack(fold((base[0], base[1]),
+                                         torch.full_like(t, self.n)))
         _FRAMES.stack.append(self)
         return self
 

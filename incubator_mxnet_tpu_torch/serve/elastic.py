@@ -498,7 +498,7 @@ class ReplicaSetController:
     def _spawn_mesh(self, m, j):  # noqa: ARG002
         """The idle mesh slice for replica index `j`. Mesh-sharded
         replicas are not ported (`ModelRegistry.add(mesh=...)` raises,
-        `ROADMAP.md` §1 item 9), so every replica is a single-device
+        `ROADMAP.md` §1 item 13), so every replica is a single-device
         engine: None."""
         return None
 

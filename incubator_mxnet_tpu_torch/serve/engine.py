@@ -80,7 +80,7 @@ carries the FLOPs of the eager step before it and its kernels' costs
 (`_graphs`), and its private memory pool is the census owner
 ``"graph:{census_name}.{step}"``. The sharding pre-flight and
 `hbm_crosscheck` (shardcheck's SC006) are not ported yet (`ROADMAP.md`
-§1 item 9).
+§1 item 13).
 
 Stale-row safety (the reference's argument, per page): position ``p`` of
 a slot enters the mask only once the slot's ``pos`` reaches ``p``, and
@@ -1344,7 +1344,7 @@ class SlotDecoder:
         `MXNetError`."""
         raise MXNetError(
             "SlotDecoder.hbm_crosscheck needs shardcheck's SC006 static "
-            "estimate, which is not ported yet (ROADMAP.md §1 item 9); "
+            "estimate, which is not ported yet (ROADMAP.md §1 item 13); "
             "telemetry.hbm.census() gives the census half")
 
     def xla_program_count(self):

@@ -65,7 +65,7 @@ A failed step gets the device-memory post-mortem (`telemetry.hbm`) when
 it ran out of memory, else the flight dump.
 
 Not ported yet, and raising `MXNetError` that names the `ROADMAP.md` item:
-``add(mesh=...)`` and the sharded engine (`serve.sharded`, §1 item 9).
+``add(mesh=...)`` and the sharded engine (`serve.sharded`, §1 item 13).
 """
 from __future__ import annotations
 
@@ -199,7 +199,7 @@ class ModelRegistry:
         ``MXNET_SERVE_REPLICAS`` knob, else 1); the model's page cut is
         split evenly across them, and on one card they share the device.
         ``mesh`` (mesh-sharded replicas) raises `MXNetError` until the
-        sharded engine is ported (`ROADMAP.md` §1 item 9). A list of
+        sharded engine is ported (`ROADMAP.md` §1 item 13). A list of
         pre-built decoders is also accepted as ``block_or_decoder`` (one
         per replica).
 
@@ -217,7 +217,7 @@ class ModelRegistry:
             raise MXNetError(
                 f"model {name!r}: mesh= (mesh-sharded replicas, "
                 "serve.sharded.ShardedSlotDecoder) is not ported yet "
-                "(ROADMAP.md §1 item 9)")
+                "(ROADMAP.md §1 item 13)")
         if name in self._specs:
             raise ValueError(f"model {name!r} already registered")
         share = float(share)
@@ -349,7 +349,7 @@ class ModelRegistry:
             raise MXNetError(
                 f"model {name!r}: a mesh-sharded engine "
                 "(serve.sharded.ShardedSlotDecoder) is not ported yet "
-                "(ROADMAP.md §1 item 9)")
+                "(ROADMAP.md §1 item 13)")
         return SlotDecoder(block, **rkw)
 
     def _build(self, policy, max_queue, default_deadline, eos_id, seed):

@@ -32,7 +32,7 @@ warm one). Ties inside the warm set fall back to least-loaded.
 
 In the reference, `replica_meshes` carves one host's device list into
 disjoint per-replica mesh slices; in the port it raises `MXNetError`
-until the sharded serving engine is ported (`ROADMAP.md` §1 item 9).
+until the sharded serving engine is ported (`ROADMAP.md` §1 item 13).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ def replica_meshes(spec, n_replicas, devices=None):  # noqa: ARG001
 
     raise MXNetError(
         "serve.router.replica_meshes is not ported yet: it carves device "
-        "meshes for the sharded serving engine (ROADMAP.md §1 item 9)")
+        "meshes for the sharded serving engine (ROADMAP.md §1 item 13)")
 
 
 def _tenant_hash(tenant, n):

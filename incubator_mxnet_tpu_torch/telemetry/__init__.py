@@ -38,7 +38,7 @@ Importing the package arms the NDArray host->device inlet
 
 Every probe is a dead branch until the plane is armed
 (``MXNET_TELEMETRY=1`` at import, or each module's ``enable()``). The
-fleet plane (the cross-rank view) is `ROADMAP.md` §1 item 9.
+fleet plane (the cross-rank view) is `ROADMAP.md` §1 item 13.
 """
 from . import locks  # noqa: I001  (first: tracked_lock feeds the rest)
 from . import (anatomy, burnrate, capacity, compiles, goodput, hbm,

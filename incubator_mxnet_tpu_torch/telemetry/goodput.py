@@ -41,7 +41,7 @@ body (``compute``), the DataLoader's batch wait (``data_wait``, upload
 included), `preemption.atomic_save` (``checkpoint``) and
 `TrainingCheckpointer.resume` and the resilience handler's crash
 recovery (``recovery``). `fault/elastic.py`, the producer of
-``reshard`` and ``drain``, is `ROADMAP.md` §1 item 9's.
+``reshard`` and ``drain``, is `ROADMAP.md` §1 item 13's.
 `parallel.DataParallel` does not charge it, as the reference's does
 not.
 """

@@ -28,7 +28,7 @@ NaN hook (`install_nan_hook`): catches the first non-finite op output.
 
 Rank statistics: `queue_rank_stats()`, `sync_rank_stats()` and
 `rank_aggregate()` take the single-process path (the local summary); the
-exchange across processes is `ROADMAP.md` §1 item 9.
+exchange across processes is `ROADMAP.md` §1 item 13.
 
 `TelemetryHandler` is the Estimator's handler feeding the registry's
 step series (`registry.step`): each batch's wall time and examples.
@@ -336,7 +336,7 @@ def queue_rank_stats(stats):
 
 def sync_rank_stats():
     """Min/max/mean of the queued rank summaries. One process: the local
-    summary (the exchange across processes is `ROADMAP.md` §1 item 9).
+    summary (the exchange across processes is `ROADMAP.md` §1 item 13).
     Returns the aggregate and caches it for `rank_aggregate()`."""
     global _RANK_SUMMARY
     mine, _RANK_SUMMARY = _RANK_SUMMARY, {}

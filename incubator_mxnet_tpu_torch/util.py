@@ -242,6 +242,11 @@ _ENV_KNOBS = {
         "(default 50) — the deterministic-straggler magnitude for the "
         "collective_delay seam (honored, this build's addition — see "
         "TELEMETRY.md)"),
+    "MXNET_ELASTIC_DRAIN_S": (
+        "parallel.dist.rendezvous", "seconds the membership-epoch "
+        "rendezvous waits for the roster to settle before committing "
+        "the survivor set (default 20) (honored, this build's addition "
+        "— see RESILIENCE.md)"),
     "MXNET_ELASTIC_SERVE": (
         "serve.Gateway", "1 = arm a serve.elastic.ReplicaSetController on the"
         " gateway step loop: AutoscaleAdvisor recommendations are ACTED on "

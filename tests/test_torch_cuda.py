@@ -2480,3 +2480,73 @@ def test_nan_hook_guards_a_capture_without_a_sync(dev):
     finally:
         monitor.uninstall_nan_hook()
         monitor.clear_nan_findings()
+
+
+# ---------------------------------------------------------------------------
+# distributed training on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_through_k1_is_one_k1_call(dev, causal):
+    """Ring attention over an sp axis of one rank (no world) is one hop:
+    one K1 launch forward and one K2 call backward, equal bit for bit to
+    the flash kernels on the whole sequence."""
+    from incubator_mxnet_tpu_torch.parallel import (make_mesh,
+                                                    ring_self_attention)
+    from incubator_mxnet_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+    from incubator_mxnet_tpu_torch.parallel import mesh_scope
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 256, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    mesh = make_mesh({"sp": 1})
+    f0 = fa.launches
+    got = ring_self_attention(q, k, v, mesh=mesh, causal=causal)
+    assert fa.launches - f0 == 1
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    with mesh_scope(mesh):
+        ring_attention(qa, ka, va, "sp", causal=causal).backward(do)
+    qb, kb, vb = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention(qb, kb, vb, causal=causal).backward(do)
+    for a, b in ((qa, qb), (ka, kb), (va, vb)):
+        assert torch.equal(a.grad, b.grad)
+
+
+def test_nccl_world_of_one_step_matches_the_no_mesh_step(dev, tmp_path):
+    """An NCCL world of one: `DataParallel` on a (dp 1, tp 1) mesh with
+    the Megatron specs and SP keeps the step one CUDA graph (one capture,
+    the collectives inside) and trains `bert_small` at p = 0.1 bit for
+    bit as the no-mesh step."""
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import (bert_small,
+                                                       tp_param_shardings)
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import (DataParallel, dist,
+                                                    make_mesh)
+
+    dist.initialize(init_method=f"file://{tmp_path / 'store'}",
+                    num_processes=1, process_id=0, backend="nccl")
+    try:
+        ce = SoftmaxCrossEntropyLoss()
+        nets = [bert_small(vocab_size=97, max_length=32, dropout=0.1,
+                           device=dev, seed=0, seq_shard_axis=a)
+                for a in ("tp", None)]
+        dps = [DataParallel(nets[0], lambda o, y: ce(o[0], y), Adam(),
+                            mesh=make_mesh({"dp": 1, "tp": 1}),
+                            param_shardings=tp_param_shardings(nets[0])),
+               DataParallel(nets[1], lambda o, y: ce(o[0], y), Adam())]
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randint(0, 97, (4, 32), generator=g, device=dev)
+        losses = []
+        for dp in dps:
+            mxrandom.seed(1)
+            losses.append([dp.step(x, x) for _ in range(3)])
+        assert [dp.captures for dp in dps] == [1, 1]
+        assert all(torch.equal(a, b) for a, b in zip(*losses))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(nets[0].parameters(), nets[1].parameters()))
+    finally:
+        dist._shutdown()

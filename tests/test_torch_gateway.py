@@ -178,7 +178,7 @@ def test_router_scores_and_picks_equal_reference():
                 out.append(rs.index(rt.pick_decode(rs, prompt=warm)))
             picks.append(out)
         assert picks[0] == picks[1]
-    with pytest.raises(MXNetError, match="item 9"):
+    with pytest.raises(MXNetError, match="item 13"):
         trouter.replica_meshes("tp=4", 2)
 
 
@@ -265,7 +265,7 @@ def test_gateway_not_ported_parts_raise_naming_the_roadmap():
     from incubator_mxnet_tpu_torch.telemetry import timeseries
 
     reg = tserve.ModelRegistry()
-    with pytest.raises(MXNetError, match="item 9"):
+    with pytest.raises(MXNetError, match="item 13"):
         reg.add("m", _StubSlots(PKGS["port"]), mesh="tp=2")
     reg.add("m", _StubSlots(PKGS["port"]))
     gw = tserve.Gateway(reg)
@@ -302,7 +302,7 @@ def test_registry_builds_engines_from_its_recipe():
         reg.build_engine("s")
     with pytest.raises(ValueError):
         reg.build_engine("nope")
-    with pytest.raises(MXNetError, match="item 9"):
+    with pytest.raises(MXNetError, match="item 13"):
         reg.build_engine("g", mesh=object())
 
 

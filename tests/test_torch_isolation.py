@@ -454,3 +454,20 @@ def test_training_loop_modules_stand_alone(tmp_path):
                          text=True, timeout=240, cwd=PKG.parent)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_distributed_modules_and_workers_stand_alone(tmp_path):
+    """Each rank of a 2-rank gloo world (`torch_worlds/`) imports every
+    distributed module of the port (`parallel`, `kvstore`,
+    `models.sharded_bert`, `gluon.contrib.moe`) and trains a step of a
+    tiny BERT over tp = 2 without loading jax or the reference package."""
+    import os
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_worlds import world
+
+    ranks = world.spawn(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "torch_worlds", "isolation.py"), 2,
+        tmp_path)
+    assert [r["forbidden"] for r in ranks] == [[], []]
+    assert ranks[0]["loss"] == ranks[1]["loss"]

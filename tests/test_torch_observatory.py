@@ -343,7 +343,7 @@ def test_hbm_crosscheck_waits_for_shardcheck(tiny):
     eng = _drive_engine(tiny)
     from incubator_mxnet_tpu_torch.base import MXNetError
 
-    with pytest.raises(MXNetError, match="item 9"):
+    with pytest.raises(MXNetError, match="item 13"):
         eng._sched.slots.hbm_crosscheck()
 
 

@@ -272,7 +272,7 @@ def test_a_layout_from_another_device_count_is_refused(tmp_path):
             layout_fn=lambda: {"format": 1, "device_count": 64,
                                "process_count": 8, "generation": 3})
         ck.step()
-        with pytest.raises(tpre.LayoutMismatch, match="item 9"):
+        with pytest.raises(tpre.LayoutMismatch, match="item 13"):
             ck.resume()
 
 
@@ -399,5 +399,5 @@ def test_resilience_backs_the_amp_scale_off_and_refuses_elastic():
     finally:
         amp.deinit()
         amp.scale_loss._scaler = None
-    with pytest.raises(MXNetError, match="item 9"):
+    with pytest.raises(MXNetError, match="item 13"):
         ResilienceHandler(elastic=object())

@@ -217,6 +217,34 @@ def test_ingest_drops_paused_intervals():
     assert tprof.trace_meta()["paused_dropped"] == len(ks) - len(kept)
 
 
+def test_device_lanes_start_after_their_launch_calls():
+    """The card's clock, converted to the host's, can read a kernel before
+    the call that launched it (by ~0.6 ms in one profiled decode replay on
+    the card, which then lay outside its step's host span): the lanes are
+    moved on by the largest such lead, keeping their own spacing."""
+    def launch(corr, ts):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch",
+                "pid": 7, "tid": 7, "ts": ts, "dur": 2.0,
+                "args": {"correlation": corr}}
+
+    def kernel(name, corr, ts):
+        return {"ph": "X", "cat": "kernel", "name": name, "pid": 0,
+                "tid": 7, "ts": ts, "dur": 5.0,
+                "args": {"correlation": corr}}
+
+    for lead, events in ((0.0, [launch(1, 100.0), kernel("a", 1, 120.0),
+                                kernel("b", 1, 130.0)]),
+                         (40.0, [launch(1, 100.0), kernel("a", 1, 60.0),
+                                 kernel("b", 1, 70.0), launch(2, 90.0),
+                                 kernel("c", 2, 80.0)])):
+        tprof.dumps(reset=True)
+        tprof._ingest_trace({"traceEvents": events}, [])
+        got = {e["name"]: e["ts"] for e in _kernels(tprof.device_events())}
+        want = {e["name"]: e["ts"] + lead for e in events
+                if e["cat"] == "kernel"}
+        assert got == want, (lead, got)
+
+
 def test_paused_work_is_what_was_launched_while_paused():
     """The pause is on the host's clock, and so is each launch call: work
     launched inside the interval is dropped wherever the card ran it, and

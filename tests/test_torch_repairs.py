@@ -27,7 +27,8 @@ INCIDENTAL = {"os", "re", "functools", "onp", "annotations", "Callable",
               "Sequence", "np_dtype", "apply_op_flat", "register_aux_update",
               "next_key"}
 
-ITEM_9 = "ROADMAP.md §1 item 9 (distributed training, sharded serving)"
+ITEM_13 = ("ROADMAP.md §1 item 13 (sharded serving, the elastic layout, the "
+           "fleet plane, shardcheck)")
 ITEM_11B = "ROADMAP.md §1 item 11b (the rest of the breadth)"
 
 NPX_ITEM_11B = (
@@ -59,46 +60,46 @@ ND_CONTRIB_ITEM_11B = (
 NOT_PORTED = {
     "": dict.fromkeys(
         "partition remat".split(), ITEM_11B) | dict.fromkeys(
-        "kv kvstore".split(), ITEM_9) | dict.fromkeys(
         "AttrScope attribute context engine error executor libinfo library "
         "log name onnx operator registry rtc runtime sym symbol utils "
         "visualization viz".split(), ITEM_11B),
-    "models": {"sharded_bert": ITEM_9},
+    "models": {},
     "serve": dict.fromkeys("ServeLayout ShardedSlotDecoder replica_meshes "
-                           "serve_mesh sharded".split(), ITEM_9),
+                           "serve_mesh sharded".split(), ITEM_13),
     "ops": {},
     "gluon": dict.fromkeys("probability rnn".split(), ITEM_11B),
     "gluon.nn": {},
     "gluon.model_zoo": {},
     "gluon.model_zoo.vision": {},
     "gluon.model_zoo.model_store": {},
-    "parallel": dict.fromkeys(
-        "Mesh all_gather all_reduce broadcast collectives current_mesh "
-        "make_mesh mesh mesh_scope reduce_scatter ring_attention "
-        "ring_permute ring_self_attention shard_train_step dist moe "
-        "pipeline".split(), ITEM_9),
+    # distributed training (`functools.partial` and `threading` are the
+    # reference modules' imports, not names of their API)
+    "parallel": {}, "parallel.mesh": {}, "parallel.collectives": {},
+    "parallel.dist": {"threading": "an import, not an API name"},
+    "parallel.ring_attention": {"partial": "an import, not an API name"},
+    "parallel.pipeline": {}, "parallel.moe": {}, "kvstore": {},
+    "models.sharded_bert": {"partial": "an import, not an API name"},
     "amp": {}, "optimizer": {}, "lr_scheduler": {},
-    "fault": {"elastic": ITEM_9},
+    "fault": {"elastic": ITEM_13},
     "device": {}, "base": {},
     "autograd": {"TapeNode": "the port's tape is torch's autograd graph",
                  "vjp_cache_info": "eager torch has no vjp program cache"},
     "random": {},
     "initializer": {},
-    "numpy_extension": dict.fromkeys(NPX_ITEM_11B + ["image"], ITEM_11B)
-    | {"sharding_constraint": ITEM_9},
+    "numpy_extension": dict.fromkeys(NPX_ITEM_11B + ["image"], ITEM_11B),
     "ndarray": dict.fromkeys(ND_ITEM_11B, ITEM_11B),
     "ndarray.contrib": dict.fromkeys(ND_CONTRIB_ITEM_11B, ITEM_11B),
     "numpy": {},
     "numpy.linalg": {},
     "numpy.random": {},
-    "telemetry": {"fleet": ITEM_9},
+    "telemetry": {"fleet": ITEM_13},
     "telemetry.monitor": {},
     "telemetry.kernels": {}, "telemetry.roofline": {},
     "telemetry.stages": {}, "telemetry.registry": {},
     "analysis": dict.fromkeys(
         "racecheck racecheck_fixtures racecheck_paths racecheck_report "
         "racecheck_source runtime_report".split(), ITEM_11B)
-    | {"shardcheck": ITEM_9},
+    | {"shardcheck": ITEM_13},
     # the reference reads XPlane's gzipped trace files; torch.profiler
     # exports plain JSON
     "profiler": dict.fromkeys("glob gzip".split(),
@@ -115,7 +116,7 @@ NOT_PORTED = {
     "gluon.data.vision.transforms": {
         "apply_op": "host numpy transforms, no funnel op"},
     "gluon.metric": {},
-    "gluon.contrib": dict.fromkeys("MoEFFN moe".split(), ITEM_11B),
+    "gluon.contrib": {}, "gluon.contrib.moe": {},
     "gluon.contrib.data": {}, "gluon.contrib.data.vision": {},
     "gluon.contrib.estimator": {}, "gluon.contrib.estimator.estimator": {},
     "gluon.contrib.estimator.event_handler": {},
