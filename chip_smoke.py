@@ -244,20 +244,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    script with ``--dist-worker``): NCCL's refusal of several ranks on one
    card logged, then a gloo world whose CUDA tensors go through host
    memory: BERT-base 16 x 128 f32 over dp 2 x tp 2 with its compute split
-   over tp and SP, held to the no-mesh step (losses 1e-4 relative, the
+   over tp and Megatron SP, each rank storing only its blocks of the cut
+   parameters, held to the no-mesh step (losses 1e-4 relative, the
    parameters after 3 steps at the train phases' tolerance, with the
    tests' bound where a gradient is near zero, and one SGD step's update
-   at lr 1, the reduced gradient, at the same tolerance), every
-   rank's parameters the same bits, the step's wall, idle share and
-   exchanges by axis against TP alone, a bf16 p = 0.1 step and the
+   at lr 1, the reduced gradient, at the same tolerance), a dp replica's
+   blocks its twin's bits, each rank's stored bytes (parameters,
+   gradients, Adam) against the whole model's and a whole-tensor
+   layout's (parameters and gradients whole, Adam on the blocks) and its
+   allocator peak, the step's wall, idle share and exchanges by axis and
+   op (buffer and wire MiB) against TP alone, a bf16 p = 0.1 step and the
    dropout keys' contract on K5; ring attention over sp = 4 at T = 32768
    (causal and not) against one K1/K2 call over the whole sequence, one
    hop's K1 and K2 (a full block and a causal one, K2 given the whole
    sequence's O and lse) against their plain versions, K1/K2 launches a
-   hop, its time against K1's; GPipe
-   over pp = 4 and top-2 MoE over ep = 4 against one rank, 3 falling
-   training steps each. ``--only dist`` runs the build and ``[dist]``
-   alone (no result line).
+   hop, its time against K1's; ``[dist 4]``: the BERT-base run loses one
+   dp replica through the ``topology_change`` seam (`fault.elastic`: a
+   vote, the shardcheck pre-flight, a drain checkpoint, the rendezvous,
+   the trainer rebuilt on dp 1 x tp 2), the survivors' parameters and
+   Adam state bit for bit the pre-transition ones, their next steps'
+   losses falling, the pre-flight's abort on a layout that would
+   replicate the cut parameters, the 4-rank checkpoint resumed on 2 ranks
+   bit for bit; ``[dist 5]``: GPipe over pp = 4 and top-2 MoE over ep = 4
+   against one rank, 3 falling training steps each. ``--only dist`` runs
+   the build and ``[dist]`` alone (no result line).
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
@@ -9028,11 +9038,14 @@ def phase_pipeline(torch, dev):
 # [dist]: distributed training on the card. (1) an NCCL world of one:
 # bench.py:337's BERT-base step (64 x 128, dropout 0.1, Adam, MLM CE,
 # bf16 AMP) through DataParallel on a (dp 1, tp 1) mesh with the Megatron
-# specs and SP, against the no-mesh DataParallel. (2)-(4) a world of
+# specs and SP, against the no-mesh DataParallel. (2)-(5) a world of
 # DIST_WORLD ranks, processes on the same card: NCCL refuses a second rank
 # on one device, so the world takes gloo (CUDA tensors exchanged through
 # host memory), BERT-base at full width over dp 2 x tp 2 with TP + SP,
-# ring attention over sp, GPipe over pp and top-2 MoE over ep.
+# each rank storing its blocks of the cut parameters (2), ring attention
+# over sp (3), one dp replica leaving the BERT-base run (4: the elastic
+# transition, resharding and the resume of its checkpoint on 2 ranks),
+# GPipe over pp and top-2 MoE over ep (5).
 DIST_WORLD = 4
 DIST_B, DIST_STEPS = 16, 3            # (2): the global batch, Adam steps
 DIST_LOSS_REL = 1e-4                  # (2) against the no-mesh step
@@ -9330,12 +9343,19 @@ def phase_dist(torch, dev):
               f"the no-mesh step's {want}: {rel:.3e} > {DIST_LOSS_REL:g}")
     check(all(r["tp_axis"] == "tp" for r in res),
           "[dist 2] the step did not split BERT's compute over tp")
+    def replicas_agree(digests):
+        """A dp replica's blocks are its twin's bits (ranks r and r + 2),
+        the uncut parameters the same on every rank."""
+        return (digests[0][0] == digests[2][0]
+                and digests[1][0] == digests[3][0]
+                and len({d[1] for d in digests}) == 1)
+
     for s in range(DIST_STEPS):
-        digests = {r["bert_digests"][s] for r in res}
-        check(len(digests) == 1, f"[dist 2] step {s}: the ranks' "
-              f"parameters differ (digests {digests})")
-    check(len({r["amp_digest"] for r in res}) == 1,
-          "[dist 2] the bf16 p = 0.1 step: the ranks' parameters differ")
+        digests = [r["bert_digests"][s] for r in res]
+        check(replicas_agree(digests), f"[dist 2] step {s}: the replicas' "
+              f"stored parameters differ (digests {digests})")
+    check(replicas_agree([r["amp_digest"] for r in res]),
+          "[dist 2] the bf16 p = 0.1 step: the replicas' parameters differ")
     rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["bert_losses"],
                                                   want))
     p = res[0]["probe"]
@@ -9377,15 +9397,42 @@ def phase_dist(torch, dev):
     idle_profiled = 1 - busy / res[0]["profiled_wall_ms"] if busy else None
 
     def ex_text(ex):
-        return ", ".join(f"{a} {c} ({b / 2**20:.1f} MiB, {ms:.1f} ms)"
-                         for a, (c, b, ms) in sorted(ex.items()))
+        return ", ".join(
+            f"{a} {c} ({b / 2**20:.1f} MiB of buffers, {w / 2**20:.1f} MiB "
+            f"on the wire, {ms:.1f} ms; "
+            + " ".join(f"{o} {k}" for o, k in sorted(ops.items())) + ")"
+            for a, (c, b, ms, w, ops) in sorted(ex.items()))
+
+    mem = [r["memory"] for r in res]
+    for r, m in zip(res, mem):
+        stored = m["params"] + m["grads"] + m["optimizer"]
+        whole = m["whole_params"]
+        layout_whole = 2 * whole + m["optimizer"]
+        check(m["params"] < 0.55 * whole and m["grads"] == m["params"]
+              and m["optimizer"] == 2 * m["params"],
+              f"[dist 2] rank {r['rank']} stores {m['params']} bytes of "
+              f"parameters, {m['grads']} of gradients, {m['optimizer']} of "
+              f"Adam state, of a whole model's {whole}: not its blocks")
+        log(f"[dist 2] rank {r['rank']} stores, counted from its tensors: "
+            f"parameters {m['params'] / 1e6:.1f} MB, gradients "
+            f"{m['grads'] / 1e6:.1f} MB, Adam state "
+            f"{m['optimizer'] / 1e6:.1f} MB: {stored / 1e9:.3f} GB, "
+            f"{stored / (4 * whole):.4f} of the whole model's "
+            f"{4 * whole / 1e9:.3f} GB; a whole-tensor layout (whole "
+            f"parameters and gradients, Adam on the blocks) "
+            f"{layout_whole / 1e9:.3f} GB; allocator "
+            f"peak {m['peak'] / 1e9:.3f} GB over the run (3 Adam steps from "
+            f"the trainer's making; {m['allocated_before'] / 1e9:.3f} GB "
+            f"held before it, {m['allocated_after'] / 1e9:.3f} after)")
     log(f"[dist 2] BERT-base ({C} units, {H} heads, FFN {FFN}, {LAYERS} "
         f"layers), global batch {DIST_B} x {TRAIN_T}, f32, dropout 0, Adam "
         f"lr {TRAIN_LR}, {DIST_WORLD} ranks on cuda:0 (gloo), dp 2 x tp 2 "
         f"with TP (the compute split over tp: 6 heads, 1536 FFN units and "
         f"half the vocabulary a rank) + SP: losses {res[0]['bert_losses']} against the no-mesh "
-        f"step's {want}: max rel {rel:.3e} (tol {DIST_LOSS_REL:g}); every "
-        f"rank's parameters the same bits after each step; step wall ms "
+        f"step's {want}: max rel {rel:.3e} (tol {DIST_LOSS_REL:g}); each "
+        f"rank stores its blocks of the cut parameters, a dp replica's "
+        f"blocks its twin's bits and the uncut parameters every rank's "
+        f"after each step; step wall ms "
         + ", ".join(f"{t:.1f}" for t in res[0]["bert_walls"])
         + f" (median of steps 2-{DIST_STEPS}: {wall:.1f}); parameters "
         f"after {DIST_STEPS} steps against the no-mesh step's within "
@@ -9403,8 +9450,8 @@ def phase_dist(torch, dev):
            f"median wall ({idle_profiled:.4f} of the profiled step's "
            f"{res[0]['profiled_wall_ms']:.1f} ms wall, which the profiler "
            f"stretches)" if busy else "not measured")
-        + f"; the last step's exchanges by axis (count, buffer MiB, host "
-        f"ms inside them), TP + SP: "
+        + f"; the last step's exchanges by axis (count, MiB, host ms "
+        f"inside them, by op), TP + SP: "
         f"{ex_text(res[0]['exchanges_sp'])}; TP alone (no SP): "
         f"{ex_text(tpa['exchanges'])}, its second step's wall "
         f"{tpa['wall_ms']:.1f} ms, its first loss {tpa_rel:.3e} from the "
@@ -9462,21 +9509,65 @@ def phase_dist(torch, dev):
             f"sequence {k1_ms:.3f} ms")
         del got, qr, kr, vr, o
     del q, k, v, do
-    # (4) GPipe and MoE
+    # (5) GPipe and MoE
     for name in ("pipe", "moe"):
         r0 = res[0][name]
         check(r0["rel"] <= DIST_F32_REL,
-              f"[dist 4] {name}: against one rank {r0['rel']:.3e} > "
+              f"[dist 5] {name}: against one rank {r0['rel']:.3e} > "
               f"{DIST_F32_REL:g}")
         check(all(r[name]["losses"][-1] < r[name]["losses"][0]
-                  for r in res), f"[dist 4] {name}: the loss did not fall "
+                  for r in res), f"[dist 5] {name}: the loss did not fall "
               f"{[r[name]['losses'] for r in res]}")
-        log(f"[dist 4] {r0['what']}: the output against one rank's "
+        log(f"[dist 5] {r0['what']}: the output against one rank's "
             f"unsharded computation within {r0['rel']:.3e} (tol "
             f"{DIST_F32_REL:g}); {len(r0['losses'])} SGD steps, losses "
             + ", ".join(f"{v:.6f}" for v in r0["losses"]))
+    # (4) elastic: one dp replica leaves
+    el = [r["elastic"] for r in res]
+    check([e["verdict"] for e in el] == ["shrunk", "shrunk", "leave",
+                                          "leave"],
+          f"[dist 4] verdicts {[e['verdict'] for e in el]}")
+    for r, e in zip(res[:2], el[:2]):
+        ls, ab, rs = e["losses"], e["aborted"], e["resume"]
+        check(e["mesh"] == {"dp": 1, "tp": 2} and e["generation"] == 1,
+              f"[dist 4] rank {r['rank']}: mesh {e['mesh']}, generation "
+              f"{e['generation']} after the shrink")
+        check(e["params_bits"] and e["state_bits"],
+              f"[dist 4] rank {r['rank']}: parameters "
+              f"{e['params_bits']}, Adam state {e['state_bits']} bit for "
+              f"bit the pre-transition ones")
+        check(ls[3] < ls[2] < ls[1] < ls[0],
+              f"[dist 4] rank {r['rank']}: losses {ls} do not keep falling")
+        check(ab is not None and "SC001" in ab["rules"]
+              and ab["generation_kept"],
+              f"[dist 4] rank {r['rank']}: the pre-flight did not abort on "
+              f"silent replication: {ab}")
+        check(rs["bits"] and rs["sidecar_devices"] == DIST_WORLD
+              and rs["live_devices"] == 2,
+              f"[dist 4] rank {r['rank']}: the resume {rs}")
+    e0 = el[0]
+    log(f"[dist 4] BERT-base f32 {DIST_B} x {TRAIN_T}, Adam, dp 2 x tp 2 "
+        f"(TP + SP) on {DIST_WORLD} gloo ranks; after 2 steps ranks 2 and 3 "
+        f"(one dp replica) leave through the topology_change seam: "
+        f"verdicts {[e['verdict'] for e in el]}, the transition (vote, "
+        f"pre-flight, drain checkpoint, rendezvous, rebuild) "
+        f"{e0['transition_s']:.1f} s on rank 0; the survivors on "
+        f"{e0['mesh']} at generation {e0['generation']}, their parameters "
+        f"and Adam state after resharding the pre-transition ones bit for "
+        f"bit; losses " + ", ".join(f"{v:.6f}" for v in e0["losses"])
+        + " (2 steps on 4 ranks, 2 on the survivors: falling), the "
+        f"survivors' steps " + ", ".join(f"{t:.1f}" for t in e0["walls_ms"])
+        + f" ms; each stores {sum(e0['stored_after'].values()) / 1e9:.3f} GB"
+        f" (parameters, gradients, Adam); the pre-flight onto dp 2 with no "
+        f"tp axis: {e0['aborted']}; the {DIST_WORLD}-rank drain "
+        f"checkpoint (sidecar: {e0['resume']['sidecar_devices']} devices, "
+        f"mesh {e0['resume']['mesh']}) resumed on "
+        f"{e0['resume']['live_devices']} ranks in "
+        f"{e0['resume']['seconds']:.1f} s, its parameters the saved ones "
+        f"bit for bit")
     numbers.update(
-        bert=dict(losses=res[0]["bert_losses"], no_mesh=want,
+        elastic=el,
+        bert=dict(memory=mem, losses=res[0]["bert_losses"], no_mesh=want,
                   max_rel=rel, step_wall_ms=res[0]["bert_walls"],
                   median_wall_ms=wall, profiled_wall_ms=res[0][
                       "profiled_wall_ms"], device_busy_ms=busy,
@@ -9532,6 +9623,7 @@ def dist_worker(rank, n, store, out, backend):
         _worker_bert(torch, dev, rank, res)
         _worker_ring(torch, dev, rank, n, res)
         _worker_pipe_moe(torch, dev, rank, n, res)
+        _worker_elastic(torch, dev, rank, out, res)
         res["counts"] = read_counts()
         res["layouts"] = read_layout_counts()
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
@@ -9542,25 +9634,39 @@ def dist_worker(rank, n, store, out, backend):
 
 
 def _count_exchanges(torch, mesh, fn):
-    """(fn(), {axis: [exchanges, bytes, ms]}): the collectives ``fn``
-    made through the port's transport (`parallel.collectives._exchange`,
-    which every raw exchange calls), by the mesh axis of their group;
-    bytes are each exchange's larger buffer, in or out; ms the host's
-    time inside them (the card synchronized on entry and exit, so the
-    time is the exchange's own, waits for the peers included)."""
-    import torch.distributed as tdist
+    """(fn(), {axis: [exchanges, buffer bytes, ms, wire bytes, {op:
+    count}]}): the collectives ``fn`` made through the port's transport
+    (`parallel.collectives`: every raw exchange reports to
+    ``_STEP_CENSUS`` and runs in ``_exchange``), by the mesh axis of their
+    group. Buffer bytes are each exchange's larger buffer, in or out (the
+    measure of earlier runs); wire bytes what a ring algorithm moves out of
+    each rank of n: an all-reduce 2 (n - 1) / n of its buffer, an
+    all-gather, a reduce-scatter and an all-to-all (n - 1) / n. ms the
+    host's time inside them (the card synchronized on entry and exit, so
+    the time is the exchange's own, waits for the peers included)."""
     from incubator_mxnet_tpu_torch.parallel import collectives
 
-    axes = {tuple(tdist.get_process_group_ranks(mesh.group(a))): a
+    axes = {tuple(collectives._ranks(mesh.group(a))): a
             for a in mesh.shape if mesh.group(a) is not None}
-    real, seen = collectives._exchange, {}
+    seen = {}
 
-    def counting(group, f, out, *ins):
-        axis = ("world" if group is None else axes.get(
-            tuple(tdist.get_process_group_ranks(group)), "other"))
-        c = seen.setdefault(axis, [0, 0, 0.0])
+    def axis_of(group):
+        return ("world" if group is None else axes.get(
+            tuple(collectives._ranks(group)), "other"))
+
+    def census(op, group, in_bytes, out_bytes, _carried):
+        c = seen.setdefault(axis_of(group), [0, 0, 0.0, 0.0, {}])
+        n = collectives._group_size(group)
+        big = max(in_bytes, out_bytes)
         c[0] += 1
-        c[1] += max(t.numel() * t.element_size() for t in (out,) + ins)
+        c[1] += big
+        c[3] += big * (n - 1) / n * (2 if op == "all-reduce" else 1)
+        c[4][op] = c[4].get(op, 0) + 1
+
+    real = collectives._exchange
+
+    def timed(group, f, out, *ins):
+        c = seen.setdefault(axis_of(group), [0, 0, 0.0, 0.0, {}])
         if out.is_cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -9571,11 +9677,27 @@ def _count_exchanges(torch, mesh, fn):
                 torch.cuda.synchronize()
             c[2] += (time.perf_counter() - t0) * 1e3
 
-    collectives._exchange = counting
+    collectives._exchange, collectives._STEP_CENSUS = timed, census
     try:
         return fn(), seen
     finally:
-        collectives._exchange = real
+        collectives._exchange, collectives._STEP_CENSUS = real, None
+
+
+def _stored_digests(net):
+    """(digest of the cut parameters' stored blocks, digest of the
+    others): a dp replica's blocks are the same bits as its twin's, and
+    the uncut parameters the same on every rank."""
+    cut, rest = [], []
+    for p in net.collect_params().values():
+        (cut if p._placement is not None else rest).append(p._data._data)
+    return _digest(cut), _digest(rest)
+
+
+def _whole_params(net):
+    """{name: whole tensor} (the blocks gathered: every rank calls it)."""
+    return {n: p._whole_tensor() for n, p in net.collect_params().items()
+            if p.grad_req != "null"}
 
 
 def _worker_bert(torch, dev, rank, res):
@@ -9610,8 +9732,15 @@ def _worker_bert(torch, dev, rank, res):
         del net, dp, before
         torch.cuda.empty_cache()
 
-    def run(dropout, steps, walls=None, seq_axis="tp", exchanges=None):
-        """``exchanges``: a dict that takes the last step's exchanges."""
+    def run(dropout, steps, walls=None, seq_axis="tp", exchanges=None,
+            memory=None):
+        """``exchanges``: a dict that takes the last step's exchanges;
+        ``memory``: one that takes the rank's stored bytes and allocator
+        peak (from just before the trainer was made)."""
+        torch.cuda.synchronize()
+        if memory is not None:
+            torch.cuda.reset_peak_memory_stats(dev)
+            memory["allocated_before"] = torch.cuda.memory_allocated(dev)
         net = bert_base(max_length=TRAIN_T, dropout=dropout, device=dev,
                         seed=0, seq_shard_axis=seq_axis)
         dp = DataParallel(net, _mlm(ce), Adam(learning_rate=TRAIN_LR),
@@ -9631,14 +9760,29 @@ def _worker_bert(torch, dev, rank, res):
             torch.cuda.synchronize()
             if walls is not None:
                 walls.append((time.perf_counter() - t0) * 1e3)
-            digests.append(_digest(net.parameters()))
+            digests.append(_stored_digests(net))
+        if memory is not None:
+            torch.cuda.synchronize()
+            memory["peak"] = torch.cuda.max_memory_allocated(dev)
+            memory["allocated_after"] = torch.cuda.memory_allocated(dev)
+            memory.update(dp.stored_bytes())
+            whole = sum(math.prod(p.shape)
+                        for p in net.collect_params().values()
+                        if p.grad_req != "null") * 4
+            memory["whole_params"] = whole
+            memory["blocks"] = {
+                n: tuple(p._data._data.shape)
+                for n, p in net.collect_params().items()
+                if p._placement is not None}
         return net, dp, losses, digests
 
-    walls, res["exchanges_sp"] = [], {}
+    walls, res["exchanges_sp"], res["memory"] = [], {}, {}
     net, dp, res["bert_losses"], res["bert_digests"] = run(
-        0.0, DIST_STEPS, walls, exchanges=res["exchanges_sp"])
+        0.0, DIST_STEPS, walls, exchanges=res["exchanges_sp"],
+        memory=res["memory"])
     res["bert_walls"] = walls
     res["tp_axis"] = dp._plan.tp_axis    # the compute split over tp
+    whole = _whole_params(net)
     if rank == 0:
         # the parameters after the last step against the no-mesh step's
         # (every rank's are the same bits: the digests), as the tests hold
@@ -9648,7 +9792,7 @@ def _worker_bert(torch, dev, rank, res):
         # steps' bound, 2 lr a step; elsewhere within GRAD_REL_TOL of the
         # leaf's largest magnitude
         far, near_abs, n_near = {}, 0.0, 0
-        for name, prm in net.named_parameters():
+        for name, prm in whole.items():
             w, g = want[name], sgd[name].abs()
             near = g <= DIST_NEAR_ZERO * g.max()
             d = (prm.detach() - w).abs()
@@ -9663,6 +9807,7 @@ def _worker_bert(torch, dev, rank, res):
                                 near_max_abs=near_abs, near_count=n_near,
                                 near_bound=2 * TRAIN_LR * DIST_STEPS)
         del want
+    del whole
     # one more step profiled on rank 0 (its device busy time), the same
     # steps unprofiled elsewhere
     torch.cuda.synchronize()
@@ -9683,11 +9828,12 @@ def _worker_bert(torch, dev, rank, res):
                     seq_shard_axis="tp")
     dp = DataParallel(net, _mlm(ce), SGD(learning_rate=1.0), mesh=mesh,
                       param_shardings=tp_param_shardings(net))
-    before = {n: p_.detach().clone() for n, p_ in net.named_parameters()}
+    before = {n: p_.clone() for n, p_ in _whole_params(net).items()}
     dp.step(tokens, labels)
+    after = _whole_params(net)
     if rank == 0:
         errs = {}
-        for name, prm in net.named_parameters():
+        for name, prm in after.items():
             w = sgd[name]
             d = (prm.detach() - before[name] - w).abs().max().item()
             top = w.abs().max().item()
@@ -9696,7 +9842,7 @@ def _worker_bert(torch, dev, rank, res):
         worst = max(errs, key=errs.get)
         res["sgd_rel"] = dict(max=errs[worst], leaf=worst, leaves=len(errs))
         del sgd
-    del net, dp, before
+    del net, dp, before, after
     torch.cuda.empty_cache()
     # TP alone (no sequence parallelism) on the same world and batch: its
     # second step's wall and exchanges, against the TP + SP run's last
@@ -9748,6 +9894,106 @@ def _worker_bert(torch, dev, rank, res):
         halves_differ=bool((s0[:, :half] != s0[:, half:]).any()),
         fresh=bool((r0 != r1).any() and (s0 != s1).any()))
     del probe, dpp
+
+
+def _worker_elastic(torch, dev, rank, out, res):
+    """[dist 4]: BERT-base f32 over dp 2 x tp 2 (TP + SP, Adam) loses its
+    second dp replica (ranks 2 and 3) through the ``topology_change``
+    seam at a drained step boundary; the survivors reshard onto dp 1 x tp
+    2, step on, show the pre-flight's abort once, and resume their drain
+    checkpoint of the 4-rank run on their 2 ranks. The last part of the
+    worker: the leavers wait for the others at its closing barrier."""
+    import os
+
+    from incubator_mxnet_tpu_torch import preemption
+    from incubator_mxnet_tpu_torch import random as mxrandom
+    from incubator_mxnet_tpu_torch.fault import elastic, injection
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import (bert_base,
+                                                       tp_param_shardings)
+    from incubator_mxnet_tpu_torch.optimizer import Adam
+    from incubator_mxnet_tpu_torch.parallel import (DataParallel, dist,
+                                                    make_mesh)
+
+    ce = SoftmaxCrossEntropyLoss()
+    tokens, labels = _dist_batch(torch, dev, DIST_B)
+    net = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=0,
+                    seq_shard_axis="tp")
+    dp = DataParallel(net, _mlm(ce), Adam(learning_rate=TRAIN_LR),
+                      mesh=make_mesh({"dp": 2, "tp": 2}),
+                      param_shardings=tp_param_shardings(net))
+    mxrandom.seed(0)
+    prefix = os.path.join(out, f"elastic{rank}")
+    # the survivors' drain checkpoint (a tp pair saves together)
+    ck = (preemption.TrainingCheckpointer(
+        prefix, net, every_n=10 ** 9, register_signal=False,
+        layout_fn=lambda: elastic.checkpoint_layout(dp)) if rank < 2
+        else None)
+    ctl = elastic.ElasticController(trainer=dp, checkpointer=ck,
+                                    drain_s=DIST_TIMEOUT_S)
+    losses = [dp.step(tokens, labels).item() for _ in range(2)]
+    before = {n: t.clone() for n, t in _whole_params(net).items()}
+    states = [dp._whole_state(i, st) for i, st in enumerate(dp.opt_states)]
+    if rank >= 2:
+        injection.configure_injection(f"topology_change@{rank}:1.0:0:1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verdict = ctl.poll()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    injection.clear_injection()
+    info = res["elastic"] = dict(verdict=verdict, transition_s=seconds,
+                                 generation=dist.generation())
+    if verdict == "leave":
+        del net, dp, before, states
+        torch.cuda.empty_cache()
+        return
+    info["mesh"] = dict(dp.mesh.shape)
+    after = _whole_params(net)
+    info["params_bits"] = all(torch.equal(before[k], after[k])
+                              for k in before)
+    moved = [dp._whole_state(i, st) for i, st in enumerate(dp.opt_states)]
+    info["state_bits"] = all(
+        torch.equal(a, b) for x, y in zip(states, moved)
+        for a, b in zip(x if isinstance(x, list) else [x],
+                        y if isinstance(y, list) else [y])
+        if isinstance(a, torch.Tensor))
+    del after, moved, states
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(dp.step(tokens, labels).item())
+        torch.cuda.synchronize()
+        info.setdefault("walls_ms", []).append(
+            (time.perf_counter() - t1) * 1e3)
+    info["losses"] = losses
+    info["stored_after"] = dp.stored_bytes()
+    # the pre-flight of a layout with no tp axis: the cut parameters
+    # would be replicated on every rank (SC001): aborted, nothing commits
+    gen = dist.generation()
+    try:
+        ctl._preflight(make_mesh({"dp": 2}, devices=[0, 1]))
+        info["aborted"] = None
+    except elastic.ElasticTransitionAborted as e:
+        info["aborted"] = dict(rules=sorted({f.rule for f in e.findings}),
+                               findings=len(e.findings),
+                               first=str(e)[:240],
+                               generation_kept=dist.generation() == gen)
+    # the 4-rank drain checkpoint resumed on the 2 survivors
+    side = preemption.load_layout(ck._mgr.latest())
+    net_b = bert_base(max_length=TRAIN_T, dropout=0.0, device=dev, seed=1,
+                      seq_shard_axis="tp")
+    t1 = time.perf_counter()
+    step = preemption.TrainingCheckpointer(
+        prefix, net_b, register_signal=False).resume()
+    info["resume"] = dict(
+        step=step, seconds=time.perf_counter() - t1,
+        sidecar_devices=side["device_count"], live_devices=dist.world_size(),
+        mesh=side["mesh"],
+        bits=all(torch.equal(before[k], v)
+                 for k, v in _whole_params(net_b).items()))
+    del net, dp, net_b, before
+    torch.cuda.empty_cache()
 
 
 def _worker_ring(torch, dev, rank, n, res):

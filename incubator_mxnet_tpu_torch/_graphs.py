@@ -8,7 +8,11 @@ signature run eagerly, on a side stream (:class:`SideStream`), so that
 everything a kernel wrapper does once has happened; the next call captures
 (:func:`capture`) and replays; later calls copy their inputs into the
 capture's static buffers and replay. A capture that fails raises
-:class:`MXNetError`: nothing falls back to the eager path.
+:class:`MXNetError`: nothing falls back to the eager path. Python's
+cyclic collector does not run inside a capture (`torch.cuda.graph`
+collects just before it begins): a finalizer it ran there could free a
+CUDA resource, another graph or a block recorded on another stream,
+which invalidates the capture.
 
 A :class:`Graph` keeps the launch log of its capture (:func:`logging_launches`:
 each port kernel's ``(kernel, bytes, flops)``, `ops._build.LAUNCH_LOG`),
@@ -21,6 +25,7 @@ its owner's name (:func:`register_pool`) for the device-memory census
 from __future__ import annotations
 
 import contextlib
+import gc
 import weakref
 
 import torch
@@ -95,12 +100,17 @@ def capture(fn, what, pool=None, owner=None):
     :class:`MXNetError` naming ``what`` when the capture fails. ``owner``
     names the graph's pool in the memory census."""
     graph = Graph()
+    collecting = gc.isenabled()
     try:
         with logging_launches(graph), torch.cuda.graph(graph, pool=pool):
+            gc.disable()
             out = fn()
     except Exception as e:
         raise MXNetError(f"{what}: capturing as a CUDA graph failed: "
                          f"{e}") from e
+    finally:
+        if collecting:
+            gc.enable()
     if owner is not None and pool is None:
         register_pool(graph, owner)
     return graph, out

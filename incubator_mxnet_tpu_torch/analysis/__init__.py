@@ -5,11 +5,12 @@
 (`hybridize()`, `DataParallel`) will see it and reports recapture,
 host-sync, promotion-drift and buffer-aliasing hazards as structured
 findings; `jit_cache_report` reports the graphs a block or a step keeps
-capturing. The findings' report classes of the mesh pre-flight
-(`ShardReport`) and the concurrency pass (`RaceReport`) are here as plain
-data; `shardcheck` itself is `ROADMAP.md` §1 item 13, and
-`racecheck_report`, `racecheck_paths`, `racecheck_source` and
-`runtime_report` are item 11b.
+capturing. `shardcheck` is the mesh pre-flight (its spec tier as the
+reference's; its census tier counts one eager step's exchanges where the
+reference reads the jaxpr and the compiled HLO). The concurrency pass's
+report classes (`RaceReport`) are here as plain data; `racecheck_report`,
+`racecheck_paths`, `racecheck_source` and `runtime_report` are
+`ROADMAP.md` §1 item 11b.
 
 Env knob: ``MXNET_ANALYSIS=warn|raise`` (see `util.env_knobs()`).
 """
@@ -17,7 +18,8 @@ from .auditor import audit, jit_cache_report  # noqa: F401
 from .findings import (HAZARD_KINDS, RACE_RULES, SHARD_RULES,  # noqa: F401
                        AuditReport, Finding, RaceFinding, RaceReport,
                        ShardFinding, ShardReport)
+from .shardcheck import shardcheck  # noqa: F401
 
 __all__ = ["audit", "jit_cache_report", "AuditReport", "Finding",
-           "HAZARD_KINDS", "ShardReport", "ShardFinding", "SHARD_RULES",
-           "RaceReport", "RaceFinding", "RACE_RULES"]
+           "HAZARD_KINDS", "shardcheck", "ShardReport", "ShardFinding",
+           "SHARD_RULES", "RaceReport", "RaceFinding", "RACE_RULES"]

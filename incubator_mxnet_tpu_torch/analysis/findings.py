@@ -17,9 +17,9 @@ Severity contract:
 - ``info``: advisory notes that depend on global session state; not
   counted as findings.
 
-`ShardFinding`/`ShardReport` (shardcheck, `ROADMAP.md` §1 item 13) and
-`RaceFinding`/`RaceReport` (racecheck, item 11b) are the report classes
-those passes fill; the passes themselves are not ported yet.
+`ShardFinding`/`ShardReport` are the report classes `shardcheck` fills;
+`RaceFinding`/`RaceReport` are racecheck's (`ROADMAP.md` §1 item 11b),
+whose pass is not ported yet.
 """
 from __future__ import annotations
 

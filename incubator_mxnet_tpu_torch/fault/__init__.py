@@ -13,10 +13,14 @@
   replacement for a silent ``except Exception: pass``;
 - `resilience` — :class:`ResilienceHandler` for the Estimator: skip
   non-finite-loss steps (with AMP loss-scale backoff), auto-resume from
-  the last good checkpoint after a mid-step crash, checkpoint cadence.
+  the last good checkpoint after a mid-step crash, checkpoint cadence,
+  and the elastic controller polled at every drained step boundary;
+- `elastic` — :class:`~.elastic.ElasticController`: survive a rank
+  leaving or joining the fleet (a vote through the store, a shardcheck
+  pre-flight, a drain checkpoint, `dist.rendezvous` and the trainer
+  resharded onto the survivors' mesh), and the checkpoint-layout sidecar
+  that reshards a checkpoint onto another rank count.
 
-The reference's `elastic` (the topology controller) is not ported yet
-(`ROADMAP.md` §1 item 13).
 Recoveries are counted in the registry: ``mx_faults_injected_total``,
 ``mx_retries_total``, ``mx_steps_skipped_nonfinite_total``,
 ``mx_resumes_total``, ``mx_checkpoint_fallbacks_total``,
@@ -35,7 +39,8 @@ __all__ = ["injection", "retry", "FaultInjected", "SEAMS", "inject_at",
            "injection_enabled", "configure_injection", "configure_from_env",
            "clear_injection", "schedule_info", "RetryPolicy",
            "RetryExhausted", "classify_exception", "retry_call",
-           "suppressed", "resilience", "ResilienceHandler"]
+           "suppressed", "resilience", "ResilienceHandler", "elastic",
+           "ElasticController"]
 
 
 def __getattr__(name):
@@ -49,4 +54,13 @@ def __getattr__(name):
         if name == "resilience":
             return mod
         return mod.ResilienceHandler
+    if name in ("ElasticController", "elastic"):
+        # the same late binding: `elastic` pulls in parallel/ and
+        # analysis/, which are mid-import on first package touch
+        import importlib
+
+        mod = importlib.import_module(".elastic", __name__)
+        if name == "elastic":
+            return mod
+        return mod.ElasticController
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

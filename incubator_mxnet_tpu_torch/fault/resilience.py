@@ -25,10 +25,10 @@ training:
    re-raise;
 3. **checkpoint cadence** — with a `checkpointer`, every `batch_end`
    advances `TrainingCheckpointer.step()` (periodic + SIGTERM-triggered
-   saves), so there is always a recent generation to resume from.
-
-The ``elastic=`` controller (a rank leaving or joining the fleet) is
-`ROADMAP.md` §1 item 13's: passing one raises.
+   saves), so there is always a recent generation to resume from;
+4. **topology changes** — with an ``elastic=`` controller
+   (`fault.elastic.ElasticController`), every `batch_end` (a drained
+   step boundary) polls it; a ``"leave"`` verdict ends the fit cleanly.
 """
 from __future__ import annotations
 
@@ -69,8 +69,9 @@ class ResilienceHandler(StepGuard, TrainBegin, BatchEnd):
     max_consecutive_skips : int
         Loud-failure bound on back-to-back non-finite steps.
     elastic : fault.elastic.ElasticController, optional
-        The reference polls it at every `batch_end`; the controller is
-        `ROADMAP.md` §1 item 13's, and passing one raises `MXNetError`.
+        Polled at every `batch_end` — the drained step boundary an
+        elastic topology transition needs. A ``"leave"`` verdict stops
+        the fit loop cleanly (this rank departed the fleet).
     """
 
     def __init__(self, checkpointer=None, skip_nonfinite=True,
@@ -81,12 +82,6 @@ class ResilienceHandler(StepGuard, TrainBegin, BatchEnd):
         self.max_resumes = int(max_resumes)
         self.max_consecutive_skips = int(max_consecutive_skips)
         self.priority = priority
-        if elastic is not None:
-            from ..base import MXNetError
-
-            raise MXNetError("ResilienceHandler(elastic=...): the elastic "
-                             "controller (fault.elastic) is ROADMAP.md "
-                             "§1 item 13")
         self.elastic = elastic
         self._resumes = 0
         self._consecutive_skips = 0

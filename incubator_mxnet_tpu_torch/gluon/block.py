@@ -224,13 +224,19 @@ class Block(torch.nn.Module):
     def save_parameters(self, filename, deduplicate=False):  # noqa: ARG002
         """An npz file of every initialised parameter by its structured
         name, written through a temporary file and a rename, with a
-        ``.crc32`` sidecar (`preemption.atomic_save`)."""
+        ``.crc32`` sidecar (`preemption.atomic_save`). A parameter stored
+        as its block on a mesh is written whole: every rank of its axes
+        calls this."""
         from .. import preemption
 
         payload = {}
         for name, p in self.collect_params().items():
             if p._data is not None:
-                payload[name] = p._data.asnumpy()
+                # a block stored by the spec is gathered whole (every rank
+                # of its axes saves)
+                payload[name] = (
+                    p._data if getattr(p, "_placement", None) is None
+                    else NDArray(p._whole_tensor())).asnumpy()
 
         def _write(tmp):
             with open(tmp, "wb") as f:

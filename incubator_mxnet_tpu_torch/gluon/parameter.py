@@ -29,6 +29,15 @@ address. So the optimizers update the tensor in place, and
 only when they differ (a new tensor, registered with every owner anew).
 The reference rebinds on every write (its arrays never alias); this is
 the port's accepted divergence (ROADMAP §3).
+
+**Stored by the spec.** Under a mesh plan (`parallel.DataParallel`'s
+``param_shardings``) a Parameter cut by its spec holds the rank's block
+(``_placement``, a `parallel._layout.Placement`): its tensor, what
+``named_parameters()`` yields and the optimizer updates in place, is the
+block, and :attr:`shape` stays the whole shape. :meth:`data` outside a
+tensor-parallel model's own reads gives the whole tensor, gathered on
+demand and not kept (every rank of the cut axes reads it together);
+:meth:`set_data` of a whole value writes the rank's block.
 """
 from __future__ import annotations
 
@@ -121,6 +130,8 @@ class Parameter:
         # (weakref to a Block, attribute name): where the tensor is
         # registered
         self._owners = []
+        # parallel._layout.Placement: the tensor is this rank's block
+        self._placement = None
 
     # -- identity -----------------------------------------------------------
     @property
@@ -174,8 +185,10 @@ class Parameter:
     def __getstate__(self):
         state = dict(self.__dict__)
         state["_owners"] = []
-        # the tensor itself (the one the blocks register), on its device
-        state["_data"] = None if self._data is None else self._data._data
+        # the tensor itself (the one the blocks register), on its device;
+        # a block is gathered whole (every rank of its axes pickles)
+        state["_data"] = None if self._data is None else self._whole_tensor()
+        state["_placement"] = None
         return state
 
     def __setstate__(self, state):
@@ -189,10 +202,12 @@ class Parameter:
         new = type(self).__new__(type(self))
         memo[id(self)] = new
         for k, v in self.__dict__.items():
-            if k not in ("_owners", "_data"):
+            if k not in ("_owners", "_data", "_placement"):
                 new.__dict__[k] = copy.deepcopy(v, memo)
         new._owners = []
         new._data = None
+        # the copy holds its own block, placed as the original's
+        new._placement = getattr(self, "_placement", None)
         if self._data is not None:
             # the copied tensor, the one the copied block registers
             new._bind(copy.deepcopy(self._data._data, memo))
@@ -250,9 +265,46 @@ class Parameter:
         arr._grad_req = "write"
         arr._leaves = None
         self._data = arr
-        self._shape = tuple(leaf.shape)
+        pl = getattr(self, "_placement", None)
+        self._shape = tuple(leaf.shape) if pl is None else pl.shape
         self._attach()
         self._publish()
+
+    # -- storage by the spec ----------------------------------------------
+    def _place(self, placement):
+        """Keep only this rank's block of the whole tensor (a new tensor,
+        registered with every owner)."""
+        self._check_initialized()
+        if getattr(self, "_placement", None) is not None:
+            self._unplace()
+        block = placement.block_of(self._data._data.detach()).clone()
+        self._placement = placement
+        self._bind(block)
+
+    def _unplace(self):
+        """Hold the whole tensor again, gathered from the blocks (every
+        rank of the placement's axes calls it)."""
+        pl = getattr(self, "_placement", None)
+        if pl is None or self._data is None:
+            self._placement = None
+            return
+        whole = pl.gather(self._data._data)
+        self._placement = None
+        self._bind(whole)
+
+    def _whole_tensor(self):
+        """The whole tensor, detached: the stored one, or gathered from
+        the blocks."""
+        t = self._data._data.detach()
+        pl = getattr(self, "_placement", None)
+        return t if pl is None else pl.gather(t)
+
+    def _stored(self):
+        """What the Parameter holds in the call's convention: under a
+        placement, this rank's block (a tensor-parallel model reads it
+        directly)."""
+        self._check_initialized()
+        return self._data._data if _CONV.torch else self._data
 
     # -- init ---------------------------------------------------------------
     def initialize(self, init=None, device=None, ctx=None,
@@ -312,8 +364,17 @@ class Parameter:
 
     def data(self, device=None, ctx=None):  # noqa: ARG002
         """The NDArray; inside a block call made with torch tensors, its
-        tensor."""
+        tensor. A Parameter stored as a block gives the whole tensor,
+        gathered on demand (a transient whose gradient reaches the
+        block)."""
         self._check_initialized()
+        pl = getattr(self, "_placement", None)
+        if pl is not None:
+            if _CONV.torch:
+                return pl.whole(self._data._data)
+            from ..numpy_extension import _op
+
+            return _op("param_whole", pl.whole, self._data)
         return self._data._data if _CONV.torch else self._data
 
     def list_data(self):
@@ -362,6 +423,15 @@ class Parameter:
             self._bind(value.detach().to(device=dev, dtype=dt, copy=True))
             return
         t = self._data._data
+        pl = getattr(self, "_placement", None)
+        if pl is not None:
+            # a whole value: the rank's block of it
+            if tuple(value.shape) != pl.shape:
+                raise MXNetError(
+                    f"Parameter {self._name} is stored as its block of "
+                    f"{pl.shape}; set_data takes the whole tensor, got "
+                    f"{tuple(value.shape)}")
+            value = pl.block_of(value.to(t.device))
         if tuple(value.shape) == tuple(t.shape):
             with torch.no_grad():
                 t.copy_(value)

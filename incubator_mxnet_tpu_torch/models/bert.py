@@ -131,20 +131,50 @@ def _dropout(rate, impl):
 
 
 # -- tensor parallelism (the TP path of a `DataParallel` step) --------------
-def _block(t, n, j, dim):
-    """This rank's block of dimension ``dim`` of a parameter (a view)."""
-    start, stop = _layout.bounds(t.shape[dim], j, n)
-    return _op("tp_block", lambda w: w.narrow(dim, start, stop - start), t)
+def _block(param, tp, dim):
+    """This rank's block of dimension ``dim`` of a parameter the TP path
+    splits: the block the Parameter stores (`tp_param_shardings` cuts it
+    on ``dim`` over the tensor-parallel axis)."""
+    pl = param._placement
+    if pl is None or pl.dim(tp[1]) != dim:
+        raise MXNetError(f"tensor parallelism computes from {param.name}'s "
+                         f"block: its spec must cut dimension {dim} over "
+                         f"{tp[1]!r} alone (tp_param_shardings)")
+    return param._stored()
 
 
-def _tp_copy(x, tp):
+def _tp_enter(x, tp):
+    """Into a tensor-parallel region: Megatron's f, or, on a stream cut by
+    rows (SP), the rows gathered whole."""
     mesh, axis = tp[:2]
-    return _op("tp_copy", lambda t: _layout.copy_to(t, mesh, axis), x)
+    size = _layout.stream_len()
+    if size is None:
+        return _op("tp_copy", lambda t: _layout.copy_to(t, mesh, axis), x)
+    return _op("sp_enter", lambda t: _layout.seq_enter(t, mesh, axis, size),
+               x)
 
 
-def _tp_reduce(x, tp):
+def _tp_exit(x, tp, bias=None):
+    """Out of a tensor-parallel region: the partial results summed
+    (Megatron's g), or, on a stream cut by rows, summed into the rank's
+    rows; then ``bias`` (a Parameter), whose gradient on the rank's rows
+    is its share."""
     mesh, axis = tp[:2]
-    return _op("tp_reduce", lambda t: _layout.reduce_from(t, mesh, axis), x)
+    if _layout.stream_len() is None:
+        y = _op("tp_reduce", lambda t: _layout.reduce_from(t, mesh, axis), x)
+        return y if bias is None else y + bias.data()
+    y = _op("sp_exit", lambda t: _layout.seq_exit(t, mesh, axis), x)
+    return y if bias is None else y + _share(bias.data(), tp)
+
+
+def _share(t, tp):
+    """``t`` (a parameter's tensor) used on the rank's rows of a cut
+    stream: its gradient is the rank's share, summed by the step."""
+    def note(w):
+        _layout.note_partial([w], tp[1])
+        return w
+
+    return _op("sp_share", note, t)
 
 
 def _tp_dropout(drop, x, tp):
@@ -180,35 +210,37 @@ class MultiHeadAttention(HybridBlock):
         self.dropout = _dropout(dropout, impl)
 
     def _tp_forward(self, x, valid_length, tp):
-        """Megatron's split: this rank's heads of q, k and v (rows of the
-        fused qkv weight, whose spec cuts it contiguously, so the whole
-        weight is read), flash attention on them, and proj on their
-        columns, summed over the axis."""
-        N, T, C = x.shape
-        n, j = tp[2], tp[3]
+        """Megatron's split: this rank's heads of q, k and v, flash
+        attention on them, and proj on their columns, summed over the
+        axis. The fused qkv weight's spec cuts its rows contiguously
+        (``[q|k|v]``), so a block stored by it is not the rank's heads:
+        the heads' rows of weight and bias come from their owners in one
+        all-to-all (`parallel._layout.head_rows`)."""
+        mesh, axis, n = tp[:3]
+        C = x.shape[-1]
         H = self._num_heads
         if H % n:
             raise MXNetError(f"tensor parallelism: {H} heads do not split "
                              f"over {n} ranks")
         d, cl, hl = C // H, C // n, H // n
-
-        def heads(w):
-            return torch.cat([w.narrow(0, s * C + j * cl, cl)
-                              for s in range(3)])
-
-        w = _op("qkv_heads", heads, self.qkv.weight.data())
-        b = _op("qkv_heads", heads, self.qkv.bias.data())
-        qkv = npx.fully_connected(_tp_copy(x, tp), w, b, num_hidden=3 * cl,
-                                  flatten=False)
+        h = _tp_enter(x, tp)
+        N, T = h.shape[0], h.shape[1]
+        rows = _op("qkv_heads", lambda w, b: _layout.head_rows(
+            torch.cat([w, b.unsqueeze(1).to(w.dtype)], 1), 3 * C, 3, mesh,
+            axis), _block(self.qkv.weight, tp, 0), _block(self.qkv.bias, tp,
+                                                           0))
+        w = _op("qkv_heads", lambda t: t[:, :C], rows)
+        b = _op("qkv_heads", lambda t: t[:, C], rows)
+        qkv = npx.fully_connected(h, w, b, num_hidden=3 * cl, flatten=False)
         q, k, v = _op("qkv_split",
                       lambda t: t.view(N, T, 3, hl, d).unbind(2), qkv)
         out = npx.flash_attention(q, k, v, valid_length=valid_length,
                                   layout="bthd", impl=self._impl)
         out = _tp_dropout(self.dropout, out.reshape(N, T, cl), tp)
-        part = npx.fully_connected(out, _block(self.proj.weight.data(), n, j,
-                                               1), None, num_hidden=C,
-                                   no_bias=True, flatten=False)
-        return _tp_reduce(part, tp) + self.proj.bias.data()
+        part = npx.fully_connected(out, _block(self.proj.weight, tp, 1),
+                                   None, num_hidden=C, no_bias=True,
+                                   flatten=False)
+        return _tp_exit(part, tp, self.proj.bias)
 
     def forward(self, x, mask=None, valid_length=None):
         N, T, C = x.shape
@@ -286,17 +318,16 @@ class PositionwiseFFN(HybridBlock):
         if tp is not None:
             # Megatron's split: this rank's hidden units (ffn1's rows,
             # ffn2's columns), summed over the axis
-            n, j = tp[2], tp[3]
-            w1 = _block(self.ffn1.weight.data(), n, j, 0)
-            h = npx.fully_connected(_tp_copy(x, tp), w1,
-                                    _block(self.ffn1.bias.data(), n, j, 0),
+            w1 = _block(self.ffn1.weight, tp, 0)
+            h = npx.fully_connected(_tp_enter(x, tp), w1,
+                                    _block(self.ffn1.bias, tp, 0),
                                     num_hidden=w1.shape[0], flatten=False)
             h = _tp_dropout(self.dropout,
                             npx.activation(h, act_type=self._activation), tp)
             part = npx.fully_connected(
-                h, _block(self.ffn2.weight.data(), n, j, 1), None,
+                h, _block(self.ffn2.weight, tp, 1), None,
                 num_hidden=x.shape[-1], no_bias=True, flatten=False)
-            return _tp_reduce(part, tp) + self.ffn2.bias.data()
+            return _tp_exit(part, tp, self.ffn2.bias)
         h = npx.activation(self.ffn1(x), act_type=self._activation)
         if self.dropout is not None:
             h = self.dropout(h)
@@ -336,7 +367,8 @@ class TransformerEncoderCell(HybridBlock):
                                            eps=ln._epsilon, impl=self._impl)
 
         return seq_region(site, (x, h), self._seq_shard_axis,
-                          (ln.gamma.data(), ln.beta.data()))
+                          (ln.gamma.data(), ln.beta.data()),
+                          local=_layout.stream_len() is not None)
 
     def forward(self, x, mask=None, valid_length=None):
         if self._pre_norm:
@@ -383,22 +415,22 @@ class BERTEncoder(HybridBlock):
 
     def _embed(self, tokens):
         """The word embedding; under tensor parallelism this rank's rows of
-        the vocabulary (the masked ids' lookup), summed over the axis."""
+        the vocabulary (the masked ids' lookup), summed over the axis
+        (into the rank's rows of the sequence on a cut stream)."""
         tp = _layout.tp()
         if tp is None:
             return self.word_embed(tokens)
-        n, j = tp[2], tp[3]
-        w = self.word_embed.weight.data()
-        start, stop = _layout.bounds(w.shape[0], j, n)
+        p = self.word_embed.weight
+        start, stop = _layout.bounds(p.shape[0], tp[3], tp[2])
         local = _op("tp_ids", lambda t: t.long() - start, tokens)
         keep = _op("tp_ids", lambda t: ((t >= 0) & (t < stop - start)),
                    local)
         ids = _op("tp_ids", lambda t, k: torch.where(k, t, 0), local, keep)
-        x = npx.embedding(ids, _block(w, n, j, 0), input_dim=stop - start,
-                          output_dim=w.shape[1])
+        x = npx.embedding(ids, _block(p, tp, 0), input_dim=stop - start,
+                          output_dim=p.shape[1])
         x = _op("tp_mask", lambda e, k: e * k.unsqueeze(-1).to(e.dtype), x,
                 keep)
-        return _tp_reduce(x, tp)
+        return _tp_exit(x, tp)
 
     def _embed_ln(self, x):
         # the embedding's LayerNorm (K4) and dropout, on this rank's rows
@@ -411,23 +443,51 @@ class BERTEncoder(HybridBlock):
             return self.dropout(x) if self.dropout is not None else x
 
         return seq_region(site, (x,), self._seq_shard_axis,
-                          (ln.gamma.data(), ln.beta.data()))
+                          (ln.gamma.data(), ln.beta.data()),
+                          local=_layout.stream_len() is not None)
 
     def forward(self, tokens, token_types=None, valid_length=None):
         T = tokens.shape[1]
         if T > self.position_embed.shape[0]:
             raise ValueError(f"sequence length {T} exceeds max_length "
                              f"{self.position_embed.shape[0]}")
-        x = self._embed(tokens)
-        if token_types is not None:
-            x = x + self.token_type_embed(token_types)
-        x = x + self.position_embed.data()[:T]
-        x = self._embed_ln(x)
-        if self._use_flash:
-            # (B,) lengths straight into the kernel, no dense mask
-            for cell in self.layers:
-                x = cell(x, None, valid_length)
-            return x
+        tp = _layout.tp()
+        # Megatron SP: under tensor parallelism over the sequence axis the
+        # stream stays cut by rows of the sequence from the embedding's
+        # exit to the encoder's output
+        cut = (tp is not None and self._use_flash
+               and self._seq_shard_axis == tp[1])
+        with _layout.cut_stream(T if cut else None):
+            x = self._embed(tokens)
+            rows = (0, T)
+            if cut:
+                rows = _layout.bounds(T, tp[3], tp[2])
+
+            def mine(t):
+                return _op("sp_rows", lambda a: a.narrow(
+                    1, rows[0], rows[1] - rows[0]), t)
+
+            if token_types is not None:
+                if cut:
+                    _share(self.token_type_embed.weight.data(), tp)
+                    token_types = mine(token_types)
+                x = x + self.token_type_embed(token_types)
+            pos = self.position_embed.data()
+            if cut:
+                pos = _share(pos, tp)
+            x = x + pos[rows[0]:rows[1]]
+            x = self._embed_ln(x)
+            if self._use_flash:
+                # (B,) lengths straight into the kernel, no dense mask
+                for cell in self.layers:
+                    x = cell(x, None, valid_length)
+                if cut:
+                    # the whole sequence for the heads (a replicated
+                    # computation: the gradient is the rank's rows)
+                    mesh, axis = tp[:2]
+                    x = _op("sp_gather", lambda t: _layout.gather(
+                        t, mesh, (axis,), 1, T), x)
+                return x
         mask = None
         if valid_length is not None:
             H = self.layers[0].attention._num_heads
@@ -491,12 +551,11 @@ class BERTModel(HybridBlock):
         tp = _layout.tp()
         if tp is None:
             return self.mlm_decoder(h)
-        mesh, axis, n, j = tp
-        w = _block(self.mlm_decoder.weight.data(), n, j, 0)
+        mesh, axis = tp[:2]
+        w = _block(self.mlm_decoder.weight, tp, 0)
         local = npx.fully_connected(
-            _tp_copy(h, tp), w, _block(self.mlm_decoder.bias.data(), n, j,
-                                       0), num_hidden=w.shape[0],
-            flatten=False)
+            _tp_enter(h, tp), w, _block(self.mlm_decoder.bias, tp, 0),
+            num_hidden=w.shape[0], flatten=False)
         vocab = self.mlm_decoder.weight.shape[0]
         return _op("tp_gather", lambda t: _layout.gather(
             t, mesh, (axis,), t.dim() - 1, vocab), local)

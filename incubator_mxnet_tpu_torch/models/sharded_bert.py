@@ -3,24 +3,26 @@ sharded_bert.py`: `BertConfig` :28, `init_params` :40, `param_specs` :72,
 `forward` :107, `loss_fn` :148, `make_train_step` :158).
 
 A functional BERT (MLM head, Adam) over a mesh with axes ``dp`` and
-``tp``: the batch is split over dp, the parameters are stored as the
-reference's Megatron specs cut them over tp (qkv and ffn1 by output
-column, proj and ffn2 by input row, the word embedding and the MLM head
-by vocabulary), and with ``use_sp`` the LayerNorm regions run on this
-rank's rows of the sequence (`parallel._layout.seq_region`: the norm's
-γ and β get this rank's shares of their gradients, which the step sums
-over tp). The compute is split as
-Megatron splits it: each tp rank computes its heads (head-aligned
-columns of the fused qkv weight, which its contiguous spec cuts
-otherwise, so the step gathers the weights from the blocks first), its
-rows of proj, its FFN hidden units and its columns of the vocabulary
+``tp``: the batch is split over dp, and each rank stores only its blocks
+of the parameters as the reference's Megatron specs cut them over tp (qkv
+and ffn1 by output column, proj and ffn2 by input row, the word
+embedding and the MLM head by vocabulary). The compute is split as
+Megatron splits it, from the blocks: each tp rank computes its heads,
+its rows of proj, its FFN hidden units and its columns of the vocabulary
 (the masked ids' lookup; the scores gathered whole for the softmax),
 with Megatron's f and g around each region (`_layout.copy_to`,
-`reduce_from`). The cut parameters' gradient shares are summed over tp
-straight into the rank's blocks (one reduce-scatter), every gradient
-averaged over dp, and each rank updates its blocks with
-the reference's Adam. The arithmetic is the reference's, in torch
-operations (its attention is an einsum softmax, not the flash kernel).
+`reduce_from`). The fused qkv weight's spec cuts its columns
+contiguously (``[q|k|v]``), so the rank's heads' columns come from their
+owners in one all-to-all (`_layout.head_rows`), and their gradient goes
+back the same way. With ``use_sp`` the residual stream stays cut by rows
+of the sequence between the regions (Megatron SP: `_layout.seq_enter`,
+`seq_exit` in place of f and g), and the LayerNorms, the position
+embedding and the biases added on the rank's rows get the rank's shares
+of their gradients, which the step sums over tp in one all-reduce. The
+cut parameters' gradients are the blocks' already; every gradient is
+averaged over dp, and each rank updates its blocks with the reference's
+Adam. The arithmetic is the reference's, in torch operations (its
+attention is an einsum softmax, not the flash kernel).
 
 The parameters are a tree: ``{"word_embed", "pos_embed", "ln_g",
 "ln_b", "layers": [{"qkv": {"w", "b"}, "proj", "ffn1", "ffn2", "ln1_g",
@@ -133,9 +135,11 @@ def forward(params, tokens, cfg: BertConfig, sp_constraint=None,
 
     ``sp_constraint(x, kind)`` is the reference's layout hook, called
     where the reference calls it ('seq' before a LayerNorm region, 'full'
-    before attention and the FFN); the port's step passes none.
-    ``sp_axis`` (a mesh axis) runs each residual LayerNorm on this rank's
-    rows of the sequence under the active mesh."""
+    before attention and the FFN); the port's step passes none. Under an
+    active tensor-parallel step ``params`` holds this rank's blocks by
+    :func:`param_specs` (`make_train_step`), and ``sp_axis`` (the
+    tensor-parallel axis) keeps the stream cut by rows of the sequence
+    between the regions; with none, the whole tensors."""
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     cst = sp_constraint or (lambda x, kind: x)
     N, T = tokens.shape
@@ -147,75 +151,95 @@ def forward(params, tokens, cfg: BertConfig, sp_constraint=None,
     if H % n:
         raise ValueError(f"{H} heads do not split over {n} ranks")
     ul, hl = U // n, H // n
+    cut = tp is not None and sp_axis is not None and sp_axis == tp[1]
 
     def lin(x, p):
         return x @ p["w"].to(dt) + p["b"].to(dt)
 
-    def block(t, dim):
-        start, stop = _layout.bounds(t.shape[dim], j, n)
-        return t.narrow(dim, start, stop - start)
+    def enter(x):
+        if tp is None:
+            return x
+        if cut:
+            return _layout.seq_enter(x, tp[0], tp[1], T)
+        return _layout.copy_to(x, *tp[:2])
 
-    def copy_to(x):
-        return _layout.copy_to(x, *tp[:2]) if tp is not None else x
-
-    def reduce_from(x):
-        return _layout.reduce_from(x, *tp[:2]) if tp is not None else x
+    def leave(x, b):
+        if tp is None:
+            return x + b.to(dt)
+        if cut:
+            _layout.note_partial([b], tp[1])
+            return _layout.seq_exit(x, *tp[:2]) + b.to(dt)
+        return _layout.reduce_from(x, *tp[:2]) + b.to(dt)
 
     def res_ln(x, h, g, b):
         return _ln(x + h, g.to(dt), b.to(dt))
 
-    x = _embed(params["word_embed"], tokens, tp) + params["pos_embed"][:T]
-    x = _ln(x, params["ln_g"], params["ln_b"]).to(dt)
+    def qkv_heads(p):
+        """The rank's heads' columns of the fused qkv weight and bias."""
+        if tp is None:
+            return p
+        rows = _layout.head_rows(torch.cat([p["w"], p["b"][None]], 0).t(),
+                                 3 * U, 3, tp[0], tp[1])
+        return {"w": rows[:, :U].t(), "b": rows[:, U]}
+
+    rows = _layout.bounds(T, j, n) if cut else (0, T)
+    x = _embed(params["word_embed"], tokens, tp, cfg.vocab_size, cut)
+    pos = params["pos_embed"]
+    if cut:
+        _layout.note_partial([pos], tp[1])
+    x = x + pos[rows[0]:rows[1]]
+    x = _layout.seq_region(lambda a, g, b: _ln(a, g, b).to(dt), (x,),
+                           sp_axis if cut else None,
+                           (params["ln_g"], params["ln_b"]), local=True)
     x = cst(x, "seq")
     for lp in params["layers"]:
-        # attention: this rank's heads (head-aligned columns of the fused
-        # qkv weight), proj on their rows, summed over tp
-        h = copy_to(cst(x, "full"))
-        w, b = lp["qkv"]["w"], lp["qkv"]["b"]
-        cols = [s * U + j * ul for s in range(3)]
-        qkv = lin(h, {"w": torch.cat([w.narrow(1, c, ul) for c in cols], 1),
-                      "b": torch.cat([b.narrow(0, c, ul) for c in cols])})
+        # attention: this rank's heads, proj on their rows, summed over tp
+        h = enter(cst(x, "full"))
+        qkv = lin(h, qkv_heads(lp["qkv"]))
         qkv = qkv.reshape(N, T, 3, hl, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]      # (N,T,H,d)
         scores = torch.einsum("nthd,nshd->nhts", q, k) / math.sqrt(d)
         att = torch.softmax(scores.float(), dim=-1).to(dt)
         ctx = torch.einsum("nhts,nshd->nthd", att, v).reshape(N, T, ul)
-        ctx = reduce_from(ctx @ block(lp["proj"]["w"], 0).to(dt)) \
-            + lp["proj"]["b"].to(dt)
+        ctx = leave(ctx @ lp["proj"]["w"].to(dt), lp["proj"]["b"])
         x = _layout.seq_region(res_ln, (x, ctx), sp_axis,
-                               (lp["ln1_g"], lp["ln1_b"]))
+                               (lp["ln1_g"], lp["ln1_b"]), local=cut)
         x = cst(x, "seq")
         # the FFN: this rank's hidden units, summed over tp
-        h = copy_to(cst(x, "full"))
-        h = F.gelu(lin(h, {"w": block(lp["ffn1"]["w"], 1),
-                           "b": block(lp["ffn1"]["b"], 0)}),
-                   approximate="tanh")
-        h = reduce_from(h @ block(lp["ffn2"]["w"], 0).to(dt)) \
-            + lp["ffn2"]["b"].to(dt)
+        h = enter(cst(x, "full"))
+        h = F.gelu(lin(h, lp["ffn1"]), approximate="tanh")
+        h = leave(h @ lp["ffn2"]["w"].to(dt), lp["ffn2"]["b"])
         x = _layout.seq_region(res_ln, (x, h), sp_axis,
-                               (lp["ln2_g"], lp["ln2_b"]))
+                               (lp["ln2_g"], lp["ln2_b"]), local=cut)
         x = cst(x, "seq")
     if tp is None:
         return lin(x, params["mlm"]).float()
+    if cut:
+        # the whole sequence for the head (a replicated computation: the
+        # gradient is the rank's rows)
+        x = _layout.gather(x, tp[0], (tp[1],), 1, T)
     # the MLM head: this rank's columns of the vocabulary, gathered whole
-    local = lin(copy_to(x), {"w": block(params["mlm"]["w"], 1),
-                             "b": block(params["mlm"]["b"], 0)})
-    return _layout.gather(local, tp[0], (tp[1],), 2,
-                          params["mlm"]["w"].shape[1]).float()
+    local = lin(_layout.copy_to(x, *tp[:2]), params["mlm"])
+    vocab = cfg.vocab_size
+    return _layout.gather(local, tp[0], (tp[1],), 2, vocab).float()
 
 
-def _embed(table, tokens, tp):
-    """The word embedding; under tensor parallelism this rank's rows of
-    the vocabulary (the masked ids' lookup), summed over tp."""
+def _embed(table, tokens, tp, vocab, cut=False):
+    """The word embedding of a ``vocab``-row table; under tensor
+    parallelism ``table`` is this rank's block of the vocabulary (the
+    masked ids' lookup), summed over tp (into the rank's rows of the
+    sequence when the stream is ``cut``)."""
     if tp is None:
         return table[tokens.long()]
     mesh, axis, n, j = tp
-    start, stop = _layout.bounds(table.shape[0], j, n)
+    start, stop = _layout.bounds(vocab, j, n)
     local = tokens.long() - start
     keep = (local >= 0) & (local < stop - start)
-    rows = table.narrow(0, start, stop - start)[torch.where(keep, local, 0)]
-    return _layout.reduce_from(rows * keep.unsqueeze(-1).to(rows.dtype),
-                               mesh, axis)
+    rows = table[torch.where(keep, local, 0)] * keep.unsqueeze(-1).to(
+        table.dtype)
+    if cut:
+        return _layout.seq_exit(rows, mesh, axis)
+    return _layout.reduce_from(rows, mesh, axis)
 
 
 def loss_fn(params, tokens, labels, cfg, sp_constraint=None, sp_axis=None):
@@ -232,20 +256,22 @@ def make_train_step(cfg: BertConfig, mesh, lr=1e-3, use_sp=True, params=None,
     'tp'): ``(step, params, opt_state)``.
 
     ``params`` and ``opt_state`` ("m", "v" and the step count "t") hold
-    this rank's blocks; ``step(params, opt_state, tokens, labels) ->
-    (loss, params, opt_state)`` takes the global batch (the same on every
-    rank), updates the blocks in place and returns the global mean loss.
-    ``params``: the whole starting tree (see :func:`init_params`, which
-    makes it from ``seed`` 0 without one); ``device`` as there."""
+    this rank's blocks, and the rank keeps no whole copy; ``step(params,
+    opt_state, tokens, labels) -> (loss, params, opt_state)`` takes the
+    global batch (the same on every rank), computes from the blocks,
+    updates them in place and returns the global mean loss. ``params``:
+    the whole starting tree (see :func:`init_params`, which makes it from
+    ``seed`` 0 without one); ``device`` as there."""
     specs = param_specs(cfg)
     whole = init_params(cfg, params=params, device=device)
     w_leaves = _layout.tree_leaves(whole)
-    cspecs = [_layout.clean_spec(s, w.dim(), mesh)
+    cspecs = [_layout.live_spec(_layout.clean_spec(s, w.dim(), mesh), mesh)
               for s, w in zip(_spec_leaves(specs), w_leaves)]
     blocks = [_layout.local_slice(w, c, mesh).clone()
               for w, c in zip(w_leaves, cspecs)]
-    treedef = whole
-    params = _layout.tree_rebuild(treedef, iter(blocks))
+    params = _layout.tree_rebuild(_layout.tree_map(lambda a: None, whole),
+                                  iter(blocks))
+    del whole, w_leaves
     opt_state = {"m": _layout.tree_map(torch.zeros_like, params),
                  "v": _layout.tree_map(torch.zeros_like, params),
                  "t": torch.zeros((), dtype=torch.int64,
@@ -253,10 +279,6 @@ def make_train_step(cfg: BertConfig, mesh, lr=1e-3, use_sp=True, params=None,
     dp_axis = "dp" if "dp" in mesh.shape else None
     tp_axis = "tp" if "tp" in mesh.shape else None
     sp_axis = "tp" if use_sp else None
-    scatter_dims = {}
-    if tp_axis is not None and mesh.axis_size(tp_axis) > 1:
-        scatter_dims = {i: _layout.cut_dim(c, tp_axis)
-                        for i, c in enumerate(cspecs) if _layout.is_cut(c)}
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def step(params, opt_state, tokens, labels):
@@ -269,27 +291,19 @@ def make_train_step(cfg: BertConfig, mesh, lr=1e-3, use_sp=True, params=None,
             tokens = _layout.split_batch(tokens, mesh, dp_axis)
             labels = _layout.split_batch(labels, mesh, dp_axis)
         p_blocks = _layout.tree_leaves(params)
-        with torch.no_grad():
-            full = [_layout.gather_full(b, c, w.shape, mesh)
-                    for b, c, w in zip(p_blocks, cspecs, w_leaves)]
-        full = [f.detach().clone().requires_grad_(True) for f in full]
-        tree = _layout.tree_rebuild(treedef, iter(full))
+        leaves = [b.detach().requires_grad_(True) for b in p_blocks]
+        tree = _layout.tree_rebuild(params, iter(leaves))
         found = {}
         with mesh_scope(mesh), _layout.tensor_parallel(mesh, tp_axis), \
                 _layout.partial_grads(found), torch.enable_grad():
             loss = loss_fn(tree, tokens, labels, cfg, sp_axis=sp_axis)
-            grads = torch.autograd.grad(loss, full)
+            grads = torch.autograd.grad(loss, leaves)
         vals = list(grads) + [loss.detach().reshape(1)]
-        if scatter_dims:
-            # the cut parameters' gradient shares, summed over tp into the
-            # rank's blocks
-            _layout.flat_reduce_scatter(vals, list(scatter_dims),
-                                        scatter_dims, mesh, tp_axis)
-        partial = [i for i, f in enumerate(full) if id(f) in found]
+        partial = [i for i, f in enumerate(leaves) if id(f) in found]
         if partial:
-            # the LayerNorm regions' shares (sequence parallelism)
+            # the shares the rank's rows of the sequence left (SP)
             _layout.flat_all_reduce(vals, partial,
-                                    mesh.group(found[id(full[partial[0]])]),
+                                    mesh.group(found[id(leaves[partial[0]])]),
                                     "sum")
         if dp_axis is not None and mesh.group(dp_axis) is not None:
             _layout.flat_all_reduce(vals, range(len(vals)),
@@ -298,11 +312,9 @@ def make_train_step(cfg: BertConfig, mesh, lr=1e-3, use_sp=True, params=None,
         opt_state["t"] += 1
         tf = opt_state["t"].to(torch.float32)
         with torch.no_grad():
-            for i, (p, g, m, v, c) in enumerate(zip(
+            for p, g, m, v in zip(
                     p_blocks, vals[:-1], _layout.tree_leaves(opt_state["m"]),
-                    _layout.tree_leaves(opt_state["v"]), cspecs)):
-                if i not in scatter_dims:
-                    g = _layout.local_slice(g, c, mesh)
+                    _layout.tree_leaves(opt_state["v"])):
                 m.mul_(b1).add_((1 - b1) * g)
                 v.mul_(b2).add_((1 - b2) * g * g)
                 mhat = m / (1 - torch.pow(b1, tf))
@@ -328,7 +340,7 @@ def _gather_params(params, cfg: BertConfig, mesh):
     it)."""
     whole_shapes = _layout.tree_leaves(init_params(
         cfg, device=_layout.tree_leaves(params)[0].device))
-    cspecs = [_layout.clean_spec(s, w.dim(), mesh)
+    cspecs = [_layout.live_spec(_layout.clean_spec(s, w.dim(), mesh), mesh)
               for s, w in zip(_spec_leaves(param_specs(cfg)), whole_shapes)]
     full = [_layout.gather_full(b, c, w.shape, mesh)
             for b, c, w in zip(_layout.tree_leaves(params), cspecs,

@@ -20,7 +20,11 @@ as the reference computes them with ``jnp`` from a traced ``t``). Nadam's
 momentum schedule (a product over every step so far) and SGLD's noise
 are not replayable and raise for a device ``t``. Rules that take
 per-tensor statistics (LAMB, LANS, LARS, GroupAdaGrad) set
-``elementwise = False``. :meth:`Optimizer.step_multi` updates a list of
+``elementwise = False``. Those whose statistics are 2-norms (LAMB, LANS,
+LARS) declare ``norm_combine = "sum_of_squares"``: on a parameter stored
+as its block on a mesh (`parallel.DataParallel`), `block_norms` sums each
+norm's squares over the cut axes, so every rank's trust ratio is the
+whole tensor's. :meth:`Optimizer.step_multi` updates a list of
 parameters at once: `DataParallel`'s small-parameter segment.
 
 ``multi_precision`` keeps an f32 master copy of each float16 weight, as
@@ -33,11 +37,53 @@ from __future__ import annotations
 
 import math
 import pickle
+import threading
 
 import numpy as onp
 import torch
 
 from .. import random as _random
+
+
+class _Norms(threading.local):
+    def __init__(self):
+        self.groups = None   # process groups of a block's cut axes
+
+
+_NORMS = _Norms()
+
+
+class block_norms:
+    """The per-tensor norms of the rule at hand are those of a whole
+    tensor whose block this rank holds: each sum of squares is summed over
+    ``groups`` (the cut axes' process groups; None members are axes of one
+    rank)."""
+
+    def __init__(self, groups):
+        self.groups = [g for g in groups if g is not None]
+
+    def __enter__(self):
+        self.saved = _NORMS.groups
+        _NORMS.groups = self.groups or None
+        return self
+
+    def __exit__(self, *exc):
+        _NORMS.groups = self.saved
+        return False
+
+
+def _norm(x):
+    """The 2-norm of ``x``, or under `block_norms` of the whole tensor
+    ``x`` is this rank's block of."""
+    groups = _NORMS.groups
+    if groups is None:
+        return torch.linalg.vector_norm(x)
+    from ..parallel import collectives as _coll
+
+    sq = torch.sum(x * x)
+    for g in groups:
+        sq = _coll._raw_all_reduce(sq, g, "sum")
+    return torch.sqrt(sq)
 from ..base import MXNetError
 
 __all__ = [
@@ -67,6 +113,10 @@ def _sqrt(x):
 
 class Optimizer:
     """Base optimizer (reference: `python/mxnet/optimizer/optimizer.py:29`)."""
+
+    #: how a per-tensor statistic combines over a parameter's blocks (None:
+    #: the rule has none, or cannot combine them)
+    norm_combine = None
 
     #: True when `step` is a purely per-element rule: `DataParallel` may
     #: then update its small parameters together (`step_multi`). Rules
@@ -479,6 +529,7 @@ class FTRL(Optimizer):
 @register
 class LAMB(Optimizer):
     elementwise = False   # per-tensor trust ratio
+    norm_combine = "sum_of_squares"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,
@@ -502,8 +553,8 @@ class LAMB(Optimizer):
         else:
             mhat, vhat = m, v
         update = mhat / (torch.sqrt(vhat) + self.epsilon) + wd * w
-        wnorm = torch.linalg.vector_norm(w)
-        unorm = torch.linalg.vector_norm(update)
+        wnorm = _norm(w)
+        unorm = _norm(update)
         one = torch.ones_like(wnorm)
         ratio = torch.where(unorm > 0,
                             torch.where(wnorm > 0, wnorm / unorm, one), one)
@@ -519,7 +570,7 @@ class LANS(LAMB):
     """LAMB with per-layer gradient normalization (reference: lans.py)."""
 
     def step(self, w, g, state, lr, wd, t):
-        gnorm = torch.linalg.vector_norm(g * self.rescale_grad)
+        gnorm = _norm(g * self.rescale_grad)
         g = g / torch.clamp(gnorm, min=1e-12) / max(self.rescale_grad, 1e-30)
         LAMB.step(self, w, g, state, lr, wd, t)
 
@@ -527,6 +578,7 @@ class LANS(LAMB):
 @register
 class LARS(Optimizer):
     elementwise = False   # per-tensor trust ratio
+    norm_combine = "sum_of_squares"
 
     def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
                  epsilon=1e-8, **kwargs):
@@ -538,8 +590,8 @@ class LARS(Optimizer):
 
     def step(self, w, g, state, lr, wd, t):  # noqa: ARG002
         g = self._preprocess(g)
-        wnorm = torch.linalg.vector_norm(w)
-        gnorm = torch.linalg.vector_norm(g)
+        wnorm = _norm(w)
+        gnorm = _norm(g)
         trust = torch.where(
             (wnorm > 0) & (gnorm > 0),
             self.eta * wnorm / (gnorm + wd * wnorm + self.epsilon),

@@ -25,7 +25,16 @@ transport the card's multi-rank runs take when NCCL refuses more than one
 rank on one card.
 
 ``_CENSUS`` is the reference's hook for the fleet plane: when set, each
-op reports ``(op, axis, value)`` before it runs.
+op reports ``(op, axis, value)`` before it runs. ``_STEP_CENSUS`` sees
+every raw exchange underneath (the ops above and the layout's own, which
+`parallel._layout` makes without autograd): ``(op, group, in bytes, out
+bytes, operands)`` with ``op`` the HLO-style name ("all-reduce",
+"all-gather", "reduce-scatter", "all-to-all", "collective-permute") and
+``operands`` the whole bytes of each parameter a flat exchange carries
+(:class:`operands`; None for an activation's); it is what
+`analysis.shardcheck`'s census tier counts. A group is a
+`torch.distributed` process group or a `mesh.SubGroup` (a mesh over part
+of the world).
 """
 from __future__ import annotations
 
@@ -39,6 +48,25 @@ __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
 _LOG = logging.getLogger("incubator_mxnet_tpu_torch.parallel")
 _LOGGED = set()
 _CENSUS = None   # (op, axis, value) hook
+_STEP_CENSUS = None   # (op, group, in bytes, out bytes, operands) hook
+_OPERANDS = [None]    # the whole bytes of the parameters an exchange carries
+
+
+class operands:
+    """Marks the exchanges inside as carrying parameters whose whole
+    tensors are ``sizes`` bytes each (`_layout.flat_all_gather`)."""
+
+    def __init__(self, sizes):
+        self.sizes = tuple(int(b) for b in sizes)
+
+    def __enter__(self):
+        self.saved = _OPERANDS[0]
+        _OPERANDS[0] = self.sizes
+        return self
+
+    def __exit__(self, *exc):
+        _OPERANDS[0] = self.saved
+        return False
 
 
 def _unwrap(x):
@@ -82,11 +110,9 @@ def pvary(x, axis_name):  # noqa: ARG001
 def transport(group, device):
     """"host" when ``group`` exchanges tensors of ``device`` through host
     memory (a gloo group and a CUDA tensor), else "direct"."""
-    import torch.distributed as tdist
-
     if group is None or device.type != "cuda":
         return "direct"
-    backend = str(tdist.get_backend(group))
+    backend = group_backend(group)
     if backend == "nccl":
         return "direct"
     key = (backend, str(device))
@@ -109,16 +135,91 @@ def _exchange(group, fn, out, *ins):
     fn(out, *ins)
 
 
-def _ranks(group):
+def _sub(group):
+    from .mesh import SubGroup
+
+    return group.pg if isinstance(group, SubGroup) else None
+
+
+def group_backend(group):
+    """The backend's name of a process group or `mesh.SubGroup`."""
     import torch.distributed as tdist
 
+    return "gloo" if _sub(group) is not None else str(
+        tdist.get_backend(group))
+
+
+def _ranks(group):
+    """The global ranks of a group, in its order."""
+    import torch.distributed as tdist
+
+    if _sub(group) is not None:
+        return list(group.ranks)
     return tdist.get_process_group_ranks(group)
 
 
 def _group_size(group):
     import torch.distributed as tdist
 
-    return 1 if group is None else tdist.get_world_size(group)
+    if group is None:
+        return 1
+    return group.size if _sub(group) is not None else \
+        tdist.get_world_size(group)
+
+
+def _group_rank(group):
+    import torch.distributed as tdist
+
+    return group.rank if _sub(group) is not None else tdist.get_rank(group)
+
+
+def _note(op, group, src, out):
+    c = _STEP_CENSUS
+    if c is not None:
+        c(op, group, src.numel() * src.element_size(),
+          out.numel() * out.element_size(), _OPERANDS[0])
+
+
+def _all_reduce_into(o, rop, group):
+    import torch.distributed as tdist
+
+    pg = _sub(group)
+    if pg is None:
+        tdist.all_reduce(o, rop, group=group)
+        return
+    opts = tdist.AllreduceOptions()
+    opts.reduceOp = rop
+    pg.allreduce([o], opts).wait()
+
+
+def _all_gather_into(o, s, group):
+    import torch.distributed as tdist
+
+    pg = _sub(group)
+    if pg is None:
+        tdist.all_gather_into_tensor(o, s, group=group)
+    else:
+        pg._allgather_base(o, s).wait()
+
+
+def _reduce_scatter_into(o, s, group):
+    import torch.distributed as tdist
+
+    pg = _sub(group)
+    if pg is None:
+        tdist.reduce_scatter_tensor(o, s, group=group)
+    else:
+        pg._reduce_scatter_base(o, s).wait()
+
+
+def _all_to_all_into(o, s, group):
+    import torch.distributed as tdist
+
+    pg = _sub(group)
+    if pg is None:
+        tdist.all_to_all_single(o, s, group=group)
+    else:
+        pg.alltoall_base(o, s, [], []).wait()
 
 
 # -- raw exchanges (no autograd) --------------------------------------------
@@ -135,41 +236,39 @@ def _raw_all_reduce(t, group, op="sum"):
         return out
     rop = {"sum": tdist.ReduceOp.SUM, "mean": tdist.ReduceOp.SUM,
            "max": tdist.ReduceOp.MAX, "min": tdist.ReduceOp.MIN}[op]
-    _exchange(group, lambda o: tdist.all_reduce(o, rop, group=group), out)
+    _note("all-reduce", group, out, out)
+    _exchange(group, lambda o: _all_reduce_into(o, rop, group), out)
     if op == "mean":
-        n = tdist.get_world_size(group)
+        n = _group_size(group)
         out = out / n if out.is_floating_point() else out // n
     return out
 
 
 def _raw_all_gather(t, group, dim):
-    import torch.distributed as tdist
-
     if group is None:
         return t.detach().clone()
-    n = tdist.get_world_size(group)
+    n = _group_size(group)
     src = t.detach().movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    _exchange(group, lambda o, s: tdist.all_gather_into_tensor(
-        o, s, group=group), out, src)
+    _note("all-gather", group, src, out)
+    _exchange(group, lambda o, s: _all_gather_into(o, s, group), out, src)
     return out.movedim(0, dim).contiguous()
 
 
 def _raw_reduce_scatter(t, group, dim):
-    import torch.distributed as tdist
-
     if group is None:
         return t.detach().clone()
-    n = tdist.get_world_size(group)
+    n = _group_size(group)
     src = t.detach().movedim(dim, 0).contiguous()
     if src.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of size {src.shape[0]} "
                          f"does not divide over {n} ranks")
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    _exchange(group, lambda o, s: tdist.reduce_scatter_tensor(
-        o, s, group=group), out, src)
+    _note("reduce-scatter", group, src, out)
+    _exchange(group, lambda o, s: _reduce_scatter_into(o, s, group), out,
+              src)
     return out.movedim(0, dim).contiguous()
 
 
@@ -182,33 +281,39 @@ def _raw_ring_permute(t, group, shift):
     n = len(ranks)
     if n == 1 or shift % n == 0:
         return t.detach().clone()
-    me = tdist.get_rank(group)
+    me = _group_rank(group)
     src = t.detach().contiguous()
     out = torch.empty_like(src)
+    pg = _sub(group)
 
     def run(o, s):
+        if pg is not None:
+            reqs = [pg.send([s], (me + shift) % n, 0),
+                    pg.recv([o], (me - shift) % n, 0)]
+            for req in reqs:
+                req.wait()
+            return
         ops = [tdist.P2POp(tdist.isend, s, ranks[(me + shift) % n], group),
                tdist.P2POp(tdist.irecv, o, ranks[(me - shift) % n], group)]
         for req in tdist.batch_isend_irecv(ops):
             req.wait()
 
+    _note("collective-permute", group, src, out)
     _exchange(group, run, out, src)
     return out
 
 
 def _raw_all_to_all(t, group, split_axis, concat_axis):
-    import torch.distributed as tdist
-
     if group is None:
         return t.detach().clone()
-    n = tdist.get_world_size(group)
+    n = _group_size(group)
     if t.shape[split_axis] % n:
         raise ValueError(f"all_to_all: axis {split_axis} of size "
                          f"{t.shape[split_axis]} does not split over {n}")
     src = t.detach().movedim(split_axis, 0).contiguous()
     out = torch.empty_like(src)
-    _exchange(group, lambda o, s: tdist.all_to_all_single(
-        o, s, group=group), out, src)
+    _note("all-to-all", group, src, out)
+    _exchange(group, lambda o, s: _all_to_all_into(o, s, group), out, src)
     # block j came from peer j: put it back in the split axis's place and
     # join the blocks along the concat axis
     blocks = [b.movedim(0, split_axis) for b in out.chunk(n, dim=0)]

@@ -13,14 +13,22 @@ With no initialised world the mesh is a world of one (every axis of size
 the reference's takes devices; :func:`make_mesh` counts the world's
 ranks where the reference counts devices, and keeps the reference's
 rules and errors (the wildcard, its divisibility, unique axis names).
+
+A mesh over **part** of a gloo world (the survivors of an elastic
+transition, `fault.elastic`) cannot build a `DeviceMesh`: that needs
+every rank of the world, and the departed ones take no part. Its groups
+are :class:`SubGroup`\\ s instead: a gloo process group over the slice's
+ranks alone, made from the world's store under a prefix only those ranks
+use. `parallel.collectives` exchanges over either kind.
 """
 from __future__ import annotations
 
+import datetime
 import threading
 
 import numpy as onp
 
-__all__ = ["Mesh", "make_mesh", "mesh_scope", "current_mesh"]
+__all__ = ["Mesh", "make_mesh", "mesh_scope", "current_mesh", "SubGroup"]
 
 
 class _TLS(threading.local):
@@ -29,6 +37,49 @@ class _TLS(threading.local):
 
 
 _STATE = _TLS()
+_SUB_MADE: dict = {}     # ranks -> sub-groups made over them in this process
+
+
+class SubGroup:
+    """A gloo process group over ``ranks`` (global ranks, this rank among
+    them) that the other ranks of the world take no part in: made from
+    the world's store under a prefix keyed by the membership generation,
+    the ranks and how many such groups this process made before (the
+    ranks make their groups in the same order, so they agree)."""
+
+    backend = "gloo"
+
+    def __init__(self, ranks):
+        import torch.distributed as tdist
+
+        from . import dist
+
+        self.ranks = tuple(int(r) for r in ranks)
+        _, me, _ = _world()
+        if me not in self.ranks:
+            raise ValueError(f"rank {me} is not among {self.ranks}")
+        if str(tdist.get_backend()) != "gloo":
+            raise ValueError("a mesh over part of the world needs a gloo "
+                             "world (NCCL groups are made by every rank)")
+        n = _SUB_MADE[self.ranks] = _SUB_MADE.get(self.ranks, 0) + 1
+        prefix = (f"mx/submesh/g{dist.generation()}/"
+                  f"{'-'.join(map(str, self.ranks))}/{n}")
+        store = tdist.PrefixStore(prefix,
+                                  tdist.distributed_c10d._get_default_store())
+        self.pg = tdist.ProcessGroupGloo(
+            store, self.ranks.index(me), len(self.ranks),
+            datetime.timedelta(seconds=dist._TIMEOUT_S))
+
+    @property
+    def size(self):
+        return len(self.ranks)
+
+    @property
+    def rank(self):
+        return self.ranks.index(_world()[1])
+
+    def __repr__(self):
+        return f"SubGroup{self.ranks}"
 
 
 def _world():
@@ -56,6 +107,7 @@ class Mesh:
                              f"{self.axis_names}")
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self._device_mesh = None
+        self._sub = {}      # axis (or None: every rank) -> SubGroup
 
     @property
     def size(self):
@@ -112,7 +164,28 @@ class Mesh:
             return None
         if axis not in self.shape:
             raise ValueError(f"axis {axis!r} is not on {self}")
+        if self.size < n:
+            if axis not in self._sub:
+                idx = list(self._index())
+                idx[self.axis_names.index(axis)] = slice(None)
+                self._sub[axis] = SubGroup(self.devices[tuple(idx)].tolist())
+            return self._sub[axis]
         return self.device_mesh().get_group(axis)
+
+    def group_all(self):
+        """The process group of every rank of the mesh (the world's when
+        the mesh spans it); None with no world or one rank."""
+        import torch.distributed as tdist
+
+        up, _, n = _world()
+        if not up or self.size == 1:
+            return None
+        if self.size < n:
+            if None not in self._sub:
+                self._sub[None] = SubGroup(sorted(self.devices.ravel()
+                                                  .tolist()))
+            return self._sub[None]
+        return tdist.group.WORLD
 
 
 def make_mesh(axis_shapes, devices=None):

@@ -44,41 +44,45 @@ is unused, as in the reference (:203).
 **On a mesh** (``mesh=``, or the ambient `mesh_scope`; one process per
 rank, `parallel.mesh`), each rank passes the same global batch and the
 step takes its rows along ``data_axis``. ``param_shardings`` (a spec per
-trainable parameter, `models.bert.tp_param_shardings`) places each
-parameter's optimizer state: the rank's block of the parameter
-(`parallel._layout`) is a view of the whole tensor, the optimizer
-updates the block, and its state is made on the block, so a state shaped
-like the parameter is sharded like it and a scalar is replicated. The
-parameters themselves, and their gradients, stay whole on every rank:
-the net computes with them and is current between steps, so the specs
-save optimizer-state memory only (`ROADMAP.md` §3). The forward and
-backward run on the rank's rows of the batch; the gradients are averaged
-over ``data_axis`` (one all-reduce of one flat buffer a dtype), each
-rank applies the optimizer to its blocks, and the updated blocks are
-gathered into the whole parameters (one all-gather of one flat buffer a
-dtype and axis), so the replicas of a replicated parameter hold the same
-bits. The optimizer
-must be elementwise where a parameter is cut. How the compute is split:
+trainable parameter, `models.bert.tp_param_shardings`) says how each is
+**stored**: a parameter cut by its spec over axes of more than one rank
+is held as the rank's block alone (the gluon Parameter's tensor,
+`parallel._layout.Placement`), its gradient is the block's and its
+optimizer state is made on the block, so a state shaped like the
+parameter is cut like it and a scalar is replicated; no rank keeps a
+whole copy between steps. Reading such a parameter whole outside the
+step (``save_parameters``, a plain eager ``net(x)``) gathers it as a
+transient, and a whole ``set_data``/``load_parameters`` writes the
+rank's block. The forward and backward run on the rank's rows of the
+batch; the gradients are averaged over ``data_axis`` (one all-reduce of
+one flat buffer a dtype) and each rank updates what it stores, in place.
+A rule with per-tensor norms (LAMB, LANS, LARS: ``norm_combine``) sums
+them over a block's cut axes (`optimizer.block_norms`), so every rank's
+trust ratio is the whole tensor's; any other rule must be elementwise
+where a parameter is cut. How the compute is split:
 
 - a model that supports it (``supports_tensor_parallel``: BERT's flash
   path) given `models.bert.tp_param_shardings`' specs splits its compute
   over their axis as Megatron does (each rank its heads, hidden units
-  and vocabulary rows; `models/bert.py`), and the cut parameters'
-  gradient shares are summed over the axis straight into the rank's
-  blocks (one reduce-scatter of one flat buffer a dtype) before the data
-  axis's mean;
-- any other net or spec list computes with the whole parameters on every
-  rank, which is what GSPMD's layout gives the reference too.
+  and vocabulary rows; `models/bert.py`) and computes from the stored
+  blocks, so their gradients are the blocks' with no exchange over the
+  axis;
+- any other net or spec list computes with the whole weights, as GSPMD's
+  layout gives the reference: the step gathers them once (a transient,
+  one all-gather of one flat buffer a dtype and axis), and their whole
+  gradients are averaged over the data axis and cut into the blocks (a
+  reduce-scatter where the data axis is the cut one).
 
 Sequence-parallel regions (BERT's ``seq_shard_axis``) run on the rank's
-rows, so their parameters' gradients (the LayerNorms' γ and β) are the
+rows, so their parameters' gradients (the LayerNorms' γ and β, and under
+Megatron SP the biases and embeddings added on the rank's rows) are the
 rank's shares: the regions name them to the step
 (`_layout.partial_grads`), which sums them over the axis in one flat
-all-reduce. The dropout keys are the world's (rank 0's base key, sent to
-every rank), folded with the rank's coordinate along ``data_axis`` when
-that axis has more than one rank, so data shards draw distinct masks and
-replicas the same ones. At construction every rank takes rank 0's
-parameters.
+all-reduce. The dropout keys are the world's (the mesh's first rank's
+base key, sent to every rank), folded with the rank's coordinate along
+``data_axis`` when that axis has more than one rank, so data shards
+draw distinct masks and replicas the same ones. At construction every
+rank takes the mesh's first rank's parameters.
 
 On an NCCL group the whole step, its collectives included, is captured
 and replayed as one CUDA graph, as on one card. A gloo group's
@@ -86,10 +90,12 @@ collectives cannot be captured: on the card the step then runs eagerly
 every time, exchanging through host memory (`collectives.transport`); it
 says so once in the log, and its program-ledger entry's ``cache_key``
 names it. `rebuild` moves the trainer onto a new mesh, carrying the
-parameters, the optimizer state and the step counter. `remat` is
-`ROADMAP.md` §1 item 11b's and `shardcheck_report` item 13's: both
-raise. Under a data axis of more than one rank, a BatchNorm's statistics
-are those of the rank's rows.
+parameters, the optimizer state and the step counter (`fault.elastic`
+calls it across a membership change). `shardcheck_report` pre-flights
+the layout (`analysis.shardcheck`); ``MXNET_SHARDCHECK=warn|raise`` runs
+its spec tier at construction. `remat` is `ROADMAP.md` §1 item 11b's
+and raises. Under a data axis of more than one rank, a BatchNorm's
+statistics are those of the rank's rows.
 
 Observability (reference :173-176, :313-341): each capture (on a CPU net,
 the first step of each input signature) is an entry of the program
@@ -97,8 +103,9 @@ ledger under ``"train.DataParallel.step"`` (`telemetry.compiles`), with
 the FLOPs of its eager step (counted while the ledger is on) and its
 kernels' costs from the capture's launch log; the capture's private
 memory pool is the census owner ``"graph:train.DataParallel.step"``; and
-the parameters and the optimizer state are the device-memory census
-owners ``"train.params"`` and ``"train.optimizer"`` (`telemetry.hbm`).
+the parameters (the blocks, as stored) and the optimizer state are the
+device-memory census owners ``"train.params"`` and ``"train.optimizer"``
+(`telemetry.hbm`).
 As in the reference, the step charges no goodput state.
 """
 from __future__ import annotations
@@ -152,58 +159,70 @@ def _fused_indices(params, states, optimizer):
 
 
 class _MeshPlan:
-    """A trainer's layout on a mesh: each trainable parameter's spec, its
-    whole tensor (the net's, which the step computes with) and the rank's
-    block of it (a view, which the optimizer updates; the tensor itself
-    where the spec cuts nothing)."""
+    """A trainer's layout on a mesh, stored by the spec: each trainable
+    parameter's clean spec (axes of more than one rank), and, where it
+    cuts, the rank's block as the gluon Parameter's tensor
+    (`gluon.Parameter._place`): ``stored[i]`` is what the net and the
+    optimizer hold, the block or the whole tensor. Every rank takes rank
+    0's values before the blocks are cut."""
 
-    def __init__(self, mesh, data_axis, params, specs, tp_axis=None):
+    def __init__(self, mesh, data_axis, net, tensors, specs, tp_axis=None):
         self.mesh = mesh
         self.data_axis = data_axis if data_axis in mesh.shape else None
-        # the axis the model splits its compute over (its cut parameters'
-        # gradients are then shares, summed over it)
+        # the axis the model splits its compute over: it reads its cut
+        # parameters' blocks itself, so their gradients are the blocks'
         self.tp_axis = (tp_axis if tp_axis in mesh.shape
                         and mesh.axis_size(tp_axis) > 1 else None)
-        self.full = params
-        self.cspecs = [_layout.clean_spec(s, p.dim(), mesh)
-                       for s, p in zip(specs, params)]
-        # the blocks are views of the whole tensors: what a load into the
-        # net writes, the optimizer reads
-        self.shards = [
-            _layout.local_slice(p.detach(), c, mesh)
-            if _layout.is_cut(c) else p
-            for p, c in zip(params, self.cspecs)]
+        self.cspecs = [_layout.live_spec(_layout.clean_spec(s, t.dim(), mesh),
+                                         mesh)
+                       for s, t in zip(specs, tensors)]
+        owners = _gluon_params(net)
+        self.placements = [None] * len(tensors)
+        for i, (t, c) in enumerate(zip(tensors, self.cspecs)):
+            if not _layout.is_cut(c):
+                continue
+            param = owners.get(id(t))
+            if param is None:
+                raise MXNetError(
+                    f"DataParallel: trainable parameter {i} {tuple(t.shape)}"
+                    f" is cut by its spec {specs[i]} but is not a gluon "
+                    f"Parameter, which a block is stored in")
+            pl = _layout.Placement(mesh, c, t.shape)
+            param._place(pl)
+            self.placements[i] = pl
+        # the tensors the net holds now: the blocks of the cut parameters
+        self.stored = [p for p in net.parameters() if p.requires_grad]
         self.dp_group = (mesh.group(self.data_axis)
                          if self.data_axis is not None else None)
         self.dp = (mesh.axis_size(self.data_axis)
                    if self.data_axis is not None else 1)
-        # under tensor parallelism a parameter cut over the tp axis alone
-        # has a gradient that is this rank's share of the whole: it is
-        # summed straight into the rank's block (a reduce-scatter)
-        self.scatter_dims = {}
-        if self.tp_axis is not None:
-            for i, c in enumerate(self.cspecs):
-                d = _layout.cut_dim(c, self.tp_axis)
-                if d is not None:
-                    self.scatter_dims[i] = d
-        # the updated blocks of a parameter cut over one axis of more than
-        # one rank are joined in one all-gather per axis
-        self.gather_dims = {}
-        for i, c in enumerate(self.cspecs):
-            axes = [a for axs in c for a in axs]
-            if len(axes) == 1 and mesh.axis_size(axes[0]) > 1:
-                self.gather_dims.setdefault(axes[0], {})[i] = \
-                    _layout.cut_dim(c, axes[0])
+        # a net that does not split its compute computes with the whole
+        # weights: the step gathers them once (a transient), and their
+        # whole gradients are averaged and cut into the blocks
+        self.gathered = ([] if self.tp_axis is not None else
+                         [i for i, pl in enumerate(self.placements)
+                          if pl is not None])
         # {id(param): axis}: the parameters whose gradients the step's
         # sequence-parallel regions left as this rank's share
         self.partial = {}
 
-    def groups(self):
-        """Every process group the step exchanges over."""
+    @property
+    def shards(self):
+        """The rank's stored tensors (blocks where the spec cuts)."""
+        return self.stored
+
+    def axes(self):
+        """Every mesh axis the step exchanges over."""
         axes = {a for c in self.cspecs for axs in c for a in axs}
         if self.data_axis is not None:
             axes.add(self.data_axis)
-        return [g for g in (self.mesh.group(a) for a in sorted(axes))
+        if self.tp_axis is not None:
+            axes.add(self.tp_axis)
+        return sorted(axes)
+
+    def groups(self):
+        """Every process group the step exchanges over."""
+        return [g for g in (self.mesh.group(a) for a in self.axes())
                 if g is not None]
 
     def split(self, x):
@@ -220,61 +239,87 @@ class _MeshPlan:
         n = torch.full_like(base_key[0], self.mesh.coordinate(self.data_axis))
         return torch.stack(fold((base_key[0], base_key[1]), n))
 
-    def scope(self):
+    @torch.no_grad()
+    def wholes(self):
+        """The whole weights of :attr:`gathered` (one all-gather of one
+        flat buffer per dtype and axis; leaves that take a gradient)."""
+        out = [None] * len(self.stored)
+        by_axis: dict = {}
+        for i in self.gathered:
+            pl = self.placements[i]
+            axes = [a for axs in pl.cspec for a in axs]
+            if len(axes) == 1:
+                out[i] = self.stored[i].new_empty(pl.shape)
+                by_axis.setdefault(axes[0], {})[i] = pl.dim(axes[0])
+            else:
+                out[i] = pl.gather(self.stored[i])
+        for axis, dims in by_axis.items():
+            _layout.flat_all_gather(self.stored, out, list(dims), dims,
+                                    self.mesh, axis)
+        return {i: out[i].requires_grad_(True) for i in self.gathered}
+
+    def scope(self, wholes):
         stack = contextlib.ExitStack()
+        table = {id(self.placements[i]): w for i, w in wholes.items()}
         for cm in (mesh_scope(self.mesh), _layout.laid_out(self.data_axis),
                    _layout.tensor_parallel(self.mesh, self.tp_axis),
-                   _layout.partial_grads(self.partial)):
+                   _layout.partial_grads(self.partial),
+                   _layout.whole_params(table)):
             stack.enter_context(cm)
         return stack
 
     def reduce(self, loss, grads):
-        """(mean loss, the rank's gradient blocks). Under tensor
-        parallelism the cut parameters' shares are summed over its axis
-        into the rank's blocks (one reduce-scatter); the shares that
-        sequence-parallel regions left (their LayerNorms' γ and β) are
-        summed over their axis, over tp in one all-reduce with any cut
-        parameter the reduce-scatter does not take; then the gradients
-        and the loss are averaged over the data axis. Each exchange sends
-        one flat buffer per dtype."""
+        """(mean loss, the rank's gradients of its stored tensors). The
+        shares that sequence-parallel regions left (LayerNorms' γ and β,
+        the biases and embeddings added on the rank's rows) are summed
+        over their axis in one all-reduce; then every gradient and the
+        loss are averaged over the data axis in one all-reduce; the whole
+        gradients of :attr:`gathered` are then cut into the blocks. A
+        tensor-parallel model's cut gradients are the blocks' already.
+        Each exchange sends one flat buffer per dtype."""
         vals = list(grads) + [loss.reshape(1)]
         sums: dict = {}
-        if self.tp_axis is not None:
-            _layout.flat_reduce_scatter(vals, list(self.scatter_dims),
-                                        self.scatter_dims, self.mesh,
-                                        self.tp_axis)
-            sums[self.tp_axis] = [
-                i for i, c in enumerate(self.cspecs)
-                if _layout.is_cut(c) and i not in self.scatter_dims]
-        for i, p in enumerate(self.full):
+        for i, p in enumerate(self.stored):
             axis = self.partial.get(id(p))
             if axis is not None:
                 sums.setdefault(axis, []).append(i)
         for axis, idx in sums.items():
-            if idx:
-                _layout.flat_all_reduce(vals, idx, self.mesh.group(axis),
-                                        "sum")
+            _layout.flat_all_reduce(vals, idx, self.mesh.group(axis), "sum")
+        # a whole gradient cut over the data axis alone: its mean is
+        # reduce-scattered into the rank's block
+        scatter = {}
         if self.dp_group is not None:
-            _layout.flat_all_reduce(vals, range(len(vals)), self.dp_group,
-                                    "mean")
+            scatter = {i: self.placements[i].dim(self.data_axis)
+                       for i in self.gathered
+                       if self.placements[i].dim(self.data_axis) is not None}
+            if scatter:
+                _layout.flat_reduce_scatter(vals, list(scatter), scatter,
+                                            self.mesh, self.data_axis)
+                for i in scatter:
+                    vals[i] = vals[i] / self.dp
+            _layout.flat_all_reduce(
+                vals, [i for i in range(len(vals)) if i not in scatter],
+                self.dp_group, "mean")
         loss = vals[-1].reshape(())
-        blocks = [g if i in self.scatter_dims or not _layout.is_cut(c)
-                  else _layout.local_slice(g, c, self.mesh).contiguous()
-                  for i, (g, c) in enumerate(zip(vals[:-1], self.cspecs))]
-        return loss, blocks
+        for i in self.gathered:
+            if i not in scatter:
+                vals[i] = self.placements[i].block_of(vals[i]).contiguous()
+        return loss, vals[:-1]
 
-    @torch.no_grad()
-    def gather(self):
-        """The updated blocks joined into the whole parameters (a block
-        that is the whole tensor is a view of it already)."""
-        for axis, dims in self.gather_dims.items():
-            _layout.flat_all_gather(self.shards, self.full, list(dims), dims,
-                                    self.mesh, axis)
-        done = {i for dims in self.gather_dims.values() for i in dims}
-        for i, (p, b, c) in enumerate(zip(self.full, self.shards,
-                                          self.cspecs)):
-            if i not in done and _layout.is_cut(c) and b.shape != p.shape:
-                p.copy_(_layout.gather_full(b, c, p.shape, self.mesh))
+    def norm_groups(self, i):
+        """The groups a cut parameter's per-tensor norms are summed over
+        (the axes its spec cuts)."""
+        return [self.mesh.group(a) for axs in self.cspecs[i] for a in axs]
+
+
+def _gluon_params(net):
+    """{id(tensor): gluon Parameter} of a gluon net (empty for another
+    module)."""
+    collect = getattr(net, "collect_params", None)
+    if collect is None:
+        return {}
+    return {id(p._data._data): p for p in collect().values()
+            if p._data is not None}
 
 
 def _build_pure_step(net, loss_fn, optimizer, states, plan=None):
@@ -285,43 +330,61 @@ def _build_pure_step(net, loss_fn, optimizer, states, plan=None):
     are tensors on the net's device. ``update(grads, t, lr, wd)`` is its
     optimizer part; ``fused`` the small-parameter segment's indices. With
     a :class:`_MeshPlan` the step takes the rank's rows of the batch,
-    averages the gradients over the data axis and updates the blocks."""
-    params = [p for p in net.parameters() if p.requires_grad]
-    targets = plan.shards if plan is not None else params
-    fused = _fused_indices(targets, states, optimizer)
+    averages the gradients over the data axis and updates the stored
+    tensors (the blocks of the cut parameters), with a per-tensor rule's
+    norms summed over the cut axes."""
+    from ..optimizer.optimizer import block_norms
+
+    params = plan.stored if plan is not None else \
+        [p for p in net.parameters() if p.requires_grad]
+    fused = _fused_indices(params, states, optimizer)
     rest = sorted(set(range(len(params))) - set(fused))
+    cut = ({i for i, pl in enumerate(plan.placements) if pl is not None}
+           if plan is not None else set())
+    # what the last step applied; kept off the step function itself, whose
+    # closure would then reference it (a cycle that keeps the net alive
+    # until a cyclic collection, which may run inside a later capture)
+    stats = {"grad_bytes": None}
 
     @torch.no_grad()
     def update(grads, t, lr, wd):
-        optimizer.step_multi([targets[i] for i in fused],
+        optimizer.step_multi([params[i] for i in fused],
                              [grads[i] for i in fused],
                              [states[i] for i in fused], lr, wd, t)
         for i in rest:
-            optimizer.step(targets[i], grads[i], states[i], lr, wd, t)
+            if i in cut and not optimizer.elementwise:
+                with block_norms(plan.norm_groups(i)):
+                    optimizer.step(params[i], grads[i], states[i], lr, wd, t)
+            else:
+                optimizer.step(params[i], grads[i], states[i], lr, wd, t)
 
     def step(t, lr, wd, base_key, x, y):
         scope = contextlib.nullcontext()
+        targets = params
         if plan is not None:
             x, y = plan.split(x), plan.split(y)
             base_key = plan.key(base_key)
-            scope = plan.scope()
+            wholes = plan.wholes()
+            targets = [wholes.get(i, p) for i, p in enumerate(params)]
+            scope = plan.scope(wholes)
         # the step differentiates whatever autograd mode its caller is in
         with torch.enable_grad(), autograd.train_mode(), \
                 _random.trace_key_scope(base_key, t), scope:
             loss = loss_fn(net(x), y).mean()
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = torch.autograd.grad(loss, targets, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+                 for p, g in zip(targets, grads)]
         loss = loss.detach()
         if plan is not None:
             loss, grads = plan.reduce(loss, grads)
+        stats["grad_bytes"] = sum(g.numel() * g.element_size()
+                                  for g in grads)
         update(grads, t, lr, wd)
-        if plan is not None:
-            plan.gather()
         with torch.no_grad():
             t.add_(1)
         return loss
 
+    step.stats = stats
     return step, update, params, fused
 
 
@@ -360,6 +423,7 @@ class DataParallel:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise MXNetError(f"DataParallel: mesh must be a parallel.Mesh "
                              f"(parallel.make_mesh), got {type(mesh)}")
+        _unplace(net)
         params = [p for p in net.parameters() if p.requires_grad]
         if not params:
             raise MXNetError("DataParallel: the net has no trainable "
@@ -379,19 +443,24 @@ class DataParallel:
                 raise MXNetError(f"DataParallel: {len(specs)} "
                                  f"param_shardings for {len(params)} "
                                  f"trainable parameters")
-            _sync_from_rank0(list(net.parameters()))
+            _shardcheck_at_construction(self, params, specs, mesh)
+            _sync_from_rank0(list(net.parameters()), mesh)
             tp_axis = (getattr(param_shardings, "tensor_parallel_axis", None)
                        if getattr(net, "supports_tensor_parallel", False)
                        else None)
-            plan = _MeshPlan(mesh, data_axis, params, specs, tp_axis)
-            if (any(_layout.is_cut(c) for c in plan.cspecs)
-                    and not getattr(optimizer, "elementwise", False)):
+            cut = [i for i, (p, sp) in enumerate(zip(params, specs))
+                   if _layout.is_cut(_layout.live_spec(
+                       _layout.clean_spec(sp, p.dim(), mesh), mesh))]
+            if (cut and not optimizer.elementwise
+                    and getattr(optimizer, "norm_combine", None) is None):
                 raise MXNetError(
-                    f"DataParallel: {type(optimizer).__name__} is not "
-                    f"elementwise; a parameter cut by its spec needs an "
-                    f"elementwise optimizer (each rank updates its block)")
+                    f"DataParallel: {type(optimizer).__name__} is neither "
+                    f"elementwise nor declares how its per-tensor "
+                    f"statistics combine over a cut (norm_combine); a "
+                    f"parameter cut by its spec is updated by blocks")
+            plan = _MeshPlan(mesh, data_axis, net, params, specs, tp_axis)
         self._plan = plan
-        targets = plan.shards if plan is not None else params
+        targets = plan.stored if plan is not None else params
         self.opt_states = [optimizer.create_state(i, p)
                            for i, p in enumerate(targets)]
         (self._step_fn, self._update_fn, self.params,
@@ -467,8 +536,8 @@ class DataParallel:
             # the dropout streams (reference semantics)
             self._base_key.copy_(torch.tensor(_random.next_key()))
             if self._plan is not None:
-                # one base key for the world: rank 0's
-                _sync_from_rank0([self._base_key])
+                # one base key for the world: the mesh's first rank's
+                _sync_from_rank0([self._base_key], self.mesh)
             self._key_epoch = _random.seed_epoch()
         return self._t_dev, self._lr_dev, self._wd_dev, self._base_key
 
@@ -551,44 +620,70 @@ class DataParallel:
                                      donate=(0, 2, 3), flops=flops,
                                      launch_log=launch_log,
                                      cache_key=cache_key)
-    def rebuild(self, mesh, data_axis=None, param_shardings=None):
+    def rebuild(self, mesh, data_axis=None, param_shardings=None,
+                joining=None):
         """Move the trainer onto a new mesh (reference :459), carrying the
-        parameters, the optimizer state and the step counter: each state
-        block is gathered whole on the old mesh and cut again by the new
-        specs. Every rank of the world calls it."""
+        parameters, the optimizer state and the step counter: each block
+        is gathered whole on the old mesh and cut again by the new specs.
+        Every rank of the new mesh calls it. Where a rank rejoins the
+        fleet (`fault.elastic`), every rank passes ``joining``: True on
+        the rank that rejoins (it gathers nothing on the mesh it left),
+        False on the others; all then take the new mesh's first rank's
+        parameters, state and counters."""
         if mesh is None:
             raise ValueError("DataParallel.rebuild requires a target mesh")
         specs = (list(param_shardings) if param_shardings is not None
                  else self._param_specs)
         with tracing.span("elastic.rebuild", devices=int(mesh.size)):
-            whole = [self._whole_state(i, s)
-                     for i, s in enumerate(self.opt_states)]
-            t, num_update = int(self._t_dev.item()), self.optimizer.num_update
+            if joining:
+                whole = [self._placeholder_state(i, s)
+                         for i, s in enumerate(self.opt_states)]
+            else:
+                whole = [self._whole_state(i, s)
+                         for i, s in enumerate(self.opt_states)]
+            counters = torch.tensor(
+                [int(self._t_dev.item()), self.optimizer.num_update],
+                dtype=torch.float64, device=self.device)
+            _unplace(self.net, gather=not joining)
             self.__init__(self.net, self._loss_fn, self.optimizer, mesh=mesh,
                           data_axis=data_axis or self._data_axis,
                           param_shardings=specs)
+            if joining is not None:
+                # every rank takes the first rank's state and counters
+                _sync_from_rank0([t for t in _layout.tree_leaves(whole)
+                                  if isinstance(t, torch.Tensor)]
+                                 + [counters], mesh)
             for i, (new, old) in enumerate(zip(self.opt_states, whole)):
                 self._restore_state(i, new, old)
-            self._t_dev.fill_(t)
-            self.optimizer.num_update = num_update
+            self._t_dev.fill_(int(counters[0]))
+            self.optimizer.num_update = int(counters[1])
         return self
 
-    def _block_spec(self, i):
+    def _placeholder_state(self, i, state):
+        """Zeros of a state's whole shape (a rejoining rank's, before it
+        takes the fleet's values)."""
+        if isinstance(state, (list, tuple)):
+            return type(state)(self._placeholder_state(i, s) for s in state)
+        if not isinstance(state, torch.Tensor):
+            return state
+        pl = self._placement(i)
+        if pl is not None and state.shape == self.params[i].shape:
+            return state.new_zeros(pl.shape)
+        return torch.zeros_like(state)
+
+    def _placement(self, i):
         plan = self._plan
-        if plan is None or not _layout.is_cut(plan.cspecs[i]):
-            return None
-        return plan.cspecs[i]
+        return None if plan is None else plan.placements[i]
 
     def _whole_state(self, i, state):
         """A parameter's optimizer state with each block gathered whole."""
-        c = self._block_spec(i)
+        pl = self._placement(i)
         if isinstance(state, (list, tuple)):
             return type(state)(self._whole_state(i, s) for s in state)
         if not isinstance(state, torch.Tensor):
             return state
-        if c is not None and state.shape == self._plan.shards[i].shape:
-            return _layout.gather_full(state, c, self.params[i].shape,
-                                       self._plan.mesh).clone()
+        if pl is not None and state.shape == self.params[i].shape:
+            return pl.gather(state).clone()
         return state.detach().clone()
 
     @torch.no_grad()
@@ -599,32 +694,176 @@ class DataParallel:
             return
         if not isinstance(new, torch.Tensor):
             return
-        c = self._block_spec(i)
-        if c is not None and old.shape == self.params[i].shape:
-            old = _layout.local_slice(old, c, self._plan.mesh)
+        pl = self._placement(i)
+        if pl is not None and tuple(old.shape) == pl.shape:
+            old = pl.block_of(old.to(new.device))
         new.copy_(old)
 
-    def shardcheck_report(self, x=None, y=None, hbm_budget_gb=None,  # noqa: ARG002
-                          mode=None, compile=True):  # noqa: A002,ARG002
-        raise MXNetError("DataParallel.shardcheck_report is not ported yet "
-                         "(ROADMAP.md §1 item 13: analysis.shardcheck)")
+    def stored_bytes(self):
+        """This rank's bytes of trainable parameters (as stored: blocks
+        where the spec cuts), of the gradients the last step applied (None
+        before a step) and of the optimizer state, counted from its
+        tensors."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts
+                       if isinstance(t, torch.Tensor))
+
+        return {"params": nbytes(self.params),
+                "grads": self._step_fn.stats["grad_bytes"],
+                "optimizer": nbytes(_layout.tree_leaves(self.opt_states))}
+
+    def shardcheck_report(self, x=None, y=None, hbm_budget_gb=None,
+                          mode=None, compile=True):  # noqa: A002
+        """Pre-flight the trainer's layout (reference :343) with
+        `analysis.shardcheck`: the spec tier over every trainable
+        parameter (its whole shape and spec) and its optimizer state, the
+        per-rank bytes those specs leave; given a batch (and ``compile``),
+        the census tier: one eager step on it, its exchanges counted by
+        op, the parameters, the state and the step counter put back after
+        it, and SC004 for a stored tensor the step did not update in place
+        by address."""
+        from ..analysis.shardcheck import _apply_mode, shardcheck
+
+        specs = self._param_specs or [()] * len(self.params)
+        wholes = [self._whole_meta(i) for i in range(len(self.params))]
+        states = [self._whole_meta_state(i, s)
+                  for i, s in enumerate(self.opt_states)]
+        state_specs = [
+            _layout.tree_map(
+                lambda leaf, _sp=sp, _shape=tuple(w.shape):
+                    (_sp if tuple(getattr(leaf, "shape", ())) == _shape
+                     else ()), st)
+            for st, sp, w in zip(states, specs, wholes)]
+        mesh = self.mesh
+        step, args, arg_specs = None, [wholes, states], [list(specs),
+                                                         state_specs]
+        if x is not None and compile:
+            step = self._census_step
+            data = ((self._data_axis,) if mesh is not None
+                    and self._data_axis in mesh.shape else ())
+            args += [x, y]
+            arg_specs += [data, data]
+        self._census_moved = []
+        report = shardcheck(step, *args, mesh=mesh, specs=arg_specs,
+                            hbm_budget_gb=hbm_budget_gb,
+                            name="DataParallel.step")
+        names = _param_names(self.net, len(self.params))
+        for i in self._census_moved:
+            report.add_rule(
+                "SC004",
+                f"{names[i]} was not updated in place by address: the "
+                f"captured step reads the old tensor",
+                severity="warn", site=names[i],
+                nbytes=self.params[i].numel() * self.params[i].element_size())
+        _apply_mode(report, mode)
+        return report
+
+    def _whole_meta(self, i):
+        from ..analysis.shardcheck import ShapeDtype
+
+        p = self.params[i]
+        pl = self._placement(i)
+        return ShapeDtype(pl.shape if pl is not None else p.shape, p.dtype)
+
+    def _whole_meta_state(self, i, state):
+        from ..analysis.shardcheck import ShapeDtype
+
+        if isinstance(state, (list, tuple)):
+            return type(state)(self._whole_meta_state(i, s) for s in state)
+        if not isinstance(state, torch.Tensor):
+            return state
+        pl = self._placement(i)
+        if pl is not None and state.shape == self.params[i].shape:
+            return ShapeDtype(pl.shape, state.dtype)
+        return ShapeDtype(state.shape, state.dtype)
+
+    def _census_step(self, _params, _states, x, y):
+        """One eager step on ``(x, y)`` for shardcheck's census tier, the
+        trainer's state put back after it (the parameters, the optimizer
+        state and the counters). Notes in ``_census_moved`` the stored
+        tensors the step rebound instead of updating in place."""
+        leaves = [s for s in _layout.tree_leaves(self.opt_states)
+                  if isinstance(s, torch.Tensor)]
+        saved = [p.detach().clone() for p in self.params]
+        saved_states = [s.detach().clone() for s in leaves]
+        ptrs = [p.data_ptr() for p in self.params]
+        t, num_update = self._t_dev.clone(), self.optimizer.num_update
+        try:
+            args = self._prepare()
+            self._step_fn(*args, torch.as_tensor(x, device=self.device),
+                          torch.as_tensor(y, device=self.device))
+            current = [p for p in self.net.parameters() if p.requires_grad]
+            self._census_moved = [
+                i for i, p in enumerate(current)
+                if i < len(ptrs) and p.data_ptr() != ptrs[i]]
+        finally:
+            with torch.no_grad():
+                for p, v in zip(self.params, saved):
+                    p.copy_(v)
+                for s, v in zip(leaves, saved_states):
+                    s.copy_(v)
+                self._t_dev.copy_(t)
+            self.optimizer.num_update = num_update
+
+
+def _param_names(net, n):
+    """The trainable parameters' names (their indices for another
+    module)."""
+    collect = getattr(net, "collect_params", None)
+    if collect is None:
+        return [f"param/{i}" for i in range(n)]
+    names = [k for k, p in collect().items() if p.grad_req != "null"]
+    return names if len(names) == n else [f"param/{i}" for i in range(n)]
 
 
 def _tdist_backend(group):
-    import torch.distributed as tdist
+    return _coll.group_backend(group)
 
-    return str(tdist.get_backend(group))
+
+def _unplace(net, gather=True):
+    """Every gluon Parameter of ``net`` stored as a block holds its whole
+    tensor again: gathered on the mesh it was cut on (every rank of its
+    axes calls it), or, with ``gather=False`` (a rank that left that mesh),
+    zeros of the whole shape that the caller overwrites."""
+    collect = getattr(net, "collect_params", None)
+    if collect is None:
+        return
+    for p in collect().values():
+        pl = getattr(p, "_placement", None)
+        if pl is None:
+            continue
+        if gather:
+            p._unplace()
+        else:
+            t = p._data._data
+            p._placement = None
+            p._bind(t.new_zeros(pl.shape))
+
+
+def _shardcheck_at_construction(dp, params, specs, mesh):
+    """``MXNET_SHARDCHECK=warn|raise``: the spec tier over the layout at
+    construction (reference: the trainer's construction-time run)."""
+    mode = (os.environ.get("MXNET_SHARDCHECK") or "").strip().lower()
+    if mode not in ("warn", "raise"):
+        return
+    from ..analysis.shardcheck import ShapeDtype, shardcheck
+
+    shardcheck(None, [ShapeDtype(p.shape, p.dtype) for p in params],
+               mesh=mesh, specs=(list(specs),), name="DataParallel",
+               mode=mode)
 
 
 @torch.no_grad()
-def _sync_from_rank0(tensors):
-    """Every rank takes rank 0's values of ``tensors`` (one broadcast of
-    one flat buffer per dtype over the world)."""
+def _sync_from_rank0(tensors, mesh):
+    """Every rank of ``mesh`` takes the values of its first rank's
+    ``tensors`` (one broadcast of one flat buffer per dtype over the
+    mesh's ranks)."""
     import torch.distributed as tdist
 
-    if not (tdist.is_initialized() and tdist.get_world_size() > 1):
+    group = mesh.group_all()
+    if group is None:
         return
-    src = tdist.get_rank() == 0
+    src = tdist.get_rank() == int(mesh.devices.min())
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
@@ -632,7 +871,7 @@ def _sync_from_rank0(tensors):
         flat = torch.cat([t.detach().reshape(-1) for t in ts])
         if not src:
             flat.zero_()
-        flat = _coll._raw_all_reduce(flat, tdist.group.WORLD, "sum")
+        flat = _coll._raw_all_reduce(flat, group, "sum")
         off = 0
         for t in ts:
             t.copy_(flat[off:off + t.numel()].view_as(t))

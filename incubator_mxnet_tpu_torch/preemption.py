@@ -26,11 +26,13 @@ Design:
   checksummed file, and resumes from the newest generation that
   validates.
 
-The runtime layout (`_runtime_layout`) is the minimal one of a process
-on one host: the format, the card count, one process, generation 0. The
-mesh entry, `fault.elastic.checkpoint_layout` and resharding a
-checkpoint onto another device count are `ROADMAP.md` §1 item 13's: a
-resume across a device-count change raises `LayoutMismatch`.
+The runtime layout (`_runtime_layout`) is the minimal one: the format,
+the device count (the membership's ranks, one card a rank), the process
+count, the membership generation and the ambient mesh's axes; elastic
+trainers install `fault.elastic.checkpoint_layout`, which adds each
+leaf's spec. A resume across a device-count change reshards the loaded
+parameters onto the live mesh (`fault.elastic.reshard_net`), or raises
+`LayoutMismatch` with ``MXNET_ELASTIC=0``.
 """
 from __future__ import annotations
 
@@ -131,11 +133,11 @@ class CheckpointCorrupt(OSError):
 
 class LayoutMismatch(RuntimeError):
     """A checkpoint's layout sidecar names a different device topology
-    than the resuming runtime. NON-retryable, and deliberately NOT a
+    than the resuming runtime while elastic resharding is off
+    (``MXNET_ELASTIC=0``). NON-retryable, and deliberately NOT a
     generation-fallback trigger: every older generation was written under
     the same dead topology, so `resume` raises instead of walking the
-    rotation. Resharding onto the live topology (the reference's route
-    with ``MXNET_ELASTIC`` on) is `ROADMAP.md` §1 item 13's."""
+    rotation."""
 
     non_retryable = True
 
@@ -321,13 +323,21 @@ class CheckpointManager:
 
 def _runtime_layout():
     """Minimal topology fingerprint of the live runtime, the default
-    layout sidecar: the format, the card count, one process, generation
-    0 (`fault.elastic.checkpoint_layout`, the rich per-leaf-spec version
-    elastic trainers install instead, is `ROADMAP.md` §1 item 13's)."""
-    import torch
+    layout sidecar: the format, the device count (the membership's ranks,
+    one card a rank), the process count, the membership generation and
+    the ambient mesh's axes (`fault.elastic.checkpoint_layout` is the
+    rich per-leaf-spec version elastic trainers install instead)."""
+    from .parallel import dist
+    from .parallel.mesh import current_mesh
 
-    return {"format": 1, "device_count": int(torch.cuda.device_count()),
-            "process_count": 1, "generation": 0}
+    layout = {"format": 1, "device_count": int(dist.world_size()),
+              "process_count": int(dist.num_processes()),
+              "generation": dist.generation()}
+    m = current_mesh()
+    if m is not None:
+        layout["mesh"] = {"axes": [[str(n), int(s)] for n, s in
+                                   zip(m.axis_names, m.devices.shape)]}
+    return layout
 
 
 class TrainingCheckpointer:
@@ -360,6 +370,7 @@ class TrainingCheckpointer:
                                       keep=keep,
                                       register_signal=register_signal,
                                       layout_fn=layout_fn or _runtime_layout)
+        self._reshard_layout = None
 
     def _write(self, path):
         import pickle
@@ -421,23 +432,40 @@ class TrainingCheckpointer:
                 goodput.lease("recovery"):   # noqa: SLF001 (mgr prefix)
             return self._resume_impl(log, tempfile)
 
-    def _check_layout(self, side, path, log):  # noqa: ARG002
+    def _check_layout(self, side, path, log):
         """Layout-sidecar guard: a checkpoint written under a different
-        device count raises a clear :class:`LayoutMismatch`, never a
-        shape error deep inside a load. Resharding it onto the live
-        topology is `ROADMAP.md` §1 item 13's (`fault.elastic`)."""
+        device count (the membership's ranks) either routes through
+        elastic resharding (default) or raises a clear
+        :class:`LayoutMismatch` (``MXNET_ELASTIC=0``), never a shape
+        error deep inside a load."""
         if side is None:            # pre-elastic legacy checkpoint
             return
-        import torch
+        from .parallel import dist
 
         saved = side.get("device_count")
-        live = int(torch.cuda.device_count())
+        live = int(dist.world_size())
         if saved is None or int(saved) == live:
             return
-        raise LayoutMismatch(
-            f"checkpoint {path} was written on {saved} device(s) but the "
-            f"runtime has {live}: resharding a checkpoint onto another "
-            f"device count (fault.elastic) is ROADMAP.md §1 item 13")
+        from .fault.elastic import elastic_enabled
+
+        if not elastic_enabled():
+            raise LayoutMismatch(
+                f"checkpoint {path} was written on {saved} device(s) but "
+                f"the runtime has {live}, and elastic resharding is "
+                "disabled (MXNET_ELASTIC=0) — restore the original "
+                "topology or re-enable MXNET_ELASTIC to reshard on "
+                "resume")
+        from .telemetry import registry
+
+        registry.counter(
+            "mx_elastic_layout_resumes_total",
+            "checkpoint resumes that crossed a device-count change "
+            "(resharded via fault.elastic)").inc()
+        log.warning(
+            "checkpoint resume: device count changed %s -> %s — params "
+            "will be resharded onto the live topology (fault.elastic)",
+            saved, live)
+        self._reshard_layout = side
 
     def _resume_impl(self, log, tempfile):
         paths = self._mgr.generations()
@@ -479,6 +507,13 @@ class TrainingCheckpointer:
                 with open(t, "wb") as f:
                     f.write(blob["trainer"])
                 self._trainer.load_states(t)
+        if self._reshard_layout is not None:
+            # the checkpoint crossed a device-count change: cut the
+            # freshly loaded whole parameters onto the live mesh
+            from .fault import elastic
+
+            elastic.reshard_net(self._net, self._reshard_layout)
+            self._reshard_layout = None
         import glob
 
         step = int(blob["step"])

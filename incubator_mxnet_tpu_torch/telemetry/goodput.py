@@ -40,8 +40,9 @@ In the port its producers are the reference's: the Estimator's step
 body (``compute``), the DataLoader's batch wait (``data_wait``, upload
 included), `preemption.atomic_save` (``checkpoint``) and
 `TrainingCheckpointer.resume` and the resilience handler's crash
-recovery (``recovery``). `fault/elastic.py`, the producer of
-``reshard`` and ``drain``, is `ROADMAP.md` §1 item 13's.
+recovery (``recovery``), and `fault.elastic`'s transitions (``reshard``
+around the whole transition, ``drain`` at the rendezvous and a
+departure).
 `parallel.DataParallel` does not charge it, as the reference's does
 not.
 """

@@ -242,6 +242,26 @@ _ENV_KNOBS = {
         "(default 50) — the deterministic-straggler magnitude for the "
         "collective_delay seam (honored, this build's addition — see "
         "TELEMETRY.md)"),
+    "MXNET_SHARDCHECK": (
+        "analysis.shardcheck / parallel.sharded.DataParallel",
+        "warn|raise: trainers run the static sharding pre-flight (rules "
+        "SC001-SC006) at construction and log or raise on findings; "
+        "unset = off (honored, this build's addition — see ANALYSIS.md)"),
+    "MXNET_SHARDCHECK_HBM_GB": (
+        "analysis.shardcheck", "per-device HBM budget in GiB for the "
+        "SC006 static OOM check; unset/0 disables the budget comparison "
+        "(honored, this build's addition)"),
+    "MXNET_ELASTIC": (
+        "fault.elastic + preemption", "elastic-topology master switch "
+        "(default ON): 0 = ElasticController.poll() is a dead branch "
+        "and a checkpoint whose layout sidecar disagrees with the live "
+        "topology raises LayoutMismatch instead of resharding (honored, "
+        "this build's addition — see RESILIENCE.md)"),
+    "MXNET_ELASTIC_MIN_RANKS": (
+        "fault.elastic.ElasticController", "smallest membership a "
+        "re-rendezvous may commit (default 1); a roster below this "
+        "fails the transition instead of limping (honored, this "
+        "build's addition — see RESILIENCE.md)"),
     "MXNET_ELASTIC_DRAIN_S": (
         "parallel.dist.rendezvous", "seconds the membership-epoch "
         "rendezvous waits for the roster to settle before committing "

@@ -263,7 +263,14 @@ def test_port_resumes_a_checkpoint_the_reference_wrote(tmp_path):
     assert tr.optimizer.num_update == jtr.optimizer.num_update
 
 
-def test_a_layout_from_another_device_count_is_refused(tmp_path):
+def test_a_layout_from_another_device_count_is_refused(tmp_path,
+                                                        monkeypatch):
+    """With ``MXNET_ELASTIC=0`` a checkpoint written on another device
+    count is refused with `LayoutMismatch`, as in the reference; with
+    elastic resharding on (the default) it resumes through
+    `fault.elastic.reshard_net` and counts the crossing."""
+    from incubator_mxnet_tpu_torch.telemetry import registry
+
     prefix = str(tmp_path / "t")
     with tmx.cpu():
         net, tr = _dense_pair()
@@ -272,8 +279,14 @@ def test_a_layout_from_another_device_count_is_refused(tmp_path):
             layout_fn=lambda: {"format": 1, "device_count": 64,
                                "process_count": 8, "generation": 3})
         ck.step()
-        with pytest.raises(tpre.LayoutMismatch, match="item 13"):
+        monkeypatch.setenv("MXNET_ELASTIC", "0")
+        with pytest.raises(tpre.LayoutMismatch, match="MXNET_ELASTIC=0"):
             ck.resume()
+        monkeypatch.delenv("MXNET_ELASTIC")
+        c = registry.counter("mx_elastic_layout_resumes_total")
+        before = c.value
+        assert ck.resume() == 1
+        assert c.value == before + 1
 
 
 def test_checkpoint_handler_resumes_as_the_reference(tmp_path):
@@ -399,5 +412,21 @@ def test_resilience_backs_the_amp_scale_off_and_refuses_elastic():
     finally:
         amp.deinit()
         amp.scale_loss._scaler = None
-    with pytest.raises(MXNetError, match="item 13"):
-        ResilienceHandler(elastic=object())
+    # the elastic controller is ported: the handler takes one and polls it
+    # at every batch end; a "leave" verdict ends the fit
+
+    class Ctl:
+        verdicts = ["stable", "leave"]
+
+        def poll(self):
+            return self.verdicts.pop(0)
+
+    class Fit(Est):
+        stop_training = False
+
+    h = ResilienceHandler(elastic=Ctl())
+    est = Fit()
+    h.batch_end(est)
+    assert not est.stop_training
+    h.batch_end(est)
+    assert est.stop_training

@@ -80,7 +80,7 @@ NOT_PORTED = {
     "parallel.pipeline": {}, "parallel.moe": {}, "kvstore": {},
     "models.sharded_bert": {"partial": "an import, not an API name"},
     "amp": {}, "optimizer": {}, "lr_scheduler": {},
-    "fault": {"elastic": ITEM_13},
+    "fault": {},
     "device": {}, "base": {},
     "autograd": {"TapeNode": "the port's tape is torch's autograd graph",
                  "vjp_cache_info": "eager torch has no vjp program cache"},
@@ -98,8 +98,7 @@ NOT_PORTED = {
     "telemetry.stages": {}, "telemetry.registry": {},
     "analysis": dict.fromkeys(
         "racecheck racecheck_fixtures racecheck_paths racecheck_report "
-        "racecheck_source runtime_report".split(), ITEM_11B)
-    | {"shardcheck": ITEM_13},
+        "racecheck_source runtime_report".split(), ITEM_11B),
     # the reference reads XPlane's gzipped trace files; torch.profiler
     # exports plain JSON
     "profiler": dict.fromkeys("glob gzip".split(),

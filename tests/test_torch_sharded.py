@@ -281,12 +281,16 @@ def test_dropout_keys_under_sharding(run):
 
 
 def test_sp_sums_its_shares_once_a_step(run):
-    """A TP + SP step of bert_small (2 layers) exchanges 15 times more
-    than TP alone: 3 all-gathers at each of 4 post-LN sites (x and h
-    scattered, the result gathered), 2 at the embedding's LayerNorm, and
-    one all-reduce of every region's γ/β shares."""
+    """A TP + SP step of bert_small (2 layers) exchanges 11 times more
+    than TP alone (16 a step): Megatron SP puts an all-gather and a
+    reduce-scatter where TP has one all-reduce at each region's entry and
+    exit, 4 more a layer; the embedding's exit is a reduce-scatter (its
+    gradient an all-gather) where TP has one all-reduce; the encoder's
+    rows are gathered once for the heads; and one all-reduce sums every
+    region's shares (γ/β, the biases and embeddings added on the rows)."""
     for r in run["ranks"]:
-        assert r["exchanges"]["tp"] - r["exchanges"]["None"] == 15
+        assert r["exchanges"]["None"] == 16
+        assert r["exchanges"]["tp"] - r["exchanges"]["None"] == 11
 
 
 def test_sp_region_outside_a_step(run):
@@ -300,3 +304,79 @@ def test_sp_region_outside_a_step(run):
 
 def test_workers_import_no_jax(run):
     assert all(r["forbidden"] == [] for r in run["ranks"])
+
+
+def _cut_names(n):
+    return n.endswith(("qkv.weight", "qkv.bias", "ffn1.weight", "ffn1.bias",
+                       "proj.weight", "ffn2.weight", "word_embed.weight",
+                       "mlm_decoder.weight", "mlm_decoder.bias"))
+
+
+def test_each_rank_stores_only_its_blocks(run):
+    """Storage by the spec: every cut parameter's tensor is the rank's
+    block of its whole shape (no whole copy kept), and each rank's bytes
+    of parameters, of the gradients a step applies and of Adam's state,
+    counted from its tensors, are the whole model's less half of every
+    cut parameter's."""
+    for r in run["ranks"]:
+        shapes = r["stored_shapes"]
+        whole = sum(int(onp.prod(w)) for _s, w in shapes.values()) * 4
+        stored = sum(int(onp.prod(s)) for s, _w in shapes.values()) * 4
+        cut = sum(int(onp.prod(w)) for n, (_s, w) in shapes.items()
+                  if _cut_names(n)) * 4
+        for n, (s, w) in shapes.items():
+            if not _cut_names(n):
+                assert s == w, n
+            elif len(w) == 1:
+                assert s[0] * 2 == w[0], n
+            else:
+                d = 1 if n.endswith(("proj.weight", "ffn2.weight")) else 0
+                assert s[d] * 2 == w[d] and s[1 - d] == w[1 - d], n
+        assert stored == whole - cut // 2
+        assert r["bytes_counted_whole"] == whole
+        assert r["bytes_counted_spec"] == stored
+        spec, full = r["bytes_spec"], r["bytes_whole"]
+        assert full == {"params": whole, "grads": whole,
+                        "optimizer": 2 * whole}
+        assert spec == {"params": stored, "grads": stored,
+                        "optimizer": 2 * stored}
+        assert stored < 0.75 * whole
+
+
+def test_qkv_head_exchange_against_the_whole_weight(run):
+    """`_layout.head_rows` gives each rank its heads' rows of a fused
+    [q|k|v] projection whose spec cuts its rows contiguously, and sends
+    their gradient back into the stored block: against the whole tensor's
+    rows and the whole gradient's block, bit for bit (the whole-weight
+    step it replaces is held against the JAX package's by
+    test_tp_sp_matches_jax_data_parallel)."""
+    for r in run["ranks"]:
+        assert r["heads"] == (True, True)
+
+
+@pytest.mark.parametrize("rule", ["lamb", "lans", "lars"])
+def test_per_tensor_norms_on_cut_parameters(run, rule):
+    """LAMB, LANS and LARS update cut parameters by blocks with each norm
+    summed over the cut axes (tp, and dp for a weight cut over the data
+    axis, whose gradient is reduce-scattered): against the no-mesh step
+    at rtol 1e-5."""
+    for r in run["ranks"]:
+        (l0, p0), (l1, p1) = r["norm_rules"][rule]
+        onp.testing.assert_allclose(l1, l0, rtol=1e-5, atol=1e-7)
+        for n, want in p0.items():
+            onp.testing.assert_allclose(_np(p1[n]), _np(want), rtol=1e-5,
+                                        atol=1e-7, err_msg=n)
+        assert l0[-1] < l0[0]
+
+
+def test_sp_keeps_the_stream_cut_between_regions(run):
+    """Megatron SP: the embedding's LayerNorm and every post-LN site of a
+    TP + SP step see the rank's rows of the sequence only (4 rows of the
+    batch a dp rank, 8 of 16 positions a tp rank), and the step's loss is
+    the replicated run's."""
+    for r in run["ranks"]:
+        seen, losses = r["sp_cut"]
+        assert len(seen) == 5                  # the embedding + 2 x 2 sites
+        assert all(s == ((4, 8, 64), True) for s in seen), seen
+        onp.testing.assert_allclose(losses, r["rep_losses"][:1], rtol=2e-4,
+                                    atol=2e-4)

@@ -10,7 +10,8 @@ DIST_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
                 "parallel.ring_attention", "parallel.pipeline",
                 "parallel.moe", "kvstore", "kvstore.kvstore",
                 "kvstore.horovod", "kvstore.byteps", "kvstore.compression",
-                "models.sharded_bert", "gluon.contrib.moe")
+                "models.sharded_bert", "gluon.contrib.moe",
+                "analysis.shardcheck", "fault.elastic")
 
 
 def run(rank, n):

@@ -13,7 +13,7 @@ from incubator_mxnet_tpu_torch import random as mxrandom
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.models import sharded_bert as sb
 from incubator_mxnet_tpu_torch.models.bert import bert_small, tp_param_shardings
-from incubator_mxnet_tpu_torch.optimizer import SGD
+from incubator_mxnet_tpu_torch.optimizer import LAMB, LANS, LARS, SGD, Adam
 from incubator_mxnet_tpu_torch.parallel import (DataParallel, make_mesh,
                                                 mesh_scope)
 from incubator_mxnet_tpu_torch.parallel import _layout
@@ -44,7 +44,9 @@ def net_from(params, seq_axis, dropout=0.0, vocab=VOCAB):
 
 
 def whole(net):
-    return {n: p._data._data.detach().clone()
+    """Every parameter's whole tensor (a block stored by the spec is
+    gathered: every rank calls this)."""
+    return {n: p._whole_tensor().clone()
             for n, p in net.collect_params().items()}
 
 
@@ -93,6 +95,109 @@ class Probe(torch.nn.Module):
                                 "tp")
         self.masks.append(((rep != 0).clone(), (sp != 0).clone()))
         return (rep + sp) * self.w
+
+
+def storage(params, mesh22, out):
+    """Each rank's bytes of parameters, gradients and Adam state against
+    the no-mesh step's (the whole model's), and the cut parameters'
+    stored tensors: blocks only."""
+    for key, mesh in (("whole", None), ("spec", mesh22)):
+        net = net_from(params, "tp")
+        dp = DataParallel(net, mlm_loss(), Adam(learning_rate=1e-3),
+                          mesh=mesh,
+                          param_shardings=tp_param_shardings(net)
+                          if mesh is not None else None)
+        tok, lab = batch()
+        dp.step(tok, lab)
+        out[f"bytes_{key}"] = dp.stored_bytes()
+        out[f"bytes_counted_{key}"] = sum(
+            t.numel() * t.element_size() for t in net.parameters())
+        if mesh is not None:
+            out["stored_shapes"] = {
+                n_: (tuple(p_._data._data.shape), p_.shape)
+                for n_, p_ in net.collect_params().items()}
+
+
+def head_exchange(mesh22, out):
+    """`_layout.head_rows` on the stored block of a fused (3C, C + 1)
+    projection against the whole tensor's head rows, and its gradient
+    against the whole gradient's block."""
+    C, rows = 8, 24
+    g = torch.Generator().manual_seed(11)
+    whole = torch.randn(rows, C + 1, generator=g)
+    dy = torch.randn(rows, C + 1, generator=g)
+    j, n = mesh22.coordinate("tp"), 2
+    blk = whole.chunk(2, dim=0)[j].clone().requires_grad_(True)
+    got = _layout.head_rows(blk, rows, 3, mesh22, "tp")
+    cl = C // n
+    idx = [s * C + j * cl + i for s in range(3) for i in range(cl)]
+    want = whole[idx]
+    got.backward(dy[idx])
+    # the whole gradient: each rank's heads' rows carry their dy
+    whole_g = torch.zeros(rows, C + 1)
+    for jj in range(n):
+        ii = [s * C + jj * cl + i for s in range(3) for i in range(cl)]
+        whole_g[ii] = dy[ii]
+    out["heads"] = (torch.equal(got.detach(), want),
+                    torch.equal(blk.grad, whole_g.chunk(2, dim=0)[j]))
+
+
+def norm_rules(mesh22, out):
+    """LAMB, LANS and LARS on cut parameters (a Dense stack that does not
+    split its compute: its weights are gathered for the step, the blocks
+    updated with norms summed over the cut axis) against the no-mesh
+    step."""
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    def make():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(16, in_units=8, activation="tanh"),
+                nn.Dense(4, in_units=16))
+        net.initialize()
+        g = torch.Generator().manual_seed(3)
+        for p_ in net.collect_params().values():
+            p_.set_data(torch.randn(p_.shape, generator=g) * 0.5)
+        return net
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 8, generator=g)
+    y = torch.randn(8, 4, generator=g)
+    specs = [("tp", None), ("tp",), (None, "dp"), ()]
+    res = {}
+    for name, opt in (("lamb", LAMB), ("lans", LANS), ("lars", LARS)):
+        got = []
+        for mesh in (None, mesh22):
+            net = make()
+            dp = DataParallel(net, lambda o, t: ((o - t) ** 2).mean(-1),
+                              opt(learning_rate=0.05), mesh=mesh,
+                              param_shardings=specs if mesh else None)
+            losses = [float(dp.step(x, y)) for _ in range(3)]
+            got.append((losses, whole(net)))
+        res[name] = got
+    out["norm_rules"] = res
+
+
+def sp_cut(params, mesh22, out):
+    """The activation between a TP + SP step's regions: the rank's rows
+    of the sequence (what each post-LN site and the FFN see)."""
+    seen = []
+    real = _layout.seq_region
+
+    def spy(fn, xs, axis, params_=(), dim=1, local=False):
+        seen.append((tuple(xs[0].shape), local))
+        return real(fn, xs, axis, params_, dim, local)
+
+    _layout.seq_region = spy
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+
+    bert_mod.seq_region = spy
+    try:
+        losses, _, _ = train(params, mesh22, True, "tp",
+                             SGD(learning_rate=0.1), steps=1)
+    finally:
+        _layout.seq_region = real
+        bert_mod.seq_region = real
+    out["sp_cut"] = (seen, losses)
 
 
 def run(rank, n):
@@ -193,4 +298,9 @@ def run(rank, n):
     _, out["p01_params"], _ = train(params, mesh22, True, "tp",
                                     SGD(learning_rate=0.1), steps=2,
                                     dropout=0.1)
+    # storage by the spec
+    storage(params, mesh22, out)
+    head_exchange(mesh22, out)
+    norm_rules(mesh22, out)
+    sp_cut(params, mesh22, out)
     return out
