@@ -8148,7 +8148,9 @@ def phase_observe_serve(torch, dev):
                     for e in others[:12])
         + f"; census K4 {k4}, trace {meta}")
     check(lo <= first and last <= hi, "[observe serve] the replay's kernel "
-          "slices do not lie inside the step's host span")
+          f"slices do not lie inside the step's host span: they start "
+          f"{first - lo:.1f} us after it opens and end {hi - last:.1f} us "
+          f"before it closes (trace {meta})")
     del engine
     return dict(k4=k4, span_us=[lo, hi], device_us=[first, last],
                 lead_us=first - lo, tail_us=hi - last, slices=len(replay),
@@ -10115,6 +10117,856 @@ def _worker_pipe_moe(torch, dev, rank, n, res):
         rel=rel(sharded, local), losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# [shard]: sharded serving (serve.sharded) at full width, and [fleet]: the
+# fleet plane (telemetry.fleet) over a gloo world
+# ---------------------------------------------------------------------------
+
+# [shard]: GPT-2 small (gpt2_small: 768 units, 12 heads, 12 layers, vocab
+# 50257), seeded weights (seed 0), f32, the engine of `phase_serve_engine`
+# (8 slots of 256 tokens) on the prompts and budgets of trace A's first
+# SHARD_REQUESTS requests, all submitted at once. (1) an NCCL world of one, mesh tp=1: the tokens bit for bit the
+# unsharded SlotDecoder's, the decode step one replayed graph, the program
+# count flat after the warm-up. (2) SHARD_TP ranks of a SHARD_WORLD-rank
+# gloo world (the card shared) behind the front, rank 0: the same requests
+# against the unsharded engine on rank 0; the first decode step's logits
+# within SHARD_LOGIT_ATOL, each token stream equal but where the tp
+# partial sums round a near-tie the other way (the unsharded top-2 gap
+# there under SHARD_TIE_GAP, at most one stream). (3) bench.py:1378
+# (`bench_gpt_serve_sharded`) as written (its warm-up asks 3 tokens a
+# request, not 2: a step's graph is captured at its second call), on every
+# rank: tp 4 x 2 replicas behind the gateway against one unsharded
+# replica. (4) one hot_swap
+# mid-stream on (3)'s gateway.
+SHARD_WORLD = 8
+SHARD_TP = 4
+# trace A's first requests, (1) and (2) alike: a tp 4 decode step through
+# gloo's host copies takes ~0.3 s on the shared card (PERF.md §6), so the whole
+# trace would hold the script ~90 s
+SHARD_REQUESTS = 8
+SHARD_LOGIT_ATOL = 1e-4
+SHARD_TIE_GAP = 1e-3
+SHARD_BENCH = dict(requests=16, max_slots=4, prompt_max=40, new_max=20,
+                   tp=4, n_replicas=2, seed=0)
+SHARD_TIMEOUT_S = 600
+# [fleet]: FLEET_WORLD gloo ranks; rank 1 slowed by collective_delay (120
+# ms, `fault.injection`) and slow local steps; rank FLEET_CRASH_RANK
+# raises at the end; bench.py:1677's off/armed pair (n 256, 40 iterations
+# after 5, 2 interleaved rounds, the minimum of each leg)
+FLEET_WORLD = 4
+FLEET_CRASH_RANK = 3
+FLEET_OVERHEAD = dict(n=256, iters=40, warmup=5, rounds=2)
+FLEET_TIMEOUT_S = 240
+# the card's pinned host-copy rate (the gloo transport's peak): bytes a copy
+HOST_COPY_BYTES = 256 * 2**20
+
+
+def _worker_spawn(kind, n, store, out, timeout, env=None):
+    """``n`` worker processes of this script (``--<kind>-worker``) on the
+    card: (return codes, outputs)."""
+    import os
+
+    envs = dict(os.environ, **(env or {}))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-worker",
+         str(r), str(n), store, out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=envs) for r in range(n)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                o, _ = p.communicate(timeout=max(1.0, deadline -
+                                                 time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                o, _ = p.communicate()
+                o = (o or "") + "\n(killed at the time limit)"
+            outs.append(o or "")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def _worker_join(torch, rank, n, store):
+    """A worker's card and gloo world."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from incubator_mxnet_tpu_torch.parallel import dist
+
+    dist.initialize(init_method=f"file://{store}", num_processes=n,
+                    process_id=rank, backend="gloo")
+    return dev, dist
+
+
+def _shard_trace(onp):
+    """The prompts and budgets of trace A's first SHARD_REQUESTS."""
+    prompts, budgets, _ = _serve_trace_a(onp)
+    return prompts[:SHARD_REQUESTS], budgets[:SHARD_REQUESTS]
+
+
+def _shard_serve(eng, prompts, budgets, warm=True):
+    """The warm-up of `_serve_warmup` (every chunk bucket, every step
+    family) through a Scheduler over ``eng``, then every request at once,
+    greedy. Returns (tokens a request, (programs after the warm-up, after
+    the requests), seconds of the requests)."""
+    import numpy as onp
+    import torch
+
+    from incubator_mxnet_tpu_torch import serve
+
+    sched = serve.Scheduler(eng, max_queue=4 * len(prompts), seed=0)
+
+    def run(ps, bs):
+        reqs = [sched.submit(p, b) for p, b in zip(ps, bs)]
+        while not all(r.done for r in reqs):
+            sched.step()
+        return [[int(t) for t in r.result()] for r in reqs]
+
+    if warm:
+        for w in (onp.resize(prompts[0], 16), onp.resize(prompts[0], 48),
+                  onp.resize(prompts[1], 48)):
+            run([w], [2])
+    torch.cuda.synchronize()
+    warm_count = eng.xla_program_count()
+    t0 = time.perf_counter()
+    toks = run(prompts, budgets)
+    torch.cuda.synchronize()
+    return toks, (warm_count, eng.xla_program_count()), \
+        time.perf_counter() - t0
+
+
+def _first_decode_logits(eng):
+    """Keep the first decode step's active rows and their logits (the
+    engine's instance methods wrapped)."""
+    first = {}
+    step, sample = eng.decode_step, eng._sample_slots
+
+    def decode_step(last_tok, pos, active, key, temperature):
+        arm = "active" not in first
+        if arm:
+            first["active"] = [bool(a) for a in active]
+            first["armed"] = True
+        try:
+            return step(last_tok, pos, active, key, temperature)
+        finally:
+            first["armed"] = False
+
+    def sample_slots(logits, key, temperature):
+        if first.get("armed"):
+            first["logits"] = logits.detach().float().cpu()
+        return sample(logits, key, temperature)
+
+    eng.decode_step, eng._sample_slots = decode_step, sample_slots
+    return first
+
+
+def _shard_world_of_one(torch, dev, store):
+    """[shard] (1): returns (numbers, K4 launches, by layout)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+    from incubator_mxnet_tpu_torch.parallel import dist
+    from incubator_mxnet_tpu_torch.serve.sharded import (ShardedSlotDecoder,
+                                                         serve_mesh)
+
+    dist.initialize(init_method=f"file://{store}", num_processes=1,
+                    process_id=0, backend="nccl")
+    try:
+        model = gpt2_small(device=dev, seed=0).eval()
+        prompts, budgets = _shard_trace(onp)
+        base = serve.SlotDecoder(model, max_slots=SERVE_SLOTS,
+                                 max_len=SERVE_MAX_LEN)
+        want, base_counts, base_s = _shard_serve(base, prompts, budgets)
+        base.release()
+        del base
+        reset_counts()
+        sh = ShardedSlotDecoder(model, mesh=serve_mesh("tp=1"),
+                                max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+        got, counts, sh_s = _shard_serve(sh, prompts, budgets)
+        k4, layouts = read_counts()["K4"], read_layout_counts()["K4"]
+        local = sh._local
+        captured = dict(local.captures_by_step)
+        sh.release()
+        del sh, local, model
+    finally:
+        dist._shutdown()
+    torch.cuda.empty_cache()
+    check(got == want, "[shard 1] the tp=1 engine's greedy tokens differ "
+          "from the unsharded engine's: requests "
+          f"{[i for i, (a, b) in enumerate(zip(got, want)) if a != b]}")
+    check(captured["decode"] == 1, f"[shard 1] the decode step was "
+          f"captured {captured['decode']} times; one replayed graph "
+          "expected")
+    check(counts[0] == counts[1] and base_counts[0] == base_counts[1],
+          f"[shard 1] programs after the warm-up -> after the requests: "
+          f"{counts} (sharded), {base_counts} (unsharded)")
+    check(k4 > 0, "[shard 1] no K4 launch through the sharded engine")
+    tokens = sum(len(t) for t in got)
+    log(f"[shard 1] NCCL world of one, mesh tp=1, gpt2_small f32, trace A's "
+        f"first {len(prompts)} requests at once ({tokens} tokens): greedy tokens "
+        f"bit for bit the unsharded SlotDecoder's; the decode step captured "
+        f"once and replayed (captures {captured}); programs {counts[0]} "
+        f"after the warm-up, {counts[1]} after the requests (unsharded "
+        f"{base_counts}); {tokens / sh_s:.1f} tokens/s against the "
+        f"unsharded engine's {tokens / base_s:.1f}; K4 launched {k4} times "
+        "through the wrapper (eager and capturing steps, prefills)")
+    return (dict(tokens=tokens, bit_for_bit=True, captures=captured,
+                 programs=counts, unsharded_programs=base_counts,
+                 tokens_s=tokens / sh_s, unsharded_tokens_s=tokens / base_s,
+                 k4_launches=k4), k4, layouts)
+
+
+def _instrument_shards(torch, stats):
+    """Wrap the shards' record execution to keep, per shard of this rank
+    (in the order they were made): its mesh, the ops it ran, its K4
+    launches, and its stored weight and pool bytes counted from its
+    tensors."""
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+    from incubator_mxnet_tpu_torch.serve import sharded
+
+    orig = sharded._Shard._execute
+
+    def execute(self, op, args, table, name):
+        key = self.__dict__.get("_smoke_key")
+        if key is None:
+            key = self._smoke_key = len(stats)
+            stats.append({"mesh": list(self._cfg["ranks"]), "ops": {},
+                          "k4": 0, "params_bytes": 0, "pool_bytes": 0})
+        s = stats[key]
+        k0 = ln.launches
+        out = orig(self, op, args, table, name)
+        s["ops"][op] = s["ops"].get(op, 0) + 1
+        s["k4"] += ln.launches - k0
+        s["params_bytes"] = sum(t.numel() * t.element_size()
+                                for t in self._param_arrays())
+        s["pool_bytes"] = max(s["pool_bytes"], self.cache_bytes)
+        return out
+
+    sharded._Shard._execute = execute
+
+
+def _shard_near_tie(torch, model, prompt, toks, p):
+    """The unsharded model's gap between its two largest logits after
+    ``prompt`` and ``toks[:p]`` (a full forward on the card)."""
+    import numpy as onp
+
+    seq = onp.concatenate([prompt, onp.asarray(toks[:p], onp.int32)])
+    with torch.no_grad():
+        out = model(torch.from_numpy(seq.astype(onp.int64))[None].to(
+            model.device))
+    out = getattr(out, "_data", out)
+    top = torch.topk(out[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _shard_front_tp(torch, dev, res):
+    """[shard] (2) on the front: the unsharded engine, then tp SHARD_TP."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_small
+    from incubator_mxnet_tpu_torch.parallel import collectives
+    from incubator_mxnet_tpu_torch.serve.sharded import (ShardedSlotDecoder,
+                                                         serve_mesh)
+
+    model = gpt2_small(device=dev, seed=0).eval()
+    prompts, budgets = _shard_trace(onp)
+    base = serve.SlotDecoder(model, max_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN)
+    base_first = _first_decode_logits(base)
+    base_walls = []
+    base.decode_step = _timed(base.decode_step, base_walls)
+    want, base_counts, base_s = _shard_serve(base, prompts, budgets)
+    whole_params = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    whole_pool = base.cache_bytes
+    base.release()
+    del base
+
+    sh = ShardedSlotDecoder(model, mesh=serve_mesh({"tp": SHARD_TP}),
+                            max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    first = _first_decode_logits(sh._local)
+    walls, ex_s, census = [], [], []
+    step = sh.decode_step
+    exchange, note = collectives._exchange, collectives._STEP_CENSUS
+    inside = {"on": False, "s": 0.0, "ops": {}}
+
+    def timed_exchange(group, fn, out, *ins):
+        if not inside["on"]:
+            return exchange(group, fn, out, *ins)
+        t0 = time.perf_counter()
+        try:
+            return exchange(group, fn, out, *ins)
+        finally:
+            inside["s"] += time.perf_counter() - t0
+
+    def count(op, group, in_bytes, out_bytes, operands):  # noqa: ARG001
+        if inside["on"]:
+            rec = inside["ops"].setdefault(op, [0, 0])
+            rec[0] += 1
+            rec[1] += out_bytes
+
+    def decode_step(*args):
+        inside.update(on=True, s=0.0, ops={})
+        t0 = time.perf_counter()
+        try:
+            return step(*args)
+        finally:
+            walls.append(time.perf_counter() - t0)
+            inside["on"] = False
+            ex_s.append(inside["s"])
+            census.append({k: tuple(v) for k, v in inside["ops"].items()})
+
+    collectives._exchange, collectives._STEP_CENSUS = timed_exchange, count
+    sh.decode_step = decode_step
+    try:
+        got, counts, sh_s = _shard_serve(sh, prompts, budgets)
+    finally:
+        collectives._exchange, collectives._STEP_CENSUS = exchange, note
+    local_pool = sh._local.cache_bytes
+    sh.release()
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    ties = []
+    for i in diff:
+        p = next((j for j, (a, b) in enumerate(zip(got[i], want[i]))
+                  if a != b), min(len(got[i]), len(want[i])))
+        ties.append({"request": i, "position": p,
+                     "unsharded_top2_gap": _shard_near_tie(
+                         torch, model, prompts[i], want[i], p)})
+    rows = [s for s, a in enumerate(base_first["active"]) if a]
+    err = float((first["logits"][rows] - base_first["logits"][rows]).abs()
+                .max()) if rows and first["active"] == base_first["active"] \
+        else None
+    # the steady state: every slot decoding (the first steps fill them)
+    full = [w for w, c in zip(walls, census) if c][len(walls) // 4:]
+    shares = [e / w for w, e, c in zip(walls, ex_s, census) if c
+              ][len(walls) // 4:]
+    res["tp"] = dict(
+        tokens=sum(len(t) for t in got), unsharded_tokens=want,
+        sharded_tokens=got, differ=ties, first_logits_max_abs_err=err,
+        first_active=first["active"], programs=counts,
+        unsharded_programs=base_counts, tokens_s=sum(map(len, got)) / sh_s,
+        unsharded_tokens_s=sum(map(len, want)) / base_s,
+        decode_wall_ms=float(onp.median(full)) * 1e3,
+        exchange_share=float(onp.median(shares)),
+        unsharded_decode_wall_ms=float(onp.median(
+            base_walls[len(base_walls) // 4:])) * 1e3,
+        census_a_step=census[len(census) // 2],
+        whole_params_bytes=whole_params, whole_pool_bytes=whole_pool,
+        front_pool_bytes=local_pool)
+
+
+def _shard_front_bench(torch, dev, res):
+    """[shard] (3) bench.py:1378 as written on the port, and (4) one
+    hot_swap mid-stream on its sharded gateway."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch import serve
+    from incubator_mxnet_tpu_torch.models.gpt import GPTModel
+
+    b = SHARD_BENCH
+    vocab, max_len = 8000, 80
+    net = GPTModel(vocab, 256, 1024, 4, 4, max_len, 0.0, device=dev,
+                   seed=b["seed"]).eval()
+    rng = onp.random.RandomState(b["seed"])
+    prompts = [rng.randint(0, vocab, (int(rng.randint(8, b["prompt_max"])),))
+               .astype(onp.int32) for _ in range(b["requests"])]
+    budgets = [int(rng.randint(b["new_max"] // 2, b["new_max"]))
+               for _ in range(b["requests"])]
+
+    def run(mesh, replicas, swap=None):
+        reg = serve.ModelRegistry()
+        reg.add("m", net, replicas=replicas, mesh=mesh,
+                max_slots=b["max_slots"], max_len=max_len, n_pages=32)
+        gw = serve.Gateway(reg, seed=b["seed"])
+        try:
+            # the bench's warm-up, 3 tokens a request where it asks 2:
+            # the port captures a step's graph at its second call (two
+            # decode steps), where XLA compiles at the first
+            wrng = onp.random.RandomState(b["seed"] + 1)
+            for rep in gw._models["m"].replicas:
+                warm = [rep.sched.submit(
+                    wrng.randint(0, vocab, (n,)).astype(onp.int32), 3,
+                    temperature=1.0) for n in (12, 24, 40)]
+                for _ in range(2000):
+                    rep.sched.step()
+                    if all(w.done for w in warm):
+                        break
+                check(all(w.done for w in warm),
+                      "[shard 3] replica warmup did not complete")
+            programs_warm = gw.xla_program_counts()
+            t0 = time.perf_counter()
+            reqs = [gw.submit("m", p, n) for p, n in zip(prompts, budgets)]
+            while not all(r.done for r in reqs):
+                gw.step()
+                check(time.perf_counter() - t0 < 600,
+                      "[shard 3] sharded serve replay timed out")
+            t_total = time.perf_counter() - t0
+            check(gw.xla_program_counts() == programs_warm,
+                  f"[shard 3] steady-state build during the replay: "
+                  f"{programs_warm} -> {gw.xla_program_counts()}")
+            total_new = sum(len(r.result()) for r in reqs)  # raises on err
+            ttfts = [r.ttft for r in reqs]
+            check(total_new > 0 and all(t is not None for t in ttfts)
+                  and t_total > 0, f"[shard 3] degenerate run: tokens="
+                  f"{total_new}")
+            out = {"tokens_s": total_new / t_total,
+                   "p50_ms": float(onp.percentile(ttfts, 50)) * 1e3,
+                   "p99_ms": float(onp.percentile(ttfts, 99)) * 1e3,
+                   "replicas_used": len({r.replica for r in reqs})}
+            check(replicas == 1 or out["replicas_used"] == replicas,
+                  f"[shard 3] the router starved a replica: "
+                  f"{out['replicas_used']}/{replicas} saw traffic")
+            if mesh is not None:
+                eng = gw._models["m"].replicas[0].slots
+                report = eng.shardcheck_report()
+                for fam in ("prefill", "decode"):
+                    check(not report[fam].findings,
+                          f"[shard 3] dirty shardcheck on sharded {fam}: "
+                          f"{[(f.rule, f.message) for f in report[fam].findings]}")
+                step_bytes = sum(rec["bytes"] for rec in
+                                 report["decode"].collectives.values())
+                out["decode_collectives"] = report["decode"].collectives
+                out["collective_bytes_per_token"] = step_bytes / b[
+                    "max_slots"]
+                out["kv_bytes_total"] = eng.cache_bytes
+                out["kv_bytes_per_device"] = eng._local.cache_bytes
+            if swap is not None:
+                out["swap"] = swap(gw)
+            return out
+        finally:
+            gw.shutdown(drain=False)
+
+    def swap(gw):
+        """(4): weights replaced mid-stream, one replica at a time."""
+        inflight = [gw.submit("m", p, n) for p, n in
+                    zip(prompts[:8], budgets[:8])]
+        gw.step()
+        r = onp.random.RandomState(5)
+        for p in net.collect_params().values():
+            if len(p.shape) >= 2:
+                p.set_data(torch.from_numpy(
+                    r.normal(0, 0.02, p.shape).astype("float32")).to(dev))
+        first = gw.hot_swap("m")
+        while not all(q.done for q in inflight):
+            gw.step()
+        results = [q.result() for q in inflight]    # raises on a failure
+        return {"first": first, "second": gw.hot_swap("m"),
+                "tokens": sum(map(len, results)),
+                "all_answered": all(results)}
+
+    base = run(None, 1)
+    shard = run(f"tp={b['tp']}", b["n_replicas"], swap=swap)
+    shard["1dev_tokens_s"] = base["tokens_s"]
+    shard["vs_1dev"] = shard["tokens_s"] / base["tokens_s"]
+    shard["1dev"] = base
+    res["bench"] = shard
+
+
+def shard_worker(rank, n, store, out):
+    """One rank of [shard]'s gloo world on cuda:0 (this script with
+    ``--shard-worker``): rank 0 is the front and runs (2)-(4); the others
+    serve their shards. Each saves ``out/rank<r>.pt``: its shards' ops,
+    K4 launches (the counter and the launch log) and stored bytes."""
+    import os
+
+    import torch
+
+    from incubator_mxnet_tpu_torch.ops import _build
+    from incubator_mxnet_tpu_torch.serve import sharded
+
+    dev, dist = _worker_join(torch, rank, n, store)
+    stats = []
+    _instrument_shards(torch, stats)
+    res = {"rank": rank}
+    try:
+        reset_counts()
+        _build.LAUNCH_LOG = log = []
+        if rank == 0:
+            try:
+                t0 = time.perf_counter()
+                _shard_front_tp(torch, dev, res)
+                t1 = time.perf_counter()
+                _shard_front_bench(torch, dev, res)
+                res["seconds"] = dict(tp=t1 - t0,
+                                      bench=time.perf_counter() - t1)
+            finally:
+                sharded._stop_shards()
+        else:
+            sharded._serve_shards()
+        _build.LAUNCH_LOG = None
+        res["counts"] = read_counts()
+        res["layouts"] = read_layout_counts()
+        res["k4_logged"] = sum(1 for e in log if "ln_fwd" in str(e[0]))
+        res["shards"] = stats
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        torch.distributed.barrier()
+    finally:
+        _build.LAUNCH_LOG = None
+        dist._shutdown()
+    return 0
+
+
+def phase_shard(torch, dev):
+    """[shard] (see the constants above); returns (numbers, launches,
+    launches by layout)."""
+    import os
+    import shutil
+
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "shard_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    one, k4_one, lay_one = _shard_world_of_one(
+        torch, dev, os.path.join(work, "store_one"))
+    t1 = time.perf_counter()
+    rcs, outs = _worker_spawn("shard", SHARD_WORLD,
+                              os.path.join(work, "store"), work,
+                              SHARD_TIMEOUT_S)
+    check(not any(rcs), "[shard] workers failed " + str(rcs) + ":\n" +
+          "\n".join(f"--- rank {r} ---\n{o[-3000:]}"
+                    for r, (rc, o) in enumerate(zip(rcs, outs)) if rc))
+    t2 = time.perf_counter()
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(SHARD_WORLD)]
+    tp = res[0]["tp"]
+    # (2) the logits, the streams, the near-ties
+    check(tp["first_logits_max_abs_err"] is not None
+          and tp["first_logits_max_abs_err"] <= SHARD_LOGIT_ATOL,
+          f"[shard 2] the first decode step's logits at tp {SHARD_TP}: max "
+          f"abs error {tp['first_logits_max_abs_err']} against the "
+          f"unsharded engine's (tol {SHARD_LOGIT_ATOL:g}; active rows "
+          f"{tp['first_active']})")
+    check(len(tp["differ"]) <= 1 and all(
+        d["unsharded_top2_gap"] < SHARD_TIE_GAP for d in tp["differ"]),
+        f"[shard 2] token streams differ beyond a near-tie: {tp['differ']}")
+    check(tp["programs"][0] == tp["programs"][1],
+          f"[shard 2] programs {tp['programs']}: a build after the warm-up")
+    census = tp["census_a_step"]
+    check(set(census) == {"all-reduce"}
+          and census["all-reduce"][0] == 3 * LAYERS,
+          f"[shard 2] a decode step's exchanges {census}; {3 * LAYERS} "
+          "all-reduces and nothing else expected")
+    # the ranks' stores and K4 launches
+    mesh_tp = list(range(SHARD_TP))
+    ranks_tp = [next(s for s in r["shards"] if s["mesh"] == mesh_tp)
+                for r in res[:SHARD_TP]]
+    for r, s in zip(res, ranks_tp):
+        ratio = s["params_bytes"] / tp["whole_params_bytes"]
+        pool = s["pool_bytes"] / tp["whole_pool_bytes"]
+        check(abs(pool - 1 / SHARD_TP) < 1e-9 and ratio < 1,
+              f"[shard 2] rank {r['rank']} stores {s['params_bytes']} "
+              f"weight bytes ({ratio:.4f}) and {s['pool_bytes']} pool bytes "
+              f"({pool:.4f} of the unsharded engine's)")
+        log(f"[shard 2] rank {r['rank']} stores, counted from its tensors: "
+            f"weights {s['params_bytes'] / 1e6:.1f} MB ({ratio:.4f} of the "
+            f"whole model's {tp['whole_params_bytes'] / 1e6:.1f} MB), K/V "
+            f"pools {s['pool_bytes'] / 1e6:.1f} MB ({pool:.4f} of the "
+            f"unsharded engine's {tp['whole_pool_bytes'] / 1e6:.1f} MB); "
+            f"ran {s['ops']}; K4 launched {s['k4']} times")
+    k4s = [s["k4"] for s in ranks_tp]
+    passes = ranks_tp[0]["ops"].get("prefill_chunk_step", 0) + \
+        ranks_tp[0]["ops"].get("decode_step", 0)
+    check(len(set(k4s)) == 1 and k4s[0] == passes * SERVE_K4_PER_PASS,
+          f"[shard 2] K4 launches by rank {k4s}; {passes} passes x "
+          f"{SERVE_K4_PER_PASS} on every rank expected")
+    logged = [r["k4_logged"] for r in res]
+    check(all(n >= k for n, k in zip(logged, k4s)) and all(logged),
+          f"[shard] K4 entries in the ranks' launch logs {logged}")
+    ties = ", ".join(f"request {d['request']} at token {d['position']} "
+                     f"(unsharded top-2 gap {d['unsharded_top2_gap']:.3e})"
+                     for d in tp["differ"]) or "none"
+    log(f"[shard 2] {SHARD_TP} gloo ranks sharing the card, tp "
+        f"{SHARD_TP} behind the front (rank 0), gpt2_small f32, trace A's "
+        f"first {len(tp['sharded_tokens'])} requests at once: the first decode "
+        f"step's logits within {tp['first_logits_max_abs_err']:.3e} of the "
+        f"unsharded engine's; streams that differ: {ties}; programs "
+        f"{tp['programs']}; a decode step made {census} (all-reduces, "
+        f"bytes); its median wall {tp['decode_wall_ms']:.3f} ms, "
+        f"{tp['exchange_share']:.4f} of it inside the exchanges, against "
+        f"the unsharded replay's {tp['unsharded_decode_wall_ms']:.4f} ms "
+        f"in the same process; {tp['tokens_s']:.1f} tokens/s against "
+        f"{tp['unsharded_tokens_s']:.1f}; K4 launches on every rank "
+        f"{k4s} (the launch logs: {logged[:SHARD_TP]})")
+    bench = res[0]["bench"]
+    swap = bench.pop("swap")
+    check(swap["first"] == {"m#0": True, "m#1": True}
+          and swap["second"] == {"m#0": False, "m#1": False}
+          and swap["all_answered"],
+          f"[shard 4] the hot swap: {swap}")
+    for rep in (0, 1):
+        mesh = list(range(rep * SHARD_BENCH["tp"],
+                          (rep + 1) * SHARD_BENCH["tp"]))
+        k4 = [next(s["k4"] for s in r["shards"] if s["mesh"] == mesh)
+              for r in res[mesh[0]:mesh[-1] + 1]]
+        check(len(set(k4)) == 1 and k4[0] > 0,
+              f"[shard 3] replica {rep}'s ranks {mesh} launched K4 {k4}")
+    log(f"[shard 3] bench.py:1378 on the port, tp {SHARD_BENCH['tp']} x "
+        f"{SHARD_BENCH['n_replicas']} replicas behind the gateway "
+        f"({SHARD_WORLD} gloo ranks): {bench['tokens_s']:.1f} tokens/s, "
+        f"TTFT p50 {bench['p50_ms']:.1f} ms p99 {bench['p99_ms']:.1f} ms, "
+        f"replicas_used {bench['replicas_used']}, "
+        f"collective_bytes_per_token "
+        f"{bench['collective_bytes_per_token']:.1f}, kv_bytes_per_device "
+        f"{bench['kv_bytes_per_device']} of kv_bytes_total "
+        f"{bench['kv_bytes_total']}, vs_1dev {bench['vs_1dev']:.4f} (one "
+        f"unsharded replica: {bench['1dev_tokens_s']:.1f} tokens/s); the "
+        f"decode census {bench['decode_collectives']}; shardcheck clean")
+    log(f"[shard 4] hot_swap mid-stream: {swap['first']} then "
+        f"{swap['second']}; {swap['tokens']} tokens, no failed request")
+    totals, layouts = {"K4": k4_one}, {"K4": dict(lay_one)}
+    for r in res:
+        for key, n in r["counts"].items():
+            totals[key] = totals.get(key, 0) + n
+        for key, v in r["layouts"].items():
+            for name, n in v.items():
+                layouts.setdefault(key, {})
+                layouts[key][name] = layouts[key].get(name, 0) + n
+    t3 = time.perf_counter()
+    numbers = dict(world_of_one=one, tp=dict(
+        (k, v) for k, v in tp.items()
+        if k not in ("unsharded_tokens", "sharded_tokens")),
+        ranks=[dict(rank=r["rank"], shards=r["shards"],
+                    k4_logged=r["k4_logged"]) for r in res],
+        bench=bench, hot_swap=swap, transport="gloo, CUDA tensors through "
+        "host memory", seconds=dict(world_of_one=t1 - t0, world=t2 - t1,
+                                    checks=t3 - t2, total=t3 - t0,
+                                    front=res[0]["seconds"]))
+    log(f"[shard] took {t3 - t0:.1f} s: the world of one {t1 - t0:.1f}, "
+        f"the {SHARD_WORLD}-rank world {t2 - t1:.1f}; launches {totals}")
+    shutil.rmtree(work, ignore_errors=True)
+    return numbers, totals, layouts
+
+
+def host_copy_gbs(torch, dev):
+    """The card's pinned host-copy rates (GB/s): device to host, host to
+    device, each the median of 5 copies of HOST_COPY_BYTES timed with CUDA
+    events (the gloo transport's two legs)."""
+    n = HOST_COPY_BYTES // 4
+    d = torch.empty(n, device=dev)
+    h = torch.empty(n, pin_memory=True)
+    out = {}
+    for name, (dst, src) in (("d2h", (h, d)), ("h2d", (d, h))):
+        ms = []
+        for _ in range(6):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        ms = sorted(ms[1:])
+        out[name] = HOST_COPY_BYTES / (ms[len(ms) // 2] * 1e-3) / 1e9
+    del d, h
+    return out
+
+
+def _fleet_overhead(torch, dev, fleet, registry, collectives, mesh):
+    """bench.py:1677 on the port: the same step (all_reduce of the rows'
+    sum, ring_permute, an update) on the card's tensors over the gloo
+    mesh, fleet off against armed in interleaved rounds, the minimum of
+    each leg. Returns (off ms, on ms, overhead %, census counted)."""
+    import numpy as onp
+
+    from incubator_mxnet_tpu_torch.parallel.mesh import mesh_scope
+
+    o = FLEET_OVERHEAD
+    rng = onp.random.RandomState(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (o["n"], o["n"]))
+                         .astype("float32")).to(dev)
+
+    def step(a):
+        g = collectives.all_reduce(a.sum(dim=0), "dp")
+        h = collectives.ring_permute(a, "dp")
+        return a + 0.1 * h + g / collectives.axis_size("dp")
+
+    def leg(armed):
+        if armed:
+            fleet.enable()
+        try:
+            with mesh_scope(mesh), torch.no_grad():
+                y = step(x)
+                for _ in range(o["warmup"]):
+                    y = step(y)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(o["iters"]):
+                    y = step(y)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / o["iters"]
+        finally:
+            if armed:
+                fleet.disable()
+
+    offs, ons = [], []
+    for _ in range(o["rounds"]):
+        offs.append(leg(False))
+        ons.append(leg(True))
+    counted = any(k.startswith("mx_collective_trace_calls_total")
+                  for k in registry.report())
+    off, on = min(offs), min(ons)
+    return off, on, (on - off) / off * 100.0, counted
+
+
+def fleet_worker(rank, n, store, out):
+    """One rank of [fleet]'s gloo world on cuda:0 (this script with
+    ``--fleet-worker``): the straggler, the spans, the kvstore command,
+    bench.py:1677's pair and the collectives' probe; rank
+    FLEET_CRASH_RANK then raises, and every other rank waits at exit for
+    its crash marker (the fanout dumps ``peer_crash``)."""
+    import atexit
+    import glob
+    import os
+
+    import torch
+
+    os.environ["PROCESS_ID"], os.environ["NUM_PROCESSES"] = str(rank), str(n)
+    from incubator_mxnet_tpu_torch import kv, profiler
+    from incubator_mxnet_tpu_torch.fault import injection
+    from incubator_mxnet_tpu_torch.parallel import collectives, make_mesh
+    from incubator_mxnet_tpu_torch.telemetry import fleet, registry, tracing
+
+    dev, dist = _worker_join(torch, rank, n, store)
+    res = {"rank": rank}
+    try:
+        fleet.PEAK_LINK_GBS["host"] = float(os.environ["MX_SMOKE_HOST_GBS"])
+        tracing.enable()
+        fleet.enable()
+        injection.configure_injection(
+            {"collective_delay@1": (1.0, 0, 64)})
+        dist.barrier("warmup")
+        fleet.estimate_clock_offsets(rounds=3)
+        for i in range(4):
+            t0 = time.perf_counter()
+            time.sleep(0.25 if rank == 1 else 0.01)
+            registry.step(time.perf_counter() - t0, examples=8)
+            dist.barrier(f"step{i}")
+        res["fired"] = injection.schedule_info()["collective_delay"]["fired"]
+        injection.clear_injection()
+        rep = fleet.fleet_report()
+        res["straggler"] = rep["straggler"]
+        res["n_ranks"] = rep["n_ranks"]
+        res["barrier"] = fleet.barrier_stats()
+        fleet.dump_rank_trace(os.path.join(out, "spans"))
+        store_ = kv.create("dist_sync")
+        if rank == 1:
+            profiler.set_config(profile_process="server",
+                                filename="from_rank1.json")
+        store_.barrier()
+        res["profiler_filename"] = profiler._CONFIG.get("filename")
+        fleet.disable()
+        mesh = make_mesh({"dp": n})
+        res["overhead"] = _fleet_overhead(torch, dev, fleet, registry,
+                                          collectives, mesh)
+        fleet.enable()
+        res["probe"] = fleet.probe_collectives(mesh=mesh, nbytes=1 << 22,
+                                               iters=3)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        dist.barrier("final")
+    finally:
+        dist._shutdown()
+    if rank == FLEET_CRASH_RANK:
+        raise RuntimeError(f"injected fleet crash (rank {rank})")
+    marker = os.path.join(os.environ["MXNET_FLIGHTREC_DIR"],
+                          f"fleet_crash_rank{FLEET_CRASH_RANK:03d}.marker")
+
+    def wait_for_marker():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not glob.glob(marker):
+            time.sleep(0.05)
+
+    # atexit runs last in first: this waits before the fleet's own check
+    atexit.register(wait_for_marker)
+    return 0
+
+
+def phase_fleet(torch, dev):
+    """[fleet] (see the constants above); returns its numbers."""
+    import os
+    import shutil
+
+    from incubator_mxnet_tpu_torch.telemetry import fleet
+
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "fleet_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    flight = os.path.join(work, "flight")
+    os.makedirs(flight)
+    gbs = host_copy_gbs(torch, dev)
+    peak = min(gbs.values())
+    rcs, outs = _worker_spawn(
+        "fleet", FLEET_WORLD, os.path.join(work, "store"), work,
+        FLEET_TIMEOUT_S, env={"MX_SMOKE_HOST_GBS": repr(peak),
+                              "MXNET_FAULT_DELAY_MS": "120",
+                              "MXNET_FLIGHTREC_DIR": flight})
+    want_rcs = [1 if r == FLEET_CRASH_RANK else 0 for r in range(FLEET_WORLD)]
+    check(rcs == want_rcs, f"[fleet] return codes {rcs}; {want_rcs} "
+          "expected:\n" + "\n".join(f"--- rank {r} ---\n{o[-3000:]}"
+                                    for r, o in enumerate(outs)))
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(FLEET_WORLD)]
+    for r in res:
+        check(r["n_ranks"] == FLEET_WORLD and r["straggler"]["rank"] == 1,
+              f"[fleet] rank {r['rank']}'s report names rank "
+              f"{r['straggler']['rank']} ({r['straggler']}); rank 1, "
+              "slowed by collective_delay, expected")
+        check((r["fired"] > 0) == (r["rank"] == 1),
+              f"[fleet] collective_delay fired {r['fired']} times on rank "
+              f"{r['rank']}")
+        check(r["profiler_filename"] == "from_rank1.json",
+              f"[fleet] rank {r['rank']}: the server command did not arrive")
+    stitched = fleet.stitch_traces(os.path.join(work, "spans"))
+    lanes = sorted({e["pid"] for e in stitched["traceEvents"]
+                    if e["ph"] == "X"})
+    check(lanes == [3000 + r for r in range(FLEET_WORLD)],
+          f"[fleet] the stitched trace's lanes {lanes}")
+    merged = fleet.merge_flight_dumps(flight)
+    peers = sorted(int(r) for r, ds in merged["ranks"].items()
+                   if any(d["reason"] == "peer_crash" for d in ds))
+    survivors = [r for r in range(FLEET_WORLD) if r != FLEET_CRASH_RANK]
+    check([m["rank"] for m in merged["markers"]] == [FLEET_CRASH_RANK]
+          and peers == survivors,
+          f"[fleet] the crash fanout: markers {merged['markers']}, "
+          f"peer_crash flightrecs on ranks {peers}; {survivors} expected")
+    off, on, pct, counted = res[0]["overhead"]
+    check(counted, "[fleet] the armed legs counted no collective census")
+    probe = res[0]["probe"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    rates = ", ".join(f"{op} {v['gbs']} GB/s ({v['peak_frac']} of the host "
+                      "copy rate)" for op, v in probe.items()
+                      if op != "_meta")
+    log(f"[fleet] {FLEET_WORLD} gloo ranks on the card ({smi}): every "
+        f"rank's fleet_report names rank 1 (z {res[0]['straggler']['score']}"
+        f"); the stitched trace has lanes {lanes}; rank "
+        f"{FLEET_CRASH_RANK}'s crash left its marker and peer_crash "
+        f"flightrecs on ranks {peers}; a 'server' profiler command queued "
+        f"on rank 1 reached every rank at a kvstore barrier; bench.py:1677's"
+        f" step off {off:.4f} ms, armed {on:.4f} ms: {pct:+.2f} %; the "
+        f"card's pinned host copies {gbs['d2h']:.2f} GB/s to the host, "
+        f"{gbs['h2d']:.2f} GB/s to the card (the gloo peak: "
+        f"{peak:.2f}); probe_collectives at "
+        f"{probe['_meta']['per_shard_bytes']} B a rank: {rates}")
+    numbers = dict(straggler=res[0]["straggler"], lanes=len(lanes),
+                   peer_crash_ranks=peers, overhead=dict(
+                       off_ms=off, on_ms=on, pct=pct),
+                   host_copy_gbs=gbs, probe=probe, card=smi,
+                   seconds=time.perf_counter() - t0)
+    shutil.rmtree(work, ignore_errors=True)
+    return numbers
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -10292,6 +11144,14 @@ def main():
     t_start = time.perf_counter()
 
     phase_build()
+    if sys.argv[1:] == ["--only", "shard"]:
+        # [shard] and [fleet] alone, after the build: no result line
+        sharded, shard_launches, _ = phase_shard(torch, dev)
+        fleet_numbers = phase_fleet(torch, dev)
+        log(json.dumps({"shard": sharded, "fleet": fleet_numbers},
+                       default=str))
+        log(f"[done] [shard] and [fleet] alone: launches {shard_launches}")
+        return 3
     if sys.argv[1:] == ["--only", "dist"]:
         # [dist] alone, after the build: a short run, no result line
         distributed, dist_launches, _ = phase_dist(torch, dev)
@@ -10442,6 +11302,16 @@ def main():
             by_layout.setdefault(k, {})
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [dist]'s launches {dist_launches}: {launches}")
+    sharded, shard_launches, shard_layouts = phase_shard(torch, dev)
+    torch.cuda.empty_cache()
+    for k, n in shard_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, v in shard_layouts.items():
+        for name, n in v.items():
+            by_layout.setdefault(k, {})
+            by_layout[k][name] = by_layout[k].get(name, 0) + n
+    log(f"[done] with [shard]'s launches {shard_launches}: {launches}")
+    fleet_numbers = phase_fleet(torch, dev)
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -10492,6 +11362,8 @@ def main():
     log(json.dumps({"fit": fit}, default=str))
     log(json.dumps({"pipeline": pipeline}, default=str))
     log(json.dumps({"dist": distributed}, default=str))
+    log(json.dumps({"shard": sharded}, default=str))
+    log(json.dumps({"fleet": fleet_numbers}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
                                 gd_cases, by_layout, fold_case)))
     log(smi)
@@ -10505,4 +11377,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4], sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] in (["--shard-worker"], ["--fleet-worker"]):
+        worker = shard_worker if sys.argv[1] == "--shard-worker" \
+            else fleet_worker
+        sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                        sys.argv[5]))
     sys.exit(main())

@@ -59,11 +59,16 @@ _REPLICATED_MIN_BYTES = 1 << 20
 
 class ShapeDtype:
     """An array by its shape and dtype alone (the reference's
-    ``jax.ShapeDtypeStruct``): a torch or numpy dtype, or its name."""
+    ``jax.ShapeDtypeStruct``): a torch or numpy dtype, or its name.
+    ``block`` is this rank's tensor of a whole array the spec cuts (a
+    sharded serving engine's weight or pool block): the spec tier reads
+    the whole shape, the census tier's in-place check (SC004) the
+    block."""
 
-    def __init__(self, shape, dtype="float32"):
+    def __init__(self, shape, dtype="float32", block=None):
         self.shape = tuple(int(s) for s in shape)
         self.dtype = dtype
+        self.block = block
 
     def __repr__(self):
         return f"ShapeDtype({self.shape}, {self.dtype})"
@@ -128,6 +133,16 @@ def _as_aval(leaf):
         return ShapeDtype(tuple(leaf.shape), leaf.dtype)
     arr = onp.asarray(leaf)
     return ShapeDtype(arr.shape, arr.dtype)
+
+
+def _tensor_of(leaf):
+    """The tensor behind an argument leaf: itself, or a
+    :class:`ShapeDtype`'s block (None for neither)."""
+    import torch
+
+    if isinstance(leaf, ShapeDtype):
+        leaf = leaf.block
+    return leaf if isinstance(leaf, torch.Tensor) else None
 
 
 def _nbytes(aval):
@@ -266,9 +281,9 @@ def _census_tier(report, fn, args, leaves, donate_argnums, mv):
     from ..parallel.mesh import mesh_scope
 
     donate = set(donate_argnums or ())
-    before = [(label, leaf, leaf._version, leaf.data_ptr())
+    before = [(label, t, t._version, t.data_ptr())
               for label, _aval, _sp, argi, leaf in leaves
-              if argi in donate and isinstance(leaf, torch.Tensor)]
+              if argi in donate and (t := _tensor_of(leaf)) is not None]
 
     def count(op, group, in_bytes, out_bytes, carried):  # noqa: ARG001
         rec = report.collectives.setdefault(op, {"count": 0, "bytes": 0})
@@ -419,8 +434,8 @@ def _output_bytes(out, args, out_specs, mv):
 
     if out is None:
         return 0
-    taken = {leaf.data_ptr() for _p, leaf in _flatten_with_path(args)
-             if isinstance(leaf, torch.Tensor)}
+    taken = {t.data_ptr() for _p, leaf in _flatten_with_path(args)
+             if (t := _tensor_of(leaf)) is not None}
     outs = _flatten_with_path(out)
     o_specs = _spec_leaves_for(out, out_specs, "output")
     total = 0

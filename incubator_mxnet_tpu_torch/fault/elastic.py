@@ -20,8 +20,8 @@ each with one card, so a transition is the fleet's:
   `preemption.preempted()` (this rank departs), a peer's departure or
   re-admission marker (`dist.pending_departures`, `pending_rejoins`) and
   the fleet plane's crash markers (``fleet_crash_rank<r>.marker`` under
-  `telemetry.tracing._flight_dir`; their writer, `telemetry.fleet`, is
-  `ROADMAP.md` §1 item 13's);
+  `telemetry.tracing._flight_dir`, written by `telemetry.fleet`'s crash
+  fanout);
 - **vote**: every active rank posts what it saw through the store
   (ranks with a departure or crash marker are not waited for), so all
   agree on who leaves, and a departure is never half seen;

@@ -241,10 +241,17 @@ class KVStoreDist(_SingleProcessStore):
             self._store[k] = arr.copy()
 
     def barrier(self):
+        from .. import profiler
         from ..fault.retry import RetryPolicy
+        from ..telemetry import monitor as _telem_monitor
 
         with tracing.span("kvstore.barrier", dist=True):
             self._chaos_probe("kvstore_barrier")
+            # the sync point doubles as the command channel: queued
+            # profile_process='server' commands ship and apply here, and
+            # the rank-stat summaries ride the same exchange
+            profiler.sync_remote_commands()
+            _telem_monitor.sync_rank_stats()
             RetryPolicy.from_env("kvstore").call(self._dist.barrier)
 
 

@@ -27,7 +27,10 @@ transport, so it fails instead of hanging its peers.
 
 The chaos seams are the reference's: ``dist_init`` at each join attempt,
 retried under the ``dist_init`` `RetryPolicy`, and ``collective_delay``
-(``_FAULT_HOOK``) at every `allreduce`.
+(``_FAULT_HOOK``) at every `allreduce`. The fleet plane's profiler
+(``_PROF``, armed by `telemetry.fleet.enable`) times each of the four
+collectives and probes the barrier's arrival skew; both hooks are
+module globals that stay None, a dead branch, while off.
 """
 from __future__ import annotations
 
@@ -321,6 +324,14 @@ def allreduce(x, op="sum", generation=None):
         return t.clone()
     if op not in ("sum", "mean", "max"):
         raise ValueError(f"dist.allreduce: unknown op {op!r}")
+    prof = _PROF
+    if prof is None:
+        return _allreduce_impl(t, op)
+    with prof.dist_op("allreduce", t.numel() * t.element_size(), red=op):
+        return _allreduce_impl(t, op)
+
+
+def _allreduce_impl(t, op):
     if _STATE["members"] is not None:
         # a membership after a transition rides the store: a new process
         # group would need every rank of the world to make it
@@ -345,13 +356,24 @@ def broadcast(x, root=0, generation=None):
         check_generation(generation, op="broadcast")
         return t.clone()
     contrib = t if rank() == root else torch.zeros_like(t)
-    return allreduce(contrib, op="sum", generation=generation)
+    prof = _PROF
+    if prof is None:
+        return allreduce(contrib, op="sum", generation=generation)
+    with prof.dist_op("broadcast", t.numel() * t.element_size(), root=root):
+        return allreduce(contrib, op="sum", generation=generation)
 
 
-def barrier(tag="barrier", generation=None):  # noqa: ARG001
+def barrier(tag="barrier", generation=None):
     check_generation(generation, op="barrier")
     if num_processes() > 1:
-        allreduce(torch.zeros(1), generation=generation)
+        prof = _PROF
+        if prof is None:
+            allreduce(torch.zeros(1), generation=generation)
+        else:
+            # the fleet plane times the barrier and exchanges arrival
+            # times (the straggler signal, `telemetry.fleet`)
+            prof.barrier_probe(tag, lambda: allreduce(
+                torch.zeros(1), generation=generation))
 
 
 _EXCHANGE_OVERSIZE = "__exchange_objs_oversize__"
@@ -369,6 +391,14 @@ def exchange_objs(obj, max_bytes=4096, generation=None):
     if len(payload) > max_bytes - 4:
         obj = _EXCHANGE_OVERSIZE
     _enter("exchange_objs", generation)
+    prof = _PROF
+    if prof is None:
+        return _exchange_objs_impl(obj, max_bytes)
+    with prof.dist_op("exchange_objs", num_processes() * max_bytes):
+        return _exchange_objs_impl(obj, max_bytes)
+
+
+def _exchange_objs_impl(obj, max_bytes):
     members = active_ranks()
     if _STATE["members"] is not None:
         got = [pickle.loads(b) for b in
@@ -523,14 +553,19 @@ def _reset_membership():
 
 
 _FAULT_HOOK = None   # fault.injection._arm_hot_hooks: collective_delay seam
+_PROF = None         # telemetry.fleet.enable(): the collective profiler
 
 
 def _rearm_hooks():
     import sys
 
-    inj = sys.modules.get(__name__.rsplit(".", 2)[0] + ".fault.injection")
+    pkg = __name__.rsplit(".", 2)[0]
+    inj = sys.modules.get(pkg + ".fault.injection")
     if inj is not None:
         inj._arm_hot_hooks()
+    fleet = sys.modules.get(pkg + ".telemetry.fleet")
+    if fleet is not None:
+        fleet._arm()
 
 
 _rearm_hooks()

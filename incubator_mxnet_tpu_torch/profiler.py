@@ -46,8 +46,9 @@ the kernel.
 A trace started on a machine with no CUDA device records the host lanes
 only (the funnel and the spans): ``device_events()`` stays empty and
 ``trace_meta()`` says why; nothing pretends to be a device lane.
-``profile_process="server"`` takes the single-process path; the
-distributed commands are `ROADMAP.md` §1 item 13.
+``profile_process="server"`` commands are queued and exchanged at the
+next `KVStoreDist.barrier` (`sync_remote_commands`), which applies them
+on every rank.
 
 Memory goes through the caching allocator: `memory_stats` reads
 ``torch.cuda.memory_stats``, `live_buffer_table` and `analyze_memory`
@@ -57,6 +58,7 @@ its snapshot and peak counters, and `memory_snapshot` writes
 from __future__ import annotations
 
 import atexit
+import bisect
 import json
 import os
 import pickle
@@ -113,9 +115,9 @@ _REMOTE_PENDING: list = []   # ('set_config', {...}) / ('set_state', 'run')
 
 def set_config(**kwargs):
     """Update the profiler's configuration. ``profile_process="server"``
-    queues the config for every process of a distributed job, which is
-    this one alone until the distributed path is ported (`ROADMAP.md` §1
-    item 13)."""
+    also queues the config for every process of a distributed job: it is
+    applied on each rank at the next kvstore sync point
+    (`sync_remote_commands`)."""
     if kwargs.pop("profile_process", "worker") == "server":
         _REMOTE_PENDING.append(("set_config", dict(kwargs)))
     _CONFIG.update(kwargs)
@@ -130,10 +132,33 @@ def set_state(state="stop", profile_process="worker"):
         stop()
 
 
+def _dist_active():
+    try:
+        from .parallel import dist
+
+        return dist.is_initialized() and dist.num_processes() > 1
+    except Exception:
+        return False
+
+
 def sync_remote_commands():
-    """The reference exchanges queued 'server' commands at kvstore sync
-    points; a single process has applied them already."""
-    del _REMOTE_PENDING[:]
+    """Collective exchange and apply of the queued 'server' profiler
+    commands — called from `KVStoreDist.barrier` (every process takes
+    part; commands queued on ANY rank apply on ALL ranks, over
+    `dist.exchange_objs`). One process has applied them already."""
+    global _REMOTE_PENDING
+    if not _dist_active():
+        _REMOTE_PENDING = []
+        return
+    from .parallel import dist
+
+    mine, _REMOTE_PENDING = _REMOTE_PENDING, []
+    for cmds in dist.exchange_objs(mine):
+        for kind, arg in cmds or []:
+            if kind == "set_config":
+                _CONFIG.update(arg)
+            elif kind == "set_state":
+                set_state(arg)
 
 
 def _arm_funnel(on):
@@ -294,21 +319,60 @@ def join_launch_log(kernel_events, log):
 
 
 def _launched_at(events):
-    """{correlation id: ts of the host's launch call} of a trace."""
+    """{correlation id: (ts, end) of the host's launch call} of a trace."""
     out = {}
     for e in events:
         corr = (e.get("args") or {}).get("correlation")
         if corr is not None and e.get("ph") == "X" \
                 and e.get("cat") in _LAUNCH_CATS:
-            out[corr] = float(e["ts"])
+            ts = float(e["ts"])
+            out[corr] = (ts, ts + float(e.get("dur", 0.0)))
     return out
+
+
+def _device_shift(events, work, launched):
+    """µs to move the device lanes on (negative: back) so that their clock,
+    as the trace converts it to the host's, obeys the host's calls: no
+    work starts before the call that launched it, and no work the host
+    waited for ends after the call that waited returns — a copy to
+    pageable host memory (its call returns once the copy is done) and
+    everything launched before a ``cudaDeviceSynchronize``. Returns (the
+    shift nearest 0 that obeys both, the µs by which the two bounds
+    disagree, 0 when they agree); where they disagree (the conversion is
+    not one offset across the trace) the shift splits the disagreement,
+    so that each bound is missed by half of it."""
+    hi = float("inf")
+    lo = max([launched[c][0] - float(e["ts"]) for e in work
+              for c in [(e.get("args") or {}).get("correlation")]
+              if c in launched] + [float("-inf")])
+    syncs = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in _LAUNCH_CATS
+                   and e.get("name") == "cudaDeviceSynchronize")
+    starts = [s for s, _ in syncs]
+    first_end = [float("inf")] * (len(syncs) + 1)   # earliest return of a
+    for i in range(len(syncs) - 1, -1, -1):          # sync from i on
+        first_end[i] = min(first_end[i + 1], syncs[i][1])
+    for e in work:
+        call = launched.get((e.get("args") or {}).get("correlation"))
+        if call is None:
+            continue
+        end = float(e["ts"]) + float(e.get("dur", 0.0))
+        waited = first_end[bisect.bisect_left(starts, call[1])]
+        if "DtoH" in e.get("name", "") and "Pageable" in e.get("name", ""):
+            waited = min(waited, call[1])
+        hi = min(hi, waited - end)
+    if lo > hi:
+        return (lo + hi) / 2, lo - hi
+    return min(max(0.0, lo), hi), 0.0
 
 
 def _ingest_trace(data, log, anchor_us=None):
     """Keep the device lanes' complete events of a torch.profiler chrome
     trace (``data``), with their lane metadata rows, pids remapped to
-    1000 + pid, ts rebased onto the epoch clock (and moved on as far as
-    the card's clock puts a kernel before its launch call), the work
+    1000 + pid, ts rebased onto the epoch clock (and moved as far as
+    the card's clock puts work outside its host calls: `_device_shift`,
+    its shift and the bounds' disagreement in the meta), the work
     launched inside
     a paused interval dropped (by the host's launch call, which shares
     the pause's clock, where the trace holds it, else by the event's own
@@ -329,16 +393,14 @@ def _ingest_trace(data, log, anchor_us=None):
     if _PAUSED_INTERVALS:
         work = [e for e in work if not _in_paused_interval(
             shift + launched.get((e.get("args") or {}).get("correlation"),
-                                 float(e["ts"])))]
+                                 (float(e["ts"]),))[0])]
     dropped = n_work - len(work)
     # the card's clock, as the trace converts it to the host's, can put a
     # kernel before the host call that launched it (by up to ~2 ms on the
-    # card): no work starts before its launch, so the device lanes are
-    # moved on by the largest such lead
-    lead = max([launched[c] - float(e["ts"]) for e in work
-                for c in [(e.get("args") or {}).get("correlation")]
-                if c in launched] + [0.0])
-    shift_dev = shift + lead
+    # card), or a copy after the call that waited for it: the device lanes
+    # are moved by the least that puts every event between its bounds
+    dev_shift, clock_conflict = _device_shift(events, work, launched)
+    shift_dev = shift + dev_shift
     ports = [e for e in work if PORT_KERNEL.search(e.get("name", ""))]
     joined, unjoined = join_launch_log(ports, log)
     cost = {id(ports[i]): entry for i, entry in joined.items()}
@@ -388,6 +450,7 @@ def _ingest_trace(data, log, anchor_us=None):
         "port_kernel_events": len(ports), "launch_log": n_log,
         "lost_launches": lost, "joined": len(joined),
         "unjoined_groups": unjoined[:8],
+        "device_shift_us": dev_shift, "clock_conflict_us": clock_conflict,
         "note": ("device lanes from torch.profiler (CUPTI)" if lanes
                  else "the trace held no device lane")}
 

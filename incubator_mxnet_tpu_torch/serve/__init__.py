@@ -57,8 +57,13 @@ advisor's ``mx_advisor_recommendation{action=}``, the controller's
 ``mx_serve_replicas{model=}``. Each engine's KV pool and weights are
 device-memory census owners (`telemetry.hbm`), and each program it
 builds (a captured step, a new prefill bucket) is a ledger entry
-(`telemetry.compiles`). The sharded engine is not ported yet
-(`ROADMAP.md`).
+(`telemetry.compiles`).
+- `sharded`: `ShardedSlotDecoder`, a replica whose weights and KV pools
+  are cut over a mesh of ranks by a `ServeLayout` (row-parallel qkv and
+  proj, column/row-parallel MLP, head-cut pools), driven by the world's
+  rank 0 while the mesh's other ranks execute its records; `serve_mesh`
+  and `router.replica_meshes` carve the world's ranks into replica
+  meshes (``ModelRegistry.add(mesh=...)``).
 
 Typical use::
 
@@ -80,23 +85,26 @@ Typical use::
 from __future__ import annotations
 
 from . import (advisor, api, disagg, elastic, engine, gateway, router,
-               scheduler, tenancy)
+               scheduler, sharded, tenancy)
 from .advisor import AutoscaleAdvisor
 from .api import ServeEngine
 from .engine import PageAllocator, PagePoolExhausted, PrefixCache, SlotDecoder
 from .elastic import ReplicaScaleError, ReplicaSetController
 from .gateway import Gateway, GatewayRequest, ModelRegistry
 from .disagg import MigrationAborted
-from .router import ReplicaRouter
+from .router import ReplicaRouter, replica_meshes
 from .scheduler import (DeadlineExceeded, EngineClosed, QueueFull, Request,
                         Scheduler)
+from .sharded import ServeLayout, ShardedSlotDecoder, serve_mesh
 from .tenancy import Tenant, TokenBucket, WDRRQueue
 
 __all__ = ["ServeEngine", "SlotDecoder", "Scheduler", "Request",
            "PageAllocator", "PrefixCache", "PagePoolExhausted",
            "QueueFull", "DeadlineExceeded", "EngineClosed",
            "ModelRegistry", "Gateway", "GatewayRequest", "ReplicaRouter",
+           "ServeLayout", "ShardedSlotDecoder", "serve_mesh",
+           "replica_meshes",
            "ReplicaSetController", "ReplicaScaleError", "AutoscaleAdvisor",
            "Tenant", "TokenBucket", "WDRRQueue", "MigrationAborted",
            "api", "engine", "scheduler", "gateway", "tenancy", "router",
-           "disagg", "advisor", "elastic"]
+           "disagg", "advisor", "elastic", "sharded"]

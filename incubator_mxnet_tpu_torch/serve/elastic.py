@@ -495,12 +495,25 @@ class ReplicaSetController:
                   reason)
         return rep
 
-    def _spawn_mesh(self, m, j):  # noqa: ARG002
-        """The idle mesh slice for replica index `j`. Mesh-sharded
-        replicas are not ported (`ModelRegistry.add(mesh=...)` raises,
-        `ROADMAP.md` §1 item 13), so every replica is a single-device
-        engine: None."""
-        return None
+    def _spawn_mesh(self, m, j):
+        """The idle mesh slice for replica index `j`: registered
+        mesh-list models reserve their unused tail for scale-up;
+        non-mesh models return None. A spec-carved mesh model cannot be
+        re-carved while its siblings hold their slices — that needs a
+        factory."""
+        spec_mesh = self._gw._registry._specs[m.name][4]
+        if spec_mesh is None:
+            return None
+        if isinstance(spec_mesh, (list, tuple)):
+            if j < len(spec_mesh):
+                return spec_mesh[j]
+            raise ReplicaScaleError(
+                f"model {m.name!r}: no idle mesh slice for replica "
+                f"#{j} — only {len(spec_mesh)} were registered")
+        raise ReplicaScaleError(
+            f"model {m.name!r} carves its replica meshes from a spec; "
+            "scaling it up needs factories={...} (re-carving would "
+            "move the live replicas' devices)")
 
     def _warm(self, rep):
         """Drive a fresh replica's program families while it is still

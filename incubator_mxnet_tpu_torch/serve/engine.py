@@ -78,9 +78,17 @@ entry of the program ledger (`telemetry.compiles`) under
 ledger counts what `xla_program_count` counts; a captured step's entry
 carries the FLOPs of the eager step before it and its kernels' costs
 (`_graphs`), and its private memory pool is the census owner
-``"graph:{census_name}.{step}"``. The sharding pre-flight and
-`hbm_crosscheck` (shardcheck's SC006) are not ported yet (`ROADMAP.md`
-§1 item 13).
+``"graph:{census_name}.{step}"``. `SlotDecoder.shardcheck_report` is the
+sharding pre-flight of the prefill and decode families
+(`analysis.shardcheck`: the spec tier over the parameters and pools, and
+one eager census step of each family that writes only the trash page),
+and `hbm_crosscheck` holds the census owners against its SC006 estimate.
+
+Sharding seams (reference :582-612, :784), which `serve.sharded`
+overrides: `_refresh_params`, `_make_pools`, `_place_migrated`,
+`_constrain_pools`, `_shardcheck_specs` / `_shardcheck_out_specs`, and
+the layer's three products, `_qkv`, `_proj` and `_ffn`, through which
+every step body (prefill, decode, verify, draft) computes them.
 
 Stale-row safety (the reference's argument, per page): position ``p`` of
 a slot enters the mask only once the slot's ``pos`` reaches ``p``, and
@@ -428,6 +436,11 @@ class SlotDecoder:
     ``prefix_cache``.
     """
 
+    #: Whether this engine publishes its page-occupancy gauge (a rank's
+    #: share of a sharded engine leaves it to the engine that owns the
+    #: page allocator).
+    _PUBLISHES = True
+
     def __init__(self, source, max_slots=8, max_len=None, page_tokens=None,
                  prefill_chunk=None, n_pages=None, kv_dtype=None,
                  prefix_reuse=True, do_sample=False, top_k=None,
@@ -470,11 +483,12 @@ class SlotDecoder:
         self.allocator = PageAllocator(self.n_pages, pt)
         self.prefix_cache = PrefixCache(self.allocator,
                                         enabled=bool(prefix_reuse))
-        registry.register_pull_gauge(
-            "mx_serve_page_occupancy",
-            _occupancy_probe(self.allocator),
-            "fraction of usable KV pool pages referenced (shared pages "
-            "counted once) [0, 1]")
+        if self._PUBLISHES:
+            registry.register_pull_gauge(
+                "mx_serve_page_occupancy",
+                _occupancy_probe(self.allocator),
+                "fraction of usable KV pool pages referenced (shared pages "
+                "counted once) [0, 1]")
 
         self._do_sample = bool(do_sample)
         self._top_k = None if top_k is None else int(top_k)
@@ -586,13 +600,18 @@ class SlotDecoder:
 
     # -- pool ---------------------------------------------------------------
 
+    def _pool_heads(self, dec):
+        """The heads a pool of ``dec`` holds (a sharded engine's rank
+        holds its share)."""
+        return dec._n_heads
+
     def _make_pools(self, dec):
         """Per-layer page pools of ``dec``: tuples of L tensors ``(n_pages,
         H, page_tokens, d)`` in the weights' dtype on the model's device,
         or int8 with per-layer ``(n_pages, H)`` f32 scale planes."""
         blocks = dec._model.blocks
-        H = dec._n_heads
-        shape = (self.n_pages, H, self.page_tokens, dec._units // H)
+        shape = (self.n_pages, self._pool_heads(dec), self.page_tokens,
+                 dec._units // dec._n_heads)
         dev = self._device
 
         def planes(shape, dtype):
@@ -661,13 +680,18 @@ class SlotDecoder:
             eng = ref()
             if eng is None:
                 return None
-            models = [eng._dec._model]
-            if eng._draft_dec is not None:
-                models.append(eng._draft_dec._model)
-            return {"arrays": [p for m in models for p in m.parameters()]}
+            return {"arrays": eng._param_arrays()}
 
         _hbm.register_owner(f"{self.census_name}.kv_pool", _pool_probe)
         _hbm.register_owner(f"{self.census_name}.params", _params_probe)
+
+    def _param_arrays(self):
+        """The weight tensors this engine's steps read (the census owner
+        ``"{census_name}.params"``)."""
+        models = [self._dec._model]
+        if self._draft_dec is not None:
+            models.append(self._draft_dec._model)
+        return [p for m in models for p in m.parameters()]
 
     def _pool_leaves(self):
         return [t for leaves in (self._pk, self._pv, self._sk, self._sv,
@@ -788,6 +812,24 @@ class SlotDecoder:
         of it must do so in place too."""
         return leaves
 
+    def _constrain_pools(self, pk, pv, sk, sv):
+        """Seam at the tail of every pool-updating step (reference :592).
+        The reference's sharded engine pins the updated pools to their
+        input layout there so that XLA's donation still aliases them; the
+        port's pools are written in place by address (shardcheck's SC004
+        checks it), so this is the identity."""
+        return pk, pv, sk, sv
+
+    def _shardcheck_specs(self):
+        """Spec entries for ``(params, *pools)`` of the sharding
+        pre-flight, or None (unconstrained: one device). The sharded
+        engine returns its `ServeLayout`'s."""
+        return None
+
+    def _shardcheck_out_specs(self):
+        """Spec entries for the steps' outputs, or None."""
+        return None
+
     def _refresh_params(self):
         """Whether the weights changed since the steps' programs were
         built (a parameter replaced by a new tensor: a new fingerprint).
@@ -838,6 +880,23 @@ class SlotDecoder:
         pool[wpage] = page.to(torch.int8)
         scale[wpage] = new
 
+    # -- the layer's products (the seams a sharded engine cuts) ------------
+
+    def _qkv(self, dec, x, blk):
+        """q, k, v (N, T, H, d) of the layer's fused projection of ``x``
+        (LayerNorm ln1 first)."""
+        return dec._qkv(x, blk)
+
+    def _proj(self, dec, o, blk):  # noqa: ARG002
+        """The attention output projection of the context ``o`` (N, T,
+        H * d)."""
+        a = blk.attn
+        return F.linear(o, _t(a.proj.weight), _t(a.proj.bias))
+
+    def _ffn(self, dec, x, blk):
+        """``x`` plus the layer's MLP of LayerNorm ln2 of ``x``."""
+        return dec._ffn(x, blk)
+
     def _slot_layer(self, dec, blk, x, pools, table, wpage, woff, mask):
         """One layer of ``dec`` over T new rows a slot, the body of the
         decode (T = 1), verify (T = k + 1) and draft (T = 1, k times)
@@ -847,7 +906,7 @@ class SlotDecoder:
         ``mask`` (S, T, view) with f32 scores. ``x`` is (S, T, C)."""
         S, T, _ = x.shape
         pk, pv, sk, sv = pools
-        q, k, v = dec._qkv(x, blk)                            # (S, T, H, d)
+        q, k, v = self._qkv(dec, x, blk)                      # (S, T, H, d)
         H, d = q.shape[2], q.shape[3]
         for i in range(T):
             self._write_token(pk, sk, wpage[:, i], woff[:, i], k[:, i])
@@ -862,9 +921,8 @@ class SlotDecoder:
         s = s.masked_fill(~mask[:, None], float("-inf"))
         p = torch.softmax(s, dim=-1).to(vv.dtype)
         o = torch.matmul(p, vv).transpose(1, 2).reshape(S, T, H * d)
-        a = blk.attn
-        o = F.linear(o.to(x.dtype), _t(a.proj.weight), _t(a.proj.bias))
-        return dec._ffn(x + o, blk)
+        o = self._proj(dec, o.to(x.dtype), blk)
+        return self._ffn(dec, x + o, blk)
 
     # -- sampling -----------------------------------------------------------
 
@@ -906,7 +964,7 @@ class SlotDecoder:
         # the chunk's own rows inside the view (a bucket may overshoot it)
         own = min(C, PT - t_start)
         for blk, (pk, pv, sk, sv) in zip(m.blocks, self._layer_pools(draft)):
-            q, k, v = dec._qkv(x, blk)                       # (1, C, H, d)
+            q, k, v = self._qkv(dec, x, blk)                 # (1, C, H, d)
             H, d = q.shape[2], q.shape[3]
             kp = k[0].reshape(C // pt, pt, H, d).transpose(1, 2)
             vp = v[0].reshape(C // pt, pt, H, d).transpose(1, 2)
@@ -935,9 +993,7 @@ class SlotDecoder:
             s = s.masked_fill(~mask, torch.finfo(s.dtype).min / 2)
             o = torch.matmul(torch.softmax(s, dim=-1), vv)   # (H, C, d)
             o = o.transpose(0, 1).reshape(1, C, H * d).to(x.dtype)
-            a = blk.attn
-            x = dec._ffn(x + F.linear(o, _t(a.proj.weight),
-                                      _t(a.proj.bias)), blk)
+            x = self._ffn(dec, x + self._proj(dec, o, blk), blk)
         # the chunk's last real row (padding is causally after it)
         logits = dec._logits(x[:, t_len - 1])                # (1, V)
         return self._sample_slots(logits, key, temperature)
@@ -1195,6 +1251,11 @@ class SlotDecoder:
         self._ledger(name, t0, args, flops=self._warm_flops.pop(name, None),
                      launch_log=graph.launch_log)
 
+    def _captures_steps(self):
+        """Whether the replayed steps are captured as CUDA graphs (a CUDA
+        model), or run eagerly."""
+        return self._device.type == "cuda"
+
     def _run_step(self, name, args):
         """Run the step ``name`` ("decode", "verify", "draft") on its
         loaded device inputs: eagerly on a CPU model; on the card, eagerly
@@ -1202,7 +1263,7 @@ class SlotDecoder:
         replayed from then on. Returns the step's device output."""
         fn = getattr(self, f"_{name}_fn")
         fp = self._fingerprint()
-        if self._device.type != "cuda":
+        if not self._captures_steps():
             if fp == self._program_fp.get(name):
                 return fn(*args)
             self._program_fp[name] = fp
@@ -1336,16 +1397,89 @@ class SlotDecoder:
             outs.append(torch.stack(views).float().cpu().numpy())
         return outs[0], outs[1]
 
-    def hbm_crosscheck(self, mesh=None):  # noqa: ARG002
-        """The reference compares this engine's census bytes (its
-        ``kv_pool`` and ``params`` owners, `telemetry.hbm`) with
-        shardcheck's SC006 static estimate of the decode program. The
-        census is here; shardcheck is not ported, so this raises
-        `MXNetError`."""
-        raise MXNetError(
-            "SlotDecoder.hbm_crosscheck needs shardcheck's SC006 static "
-            "estimate, which is not ported yet (ROADMAP.md §1 item 13); "
-            "telemetry.hbm.census() gives the census half")
+    # -- the sharding pre-flight (reference :1501-1585) ----------------------
+
+    def _shardcheck_params(self):
+        """The decoder's weights as the pre-flight's first argument: a
+        tree by the reference's leaf paths (`_param_tree`)."""
+        return _param_tree(self._dec._model)
+
+    def _shardcheck_pools(self):
+        """The pool arguments ``(pk, pv[, sk, sv])``, each a tuple of the
+        layers' tensors (donated: the steps write them in place)."""
+        return (self._pk, self._pv) + ((self._sk, self._sv)
+                                       if self._int8 else ())
+
+    @torch.no_grad()
+    def shardcheck_report(self, mesh=None, hbm_budget_gb=None, bucket=None):
+        """Sharding pre-flight (`analysis.shardcheck`) of the two step
+        families: chunked prefill at ``bucket`` (default the largest chunk
+        bucket) and decode, audited as a latency hot path. The spec tier
+        reads ``(params, *pools)`` with `_shardcheck_specs` (SC001-SC003,
+        and SC006 against ``hbm_budget_gb``); the census tier runs one
+        eager step of each family, with every slot inactive and every
+        page index 0, so its writes land on the trash page alone and no
+        live page is touched: it counts the step's exchanges (SC005) and
+        holds the pools to being written in place (SC004). With
+        ``mesh=None`` the engine is one device. Returns ``{"prefill":
+        ShardReport, "decode": ShardReport}``."""
+        from ..analysis.shardcheck import shardcheck
+
+        self._refresh_params()
+        self._ensure_pool()
+        dev, S, P = self._device, self.max_slots, self.pages_per_slot
+        pt = self.page_tokens
+        params = self._shardcheck_params()
+        pools = self._shardcheck_pools()
+        donate = tuple(range(1, 1 + len(pools)))
+        bucket = int(bucket) if bucket is not None else self.chunk_buckets[-1]
+        head = self._shardcheck_specs()
+        out_specs = self._shardcheck_out_specs()
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        key = ints(2)
+        pf_args = (params,) + pools + (ints(bucket), ints(P),
+                                       ints(bucket // pt))
+        pf_specs = None if head is None else tuple(head) + (
+            (None,) * (len(pf_args) - len(head)))
+        temp1 = torch.ones(1, dtype=torch.float32, device=dev)
+        prefill = shardcheck(
+            lambda *a: self._prefill_fn(a[-3], a[-2], a[-1], 0, bucket,
+                                        key, temp1),
+            *pf_args, mesh=mesh, specs=pf_specs, out_specs=out_specs,
+            donate_argnums=donate, hbm_budget_gb=hbm_budget_gb,
+            name=f"SlotDecoder.prefill[b{bucket}]")
+        dc_args = (params,) + pools + (
+            ints(S, P), ints(3 * S + 2),
+            torch.ones(S, dtype=torch.float32, device=dev))
+        dc_specs = None if head is None else tuple(head) + (
+            (None,) * (len(dc_args) - len(head)))
+        decode = shardcheck(
+            lambda *a: self._decode_fn(a[-3], a[-2], a[-1]), *dc_args,
+            mesh=mesh, specs=dc_specs, out_specs=out_specs,
+            donate_argnums=donate, hbm_budget_gb=hbm_budget_gb,
+            hot_path=True, name="SlotDecoder.decode")
+        return {"prefill": prefill, "decode": decode}
+
+    def hbm_crosscheck(self, mesh=None):
+        """The device-memory census against the static estimate: this
+        engine's census owners (``"{census_name}.kv_pool"`` and
+        ``".params"``, `telemetry.hbm`) summed, beside shardcheck's SC006
+        per-device estimate of the decode step. The two are independent
+        (the census reads the live tensors, SC006 their shapes and
+        specs), so agreement checks both. Returns ``{"census_bytes",
+        "sc006_bytes", "ratio", "owners"}``."""
+        report = self.shardcheck_report(mesh=mesh)
+        sc006 = int(report["decode"].per_device_bytes)
+        c = _hbm.census(top_k=0)
+        mine = {k: v for k, v in c["owners"].items()
+                if k.startswith(f"{self.census_name}.")}
+        total = sum(mine.values())
+        return {"census_bytes": total, "sc006_bytes": sc006,
+                "ratio": (total / sc006) if sc006 else None,
+                "owners": mine}
 
     def xla_program_count(self):
         """The programs this engine built, under the reference's name (its
@@ -1358,6 +1492,39 @@ class SlotDecoder:
         fingerprint."""
         prefills = 2 if self._draft_dec is not None else 1
         return prefills * len(self._buckets_seen) + self._builds
+
+
+#: The reference's per-layer leaf names (its stacked ``params["layers"]``)
+#: and where each lives in a GPT block.
+_LAYER_LEAVES = (
+    ("qkv_w", lambda b: b.attn.qkv.weight),
+    ("qkv_b", lambda b: b.attn.qkv.bias),
+    ("proj_w", lambda b: b.attn.proj.weight),
+    ("proj_b", lambda b: b.attn.proj.bias),
+    ("ffn1_w", lambda b: b.ffn.ffn1.weight),
+    ("ffn1_b", lambda b: b.ffn.ffn1.bias),
+    ("ffn2_w", lambda b: b.ffn.ffn2.weight),
+    ("ffn2_b", lambda b: b.ffn.ffn2.bias),
+    ("ln1_g", lambda b: b.ln1.gamma),
+    ("ln1_b", lambda b: b.ln1.beta),
+    ("ln2_g", lambda b: b.ln2.gamma),
+    ("ln2_b", lambda b: b.ln2.beta),
+)
+
+
+def _param_tree(model):
+    """A GPT model's tensors by the reference decoder's leaf paths:
+    ``{"layers": {name: [one tensor a layer]}, "embed", "pos", "lnf_g",
+    "lnf_b"[, "head_w"]}`` (``head_w`` for an untied head only)."""
+    tree = {"layers": {name: [_t(get(b)) for b in model.blocks]
+                       for name, get in _LAYER_LEAVES},
+            "embed": _t(model.word_embed.weight),
+            "pos": _t(model.position_embed),
+            "lnf_g": _t(model.ln_f.gamma),
+            "lnf_b": _t(model.ln_f.beta)}
+    if not model._tie:
+        tree["head_w"] = _t(model.lm_head.weight)
+    return tree
 
 
 _SIDE_STREAMS = {}            # device index -> the engines' side stream

@@ -64,8 +64,10 @@ draining and replacing replicas; both tick at the end of every `step()`.
 A failed step gets the device-memory post-mortem (`telemetry.hbm`) when
 it ran out of memory, else the flight dump.
 
-Not ported yet, and raising `MXNetError` that names the `ROADMAP.md` item:
-``add(mesh=...)`` and the sharded engine (`serve.sharded`, §1 item 13).
+``add(mesh=...)`` makes each replica a `serve.sharded.ShardedSlotDecoder`
+over its own slice of the world's ranks (`router.replica_meshes`); the
+gateway runs on the world's rank 0, the front, and `hot_swap` re-places a
+replica's blocks one replica at a time.
 """
 from __future__ import annotations
 
@@ -198,10 +200,11 @@ class ModelRegistry:
         least-loaded + prefix-affinity routing (default: the
         ``MXNET_SERVE_REPLICAS`` knob, else 1); the model's page cut is
         split evenly across them, and on one card they share the device.
-        ``mesh`` (mesh-sharded replicas) raises `MXNetError` until the
-        sharded engine is ported (`ROADMAP.md` §1 item 13). A list of
-        pre-built decoders is also accepted as ``block_or_decoder`` (one
-        per replica).
+        ``mesh`` makes each replica a mesh-sharded `ShardedSlotDecoder`: a
+        spec (``"tp=4"`` / dict / int) is carved into disjoint per-replica
+        rank slices via `serve.router.replica_meshes`; a list supplies one
+        prebuilt mesh per replica. A list of pre-built decoders is also
+        accepted as ``block_or_decoder`` (one per replica).
 
         ``prefill_replicas``/``decode_replicas`` make the pod
         DISAGGREGATED: the first
@@ -213,11 +216,6 @@ class ModelRegistry:
         defaults to disaggregation with ``MXNET_SERVE_PREFILL_REPLICAS``
         / ``MXNET_SERVE_DECODE_REPLICAS`` (1/1) roles."""
         name = str(name)
-        if mesh is not None:
-            raise MXNetError(
-                f"model {name!r}: mesh= (mesh-sharded replicas, "
-                "serve.sharded.ShardedSlotDecoder) is not ported yet "
-                "(ROADMAP.md §1 item 13)")
         if name in self._specs:
             raise ValueError(f"model {name!r} already registered")
         share = float(share)
@@ -246,7 +244,7 @@ class ModelRegistry:
                     f"decode={n_d}")
         self._specs[name] = (block_or_decoder, share, dict(engine_kwargs),
                              None if replicas is None else int(replicas),
-                             n_p, n_d)
+                             mesh, n_p, n_d)
         return self
 
     def __len__(self):
@@ -328,8 +326,7 @@ class ModelRegistry:
         spec — the elastic controller's scale-up path (the construction
         path is `_build`). Pre-built-decoder entries carry no recipe to
         rebuild from; scaling those needs a factory passed to the
-        controller. ``mesh`` raises until the sharded engine is
-        ported."""
+        controller. ``mesh`` builds a `ShardedSlotDecoder` over it."""
         spec = self._specs.get(name)
         if spec is None:
             raise ValueError(f"unknown model {name!r} (registered: "
@@ -346,20 +343,19 @@ class ModelRegistry:
         if n_pages is not None:
             rkw["n_pages"] = int(n_pages)
         if mesh is not None:
-            raise MXNetError(
-                f"model {name!r}: a mesh-sharded engine "
-                "(serve.sharded.ShardedSlotDecoder) is not ported yet "
-                "(ROADMAP.md §1 item 13)")
+            from .sharded import ShardedSlotDecoder
+
+            return ShardedSlotDecoder(block, mesh=mesh, **rkw)
         return SlotDecoder(block, **rkw)
 
     def _build(self, policy, max_queue, default_deadline, eos_id, seed):
-        from .router import ReplicaRouter
+        from .router import ReplicaRouter, replica_meshes
 
         if not self._specs:
             raise ValueError("ModelRegistry is empty — add() a model "
                              "before constructing the Gateway")
         models = {}
-        for i, (name, (block, share, kw, n_rep,
+        for i, (name, (block, share, kw, n_rep, mesh,
                        n_p, n_d)) in enumerate(self._specs.items()):
             prebuilt = None
             if isinstance(block, (list, tuple)) \
@@ -403,6 +399,18 @@ class ModelRegistry:
                     f"model {name!r}: engine kwargs {sorted(kw)} "
                     "cannot apply to a pre-built decoder — configure "
                     "it at construction instead")
+            if mesh is None:
+                meshes = [None] * n_rep
+            elif isinstance(mesh, (list, tuple)):
+                if len(mesh) != n_rep:
+                    raise ValueError(
+                        f"model {name!r}: {len(mesh)} meshes for "
+                        f"{n_rep} replicas")
+                meshes = list(mesh)
+            elif hasattr(mesh, "devices") and hasattr(mesh, "shape"):
+                meshes = [mesh] * n_rep  # one shared mesh: caller's call
+            else:
+                meshes = replica_meshes(mesh, n_rep)
             if n_p is not None:
                 per_role_pages = self.rebalance_pages_disagg(name, n_p,
                                                              n_d)
@@ -422,7 +430,13 @@ class ModelRegistry:
                         else:
                             rkw["n_pages"] = self.rebalance_pages(name,
                                                                   n_rep)
-                    slots = SlotDecoder(block, **rkw)
+                    if meshes[j] is not None:
+                        from .sharded import ShardedSlotDecoder
+
+                        slots = ShardedSlotDecoder(block, mesh=meshes[j],
+                                                   **rkw)
+                    else:
+                        slots = SlotDecoder(block, **rkw)
                 label = name if n_rep == 1 else f"{name}#{j}"
                 # the engine's registry series carry the replica label
                 # (serve:<model>#<j>)

@@ -1,13 +1,13 @@
 """Replica routing for pod-scale serving: which of a model's N engines
 gets the next request (port of `incubator_mxnet_tpu/serve/router.py`:
-`ReplicaRouter` :75 with its host scoring, `pick`, `pick_prefill` and
-`pick_decode`; `replica_meshes` :45 raises until the mesh paths are
-ported).
+`replica_meshes` :45, `ReplicaRouter` :75 with its host scoring, `pick`,
+`pick_prefill` and `pick_decode`).
 
 One model behind the gateway may be served by N independent replicas
-(`ModelRegistry.add(..., replicas=N)`) — each its own `SlotDecoder`, page
-pool, prefix cache, scheduler and graphs; on one card they share the
-device. This module decides placement:
+(`ModelRegistry.add(..., replicas=N)`) — each its own `SlotDecoder` (or,
+with ``mesh=``, `serve.sharded.ShardedSlotDecoder` over its own slice of
+the world's ranks), page pool, prefix cache, scheduler and graphs; on one
+card they share the device. This module decides placement:
 
 - **least-loaded** — replicas are ranked by headroom: the free fraction
   of their KV page pool minus a queue-depth penalty
@@ -30,9 +30,8 @@ Affinity never overrides viability: a warm replica with no capacity is
 skipped (the gateway may then preempt on the chosen replica, not the
 warm one). Ties inside the warm set fall back to least-loaded.
 
-In the reference, `replica_meshes` carves one host's device list into
-disjoint per-replica mesh slices; in the port it raises `MXNetError`
-until the sharded serving engine is ported (`ROADMAP.md` §1 item 13).
+`replica_meshes` carves the world's ranks (the reference: one host's
+devices) into disjoint, consecutive per-replica mesh slices.
 """
 from __future__ import annotations
 
@@ -44,15 +43,28 @@ __all__ = ["ReplicaRouter", "replica_meshes"]
 _AFFINITY_MODES = ("prefix", "tenant", "off")
 
 
-def replica_meshes(spec, n_replicas, devices=None):  # noqa: ARG001
-    """N disjoint serving meshes, in the reference. The port's replicas
-    share one card until its sharded serving engine comes, so this
-    raises."""
-    from ..base import MXNetError
+def replica_meshes(spec, n_replicas, devices=None):
+    """N disjoint serving meshes of ``prod(spec)`` ranks each, carved
+    consecutively from ``devices`` (default: every rank of the world).
+    Raises when the world cannot seat ``n_replicas × prod(spec)``
+    ranks."""
+    from ..parallel.mesh import _world
+    from .sharded import parse_mesh_spec, serve_mesh
 
-    raise MXNetError(
-        "serve.router.replica_meshes is not ported yet: it carves device "
-        "meshes for the sharded serving engine (ROADMAP.md §1 item 13)")
+    axes = parse_mesh_spec(spec)
+    per = 1
+    for v in axes.values():
+        per *= int(v)
+    if devices is None:
+        devices = range(_world()[2])
+    devices = list(devices)
+    need = per * int(n_replicas)
+    if len(devices) < need:
+        raise ValueError(
+            f"replica_meshes: {n_replicas} replicas of {axes} need "
+            f"{need} devices, have {len(devices)}")
+    return [serve_mesh(axes, devices=devices[i * per:(i + 1) * per])
+            for i in range(int(n_replicas))]
 
 
 def _tenant_hash(tenant, n):

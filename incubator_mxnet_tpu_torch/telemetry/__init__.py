@@ -37,11 +37,16 @@ Importing the package arms the NDArray host->device inlet
 (``mx_h2d_bytes_total``, `registry.add_h2d_bytes`).
 
 Every probe is a dead branch until the plane is armed
-(``MXNET_TELEMETRY=1`` at import, or each module's ``enable()``). The
-fleet plane (the cross-rank view) is `ROADMAP.md` §1 item 13.
+(``MXNET_TELEMETRY=1`` at import, or each module's ``enable()``).
+
+`fleet` is the cross-rank plane: the collective profiler on
+`parallel.dist` and the mesh collectives' census, barrier arrival skew,
+`fleet_report()` (per-rank and aggregate registries, a straggler score),
+clock offsets and stitched multi-rank timelines, and the crash fanout's
+flight dumps (`merge_flight_dumps`).
 """
 from . import locks  # noqa: I001  (first: tracked_lock feeds the rest)
-from . import (anatomy, burnrate, capacity, compiles, goodput, hbm,
+from . import (anatomy, burnrate, capacity, compiles, fleet, goodput, hbm,
                kernels, monitor, registry, roofline, slo, stages,
                timeseries, tracing)
 from .monitor import Monitor, install_nan_hook
@@ -54,5 +59,5 @@ _nd_mod._H2D_HOOK = registry.add_h2d_bytes
 
 __all__ = ["registry", "locks", "tracing", "capacity", "anatomy", "slo",
            "timeseries", "burnrate", "goodput", "hbm", "compiles",
-           "stages", "roofline", "kernels", "monitor", "Monitor",
+           "stages", "roofline", "kernels", "monitor", "Monitor", "fleet",
            "install_nan_hook"]

@@ -26,9 +26,10 @@ NaN hook (`install_nan_hook`): catches the first non-finite op output.
 ``MXNET_TELEMETRY=raise`` (or ``warn``) installs the hook at import
 (`util._apply_env_config`).
 
-Rank statistics: `queue_rank_stats()`, `sync_rank_stats()` and
-`rank_aggregate()` take the single-process path (the local summary); the
-exchange across processes is `ROADMAP.md` §1 item 13.
+Rank statistics: `queue_rank_stats()` queues this rank's summary,
+`sync_rank_stats()` (called by `KVStoreDist.barrier` on every rank)
+exchanges the summaries over `dist.exchange_objs`, and `rank_aggregate()`
+gives their min/max/mean over the ranks.
 
 `TelemetryHandler` is the Estimator's handler feeding the registry's
 step series (`registry.step`): each batch's wall time and examples.
@@ -335,13 +336,20 @@ def queue_rank_stats(stats):
 
 
 def sync_rank_stats():
-    """Min/max/mean of the queued rank summaries. One process: the local
-    summary (the exchange across processes is `ROADMAP.md` §1 item 13).
+    """Collective min/max/mean of the queued rank summaries — called from
+    `KVStoreDist.barrier` on EVERY rank (the channel of
+    `profiler.sync_remote_commands`). One process: the local summary.
     Returns the aggregate and caches it for `rank_aggregate()`."""
     global _RANK_SUMMARY
     mine, _RANK_SUMMARY = _RANK_SUMMARY, {}
+    from ..parallel import dist
+
+    if dist.is_initialized():
+        all_stats = [s or {} for s in dist.exchange_objs(mine)]
+    else:
+        all_stats = [mine]
     merged = {}
-    for stats in [mine]:
+    for stats in all_stats:
         for k, v in stats.items():
             merged.setdefault(k, []).append(v)
     _RANK_AGGREGATE.clear()

@@ -473,6 +473,9 @@ def _flight_dir():
 
 
 _FLIGHT_CONTEXT = {}          # name -> probe() returning a JSON-able dict
+_RANK_STAMP = None            # set by telemetry.fleet on multi-rank runs:
+                              # rank-stamps default flightrec filenames so
+                              # a shared dir keeps every rank's dump apart
 
 
 def register_flight_context(name, probe):
@@ -500,7 +503,8 @@ def _flight_context():
 def flight_dump(reason, exc=None, path=None):
     """Snapshot the last `_FLIGHT_SPANS` finished spans, every still-open
     span (the in-flight work at crash time), orphan events, and the armed
-    chaos schedule into ``flightrec_<reason>_<pid>.json``. Returns the
+    chaos schedule into ``flightrec_<reason>_[rank<r>_]<pid>.json`` (the
+    rank stamp on a multi-rank run with the fleet plane armed). Returns the
     written path. The file is overwritten per (reason, pid) — bounded
     artifacts, the LAST crash wins."""
     spans = finished_spans()[-_FLIGHT_SPANS:]
@@ -525,8 +529,10 @@ def flight_dump(reason, exc=None, path=None):
     if path is None:
         safe = "".join(c if c.isalnum() or c in "-_." else "_"
                        for c in str(reason))[:60]
+        stamp = (f"rank{_RANK_STAMP:03d}_" if _RANK_STAMP is not None
+                 else "")
         path = os.path.join(_flight_dir(),
-                            f"flightrec_{safe}_{os.getpid()}.json")
+                            f"flightrec_{safe}_{stamp}{os.getpid()}.json")
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(payload, f, indent=1)

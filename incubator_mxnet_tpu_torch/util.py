@@ -382,6 +382,33 @@ _ENV_KNOBS = {
         " in the sampled ring (default 0.05, clamped to [0,1]); flagged "
         "requests (SLO violation / preempted / migrated / crash resume) are "
         "always retained regardless (honored, this build's addition)"),
+    "MXNET_SERVE_MESH": (
+        "serve.sharded.serve_mesh", "default serving mesh spec of a "
+        "ShardedSlotDecoder built without mesh=: 'tp=4', '4' or "
+        "'fsdp=1,tp=4' (default tp=1); its ranks are the world's first "
+        "prod(sizes) (honored, this build's addition)"),
+    "MXNET_FLEET": (
+        "telemetry.fleet", "1 = arm the cross-rank fleet plane alone "
+        "(collective profiler, barrier skew, flightrec rank stamp + crash "
+        "fanout); also armed by MXNET_TELEMETRY; enable on EVERY rank or "
+        "none (honored, this build's addition)"),
+    "MXNET_FLEET_SKEW_EVERY": (
+        "telemetry.fleet", "sample the barrier arrival-skew exchange every "
+        "Nth barrier (default 1 = every barrier; 0 = off — the exchange adds"
+        " one collective per sampled barrier) (honored, this build's "
+        "addition)"),
+    "MXNET_FLEET_CHUNK_BYTES": (
+        "telemetry.fleet.exchange_large", "chunk size for the registry-"
+        "snapshot exchange past the 4 KiB exchange_objs slot (default 3000)"
+        " (honored, this build's addition)"),
+    "MXNET_FLEET_STRAGGLER_Z": (
+        "telemetry.fleet.install_health_check", "straggler z-score above "
+        "which monitor.check() raises (default 2.5) (honored, this build's "
+        "addition)"),
+    "MXNET_FLEET_TRACE_DIR": (
+        "telemetry.fleet.dump_rank_trace", "directory for per-rank fleet "
+        "span dumps (default: the flightrec dir) (honored, this build's "
+        "addition)"),
     "MXNET_ANATOMY_RING": (
         "telemetry.anatomy", "depth of EACH request-archive ring (tail + "
         "sampled; default 256, min 1) — bounds the goodput observatory's "
@@ -398,29 +425,37 @@ def _apply_env_config():
     """Honor the arming knobs at the package's import, as the reference's
     `_apply_env_config` does for the modules the port has: a truthy
     ``MXNET_TELEMETRY`` arms the funnel's stage probes, span tracing, the
-    lock witness, the program ledger, the device-memory census and the
-    goodput ledger (the capacity and anatomy ledgers arm themselves from
+    lock witness, the program ledger, the device-memory census, the fleet
+    plane and the goodput ledger (the capacity and anatomy ledgers arm themselves from
     it at import), and ``raise`` or ``warn`` the NaN guard in that mode;
     ``MXNET_TELEMETRY_DUMP=<path>[:interval_s]`` the registry's textfile
     snapshots;
-    ``MXNET_GOODPUT`` arms the goodput ledger alone,
+    ``MXNET_GOODPUT`` arms the goodput ledger alone, ``MXNET_FLEET`` the
+    fleet plane alone,
     ``MXNET_MEMWATCH_INTERVAL`` the memory watchdog's thread, and
     ``MXNET_FAULT_INJECT`` the chaos schedule. ``MXNET_OOM_POSTMORTEM`` is
     read at each failure; ``MXNET_TS_INTERVAL`` arms the timeseries
     sampler at that module's import."""
     telem = os.environ.get("MXNET_TELEMETRY", "0")
     if telem and telem != "0":
-        from .telemetry import (compiles, goodput, hbm, locks, monitor,
-                                stages, tracing)
+        from .telemetry import (compiles, fleet, goodput, hbm, locks,
+                                monitor, stages, tracing)
 
         stages.enable()
         tracing.enable()
         locks.enable()
         compiles.enable()       # program ledger + recompile forensics
         hbm.enable()            # device-memory census gauges + OOM seams
+        fleet.enable()          # cross-rank collective profiler + fanout
         goodput.enable()        # training goodput ledger (lease seams)
         if telem in ("raise", "warn"):
             monitor.install_nan_hook(mode=telem)
+    if os.environ.get("MXNET_FLEET", "0") not in ("0", ""):
+        # the fleet plane alone; set on EVERY rank or none: the barrier
+        # skew exchange is itself a collective
+        from .telemetry import fleet as _fleet
+
+        _fleet.enable()
     if os.environ.get("MXNET_GOODPUT", "0") not in ("0", ""):
         from .telemetry import goodput as _goodput
 

@@ -147,7 +147,7 @@ def test_tiers_quota_and_bucket_equal_reference():
 def test_router_scores_and_picks_equal_reference():
     """`ReplicaRouter` host scoring on stub replicas of both packages:
     least-loaded, prefix affinity, tenant hashing, the two disaggregated
-    stages; `replica_meshes` raises in the port."""
+    stages; `replica_meshes` carves the same slices as the reference's."""
     def reps(pkg, roles):
         out = []
         for i, role in enumerate(roles):
@@ -178,7 +178,14 @@ def test_router_scores_and_picks_equal_reference():
                 out.append(rs.index(rt.pick_decode(rs, prompt=warm)))
             picks.append(out)
         assert picks[0] == picks[1]
-    with pytest.raises(MXNetError, match="item 13"):
+    # the world's ranks (one here) carved as the reference carves its
+    # devices: consecutive disjoint slices, the same error when short
+    meshes = trouter.replica_meshes("tp=2", 2, devices=range(4))
+    jmeshes = jserve.router.replica_meshes("tp=2", 2)
+    assert [m.devices.tolist() for m in meshes] == [[0, 1], [2, 3]]
+    assert [[d.id for d in m.devices.flat] for m in jmeshes] == [[0, 1],
+                                                                 [2, 3]]
+    with pytest.raises(ValueError, match="need 8 devices, have 1"):
         trouter.replica_meshes("tp=4", 2)
 
 
@@ -255,9 +262,10 @@ def test_gateway_constructor_validation(pkg):
 
 
 def test_gateway_not_ported_parts_raise_naming_the_roadmap():
-    """Mesh-sharded replicas still raise naming their `ROADMAP.md` item;
-    the elastic controller and the advisor, once stubs that raised, now
-    arm: `enable_elastic` returns the controller, and ``MXNET_ADVISOR`` /
+    """The parts that once raised naming their `ROADMAP.md` item now run:
+    ``mesh=`` is registered and carved into replica meshes at
+    construction (refused loudly when the world cannot seat them), and
+    the elastic controller and the advisor arm: `enable_elastic` returns the controller, and ``MXNET_ADVISOR`` /
     ``MXNET_ELASTIC_SERVE`` arm the advisor and the controller at
     construction (the reference's knobs)."""
     from incubator_mxnet_tpu_torch.serve.advisor import AutoscaleAdvisor
@@ -265,8 +273,13 @@ def test_gateway_not_ported_parts_raise_naming_the_roadmap():
     from incubator_mxnet_tpu_torch.telemetry import timeseries
 
     reg = tserve.ModelRegistry()
-    with pytest.raises(MXNetError, match="item 13"):
-        reg.add("m", _StubSlots(PKGS["port"]), mesh="tp=2")
+    # mesh= is taken, and carved at construction: a world of one rank
+    # cannot seat two
+    reg.add("mesh", _StubSlots(PKGS["port"]), mesh="tp=2")
+    assert reg._specs["mesh"][4] == "tp=2"
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        tserve.Gateway(reg)
+    reg = tserve.ModelRegistry()
     reg.add("m", _StubSlots(PKGS["port"]))
     gw = tserve.Gateway(reg)
     assert isinstance(gw.enable_elastic(), ReplicaSetController)
@@ -291,7 +304,7 @@ def test_gateway_not_ported_parts_raise_naming_the_roadmap():
 def test_registry_builds_engines_from_its_recipe():
     """`ModelRegistry.build_engine`: a fresh `SlotDecoder` from a model's
     registered recipe and a page count; pre-built entries have no recipe;
-    a mesh raises until the sharded engine is ported."""
+    a mesh builds a `ShardedSlotDecoder`."""
     reg = tserve.ModelRegistry(total_pages=40)
     reg.add("g", _tiny_port(0), max_slots=2, max_len=64)
     reg.add("s", _StubSlots(PKGS["port"]))
@@ -302,8 +315,19 @@ def test_registry_builds_engines_from_its_recipe():
         reg.build_engine("s")
     with pytest.raises(ValueError):
         reg.build_engine("nope")
-    with pytest.raises(MXNetError, match="item 13"):
-        reg.build_engine("g", mesh=object())
+    # a mesh builds the sharded engine: on a mesh of one (the front
+    # alone) it serves the recipe's model
+    sh = reg.build_engine("g", mesh=tserve.serve_mesh("tp=1"), n_pages=10)
+    try:
+        assert isinstance(sh, tserve.ShardedSlotDecoder)
+        assert sh.allocator.n_pages == 10 and sh.max_slots == 2
+        sched = tserve.Scheduler(sh)
+        req = sched.submit(_prompt(5), 3)
+        while not req.done:
+            sched.step()
+        assert len(req.result()) == 3
+    finally:
+        sh.release()
 
 
 def test_gateway_custom_tiers_and_env_knobs(pkg, monkeypatch):

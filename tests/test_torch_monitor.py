@@ -218,3 +218,19 @@ def test_telemetry_raise_installs_the_hook_at_import():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "raise True" in out.stdout
+
+
+def test_rank_aggregation_over_two_ranks_at_a_kvstore_barrier(tmp_path):
+    """Each rank's queued summary is exchanged at a `KVStoreDist.barrier`
+    of a 2-rank gloo world (`sync_rank_stats` over `dist.exchange_objs`):
+    `rank_aggregate()` gives the min/max/mean over both, on both."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_worlds import world
+
+    res = world.spawn(os.path.join(os.path.dirname(__file__), "torch_worlds",
+                                   "kv_commands.py"), 2, tmp_path)
+    for out in res:
+        assert out["forbidden"] == []
+        assert out["aggregate"] == {
+            "loss": {"min": 1.0, "max": 2.0, "mean": 1.5, "ranks": 2},
+            "rank": {"min": 0.0, "max": 1.0, "mean": 0.5, "ranks": 2}}

@@ -245,6 +245,55 @@ def test_device_lanes_start_after_their_launch_calls():
         assert got == want, (lead, got)
 
 
+def test_device_lanes_end_before_the_calls_that_waited():
+    """The converted clock can also read work after the host call that
+    waited for it (a copy to pageable memory returns once the copy is
+    done; a device synchronisation once all work launched before it is):
+    the lanes are moved back by the least that puts it inside. Where the
+    two bounds disagree the shift splits the disagreement and the meta
+    says how large it is."""
+    def call(name, corr, ts, dur):
+        return {"ph": "X", "cat": "cuda_runtime", "name": name, "pid": 7,
+                "tid": 7, "ts": ts, "dur": dur,
+                "args": {} if corr is None else {"correlation": corr}}
+
+    def work(name, corr, ts, dur=5.0, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 7,
+                "ts": ts, "dur": dur, "args": {"correlation": corr}}
+
+    dtoh = "Memcpy DtoH (Device -> Pageable)"
+    cases = (
+        # the copy ends 30 us after its call returns: back by 30
+        (-30.0, 0.0, [call("cudaGraphLaunch", 1, 100.0, 2.0),
+                      work("a", 1, 140.0), call("cudaMemcpyAsync", 2, 110.0,
+                                                50.0),
+                      work(dtoh, 2, 180.0, 10.0, "gpu_memcpy")]),
+        # the kernel ends 20 us after a device synchronisation returns
+        (-20.0, 0.0, [call("cudaLaunchKernel", 1, 100.0, 2.0),
+                      work("a", 1, 150.0, 30.0),
+                      call("cudaDeviceSynchronize", None, 110.0, 50.0)]),
+        # a synchronisation that began before the launch bounds nothing
+        (0.0, 0.0, [call("cudaDeviceSynchronize", None, 90.0, 5.0),
+                    call("cudaLaunchKernel", 1, 100.0, 2.0),
+                    work("a", 1, 150.0, 30.0)]),
+        # the kernel starts 10 us before its launch and the copy ends
+        # 5 us after its call: no shift obeys both
+        (2.5, 15.0, [call("cudaGraphLaunch", 1, 100.0, 2.0),
+                      work("a", 1, 90.0), call("cudaMemcpyAsync", 2, 105.0,
+                                               20.0),
+                      work(dtoh, 2, 120.0, 10.0, "gpu_memcpy")]))
+    for shift, conflict, events in cases:
+        tprof.dumps(reset=True)
+        tprof._ingest_trace({"traceEvents": events}, [])
+        got = {e["name"]: e["ts"] for e in _kernels(tprof.device_events())}
+        want = {e["name"]: e["ts"] + shift for e in events
+                if e["cat"] != "cuda_runtime"}
+        assert got == want, (shift, got)
+        meta = tprof.trace_meta()
+        assert (meta["device_shift_us"], meta["clock_conflict_us"]) == (
+            shift, conflict)
+
+
 def test_paused_work_is_what_was_launched_while_paused():
     """The pause is on the host's clock, and so is each launch call: work
     launched inside the interval is dropped wherever the card ran it, and
@@ -442,3 +491,23 @@ def test_h2d_bytes_counter_counts_host_arrays():
     with tmx.cpu():
         tmx.np.array([1.0, 2.0, 3.0, 4.0])
     assert tregistry.H2D_BYTES.value - before == 16
+
+
+def test_server_command_queued_on_one_rank_applies_at_a_kvstore_barrier(
+        tmp_path):
+    """A ``profile_process="server"`` `set_config` queued on rank 1 of a
+    2-rank gloo world applies on rank 0 too at the next
+    `KVStoreDist.barrier` (`sync_remote_commands` over
+    `dist.exchange_objs`), and nothing stays queued."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_worlds import world
+
+    res = world.spawn(os.path.join(os.path.dirname(__file__), "torch_worlds",
+                                   "kv_commands.py"), 2, tmp_path)
+    for out in res:
+        assert out["forbidden"] == []
+        assert out["before"] != "from_rank1.json"
+        assert out["filename"] == "from_rank1.json"
+        assert out["pending"] == []

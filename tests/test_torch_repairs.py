@@ -27,8 +27,6 @@ INCIDENTAL = {"os", "re", "functools", "onp", "annotations", "Callable",
               "Sequence", "np_dtype", "apply_op_flat", "register_aux_update",
               "next_key"}
 
-ITEM_13 = ("ROADMAP.md §1 item 13 (sharded serving, the elastic layout, the "
-           "fleet plane, shardcheck)")
 ITEM_11B = "ROADMAP.md §1 item 11b (the rest of the breadth)"
 
 NPX_ITEM_11B = (
@@ -64,8 +62,7 @@ NOT_PORTED = {
         "log name onnx operator registry rtc runtime sym symbol utils "
         "visualization viz".split(), ITEM_11B),
     "models": {},
-    "serve": dict.fromkeys("ServeLayout ShardedSlotDecoder replica_meshes "
-                           "serve_mesh sharded".split(), ITEM_13),
+    "serve": {}, "serve.sharded": {}, "serve.router": {},
     "ops": {},
     "gluon": dict.fromkeys("probability rnn".split(), ITEM_11B),
     "gluon.nn": {},
@@ -92,7 +89,7 @@ NOT_PORTED = {
     "numpy": {},
     "numpy.linalg": {},
     "numpy.random": {},
-    "telemetry": {"fleet": ITEM_13},
+    "telemetry": {}, "telemetry.fleet": {},
     "telemetry.monitor": {},
     "telemetry.kernels": {}, "telemetry.roofline": {},
     "telemetry.stages": {}, "telemetry.registry": {},

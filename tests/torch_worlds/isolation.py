@@ -11,7 +11,8 @@ DIST_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
                 "parallel.moe", "kvstore", "kvstore.kvstore",
                 "kvstore.horovod", "kvstore.byteps", "kvstore.compression",
                 "models.sharded_bert", "gluon.contrib.moe",
-                "analysis.shardcheck", "fault.elastic")
+                "analysis.shardcheck", "fault.elastic", "serve.sharded",
+                "telemetry.fleet")
 
 
 def run(rank, n):
