@@ -268,6 +268,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    bit for bit; ``[dist 5]``: GPipe over pp = 4 and top-2 MoE over ep = 4
    against one rank, 3 falling training steps each. ``--only dist`` runs
    the build and ``[dist]`` alone (no result line).
+17. ``[int8]`` (after ``[fleet]``, before ``[elastic]``): ``bench.py:1754``'s
+   int8 ResNet-50 pair on the port: ``resnet50_v1`` at batch 64 x 3 x
+   224^2, an f32 net and its copy through ``contrib.quantization.
+   quantize_net`` (naive calibration on x[:8]), both hybridized. The
+   rewrite's census against the reference's counts; the int8 net on x[:8]
+   through the Q1/Q2 kernels against the same net on their plain versions,
+   bit for bit, and Q1's int32 sums at the stem, a 3x3 and the Dense; the
+   card against the CPU; 54 Q1 and 1 Q2 launches an eager forward; Q1 at
+   the stem, a stage-1 3x3, a stage-4 1x1 and the Dense and Q2 at the
+   stem's pool timed beside their bounds, plain versions and cuDNN's f32
+   and bf16 convolutions (``torch._int_mm`` for the Dense); the
+   interleaved timed pair (best images/s, the median ratio), device ms a
+   forward, one replay by kernel (Q1 by layer class, Q2, the rest), top-1
+   agreement and logit error against f32. ``[rnn]``: the store's
+   ``lstm_charlm_tiny`` on the card against the CPU; a 2-layer
+   bidirectional LSTM, a GRU and an rnn_tanh RNN forward and backward
+   against the CPU; the dropout between layers through K5 in training;
+   three ``Trainer`` steps of the char LM, eager and hybridized.
+   ``--only int8`` runs the build, ``[int8]`` and ``[rnn]`` alone (no
+   result line).
 
 Everything it has to say comes on earlier lines: the card's name and
 power limit (``nvidia-smi``), ``{"train": ...}``, ``{"train_amp": ...}``,
@@ -277,8 +297,10 @@ the serving plane's (``{"gateway_a": ...}`` ... ``{"elastic": ...}``) and
 ``{"gelu_dropout": ...}``, ``{"nd": ...}``, ``{"gluon": ...}``,
 ``{"amp16": ...}``, ``{"dense": ...}``, ``{"vision": ...}``,
 ``{"np4": ...}``, ``{"observe": ...}``, ``{"fit": ...}``,
-``{"pipeline": ...}``, ``{"dist": ...}`` lines, one
-``{"kernels": [...]}`` line (the fold kernel of the device keys last), and
+``{"pipeline": ...}``, ``{"dist": ...}``, ``{"shard": ...}``,
+``{"fleet": ...}``, ``{"int8": ...}``, ``{"rnn": ...}`` lines, one
+``{"kernels": [...]}`` line (the fold kernel of the device keys, then Q1
+and Q2, last), and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 and prints no result; so does a run without a CUDA device, or one
 outside a checkout of the repository. TF32 is off for matmuls and cuDNN
@@ -832,6 +854,16 @@ def phase_build():
         # in f32, bf16 and f16
         check(len(sass) == 21, f"expected 21 flash kernels in the SASS, "
               f"found {sorted(sass)}")
+
+    if tool is not None:
+        imma = sum(1 for line in sass_of("int8_conv").splitlines()
+                   if " IMMA." in line or " IMMA " in line)
+        log(f"[build] int8_conv: {imma} IMMA (int8 tensor-core) "
+            f"instructions in the SASS")
+        check(imma > 0, "int8_conv has no int8 tensor-core instruction")
+    for stem in ("int8_conv", "int8_pool"):
+        check(all(s == 0 for _, s in _ptxas_report(logs[stem]).values()),
+              f"{stem} spills registers")
 
     for stem in redesigned:
         regs = {_row_kernel_label(k): v for k, v in
@@ -10967,6 +10999,722 @@ def phase_fleet(torch, dev):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# [int8]: bench.py:1754's int8 ResNet-50 pair on the port (Q1, Q2)
+# ---------------------------------------------------------------------------
+
+INT8_B, INT8_SIZE = 64, 224          # bench.py:1754 (bench_resnet50_infer_pair)
+INT8_CALIB = 8                       # calib_data=[x[:8]], calib_mode="naive"
+INT8_ROUNDS, INT8_ITERS = 3, 10      # bench.py's interleaved rounds
+INT8_CHECK_B = 8                     # the kernel path against the plain one
+INT8_CPU_B = 2                       # the card against the CPU
+# the card's quantized net against the same net on the CPU (every parameter
+# and threshold copied), max|d| / max|cpu logit|: the int32 sums are exact
+# on both and each elementwise op of the chain is IEEE on both; the global
+# average pool sums in another order, so a mean at a rounding tie can move
+# one of the Dense's input codes by one step
+INT8_CPU_TOL = 1e-2
+# quantize_net's rewrite of resnet50_v1, counted from its log: the
+# reference's counts for the same architecture (its quantize_net on
+# resnet50_v1 logs the same); the CPU port's rewrite is held to them by
+# tests/test_torch_quantization.py::test_resnet50_census_is_the_one_chip_
+# smoke_checks
+INT8_CENSUS = {"folded": 53, "quantized": 54, "requantize-chained": 32,
+               "residual-chained": 16, "boundary-chained": 4}
+INT8_LAUNCHES = {"Q1": 54, "Q2": 1}  # an eager forward's
+INT8_TIME_REPS = 20
+PEAK_INT8_OPS = 1979e12              # H100 SXM, dense int8 tensor cores
+SRC = "incubator_mxnet_tpu_torch/csrc/"
+Q1_REPLACES = ("incubator_mxnet_tpu/contrib/quantization.py:405 "
+               "(lax.conv_general_dilated at preferred_element_type=int32, "
+               "and :334 the Dense's dot_general; not a Pallas kernel)")
+Q2_REPLACES = ("incubator_mxnet_tpu/numpy_extension/__init__.py:492 "
+               "(lax.reduce_window max over int8 codes; not a Pallas "
+               "kernel)")
+
+
+class _Int8Log:
+    """A logging handler counting quantize_net's rewrite messages by
+    their first word."""
+
+    def __init__(self):
+        import collections
+        import logging
+
+        self.counts = collections.Counter()
+        counts = self.counts
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                counts[record.getMessage().split(" ")[0]] += 1
+
+        self.logger = logging.getLogger("chip_smoke.int8")
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        self.logger.addHandler(Handler())
+
+
+def _int8_plain():
+    """A context in which the quantized layers and npx.pooling run Q1's
+    and Q2's plain versions on the card (the wrappers' impl="plain"): the
+    net on the plain path, which the kernel path is held against."""
+    import contextlib
+    import functools
+
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {n: getattr(q, n) for n in ("conv_int8", "dense_int8",
+                                            "max_pool_int")}
+        try:
+            for n, fn in saved.items():
+                setattr(q, n, functools.partial(fn, impl="plain"))
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(q, n, fn)
+
+    return ctx()
+
+
+def _int8_layers(net):
+    """The quantized layers in forward order with their class (stem, 1x1,
+    3x3, dense), and the stem's max pool."""
+    from incubator_mxnet_tpu_torch.contrib import quantization as cq
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    layers, pool = [], None
+    for m in net.modules():
+        if isinstance(m, cq.QuantizedDense):
+            layers.append(("dense", m))
+        elif isinstance(m, cq.QuantizedConv2D):
+            k = m.qweight.shape[2]
+            layers.append(("stem" if k == 7 else f"{k}x{k}", m))
+        elif isinstance(m, nn.MaxPool2D):
+            pool = m
+    return layers, pool
+
+
+def _int8_capture(net, x, layers, pool):
+    """One eager forward of ``net`` on ``x`` recording each quantized
+    layer's input (and the pool's), in forward order."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, c=c: seen.append((c, mod, args[0])))
+        for c, m in layers]
+    hooks.append(pool.register_forward_pre_hook(
+        lambda mod, args: seen.append(("pool", mod, args[0]))))
+    try:
+        out = net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, seen
+
+
+def _int8_codes(torch, layer, xin):
+    """The int8 codes Q1 reads for ``layer``'s input (a float input is
+    quantized at the layer's threshold first, as its forward does)."""
+    from incubator_mxnet_tpu_torch.contrib import quantization as cq
+
+    t = getattr(xin, "_data", xin)
+    if t.dtype == torch.int8:
+        return t
+    if isinstance(layer, cq.QuantizedDense) and t.dim() > 2:
+        t = t.reshape(t.shape[0], -1)
+    return cq._quantize_input(t, layer.qthreshold.data()._data)
+
+
+def _q1_args(torch, layer, xq):
+    """(fn(xq, impl) -> Q1's output at the layer's own epilogue, its
+    bytes and operations)."""
+    from incubator_mxnet_tpu_torch.contrib import quantization as cq
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    th = layer.qthreshold.data()._data
+    ws = layer.qscale.data()._data
+    wq = layer.qweight.data()._data
+    b = None if layer.qbias is None else layer.qbias.data()._data
+    ot = layer._out_threshold
+    ot = None if ot is None else ot.data()._data
+    od = torch.int8 if ot is not None else torch.float32
+    if isinstance(layer, cq.QuantizedDense):
+        def fn(a, impl="kernel"):
+            return q.dense_int8(a, wq, th, ws, b, ot, od, impl=impl)
+        out_shape = (xq.shape[0], wq.shape[0])
+        cost = q.conv_cost(tuple(xq.shape) + (1, 1), tuple(wq.shape)
+                           + (1, 1), out_shape, od)
+    else:
+        def fn(a, impl="kernel"):
+            return q.conv_int8(a, wq, th, ws, b, ot, od, layer._stride,
+                               layer._pad, layer._dilate, layer._groups,
+                               impl=impl)
+        out = fn(xq)
+        cost = q.conv_cost(tuple(xq.shape), tuple(wq.shape),
+                           tuple(out.shape), od)
+    return fn, cost
+
+
+def _int8_kernel_rows(torch, dev, seen):
+    """Q1 at the stem, a stage-1 3x3, a stage-4 1x1 and the Dense, and Q2
+    at the stem's pool, each at the forward's own inputs: kernel and plain
+    ms (CUDA graphs, inputs cycled beyond L2), the bound, the library
+    yardstick (cuDNN's f32 and bf16 convolution of the shape, not the same
+    function; torch._int_mm for the Dense's product, without the
+    epilogue), the kernel against its plain version."""
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    picks = {}
+    for c, mod, xin in seen:
+        if c == "stem" and "stem" not in picks:
+            picks["stem"] = (mod, xin)
+        elif c == "3x3" and "stage1_3x3" not in picks:
+            picks["stage1_3x3"] = (mod, xin)
+        elif c == "1x1":
+            # the forward's last 1x1: stage 4's last block, 512 -> 2048
+            picks["stage4_1x1"] = (mod, xin)
+        elif c == "dense":
+            picks["dense"] = (mod, xin)
+        elif c == "pool":
+            picks["pool"] = (mod, xin)
+    rows = []
+    for name in ("stem", "stage1_3x3", "stage4_1x1", "dense"):
+        mod, xin = picks[name]
+        xq = _int8_codes(torch, mod, xin).contiguous()
+        fn, (nbytes, ops) = _q1_args(torch, mod, xq)
+        got, want = fn(xq), fn(xq, "plain")
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        sets = input_sets((xq,), INT8_TIME_REPS)
+        ms = time_ms(fn, sets, INT8_TIME_REPS)
+        plain_ms = time_ms(lambda a: fn(a, "plain"), sets[:2], 4)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_INT8_OPS * 1e3
+        bound_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
+        wq = mod.qweight.data()._data
+        row = dict(name=name, shape=f"x {tuple(xq.shape)} w "
+                   f"{tuple(wq.shape)} -> {getattr(got, 'dtype')}",
+                   max_abs_err=err, bitwise=err == 0.0, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                   mac=ops // 2)
+        if name == "dense":
+            wt = wq.t()              # (K, O), column-major
+            lib = time_ms(lambda a: torch._int_mm(a, wt), sets,
+                          INT8_TIME_REPS)
+            row.update(library_ms=lib, library="torch._int_mm (the int32 "
+                       "product alone, no epilogue)")
+        else:
+            xf = [(s[0].float(),) for s in sets]
+            wf = wq.float()
+            st, pd = mod._stride, mod._pad
+            f32 = time_ms(lambda a: F.conv2d(a, wf, None, st, pd), xf,
+                          INT8_TIME_REPS)
+            xb = [(s[0].to(torch.bfloat16),) for s in sets]
+            wb = wq.to(torch.bfloat16)
+            bf = time_ms(lambda a: F.conv2d(a, wb, None, st, pd), xb,
+                         INT8_TIME_REPS)
+            row.update(library_ms=None, cudnn_f32_ms=f32, cudnn_bf16_ms=bf,
+                       library="none computes an int8 convolution on CUDA; "
+                       "cuDNN's f32 and bf16 convolution of the shape "
+                       "(TF32 off), not the same function")
+        rows.append(row)
+        log(f"[int8 Q1] {name} {row['shape']}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f}, bound {bound_ms:.4f} ({by}, share "
+            f"{bound_ms / ms:.3f}), " + (
+                f"torch._int_mm {row['library_ms']:.4f}" if name == "dense"
+                else f"cuDNN f32 {row['cudnn_f32_ms']:.4f}, bf16 "
+                f"{row['cudnn_bf16_ms']:.4f}")
+            + f"; kernel vs plain max|d| {err}")
+        check(err == 0.0, f"int8: Q1 at the {name} differs from its plain "
+              f"version")
+    mod, xin = picks["pool"]
+    xp = getattr(xin, "_data", xin).contiguous()
+    check(xp.dtype == torch.int8, f"int8: the stem's pool reads {xp.dtype}")
+    k, s, p = mod._kernel, mod._stride, mod._pad
+
+    def pool(a, impl="kernel"):
+        return q.max_pool_int(a, k, s, p, impl=impl)
+
+    got, want = pool(xp), pool(xp, "plain")
+    torch.cuda.synchronize()
+    err = float((got.int() - want.int()).abs().max())
+    sets = input_sets((xp,), INT8_TIME_REPS)
+    ms = time_ms(pool, sets, INT8_TIME_REPS)
+    plain_ms = time_ms(lambda a: pool(a, "plain"), sets[:2], 4)
+    nbytes, ops = q.pool_cost(xp, tuple(got.shape), k)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    prow = dict(name="stem_pool", shape=f"{tuple(xp.shape)} int8 k{k} s{s} "
+                f"p{p}", max_abs_err=err, bitwise=err == 0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None,
+                library="none: PyTorch's CUDA max pooling takes floating "
+                "types only")
+    log(f"[int8 Q2] {prow['shape']}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, bound {bound_ms:.4f} (bytes, share "
+        f"{bound_ms / ms:.3f}); kernel vs plain max|d| {err}")
+    check(err == 0.0, "int8: Q2 differs from its plain version")
+    return rows, prow
+
+
+def _int8_split(torch, net, x, classes):
+    """One replay's device ms by kernel from torch.profiler's events
+    (three replays in the window, the last one's kernels): Q1 by layer
+    class (the i-th Q1 launch of a forward is the i-th quantized layer),
+    Q2, and the rest (torch's elementwise and copy kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            net(x)
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: e.time_range.start)
+    q1 = [e for e in evs if "int8_conv_kernel" in e.name]
+    n = len(classes)
+    if len(q1) < n:
+        return {"lost": True, "q1_events": len(q1)}
+    # the last replay: after the previous replay's last Q1 (its Dense)
+    start = q1[-n - 1].time_range.end if len(q1) > n else None
+    last = [e for e in evs if start is None or e.time_range.start >= start]
+    out = {f"q1_{c}": 0.0 for c in sorted(set(classes))}
+    for c, e in zip(classes, q1[-n:]):
+        out[f"q1_{c}"] += (e.time_range.end - e.time_range.start) / 1e3
+    out["q2"] = sum((e.time_range.end - e.time_range.start) / 1e3
+                    for e in last if "int8_max_pool_kernel" in e.name)
+    out["other"] = sum((e.time_range.end - e.time_range.start) / 1e3
+                       for e in last if "int8_" not in e.name)
+    out["q1"] = sum(v for k, v in out.items() if k.startswith("q1_"))
+    out["total"] = out["q1"] + out["q2"] + out["other"]
+    out["other_kernels"] = len([e for e in last if "int8_" not in e.name])
+    return out
+
+
+def _int8_torch_gaps(torch, dev):
+    """What PyTorch itself refuses on the card, the reason for Q1 and Q2:
+    an integer convolution (int32 operands, int32 sums) and an int8 max
+    pooling, one call each; the error each raised (None had it run)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, call in (
+            ("conv2d_int32", lambda: F.conv2d(
+                torch.ones(1, 1, 4, 4, dtype=torch.int32, device=dev),
+                torch.ones(1, 1, 3, 3, dtype=torch.int32, device=dev))),
+            ("max_pool2d_int8", lambda: F.max_pool2d(
+                torch.ones(1, 1, 4, 4, dtype=torch.int8, device=dev), 2))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = None
+        except (RuntimeError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    log(f"[int8] PyTorch on the card: {out}")
+    return out
+
+
+def phase_int8(torch, dev):
+    """[int8]: `bench.py:1754` (`bench_resnet50_infer_pair`) on the port:
+    resnet50_v1 at batch 64 x 3 x 224 x 224 (RandomState(0) uniform(-1,
+    1)), seeded, an f32 net and its copy quantized by
+    ``contrib.quantization.quantize_net(calib_data=[x[:8]],
+    calib_mode="naive")``, both hybridized. The rewrite's census; the int8
+    net on x[:8] through Q1/Q2 against the same net on their plain
+    versions, bit for bit (and the int32 sums of the stem, a 3x3 and the
+    Dense); the card against the CPU; Q1 and Q2 launches an eager forward;
+    the kernels' rows; bench.py's interleaved timed pair; device ms a
+    forward; fidelity against f32. Returns (numbers, launches, kernel
+    rows)."""
+    import copy
+
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import np
+    from incubator_mxnet_tpu_torch.contrib.quantization import quantize_net
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    t0 = time.perf_counter()
+    smi = _obs_smi()
+    gaps = _int8_torch_gaps(torch, dev)
+    xn = onp.random.RandomState(0).uniform(
+        -1, 1, (INT8_B, 3, INT8_SIZE, INT8_SIZE)).astype("float32")
+    x = np.array(xn)
+    mx.random.seed(0)
+    net32 = resnet50_v1()
+    net32.initialize()
+    net32(x[:1])
+    net8 = copy.deepcopy(net32)
+    census = _Int8Log()
+    tq = time.perf_counter()
+    quantize_net(net8, calib_data=[x[:INT8_CALIB]], calib_mode="naive",
+                 logger=census.logger)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - tq
+    got_census = {k: census.counts.get(k, 0) for k in INT8_CENSUS}
+    log(f"[int8] quantize_net(resnet50_v1, calib_data=[x[:{INT8_CALIB}]], "
+        f"naive) in {quant_s:.2f} s: {got_census} (the reference's "
+        f"{INT8_CENSUS})")
+    check(got_census == INT8_CENSUS, f"int8: census {got_census}")
+    layers, pool = _int8_layers(net8)
+    classes = [c for c, _ in layers]
+
+    # the main path: one eager forward through Q1/Q2, its launches counted
+    xc = x[:INT8_CHECK_B]
+    reset_counts()
+    q.conv_launches = q.pool_launches = 0
+    got, seen = _int8_capture(net8, xc, layers, pool)
+    torch.cuda.synchronize()
+    launches = {"Q1": q.conv_launches, "Q2": q.pool_launches}
+    log(f"[int8] an eager forward on x[:{INT8_CHECK_B}]: launches "
+        f"{launches} (expected {INT8_LAUNCHES}); Q1 by layer class "
+        + str({c: classes.count(c) for c in sorted(set(classes))}))
+    check(launches == INT8_LAUNCHES, f"int8: launches {launches}")
+    with _int8_plain():
+        want = net8(xc)
+        torch.cuda.synchronize()
+    check(q.conv_launches == INT8_LAUNCHES["Q1"],
+          "int8: the plain path launched Q1")
+    bitwise = torch.equal(got._data, want._data)
+    sums = {}
+    for c, mod, xin in seen:
+        key = {"stem": "stem", "3x3": "3x3", "dense": "dense"}.get(c)
+        if key is None or key in sums:
+            continue
+        xq = _int8_codes(torch, mod, xin)
+        fn, _ = _q1_args(torch, mod, xq)
+        wq = mod.qweight.data()._data
+        th, ws = mod.qthreshold.data()._data, mod.qscale.data()._data
+        if key == "dense":
+            a = q.dense_int8(xq, wq, th, ws, out_dtype=torch.int32,
+                             impl="kernel")
+            b = q.dense_int8(xq, wq, th, ws, out_dtype=torch.int32,
+                             impl="plain")
+        else:
+            kw = dict(out_dtype=torch.int32, stride=mod._stride,
+                      pad=mod._pad, dilate=mod._dilate, groups=mod._groups)
+            a = q.conv_int8(xq, wq, th, ws, impl="kernel", **kw)
+            b = q.conv_int8(xq, wq, th, ws, impl="plain", **kw)
+        sums[key] = bool(torch.equal(a, b))
+    log(f"[int8] kernel path against the plain path on the card, x[:"
+        f"{INT8_CHECK_B}]: logits {'bit for bit' if bitwise else 'DIFFER'} "
+        f"(max|d| {float((got._data - want._data).abs().max()):.3e}); "
+        f"int32 sums equal: {sums}")
+    check(bitwise, "int8: kernel-path logits differ from the plain path's")
+    check(all(sums.values()) and len(sums) == 3, f"int8: int32 sums {sums}")
+
+    # the card against the CPU
+    cpu8 = _vision_on(mx, net8, mx.cpu())
+    xs = xn[:INT8_CPU_B]
+    with mx.cpu():
+        ref = cpu8(np.array(xs)).asnumpy()
+    card = net8(x[:INT8_CPU_B]).asnumpy()
+    cpu_err = float(onp.abs(card - ref).max() / onp.abs(ref).max())
+    log(f"[int8] the card's quantized net against the same net on the CPU "
+        f"(parameters and thresholds copied), x[:{INT8_CPU_B}]: logits "
+        f"within {cpu_err:.3e} of the CPU's largest (tol {INT8_CPU_TOL})")
+    check(cpu_err <= INT8_CPU_TOL, "int8: card vs CPU logits")
+    del cpu8
+
+    # the kernels' rows at batch 64, and the whole net's kernel path
+    # against its plain path at bench.py's batch
+    got64, seen64 = _int8_capture(net8, x, layers, pool)
+    with _int8_plain():
+        want64 = net8(x)
+        torch.cuda.synchronize()
+    bitwise64 = torch.equal(got64._data, want64._data)
+    log(f"[int8] kernel path against the plain path on the card, batch "
+        f"{INT8_B}: logits {'bit for bit' if bitwise64 else 'DIFFER'} "
+        f"(max|d| {float((got64._data - want64._data).abs().max()):.3e})")
+    check(bitwise64, f"int8: kernel-path logits differ at batch {INT8_B}")
+    rows, prow = _int8_kernel_rows(torch, dev, seen64)
+    del seen64, seen, got64, want64
+
+    # bench.py's timed pair on the hybridized nets
+    net32.hybridize()
+    net8.hybridize()
+
+    def timed(net):
+        y = net(x)
+        float(y.sum().item())
+        t1 = time.perf_counter()
+        for _ in range(INT8_ITERS):
+            y = net(x)
+        float(y.sum().item())
+        return INT8_B * INT8_ITERS / (time.perf_counter() - t1)
+
+    timed(net32)
+    timed(net8)
+    f_rates, i_rates, ratios = [], [], []
+    for _ in range(INT8_ROUNDS):
+        f, i = timed(net32), timed(net8)
+        f_rates.append(f)
+        i_rates.append(i)
+        ratios.append(i / f)
+    ratios.sort()
+    check(net8.captures == 1 and net32.captures == 1,
+          f"int8: captures {net8.captures}, {net32.captures}")
+    cen32 = profiled(torch, lambda: net32(x))
+    cen8 = profiled(torch, lambda: net8(x))
+    dev32, dev8 = census_ms(cen32), census_ms(cen8)
+    split = _int8_split(torch, net8, x, classes)
+    log(f"[int8] {smi}: bench.py:1754 at batch {INT8_B}, {INT8_ROUNDS} "
+        f"interleaved rounds of {INT8_ITERS} forwards (hybridized: one "
+        f"capture each): f32 best {max(f_rates):.1f} images/s, int8 best "
+        f"{max(i_rates):.1f}, median ratio {ratios[len(ratios) // 2]:.3f}; "
+        f"device ms a forward (profiled replay): f32 {dev32:.3f}, int8 "
+        f"{dev8:.3f} (ratio {dev32 / dev8:.3f}); int8 by kernel: "
+        + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in split.items()))
+
+    # fidelity, as the reference's test reports it
+    y32, y8 = net32(x).asnumpy(), net8(x).asnumpy()
+    agree = float((y32.argmax(1) == y8.argmax(1)).mean())
+    rel = float(onp.abs(y8 - y32).max() / onp.abs(y32).max())
+    cos = float((y8.ravel() @ y32.ravel()) / (onp.linalg.norm(y8)
+                                              * onp.linalg.norm(y32)))
+    log(f"[int8] fidelity on the {INT8_B} inputs: top-1 agreement with f32 "
+        f"{agree:.4f}, logits max|d| / max|f32| {rel:.4f}, cosine "
+        f"{cos:.5f}")
+    check(onp.isfinite(y8).all() and y8.shape == (INT8_B, 1000),
+          "int8: logits not finite or misshapen")
+    seconds = time.perf_counter() - t0
+    log(f"[int8] phase took {seconds:.1f} s")
+    numbers = dict(
+        card=smi, torch_gaps=gaps, census=got_census, quantize_s=quant_s,
+        launches=launches,
+        kernel_vs_plain_bitwise=bitwise,
+        kernel_vs_plain_bitwise_batch64=bitwise64, int32_sums_equal=sums,
+        cpu_rel_err=cpu_err, f32_images_s=max(f_rates),
+        int8_images_s=max(i_rates), median_ratio=ratios[len(ratios) // 2],
+        rates=dict(f32=f_rates, int8=i_rates),
+        device_ms=dict(f32=dev32, int8=dev8, ratio=dev32 / dev8),
+        int8_split_ms=split, top1_agreement=agree, logit_rel_err=rel,
+        cosine=cos, q1_rows=rows, q2_row=prow, seconds=seconds)
+    del net8, net32
+    return numbers, launches, (rows, prow)
+
+
+# ---------------------------------------------------------------------------
+# [rnn]: the RNN family on the card
+# ---------------------------------------------------------------------------
+
+RNN_T, RNN_N, RNN_C, RNN_H = 16, 8, 32, 64
+# a layer's output and every gradient on the card against the CPU,
+# normwise (f32 products summed in another order through 16 steps)
+RNN_TOL = 1e-4
+CHARLM_TOL = 1e-5                  # logits, of the largest
+CHARLM_STEPS = 3
+
+
+def _charlm(mx):
+    g = mx.gluon
+
+    class CharLM(g.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = g.nn.Embedding(28, 32)
+            self.lstm = g.rnn.LSTM(64, num_layers=1, layout="NTC")
+            self.head = g.nn.Dense(28, flatten=False)
+
+        def forward(self, x):
+            return self.head(self.lstm(self.embed(x)))
+
+    net = CharLM()
+    net.initialize()
+    net(mx.np.zeros((1, 8), dtype="int32"))
+    return net
+
+
+def _nrel(a, b):
+    import numpy as onp
+
+    return float(onp.linalg.norm(a - b) / max(onp.linalg.norm(b), 1e-30))
+
+
+def phase_rnn(torch, dev):
+    """[rnn]: the store's lstm_charlm_tiny on the card against the CPU; a
+    2-layer bidirectional LSTM, a GRU and an rnn_tanh RNN, forward and
+    gradients against the CPU; the fused layer's dropout between layers in
+    training through K5 (p = 0.2: launches counted; p = 0: none, the
+    predict-mode output bit for bit); three Trainer steps of the char LM,
+    eager and hybridized."""
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, np
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import model_store
+
+    t0 = time.perf_counter()
+    out = {}
+    path = model_store.get_model_file("lstm_charlm_tiny")
+    tokens = onp.random.RandomState(12).randint(0, 28, (2, 16)).astype(
+        "int32")
+    with mx.cpu():
+        cpu = _charlm(mx)
+        cpu.load_parameters(path)
+        want = cpu(np.array(tokens)).asnumpy()
+    card = _charlm(mx)
+    card.load_parameters(path)
+    got = card(np.array(tokens)).asnumpy()
+    err = float(onp.abs(got - want).max() / onp.abs(want).max())
+    out["charlm_rel_err"] = err
+    log(f"[rnn] lstm_charlm_tiny (the store's file) on (2, 16) characters: "
+        f"card logits within {err:.2e} of the CPU's largest (tol "
+        f"{CHARLM_TOL})")
+    check(err <= CHARLM_TOL and got.shape == (2, 16, 28), "rnn: char LM")
+
+    r = onp.random.RandomState(3)
+    xn = r.normal(size=(RNN_T, RNN_N, RNN_C)).astype("float32")
+    layers = {"lstm_2layer_bi": lambda: gluon.rnn.LSTM(
+        RNN_H, num_layers=2, bidirectional=True),
+        "gru": lambda: gluon.rnn.GRU(RNN_H),
+        "rnn_tanh": lambda: gluon.rnn.RNN(RNN_H, activation="tanh")}
+    worst = {}
+    for name, make in layers.items():
+        with mx.cpu():
+            mx.random.seed(5)
+            cpu_l = make()
+            cpu_l.initialize()
+            cpu_l(np.array(xn))
+        card_l = _vision_on(mx, cpu_l, mx.gpu(0))
+        res = {}
+        for tag, net, ctx in (("cpu", cpu_l, mx.cpu()),
+                              ("card", card_l, mx.gpu(0))):
+            with ctx:
+                xa = np.array(xn)
+                xa.attach_grad()
+                dy = np.array(onp.random.RandomState(7).normal(
+                    size=(RNN_T, RNN_N, net._dir * RNN_H)).astype("float32"))
+                with autograd.record():
+                    y = net(xa)
+                    loss = (y * dy).sum()
+                loss.backward()
+                res[tag] = [y.asnumpy(), xa.grad.asnumpy(),
+                            net.parameters.grad().asnumpy()]
+        errs = [_nrel(a, b) for a, b in zip(res["card"], res["cpu"])]
+        worst[name] = max(errs)
+        log(f"[rnn] {name} (T {RNN_T}, N {RNN_N}, C {RNN_C}, H {RNN_H}): "
+            f"output, dx and the flat parameters' gradient on the card "
+            f"within {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e} of the "
+            f"CPU's, normwise (tol {RNN_TOL})")
+        check(worst[name] <= RNN_TOL, f"rnn: {name} card vs CPU")
+    out["layers_rel_err"] = worst
+
+    # dropout between layers in training: K5, its input at the layer
+    # boundary and its key captured and held against the plain version
+    from incubator_mxnet_tpu_torch.ops import _philox as ph
+    from incubator_mxnet_tpu_torch.ops import dropout as dp
+
+    with mx.cpu():
+        mx.random.seed(6)
+        cpu_d = gluon.rnn.LSTM(RNN_H, num_layers=2, dropout=0.2)
+        cpu_d.initialize()
+        cpu_d(np.array(xn))
+    card_d = _vision_on(mx, cpu_d, mx.gpu(0))
+    xa = np.array(xn)
+    seen, real = [], dp.dropout
+
+    def spy(x, key, p, impl="auto"):
+        y = real(x, key, p, impl=impl)
+        seen.append((x.detach().clone(), key, p, y.detach().clone()))
+        return y
+
+    dp.dropout = spy
+    try:
+        reset_counts()
+        with autograd.record():
+            y = card_d(xa)
+        y.backward()
+        k5_p = read_counts()["K5"]
+    finally:
+        dp.dropout = real
+    check(len(seen) == 1, f"rnn: {len(seen)} dropouts at the one boundary")
+    xb, kb, pb, yb = seen[0]
+    yk = dp.dropout_fwd(xb, kb, pb, impl="kernel")
+    yp = dp.dropout_fwd(xb, kb, pb, impl="plain")
+    torch.cuda.synchronize()
+    keep = ph.keep_mask(xb.shape, kb, pb, device=dev)
+    same = torch.equal(yk, yp) and torch.equal(yb, yk)
+    mask = torch.equal(yk != 0, keep & (xb != 0))
+    scale = float(((yk[keep].double() - xb[keep].double() / (1 - pb))
+                   .abs() / xb[keep].double().abs().clamp_min(1e-30))
+                  .max())
+    kept = keep.float().mean().item()
+    log(f"[rnn] K5 at the layer boundary, {tuple(xb.shape)} "
+        f"{_dt(xb.dtype)} p={pb}: the path's output and the kernel's equal "
+        f"the plain version bit for bit: {same}; mask equals the plain "
+        f"Philox mask: {mask}; kept {kept:.5f}; kept values x / (1 - p) "
+        f"within {scale:.2e} relative (tol 1e-6)")
+    check(same and mask and scale <= 1e-6 and abs(kept - (1 - pb)) < 0.02
+          and xb.shape == (RNN_T, RNN_N, RNN_H),
+          "rnn: K5 at the layer boundary against its plain version")
+    out["k5_boundary"] = dict(
+        shape=list(xb.shape), p=pb, kept=kept, bitwise_plain=same,
+        mask_equal=mask, max_abs_err=float((yk - yp).abs().max()))
+    card_d._dropout = 0.0
+    reset_counts()
+    with autograd.train_mode():
+        y0 = card_d(xa).asnumpy()
+    k5_0 = read_counts()["K5"]
+    y_pred = card_d(xa).asnumpy()
+    cpu_d._dropout = 0.0
+    with mx.cpu():
+        with autograd.train_mode():
+            y_cpu = cpu_d(np.array(xn)).asnumpy()
+    p0_err = _nrel(y0, y_cpu)
+    log(f"[rnn] 2-layer LSTM in training: p = 0.2 launched K5 {k5_p} times "
+        f"(one forward and one backward at the layer boundary); p = 0: "
+        f"{k5_0} launches, the output {'equal to' if (y0 == y_pred).all() else 'NOT'} "
+        f"the predict-mode output bit for bit, within {p0_err:.2e} of the "
+        f"CPU's (tol {RNN_TOL})")
+    check(k5_p > 0 and k5_0 == 0 and (y0 == y_pred).all()
+          and p0_err <= RNN_TOL, "rnn: dropout between layers")
+    out.update(k5_launches_p02=k5_p, k5_launches_p0=k5_0,
+               p0_rel_err_vs_cpu=p0_err)
+
+    # three Trainer steps, eager and hybridized
+    losses = {}
+    rng = onp.random.RandomState(8)
+    seqs = rng.randint(0, 28, (CHARLM_STEPS, 8, 17)).astype("int32")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for tag in ("eager", "hybridized"):
+        net = _charlm(mx)
+        net.load_parameters(path)
+        if tag == "hybridized":
+            net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.5})
+        losses[tag] = []
+        for s in seqs:
+            xt, yt = np.array(s[:, :-1]), np.array(s[:, 1:])
+            with autograd.record():
+                loss = loss_fn(net(xt), yt)
+            loss.backward()
+            tr.step(8)
+            losses[tag].append(float(loss.mean().item()))
+        if tag == "hybridized":
+            caps = net.captures
+    same = max(abs(a - b) / abs(b) for a, b in
+               zip(losses["hybridized"], losses["eager"]))
+    log(f"[rnn] lstm_charlm_tiny, {CHARLM_STEPS} Trainer steps (SGD, 8 x 16 "
+        f"characters): eager losses {losses['eager']}, hybridized "
+        f"{losses['hybridized']} ({caps} capture), max relative difference "
+        f"{same:.2e}")
+    check(same <= 1e-5 and losses["eager"][-1] < losses["eager"][0],
+          "rnn: eager and hybridized Trainer steps")
+    out.update(trainer_losses=losses, hybridized_captures=caps,
+               seconds=time.perf_counter() - t0)
+    log(f"[rnn] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def _case_row(c, shape):
     """A case's entry in the kernels line; ``dtype`` names a mixed
     layout ("f32 x, bf16 h, f32 gamma") where it has one (an attention
@@ -11012,7 +11760,7 @@ def _pass_view(c, bwd):
 
 
 def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None,
-                 fold=None):
+                 fold=None, int8=None):
     """The kernels' entries; ``train`` = (attn, k3, k4b, drop) of the
     training kernels' cases, ``gd`` the K6 cases, ``by_layout`` the row
     kernels' main-path launches by layout (K4, K4b, K3f, K3b), ``fold``
@@ -11123,6 +11871,21 @@ def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None,
             "incubator_mxnet_tpu/parallel/sharded.py:123 (jax.random."
             "fold_in of the step's key; not a Pallas kernel)",
             launches["fold"], cases, _case_row(*cases[0]), None))
+    if int8 is not None:
+        (rows, prow), counts = int8
+        for name, src, rep, n, cases, main, lib in (
+                ("int8_conv", "int8_conv.cu", Q1_REPLACES, counts["Q1"],
+                 rows, rows[0], "cuDNN f32/bf16 convolution (not the same "
+                 "function; library_ms null), torch._int_mm for the Dense"),
+                ("int8_max_pool", "int8_pool.cu", Q2_REPLACES, counts["Q2"],
+                 [prow], prow, None)):
+            out.append(dict(
+                name=name, route="cuda", source=SRC + src, replaces=rep,
+                launches=n, max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"],
+                library=lib, cases=cases))
     return {"kernels": out}
 
 
@@ -11151,6 +11914,14 @@ def main():
         log(json.dumps({"shard": sharded, "fleet": fleet_numbers},
                        default=str))
         log(f"[done] [shard] and [fleet] alone: launches {shard_launches}")
+        return 3
+    if sys.argv[1:] == ["--only", "int8"]:
+        # [int8] and [rnn] alone, after the build: no result line
+        int8, int8_launches, _ = phase_int8(torch, dev)
+        torch.cuda.empty_cache()
+        rnn = phase_rnn(torch, dev)
+        log(json.dumps({"int8": int8, "rnn": rnn}, default=str))
+        log(f"[done] [int8] and [rnn] alone: launches {int8_launches}")
         return 3
     if sys.argv[1:] == ["--only", "dist"]:
         # [dist] alone, after the build: a short run, no result line
@@ -11312,6 +12083,14 @@ def main():
             by_layout[k][name] = by_layout[k].get(name, 0) + n
     log(f"[done] with [shard]'s launches {shard_launches}: {launches}")
     fleet_numbers = phase_fleet(torch, dev)
+    torch.cuda.empty_cache()
+    int8, int8_launches, int8_rows = phase_int8(torch, dev)
+    torch.cuda.empty_cache()
+    rnn = phase_rnn(torch, dev)
+    torch.cuda.empty_cache()
+    launches["K5"] += rnn["k5_launches_p02"]
+    log(f"[done] [int8]'s launches {int8_launches}; [rnn]'s K5 launches "
+        f"{rnn['k5_launches_p02']}: K5 {launches['K5']}")
     # [elastic] runs after every phase that reads a profile: after it, a
     # profiled DataParallel replay's first kernels went missing from the
     # trace in every full run (PERF.md §7); its model is the [serve
@@ -11364,8 +12143,11 @@ def main():
     log(json.dumps({"dist": distributed}, default=str))
     log(json.dumps({"shard": sharded}, default=str))
     log(json.dumps({"fleet": fleet_numbers}, default=str))
+    log(json.dumps({"int8": int8}, default=str))
+    log(json.dumps({"rnn": rnn}, default=str))
     log(json.dumps(kernels_line(attn, lns, launches, train_cases,
-                                gd_cases, by_layout, fold_case)))
+                                gd_cases, by_layout, fold_case,
+                                (int8_rows, int8_launches))))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,13 +9,15 @@ block takes NDArrays (the reference's convention) or torch tensors (the
 port's module path); see `gluon.block`. `model_zoo` holds the vision
 models and the local pretrained-weight store; `data` the datasets,
 samplers, transforms and the DataLoader; `metric` the evaluation
-metrics; `contrib` the Estimator and the composable vision loader.
+metrics; `contrib` the Estimator and the composable vision loader;
+`rnn` the recurrent layers and cells.
 """
 from . import utils
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Constant, Parameter, ParameterDict
 from .trainer import Trainer
 from . import loss, nn
+from . import rnn
 from . import metric
 from . import data
 from . import model_zoo
@@ -23,4 +25,4 @@ from . import contrib
 
 __all__ = ["utils", "Block", "HybridBlock", "SymbolBlock", "Constant",
            "Parameter", "ParameterDict", "Trainer", "loss", "nn", "metric",
-           "data", "model_zoo", "contrib"]
+           "data", "model_zoo", "contrib", "rnn"]

@@ -58,7 +58,7 @@ from .parameter import (_CONV, DeferredInitializationError, Parameter,
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
-_ITEM11 = "is not ported (ROADMAP.md §1 item 11)"
+_ITEM11 = "is not ported (ROADMAP.md §1 item 11b)"
 
 
 def _convention(args, kwargs):

@@ -6,7 +6,8 @@ Local only, as the reference's: nothing downloads. A name resolves in
 ``~/.incubator_mxnet_tpu/models``), each directory on
 ``INCUBATOR_MXNET_TPU_MODEL_PATH``, then the packaged ``_store`` (the two
 trained vision artifacts, ``mobilenet0.25_digits`` and
-``mobilenetv2_0.25_digits``, the reference's own files). Each root's
+``mobilenetv2_0.25_digits``, and the character LM ``lstm_charlm_tiny``
+for `gluon.rnn`: the reference's own files). Each root's
 ``registry.json`` holds the sha1 of its files, checked at lookup; a
 missing file raises ``FileNotFoundError`` as in the reference. The files
 are npz, which `Block.load_parameters` reads.

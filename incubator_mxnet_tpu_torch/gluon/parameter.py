@@ -109,7 +109,7 @@ class Parameter:
         if stype != "default" or grad_stype != "default":
             raise MXNetError(f"Parameter(stype={stype!r}, grad_stype="
                              f"{grad_stype!r}): sparse storage is not ported "
-                             f"(ROADMAP.md §1 item 11, ndarray/sparse.py)")
+                             f"(ROADMAP.md §1 item 11b, ndarray/sparse.py)")
         self._name = name or "param"
         if isinstance(shape, int):
             shape = (shape,)
@@ -461,7 +461,7 @@ class Parameter:
 
     def var(self):
         raise MXNetError("Parameter.var: the symbol API is not ported "
-                         "(ROADMAP.md §1 item 11); use hybridize()")
+                         "(ROADMAP.md §1 item 11b); use hybridize()")
 
     def __repr__(self):
         return (f"Parameter {self._name} (shape={self._shape}, "

@@ -1,7 +1,6 @@
 """Gluon utilities (port of `incubator_mxnet_tpu/gluon/utils.py`:
 `split_data`, `split_and_load`, `clip_global_norm`, `check_sha1`,
-`download`, `shape_is_known`). `split_rnn_params` comes with the RNN
-layers (ROADMAP.md §1 item 11)."""
+`download`, `shape_is_known`, `split_rnn_params`)."""
 from __future__ import annotations
 
 import math
@@ -12,7 +11,7 @@ from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "download",
-           "check_sha1", "shape_is_known"]
+           "check_sha1", "shape_is_known", "split_rnn_params"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -95,7 +94,43 @@ def shape_is_known(shape):
     return all(s is not None and s > 0 for s in shape)
 
 
-def split_rnn_params(params, mode, num_layers, input_size, hidden_size,  # noqa: ARG001
-                     bidirectional=False):  # noqa: ARG001
-    raise MXNetError("split_rnn_params comes with the RNN layers, which are "
-                     "not ported (ROADMAP.md §1 item 11)")
+def split_rnn_params(params, mode, num_layers, input_size, hidden_size,
+                     bidirectional=False):
+    """Split a packed fused-RNN parameter vector into the per-layer
+    i2h/h2h weight/bias dict (reference: gluon/utils.py
+    split_rnn_params over the fused RNN op's packed layout: every weight,
+    then every bias; ``_r`` names the reverse direction)."""
+    gates = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+    dirs = 2 if bidirectional else 1
+    flat = (params._data if isinstance(params, NDArray)
+            else torch.as_tensor(params)).detach().reshape(-1)
+    gh = gates * hidden_size
+    need = sum(dirs * gh * ((input_size if layer == 0 else hidden_size * dirs)
+                            + hidden_size + 2) for layer in range(num_layers))
+    if need != flat.numel():
+        raise ValueError(
+            f"split_rnn_params: packed vector has {flat.numel()} elements "
+            f"but the {mode} layout consumes {need}; check mode/num_layers/"
+            f"input_size/hidden_size")
+    out, pos = {}, 0
+
+    def take(n, shape):
+        nonlocal pos
+        v = flat[pos:pos + n].reshape(shape).clone()
+        pos += n
+        return NDArray(v)
+
+    for layer in range(num_layers):
+        for d in range(dirs):
+            suffix = "_r" if d else ""
+            in_sz = input_size if layer == 0 else hidden_size * dirs
+            out[f"l{layer}{suffix}_i2h_weight"] = take(gh * in_sz,
+                                                       (gh, in_sz))
+            out[f"l{layer}{suffix}_h2h_weight"] = take(gh * hidden_size,
+                                                       (gh, hidden_size))
+    for layer in range(num_layers):
+        for d in range(dirs):
+            suffix = "_r" if d else ""
+            out[f"l{layer}{suffix}_i2h_bias"] = take(gh, (gh,))
+            out[f"l{layer}{suffix}_h2h_bias"] = take(gh, (gh,))
+    return out

@@ -70,11 +70,12 @@ _LEGACY_TO_NPX = {
     "slice_channel": "slice_channel",
     "ElementWiseSum": "add_n",
     "boolean_mask": "boolean_mask",
+    "RNN": "rnn",
 }
 
 # the reference's other legacy npx names: ROADMAP.md §1 item 11b's
 _LEGACY_NPX_QUEUED = (
-    "RNN", "BilinearSampler", "GridGenerator", "SpatialTransformer",
+    "BilinearSampler", "GridGenerator", "SpatialTransformer",
     "ROIPooling", "Correlation", "ROIAlign", "box_nms", "box_iou", "CTCLoss",
     "ctc_loss", "BilinearResize2D", "Custom", "sparse",
 )

@@ -20,7 +20,7 @@ take a float16 weight and its f32 master ``weight32``: the rule runs on
 ``weight32`` with the gradient in f32, ``weight32`` is rebound to its new
 value, and the weight (``out``) takes its cast to the weight's dtype.
 `sparse_adagrad_update` takes dense gradients only (row-sparse storage
-is ROADMAP.md §1 item 11).
+is ROADMAP.md §1 item 11b).
 """
 from __future__ import annotations
 
@@ -850,10 +850,10 @@ def sparse_adagrad_update(weight, grad, history, lr, epsilon=1e-7,
                           out=None):
     """AdaGrad (optimizer_op.cc AdagradUpdateEx) over a dense gradient;
     the row-sparse gradient of the reference is not ported (ROADMAP.md §1
-    item 11, ndarray/sparse.py)."""
+    item 11b, ndarray/sparse.py)."""
     if getattr(grad, "stype", "default") != "default":
         raise MXNetError("sparse_adagrad_update: row-sparse gradients are "
-                         "not ported (ROADMAP.md §1 item 11)")
+                         "not ported (ROADMAP.md §1 item 11b)")
 
     def fn(w, h, g):
         gr = _pg(g, rescale_grad, clip_gradient) + wd * w

@@ -16,7 +16,8 @@ and `pad` (`_contrib_misc.py`) and of `deformable_convolution`
 :792, `topk` :807, `gather_nd` :995, `scatter_nd` :1005, the sequence
 ops :1020-1076, the special functions :1227-1265, `cast`, `reshape`,
 `shape_array`, `stop_gradient` :1272-1343, `boolean_mask` :1578,
-`clip_global_norm` :1609), `slice_like`, `broadcast_like` and
+`clip_global_norm` :1609), the fused RNN (`rnn_param_size`, `rnn`
+:1086-1220), `slice_like`, `broadcast_like` and
 `batch_take` (`_boxes.py` :305-345), the control flow (`foreach`
 :1373, `while_loop` :1425, `cond` :1542) and the mode switches and
 state (:1624-1662).
@@ -77,6 +78,7 @@ from ..ops import dropout as _dp
 from ..ops.flash_attention import flash_attention as _flash_attention
 from ..ops import fused_block as _fb
 from ..ops import layer_norm as _ln
+from ..ops import quantized as _quant
 
 __all__ = ["sharding_constraint", "relu", "sigmoid", "gelu", "activation",
            "leaky_relu", "softmax", "softmin", "log_softmax", "masked_softmax",
@@ -103,7 +105,7 @@ __all__ = ["sharding_constraint", "relu", "sigmoid", "gelu", "activation",
            "interleaved_matmul_encdec_qk",
            "interleaved_matmul_encdec_valatt", "div_sqrt_dim",
            "sldwin_atten_score", "sldwin_atten_context",
-           "sldwin_atten_mask_like"]
+           "sldwin_atten_mask_like", "rnn", "rnn_param_size"]
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -594,7 +596,6 @@ _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
            3: F.conv_transpose3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
-_11B = "ROADMAP.md §1 item 11b"
 
 
 def _tuple(x, n):
@@ -705,14 +706,19 @@ def _pool_nc(x, k, s, p, kind, include_pad, full):
     that starts in the high padding, the reference keeps it), else the
     reference's arithmetic on an explicitly padded tensor."""
     nd = len(k)
-    if not x.is_floating_point():
-        raise MXNetError(f"npx.pooling: {x.dtype} pooling (the int8 chain "
-                         f"of quantize_net) is not ported ({_11B})")
     size = x.shape[2:]
     extra = []
     for n, kk, ss, pp in zip(size, k, s, p):
         rem = (n + 2 * pp - kk) % ss
         extra.append(ss - rem if full and rem else 0)
+    if not x.is_floating_point():
+        if kind != "max":
+            raise MXNetError(f"npx.pooling: {kind} pooling of {x.dtype} "
+                             f"(the reference pools integer codes by max "
+                             f"only)")
+        # integer codes (quantize_net's int8 chain): the padding is the
+        # type's minimum, Q2 on the card
+        return _quant.max_pool_int(x, k, s, p, extra)
     native = all(pp <= kk // 2 for kk, pp in zip(k, p)) and kind != "sum"
     if native and full:
         # torch's ceil mode keeps a last window only if it starts inside
@@ -751,7 +757,10 @@ def pooling(data, kernel=None, stride=None, pad=None, pool_type="max",
     """Max, average or sum pooling over the spatial axes (1-, 2- or 3-d),
     windowed (``pooling_convention`` "valid" or "full") or global
     (``global_pool``: also "lp", the L2 norm of each map, as in the
-    reference, where "lp" is global only). See :func:`_pool_nc`."""
+    reference, where "lp" is global only). Integer codes (the int8 chain
+    of `contrib.quantization`) pool by max only, the padding their type's
+    minimum, through the Q2 kernel on the card (`ops.quantized`). See
+    :func:`_pool_nc`."""
     nd = data.ndim - 2
     last = _channels_last(nd, layout)
     if global_pool:
@@ -1092,6 +1101,134 @@ def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
 
     ln = sequence_length if use_sequence_length else None
     return _op("sequence_reverse", f, data, ln)
+
+
+# ---------------------------------------------------------------------------
+# the fused RNN (reference :1080-1220, over `src/operator/rnn.cc:296`)
+# ---------------------------------------------------------------------------
+
+def _rnn_gates(mode):
+    return {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def _unpack_rnn_params(params, mode, num_layers, input_size, state_size,
+                       bidirectional, projection_size=None):  # noqa: ARG001
+    """[w_i2h, w_h2h, b_i2h, b_h2h] a (layer, direction) from the flat
+    vector in cuDNN's layout: every weight first (layer by layer, the
+    forward direction before the reverse, i2h before h2h), then every
+    bias in the same order; the gates stacked i f g o (LSTM) and r z n
+    (GRU), so checkpoints of either package load bit-compatibly."""
+    ngates = _rnn_gates(mode)
+    dirs = 2 if bidirectional else 1
+    gh = ngates * state_size
+    layers = []
+    pos = 0
+    for layer in range(num_layers):
+        lsize = input_size if layer == 0 else state_size * dirs
+        for _ in range(dirs):
+            w_i2h = params[pos:pos + gh * lsize].reshape(gh, lsize)
+            pos += gh * lsize
+            w_h2h = params[pos:pos + gh * state_size].reshape(gh, state_size)
+            pos += gh * state_size
+            layers.append([w_i2h, w_h2h, None, None])
+    for entry in layers:
+        entry[2] = params[pos:pos + gh]
+        entry[3] = params[pos + gh:pos + 2 * gh]
+        pos += 2 * gh
+    return layers
+
+
+def rnn_param_size(mode, num_layers, input_size, state_size,
+                   bidirectional=False):
+    """The flat parameter vector's length for :func:`rnn`."""
+    ngates = _rnn_gates(mode)
+    dirs = 2 if bidirectional else 1
+    total = 0
+    for layer in range(num_layers):
+        lsize = input_size if layer == 0 else state_size * dirs
+        total += dirs * ngates * state_size * (lsize + state_size + 2)
+    return total
+
+
+def _cell_step(mode, xw, h, c, w_h2h, b_h2h):
+    """One time step of the reference's cell (`_cell_step` :1138) given
+    ``xw`` = x_t @ w_i2h.T + b_i2h (the whole sequence's in one product):
+    the new h and c, in the reference's order of additions."""
+    hw = torch.matmul(h, w_h2h.t())
+    if mode == "lstm":
+        gates = xw + hw + b_h2h
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c_new), c_new
+    if mode == "gru":
+        # cuDNN's gru: r, z from the sums; n uses r * (h W_hn + b_hn)
+        xr, xz, xn = xw.chunk(3, dim=-1)
+        hr, hz, hn = (hw + b_h2h).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1 - z) * n + z * h, c
+    gates = xw + hw + b_h2h
+    return (torch.tanh(gates) if mode == "rnn_tanh"
+            else torch.clamp_min(gates, 0)), c
+
+
+def rnn(data=None, parameters=None, state=None, state_cell=None, mode="lstm",
+        state_size=None, num_layers=1, bidirectional=False, p=0.0,
+        state_outputs=False, projection_size=None, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, sequence_length=None,  # noqa: ARG001
+        use_sequence_length=False, **kwargs):  # noqa: ARG001
+    """Fused multi-layer RNN over time-major input (T, N, C): "rnn_relu",
+    "rnn_tanh", "lstm" or "gru", one or two directions, the parameters
+    one flat vector in cuDNN's layout (:func:`rnn_param_size`), ``state``
+    (and for an LSTM ``state_cell``, zeros when None) of (layers *
+    directions, N, state_size). The time loop is the reference's cell step
+    in torch ops (the reference's is a ``lax.scan``, not a kernel), each
+    layer's input product one ``torch.matmul`` over the whole sequence;
+    an LSTM's cell state is clipped to ``[lstm_state_clip_min,
+    lstm_state_clip_max]`` after each step where a minimum is given.
+    Between layers in training, dropout at ``p`` through :func:`dropout`
+    (the K5 kernel on the card). ``sequence_length`` is accepted and, as
+    in the reference, not used. Returns the output (T, N, dirs *
+    state_size), with ``state_outputs`` also the final h (and c)."""
+    dirs = 2 if bidirectional else 1
+    input_size = data.shape[-1]
+    clip = mode == "lstm" and lstm_state_clip_min is not None
+
+    def f(x, params, h0, c0):
+        layers = _unpack_rnn_params(params, mode, num_layers, input_size,
+                                    state_size, bidirectional)
+        out = x
+        h_finals, c_finals = [], []
+        for layer in range(num_layers):
+            layer_outs = []
+            for d in range(dirs):
+                li = layer * dirs + d
+                w_i2h, w_h2h, b_i2h, b_h2h = layers[li]
+                h = h0[li]
+                c = c0[li] if c0 is not None else torch.zeros_like(h)
+                seq = out if d == 0 else torch.flip(out, (0,))
+                xw = torch.matmul(seq, w_i2h.t()) + b_i2h
+                ys = []
+                for t in range(seq.shape[0]):
+                    h, c = _cell_step(mode, xw[t], h, c, w_h2h, b_h2h)
+                    if clip:
+                        c = torch.clamp(c, lstm_state_clip_min,
+                                        lstm_state_clip_max)
+                    ys.append(h)
+                ys = torch.stack(ys)
+                layer_outs.append(ys if d == 0 else torch.flip(ys, (0,)))
+                h_finals.append(h)
+                c_finals.append(c)
+            out = layer_outs[0] if dirs == 1 else torch.cat(layer_outs, -1)
+            if p > 0 and layer < num_layers - 1:
+                out = dropout(out, p=p)
+        if mode == "lstm":
+            return out, torch.stack(h_finals), torch.stack(c_finals)
+        return out, torch.stack(h_finals)
+
+    outs = _op("rnn", f, data, parameters, state, state_cell)
+    return outs if state_outputs else outs[0]
 
 
 # ---------------------------------------------------------------------------

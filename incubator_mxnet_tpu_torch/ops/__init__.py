@@ -7,7 +7,9 @@ runs the plain version for CPU tensors, counts its launches in
 ``launches`` (backward ones in ``bwd_launches``; K6's in ``gd_launches``
 and ``gd_bwd_launches``), and builds the kernel
 from ``csrc/`` at first use (see :mod:`._build`). `_philox` holds the
-plain version of the dropout kernels' random stream.
+plain version of the dropout kernels' random stream. `quantized` holds
+the int8 path's two kernels (Q1, Q2), which replace no Pallas kernel:
+PyTorch has no int8 convolution or integer max pooling on CUDA.
 
 As in the reference, the package's ``flash_attention`` and ``mha_flash``
 are the functions; the module of that name (its counters, its plain

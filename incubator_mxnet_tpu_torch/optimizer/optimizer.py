@@ -31,7 +31,7 @@ parameters at once: `DataParallel`'s small-parameter segment.
 the reference does (:133-137, :190-200): the state is ``(master,
 inner_state)``, the rule runs on the master with the gradient in f32,
 and the weight's tensor takes the master's cast to float16, in place.
-The lazy row-sparse update raises: ROADMAP.md §1 item 11.
+The lazy row-sparse update raises: ROADMAP.md §1 item 11b.
 """
 from __future__ import annotations
 
@@ -237,7 +237,7 @@ class Optimizer:
 
     def _sparse_update(self, weight, grad, state, lr, wd, t):  # noqa: ARG002
         raise MXNetError("the lazy row-sparse update is not ported "
-                         "(ROADMAP.md §1 item 11, ndarray/sparse.py)")
+                         "(ROADMAP.md §1 item 11b, ndarray/sparse.py)")
 
     def update_multi_precision(self, index, weight, grad, state):
         """:meth:`update` on the f32 master of a float16 weight (a state

@@ -3,7 +3,7 @@ the comparisons, the random shapes and arrays, the numeric gradient
 check and the cross-device consistency check (CPU against the card).
 ``tpu`` is the port's `device.tpu`, the reference's accelerator
 spelling for the card. The symbolic checks wait for `symbol/`
-(`ROADMAP.md` §1 item 11)."""
+(`ROADMAP.md` §1 item 11b)."""
 from __future__ import annotations
 
 import contextlib
@@ -136,14 +136,14 @@ def check_symbolic_forward(sym, location, expected, rtol=1e-4, atol=1e-6,
                            aux_states=None, ctx=None, equal_nan=False,
                            dtype=None):  # noqa: ARG001
     raise MXNetError("check_symbolic_forward: symbol/ is not ported yet "
-                     "(ROADMAP.md §1 item 11)")
+                     "(ROADMAP.md §1 item 11b)")
 
 
 def check_symbolic_backward(sym, location, out_grads, expected, rtol=1e-4,
                             atol=1e-6, aux_states=None, grad_req="write",
                             ctx=None, equal_nan=False, dtype=None):  # noqa: ARG001
     raise MXNetError("check_symbolic_backward: symbol/ is not ported yet "
-                     "(ROADMAP.md §1 item 11)")
+                     "(ROADMAP.md §1 item 11b)")
 
 
 def check_consistency(fn, inputs, devices=None, rtol=1e-4, atol=1e-5):

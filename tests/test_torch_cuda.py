@@ -2550,3 +2550,144 @@ def test_nccl_world_of_one_step_matches_the_no_mesh_step(dev, tmp_path):
                    zip(nets[0].parameters(), nets[1].parameters()))
     finally:
         dist._shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the int8 path's kernels (Q1, Q2) and the RNN family
+# ---------------------------------------------------------------------------
+
+Q1_CASES = {
+    "stem_k147": ((2, 3, 23, 23), (8, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1),
+    "3x3": ((2, 16, 9, 9), (24, 16, 3, 3), (1, 1), (1, 1), (1, 1), 1),
+    "1x1_stride2": ((3, 64, 8, 8), (72, 64, 1, 1), (2, 2), (0, 0), (1, 1),
+                    1),
+    "groups_dilate_ragged": ((2, 12, 11, 13), (9, 4, 3, 2), (2, 1), (2, 1),
+                             (2, 3), 3),
+}
+
+
+@pytest.mark.parametrize("out", ["int32", "float32", "bfloat16", "float16",
+                                 "int8"])
+@pytest.mark.parametrize("case", sorted(Q1_CASES))
+def test_int8_conv_matches_its_plain_version_bit_for_bit(dev, case, out):
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    xs, ws, st, pd, dl, gr = Q1_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randint(-127, 128, xs, dtype=torch.int8, device=dev,
+                      generator=g)
+    w = torch.randint(-127, 128, ws, dtype=torch.int8, device=dev,
+                      generator=g)
+    th = torch.tensor(2.5, device=dev)
+    wsc = torch.rand(ws[0], device=dev, generator=g) * 1e-3
+    b = torch.randn(ws[0], device=dev, generator=g)
+    ot = torch.tensor(1.7, device=dev)
+    od = getattr(torch, out)
+    before = q.conv_launches
+    got = q.conv_int8(x, w, th, wsc, b, ot, od, st, pd, dl, gr)
+    want = q.conv_int8(x, w, th, wsc, b, ot, od, st, pd, dl, gr,
+                       impl="plain")
+    torch.cuda.synchronize()
+    assert q.conv_launches == before + 1
+    assert got.dtype == od and torch.equal(got, want)
+
+
+def test_int8_dense_matches_its_plain_version_bit_for_bit(dev):
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    for rows, k, o in ((64, 2048, 1000), (3, 40, 17)):
+        x = torch.randint(-127, 128, (rows, k), dtype=torch.int8,
+                          device=dev, generator=g)
+        w = torch.randint(-127, 128, (o, k), dtype=torch.int8, device=dev,
+                          generator=g)
+        th = torch.tensor(0.9, device=dev)
+        wsc = torch.rand(o, device=dev, generator=g) * 1e-3
+        b = torch.randn(o, device=dev, generator=g).to(torch.bfloat16)
+        for od in (torch.int32, torch.float32):
+            got = q.dense_int8(x, w, th, wsc, b, None, od)
+            want = q.dense_int8(x, w, th, wsc, b, None, od, impl="plain")
+            assert torch.equal(got, want)
+    with pytest.raises(MXNetError, match="int8"):
+        q.dense_int8(x.float(), w, th, wsc)
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 8, 112, 112), (3, 3), (2, 2), (1, 1), None, torch.int8),
+    ((2, 3, 9, 10), (3, 3), (2, 2), (1, 1), (1, 0), torch.int8),
+    ((2, 3, 11), (3,), (2,), (0,), (1,), torch.uint8),
+    ((1, 2, 5, 6, 7), (2, 2, 3), (2, 2, 2), (1, 0, 1), None, torch.int32)],
+    ids=["stem_pool", "full", "1d_uint8", "3d_int32"])
+def test_int8_max_pool_matches_its_plain_version(dev, case):
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    shape, k, s, p, e, dt = case
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(0 if dt == torch.uint8 else -128, 127, shape,
+                      dtype=dt, device=dev, generator=g)
+    before = q.pool_launches
+    got = q.max_pool_int(x, k, s, p, e)
+    want = q.max_pool_int(x, k, s, p, e, impl="plain")
+    assert q.pool_launches == before + 1 and torch.equal(got, want)
+
+
+def test_quantized_resnet_on_the_card_matches_the_cpu(dev):
+    """A small quantized bottleneck ResNet: the card's logits (Q1/Q2) the
+    CPU's within 1e-2 of the largest (the global pool sums in another
+    order), one Q2 and every quantized layer's Q1 a forward, a
+    hybridized replay equal to the eager forward bit for bit."""
+    import copy
+
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.contrib.quantization import quantize_net
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    xn = onp.random.RandomState(0).uniform(-1, 1, (4, 3, 32, 32)).astype(
+        "float32")
+    with mx.cpu():
+        mx.random.seed(0)
+        cpu = vision.ResNetV1(vision.BottleneckV1, [2, 1, 1, 1],
+                              [8, 16, 32, 64, 128], classes=10)
+        cpu.initialize()
+        cpu(mx.np.array(xn))
+        quantize_net(cpu, calib_data=[mx.np.array(xn)], calib_mode="naive")
+        want = cpu(mx.np.array(xn)).asnumpy()
+    card = copy.deepcopy(cpu)
+    card.reset_device(mx.gpu(0))
+    x = mx.np.array(xn, device=mx.gpu(0))
+    c0, p0 = q.conv_launches, q.pool_launches
+    got = card(x)
+    n_layers = sum(1 for m in card.modules()
+                   if type(m).__name__ in ("QuantizedConv2D",
+                                           "QuantizedDense"))
+    assert (q.conv_launches - c0, q.pool_launches - p0) == (n_layers, 1)
+    got = got.asnumpy()
+    assert onp.abs(got - want).max() <= 1e-2 * onp.abs(want).max()
+    card.hybridize()
+    for _ in range(3):
+        rep = card(x).asnumpy()
+    assert card.captures == 1 and (rep == got).all()
+
+
+def test_rnn_layers_on_the_card_match_the_cpu(dev):
+    import copy
+
+    import numpy as onp
+
+    import incubator_mxnet_tpu_torch as mx
+
+    xn = onp.random.RandomState(1).normal(size=(5, 3, 8)).astype("float32")
+    for make in (lambda: mx.gluon.rnn.LSTM(16, num_layers=2,
+                                           bidirectional=True),
+                 lambda: mx.gluon.rnn.GRU(16, layout="NTC")):
+        with mx.cpu():
+            cpu = make()
+            cpu.initialize()
+            want = cpu(mx.np.array(xn)).asnumpy()
+        card = copy.deepcopy(cpu)
+        card.reset_device(mx.gpu(0))
+        got = card(mx.np.array(xn, device=mx.gpu(0))).asnumpy()
+        assert onp.linalg.norm(got - want) <= 1e-4 * onp.linalg.norm(want)

@@ -657,7 +657,7 @@ SURFACE = ("gluon/parameter.py", "gluon/block.py", "gluon/loss.py",
 # with its reason (ROADMAP.md §1): the test fails if the port grows one
 NOT_PORTED = {
     "gluon/block.py": {"SymbolBlock.forward": "SymbolBlock raises at "
-                       "construction (ROADMAP.md §1 item 11)"},
+                       "construction (ROADMAP.md §1 item 11b)"},
     "ops/dropout.py": {
         "use_kernel": "the TPU's kernel-or-XLA policy by key type; the port "
                       "launches the kernel for every CUDA tensor "

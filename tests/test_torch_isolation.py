@@ -471,3 +471,50 @@ def test_distributed_modules_and_workers_stand_alone(tmp_path):
         tmp_path)
     assert [r["forbidden"] for r in ranks] == [[], []]
     assert ranks[0]["loss"] == ranks[1]["loss"]
+
+
+INT8_AND_RNN = ("ops.quantized", "contrib", "contrib.quantization",
+                "gluon.rnn", "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
+                "gluon.rnn.conv_rnn_cell")
+
+
+def test_int8_and_rnn_modules_stand_alone():
+    """The int8 quantization (`ops.quantized`, `contrib.quantization`) and
+    the RNN family (`gluon.rnn`, `npx.rnn`) import alone in a fresh
+    interpreter, each module without loading jax or the reference package;
+    then a tiny ResNet is quantized and run, and the store's character LM
+    runs, on the CPU, still without them."""
+    code = (
+        "import importlib, sys\n"
+        "def bad():\n"
+        "    return [n for n in sys.modules if n in ('jax', 'jaxlib',"
+        " 'incubator_mxnet_tpu') or n.startswith(('jax.', 'jaxlib.',"
+        " 'incubator_mxnet_tpu.'))]\n"
+        f"for m in {INT8_AND_RNN!r}:\n"
+        "    importlib.import_module('incubator_mxnet_tpu_torch.' + m)\n"
+        "    assert not bad(), (m, bad())\n"
+        "import numpy as onp\n"
+        "import incubator_mxnet_tpu_torch as mx\n"
+        "from incubator_mxnet_tpu_torch import gluon\n"
+        "from incubator_mxnet_tpu_torch.contrib.quantization import"
+        " quantize_net\n"
+        "from incubator_mxnet_tpu_torch.gluon.model_zoo import vision\n"
+        "x = onp.random.RandomState(0).uniform(-1, 1, (2, 3, 32, 32))"
+        ".astype('float32')\n"
+        "with mx.cpu():\n"
+        "    net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],"
+        " [8, 8, 16, 32, 64], classes=10)\n"
+        "    net.initialize()\n"
+        "    xs = mx.np.array(x)\n"
+        "    net(xs)\n"
+        "    quantize_net(net, calib_data=[xs], calib_mode='naive')\n"
+        "    assert net(xs).shape == (2, 10)\n"
+        "    lstm = gluon.rnn.LSTM(8, num_layers=2, layout='NTC')\n"
+        "    lstm.initialize()\n"
+        "    assert lstm(mx.np.array(x[:, 0])).shape == (2, 32, 8)\n"
+        "print('LOADED', bad())\n"
+        "assert not bad(), bad()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=PKG.parent)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

@@ -634,9 +634,9 @@ def test_nd_namespace_matches_reference(name):
 
 
 def test_nd_queued_names_raise_and_hasattr_is_false():
-    assert not hasattr(tmx.nd, "RNN")
-    with pytest.raises(MXNetError, match="RNN"):
-        tmx.nd.RNN  # noqa: B018
+    assert not hasattr(tmx.nd, "BilinearSampler")
+    with pytest.raises(MXNetError, match="BilinearSampler"):
+        tmx.nd.BilinearSampler  # noqa: B018
     with pytest.raises(AttributeError):
         tmx.nd.no_such_op  # noqa: B018
     with pytest.raises(MXNetError):

@@ -36,11 +36,11 @@ NPX_ITEM_11B = (
     "dgl_csr_neighbor_non_uniform_sample dgl_csr_neighbor_uniform_sample "
     "dgl_graph_compact dgl_subgraph edge_id fft getnnz grid_generator "
     "hawkesll ifft mrcnn_mask_target multi_proposal multibox_detection "
-    "multibox_prior multibox_target proposal psroi_pooling rnn "
-    "rnn_param_size roi_align roi_pooling rroi_align spatial_transformer "
+    "multibox_prior multibox_target proposal psroi_pooling "
+    "roi_align roi_pooling rroi_align spatial_transformer "
     "sync_batch_norm").split()
 ND_ITEM_11B = (
-    "BilinearResize2D BilinearSampler CTCLoss Correlation GridGenerator RNN "
+    "BilinearResize2D BilinearSampler CTCLoss Correlation GridGenerator "
     "ROIAlign ROIPooling SpatialTransformer box_iou box_nms "
     "ctc_loss sparse").split()
 # nd.contrib's names that are not ported: the reference forwards its
@@ -64,7 +64,8 @@ NOT_PORTED = {
     "models": {},
     "serve": {}, "serve.sharded": {}, "serve.router": {},
     "ops": {},
-    "gluon": dict.fromkeys("probability rnn".split(), ITEM_11B),
+    "gluon": dict.fromkeys("probability".split(), ITEM_11B),
+    "gluon.rnn": {},
     "gluon.nn": {},
     "gluon.model_zoo": {},
     "gluon.model_zoo.vision": {},
@@ -103,6 +104,7 @@ NOT_PORTED = {
     "util": {},
     "test_utils": {},
     "contrib": dict.fromkeys("tensorboard text".split(), ITEM_11B),
+    "contrib.quantization": {},
     # the training loop's ecosystem
     "gluon.data": {}, "gluon.data.dataset": {}, "gluon.data.sampler": {},
     "gluon.data.batchify": {}, "gluon.data.dataloader": {},

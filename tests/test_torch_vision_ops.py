@@ -304,12 +304,23 @@ def test_pooling_matches_reference(case):
 
 
 def test_windowed_lp_and_integer_max_pooling_raise():
+    """Windowed "lp" raises; integer max pooling (the int8 chain's codes,
+    the padding the type's minimum) computes the reference's; integer
+    average pooling raises, as the reference computes none."""
+    q = onp.random.RandomState(3).randint(-128, 128, (1, 2, 5, 5)).astype(
+        "int8")
+    want = jmx.npx.pooling(jmx.np.array(q), kernel=(2, 2), stride=(2, 2),
+                           pad=(1, 1)).asnumpy()
     with tmx.cpu():
         x = torch.zeros(1, 1, 4, 4)
         with pytest.raises(ValueError):
             tmx.npx.pooling(x, kernel=(2, 2), pool_type="lp")
-        with pytest.raises(MXNetError, match="11b"):
-            tmx.npx.pooling(x.to(torch.int8), kernel=(2, 2), stride=(2, 2))
+        got = tmx.npx.pooling(torch.from_numpy(q), kernel=(2, 2),
+                              stride=(2, 2), pad=(1, 1))
+        with pytest.raises(MXNetError, match="max only"):
+            tmx.npx.pooling(x.to(torch.int8), kernel=(2, 2), pool_type="avg")
+    assert got.dtype == torch.int8
+    onp.testing.assert_array_equal(got.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
