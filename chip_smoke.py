@@ -275,13 +275,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rewrite's census against the reference's counts; the int8 net on x[:8]
    through the Q1/Q2 kernels against the same net on their plain versions,
    bit for bit, and Q1's int32 sums at the stem, a 3x3 and the Dense; the
-   card against the CPU; 54 Q1 and 1 Q2 launches an eager forward; Q1 at
-   the stem, a stage-1 3x3, a stage-4 1x1 and the Dense and Q2 at the
-   stem's pool timed beside their bounds, plain versions and cuDNN's f32
-   and bf16 convolutions (``torch._int_mm`` for the Dense); the
-   interleaved timed pair (best images/s, the median ratio), device ms a
-   forward, one replay by kernel (Q1 by layer class, Q2, the rest), top-1
-   agreement and logit error against f32. ``[rnn]``: the store's
+   card against the CPU; 54 Q1 (16 of them with the residual add in the
+   epilogue) and 1 Q2 launches an eager forward, no layout conversion;
+   Q1 at the stem, a stage-1 3x3, stage 4's and stage 1's last 1x1 with
+   their residuals and the Dense and Q2 at the stem's pool, each at the
+   forward's own channels-last tensors, timed beside their bounds, plain
+   versions and cuDNN's f32 and bf16 convolutions (``torch._int_mm`` for
+   the Dense and the stage-4 1x1's product); the interleaved timed pair
+   (best images/s, the median ratio), device ms a forward (a replay
+   profiled through ``mx.profiler``, each of its 55 port kernels joined to
+   its launch-log entry), one replay by kernel (Q1 by layer class, Q2,
+   the rest), top-1 agreement and logit
+   error against f32. ``[rnn]``: the store's
    ``lstm_charlm_tiny`` on the card against the CPU; a 2-layer
    bidirectional LSTM, a GRU and an rnn_tanh RNN forward and backward
    against the CPU; the dropout between layers through K5 in training;
@@ -856,11 +861,11 @@ def phase_build():
               f"found {sorted(sass)}")
 
     if tool is not None:
-        imma = sum(1 for line in sass_of("int8_conv").splitlines()
-                   if " IMMA." in line or " IMMA " in line)
-        log(f"[build] int8_conv: {imma} IMMA (int8 tensor-core) "
-            f"instructions in the SASS")
-        check(imma > 0, "int8_conv has no int8 tensor-core instruction")
+        igmma = sum(1 for line in sass_of("int8_conv").splitlines()
+                    if " IGMMA." in line or " IGMMA " in line)
+        log(f"[build] int8_conv: {igmma} IGMMA (int8 wgmma) instructions "
+            f"in the SASS")
+        check(igmma > 0, "int8_conv has no int8 wgmma instruction")
     for stem in ("int8_conv", "int8_pool"):
         check(all(s == 0 for _, s in _ptxas_report(logs[stem]).values()),
               f"{stem} spills registers")
@@ -11022,6 +11027,7 @@ INT8_CPU_TOL = 1e-2
 INT8_CENSUS = {"folded": 53, "quantized": 54, "requantize-chained": 32,
                "residual-chained": 16, "boundary-chained": 4}
 INT8_LAUNCHES = {"Q1": 54, "Q2": 1}  # an eager forward's
+INT8_FUSED = 16                      # Q1 launches with the residual add
 INT8_TIME_REPS = 20
 PEAK_INT8_OPS = 1979e12              # H100 SXM, dense int8 tensor cores
 SRC = "incubator_mxnet_tpu_torch/csrc/"
@@ -11098,13 +11104,15 @@ def _int8_layers(net):
 
 def _int8_capture(net, x, layers, pool):
     """One eager forward of ``net`` on ``x`` recording each quantized
-    layer's input (and the pool's), in forward order."""
+    layer's input and keyword arguments (a residual block's last conv
+    gets the block's other branch there), and the pool's, in forward
+    order."""
     seen = []
     hooks = [m.register_forward_pre_hook(
-        lambda mod, args, c=c: seen.append((c, mod, args[0])))
-        for c, m in layers]
+        lambda mod, args, kw, c=c: seen.append((c, mod, args[0], kw)),
+        with_kwargs=True) for c, m in layers]
     hooks.append(pool.register_forward_pre_hook(
-        lambda mod, args: seen.append(("pool", mod, args[0]))))
+        lambda mod, args: seen.append(("pool", mod, args[0], {}))))
     try:
         out = net(x)
     finally:
@@ -11126,9 +11134,11 @@ def _int8_codes(torch, layer, xin):
     return cq._quantize_input(t, layer.qthreshold.data()._data)
 
 
-def _q1_args(torch, layer, xq):
+def _q1_args(torch, layer, xq, kw=None):
     """(fn(xq, impl) -> Q1's output at the layer's own epilogue, its
-    bytes and operations)."""
+    bytes and operations). With the forward's keyword arguments ``kw`` of
+    a residual block's last conv, the epilogue the forward runs: the
+    block's add, relu and requantize (or float output) after the code."""
     from incubator_mxnet_tpu_torch.contrib import quantization as cq
     from incubator_mxnet_tpu_torch.ops import quantized as q
 
@@ -11139,6 +11149,13 @@ def _q1_args(torch, layer, xq):
     ot = layer._out_threshold
     ot = None if ot is None else ot.data()._data
     od = torch.int8 if ot is not None else torch.float32
+    kw = kw or {}
+    # a body conv followed by relu glue relus its codes in its epilogue
+    res = {"relu": True} if kw.get("relu") else {}
+    if kw.get("residual") is not None:
+        res = {k: getattr(kw[k], "_data", kw[k]) for k in (
+            "residual", "residual_mode", "residual_t", "block_out_t")}
+        od = kw["out_dtype"]
     if isinstance(layer, cq.QuantizedDense):
         def fn(a, impl="kernel"):
             return q.dense_int8(a, wq, th, ws, b, ot, od, impl=impl)
@@ -11149,42 +11166,57 @@ def _q1_args(torch, layer, xq):
         def fn(a, impl="kernel"):
             return q.conv_int8(a, wq, th, ws, b, ot, od, layer._stride,
                                layer._pad, layer._dilate, layer._groups,
-                               impl=impl)
+                               impl=impl, **res)
         out = fn(xq)
         cost = q.conv_cost(tuple(xq.shape), tuple(wq.shape),
-                           tuple(out.shape), od)
+                           tuple(out.shape), od, "residual" in res)
     return fn, cost
 
 
 def _int8_kernel_rows(torch, dev, seen):
-    """Q1 at the stem, a stage-1 3x3, a stage-4 1x1 and the Dense, and Q2
-    at the stem's pool, each at the forward's own inputs: kernel and plain
-    ms (CUDA graphs, inputs cycled beyond L2), the bound, the library
-    yardstick (cuDNN's f32 and bf16 convolution of the shape, not the same
-    function; torch._int_mm for the Dense's product, without the
-    epilogue), the kernel against its plain version."""
+    """Q1 at the stem, a stage-1 3x3, stage 4's and stage 1's last 1x1
+    with their residuals (the block's add in the epilogue) and the Dense,
+    and
+    Q2 at the stem's pool, each at the forward's own tensors (the int8
+    chain's channels-last codes, as the layer reads them): kernel and
+    plain ms (CUDA graphs, inputs cycled beyond L2), the bound, the
+    library yardstick (cuDNN's f32 and bf16 convolution of the shape, not
+    the same function; torch._int_mm for the Dense's product and the
+    stage-4 1x1's, on its channels-last rows (N*H*W, C) x (C, O), without
+    the epilogue), the kernel against its plain version."""
     import torch.nn.functional as F
 
     from incubator_mxnet_tpu_torch.ops import quantized as q
 
     picks = {}
-    for c, mod, xin in seen:
+    fused = []
+    for c, mod, xin, kw in seen:
+        if kw.get("residual") is not None:
+            fused.append((mod, xin, kw))
         if c == "stem" and "stem" not in picks:
-            picks["stem"] = (mod, xin)
+            picks["stem"] = (mod, xin, None)
         elif c == "3x3" and "stage1_3x3" not in picks:
-            picks["stage1_3x3"] = (mod, xin)
+            picks["stage1_3x3"] = (mod, xin, kw)
         elif c == "1x1":
-            # the forward's last 1x1: stage 4's last block, 512 -> 2048
-            picks["stage4_1x1"] = (mod, xin)
+            # the forward's last 1x1: stage 4's last block, 512 -> 2048,
+            # timed as the forward launches it, with the block's residual
+            # add in its epilogue
+            picks["stage4_1x1"] = (mod, xin, kw)
         elif c == "dense":
-            picks["dense"] = (mod, xin)
+            picks["dense"] = (mod, xin, None)
         elif c == "pool":
-            picks["pool"] = (mod, xin)
+            picks["pool"] = (mod, xin, None)
+    # stage 1's third block: its last 1x1 (64 -> 256) with the identity
+    picks["stage1_1x1_residual"] = fused[2]
     rows = []
-    for name in ("stem", "stage1_3x3", "stage4_1x1", "dense"):
-        mod, xin = picks[name]
-        xq = _int8_codes(torch, mod, xin).contiguous()
-        fn, (nbytes, ops) = _q1_args(torch, mod, xq)
+    for name in ("stem", "stage1_3x3", "stage4_1x1", "stage1_1x1_residual",
+                 "dense"):
+        mod, xin, kw = picks[name]
+        xq = _int8_codes(torch, mod, xin)
+        check(xq.dim() == 2 or xq.is_contiguous(
+            memory_format=torch.channels_last),
+              f"int8: the {name}'s codes are not channels-last")
+        fn, (nbytes, ops) = _q1_args(torch, mod, xq, kw)
         got, want = fn(xq), fn(xq, "plain")
         torch.cuda.synchronize()
         err = float((got.double() - want.double()).abs().max())
@@ -11197,7 +11229,9 @@ def _int8_kernel_rows(torch, dev, seen):
             else (t_ops, "operations")
         wq = mod.qweight.data()._data
         row = dict(name=name, shape=f"x {tuple(xq.shape)} w "
-                   f"{tuple(wq.shape)} -> {getattr(got, 'dtype')}",
+                   f"{tuple(wq.shape)}"
+                   + (" + residual" if kw and kw.get("residual") is not None
+                      else "") + f" -> {getattr(got, 'dtype')}",
                    max_abs_err=err, bitwise=err == 0.0, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                    mac=ops // 2)
@@ -11217,23 +11251,47 @@ def _int8_kernel_rows(torch, dev, seen):
             wb = wq.to(torch.bfloat16)
             bf = time_ms(lambda a: F.conv2d(a, wb, None, st, pd), xb,
                          INT8_TIME_REPS)
+            # and in NCHW, the unfused chain's layout
+            xn = [(a.contiguous(),) for a, in xb]
+            wn = wb.contiguous()
+            bf_nchw = time_ms(lambda a: F.conv2d(a, wn, None, st, pd), xn,
+                              INT8_TIME_REPS)
             row.update(library_ms=None, cudnn_f32_ms=f32, cudnn_bf16_ms=bf,
+                       cudnn_bf16_nchw_ms=bf_nchw,
                        library="none computes an int8 convolution on CUDA; "
                        "cuDNN's f32 and bf16 convolution of the shape "
-                       "(TF32 off), not the same function")
+                       "(channels-last; bf16 NCHW too; TF32 off), not the "
+                       "same function")
+        if name == "stage4_1x1":
+            # the same product on the channels-last rows: (N*H*W, C) rows
+            # are a view of the codes, (C, O) column-major of the weight
+            c_in = xq.shape[1]
+            wt = wq.reshape(wq.shape[0], c_in).t()
+            mm = time_ms(lambda a: torch._int_mm(
+                a.permute(0, 2, 3, 1).reshape(-1, c_in), wt), sets,
+                INT8_TIME_REPS)
+            row.update(library_ms=mm, int_mm_ms=mm, library="torch._int_mm "
+                       "of the product on the channels-last rows (N*H*W, "
+                       "C) x (C, O), no epilogue; cuDNN's f32 and bf16 "
+                       "convolution of the shape beside it")
         rows.append(row)
         log(f"[int8 Q1] {name} {row['shape']}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f}, bound {bound_ms:.4f} ({by}, share "
             f"{bound_ms / ms:.3f}), " + (
                 f"torch._int_mm {row['library_ms']:.4f}" if name == "dense"
                 else f"cuDNN f32 {row['cudnn_f32_ms']:.4f}, bf16 "
-                f"{row['cudnn_bf16_ms']:.4f}")
+                f"{row['cudnn_bf16_ms']:.4f} (NCHW "
+                f"{row['cudnn_bf16_nchw_ms']:.4f})")
+            + (f", torch._int_mm of the product {row['int_mm_ms']:.4f}"
+               if "int_mm_ms" in row else "")
             + f"; kernel vs plain max|d| {err}")
         check(err == 0.0, f"int8: Q1 at the {name} differs from its plain "
               f"version")
-    mod, xin = picks["pool"]
-    xp = getattr(xin, "_data", xin).contiguous()
+    mod, xin, _ = picks["pool"]
+    xp = getattr(xin, "_data", xin)
     check(xp.dtype == torch.int8, f"int8: the stem's pool reads {xp.dtype}")
+    check(xp.is_contiguous(memory_format=torch.channels_last),
+          "int8: the stem's pool reads codes that are not channels-last")
     k, s, p = mod._kernel, mod._stride, mod._pad
 
     def pool(a, impl="kernel"):
@@ -11263,8 +11321,10 @@ def _int8_kernel_rows(torch, dev, seen):
 def _int8_split(torch, net, x, classes):
     """One replay's device ms by kernel from torch.profiler's events
     (three replays in the window, the last one's kernels): Q1 by layer
-    class (the i-th Q1 launch of a forward is the i-th quantized layer),
-    Q2, and the rest (torch's elementwise and copy kernels)."""
+    class (the i-th Q1 launch of a forward is the i-th quantized layer;
+    "1x1+add" a block's last conv with the residual in its epilogue), Q2,
+    and the rest (torch's elementwise, copy and fill kernels: the input's
+    quantization, the split-K workspace's zeroing, the global pool)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -11286,7 +11346,7 @@ def _int8_split(torch, net, x, classes):
     for c, e in zip(classes, q1[-n:]):
         out[f"q1_{c}"] += (e.time_range.end - e.time_range.start) / 1e3
     out["q2"] = sum((e.time_range.end - e.time_range.start) / 1e3
-                    for e in last if "int8_max_pool_kernel" in e.name)
+                    for e in last if "int8_max_pool" in e.name)
     out["other"] = sum((e.time_range.end - e.time_range.start) / 1e3
                        for e in last if "int8_" not in e.name)
     out["q1"] = sum(v for k, v in out.items() if k.startswith("q1_"))
@@ -11363,19 +11423,29 @@ def phase_int8(torch, dev):
         f"{INT8_CENSUS})")
     check(got_census == INT8_CENSUS, f"int8: census {got_census}")
     layers, pool = _int8_layers(net8)
-    classes = [c for c, _ in layers]
 
     # the main path: one eager forward through Q1/Q2, its launches counted
     xc = x[:INT8_CHECK_B]
     reset_counts()
-    q.conv_launches = q.pool_launches = 0
+    q.conv_launches = q.pool_launches = q.layout_conversions = 0
     got, seen = _int8_capture(net8, xc, layers, pool)
     torch.cuda.synchronize()
     launches = {"Q1": q.conv_launches, "Q2": q.pool_launches}
+    conversions = q.layout_conversions
+    # the forward's Q1 launches in order, a block's last conv with the
+    # residual add in its epilogue as "1x1+add"
+    classes = [c + ("+add" if kw.get("residual") is not None else "")
+               for c, _, _, kw in seen if c != "pool"]
+    fused = sum(c.endswith("+add") for c in classes)
     log(f"[int8] an eager forward on x[:{INT8_CHECK_B}]: launches "
-        f"{launches} (expected {INT8_LAUNCHES}); Q1 by layer class "
+        f"{launches} (expected {INT8_LAUNCHES}), {fused} of Q1's with the "
+        f"residual add (expected {INT8_FUSED}), {conversions} layout "
+        f"conversions; Q1 by layer class "
         + str({c: classes.count(c) for c in sorted(set(classes))}))
     check(launches == INT8_LAUNCHES, f"int8: launches {launches}")
+    check(fused == INT8_FUSED, f"int8: {fused} residual blocks fused")
+    check(conversions == 0, f"int8: {conversions} layout conversions in "
+          f"the forward")
     with _int8_plain():
         want = net8(xc)
         torch.cuda.synchronize()
@@ -11383,7 +11453,7 @@ def phase_int8(torch, dev):
           "int8: the plain path launched Q1")
     bitwise = torch.equal(got._data, want._data)
     sums = {}
-    for c, mod, xin in seen:
+    for c, mod, xin, _ in seen:
         key = {"stem": "stem", "3x3": "3x3", "dense": "dense"}.get(c)
         if key is None or key in sums:
             continue
@@ -11463,6 +11533,21 @@ def phase_int8(torch, dev):
     cen32 = profiled(torch, lambda: net32(x))
     cen8 = profiled(torch, lambda: net8(x))
     dev32, dev8 = census_ms(cen32), census_ms(cen8)
+    # the replay's port kernels, each joined to its launch-log entry
+    from incubator_mxnet_tpu_torch import profiler as mxprof
+    port8 = [r for r in cen8["rows"] if mxprof.PORT_KERNEL.search(r["name"])]
+    joined8 = dict(
+        lost=cen8["meta"].get("lost_launches"),
+        events=sum(r["count"] for r in port8),
+        with_cost=sum(r["bytes_known"] for r in port8),
+        kernels=sorted({mxprof.PORT_KERNEL.search(r["name"]).group(1)
+                        for r in port8}))
+    log(f"[int8] the profiled replay through mx.profiler: {joined8}")
+    check(joined8["lost"] == 0
+          and joined8["events"] == sum(INT8_LAUNCHES.values())
+          and joined8["with_cost"] == joined8["events"],
+          f"int8: the profiled replay's port kernels did not all join the "
+          f"launch log: {joined8}")
     split = _int8_split(torch, net8, x, classes)
     log(f"[int8] {smi}: bench.py:1754 at batch {INT8_B}, {INT8_ROUNDS} "
         f"interleaved rounds of {INT8_ITERS} forwards (hybridized: one "
@@ -11488,14 +11573,15 @@ def phase_int8(torch, dev):
     log(f"[int8] phase took {seconds:.1f} s")
     numbers = dict(
         card=smi, torch_gaps=gaps, census=got_census, quantize_s=quant_s,
-        launches=launches,
+        launches=launches, fused_residual_launches=fused,
+        layout_conversions=conversions,
         kernel_vs_plain_bitwise=bitwise,
         kernel_vs_plain_bitwise_batch64=bitwise64, int32_sums_equal=sums,
         cpu_rel_err=cpu_err, f32_images_s=max(f_rates),
         int8_images_s=max(i_rates), median_ratio=ratios[len(ratios) // 2],
         rates=dict(f32=f_rates, int8=i_rates),
         device_ms=dict(f32=dev32, int8=dev8, ratio=dev32 / dev8),
-        int8_split_ms=split, top1_agreement=agree, logit_rel_err=rel,
+        profiler_join=joined8, int8_split_ms=split, top1_agreement=agree, logit_rel_err=rel,
         cosine=cos, q1_rows=rows, q2_row=prow, seconds=seconds)
     del net8, net32
     return numbers, launches, (rows, prow)
@@ -11876,7 +11962,8 @@ def kernels_line(attn, lns, launches, train=None, gd=None, by_layout=None,
         for name, src, rep, n, cases, main, lib in (
                 ("int8_conv", "int8_conv.cu", Q1_REPLACES, counts["Q1"],
                  rows, rows[0], "cuDNN f32/bf16 convolution (not the same "
-                 "function; library_ms null), torch._int_mm for the Dense"),
+                 "function; library_ms null), torch._int_mm for the Dense "
+                 "and the stage-4 1x1's product"),
                 ("int8_max_pool", "int8_pool.cu", Q2_REPLACES, counts["Q2"],
                  [prow], prow, None)):
             out.append(dict(

@@ -289,10 +289,14 @@ def _apply(name, fn, *args):
     return fn(*args)
 
 
-def _constant(value, device):
-    """A Constant holding the numpy ``value`` on ``device``."""
-    return Constant(NDArray(torch.from_numpy(onp.array(value, copy=True)),
-                            device=device))
+def _constant(value, device, channels_last=False):
+    """A Constant holding the numpy ``value`` on ``device`` (a 4-d value
+    stored channels-last where asked: ``set_data`` and ``load_parameters``
+    copy into the tensor and keep its strides)."""
+    t = torch.from_numpy(onp.array(value, copy=True))
+    if channels_last:
+        t = t.contiguous(memory_format=torch.channels_last)
+    return Constant(NDArray(t, device=device))
 
 
 def _chain_dtype(layer, x):
@@ -320,10 +324,15 @@ def _chain_dtype(layer, x):
 
 def _quantize_input(xv, thresh):
     """``clip(round(x / s_x), -127, 127)`` as int8, s_x = thresh / 127
-    (the reference's order, both divisions true divisions)."""
+    (the reference's order, both divisions true divisions). 4-d codes come
+    out channels-last, the int8 chain's layout (the cast writes them
+    there: no extra pass)."""
     s_x = _true_div(thresh.float().reshape(()), 127.0)
-    return torch.clamp(torch.round(xv.float() / s_x), -127, 127).to(
-        torch.int8)
+    q = torch.clamp(torch.round(xv.float() / s_x), -127, 127)
+    if q.dim() == 4:
+        return torch.empty_like(q, dtype=torch.int8,
+                                memory_format=torch.channels_last).copy_(q)
+    return q.to(torch.int8)
 
 
 class QuantizedDense(HybridBlock):
@@ -390,14 +399,18 @@ class QuantizedDense(HybridBlock):
 
 class QuantizedConv2D(HybridBlock):
     """INT8 2D convolution (reference: quantized_conv.cc), NCHW layout, on
-    Q1 (`ops.quantized.conv_int8`)."""
+    Q1 (`ops.quantized.conv_int8`). The int8 weight is stored
+    channels-last ((O, kh, kw, C/g) in memory, Q1's K-major B), its shape
+    and checkpoint key the reference's. Called by its residual block with
+    ``residual=`` (the block's other branch), it runs the block's add,
+    relu and requantize in Q1's epilogue."""
 
     def __init__(self, conv, threshold):
         super().__init__()
         dev = _device_of(conv.weight)
         w = conv.weight.data().asnumpy()            # (O, I, kh, kw)
         wq, w_scale = _quantize_weight(w, axes=(1, 2, 3))
-        self.qweight = _constant(wq, dev)
+        self.qweight = _constant(wq, dev, channels_last=True)
         self.qscale = _constant(w_scale.reshape(-1), dev)  # (O,)
         self.qthreshold = _constant(onp.float32(threshold), dev)
         self.qbias = (Constant(NDArray(conv.bias._data._data.detach()
@@ -412,12 +425,25 @@ class QuantizedConv2D(HybridBlock):
         if self.act is not None:
             self.register_child(self.act, "act")
 
-    def forward(self, x):
+    def forward(self, x, residual=None, residual_mode="same",
+                residual_t=None, block_out_t=None, out_dtype=None,
+                relu=False):
+        """``residual``: the int8 codes of the other branch of the residual
+        block this conv ends, added in the epilogue with ``residual_mode``,
+        ``residual_t`` and ``block_out_t`` into ``out_dtype``, as
+        `ops.quantized.conv_int8` takes them (the block resolves them).
+        ``relu``: relu on the int8 codes this conv emits (the relu glue
+        that follows it in the block's body, which the block then
+        skips)."""
         stride, pad, dilate, groups = (self._stride, self._pad,
                                        self._dilate, self._groups)
         has_bias = self.qbias is not None
         has_out = self._out_threshold is not None
         chain_dt = _chain_dtype(self, x)
+        extra = {k: v for k, v in (("residual", residual),
+                                   ("residual_t", residual_t),
+                                   ("block_out_t", block_out_t))
+                 if v is not None}
 
         def f(xv, wq, w_scale, thresh, *rest):
             if xv.dtype == torch.int8:
@@ -427,9 +453,14 @@ class QuantizedConv2D(HybridBlock):
             rest = list(rest)
             bias = rest.pop(0) if has_bias else None
             out_t = rest.pop(0) if has_out else None
+            if out_dtype is not None:
+                out_dt = out_dtype
+            elif has_out:
+                out_dt = torch.int8
             return _quant.conv_int8(xq, wq, thresh, w_scale, bias, out_t,
-                                    torch.int8 if has_out else out_dt,
-                                    stride, pad, dilate, groups)
+                                    out_dt, stride, pad, dilate, groups,
+                                    residual_mode=residual_mode, relu=relu,
+                                    **dict(zip(extra, rest)))
 
         args = (x, self.qweight.data(), self.qscale.data(),
                 self.qthreshold.data())
@@ -437,6 +468,7 @@ class QuantizedConv2D(HybridBlock):
             args = args + (self.qbias.data(),)
         if has_out:
             args = args + (self._out_threshold.data(),)
+        args = args + tuple(extra.values())
         out = _apply("quantized_conv", f, *args)
         if self.act is not None:
             out = self.act(out)
@@ -579,6 +611,40 @@ def _chain_requantize(net, logger=None):
     return n_chained
 
 
+def _residual_add(av, rv, t_add, t_in, out_t, ds_chained, chain_dt):
+    """The residual block's add, relu and requantize in torch ops, as the
+    reference's block computes them (`incubator_mxnet_tpu/contrib/
+    quantization.py:618-647`): ``av`` the body's output (int8 at t_add, or
+    float), ``rv`` the other branch (int8 at t_add where the downsample is
+    chained, the block's input at ``t_in``, or float); int8 at ``out_t``
+    (the next block's threshold) or ``chain_dt``. Q1's epilogue runs the
+    same steps where both branches are int8 (`ops.quantized.
+    plain_epilogue`)."""
+    i8 = torch.int8
+    s_add = _true_div(t_add.float(), 127.0)
+    if av.dtype == i8 and rv.dtype == i8 and ds_chained:
+        # both branches int8 AT THE SAME SCALE: integer add
+        y = (av.to(torch.int32) + rv.to(torch.int32)).float() * s_add
+        out_dt = chain_dt
+    else:
+        ya = av.float() * s_add if av.dtype == i8 else av.float()
+        if rv.dtype == i8 and t_in is not None:
+            s_in = _true_div(t_in.float(), 127.0)
+            yr = rv.float() * s_in
+        else:
+            if rv.dtype == i8:
+                raise TypeError("int8 identity without scale")
+            yr = rv.float()
+        y = ya + yr
+        out_dt = chain_dt if (av.dtype == i8 or rv.dtype == i8) \
+            else av.dtype
+    y = torch.relu(y)
+    if out_t is not None:
+        return torch.clamp(torch.round(y * _true_div(127.0, out_t.float())),
+                           -127, 127).to(i8)
+    return y.to(out_dt)
+
+
 class QuantizedResidualBlock(HybridBlock):
     """INT8 residual block (reference: the oneDNN subgraph pass fuses
     conv+sum+relu into one int8 primitive, `src/operator/subgraph/dnnl/
@@ -591,7 +657,14 @@ class QuantizedResidualBlock(HybridBlock):
     activation between blocks. The identity branch arrives as int8 at this
     block's own input scale (the previous block emitted it there). The
     add, relu and requantize are torch ops on the card, as they are one
-    XLA fusion in the reference.
+    XLA fusion in the reference. Where both branches arrive as int8
+    (every block of a chained ResNet v1) the port runs the add, relu and
+    requantize in the epilogue of the body's last conv (Q1, its residual
+    operand): the downsample first, then the body up to that conv, which
+    takes the other branch; on the way, a body conv that emits int8 codes
+    followed by relu glue applies the relu to its codes in its epilogue
+    and the glue is skipped. Otherwise they are torch ops, as the
+    reference's function computes them.
     """
 
     def __init__(self, block, t_add):
@@ -620,40 +693,70 @@ class QuantizedResidualBlock(HybridBlock):
         self.__dict__["_out_threshold"] = None  # set when NEXT block chains
         self.__dict__["_chain_consumer"] = None
 
+    def _fused_site(self):
+        """(body's children, index of its last conv) where that conv can
+        take the add in its epilogue: it emits at the add's threshold, has
+        no activation of its own, and only Identity follows it."""
+        if not isinstance(self.body, nn.HybridSequential):
+            return None
+        kids = list(self.body._children.values())
+        i = len(kids) - 1
+        while i >= 0 and isinstance(kids[i], nn.Identity):
+            i -= 1
+        last = kids[i] if i >= 0 else None
+        if isinstance(last, QuantizedConv2D) and last.act is None and \
+                last.__dict__.get("_out_threshold") is self.qadd_threshold:
+            return kids, i
+        return None
+
     def forward(self, x):
+        if self.downsample is not None:
+            res = self.downsample(x)
+        else:
+            res = x
+        site = self._fused_site()
+        r_dt = (res._data if isinstance(res, NDArray) else res).dtype
+        if site is not None and r_dt == torch.int8 and (
+                self._ds_chained or self._in_threshold is not None):
+            kids, i = site
+            h, j = x, 0
+            while j < i:
+                child, k = kids[j], j + 1
+                # the Identity/relu glue after this child
+                while k < i and _is_relu_glue(kids[k]):
+                    k += 1
+                if isinstance(child, QuantizedConv2D) and child.act is None \
+                        and child._out_threshold is not None and any(
+                            isinstance(c, nn.Activation)
+                            for c in kids[j + 1:k]):
+                    h, j = child(h, relu=True), k
+                else:
+                    h, j = child(h), j + 1
+            last, has_out = kids[i], self._out_threshold is not None
+            # the dtype bookkeeping in the unfused forward's order: the
+            # body's last conv seeds this block's carried dtype, which the
+            # block then reads
+            _chain_dtype(last, h)
+            chain_dt = _chain_dtype(self, x)
+            return last(
+                h, residual=res,
+                residual_mode="same" if self._ds_chained else "identity",
+                residual_t=(None if self._ds_chained
+                            else self._in_threshold.data()),
+                block_out_t=self._out_threshold.data() if has_out else None,
+                out_dtype=torch.int8 if has_out else chain_dt)
         a = self.body(x)
-        res = self.downsample(x) if self.downsample is not None else x
         has_out = self._out_threshold is not None
         chain_dt = _chain_dtype(self, x)
         has_in_t = self._in_threshold is not None
         ds_chained = self._ds_chained
-        i8 = torch.int8
 
         def f(av, rv, t_add, *rest):
             rest = list(rest)
-            s_add = _true_div(t_add.float(), 127.0)
-            if av.dtype == i8 and rv.dtype == i8 and ds_chained:
-                # both branches int8 AT THE SAME SCALE: integer add
-                y = (av.to(torch.int32) + rv.to(torch.int32)).float() * s_add
-                out_dt = chain_dt
-            else:
-                ya = av.float() * s_add if av.dtype == i8 else av.float()
-                if rv.dtype == i8 and has_in_t:
-                    s_in = _true_div(rest.pop(0).float(), 127.0)
-                    yr = rv.float() * s_in
-                else:
-                    if rv.dtype == i8:
-                        raise TypeError("int8 identity without scale")
-                    yr = rv.float()
-                y = ya + yr
-                out_dt = chain_dt if (av.dtype == i8 or rv.dtype == i8) \
-                    else av.dtype
-            y = torch.relu(y)
-            if has_out:
-                out_t = rest.pop(-1).float()
-                return torch.clamp(torch.round(y * _true_div(127.0, out_t)),
-                                   -127, 127).to(i8)
-            return y.to(out_dt)
+            t_in = rest.pop(0) if has_in_t else None
+            out_t = rest.pop(0) if has_out else None
+            return _residual_add(av, rv, t_add, t_in, out_t, ds_chained,
+                                 chain_dt)
 
         args = (a, res, self.qadd_threshold.data())
         if has_in_t:
@@ -665,6 +768,14 @@ class QuantizedResidualBlock(HybridBlock):
     def __repr__(self):
         t = float(self.qadd_threshold.data().asnumpy())
         return f"QuantizedResidualBlock(t_add={t:.4g})"
+
+
+def _is_relu_glue(block):
+    """Identity or a relu Activation: glue that passes int8 codes
+    through monotonically."""
+    return isinstance(block, nn.Identity) or (
+        isinstance(block, nn.Activation)
+        and getattr(block, "_act_type", None) == "relu")
 
 
 def _last_quantized(seq):

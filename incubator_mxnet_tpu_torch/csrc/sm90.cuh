@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: warpgroup
-// matrix products (`wgmma.mma_async`) in bf16, f16 and TF32, their shared-memory
+// Hopper (sm_90a) building blocks of the flash-attention kernels and the
+// int8 convolution: warpgroup matrix products (`wgmma.mma_async`) in bf16,
+// f16 and TF32 with f32 sums and in s8 with s32 sums, their shared-memory
 // descriptors and the 128-byte swizzle they name, 16-byte `cp.async`
 // copies, and the split of an f32 value into two TF32 halves (3xTF32).
 //
@@ -13,14 +14,14 @@
 //
 // - K-major operand (A, or B stored as N rows of K): the product's depth
 //   runs along the tile's depth. One wgmma step consumes 32 bytes of depth
-//   (16 bf16 or f16, 8 TF32); the descriptor of step s starts s * 32 bytes
-//   in.
+//   (16 bf16 or f16, 8 TF32, 32 s8); the descriptor of step s starts s * 32
+//   bytes in. s8 products take both operands K-major only.
 // - MN-major B (bf16 and f16 only): the product's depth runs along the tile's rows
 //   and N along its depth, e.g. V stored (keys, d) as B of P V. One step
 //   consumes 16 rows; LBO is the stride between column blocks along N and
 //   SBO the stride between groups of 8 rows.
 //
-// Accumulators (m64nN, f32): thread t of warp w in the warpgroup holds
+// Accumulators (m64nN, f32 or s32): thread t of warp w in the warpgroup holds
 // d[4 j + e] for j < N / 8 at row 16 w + t / 4 + 8 * (e / 2), column
 // 8 j + 2 (t % 4) + e % 2. A register A fragment (bf16 or f16, m64nNk16) holds
 // rows 16 w + t / 4 (+ 8) and columns 2 (t % 4) (+ 1, + 8, + 9), so the
@@ -99,6 +100,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// wait until at most `n` of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
 // make this thread's shared-memory writes visible to wgmma (async proxy);
 // a barrier must follow before another thread's wgmma reads them
 __device__ __forceinline__ void fence_async_smem() {
@@ -128,6 +135,11 @@ __device__ __forceinline__ void hold(float (&r)[n]) {
 }
 template <int n>
 __device__ __forceinline__ void hold(uint32_t (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int n>
+__device__ __forceinline__ void hold(int (&r)[n]) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -286,6 +298,41 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], uint32_t a0,
   }
 }
 
+#define MX_I8(d, o)                                                         \
+  "+r"(d[o]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]),               \
+      "+r"(d[o + 4]), "+r"(d[o + 5]), "+r"(d[o + 6]), "+r"(d[o + 7])
+#define MX_I32(d) MX_I8(d, 0), MX_I8(d, 8), MX_I8(d, 16), MX_I8(d, 24)
+#define MX_I64(d) \
+  MX_I32(d), MX_I8(d, 32), MX_I8(d, 40), MX_I8(d, 48), MX_I8(d, 56)
+
+// d (m64 x N, s32) += A (smem) B (smem), s8 x s8, both K-major, one k32
+// step (32 bytes of depth: the same descriptors as a bf16 k16 step). The
+// sums are exact (no .satfinite: int32 wraps, which no int8 product of
+// a depth below 2^17 reaches). N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void mma_ss_s8(int (&d)[N / 2], uint64_t a,
+                                          uint64_t b) {
+  static_assert(N == 64 || N == 128, "mma_ss_s8: N is 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MX_R32
+        ", %32, %33, p;\n}\n"
+        : MX_I32(d)
+        : "l"(a), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " MX_R64
+        ", %64, %65, p;\n}\n"
+        : MX_I64(d)
+        : "l"(a), "l"(b), "r"(1));
+  }
+}
+
+#undef MX_I8
+#undef MX_I32
+#undef MX_I64
 #undef MX_R16
 #undef MX_R32
 #undef MX_R64

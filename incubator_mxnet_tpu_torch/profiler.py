@@ -104,7 +104,7 @@ PORT_KERNEL = re.compile(
     r"(flash_fwd_kernel|flash_bwd_delta_kernel|flash_bwd_dq_kernel|"
     r"flash_bwd_dkv_kernel|ln_fwd_kernel|ln_bwd_kernel|"
     r"ln_partials_reduce_kernel|gelu_dropout_kernel|fold_keys_kernel|"
-    r"int8_conv_kernel|int8_max_pool_kernel|"
+    r"int8_conv_kernel|int8_max_pool_kernel|int8_max_pool_nhwc_kernel|"
     r"(?<![A-Za-z0-9_])dropout_kernel)<?")
 _ANCHOR = "mx_profiler_anchor"
 #: the metadata row that carries the launch log's tally with the events

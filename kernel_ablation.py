@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Time variants of the port's K6 (fused GELU + dropout), row-backward
-(K4b, K3 backward) and forward row (K4, K3 forward) kernels on one CUDA
-card, in one run.
+(K4b, K3 backward), forward row (K4, K3 forward) and int8 convolution
+(Q1) kernels on one CUDA card, in one run.
 
 Run from the root of a checkout: ``python3 kernel_ablation.py [--parent
-DIR] [--only fwd,bwd,k6,host]``. A variant is the source of
+DIR] [--only fwd,bwd,k6,host,q1]``. A variant is the source of
 ``incubator_mxnet_tpu_torch/csrc`` with named text substitutions: a part
 of the work taken out (the normal tail's rational function, Philox, the
 dgamma/dbeta reduction) or a design choice changed (erff for the tail,
 Philox's multiplies, vectors a thread; where the row backward keeps its
 row and its sums, blocks an SM, the reduction's warps; the forward's
 gamma/beta held in registers, its next row in flight, its exact vector
-count, its streaming loads, K3's Philox words, how K3 takes gamma/beta).
+count, its streaming loads, K3's Philox words, how K3 takes gamma/beta;
+Q1's epilogue, products, A loads, its ring's depth). The q1 section
+calls Q1's C entry at ResNet-50's shapes (batch 64: the stem, a stage-1
+3x3, a stage-4 1x1, stage 1's residual 1x1, the Dense) on random
+channels-last codes.
 A row-backward variant runs on its own grid (blocks an SM x SMs);
 a forward grid variant is the shipped library on another number of
 blocks than `ops.layer_norm.row_blocks`'s. Each source variant is built by ``nvcc``
@@ -162,6 +166,46 @@ FWD_VARIANTS = [
      [("      <<<blocks, kLnFwdWarps * 32, 0, stream>>>(",
        "      <<<blocks, 32, 0, stream>>>(")]),
 ]
+# Q1: parts of the work taken out, or a design choice undone (the 64-wide
+# tiles' ring and blocks an SM, the staged sums' unit order)
+Q1_VARIANTS = [
+    ("as is", "int8_conv", []),
+    ("no epilogue", "int8_conv",
+     [("  __syncthreads();\n\n  // the epilogue, compiled",
+       "  __syncthreads();\n  if (s.M > 0) return;\n\n"
+       "  // the epilogue, compiled")]),
+    ("no products", "int8_conv",
+     [("          mma_ss_s8<BN>(acc, desc_k(a_t, 64, st), "
+       "desc_k(b_t, BN, st));", "          hold(acc);")]),
+    ("no A loads", "int8_conv",
+     [("    cp_async16(sa + chunk_at(row, j), src, ok ? 16 : 0);",
+       "    (void)src;")]),
+    ("BN 64: 4 stages, 2 blocks an SM", "int8_conv",
+     [("static constexpr int kStages = 3;",
+       "static constexpr int kStages = BN == 128 ? 3 : 4;"),
+      ("static constexpr int kBlocks = BN == 64 ? 3 : 2;",
+       "static constexpr int kBlocks = 2;")]),
+    ("sums staged in plain order", "int8_conv",
+     [("  return (chunk >> 1) & 3;", "  return 0;")]),
+    ("f32 stored a word at a time", "int8_conv",
+     [("      if (full) {\n#pragma unroll\n        for (int q = 0; q < 4; "
+       "++q)\n          reinterpret_cast<float4*>(out)[q] =",
+       "      if (false) {\n#pragma unroll\n        for (int q = 0; q < 4; "
+       "++q)\n          reinterpret_cast<float4*>(out)[q] =")]),
+]
+# Q1's cases: (name, x NCHW shape, w shape, stride, pad, residual, out)
+Q1_CASES = [
+    ("stem", (64, 3, 224, 224), (64, 3, 7, 7), 2, 3, False, "int8"),
+    ("stage1_3x3", (64, 64, 56, 56), (64, 64, 3, 3), 1, 1, False, "int8"),
+    ("stage4_1x1", (64, 512, 7, 7), (2048, 512, 1, 1), 1, 0, False, "int8"),
+    ("stage1_1x1_residual", (64, 64, 56, 56), (256, 64, 1, 1), 1, 0, True,
+     "int8"),
+    # stage 4's last 1x1 as the forward runs it: the last block's add, f32
+    ("stage4_1x1_residual", (64, 512, 7, 7), (2048, 512, 1, 1), 1, 0, True,
+     "float32"),
+    ("dense", (64, 2048, 1, 1), (1000, 2048, 1, 1), 1, 0, False, "float32"),
+]
+
 # the grids of the source variants that take their own (rows, sms) ->
 # 8-warp blocks; the others run on `row_blocks`'
 FWD_VARIANT_GRIDS = {
@@ -210,6 +254,10 @@ def build(variants, parent):
         if proc.returncode:
             cs.fail(f"nvcc failed for variant {key}:\n{log}")
         for k, (regs, spills) in sorted(cs._ptxas_report(log).items()):
+            if key[1] == "int8_conv":
+                cs.log(f"[ablation] build {key[0]!r} {k}: {regs} "
+                       f"registers, {spills} bytes spilled")
+                continue
             label = cs._row_kernel_label(k)
             if label and ("NV=3 " in label or "NV=6 " in label
                           or label.startswith(("K6", "row bwd reduce"))) \
@@ -243,6 +291,15 @@ def bind(path, stem, parent=False):
     codes = [ctypes.c_int] * (2 if stem == "layer_norm" else 3)
     grid = [] if parent else [ctypes.c_int]
     lib = ctypes.CDLL(str(path))
+    if stem == "int8_conv":
+        lib.mx_int8_conv.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+            + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        lib.mx_int8_conv_workspace.argtypes = [ctypes.c_int] * 16
+        lib.mx_int8_conv_workspace.restype = ctypes.c_longlong
+        return lib
     if stem == "layer_norm":
         lib.mx_layer_norm_fwd.argtypes = (
             codes + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
@@ -272,7 +329,7 @@ def bind(path, stem, parent=False):
     return lib
 
 
-SECTIONS = ("k6", "bwd", "fwd", "host")
+SECTIONS = ("k6", "bwd", "fwd", "host", "q1")
 # rounds of (this wrapper, the parent's, the parent's, this one) in the
 # host section, each `chip_smoke.wrapper_host_us` (the least of 7 batches)
 HOST_ROUNDS = 4
@@ -311,6 +368,9 @@ def main():
     if "bwd" in sections:
         for stem in ("layer_norm", "fused_block"):
             variants += [(n, stem, subs) for n, subs, _ in ROW_VARIANTS]
+    if "q1" in sections:
+        variants += Q1_VARIANTS
+        stems.add("int8_conv")
     if sections & {"bwd", "fwd", "host"}:
         stems |= {"layer_norm", "fused_block"}
     if "fwd" in sections:
@@ -365,6 +425,8 @@ def main():
         fwd_section(torch, dev, variants, libs, turns, stream, codes, sms)
     if "host" in sections:
         results += host_section(torch, dev, parent, paths)
+    if "q1" in sections:
+        q1_section(torch, dev, variants, libs, turns, stream)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -417,6 +479,58 @@ def k6_section(torch, dev, variants, libs, turns, stream, codes):
                                 "float32")[0]
             turns(k6_names, f"K6 {'bwd' if bwd else 'fwd'} {shape} "
                   f"{cs._dt(dtype)} p={pp}", fns, bound_ms)
+
+
+def q1_section(torch, dev, variants, libs, turns, stream):
+    """Q1's C entry at Q1_CASES, each variant on the same channels-last
+    codes (cycled beyond the L2 cache), int8 out at a threshold (the
+    residual case: the same-scale add), the split-K workspace zeroed in
+    the call as the wrapper does; the bound as chip_smoke.py's rows."""
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    names = [n for n, stem, _ in variants if stem == "int8_conv"]
+    cl = torch.channels_last
+    for case, xs, ws, st, pd, res, out in Q1_CASES:
+        g = torch.Generator(device=dev).manual_seed(xs[1] + ws[0])
+        x = torch.randint(-127, 128, xs, dtype=torch.int8, device=dev,
+                          generator=g).contiguous(memory_format=cl)
+        w = torch.randint(-127, 128, ws, dtype=torch.int8, device=dev,
+                          generator=g).contiguous(memory_format=cl)
+        ho = (xs[2] + 2 * pd - ws[2]) // st + 1
+        wo = (xs[3] + 2 * pd - ws[3]) // st + 1
+        oshape = (xs[0], ws[0], ho, wo)
+        od = getattr(torch, out)
+        r = torch.randint(-127, 128, oshape, dtype=torch.int8, device=dev,
+                          generator=g).contiguous(memory_format=cl) \
+            if res else None
+        th, ot, bo = (torch.tensor(v, device=dev) for v in (2.5, 1.7, 3.3))
+        wsc = torch.rand(ws[0], device=dev, generator=g) * 1e-3
+        shape = (*xs, ws[0], ws[2], ws[3], st, st, pd, pd, 1, 1, 1, ho, wo)
+        sets = cs.input_sets([x], 20)
+        fns = {}
+        for name in names:
+            lib = libs[(name, "int8_conv")]
+            words = lib.mx_int8_conv_workspace(*shape)
+
+            def fn(a, lib=lib, words=words):
+                y = torch.empty(oshape, dtype=od, device=dev,
+                                memory_format=cl)
+                wsp = torch.zeros(words, dtype=torch.int32, device=dev) \
+                    if words else None
+                err = lib.mx_int8_conv(
+                    a.data_ptr(), w.data_ptr(), *shape, th.data_ptr(),
+                    wsc.data_ptr(), None, -1, ot.data_ptr(),
+                    None if r is None else r.data_ptr(), int(res), None,
+                    bo.data_ptr() if res else None, 0, y.data_ptr(),
+                    q._OUT_KINDS[od], None if wsp is None else wsp.data_ptr(),
+                    stream())
+                if err:
+                    cs.fail(f"int8_conv {case}: error {err}")
+                return y
+            fns[name] = (fn, sets)
+        nbytes, ops = q.conv_cost(xs, ws, oshape, od, res)
+        bound_ms = max(nbytes / cs.PEAK_BYTES_S, ops / cs.PEAK_INT8_OPS) * 1e3
+        turns(names, f"Q1 {case} {xs} x {ws}", fns, bound_ms)
 
 
 def bwd_section(torch, dev, variants, libs, turns, stream, codes, per_sm,

@@ -2631,6 +2631,122 @@ def test_int8_max_pool_matches_its_plain_version(dev, case):
     assert q.pool_launches == before + 1 and torch.equal(got, want)
 
 
+Q1_RESIDUAL_CASES = {
+    # x, w, stride, pad: a stage-1 1x1 (64 -> 256), a 3x3 whose O = 80
+    # takes a 128-wide tile, a ragged O (scalar epilogue stores)
+    "stage1_1x1": ((2, 64, 14, 14), (256, 64, 1, 1), (1, 1), (0, 0)),
+    "3x3_o80": ((2, 32, 9, 9), (80, 32, 3, 3), (1, 1), (1, 1)),
+    "ragged_o24": ((3, 16, 7, 7), (24, 16, 1, 1), (1, 1), (0, 0)),
+}
+
+
+@pytest.mark.parametrize("out", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["same", "identity"])
+@pytest.mark.parametrize("case", sorted(Q1_RESIDUAL_CASES))
+def test_int8_conv_residual_matches_its_plain_version_bit_for_bit(
+        dev, case, mode, out):
+    """Q1 with the residual block's add, relu and requantize in its
+    epilogue, on channels-last codes (no layout conversion), against its
+    plain version."""
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    xs, ws, st, pd = Q1_RESIDUAL_CASES[case]
+    cl = torch.channels_last
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randint(-127, 128, xs, dtype=torch.int8, device=dev,
+                      generator=g).contiguous(memory_format=cl)
+    w = torch.randint(-127, 128, ws, dtype=torch.int8, device=dev,
+                      generator=g).contiguous(memory_format=cl)
+    ho = (xs[2] + 2 * pd[0] - ws[2]) // st[0] + 1
+    r = torch.randint(-127, 128, (xs[0], ws[0], ho, ho), dtype=torch.int8,
+                      device=dev, generator=g).contiguous(memory_format=cl)
+    th, ot = torch.tensor(2.5, device=dev), torch.tensor(1.7, device=dev)
+    t_in, b_out = torch.tensor(2.1, device=dev), torch.tensor(3.3, device=dev)
+    wsc = torch.rand(ws[0], device=dev, generator=g) * 1e-3
+    b = torch.randn(ws[0], device=dev, generator=g)
+    od = getattr(torch, out)
+    kw = dict(residual=r, residual_mode=mode, residual_t=t_in,
+              block_out_t=b_out if od == torch.int8 else None)
+    c0, l0 = q.conv_launches, q.layout_conversions
+    got = q.conv_int8(x, w, th, wsc, b, ot, od, st, pd, **kw)
+    want = q.conv_int8(x, w, th, wsc, b, ot, od, st, pd, impl="plain", **kw)
+    torch.cuda.synchronize()
+    assert (q.conv_launches - c0, q.layout_conversions - l0) == (1, 0)
+    assert got.is_contiguous(memory_format=cl)
+    assert got.dtype == od and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["stem_k147", "3x3"])
+def test_int8_conv_relu_on_the_codes_matches_its_plain_version(dev, case):
+    """Q1 with relu on its int8 codes (the residual body's relu glue
+    folded into the epilogue; the stem's shape takes the rows branch),
+    against its plain version."""
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    xs, ws, st, pd, dl, gr = Q1_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randint(-127, 128, xs, dtype=torch.int8, device=dev,
+                      generator=g)
+    w = torch.randint(-127, 128, ws, dtype=torch.int8, device=dev,
+                      generator=g)
+    th, ot = torch.tensor(2.5, device=dev), torch.tensor(1.7, device=dev)
+    wsc = torch.rand(ws[0], device=dev, generator=g) * 1e-3
+    got = q.conv_int8(x, w, th, wsc, None, ot, torch.int8, st, pd, dl, gr,
+                      relu=True)
+    want = q.conv_int8(x, w, th, wsc, None, ot, torch.int8, st, pd, dl, gr,
+                       impl="plain", relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.min()) >= 0
+
+
+def test_int8_dense_split_k_replays_in_a_graph(dev):
+    """The Dense's split-K launch (its workspace zeroed on the stream)
+    captured in a CUDA graph: every replay equals the eager call."""
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(-127, 128, (64, 2048), dtype=torch.int8, device=dev,
+                      generator=g)
+    w = torch.randint(-127, 128, (1000, 2048), dtype=torch.int8,
+                      device=dev, generator=g)
+    th = torch.tensor(0.9, device=dev)
+    wsc = torch.rand(1000, device=dev, generator=g) * 1e-3
+    want = q.dense_int8(x, w, th, wsc, out_dtype=torch.float32)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = q.dense_int8(x, w, th, wsc, out_dtype=torch.float32)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(want, q.dense_int8(x, w, th, wsc, impl="plain"))
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 64, 112, 112), (3, 3), (2, 2), (1, 1), None, torch.int8),
+    ((2, 32, 9, 10), (3, 3), (2, 2), (0, 1), (1, 0), torch.uint8),
+    ((2, 24, 9, 10), (2, 2), (3, 3), (1, 1), (1, 1), torch.int8)],
+    ids=["stem_pool_c64", "full_uint8_c32", "c24_bytewise"])
+def test_int8_max_pool_channels_last_matches_its_plain_version(dev, case):
+    """Q2's channels-last kernel (16 channels a thread where C % 16 == 0,
+    one byte a thread otherwise) on channels-last codes, no layout
+    conversion, against its plain version."""
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    shape, k, s, p, e, dt = case
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randint(0 if dt == torch.uint8 else -128, 127, shape,
+                      dtype=dt, device=dev, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    p0, l0 = q.pool_launches, q.layout_conversions
+    got = q.max_pool_int(x, k, s, p, e)
+    want = q.max_pool_int(x, k, s, p, e, impl="plain")
+    torch.cuda.synchronize()
+    assert (q.pool_launches - p0, q.layout_conversions - l0) == (1, 0)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
 def test_quantized_resnet_on_the_card_matches_the_cpu(dev):
     """A small quantized bottleneck ResNet: the card's logits (Q1/Q2) the
     CPU's within 1e-2 of the largest (the global pool sums in another

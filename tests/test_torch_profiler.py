@@ -432,6 +432,24 @@ def test_join_groups_prefix_and_suffix():
         "<float, float, unsigned int, 1, 4, bool>") is None
 
 
+@pytest.mark.parametrize("pool", ["POOL_KERNEL", "POOL_NHWC_KERNEL"])
+def test_join_int8_replay_with_q1_and_q2(pool):
+    """A hybridized int8 forward replays as one group holding Q1's launches
+    and one of Q2's two kernels (the channels-last one on ResNet's stem):
+    every event is a port kernel under the name its wrapper logs, so the
+    group joins whole and no launch reads as lost."""
+    from incubator_mxnet_tpu_torch.ops import quantized as q
+
+    names = [q.CONV_KERNEL, getattr(q, pool)] + [q.CONV_KERNEL] * 3
+    events = [{"name": f"void {n}<signed char, 1>(signed char const*)",
+               "args": {"correlation": 7}} for n in names]
+    replay = [(n, 10 + i, 20 + i) for i, n in enumerate(names)]
+    assert [tprof.PORT_KERNEL.search(e["name"]).group(1)
+            for e in events] == names
+    joined, left = tprof.join_launch_log(events, [replay])
+    assert joined == dict(enumerate(replay)) and left == []
+
+
 def test_chrome_trace_merges_the_device_lanes():
     raw, log, anchor = _raw()
     events = _ingest(raw, log, anchor)

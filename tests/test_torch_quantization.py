@@ -20,7 +20,13 @@ calibrate both. Tolerances:
   most 1 in 1000, each by one step; none on these seeds);
 - a net quantized and saved by the reference, loaded into the port's
   quantized net: the same logits within the same tolerance, every
-  quantized parameter equal.
+  quantized parameter equal;
+- the int8 chain's layout (channels-last codes and weights) changes no
+  bit: the wrappers' outputs on channels-last and contiguous inputs are
+  equal, and the residual add in Q1's epilogue (its plain version) equals
+  the block's torch-op glue bit for bit; a residual block through the
+  fused path against the reference's block: its int8 codes as the stem's
+  (at most 1 in 1000 differs, by one step).
 """
 import collections
 import logging
@@ -309,6 +315,226 @@ def test_the_epilogue_rounds_as_the_reference_orders_it():
     want = onp.clip(onp.round(y * (onp.float32(127.0) / onp.float32(2.54))),
                     -127, 127).astype("int8")
     onp.testing.assert_array_equal(got.numpy(), want)
+
+
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("case", sorted(CONVS))
+def test_conv_int8_is_the_same_on_channels_last_and_contiguous_codes(case):
+    """Q1's plain version on channels-last codes and weight and on NCHW
+    contiguous ones: equal codes, sums and floats, the output
+    channels-last either way."""
+    kw = CONVS[case]
+    shape = CONV_IN.get(case, (2, 4, 9, 9))
+    r = onp.random.RandomState(21)
+    o, groups = kw["channels"], kw.get("groups", 1)
+    w_shape = (o, shape[1] // groups) + kw["kernel_size"]
+    x = torch.from_numpy(r.randint(-127, 128, shape).astype("int8"))
+    w = torch.from_numpy(r.randint(-127, 128, w_shape).astype("int8"))
+    th, ot = torch.tensor(2.5), torch.tensor(1.7)
+    wsc = torch.from_numpy(r.uniform(1e-3, 2e-3, o).astype("float32"))
+    geo = dict(stride=kw.get("strides", (1, 1)),
+               pad=kw.get("padding", (0, 0)),
+               dilate=kw.get("dilation", (1, 1)), groups=groups)
+    for od in (torch.int8, torch.int32, torch.float32):
+        got = tops.conv_int8(_channels_last(x), _channels_last(w), th, wsc,
+                             None, ot, od, **geo)
+        want = tops.conv_int8(x, w, th, wsc, None, ot, od, **geo)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert want.is_contiguous(memory_format=torch.channels_last)
+        assert got.dtype == od and torch.equal(got, want), od
+
+
+def test_dense_int8_is_the_same_on_strided_and_contiguous_rows():
+    r = onp.random.RandomState(22)
+    x = torch.from_numpy(r.randint(-127, 128, (40, 6)).astype("int8"))
+    w = torch.from_numpy(r.randint(-127, 128, (9, 40)).astype("int8"))
+    th, wsc = torch.tensor(0.9), torch.from_numpy(
+        r.uniform(1e-3, 2e-3, 9).astype("float32"))
+    for od in (torch.int32, torch.float32):
+        got = tops.dense_int8(x.t(), w, th, wsc, out_dtype=od)
+        want = tops.dense_int8(x.t().contiguous(), w, th, wsc, out_dtype=od)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(
+    k for k in ("valid", "full", "window_in_padding")))
+def test_max_pool_int_is_the_same_on_channels_last_and_contiguous(case):
+    """The 2-d cases of POOLS through npx.pooling (Q2's plain version) on
+    channels-last and on contiguous int8 and uint8 codes: equal, the
+    output channels-last either way."""
+    from incubator_mxnet_tpu_torch.ndarray.ndarray import NDArray as TND
+
+    kw = POOLS[case]
+    r = onp.random.RandomState(23)
+    for dt, lo in ((torch.int8, -128), (torch.uint8, 0)):
+        x = torch.from_numpy(r.randint(lo, lo + 256, (2, 32, 9, 10))).to(dt)
+        with tmx.cpu():
+            got = tmx.npx.pooling(TND(_channels_last(x)), pool_type="max",
+                                  **kw)._data
+            want = tmx.npx.pooling(TND(x), pool_type="max", **kw)._data
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert want.is_contiguous(memory_format=torch.channels_last)
+        assert got.dtype == dt and torch.equal(got, want)
+
+
+def _glue_case(r, shape, ties):
+    """Random int32 sums and thresholds; ``ties`` picks scales at which
+    the epilogue's products land on halves (round half to even)."""
+    acc = torch.from_numpy(r.randint(-3000, 3000, shape).astype("int32"))
+    res = torch.from_numpy(r.randint(-127, 128, shape).astype("int8"))
+    c = shape[1]
+    if ties:
+        # s_x = 1, y = acc / 2; t_add = 127: s_add = 1; t_in = 63.5:
+        # s_in = 1 / 2; 127 / 254 = 1 / 2
+        th, t_add, t_in, t_out = (torch.tensor(v) for v in
+                                  (127.0, 127.0, 63.5, 254.0))
+        wsc = torch.full((c,), 0.5)
+        bias = torch.from_numpy(r.randint(-4, 5, c).astype("float32"))
+    else:
+        th, t_add, t_in, t_out = (torch.tensor(onp.float32(v)) for v in
+                                  r.uniform(0.5, 4.0, 4))
+        wsc = torch.from_numpy(r.uniform(1e-3, 3e-3, c).astype("float32"))
+        bias = torch.from_numpy(r.normal(0, 0.3, c).astype("float32"))
+    return acc, res, th, wsc, bias, t_add, t_in, t_out
+
+
+@pytest.mark.parametrize("ties", [True, False], ids=["ties", "random"])
+@pytest.mark.parametrize("mode", ["same", "identity"])
+@pytest.mark.parametrize("out", ["int8", "float32", "bfloat16"])
+def test_fused_residual_epilogue_equals_the_blocks_glue(mode, out, ties):
+    """Q1's epilogue with the residual (its plain version, which the
+    kernel equals bit for bit on the card) against the block's torch-op
+    glue on the same code: the add, relu and requantize bit for bit."""
+    r = onp.random.RandomState(24 + ties)
+    acc, res, th, wsc, bias, t_add, t_in, t_out = _glue_case(
+        r, (3, 16, 5, 7), ties)
+    od = getattr(torch, out)
+    b_out = t_out if od == torch.int8 else None
+    a = tops.plain_epilogue(acc, th, wsc, bias, t_add, torch.int8)
+    if ties:
+        # the ties are there: halves at the code and at the requantize
+        y = acc.float() * 0.5 + bias.reshape(1, -1, 1, 1)
+        assert (y.frac().abs() == 0.5).any()
+        if mode == "same" and od == torch.int8:
+            assert ((a.int() + res.int()) % 2 == 1).any()
+    want = tq._residual_add(a, res, t_add, t_in if mode == "identity"
+                            else None, b_out, mode == "same", od)
+    got = tops.plain_epilogue(acc, th, wsc, bias, t_add, od, residual=res,
+                              residual_mode=mode, residual_t=t_in,
+                              block_out_t=b_out)
+    assert got.dtype == want.dtype == od and torch.equal(got, want)
+
+
+def _quantized_inputs(net):
+    """A forward pre-hook on every quantized layer and residual block of
+    ``net``: [(module, its input tensor, the residual it was called
+    with)], in forward order."""
+    seen, hooks = [], []
+    for m in _walk(net):
+        if isinstance(m, (tq.QuantizedConv2D, tq.QuantizedDense,
+                          tq.QuantizedResidualBlock)):
+            def pre(mod, args, kwargs):
+                t = getattr(args[0], "_data", args[0])
+                r = kwargs.get("residual")
+                seen.append((mod, t, getattr(r, "_data", r)))
+            hooks.append(m.register_forward_pre_hook(pre, with_kwargs=True))
+    return seen, hooks
+
+
+@pytest.mark.parametrize("name", ["basic", "bottleneck"])
+def test_int8_chain_runs_channels_last_through_fused_blocks(quantized_pairs,
+                                                            name):
+    """Every quantized conv's int8 input and weight are channels-last,
+    and every residual block's add runs in its last conv's epilogue (one
+    call with the residual a block, the residual channels-last)."""
+    q = quantized_pairs[name]
+    seen, hooks = _quantized_inputs(q.tnet)
+    try:
+        with tmx.cpu():
+            q.tnet(tmx.np.array(q.x))
+    finally:
+        for h in hooks:
+            h.remove()
+    int8_in = [(m, t) for m, t, _ in seen
+               if t.dtype == torch.int8 and t.dim() == 4]
+    assert len(int8_in) >= 2 * BLOCKS
+    for m, t in int8_in:
+        assert t.is_contiguous(memory_format=torch.channels_last), m
+    for m in _walk(q.tnet):
+        if isinstance(m, tq.QuantizedConv2D):
+            w = m.qweight.data()._data
+            assert w.is_contiguous(memory_format=torch.channels_last)
+    fused = [(m, r) for m, _, r in seen if r is not None]
+    assert len(fused) == BLOCKS
+    assert all(r.dtype == torch.int8 and
+               r.is_contiguous(memory_format=torch.channels_last)
+               for _, r in fused)
+
+
+def _blocks(net):
+    return [b for b in _walk(net) if isinstance(b, (
+        tq.QuantizedResidualBlock, jq.QuantizedResidualBlock))]
+
+
+@pytest.mark.parametrize("which", ["identity", "downsample"])
+def test_fused_residual_block_matches_the_references(quantized_pairs,
+                                                     which):
+    """One block through the fused path (basic net: stage 1's identity
+    block, stage 2's downsample block), on the input the port's net gives
+    it, against the reference's QuantizedResidualBlock on the same codes:
+    its int8 output within one step at ties (at most 1 code in 1000), as
+    the stem's; and against the same block through the torch-op glue
+    (the fused site refused) bit for bit."""
+    q = quantized_pairs["basic"]
+    tblocks, jblocks = _blocks(q.tnet), _blocks(q.jnet)
+    # _walk visits children last-first: order the blocks by stage
+    tblocks, jblocks = tblocks[::-1], jblocks[::-1]
+    k = 0 if which == "identity" else 1
+    tb, jb = tblocks[k], jblocks[k]
+    assert (tb.downsample is None) == (which == "identity")
+    assert tb._fused_site() is not None
+    seen, hooks = _quantized_inputs(q.tnet)
+    try:
+        with tmx.cpu():
+            q.tnet(tmx.np.array(q.x))
+            xin = next(t for m, t, _ in seen if m is tb)
+            calls = []
+            real = tops.conv_int8
+
+            def spy(*a, **kw):
+                calls.append(kw.get("residual") is not None)
+                return real(*a, **kw)
+
+            tops.conv_int8 = spy
+            try:
+                got = tb(xin)
+            finally:
+                tops.conv_int8 = real
+            site = tb._fused_site
+            tb._fused_site = lambda: None
+            try:
+                glue = tb(xin)
+            finally:
+                tb._fused_site = site
+    finally:
+        for h in hooks:
+            h.remove()
+    assert calls.count(True) == 1
+    assert got.dtype == glue.dtype and torch.equal(got, glue)
+    want = _reference(jb, xin.numpy())
+    got = got.numpy()
+    assert got.dtype == want.dtype
+    if got.dtype != onp.int8:
+        # the last block emits the net's floats: relu((a + r) * s_add),
+        # whole steps of s_add; compare them as codes
+        s_add = tb.qadd_threshold.data().asnumpy() / onp.float32(127.0)
+        got, want = onp.rint(got / s_add), onp.rint(want / s_add)
+    diff = onp.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (
+        diff.max(), (diff > 0).mean())
 
 
 # ---------------------------------------------------------------------------
